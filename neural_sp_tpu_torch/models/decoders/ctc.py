@@ -1,0 +1,98 @@
+"""CTC head, greedy collapse and the joint-decoding prefix scorer
+(counterpart of ``neural_sp_tpu/models/decoders/ctc.py``). The scorer is
+host numpy in the JAX package and is copied as it is."""
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+from ... import BLANK, EOS
+
+LOG0 = -1.0e10
+
+
+class CTC(nn.Module):
+    def __init__(self, vocab: int, enc_n_units: int, fc_list: str = ""):
+        super().__init__()
+        if fc_list:
+            raise NotImplementedError(
+                "CTC fc_list layers are not ported yet, see ROADMAP")
+        self.output = nn.Linear(enc_n_units, vocab)
+
+    def logits(self, eouts: torch.Tensor) -> torch.Tensor:
+        return self.output(eouts)
+
+    def log_probs(self, eouts: torch.Tensor) -> torch.Tensor:
+        return torch.log_softmax(self.logits(eouts).float(), dim=-1)
+
+
+def collapse_path(path, blank: int = BLANK) -> list[int]:
+    """CTC collapse: merge repeats then drop blanks (host-side)."""
+    out, prev = [], -1
+    for p in path:
+        p = int(p)
+        if p != prev and p != blank:
+            out.append(p)
+        prev = p
+    return out
+
+
+def ctc_greedy(best_paths: np.ndarray, elens: np.ndarray) -> list[list[int]]:
+    return [collapse_path(best_paths[b, : int(elens[b])])
+            for b in range(best_paths.shape[0])]
+
+
+class CTCPrefixScorer:
+    """Watanabe-style joint CTC/attention prefix scorer (reference
+    CTCPrefixScore ctc.py:756-871), vectorized over candidate tokens.
+
+    Usage per utterance: init with [T, V] log probs; ``initial_state()``;
+    ``__call__(hyp_ids, candidate_ids, state)`` -> (scores [n_cands], states).
+    """
+
+    def __init__(self, log_probs: np.ndarray, blank: int = BLANK,
+                 eos: int = EOS):
+        self.lp = np.asarray(log_probs, np.float32)  # [T, V]
+        self.blank = blank
+        self.eos = eos
+        self.T = self.lp.shape[0]
+
+    def initial_state(self):
+        # r[t, 0]: prob of prefix ending in nonblank, r[t, 1]: in blank
+        r = np.full((self.T, 2), LOG0, np.float32)
+        r[0, 1] = self.lp[0, self.blank]
+        for t in range(1, self.T):
+            r[t, 1] = r[t - 1, 1] + self.lp[t, self.blank]
+        return r
+
+    def __call__(self, hyp: list[int], cands: np.ndarray, r_prev: np.ndarray):
+        """Score extending ``hyp`` (without eos) by each candidate id.
+
+        Returns (scores [n_cands] — log p(prefix+c..) for joint scoring,
+        r_new [n_cands, T, 2]).
+        """
+        n = len(cands)
+        T = self.T
+        last = hyp[-1] if hyp else -1
+        r = np.full((n, T, 2), LOG0, np.float32)
+        # psi: accumulated prefix score per candidate
+        r_sum_prev = np.logaddexp(r_prev[:, 0], r_prev[:, 1])  # [T]
+        lp_c = self.lp[:, cands]                                # [T, n]
+        start = max(len(hyp), 1)
+        psi = np.full(n, LOG0, np.float32)
+        if len(hyp) == 0:
+            r[:, 0, 0] = lp_c[0]
+            psi = r[:, 0, 0].copy()
+        phi = np.where(np.asarray(cands)[None, :] == last,
+                       r_prev[:, 1:2], r_sum_prev[:, None])     # [T, n]
+        for t in range(start, T):
+            r[:, t, 0] = np.logaddexp(r[:, t - 1, 0], phi[t - 1]) + lp_c[t]
+            r[:, t, 1] = np.logaddexp(r[:, t - 1, 0], r[:, t - 1, 1]) + \
+                self.lp[t, self.blank]
+            psi = np.logaddexp(psi, phi[t - 1] + lp_c[t])
+        # eos candidate scores the full prefix probability
+        is_eos = np.asarray(cands) == self.eos
+        if is_eos.any():
+            psi[is_eos] = np.logaddexp(r_prev[-1, 0], r_prev[-1, 1])
+        return psi, r

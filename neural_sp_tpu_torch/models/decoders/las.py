@@ -1,0 +1,149 @@
+"""LAS (attention-based) RNN decoder, decode path (counterpart of
+``neural_sp_tpu/models/decoders/las.py``).
+
+One step: embed -> LSTM layer 0 on [emb, ctx_prev] -> location attention
+with the layer's output as the query -> readout tanh(w_gen([h, ctx])) ->
+vocab projection. Everything from the gate pre-activations to the new
+context is kernel K2 (``ops.kernels.las_step``); the embedding half of the
+gates and the readout are plain matmuls, as the JAX module hoists them too.
+Inference only: teacher-forced training, scheduled sampling, zoneout,
+projections, deeper stacks, LM fusion and the other attention types raise.
+
+Carry: ``(((c, h),), aw_prev [B, T], ctx_prev [B, enc_n_units])`` — the
+JAX carry without its logits and LM slots.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ... import EOS, PAD
+from ...ops.kernels import las_step
+from ..modules.attention import AttentionMechanism
+
+
+class LSTMCell(nn.Module):
+    """flax ``OptimizedLSTMCell`` parameters in one block per side, gate
+    order (i, f, g, o): ``w_ih`` [in, 4H] (the input denses have no bias),
+    ``w_hh`` [H, 4H] and ``bias`` [4H] (the hidden denses')."""
+
+    def __init__(self, in_dim: int, n_units: int):
+        super().__init__()
+        self.w_ih = nn.Parameter(torch.empty(in_dim, 4 * n_units))
+        self.w_hh = nn.Parameter(torch.empty(n_units, 4 * n_units))
+        self.bias = nn.Parameter(torch.empty(4 * n_units))
+
+
+class LASStep(nn.Module):
+    """One decode step: embed -> LSTM -> attend -> readout."""
+
+    def __init__(self, vocab: int, emb_dim: int, n_units: int, n_projs: int,
+                 n_layers: int, enc_n_units: int, attn_type: str = "location",
+                 attn_dim: int = 512, attn_n_heads: int = 1,
+                 attn_conv_n_channels: int = 10,
+                 attn_conv_kernel_size: int = 201,
+                 attn_sharpening_factor: float = 1.0,
+                 attn_sigmoid_smoothing: bool = False,
+                 bottleneck_dim: int = 1024, zoneout: float = 0.0,
+                 lm_fusion: str = ""):
+        super().__init__()
+        if n_layers != 1 or n_projs > 0 or zoneout > 0 or lm_fusion or \
+                attn_n_heads != 1:
+            raise NotImplementedError(
+                "LAS decoder with n_layers != 1, projections, zoneout, LM "
+                "fusion or multi-head attention is not ported yet, see "
+                "ROADMAP")
+        self.emb_dim = emb_dim
+        self.embed = nn.Embedding(vocab, emb_dim)
+        self.cells = nn.ModuleList([LSTMCell(emb_dim + enc_n_units, n_units)])
+        self.attn = AttentionMechanism(
+            kdim=enc_n_units, qdim=n_units, adim=attn_dim, atype=attn_type,
+            conv_out_channels=attn_conv_n_channels,
+            conv_kernel_size=attn_conv_kernel_size,
+            sharpening_factor=attn_sharpening_factor,
+            sigmoid_smoothing=attn_sigmoid_smoothing)
+        self.w_gen = nn.Linear(n_units + enc_n_units, bottleneck_dim)
+        self.output = nn.Linear(bottleneck_dim, vocab)
+
+    def forward(self, carry, y_t, key_cache, values, klens):
+        """carry as the module docstring; y_t [B] token ids; key_cache
+        [B, T, attn_dim]; values [B, T, enc_n_units]; klens [B] int32.
+        Returns (new_carry, logits [B, vocab], aw [B, T])."""
+        ((c, h),), aw_prev, ctx_prev = carry
+        cell = self.cells[0]
+        eg = self.embed(y_t) @ cell.w_ih[:self.emb_dim]
+        h, c, aw, ctx = las_step(
+            eg, ctx_prev, h, c, aw_prev, cell.w_ih[self.emb_dim:],
+            cell.w_hh, cell.bias, *self.attn.kernel_weights(), key_cache,
+            values, klens)
+        # readout order [dout, ctx] (JAX LASStep._generate)
+        logits = self.output(torch.tanh(self.w_gen(torch.cat([h, ctx], -1))))
+        return (((c, h),), aw, ctx), logits, aw
+
+
+class RNNDecoder(nn.Module):
+    def __init__(self, vocab: int, enc_n_units: int, n_units: int = 1024,
+                 n_projs: int = 0, n_layers: int = 1, emb_dim: int = 512,
+                 bottleneck_dim: int = 1024, attn_type: str = "location",
+                 attn_dim: int = 512, attn_n_heads: int = 1,
+                 attn_conv_n_channels: int = 10,
+                 attn_conv_kernel_size: int = 201,
+                 attn_sharpening_factor: float = 1.0,
+                 attn_sigmoid_smoothing: bool = False, zoneout: float = 0.0,
+                 backward: bool = False, lm_fusion: str = ""):
+        super().__init__()
+        if backward:
+            raise NotImplementedError(
+                "the backward decoder is not ported yet, see ROADMAP")
+        self.vocab, self.enc_n_units, self.n_units = vocab, enc_n_units, n_units
+        self.attn_type = attn_type
+        self.step = LASStep(
+            vocab, emb_dim, n_units, n_projs, n_layers, enc_n_units,
+            attn_type, attn_dim, attn_n_heads, attn_conv_n_channels,
+            attn_conv_kernel_size, attn_sharpening_factor,
+            attn_sigmoid_smoothing, bottleneck_dim, zoneout, lm_fusion)
+        # attention keys projected once per utterance (with bias, as the
+        # reference's location-attention w_key)
+        self.key_proj = nn.Linear(enc_n_units, attn_dim)
+
+    def precompute_keys(self, eouts: torch.Tensor) -> torch.Tensor:
+        return self.key_proj(eouts)
+
+    def init_carry(self, bs: int, tmax: int, device,
+                   dtype: torch.dtype = torch.float32):
+        def z(*shape):
+            return torch.zeros(shape, dtype=dtype, device=device)
+        return (((z(bs, self.n_units), z(bs, self.n_units)),),
+                z(bs, tmax), z(bs, self.enc_n_units))
+
+    def decode_step(self, carry, y_t, key_cache, eouts, klens):
+        """Single decode step. klens [B] int32: valid frames of each row
+        (the JAX ``mask`` is ``make_pad_mask(klens, T)``). Returns
+        (carry, logits [B, vocab], aw [B, T])."""
+        return self.step(carry, y_t, key_cache, eouts, klens)
+
+    def greedy_scan(self, eouts, elens, max_len: int):
+        """Greedy decode fed by its own argmax, ``max_len`` steps at most.
+        Returns (tokens [B, max_len] with PAD after eos, lens [B]), as the
+        JAX scan; the loop stops once every row has emitted eos, since the
+        JAX scan only appends PAD after that."""
+        bs, tmax, _ = eouts.shape
+        key_cache = self.precompute_keys(eouts)
+        klens = elens.to(device=eouts.device, dtype=torch.int32)
+        carry = self.init_carry(bs, tmax, eouts.device, eouts.dtype)
+        y = torch.full((bs,), EOS, dtype=torch.long, device=eouts.device)
+        done = torch.zeros(bs, dtype=torch.bool, device=eouts.device)
+        toks = torch.full((bs, max_len), PAD, dtype=torch.long,
+                          device=eouts.device)
+        for i in range(max_len):
+            carry, logits, _ = self.decode_step(carry, y, key_cache, eouts,
+                                                klens)
+            y = logits.argmax(-1).masked_fill(done, PAD)
+            done = done | (y == EOS)
+            toks[:, i] = y
+            y = y.masked_fill(done, EOS)
+            if bool(done.all()):
+                break
+        ended = torch.cat([toks == EOS, torch.ones_like(toks[:, :1],
+                                                        dtype=torch.bool)], 1)
+        return toks, ended.int().argmax(1)

@@ -1,0 +1,75 @@
+"""build_encoder (counterpart of ``neural_sp_tpu/models/encoders/build.py``),
+conformer branch. Takes any object with attribute access and the
+reference's flag names."""
+from __future__ import annotations
+
+from .transformer import XformerEncoder
+
+
+def _get(args, name, default=None):
+    return getattr(args, name, default)
+
+
+def _conv_norm(args) -> str:
+    norm = _get(args, "conv_normalization", "")
+    if not norm:
+        if _get(args, "conv_batch_norm", False):
+            norm = "batch_norm"
+        elif _get(args, "conv_layer_norm", False):
+            norm = "layer_norm"
+    return norm
+
+
+def _subsample_tuple(args) -> tuple:
+    s = _get(args, "subsample", "")
+    if not s:
+        return ()
+    if isinstance(s, (list, tuple)):
+        return tuple(int(x) for x in s)
+    return tuple(int(x) for x in str(s).split("_"))
+
+
+def build_encoder(args) -> XformerEncoder:
+    enc_type = args.enc_type
+    conv = enc_type.startswith("conv_")
+    core = enc_type[5:] if conv else enc_type
+    if core != "conformer":
+        raise NotImplementedError(
+            f"enc_type {enc_type!r} is not ported yet (only the conformer "
+            f"branch), see ROADMAP")
+    if _get(args, "unidirectional", False) or \
+            _get(args, "lc_chunk_size_current", -1) > 0:
+        raise NotImplementedError(
+            "unidirectional / streaming encoders are not ported yet, see "
+            "ROADMAP")
+    if _get(args, "enc_n_layers_sub1", 0) or _get(args, "enc_n_layers_sub2", 0):
+        raise NotImplementedError(
+            "hierarchical sub1/sub2 encoder taps are not ported yet, see "
+            "ROADMAP")
+    return XformerEncoder(
+        input_dim=args.input_dim,
+        btype=core,
+        d_model=_get(args, "transformer_enc_d_model",
+                     _get(args, "transformer_d_model", 256)),
+        d_ff=_get(args, "transformer_enc_d_ff",
+                  _get(args, "transformer_d_ff", 2048)),
+        n_heads=_get(args, "transformer_enc_n_heads",
+                     _get(args, "transformer_n_heads", 4)),
+        n_layers=_get(args, "enc_n_layers", 12),
+        pe_type=_get(args, "transformer_enc_pe_type", "add"),
+        clamp_len=_get(args, "transformer_enc_clamp_len", -1),
+        # conformer blocks always use swish FFNs (as JAX's build_encoder)
+        ffn_activation="swish",
+        ffn_bottleneck_dim=_get(args, "transformer_ffn_bottleneck_dim", 0),
+        last_proj_dim=_get(args, "enc_last_proj_dim", 0),
+        subsample=_subsample_tuple(args),
+        subsample_type=_get(args, "subsample_type", "drop"),
+        conv_kernel_size=_get(args, "conformer_kernel_size", 15),
+        conv_normalization=_get(args, "conformer_normalization",
+                                "layer_norm"),
+        conv_channels=_get(args, "conv_channels", "") if conv else "",
+        conv_kernel_sizes=_get(args, "conv_kernel_sizes", ""),
+        conv_strides=_get(args, "conv_strides", ""),
+        conv_poolings=_get(args, "conv_poolings", ""),
+        conv_frontend_normalization=_conv_norm(args),
+    )

@@ -1,0 +1,93 @@
+"""Build the port's CUDA kernels into one shared library and load it.
+
+Every ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` (the H100) into
+``build/libnsp_kernels_<hash>.so`` beside this file, on first use in a
+process; the hash covers the sources and the flags, so an edited source is
+rebuilt and an unchanged one is loaded as it is. The library has a plain C
+interface (no PyTorch headers, so a build takes seconds) and is bound with
+``ctypes``: pointers are ``tensor.data_ptr()``, the stream is
+``torch.cuda.current_stream().cuda_stream``, both passed as ``c_void_p``.
+
+Nothing here runs at import time.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = Path(home) / "bin" / "nvcc"
+    if not path.exists():
+        raise RuntimeError(
+            "nvcc not found (PATH, $CUDA_HOME/bin): the CUDA kernels need "
+            "the CUDA toolkit")
+    return str(path)
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _digest(sources: list[Path]) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+@functools.cache
+def build_library() -> tuple[Path, str]:
+    """Compile the kernels if needed. Returns (path of the .so, nvcc's
+    output: ``-Xptxas -v`` register and shared-memory use per kernel, or
+    "" when the library was already built)."""
+    sources = _sources()
+    lib = BUILD_DIR / f"libnsp_kernels_{_digest(sources)}.so"
+    if lib.exists():
+        return lib, ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+            f"{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, lib)   # atomic: a reader never sees half a library
+    return lib, proc.stdout + proc.stderr
+
+
+@functools.cache
+def load_library() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library, with every entry
+    point's argument and result types declared."""
+    path, _ = build_library()
+    lib = ctypes.CDLL(str(path))
+    lib.nsp_rel_attention_f32.argtypes = [_P] * 6 + [_I] * 5 + [_P]
+    lib.nsp_rel_attention_f32.restype = _I
+    lib.nsp_las_step_f32.argtypes = [_P] * 22 + [_I] * 7 + [_P]
+    lib.nsp_las_step_f32.restype = _I
+    lib.nsp_las_step_smem_bytes.argtypes = [_I] * 5
+    lib.nsp_las_step_smem_bytes.restype = ctypes.c_longlong
+    return lib

@@ -1,0 +1,106 @@
+"""Carry the JAX package's weights into the port.
+
+``convert_params`` takes a Flax param tree as nested dicts of numpy arrays,
+e.g. ``jax.tree.map(np.asarray, variables["params"])``, and returns the
+port's ``state_dict``. Load it with ``load_state_dict(..., strict=True)``:
+every converted leaf then has to land on a port tensor and every port
+tensor has to be filled, so no weight of the slice is dropped or left at
+its initial value. Leaves of modules the port does not have on purpose are
+listed in ``IGNORED`` and skipped.
+
+Layout rules (flax -> torch):
+  * Dense ``kernel`` [in, out] -> Linear ``weight`` [out, in];
+  * LayerNorm ``scale`` -> ``weight``; Embed ``embedding`` -> ``weight``;
+  * Conv ``kernel`` HWIO -> OIHW (2-D) and [K, I/groups, O] -> [O, I/groups,
+    K] (1-D, including depthwise and the attention's location conv);
+  * flax ``OptimizedLSTMCell`` ``i{g}`` / ``h{g}`` denses -> one ``w_ih``
+    [in, 4H], ``w_hh`` [H, 4H] and ``bias`` [4H], gates in (i, f, g, o)
+    order (the hidden side owns the bias);
+  * list members ``blocks_3`` / ``block0`` / ``cells_0`` -> ``blocks.3`` /
+    ``blocks.0`` / ``cells.0``.
+"""
+from __future__ import annotations
+
+import re
+
+import numpy as np
+import torch
+
+# Leaves with no port tensor by design: the LAS attention's own key
+# projection is skipped whenever keys come precomputed (always at decode,
+# RNNDecoder.key_proj holds them), so the port has no w_key there.
+IGNORED = (re.compile(r"^dec_fwd/step/attn/w_key/"),)
+
+_LSTM_GATES = "ifgo"
+
+
+def _flatten(tree: dict, prefix: str = "") -> dict[str, np.ndarray]:
+    out = {}
+    for k, v in tree.items():
+        path = f"{prefix}/{k}" if prefix else str(k)
+        if isinstance(v, dict):
+            out.update(_flatten(v, path))
+        else:
+            out[path] = np.asarray(v)
+    return out
+
+
+def _torch_name(path: str) -> str:
+    parts = []
+    for p in path.split("/"):
+        m = re.fullmatch(r"(blocks|cells)_(\d+)", p) or \
+            re.fullmatch(r"(block)(\d+)", p)
+        if m:
+            parts += ["blocks" if m.group(1) == "block" else m.group(1),
+                      m.group(2)]
+        else:
+            parts.append(p)
+    return ".".join(parts)
+
+
+def _leaf(path: str, x: np.ndarray) -> tuple[str, np.ndarray]:
+    parent, name = path.rsplit("/", 1)
+    tname = _torch_name(parent)
+    if name == "kernel":
+        if x.ndim == 2:
+            return f"{tname}.weight", x.T
+        if x.ndim == 3:
+            return f"{tname}.weight", x.transpose(2, 1, 0)
+        if x.ndim == 4:
+            return f"{tname}.weight", x.transpose(3, 2, 0, 1)
+        raise ValueError(f"{path}: kernel of rank {x.ndim}")
+    if name in ("scale", "embedding"):
+        return f"{tname}.weight", x
+    if name == "bias":
+        return f"{tname}.bias", x
+    raise ValueError(f"{path}: unknown leaf name {name!r}")
+
+
+def _lstm(cell_path: str, leaves: dict[str, np.ndarray]) -> dict:
+    tname = _torch_name(cell_path)
+    get = leaves.pop
+    w_ih = np.concatenate(
+        [get(f"{cell_path}/i{g}/kernel") for g in _LSTM_GATES], axis=-1)
+    w_hh = np.concatenate(
+        [get(f"{cell_path}/h{g}/kernel") for g in _LSTM_GATES], axis=-1)
+    bias = np.concatenate(
+        [get(f"{cell_path}/h{g}/bias") for g in _LSTM_GATES], axis=-1)
+    return {f"{tname}.w_ih": w_ih, f"{tname}.w_hh": w_hh,
+            f"{tname}.bias": bias}
+
+
+def convert_params(flax_params: dict) -> dict[str, torch.Tensor]:
+    """Flax param tree (nested dicts of arrays) -> the port's state_dict
+    (float32 CPU tensors)."""
+    leaves = {p: x for p, x in _flatten(flax_params).items()
+              if not any(r.search(p) for r in IGNORED)}
+    out: dict[str, np.ndarray] = {}
+    cells = sorted({m.group(0) for p in leaves
+                    for m in [re.match(r"^.*/cells_\d+", p)] if m})
+    for cell in cells:
+        out.update(_lstm(cell, leaves))
+    for path, x in leaves.items():
+        name, arr = _leaf(path, x)
+        out[name] = arr
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32, order="C"))
+            for k, v in out.items()}
