@@ -23,7 +23,25 @@ Phases (any failure raises and the script exits non-zero):
      busy time against wall time, the kernels taking the most time);
   4. run the encoder with the twins in place of the kernels and compare
      the encoder outputs, then replay the best beam hypothesis through the
-     twin decode step and compare the logits at every step.
+     twin decode step and compare the logits at every step;
+  2b. (after 4, so the serving phases keep their order) hold the training
+     kernels against their plain versions at the training path's shapes:
+     K1b rel_attention_bwd (B=32, H=8, dk=64, R=11, T in 750/375/188,
+     ragged lengths), K3 las_scan and K3b las_scan_bwd (B=32, U+1=101,
+     T=188, H=1024, D=A=512, C=10, K=201, dropout keep-masks), K4 ctc_loss
+     forward and backward (B=32, T=188, U=100, V=10000, ragged lengths, a
+     repeated label); errors are normalised by the reference's largest
+     magnitude;
+  5. train the flagship (same model, ``train()`` mode: SpecAugment and
+     dropout on, f32, TF32 off) with noam Adam, clip 5 and 4-step
+     accumulation on B=32 utterances of 1500 frames x 80 with U=100 labels:
+     one warm-up optimizer step, then 2 timed ones (counts zeroed just
+     before all 12 microsteps and read just after; K1, K1b, K3, K3b and K4
+     must have run), and profile one microstep;
+  6. one microstep's loss and every gradient in ``eval()`` mode with the
+     kernels against the plain versions patched in, then 5 Adam steps
+     (lr 1e-4) on a fixed batch of 8 utterances in ``train()`` mode, whose
+     loss must fall.
 
 Prints the card's ``name, power.limit`` (nvidia-smi), then one JSON line of
 per-kernel results, and as its last line
@@ -52,6 +70,21 @@ KERNEL_ATOL = 1e-4
 # Whole encoder (12 layers) and a replayed decoder chain: the per-kernel
 # rounding differences above, carried through every layer / step.
 PATH_ATOL = 2e-3
+# Training kernels vs plain versions, max |err| / max |reference|: sums in
+# other orders (K1b over T keys, K4 over T frames); K3 / K3b carry them
+# through a 101-step recurrence.
+TRAIN_KERNEL_TOL = {"rel_attention_bwd": 1e-4, "ctc_loss": 1e-4,
+                    "las_scan": 1e-3, "las_scan_bwd": 1e-3}
+# Train-step parity (phase 6), kernels vs plain versions through the whole
+# model: loss to 1e-4 relative; each gradient leaf to 2e-3 of its own
+# largest magnitude. The self-attention key biases are the exception: the
+# softmax's shift invariance makes their gradient zero in exact arithmetic,
+# so both sides hold rounding only, and they are held to 1e-5 of the
+# largest gradient of all leaves instead.
+LOSS_RTOL = 1e-4
+GRAD_RTOL, GRAD_FLOOR = 2e-3, 1e-5
+ZERO_GRAD_LEAF = ".mha.w_key.bias"
+TRAIN_B, TRAIN_FRAMES, TRAIN_U, ACCUM = 32, 1500, 100, 4
 
 
 def log(msg: str) -> None:
@@ -231,7 +264,7 @@ def profiled(torch, what: str, fn) -> dict:
         if evt.device_type == torch.autograd.DeviceType.CUDA:
             start, end = evt.time_range.start, evt.time_range.end
             spans.append((start, end))
-            by_name[evt.name[:60]] += (end - start) / 1e3
+            by_name[evt.name[:110]] += (end - start) / 1e3
     busy_us, last = 0.0, float("-inf")
     for start, end in sorted(spans):
         if end > last:
@@ -323,6 +356,260 @@ def phase_twins(torch, model, xs, xlens, best_hyp):
     return enc_err, step_err
 
 
+def rel_err(got, want) -> float:
+    """max |got - want| / max |want| (float)."""
+    return float((got - want).abs().max()) / max(float(want.abs().max()),
+                                                 1e-30)
+
+
+def phase_train_kernels(torch, rng):
+    """2b: the training kernels against their plain versions, at the
+    training path's shapes, with CUDA-event times of each."""
+    import numpy as np
+    from neural_sp_tpu_torch.ops.kernels.ctc_loss import (
+        ctc_forward_alphas, ctc_loss_bwd, ctc_loss_bwd_ref, ctc_loss_fwd)
+    from neural_sp_tpu_torch.ops.kernels.las_scan import (
+        las_scan, las_scan_bwd, las_scan_bwd_ref, las_scan_ref)
+    from neural_sp_tpu_torch.ops.kernels.rel_attention import (
+        rel_attention_bwd, rel_attention_bwd_ref, rel_attention_fwd)
+    dev = torch.device("cuda")
+
+    def t(*shape, scale=1.0):
+        return torch.from_numpy(
+            (rng.standard_normal(shape) * scale).astype("float32")).to(dev)
+
+    res = {}
+
+    def record(name, err, ms, ref_ms, what):
+        log(f"[2b] {name} {what}: error {err:.3e} (of the reference's max)"
+            f"  kernel {ms:.4f} ms  plain {ref_ms:.4f} ms")
+        tol = TRAIN_KERNEL_TOL[name]
+        expect(err <= tol, f"{name} {what}: error {err} > {tol}")
+        r = res.setdefault(name, {"max_abs_err": 0.0})
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        if "ms" not in r:
+            r.update(ms=ms, plain_ms=ref_ms)
+
+    b, h, dk, r = TRAIN_B, 8, 64, 11
+    for tt in (750, 375, 188):
+        q, k, v = t(b, h, tt, dk, scale=dk ** -0.5), t(b, h, tt, dk), \
+            t(b, h, tt, dk)
+        p = t(b, h, tt, r, scale=dk ** -0.5)
+        klens = torch.from_numpy(np.maximum(
+            tt - (np.arange(b) * tt) // (2 * b), 1).astype("int32")).to(dev)
+        o, m, l = rel_attention_fwd(q, k, v, p, klens)
+        do = t(b, h, tt, dk)
+        args = (q, k, v, p, klens, o, m, l, do)
+        got, want = rel_attention_bwd(*args), rel_attention_bwd_ref(*args)
+        err = max(rel_err(x, y) for x, y in zip(got, want))
+        record("rel_attention_bwd", err,
+               cuda_ms(lambda: rel_attention_bwd(*args)),
+               cuda_ms(lambda: rel_attention_bwd_ref(*args)),
+               f"B={b} H={h} T={tt} dk={dk} R={r}")
+
+    u, tt, hd, d, a, c, kw = 101, 188, 1024, 512, 512, 10, 201
+    rate = 0.1
+    keep = (torch.from_numpy((rng.random((u, b, hd)) >= rate).astype(
+        "float32")) / (1 - rate)).to(dev)
+    args = (t(u, b, 4 * hd, scale=0.5), t(d, 4 * hd, scale=(d + hd) ** -0.5),
+            t(hd, 4 * hd, scale=(d + hd) ** -0.5), t(4 * hd, scale=0.1),
+            t(a, hd, scale=hd ** -0.5), t(c, kw, scale=kw ** -0.5),
+            t(a, c, scale=c ** -0.5), t(a, scale=a ** -0.5), t(b, tt, a),
+            t(b, tt, d), torch.tensor([tt - 3 * i for i in range(b)],
+                                      dtype=torch.int32, device=dev), keep)
+    outs, refs = las_scan(*args), las_scan_ref(*args)
+    what = f"B={b} U={u} T={tt} H={hd} D={d} A={a} C={c} K={kw}"
+    record("las_scan", max(rel_err(x, y) for x, y in zip(outs, refs)),
+           cuda_ms(lambda: las_scan(*args), iters=5, warmup=1),
+           cuda_ms(lambda: las_scan_ref(*args), iters=5, warmup=1), what)
+    w_ctx, w_h, _, w_q, conv_w, w_f, v, kc, values, kl, keep = args[1:]
+    bargs = (w_ctx, w_h, w_q, conv_w, w_f, v, kc, values, kl, keep, *refs,
+             t(u, b, hd), t(u, b, d))
+    got, want = las_scan_bwd(*bargs), las_scan_bwd_ref(*bargs)
+    record("las_scan_bwd", max(rel_err(x, y) for x, y in zip(got, want)),
+           cuda_ms(lambda: las_scan_bwd(*bargs), iters=5, warmup=1),
+           cuda_ms(lambda: las_scan_bwd_ref(*bargs), iters=5, warmup=1),
+           what)
+
+    tt, uu, vv = 188, TRAIN_U, 10000
+    lp = torch.log_softmax(t(b, tt, vv, scale=2.0), -1)
+    labels = rng.integers(4, vv, (b, uu))
+    labels[:, 1] = labels[:, 0]                       # a repeated label
+    cargs = (lp, torch.from_numpy(labels.astype("int32")).to(dev),
+             torch.tensor([tt - 2 * i for i in range(b)], dtype=torch.int32,
+                          device=dev),
+             torch.tensor([uu - (i % 9) for i in range(b)],
+                          dtype=torch.int32, device=dev))
+    (nll, alphas), (nll_r, alphas_r) = ctc_loss_fwd(*cargs), \
+        ctc_forward_alphas(*cargs)
+    g = torch.linspace(0.5, 1.5, b, device=dev)
+    grad = ctc_loss_bwd(*cargs, nll_r, alphas_r, g)
+    grad_r = ctc_loss_bwd_ref(*cargs, nll_r, alphas_r, g)
+    err = max(rel_err(nll, nll_r), rel_err(alphas, alphas_r),
+              rel_err(grad, grad_r))
+    fwd_ms = cuda_ms(lambda: ctc_loss_fwd(*cargs))
+    fwd_ref = cuda_ms(lambda: ctc_forward_alphas(*cargs), iters=5, warmup=1)
+    bwd_ms = cuda_ms(lambda: ctc_loss_bwd(*cargs, nll_r, alphas_r, g))
+    bwd_ref = cuda_ms(lambda: ctc_loss_bwd_ref(*cargs, nll_r, alphas_r, g),
+                      iters=5, warmup=1)
+    log(f"[2b] ctc_loss forward kernel {fwd_ms:.4f} ms plain {fwd_ref:.4f} "
+        f"ms; backward kernel {bwd_ms:.4f} ms plain {bwd_ref:.4f} ms")
+    record("ctc_loss", err, fwd_ms + bwd_ms, fwd_ref + bwd_ref,
+           f"forward + backward B={b} T={tt} U={uu} V={vv}")
+    res["ctc_loss"].update(fwd_ms=fwd_ms, fwd_plain_ms=fwd_ref,
+                           bwd_ms=bwd_ms, bwd_plain_ms=bwd_ref)
+    return res
+
+
+def train_batch(torch, rng, bs=TRAIN_B):
+    """bench.py's per-utterance shape: 1500 frames x 80, U=100 labels in
+    [4, vocab), every utterance full length."""
+    dev = torch.device("cuda")
+    xs = rng.standard_normal((bs, TRAIN_FRAMES, 80)).astype("float32")
+    ys = rng.integers(4, 10000, (bs, TRAIN_U)).astype("int32")
+    return (torch.from_numpy(xs).to(dev),
+            torch.full((bs,), TRAIN_FRAMES, dtype=torch.int32, device=dev),
+            torch.from_numpy(ys).to(dev),
+            torch.full((bs,), TRAIN_U, dtype=torch.int32, device=dev))
+
+
+def phase_train(torch, model, batch):
+    """5: optimizer steps of the full flagship, timed, with the kernels'
+    launches counted over the run."""
+    import numpy as np
+    from neural_sp_tpu_torch.ops.kernels import launches, reset_launches
+    from neural_sp_tpu_torch.parallel.mesh import make_train_step
+    from neural_sp_tpu_torch.trainers.lr_scheduler import noam_schedule
+    from neural_sp_tpu_torch.trainers.optimizer import build_optimizer
+    model.train()
+    step = make_train_step(model, build_optimizer(
+        "noam", schedule=noam_schedule(512, 25000, factor=5.0),
+        clip_grad_norm=5.0, accum_grad_n_steps=ACCUM))
+    gen = torch.Generator().manual_seed(SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    walls, metrics = [], []
+    for n in range(3):                       # step 0 warms up, untimed
+        t0 = time.perf_counter()
+        for _ in range(ACCUM):
+            metrics.append(step(*batch, gen=gen))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    counts = launches()
+    peak = torch.cuda.max_memory_allocated()
+    expect(all(m["emitted"] == ((i + 1) % ACCUM == 0)
+               for i, m in enumerate(metrics)), "accumulation cycle")
+    losses = [float(m["loss"]) for m in metrics]
+    gnorms = [float(m["grad_norm"]) for m in metrics]
+    expect(all(np.isfinite(losses)) and all(np.isfinite(gnorms)),
+           f"non-finite loss or grad norm: {losses} {gnorms}")
+    expect(all(k in metrics[-1] for k in ("loss_ctc", "loss_att", "acc_att")),
+           f"missing observations: {sorted(metrics[-1])}")
+    log(f"[5] launches over 3 optimizer steps (12 microsteps): {counts}")
+    for name in ("rel_attention", "rel_attention_bwd", "las_scan",
+                 "las_scan_bwd", "ctc_loss", "ctc_loss_bwd"):
+        expect(counts[name] > 0, f"{name} never launched in training")
+    step_s = sum(walls[1:]) / len(walls[1:])
+    frames = float(batch[1].sum()) * ACCUM
+    out = {"step_s": walls, "ms_per_step": step_s * 1e3,
+           "frames_per_s": frames / step_s,
+           "utts_per_s": TRAIN_B * ACCUM / step_s, "peak_mem_bytes": peak,
+           "losses": losses, "grad_norms": gnorms, "launches": counts,
+           "last_obs": {k: float(v) for k, v in metrics[-1].items()}}
+    log(f"[5] optimizer step (4 x B={TRAIN_B} x {TRAIN_FRAMES} frames): "
+        f"{step_s * 1e3:.1f} ms (warm-up step {walls[0] * 1e3:.1f} ms); "
+        f"{out['frames_per_s']:.0f} frames/s, {out['utts_per_s']:.2f} "
+        f"utts/s; peak mem {peak} B")
+    log(f"[5] losses {['%.3f' % x for x in losses]}")
+    log(f"[5] grad norms {['%.3f' % x for x in gnorms]}")
+    out["profile"] = profiled(torch, "train microstep",
+                              lambda: step(*batch, gen=gen))
+    return out, counts
+
+
+class PlainLASScan:
+    """``LASScan`` with the plain forward, differentiated by autograd."""
+
+    @staticmethod
+    def apply(eg, *args):
+        from neural_sp_tpu_torch.ops.kernels.las_scan import las_scan_ref
+        *args, keep = args
+        h, _, _, _, aw, ctx = las_scan_ref(eg.transpose(0, 1), *args,
+                                           keep.transpose(0, 1))
+        return h.transpose(0, 1), ctx.transpose(0, 1), aw.transpose(0, 1)
+
+
+def phase_train_parity(torch, model, batch):
+    """6: one eval() microstep's loss and gradients, kernels vs plain
+    versions; then 5 Adam steps on a fixed batch of 8, train() mode."""
+    from neural_sp_tpu_torch.models.decoders import las
+    from neural_sp_tpu_torch.models.modules import \
+        relative_multihead_attention as rma
+    from neural_sp_tpu_torch.ops import ctc
+    from neural_sp_tpu_torch.ops.kernels import rel_attention_ref
+    from neural_sp_tpu_torch.ops.kernels.ctc_loss import ctc_forward_alphas
+    from neural_sp_tpu_torch.parallel.mesh import make_train_step
+    from neural_sp_tpu_torch.trainers.optimizer import build_optimizer
+
+    def loss_and_grads():
+        model.zero_grad(set_to_none=True)
+        loss, _ = model(*batch)
+        loss.backward()
+        grads = {n: p.grad.detach().clone()
+                 for n, p in model.named_parameters()}
+        return float(loss.detach()), grads
+
+    model.eval()
+    loss, grads = loss_and_grads()
+    with mock.patch.object(rma, "rel_attention", rel_attention_ref), \
+            mock.patch.object(las, "LASScan", PlainLASScan), \
+            mock.patch.object(ctc, "ctc_nll",
+                              lambda *a: ctc_forward_alphas(*a)[0]):
+        loss_ref, grads_ref = loss_and_grads()
+    model.zero_grad(set_to_none=True)
+    loss_err = abs(loss - loss_ref) / abs(loss_ref)
+    g_max = max(float(g.abs().max()) for g in grads_ref.values())
+    # per leaf: (share of its tolerance used, max |plain grad| / g_max,
+    # max |kernel - plain| / g_max)
+    leaves = {}
+    for name, g in grads.items():
+        ref = grads_ref[name]
+        scale, err = float(ref.abs().max()), float((g - ref).abs().max())
+        tol = GRAD_FLOOR * g_max if name.endswith(ZERO_GRAD_LEAF) else \
+            GRAD_RTOL * scale
+        leaves[name] = (err / tol if err else 0.0, scale / g_max,
+                        err / g_max)
+    ranked = sorted(leaves.items(), key=lambda kv: -kv[1][0])
+    zero = [kv for kv in ranked if kv[0].endswith(ZERO_GRAD_LEAF)]
+    log(f"[6] eval loss kernels {loss:.6f} plain {loss_ref:.6f} (rel "
+        f"{loss_err:.2e}); largest gradient {g_max:.4e}")
+    log(f"[6] {len(leaves) - len(zero)} leaves held to {GRAD_RTOL} of their "
+        f"own max (no absolute floor), {len(zero)} key-bias leaves to "
+        f"{GRAD_FLOOR} of the largest gradient")
+    for name, (share, scale, err) in ranked[:6]:
+        log(f"[6]   {name}: {share:.3f} of its tolerance (own max "
+            f"{scale:.3e}, error {err:.3e} of the largest gradient)")
+    for name, (share, scale, err) in zero[:2]:
+        log(f"[6]   key bias {name}: {share:.3f} of its tolerance (plain "
+            f"max {scale:.3e}, error {err:.3e} of the largest gradient)")
+    worst_name, (worst, _, _) = ranked[0]
+    expect(loss_err <= LOSS_RTOL, f"loss {loss} vs plain {loss_ref}")
+    expect(worst <= 1.0, f"gradient {worst_name} outside tolerance")
+
+    model.train()
+    small = tuple(x[:8] for x in batch)
+    step = make_train_step(model, build_optimizer("adam", lr=1e-4))
+    gen = torch.Generator().manual_seed(SEED)
+    losses = [float(step(*small, gen=gen)["loss"]) for _ in range(5)]
+    log(f"[6] fixed batch of 8, Adam 1e-4: losses "
+        f"{['%.4f' % x for x in losses]}")
+    expect(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    return {"loss_rel_err": loss_err, "worst_grad": worst,
+            "worst_grad_leaf": worst_name, "worst_leaves": dict(ranked[:6]),
+            "key_bias_leaves": dict(zero), "fixed_batch_losses": losses}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -354,24 +641,50 @@ def main() -> int:
     breakdown = phase_breakdown(torch, model, xs, xlens)
     enc_err, dec_err = phase_twins(torch, model, xs, xlens,
                                    served["best_hyp0"])
+    kernels.update(phase_train_kernels(torch, rng))
+    batch = train_batch(torch, rng)
+    trained, train_launches = phase_train(torch, model, batch)
+    parity = phase_train_parity(torch, model, batch)
+    # each kernel's launches from the main path it belongs to: the served
+    # requests (K1, K2) or the training run (the rest)
+    launches = {**train_launches, **launches}
 
+    csrc = "neural_sp_tpu_torch/ops/kernels/csrc/"
     srcs = {"rel_attention": (
-        "neural_sp_tpu_torch/ops/kernels/csrc/rel_attention.cu",
+        csrc + "rel_attention.cu",
         "neural_sp_tpu/ops/rel_attention_pallas.py:61 (583dfc4~1)"),
+        "rel_attention_bwd": (
+        csrc + "rel_attention_bwd.cu",
+        "neural_sp_tpu/ops/rel_attention_pallas.py:82 (583dfc4~1)"),
         "las_step": (
-        "neural_sp_tpu_torch/ops/kernels/csrc/las_step.cu",
-        "neural_sp_tpu/ops/las_scan_pallas.py:74 (63255ae~1)")}
+        csrc + "las_step.cu",
+        "neural_sp_tpu/ops/las_scan_pallas.py:74 (63255ae~1)"),
+        "las_scan": (
+        csrc + "las_step.cu",
+        "neural_sp_tpu/ops/las_scan_pallas.py:74 (63255ae~1)"),
+        "las_scan_bwd": (
+        csrc + "las_scan.cu",
+        "neural_sp_tpu/ops/las_scan_pallas.py:154 (63255ae~1)"),
+        "ctc_loss": (
+        csrc + "ctc_loss.cu",
+        "neural_sp_tpu/ops/ctc_pallas.py:39 and :120 (63255ae~1)")}
     log(json.dumps({"build_s": build_sec, "encoder_max_abs_err": enc_err,
                     "decoder_max_abs_err": dec_err,
                     "serve": {k: v for k, v in served.items()
                               if k != "best_hyp0"},
-                    "breakdown": breakdown}))
-    print(json.dumps({"kernels": [
+                    "breakdown": breakdown, "train": trained,
+                    "train_parity": parity,
+                    "ctc_loss_split_ms": kernels["ctc_loss"]}))
+    entries = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name],
          "max_abs_err": kernels[name]["max_abs_err"],
          "ms": kernels[name]["ms"], "plain_ms": kernels[name]["plain_ms"]}
-        for name, (src, rep) in srcs.items()]}))
+        for name, (src, rep) in srcs.items()]
+    # K4's ms are forward + backward; its backward entry point counts apart
+    next(e for e in entries if e["name"] == "ctc_loss")["bwd_launches"] = \
+        launches["ctc_loss_bwd"]
+    print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

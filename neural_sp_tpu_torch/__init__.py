@@ -2,9 +2,10 @@
 
 Imports torch and never jax. Module paths and class names follow the JAX
 package (``neural_sp_tpu``), which stays the reference the port is tested
-against. This slice serves ``Speech2TextSession.decode`` on the flagship
-Conformer-LAS model, with hand-written CUDA kernels for the H100 under
-``ops/kernels``.
+against. It serves ``Speech2TextSession.decode`` on the flagship
+Conformer-LAS model and trains it (``Speech2Text.forward``,
+``parallel.mesh.make_train_step``), with hand-written CUDA kernels for the
+H100 under ``ops/kernels``.
 
 Framework-wide special token ids (as ``neural_sp_tpu/__init__.py``):
     blank = 0, unk = 1, eos = sos = 2, pad = 3

@@ -1,6 +1,7 @@
-"""CTC head, greedy collapse and the joint-decoding prefix scorer
-(counterpart of ``neural_sp_tpu/models/decoders/ctc.py``). The scorer is
-host numpy in the JAX package and is copied as it is."""
+"""CTC head with its training loss, greedy collapse and the joint-decoding
+prefix scorer (counterpart of ``neural_sp_tpu/models/decoders/ctc.py``).
+The loss is kernel K4 (``ops.ctc.ctc_loss``); the scorer is host numpy in
+the JAX package and is copied as it is."""
 from __future__ import annotations
 
 import numpy as np
@@ -8,6 +9,7 @@ import torch
 from torch import nn
 
 from ... import BLANK, EOS
+from ...ops.ctc import ctc_loss
 
 LOG0 = -1.0e10
 
@@ -19,6 +21,14 @@ class CTC(nn.Module):
             raise NotImplementedError(
                 "CTC fc_list layers are not ported yet, see ROADMAP")
         self.output = nn.Linear(enc_n_units, vocab)
+
+    def forward(self, eouts, elens, ys, ylens):
+        """Returns (loss, logits [B, T, V]): the CTC nll of the f32
+        log-softmax, summed over utterances and divided by B."""
+        logits = self.logits(eouts)
+        log_probs = torch.log_softmax(logits.float(), dim=-1)
+        nll = ctc_loss(log_probs, ys, elens, ylens)
+        return nll.sum() / eouts.shape[0], logits
 
     def logits(self, eouts: torch.Tensor) -> torch.Tensor:
         return self.output(eouts)

@@ -1,25 +1,35 @@
-"""LAS (attention-based) RNN decoder, decode path (counterpart of
-``neural_sp_tpu/models/decoders/las.py``).
+"""LAS (attention-based) RNN decoder (counterpart of
+``neural_sp_tpu/models/decoders/las.py``), decode step and teacher-forced
+training loss.
 
-One step: embed -> LSTM layer 0 on [emb, ctx_prev] -> location attention
-with the layer's output as the query -> readout tanh(w_gen([h, ctx])) ->
-vocab projection. Everything from the gate pre-activations to the new
-context is kernel K2 (``ops.kernels.las_step``); the embedding half of the
-gates and the readout are plain matmuls, as the JAX module hoists them too.
-Inference only: teacher-forced training, scheduled sampling, zoneout,
-projections, deeper stacks, LM fusion and the other attention types raise.
+One step: embed -> LSTM layer 0 on [emb, ctx_prev] -> dropout -> location
+attention with the dropped output as the query -> readout
+tanh(w_gen([h, ctx])) -> dropout -> vocab projection. At decode everything
+from the gate pre-activations to the new context is kernel K2
+(``ops.kernels.las_step``). In training (``RNNDecoder.forward``) the U+1
+teacher-forced steps are kernel K3 with its backward K3b
+(``ops.kernels.las_scan``); the embedding half of the gates and the
+readout over all steps are plain matmuls, as the JAX module hoists them
+too. Scheduled sampling, zoneout, projections, deeper stacks, LM fusion
+and the other attention types raise.
 
 Carry: ``(((c, h),), aw_prev [B, T], ctx_prev [B, enc_n_units])`` — the
 JAX carry without its logits and LM slots.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 from torch import nn
 
 from ... import EOS, PAD
+from ...ops.criterion import compute_accuracy, cross_entropy_lsm
+from ...ops.dropout import Dropout, keep_mask
 from ...ops.kernels import las_step
+from ...ops.kernels.las_scan import LASScan
 from ..modules.attention import AttentionMechanism
+from ..utils import append_sos_eos
 
 
 class LSTMCell(nn.Module):
@@ -45,7 +55,8 @@ class LASStep(nn.Module):
                  attn_sharpening_factor: float = 1.0,
                  attn_sigmoid_smoothing: bool = False,
                  bottleneck_dim: int = 1024, zoneout: float = 0.0,
-                 lm_fusion: str = ""):
+                 lm_fusion: str = "", dropout: float = 0.0,
+                 dropout_emb: float = 0.0):
         super().__init__()
         if n_layers != 1 or n_projs > 0 or zoneout > 0 or lm_fusion or \
                 attn_n_heads != 1:
@@ -64,6 +75,8 @@ class LASStep(nn.Module):
             sigmoid_smoothing=attn_sigmoid_smoothing)
         self.w_gen = nn.Linear(n_units + enc_n_units, bottleneck_dim)
         self.output = nn.Linear(bottleneck_dim, vocab)
+        self.drop = Dropout(dropout)
+        self.drop_emb = Dropout(dropout_emb)
 
     def forward(self, carry, y_t, key_cache, values, klens):
         """carry as the module docstring; y_t [B] token ids; key_cache
@@ -90,21 +103,57 @@ class RNNDecoder(nn.Module):
                  attn_conv_kernel_size: int = 201,
                  attn_sharpening_factor: float = 1.0,
                  attn_sigmoid_smoothing: bool = False, zoneout: float = 0.0,
-                 backward: bool = False, lm_fusion: str = ""):
+                 backward: bool = False, lm_fusion: str = "",
+                 dropout: float = 0.0, dropout_emb: float = 0.0,
+                 lsm_prob: float = 0.0):
         super().__init__()
         if backward:
             raise NotImplementedError(
                 "the backward decoder is not ported yet, see ROADMAP")
         self.vocab, self.enc_n_units, self.n_units = vocab, enc_n_units, n_units
         self.attn_type = attn_type
+        self.lsm_prob = lsm_prob
         self.step = LASStep(
             vocab, emb_dim, n_units, n_projs, n_layers, enc_n_units,
             attn_type, attn_dim, attn_n_heads, attn_conv_n_channels,
             attn_conv_kernel_size, attn_sharpening_factor,
-            attn_sigmoid_smoothing, bottleneck_dim, zoneout, lm_fusion)
+            attn_sigmoid_smoothing, bottleneck_dim, zoneout, lm_fusion,
+            dropout, dropout_emb)
         # attention keys projected once per utterance (with bias, as the
         # reference's location-attention w_key)
         self.key_proj = nn.Linear(enc_n_units, attn_dim)
+
+    def forward(self, eouts: torch.Tensor, elens: torch.Tensor,
+                ys: torch.Tensor, ylens: torch.Tensor,
+                gen: Optional[torch.Generator] = None):
+        """Teacher-forced label-smoothed cross entropy (JAX
+        ``RNNDecoder.__call__`` with the hoisted embedding gates and
+        readout). eouts [B, T, D]; elens [B]; ys [B, U] PAD-padded; ylens
+        [B]. Returns (loss, {"loss_att", "acc_att", "ppl_att"})."""
+        bs = eouts.shape[0]
+        dev = eouts.device
+        ys_in, ys_out, _ = append_sos_eos(ys.to(dev), ylens.to(dev))
+        step, cell = self.step, self.step.cells[0]
+        emb = step.drop_emb(step.embed(ys_in), gen)
+        eg = emb @ cell.w_ih[:step.emb_dim]                # [B, U+1, 4H]
+        shape = (bs, ys_in.shape[1], self.n_units)
+        if self.training and step.drop.rate > 0:
+            keep = keep_mask(gen, step.drop.rate, shape, dev)
+        else:
+            keep = torch.ones(shape, dtype=torch.float32, device=dev)
+        h, ctx, _ = LASScan.apply(
+            eg, cell.w_ih[step.emb_dim:], cell.w_hh, cell.bias,
+            *step.attn.kernel_weights(), self.precompute_keys(eouts),
+            eouts.contiguous(), elens.to(device=dev, dtype=torch.int32),
+            keep)
+        # readout order [dout, ctx] (JAX LASStep._generate), dout = h keep
+        logits = step.output(step.drop(
+            torch.tanh(step.w_gen(torch.cat([h * keep, ctx], -1))), gen))
+        loss, nll = cross_entropy_lsm(logits, ys_out, self.lsm_prob,
+                                      ignore_index=PAD)
+        acc = compute_accuracy(logits, ys_out, ignore_index=PAD)
+        return loss, {"loss_att": loss, "acc_att": acc,
+                      "ppl_att": torch.exp(nll)}
 
     def precompute_keys(self, eouts: torch.Tensor) -> torch.Tensor:
         return self.key_proj(eouts)

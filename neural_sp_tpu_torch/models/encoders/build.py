@@ -42,6 +42,10 @@ def build_encoder(args) -> XformerEncoder:
         raise NotImplementedError(
             "unidirectional / streaming encoders are not ported yet, see "
             "ROADMAP")
+    for name in ("dropout_in", "dropout_att", "dropout_enc_layer"):
+        if _get(args, name, 0.0):
+            raise NotImplementedError(
+                f"{name} > 0 is not ported yet, see ROADMAP")
     if _get(args, "enc_n_layers_sub1", 0) or _get(args, "enc_n_layers_sub2", 0):
         raise NotImplementedError(
             "hierarchical sub1/sub2 encoder taps are not ported yet, see "
@@ -72,4 +76,5 @@ def build_encoder(args) -> XformerEncoder:
         conv_strides=_get(args, "conv_strides", ""),
         conv_poolings=_get(args, "conv_poolings", ""),
         conv_frontend_normalization=_conv_norm(args),
+        dropout=_get(args, "dropout_enc", 0.1),
     )

@@ -4,14 +4,21 @@ conv frontend -> input scale sqrt(d_model) -> conformer blocks with
 interlayer subsampling -> final LayerNorm. No streaming, no sub1/sub2
 taps, no layer scan or rematerialisation (those change how the JAX
 program compiles, not what it computes).
+
+In ``train()`` mode dropout (rate ``dropout``) runs at the JAX module's
+sites: after the input scaling (``PositionalEncoding``), inside each FFN,
+and on each of the four residual branches of a block. The generator of the
+step is the ``gen`` argument of ``forward``.
 """
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 from torch import nn
 
+from ...ops.dropout import Dropout
 from ...ops.masks import make_pad_mask
 from ..modules.conformer_convolution import ConformerConvBlock, LN_EPS
 from ..modules.feed_forward import FFN
@@ -28,7 +35,7 @@ class EncoderBlock(nn.Module):
                  btype: str = "conformer", pe_type: str = "relative",
                  clamp_len: int = -1, ffn_activation: str = "swish",
                  ffn_bottleneck_dim: int = 0, conv_kernel_size: int = 15,
-                 conv_normalization: str = "layer_norm"):
+                 conv_normalization: str = "layer_norm", dropout: float = 0.0):
         super().__init__()
         if btype != "conformer" or pe_type != "relative":
             raise NotImplementedError(
@@ -36,24 +43,28 @@ class EncoderBlock(nn.Module):
                 f"ported yet (only conformer + relative), see ROADMAP")
         self.norm_ff_macaron = nn.LayerNorm(d_model, eps=LN_EPS)
         self.ff_macaron = FFN(d_model, d_ff, ffn_activation,
-                              ffn_bottleneck_dim)
+                              ffn_bottleneck_dim, dropout)
         self.norm_mha = nn.LayerNorm(d_model, eps=LN_EPS)
         self.mha = RelativeMultiheadAttention(d_model, n_heads, clamp_len)
         self.norm_conv = nn.LayerNorm(d_model, eps=LN_EPS)
         self.conv = ConformerConvBlock(d_model, conv_kernel_size,
                                        conv_normalization)
         self.norm_ff = nn.LayerNorm(d_model, eps=LN_EPS)
-        self.ff = FFN(d_model, d_ff, ffn_activation, ffn_bottleneck_dim)
+        self.ff = FFN(d_model, d_ff, ffn_activation, ffn_bottleneck_dim,
+                      dropout)
         self.norm_final = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.drop = Dropout(dropout)
 
     def forward(self, xs: torch.Tensor, klens: torch.Tensor,
-                edge: torch.Tensor) -> torch.Tensor:
+                edge: torch.Tensor,
+                gen: Optional[torch.Generator] = None) -> torch.Tensor:
         """xs [B, T, d]; klens [B] valid frames (keys-only mask); edge [T]
         bool batch edge for the conv module."""
-        xs = xs + 0.5 * self.ff_macaron(self.norm_ff_macaron(xs))
-        xs = xs + self.mha(self.norm_mha(xs), klens)
-        xs = xs + self.conv(self.norm_conv(xs), edge)
-        xs = xs + 0.5 * self.ff(self.norm_ff(xs))
+        xs = xs + 0.5 * self.drop(
+            self.ff_macaron(self.norm_ff_macaron(xs), gen), gen)
+        xs = xs + self.drop(self.mha(self.norm_mha(xs), klens), gen)
+        xs = xs + self.drop(self.conv(self.norm_conv(xs), edge), gen)
+        xs = xs + 0.5 * self.drop(self.ff(self.norm_ff(xs), gen), gen)
         return self.norm_final(xs)
 
 
@@ -68,7 +79,7 @@ class XformerEncoder(nn.Module):
                  conv_normalization: str = "layer_norm",
                  conv_channels: str = "", conv_kernel_sizes: str = "",
                  conv_strides: str = "", conv_poolings: str = "",
-                 conv_frontend_normalization: str = ""):
+                 conv_frontend_normalization: str = "", dropout: float = 0.0):
         super().__init__()
         if not conv_channels:
             raise NotImplementedError(
@@ -84,20 +95,21 @@ class XformerEncoder(nn.Module):
         self.blocks = nn.ModuleList(
             EncoderBlock(d_model, d_ff, n_heads, btype, pe_type, clamp_len,
                          ffn_activation, ffn_bottleneck_dim,
-                         conv_kernel_size, conv_normalization)
+                         conv_kernel_size, conv_normalization, dropout)
             for _ in range(n_layers))
         self.subsample = list(subsample) or [1] * n_layers
         self.subsamplers = nn.ModuleList(
             build_subsampler(subsample_type, f) if f > 1 else nn.Identity()
             for f in self.subsample)
         self.norm_out = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.drop_pos = Dropout(dropout)
 
     @property
     def output_dim(self) -> int:
         return self.d_model
 
     def forward(self, xs: torch.Tensor, xlens: torch.Tensor,
-                task: str = "all"):
+                task: str = "all", gen: Optional[torch.Generator] = None):
         """xs [B, T, input_dim], xlens [B] int. Returns
         {"ys": {"xs": [B, T', d_model], "xlens": [B]}}."""
         if task not in ("all", "ys"):
@@ -105,12 +117,13 @@ class XformerEncoder(nn.Module):
                 f"encoder task {task!r} (sub1/sub2 taps) is not ported yet, "
                 f"see ROADMAP")
         h, xlens = self.conv(xs, xlens)
-        # PositionalEncoding(pe_type='none') still scales by sqrt(d_model)
-        h = h * math.sqrt(self.d_model)
+        # PositionalEncoding(pe_type='none') still scales by sqrt(d_model),
+        # then drops out
+        h = self.drop_pos(h * math.sqrt(self.d_model), gen)
         edge = make_pad_mask(xlens, h.shape[1]).any(dim=0)
         for block, factor, sub in zip(self.blocks, self.subsample,
                                       self.subsamplers):
-            h = block(h, xlens, edge)
+            h = block(h, xlens, edge, gen)
             if factor > 1:
                 h, xlens = sub(h, xlens)
                 edge = make_pad_mask(xlens, h.shape[1]).any(dim=0)

@@ -1,9 +1,13 @@
-"""Speech2Text for inference (counterpart of
-``neural_sp_tpu/models/speech2text.py``): encoder + LAS decoder + CTC
-head, assembled by ``build_speech2text`` from a reference-style args
-namespace. The port serves only: SpecAugment and input noise are
-training-time and never run at ``deterministic=True``, so they are not
-part of it; the training losses are a later slice (ROADMAP)."""
+"""Speech2Text (counterpart of ``neural_sp_tpu/models/speech2text.py``):
+encoder + LAS decoder + CTC head, assembled by ``build_speech2text`` from a
+reference-style args namespace.
+
+``forward`` is the training loss: SpecAugment (in ``train()`` mode), the
+encoder, then ``ctc_weight * loss_ctc + (1 - ctc_weight) * loss_att``. The
+step's randomness (SpecAugment, dropout) comes from the ``gen`` argument,
+a ``torch.Generator``; in ``eval()`` mode the loss is deterministic, as the
+JAX module's ``deterministic=True``.
+"""
 from __future__ import annotations
 
 from typing import Optional
@@ -11,6 +15,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ..ops.specaugment import apply_masks, draw_masks
 from .decoders.ctc import CTC
 from .decoders.las import RNNDecoder
 from .encoders.transformer import XformerEncoder
@@ -19,12 +24,19 @@ from .encoders.transformer import XformerEncoder
 class Speech2Text(nn.Module):
     def __init__(self, encoder: XformerEncoder,
                  dec_fwd: Optional[RNNDecoder] = None,
-                 ctc: Optional[CTC] = None, ctc_weight: float = 0.0):
+                 ctc: Optional[CTC] = None, ctc_weight: float = 0.0,
+                 specaug: Optional[dict] = None):
         super().__init__()
         self.encoder = encoder
         self.dec_fwd = dec_fwd
         self.ctc = ctc
         self.ctc_weight = ctc_weight
+        # draw_masks keywords; masks are drawn in train() mode only
+        self.specaug = specaug or {}
+
+    @property
+    def fwd_weight(self) -> float:
+        return max(1.0 - self.ctc_weight, 0.0)
 
     def encode(self, xs: torch.Tensor, xlens: torch.Tensor,
                task: str = "all"):
@@ -32,13 +44,53 @@ class Speech2Text(nn.Module):
         {"ys": {"xs": [B, T', d], "xlens": [B]}}."""
         return self.encoder(xs, xlens, task=task), None
 
+    def _frontend(self, xs, xlens, gen):
+        if self.training and (self.specaug.get("n_freq_masks", 0)
+                              + self.specaug.get("n_time_masks", 0)) > 0:
+            draws = draw_masks(gen, xlens, xs.shape[-1], **self.specaug)
+            xs = apply_masks(xs, xlens, draws)
+        return xs
 
+    def forward(self, xs: torch.Tensor, xlens: torch.Tensor,
+                ys: torch.Tensor, ylens: torch.Tensor,
+                gen: Optional[torch.Generator] = None):
+        """xs [B, T, input_dim] features, xlens [B], ys [B, U] PAD-padded
+        labels, ylens [B]. Returns (loss, obs) with obs "loss", "loss_ctc",
+        "loss_att", "acc_att", "ppl_att"."""
+        xs = self._frontend(xs, xlens, gen)
+        eouts = self.encoder(xs, xlens, gen=gen)["ys"]
+        ex, el = eouts["xs"], eouts["xlens"]
+        loss = torch.zeros((), dtype=torch.float32, device=xs.device)
+        obs = {}
+        if self.ctc is not None and self.ctc_weight > 0:
+            loss_ctc, _ = self.ctc(ex, el, ys, ylens)
+            loss = loss + self.ctc_weight * loss_ctc
+            obs["loss_ctc"] = loss_ctc
+        if self.dec_fwd is not None and self.fwd_weight > 0:
+            loss_att, obs_att = self.dec_fwd(ex, el, ys, ylens, gen)
+            loss = loss + self.fwd_weight * loss_att
+            obs.update(obs_att)
+        obs["loss"] = loss
+        return loss, obs
+
+
+# Training and model options of the JAX package the port does not have:
+# each raises when set (non-zero / non-empty). The encoder's and the
+# decoder's own (dropout_in, dropout_att, dropout_enc_layer, ss_prob) raise
+# in their builders.
 _NOT_PORTED = ("bwd_weight", "sub1_weight", "sub2_weight",
-               "sequence_summary_network", "input_noise_std")
+               "sequence_summary_network", "input_noise_std", "ctc_lsm_prob",
+               "adaptive_number_ratio", "adaptive_size_ratio",
+               "distillation_weight", "teacher", "mbr_training",
+               "weight_noise_std")
 
 
 def build_speech2text(args) -> Speech2Text:
-    """Assemble a Speech2Text from a reference-style args namespace."""
+    """Assemble a Speech2Text from a reference-style args namespace. The
+    flagship's training options are honoured: SpecAugment (freq_width,
+    n_freq_masks, time_width, n_time_masks, time_width_upper), lsm_prob,
+    dropout_enc, dropout_dec, dropout_emb; the others raise
+    ``NotImplementedError``."""
     from .decoders.build import build_decoder
     from .encoders.build import build_encoder
 
@@ -56,5 +108,10 @@ def build_speech2text(args) -> Speech2Text:
            if ctc_weight > 0 else None)
     dec_fwd = build_decoder(args, vocab, enc_n_units) \
         if ctc_weight < 1.0 else None
+    specaug = dict(freq_mask_width=g("freq_width", 0),
+                   n_freq_masks=g("n_freq_masks", 0),
+                   time_mask_width=g("time_width", 0),
+                   n_time_masks=g("n_time_masks", 0),
+                   p=g("time_width_upper", 1.0))
     return Speech2Text(encoder=enc, dec_fwd=dec_fwd, ctc=ctc,
-                       ctc_weight=ctc_weight)
+                       ctc_weight=ctc_weight, specaug=specaug)

@@ -84,10 +84,23 @@ def load_library() -> ctypes.CDLL:
     point's argument and result types declared."""
     path, _ = build_library()
     lib = ctypes.CDLL(str(path))
-    lib.nsp_rel_attention_f32.argtypes = [_P] * 6 + [_I] * 5 + [_P]
-    lib.nsp_rel_attention_f32.restype = _I
-    lib.nsp_las_step_f32.argtypes = [_P] * 22 + [_I] * 7 + [_P]
-    lib.nsp_las_step_f32.restype = _I
+    entry_points = {
+        "nsp_rel_attention_f32": [_P] * 8 + [_I] * 5 + [_P],
+        "nsp_rel_attention_bwd_f32": [_P] * 14 + [_I] * 5 + [_P],
+        "nsp_las_step_f32": [_P] * 22 + [_I] * 7 + [_P],
+        "nsp_las_scan_f32": [_P] * 24 + [_I] * 8 + [_P],
+        "nsp_las_scan_bwd_f32": [_P] * 32 + [_I] * 8 + [_P],
+        "nsp_ctc_alpha_f32": [_P] * 6 + [_I] * 4 + [_P],
+        "nsp_ctc_beta_grad_f32": [_P] * 8 + [_I] * 4 + [_P],
+    }
+    for name, argtypes in entry_points.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = _I
     lib.nsp_las_step_smem_bytes.argtypes = [_I] * 5
     lib.nsp_las_step_smem_bytes.restype = ctypes.c_longlong
+    lib.nsp_las_scan_bwd_smem_bytes.argtypes = [_I] * 5
+    lib.nsp_las_scan_bwd_smem_bytes.restype = ctypes.c_longlong
+    lib.nsp_ctc_smem_bytes.argtypes = [_I]
+    lib.nsp_ctc_smem_bytes.restype = ctypes.c_longlong
     return lib

@@ -33,6 +33,18 @@
 //      slices.
 // The masked value is finfo(f32).min / 2, as in apply_mask_logits, so a
 // row with no valid frame gets uniform weights.
+//
+// K3, the teacher-forced U-step scan of training (`nsp_las_scan_f32`,
+// the U-step form of the same TPU kernel), runs these five kernels once
+// per step from a host loop, with two additions: las_cell also stores the
+// gate activations (i, f, g, o) for the backward, and las_query takes the
+// query from the dropped output h * keep_t (dropout on the LSTM output
+// feeds the attention and the readout; the carry keeps the undropped h).
+// Every step's h, c, gates, query, attention weights and context stay in
+// [U, N, ...] outputs, so step t reads step t-1's slots as its carry and
+// the backward (K3b, las_scan.cu) has what it needs. A grid-wide sync
+// across the U steps is left for later: the host loop costs five launches
+// per step.
 
 #include <cuda_runtime.h>
 #include <cfloat>
@@ -106,7 +118,8 @@ las_gates_partial(const float* __restrict__ ctx_prev, const float* __restrict__ 
 __global__ void __launch_bounds__(kCellThreads)
 las_cell(const float* __restrict__ eg, const float* __restrict__ bias,
          const float* __restrict__ partial, const float* __restrict__ c_prev,
-         float* __restrict__ h_out, float* __restrict__ c_out, int N, int H, int n_split) {
+         float* __restrict__ h_out, float* __restrict__ c_out, float* __restrict__ gates_out,
+         int N, int H, int n_split) {
   const int idx = blockIdx.x * kCellThreads + threadIdx.x;
   if (idx >= N * H) return;
   const int n = idx / H, j = idx % H;
@@ -120,23 +133,31 @@ las_cell(const float* __restrict__ eg, const float* __restrict__ bias,
     y[g] = eg[(size_t)n * G + col] + s + bias[col];
   }
   const float ig = sigmoidf(y[0]), fg = sigmoidf(y[1]), gg = tanhf(y[2]), og = sigmoidf(y[3]);
+  if (gates_out != nullptr) {
+    float* gt = gates_out + (size_t)n * G + j;
+    gt[0] = ig;
+    gt[H] = fg;
+    gt[2 * H] = gg;
+    gt[3 * H] = og;
+  }
   const float c = fg * c_prev[idx] + ig * gg;
   c_out[idx] = c;
   h_out[idx] = og * tanhf(c);
 }
 
-// q[n, a] = sum_k h[n, k] w_q[a, k] (w_q is [A, H]): a warp per output a
-// for kQueryRows hypotheses at once, lanes along H, so each weight row is
-// read once per block.
+// q[n, a] = sum_k h[n, k] keep[n, k] w_q[a, k] (w_q is [A, H]; keep may
+// be null: no dropout): a warp per output a for kQueryRows hypotheses at
+// once, lanes along H, so each weight row is read once per block.
 __global__ void __launch_bounds__(kAttnThreads)
-las_query(const float* __restrict__ h, const float* __restrict__ w_q,
-          float* __restrict__ q, int N, int H, int A) {
+las_query(const float* __restrict__ h, const float* __restrict__ keep,
+          const float* __restrict__ w_q, float* __restrict__ q, int N, int H, int A) {
   extern __shared__ float hs[];  // [kQueryRows][H]
   const int n0 = blockIdx.y * kQueryRows;
   const int rows = min(kQueryRows, N - n0);
   for (int i = threadIdx.x; i < kQueryRows * H; i += kAttnThreads) {
     const int r = i / H;
-    hs[i] = (r < rows) ? h[(size_t)(n0 + r) * H + (i % H)] : 0.0f;
+    const size_t at = (size_t)(n0 + r) * H + (i % H);
+    hs[i] = (r < rows) ? h[at] * (keep != nullptr ? keep[at] : 1.0f) : 0.0f;
   }
   __syncthreads();
   const int lane = threadIdx.x & 31;
@@ -305,6 +326,58 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 }
 }  // namespace
 
+namespace {
+
+// The five kernels of one step (see the top of the file); keep and
+// gates_out may be null.
+cudaError_t las_step(const float* eg, const float* ctx_prev, const float* h_prev,
+                     const float* c_prev, const float* aw_prev, const float* w_ctx,
+                     const float* w_h, const float* bias, const float* w_q, const float* conv_w,
+                     const float* w_f, const float* v, const float* kc, const float* values,
+                     const int* klens, const float* keep, float* partial, float* q, float* e,
+                     float* h_out, float* c_out, float* gates_out, float* aw_out, float* ctx_out,
+                     int N, int T, int H, int D, int A, int C, int K, cudaStream_t s) {
+  const int G = 4 * H;
+  const int n_split = (D + H + kGateK - 1) / kGateK;
+  dim3 g_gates((G + kGateThreads - 1) / kGateThreads, n_split, (N + kGateRows - 1) / kGateRows);
+  las_gates_partial<<<g_gates, kGateThreads, 0, s>>>(ctx_prev, h_prev, w_ctx, w_h, partial, N,
+                                                     D, H);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  las_cell<<<(N * H + kCellThreads - 1) / kCellThreads, kCellThreads, 0, s>>>(
+      eg, bias, partial, c_prev, h_out, c_out, gates_out, N, H, n_split);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  const size_t q_smem = sizeof(float) * kQueryRows * H;
+  if ((err = allow_smem(las_query, q_smem)) != cudaSuccess) return err;
+  dim3 g_query((A + kAttnWarps - 1) / kAttnWarps, (N + kQueryRows - 1) / kQueryRows);
+  las_query<<<g_query, kAttnThreads, q_smem, s>>>(h_out, keep, w_q, q, N, H, A);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  const size_t e_smem = sizeof(float) * energy_smem_floats(A, C, K);
+  if ((err = allow_smem(las_energy, e_smem)) != cudaSuccess) return err;
+  dim3 g_energy((T + kEnergyFrames - 1) / kEnergyFrames, N);
+  las_energy<<<g_energy, kAttnThreads, e_smem, s>>>(q, aw_prev, conv_w, w_f, v, kc, klens, e,
+                                                    T, A, C, K);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  const size_t c_smem = sizeof(float) * ((size_t)T + kAttnWarps + kContextSlices * kContextCols);
+  if ((err = allow_smem(las_context, c_smem)) != cudaSuccess) return err;
+  dim3 g_ctx((D + kContextCols - 1) / kContextCols, N);
+  las_context<<<g_ctx, kAttnThreads, c_smem, s>>>(e, values, aw_out, ctx_out, T, D);
+  return cudaGetLastError();
+}
+
+bool bad_sizes(int N, int T, int H, int D, int A, int C, int K) {
+  return N <= 0 || T <= 0 || H <= 0 || D <= 0 || A <= 0 || C <= 0 || K <= 0 || N > 65535;
+}
+
+}  // namespace
+
+#define F(x) static_cast<const float*>(x)
+#define W(x) static_cast<float*>(x)
+
 // Rows N (hypotheses), frames T, LSTM units H, context width D, attention
 // width A, conv channels C, conv width K. Shapes (row-major, contiguous):
 //   eg [N, 4H], ctx_prev [N, D], h_prev [N, H], c_prev [N, H],
@@ -321,50 +394,49 @@ extern "C" int nsp_las_step_f32(const void* eg, const void* ctx_prev, const void
                                 void* partial, void* q, void* e, void* h_out, void* c_out,
                                 void* aw_out, void* ctx_out, int N, int T, int H, int D,
                                 int A, int C, int K, void* stream) {
-  if (N <= 0 || T <= 0 || H <= 0 || D <= 0 || A <= 0 || C <= 0 || K <= 0 || N > 65535)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int G = 4 * H;
-  const int n_split = (D + H + kGateK - 1) / kGateK;
-  float* q_f = static_cast<float*>(q);
-  float* e_f = static_cast<float*>(e);
-  float* h_f = static_cast<float*>(h_out);
-
-  dim3 g_gates((G + kGateThreads - 1) / kGateThreads, n_split, (N + kGateRows - 1) / kGateRows);
-  las_gates_partial<<<g_gates, kGateThreads, 0, s>>>(
-      static_cast<const float*>(ctx_prev), static_cast<const float*>(h_prev),
-      static_cast<const float*>(w_ctx), static_cast<const float*>(w_h),
-      static_cast<float*>(partial), N, D, H);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-
-  las_cell<<<(N * H + kCellThreads - 1) / kCellThreads, kCellThreads, 0, s>>>(
-      static_cast<const float*>(eg), static_cast<const float*>(bias),
-      static_cast<const float*>(partial), static_cast<const float*>(c_prev), h_f,
-      static_cast<float*>(c_out), N, H, n_split);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-
-  const size_t q_smem = sizeof(float) * kQueryRows * H;
-  if ((err = allow_smem(las_query, q_smem)) != cudaSuccess) return (int)err;
-  dim3 g_query((A + kAttnWarps - 1) / kAttnWarps, (N + kQueryRows - 1) / kQueryRows);
-  las_query<<<g_query, kAttnThreads, q_smem, s>>>(h_f, static_cast<const float*>(w_q), q_f,
-                                                  N, H, A);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-
-  const size_t e_smem = sizeof(float) * energy_smem_floats(A, C, K);
-  if ((err = allow_smem(las_energy, e_smem)) != cudaSuccess) return (int)err;
-  dim3 g_energy((T + kEnergyFrames - 1) / kEnergyFrames, N);
-  las_energy<<<g_energy, kAttnThreads, e_smem, s>>>(
-      q_f, static_cast<const float*>(aw_prev), static_cast<const float*>(conv_w),
-      static_cast<const float*>(w_f), static_cast<const float*>(v),
-      static_cast<const float*>(kc), static_cast<const int*>(klens), e_f, T, A, C, K);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-
-  const size_t c_smem = sizeof(float) * ((size_t)T + kAttnWarps + kContextSlices * kContextCols);
-  if ((err = allow_smem(las_context, c_smem)) != cudaSuccess) return (int)err;
-  dim3 g_ctx((D + kContextCols - 1) / kContextCols, N);
-  las_context<<<g_ctx, kAttnThreads, c_smem, s>>>(
-      e_f, static_cast<const float*>(values), static_cast<float*>(aw_out),
-      static_cast<float*>(ctx_out), T, D);
-  return (int)cudaGetLastError();
+  if (bad_sizes(N, T, H, D, A, C, K)) return (int)cudaErrorInvalidValue;
+  return (int)las_step(F(eg), F(ctx_prev), F(h_prev), F(c_prev), F(aw_prev), F(w_ctx), F(w_h),
+                       F(bias), F(w_q), F(conv_w), F(w_f), F(v), F(kc), F(values),
+                       static_cast<const int*>(klens), nullptr, W(partial), W(q), W(e),
+                       W(h_out), W(c_out), nullptr, W(aw_out), W(ctx_out), N, T, H, D, A, C, K,
+                       static_cast<cudaStream_t>(stream));
 }
+
+// K3: U teacher-forced steps over N rows, time-major. Shapes as above,
+// plus eg [U, N, 4H], keep [U, N, H] (the dropout scale of each step's
+// output, 1 without dropout), the step-0 carry h0, c0 [N, H], aw0 [N, T],
+// ctx0 [N, D] (zeros in training), and the outputs h_all, c_all [U, N, H],
+// gates [U, N, 4H] (activations i, f, g, o), q_all [U, N, A], aw_all
+// [U, N, T], ctx_all [U, N, D]. Returns a cudaError_t.
+extern "C" int nsp_las_scan_f32(const void* eg, const void* w_ctx, const void* w_h,
+                                const void* bias, const void* w_q, const void* conv_w,
+                                const void* w_f, const void* v, const void* kc,
+                                const void* values, const void* klens, const void* keep,
+                                const void* h0, const void* c0, const void* aw0,
+                                const void* ctx0, void* partial, void* e, void* h_all,
+                                void* c_all, void* gates, void* q_all, void* aw_all,
+                                void* ctx_all, int U, int N, int T, int H, int D, int A, int C,
+                                int K, void* stream) {
+  if (U <= 0 || bad_sizes(N, T, H, D, A, C, K)) return (int)cudaErrorInvalidValue;
+  const size_t nh = (size_t)N * H;
+  for (int t = 0; t < U; ++t) {
+    const bool first = t == 0;
+    const size_t prev = (size_t)(t - 1);
+    cudaError_t err = las_step(
+        F(eg) + (size_t)t * N * 4 * H,
+        first ? F(ctx0) : F(ctx_all) + prev * N * D,
+        first ? F(h0) : F(h_all) + prev * nh,
+        first ? F(c0) : F(c_all) + prev * nh,
+        first ? F(aw0) : F(aw_all) + prev * N * T,
+        F(w_ctx), F(w_h), F(bias), F(w_q), F(conv_w), F(w_f), F(v), F(kc), F(values),
+        static_cast<const int*>(klens), F(keep) + (size_t)t * nh, W(partial),
+        W(q_all) + (size_t)t * N * A, W(e), W(h_all) + (size_t)t * nh,
+        W(c_all) + (size_t)t * nh, W(gates) + (size_t)t * nh * 4, W(aw_all) + (size_t)t * N * T,
+        W(ctx_all) + (size_t)t * N * D, N, T, H, D, A, C, K, static_cast<cudaStream_t>(stream));
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaSuccess;
+}
+
+#undef F
+#undef W

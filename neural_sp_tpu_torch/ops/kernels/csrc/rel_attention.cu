@@ -20,6 +20,12 @@
 // are skipped: their weights exp(min/2 - max) are exactly 0 once one
 // valid key was seen. With klens[b] == 0 every key is masked and the row
 // gets uniform weights, as the masked softmax of the JAX module does.
+//
+// The forward also writes each row's softmax statistics, the running max
+// m and the sum l of exp(s - m), for the backward (K1b, below): P = exp(s
+// - m) / l. Both are kept instead of one log-sum-exp m + log l because a
+// row with every key masked has m = finfo.min / 2, where adding log l
+// would be absorbed and P would come out 1 instead of 1 / T.
 
 #include <cuda_runtime.h>
 #include <cfloat>
@@ -48,6 +54,7 @@ __global__ void __launch_bounds__(kThreads)
 rel_attention_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                          const float* __restrict__ v, const float* __restrict__ p,
                          const int* __restrict__ klens, float* __restrict__ o,
+                         float* __restrict__ m_out, float* __restrict__ l_out,
                          int H, int T, int R) {
   __shared__ float qs[kBQ][DK + 1];
   __shared__ float ks[kBK][DK + 1];
@@ -158,6 +165,10 @@ rel_attention_fwd_kernel(const float* __restrict__ q, const float* __restrict__ 
     const int i = q0 + 2 * ty + r;
     if (i >= T) continue;
     const float inv = 1.0f / l_run[r];
+    if (tx == 0) {
+      m_out[bh * T + i] = m_run[r];
+      l_out[bh * T + i] = l_run[r];
+    }
     float* ob = o + (bh * T + i) * DK;
 #pragma unroll
     for (int m = 0; m < kDM; ++m) ob[tx + 16 * m] = acc[r][m] * inv;
@@ -166,20 +177,23 @@ rel_attention_fwd_kernel(const float* __restrict__ q, const float* __restrict__ 
 
 template <int DK>
 cudaError_t launch(const float* q, const float* k, const float* v, const float* p,
-                   const int* klens, float* o, int B, int H, int T, int R,
-                   cudaStream_t stream) {
+                   const int* klens, float* o, float* m, float* l, int B, int H, int T,
+                   int R, cudaStream_t stream) {
   dim3 grid((T + kBQ - 1) / kBQ, H, B);
-  rel_attention_fwd_kernel<DK><<<grid, kThreads, 0, stream>>>(q, k, v, p, klens, o, H, T, R);
+  rel_attention_fwd_kernel<DK><<<grid, kThreads, 0, stream>>>(q, k, v, p, klens, o, m, l, H,
+                                                              T, R);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// q, k, v, o: [B, H, T, dk]; p: [B, H, T, R]; klens: [B] int32. All
-// contiguous, on the device of `stream`. Returns a cudaError_t.
+// q, k, v, o: [B, H, T, dk]; p: [B, H, T, R]; klens: [B] int32; m, l:
+// [B, H, T] row statistics. All contiguous, on the device of `stream`.
+// Returns a cudaError_t.
 extern "C" int nsp_rel_attention_f32(const void* q, const void* k, const void* v,
-                                     const void* p, const void* klens, void* o,
-                                     int B, int H, int T, int R, int dk, void* stream) {
+                                     const void* p, const void* klens, void* o, void* m,
+                                     void* l, int B, int H, int T, int R, int dk,
+                                     void* stream) {
   if (B <= 0 || H <= 0 || T <= 0 || R <= 0 || H > 65535 || B > 65535)
     return (int)cudaErrorInvalidValue;
   const float* qf = static_cast<const float*>(q);
@@ -188,11 +202,13 @@ extern "C" int nsp_rel_attention_f32(const void* q, const void* k, const void* v
   const float* pf = static_cast<const float*>(p);
   const int* kl = static_cast<const int*>(klens);
   float* of = static_cast<float*>(o);
+  float* mf = static_cast<float*>(m);
+  float* lf = static_cast<float*>(l);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dk) {
-    case 16: return (int)launch<16>(qf, kf, vf, pf, kl, of, B, H, T, R, s);
-    case 32: return (int)launch<32>(qf, kf, vf, pf, kl, of, B, H, T, R, s);
-    case 64: return (int)launch<64>(qf, kf, vf, pf, kl, of, B, H, T, R, s);
+    case 16: return (int)launch<16>(qf, kf, vf, pf, kl, of, mf, lf, B, H, T, R, s);
+    case 32: return (int)launch<32>(qf, kf, vf, pf, kl, of, mf, lf, B, H, T, R, s);
+    case 64: return (int)launch<64>(qf, kf, vf, pf, kl, of, mf, lf, B, H, T, R, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

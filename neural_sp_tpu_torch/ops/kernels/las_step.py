@@ -33,6 +33,27 @@ SMEM_LIMIT = 232448   # bytes of shared memory one block may use on sm_90
 GATE_SPLIT = 128      # reduction rows per block of the gate GEMV (kGateK)
 
 
+def location_features(aw_prev, conv_w):
+    """Width-K SAME cross-correlation of aw_prev [N, T] with conv_w [C, K]
+    (flax ``nn.Conv``: left pad (K-1)//2) -> [N, T, C]."""
+    k = conv_w.shape[-1]
+    left = (k - 1) // 2
+    aw_pad = F.pad(aw_prev, (left, k - 1 - left))
+    return F.conv1d(aw_pad[:, None], conv_w[:, None]).transpose(1, 2)
+
+
+def attend_ref(query, aw_prev, w_q, conv_w, w_f, v, kc, values, klens):
+    """Location attention of one step from the query [N, H]. Returns
+    (q = query W_q^T [N, A], aw [N, T], ctx [N, D])."""
+    q = query @ w_q.t()
+    loc = location_features(aw_prev, conv_w)
+    e = torch.tanh(kc + q[:, None] + loc @ w_f.t()) @ v          # [N, T]
+    valid = (torch.arange(e.shape[1], device=e.device)[None]
+             < klens.to(e.device)[:, None])
+    aw = torch.softmax(apply_mask_logits(e, valid), dim=-1)
+    return q, aw, torch.bmm(aw[:, None], values)[:, 0]
+
+
 def las_step_ref(eg, ctx_prev, h_prev, c_prev, aw_prev, w_ctx, w_h, bias,
                  w_q, conv_w, w_f, v, kc, values, klens):
     """Plain PyTorch twin of the kernel. Shapes: eg [N, 4H], ctx_prev
@@ -43,17 +64,8 @@ def las_step_ref(eg, ctx_prev, h_prev, c_prev, aw_prev, w_ctx, w_h, bias,
     i, f, g, o = y.chunk(4, dim=-1)
     c = torch.sigmoid(f) * c_prev + torch.sigmoid(i) * torch.tanh(g)
     h = torch.sigmoid(o) * torch.tanh(c)
-    q = h @ w_q.t()
-    k = conv_w.shape[-1]
-    left = (k - 1) // 2
-    aw_pad = F.pad(aw_prev, (left, k - 1 - left))
-    loc = F.conv1d(aw_pad[:, None], conv_w[:, None]).transpose(1, 2)
-    e = torch.tanh(kc + q[:, None] + loc @ w_f.t()) @ v          # [N, T]
-    valid = (torch.arange(e.shape[1], device=e.device)[None]
-             < klens.to(e.device)[:, None])
-    e = apply_mask_logits(e, valid)
-    aw = torch.softmax(e, dim=-1)
-    ctx = torch.bmm(aw[:, None], values)[:, 0]
+    _, aw, ctx = attend_ref(h, aw_prev, w_q, conv_w, w_f, v, kc, values,
+                            klens)
     return h, c, aw, ctx
 
 

@@ -96,3 +96,167 @@ def test_las_step_kernel(cuda, n, t, hd, d, a, ch, k):
     for name, got, want in zip(("h", "c", "aw", "ctx"), outs,
                                las_step_ref(*args)):
         torch.testing.assert_close(got, want, atol=TOL, rtol=TOL, msg=name)
+
+
+# ---- training kernels: K1b, K3 / K3b, K4 -------------------------------
+# Their outputs are sums over T (or over U reverse steps), so the error is
+# held relative to the reference's largest magnitude: max|got - want| <=
+# REL_TOL * max|want| (float32, sums in other orders).
+REL_TOL = 1e-4
+
+
+def _close(got, want, what=""):
+    scale = max(float(want.abs().max()), 1e-30)
+    err = float((got - want).abs().max()) / scale
+    assert err <= REL_TOL, f"{what}: relative error {err:.3e}"
+
+
+def _randn(rng, dev, *shape, scale=1.0):
+    return torch.from_numpy((rng.randn(*shape) * scale).astype(np.float32)).to(dev)
+
+
+@pytest.mark.parametrize("b,h,t,dk,r,klens", [
+    (2, 4, 70, 64, 11, [70, 33]),        # clamped, ragged, partial tiles
+    (3, 2, 45, 32, 45, [45, 0, 17]),     # unclamped R = T, all-masked row
+])
+def test_rel_attention_bwd_kernel(cuda, b, h, t, dk, r, klens):
+    from neural_sp_tpu_torch.ops.kernels.rel_attention import (
+        rel_attention_bwd, rel_attention_bwd_ref, rel_attention_fwd,
+        rel_attention_stats_ref)
+    rng = np.random.RandomState(t)
+    q, k, v = (_randn(rng, cuda, b, h, t, dk, scale=s)
+               for s in (dk ** -0.5, 1.0, 1.0))
+    p = _randn(rng, cuda, b, h, t, r, scale=dk ** -0.5)
+    kl = torch.tensor(klens, dtype=torch.int32, device=cuda)
+    do = _randn(rng, cuda, b, h, t, dk)
+    o, m, l = rel_attention_fwd(q, k, v, p, kl)
+    m_ref, l_ref = rel_attention_stats_ref(q, k, p, kl)
+    _close(m, m_ref, "m")
+    _close(l, l_ref, "l")
+    before = rel_attention_bwd.launches
+    got = rel_attention_bwd(q, k, v, p, kl, o, m, l, do)
+    torch.cuda.synchronize()
+    assert rel_attention_bwd.launches == before + 1
+    want = rel_attention_bwd_ref(q, k, v, p, kl, o, m, l, do)
+    for name, x, y in zip(("dq", "dk", "dv", "dp"), got, want):
+        _close(x, y, name)
+
+
+def test_rel_attention_bwd_refuses_bad_arguments(cuda):
+    from neural_sp_tpu_torch.ops.kernels.rel_attention import rel_attention_bwd
+    q = torch.zeros(1, 1, 8, 64, device=cuda)
+    p = torch.zeros(1, 1, 8, 11, device=cuda)
+    kl = torch.tensor([8], dtype=torch.int32, device=cuda)
+    m = torch.zeros(1, 1, 8, device=cuda)
+    with pytest.raises(ValueError, match="shape"):
+        rel_attention_bwd(q, q, q, p, kl, q, m[..., :4], m, q)
+    with pytest.raises(ValueError, match="lie on the CPU or all on one"):
+        rel_attention_bwd(q, q, q, p, kl, q, m, m, q.cpu())
+
+
+def _las_args(rng, dev, b, u, t, hd, d, a, ch, k, klens, rate=0.1):
+    keep = (torch.from_numpy((rng.rand(u, b, hd) >= rate).astype(np.float32))
+            / (1 - rate)).to(dev)
+    return (_randn(rng, dev, u, b, 4 * hd, scale=0.5),
+            _randn(rng, dev, d, 4 * hd, scale=(d + hd) ** -0.5),
+            _randn(rng, dev, hd, 4 * hd, scale=(d + hd) ** -0.5),
+            _randn(rng, dev, 4 * hd, scale=0.1),
+            _randn(rng, dev, a, hd, scale=hd ** -0.5),
+            _randn(rng, dev, ch, k, scale=k ** -0.5),
+            _randn(rng, dev, a, ch, scale=ch ** -0.5),
+            _randn(rng, dev, a, scale=a ** -0.5),
+            _randn(rng, dev, b, t, a), _randn(rng, dev, b, t, d),
+            torch.tensor(klens, dtype=torch.int32, device=dev), keep)
+
+
+@pytest.mark.parametrize("b,u,t,hd,d,a,ch,k,klens", [
+    (32, 12, 188, 1024, 512, 512, 10, 201, None),   # flagship widths
+    (5, 7, 37, 64, 48, 40, 4, 6, [37, 30, 12, 1, 20]),  # small, even conv
+])
+def test_las_scan_kernels(cuda, b, u, t, hd, d, a, ch, k, klens):
+    from neural_sp_tpu_torch.ops.kernels.las_scan import (
+        las_scan, las_scan_bwd, las_scan_bwd_ref, las_scan_ref)
+    rng = np.random.RandomState(u)
+    if klens is None:
+        klens = [t - 3 * i for i in range(b)]
+    args = _las_args(rng, cuda, b, u, t, hd, d, a, ch, k, klens)
+    before = (las_scan.launches, las_scan_bwd.launches)
+    outs = las_scan(*args)
+    refs = las_scan_ref(*args)
+    for name, x, y in zip(("h", "c", "gates", "q", "aw", "ctx"), outs, refs):
+        _close(x, y, name)
+    dh, dctx = _randn(rng, cuda, u, b, hd), _randn(rng, cuda, u, b, d)
+    w_ctx, w_h, _, w_q, conv_w, w_f, v, kc, values, kl, keep = args[1:]
+    saved = (w_ctx, w_h, w_q, conv_w, w_f, v, kc, values, kl, keep, *refs)
+    got = las_scan_bwd(*saved, dh, dctx)
+    torch.cuda.synchronize()
+    assert (las_scan.launches, las_scan_bwd.launches) == \
+        (before[0] + 1, before[1] + 1)
+    want = las_scan_bwd_ref(*saved, dh, dctx)
+    names = ("d_eg", "dW_ctx", "dW_h", "db", "dW_q", "dconv", "dW_f", "dv",
+             "dkc", "dvalues")
+    for name, x, y in zip(names, got, want):
+        _close(x, y, name)
+
+
+def test_las_scan_refuses_bad_arguments(cuda):
+    from neural_sp_tpu_torch.ops.kernels.las_scan import las_scan
+    rng = np.random.RandomState(0)
+    args = list(_las_args(rng, cuda, 2, 3, 9, 8, 6, 4, 2, 3, [9, 4]))
+    bad = list(args)
+    bad[-2] = bad[-2].long()                      # klens must be int32
+    with pytest.raises(TypeError):
+        las_scan(*bad)
+    bad = list(args)
+    bad[0] = args[0].transpose(1, 2).contiguous().transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        las_scan(*bad)
+    bad = list(args)
+    bad[-1] = args[-1].cpu()
+    with pytest.raises(ValueError, match="lie on the CPU or all on one"):
+        las_scan(*bad)
+
+
+@pytest.mark.parametrize("b,t,u,v,tl,ul", [
+    (32, 188, 100, 10000, None, None),          # flagship training shape
+    (4, 20, 6, 30, [20, 15, 9, 3], [6, 0, 5, 4]),  # U = 0, infeasible rows
+])
+def test_ctc_loss_kernel(cuda, b, t, u, v, tl, ul):
+    from neural_sp_tpu_torch.ops.kernels.ctc_loss import (
+        ctc_forward_alphas, ctc_loss_bwd, ctc_loss_bwd_ref, ctc_loss_fwd)
+    rng = np.random.RandomState(t)
+    lp = torch.log_softmax(_randn(rng, cuda, b, t, v, scale=2.0), -1)
+    labels = rng.randint(4, v, (b, u))
+    labels[0, 1] = labels[0, 0]                   # a repeated label
+    if tl is None:
+        tl = [t - i for i in range(b)]
+        ul = [u - (i % 7) for i in range(b)]
+    args = (lp, torch.tensor(labels, dtype=torch.int32, device=cuda),
+            torch.tensor(tl, dtype=torch.int32, device=cuda),
+            torch.tensor(ul, dtype=torch.int32, device=cuda))
+    nll, alphas = ctc_loss_fwd(*args)
+    nll_ref, alphas_ref = ctc_forward_alphas(*args)
+    feasible = nll_ref < 1e29
+    _close(nll[feasible], nll_ref[feasible], "nll")
+    assert bool((nll[~feasible] >= 1e29).all())
+    _close(alphas.clamp(min=-1e4), alphas_ref.clamp(min=-1e4), "alphas")
+    g = feasible.float() * torch.linspace(0.5, 1.5, b, device=cuda)
+    before = ctc_loss_bwd.launches
+    grad = ctc_loss_bwd(*args, nll_ref, alphas_ref, g)
+    torch.cuda.synchronize()
+    assert ctc_loss_bwd.launches == before + 1
+    _close(grad, ctc_loss_bwd_ref(*args, nll_ref, alphas_ref, g), "grad")
+
+
+def test_ctc_loss_refuses_bad_arguments(cuda):
+    from neural_sp_tpu_torch.ops.kernels.ctc_loss import ctc_loss_fwd
+    lp = torch.zeros(2, 5, 7, device=cuda)
+    lab = torch.ones(2, 3, dtype=torch.int32, device=cuda)
+    lens = torch.tensor([5, 5], dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        ctc_loss_fwd(lp, lab.long(), lens, lens)
+    with pytest.raises(ValueError, match="lie on the CPU or all on one"):
+        ctc_loss_fwd(lp, lab, lens.cpu(), lens)
+    with pytest.raises(ValueError, match="shared memory"):
+        ctc_loss_fwd(lp, torch.ones(2, 40000, dtype=torch.int32,
+                                    device=cuda), lens, lens)

@@ -87,6 +87,16 @@ xs = np.random.RandomState(0).randn(1, 40, 80).astype(np.float32)
 hyps = Speech2TextSession(model, DecodeConfig(beam_width=2, ctc_weight=0.3)
                           ).decode(xs, np.array([40]))
 assert len(hyps) == 1
+import torch
+from neural_sp_tpu_torch.parallel.mesh import make_train_step
+from neural_sp_tpu_torch.trainers.lr_scheduler import noam_schedule
+from neural_sp_tpu_torch.trainers.optimizer import build_optimizer
+step = make_train_step(model.train(), build_optimizer(
+    "noam", schedule=noam_schedule(32, 10), accum_grad_n_steps=1))
+ys = np.array([[5, 6, 7]], np.int32)
+met = step(*map(torch.from_numpy, (xs, np.array([40]), ys, np.array([3]))),
+           gen=torch.Generator().manual_seed(0))
+assert met["emitted"] and bool(torch.isfinite(met["grad_norm"]))
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m.startswith("neural_sp_tpu.") or m == "neural_sp_tpu")
 assert not bad, bad

@@ -105,3 +105,69 @@ def test_relative_mha_parity(t):
         got = tm(torch.from_numpy(xs), torch.from_numpy(xlens))
     np.testing.assert_allclose(got.numpy(), np.asarray(want),
                                atol=ATOL, rtol=RTOL)
+
+
+# ---- backward (K1b's plain version) -------------------------------------
+
+@pytest.mark.parametrize("t,r,klens", [
+    (9, 4, [9, 5, 1]),      # clamped table, ragged keys
+    (6, 6, [6, 3, 2]),      # unclamped: R = T
+    (5, 3, [5, 0, 2]),      # a row with every key masked: only dv flows
+])
+def test_rel_attention_bwd_ref_matches_autograd(t, r, klens):
+    """The written-out adjoint against torch autograd through the plain
+    forward, float64 (so the bound is rounding, 1e-10)."""
+    from neural_sp_tpu_torch.ops.kernels.rel_attention import (
+        rel_attention_bwd_ref, rel_attention_fwd)
+    rng = np.random.RandomState(t)
+    q, k, v = (torch.from_numpy(rng.randn(3, 2, t, 8)).requires_grad_(True)
+               for _ in range(3))
+    p = torch.from_numpy(rng.randn(3, 2, t, r)).requires_grad_(True)
+    kl = torch.tensor(klens, dtype=torch.int32)
+    o = rel_attention_ref(q, k, v, p, kl)
+    do = torch.from_numpy(rng.randn(*o.shape))
+    want = torch.autograd.grad(o, (q, k, v, p), do)
+    with torch.no_grad():
+        o2, m, l = rel_attention_fwd(q, k, v, p, kl)
+        got = rel_attention_bwd_ref(q, k, v, p, kl, o2, m, l, do)
+    for name, x, y in zip(("dq", "dk", "dv", "dp"), got, want):
+        np.testing.assert_allclose(x.numpy(), y.numpy(), rtol=1e-10,
+                                   atol=1e-10, err_msg=name)
+
+
+@pytest.mark.parametrize("t", [7, 40])
+def test_relative_mha_grads_match_jax(t):
+    """Gradients of the module (its backward on CPU is
+    ``rel_attention_bwd_ref``) against ``jax.grad`` of the JAX module, for
+    the input and every weight; tolerance relative to each leaf's largest
+    magnitude (atol = 2e-4 of it, plus 1e-5 for w_key's bias, whose
+    gradient is zero under the softmax's shift invariance, so what both
+    sides give is the rounding left over from cancelling O(1) terms)."""
+    d, h, clamp = 64, 4, 10
+    rng = np.random.RandomState(t + 1)
+    xs = rng.randn(3, t, d).astype(np.float32)
+    xlens = np.array([t, t - 3, 2], np.int32)
+    dout = rng.randn(3, t, d).astype(np.float32)
+    jm = JaxRelMHA(d_model=d, n_heads=h, clamp_len=clamp, xl_like=False)
+    mask = jax_san_mask(jax_pad_mask(jnp.asarray(xlens), t))
+    params = jm.init(jax.random.PRNGKey(t), jnp.asarray(xs), mask=mask)
+    params = jax.tree.map(
+        lambda x: np.asarray(x) + 0.05 * rng.randn(*x.shape).astype(
+            np.float32), jax.tree.map(np.asarray, params))
+
+    def jloss(p, x):
+        out, _, _ = jm.apply(p, x, mask=mask)
+        return jnp.sum(out * dout)
+
+    g_p, g_x = jax.grad(jloss, argnums=(0, 1))(params, jnp.asarray(xs))
+    tm = RelativeMultiheadAttention(d, h, clamp_len=clamp)
+    tm.load_state_dict(convert_params(params["params"]), strict=True)
+    x = torch.from_numpy(xs).requires_grad_(True)
+    (tm(x, torch.from_numpy(xlens)) * torch.from_numpy(dout)).sum().backward()
+    want = convert_params(jax.tree.map(np.asarray, g_p["params"]))
+    pairs = [("input", x.grad, np.asarray(g_x))] + [
+        (n, p_.grad, want[n].numpy()) for n, p_ in tm.named_parameters()]
+    for name, got, w in pairs:
+        scale = float(np.abs(w).max())
+        np.testing.assert_allclose(got.numpy(), w, rtol=0,
+                                   atol=ATOL * scale + 1e-5, err_msg=name)
