@@ -7,11 +7,16 @@ Run from the repository root on a machine with one NVIDIA H100:
 
 Phases (any failure raises and the script exits non-zero):
   1. build the CUDA kernels from ``neural_sp_tpu_torch/ops/kernels/csrc``
-     with nvcc (sm_90a) and time the build;
+     with nvcc (sm_90a, one nvcc per source, all at once) and time the
+     build;
   2. hold each kernel against its plain PyTorch twin at the serving path's
      shapes (K1 rel_attention: B=4, H=8, dk=64, R=11, T in 800/400/200 with
      ragged lengths; K2 las_step: N=10 hypotheses, T in 200/400), TF32 off,
-     and time kernel and twin with CUDA events;
+     and time kernel and twin with CUDA events; K1 also against its library
+     yardstick, ``F.scaled_dot_product_attention`` with the rel-PE bias as
+     an additive mask (efficient backend), timed in turns with the kernel;
+     each kernel's bound (``ops/kernels/roofline.py`` from its ``*_cost``)
+     is printed beside its time;
   3. build the flagship Conformer-LAS (``configs.flagship_args(faithful=
      True)``, full widths, seeded random weights) on the card and serve a
      batch of 4 fbank-shaped utterances (700/1000/1300/1600 frames x 80)
@@ -27,11 +32,13 @@ Phases (any failure raises and the script exits non-zero):
   2b. (after 4, so the serving phases keep their order) hold the training
      kernels against their plain versions at the training path's shapes:
      K1b rel_attention_bwd (B=32, H=8, dk=64, R=11, T in 750/375/188,
-     ragged lengths), K3 las_scan and K3b las_scan_bwd (B=32, U+1=101,
-     T=188, H=1024, D=A=512, C=10, K=201, dropout keep-masks), K4 ctc_loss
-     forward and backward (B=32, T=188, U=100, V=10000, ragged lengths, a
-     repeated label); errors are normalised by the reference's largest
-     magnitude;
+     ragged lengths; and K1 there at full lengths), K3 las_scan and K3b
+     las_scan_bwd (B=32, U+1=101, T=188, H=1024, D=A=512, C=10, K=201,
+     dropout keep-masks), K4 ctc_loss forward and backward (B=32, T=188,
+     U=100, V=10000, ragged lengths, a repeated label); errors are
+     normalised by the reference's largest magnitude; K1b against the
+     autograd backward of K1's yardstick, K4 against ``F.ctc_loss``; each
+     with its bound;
   5. train the flagship (same model, ``train()`` mode: SpecAugment and
      dropout on, f32, TF32 off) with noam Adam, clip 5 and 4-step
      accumulation on B=32 utterances of 1500 frames x 80 with U=100 labels:
@@ -43,8 +50,12 @@ Phases (any failure raises and the script exits non-zero):
      (lr 1e-4) on a fixed batch of 8 utterances in ``train()`` mode, whose
      loss must fall.
 
-Prints the card's ``name, power.limit`` (nvidia-smi), then one JSON line of
-per-kernel results, and as its last line
+Launches per step (per encode for K1, per decode step for K2, per training
+microstep for the rest) are counted in phases 3b, 4 and 5. Prints the
+details as JSON (also written to ``chiprun_out/chip_smoke.json``), then one
+JSON line of per-kernel results (launches, launches_per_step, ms,
+plain_ms, bound_ms, bound_by, library_ms, errors), the card's ``name,
+power.limit`` (nvidia-smi), and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a CUDA device, or without the package beside this script, it exits
 non-zero and prints no result.
@@ -67,6 +78,9 @@ FRAME_SEC = 0.01
 # (online softmax, split-K GEMV), so agreement is to float32 rounding
 # amplified by the reduction length.
 KERNEL_ATOL = 1e-4
+# A library yardstick's output against the plain version, max |err| / max
+# |reference|: it must compute the same function.
+YARDSTICK_RTOL = 1e-3
 # Whole encoder (12 layers) and a replayed decoder chain: the per-kernel
 # rounding differences above, carried through every layer / step.
 PATH_ATOL = 2e-3
@@ -106,8 +120,88 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def timed_pair(fn, library, iters: int = 20) -> tuple[float, float]:
+    """CUDA-event ms of a kernel and of its library yardstick, timed in
+    turns (kernel, library, library, kernel), each the mean of its two."""
+    k1, l1 = cuda_ms(fn, iters), cuda_ms(library, iters)
+    l2, k2 = cuda_ms(library, iters), cuda_ms(fn, iters)
+    return (k1 + k2) / 2, (l1 + l2) / 2
+
+
+def roofline(cost: tuple[int, int], simt: bool = False) -> dict:
+    """The least time the card could take for (flops, bytes): bound_ms and
+    bound_by; for matrix products also the bound on the SIMT pipes alone
+    (what the f32 kernels without tensor cores can reach at best)."""
+    from neural_sp_tpu_torch.ops.kernels.roofline import (
+        F32_SIMT_FLOPS, F32_TENSOR_FLOPS, bound_ms)
+    flops, nbytes = cost
+    ms, by = bound_ms(flops, nbytes, F32_SIMT_FLOPS if simt
+                      else F32_TENSOR_FLOPS)
+    out = {"flops": flops, "bytes": nbytes, "bound_ms": ms, "bound_by": by}
+    if not simt:
+        out["simt_bound_ms"] = bound_ms(flops, nbytes, F32_SIMT_FLOPS)[0]
+    return out
+
+
 def max_err(a, b) -> float:
     return float((a - b).abs().max())
+
+
+def rel_bias(torch, p, klens):
+    """K1's rel-PE bias and key mask as one additive [B, H, T, T] mask for
+    the library yardstick: p[b, h, i, min(|i-j|, R-1)] on valid keys,
+    finfo(f32).min / 2 on masked ones. A view into rows padded to a
+    multiple of 16 floats, the alignment the efficient kernel takes."""
+    b, h, t, r = p.shape
+    pos = torch.arange(t, device=p.device)
+    idx = (pos[:, None] - pos[None, :]).abs().clamp(max=r - 1)
+    bias = torch.empty((b, h, t, -(-t // 16) * 16), device=p.device)[..., :t]
+    bias.copy_(torch.gather(p, -1, idx.expand(b, h, t, t)))
+    masked = pos[None, :] >= klens[:, None].long()
+    return bias.masked_fill_(masked[:, None, None, :],
+                             torch.finfo(torch.float32).min / 2)
+
+
+def bias_grad_to_buckets(torch, dbias, r):
+    """dbias [B, H, T, T] summed into the R distance buckets of dp."""
+    b, h, t, _ = dbias.shape
+    pos = torch.arange(t, device=dbias.device)
+    idx = (pos[:, None] - pos[None, :]).abs().clamp(max=r - 1)
+    return torch.zeros((b, h, t, r), device=dbias.device).scatter_add_(
+        -1, idx.expand(b, h, t, t), dbias)
+
+
+def efficient_sdpa():
+    """The efficient-attention backend only: float32 on the tensor cores
+    with the 3xTF32 split, taking an additive float mask."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    return sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION)
+
+
+def rel_attention_yardstick(torch, args, kernel, what: str,
+                            phase: str = "2") -> dict:
+    """K1 against F.scaled_dot_product_attention(q, k, v, attn_mask=bias,
+    scale=1.0), the efficient backend, on the same inputs. The bias is
+    built once, outside the timed region, and its time is logged apart.
+    The library's output is held to the plain version (within
+    YARDSTICK_RTOL of its max): a yardstick that computes something else is
+    none."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+    from neural_sp_tpu_torch.ops.kernels import rel_attention_ref
+    q, k, v, p, klens = args
+    bias_ms = cuda_ms(lambda: rel_bias(torch, p, klens), iters=3, warmup=1)
+    bias = rel_bias(torch, p, klens)
+    with efficient_sdpa():
+        err = rel_err(sdpa(q, k, v, attn_mask=bias, scale=1.0),
+                      rel_attention_ref(*args))
+        ms, lib_ms = timed_pair(lambda: kernel(*args), lambda: sdpa(
+            q, k, v, attn_mask=bias, scale=1.0))
+    log(f"[{phase}] K1 {what}: kernel {ms:.4f} ms  library (SDPA, efficient) "
+        f"{lib_ms:.4f} ms, its error {err:.3e} of the plain max; bias "
+        f"built in {bias_ms:.4f} ms")
+    expect(err <= YARDSTICK_RTOL, f"K1 yardstick {what}: error {err}")
+    return {"kernel_ms": ms, "library_ms": lib_ms, "library_err": err,
+            "bias_ms": bias_ms}
 
 
 def expect(ok: bool, what: str) -> None:
@@ -133,32 +227,43 @@ def phase_build():
 def phase_kernels(torch, rng):
     from neural_sp_tpu_torch.ops.kernels import (
         las_step, las_step_ref, rel_attention, rel_attention_ref)
+    from neural_sp_tpu_torch.ops.kernels.las_step import las_step_cost
+    from neural_sp_tpu_torch.ops.kernels.rel_attention import \
+        rel_attention_cost
     dev = torch.device("cuda")
 
     def t(*shape, scale=1.0):
         return torch.from_numpy(
             (rng.standard_normal(shape) * scale).astype("float32")).to(dev)
 
-    res = {"rel_attention": {"max_abs_err": 0.0},
+    res = {"rel_attention": {"max_abs_err": 0.0, "shapes": []},
            "las_step": {"max_abs_err": 0.0}}
     b, h, dk, r = 4, 8, 64, 11
     for tt in (800, 400, 200):
         q, k, v = t(b, h, tt, dk, scale=dk ** -0.5), t(b, h, tt, dk), \
             t(b, h, tt, dk)
         p = t(b, h, tt, r, scale=dk ** -0.5)
-        klens = torch.tensor([tt, tt - tt // 4, tt // 2, tt // 3 + 1],
-                             dtype=torch.int32, device=dev)
+        kl = [tt, tt - tt // 4, tt // 2, tt // 3 + 1]
+        klens = torch.tensor(kl, dtype=torch.int32, device=dev)
         args = (q, k, v, p, klens)
         err = max_err(rel_attention(*args), rel_attention_ref(*args))
-        ms, ref_ms = cuda_ms(lambda: rel_attention(*args)), \
-            cuda_ms(lambda: rel_attention_ref(*args))
-        log(f"[2] K1 rel_attention B={b} H={h} T={tt} dk={dk} R={r}: "
-            f"max_abs_err {err:.3e}  kernel {ms:.4f} ms  twin {ref_ms:.4f} ms")
+        ref_ms = cuda_ms(lambda: rel_attention_ref(*args))
+        what = f"B={b} H={h} T={tt} dk={dk} R={r} klens={kl}"
+        yard = rel_attention_yardstick(torch, args, rel_attention, what)
+        bound = roofline(rel_attention_cost(b, h, tt, dk, r, kl))
+        ms = yard["kernel_ms"]
+        log(f"[2] K1 rel_attention {what}: max_abs_err {err:.3e}  kernel "
+            f"{ms:.4f} ms  twin {ref_ms:.4f} ms  bound {bound['bound_ms']:.4f}"
+            f" ms ({bound['bound_by']}; SIMT f32 alone "
+            f"{bound['simt_bound_ms']:.4f} ms)")
         expect(err <= KERNEL_ATOL, f"K1 T={tt}: error {err} > {KERNEL_ATOL}")
-        res["rel_attention"]["max_abs_err"] = max(
-            res["rel_attention"]["max_abs_err"], err)
+        row = res["rel_attention"]
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        shape = {"shape": what, "ms": ms, "plain_ms": ref_ms, **yard, **bound}
+        row["shapes"].append(shape)
         if tt == 800:
-            res["rel_attention"].update(ms=ms, plain_ms=ref_ms)
+            row.update(ms=ms, plain_ms=ref_ms, library_ms=yard["library_ms"],
+                       library_err=yard["library_err"], **bound)
 
     n, hd, d, a, c, kw = 10, 1024, 512, 512, 10, 201
     for tt in (200, 400):
@@ -175,13 +280,19 @@ def phase_kernels(torch, rng):
         err = max(max_err(x, y) for x, y in zip(outs, refs))
         ms, ref_ms = cuda_ms(lambda: las_step(*args)), \
             cuda_ms(lambda: las_step_ref(*args))
+        bound = roofline(las_step_cost(n, tt, hd, d, a, c, kw,
+                                       args[-1].tolist()))
         log(f"[2] K2 las_step N={n} T={tt} H={hd} D={d} A={a} C={c} K={kw}: "
-            f"max_abs_err {err:.3e}  kernel {ms:.4f} ms  twin {ref_ms:.4f} ms")
+            f"max_abs_err {err:.3e}  kernel {ms:.4f} ms  twin {ref_ms:.4f} ms"
+            f"  bound {bound['bound_ms']:.4f} ms ({bound['bound_by']})")
         expect(err <= KERNEL_ATOL, f"K2 T={tt}: error {err} > {KERNEL_ATOL}")
         res["las_step"]["max_abs_err"] = max(
             res["las_step"]["max_abs_err"], err)
         if tt == 200:
-            res["las_step"].update(ms=ms, plain_ms=ref_ms)
+            # no single PyTorch call computes an LSTM cell with location
+            # attention fed back: no library yardstick
+            res["las_step"].update(ms=ms, plain_ms=ref_ms, library_ms=None,
+                                   **bound)
     return res
 
 
@@ -189,9 +300,9 @@ def flagship_model(torch):
     from neural_sp_tpu_torch.configs import flagship_args
     from neural_sp_tpu_torch.models.speech2text import build_speech2text
     from neural_sp_tpu_torch.utils.init_params import init_params
-    model = build_speech2text(flagship_args(faithful=True))
+    model = build_speech2text(flagship_args(faithful=True))   # on the card
     init_params(model, SEED)
-    return model.to("cuda").eval()
+    return model.eval()
 
 
 def utterances(rng):
@@ -278,7 +389,7 @@ def profiled(torch, what: str, fn) -> dict:
     out.update(device_busy_s=busy_us / 1e6,
                device_idle_share=1.0 - busy_us / 1e6 / wall,
                top_device_ms=dict(sorted(by_name.items(),
-                                         key=lambda kv: -kv[1])[:8]))
+                                         key=lambda kv: -kv[1])[:12]))
     log(f"[3b] {what}: wall {wall:.3f} s, device busy "
         f"{busy_us / 1e6:.4f} s, idle share {out['device_idle_share']:.4f}")
     for name, ms in out["top_device_ms"].items():
@@ -296,13 +407,17 @@ def phase_breakdown(torch, model, xs, xlens):
                                                   ctc_weight=0.3))
     device_beam = Speech2TextSession(model, DecodeConfig(beam_width=10,
                                                          device_beam=True))
+    from neural_sp_tpu_torch.ops.kernels import rel_attention, reset_launches
+    reset_launches()
     t0 = time.perf_counter()
     beam.encode(xs, xlens)
     torch.cuda.synchronize()
     enc_s = time.perf_counter() - t0
-    log(f"[3b] encoder, batch of {len(UTT_FRAMES)}: {enc_s:.4f} s")
+    per_encode = rel_attention.launches
+    log(f"[3b] encoder, batch of {len(UTT_FRAMES)}: {enc_s:.4f} s; K1 "
+        f"launches per encode {per_encode}")
     n = UTT_FRAMES[0]
-    return {"encode_batch_s": enc_s,
+    return {"encode_batch_s": enc_s, "k1_launches_per_encode": per_encode,
             "beam10_ctc0.3_one_utt": profiled(
                 torch, f"beam 10 + CTC 0.3, the {n}-frame utterance",
                 lambda: beam.decode(xs[:1, :n], xlens[:1])),
@@ -319,7 +434,7 @@ def phase_twins(torch, model, xs, xlens, best_hyp):
         DecodeConfig, Speech2TextSession)
     from neural_sp_tpu_torch.models.modules import \
         relative_multihead_attention as rma
-    from neural_sp_tpu_torch.ops.kernels import las_step_ref, \
+    from neural_sp_tpu_torch.ops.kernels import las_step, las_step_ref, \
         rel_attention_ref
     sess = Speech2TextSession(model, DecodeConfig(beam_width=10,
                                                   ctc_weight=0.3))
@@ -339,6 +454,7 @@ def phase_twins(torch, model, xs, xlens, best_hyp):
     klens = el0.to(torch.int32)
     tokens = [EOS] + best_hyp
     step_err = 0.0
+    before = las_step.launches
     with torch.inference_mode():
         kc = dec.precompute_keys(e0)
         carry = carry_ref = dec.init_carry(1, e0.shape[1], e0.device)
@@ -350,10 +466,12 @@ def phase_twins(torch, model, xs, xlens, best_hyp):
                     carry_ref, y_t, kc, e0, klens)
             expect(bool(torch.isfinite(logits).all()), "logits not finite")
             step_err = max(step_err, max_err(logits, logits_ref))
+    per_step = (las_step.launches - before) / len(tokens)
     log(f"[4] best hypothesis replay, {len(tokens)} steps: kernels vs twins "
-        f"logits max_abs_err {step_err:.3e}")
+        f"logits max_abs_err {step_err:.3e}; K2 launches per decode step "
+        f"{per_step}")
     expect(step_err <= PATH_ATOL, f"decoder error {step_err} > {PATH_ATOL}")
-    return enc_err, step_err
+    return enc_err, step_err, per_step
 
 
 def rel_err(got, want) -> float:
@@ -362,84 +480,190 @@ def rel_err(got, want) -> float:
                                                  1e-30)
 
 
+def rel_attention_bwd_yardstick(torch, args, kernel, what: str) -> dict:
+    """K1b against the autograd backward of K1's yardstick call
+    (torch.autograd.grad of the efficient SDPA output w.r.t. q, k, v and
+    the bias, on the same do), timed alone; the scatter of dbias into the R
+    buckets of dp is timed apart. The library's dq, dk, dv, dp are held to
+    the plain version."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+    from neural_sp_tpu_torch.ops.kernels.rel_attention import \
+        rel_attention_bwd_ref
+    q, k, v, p, klens, _, _, _, do = args
+    bias = rel_bias(torch, p, klens).requires_grad_()
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    with efficient_sdpa():
+        out = sdpa(*leaves, attn_mask=bias, scale=1.0)
+
+        def grads():
+            return torch.autograd.grad(out, (*leaves, bias), do,
+                                       retain_graph=True)
+
+        *dqkv, dbias = grads()
+        ms, lib_ms = timed_pair(lambda: kernel(*args), grads, iters=10)
+    r = p.shape[-1]
+    scatter_ms = cuda_ms(lambda: bias_grad_to_buckets(torch, dbias, r),
+                         iters=5, warmup=1)
+    got = (*dqkv, bias_grad_to_buckets(torch, dbias, r))
+    err = max(rel_err(x, y) for x, y in zip(got,
+                                            rel_attention_bwd_ref(*args)))
+    log(f"[2b] K1b {what}: kernel {ms:.4f} ms  library (SDPA backward, "
+        f"efficient) {lib_ms:.4f} ms + dbias into buckets {scatter_ms:.4f} "
+        f"ms; library error {err:.3e} of the plain max")
+    expect(err <= YARDSTICK_RTOL, f"K1b yardstick {what}: error {err}")
+    return {"kernel_ms": ms, "library_ms": lib_ms, "library_err": err,
+            "bucket_scatter_ms": scatter_ms}
+
+
+def ctc_yardstick(torch, cargs, nll_r, alphas_r, g) -> dict:
+    """K4 against F.ctc_loss(lp.transpose(0, 1), labels, lengths, blank=0,
+    reduction="none"): forward against K4's forward; F.ctc_loss's backward
+    gives the gradient w.r.t. the logits, so it is set against K4's
+    backward followed by the log-softmax backward. Each output is held to
+    the plain version."""
+    from torch.nn.functional import ctc_loss
+    from neural_sp_tpu_torch.ops.kernels.ctc_loss import (
+        ctc_loss_bwd, ctc_loss_bwd_ref, ctc_loss_fwd)
+    lp, labels, tl, ul = cargs
+
+    def lib_fwd(x=lp):
+        return ctc_loss(x.transpose(0, 1), labels, tl, ul, blank=0,
+                        reduction="none")
+
+    def lsm_bwd(grad):
+        return torch._log_softmax_backward_data(grad, lp, -1, lp.dtype)
+
+    leaf = lp.detach().requires_grad_()
+    loss = lib_fwd(leaf)
+
+    def lib_bwd():
+        return torch.autograd.grad(loss, leaf, g, retain_graph=True)[0]
+
+    err = max(rel_err(lib_fwd(), nll_r), rel_err(lib_bwd(), lsm_bwd(
+        ctc_loss_bwd_ref(*cargs, nll_r, alphas_r, g))))
+    fwd_ms, fwd_lib = timed_pair(lambda: ctc_loss_fwd(*cargs), lib_fwd)
+    bwd_lsm_ms, bwd_lib = timed_pair(
+        lambda: lsm_bwd(ctc_loss_bwd(*cargs, nll_r, alphas_r, g)), lib_bwd)
+    log(f"[2b] K4 forward {fwd_ms:.4f} ms, F.ctc_loss forward {fwd_lib:.4f}"
+        f" ms; K4 backward + log-softmax backward {bwd_lsm_ms:.4f} ms, "
+        f"F.ctc_loss backward {bwd_lib:.4f} ms; library error {err:.3e} of "
+        f"the plain max")
+    expect(err <= YARDSTICK_RTOL, f"K4 yardstick: error {err}")
+    return {"fwd_kernel_ms": fwd_ms, "fwd_library_ms": fwd_lib,
+            "bwd_with_log_softmax_ms": bwd_lsm_ms, "bwd_library_ms": bwd_lib,
+            "library_ms": fwd_lib + bwd_lib, "library_err": err}
+
+
 def phase_train_kernels(torch, rng):
     """2b: the training kernels against their plain versions, at the
-    training path's shapes, with CUDA-event times of each."""
+    training path's shapes, with CUDA-event times of each, their bounds
+    and their library yardsticks; K1 at the training shapes too."""
     import numpy as np
+    from neural_sp_tpu_torch.ops.kernels import rel_attention
     from neural_sp_tpu_torch.ops.kernels.ctc_loss import (
-        ctc_forward_alphas, ctc_loss_bwd, ctc_loss_bwd_ref, ctc_loss_fwd)
+        ctc_forward_alphas, ctc_loss_bwd, ctc_loss_bwd_cost,
+        ctc_loss_bwd_ref, ctc_loss_cost, ctc_loss_fwd)
     from neural_sp_tpu_torch.ops.kernels.las_scan import (
-        las_scan, las_scan_bwd, las_scan_bwd_ref, las_scan_ref)
+        las_scan, las_scan_bwd, las_scan_bwd_cost, las_scan_bwd_ref,
+        las_scan_cost, las_scan_ref)
     from neural_sp_tpu_torch.ops.kernels.rel_attention import (
-        rel_attention_bwd, rel_attention_bwd_ref, rel_attention_fwd)
+        rel_attention_bwd, rel_attention_bwd_cost, rel_attention_bwd_ref,
+        rel_attention_cost, rel_attention_fwd, rel_attention_ref)
     dev = torch.device("cuda")
 
     def t(*shape, scale=1.0):
         return torch.from_numpy(
             (rng.standard_normal(shape) * scale).astype("float32")).to(dev)
 
-    res = {}
+    res = {"rel_attention_train_shapes": []}
 
-    def record(name, err, ms, ref_ms, what):
+    def record(name, err, ms, ref_ms, what, **extra):
         log(f"[2b] {name} {what}: error {err:.3e} (of the reference's max)"
-            f"  kernel {ms:.4f} ms  plain {ref_ms:.4f} ms")
+            f"  kernel {ms:.4f} ms  plain {ref_ms:.4f} ms"
+            + (f"  bound {extra['bound_ms']:.4f} ms ({extra['bound_by']})"
+               if "bound_ms" in extra else ""))
         tol = TRAIN_KERNEL_TOL[name]
         expect(err <= tol, f"{name} {what}: error {err} > {tol}")
-        r = res.setdefault(name, {"max_abs_err": 0.0})
+        r = res.setdefault(name, {"max_abs_err": 0.0, "shapes": []})
         r["max_abs_err"] = max(r["max_abs_err"], err)
+        r["shapes"].append({"shape": what, "ms": ms, "plain_ms": ref_ms,
+                            **extra})
         if "ms" not in r:
-            r.update(ms=ms, plain_ms=ref_ms)
+            r.update(ms=ms, plain_ms=ref_ms, **extra)
 
     b, h, dk, r = TRAIN_B, 8, 64, 11
     for tt in (750, 375, 188):
         q, k, v = t(b, h, tt, dk, scale=dk ** -0.5), t(b, h, tt, dk), \
             t(b, h, tt, dk)
         p = t(b, h, tt, r, scale=dk ** -0.5)
-        klens = torch.from_numpy(np.maximum(
-            tt - (np.arange(b) * tt) // (2 * b), 1).astype("int32")).to(dev)
+        kl = np.maximum(tt - (np.arange(b) * tt) // (2 * b), 1).tolist()
+        klens = torch.tensor(kl, dtype=torch.int32, device=dev)
         o, m, l = rel_attention_fwd(q, k, v, p, klens)
         do = t(b, h, tt, dk)
         args = (q, k, v, p, klens, o, m, l, do)
         got, want = rel_attention_bwd(*args), rel_attention_bwd_ref(*args)
         err = max(rel_err(x, y) for x, y in zip(got, want))
-        record("rel_attention_bwd", err,
-               cuda_ms(lambda: rel_attention_bwd(*args)),
-               cuda_ms(lambda: rel_attention_bwd_ref(*args)),
-               f"B={b} H={h} T={tt} dk={dk} R={r}")
+        what = f"B={b} H={h} T={tt} dk={dk} R={r}"
+        yard = rel_attention_bwd_yardstick(
+            torch, args, rel_attention_bwd, what + " ragged klens")
+        record("rel_attention_bwd", err, yard["kernel_ms"],
+               cuda_ms(lambda: rel_attention_bwd_ref(*args), iters=5),
+               what, **yard,
+               **roofline(rel_attention_bwd_cost(b, h, tt, dk, r, kl)))
+        # K1 at the training shapes, full lengths as phase 5 runs it
+        full = torch.full((b,), tt, dtype=torch.int32, device=dev)
+        fargs = (q, k, v, p, full)
+        err = max_err(rel_attention(*fargs), rel_attention_ref(*fargs))
+        expect(err <= KERNEL_ATOL, f"K1 {what}: error {err} > {KERNEL_ATOL}")
+        yard = rel_attention_yardstick(torch, fargs, rel_attention,
+                                       what + " full lengths", phase="2b")
+        bound = roofline(rel_attention_cost(b, h, tt, dk, r, [tt] * b))
+        res["rel_attention_train_shapes"].append(
+            {"shape": what + " full lengths", "ms": yard["kernel_ms"],
+             "plain_ms": cuda_ms(lambda: rel_attention_ref(*fargs), iters=5),
+             "max_abs_err": err, **yard, **bound})
+        log(f"[2b] K1 {what} full lengths: max_abs_err {err:.3e}  bound "
+            f"{bound['bound_ms']:.4f} ms ({bound['bound_by']})")
+        del got, want, args, fargs, o, m, l, do
 
     u, tt, hd, d, a, c, kw = 101, 188, 1024, 512, 512, 10, 201
     rate = 0.1
     keep = (torch.from_numpy((rng.random((u, b, hd)) >= rate).astype(
         "float32")) / (1 - rate)).to(dev)
+    kl = [tt - 3 * i for i in range(b)]
     args = (t(u, b, 4 * hd, scale=0.5), t(d, 4 * hd, scale=(d + hd) ** -0.5),
             t(hd, 4 * hd, scale=(d + hd) ** -0.5), t(4 * hd, scale=0.1),
             t(a, hd, scale=hd ** -0.5), t(c, kw, scale=kw ** -0.5),
             t(a, c, scale=c ** -0.5), t(a, scale=a ** -0.5), t(b, tt, a),
-            t(b, tt, d), torch.tensor([tt - 3 * i for i in range(b)],
-                                      dtype=torch.int32, device=dev), keep)
+            t(b, tt, d), torch.tensor(kl, dtype=torch.int32, device=dev),
+            keep)
     outs, refs = las_scan(*args), las_scan_ref(*args)
     what = f"B={b} U={u} T={tt} H={hd} D={d} A={a} C={c} K={kw}"
+    # no single PyTorch call computes the scan (cuDNN's LSTM has no
+    # attention fed back into its input): no library yardstick
     record("las_scan", max(rel_err(x, y) for x, y in zip(outs, refs)),
            cuda_ms(lambda: las_scan(*args), iters=5, warmup=1),
-           cuda_ms(lambda: las_scan_ref(*args), iters=5, warmup=1), what)
-    w_ctx, w_h, _, w_q, conv_w, w_f, v, kc, values, kl, keep = args[1:]
-    bargs = (w_ctx, w_h, w_q, conv_w, w_f, v, kc, values, kl, keep, *refs,
+           cuda_ms(lambda: las_scan_ref(*args), iters=5, warmup=1), what,
+           library_ms=None,
+           **roofline(las_scan_cost(u, b, tt, hd, d, a, c, kw, kl)))
+    w_ctx, w_h, _, w_q, conv_w, w_f, v, kc, values, klt, keep = args[1:]
+    bargs = (w_ctx, w_h, w_q, conv_w, w_f, v, kc, values, klt, keep, *refs,
              t(u, b, hd), t(u, b, d))
     got, want = las_scan_bwd(*bargs), las_scan_bwd_ref(*bargs)
     record("las_scan_bwd", max(rel_err(x, y) for x, y in zip(got, want)),
            cuda_ms(lambda: las_scan_bwd(*bargs), iters=5, warmup=1),
            cuda_ms(lambda: las_scan_bwd_ref(*bargs), iters=5, warmup=1),
-           what)
+           what, library_ms=None,
+           **roofline(las_scan_bwd_cost(u, b, tt, hd, d, a, c, kw, kl)))
 
     tt, uu, vv = 188, TRAIN_U, 10000
     lp = torch.log_softmax(t(b, tt, vv, scale=2.0), -1)
     labels = rng.integers(4, vv, (b, uu))
     labels[:, 1] = labels[:, 0]                       # a repeated label
+    tl, ul = [tt - 2 * i for i in range(b)], [uu - (i % 9) for i in range(b)]
     cargs = (lp, torch.from_numpy(labels.astype("int32")).to(dev),
-             torch.tensor([tt - 2 * i for i in range(b)], dtype=torch.int32,
-                          device=dev),
-             torch.tensor([uu - (i % 9) for i in range(b)],
-                          dtype=torch.int32, device=dev))
+             torch.tensor(tl, dtype=torch.int32, device=dev),
+             torch.tensor(ul, dtype=torch.int32, device=dev))
     (nll, alphas), (nll_r, alphas_r) = ctc_loss_fwd(*cargs), \
         ctc_forward_alphas(*cargs)
     g = torch.linspace(0.5, 1.5, b, device=dev)
@@ -447,15 +671,22 @@ def phase_train_kernels(torch, rng):
     grad_r = ctc_loss_bwd_ref(*cargs, nll_r, alphas_r, g)
     err = max(rel_err(nll, nll_r), rel_err(alphas, alphas_r),
               rel_err(grad, grad_r))
-    fwd_ms = cuda_ms(lambda: ctc_loss_fwd(*cargs))
+    yard = ctc_yardstick(torch, cargs, nll_r, alphas_r, g)
+    fwd_ms = yard["fwd_kernel_ms"]
     fwd_ref = cuda_ms(lambda: ctc_forward_alphas(*cargs), iters=5, warmup=1)
     bwd_ms = cuda_ms(lambda: ctc_loss_bwd(*cargs, nll_r, alphas_r, g))
     bwd_ref = cuda_ms(lambda: ctc_loss_bwd_ref(*cargs, nll_r, alphas_r, g),
                       iters=5, warmup=1)
+    fwd_cost = ctc_loss_cost(b, tt, uu, vv, tl, ul)
+    bwd_cost = ctc_loss_bwd_cost(b, tt, uu, vv, tl, ul)
     log(f"[2b] ctc_loss forward kernel {fwd_ms:.4f} ms plain {fwd_ref:.4f} "
         f"ms; backward kernel {bwd_ms:.4f} ms plain {bwd_ref:.4f} ms")
     record("ctc_loss", err, fwd_ms + bwd_ms, fwd_ref + bwd_ref,
-           f"forward + backward B={b} T={tt} U={uu} V={vv}")
+           f"forward + backward B={b} T={tt} U={uu} V={vv}", **yard,
+           **roofline((fwd_cost[0] + bwd_cost[0], fwd_cost[1] + bwd_cost[1]),
+                      simt=True),
+           fwd_bound_ms=roofline(fwd_cost, simt=True)["bound_ms"],
+           bwd_bound_ms=roofline(bwd_cost, simt=True)["bound_ms"])
     res["ctc_loss"].update(fwd_ms=fwd_ms, fwd_plain_ms=fwd_ref,
                            bwd_ms=bwd_ms, bwd_plain_ms=bwd_ref)
     return res
@@ -639,15 +870,24 @@ def main() -> int:
     xs, xlens = utterances(rng)
     served, launches = phase_serve(torch, model, xs, xlens)
     breakdown = phase_breakdown(torch, model, xs, xlens)
-    enc_err, dec_err = phase_twins(torch, model, xs, xlens,
-                                   served["best_hyp0"])
-    kernels.update(phase_train_kernels(torch, rng))
+    enc_err, dec_err, k2_per_step = phase_twins(torch, model, xs, xlens,
+                                                served["best_hyp0"])
+    train_kernels = phase_train_kernels(torch, rng)
+    kernels["rel_attention"]["shapes"] += train_kernels.pop(
+        "rel_attention_train_shapes")
+    kernels.update(train_kernels)
     batch = train_batch(torch, rng)
     trained, train_launches = phase_train(torch, model, batch)
     parity = phase_train_parity(torch, model, batch)
     # each kernel's launches from the main path it belongs to: the served
     # requests (K1, K2) or the training run (the rest)
     launches = {**train_launches, **launches}
+    # per encode (K1), per decode step (K2), per training microstep (the
+    # rest)
+    microsteps = 3 * ACCUM
+    per_step = {name: n / microsteps for name, n in train_launches.items()}
+    per_step.update(rel_attention=breakdown["k1_launches_per_encode"],
+                    las_step=k2_per_step)
 
     csrc = "neural_sp_tpu_torch/ops/kernels/csrc/"
     srcs = {"rel_attention": (
@@ -668,18 +908,22 @@ def main() -> int:
         "ctc_loss": (
         csrc + "ctc_loss.cu",
         "neural_sp_tpu/ops/ctc_pallas.py:39 and :120 (63255ae~1)")}
-    log(json.dumps({"build_s": build_sec, "encoder_max_abs_err": enc_err,
-                    "decoder_max_abs_err": dec_err,
-                    "serve": {k: v for k, v in served.items()
-                              if k != "best_hyp0"},
-                    "breakdown": breakdown, "train": trained,
-                    "train_parity": parity,
-                    "ctc_loss_split_ms": kernels["ctc_loss"]}))
+    details = {"card": card, "build_s": build_sec,
+               "encoder_max_abs_err": enc_err,
+               "decoder_max_abs_err": dec_err,
+               "serve": {k: v for k, v in served.items() if k != "best_hyp0"},
+               "breakdown": breakdown, "train": trained,
+               "train_parity": parity, "kernels": kernels}
+    log(json.dumps(details))
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke.json").write_text(json.dumps(details, indent=1))
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "simt_bound_ms", "library_err")
     entries = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name],
-         "max_abs_err": kernels[name]["max_abs_err"],
-         "ms": kernels[name]["ms"], "plain_ms": kernels[name]["plain_ms"]}
+         "launches": launches[name], "launches_per_step": per_step[name],
+         **{key: kernels[name].get(key) for key in keys}}
         for name, (src, rep) in srcs.items()]
     # K4's ms are forward + backward; its backward entry point counts apart
     next(e for e in entries if e["name"] == "ctc_loss")["bwd_launches"] = \

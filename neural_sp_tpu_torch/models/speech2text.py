@@ -85,15 +85,22 @@ _NOT_PORTED = ("bwd_weight", "sub1_weight", "sub2_weight",
                "weight_noise_std")
 
 
-def build_speech2text(args) -> Speech2Text:
-    """Assemble a Speech2Text from a reference-style args namespace. The
-    flagship's training options are honoured: SpecAugment (freq_width,
-    n_freq_masks, time_width, n_time_masks, time_width_upper), lsm_prob,
-    dropout_enc, dropout_dec, dropout_emb; the others raise
-    ``NotImplementedError``."""
+def build_speech2text(args, device=None) -> Speech2Text:
+    """Assemble a Speech2Text from a reference-style args namespace, on
+    ``device``: the CUDA card when it is None, the CPU only when asked for
+    (``device="cpu"``). Without a card the default raises: nothing falls
+    back to the CPU. The flagship's training options are honoured:
+    SpecAugment (freq_width, n_freq_masks, time_width, n_time_masks,
+    time_width_upper), lsm_prob, dropout_enc, dropout_dec, dropout_emb; the
+    others raise ``NotImplementedError``."""
     from .decoders.build import build_decoder
     from .encoders.build import build_encoder
 
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "build_speech2text: no CUDA device; pass device=\"cpu\" to "
+            "build the model on the CPU")
     g = lambda name, default=None: getattr(args, name, default)  # noqa: E731
     for name in _NOT_PORTED:
         if g(name, 0):
@@ -114,4 +121,4 @@ def build_speech2text(args) -> Speech2Text:
                    n_time_masks=g("n_time_masks", 0),
                    p=g("time_width_upper", 1.0))
     return Speech2Text(encoder=enc, dec_fwd=dec_fwd, ctc=ctc,
-                       ctc_weight=ctc_weight, specaug=specaug)
+                       ctc_weight=ctc_weight, specaug=specaug).to(device)

@@ -36,4 +36,6 @@ def raise_on_error(kernel: str, err: int) -> None:
 
 
 def stream_of(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The raw handle of the current stream on t's device (the accessor
+    PyTorch's own generated kernels use: no Stream object is built)."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)

@@ -1,12 +1,14 @@
 """Build the port's CUDA kernels into one shared library and load it.
 
-Every ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` (the H100) into
+Every ``csrc/*.cu`` is compiled by its own ``nvcc`` for ``sm_90a`` (the
+H100), all of them at once, and the objects are linked into
 ``build/libnsp_kernels_<hash>.so`` beside this file, on first use in a
-process; the hash covers the sources and the flags, so an edited source is
-rebuilt and an unchanged one is loaded as it is. The library has a plain C
-interface (no PyTorch headers, so a build takes seconds) and is bound with
-``ctypes``: pointers are ``tensor.data_ptr()``, the stream is
-``torch.cuda.current_stream().cuda_stream``, both passed as ``c_void_p``.
+process; the hash covers the sources, the headers (``csrc/*.cuh``) and the
+flags, so an edited source is rebuilt and an unchanged one is loaded as it
+is. The library has a plain C interface (no PyTorch headers, so a build
+takes seconds) and is bound with ``ctypes``: pointers are
+``tensor.data_ptr()``, the stream is the current CUDA stream's raw handle,
+both passed as ``c_void_p``.
 
 Nothing here runs at import time.
 """
@@ -24,7 +26,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -47,6 +49,10 @@ def _sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
+def _headers() -> list[Path]:
+    return sorted(CSRC.glob("*.cuh"))
+
+
 def _digest(sources: list[Path]) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in sources:
@@ -55,27 +61,40 @@ def _digest(sources: list[Path]) -> str:
     return h.hexdigest()[:16]
 
 
+def _run_all(cmds: list[list[str]]) -> str:
+    """Run the commands at once; raise if one fails. Returns their output,
+    standard error included."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    outs = [proc.communicate()[0] for proc in procs]
+    for cmd, proc, out in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{out}")
+    return "".join(outs)
+
+
 @functools.cache
 def build_library() -> tuple[Path, str]:
     """Compile the kernels if needed. Returns (path of the .so, nvcc's
     output: ``-Xptxas -v`` register and shared-memory use per kernel, or
     "" when the library was already built)."""
     sources = _sources()
-    lib = BUILD_DIR / f"libnsp_kernels_{_digest(sources)}.so"
+    lib = BUILD_DIR / f"libnsp_kernels_{_digest(sources + _headers())}.so"
     if lib.exists():
         return lib, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, lib)   # atomic: a reader never sees half a library
-    return lib, proc.stdout + proc.stderr
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [str(Path(tmp) / f"{src.stem}.o") for src in sources]
+        out = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+                        for src, obj in zip(sources, objs)])
+        _run_all([[nvcc, *NVCC_FLAGS[:2], "-shared", "-o", f"{tmp}/lib.so",
+                   *objs]])
+        # atomic: a reader never sees half a library
+        os.replace(f"{tmp}/lib.so", lib)
+    return lib, out
 
 
 @functools.cache
@@ -85,8 +104,8 @@ def load_library() -> ctypes.CDLL:
     path, _ = build_library()
     lib = ctypes.CDLL(str(path))
     entry_points = {
-        "nsp_rel_attention_f32": [_P] * 8 + [_I] * 5 + [_P],
-        "nsp_rel_attention_bwd_f32": [_P] * 14 + [_I] * 5 + [_P],
+        "nsp_rel_attention_f32": [_P] * 9 + [_I] * 5 + [_P],
+        "nsp_rel_attention_bwd_f32": [_P] * 15 + [_I] * 5 + [_P],
         "nsp_las_step_f32": [_P] * 22 + [_I] * 7 + [_P],
         "nsp_las_scan_f32": [_P] * 24 + [_I] * 8 + [_P],
         "nsp_las_scan_bwd_f32": [_P] * 32 + [_I] * 8 + [_P],

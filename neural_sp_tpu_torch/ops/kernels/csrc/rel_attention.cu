@@ -10,189 +10,213 @@
 //
 // q and p come pre-scaled by 1/sqrt(dk). An unclamped table is R = T.
 //
-// What bounds it on the H100: the score tile is O(T^2 dk) multiply-adds
-// against O(T dk) bytes per (b, h), so at T = 200..800 it is bound by
-// arithmetic, here on the float32 SIMT pipes (f32 in this port; bf16 and
-// wgmma come later). Design: one block per (query tile of 32, head,
-// batch); the block walks key tiles of 32 with an online float32 softmax,
-// so no [B,H,T,T] tensor is ever written to device memory, and it forms
-// the rel-PE bias in-kernel from the [T, R] table. Key tiles past klens[b]
-// are skipped: their weights exp(min/2 - max) are exactly 0 once one
-// valid key was seen. With klens[b] == 0 every key is masked and the row
-// gets uniform weights, as the masked softmax of the JAX module does.
+// What bounds it on the H100: 4 dk flops per query-key pair against O(T dk)
+// bytes per (b, h), so at T = 200..800 it is bound by arithmetic: about
+// 0.02 ms at B 4, H 8, T 800 on the tensor cores at float32 accuracy
+// (3xTF32, 165 TFLOP/s), 0.05 ms on the float32 SIMT pipes.
+//
+// Design:
+// - both products, q k^T and P v, on the tensor cores with the 3xTF32 split
+//   (rel_attention_common.cuh), so float32 accuracy holds;
+// - one block of 4 warps per (64 queries, head, batch); each warp holds its
+//   16 rows of q as split A fragments in registers for the whole loop;
+// - k and v are split into TF32 (hi, lo) pairs once, by a pass over device
+//   memory before the main kernel, and stream in tiles of 32 keys through
+//   a two-stage cp.async ring: the next tile's copy runs under the current
+//   tile's products, one barrier per tile, and a B fragment costs one
+//   8-byte shared load per element and no split. Two blocks share an SM
+//   (72 KB of shared memory each, up to 255 registers a thread; capping
+//   the registers at 170 to fit a third block ran slower);
+// - the scores stay in registers (mma C fragments) through an online
+//   float32 softmax, and P feeds the P v product from registers; no
+//   [B,H,T,T] tensor is written;
+// - the rel-PE bias is added in registers: a warp whose 16 rows and the
+//   tile's 32 keys are all at distance >= R-1 adds one far-bucket value per
+//   row, other tiles look each score's bucket up in the block's rows of p,
+//   copied into shared memory once (R <= 16; a longer table is read
+//   through L1).
+// Key tiles past klens[b] are skipped: their weights exp(min/2 - max) are
+// exactly 0 once one valid key was seen. With klens[b] == 0 every key is
+// masked and the row gets uniform weights, as the masked softmax of the
+// JAX module does.
 //
 // The forward also writes each row's softmax statistics, the running max
-// m and the sum l of exp(s - m), for the backward (K1b, below): P = exp(s
-// - m) / l. Both are kept instead of one log-sum-exp m + log l because a
-// row with every key masked has m = finfo.min / 2, where adding log l
-// would be absorbed and P would come out 1 instead of 1 / T.
+// m and the sum l of exp(s - m), for the backward (K1b): P = exp(s - m) /
+// l. Both are kept instead of one log-sum-exp m + log l because a row with
+// every key masked has m = finfo.min / 2, where adding log l would be
+// absorbed and P would come out 1 instead of 1 / T.
 
-#include <cuda_runtime.h>
-#include <cfloat>
+#include "rel_attention_common.cuh"
+
 #include <math.h>
 
 namespace {
 
-constexpr int kBQ = 32;       // queries per block
-constexpr int kBK = 32;       // keys per tile
-constexpr int kThreads = 256; // thread (ty, tx) = (tid / 16, tid % 16)
+using namespace nsp_rel;
 
-// Reduce over the 16 lanes of one row group (lanes tx = 0..15).
-__device__ __forceinline__ float group_max(float x) {
-  for (int o = 8; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-__device__ __forceinline__ float group_sum(float x) {
-  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-// Thread (ty, tx) owns query rows 2*ty and 2*ty+1 of the tile, score
-// columns tx and tx+16 of each key tile, and output columns tx + 16*m.
 template <int DK>
-__global__ void __launch_bounds__(kThreads)
-rel_attention_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                         const float* __restrict__ v, const float* __restrict__ p,
+__global__ void __launch_bounds__(kThreads, 2)
+rel_attention_fwd_kernel(const float* __restrict__ q, const float2* __restrict__ kp,
+                         const float2* __restrict__ vp, const float* __restrict__ p,
                          const int* __restrict__ klens, float* __restrict__ o,
-                         float* __restrict__ m_out, float* __restrict__ l_out,
-                         int H, int T, int R) {
-  __shared__ float qs[kBQ][DK + 1];
-  __shared__ float ks[kBK][DK + 1];
-  __shared__ float vs[kBK][DK];
-  __shared__ float ps[kBQ][kBK + 1];
+                         float* __restrict__ m_out, float* __restrict__ l_out, int H, int T,
+                         int R) {
+  extern __shared__ float4 smem4[];
+  float2* ring = reinterpret_cast<float2*>(smem4);  // 2 stages x (K, V) split tiles
+  float* ps = reinterpret_cast<float*>(ring + 4 * Tile<DK>::kPairs);  // [64][R <= kSmemR]
 
-  constexpr int kDM = DK / 16;
-  const float kNeg = -FLT_MAX / 2.0f;
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const int q0 = blockIdx.x * kBQ;
-  const int h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int q0 = blockIdx.x * kRows, h = blockIdx.y, b = blockIdx.z;
   const size_t bh = (size_t)b * H + h;
-  const float* qb = q + bh * T * DK;
-  const float* kb = k + bh * T * DK;
-  const float* vb = v + bh * T * DK;
+  const float2* kb = kp + bh * T * DK;
+  const float2* vb = vp + bh * T * DK;
   const float* pb = p + bh * T * R;
-
-  for (int idx = tid; idx < kBQ * DK; idx += kThreads) {
-    const int r = idx / DK, d = idx % DK, i = q0 + r;
-    qs[r][d] = (i < T) ? qb[(size_t)i * DK + d] : 0.0f;
-  }
 
   const int klen = klens[b];
   const int kend = (klen > 0) ? min(klen, T) : T;
-  const int n_tiles = (kend + kBK - 1) / kBK;
+  const int n_tiles = (kend + kStep - 1) / kStep;
 
-  float m_run[2] = {-INFINITY, -INFINITY};
-  float l_run[2] = {0.0f, 0.0f};
-  float acc[2][kDM];
+  load_pairs_async<DK>(ring, kb, 0, T);
+  load_pairs_async<DK>(ring + Tile<DK>::kPairs, vb, 0, T);
+  cp_async_commit();
+  const float* prows = stage_p_rows<kRows>(ps, pb, q0, T, R);  // row q0 of p
+
+  // this thread's two query rows, their far-bucket bias, and the warp's 16
+  // rows of q as split A fragments, held for the whole key loop
+  const int w0 = q0 + 16 * warp;
+  const int rows[2] = {w0 + g, w0 + g + 8};
+  float far[2];
+  FragA qa[DK / 8];
+  {
+    const float* qr[2];
 #pragma unroll
-  for (int r = 0; r < 2; ++r)
+    for (int e = 0; e < 2; ++e) {
+      const bool in = rows[e] < T;
+      far[e] = in ? pb[(size_t)rows[e] * R + R - 1] : 0.0f;
+      qr[e] = in ? q + (bh * T + rows[e]) * DK : nullptr;
+    }
 #pragma unroll
-    for (int m = 0; m < kDM; ++m) acc[r][m] = 0.0f;
-
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * kBK;
-    __syncthreads();  // the previous tile's ks/vs/ps reads are done
-    for (int idx = tid; idx < kBK * DK; idx += kThreads) {
-      const int c = idx / DK, d = idx % DK, j = k0 + c;
-      const bool in = j < T;
-      ks[c][d] = in ? kb[(size_t)j * DK + d] : 0.0f;
-      vs[c][d] = in ? vb[(size_t)j * DK + d] : 0.0f;
+    for (int kk = 0; kk < DK / 8; ++kk) {
+      const int c = kk * 8 + t;
+      qa[kk].set(qr[0] ? qr[0][c] : 0.0f, qr[1] ? qr[1][c] : 0.0f,
+                 qr[0] ? qr[0][c + 4] : 0.0f, qr[1] ? qr[1][c + 4] : 0.0f);
     }
-    __syncthreads();
+  }
 
-    float s[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};
-#pragma unroll 8
-    for (int d = 0; d < DK; ++d) {
-      const float qa = qs[2 * ty][d], qb2 = qs[2 * ty + 1][d];
-      const float k_a = ks[tx][d], k_b = ks[tx + 16][d];
-      s[0][0] += qa * k_a;  s[0][1] += qa * k_b;
-      s[1][0] += qb2 * k_a; s[1][1] += qb2 * k_b;
+  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.0f, 0.0f};
+  float acc[DK / 8][4];
+#pragma unroll
+  for (int n = 0; n < DK / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    cp_async_wait_all();
+    __syncthreads();  // tile `it` has landed; every warp is done with it - 1
+    if (it + 1 < n_tiles) {
+      float2* next = ring + ((it + 1) & 1) * 2 * Tile<DK>::kPairs;
+      load_pairs_async<DK>(next, kb, (it + 1) * kStep, T);
+      load_pairs_async<DK>(next + Tile<DK>::kPairs, vb, (it + 1) * kStep, T);
     }
+    cp_async_commit();
+    const float2* ks = ring + (it & 1) * 2 * Tile<DK>::kPairs;
+    const float2* vs = ks + Tile<DK>::kPairs;
+    const int k0 = it * kStep;
 
+    float s[kStep / 8][4];
+#pragma unroll
+    for (int n = 0; n < kStep / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.0f;
+    product_nt<DK>(s, [&](int kk) { return qa[kk]; }, ks, g, t);
+
+    // bias and mask, in registers
+    const bool plain = k0 + kStep <= min(klen, T) &&
+                       min_distance(w0, 16, k0, kStep) >= R - 1;
+#pragma unroll
+    for (int n = 0; n < kStep / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = rows[e >> 1], j = k0 + n * 8 + 2 * t + (e & 1);
+        if (plain) {
+          s[n][e] += far[e >> 1];
+        } else if (j >= T) {
+          s[n][e] = -INFINITY;  // not a key at all
+        } else if (j >= klen) {
+          s[n][e] = kNeg;       // masked key, like apply_mask_logits
+        } else if (i < T) {
+          s[n][e] += rel_bias(prows + (i - q0) * R, i, j, R);
+        }
+      }
+
+    // online softmax; each quad of lanes shares its two rows
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      const int i = q0 + 2 * ty + r;
       float tile_max = -INFINITY;
 #pragma unroll
-      for (int m = 0; m < 2; ++m) {
-        const int j = k0 + tx + 16 * m;
-        float val;
-        if (j >= T) {
-          val = -INFINITY;  // not a key at all
-        } else if (j >= klen) {
-          val = kNeg;       // masked key, like apply_mask_logits
-        } else {
-          const int dist = min(abs(i - j), R - 1);
-          val = s[r][m] + ((i < T) ? pb[(size_t)i * R + dist] : 0.0f);
-        }
-        s[r][m] = val;
-        tile_max = fmaxf(tile_max, val);
-      }
-      tile_max = group_max(tile_max);
-      const float m_new = fmaxf(m_run[r], tile_max);  // finite: column k0 < T
-      const float alpha = expf(m_run[r] - m_new);
+      for (int n = 0; n < kStep / 8; ++n)
+        tile_max = fmaxf(tile_max, fmaxf(s[n][2 * r], s[n][2 * r + 1]));
+      const float m_new = fmaxf(m_run[r], quad_max(tile_max));  // finite: key k0 < T
+      const float alpha = __expf(m_run[r] - m_new);
       float psum = 0.0f;
 #pragma unroll
-      for (int m = 0; m < 2; ++m) {
-        const float e = expf(s[r][m] - m_new);
-        s[r][m] = e;
-        psum += e;
-      }
-      psum = group_sum(psum);
-      l_run[r] = l_run[r] * alpha + psum;
+      for (int n = 0; n < kStep / 8; ++n)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const float e = __expf(s[n][2 * r + c] - m_new);
+          s[n][2 * r + c] = e;
+          psum += e;
+        }
+      l_run[r] = l_run[r] * alpha + psum;  // this lane's share of the row sum
       m_run[r] = m_new;
 #pragma unroll
-      for (int m = 0; m < kDM; ++m) acc[r][m] *= alpha;
-      ps[2 * ty + r][tx] = s[r][0];
-      ps[2 * ty + r][tx + 16] = s[r][1];
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int c = 0; c < kBK; ++c) {
-      const float p0 = ps[2 * ty][c], p1 = ps[2 * ty + 1][c];
-#pragma unroll
-      for (int m = 0; m < kDM; ++m) {
-        const float vv = vs[c][tx + 16 * m];
-        acc[0][m] += p0 * vv;
-        acc[1][m] += p1 * vv;
+      for (int n = 0; n < DK / 8; ++n) {
+        acc[n][2 * r] *= alpha;
+        acc[n][2 * r + 1] *= alpha;
       }
     }
+    product_pn<DK>(acc, s, vs, g, t);
   }
 
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int i = q0 + 2 * ty + r;
+    const int i = rows[r];
+    const float l = quad_sum(l_run[r]);
     if (i >= T) continue;
-    const float inv = 1.0f / l_run[r];
-    if (tx == 0) {
+    if (t == 0) {
       m_out[bh * T + i] = m_run[r];
-      l_out[bh * T + i] = l_run[r];
+      l_out[bh * T + i] = l;
     }
-    float* ob = o + (bh * T + i) * DK;
+    const float inv = 1.0f / l;
+    float* orow = o + (bh * T + i) * DK;
 #pragma unroll
-    for (int m = 0; m < kDM; ++m) ob[tx + 16 * m] = acc[r][m] * inv;
+    for (int n = 0; n < DK / 8; ++n)
+      *reinterpret_cast<float2*>(orow + n * 8 + 2 * t) =
+          make_float2(acc[n][2 * r] * inv, acc[n][2 * r + 1] * inv);
   }
 }
 
 template <int DK>
 cudaError_t launch(const float* q, const float* k, const float* v, const float* p,
-                   const int* klens, float* o, float* m, float* l, int B, int H, int T,
-                   int R, cudaStream_t stream) {
-  dim3 grid((T + kBQ - 1) / kBQ, H, B);
-  rel_attention_fwd_kernel<DK><<<grid, kThreads, 0, stream>>>(q, k, v, p, klens, o, m, l, H,
-                                                              T, R);
+                   const int* klens, float* o, float* m, float* l, float2* kvp, int B, int H,
+                   int T, int R, cudaStream_t stream) {
+  const size_t n = (size_t)B * H * T * DK;
+  const int smem = 4 * Tile<DK>::kPairs * (int)sizeof(float2) +  // 2 x (K, V), p rows
+                   kRows * kSmemR * (int)sizeof(float);
+  cudaError_t err = allow_smem<rel_attention_fwd_kernel<DK>>(smem);
+  if (err == cudaSuccess) err = split_pairs(k, v, kvp, n, stream);
+  if (err != cudaSuccess) return err;
+  dim3 grid((T + kRows - 1) / kRows, H, B);
+  rel_attention_fwd_kernel<DK><<<grid, kThreads, smem, stream>>>(q, kvp, kvp + n, p, klens, o,
+                                                                 m, l, H, T, R);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // q, k, v, o: [B, H, T, dk]; p: [B, H, T, R]; klens: [B] int32; m, l:
-// [B, H, T] row statistics. All contiguous, on the device of `stream`.
+// [B, H, T] row statistics; kvp: scratch [2, B, H, T, dk, 2] for the split
+// k and v. All contiguous and 16-byte aligned, on the device of `stream`.
 // Returns a cudaError_t.
 extern "C" int nsp_rel_attention_f32(const void* q, const void* k, const void* v,
                                      const void* p, const void* klens, void* o, void* m,
-                                     void* l, int B, int H, int T, int R, int dk,
+                                     void* l, void* kvp, int B, int H, int T, int R, int dk,
                                      void* stream) {
   if (B <= 0 || H <= 0 || T <= 0 || R <= 0 || H > 65535 || B > 65535)
     return (int)cudaErrorInvalidValue;
@@ -204,11 +228,12 @@ extern "C" int nsp_rel_attention_f32(const void* q, const void* k, const void* v
   float* of = static_cast<float*>(o);
   float* mf = static_cast<float*>(m);
   float* lf = static_cast<float*>(l);
+  float2* kvpf = static_cast<float2*>(kvp);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dk) {
-    case 16: return (int)launch<16>(qf, kf, vf, pf, kl, of, mf, lf, B, H, T, R, s);
-    case 32: return (int)launch<32>(qf, kf, vf, pf, kl, of, mf, lf, B, H, T, R, s);
-    case 64: return (int)launch<64>(qf, kf, vf, pf, kl, of, mf, lf, B, H, T, R, s);
+    case 16: return (int)launch<16>(qf, kf, vf, pf, kl, of, mf, lf, kvpf, B, H, T, R, s);
+    case 32: return (int)launch<32>(qf, kf, vf, pf, kl, of, mf, lf, kvpf, B, H, T, R, s);
+    case 64: return (int)launch<64>(qf, kf, vf, pf, kl, of, mf, lf, kvpf, B, H, T, R, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

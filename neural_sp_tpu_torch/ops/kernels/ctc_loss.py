@@ -20,8 +20,16 @@ import torch
 
 from ._checks import check, on_cpu, raise_on_error, stream_of
 from .build import load_library
+from .roofline import valid_lengths
 
 NEG_INF = -1.0e30
+# flops of one state at one frame of the alpha (or beta) recurrence: a
+# log-add-exp of three (2 max, 3 subtract, 3 exp, 2 add, 1 log, 1 add) and
+# the emission's add
+RECURRENCE_FLOPS = 13
+# the backward's occupancy per state and frame: alpha + beta + nll, exp,
+# times g
+GAMMA_FLOPS = 4
 SMEM_LIMIT = 232448
 
 
@@ -131,6 +139,36 @@ def ctc_loss_bwd_ref(log_probs, labels, logit_lengths, label_lengths, nll,
     grad = torch.zeros((bs, tmax, v), dtype=gamma.dtype, device=dev)
     grad.scatter_add_(2, z[:, None, :].expand(-1, tmax, -1), gamma)
     return -grad * g[:, None, None]
+
+
+def _states_frames(t, u, logit_lengths, label_lengths):
+    """sum over utterances of (valid frames) x (2 U_b + 1 states), and of
+    (valid frames) x (U_b + 1 emission columns: the labels and blank)."""
+    tl = valid_lengths(logit_lengths, t)
+    ul = valid_lengths(label_lengths, u)
+    return (sum(x * (2 * y + 1) for x, y in zip(tl, ul)),
+            sum(x * (y + 1) for x, y in zip(tl, ul)))
+
+
+def ctc_loss_cost(b, t, u, v, logit_lengths, label_lengths):
+    """(flops, bytes) of K4's forward: the alpha recurrence over each
+    utterance's valid frames and states; reads the emissions it gathers
+    (labels and blank, not the whole vocabulary), labels and lengths;
+    writes alphas [B, T, 2U+1] and nll. Elementwise work: its peak is the
+    SIMT rate."""
+    sf, emit = _states_frames(t, u, logit_lengths, label_lengths)
+    return RECURRENCE_FLOPS * sf, \
+        4 * (emit + b * u + 2 * b + b * t * (2 * u + 1) + b)
+
+
+def ctc_loss_bwd_cost(b, t, u, v, logit_lengths, label_lengths):
+    """(flops, bytes) of K4's backward: the beta recurrence and the state
+    occupancies over the valid frames and states; reads the gathered
+    emissions, the valid alphas, labels, lengths, nll and g; writes the
+    dense gradient [B, T, V]."""
+    sf, emit = _states_frames(t, u, logit_lengths, label_lengths)
+    return (RECURRENCE_FLOPS + GAMMA_FLOPS) * sf, \
+        4 * (emit + sf + b * u + 2 * b + 2 * b + b * t * v)
 
 
 def _check_args(log_probs, labels, logit_lengths, label_lengths):

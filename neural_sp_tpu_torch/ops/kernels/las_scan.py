@@ -35,7 +35,9 @@ import torch.nn.functional as F
 
 from ._checks import check, on_cpu, raise_on_error, stream_of
 from .build import load_library
-from .las_step import GATE_SPLIT, SMEM_LIMIT, attend_ref, location_features
+from .las_step import (GATE_SPLIT, SMEM_LIMIT, attend_flops, attend_ref,
+                       location_features)
+from .roofline import valid_lengths
 
 def las_scan_ref(eg, w_ctx, w_h, bias, w_q, conv_w, w_f, v, kc, values,
                  klens, keep):
@@ -140,6 +142,38 @@ def las_scan_bwd_ref(w_ctx, w_h, w_q, conv_w, w_f, v, kc, values, klens,
     dq = torch.stack(dqs[::-1])
     return (dy, *_weight_grads(h, ctx, keep, dy, dq), d_conv, d_w_f, d_v,
             dkc, dvalues)
+
+
+def las_scan_cost(u, b, t, hd, d, a, ch, k, klens) -> tuple[int, int]:
+    """(flops, bytes) of K3: U decode steps of B rows (``las_step_cost``'s
+    products). Reads the weights, kc and values (valid frames) once and
+    eg, keep per step; writes h, c, gates, q, aw, ctx per step."""
+    tv = sum(valid_lengths(klens, t))
+    flops = u * (2 * b * ((d + hd) * 4 * hd + hd * a)
+                 + attend_flops(tv, hd, d, a, ch, k))
+    weights = (d + hd) * 4 * hd + 4 * hd + a * hd + ch * k + a * ch + a
+    ins = weights + tv * (a + d) + b + u * b * (4 * hd + hd)
+    outs = u * b * (2 * hd + 4 * hd + a + t + d)
+    return flops, 4 * (ins + outs)
+
+
+def las_scan_bwd_cost(u, b, t, hd, d, a, ch, k, klens) -> tuple[int, int]:
+    """(flops, bytes) of K3b with its weight-gradient matmuls. Per step:
+    the recurrent adjoints dy W_h^T and dy W_ctx^T, dq W_q, the energy
+    recomputed (location conv and loc W_f^T) and its adjoints (dW_f, dloc,
+    the conv transpose, dconv, dv, dkc, daw, dvalues); over all steps
+    dW_h, dW_ctx, dW_q. Reads the weights, kc and values (valid frames)
+    once and K3's saved per-step tensors and the output gradients; writes
+    every gradient."""
+    tv = sum(valid_lengths(klens, t))
+    per_step = 2 * b * (4 * hd * (hd + d) + a * hd) + \
+        2 * tv * (3 * ch * k + 3 * a * ch + 2 * a + 2 * d)
+    outside = 2 * u * b * (hd * 4 * hd + d * 4 * hd + a * hd)
+    weights = (d + hd) * 4 * hd + a * hd + ch * k + a * ch + a
+    ins = weights + tv * (a + d) + b + \
+        u * b * (hd + 2 * hd + 4 * hd + a + t + d + hd + d)
+    outs = u * b * 4 * hd + weights + 4 * hd + b * t * (a + d)
+    return u * per_step + outside, 4 * (ins + outs)
 
 
 def _check_shapes(b, u, hd, w_ctx, w_h, bias, w_q, conv_w, w_f, v, kc,

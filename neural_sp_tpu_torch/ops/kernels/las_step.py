@@ -28,6 +28,7 @@ import torch.nn.functional as F
 from ..masks import apply_mask_logits
 from ._checks import check, on_cpu, raise_on_error, stream_of
 from .build import load_library
+from .roofline import valid_lengths
 
 SMEM_LIMIT = 232448   # bytes of shared memory one block may use on sm_90
 GATE_SPLIT = 128      # reduction rows per block of the gate GEMV (kGateK)
@@ -67,6 +68,26 @@ def las_step_ref(eg, ctx_prev, h_prev, c_prev, aw_prev, w_ctx, w_h, bias,
     _, aw, ctx = attend_ref(h, aw_prev, w_q, conv_w, w_f, v, kc, values,
                             klens)
     return h, c, aw, ctx
+
+
+def attend_flops(t_valid, hd, d, a, ch, k) -> int:
+    """Flops of one step's attention over ``t_valid`` valid frames in all
+    (the query h W_q^T is counted per row by the caller): the location
+    conv, loc W_f^T, v . tanh(...) and aw values."""
+    return 2 * t_valid * (ch * k + a * ch + a + d)
+
+
+def las_step_cost(n, t, hd, d, a, ch, k, klens) -> tuple[int, int]:
+    """(flops, bytes) of one decode step over N rows: the gate GEMV
+    [ctx, h] (D + H) x 4H, the query H x A, and the attention over each
+    row's valid frames. Reads the weights once, each row's state and its
+    valid keys and values; writes h, c, aw, ctx."""
+    tv = sum(valid_lengths(klens, t))
+    flops = 2 * n * ((d + hd) * 4 * hd + hd * a) + \
+        attend_flops(tv, hd, d, a, ch, k)
+    weights = (d + hd) * 4 * hd + 4 * hd + a * hd + ch * k + a * ch + a
+    rows = n * (4 * hd + d + 2 * hd + t + 1) + tv * (a + d)
+    return flops, 4 * (weights + rows + n * (2 * hd + t + d))
 
 
 def las_step(eg, ctx_prev, h_prev, c_prev, aw_prev, w_ctx, w_h, bias,

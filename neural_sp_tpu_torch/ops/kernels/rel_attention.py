@@ -8,18 +8,21 @@ reached there through ``_call`` / ``_rel_attention_fwd``. Signature and
 semantics are kept: ``q`` and ``p`` come pre-scaled by ``1/sqrt(dk)``, and
 ``R = clamp_len + 1`` (an unclamped table is ``R = T``).
 
-On the H100 the score tile is bound by float32 arithmetic (O(T^2 dk)
-multiply-adds against O(T dk) bytes per head). The kernel keeps scores in
-registers and shared memory with an online softmax, so no [B, H, T, T]
-tensor reaches device memory, builds the rel-PE bias in-kernel from the
-[T, R] table, and skips key tiles past ``klens``. Source:
-``csrc/rel_attention.cu``.
+On the H100 the score tile is bound by arithmetic (O(T^2 dk) flops against
+O(T dk) bytes per head). Both products run on the tensor cores at float32
+accuracy (TF32 ``mma.sync`` with the 3xTF32 split), over 64-row query
+tiles; k and v are split into TF32 (hi, lo) pairs once, in the wrapper's
+scratch, and streamed in 32-key tiles by ``cp.async``. The scores stay in
+registers with an online softmax, so no [B, H, T, T] tensor reaches device
+memory, the rel-PE bias is formed in registers from the [T, R] table, and
+key tiles past ``klens`` are skipped. Source: ``csrc/rel_attention.cu``.
 
 The backward K1b replaces the TPU kernel ``_bwd_kernel`` of the same file
-(reached through ``_call`` / ``_rel_attention_bwd``): a flash-style pass
-from the forward's row statistics that never stores a [T, T] block. Source:
-``csrc/rel_attention_bwd.cu``. ``RelAttention`` is the
-``autograd.Function`` joining the two.
+(reached through ``_call`` / ``_rel_attention_bwd``): two flash-style
+passes from the forward's row statistics, query-major (D, dq, dp) then
+key-major (dk, dv), deterministic, on the same tensor-core products; no
+[T, T] block is stored. Source: ``csrc/rel_attention_bwd.cu``.
+``RelAttention`` is the ``autograd.Function`` joining the two.
 """
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ import torch
 from ..masks import apply_mask_logits
 from ._checks import check, on_cpu, raise_on_error, stream_of
 from .build import load_library
+from .roofline import valid_lengths
 
 
 def rel_attention_ref(q, k, v, p, klens):
@@ -82,6 +86,33 @@ def rel_attention_bwd_ref(q, k, v, p, klens, o, m, l, do):
     return dq, dk, dv, dp
 
 
+def rel_attention_cost(b, h, t, dk, r, klens) -> tuple[int, int]:
+    """(flops, bytes) the forward needs: the two products q k^T and P v
+    (2 dk flops per query-key pair each) over the valid keys (with no valid
+    key, P v alone over all T); q, p, o, m, l for every row; k and v for
+    the keys read."""
+    flops = kv_rows = 0
+    for n in valid_lengths(klens, t):
+        flops += (4 * n if n else 2 * t) * h * dk * t
+        kv_rows += 2 * n if n else t
+    return flops, 4 * (2 * b * h * t * dk + h * dk * kv_rows + b * h * t * r
+                       + 2 * b * h * t + b)
+
+
+def rel_attention_bwd_cost(b, h, t, dk, r, klens) -> tuple[int, int]:
+    """(flops, bytes) the backward needs: five products over the valid
+    keys (s = q k^T, dP = dO v^T, dv = P^T dO, dq = ds k, dk = ds^T q); with
+    no valid key only dv = P^T dO over all T. Reads q, p, o, dO, m, l and
+    the valid keys' k, v; writes dq, dk, dv, dp."""
+    flops = kv_rows = 0
+    for n in valid_lengths(klens, t):
+        flops += (10 * n if n else 2 * t) * h * dk * t
+        kv_rows += 2 * n
+    return flops, 4 * (3 * b * h * t * dk + h * dk * kv_rows + b * h * t * r
+                       + 2 * b * h * t + b + 3 * b * h * t * dk
+                       + b * h * t * r)
+
+
 def _check(q, k, v, p, klens):
     b, h, t, dk = q.shape
     r = p.shape[-1]
@@ -93,6 +124,19 @@ def _check(q, k, v, p, klens):
         raise ValueError(f"rel_attention: head width {dk} not in (16, 32, 64)")
 
 
+def _pair_scratch(x):
+    """Scratch for two operands of x's shape split into TF32 (hi, lo) pairs:
+    [2, .., dk, 2]."""
+    return torch.empty((2, *x.shape, 2), dtype=torch.float32, device=x.device)
+
+
+def _check_aligned(*tensors):
+    """The kernels copy [.., dk] rows in 16-byte pieces (cp.async)."""
+    if sum(x.data_ptr() % 16 for x in tensors):
+        raise ValueError("rel_attention: the kernel takes 16-byte aligned "
+                         "q, k, v, dO")
+
+
 def rel_attention_fwd(q, k, v, p, klens):
     """(o, m, l): the output and the row statistics (see
     ``rel_attention_stats_ref``). CPU tensors take the plain versions; CUDA
@@ -102,14 +146,15 @@ def rel_attention_fwd(q, k, v, p, klens):
         return (rel_attention_ref(q, k, v, p, klens),
                 *rel_attention_stats_ref(q, k, p, klens))
     _check(q, k, v, p, klens)
+    _check_aligned(q, k, v)
     b, h, t, dk = q.shape
     o = torch.empty_like(q)
     m = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)
+    pairs = _pair_scratch(q)
     err = load_library().nsp_rel_attention_f32(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), p.data_ptr(),
-        klens.data_ptr(), o.data_ptr(), m.data_ptr(), l.data_ptr(), b, h, t,
-        p.shape[-1], dk, stream_of(q))
+        *(x.data_ptr() for x in (q, k, v, p, klens, o, m, l, pairs)),
+        b, h, t, p.shape[-1], dk, stream_of(q))
     raise_on_error("rel_attention", err)
     rel_attention.launches += 1
     return o, m, l
@@ -128,12 +173,14 @@ def rel_attention_bwd(q, k, v, p, klens, o, m, l, do):
     check("do", do, q.shape)
     check("m", m, (b, h, t))
     check("l", l, (b, h, t))
+    _check_aligned(q, k, v, do)
     dq, dk_, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     dp = torch.empty_like(p)
     delta = torch.empty_like(m)
+    pairs = _pair_scratch(q)
     err = load_library().nsp_rel_attention_bwd_f32(
         *(x.data_ptr() for x in (q, k, v, p, klens, o, m, l, do, dq, dk_, dv,
-                                 dp, delta)),
+                                 dp, delta, pairs)),
         b, h, t, p.shape[-1], dk, stream_of(q))
     raise_on_error("rel_attention_bwd", err)
     rel_attention_bwd.launches += 1

@@ -45,7 +45,7 @@ def models():
     v = jm.init(jax.random.PRNGKey(SEED), jnp.asarray(xs),
                 jnp.asarray(xlens), jnp.ones((2, 5), jnp.int32),
                 jnp.array([5, 3]))
-    tm = build_speech2text(args)
+    tm = build_speech2text(args, device="cpu")
     tm.load_state_dict(
         convert_params(jax.tree.map(np.asarray, v["params"])), strict=True)
     return jm, v["params"], tm.eval(), xs, xlens

@@ -40,7 +40,7 @@ def _models(faithful: bool, seed: int = 0):
     params = jax.tree.map(
         lambda x: np.asarray(x) + 0.05 * rng.randn(*x.shape).astype(
             np.float32), jax.tree.map(np.asarray, v["params"]))
-    tm = build_speech2text(args)
+    tm = build_speech2text(args, device="cpu")
     tm.load_state_dict(convert_params(params), strict=True)
     return jm, {"params": params}, tm.eval()
 
@@ -99,4 +99,4 @@ def test_unported_options_raise():
                          ("subsample_type", "conv1d"), ("dec_n_layers", 2)):
         bad = SimpleNamespace(**{**vars(args), field: value})
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_speech2text(bad)
+            build_speech2text(bad, device="cpu")

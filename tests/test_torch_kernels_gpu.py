@@ -32,11 +32,22 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("b,h,t,dk,r,klens", [
+# Edge shapes of K1 / K1b's 64-row tiles: T not a multiple of 64, klens of
+# 0, 1 and T, R = T (unclamped), every head width, and a grid (B x H x
+# tiles) that leaves a partial last wave on 132 SMs at two blocks each.
+REL_ATTENTION_SHAPES = [
     (2, 4, 70, 64, 11, [70, 33]),        # clamped, ragged, partial tiles
     (3, 2, 45, 32, 45, [45, 0, 17]),     # unclamped R = T, all-masked row
     (1, 8, 9, 16, 11, [9]),              # shorter than one tile
-])
+    (2, 3, 129, 64, 11, [129, 0]),       # one row past two tiles, klen 0
+    (3, 2, 200, 32, 11, [1, 200, 77]),   # klen 1
+    (2, 2, 200, 64, 200, [200, 150]),    # R = T at a multi-tile T
+    (1, 2, 375, 16, 11, [375]),          # dk 16, the training T = 375
+    (5, 11, 375, 64, 11, [375, 300, 64, 65, 1]),  # 330 blocks: partial wave
+]
+
+
+@pytest.mark.parametrize("b,h,t,dk,r,klens", REL_ATTENTION_SHAPES)
 def test_rel_attention_kernel(cuda, b, h, t, dk, r, klens):
     rng = np.random.RandomState(t)
 
@@ -115,10 +126,7 @@ def _randn(rng, dev, *shape, scale=1.0):
     return torch.from_numpy((rng.randn(*shape) * scale).astype(np.float32)).to(dev)
 
 
-@pytest.mark.parametrize("b,h,t,dk,r,klens", [
-    (2, 4, 70, 64, 11, [70, 33]),        # clamped, ragged, partial tiles
-    (3, 2, 45, 32, 45, [45, 0, 17]),     # unclamped R = T, all-masked row
-])
+@pytest.mark.parametrize("b,h,t,dk,r,klens", REL_ATTENTION_SHAPES)
 def test_rel_attention_bwd_kernel(cuda, b, h, t, dk, r, klens):
     from neural_sp_tpu_torch.ops.kernels.rel_attention import (
         rel_attention_bwd, rel_attention_bwd_ref, rel_attention_fwd,
@@ -140,6 +148,23 @@ def test_rel_attention_bwd_kernel(cuda, b, h, t, dk, r, klens):
     want = rel_attention_bwd_ref(q, k, v, p, kl, o, m, l, do)
     for name, x, y in zip(("dq", "dk", "dv", "dp"), got, want):
         _close(x, y, name)
+
+
+def test_sdpa_yardstick_bias_reproduces_rel_attention(cuda):
+    """chip_smoke.py's library yardstick for K1: efficient SDPA with the
+    rel-PE bias and key mask built as one [B, H, T, T] additive mask
+    computes the plain version's function."""
+    from chip_smoke import efficient_sdpa, rel_bias
+    rng = np.random.RandomState(3)
+    b, h, t, dk, r = 3, 4, 150, 64, 11
+    q = _randn(rng, cuda, b, h, t, dk, scale=dk ** -0.5)
+    k, v = _randn(rng, cuda, b, h, t, dk), _randn(rng, cuda, b, h, t, dk)
+    p = _randn(rng, cuda, b, h, t, r, scale=dk ** -0.5)
+    kl = torch.tensor([150, 97, 1], dtype=torch.int32, device=cuda)
+    with efficient_sdpa():
+        got = torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, attn_mask=rel_bias(torch, p, kl), scale=1.0)
+    _close(got, rel_attention_ref(q, k, v, p, kl), "sdpa")
 
 
 def test_rel_attention_bwd_refuses_bad_arguments(cuda):

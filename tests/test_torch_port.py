@@ -11,6 +11,7 @@ from types import SimpleNamespace
 import numpy as np
 import pytest
 import jax
+import torch
 import jax.numpy as jnp
 
 from neural_sp_tpu.models.speech2text import build_speech2text as jax_build
@@ -82,7 +83,8 @@ args = vars(flagship_args(True))
 args.update(enc_n_layers=2, transformer_d_model=32, transformer_d_ff=64,
             transformer_n_heads=2, dec_n_units=32, emb_dim=16,
             dec_bottleneck_dim=32, attn_dim=16, vocab=20, subsample="1_2")
-model = init_params(build_speech2text(SimpleNamespace(**args)), 0).eval()
+model = init_params(build_speech2text(SimpleNamespace(**args), device="cpu"),
+                    0).eval()
 xs = np.random.RandomState(0).randn(1, 40, 80).astype(np.float32)
 hyps = Speech2TextSession(model, DecodeConfig(beam_width=2, ctc_weight=0.3)
                           ).decode(xs, np.array([40]))
@@ -131,7 +133,7 @@ def jax_params():
 
 
 def test_convert_params_fills_every_tensor(jax_params):
-    model = build_speech2text(_small_args())
+    model = build_speech2text(_small_args(), device="cpu")
     sd = convert_params(jax_params)
     n_leaves = len(jax.tree.leaves(jax_params))
     cell = jax_params["dec_fwd"]["step"]["cells_0"]
@@ -150,15 +152,28 @@ def test_convert_params_ignores_attention_w_key_only(jax_params):
     assert set(convert_params(tree)) == set(convert_params(jax_params))
     tree["encoder"] = dict(tree["encoder"], extra={"kernel": np.zeros((2, 2))})
     with pytest.raises(RuntimeError, match="Unexpected key"):
-        build_speech2text(_small_args()).load_state_dict(
+        build_speech2text(_small_args(), device="cpu").load_state_dict(
             convert_params(tree), strict=True)
 
 
 def test_init_params_is_seeded():
-    a = init_params(build_speech2text(_small_args()), 3).state_dict()
-    b = init_params(build_speech2text(_small_args()), 3).state_dict()
-    c = init_params(build_speech2text(_small_args()), 4).state_dict()
+    def built(seed):
+        return init_params(build_speech2text(_small_args(), device="cpu"),
+                           seed).state_dict()
+
+    a, b, c = built(3), built(3), built(4)
     assert all(np.array_equal(a[k].numpy(), b[k].numpy()) for k in a)
     assert not np.array_equal(a["dec_fwd.key_proj.weight"].numpy(),
                               c["dec_fwd.key_proj.weight"].numpy())
     assert float(a["encoder.norm_out.weight"].min()) == 1.0
+
+
+def test_build_speech2text_needs_the_card_or_an_explicit_cpu(monkeypatch):
+    """The port's entry point builds on the card by default; without one it
+    raises instead of falling back to the CPU, unless the caller asks for
+    the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        build_speech2text(_small_args())
+    model = build_speech2text(_small_args(), device="cpu")
+    assert {p.device.type for p in model.parameters()} == {"cpu"}

@@ -94,7 +94,7 @@ def test_model_loss_and_grads_match_jax():
     # RNNDecoder.key_proj), so it has no weight, hence no gradient, in JAX
     assert "w_key" not in grads["dec_fwd"]["step"]["attn"]
 
-    tm = build_speech2text(args)
+    tm = build_speech2text(args, device="cpu")
     tm.load_state_dict(convert_params(jax.tree.map(np.asarray, params)),
                        strict=True)
     tm.eval()
@@ -209,7 +209,7 @@ def test_optimizer_matches_optax(k, clip):
     "ss_prob", "dropout_enc_layer", "dropout_in", "dropout_att", "zoneout"))
 def test_unported_training_options_raise(name):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_speech2text(small_args(**{name: 0.1}))
+        build_speech2text(small_args(**{name: 0.1}), device="cpu")
 
 
 @pytest.mark.parametrize("opt", ["sgd", "adamw"])
@@ -219,7 +219,7 @@ def test_unported_optimizers_raise(opt):
 
 
 def test_flagship_training_options_are_honoured():
-    model = build_speech2text(small_args())
+    model = build_speech2text(small_args(), device="cpu")
     assert model.specaug == dict(freq_mask_width=27, n_freq_masks=2,
                                  time_mask_width=100, n_time_masks=2, p=1.0)
     assert model.encoder.blocks[0].drop.rate == 0.1
@@ -233,7 +233,7 @@ def test_flagship_training_options_are_honoured():
 def test_train_mode_draws_from_the_generator():
     """In train() mode the loss depends on the generator's seed (dropout,
     SpecAugment) and one seed reproduces it; eval() ignores it."""
-    model = build_speech2text(small_args())
+    model = build_speech2text(small_args(), device="cpu")
     from neural_sp_tpu_torch.utils.init_params import init_params
     init_params(model, 0)
     args = tuple(map(torch.from_numpy, batch(2)))

@@ -67,7 +67,7 @@ def test_accumulated_clipped_update_matches_jax():
                              accum_grad_n_steps=K)
     jstep = jax_make_step(jm, tx, donate=False)
     opt_state = tx.init(params)
-    model = build_speech2text(args)
+    model = build_speech2text(args, device="cpu")
     model.load_state_dict(params0, strict=True)
     model.train()
     step = make_train_step(
