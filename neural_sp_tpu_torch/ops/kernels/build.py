@@ -120,6 +120,8 @@ def load_library() -> ctypes.CDLL:
     lib.nsp_las_step_smem_bytes.restype = ctypes.c_longlong
     lib.nsp_las_scan_bwd_smem_bytes.argtypes = [_I] * 5
     lib.nsp_las_scan_bwd_smem_bytes.restype = ctypes.c_longlong
+    lib.nsp_las_scan_bwd_parts.argtypes = [_I]
+    lib.nsp_las_scan_bwd_parts.restype = _I
     lib.nsp_ctc_smem_bytes.argtypes = [_I]
     lib.nsp_ctc_smem_bytes.restype = ctypes.c_longlong
     return lib

@@ -14,7 +14,7 @@
 //   daw_carry = conv^T(dloc)                   dconv += dloc x aw_{t-1}
 //   dh    = dh_out[t] + (dq_t W_q) keep_t + dh_carry   (query from h * keep)
 //   LSTM adjoint from the saved gates and c:  dy_t [4H], dc_carry = dc f
-//   dh_carry = dy_t W_h^T,  dctx_carry = dy_t W_ctx^T  (in-kernel GEMV)
+//   dh_carry = dy_t W_h^T,  dctx_carry = dy_t W_ctx^T  (split-K product)
 // dy_t and dq_t are streamed out; the step-invariant weight gradients
 // dW_h, dW_ctx, b, dW_q are reduced outside as single matmuls over all
 // steps, as the Pallas `_bwd` did. dv, dW_f and dconv are summed into
@@ -22,42 +22,88 @@
 // so no atomics) and reduced outside; dkc and dvalues are owned per
 // element and accumulated in place.
 //
-// What bounds it on the H100: as the forward, a step is small (B rows):
-// the recurrent GEMV reads the 25 MB of gate weights once per row tile,
-// and the attention part reads kc and values (B x T x (A + D) floats) and
-// rewrites dkc and dvalues. The first design keeps to six kernels per step
-// from a host loop, each spread over ~100-400 blocks at the flagship's
-// training shape (B = 32, T = 188).
+// What bounds it on the H100: a step is small (B rows). Its largest
+// piece of work is the recurrent product dy_t [B, 4H] x [W_ctx; W_h]^T,
+// which must read the 25 MB of gate weights once per step; the attention
+// part reads kc and values (B x T x (A + D) floats) and rewrites dkc. The
+// per-step chain is a host loop of kernels, each spread over at least
+// ~200 blocks at the flagship's training shape (B = 32, T = 188):
+//   bwd_context, bwd_softmax, bwd_energy  the attention adjoint;
+//   bwd_conv     the conv transpose, and dq_t summed once from the
+//                energy blocks' parts (disjoint slices of A per block);
+//   bwd_cell     dquery = dq_t W_q (a block per 16 units x 8 rows, W_q's
+//                columns staged in shared memory) and the LSTM adjoint;
+//   bwd_recurrent  split-K: a block per (64 weight rows, 256 gate columns,
+//                32 rows n) streams its disjoint tile of W once with
+//                cp.async double buffering against all rows of dy_t held
+//                in shared memory, and writes its partial sum. The next
+//                step's consumers (bwd_cell for dh, bwd_context for dctx)
+//                add the partials in a fixed order: deterministic, no
+//                atomics.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <initializer_list>
+
+#include "rel_attention_common.cuh"
+
 namespace {
+
+using nsp_rel::cp_async16;
+using nsp_rel::cp_async_commit;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kFrames = 16;     // frames per block of the energy / conv kernels
-constexpr int kRows = 16;       // rows per block of the query / recurrent kernels
-constexpr int kColThreads = 128;
-constexpr int kChunk = 256;     // gate columns per shared-memory chunk
+// bwd_cell: a block per (kCellUnits units, kCellRows rows)
+constexpr int kCellUnits = 16;
+constexpr int kCellRows = 8;
+constexpr int kCellThreads = kCellUnits * kCellRows;
+// bwd_recurrent: a block per (kRecRows weight rows, kRecK gate columns,
+// kRecN rows n); W streamed kRecSub columns at a time
+constexpr int kRecRows = 64;
+constexpr int kRecK = 256;
+constexpr int kRecSub = 64;
+constexpr int kRecN = 32;
+constexpr int kRecThreads = 128;
+constexpr int kDyStride = kRecK + 4;   // 16-byte rows, conflict-free float4 reads
+constexpr int kWStride = kRecSub + 4;
 
 __device__ __forceinline__ float warp_sum(float x) {
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
   return x;
 }
 
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_none() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// dctx[n, d] = dctx_out[n, d] + the n_part split-K partials of the
+// recurrent product's context rows (part [n_part, N, D + H], columns < D).
+__device__ __forceinline__ float dctx_total(const float* __restrict__ dctx_out,
+                                            const float* __restrict__ part, int n_part, int n,
+                                            int d, int N, int D, int R) {
+  float s = dctx_out[(size_t)n * D + d];
+  for (int p = 0; p < n_part; ++p) s += part[((size_t)p * N + n) * R + d];
+  return s;
+}
+
 // daw[n, t'] = daw_carry[n, t'] + values[n, t', :] . dctx[n, :],
 // dvalues[n, t', :] += aw[n, t'] dctx[n, :], dctx = dctx_out + dctx_carry.
 // A block per (kWarps frames, row n), a warp per frame, lanes along D.
 __global__ void __launch_bounds__(kThreads)
-bwd_context(const float* __restrict__ dctx_out, const float* __restrict__ dctx_c,
+bwd_context(const float* __restrict__ dctx_out, const float* __restrict__ part, int n_part,
             const float* __restrict__ daw_c, const float* __restrict__ values,
             const float* __restrict__ aw, float* __restrict__ daw,
-            float* __restrict__ dvalues, int T, int D) {
+            float* __restrict__ dvalues, int N, int T, int D, int H) {
   extern __shared__ float dctx[];  // [D]
   const int n = blockIdx.y;
   for (int d = threadIdx.x; d < D; d += kThreads)
-    dctx[d] = dctx_out[(size_t)n * D + d] + dctx_c[(size_t)n * D + d];
+    dctx[d] = dctx_total(dctx_out, part, n_part, n, d, N, D, D + H);
   __syncthreads();
   const int lane = threadIdx.x & 31;
   const int t = blockIdx.x * kWarps + (threadIdx.x >> 5);
@@ -212,11 +258,13 @@ __host__ __device__ inline size_t conv_bwd_smem_floats(int C, int K) {
 // A block per (kFrames frames, row n): daw_carry[n, tau] = sum_c sum_k
 // dloc[n, tau + left - k, c] conv[c, k] for the block's frames tau, and the
 // block's sum of dconv[c, k] = sum_t' dloc[n, t', c] aw_prev[n, t' + k -
-// left] (into its own partial).
+// left] (into its own partial). Besides, dq_t[n, a] = the sum of the
+// energy blocks' parts, in order, for the block's slice of a.
 __global__ void __launch_bounds__(kThreads)
 bwd_conv(const float* __restrict__ dloc, const float* __restrict__ aw_prev,
-         const float* __restrict__ conv_w, float* __restrict__ daw_c,
-         float* __restrict__ dconv_part, int T, int C, int K) {
+         const float* __restrict__ conv_w, const float* __restrict__ dq_part,
+         float* __restrict__ daw_c, float* __restrict__ dconv_part, float* __restrict__ dq,
+         int N, int T, int A, int C, int K) {
   extern __shared__ float smem[];
   const int W = kFrames + K - 1;
   float* cw = smem;                       // [C][K]
@@ -228,6 +276,12 @@ bwd_conv(const float* __restrict__ dloc, const float* __restrict__ aw_prev,
   const int left = (K - 1) / 2;
   const int w0 = t0 + left - (K - 1);
   const int tid = threadIdx.x;
+  const int slice = (A + gridDim.x - 1) / gridDim.x;
+  for (int a = tb * slice + tid; a < min(A, (tb + 1) * slice); a += kThreads) {
+    float s = 0.0f;
+    for (int p = 0; p < (int)gridDim.x; ++p) s += dq_part[((size_t)p * N + n) * A + a];
+    dq[(size_t)n * A + a] = s;
+  }
   for (int i = tid; i < C * K; i += kThreads) cw[i] = conv_w[i];
   for (int i = tid; i < C * W; i += kThreads) {
     const int c = i / W, f = w0 + i % W;
@@ -269,111 +323,175 @@ bwd_conv(const float* __restrict__ dloc, const float* __restrict__ aw_prev,
 
 __device__ __forceinline__ float sig_d(float g) { return g * (1.0f - g); }
 
-// A block per (kColThreads units, kRows rows): dq_t = sum of the energy
-// blocks' dq parts (written to dq_all by the first column block),
-// dquery = dq_t W_q, then the LSTM cell adjoint of each (row, unit): dy_t
-// and the dc carry.
-__global__ void __launch_bounds__(kColThreads)
-bwd_query_cell(const float* __restrict__ dq_part, const float* __restrict__ w_q,
-               const float* __restrict__ gates, const float* __restrict__ c_t,
-               const float* __restrict__ c_prev, const float* __restrict__ keep,
-               const float* __restrict__ dh_out, const float* __restrict__ dh_c,
-               float* __restrict__ dc_c, float* __restrict__ dy, float* __restrict__ dq,
-               int N, int H, int A, int n_tb) {
-  extern __shared__ float dqs[];  // [kRows][A]
-  const int n0 = blockIdx.y * kRows;
-  const int rows = min(kRows, N - n0);
-  for (int i = threadIdx.x; i < kRows * A; i += kColThreads) {
+// Shared memory of bwd_cell, in floats: W_q's kCellUnits columns [A][16]
+// and the block's rows of dq_t [kCellRows][A + 1] (odd stride: two rows
+// read by one warp fall in different banks).
+__host__ __device__ inline size_t cell_smem_floats(int A) {
+  return (size_t)A * kCellUnits + (size_t)kCellRows * (A + 1);
+}
+
+// A block per (kCellUnits units, kCellRows rows), a thread per (row, unit):
+// dquery = dq_t W_q, dh = dh_out + dquery keep + dh_carry (the sum of the
+// recurrent product's n_part partials, in order), then the LSTM cell
+// adjoint: dy_t and the dc carry.
+__global__ void __launch_bounds__(kCellThreads)
+bwd_cell(const float* __restrict__ dq, const float* __restrict__ w_q,
+         const float* __restrict__ gates, const float* __restrict__ c_t,
+         const float* __restrict__ c_prev, const float* __restrict__ keep,
+         const float* __restrict__ dh_out, const float* __restrict__ part, int n_part,
+         float* __restrict__ dc_c, float* __restrict__ dy, int N, int H, int D, int A) {
+  extern __shared__ float smem[];
+  float* wq = smem;                              // [A][kCellUnits]
+  float* dqs = wq + (size_t)A * kCellUnits;      // [kCellRows][A + 1]
+  const int j0 = blockIdx.x * kCellUnits, n0 = blockIdx.y * kCellRows;
+  const int tid = threadIdx.x;
+  for (int i = tid; i < A * kCellUnits; i += kCellThreads) {
+    const int a = i / kCellUnits, u = i % kCellUnits;
+    wq[i] = (j0 + u < H) ? w_q[(size_t)a * H + j0 + u] : 0.0f;
+  }
+  for (int i = tid; i < kCellRows * A; i += kCellThreads) {
     const int r = i / A, a = i % A;
-    float s = 0.0f;
-    if (r < rows)
-      for (int tb = 0; tb < n_tb; ++tb) s += dq_part[((size_t)tb * N + n0 + r) * A + a];
-    dqs[i] = s;
-    if (blockIdx.x == 0 && r < rows) dq[(size_t)(n0 + r) * A + a] = s;
+    dqs[r * (A + 1) + a] = (n0 + r < N) ? dq[(size_t)(n0 + r) * A + a] : 0.0f;
   }
   __syncthreads();
-  const int j = blockIdx.x * kColThreads + threadIdx.x;
-  if (j >= H) return;
-  float acc[kRows];
+  const int u = tid % kCellUnits, r = tid / kCellUnits;
+  const int j = j0 + u, n = n0 + r;
+  if (j >= H || n >= N) return;
+  const float* dr = dqs + r * (A + 1);
+  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  int a = 0;
+  for (; a + 4 <= A; a += 4) {
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) acc[r] = 0.0f;
-  for (int a = 0; a < A; ++a) {
-    const float w = w_q[(size_t)a * H + j];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) acc[r] += dqs[r * A + a] * w;
+    for (int i = 0; i < 4; ++i) acc[i] += dr[a + i] * wq[(a + i) * kCellUnits + u];
   }
+  for (; a < A; ++a) acc[0] += dr[a] * wq[a * kCellUnits + u];
+  const float dquery = (acc[0] + acc[1]) + (acc[2] + acc[3]);
+  const int R = D + H;
+  float dh_c = 0.0f;
+  for (int p = 0; p < n_part; ++p) dh_c += part[((size_t)p * N + n) * R + D + j];
   const int G = 4 * H;
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    if (r >= rows) break;
-    const int n = n0 + r;
-    const size_t at = (size_t)n * H + j;
-    const float* g = gates + (size_t)n * G + j;
-    const float gi = g[0], gf = g[H], gg = g[2 * H], go = g[3 * H];
-    const float dh = dh_out[at] + acc[r] * keep[at] + dh_c[at];
-    const float tc = tanhf(c_t[at]);
-    const float dc = dc_c[at] + dh * go * (1.0f - tc * tc);
-    const float cp = (c_prev != nullptr) ? c_prev[at] : 0.0f;
-    float* dyb = dy + (size_t)n * G + j;
-    dyb[0] = dc * gg * sig_d(gi);
-    dyb[H] = dc * cp * sig_d(gf);
-    dyb[2 * H] = dc * gi * (1.0f - gg * gg);
-    dyb[3 * H] = dh * tc * sig_d(go);
-    dc_c[at] = dc * gf;
-  }
+  const size_t at = (size_t)n * H + j;
+  const float* g = gates + (size_t)n * G + j;
+  const float gi = g[0], gf = g[H], gg = g[2 * H], go = g[3 * H];
+  const float dh = dh_out[at] + dquery * keep[at] + dh_c;
+  const float tc = tanhf(c_t[at]);
+  const float dc = dc_c[at] + dh * go * (1.0f - tc * tc);
+  const float cp = (c_prev != nullptr) ? c_prev[at] : 0.0f;
+  float* dyb = dy + (size_t)n * G + j;
+  dyb[0] = dc * gg * sig_d(gi);
+  dyb[H] = dc * cp * sig_d(gf);
+  dyb[2 * H] = dc * gi * (1.0f - gg * gg);
+  dyb[3 * H] = dh * tc * sig_d(go);
+  dc_c[at] = dc * gf;
 }
 
-// out[n, r] = sum_g dy[n, g] W[r, g], W = [W_ctx; W_h] ([D + H, 4H]):
-// rows r < D go to dctx_c, the others to dh_c. A warp per output row r,
-// lanes along g (coalesced), kRows rows n per block from shared memory.
-__global__ void __launch_bounds__(kThreads)
+// Shared memory of bwd_recurrent, in floats: dy's kRecN rows of the
+// block's kRecK columns, and two stages of kRecRows weight rows x kRecSub
+// columns.
+constexpr size_t kRecSmemFloats = (size_t)kRecN * kDyStride + 2 * (size_t)kRecRows * kWStride;
+
+// part[s, n, r] = sum over the block's gate columns g of chunk s of
+// dy[n, g] W[r, g], W = [W_ctx; W_h] ([D + H, 4H]). A block per (kRecRows
+// rows r, chunk s of kRecK columns, kRecN rows n); a thread holds a 4 x 4
+// tile (n = tn + 8 i, r = tr + 16 j) and reads 4 columns of each operand
+// per float4 load. Columns past 4H and rows past N or D + H are zeros.
+__global__ void __launch_bounds__(kRecThreads)
 bwd_recurrent(const float* __restrict__ dy, const float* __restrict__ w_ctx,
-              const float* __restrict__ w_h, float* __restrict__ dctx_c,
-              float* __restrict__ dh_c, int N, int D, int H) {
-  __shared__ float ys[kRows][kChunk];
-  const int G = 4 * H;
-  const int lane = threadIdx.x & 31;
-  const int r = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  const int n0 = blockIdx.y * kRows;
-  const int rows = min(kRows, N - n0);
-  const float* wr = (r < D) ? w_ctx + (size_t)r * G : w_h + (size_t)(r - D) * G;
-  float acc[kRows];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) acc[i] = 0.0f;
-  for (int g0 = 0; g0 < G; g0 += kChunk) {
-    const int gn = min(kChunk, G - g0);
-    __syncthreads();
-    for (int i = threadIdx.x; i < kRows * kChunk; i += kThreads) {
-      const int rr = i / kChunk, gg = i % kChunk;
-      ys[rr][gg] = (rr < rows && gg < gn) ? dy[(size_t)(n0 + rr) * G + g0 + gg] : 0.0f;
-    }
-    __syncthreads();
-    if (r < D + H) {
-      for (int gg = lane; gg < gn; gg += 32) {
-        const float w = wr[g0 + gg];
-#pragma unroll
-        for (int i = 0; i < kRows; ++i) acc[i] += ys[i][gg] * w;
-      }
-    }
+              const float* __restrict__ w_h, float* __restrict__ part, int N, int D, int H) {
+  extern __shared__ float4 rec_smem[];  // float4: 16-byte aligned for cp.async
+  float* ys = reinterpret_cast<float*>(rec_smem);  // [kRecN][kDyStride]
+  float* ws = ys + (size_t)kRecN * kDyStride;   // [2][kRecRows][kWStride]
+  const int G = 4 * H, R = D + H;
+  const int r0 = blockIdx.x * kRecRows, g0 = blockIdx.y * kRecK, n0 = blockIdx.z * kRecN;
+  const int kn = min(kRecK, G - g0);            // a multiple of 4
+  const int tid = threadIdx.x;
+  for (int c = tid; c < kRecN * (kRecK / 4); c += kRecThreads) {
+    const int nn = c / (kRecK / 4), col = (c % (kRecK / 4)) * 4;
+    const bool in = n0 + nn < N && col < kn;
+    cp_async16(ys + nn * kDyStride + col, in ? dy + (size_t)(n0 + nn) * G + g0 + col : dy, in);
   }
-  if (r >= D + H) return;
+  auto load_w = [&](int stage, int sub) {
+    float* dst = ws + (size_t)stage * kRecRows * kWStride;
+    const int k0 = sub * kRecSub;
+    for (int c = tid; c < kRecRows * (kRecSub / 4); c += kRecThreads) {
+      const int rr = c / (kRecSub / 4), col = (c % (kRecSub / 4)) * 4;
+      const int r = r0 + rr;
+      const bool in = r < R && k0 + col < kn;
+      const float* row = (r < D) ? w_ctx + (size_t)r * G : w_h + (size_t)(r - D) * G;
+      cp_async16(dst + rr * kWStride + col, in ? row + g0 + k0 + col : w_h, in);
+    }
+  };
+  const int n_sub = (kn + kRecSub - 1) / kRecSub;
+  load_w(0, 0);
+  cp_async_commit();
+  const int tn = tid & 7, tr = tid >> 3;
+  float acc[4][4];
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const float s = warp_sum(acc[i]);
-    if (lane == 0 && i < rows) {
-      const int n = n0 + i;
-      if (r < D) dctx_c[(size_t)n * D + r] = s;
-      else dh_c[(size_t)n * H + (r - D)] = s;
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+  for (int sub = 0; sub < n_sub; ++sub) {
+    if (sub + 1 < n_sub) {
+      load_w((sub + 1) & 1, sub + 1);
+      cp_async_commit();
+      cp_async_wait_one();
+    } else {
+      cp_async_wait_none();
+    }
+    __syncthreads();
+    const float* wb = ws + (size_t)(sub & 1) * kRecRows * kWStride;
+    const float* yb = ys + sub * kRecSub;
+#pragma unroll 4
+    for (int k = 0; k < kRecSub; k += 4) {
+      float4 y[4], w[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        y[i] = *reinterpret_cast<const float4*>(yb + (tn + 8 * i) * kDyStride + k);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        w[j] = *reinterpret_cast<const float4*>(wb + (tr + 16 * j) * kWStride + k);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          float s = acc[i][j];
+          s = fmaf(y[i].x, w[j].x, s);
+          s = fmaf(y[i].y, w[j].y, s);
+          s = fmaf(y[i].z, w[j].z, s);
+          acc[i][j] = fmaf(y[i].w, w[j].w, s);
+        }
+    }
+    __syncthreads();  // the stage is refilled next
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int n = n0 + tn + 8 * i;
+    if (n >= N) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int r = r0 + tr + 16 * j;
+      if (r < R) part[((size_t)blockIdx.y * N + n) * R + r] = acc[i][j];
     }
   }
 }
 
-size_t max3(size_t a, size_t b, size_t c) { return a > b ? (a > c ? a : c) : (b > c ? b : c); }
+// Lets Kernel take `bytes` of dynamic shared memory. The attribute is set
+// only when a call needs more than before, so a call captured in a CUDA
+// graph after a first one at its shapes makes no such request.
+template <auto Kernel>
+cudaError_t allow_smem(size_t bytes) {
+  static size_t allowed = 48 * 1024;
+  if (bytes <= allowed) return cudaSuccess;
+  const cudaError_t err =
+      cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err == cudaSuccess) allowed = bytes;
+  return err;
+}
 
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+size_t max_of(std::initializer_list<size_t> xs) {
+  size_t m = 0;
+  for (size_t x : xs) m = x > m ? x : m;
+  return m;
 }
 
 }  // namespace
@@ -381,10 +499,14 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 // Shared memory (bytes) the largest block of a backward step asks for.
 extern "C" long long nsp_las_scan_bwd_smem_bytes(int T, int D, int A, int C, int K) {
   (void)T;
-  const size_t f = max3(energy_bwd_smem_floats(A, C, K), conv_bwd_smem_floats(C, K),
-                        max3((size_t)D, (size_t)kRows * A, 0));
+  const size_t f = max_of({energy_bwd_smem_floats(A, C, K), conv_bwd_smem_floats(C, K),
+                           (size_t)D, cell_smem_floats(A), kRecSmemFloats});
   return (long long)(sizeof(float) * f);
 }
+
+// The number of split-K partials of the recurrent product (the leading
+// dimension of its scratch `part`) for H units.
+extern "C" int nsp_las_scan_bwd_parts(int H) { return (4 * H + kRecK - 1) / kRecK; }
 
 #define F(x) static_cast<const float*>(x)
 #define W(x) static_cast<float*>(x)
@@ -396,40 +518,51 @@ extern "C" long long nsp_las_scan_bwd_smem_bytes(int T, int D, int A, int C, int
 // q_all [U, N, A], aw_all [U, N, T]; aw0 [N, T] (the step-0 weights,
 // zeros); the upstream gradients dh_out [U, N, H] (w.r.t. each step's
 // undropped h) and dctx_out [U, N, D]. Carries (zeroed by the caller):
-// dh_c, dc_c [N, H], dctx_c [N, D], daw_c [N, T]; scratch daw, de [N, T],
-// dloc [N, T, C], dq_part [ceil(T / 16), N, A]. Outputs: dy_all [U, N, 4H],
-// dq_all [U, N, A]; accumulated into (zeroed by the caller) dkc [N, T, A],
-// dvalues [N, T, D], dv_part [N * ceil(T / 16), A], dwf_part [N * ceil(T /
-// 16), A, C], dconv_part [N * ceil(T / 16), C, K]. Returns a cudaError_t.
+// dc_c [N, H], daw_c [N, T]; scratch part [nsp_las_scan_bwd_parts(H), N,
+// D + H], daw, de [N, T], dloc [N, T, C], dq_part [ceil(T / 16), N, A].
+// Outputs: dy_all [U, N, 4H], dq_all [U, N, A]; accumulated into (zeroed
+// by the caller) dkc [N, T, A], dvalues [N, T, D], dv_part [N * ceil(T /
+// 16), A], dwf_part [N * ceil(T / 16), A, C], dconv_part [N * ceil(T /
+// 16), C, K]. *launched (host memory) receives the number of kernels
+// launched. Returns a cudaError_t.
 extern "C" int nsp_las_scan_bwd_f32(
     const void* w_ctx, const void* w_h, const void* w_q, const void* conv_w, const void* w_f,
     const void* v, const void* kc, const void* values, const void* klens, const void* keep,
     const void* gates, const void* c_all, const void* q_all, const void* aw_all,
-    const void* aw0, const void* dh_out, const void* dctx_out, void* dh_c, void* dc_c,
-    void* dctx_c, void* daw_c, void* daw, void* de, void* dloc, void* dq_part, void* dy_all,
-    void* dq_all, void* dkc, void* dvalues, void* dv_part, void* dwf_part, void* dconv_part,
+    const void* aw0, const void* dh_out, const void* dctx_out, void* dc_c, void* daw_c,
+    void* part, void* daw, void* de, void* dloc, void* dq_part, void* dy_all, void* dq_all,
+    void* dkc, void* dvalues, void* dv_part, void* dwf_part, void* dconv_part, void* launched,
     int U, int N, int T, int H, int D, int A, int C, int K, void* stream) {
+  int* count = static_cast<int*>(launched);
+  *count = 0;
   if (U <= 0 || N <= 0 || T <= 0 || H <= 0 || D <= 0 || A <= 0 || C <= 0 || K <= 0 ||
       N > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int n_tb = (T + kFrames - 1) / kFrames;
+  const int n_part = nsp_las_scan_bwd_parts(H);
   const size_t nh = (size_t)N * H, nt = (size_t)N * T;
   const size_t ctx_smem = sizeof(float) * D;
   const size_t e_smem = sizeof(float) * energy_bwd_smem_floats(A, C, K);
   const size_t c_smem = sizeof(float) * conv_bwd_smem_floats(C, K);
-  const size_t q_smem = sizeof(float) * kRows * A;
+  const size_t cell_smem = sizeof(float) * cell_smem_floats(A);
+  const size_t rec_smem = sizeof(float) * kRecSmemFloats;
   cudaError_t err;
-  if ((err = allow_smem(bwd_context, ctx_smem)) != cudaSuccess) return (int)err;
-  if ((err = allow_smem(bwd_energy, e_smem)) != cudaSuccess) return (int)err;
-  if ((err = allow_smem(bwd_conv, c_smem)) != cudaSuccess) return (int)err;
-  if ((err = allow_smem(bwd_query_cell, q_smem)) != cudaSuccess) return (int)err;
+  if ((err = allow_smem<bwd_context>(ctx_smem)) != cudaSuccess) return (int)err;
+  if ((err = allow_smem<bwd_energy>(e_smem)) != cudaSuccess) return (int)err;
+  if ((err = allow_smem<bwd_conv>(c_smem)) != cudaSuccess) return (int)err;
+  if ((err = allow_smem<bwd_cell>(cell_smem)) != cudaSuccess) return (int)err;
+  if ((err = allow_smem<bwd_recurrent>(rec_smem)) != cudaSuccess) return (int)err;
+  const dim3 rec_grid((D + H + kRecRows - 1) / kRecRows, n_part, (N + kRecN - 1) / kRecN);
+  const dim3 cell_grid((H + kCellUnits - 1) / kCellUnits, (N + kCellRows - 1) / kCellRows);
   for (int t = U - 1; t >= 0; --t) {
     const float* aw_t = F(aw_all) + (size_t)t * nt;
     const float* aw_prev = (t > 0) ? F(aw_all) + (size_t)(t - 1) * nt : F(aw0);
+    // the recurrent product's partials exist from the second step on
+    const int parts = (t < U - 1) ? n_part : 0;
     bwd_context<<<dim3((T + kWarps - 1) / kWarps, N), kThreads, ctx_smem, s>>>(
-        F(dctx_out) + (size_t)t * N * D, F(dctx_c), F(daw_c), F(values), aw_t, W(daw),
-        W(dvalues), T, D);
+        F(dctx_out) + (size_t)t * N * D, F(part), parts, F(daw_c), F(values), aw_t, W(daw),
+        W(dvalues), N, T, D, H);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
     bwd_softmax<<<N, kThreads, 0, s>>>(aw_t, F(daw), static_cast<const int*>(klens), W(de), T);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
@@ -437,21 +570,23 @@ extern "C" int nsp_las_scan_bwd_f32(
         F(q_all) + (size_t)t * N * A, aw_prev, F(conv_w), F(w_f), F(v), F(kc), F(de), W(dkc),
         W(dloc), W(dq_part), W(dv_part), W(dwf_part), N, T, A, C, K);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    bwd_conv<<<dim3(n_tb, N), kThreads, c_smem, s>>>(F(dloc), aw_prev, F(conv_w), W(daw_c),
-                                                     W(dconv_part), T, C, K);
+    bwd_conv<<<dim3(n_tb, N), kThreads, c_smem, s>>>(F(dloc), aw_prev, F(conv_w), F(dq_part),
+                                                     W(daw_c), W(dconv_part),
+                                                     W(dq_all) + (size_t)t * N * A, N, T, A,
+                                                     C, K);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    bwd_query_cell<<<dim3((H + kColThreads - 1) / kColThreads, (N + kRows - 1) / kRows),
-                     kColThreads, q_smem, s>>>(
-        F(dq_part), F(w_q), F(gates) + (size_t)t * nh * 4, F(c_all) + (size_t)t * nh,
-        (t > 0) ? F(c_all) + (size_t)(t - 1) * nh : nullptr, F(keep) + (size_t)t * nh,
-        F(dh_out) + (size_t)t * nh, F(dh_c), W(dc_c), W(dy_all) + (size_t)t * nh * 4,
-        W(dq_all) + (size_t)t * N * A, N, H, A, n_tb);
+    bwd_cell<<<cell_grid, kCellThreads, cell_smem, s>>>(
+        F(dq_all) + (size_t)t * N * A, F(w_q), F(gates) + (size_t)t * nh * 4,
+        F(c_all) + (size_t)t * nh, (t > 0) ? F(c_all) + (size_t)(t - 1) * nh : nullptr,
+        F(keep) + (size_t)t * nh, F(dh_out) + (size_t)t * nh, F(part), parts, W(dc_c),
+        W(dy_all) + (size_t)t * nh * 4, N, H, D, A);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    *count += 5;
     if (t > 0) {
-      bwd_recurrent<<<dim3((D + H + kWarps - 1) / kWarps, (N + kRows - 1) / kRows), kThreads, 0,
-                      s>>>(F(dy_all) + (size_t)t * nh * 4, F(w_ctx), F(w_h), W(dctx_c), W(dh_c),
-                           N, D, H);
+      bwd_recurrent<<<rec_grid, kRecThreads, rec_smem, s>>>(F(dy_all) + (size_t)t * nh * 4,
+                                                            F(w_ctx), F(w_h), W(part), N, D, H);
       if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+      *count += 1;
     }
   }
   return (int)cudaSuccess;

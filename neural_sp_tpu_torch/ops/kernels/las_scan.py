@@ -30,6 +30,8 @@ on CPU tensors, the kernels on CUDA tensors.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 import torch.nn.functional as F
 
@@ -229,14 +231,22 @@ def las_scan(eg, w_ctx, w_h, bias, w_q, conv_w, w_f, v, kc, values, klens,
     return tuple(outs)
 
 
-def las_scan_bwd(w_ctx, w_h, w_q, conv_w, w_f, v, kc, values, klens, keep,
-                 h, c, gates, q, aw, ctx, dh_out, dctx_out):
-    """K3b: gradients as ``las_scan_bwd_ref``; dispatch as ``las_scan``.
-    Counts in ``las_scan_bwd.launches``."""
-    args = (w_ctx, w_h, w_q, conv_w, w_f, v, kc, values, klens, keep, h, c,
-            gates, q, aw, ctx, dh_out, dctx_out)
-    if on_cpu(*args):
-        return las_scan_bwd_ref(*args)
+def las_scan_bwd_finish(h, ctx, keep, aw, dy, dq, dkc, dvalues, dconv_part,
+                        dwf_part, dv_part):
+    """K3b's work after its loop, plain tensor code: the step-invariant
+    weight gradients from the streamed dy and dq, and the sums of the
+    per-block partials [slots, ...] of dconv, dW_f and dv. Returns the
+    gradients in ``las_scan_bwd_ref``'s order."""
+    return (dy, *_weight_grads(h, ctx, keep, dy, dq), dconv_part.sum(0),
+            dwf_part.sum(0), dv_part.sum(0), dkc, dvalues)
+
+
+def las_scan_bwd_chain(w_ctx, w_h, w_q, conv_w, w_f, v, kc, values, klens,
+                       keep, h, c, gates, q, aw, ctx, dh_out, dctx_out):
+    """K3b's kernel loop alone, on CUDA tensors: launches the per-step
+    chain (or raises) and returns what ``las_scan_bwd_finish`` takes after
+    (h, ctx, keep, aw). The number of kernels it launched goes to
+    ``las_scan_bwd.kernel_launches_per_call``."""
     u, b, hd = h.shape
     lib, dims = _check_shapes(b, u, hd, w_ctx, w_h, None, w_q, conv_w, w_f,
                               v, kc, values, klens, keep)
@@ -259,24 +269,41 @@ def las_scan_bwd(w_ctx, w_h, w_q, conv_w, w_f, v, kc, values, klens, keep,
 
     ins = (w_ctx, w_h, w_q, conv_w, w_f, v, kc, values, klens, keep, gates, c,
            q, aw, zeros(b, t), dh_out, dctx_out)
-    carries = (zeros(b, hd), zeros(b, hd), zeros(b, d), zeros(b, t))
-    scratch = (empty(b, t), empty(b, t), empty(b, t, ch), empty(n_tb, b, a))
+    carries = (zeros(b, hd), zeros(b, t))
+    scratch = (empty(lib.nsp_las_scan_bwd_parts(hd), b, d + hd), empty(b, t),
+               empty(b, t), empty(b, t, ch), empty(n_tb, b, a))
     dy, dq = empty(u, b, 4 * hd), empty(u, b, a)
     dkc, dvalues = zeros(b, t, a), zeros(b, t, d)
     dv_part, dwf_part = zeros(b * n_tb, a), zeros(b * n_tb, a, ch)
     dconv_part = zeros(b * n_tb, ch, k)
+    launched = ctypes.c_int(0)
     err = lib.nsp_las_scan_bwd_f32(
         *(x.data_ptr() for x in (*ins, *carries, *scratch, dy, dq, dkc,
                                  dvalues, dv_part, dwf_part, dconv_part)),
-        *dims, stream_of(h))
+        ctypes.addressof(launched), *dims, stream_of(h))
     raise_on_error("las_scan_bwd", err)
+    las_scan_bwd.kernel_launches_per_call = launched.value
+    return dy, dq, dkc, dvalues, dconv_part, dwf_part, dv_part
+
+
+def las_scan_bwd(w_ctx, w_h, w_q, conv_w, w_f, v, kc, values, klens, keep,
+                 h, c, gates, q, aw, ctx, dh_out, dctx_out):
+    """K3b: gradients as ``las_scan_bwd_ref``; dispatch as ``las_scan``:
+    the kernel loop (``las_scan_bwd_chain``), then
+    ``las_scan_bwd_finish``. Counts in ``las_scan_bwd.launches``."""
+    args = (w_ctx, w_h, w_q, conv_w, w_f, v, kc, values, klens, keep, h, c,
+            gates, q, aw, ctx, dh_out, dctx_out)
+    if on_cpu(*args):
+        return las_scan_bwd_ref(*args)
+    raw = las_scan_bwd_chain(*args)
     las_scan_bwd.launches += 1
-    return (dy, *_weight_grads(h, ctx, keep, dy, dq), dconv_part.sum(0),
-            dwf_part.sum(0), dv_part.sum(0), dkc, dvalues)
+    return las_scan_bwd_finish(h, ctx, keep, aw, *raw)
 
 
 las_scan.launches = 0
 las_scan_bwd.launches = 0
+# kernels the last call of K3b launched (its per-step chain, U steps)
+las_scan_bwd.kernel_launches_per_call = 0
 
 
 def _tm(x):
