@@ -34,11 +34,12 @@ Phases (any failure raises and the script exits non-zero):
      K1b rel_attention_bwd (B=32, H=8, dk=64, R=11, T in 750/375/188,
      ragged lengths; and K1 there at full lengths), K3 las_scan and K3b
      las_scan_bwd (B=32, U+1=101, T=188, H=1024, D=A=512, C=10, K=201,
-     dropout keep-masks), K4 ctc_loss forward and backward (B=32, T=188,
-     U=100, V=10000, ragged lengths, a repeated label); errors are
-     normalised by the reference's largest magnitude; K1b against the
-     autograd backward of K1's yardstick, K4 against ``F.ctc_loss``; each
-     with its bound;
+     dropout keep-masks; K3b's kernel launches per call and the time of
+     its wrapper's work after the loop), K4 ctc_loss forward and backward
+     (B=32, T=188, U=100, V=10000, ragged lengths, a repeated label);
+     errors are normalised by the reference's largest magnitude; K1b
+     against the autograd backward of K1's yardstick, K4 against
+     ``F.ctc_loss``; each with its bound;
   5. train the flagship (same model, ``train()`` mode: SpecAugment and
      dropout on, f32, TF32 off) with noam Adam, clip 5 and 4-step
      accumulation on B=32 utterances of 1500 frames x 80 with U=100 labels:
@@ -564,8 +565,8 @@ def phase_train_kernels(torch, rng):
         ctc_forward_alphas, ctc_loss_bwd, ctc_loss_bwd_cost,
         ctc_loss_bwd_ref, ctc_loss_cost, ctc_loss_fwd)
     from neural_sp_tpu_torch.ops.kernels.las_scan import (
-        las_scan, las_scan_bwd, las_scan_bwd_cost, las_scan_bwd_ref,
-        las_scan_cost, las_scan_ref)
+        las_scan, las_scan_bwd, las_scan_bwd_chain, las_scan_bwd_cost,
+        las_scan_bwd_finish, las_scan_bwd_ref, las_scan_cost, las_scan_ref)
     from neural_sp_tpu_torch.ops.kernels.rel_attention import (
         rel_attention_bwd, rel_attention_bwd_cost, rel_attention_bwd_ref,
         rel_attention_cost, rel_attention_fwd, rel_attention_ref)
@@ -650,11 +651,21 @@ def phase_train_kernels(torch, rng):
     bargs = (w_ctx, w_h, w_q, conv_w, w_f, v, kc, values, klt, keep, *refs,
              t(u, b, hd), t(u, b, d))
     got, want = las_scan_bwd(*bargs), las_scan_bwd_ref(*bargs)
+    # the wrapper's work after the kernel loop (weight-gradient and
+    # dvalues products, partial sums), timed alone on the loop's outputs
+    h, _, _, _, aw, ctx = refs
+    raw = las_scan_bwd_chain(*bargs)
+    outside_ms = cuda_ms(lambda: las_scan_bwd_finish(h, ctx, keep, aw, *raw),
+                         iters=5, warmup=1)
+    log(f"[2b] las_scan_bwd: {las_scan_bwd.kernel_launches_per_call} kernel "
+        f"launches per call; the work after the loop {outside_ms:.4f} ms")
     record("las_scan_bwd", max(rel_err(x, y) for x, y in zip(got, want)),
            cuda_ms(lambda: las_scan_bwd(*bargs), iters=5, warmup=1),
            cuda_ms(lambda: las_scan_bwd_ref(*bargs), iters=5, warmup=1),
-           what, library_ms=None,
+           what, library_ms=None, outside_ms=outside_ms,
+           kernel_launches_per_call=las_scan_bwd.kernel_launches_per_call,
            **roofline(las_scan_bwd_cost(u, b, tt, hd, d, a, c, kw, kl)))
+    del got, want, raw
 
     tt, uu, vv = 188, TRAIN_U, 10000
     lp = torch.log_softmax(t(b, tt, vv, scale=2.0), -1)
@@ -928,6 +939,11 @@ def main() -> int:
     # K4's ms are forward + backward; its backward entry point counts apart
     next(e for e in entries if e["name"] == "ctc_loss")["bwd_launches"] = \
         launches["ctc_loss_bwd"]
+    # K3b: the kernels its loop launches per call, and the wrapper's work
+    # after the loop
+    next(e for e in entries if e["name"] == "las_scan_bwd").update(
+        {key: kernels["las_scan_bwd"][key]
+         for key in ("kernel_launches_per_call", "outside_ms")})
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

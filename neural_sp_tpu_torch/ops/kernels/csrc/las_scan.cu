@@ -5,8 +5,8 @@
 // las_scan_pallas.py (last present at 63255ae~1), reached through `_bwd`.
 // It walks the steps in reverse, carrying dh, dc, dctx and daw, and per
 // step t (rows n in parallel):
-//   dctx  = dctx_out[t] + dctx_carry
-//   daw   = daw_carry + values . dctx          dvalues += aw_t dctx
+//   dctx  = dctx_out[t] + dctx_carry           (saved: dctx_tot[t])
+//   daw   = daw_carry + values . dctx
 //   de    = aw_t (daw - sum(aw_t daw)), 0 on masked frames
 //   z     = kc + q_t + loc W_f^T,  s = tanh(z) (recomputed; loc from aw_{t-1})
 //   dz    = de v (1 - s^2):  dkc += dz, dq_t = sum_T dz, dv += de s,
@@ -15,31 +15,37 @@
 //   dh    = dh_out[t] + (dq_t W_q) keep_t + dh_carry   (query from h * keep)
 //   LSTM adjoint from the saved gates and c:  dy_t [4H], dc_carry = dc f
 //   dh_carry = dy_t W_h^T,  dctx_carry = dy_t W_ctx^T  (split-K product)
-// dy_t and dq_t are streamed out; the step-invariant weight gradients
-// dW_h, dW_ctx, b, dW_q are reduced outside as single matmuls over all
-// steps, as the Pallas `_bwd` did. dv, dW_f and dconv are summed into
+// dy_t, dq_t and dctx_tot[t] are streamed out; the step-invariant weight
+// gradients dW_h, dW_ctx, b, dW_q and dvalues = sum_t aw_t (x) dctx_tot[t]
+// are single products over all steps outside (las_scan.py), as the Pallas
+// `_bwd` reduced its d_toep outside. dv, dW_f and dconv are summed into
 // per-block partial buffers (each block owns its slot across the steps,
-// so no atomics) and reduced outside; dkc and dvalues are owned per
-// element and accumulated in place.
+// so no atomics; a buffer per step instead would take U x B x T x A x C
+// floats) and reduced outside; dkc is owned per element and accumulated
+// in place.
 //
 // What bounds it on the H100: a step is small (B rows). Its largest
 // piece of work is the recurrent product dy_t [B, 4H] x [W_ctx; W_h]^T,
 // which must read the 25 MB of gate weights once per step; the attention
-// part reads kc and values (B x T x (A + D) floats) and rewrites dkc. The
-// per-step chain is a host loop of kernels, each spread over at least
-// ~200 blocks at the flagship's training shape (B = 32, T = 188):
-//   bwd_context, bwd_softmax, bwd_energy  the attention adjoint;
+// part reads kc and values over the valid frames and rewrites dkc there.
+// The per-step chain is four kernels from a host loop (three at step 0),
+// each spread over at least 256 blocks at the flagship's training shape
+// (B = 32, T = 188, H = 1024):
+//   bwd_attention  the attention adjoint, a block per (16 frames, row);
+//                the softmax's row sum needs no pass of its own (ctx_t .
+//                dctx, from K3's saved context), and blocks past a row's
+//                length stop at once;
 //   bwd_conv     the conv transpose, and dq_t summed once from the
-//                energy blocks' parts (disjoint slices of A per block);
+//                attention blocks' parts (disjoint slices of A per block);
 //   bwd_cell     dquery = dq_t W_q (a block per 16 units x 8 rows, W_q's
 //                columns staged in shared memory) and the LSTM adjoint;
 //   bwd_recurrent  split-K: a block per (64 weight rows, 256 gate columns,
 //                32 rows n) streams its disjoint tile of W once with
 //                cp.async double buffering against all rows of dy_t held
 //                in shared memory, and writes its partial sum. The next
-//                step's consumers (bwd_cell for dh, bwd_context for dctx)
-//                add the partials in a fixed order: deterministic, no
-//                atomics.
+//                step's consumers (bwd_cell for dh, bwd_attention for
+//                dctx) add the partials in a fixed order: deterministic,
+//                no atomics.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -55,7 +61,8 @@ using nsp_rel::cp_async_commit;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kFrames = 16;     // frames per block of the energy / conv kernels
+constexpr int kFrames = 16;     // frames per block of the attention / conv kernels
+constexpr int kMaxC = 16;       // location-conv channels bwd_attention takes
 // bwd_cell: a block per (kCellUnits units, kCellRows rows)
 constexpr int kCellUnits = 16;
 constexpr int kCellRows = 8;
@@ -92,200 +99,185 @@ __device__ __forceinline__ float dctx_total(const float* __restrict__ dctx_out,
   return s;
 }
 
-// daw[n, t'] = daw_carry[n, t'] + values[n, t', :] . dctx[n, :],
-// dvalues[n, t', :] += aw[n, t'] dctx[n, :], dctx = dctx_out + dctx_carry.
-// A block per (kWarps frames, row n), a warp per frame, lanes along D.
-__global__ void __launch_bounds__(kThreads)
-bwd_context(const float* __restrict__ dctx_out, const float* __restrict__ part, int n_part,
-            const float* __restrict__ daw_c, const float* __restrict__ values,
-            const float* __restrict__ aw, float* __restrict__ daw,
-            float* __restrict__ dvalues, int N, int T, int D, int H) {
-  extern __shared__ float dctx[];  // [D]
-  const int n = blockIdx.y;
-  for (int d = threadIdx.x; d < D; d += kThreads)
-    dctx[d] = dctx_total(dctx_out, part, n_part, n, d, N, D, D + H);
-  __syncthreads();
-  const int lane = threadIdx.x & 31;
-  const int t = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (t >= T) return;
-  const size_t row = (size_t)n * T + t;
-  const float a = aw[row];
-  const float* vb = values + row * D;
-  float* dvb = dvalues + row * D;
-  float s = 0.0f;
-  for (int d = lane; d < D; d += 32) {
-    s += vb[d] * dctx[d];
-    dvb[d] += a * dctx[d];
-  }
-  s = warp_sum(s);
-  if (lane == 0) daw[row] = daw_c[row] + s;
+// Shared memory of bwd_attention, in floats.
+__host__ __device__ inline size_t attention_bwd_smem_floats(int D, int A, int C, int K) {
+  return (size_t)D + (size_t)A * C + (size_t)C * K + (kFrames + K - 1) + (size_t)kFrames * C +
+         kFrames + (size_t)kFrames * A + kWarps;
 }
 
-// de = aw (daw - sum(aw daw)) on frames < klens[n], 0 elsewhere.
+// The attention adjoint of step t. A block per (kFrames frames, row n);
+// blocks whose frames all lie past klens[n] only write their row's dctx
+// (tb = 0) and stop: de, dz and dloc are 0 there.
+//   dctx  = dctx_out + the recurrent product's partials    (-> dctx_tot)
+//   rs    = sum_t' aw_t daw = sum_t' aw_t daw_carry + ctx_t . dctx  (ctx_t
+//           = sum_t' aw_t values, saved by K3: no pass over values)
+//   de    = aw_t (daw_carry + values . dctx - rs)    a warp per frame
+//   loc   = conv(aw_prev)                            a warp per 20 outputs
+//   a thread per attention unit a: z, s = tanh(z), dz; dkc += dz in place;
+//   its sums over the block's frames of dq (dq_part, per step), dv and
+//   dW_f[a, :] (registers; added once into the block's own partials);
+//   dloc = dz W_f                                    a warp per 20 outputs
+// W_f is read as it is laid out ([A, C]), copied once per block.
 __global__ void __launch_bounds__(kThreads)
-bwd_softmax(const float* __restrict__ aw, const float* __restrict__ daw,
-            const int* __restrict__ klens, float* __restrict__ de, int T) {
-  __shared__ float red[kWarps];
-  const int n = blockIdx.x;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const float* awb = aw + (size_t)n * T;
-  const float* dab = daw + (size_t)n * T;
-  float s = 0.0f;
-  for (int t = threadIdx.x; t < T; t += kThreads) s += awb[t] * dab[t];
-  s = warp_sum(s);
-  if (lane == 0) red[warp] = s;
-  __syncthreads();
-  s = 0.0f;
-  for (int w = 0; w < kWarps; ++w) s += red[w];
-  const int klen = klens[n];
-  for (int t = threadIdx.x; t < T; t += kThreads)
-    de[(size_t)n * T + t] = (t < klen) ? awb[t] * (dab[t] - s) : 0.0f;
-}
-
-// Shared memory of bwd_energy, in floats.
-__host__ __device__ inline size_t energy_bwd_smem_floats(int A, int C, int K) {
-  return 2 * (size_t)A + (size_t)C * A + (size_t)C * K + (kFrames + K - 1) +
-         (size_t)kFrames * C + 2 * (size_t)kFrames * A + kFrames;
-}
-
-// A block per (kFrames frames, row n): recompute the location features and
-// tanh(z) of its frames, then dz, dkc (in place), dloc (to global), and
-// the block's sums of dq (dq_part, per step), dv and dW_f (partials owned
-// by this block across the steps).
-__global__ void __launch_bounds__(kThreads)
-bwd_energy(const float* __restrict__ q, const float* __restrict__ aw_prev,
-           const float* __restrict__ conv_w, const float* __restrict__ w_f,
-           const float* __restrict__ v, const float* __restrict__ kc,
-           const float* __restrict__ de, float* __restrict__ dkc,
-           float* __restrict__ dloc, float* __restrict__ dq_part,
-           float* __restrict__ dv_part, float* __restrict__ dwf_part,
-           int N, int T, int A, int C, int K) {
+bwd_attention(const float* __restrict__ dctx_out, const float* __restrict__ part, int n_part,
+              const float* __restrict__ daw_c, const float* __restrict__ values,
+              const float* __restrict__ aw, const float* __restrict__ ctx,
+              const int* __restrict__ klens, const float* __restrict__ q,
+              const float* __restrict__ aw_prev, const float* __restrict__ conv_w,
+              const float* __restrict__ w_f, const float* __restrict__ v,
+              const float* __restrict__ kc, float* __restrict__ dctx_tot,
+              float* __restrict__ dkc, float* __restrict__ dloc, float* __restrict__ dq_part,
+              float* __restrict__ dv_part, float* __restrict__ dwf_part, int N, int T, int D,
+              int H, int A, int C, int K) {
   extern __shared__ float smem[];
-  float* qs = smem;                          // [A]
-  float* vs = qs + A;                        // [A]
-  float* wft = vs + A;                       // [C][A]
-  float* cw = wft + (size_t)C * A;           // [C][K]
-  float* awp = cw + (size_t)C * K;           // [kFrames + K - 1]
+  float* dctx = smem;                        // [D]
+  float* wf = dctx + D;                      // [A][C], as w_f
+  float* cw = wf + (size_t)A * C;            // [C][K]
+  float* awp = cw + (size_t)C * K;           // [kFrames + K - 1]: aw_prev at t0 - left + i
   float* loc = awp + (kFrames + K - 1);      // [kFrames][C]
-  float* dzs = loc + (size_t)kFrames * C;    // [kFrames][A]
-  float* dvs = dzs + (size_t)kFrames * A;    // [kFrames][A]
-  float* des = dvs + (size_t)kFrames * A;    // [kFrames]
+  float* des = loc + (size_t)kFrames * C;    // [kFrames]
+  float* dzs = des + kFrames;                // [kFrames][A]
+  float* red = dzs + (size_t)kFrames * A;    // [kWarps]
 
   const int n = blockIdx.y, tb = blockIdx.x;
   const int t0 = tb * kFrames;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int klen = min(klens[n], T);
+  for (int d = tid; d < D; d += kThreads) {
+    const float x = dctx_total(dctx_out, part, n_part, n, d, N, D, D + H);
+    dctx[d] = x;
+    if (tb == 0) dctx_tot[(size_t)n * D + d] = x;
+  }
+  if (t0 >= klen) return;
+  const int nf = min(kFrames, klen - t0);    // the block's valid frames
   const int left = (K - 1) / 2;
-  for (int i = tid; i < A; i += kThreads) {
-    qs[i] = q[(size_t)n * A + i];
-    vs[i] = v[i];
-  }
-  for (int i = tid; i < C * A; i += kThreads) {
-    const int a = i / C, c = i % C;  // w_f is [A, C]
-    wft[c * A + a] = w_f[i];
-  }
+  for (int i = tid; i < A * C; i += kThreads) wf[i] = w_f[i];
   for (int i = tid; i < C * K; i += kThreads) cw[i] = conv_w[i];
   for (int i = tid; i < kFrames + K - 1; i += kThreads) {
     const int t = t0 + i - left;
     awp[i] = (t >= 0 && t < T) ? aw_prev[(size_t)n * T + t] : 0.0f;
   }
-  for (int i = tid; i < kFrames; i += kThreads) {
-    const int t = t0 + i;
-    des[i] = (t < T) ? de[(size_t)n * T + t] : 0.0f;
-  }
   __syncthreads();
-  for (int i = tid; i < kFrames * C; i += kThreads) {
-    const int tl = i / C, c = i % C;
-    const float* w = cw + (size_t)c * K;
-    const float* x = awp + tl;
-    float s = 0.0f;
-    for (int kk = 0; kk < K; ++kk) s += x[kk] * w[kk];
-    loc[i] = s;
-  }
-  __syncthreads();
+  // the softmax's row sum
+  const float* awr = aw + (size_t)n * T;
+  const float* dacr = daw_c + (size_t)n * T;
+  float rs = 0.0f;
+  for (int t = tid; t < klen; t += kThreads) rs += awr[t] * dacr[t];
+  for (int d = tid; d < D; d += kThreads) rs += ctx[(size_t)n * D + d] * dctx[d];
+  rs = warp_sum(rs);
+  if (lane == 0) red[warp] = rs;
+  // de of the block's frames
   for (int tl = warp; tl < kFrames; tl += kWarps) {
-    const int t = t0 + tl;
-    const float* lt = loc + (size_t)tl * C;
-    const float e = des[tl];
-    for (int a = lane; a < A; a += 32) {
-      float dz = 0.0f, dvv = 0.0f;
-      if (t < T) {
-        const size_t at = ((size_t)n * T + t) * A + a;
-        float f = 0.0f;
-        for (int c = 0; c < C; ++c) f += lt[c] * wft[c * A + a];
-        const float sv = tanhf(kc[at] + qs[a] + f);
-        dz = e * vs[a] * (1.0f - sv * sv);
-        dvv = e * sv;
-        dkc[at] += dz;
-      }
-      dzs[(size_t)tl * A + a] = dz;
-      dvs[(size_t)tl * A + a] = dvv;
+    float s = 0.0f;
+    if (tl < nf) {
+      const float* vb = values + ((size_t)n * T + t0 + tl) * D;
+      for (int d = lane; d < D; d += 32) s += vb[d] * dctx[d];
+      s = warp_sum(s);
     }
+    if (lane == 0) des[tl] = s;  // values . dctx for now
+  }
+  // loc[tl, c] = sum_k aw_prev[t0 + tl + k - left] conv[c, k]
+  for (int o = warp; o < kFrames * C; o += kWarps) {
+    const int tl = o / C, c = o % C;
+    float s = 0.0f;
+    for (int kk = lane; kk < K; kk += 32) s += awp[tl + kk] * cw[c * K + kk];
+    s = warp_sum(s);
+    if (lane == 0) loc[o] = s;
+  }
+  __syncthreads();
+  rs = 0.0f;
+  for (int w = 0; w < kWarps; ++w) rs += red[w];
+  if (tid < nf) {
+    const int t = t0 + tid;
+    des[tid] = awr[t] * (dacr[t] + des[tid] - rs);
   }
   __syncthreads();
   const size_t nb = (size_t)n * gridDim.x + tb;
-  for (int i = tid; i < kFrames * C; i += kThreads) {
-    const int tl = i / C, c = i % C, t = t0 + tl;
-    if (t >= T) continue;
-    const float* dz = dzs + (size_t)tl * A;
-    const float* w = wft + (size_t)c * A;
-    float s = 0.0f;
-    for (int a = 0; a < A; ++a) s += dz[a] * w[a];
-    dloc[((size_t)n * T + t) * C + c] = s;
-  }
   for (int a = tid; a < A; a += kThreads) {
-    float sq = 0.0f, sv = 0.0f;
-    for (int tl = 0; tl < kFrames; ++tl) {
-      sq += dzs[(size_t)tl * A + a];
-      sv += dvs[(size_t)tl * A + a];
+    float wfa[kMaxC], dwf[kMaxC];
+#pragma unroll
+    for (int c = 0; c < kMaxC; ++c) {
+      wfa[c] = c < C ? wf[a * C + c] : 0.0f;
+      dwf[c] = 0.0f;
     }
-    dq_part[((size_t)tb * N + n) * A + a] = sq;
-    dv_part[nb * A + a] += sv;
+    const float qa = q[(size_t)n * A + a], va = v[a];
+    float dq = 0.0f, dv = 0.0f;
+    for (int tl = 0; tl < nf; ++tl) {
+      const float* lt = loc + tl * C;
+      float f = 0.0f;
+#pragma unroll
+      for (int c = 0; c < kMaxC; ++c)
+        if (c < C) f += lt[c] * wfa[c];
+      const size_t at = ((size_t)n * T + t0 + tl) * A + a;
+      const float sv = tanhf(kc[at] + qa + f);
+      const float e = des[tl];
+      const float dz = e * va * (1.0f - sv * sv);
+      dkc[at] += dz;
+      dq += dz;
+      dv += e * sv;
+#pragma unroll
+      for (int c = 0; c < kMaxC; ++c)
+        if (c < C) dwf[c] += dz * lt[c];
+      dzs[tl * A + a] = dz;
+    }
+    dq_part[((size_t)tb * N + n) * A + a] = dq;
+    dv_part[nb * A + a] += dv;
+    float* dwp = dwf_part + (nb * A + a) * C;
+#pragma unroll
+    for (int c = 0; c < kMaxC; ++c)
+      if (c < C) dwp[c] += dwf[c];
   }
-  for (int i = tid; i < A * C; i += kThreads) {
-    const int a = i / C, c = i % C;
+  __syncthreads();
+  // dloc[t, c] = sum_a dz[t, a] W_f[a, c] on the valid frames
+  for (int o = warp; o < nf * C; o += kWarps) {
+    const int tl = o / C, c = o % C;
     float s = 0.0f;
-    for (int tl = 0; tl < kFrames; ++tl) s += dzs[(size_t)tl * A + a] * loc[tl * C + c];
-    dwf_part[nb * A * C + i] += s;
+    for (int a = lane; a < A; a += 32) s += dzs[tl * A + a] * wf[a * C + c];
+    s = warp_sum(s);
+    if (lane == 0) dloc[((size_t)n * T + t0 + tl) * C + c] = s;
   }
 }
 
 // Shared memory of bwd_conv, in floats.
 __host__ __device__ inline size_t conv_bwd_smem_floats(int C, int K) {
-  return (size_t)C * K + (size_t)C * (kFrames + K - 1) + (kFrames + K - 1) +
-         (size_t)kFrames * C;
+  return (size_t)C * K + (size_t)C * (kFrames + K - 1) + (kFrames + K - 1);
 }
 
 // A block per (kFrames frames, row n): daw_carry[n, tau] = sum_c sum_k
-// dloc[n, tau + left - k, c] conv[c, k] for the block's frames tau, and the
-// block's sum of dconv[c, k] = sum_t' dloc[n, t', c] aw_prev[n, t' + k -
-// left] (into its own partial). Besides, dq_t[n, a] = the sum of the
-// energy blocks' parts, in order, for the block's slice of a.
+// dloc[n, tau + left - k, c] conv[c, k] for the block's frames tau (a warp
+// per frame), and the block's sum of dconv[c, k] = sum_t' dloc[n, t', c]
+// aw_prev[n, t' + k - left] (into its own partial; nothing to add past
+// klens[n], where dloc is 0 and bwd_attention wrote none). Besides, dq_t[n,
+// a] = the sum of the attention blocks' parts (those with valid frames),
+// in order, for the block's slice of a.
 __global__ void __launch_bounds__(kThreads)
 bwd_conv(const float* __restrict__ dloc, const float* __restrict__ aw_prev,
-         const float* __restrict__ conv_w, const float* __restrict__ dq_part,
-         float* __restrict__ daw_c, float* __restrict__ dconv_part, float* __restrict__ dq,
-         int N, int T, int A, int C, int K) {
+         const float* __restrict__ conv_w, const int* __restrict__ klens,
+         const float* __restrict__ dq_part, float* __restrict__ daw_c,
+         float* __restrict__ dconv_part, float* __restrict__ dq, int N, int T, int A, int C,
+         int K) {
   extern __shared__ float smem[];
   const int W = kFrames + K - 1;
   float* cw = smem;                       // [C][K]
   float* win = cw + (size_t)C * K;        // [C][W]: dloc at frames w0 + i
   float* awp = win + (size_t)C * W;       // [W]: aw_prev at frames t0 - left + i
-  float* part = awp + W;                  // [kFrames][C]
   const int n = blockIdx.y, tb = blockIdx.x;
   const int t0 = tb * kFrames;
   const int left = (K - 1) / 2;
   const int w0 = t0 + left - (K - 1);
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int klen = min(klens[n], T);
+  const int n_valid = (klen + kFrames - 1) / kFrames;  // attention blocks with parts
   const int slice = (A + gridDim.x - 1) / gridDim.x;
   for (int a = tb * slice + tid; a < min(A, (tb + 1) * slice); a += kThreads) {
     float s = 0.0f;
-    for (int p = 0; p < (int)gridDim.x; ++p) s += dq_part[((size_t)p * N + n) * A + a];
+    for (int p = 0; p < n_valid; ++p) s += dq_part[((size_t)p * N + n) * A + a];
     dq[(size_t)n * A + a] = s;
   }
   for (int i = tid; i < C * K; i += kThreads) cw[i] = conv_w[i];
   for (int i = tid; i < C * W; i += kThreads) {
     const int c = i / W, f = w0 + i % W;
-    win[i] = (f >= 0 && f < T) ? dloc[((size_t)n * T + f) * C + c] : 0.0f;
+    win[i] = (f >= 0 && f < klen) ? dloc[((size_t)n * T + f) * C + c] : 0.0f;
   }
   for (int i = tid; i < W; i += kThreads) {
     const int t = t0 + i - left;
@@ -294,14 +286,18 @@ bwd_conv(const float* __restrict__ dloc, const float* __restrict__ aw_prev,
   __syncthreads();
   // frame tau = t0 + tl takes dloc at frame tau + left - k = window index
   // tl + K - 1 - k
-  for (int i = tid; i < kFrames * C; i += kThreads) {
-    const int tl = i / C, c = i % C;
-    const float* w = cw + (size_t)c * K;
-    const float* x = win + (size_t)c * W + tl + K - 1;
+  for (int tl = warp; tl < kFrames; tl += kWarps) {
+    const int t = t0 + tl;
+    if (t >= T) break;
     float s = 0.0f;
-    for (int kk = 0; kk < K; ++kk) s += x[-kk] * w[kk];
-    part[i] = s;
+    for (int c = 0; c < C; ++c) {
+      const float* x = win + (size_t)c * W + tl + K - 1;
+      for (int kk = lane; kk < K; kk += 32) s += x[-kk] * cw[c * K + kk];
+    }
+    s = warp_sum(s);
+    if (lane == 0) daw_c[(size_t)n * T + t] = s;
   }
+  if (t0 >= klen) return;
   const size_t nb = (size_t)n * gridDim.x + tb;
   // frame t' = t0 + tl sits at window index tl + K - 1 - left
   for (int i = tid; i < C * K; i += kThreads) {
@@ -310,14 +306,6 @@ bwd_conv(const float* __restrict__ dloc, const float* __restrict__ aw_prev,
     float s = 0.0f;
     for (int tl = 0; tl < kFrames; ++tl) s += x[tl] * awp[tl + kk];
     dconv_part[nb * C * K + i] += s;
-  }
-  __syncthreads();
-  for (int tl = tid; tl < kFrames; tl += kThreads) {
-    const int t = t0 + tl;
-    if (t >= T) continue;
-    float s = 0.0f;
-    for (int c = 0; c < C; ++c) s += part[tl * C + c];
-    daw_c[(size_t)n * T + t] = s;
   }
 }
 
@@ -499,8 +487,8 @@ size_t max_of(std::initializer_list<size_t> xs) {
 // Shared memory (bytes) the largest block of a backward step asks for.
 extern "C" long long nsp_las_scan_bwd_smem_bytes(int T, int D, int A, int C, int K) {
   (void)T;
-  const size_t f = max_of({energy_bwd_smem_floats(A, C, K), conv_bwd_smem_floats(C, K),
-                           (size_t)D, cell_smem_floats(A), kRecSmemFloats});
+  const size_t f = max_of({attention_bwd_smem_floats(D, A, C, K), conv_bwd_smem_floats(C, K),
+                           cell_smem_floats(A), kRecSmemFloats});
   return (long long)(sizeof(float) * f);
 }
 
@@ -513,78 +501,73 @@ extern "C" int nsp_las_scan_bwd_parts(int H) { return (4 * H + kRecK - 1) / kRec
 
 // K3b over U steps, N rows, time-major as K3 (nsp_las_scan_f32).
 // Inputs: the weights w_ctx [D, 4H], w_h [H, 4H], w_q [A, H], conv_w
-// [C, K], w_f [A, C], v [A]; kc [N, T, A], values [N, T, D], klens [N]
-// int32, keep [U, N, H]; K3's saved gates [U, N, 4H], c_all [U, N, H],
-// q_all [U, N, A], aw_all [U, N, T]; aw0 [N, T] (the step-0 weights,
-// zeros); the upstream gradients dh_out [U, N, H] (w.r.t. each step's
-// undropped h) and dctx_out [U, N, D]. Carries (zeroed by the caller):
-// dc_c [N, H], daw_c [N, T]; scratch part [nsp_las_scan_bwd_parts(H), N,
-// D + H], daw, de [N, T], dloc [N, T, C], dq_part [ceil(T / 16), N, A].
-// Outputs: dy_all [U, N, 4H], dq_all [U, N, A]; accumulated into (zeroed
-// by the caller) dkc [N, T, A], dvalues [N, T, D], dv_part [N * ceil(T /
-// 16), A], dwf_part [N * ceil(T / 16), A, C], dconv_part [N * ceil(T /
-// 16), C, K]. *launched (host memory) receives the number of kernels
-// launched. Returns a cudaError_t.
+// [C, K] (C <= 16), w_f [A, C], v [A]; kc [N, T, A], values [N, T, D],
+// klens [N] int32, keep [U, N, H]; K3's saved gates [U, N, 4H], c_all
+// [U, N, H], q_all [U, N, A], aw_all [U, N, T], ctx_all [U, N, D]; aw0
+// [N, T] (the step-0 weights, zeros); the upstream gradients dh_out [U, N,
+// H] (w.r.t. each step's undropped h) and dctx_out [U, N, D]. Carries
+// (zeroed by the caller): dc_c [N, H], daw_c [N, T]; scratch part
+// [nsp_las_scan_bwd_parts(H), N, D + H], dloc [N, T, C], dq_part [ceil(T /
+// 16), N, A]. Outputs: dy_all [U, N, 4H], dq_all [U, N, A], dctx_tot [U,
+// N, D] (each step's total context gradient: dvalues = sum_t aw_t dctx_t
+// is formed from it after the loop); accumulated into (zeroed by the
+// caller) dkc [N, T, A], dv_part [N * ceil(T / 16), A], dwf_part [N *
+// ceil(T / 16), A, C], dconv_part [N * ceil(T / 16), C, K]. *launched
+// (host memory) receives the number of kernels launched. Returns a
+// cudaError_t.
 extern "C" int nsp_las_scan_bwd_f32(
     const void* w_ctx, const void* w_h, const void* w_q, const void* conv_w, const void* w_f,
     const void* v, const void* kc, const void* values, const void* klens, const void* keep,
     const void* gates, const void* c_all, const void* q_all, const void* aw_all,
-    const void* aw0, const void* dh_out, const void* dctx_out, void* dc_c, void* daw_c,
-    void* part, void* daw, void* de, void* dloc, void* dq_part, void* dy_all, void* dq_all,
-    void* dkc, void* dvalues, void* dv_part, void* dwf_part, void* dconv_part, void* launched,
+    const void* ctx_all, const void* aw0, const void* dh_out, const void* dctx_out, void* dc_c,
+    void* daw_c, void* part, void* dloc, void* dq_part, void* dy_all, void* dq_all,
+    void* dctx_tot, void* dkc, void* dv_part, void* dwf_part, void* dconv_part, void* launched,
     int U, int N, int T, int H, int D, int A, int C, int K, void* stream) {
   int* count = static_cast<int*>(launched);
   *count = 0;
-  if (U <= 0 || N <= 0 || T <= 0 || H <= 0 || D <= 0 || A <= 0 || C <= 0 || K <= 0 ||
-      N > 65535)
+  if (U <= 0 || N <= 0 || T <= 0 || H <= 0 || D <= 0 || A <= 0 || C <= 0 || C > kMaxC ||
+      K <= 0 || N > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* kl = static_cast<const int*>(klens);
   const int n_tb = (T + kFrames - 1) / kFrames;
   const int n_part = nsp_las_scan_bwd_parts(H);
-  const size_t nh = (size_t)N * H, nt = (size_t)N * T;
-  const size_t ctx_smem = sizeof(float) * D;
-  const size_t e_smem = sizeof(float) * energy_bwd_smem_floats(A, C, K);
+  const size_t nh = (size_t)N * H, nt = (size_t)N * T, nd = (size_t)N * D, na = (size_t)N * A;
+  const size_t att_smem = sizeof(float) * attention_bwd_smem_floats(D, A, C, K);
   const size_t c_smem = sizeof(float) * conv_bwd_smem_floats(C, K);
   const size_t cell_smem = sizeof(float) * cell_smem_floats(A);
   const size_t rec_smem = sizeof(float) * kRecSmemFloats;
   cudaError_t err;
-  if ((err = allow_smem<bwd_context>(ctx_smem)) != cudaSuccess) return (int)err;
-  if ((err = allow_smem<bwd_energy>(e_smem)) != cudaSuccess) return (int)err;
+  if ((err = allow_smem<bwd_attention>(att_smem)) != cudaSuccess) return (int)err;
   if ((err = allow_smem<bwd_conv>(c_smem)) != cudaSuccess) return (int)err;
   if ((err = allow_smem<bwd_cell>(cell_smem)) != cudaSuccess) return (int)err;
   if ((err = allow_smem<bwd_recurrent>(rec_smem)) != cudaSuccess) return (int)err;
+  const dim3 att_grid(n_tb, N);
   const dim3 rec_grid((D + H + kRecRows - 1) / kRecRows, n_part, (N + kRecN - 1) / kRecN);
   const dim3 cell_grid((H + kCellUnits - 1) / kCellUnits, (N + kCellRows - 1) / kCellRows);
   for (int t = U - 1; t >= 0; --t) {
-    const float* aw_t = F(aw_all) + (size_t)t * nt;
     const float* aw_prev = (t > 0) ? F(aw_all) + (size_t)(t - 1) * nt : F(aw0);
     // the recurrent product's partials exist from the second step on
     const int parts = (t < U - 1) ? n_part : 0;
-    bwd_context<<<dim3((T + kWarps - 1) / kWarps, N), kThreads, ctx_smem, s>>>(
-        F(dctx_out) + (size_t)t * N * D, F(part), parts, F(daw_c), F(values), aw_t, W(daw),
-        W(dvalues), N, T, D, H);
+    bwd_attention<<<att_grid, kThreads, att_smem, s>>>(
+        F(dctx_out) + t * nd, F(part), parts, F(daw_c), F(values), F(aw_all) + t * nt,
+        F(ctx_all) + t * nd, kl, F(q_all) + t * na, aw_prev, F(conv_w), F(w_f), F(v), F(kc),
+        W(dctx_tot) + t * nd, W(dkc), W(dloc), W(dq_part), W(dv_part), W(dwf_part), N, T, D, H,
+        A, C, K);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    bwd_softmax<<<N, kThreads, 0, s>>>(aw_t, F(daw), static_cast<const int*>(klens), W(de), T);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    bwd_energy<<<dim3(n_tb, N), kThreads, e_smem, s>>>(
-        F(q_all) + (size_t)t * N * A, aw_prev, F(conv_w), F(w_f), F(v), F(kc), F(de), W(dkc),
-        W(dloc), W(dq_part), W(dv_part), W(dwf_part), N, T, A, C, K);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    bwd_conv<<<dim3(n_tb, N), kThreads, c_smem, s>>>(F(dloc), aw_prev, F(conv_w), F(dq_part),
-                                                     W(daw_c), W(dconv_part),
-                                                     W(dq_all) + (size_t)t * N * A, N, T, A,
-                                                     C, K);
+    bwd_conv<<<att_grid, kThreads, c_smem, s>>>(F(dloc), aw_prev, F(conv_w), kl, F(dq_part),
+                                                W(daw_c), W(dconv_part), W(dq_all) + t * na,
+                                                N, T, A, C, K);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
     bwd_cell<<<cell_grid, kCellThreads, cell_smem, s>>>(
-        F(dq_all) + (size_t)t * N * A, F(w_q), F(gates) + (size_t)t * nh * 4,
-        F(c_all) + (size_t)t * nh, (t > 0) ? F(c_all) + (size_t)(t - 1) * nh : nullptr,
-        F(keep) + (size_t)t * nh, F(dh_out) + (size_t)t * nh, F(part), parts, W(dc_c),
-        W(dy_all) + (size_t)t * nh * 4, N, H, D, A);
+        F(dq_all) + t * na, F(w_q), F(gates) + t * nh * 4, F(c_all) + t * nh,
+        (t > 0) ? F(c_all) + (t - 1) * nh : nullptr, F(keep) + t * nh, F(dh_out) + t * nh,
+        F(part), parts, W(dc_c), W(dy_all) + t * nh * 4, N, H, D, A);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    *count += 5;
+    *count += 3;
     if (t > 0) {
-      bwd_recurrent<<<rec_grid, kRecThreads, rec_smem, s>>>(F(dy_all) + (size_t)t * nh * 4,
-                                                            F(w_ctx), F(w_h), W(part), N, D, H);
+      bwd_recurrent<<<rec_grid, kRecThreads, rec_smem, s>>>(F(dy_all) + t * nh * 4, F(w_ctx),
+                                                            F(w_h), W(part), N, D, H);
       if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
       *count += 1;
     }

@@ -1,6 +1,7 @@
 // Pieces shared by K1 (rel_attention.cu) and K1b (rel_attention_bwd.cu):
 // float32-accurate tensor-core products (3xTF32 on mma.sync m16n8k8), the
-// cp.async copies that feed them, and the rel-PE bias of one score.
+// cp.async copies that feed them (K3b, las_scan.cu, uses these too), and
+// the rel-PE bias of one score.
 //
 // 3xTF32: a float32 x is split into x_hi = tf32(x) and x_lo = tf32(x -
 // x_hi), each rounded to nearest (cvt.rna). x_hi carries 11 significant

@@ -90,6 +90,19 @@ def las_scan_bwd_ref(w_ctx, w_h, w_q, conv_w, w_f, v, kc, values, klens,
     [U, B, H] and dctx_out [U, B, D] are the gradients w.r.t. K3's h (the
     undropped output) and ctx. Returns (d_eg [U, B, 4H], dW_ctx, dW_h, db,
     dW_q, dconv_w, dW_f, dv, dkc, dvalues)."""
+    dy, dq, _, d_conv, d_w_f, d_v, dkc, dvalues = las_scan_bwd_steps_ref(
+        w_ctx, w_h, w_q, conv_w, w_f, v, kc, values, klens, keep, h, c,
+        gates, q, aw, ctx, dh_out, dctx_out)
+    return (dy, *_weight_grads(h, ctx, keep, dy, dq), d_conv, d_w_f, d_v,
+            dkc, dvalues)
+
+
+def las_scan_bwd_steps_ref(w_ctx, w_h, w_q, conv_w, w_f, v, kc, values,
+                           klens, keep, h, c, gates, q, aw, ctx, dh_out,
+                           dctx_out):
+    """The reverse-step loop of ``las_scan_bwd_ref``: the per-step dy [U, B,
+    4H], dq [U, B, A] and total context gradient dctx [U, B, D], and the
+    sums accumulated over the steps (dconv_w, dW_f, dv, dkc, dvalues)."""
     u, bs, hdim = h.shape
     t = kc.shape[1]
     ch, k = conv_w.shape
@@ -102,7 +115,7 @@ def las_scan_bwd_ref(w_ctx, w_h, w_q, conv_w, w_f, v, kc, values, klens,
     dkc, dvalues = torch.zeros_like(kc), torch.zeros_like(values)
     d_v, d_w_f, d_conv = torch.zeros_like(v), torch.zeros_like(w_f), \
         torch.zeros_like(conv_w)
-    dys, dqs = [], []
+    dys, dqs, dctxs = [], [], []
     for i in range(u - 1, -1, -1):
         aw_t = aw[i]
         aw_prev = aw[i - 1] if i > 0 else torch.zeros_like(aw_t)
@@ -140,10 +153,9 @@ def las_scan_bwd_ref(w_ctx, w_h, w_q, conv_w, w_f, v, kc, values, klens,
         dctx_c = dy @ w_ctx.t()
         dys.append(dy)
         dqs.append(dq)
-    dy = torch.stack(dys[::-1])
-    dq = torch.stack(dqs[::-1])
-    return (dy, *_weight_grads(h, ctx, keep, dy, dq), d_conv, d_w_f, d_v,
-            dkc, dvalues)
+        dctxs.append(dctx)
+    return (*(torch.stack(x[::-1]) for x in (dys, dqs, dctxs)), d_conv, d_w_f,
+            d_v, dkc, dvalues)
 
 
 def las_scan_cost(u, b, t, hd, d, a, ch, k, klens) -> tuple[int, int]:
@@ -231,14 +243,22 @@ def las_scan(eg, w_ctx, w_h, bias, w_q, conv_w, w_f, v, kc, values, klens,
     return tuple(outs)
 
 
-def las_scan_bwd_finish(h, ctx, keep, aw, dy, dq, dkc, dvalues, dconv_part,
+def las_scan_bwd_finish(h, ctx, keep, aw, dy, dq, dctx, dkc, dconv_part,
                         dwf_part, dv_part):
     """K3b's work after its loop, plain tensor code: the step-invariant
-    weight gradients from the streamed dy and dq, and the sums of the
-    per-block partials [slots, ...] of dconv, dW_f and dv. Returns the
-    gradients in ``las_scan_bwd_ref``'s order."""
+    weight gradients from the streamed dy [U, B, 4H] and dq [U, B, A];
+    dvalues = sum_t aw_t (x) dctx_t from each step's total context gradient
+    dctx [U, B, D], one batched product (the loop's per-step ``dvalues +=``
+    taken out of it); and the sums of the per-block partials [slots, ...]
+    of dconv, dW_f and dv. Returns the gradients in ``las_scan_bwd_ref``'s
+    order."""
+    d_values = torch.einsum("ubt,ubd->btd", aw, dctx)
     return (dy, *_weight_grads(h, ctx, keep, dy, dq), dconv_part.sum(0),
-            dwf_part.sum(0), dv_part.sum(0), dkc, dvalues)
+            dwf_part.sum(0), dv_part.sum(0), dkc, d_values)
+
+
+# bwd_attention holds a row of W_f [A, C] in registers
+MAX_CONV_CHANNELS = 16
 
 
 def las_scan_bwd_chain(w_ctx, w_h, w_q, conv_w, w_f, v, kc, values, klens,
@@ -251,6 +271,9 @@ def las_scan_bwd_chain(w_ctx, w_h, w_q, conv_w, w_f, v, kc, values, klens,
     lib, dims = _check_shapes(b, u, hd, w_ctx, w_h, None, w_q, conv_w, w_f,
                               v, kc, values, klens, keep)
     _, _, t, _, d, a, ch, k = dims
+    if ch > MAX_CONV_CHANNELS:
+        raise ValueError(f"las_scan_bwd: {ch} location-conv channels, the "
+                         f"kernel takes at most {MAX_CONV_CHANNELS}")
     for name, x, shape in (("h", h, (u, b, hd)), ("c", c, (u, b, hd)),
                            ("gates", gates, (u, b, 4 * hd)),
                            ("q", q, (u, b, a)), ("aw", aw, (u, b, t)),
@@ -268,22 +291,22 @@ def las_scan_bwd_chain(w_ctx, w_h, w_q, conv_w, w_f, v, kc, values, klens,
         return torch.empty(shape, dtype=torch.float32, device=dev)
 
     ins = (w_ctx, w_h, w_q, conv_w, w_f, v, kc, values, klens, keep, gates, c,
-           q, aw, zeros(b, t), dh_out, dctx_out)
+           q, aw, ctx, zeros(b, t), dh_out, dctx_out)
     carries = (zeros(b, hd), zeros(b, t))
-    scratch = (empty(lib.nsp_las_scan_bwd_parts(hd), b, d + hd), empty(b, t),
-               empty(b, t), empty(b, t, ch), empty(n_tb, b, a))
-    dy, dq = empty(u, b, 4 * hd), empty(u, b, a)
-    dkc, dvalues = zeros(b, t, a), zeros(b, t, d)
+    scratch = (empty(lib.nsp_las_scan_bwd_parts(hd), b, d + hd),
+               empty(b, t, ch), empty(n_tb, b, a))
+    dy, dq, dctx = empty(u, b, 4 * hd), empty(u, b, a), empty(u, b, d)
+    dkc = zeros(b, t, a)
     dv_part, dwf_part = zeros(b * n_tb, a), zeros(b * n_tb, a, ch)
     dconv_part = zeros(b * n_tb, ch, k)
     launched = ctypes.c_int(0)
     err = lib.nsp_las_scan_bwd_f32(
-        *(x.data_ptr() for x in (*ins, *carries, *scratch, dy, dq, dkc,
-                                 dvalues, dv_part, dwf_part, dconv_part)),
+        *(x.data_ptr() for x in (*ins, *carries, *scratch, dy, dq, dctx, dkc,
+                                 dv_part, dwf_part, dconv_part)),
         ctypes.addressof(launched), *dims, stream_of(h))
     raise_on_error("las_scan_bwd", err)
     las_scan_bwd.kernel_launches_per_call = launched.value
-    return dy, dq, dkc, dvalues, dconv_part, dwf_part, dv_part
+    return dy, dq, dctx, dkc, dconv_part, dwf_part, dv_part
 
 
 def las_scan_bwd(w_ctx, w_h, w_q, conv_w, w_f, v, kc, values, klens, keep,

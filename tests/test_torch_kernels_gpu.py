@@ -223,6 +223,8 @@ def test_las_scan_kernels(cuda, b, u, t, hd, d, a, ch, k, klens):
     torch.cuda.synchronize()
     assert (las_scan.launches, las_scan_bwd.launches) == \
         (before[0] + 1, before[1] + 1)
+    # per step: attention, conv, cell, and the recurrent product but at step 0
+    assert las_scan_bwd.kernel_launches_per_call == 4 * u - 1
     want = las_scan_bwd_ref(*saved, dh, dctx)
     names = ("d_eg", "dW_ctx", "dW_h", "db", "dW_q", "dconv", "dW_f", "dv",
              "dkc", "dvalues")

@@ -4,6 +4,9 @@ versions) and the decoder's training loss.
 * ``las_scan_bwd_ref`` (the reverse-step adjoint written out) against
   torch autograd through ``las_scan_ref``, in float64, with a dropout
   keep-mask, ragged key lengths and conv widths odd and even.
+* ``las_scan_bwd_finish`` (what the CUDA wrapper computes after K3b's
+  loop: dvalues from each step's saved context gradient, the partial sums,
+  the weight gradients) against ``las_scan_bwd_ref``, the same way.
 * The port's ``RNNDecoder.forward`` (loss, accuracy, perplexity, and the
   gradient of every weight and of the encoder outputs, through
   ``LASScan`` whose backward on CPU is ``las_scan_bwd_ref``) against
@@ -28,7 +31,8 @@ import neural_sp_tpu_torch.ops.dropout as port_dropout
 from neural_sp_tpu.models.decoders.las import RNNDecoder as JaxRNNDecoder
 from neural_sp_tpu_torch.models.decoders.las import RNNDecoder
 from neural_sp_tpu_torch.ops.kernels.las_scan import (
-    las_scan_bwd_ref, las_scan_ref)
+    las_scan_bwd_finish, las_scan_bwd_ref, las_scan_bwd_steps_ref,
+    las_scan_ref)
 from neural_sp_tpu_torch.utils.convert_params import convert_params
 
 ATOL = RTOL = 2e-4
@@ -59,6 +63,44 @@ def test_bwd_ref_matches_autograd(conv_k):
         got = las_scan_bwd_ref(w_ctx, w_h, w_q, conv_w, w_f, v, kc, values,
                                klens, keep, h, c, gates, q, aw, ctx, dh,
                                dctx)
+    names = ("d_eg", "dW_ctx", "dW_h", "db", "dW_q", "dconv", "dW_f", "dv",
+             "dkc", "dvalues")
+    for name, x, y in zip(names, got, want):
+        np.testing.assert_allclose(x.numpy(), y.numpy(), rtol=1e-10,
+                                   atol=1e-12, err_msg=name)
+
+
+@pytest.mark.parametrize("conv_k", [7, 6])
+def test_bwd_finish_matches_accumulated_ref(conv_k):
+    """``las_scan_bwd_finish``, the CUDA wrapper's work after K3b's loop, on
+    the plain per-step quantities: dvalues as one product of the weights
+    and each step's total dctx, the sums of per-block partials, and the
+    weight gradients, against ``las_scan_bwd_ref``'s accumulated form."""
+    b, u, hd, d, a, ch, t = 3, 5, 6, 5, 4, 3, 9
+    rng = np.random.RandomState(conv_k + 10)
+
+    def r(*shape):
+        return torch.from_numpy(rng.randn(*shape) * 0.5)
+
+    eg, w_ctx, w_h, bias, w_q, conv_w, w_f, v, kc, values = (
+        r(u, b, 4 * hd), r(d, 4 * hd), r(hd, 4 * hd), r(4 * hd), r(a, hd),
+        r(ch, conv_k), r(a, ch), r(a), r(b, t, a), r(b, t, d))
+    klens = torch.tensor([9, 4, 1])
+    keep = torch.from_numpy((rng.rand(u, b, hd) >= RATE) / (1 - RATE))
+    h, c, gates, q, aw, ctx = las_scan_ref(eg, w_ctx, w_h, bias, w_q, conv_w,
+                                           w_f, v, kc, values, klens, keep)
+    saved = (w_ctx, w_h, w_q, conv_w, w_f, v, kc, values, klens, keep, h, c,
+             gates, q, aw, ctx, r(u, b, hd), r(u, b, d))
+    want = las_scan_bwd_ref(*saved)
+    dy, dq, dctx, d_conv, d_w_f, d_v, dkc, _ = las_scan_bwd_steps_ref(*saved)
+
+    def slots(total, n=4):
+        """total split into n slots [n, ...] that sum to it."""
+        parts = torch.from_numpy(rng.randn(n - 1, *total.shape))
+        return torch.cat([parts, (total - parts.sum(0))[None]])
+
+    got = las_scan_bwd_finish(h, ctx, keep, aw, dy, dq, dctx, dkc,
+                              slots(d_conv), slots(d_w_f), slots(d_v))
     names = ("d_eg", "dW_ctx", "dW_h", "db", "dW_q", "dconv", "dW_f", "dv",
              "dkc", "dvalues")
     for name, x, y in zip(names, got, want):
