@@ -19,10 +19,12 @@
 // gradients dW_h, dW_ctx, b, dW_q and dvalues = sum_t aw_t (x) dctx_tot[t]
 // are single products over all steps outside (las_scan.py), as the Pallas
 // `_bwd` reduced its d_toep outside. dv, dW_f and dconv are summed into
-// per-block partial buffers (each block owns its slot across the steps,
-// so no atomics; a buffer per step instead would take U x B x T x A x C
-// floats) and reduced outside; dkc is owned per element and accumulated
-// in place.
+// per-block partial buffers (each block owns its slot across the steps; a
+// buffer per step instead would take U x B x T x A x C floats) and reduced
+// outside; dkc is accumulated in place. Both take their per-step addends
+// as fire-and-forget adds (red.global.add): no load waits on memory, and
+// as each element receives one add per launch and the launches are
+// ordered, the sums are the same in every run.
 //
 // What bounds it on the H100: a step is small (B rows). Its largest
 // piece of work is the recurrent product dy_t [B, 4H] x [W_ctx; W_h]^T,
@@ -63,6 +65,7 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kFrames = 16;     // frames per block of the attention / conv kernels
 constexpr int kMaxC = 16;       // location-conv channels bwd_attention takes
+constexpr int kDzPad = 16;      // dz rows A + 16 apart: two frames' rows on other banks
 // bwd_cell: a block per (kCellUnits units, kCellRows rows)
 constexpr int kCellUnits = 16;
 constexpr int kCellRows = 8;
@@ -82,6 +85,13 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+// A 4-byte cp.async (zero-fill when pred is false).
+__device__ __forceinline__ void cp_async4(float* smem, const float* gmem, bool pred) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(gmem),
+               "r"(pred ? 4 : 0)
+               : "memory");
+}
 __device__ __forceinline__ void cp_async_wait_one() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
@@ -95,6 +105,7 @@ __device__ __forceinline__ float dctx_total(const float* __restrict__ dctx_out,
                                             const float* __restrict__ part, int n_part, int n,
                                             int d, int N, int D, int R) {
   float s = dctx_out[(size_t)n * D + d];
+#pragma unroll 16
   for (int p = 0; p < n_part; ++p) s += part[((size_t)p * N + n) * R + d];
   return s;
 }
@@ -102,7 +113,32 @@ __device__ __forceinline__ float dctx_total(const float* __restrict__ dctx_out,
 // Shared memory of bwd_attention, in floats.
 __host__ __device__ inline size_t attention_bwd_smem_floats(int D, int A, int C, int K) {
   return (size_t)D + (size_t)A * C + (size_t)C * K + (kFrames + K - 1) + (size_t)kFrames * C +
-         kFrames + (size_t)kFrames * A + kWarps;
+         kFrames + (size_t)kFrames * (A + kDzPad) + kWarps;
+}
+
+// Sums x over the 16 lanes of each half-warp (lanes that differ in their
+// low four bits); every lane of the warp takes part.
+__device__ __forceinline__ float half_warp_sum(float x) {
+  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// tanh(x) = 1 - 2 / (exp(2x) + 1), on the fast exponential: absolute
+// error about 1e-7 (float32 rounding), a few instructions instead of
+// tanhf's accurate path; it saturates to +-1 at large |x|.
+__device__ __forceinline__ float tanh_fast(float x) {
+  return 1.0f - __fdividef(2.0f, __expf(2.0f * x) + 1.0f);
+}
+
+// Starts the copy of n floats from global src to shared dst: 16-byte
+// cp.async where both are 16-byte aligned, 4-byte ones for the rest.
+__device__ __forceinline__ void copy_async(float* dst, const float* src, int n) {
+  int head = 0;
+  if (((reinterpret_cast<size_t>(dst) | reinterpret_cast<size_t>(src)) & 15) == 0) {
+    head = n & ~3;
+    for (int i = 4 * threadIdx.x; i < head; i += 4 * kThreads) cp_async16(dst + i, src + i, true);
+  }
+  for (int i = head + threadIdx.x; i < n; i += kThreads) cp_async4(dst + i, src + i, true);
 }
 
 // The attention adjoint of step t. A block per (kFrames frames, row n);
@@ -111,13 +147,20 @@ __host__ __device__ inline size_t attention_bwd_smem_floats(int D, int A, int C,
 //   dctx  = dctx_out + the recurrent product's partials    (-> dctx_tot)
 //   rs    = sum_t' aw_t daw = sum_t' aw_t daw_carry + ctx_t . dctx  (ctx_t
 //           = sum_t' aw_t values, saved by K3: no pass over values)
-//   de    = aw_t (daw_carry + values . dctx - rs)    a warp per frame
-//   loc   = conv(aw_prev)                            a warp per 20 outputs
-//   a thread per attention unit a: z, s = tanh(z), dz; dkc += dz in place;
-//   its sums over the block's frames of dq (dq_part, per step), dv and
-//   dW_f[a, :] (registers; added once into the block's own partials);
-//   dloc = dz W_f                                    a warp per 20 outputs
-// W_f is read as it is laid out ([A, C]), copied once per block.
+//   de    = aw_t (daw_carry + values . dctx - rs)    a warp per two frames
+//   loc   = conv(aw_prev)        a half-warp per frame, lanes along K
+//   a thread per two attention units (a, a + 256), frame by frame with
+//   the frame's loc in registers: z, s = tanh(z), dz (to shared memory,
+//   over the frame's kc); dkc += dz; its sums over the frames of dq
+//   (dq_part, per step), dv and dW_f[a, :] (into the block's own
+//   partials, dW_f's stored [C][A] so that the adds are coalesced)
+//   dloc = dz W_f                a half-warp per frame, lanes along A
+// W_f, conv_w and aw_prev's window come by cp.async while dctx is summed,
+// the frames' kc (a second group) while the row sum and loc are formed.
+// The block is latency-bound (a row of 16 frames is little work), so each
+// phase keeps many independent loads in flight, and no load waits on an
+// accumulator (red.add). CM >= C sizes the per-channel register arrays.
+template <int CM>
 __global__ void __launch_bounds__(kThreads)
 bwd_attention(const float* __restrict__ dctx_out, const float* __restrict__ part, int n_part,
               const float* __restrict__ daw_c, const float* __restrict__ values,
@@ -129,60 +172,95 @@ bwd_attention(const float* __restrict__ dctx_out, const float* __restrict__ part
               float* __restrict__ dkc, float* __restrict__ dloc, float* __restrict__ dq_part,
               float* __restrict__ dv_part, float* __restrict__ dwf_part, int N, int T, int D,
               int H, int A, int C, int K) {
+  static_assert(kThreads == 16 * kFrames, "a half-warp per frame");
   extern __shared__ float smem[];
-  float* dctx = smem;                        // [D]
-  float* wf = dctx + D;                      // [A][C], as w_f
-  float* cw = wf + (size_t)A * C;            // [C][K]
+  const int kDz = A + kDzPad;
+  // the cp.async targets first: 16-byte aligned when A and D are multiples of 4
+  float* dzs = smem;                         // [kFrames][kDz]
+  float* wf = dzs + (size_t)kFrames * kDz;   // [A][C], as w_f
+  float* dctx = wf + (size_t)A * C;          // [D]
+  float* cw = dctx + D;                      // [C][K]
   float* awp = cw + (size_t)C * K;           // [kFrames + K - 1]: aw_prev at t0 - left + i
   float* loc = awp + (kFrames + K - 1);      // [kFrames][C]
   float* des = loc + (size_t)kFrames * C;    // [kFrames]
-  float* dzs = des + kFrames;                // [kFrames][A]
-  float* red = dzs + (size_t)kFrames * A;    // [kWarps]
+  float* red = des + kFrames;                // [kWarps]
 
   const int n = blockIdx.y, tb = blockIdx.x;
   const int t0 = tb * kFrames;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int klen = min(klens[n], T);
+  const int left = (K - 1) / 2;
+  const bool active = t0 < klen;
+  const int nf = min(kFrames, klen - t0);    // the block's valid frames, if active
+  if (active) {
+    copy_async(wf, w_f, A * C);
+    copy_async(cw, conv_w, C * K);
+    for (int i = tid; i < kFrames + K - 1; i += kThreads) {
+      const int t = t0 + i - left;
+      const bool in = t >= 0 && t < T;
+      cp_async4(awp + i, aw_prev + (in ? (size_t)n * T + t : 0), in);
+    }
+    cp_async_commit();
+  }
+  // dctx, and the thread's share of the row sum's ctx_t . dctx
+  float rs = 0.0f;
   for (int d = tid; d < D; d += kThreads) {
     const float x = dctx_total(dctx_out, part, n_part, n, d, N, D, D + H);
     dctx[d] = x;
     if (tb == 0) dctx_tot[(size_t)n * D + d] = x;
+    rs += ctx[(size_t)n * D + d] * x;
   }
-  if (t0 >= klen) return;
-  const int nf = min(kFrames, klen - t0);    // the block's valid frames
-  const int left = (K - 1) / 2;
-  for (int i = tid; i < A * C; i += kThreads) wf[i] = w_f[i];
-  for (int i = tid; i < C * K; i += kThreads) cw[i] = conv_w[i];
-  for (int i = tid; i < kFrames + K - 1; i += kThreads) {
-    const int t = t0 + i - left;
-    awp[i] = (t >= 0 && t < T) ? aw_prev[(size_t)n * T + t] : 0.0f;
-  }
-  __syncthreads();
-  // the softmax's row sum
+  if (!active) return;
+  // kc of the valid frames, into the rows dz will overwrite in place
+  for (int tl = 0; tl < nf; ++tl)
+    copy_async(dzs + tl * kDz, kc + ((size_t)n * T + t0 + tl) * A, A);
+  cp_async_commit();
   const float* awr = aw + (size_t)n * T;
   const float* dacr = daw_c + (size_t)n * T;
-  float rs = 0.0f;
   for (int t = tid; t < klen; t += kThreads) rs += awr[t] * dacr[t];
-  for (int d = tid; d < D; d += kThreads) rs += ctx[(size_t)n * D + d] * dctx[d];
   rs = warp_sum(rs);
   if (lane == 0) red[warp] = rs;
-  // de of the block's frames
-  for (int tl = warp; tl < kFrames; tl += kWarps) {
-    float s = 0.0f;
-    if (tl < nf) {
-      const float* vb = values + ((size_t)n * T + t0 + tl) * D;
-      for (int d = lane; d < D; d += 32) s += vb[d] * dctx[d];
-      s = warp_sum(s);
+  cp_async_wait_one();  // W_f, conv_w, aw_prev's window
+  __syncthreads();
+  // values . dctx of the block's frames: a warp per two frames (warp and
+  // warp + kWarps), their loads interleaved
+  {
+    static_assert(kFrames == 2 * kWarps, "two frames per warp");
+    const int ta = warp, tc = warp + kWarps;
+    const float* va_row = values + ((size_t)n * T + t0 + min(ta, nf - 1)) * D;
+    const float* vc_row = values + ((size_t)n * T + t0 + min(tc, nf - 1)) * D;
+    float sa = 0.0f, sc = 0.0f;
+#pragma unroll 8
+    for (int d = lane; d < D; d += 32) {
+      const float x = dctx[d];
+      sa += va_row[d] * x;
+      sc += vc_row[d] * x;
     }
-    if (lane == 0) des[tl] = s;  // values . dctx for now
+    sa = warp_sum(sa);
+    sc = warp_sum(sc);
+    if (lane == 0) {
+      des[ta] = sa;
+      des[tc] = sc;
+    }
   }
   // loc[tl, c] = sum_k aw_prev[t0 + tl + k - left] conv[c, k]
-  for (int o = warp; o < kFrames * C; o += kWarps) {
-    const int tl = o / C, c = o % C;
-    float s = 0.0f;
-    for (int kk = lane; kk < K; kk += 32) s += awp[tl + kk] * cw[c * K + kk];
-    s = warp_sum(s);
-    if (lane == 0) loc[o] = s;
+  {
+    const int tl = tid >> 4, part16 = tid & 15;
+    float acc[CM];
+#pragma unroll
+    for (int c = 0; c < CM; ++c) acc[c] = 0.0f;
+    for (int kk = part16; kk < K; kk += 16) {
+      const float x = awp[tl + kk];
+#pragma unroll
+      for (int c = 0; c < CM; ++c)
+        if (c < C) acc[c] += x * cw[c * K + kk];
+    }
+#pragma unroll
+    for (int c = 0; c < CM; ++c) {
+      if (c >= C) break;
+      const float s = half_warp_sum(acc[c]);
+      if (part16 == c) loc[tl * C + c] = s;
+    }
   }
   __syncthreads();
   rs = 0.0f;
@@ -191,50 +269,89 @@ bwd_attention(const float* __restrict__ dctx_out, const float* __restrict__ part
     const int t = t0 + tid;
     des[tid] = awr[t] * (dacr[t] + des[tid] - rs);
   }
+  cp_async_wait_none();  // kc
   __syncthreads();
   const size_t nb = (size_t)n * gridDim.x + tb;
-  for (int a = tid; a < A; a += kThreads) {
-    float wfa[kMaxC], dwf[kMaxC];
+  for (int a0 = tid; a0 < A; a0 += 2 * kThreads) {
+    const int a1 = a0 + kThreads;
+    const bool two = a1 < A;
+    const int a1c = two ? a1 : a0;             // a1's loads stay in bounds
+    float wf0[CM], wf1[CM], dwf0[CM], dwf1[CM];
 #pragma unroll
-    for (int c = 0; c < kMaxC; ++c) {
-      wfa[c] = c < C ? wf[a * C + c] : 0.0f;
-      dwf[c] = 0.0f;
+    for (int c = 0; c < CM; ++c) {
+      wf0[c] = c < C ? wf[a0 * C + c] : 0.0f;
+      wf1[c] = c < C ? wf[a1c * C + c] : 0.0f;
+      dwf0[c] = dwf1[c] = 0.0f;
     }
-    const float qa = q[(size_t)n * A + a], va = v[a];
-    float dq = 0.0f, dv = 0.0f;
+    const float q0 = q[(size_t)n * A + a0], q1 = q[(size_t)n * A + a1c];
+    const float v0 = v[a0], v1 = v[a1c];
+    float* dk = dkc + ((size_t)n * T + t0) * A;
+    float dq0 = 0.0f, dq1 = 0.0f, dv0 = 0.0f, dv1 = 0.0f;
     for (int tl = 0; tl < nf; ++tl) {
-      const float* lt = loc + tl * C;
-      float f = 0.0f;
+      float lc[CM];
+      float f0 = 0.0f, f1 = 0.0f;
 #pragma unroll
-      for (int c = 0; c < kMaxC; ++c)
-        if (c < C) f += lt[c] * wfa[c];
-      const size_t at = ((size_t)n * T + t0 + tl) * A + a;
-      const float sv = tanhf(kc[at] + qa + f);
+      for (int c = 0; c < CM; ++c) {
+        lc[c] = c < C ? loc[tl * C + c] : 0.0f;
+        f0 += lc[c] * wf0[c];
+        f1 += lc[c] * wf1[c];
+      }
+      float* zr = dzs + tl * kDz;              // holds kc; dz replaces it
       const float e = des[tl];
-      const float dz = e * va * (1.0f - sv * sv);
-      dkc[at] += dz;
-      dq += dz;
-      dv += e * sv;
+      const float s0 = tanh_fast(zr[a0] + q0 + f0);
+      const float s1 = tanh_fast(zr[a1c] + q1 + f1);
+      const float dz0 = e * v0 * (1.0f - s0 * s0);
+      const float dz1 = two ? e * v1 * (1.0f - s1 * s1) : 0.0f;
+      atomicAdd(dk + (size_t)tl * A + a0, dz0);
+      if (two) atomicAdd(dk + (size_t)tl * A + a1, dz1);
+      dq0 += dz0;
+      dq1 += dz1;
+      dv0 += e * s0;
+      dv1 += e * s1;
 #pragma unroll
-      for (int c = 0; c < kMaxC; ++c)
-        if (c < C) dwf[c] += dz * lt[c];
-      dzs[tl * A + a] = dz;
+      for (int c = 0; c < CM; ++c) {
+        dwf0[c] += dz0 * lc[c];
+        dwf1[c] += dz1 * lc[c];
+      }
+      zr[a0] = dz0;
+      if (two) zr[a1] = dz1;
     }
-    dq_part[((size_t)tb * N + n) * A + a] = dq;
-    dv_part[nb * A + a] += dv;
-    float* dwp = dwf_part + (nb * A + a) * C;
+    dq_part[((size_t)tb * N + n) * A + a0] = dq0;
+    atomicAdd(dv_part + nb * A + a0, dv0);
+    float* dwp = dwf_part + nb * C * A;        // [C][A]
 #pragma unroll
-    for (int c = 0; c < kMaxC; ++c)
-      if (c < C) dwp[c] += dwf[c];
+    for (int c = 0; c < CM; ++c)
+      if (c < C) atomicAdd(dwp + (size_t)c * A + a0, dwf0[c]);
+    if (two) {
+      dq_part[((size_t)tb * N + n) * A + a1] = dq1;
+      atomicAdd(dv_part + nb * A + a1, dv1);
+#pragma unroll
+      for (int c = 0; c < CM; ++c)
+        if (c < C) atomicAdd(dwp + (size_t)c * A + a1, dwf1[c]);
+    }
   }
   __syncthreads();
-  // dloc[t, c] = sum_a dz[t, a] W_f[a, c] on the valid frames
-  for (int o = warp; o < nf * C; o += kWarps) {
-    const int tl = o / C, c = o % C;
-    float s = 0.0f;
-    for (int a = lane; a < A; a += 32) s += dzs[tl * A + a] * wf[a * C + c];
-    s = warp_sum(s);
-    if (lane == 0) dloc[((size_t)n * T + t0 + tl) * C + c] = s;
+  // dloc[t, c] = sum_a dz[t, a] W_f[a, c] on the valid frames; units a =
+  // part16 + 16 i keep the half-warp's reads of W_f on distinct banks
+  {
+    const int tl = tid >> 4, part16 = tid & 15;
+    float acc[CM];
+#pragma unroll
+    for (int c = 0; c < CM; ++c) acc[c] = 0.0f;
+    if (tl < nf) {
+      for (int a = part16; a < A; a += 16) {
+        const float dz = dzs[tl * kDz + a];
+#pragma unroll
+        for (int c = 0; c < CM; ++c)
+          if (c < C) acc[c] += dz * wf[a * C + c];
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < CM; ++c) {
+      if (c >= C) break;
+      const float s = half_warp_sum(acc[c]);
+      if (tl < nf && part16 == c) dloc[((size_t)n * T + t0 + tl) * C + c] = s;
+    }
   }
 }
 
@@ -244,12 +361,14 @@ __host__ __device__ inline size_t conv_bwd_smem_floats(int C, int K) {
 }
 
 // A block per (kFrames frames, row n): daw_carry[n, tau] = sum_c sum_k
-// dloc[n, tau + left - k, c] conv[c, k] for the block's frames tau (a warp
-// per frame), and the block's sum of dconv[c, k] = sum_t' dloc[n, t', c]
-// aw_prev[n, t' + k - left] (into its own partial; nothing to add past
-// klens[n], where dloc is 0 and bwd_attention wrote none). Besides, dq_t[n,
-// a] = the sum of the attention blocks' parts (those with valid frames),
-// in order, for the block's slice of a.
+// dloc[n, tau + left - k, c] conv[c, k] for the block's frames tau (a
+// half-warp per frame, lanes along K), and the block's sum of dconv[c, k]
+// = sum_t' dloc[n, t', c] aw_prev[n, t' + k - left] (into its own partial;
+// nothing to add past klens[n], where dloc is 0 and bwd_attention wrote
+// none). Besides, dq_t[n, a] = the sum of the attention blocks' parts
+// (those with valid frames), in order, for the block's slice of a. CM >= C
+// sizes the per-channel register arrays.
+template <int CM>
 __global__ void __launch_bounds__(kThreads)
 bwd_conv(const float* __restrict__ dloc, const float* __restrict__ aw_prev,
          const float* __restrict__ conv_w, const int* __restrict__ klens,
@@ -265,63 +384,79 @@ bwd_conv(const float* __restrict__ dloc, const float* __restrict__ aw_prev,
   const int t0 = tb * kFrames;
   const int left = (K - 1) / 2;
   const int w0 = t0 + left - (K - 1);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tid = threadIdx.x;
   const int klen = min(klens[n], T);
+  copy_async(cw, conv_w, C * K);
+  for (int i = tid; i < C * W; i += kThreads) {
+    const int c = i / W, f = w0 + i % W;
+    const bool in = f >= 0 && f < klen;
+    cp_async4(win + i, dloc + (in ? ((size_t)n * T + f) * C + c : 0), in);
+  }
+  for (int i = tid; i < W; i += kThreads) {
+    const int t = t0 + i - left;
+    const bool in = t >= 0 && t < T;
+    cp_async4(awp + i, aw_prev + (in ? (size_t)n * T + t : 0), in);
+  }
+  cp_async_commit();
   const int n_valid = (klen + kFrames - 1) / kFrames;  // attention blocks with parts
   const int slice = (A + gridDim.x - 1) / gridDim.x;
   for (int a = tb * slice + tid; a < min(A, (tb + 1) * slice); a += kThreads) {
     float s = 0.0f;
+#pragma unroll 4
     for (int p = 0; p < n_valid; ++p) s += dq_part[((size_t)p * N + n) * A + a];
     dq[(size_t)n * A + a] = s;
   }
-  for (int i = tid; i < C * K; i += kThreads) cw[i] = conv_w[i];
-  for (int i = tid; i < C * W; i += kThreads) {
-    const int c = i / W, f = w0 + i % W;
-    win[i] = (f >= 0 && f < klen) ? dloc[((size_t)n * T + f) * C + c] : 0.0f;
-  }
-  for (int i = tid; i < W; i += kThreads) {
-    const int t = t0 + i - left;
-    awp[i] = (t >= 0 && t < T) ? aw_prev[(size_t)n * T + t] : 0.0f;
-  }
+  cp_async_wait_none();
   __syncthreads();
   // frame tau = t0 + tl takes dloc at frame tau + left - k = window index
   // tl + K - 1 - k
-  for (int tl = warp; tl < kFrames; tl += kWarps) {
-    const int t = t0 + tl;
-    if (t >= T) break;
+  {
+    const int tl = tid >> 4, part16 = tid & 15;
     float s = 0.0f;
     for (int c = 0; c < C; ++c) {
       const float* x = win + (size_t)c * W + tl + K - 1;
-      for (int kk = lane; kk < K; kk += 32) s += x[-kk] * cw[c * K + kk];
+      for (int kk = part16; kk < K; kk += 16) s += x[-kk] * cw[c * K + kk];
     }
-    s = warp_sum(s);
-    if (lane == 0) daw_c[(size_t)n * T + t] = s;
+    s = half_warp_sum(s);
+    if (part16 == 0 && t0 + tl < T) daw_c[(size_t)n * T + t0 + tl] = s;
   }
   if (t0 >= klen) return;
   const size_t nb = (size_t)n * gridDim.x + tb;
-  // frame t' = t0 + tl sits at window index tl + K - 1 - left
-  for (int i = tid; i < C * K; i += kThreads) {
-    const int c = i / K, kk = i % K;
-    const float* x = win + (size_t)c * W + K - 1 - left;
-    float s = 0.0f;
-    for (int tl = 0; tl < kFrames; ++tl) s += x[tl] * awp[tl + kk];
-    dconv_part[nb * C * K + i] += s;
+  // frame t' = t0 + tl sits at window index tl + K - 1 - left; a thread
+  // per tap kk, its C sums added to the partial at once
+  const float* x = win + K - 1 - left;
+  for (int kk = tid; kk < K; kk += kThreads) {
+    float s[CM];
+#pragma unroll
+    for (int c = 0; c < CM; ++c) s[c] = 0.0f;
+#pragma unroll 4
+    for (int tl = 0; tl < kFrames; ++tl) {
+      const float y = awp[tl + kk];
+#pragma unroll
+      for (int c = 0; c < CM; ++c)
+        if (c < C) s[c] += x[(size_t)c * W + tl] * y;
+    }
+    float* dst = dconv_part + nb * C * K + kk;
+#pragma unroll
+    for (int c = 0; c < CM; ++c)
+      if (c < C) atomicAdd(dst + (size_t)c * K, s[c]);
   }
 }
 
 __device__ __forceinline__ float sig_d(float g) { return g * (1.0f - g); }
 
 // Shared memory of bwd_cell, in floats: W_q's kCellUnits columns [A][16]
-// and the block's rows of dq_t [kCellRows][A + 1] (odd stride: two rows
-// read by one warp fall in different banks).
+// and the block's rows of dq_t [kCellRows][A + 4] (two rows read by one
+// warp fall in different banks).
 __host__ __device__ inline size_t cell_smem_floats(int A) {
-  return (size_t)A * kCellUnits + (size_t)kCellRows * (A + 1);
+  return (size_t)A * kCellUnits + (size_t)kCellRows * (A + 4);
 }
 
 // A block per (kCellUnits units, kCellRows rows), a thread per (row, unit):
 // dquery = dq_t W_q, dh = dh_out + dquery keep + dh_carry (the sum of the
 // recurrent product's n_part partials, in order), then the LSTM cell
-// adjoint: dy_t and the dc carry.
+// adjoint: dy_t and the dc carry. W_q's columns and dq_t come by cp.async
+// while the thread gathers its own (row, unit)'s inputs.
 __global__ void __launch_bounds__(kCellThreads)
 bwd_cell(const float* __restrict__ dq, const float* __restrict__ w_q,
          const float* __restrict__ gates, const float* __restrict__ c_t,
@@ -330,22 +465,37 @@ bwd_cell(const float* __restrict__ dq, const float* __restrict__ w_q,
          float* __restrict__ dc_c, float* __restrict__ dy, int N, int H, int D, int A) {
   extern __shared__ float smem[];
   float* wq = smem;                              // [A][kCellUnits]
-  float* dqs = wq + (size_t)A * kCellUnits;      // [kCellRows][A + 1]
+  float* dqs = wq + (size_t)A * kCellUnits;      // [kCellRows][A + 4]
   const int j0 = blockIdx.x * kCellUnits, n0 = blockIdx.y * kCellRows;
   const int tid = threadIdx.x;
   for (int i = tid; i < A * kCellUnits; i += kCellThreads) {
     const int a = i / kCellUnits, u = i % kCellUnits;
-    wq[i] = (j0 + u < H) ? w_q[(size_t)a * H + j0 + u] : 0.0f;
+    const bool in = j0 + u < H;
+    cp_async4(wq + i, w_q + (in ? (size_t)a * H + j0 + u : 0), in);
   }
   for (int i = tid; i < kCellRows * A; i += kCellThreads) {
     const int r = i / A, a = i % A;
-    dqs[r * (A + 1) + a] = (n0 + r < N) ? dq[(size_t)(n0 + r) * A + a] : 0.0f;
+    const bool in = n0 + r < N;
+    cp_async4(dqs + r * (A + 4) + a, dq + (in ? (size_t)(n0 + r) * A + a : 0), in);
   }
-  __syncthreads();
+  cp_async_commit();
   const int u = tid % kCellUnits, r = tid / kCellUnits;
   const int j = j0 + u, n = n0 + r;
-  if (j >= H || n >= N) return;
-  const float* dr = dqs + r * (A + 1);
+  const bool mine = j < H && n < N;
+  const int R = D + H, G = 4 * H;
+  const size_t at = (size_t)min(n, N - 1) * H + min(j, H - 1);
+  const float* g = gates + (size_t)min(n, N - 1) * G + min(j, H - 1);
+  const float gi = g[0], gf = g[H], gg = g[2 * H], go = g[3 * H];
+  const float ct = c_t[at], cp = (c_prev != nullptr) ? c_prev[at] : 0.0f;
+  const float kp = keep[at], dho = dh_out[at], dcc = dc_c[at];
+  float dh_c = 0.0f;
+#pragma unroll 8
+  for (int p = 0; p < n_part; ++p)
+    dh_c += part[((size_t)p * N + min(n, N - 1)) * R + D + min(j, H - 1)];
+  cp_async_wait_none();
+  __syncthreads();
+  if (!mine) return;
+  const float* dr = dqs + r * (A + 4);
   float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
   int a = 0;
   for (; a + 4 <= A; a += 4) {
@@ -354,23 +504,15 @@ bwd_cell(const float* __restrict__ dq, const float* __restrict__ w_q,
   }
   for (; a < A; ++a) acc[0] += dr[a] * wq[a * kCellUnits + u];
   const float dquery = (acc[0] + acc[1]) + (acc[2] + acc[3]);
-  const int R = D + H;
-  float dh_c = 0.0f;
-  for (int p = 0; p < n_part; ++p) dh_c += part[((size_t)p * N + n) * R + D + j];
-  const int G = 4 * H;
-  const size_t at = (size_t)n * H + j;
-  const float* g = gates + (size_t)n * G + j;
-  const float gi = g[0], gf = g[H], gg = g[2 * H], go = g[3 * H];
-  const float dh = dh_out[at] + dquery * keep[at] + dh_c;
-  const float tc = tanhf(c_t[at]);
-  const float dc = dc_c[at] + dh * go * (1.0f - tc * tc);
-  const float cp = (c_prev != nullptr) ? c_prev[at] : 0.0f;
+  const float dh = dho + dquery * kp + dh_c;
+  const float tc = tanhf(ct);
+  const float dc = dcc + dh * go * (1.0f - tc * tc);
   float* dyb = dy + (size_t)n * G + j;
   dyb[0] = dc * gg * sig_d(gi);
   dyb[H] = dc * cp * sig_d(gf);
   dyb[2 * H] = dc * gi * (1.0f - gg * gg);
   dyb[3 * H] = dh * tc * sig_d(go);
-  dc_c[at] = dc * gf;
+  dc_c[(size_t)n * H + j] = dc * gf;
 }
 
 // Shared memory of bwd_recurrent, in floats: dy's kRecN rows of the
@@ -512,7 +654,7 @@ extern "C" int nsp_las_scan_bwd_parts(int H) { return (4 * H + kRecK - 1) / kRec
 // N, D] (each step's total context gradient: dvalues = sum_t aw_t dctx_t
 // is formed from it after the loop); accumulated into (zeroed by the
 // caller) dkc [N, T, A], dv_part [N * ceil(T / 16), A], dwf_part [N *
-// ceil(T / 16), A, C], dconv_part [N * ceil(T / 16), C, K]. *launched
+// ceil(T / 16), C, A] (transposed), dconv_part [N * ceil(T / 16), C, K]. *launched
 // (host memory) receives the number of kernels launched. Returns a
 // cudaError_t.
 extern "C" int nsp_las_scan_bwd_f32(
@@ -538,8 +680,26 @@ extern "C" int nsp_las_scan_bwd_f32(
   const size_t cell_smem = sizeof(float) * cell_smem_floats(A);
   const size_t rec_smem = sizeof(float) * kRecSmemFloats;
   cudaError_t err;
-  if ((err = allow_smem<bwd_attention>(att_smem)) != cudaSuccess) return (int)err;
-  if ((err = allow_smem<bwd_conv>(c_smem)) != cudaSuccess) return (int)err;
+  // the attention and conv kernels for the least register arrays that
+  // hold C channels
+  const int cm = C <= 4 ? 4 : C <= 8 ? 8 : C <= 10 ? 10 : C <= 12 ? 12 : 16;
+  const auto att = cm == 4 ? bwd_attention<4> : cm == 8 ? bwd_attention<8>
+                 : cm == 10 ? bwd_attention<10> : cm == 12 ? bwd_attention<12>
+                 : bwd_attention<16>;
+  const auto conv = cm == 4 ? bwd_conv<4> : cm == 8 ? bwd_conv<8> : cm == 10 ? bwd_conv<10>
+                  : cm == 12 ? bwd_conv<12> : bwd_conv<16>;
+  if ((err = cm == 4 ? allow_smem<bwd_attention<4>>(att_smem)
+           : cm == 8 ? allow_smem<bwd_attention<8>>(att_smem)
+           : cm == 10 ? allow_smem<bwd_attention<10>>(att_smem)
+           : cm == 12 ? allow_smem<bwd_attention<12>>(att_smem)
+           : allow_smem<bwd_attention<16>>(att_smem)) != cudaSuccess)
+    return (int)err;
+  if ((err = cm == 4 ? allow_smem<bwd_conv<4>>(c_smem)
+           : cm == 8 ? allow_smem<bwd_conv<8>>(c_smem)
+           : cm == 10 ? allow_smem<bwd_conv<10>>(c_smem)
+           : cm == 12 ? allow_smem<bwd_conv<12>>(c_smem)
+           : allow_smem<bwd_conv<16>>(c_smem)) != cudaSuccess)
+    return (int)err;
   if ((err = allow_smem<bwd_cell>(cell_smem)) != cudaSuccess) return (int)err;
   if ((err = allow_smem<bwd_recurrent>(rec_smem)) != cudaSuccess) return (int)err;
   const dim3 att_grid(n_tb, N);
@@ -549,15 +709,15 @@ extern "C" int nsp_las_scan_bwd_f32(
     const float* aw_prev = (t > 0) ? F(aw_all) + (size_t)(t - 1) * nt : F(aw0);
     // the recurrent product's partials exist from the second step on
     const int parts = (t < U - 1) ? n_part : 0;
-    bwd_attention<<<att_grid, kThreads, att_smem, s>>>(
+    att<<<att_grid, kThreads, att_smem, s>>>(
         F(dctx_out) + t * nd, F(part), parts, F(daw_c), F(values), F(aw_all) + t * nt,
         F(ctx_all) + t * nd, kl, F(q_all) + t * na, aw_prev, F(conv_w), F(w_f), F(v), F(kc),
         W(dctx_tot) + t * nd, W(dkc), W(dloc), W(dq_part), W(dv_part), W(dwf_part), N, T, D, H,
         A, C, K);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    bwd_conv<<<att_grid, kThreads, c_smem, s>>>(F(dloc), aw_prev, F(conv_w), kl, F(dq_part),
-                                                W(daw_c), W(dconv_part), W(dq_all) + t * na,
-                                                N, T, A, C, K);
+    conv<<<att_grid, kThreads, c_smem, s>>>(F(dloc), aw_prev, F(conv_w), kl, F(dq_part),
+                                            W(daw_c), W(dconv_part), W(dq_all) + t * na, N, T,
+                                            A, C, K);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
     bwd_cell<<<cell_grid, kCellThreads, cell_smem, s>>>(
         F(dq_all) + t * na, F(w_q), F(gates) + t * nh * 4, F(c_all) + t * nh,

@@ -250,11 +250,11 @@ def las_scan_bwd_finish(h, ctx, keep, aw, dy, dq, dctx, dkc, dconv_part,
     dvalues = sum_t aw_t (x) dctx_t from each step's total context gradient
     dctx [U, B, D], one batched product (the loop's per-step ``dvalues +=``
     taken out of it); and the sums of the per-block partials [slots, ...]
-    of dconv, dW_f and dv. Returns the gradients in ``las_scan_bwd_ref``'s
-    order."""
+    of dconv [C, K], dW_f (transposed: [C, A]) and dv [A]. Returns the
+    gradients in ``las_scan_bwd_ref``'s order."""
     d_values = torch.einsum("ubt,ubd->btd", aw, dctx)
     return (dy, *_weight_grads(h, ctx, keep, dy, dq), dconv_part.sum(0),
-            dwf_part.sum(0), dv_part.sum(0), dkc, d_values)
+            dwf_part.sum(0).t(), dv_part.sum(0), dkc, d_values)
 
 
 # bwd_attention holds a row of W_f [A, C] in registers
@@ -297,7 +297,7 @@ def las_scan_bwd_chain(w_ctx, w_h, w_q, conv_w, w_f, v, kc, values, klens,
                empty(b, t, ch), empty(n_tb, b, a))
     dy, dq, dctx = empty(u, b, 4 * hd), empty(u, b, a), empty(u, b, d)
     dkc = zeros(b, t, a)
-    dv_part, dwf_part = zeros(b * n_tb, a), zeros(b * n_tb, a, ch)
+    dv_part, dwf_part = zeros(b * n_tb, a), zeros(b * n_tb, ch, a)
     dconv_part = zeros(b * n_tb, ch, k)
     launched = ctypes.c_int(0)
     err = lib.nsp_las_scan_bwd_f32(

@@ -14,8 +14,9 @@ sees) and as a CUDA-graph replay of the same calls (the device's time
 alone): the whole wrapper ``las_scan_bwd``; its kernel loop alone
 (``las_scan_bwd_chain``); and the work after the loop
 (``las_scan_bwd_finish``: the weight-gradient products and the sums of
-partials). A checkout without the split reports the wrapper only. Prints
-one JSON line: the card's name and power limit, the times, the bound
+partials), with the kernel loop's device time per kernel (torch.profiler).
+A checkout without the split reports the wrapper only. Prints one JSON
+line: the card's name and power limit, the times, the bound
 (``las_scan_bwd_cost`` over ``ops/kernels/roofline.py``), the kernels
 launched per call where the checkout counts them, and the error (max
 |err| / max |plain| over the ten gradients).
@@ -85,6 +86,21 @@ def main() -> int:
         del graph
         return ms
 
+    def kernel_profile(fn):
+        """Device time (ms) and launches per kernel name over one call."""
+        from torch.profiler import ProfilerActivity, profile
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        out = {}
+        for e in prof.key_averages():
+            us = getattr(e, "device_time_total", 0) or getattr(
+                e, "cuda_time_total", 0)
+            if us > 0:
+                out[e.key[:80]] = {"ms": us / 1e3, "launches": e.count}
+        return dict(sorted(out.items(), key=lambda kv: -kv[1]["ms"]))
+
     def times(fn):
         return {"ms": cuda_ms(fn, opts.iters), "device_ms": graph_ms(fn)}
 
@@ -116,6 +132,8 @@ def main() -> int:
                 lambda: m.las_scan_bwd_finish(h, ctx, keep, aw, *raw))
             out["kernel_launches_per_call"] = \
                 m.las_scan_bwd.kernel_launches_per_call
+            out["chain_kernels"] = kernel_profile(
+                lambda: m.las_scan_bwd_chain(*bargs))
     flops, nbytes = m.las_scan_bwd_cost(U, B, T, H, D, A, C, K, kl)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,

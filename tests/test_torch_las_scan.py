@@ -100,7 +100,7 @@ def test_bwd_finish_matches_accumulated_ref(conv_k):
         return torch.cat([parts, (total - parts.sum(0))[None]])
 
     got = las_scan_bwd_finish(h, ctx, keep, aw, dy, dq, dctx, dkc,
-                              slots(d_conv), slots(d_w_f), slots(d_v))
+                              slots(d_conv), slots(d_w_f.t()), slots(d_v))
     names = ("d_eg", "dW_ctx", "dW_h", "db", "dW_q", "dconv", "dW_f", "dv",
              "dkc", "dvalues")
     for name, x, y in zip(names, got, want):
