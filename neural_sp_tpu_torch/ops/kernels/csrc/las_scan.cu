@@ -43,8 +43,9 @@
 //                columns staged in shared memory) and the LSTM adjoint;
 //   bwd_recurrent  split-K: a block per (64 weight rows, 256 gate columns,
 //                32 rows n) streams its disjoint tile of W once with
-//                cp.async double buffering against all rows of dy_t held
-//                in shared memory, and writes its partial sum. The next
+//                cp.async double buffering against all rows of dy_t
+//                (their columns arriving with W's), and writes its
+//                partial sum. The next
 //                step's consumers (bwd_cell for dh, bwd_attention for
 //                dctx) add the partials in a fixed order: deterministic,
 //                no atomics.
@@ -161,7 +162,7 @@ __device__ __forceinline__ void copy_async(float* dst, const float* src, int n) 
 // phase keeps many independent loads in flight, and no load waits on an
 // accumulator (red.add). CM >= C sizes the per-channel register arrays.
 template <int CM>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 3)  // three blocks (their shared memory) per SM
 bwd_attention(const float* __restrict__ dctx_out, const float* __restrict__ part, int n_part,
               const float* __restrict__ daw_c, const float* __restrict__ values,
               const float* __restrict__ aw, const float* __restrict__ ctx,
@@ -535,14 +536,15 @@ bwd_recurrent(const float* __restrict__ dy, const float* __restrict__ w_ctx,
   const int r0 = blockIdx.x * kRecRows, g0 = blockIdx.y * kRecK, n0 = blockIdx.z * kRecN;
   const int kn = min(kRecK, G - g0);            // a multiple of 4
   const int tid = threadIdx.x;
-  for (int c = tid; c < kRecN * (kRecK / 4); c += kRecThreads) {
-    const int nn = c / (kRecK / 4), col = (c % (kRecK / 4)) * 4;
-    const bool in = n0 + nn < N && col < kn;
-    cp_async16(ys + nn * kDyStride + col, in ? dy + (size_t)(n0 + nn) * G + g0 + col : dy, in);
-  }
+  // a stage: W's kRecSub columns into the ring, and dy's same columns
   auto load_w = [&](int stage, int sub) {
     float* dst = ws + (size_t)stage * kRecRows * kWStride;
     const int k0 = sub * kRecSub;
+    for (int c = tid; c < kRecN * (kRecSub / 4); c += kRecThreads) {
+      const int nn = c / (kRecSub / 4), col = k0 + (c % (kRecSub / 4)) * 4;
+      const bool in = n0 + nn < N && col < kn;
+      cp_async16(ys + nn * kDyStride + col, in ? dy + (size_t)(n0 + nn) * G + g0 + col : dy, in);
+    }
     for (int c = tid; c < kRecRows * (kRecSub / 4); c += kRecThreads) {
       const int rr = c / (kRecSub / 4), col = (c % (kRecSub / 4)) * 4;
       const int r = r0 + rr;
