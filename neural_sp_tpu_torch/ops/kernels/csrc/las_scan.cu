@@ -67,10 +67,12 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kFrames = 16;     // frames per block of the attention / conv kernels
 constexpr int kMaxC = 16;       // location-conv channels bwd_attention takes
 constexpr int kDzPad = 16;      // dz rows A + 16 apart: two frames' rows on other banks
-// bwd_cell: a block per (kCellUnits units, kCellRows rows)
+// bwd_cell: a block per (kCellUnits units, kCellRows rows), the dot
+// product over A of each (row, unit) split across kCellSplit threads
 constexpr int kCellUnits = 16;
 constexpr int kCellRows = 8;
-constexpr int kCellThreads = kCellUnits * kCellRows;
+constexpr int kCellSplit = 4;
+constexpr int kCellThreads = kCellUnits * kCellRows * kCellSplit;
 // bwd_recurrent: a block per (kRecRows weight rows, kRecK gate columns,
 // kRecN rows n); W streamed kRecSub columns at a time
 constexpr int kRecRows = 64;
@@ -388,10 +390,10 @@ bwd_conv(const float* __restrict__ dloc, const float* __restrict__ aw_prev,
   const int tid = threadIdx.x;
   const int klen = min(klens[n], T);
   copy_async(cw, conv_w, C * K);
-  for (int i = tid; i < C * W; i += kThreads) {
-    const int c = i / W, f = w0 + i % W;
+  for (int i = tid; i < C * W; i += kThreads) {  // along dloc's rows
+    const int c = i % C, fi = i / C, f = w0 + fi;
     const bool in = f >= 0 && f < klen;
-    cp_async4(win + i, dloc + (in ? ((size_t)n * T + f) * C + c : 0), in);
+    cp_async4(win + (size_t)c * W + fi, dloc + (in ? ((size_t)n * T + f) * C + c : 0), in);
   }
   for (int i = tid; i < W; i += kThreads) {
     const int t = t0 + i - left;
@@ -446,18 +448,20 @@ bwd_conv(const float* __restrict__ dloc, const float* __restrict__ aw_prev,
 
 __device__ __forceinline__ float sig_d(float g) { return g * (1.0f - g); }
 
-// Shared memory of bwd_cell, in floats: W_q's kCellUnits columns [A][16]
-// and the block's rows of dq_t [kCellRows][A + 4] (two rows read by one
-// warp fall in different banks).
+// Shared memory of bwd_cell, in floats: W_q's kCellUnits columns [A][16],
+// the block's rows of dq_t [kCellRows][A + 4] (two rows read by one warp
+// fall in different banks) and the split dot products' parts.
 __host__ __device__ inline size_t cell_smem_floats(int A) {
-  return (size_t)A * kCellUnits + (size_t)kCellRows * (A + 4);
+  return (size_t)A * kCellUnits + (size_t)kCellRows * (A + 4) + kCellThreads;
 }
 
-// A block per (kCellUnits units, kCellRows rows), a thread per (row, unit):
-// dquery = dq_t W_q, dh = dh_out + dquery keep + dh_carry (the sum of the
-// recurrent product's n_part partials, in order), then the LSTM cell
-// adjoint: dy_t and the dc carry. W_q's columns and dq_t come by cp.async
-// while the thread gathers its own (row, unit)'s inputs.
+// A block per (kCellUnits units, kCellRows rows); kCellSplit threads per
+// (row, unit) share dquery = dq_t W_q (a quarter of A each, so that short
+// chains keep the SM busy), then the first of them forms dh = dh_out +
+// dquery keep + dh_carry (the sum of the recurrent product's n_part
+// partials, in order) and the LSTM cell adjoint: dy_t and the dc carry.
+// W_q's columns and dq_t come by cp.async while the thread gathers its
+// own (row, unit)'s inputs.
 __global__ void __launch_bounds__(kCellThreads)
 bwd_cell(const float* __restrict__ dq, const float* __restrict__ w_q,
          const float* __restrict__ gates, const float* __restrict__ c_t,
@@ -467,6 +471,7 @@ bwd_cell(const float* __restrict__ dq, const float* __restrict__ w_q,
   extern __shared__ float smem[];
   float* wq = smem;                              // [A][kCellUnits]
   float* dqs = wq + (size_t)A * kCellUnits;      // [kCellRows][A + 4]
+  float* parts = dqs + (size_t)kCellRows * (A + 4);  // [kCellSplit][rows x units]
   const int j0 = blockIdx.x * kCellUnits, n0 = blockIdx.y * kCellRows;
   const int tid = threadIdx.x;
   for (int i = tid; i < A * kCellUnits; i += kCellThreads) {
@@ -480,31 +485,41 @@ bwd_cell(const float* __restrict__ dq, const float* __restrict__ w_q,
     cp_async4(dqs + r * (A + 4) + a, dq + (in ? (size_t)(n0 + r) * A + a : 0), in);
   }
   cp_async_commit();
-  const int u = tid % kCellUnits, r = tid / kCellUnits;
+  const int ru = tid % (kCellUnits * kCellRows), quarter = tid / (kCellUnits * kCellRows);
+  const int u = ru % kCellUnits, r = ru / kCellUnits;
   const int j = j0 + u, n = n0 + r;
   const bool mine = j < H && n < N;
   const int R = D + H, G = 4 * H;
-  const size_t at = (size_t)min(n, N - 1) * H + min(j, H - 1);
-  const float* g = gates + (size_t)min(n, N - 1) * G + min(j, H - 1);
-  const float gi = g[0], gf = g[H], gg = g[2 * H], go = g[3 * H];
-  const float ct = c_t[at], cp = (c_prev != nullptr) ? c_prev[at] : 0.0f;
-  const float kp = keep[at], dho = dh_out[at], dcc = dc_c[at];
-  float dh_c = 0.0f;
+  // the first thread of each (row, unit) gathers its inputs meanwhile
+  float gi = 0.0f, gf = 0.0f, gg = 0.0f, go = 0.0f, ct = 0.0f, cp = 0.0f, kp = 0.0f,
+        dho = 0.0f, dcc = 0.0f, dh_c = 0.0f;
+  if (quarter == 0 && mine) {
+    const size_t at = (size_t)n * H + j;
+    const float* g = gates + (size_t)n * G + j;
+    gi = g[0], gf = g[H], gg = g[2 * H], go = g[3 * H];
+    ct = c_t[at];
+    cp = (c_prev != nullptr) ? c_prev[at] : 0.0f;
+    kp = keep[at], dho = dh_out[at], dcc = dc_c[at];
 #pragma unroll 8
-  for (int p = 0; p < n_part; ++p)
-    dh_c += part[((size_t)p * N + min(n, N - 1)) * R + D + min(j, H - 1)];
+    for (int p = 0; p < n_part; ++p) dh_c += part[((size_t)p * N + n) * R + D + j];
+  }
   cp_async_wait_none();
   __syncthreads();
-  if (!mine) return;
   const float* dr = dqs + r * (A + 4);
+  const int a_end = min(A, (quarter + 1) * ((A + kCellSplit - 1) / kCellSplit));
   float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  int a = 0;
-  for (; a + 4 <= A; a += 4) {
+  int a = quarter * ((A + kCellSplit - 1) / kCellSplit);
+  for (; a + 4 <= a_end; a += 4) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) acc[i] += dr[a + i] * wq[(a + i) * kCellUnits + u];
   }
-  for (; a < A; ++a) acc[0] += dr[a] * wq[a * kCellUnits + u];
-  const float dquery = (acc[0] + acc[1]) + (acc[2] + acc[3]);
+  for (; a < a_end; ++a) acc[0] += dr[a] * wq[a * kCellUnits + u];
+  parts[tid] = (acc[0] + acc[1]) + (acc[2] + acc[3]);
+  __syncthreads();
+  if (quarter > 0 || !mine) return;
+  float dquery = 0.0f;
+#pragma unroll
+  for (int p = 0; p < kCellSplit; ++p) dquery += parts[p * kCellUnits * kCellRows + ru];
   const float dh = dho + dquery * kp + dh_c;
   const float tc = tanhf(ct);
   const float dc = dcc + dh * go * (1.0f - tc * tc);
