@@ -30,9 +30,12 @@
 // piece of work is the recurrent product dy_t [B, 4H] x [W_ctx; W_h]^T,
 // which must read the 25 MB of gate weights once per step; the attention
 // part reads kc and values over the valid frames and rewrites dkc there.
-// The per-step chain is four kernels from a host loop (three at step 0),
-// each spread over at least 256 blocks at the flagship's training shape
-// (B = 32, T = 188, H = 1024):
+// Every kernel of the step is short, so latency (a block's chain of
+// dependent loads and barriers), not bandwidth, sets its time: the design
+// prefetches with cp.async, adds into accumulators without loading them,
+// and keeps three blocks per SM. The per-step chain is four kernels from
+// a host loop (three at step 0), each spread over at least 256 blocks at
+// the flagship's training shape (B = 32, T = 188, H = 1024):
 //   bwd_attention  the attention adjoint, a block per (16 frames, row);
 //                the softmax's row sum needs no pass of its own (ctx_t .
 //                dctx, from K3's saved context), and blocks past a row's
@@ -40,15 +43,15 @@
 //   bwd_conv     the conv transpose, and dq_t summed once from the
 //                attention blocks' parts (disjoint slices of A per block);
 //   bwd_cell     dquery = dq_t W_q (a block per 16 units x 8 rows, W_q's
-//                columns staged in shared memory) and the LSTM adjoint;
+//                columns staged in shared memory, each dot product split
+//                four ways) and the LSTM adjoint;
 //   bwd_recurrent  split-K: a block per (64 weight rows, 256 gate columns,
 //                32 rows n) streams its disjoint tile of W once with
 //                cp.async double buffering against all rows of dy_t
 //                (their columns arriving with W's), and writes its
-//                partial sum. The next
-//                step's consumers (bwd_cell for dh, bwd_attention for
-//                dctx) add the partials in a fixed order: deterministic,
-//                no atomics.
+//                partial sum. The next step's consumers (bwd_cell for dh,
+//                bwd_attention for dctx) add the partials in a fixed
+//                order: deterministic, no atomics.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -671,9 +674,9 @@ extern "C" int nsp_las_scan_bwd_parts(int H) { return (4 * H + kRecK - 1) / kRec
 // N, D] (each step's total context gradient: dvalues = sum_t aw_t dctx_t
 // is formed from it after the loop); accumulated into (zeroed by the
 // caller) dkc [N, T, A], dv_part [N * ceil(T / 16), A], dwf_part [N *
-// ceil(T / 16), C, A] (transposed), dconv_part [N * ceil(T / 16), C, K]. *launched
-// (host memory) receives the number of kernels launched. Returns a
-// cudaError_t.
+// ceil(T / 16), C, A] (transposed), dconv_part [N * ceil(T / 16), C, K].
+// *launched (host memory) receives the number of kernels launched.
+// Returns a cudaError_t.
 extern "C" int nsp_las_scan_bwd_f32(
     const void* w_ctx, const void* w_h, const void* w_q, const void* conv_w, const void* w_f,
     const void* v, const void* kc, const void* values, const void* klens, const void* keep,
@@ -697,25 +700,16 @@ extern "C" int nsp_las_scan_bwd_f32(
   const size_t cell_smem = sizeof(float) * cell_smem_floats(A);
   const size_t rec_smem = sizeof(float) * kRecSmemFloats;
   cudaError_t err;
-  // the attention and conv kernels for the least register arrays that
-  // hold C channels
-  const int cm = C <= 4 ? 4 : C <= 8 ? 8 : C <= 10 ? 10 : C <= 12 ? 12 : 16;
-  const auto att = cm == 4 ? bwd_attention<4> : cm == 8 ? bwd_attention<8>
-                 : cm == 10 ? bwd_attention<10> : cm == 12 ? bwd_attention<12>
-                 : bwd_attention<16>;
-  const auto conv = cm == 4 ? bwd_conv<4> : cm == 8 ? bwd_conv<8> : cm == 10 ? bwd_conv<10>
-                  : cm == 12 ? bwd_conv<12> : bwd_conv<16>;
-  if ((err = cm == 4 ? allow_smem<bwd_attention<4>>(att_smem)
-           : cm == 8 ? allow_smem<bwd_attention<8>>(att_smem)
-           : cm == 10 ? allow_smem<bwd_attention<10>>(att_smem)
-           : cm == 12 ? allow_smem<bwd_attention<12>>(att_smem)
-           : allow_smem<bwd_attention<16>>(att_smem)) != cudaSuccess)
+  // the attention and conv kernels with register arrays for 10 channels
+  // (the flagship's) or for kMaxC
+  const bool narrow = C <= 10;
+  const auto att = narrow ? bwd_attention<10> : bwd_attention<kMaxC>;
+  const auto conv = narrow ? bwd_conv<10> : bwd_conv<kMaxC>;
+  if ((err = narrow ? allow_smem<bwd_attention<10>>(att_smem)
+                    : allow_smem<bwd_attention<kMaxC>>(att_smem)) != cudaSuccess)
     return (int)err;
-  if ((err = cm == 4 ? allow_smem<bwd_conv<4>>(c_smem)
-           : cm == 8 ? allow_smem<bwd_conv<8>>(c_smem)
-           : cm == 10 ? allow_smem<bwd_conv<10>>(c_smem)
-           : cm == 12 ? allow_smem<bwd_conv<12>>(c_smem)
-           : allow_smem<bwd_conv<16>>(c_smem)) != cudaSuccess)
+  if ((err = narrow ? allow_smem<bwd_conv<10>>(c_smem) : allow_smem<bwd_conv<kMaxC>>(c_smem)) !=
+      cudaSuccess)
     return (int)err;
   if ((err = allow_smem<bwd_cell>(cell_smem)) != cudaSuccess) return (int)err;
   if ((err = allow_smem<bwd_recurrent>(rec_smem)) != cudaSuccess) return (int)err;

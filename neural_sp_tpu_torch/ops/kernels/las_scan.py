@@ -17,9 +17,11 @@ as in that file's docstring::
 The forward K3 (``nsp_las_scan_f32`` in ``csrc/las_step.cu``) reuses K2's
 device code from a host loop and keeps each step's gates, c, h, query,
 weights and context. The backward K3b (``csrc/las_scan.cu``) walks the
-steps in reverse and streams dy and dq out; the step-invariant weight
-gradients (dW_h, dW_ctx, db, dW_q) are single matmuls over all steps here,
-as the Pallas ``_bwd`` reduced them outside its kernel.
+steps in reverse, four kernels per step (``las_scan_bwd_chain``), and
+streams dy, dq and each step's total context gradient out; the
+step-invariant weight gradients (dW_h, dW_ctx, db, dW_q) and dvalues are
+single products over all steps here (``las_scan_bwd_finish``), as the
+Pallas ``_bwd`` reduced them outside its kernel.
 
 K3, K3b and their plain PyTorch versions ``las_scan_ref`` and
 ``las_scan_bwd_ref`` (the adjoint written out, not autograd) work
