@@ -68,7 +68,9 @@ using nsp_rel::cp_async_commit;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kFrames = 16;     // frames per block of the attention / conv kernels
-constexpr int kMaxC = 16;       // location-conv channels bwd_attention takes
+// location-conv channels held in registers at once (the flagship's C);
+// the attention and conv kernels take any C, kGroupC channels at a time
+constexpr int kGroupC = 10;
 constexpr int kDzPad = 16;      // dz rows A + 16 apart: two frames' rows on other banks
 // bwd_cell: a block per (kCellUnits units, kCellRows rows), the dot
 // product over A of each (row, unit) split across kCellSplit threads
@@ -147,6 +149,102 @@ __device__ __forceinline__ void copy_async(float* dst, const float* src, int n) 
   for (int i = head + threadIdx.x; i < n; i += kThreads) cp_async4(dst + i, src + i, true);
 }
 
+// bwd_attention's per-channel phases take kGroupC channels at a time: the
+// first group inline, the rest (C > kGroupC) in calls that keep their
+// registers out of the kernel's frame loop. loc, dloc [kFrames][C]; wf
+// [A][C]; the dz rows kDz = A + kDzPad apart.
+
+// loc[tl, c0 + c] = sum_k awp[tl + k] cw[c0 + c, k] for the group's
+// channels: a half-warp per frame tl, lanes along K.
+__device__ __forceinline__ void loc_group(const float* awp, const float* cw, float* loc, int c0,
+                                          int C, int K) {
+  const int tl = threadIdx.x >> 4, part16 = threadIdx.x & 15;
+  float acc[kGroupC];
+#pragma unroll
+  for (int c = 0; c < kGroupC; ++c) acc[c] = 0.0f;
+  for (int kk = part16; kk < K; kk += 16) {
+    const float x = awp[tl + kk];
+#pragma unroll
+    for (int c = 0; c < kGroupC; ++c)
+      if (c0 + c < C) acc[c] += x * cw[(c0 + c) * K + kk];
+  }
+#pragma unroll
+  for (int c = 0; c < kGroupC; ++c) {
+    if (c0 + c >= C) break;
+    const float s = half_warp_sum(acc[c]);
+    if (part16 == c) loc[tl * C + c0 + c] = s;
+  }
+}
+
+__device__ __noinline__ void loc_rest(const float* awp, const float* cw, float* loc, int C, int K) {
+  for (int c0 = kGroupC; c0 < C; c0 += kGroupC) loc_group(awp, cw, loc, c0, C, K);
+}
+
+// dloc[tl, c0 + c] = sum_a dz[tl, a] wf[a, c0 + c] on the nf valid frames:
+// a half-warp per frame, units a = part16 + 16 i (the half-warp's reads of
+// wf on distinct banks).
+__device__ __forceinline__ void dloc_group(const float* dzs, const float* wf, float* dloc, int c0,
+                                           int nf, int A, int C) {
+  const int tl = threadIdx.x >> 4, part16 = threadIdx.x & 15;
+  float acc[kGroupC];
+#pragma unroll
+  for (int c = 0; c < kGroupC; ++c) acc[c] = 0.0f;
+  if (tl < nf) {
+    for (int a = part16; a < A; a += 16) {
+      const float dz = dzs[tl * (A + kDzPad) + a];
+#pragma unroll
+      for (int c = 0; c < kGroupC; ++c)
+        if (c0 + c < C) acc[c] += dz * wf[a * C + c0 + c];
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < kGroupC; ++c) {
+    if (c0 + c >= C) break;
+    const float s = half_warp_sum(acc[c]);
+    if (tl < nf && part16 == c) dloc[tl * C + c0 + c] = s;
+  }
+}
+
+__device__ __noinline__ void dloc_rest(const float* dzs, const float* wf, float* dloc, int nf,
+                                       int A, int C) {
+  for (int c0 = kGroupC; c0 < C; c0 += kGroupC) dloc_group(dzs, wf, dloc, c0, nf, A, C);
+}
+
+// The channels past the first group add their loc W_f^T to the kc rows
+// (z = kc + q + loc W_f^T), so that the frame loop holds kGroupC channels.
+// Unit a stays with thread a % kThreads here, in the frame loop and in
+// dwf_rest: no barrier between them.
+__device__ __noinline__ void features_rest(const float* loc, const float* wf, float* dzs, int nf,
+                                           int A, int C) {
+  for (int a = threadIdx.x; a < A; a += kThreads)
+    for (int tl = 0; tl < nf; ++tl) {
+      float f = 0.0f;
+      for (int c = kGroupC; c < C; ++c) f += loc[tl * C + c] * wf[a * C + c];
+      dzs[tl * (A + kDzPad) + a] += f;
+    }
+}
+
+// dW_f of the channels past the first group from the stored dz, into the
+// block's partial dwp [C][A].
+__device__ __noinline__ void dwf_rest(const float* dzs, const float* loc, float* dwp, int nf,
+                                      int A, int C) {
+  for (int a = threadIdx.x; a < A; a += kThreads)
+    for (int c0 = kGroupC; c0 < C; c0 += kGroupC) {
+      float acc[kGroupC];
+#pragma unroll
+      for (int c = 0; c < kGroupC; ++c) acc[c] = 0.0f;
+      for (int tl = 0; tl < nf; ++tl) {
+        const float dz = dzs[tl * (A + kDzPad) + a];
+#pragma unroll
+        for (int c = 0; c < kGroupC; ++c)
+          if (c0 + c < C) acc[c] += dz * loc[tl * C + c0 + c];
+      }
+#pragma unroll
+      for (int c = 0; c < kGroupC; ++c)
+        if (c0 + c < C) atomicAdd(dwp + (size_t)(c0 + c) * A + a, acc[c]);
+    }
+}
+
 // The attention adjoint of step t. A block per (kFrames frames, row n);
 // blocks whose frames all lie past klens[n] only write their row's dctx
 // (tb = 0) and stop: de, dz and dloc are 0 there.
@@ -165,8 +263,10 @@ __device__ __forceinline__ void copy_async(float* dst, const float* src, int n) 
 // the frames' kc (a second group) while the row sum and loc are formed.
 // The block is latency-bound (a row of 16 frames is little work), so each
 // phase keeps many independent loads in flight, and no load waits on an
-// accumulator (red.add). CM >= C sizes the per-channel register arrays.
-template <int CM>
+// accumulator (red.add). The frame loop holds the first kGroupC channels
+// of W_f and dW_f in registers; the channels past them (C > kGroupC) add
+// their loc W_f^T to the kc rows before it, and their dW_f is summed after
+// it from the stored dz.
 __global__ void __launch_bounds__(kThreads, 3)  // three blocks (their shared memory) per SM
 bwd_attention(const float* __restrict__ dctx_out, const float* __restrict__ part, int n_part,
               const float* __restrict__ daw_c, const float* __restrict__ values,
@@ -250,24 +350,8 @@ bwd_attention(const float* __restrict__ dctx_out, const float* __restrict__ part
     }
   }
   // loc[tl, c] = sum_k aw_prev[t0 + tl + k - left] conv[c, k]
-  {
-    const int tl = tid >> 4, part16 = tid & 15;
-    float acc[CM];
-#pragma unroll
-    for (int c = 0; c < CM; ++c) acc[c] = 0.0f;
-    for (int kk = part16; kk < K; kk += 16) {
-      const float x = awp[tl + kk];
-#pragma unroll
-      for (int c = 0; c < CM; ++c)
-        if (c < C) acc[c] += x * cw[c * K + kk];
-    }
-#pragma unroll
-    for (int c = 0; c < CM; ++c) {
-      if (c >= C) break;
-      const float s = half_warp_sum(acc[c]);
-      if (part16 == c) loc[tl * C + c] = s;
-    }
-  }
+  loc_group(awp, cw, loc, 0, C, K);
+  if (C > kGroupC) loc_rest(awp, cw, loc, C, K);
   __syncthreads();
   rs = 0.0f;
   for (int w = 0; w < kWarps; ++w) rs += red[w];
@@ -277,14 +361,15 @@ bwd_attention(const float* __restrict__ dctx_out, const float* __restrict__ part
   }
   cp_async_wait_none();  // kc
   __syncthreads();
+  if (C > kGroupC) features_rest(loc, wf, dzs, nf, A, C);
   const size_t nb = (size_t)n * gridDim.x + tb;
   for (int a0 = tid; a0 < A; a0 += 2 * kThreads) {
     const int a1 = a0 + kThreads;
     const bool two = a1 < A;
     const int a1c = two ? a1 : a0;             // a1's loads stay in bounds
-    float wf0[CM], wf1[CM], dwf0[CM], dwf1[CM];
+    float wf0[kGroupC], wf1[kGroupC], dwf0[kGroupC], dwf1[kGroupC];
 #pragma unroll
-    for (int c = 0; c < CM; ++c) {
+    for (int c = 0; c < kGroupC; ++c) {
       wf0[c] = c < C ? wf[a0 * C + c] : 0.0f;
       wf1[c] = c < C ? wf[a1c * C + c] : 0.0f;
       dwf0[c] = dwf1[c] = 0.0f;
@@ -294,10 +379,10 @@ bwd_attention(const float* __restrict__ dctx_out, const float* __restrict__ part
     float* dk = dkc + ((size_t)n * T + t0) * A;
     float dq0 = 0.0f, dq1 = 0.0f, dv0 = 0.0f, dv1 = 0.0f;
     for (int tl = 0; tl < nf; ++tl) {
-      float lc[CM];
+      float lc[kGroupC];
       float f0 = 0.0f, f1 = 0.0f;
 #pragma unroll
-      for (int c = 0; c < CM; ++c) {
+      for (int c = 0; c < kGroupC; ++c) {
         lc[c] = c < C ? loc[tl * C + c] : 0.0f;
         f0 += lc[c] * wf0[c];
         f1 += lc[c] * wf1[c];
@@ -315,7 +400,7 @@ bwd_attention(const float* __restrict__ dctx_out, const float* __restrict__ part
       dv0 += e * s0;
       dv1 += e * s1;
 #pragma unroll
-      for (int c = 0; c < CM; ++c) {
+      for (int c = 0; c < kGroupC; ++c) {
         dwf0[c] += dz0 * lc[c];
         dwf1[c] += dz1 * lc[c];
       }
@@ -326,39 +411,22 @@ bwd_attention(const float* __restrict__ dctx_out, const float* __restrict__ part
     atomicAdd(dv_part + nb * A + a0, dv0);
     float* dwp = dwf_part + nb * C * A;        // [C][A]
 #pragma unroll
-    for (int c = 0; c < CM; ++c)
+    for (int c = 0; c < kGroupC; ++c)
       if (c < C) atomicAdd(dwp + (size_t)c * A + a0, dwf0[c]);
     if (two) {
       dq_part[((size_t)tb * N + n) * A + a1] = dq1;
       atomicAdd(dv_part + nb * A + a1, dv1);
 #pragma unroll
-      for (int c = 0; c < CM; ++c)
+      for (int c = 0; c < kGroupC; ++c)
         if (c < C) atomicAdd(dwp + (size_t)c * A + a1, dwf1[c]);
     }
   }
+  if (C > kGroupC) dwf_rest(dzs, loc, dwf_part + nb * C * A, nf, A, C);
   __syncthreads();
-  // dloc[t, c] = sum_a dz[t, a] W_f[a, c] on the valid frames; units a =
-  // part16 + 16 i keep the half-warp's reads of W_f on distinct banks
-  {
-    const int tl = tid >> 4, part16 = tid & 15;
-    float acc[CM];
-#pragma unroll
-    for (int c = 0; c < CM; ++c) acc[c] = 0.0f;
-    if (tl < nf) {
-      for (int a = part16; a < A; a += 16) {
-        const float dz = dzs[tl * kDz + a];
-#pragma unroll
-        for (int c = 0; c < CM; ++c)
-          if (c < C) acc[c] += dz * wf[a * C + c];
-      }
-    }
-#pragma unroll
-    for (int c = 0; c < CM; ++c) {
-      if (c >= C) break;
-      const float s = half_warp_sum(acc[c]);
-      if (tl < nf && part16 == c) dloc[((size_t)n * T + t0 + tl) * C + c] = s;
-    }
-  }
+  // dloc[t, c] = sum_a dz[t, a] W_f[a, c] on the valid frames
+  float* dl = dloc + ((size_t)n * T + t0) * C;
+  dloc_group(dzs, wf, dl, 0, nf, A, C);
+  if (C > kGroupC) dloc_rest(dzs, wf, dl, nf, A, C);
 }
 
 // Shared memory of bwd_conv, in floats.
@@ -372,9 +440,8 @@ __host__ __device__ inline size_t conv_bwd_smem_floats(int C, int K) {
 // = sum_t' dloc[n, t', c] aw_prev[n, t' + k - left] (into its own partial;
 // nothing to add past klens[n], where dloc is 0 and bwd_attention wrote
 // none). Besides, dq_t[n, a] = the sum of the attention blocks' parts
-// (those with valid frames), in order, for the block's slice of a. CM >= C
-// sizes the per-channel register arrays.
-template <int CM>
+// (those with valid frames), in order, for the block's slice of a; dconv
+// kGroupC channels at a time.
 __global__ void __launch_bounds__(kThreads)
 bwd_conv(const float* __restrict__ dloc, const float* __restrict__ aw_prev,
          const float* __restrict__ conv_w, const int* __restrict__ klens,
@@ -432,20 +499,22 @@ bwd_conv(const float* __restrict__ dloc, const float* __restrict__ aw_prev,
   // per tap kk, its C sums added to the partial at once
   const float* x = win + K - 1 - left;
   for (int kk = tid; kk < K; kk += kThreads) {
-    float s[CM];
-#pragma unroll
-    for (int c = 0; c < CM; ++c) s[c] = 0.0f;
-#pragma unroll 4
-    for (int tl = 0; tl < kFrames; ++tl) {
-      const float y = awp[tl + kk];
-#pragma unroll
-      for (int c = 0; c < CM; ++c)
-        if (c < C) s[c] += x[(size_t)c * W + tl] * y;
-    }
     float* dst = dconv_part + nb * C * K + kk;
+    for (int c0 = 0; c0 < C; c0 += kGroupC) {
+      float s[kGroupC];
 #pragma unroll
-    for (int c = 0; c < CM; ++c)
-      if (c < C) atomicAdd(dst + (size_t)c * K, s[c]);
+      for (int c = 0; c < kGroupC; ++c) s[c] = 0.0f;
+#pragma unroll 4
+      for (int tl = 0; tl < kFrames; ++tl) {
+        const float y = awp[tl + kk];
+#pragma unroll
+        for (int c = 0; c < kGroupC; ++c)
+          if (c0 + c < C) s[c] += x[(size_t)(c0 + c) * W + tl] * y;
+      }
+#pragma unroll
+      for (int c = 0; c < kGroupC; ++c)
+        if (c0 + c < C) atomicAdd(dst + (size_t)(c0 + c) * K, s[c]);
+    }
   }
 }
 
@@ -625,16 +694,22 @@ bwd_recurrent(const float* __restrict__ dy, const float* __restrict__ w_ctx,
   }
 }
 
-// Lets Kernel take `bytes` of dynamic shared memory. The attribute is set
-// only when a call needs more than before, so a call captured in a CUDA
-// graph after a first one at its shapes makes no such request.
+// Lets Kernel take `bytes` of dynamic shared memory on the current device.
+// The attribute is set only when a call on that device needs more than
+// before, so a call captured in a CUDA graph after a first one at its
+// shapes makes no such request.
+constexpr int kMaxDevices = 64;
+
 template <auto Kernel>
 cudaError_t allow_smem(size_t bytes) {
-  static size_t allowed = 48 * 1024;
-  if (bytes <= allowed) return cudaSuccess;
-  const cudaError_t err =
-      cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err == cudaSuccess) allowed = bytes;
+  static size_t allowed[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const bool cached = dev >= 0 && dev < kMaxDevices;
+  if (bytes <= 48 * 1024 || (cached && bytes <= allowed[dev])) return cudaSuccess;
+  err = cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err == cudaSuccess && cached) allowed[dev] = bytes;
   return err;
 }
 
@@ -663,7 +738,7 @@ extern "C" int nsp_las_scan_bwd_parts(int H) { return (4 * H + kRecK - 1) / kRec
 
 // K3b over U steps, N rows, time-major as K3 (nsp_las_scan_f32).
 // Inputs: the weights w_ctx [D, 4H], w_h [H, 4H], w_q [A, H], conv_w
-// [C, K] (C <= 16), w_f [A, C], v [A]; kc [N, T, A], values [N, T, D],
+// [C, K], w_f [A, C], v [A]; kc [N, T, A], values [N, T, D],
 // klens [N] int32, keep [U, N, H]; K3's saved gates [U, N, 4H], c_all
 // [U, N, H], q_all [U, N, A], aw_all [U, N, T], ctx_all [U, N, D]; aw0
 // [N, T] (the step-0 weights, zeros); the upstream gradients dh_out [U, N,
@@ -687,8 +762,8 @@ extern "C" int nsp_las_scan_bwd_f32(
     int U, int N, int T, int H, int D, int A, int C, int K, void* stream) {
   int* count = static_cast<int*>(launched);
   *count = 0;
-  if (U <= 0 || N <= 0 || T <= 0 || H <= 0 || D <= 0 || A <= 0 || C <= 0 || C > kMaxC ||
-      K <= 0 || N > 65535)
+  if (U <= 0 || N <= 0 || T <= 0 || H <= 0 || D <= 0 || A <= 0 || C <= 0 || K <= 0 ||
+      N > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* kl = static_cast<const int*>(klens);
@@ -700,17 +775,8 @@ extern "C" int nsp_las_scan_bwd_f32(
   const size_t cell_smem = sizeof(float) * cell_smem_floats(A);
   const size_t rec_smem = sizeof(float) * kRecSmemFloats;
   cudaError_t err;
-  // the attention and conv kernels with register arrays for 10 channels
-  // (the flagship's) or for kMaxC
-  const bool narrow = C <= 10;
-  const auto att = narrow ? bwd_attention<10> : bwd_attention<kMaxC>;
-  const auto conv = narrow ? bwd_conv<10> : bwd_conv<kMaxC>;
-  if ((err = narrow ? allow_smem<bwd_attention<10>>(att_smem)
-                    : allow_smem<bwd_attention<kMaxC>>(att_smem)) != cudaSuccess)
-    return (int)err;
-  if ((err = narrow ? allow_smem<bwd_conv<10>>(c_smem) : allow_smem<bwd_conv<kMaxC>>(c_smem)) !=
-      cudaSuccess)
-    return (int)err;
+  if ((err = allow_smem<bwd_attention>(att_smem)) != cudaSuccess) return (int)err;
+  if ((err = allow_smem<bwd_conv>(c_smem)) != cudaSuccess) return (int)err;
   if ((err = allow_smem<bwd_cell>(cell_smem)) != cudaSuccess) return (int)err;
   if ((err = allow_smem<bwd_recurrent>(rec_smem)) != cudaSuccess) return (int)err;
   const dim3 att_grid(n_tb, N);
@@ -720,15 +786,15 @@ extern "C" int nsp_las_scan_bwd_f32(
     const float* aw_prev = (t > 0) ? F(aw_all) + (size_t)(t - 1) * nt : F(aw0);
     // the recurrent product's partials exist from the second step on
     const int parts = (t < U - 1) ? n_part : 0;
-    att<<<att_grid, kThreads, att_smem, s>>>(
+    bwd_attention<<<att_grid, kThreads, att_smem, s>>>(
         F(dctx_out) + t * nd, F(part), parts, F(daw_c), F(values), F(aw_all) + t * nt,
         F(ctx_all) + t * nd, kl, F(q_all) + t * na, aw_prev, F(conv_w), F(w_f), F(v), F(kc),
         W(dctx_tot) + t * nd, W(dkc), W(dloc), W(dq_part), W(dv_part), W(dwf_part), N, T, D, H,
         A, C, K);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    conv<<<att_grid, kThreads, c_smem, s>>>(F(dloc), aw_prev, F(conv_w), kl, F(dq_part),
-                                            W(daw_c), W(dconv_part), W(dq_all) + t * na, N, T,
-                                            A, C, K);
+    bwd_conv<<<att_grid, kThreads, c_smem, s>>>(F(dloc), aw_prev, F(conv_w), kl, F(dq_part),
+                                                W(daw_c), W(dconv_part), W(dq_all) + t * na, N,
+                                                T, A, C, K);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
     bwd_cell<<<cell_grid, kCellThreads, cell_smem, s>>>(
         F(dq_all) + t * na, F(w_q), F(gates) + t * nh * 4, F(c_all) + t * nh,

@@ -259,23 +259,16 @@ def las_scan_bwd_finish(h, ctx, keep, aw, dy, dq, dctx, dkc, dconv_part,
             dwf_part.sum(0).t(), dv_part.sum(0), dkc, d_values)
 
 
-# bwd_attention holds a row of W_f [A, C] in registers
-MAX_CONV_CHANNELS = 16
-
-
 def las_scan_bwd_chain(w_ctx, w_h, w_q, conv_w, w_f, v, kc, values, klens,
                        keep, h, c, gates, q, aw, ctx, dh_out, dctx_out):
     """K3b's kernel loop alone, on CUDA tensors: launches the per-step
     chain (or raises) and returns what ``las_scan_bwd_finish`` takes after
-    (h, ctx, keep, aw). The number of kernels it launched goes to
-    ``las_scan_bwd.kernel_launches_per_call``."""
+    (h, ctx, keep, aw). Counts in ``las_scan_bwd.launches``; the number of
+    kernels it launched goes to ``las_scan_bwd.kernel_launches_per_call``."""
     u, b, hd = h.shape
     lib, dims = _check_shapes(b, u, hd, w_ctx, w_h, None, w_q, conv_w, w_f,
                               v, kc, values, klens, keep)
     _, _, t, _, d, a, ch, k = dims
-    if ch > MAX_CONV_CHANNELS:
-        raise ValueError(f"las_scan_bwd: {ch} location-conv channels, the "
-                         f"kernel takes at most {MAX_CONV_CHANNELS}")
     for name, x, shape in (("h", h, (u, b, hd)), ("c", c, (u, b, hd)),
                            ("gates", gates, (u, b, 4 * hd)),
                            ("q", q, (u, b, a)), ("aw", aw, (u, b, t)),
@@ -307,6 +300,7 @@ def las_scan_bwd_chain(w_ctx, w_h, w_q, conv_w, w_f, v, kc, values, klens,
                                  dv_part, dwf_part, dconv_part)),
         ctypes.addressof(launched), *dims, stream_of(h))
     raise_on_error("las_scan_bwd", err)
+    las_scan_bwd.launches += 1
     las_scan_bwd.kernel_launches_per_call = launched.value
     return dy, dq, dctx, dkc, dconv_part, dwf_part, dv_part
 
@@ -314,15 +308,13 @@ def las_scan_bwd_chain(w_ctx, w_h, w_q, conv_w, w_f, v, kc, values, klens,
 def las_scan_bwd(w_ctx, w_h, w_q, conv_w, w_f, v, kc, values, klens, keep,
                  h, c, gates, q, aw, ctx, dh_out, dctx_out):
     """K3b: gradients as ``las_scan_bwd_ref``; dispatch as ``las_scan``:
-    the kernel loop (``las_scan_bwd_chain``), then
-    ``las_scan_bwd_finish``. Counts in ``las_scan_bwd.launches``."""
+    the kernel loop (``las_scan_bwd_chain``, which counts the launch),
+    then ``las_scan_bwd_finish``."""
     args = (w_ctx, w_h, w_q, conv_w, w_f, v, kc, values, klens, keep, h, c,
             gates, q, aw, ctx, dh_out, dctx_out)
     if on_cpu(*args):
         return las_scan_bwd_ref(*args)
-    raw = las_scan_bwd_chain(*args)
-    las_scan_bwd.launches += 1
-    return las_scan_bwd_finish(h, ctx, keep, aw, *raw)
+    return las_scan_bwd_finish(h, ctx, keep, aw, *las_scan_bwd_chain(*args))
 
 
 las_scan.launches = 0

@@ -195,7 +195,8 @@ def _las_args(rng, dev, b, u, t, hd, d, a, ch, k, klens, rate=0.1):
 
 
 # K3b's tiles: 16 frames per attention block, 8 rows x 16 units per cell
-# block, 32 rows x 64 weight rows x 256 gate columns per recurrent block.
+# block, 32 rows x 64 weight rows x 256 gate columns per recurrent block;
+# location-conv channels 10 at a time.
 @pytest.mark.parametrize("b,u,t,hd,d,a,ch,k,klens", [
     (32, 12, 188, 1024, 512, 512, 10, 201, None),   # flagship widths
     (5, 7, 37, 64, 48, 40, 4, 6, [37, 30, 12, 1, 20]),  # small, even conv
@@ -203,6 +204,8 @@ def _las_args(rng, dev, b, u, t, hd, d, a, ch, k, klens, rate=0.1):
      [189 - 5 * i for i in range(32)] + [1]),       # a row with klen 1
     (32, 1, 188, 1024, 512, 512, 10, 201, None),    # U = 1: no recurrent step
     (3, 5, 177, 64, 48, 40, 4, 6, [177, 1, 100]),   # one frame past 11 tiles
+    (4, 3, 40, 64, 48, 40, 12, 7, [40, 17, 1, 33]),  # C past one group of 10
+    (3, 2, 50, 64, 48, 40, 23, 9, [50, 1, 31]),     # three groups, the last short
 ])
 def test_las_scan_kernels(cuda, b, u, t, hd, d, a, ch, k, klens):
     from neural_sp_tpu_torch.ops.kernels.las_scan import (
