@@ -34,8 +34,8 @@ Phases (any failure raises and the script exits non-zero):
      K1b rel_attention_bwd (B=32, H=8, dk=64, R=11, T in 750/375/188,
      ragged lengths; and K1 there at full lengths), K3 las_scan and K3b
      las_scan_bwd (B=32, U+1=101, T=188, H=1024, D=A=512, C=10, K=201,
-     dropout keep-masks; the time of K3b's wrapper's work after its kernel
-     loop), K4 ctc_loss forward and backward
+     dropout keep-masks; K3's kernel launches per call; the time of K3b's
+     wrapper's work after its kernel loop), K4 ctc_loss forward and backward
      (B=32, T=188, U=100, V=10000, ragged lengths, a repeated label);
      errors are normalised by the reference's largest magnitude; K1b
      against the autograd backward of K1's yardstick, K4 against
@@ -45,8 +45,8 @@ Phases (any failure raises and the script exits non-zero):
      accumulation on B=32 utterances of 1500 frames x 80 with U=100 labels:
      one warm-up optimizer step, then 2 timed ones (counts zeroed just
      before all 12 microsteps and read just after; K1, K1b, K3, K3b and K4
-     must have run; K3b's kernel launches per call read there too), and
-     profile one microstep;
+     must have run; K3's and K3b's kernel launches per call read there
+     too), and profile one microstep;
   6. one microstep's loss and every gradient in ``eval()`` mode with the
      kernels against the plain versions patched in, then 5 Adam steps
      (lr 1e-4) on a fixed batch of 8 utterances in ``train()`` mode, whose
@@ -641,6 +641,8 @@ def phase_train_kernels(torch, rng):
             keep)
     outs, refs = las_scan(*args), las_scan_ref(*args)
     what = f"B={b} U={u} T={tt} H={hd} D={d} A={a} C={c} K={kw}"
+    log(f"[2b] las_scan: {las_scan.kernel_launches_per_call} kernel launches "
+        f"per call")
     # no single PyTorch call computes the scan (cuDNN's LSTM has no
     # attention fed back into its input): no library yardstick
     record("las_scan", max(rel_err(x, y) for x, y in zip(outs, refs)),
@@ -719,8 +721,8 @@ def phase_train(torch, model, batch):
     """5: optimizer steps of the full flagship, timed, with the kernels'
     launches counted over the run."""
     import numpy as np
-    from neural_sp_tpu_torch.ops.kernels import (las_scan_bwd, launches,
-                                                 reset_launches)
+    from neural_sp_tpu_torch.ops.kernels import (las_scan, las_scan_bwd,
+                                                 launches, reset_launches)
     from neural_sp_tpu_torch.parallel.mesh import make_train_step
     from neural_sp_tpu_torch.trainers.lr_scheduler import noam_schedule
     from neural_sp_tpu_torch.trainers.optimizer import build_optimizer
@@ -740,7 +742,9 @@ def phase_train(torch, model, batch):
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
     counts = launches()
-    # the kernels K3b's last call in the run launched (its per-step chain)
+    # the kernels K3's and K3b's last calls in the run launched (their
+    # per-step chains)
+    k3_kernels = las_scan.kernel_launches_per_call
     k3b_kernels = las_scan_bwd.kernel_launches_per_call
     peak = torch.cuda.max_memory_allocated()
     expect(all(m["emitted"] == ((i + 1) % ACCUM == 0)
@@ -755,14 +759,17 @@ def phase_train(torch, model, batch):
     for name in ("rel_attention", "rel_attention_bwd", "las_scan",
                  "las_scan_bwd", "ctc_loss", "ctc_loss_bwd"):
         expect(counts[name] > 0, f"{name} never launched in training")
+    expect(k3_kernels > 0, "las_scan launched no kernel in training")
     expect(k3b_kernels > 0, "las_scan_bwd launched no kernel in training")
-    log(f"[5] las_scan_bwd: {k3b_kernels} kernel launches per call")
+    log(f"[5] las_scan: {k3_kernels} kernel launches per call; "
+        f"las_scan_bwd: {k3b_kernels}")
     step_s = sum(walls[1:]) / len(walls[1:])
     frames = float(batch[1].sum()) * ACCUM
     out = {"step_s": walls, "ms_per_step": step_s * 1e3,
            "frames_per_s": frames / step_s,
            "utts_per_s": TRAIN_B * ACCUM / step_s, "peak_mem_bytes": peak,
            "losses": losses, "grad_norms": gnorms, "launches": counts,
+           "las_scan_kernel_launches_per_call": k3_kernels,
            "las_scan_bwd_kernel_launches_per_call": k3b_kernels,
            "last_obs": {k: float(v) for k, v in metrics[-1].items()}}
     log(f"[5] optimizer step (4 x B={TRAIN_B} x {TRAIN_FRAMES} frames): "
@@ -945,8 +952,11 @@ def main() -> int:
     # K4's ms are forward + backward; its backward entry point counts apart
     next(e for e in entries if e["name"] == "ctc_loss")["bwd_launches"] = \
         launches["ctc_loss_bwd"]
-    # K3b: the kernels its loop launched per call in the training run, and
-    # the wrapper's work after the loop (phase 2b)
+    # K3, K3b: the kernels the per-step chain launched per call in the
+    # training run; K3b: the wrapper's work after the loop (phase 2b)
+    next(e for e in entries if e["name"] == "las_scan").update(
+        kernel_launches_per_call=trained[
+            "las_scan_kernel_launches_per_call"])
     next(e for e in entries if e["name"] == "las_scan_bwd").update(
         kernel_launches_per_call=trained[
             "las_scan_bwd_kernel_launches_per_call"],

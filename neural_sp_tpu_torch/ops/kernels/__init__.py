@@ -16,7 +16,8 @@ KERNELS = {"rel_attention": rel_attention,
 def reset_launches() -> None:
     for kernel in KERNELS.values():
         kernel.launches = 0
-    las_scan_bwd.kernel_launches_per_call = 0
+    for kernel in (las_scan, las_scan_bwd):
+        kernel.kernel_launches_per_call = 0
 
 
 def launches() -> dict[str, int]:

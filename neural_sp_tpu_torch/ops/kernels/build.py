@@ -106,7 +106,7 @@ def load_library() -> ctypes.CDLL:
     entry_points = {
         "nsp_rel_attention_f32": [_P] * 9 + [_I] * 5 + [_P],
         "nsp_rel_attention_bwd_f32": [_P] * 15 + [_I] * 5 + [_P],
-        "nsp_las_step_f32": [_P] * 22 + [_I] * 7 + [_P],
+        "nsp_las_step_f32": [_P] * 20 + [_I] * 7 + [_P],
         "nsp_las_scan_f32": [_P] * 24 + [_I] * 8 + [_P],
         "nsp_las_scan_bwd_f32": [_P] * 31 + [_I] * 8 + [_P],
         "nsp_ctc_alpha_f32": [_P] * 6 + [_I] * 4 + [_P],
@@ -116,8 +116,10 @@ def load_library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = _I
-    lib.nsp_las_step_smem_bytes.argtypes = [_I] * 5
+    lib.nsp_las_step_smem_bytes.argtypes = [_I] * 6
     lib.nsp_las_step_smem_bytes.restype = ctypes.c_longlong
+    lib.nsp_las_step_scratch_floats.argtypes = [_I] * 5
+    lib.nsp_las_step_scratch_floats.restype = ctypes.c_longlong
     lib.nsp_las_scan_bwd_smem_bytes.argtypes = [_I] * 5
     lib.nsp_las_scan_bwd_smem_bytes.restype = ctypes.c_longlong
     lib.nsp_las_scan_bwd_parts.argtypes = [_I]

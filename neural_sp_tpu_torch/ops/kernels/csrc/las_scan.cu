@@ -53,24 +53,12 @@
 //                bwd_attention for dctx) add the partials in a fixed
 //                order: deterministic, no atomics.
 
-#include <cuda_runtime.h>
-#include <math.h>
-
-#include <initializer_list>
-
-#include "rel_attention_common.cuh"
+#include "las_common.cuh"
 
 namespace {
 
-using nsp_rel::cp_async16;
-using nsp_rel::cp_async_commit;
+using namespace nsp_las;
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kFrames = 16;     // frames per block of the attention / conv kernels
-// location-conv channels held in registers at once (the flagship's C);
-// the attention and conv kernels take any C, kGroupC channels at a time
-constexpr int kGroupC = 10;
 constexpr int kDzPad = 16;      // dz rows A + 16 apart: two frames' rows on other banks
 // bwd_cell: a block per (kCellUnits units, kCellRows rows), the dot
 // product over A of each (row, unit) split across kCellSplit threads
@@ -87,25 +75,6 @@ constexpr int kRecN = 32;
 constexpr int kRecThreads = 128;
 constexpr int kDyStride = kRecK + 4;   // 16-byte rows, conflict-free float4 reads
 constexpr int kWStride = kRecSub + 4;
-
-__device__ __forceinline__ float warp_sum(float x) {
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-// A 4-byte cp.async (zero-fill when pred is false).
-__device__ __forceinline__ void cp_async4(float* smem, const float* gmem, bool pred) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(gmem),
-               "r"(pred ? 4 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_none() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
 
 // dctx[n, d] = dctx_out[n, d] + the n_part split-K partials of the
 // recurrent product's context rows (part [n_part, N, D + H], columns < D).
@@ -124,61 +93,10 @@ __host__ __device__ inline size_t attention_bwd_smem_floats(int D, int A, int C,
          kFrames + (size_t)kFrames * (A + kDzPad) + kWarps;
 }
 
-// Sums x over the 16 lanes of each half-warp (lanes that differ in their
-// low four bits); every lane of the warp takes part.
-__device__ __forceinline__ float half_warp_sum(float x) {
-  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-// tanh(x) = 1 - 2 / (exp(2x) + 1), on the fast exponential: absolute
-// error about 1e-7 (float32 rounding), a few instructions instead of
-// tanhf's accurate path; it saturates to +-1 at large |x|.
-__device__ __forceinline__ float tanh_fast(float x) {
-  return 1.0f - __fdividef(2.0f, __expf(2.0f * x) + 1.0f);
-}
-
-// Starts the copy of n floats from global src to shared dst: 16-byte
-// cp.async where both are 16-byte aligned, 4-byte ones for the rest.
-__device__ __forceinline__ void copy_async(float* dst, const float* src, int n) {
-  int head = 0;
-  if (((reinterpret_cast<size_t>(dst) | reinterpret_cast<size_t>(src)) & 15) == 0) {
-    head = n & ~3;
-    for (int i = 4 * threadIdx.x; i < head; i += 4 * kThreads) cp_async16(dst + i, src + i, true);
-  }
-  for (int i = head + threadIdx.x; i < n; i += kThreads) cp_async4(dst + i, src + i, true);
-}
-
 // bwd_attention's per-channel phases take kGroupC channels at a time: the
 // first group inline, the rest (C > kGroupC) in calls that keep their
 // registers out of the kernel's frame loop. loc, dloc [kFrames][C]; wf
 // [A][C]; the dz rows kDz = A + kDzPad apart.
-
-// loc[tl, c0 + c] = sum_k awp[tl + k] cw[c0 + c, k] for the group's
-// channels: a half-warp per frame tl, lanes along K.
-__device__ __forceinline__ void loc_group(const float* awp, const float* cw, float* loc, int c0,
-                                          int C, int K) {
-  const int tl = threadIdx.x >> 4, part16 = threadIdx.x & 15;
-  float acc[kGroupC];
-#pragma unroll
-  for (int c = 0; c < kGroupC; ++c) acc[c] = 0.0f;
-  for (int kk = part16; kk < K; kk += 16) {
-    const float x = awp[tl + kk];
-#pragma unroll
-    for (int c = 0; c < kGroupC; ++c)
-      if (c0 + c < C) acc[c] += x * cw[(c0 + c) * K + kk];
-  }
-#pragma unroll
-  for (int c = 0; c < kGroupC; ++c) {
-    if (c0 + c >= C) break;
-    const float s = half_warp_sum(acc[c]);
-    if (part16 == c) loc[tl * C + c0 + c] = s;
-  }
-}
-
-__device__ __noinline__ void loc_rest(const float* awp, const float* cw, float* loc, int C, int K) {
-  for (int c0 = kGroupC; c0 < C; c0 += kGroupC) loc_group(awp, cw, loc, c0, C, K);
-}
 
 // dloc[tl, c0 + c] = sum_a dz[tl, a] wf[a, c0 + c] on the nf valid frames:
 // a half-warp per frame, units a = part16 + 16 i (the half-warp's reads of
@@ -295,17 +213,12 @@ bwd_attention(const float* __restrict__ dctx_out, const float* __restrict__ part
   const int t0 = tb * kFrames;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int klen = min(klens[n], T);
-  const int left = (K - 1) / 2;
   const bool active = t0 < klen;
   const int nf = min(kFrames, klen - t0);    // the block's valid frames, if active
   if (active) {
     copy_async(wf, w_f, A * C);
     copy_async(cw, conv_w, C * K);
-    for (int i = tid; i < kFrames + K - 1; i += kThreads) {
-      const int t = t0 + i - left;
-      const bool in = t >= 0 && t < T;
-      cp_async4(awp + i, aw_prev + (in ? (size_t)n * T + t : 0), in);
-    }
+    window_async(awp, aw_prev, n, t0, T, K);
     cp_async_commit();
   }
   // dctx, and the thread's share of the row sum's ctx_t . dctx
@@ -465,11 +378,7 @@ bwd_conv(const float* __restrict__ dloc, const float* __restrict__ aw_prev,
     const bool in = f >= 0 && f < klen;
     cp_async4(win + (size_t)c * W + fi, dloc + (in ? ((size_t)n * T + f) * C + c : 0), in);
   }
-  for (int i = tid; i < W; i += kThreads) {
-    const int t = t0 + i - left;
-    const bool in = t >= 0 && t < T;
-    cp_async4(awp + i, aw_prev + (in ? (size_t)n * T + t : 0), in);
-  }
+  window_async(awp, aw_prev, n, t0, T, K);
   cp_async_commit();
   const int n_valid = (klen + kFrames - 1) / kFrames;  // attention blocks with parts
   const int slice = (A + gridDim.x - 1) / gridDim.x;
@@ -692,31 +601,6 @@ bwd_recurrent(const float* __restrict__ dy, const float* __restrict__ w_ctx,
       if (r < R) part[((size_t)blockIdx.y * N + n) * R + r] = acc[i][j];
     }
   }
-}
-
-// Lets Kernel take `bytes` of dynamic shared memory on the current device.
-// The attribute is set only when a call on that device needs more than
-// before, so a call captured in a CUDA graph after a first one at its
-// shapes makes no such request.
-constexpr int kMaxDevices = 64;
-
-template <auto Kernel>
-cudaError_t allow_smem(size_t bytes) {
-  static size_t allowed[kMaxDevices] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  const bool cached = dev >= 0 && dev < kMaxDevices;
-  if (bytes <= 48 * 1024 || (cached && bytes <= allowed[dev])) return cudaSuccess;
-  err = cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err == cudaSuccess && cached) allowed[dev] = bytes;
-  return err;
-}
-
-size_t max_of(std::initializer_list<size_t> xs) {
-  size_t m = 0;
-  for (size_t x : xs) m = x > m ? x : m;
-  return m;
 }
 
 }  // namespace

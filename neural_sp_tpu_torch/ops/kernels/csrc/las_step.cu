@@ -12,361 +12,612 @@
 //   e   = v . tanh(kc + h W_q + loc W_f);  aw = softmax_f32(e masked);
 //   ctx = aw values
 //
-// What bounds it on the H100: at decode the step is a batch-N GEMV, so it
-// is bound by bytes: the gate weights ((D + H) x 4H floats, 25 MB at the
-// flagship's D = 512, H = 1024) and each row's keys and values (T x (A +
-// D) floats). With N = 10 rows a kernel needs more than one block per row
-// to keep the 132 SMs reading, so the step is five kernels on one stream,
-// each spread over ~100-400 blocks:
-//   1. las_gates_partial: split-K GEMV. One thread per gate column, a
-//      block per (128 columns, 128 reduction rows, 16 hypotheses); each
-//      weight is read once per step, coalesced, and multiplied into all
-//      the block's hypotheses held in registers.
-//   2. las_cell: one thread per (hypothesis, unit) sums the partials,
-//      adds eg and b, and applies the LSTM cell.
-//   3. las_query: q = h W_q^T, a warp per output for 8 hypotheses.
-//   4. las_energy: a block per (16 frames, hypothesis) computes the
-//      frames' location features from the padded aw_prev in shared memory,
-//      then their masked energies.
-//   5. las_context: a block per (32 context columns, hypothesis) takes the
-//      softmax of its row's energies and sums aw x values over T in 8
-//      slices.
+// What bounds it on the H100: a step is small (N rows), so each of its
+// kernels is short and latency (a block's chain of dependent loads and
+// barriers), not bandwidth, sets its time. By bytes a step needs the gate
+// weights once ((D + H) x 4H floats, 25 MB at the flagship's D = 512, H =
+// 1024) and each row's keys and values over its valid frames (T x (A + D)
+// floats per row). The design reads exactly that, prefetches with
+// cp.async, and spreads every kernel over at least 256 blocks at the
+// training shape (N = 32, T = 188). The step is five kernels on one
+// stream, launched from the host:
+//   1. las_gates: split-K product x [N, D + H] x [W_ctx; W_h]. A block per
+//      (64 gate columns, 256 reduction rows, 32 rows n) streams its
+//      disjoint tile of W once, in two cp.async stages, against all its
+//      rows of x = [ctx_prev, h_prev] (their columns arriving with W's),
+//      and writes its partial sum: [W_ctx; W_h] is read once per step.
+//   2. las_cell: a thread per (row, unit) adds the (D + H) / 256 partials,
+//      eg and b, applies the LSTM cell, and writes h, c, the dropped
+//      output hd = h keep and (K3) the gate activations.
+//   3. las_query: q = hd W_q^T, a warp per output for 8 rows, the lanes
+//      loading their weights before the rows of hd are awaited.
+//   4. las_attend_part: a block per (16 frames, row), only where the row
+//      has frames: the location features by half-warps, the energies with
+//      W_f's rows in registers (W_f is used as laid out), then the block's
+//      own max m_b, p = exp(e - m_b), their sum s_b and the unnormalised
+//      partial context sum p values. kc and values come by cp.async, the
+//      valid frames' rows only.
+//   5. las_attend_combine: the row's softmax, once: M = max m_b, S = sum
+//      s_b exp(m_b - M); aw = p exp(m_b - M) / S and ctx = sum_b partial_b
+//      exp(m_b - M) / S, a pass over at most ceil(T / 16) x (2 + D) floats
+//      per row. No barrier across blocks: the launch boundary orders 4
+//      before 5.
 // The masked value is finfo(f32).min / 2, as in apply_mask_logits, so a
-// row with no valid frame gets uniform weights.
+// row with no valid frame (klen 0) gets uniform weights 1 / T over all T
+// frames and the mean of all its T value rows as context: such a row's
+// blocks skip the energies, take e = the masked value on every frame, and
+// are the only ones that read frames past klen. A row with klen >= 1 gives
+// its masked frames the weight exp(masked - M) = 0 exactly, so they are
+// written as zeros and never read.
 //
 // K3, the teacher-forced U-step scan of training (`nsp_las_scan_f32`,
 // the U-step form of the same TPU kernel), runs these five kernels once
-// per step from a host loop, with two additions: las_cell also stores the
-// gate activations (i, f, g, o) for the backward, and las_query takes the
-// query from the dropped output h * keep_t (dropout on the LSTM output
-// feeds the attention and the readout; the carry keeps the undropped h).
-// Every step's h, c, gates, query, attention weights and context stay in
-// [U, N, ...] outputs, so step t reads step t-1's slots as its carry and
-// the backward (K3b, las_scan.cu) has what it needs. A grid-wide sync
-// across the U steps is left for later: the host loop costs five launches
-// per step.
+// per step from a host loop (5 U launches per call), with the gate
+// activations (i, f, g, o) stored for the backward and keep_t the step's
+// dropout scale (dropout on the LSTM output feeds the attention and the
+// readout; the carry keeps the undropped h). Every step's h, c, gates,
+// query, attention weights and context stay in [U, N, ...] outputs, so
+// step t reads step t-1's slots as its carry and the backward (K3b,
+// las_scan.cu) has what it needs. K3 launches the chain as programmatic
+// dependent launches (las_common.cuh): each kernel starts while the one
+// before it still runs and loads what no step writes (its weights, kc,
+// values, eg, keep) before it waits for that kernel; K2's single step is
+// launched plainly, which measured faster. The energies use the fast tanh
+// of las_common.cuh (absolute error about 1e-7); the gate product is bound
+// by its shared-memory reads (8 float4 per 64 FMAs of a thread's 4 x 4
+// tile), not by the weights' bytes.
 
-#include <cuda_runtime.h>
 #include <cfloat>
-#include <math.h>
+
+#include "las_common.cuh"
 
 namespace {
 
-constexpr int kGateThreads = 128;  // gate columns per block
-constexpr int kGateRows = 16;      // hypotheses per block (registers)
-constexpr int kGateK = 128;        // reduction rows per block
-constexpr int kCellThreads = 256;
-constexpr int kAttnThreads = 256;
-constexpr int kAttnWarps = kAttnThreads / 32;
-constexpr int kQueryRows = 8;        // hypotheses per block of las_query
-constexpr int kEnergyFrames = 16;    // frames per block of las_energy
-constexpr int kContextCols = 32;     // context columns per block
-constexpr int kContextSlices = kAttnThreads / kContextCols;
-constexpr int kSmemDefault = 48 * 1024;
+using namespace nsp_las;
+
+// las_gates: a block per (kGateN rows n, kGateCols gate columns, kGateK
+// reduction rows); W streamed kGateSub reduction rows at a time
+constexpr int kGateN = 32;
+constexpr int kGateCols = 64;
+constexpr int kGateK = 256;
+constexpr int kGateSub = 64;
+constexpr int kGateThreads = 128;
+constexpr int kXStride = kGateK + 4;      // 16-byte rows, conflict-free float4 reads
+constexpr int kWStride = kGateCols + 4;
+constexpr int kCellThreads = 128;
+constexpr int kQueryRows = 8;        // rows n per block of las_query
+constexpr int kQueryAhead = 8;       // float4 of a weight row a lane loads ahead (H <= 1024)
+constexpr int kCombineThreads = 128;
+constexpr int kCombineSlices = 4;    // blocks per row of las_attend_combine
 
 __device__ __forceinline__ float sigmoidf(float x) { return 1.0f / (1.0f + expf(-x)); }
 
-__device__ __forceinline__ float warp_sum(float x) {
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-__device__ __forceinline__ float warp_max(float x) {
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
+// acc + x . (a, b, c, d)
+__device__ __forceinline__ float dot4(const float4& x, float a, float b, float c, float d,
+                                      float acc) {
+  return fmaf(x.w, d, fmaf(x.z, c, fmaf(x.y, b, fmaf(x.x, a, acc))));
 }
 
-// partial[s, n, col] = sum_{k in split s} x[n, k] W[k, col], x = [ctx_prev, h_prev],
-// W = [W_ctx; W_h] ([D + H, G], G = 4H, row-major).
+// Shared memory of las_gates, in floats: x's kGateN rows of the block's
+// kGateK reduction columns, and two stages of kGateSub weight rows x
+// kGateCols columns.
+constexpr size_t kGateSmemFloats = (size_t)kGateN * kXStride + 2 * (size_t)kGateSub * kWStride;
+
+// partial[s, n, g] = sum over the reduction rows k of chunk s of x[n, k]
+// W[k, g], x = [ctx_prev, h_prev] ([N, D + H]), W = [W_ctx; W_h] ([D + H,
+// 4H], row-major). A block per (kGateCols columns g, chunk s, kGateN rows
+// n) streams its disjoint tile of W once, by cp.async in two stages, with
+// x's same reduction columns arriving with each stage; a thread holds a
+// 4 x 4 tile (n = tn + 8 i, g = 4 tc + j) and reads four reduction rows
+// of each operand per float4 load. Rows past N and reduction rows past
+// D + H are zeros. vec: every pointer is 16-byte aligned and D, H are
+// multiples of 4, so that x moves in 16-byte copies too.
 __global__ void __launch_bounds__(kGateThreads)
-las_gates_partial(const float* __restrict__ ctx_prev, const float* __restrict__ h_prev,
-                  const float* __restrict__ w_ctx, const float* __restrict__ w_h,
-                  float* __restrict__ partial, int N, int D, int H) {
-  __shared__ float xs[kGateRows][kGateK];
-  const int G = 4 * H;
-  const int col = blockIdx.x * kGateThreads + threadIdx.x;
-  const int split = blockIdx.y;
-  const int n0 = blockIdx.z * kGateRows;
-  const int kbeg = split * kGateK;
-  const int kn = min(kGateK, D + H - kbeg);
-
-  for (int idx = threadIdx.x; idx < kGateRows * kGateK; idx += kGateThreads) {
-    const int r = idx / kGateK, kk = idx % kGateK;
-    const int n = n0 + r, kg = kbeg + kk;
-    float val = 0.0f;
-    if (n < N && kk < kn) val = (kg < D) ? ctx_prev[(size_t)n * D + kg] : h_prev[(size_t)n * H + (kg - D)];
-    xs[r][kk] = val;
+las_gates(const float* __restrict__ ctx_prev, const float* __restrict__ h_prev,
+          const float* __restrict__ w_ctx, const float* __restrict__ w_h,
+          float* __restrict__ partial, int N, int D, int H, bool vec) {
+  extern __shared__ float4 gate_smem[];  // float4: 16-byte aligned for cp.async
+  float* xs = reinterpret_cast<float*>(gate_smem);  // [kGateN][kXStride]
+  float* ws = xs + (size_t)kGateN * kXStride;       // [2][kGateSub][kWStride]
+  const int G = 4 * H, R = D + H;
+  const int g0 = blockIdx.x * kGateCols, k0 = blockIdx.y * kGateK, n0 = blockIdx.z * kGateN;
+  const int kn = min(kGateK, R - k0);
+  const int tid = threadIdx.x;
+  // x[n, k] for a reduction row k of [ctx_prev, h_prev]
+  auto x_at = [&](int n, int k) {
+    return k < D ? ctx_prev + (size_t)n * D + k : h_prev + (size_t)n * H + (k - D);
+  };
+  // a stage: kGateSub rows of W's kGateCols columns into the ring ...
+  auto load_w = [&](int stage, int sub) {
+    float* dst = ws + (size_t)stage * kGateSub * kWStride;
+    const int kb = sub * kGateSub;
+    for (int c = tid; c < kGateSub * (kGateCols / 4); c += kGateThreads) {
+      const int kk = kb + c / (kGateCols / 4), col = (c % (kGateCols / 4)) * 4;
+      const int k = k0 + kk;
+      const bool in = kk < kn && g0 + col < G;
+      const float* row = (k < D) ? w_ctx + (size_t)k * G : w_h + (size_t)(k - D) * G;
+      float* to = dst + (kk - kb) * kWStride + col;
+      if (vec) {
+        cp_async16(to, in ? row + g0 + col : w_h, in);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) cp_async4(to + e, in ? row + g0 + col + e : w_h, in);
+      }
+    }
+  };
+  // ... and x's same reduction columns
+  auto load_x = [&](int sub) {
+    const int kb = sub * kGateSub;
+    for (int c = tid; c < kGateN * (kGateSub / 4); c += kGateThreads) {
+      const int nn = c / (kGateSub / 4), kk = kb + (c % (kGateSub / 4)) * 4;
+      const int n = n0 + nn, k = k0 + kk;
+      float* to = xs + nn * kXStride + kk;
+      if (vec) {
+        const bool in = n < N && kk < kn;
+        cp_async16(to, in ? x_at(n, k) : ctx_prev, in);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool in = n < N && kk + e < kn;
+          cp_async4(to + e, in ? x_at(n, k + e) : ctx_prev, in);
+        }
+      }
+    }
+  };
+  const int n_sub = (kn + kGateSub - 1) / kGateSub;
+  load_w(0, 0);            // the weights do not wait for the step before
+  grid_dependency_wait();  // x = [ctx_prev, h_prev] does
+  grid_dependents_launch();
+  load_x(0);
+  cp_async_commit();
+  const int tn = tid & 7, tc = tid >> 3;
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+  for (int sub = 0; sub < n_sub; ++sub) {
+    if (sub + 1 < n_sub) {
+      load_w((sub + 1) & 1, sub + 1);
+      load_x(sub + 1);
+      cp_async_commit();
+      cp_async_wait_one();
+    } else {
+      cp_async_wait_none();
+    }
+    __syncthreads();
+    const float* wb = ws + (size_t)(sub & 1) * kGateSub * kWStride + 4 * tc;
+    const float* xb = xs + sub * kGateSub;
+#pragma unroll 4
+    for (int k = 0; k < kGateSub; k += 4) {
+      float4 x[4], w[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        x[i] = *reinterpret_cast<const float4*>(xb + (tn + 8 * i) * kXStride + k);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        w[e] = *reinterpret_cast<const float4*>(wb + (k + e) * kWStride);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        acc[i][0] = dot4(x[i], w[0].x, w[1].x, w[2].x, w[3].x, acc[i][0]);
+        acc[i][1] = dot4(x[i], w[0].y, w[1].y, w[2].y, w[3].y, acc[i][1]);
+        acc[i][2] = dot4(x[i], w[0].z, w[1].z, w[2].z, w[3].z, acc[i][2]);
+        acc[i][3] = dot4(x[i], w[0].w, w[1].w, w[2].w, w[3].w, acc[i][3]);
+      }
+    }
+    __syncthreads();  // the stage is refilled next
   }
-  __syncthreads();
-  if (col >= G) return;
-
-  float acc[kGateRows];
+  const int g = g0 + 4 * tc;
+  if (g >= G) return;
 #pragma unroll
-  for (int r = 0; r < kGateRows; ++r) acc[r] = 0.0f;
-  for (int kk = 0; kk < kn; ++kk) {
-    const int kg = kbeg + kk;
-    const float w = (kg < D) ? w_ctx[(size_t)kg * G + col] : w_h[(size_t)(kg - D) * G + col];
-#pragma unroll
-    for (int r = 0; r < kGateRows; ++r) acc[r] += xs[r][kk] * w;
-  }
-#pragma unroll
-  for (int r = 0; r < kGateRows; ++r) {
-    const int n = n0 + r;
-    if (n < N) partial[((size_t)split * N + n) * G + col] = acc[r];
+  for (int i = 0; i < 4; ++i) {
+    const int n = n0 + tn + 8 * i;
+    if (n < N)
+      *reinterpret_cast<float4*>(partial + ((size_t)blockIdx.y * N + n) * G + g) =
+          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
   }
 }
 
+// A thread per (row n, unit j): sums the gate product's n_split partials
+// (loads independent of each other), adds eg and the bias, applies the
+// LSTM cell, and writes c, h (the carry), hd = h keep (what the query
+// reads; keep may be null: no dropout) and, when asked, the gate
+// activations (i, f, g, o).
 __global__ void __launch_bounds__(kCellThreads)
 las_cell(const float* __restrict__ eg, const float* __restrict__ bias,
          const float* __restrict__ partial, const float* __restrict__ c_prev,
-         float* __restrict__ h_out, float* __restrict__ c_out, float* __restrict__ gates_out,
-         int N, int H, int n_split) {
+         const float* __restrict__ keep, float* __restrict__ h_out, float* __restrict__ hd_out,
+         float* __restrict__ c_out, float* __restrict__ gates_out, int N, int H, int n_split) {
   const int idx = blockIdx.x * kCellThreads + threadIdx.x;
   if (idx >= N * H) return;
   const int n = idx / H, j = idx % H;
   const int G = 4 * H;
+  const size_t at = (size_t)n * G + j;
+  const float kp = (keep != nullptr) ? keep[idx] : 1.0f;
   float y[4];
 #pragma unroll
-  for (int g = 0; g < 4; ++g) {
-    const int col = g * H + j;
-    float s = 0.0f;
-    for (int sp = 0; sp < n_split; ++sp) s += partial[((size_t)sp * N + n) * G + col];
-    y[g] = eg[(size_t)n * G + col] + s + bias[col];
+  for (int g = 0; g < 4; ++g) y[g] = eg[at + g * H] + bias[g * H + j];
+  grid_dependency_wait();  // the partials and the carry
+  grid_dependents_launch();
+  const float cp = c_prev[idx];
+#pragma unroll 2
+  for (int sp = 0; sp < n_split; ++sp) {
+    const float* pt = partial + (size_t)sp * N * G + at;
+#pragma unroll
+    for (int g = 0; g < 4; ++g) y[g] += pt[g * H];
   }
   const float ig = sigmoidf(y[0]), fg = sigmoidf(y[1]), gg = tanhf(y[2]), og = sigmoidf(y[3]);
   if (gates_out != nullptr) {
-    float* gt = gates_out + (size_t)n * G + j;
+    float* gt = gates_out + at;
     gt[0] = ig;
     gt[H] = fg;
     gt[2 * H] = gg;
     gt[3 * H] = og;
   }
-  const float c = fg * c_prev[idx] + ig * gg;
+  const float c = fg * cp + ig * gg;
+  const float h = og * tanhf(c);
   c_out[idx] = c;
-  h_out[idx] = og * tanhf(c);
+  h_out[idx] = h;
+  hd_out[idx] = h * kp;
 }
 
-// q[n, a] = sum_k h[n, k] keep[n, k] w_q[a, k] (w_q is [A, H]; keep may
-// be null: no dropout): a warp per output a for kQueryRows hypotheses at
-// once, lanes along H, so each weight row is read once per block.
-__global__ void __launch_bounds__(kAttnThreads)
-las_query(const float* __restrict__ h, const float* __restrict__ keep,
-          const float* __restrict__ w_q, float* __restrict__ q, int N, int H, int A) {
-  extern __shared__ float hs[];  // [kQueryRows][H]
+// q[n, a] = sum_k hd[n, k] w_q[a, k] (w_q is [A, H]): a warp per output a
+// for kQueryRows rows at once, lanes along H, so each weight row is read
+// once per block. Each lane loads its first kQueryAhead float4 of the
+// weight row before the block's rows of hd (the cell's output) are
+// awaited and staged; vec: hd and w_q are 16-byte aligned and H is a
+// multiple of 4.
+__global__ void __launch_bounds__(kThreads)
+las_query(const float* __restrict__ hd, const float* __restrict__ w_q, float* __restrict__ q,
+          int N, int H, int A, bool vec) {
+  extern __shared__ float4 query_smem[];  // float4: 16-byte aligned for cp.async
+  float* hs = reinterpret_cast<float*>(query_smem);  // [kQueryRows][H]
   const int n0 = blockIdx.y * kQueryRows;
   const int rows = min(kQueryRows, N - n0);
-  for (int i = threadIdx.x; i < kQueryRows * H; i += kAttnThreads) {
-    const int r = i / H;
-    const size_t at = (size_t)(n0 + r) * H + (i % H);
-    hs[i] = (r < rows) ? h[at] * (keep != nullptr ? keep[at] : 1.0f) : 0.0f;
-  }
-  __syncthreads();
   const int lane = threadIdx.x & 31;
-  const int a = blockIdx.x * kAttnWarps + (threadIdx.x >> 5);
-  if (a >= A) return;
-  const float* row = w_q + (size_t)a * H;
+  const int a = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const float* row = w_q + (size_t)min(a, A - 1) * H;
   float acc[kQueryRows];
 #pragma unroll
   for (int r = 0; r < kQueryRows; ++r) acc[r] = 0.0f;
-  for (int k = lane; k < H; k += 32) {
-    const float w = row[k];
+  auto stage_rows = [&]() {  // hd is the cell's output
+    grid_dependency_wait();
+    grid_dependents_launch();
+    copy_async(hs, hd + (size_t)n0 * H, rows * H);
+    cp_async_commit();
+    cp_async_wait_none();
+    __syncthreads();
+  };
+  if (vec) {
+    float4 w[kQueryAhead];
 #pragma unroll
-    for (int r = 0; r < kQueryRows; ++r) acc[r] += w * hs[r * H + k];
+    for (int i = 0; i < kQueryAhead; ++i) {
+      const int k = 4 * lane + 128 * i;
+      w[i] = k < H ? *reinterpret_cast<const float4*>(row + k) : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    stage_rows();
+    auto add = [&](const float4& wv, int k) {
+#pragma unroll
+      for (int r = 0; r < kQueryRows; ++r) {
+        if (r >= rows) break;
+        const float4 x = *reinterpret_cast<const float4*>(hs + r * H + k);
+        acc[r] = dot4(wv, x.x, x.y, x.z, x.w, acc[r]);
+      }
+    };
+#pragma unroll
+    for (int i = 0; i < kQueryAhead; ++i) {
+      const int k = 4 * lane + 128 * i;
+      if (k < H) add(w[i], k);
+    }
+    for (int k = 4 * lane + 128 * kQueryAhead; k < H; k += 128)
+      add(*reinterpret_cast<const float4*>(row + k), k);
+  } else {
+    stage_rows();
+    for (int k = lane; k < H; k += 32) {
+      const float wv = row[k];
+#pragma unroll
+      for (int r = 0; r < kQueryRows; ++r)
+        if (r < rows) acc[r] = fmaf(wv, hs[r * H + k], acc[r]);
+    }
   }
 #pragma unroll
   for (int r = 0; r < kQueryRows; ++r) {
     const float s = warp_sum(acc[r]);
-    if (lane == 0 && r < rows) q[(size_t)(n0 + r) * A + a] = s;
+    if (lane == 0 && r < rows && a < A) q[(size_t)(n0 + r) * A + a] = s;
   }
 }
 
-// Shared memory of las_energy, in floats.
-__host__ __device__ inline size_t energy_smem_floats(int A, int C, int K) {
-  return 2 * (size_t)A + (size_t)C * A + (size_t)C * K + (kEnergyFrames + K - 1) +
-         (size_t)kEnergyFrames * C;
+// Shared memory of las_attend_part, in floats.
+__host__ __device__ inline size_t attend_smem_floats(int D, int A, int C, int K) {
+  return (size_t)kFrames * (A + D) + (size_t)C * K + (kFrames + K - 1) + (size_t)kFrames * C +
+         kFrames + (size_t)kWarps * kFrames;
 }
 
-// e[n, t] for kEnergyFrames frames of one hypothesis: the location
-// features of those frames (cross-correlation of the zero-padded aw_prev,
-// left pad (K-1)/2), then v . tanh(kc + q + loc W_f) with a warp per
-// frame, lanes along A. Masked frames get finfo(f32).min / 2.
-__global__ void __launch_bounds__(kAttnThreads)
-las_energy(const float* __restrict__ q, const float* __restrict__ aw_prev,
-           const float* __restrict__ conv_w, const float* __restrict__ w_f,
-           const float* __restrict__ v, const float* __restrict__ kc,
-           const int* __restrict__ klens, float* __restrict__ e,
-           int T, int A, int C, int K) {
-  extern __shared__ float smem[];
-  float* qs = smem;                          // [A]
-  float* vs = qs + A;                        // [A]
-  float* wft = vs + A;                       // [C][A]  (W_f transposed)
-  float* cw = wft + (size_t)C * A;           // [C][K]
-  float* awp = cw + (size_t)C * K;           // [kEnergyFrames + K - 1]
-  float* loc = awp + (kEnergyFrames + K - 1);  // [kEnergyFrames][C]
-
-  const int n = blockIdx.y;
-  const int t0 = blockIdx.x * kEnergyFrames;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int left = (K - 1) / 2;
-  for (int i = tid; i < A; i += kAttnThreads) {
-    qs[i] = q[(size_t)n * A + i];
-    vs[i] = v[i];
-  }
-  for (int i = tid; i < C * A; i += kAttnThreads) {
-    const int a = i / C, c = i % C;  // w_f is [A, C]
-    wft[c * A + a] = w_f[i];
-  }
-  for (int i = tid; i < C * K; i += kAttnThreads) cw[i] = conv_w[i];
-  for (int i = tid; i < kEnergyFrames + K - 1; i += kAttnThreads) {
-    const int t = t0 + i - left;
-    awp[i] = (t >= 0 && t < T) ? aw_prev[(size_t)n * T + t] : 0.0f;
-  }
-  __syncthreads();
-  for (int i = tid; i < kEnergyFrames * C; i += kAttnThreads) {
-    const int tl = i / C, c = i % C;
-    const float* w = cw + (size_t)c * K;
-    const float* x = awp + tl;
-    float s = 0.0f;
-    for (int kk = 0; kk < K; ++kk) s += x[kk] * w[kk];
-    loc[i] = s;
-  }
-  __syncthreads();
-  const float kNeg = -FLT_MAX / 2.0f;
-  const int klen = klens[n];
-  for (int tl = warp; tl < kEnergyFrames; tl += kAttnWarps) {
-    const int t = t0 + tl;
-    if (t >= T) break;
-    const float* kct = kc + ((size_t)n * T + t) * A;
-    const float* lt = loc + (size_t)tl * C;
-    float s = 0.0f;
-    for (int a = lane; a < A; a += 32) {
-      float f = 0.0f;
-      for (int c = 0; c < C; ++c) f += lt[c] * wft[c * A + a];
-      s += vs[a] * tanhf(kct[a] + qs[a] + f);
-    }
-    s = warp_sum(s);
-    if (lane == 0) e[(size_t)n * T + t] = (t < klen) ? s : kNeg;
-  }
+// The frames a row's softmax runs over: its klen, or all T frames for a
+// row with none (every energy is then the same masked value, so the
+// weights are uniform over the whole array, as the plain version's).
+__device__ __forceinline__ int attend_frames(int klen, int T) {
+  klen = max(0, min(klen, T));
+  return klen == 0 ? T : klen;
 }
 
-// Masked softmax over T and ctx[n, d] = sum_t aw[t] values[n, t, d] for
-// kContextCols columns: thread (slice, col) sums every kContextSlices-th
-// frame, the slices meet in shared memory. Blocks with blockIdx.x == 0
-// also write aw.
-__global__ void __launch_bounds__(kAttnThreads)
-las_context(const float* __restrict__ e, const float* __restrict__ values,
-            float* __restrict__ aw_out, float* __restrict__ ctx_out, int T, int D) {
-  extern __shared__ float smem[];
-  float* aw = smem;        // [T]
-  float* red = aw + T;     // [kAttnWarps]
-  float* part = red + kAttnWarps;  // [kContextSlices][kContextCols]
-  const int n = blockIdx.y;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-
-  float m = -INFINITY;
-  for (int t = tid; t < T; t += kAttnThreads) {
-    const float x = e[(size_t)n * T + t];
-    aw[t] = x;
-    m = fmaxf(m, x);
-  }
-  m = warp_max(m);
-  if (lane == 0) red[warp] = m;
-  __syncthreads();
-  m = red[0];
-  for (int w = 1; w < kAttnWarps; ++w) m = fmaxf(m, red[w]);
-  __syncthreads();
-  float sum = 0.0f;
-  for (int t = tid; t < T; t += kAttnThreads) {
-    const float x = expf(aw[t] - m);
-    aw[t] = x;
-    sum += x;
-  }
-  sum = warp_sum(sum);
-  if (lane == 0) red[warp] = sum;
-  __syncthreads();
-  sum = 0.0f;
-  for (int w = 0; w < kAttnWarps; ++w) sum += red[w];
-  for (int t = tid; t < T; t += kAttnThreads) {
-    const float a = aw[t] / sum;
-    aw[t] = a;
-    if (blockIdx.x == 0) aw_out[(size_t)n * T + t] = a;
-  }
-  __syncthreads();
-
-  const int col = tid % kContextCols, slice = tid / kContextCols;
-  const int d = blockIdx.x * kContextCols + col;
+// sum over the channels past the first group of l[c] w[c].
+static __device__ __noinline__ float rest_dot(const float* l, const float* w, int C) {
   float s = 0.0f;
-  if (d < D) {
-    const float* vb = values + (size_t)n * T * D + d;
-    for (int t = slice; t < T; t += kContextSlices) s += aw[t] * vb[(size_t)t * D];
+  for (int c = kGroupC; c < C; ++c) s = fmaf(l[c], w[c], s);
+  return s;
+}
+
+// The attention of step t over the block's kFrames frames of row n, up to
+// the row's own softmax (las_attend_combine). Blocks whose frames all lie
+// past the row's length stop at once. For the others:
+//   loc   = conv(aw_prev)        a half-warp per frame, lanes along K
+//   e     = v . tanh(kc + q + loc W_f^T)    a thread per two attention
+//           units (a, a + 256) with their rows of W_f in registers, frame
+//           by frame; the frames' sums meet in shared memory
+//   m = max e, p = exp(e - m), s = sum p     (warp 0)
+//   part_ctx = sum p values      a thread per context column
+// conv_w, the valid frames' kc rows and their values rows come by
+// cp.async, in that order, each awaited where it is needed, and W_f's rows
+// and v go to registers, all before the block waits for the kernels
+// before it: only aw_prev's window and q depend on them. Nothing past the
+// row's length is read. p goes to aw_out (the combine kernel rescales it
+// in place), (m, s) to part_ms [N, n_tb, 2], the partial context to
+// part_ctx [N, n_tb, D]. A row with klen 0 skips the energies: e is the
+// masked value on all its T frames.
+__global__ void __launch_bounds__(kThreads, 3)  // three blocks (their shared memory) per SM
+las_attend_part(const float* __restrict__ q, const float* __restrict__ aw_prev,
+                const float* __restrict__ conv_w, const float* __restrict__ w_f,
+                const float* __restrict__ v, const float* __restrict__ kc,
+                const float* __restrict__ values, const int* __restrict__ klens,
+                float* __restrict__ aw_out, float* __restrict__ part_ms,
+                float* __restrict__ part_ctx, int T, int D, int A, int C, int K) {
+  extern __shared__ float4 attend_smem[];  // float4: 16-byte aligned for cp.async
+  float* kcs = reinterpret_cast<float*>(attend_smem);  // [kFrames][A]
+  float* vals = kcs + (size_t)kFrames * A;              // [kFrames][D]
+  float* cw = vals + (size_t)kFrames * D;               // [C][K]
+  float* awp = cw + (size_t)C * K;            // [kFrames + K - 1]: aw_prev at t0 - left + i
+  float* loc = awp + (kFrames + K - 1);       // [kFrames][C]
+  float* ps = loc + (size_t)kFrames * C;      // [kFrames]
+  float* red = ps + kFrames;                  // [kWarps][kFrames]
+
+  const int n = blockIdx.y, tb = blockIdx.x;
+  const int t0 = tb * kFrames;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const bool empty = min(klens[n], T) <= 0;
+  const int len = attend_frames(klens[n], T);
+  if (t0 >= len) return;
+  const int nf = min(kFrames, len - t0);      // the block's frames
+  const size_t row0 = (size_t)n * T + t0;
+  // what no step writes does not wait for the kernels before
+  if (!empty) copy_async(cw, conv_w, C * K);
+  cp_async_commit();
+  if (!empty) copy_async(kcs, kc + row0 * A, nf * A);
+  cp_async_commit();
+  copy_async(vals, values + row0 * D, nf * D);
+  cp_async_commit();
+  if (!empty) {
+    float ep[kFrames];
+#pragma unroll
+    for (int tl = 0; tl < kFrames; ++tl) ep[tl] = 0.0f;
+    for (int base = 0; base < A; base += 2 * kThreads) {
+      // units past A take unit 0's loads and weigh nothing
+      const int a0 = base + tid, a1 = a0 + kThreads;
+      const int a0c = a0 < A ? a0 : 0, a1c = a1 < A ? a1 : 0;
+      float wf0[kGroupC], wf1[kGroupC];
+#pragma unroll
+      for (int c = 0; c < kGroupC; ++c) {
+        wf0[c] = c < C ? w_f[(size_t)a0c * C + c] : 0.0f;
+        wf1[c] = c < C ? w_f[(size_t)a1c * C + c] : 0.0f;
+      }
+      const float v0 = a0 < A ? v[a0] : 0.0f, v1 = a1 < A ? v[a1] : 0.0f;
+      if (base == 0) {
+        grid_dependency_wait();  // aw_prev and q are the steps' own
+        grid_dependents_launch();
+        const int left = (K - 1) / 2;
+        for (int i = tid; i < kFrames + K - 1; i += kThreads) {
+          const int t = t0 + i - left;
+          awp[i] = (t >= 0 && t < T) ? aw_prev[(size_t)n * T + t] : 0.0f;
+        }
+        cp_async_wait_two();  // conv_w
+        __syncthreads();
+        loc_group(awp, cw, loc, 0, C, K);
+        if (C > kGroupC) loc_rest(awp, cw, loc, C, K);
+      }
+      const float q0 = q[(size_t)n * A + a0c], q1 = q[(size_t)n * A + a1c];
+      if (base == 0) {
+        cp_async_wait_one();  // kc
+        __syncthreads();      // and loc
+      }
+#pragma unroll
+      for (int tl = 0; tl < kFrames; ++tl) {
+        if (tl >= nf) break;
+        const float* lt = loc + tl * C;
+        float f0 = 0.0f, f1 = 0.0f;
+#pragma unroll
+        for (int c = 0; c < kGroupC; ++c) {
+          const float lc = c < C ? lt[c] : 0.0f;
+          f0 = fmaf(lc, wf0[c], f0);
+          f1 = fmaf(lc, wf1[c], f1);
+        }
+        if (C > kGroupC) {
+          f0 += rest_dot(lt, w_f + (size_t)a0c * C, C);
+          f1 += rest_dot(lt, w_f + (size_t)a1c * C, C);
+        }
+        const float* kr = kcs + tl * A;
+        ep[tl] += v0 * tanh_fast(kr[a0c] + q0 + f0) + v1 * tanh_fast(kr[a1c] + q1 + f1);
+      }
+    }
+#pragma unroll
+    for (int tl = 0; tl < kFrames; ++tl) {
+      const float s = warp_sum(ep[tl]);
+      if (lane == 0) red[warp * kFrames + tl] = s;
+    }
+    __syncthreads();
+  } else {
+    grid_dependency_wait();  // aw_out was read by the step before
+    grid_dependents_launch();
   }
-  part[slice * kContextCols + col] = s;
+  if (warp == 0) {
+    float e = -INFINITY;
+    if (lane < nf) {
+      e = nsp_rel::kNeg;
+      if (!empty) {
+        e = 0.0f;
+#pragma unroll
+        for (int w = 0; w < kWarps; ++w) e += red[w * kFrames + lane];
+      }
+    }
+    const float m = warp_max(e);
+    const float p = lane < nf ? expf(e - m) : 0.0f;
+    const float s = warp_sum(p);
+    if (lane < nf) {
+      ps[lane] = p;
+      aw_out[row0 + lane] = p;
+    }
+    if (lane == 0) {
+      float* ms = part_ms + ((size_t)n * gridDim.x + tb) * 2;
+      ms[0] = m;
+      ms[1] = s;
+    }
+  }
+  cp_async_wait_none();  // values
   __syncthreads();
-  if (slice == 0 && d < D) {
-    float c = 0.0f;
-    for (int sl = 0; sl < kContextSlices; ++sl) c += part[sl * kContextCols + col];
-    ctx_out[(size_t)n * D + d] = c;
+  float* pc = part_ctx + ((size_t)n * gridDim.x + tb) * D;
+  for (int d = tid; d < D; d += kThreads) {
+    float s = 0.0f;
+#pragma unroll 4
+    for (int tl = 0; tl < nf; ++tl) s = fmaf(ps[tl], vals[tl * D + d], s);
+    pc[d] = s;
   }
 }
 
-}  // namespace
-
-// Shared memory (bytes) the largest block of a step asks for.
-extern "C" long long nsp_las_step_smem_bytes(int T, int H, int A, int C, int K) {
-  const size_t q = (size_t)kQueryRows * H;
-  const size_t e = energy_smem_floats(A, C, K);
-  const size_t c = (size_t)T + kAttnWarps + kContextSlices * kContextCols;
-  return (long long)(sizeof(float) * (q > e ? (q > c ? q : c) : (e > c ? e : c)));
+// The row's softmax, once: from the blocks' (m_b, s_b), M = max m_b and
+// S = sum s_b exp(m_b - M); aw[t] = p[t] exp(m_b - M) / S on the row's
+// frames (0 past them) and ctx = sum_b part_ctx_b exp(m_b - M) / S. A
+// block per (row n, one of gridDim.y slices of the context columns and of
+// the frames); each block forms the scales of the row's n_b <= ceil(T /
+// kFrames) blocks itself.
+__global__ void __launch_bounds__(kCombineThreads)
+las_attend_combine(const int* __restrict__ klens, const float* __restrict__ part_ms,
+                   const float* __restrict__ part_ctx, float* __restrict__ aw,
+                   float* __restrict__ ctx_out, int T, int D) {
+  extern __shared__ float scale[];  // [n_tb]: exp(m_b - M) / S
+  const int n = blockIdx.x, tid = threadIdx.x;
+  const int n_tb = (T + kFrames - 1) / kFrames;
+  const int len = attend_frames(klens[n], T);
+  const int nb = (len + kFrames - 1) / kFrames;
+  const float* ms = part_ms + (size_t)n * n_tb * 2;
+  grid_dependency_wait();
+  grid_dependents_launch();
+  float m = -INFINITY;
+  for (int b = 0; b < nb; ++b) m = fmaxf(m, ms[2 * b]);
+  float sum = 0.0f;
+  for (int b = 0; b < nb; ++b) sum = fmaf(ms[2 * b + 1], expf(ms[2 * b] - m), sum);
+  for (int b = tid; b < nb; b += kCombineThreads) scale[b] = expf(ms[2 * b] - m) / sum;
+  __syncthreads();
+  const int d_slice = (D + gridDim.y - 1) / gridDim.y;
+  const float* pc = part_ctx + (size_t)n * n_tb * D;
+  for (int d = blockIdx.y * d_slice + tid; d < min(D, (blockIdx.y + 1) * d_slice);
+       d += kCombineThreads) {
+    float s = 0.0f;
+#pragma unroll 4
+    for (int b = 0; b < nb; ++b) s = fmaf(scale[b], pc[(size_t)b * D + d], s);
+    ctx_out[(size_t)n * D + d] = s;
+  }
+  const int t_slice = (T + gridDim.y - 1) / gridDim.y;
+  float* row = aw + (size_t)n * T;
+  for (int t = blockIdx.y * t_slice + tid; t < min(T, (blockIdx.y + 1) * t_slice);
+       t += kCombineThreads)
+    row[t] = t < len ? row[t] * scale[t / kFrames] : 0.0f;
 }
 
-namespace {
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes) {
-  if (bytes <= kSmemDefault) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-}
-}  // namespace
+// Where the pieces of a step's scratch lie in one buffer, in floats (each
+// a multiple of 4, so every piece is 16-byte aligned when the buffer is):
+// the gate product's partials [n_split, N, 4H], hd = h keep [N, H], the
+// query [N, A] (K3 writes its saved q_all instead), and per block of
+// kFrames frames its (max, sum of exponentials) [N, n_tb, 2] and
+// unnormalised partial context [N, n_tb, D].
+struct Scratch {
+  size_t partial, hd, q, part_ms, part_ctx, floats;
+};
 
-namespace {
+Scratch carve(int N, int T, int H, int D, int A) {
+  const size_t n_tb = (T + kFrames - 1) / kFrames;
+  const size_t n_split = (D + H + kGateK - 1) / kGateK;
+  auto up = [](size_t x) { return (x + 3) / 4 * 4; };
+  Scratch sc;
+  sc.partial = 0;
+  sc.hd = sc.partial + up(n_split * N * 4 * H);
+  sc.q = sc.hd + up((size_t)N * H);
+  sc.part_ms = sc.q + up((size_t)N * A);
+  sc.part_ctx = sc.part_ms + up((size_t)N * n_tb * 2);
+  sc.floats = sc.part_ctx + up((size_t)N * n_tb * D);
+  return sc;
+}
+
+bool aligned16(std::initializer_list<const void*> ps) {
+  size_t bits = 0;
+  for (const void* x : ps) bits |= reinterpret_cast<size_t>(x);
+  return (bits & 15) == 0;
+}
 
 // The five kernels of one step (see the top of the file); keep and
-// gates_out may be null.
-cudaError_t las_step(const float* eg, const float* ctx_prev, const float* h_prev,
+// gates_out may be null; q is where the step's query goes; chained: as
+// programmatic dependent launches. *launched grows by the kernels
+// launched.
+cudaError_t las_step(bool chained, const float* eg, const float* ctx_prev, const float* h_prev,
                      const float* c_prev, const float* aw_prev, const float* w_ctx,
                      const float* w_h, const float* bias, const float* w_q, const float* conv_w,
                      const float* w_f, const float* v, const float* kc, const float* values,
-                     const int* klens, const float* keep, float* partial, float* q, float* e,
+                     const int* klens, const float* keep, float* scratch, float* q,
                      float* h_out, float* c_out, float* gates_out, float* aw_out, float* ctx_out,
-                     int N, int T, int H, int D, int A, int C, int K, cudaStream_t s) {
+                     int* launched, int N, int T, int H, int D, int A, int C, int K,
+                     cudaStream_t s) {
+  const Scratch sc = carve(N, T, H, D, A);
+  float* partial = scratch + sc.partial;
+  float* hd = scratch + sc.hd;
+  float* part_ms = scratch + sc.part_ms;
+  float* part_ctx = scratch + sc.part_ctx;
   const int G = 4 * H;
   const int n_split = (D + H + kGateK - 1) / kGateK;
-  dim3 g_gates((G + kGateThreads - 1) / kGateThreads, n_split, (N + kGateRows - 1) / kGateRows);
-  las_gates_partial<<<g_gates, kGateThreads, 0, s>>>(ctx_prev, h_prev, w_ctx, w_h, partial, N,
-                                                     D, H);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+  const int n_tb = (T + kFrames - 1) / kFrames;
+  cudaError_t err;
+  // launches a kernel of the chain and counts it
+  auto run = [&](auto kernel, dim3 grid, int threads, size_t smem, auto... args) {
+    const cudaError_t e = launch_kernel(chained, kernel, grid, threads, smem, s, args...);
+    if (e == cudaSuccess) *launched += 1;
+    return e;
+  };
+  const size_t g_smem = sizeof(float) * kGateSmemFloats;
+  if ((err = allow_smem<las_gates>(g_smem)) != cudaSuccess) return err;
+  const bool vec_g = D % 4 == 0 && H % 4 == 0 && aligned16({ctx_prev, h_prev, w_ctx, w_h, partial});
+  const dim3 g_gates((G + kGateCols - 1) / kGateCols, n_split, (N + kGateN - 1) / kGateN);
+  if ((err = run(las_gates, g_gates, kGateThreads, g_smem, ctx_prev, h_prev, w_ctx, w_h, partial,
+                 N, D, H, vec_g)) != cudaSuccess)
+    return err;
 
-  las_cell<<<(N * H + kCellThreads - 1) / kCellThreads, kCellThreads, 0, s>>>(
-      eg, bias, partial, c_prev, h_out, c_out, gates_out, N, H, n_split);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if ((err = run(las_cell, (N * H + kCellThreads - 1) / kCellThreads, kCellThreads, 0, eg, bias,
+                 partial, c_prev, keep, h_out, hd, c_out, gates_out, N, H, n_split)) != cudaSuccess)
+    return err;
 
   const size_t q_smem = sizeof(float) * kQueryRows * H;
-  if ((err = allow_smem(las_query, q_smem)) != cudaSuccess) return err;
-  dim3 g_query((A + kAttnWarps - 1) / kAttnWarps, (N + kQueryRows - 1) / kQueryRows);
-  las_query<<<g_query, kAttnThreads, q_smem, s>>>(h_out, keep, w_q, q, N, H, A);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if ((err = allow_smem<las_query>(q_smem)) != cudaSuccess) return err;
+  const dim3 g_query((A + kWarps - 1) / kWarps, (N + kQueryRows - 1) / kQueryRows);
+  const bool vec_q = H % 4 == 0 && aligned16({hd, w_q});
+  if ((err = run(las_query, g_query, kThreads, q_smem, hd, w_q, q, N, H, A, vec_q)) != cudaSuccess)
+    return err;
 
-  const size_t e_smem = sizeof(float) * energy_smem_floats(A, C, K);
-  if ((err = allow_smem(las_energy, e_smem)) != cudaSuccess) return err;
-  dim3 g_energy((T + kEnergyFrames - 1) / kEnergyFrames, N);
-  las_energy<<<g_energy, kAttnThreads, e_smem, s>>>(q, aw_prev, conv_w, w_f, v, kc, klens, e,
-                                                    T, A, C, K);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const size_t a_smem = sizeof(float) * attend_smem_floats(D, A, C, K);
+  if ((err = allow_smem<las_attend_part>(a_smem)) != cudaSuccess) return err;
+  if ((err = run(las_attend_part, dim3(n_tb, N), kThreads, a_smem, q, aw_prev, conv_w, w_f, v, kc,
+                 values, klens, aw_out, part_ms, part_ctx, T, D, A, C, K)) != cudaSuccess)
+    return err;
 
-  const size_t c_smem = sizeof(float) * ((size_t)T + kAttnWarps + kContextSlices * kContextCols);
-  if ((err = allow_smem(las_context, c_smem)) != cudaSuccess) return err;
-  dim3 g_ctx((D + kContextCols - 1) / kContextCols, N);
-  las_context<<<g_ctx, kAttnThreads, c_smem, s>>>(e, values, aw_out, ctx_out, T, D);
-  return cudaGetLastError();
+  const size_t c_smem = sizeof(float) * n_tb;
+  if ((err = allow_smem<las_attend_combine>(c_smem)) != cudaSuccess) return err;
+  return run(las_attend_combine, dim3(N, kCombineSlices), kCombineThreads, c_smem, klens, part_ms,
+             part_ctx, aw_out, ctx_out, T, D);
 }
 
 bool bad_sizes(int N, int T, int H, int D, int A, int C, int K) {
@@ -374,6 +625,18 @@ bool bad_sizes(int N, int T, int H, int D, int A, int C, int K) {
 }
 
 }  // namespace
+
+// Shared memory (bytes) the largest block of a step asks for.
+extern "C" long long nsp_las_step_smem_bytes(int T, int H, int D, int A, int C, int K) {
+  const size_t n_tb = (T + kFrames - 1) / kFrames;
+  return (long long)(sizeof(float) * max_of({kGateSmemFloats, (size_t)kQueryRows * H,
+                                             attend_smem_floats(D, A, C, K), n_tb}));
+}
+
+// Floats of scratch a step over N rows needs (K2 and K3 alike).
+extern "C" long long nsp_las_step_scratch_floats(int N, int T, int H, int D, int A) {
+  return (long long)carve(N, T, H, D, A).floats;
+}
 
 #define F(x) static_cast<const float*>(x)
 #define W(x) static_cast<float*>(x)
@@ -383,22 +646,24 @@ bool bad_sizes(int N, int T, int H, int D, int A, int C, int K) {
 //   eg [N, 4H], ctx_prev [N, D], h_prev [N, H], c_prev [N, H],
 //   aw_prev [N, T], w_ctx [D, 4H], w_h [H, 4H], bias [4H], w_q [A, H],
 //   conv_w [C, K], w_f [A, C], v [A], kc [N, T, A], values [N, T, D],
-//   klens [N] int32; scratch partial [ceil((D + H) / 128), N, 4H],
-//   q [N, A], e [N, T]. Outputs h_out [N, H], c_out [N, H], aw_out [N, T],
-//   ctx_out [N, D]. Returns a cudaError_t.
+//   klens [N] int32; scratch [nsp_las_step_scratch_floats(N, T, H, D, A)].
+//   Outputs h_out [N, H], c_out [N, H], aw_out [N, T], ctx_out [N, D].
+// Returns a cudaError_t.
 extern "C" int nsp_las_step_f32(const void* eg, const void* ctx_prev, const void* h_prev,
                                 const void* c_prev, const void* aw_prev, const void* w_ctx,
                                 const void* w_h, const void* bias, const void* w_q,
                                 const void* conv_w, const void* w_f, const void* v,
                                 const void* kc, const void* values, const void* klens,
-                                void* partial, void* q, void* e, void* h_out, void* c_out,
-                                void* aw_out, void* ctx_out, int N, int T, int H, int D,
-                                int A, int C, int K, void* stream) {
+                                void* scratch, void* h_out, void* c_out, void* aw_out,
+                                void* ctx_out, int N, int T, int H, int D, int A, int C, int K,
+                                void* stream) {
   if (bad_sizes(N, T, H, D, A, C, K)) return (int)cudaErrorInvalidValue;
-  return (int)las_step(F(eg), F(ctx_prev), F(h_prev), F(c_prev), F(aw_prev), F(w_ctx), F(w_h),
-                       F(bias), F(w_q), F(conv_w), F(w_f), F(v), F(kc), F(values),
-                       static_cast<const int*>(klens), nullptr, W(partial), W(q), W(e),
-                       W(h_out), W(c_out), nullptr, W(aw_out), W(ctx_out), N, T, H, D, A, C, K,
+  int launched = 0;
+  return (int)las_step(false, F(eg), F(ctx_prev), F(h_prev), F(c_prev), F(aw_prev), F(w_ctx),
+                       F(w_h), F(bias), F(w_q), F(conv_w), F(w_f), F(v), F(kc), F(values),
+                       static_cast<const int*>(klens), nullptr, W(scratch),
+                       W(scratch) + carve(N, T, H, D, A).q, W(h_out), W(c_out),
+                       nullptr, W(aw_out), W(ctx_out), &launched, N, T, H, D, A, C, K,
                        static_cast<cudaStream_t>(stream));
 }
 
@@ -407,32 +672,36 @@ extern "C" int nsp_las_step_f32(const void* eg, const void* ctx_prev, const void
 // output, 1 without dropout), the step-0 carry h0, c0 [N, H], aw0 [N, T],
 // ctx0 [N, D] (zeros in training), and the outputs h_all, c_all [U, N, H],
 // gates [U, N, 4H] (activations i, f, g, o), q_all [U, N, A], aw_all
-// [U, N, T], ctx_all [U, N, D]. Returns a cudaError_t.
+// [U, N, T], ctx_all [U, N, D]. *launched (host memory) receives the
+// number of kernels launched. Returns a cudaError_t.
 extern "C" int nsp_las_scan_f32(const void* eg, const void* w_ctx, const void* w_h,
                                 const void* bias, const void* w_q, const void* conv_w,
                                 const void* w_f, const void* v, const void* kc,
                                 const void* values, const void* klens, const void* keep,
                                 const void* h0, const void* c0, const void* aw0,
-                                const void* ctx0, void* partial, void* e, void* h_all,
-                                void* c_all, void* gates, void* q_all, void* aw_all,
-                                void* ctx_all, int U, int N, int T, int H, int D, int A, int C,
+                                const void* ctx0, void* scratch, void* h_all, void* c_all,
+                                void* gates, void* q_all, void* aw_all, void* ctx_all,
+                                void* launched, int U, int N, int T, int H, int D, int A, int C,
                                 int K, void* stream) {
+  int* count = static_cast<int*>(launched);
+  *count = 0;
   if (U <= 0 || bad_sizes(N, T, H, D, A, C, K)) return (int)cudaErrorInvalidValue;
   const size_t nh = (size_t)N * H;
   for (int t = 0; t < U; ++t) {
     const bool first = t == 0;
     const size_t prev = (size_t)(t - 1);
     cudaError_t err = las_step(
-        F(eg) + (size_t)t * N * 4 * H,
+        true, F(eg) + (size_t)t * N * 4 * H,
         first ? F(ctx0) : F(ctx_all) + prev * N * D,
         first ? F(h0) : F(h_all) + prev * nh,
         first ? F(c0) : F(c_all) + prev * nh,
         first ? F(aw0) : F(aw_all) + prev * N * T,
         F(w_ctx), F(w_h), F(bias), F(w_q), F(conv_w), F(w_f), F(v), F(kc), F(values),
-        static_cast<const int*>(klens), F(keep) + (size_t)t * nh, W(partial),
-        W(q_all) + (size_t)t * N * A, W(e), W(h_all) + (size_t)t * nh,
-        W(c_all) + (size_t)t * nh, W(gates) + (size_t)t * nh * 4, W(aw_all) + (size_t)t * N * T,
-        W(ctx_all) + (size_t)t * N * D, N, T, H, D, A, C, K, static_cast<cudaStream_t>(stream));
+        static_cast<const int*>(klens), F(keep) + (size_t)t * nh, W(scratch),
+        W(q_all) + (size_t)t * N * A, W(h_all) + (size_t)t * nh, W(c_all) + (size_t)t * nh,
+        W(gates) + (size_t)t * nh * 4, W(aw_all) + (size_t)t * N * T,
+        W(ctx_all) + (size_t)t * N * D, count, N, T, H, D, A, C, K,
+        static_cast<cudaStream_t>(stream));
     if (err != cudaSuccess) return (int)err;
   }
   return (int)cudaSuccess;

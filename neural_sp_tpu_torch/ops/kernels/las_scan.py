@@ -14,14 +14,21 @@ as in that file's docstring::
     e   = v . tanh(kc + hd W_q^T + loc W_f^T);  aw = masked softmax(e)
     ctx = aw values
 
-The forward K3 (``nsp_las_scan_f32`` in ``csrc/las_step.cu``) reuses K2's
-device code from a host loop and keeps each step's gates, c, h, query,
-weights and context. The backward K3b (``csrc/las_scan.cu``) walks the
-steps in reverse, four kernels per step (``las_scan_bwd_chain``), and
-streams dy, dq and each step's total context gradient out; the
-step-invariant weight gradients (dW_h, dW_ctx, db, dW_q) and dvalues are
-single products over all steps here (``las_scan_bwd_finish``), as the
-Pallas ``_bwd`` reduced them outside its kernel.
+The forward K3 (``nsp_las_scan_f32`` in ``csrc/las_step.cu``) runs K2's
+five kernels per step from a host loop (``las_step.py`` describes them:
+the split-K gate product that reads [W_ctx; W_h] once per step, the cell,
+the query, the attention per block of 16 valid frames, and the row's
+softmax combined once), as programmatic dependent launches: each kernel
+loads what no step writes (its weights, kc, values) while the kernel
+before it still runs. It keeps each step's gates, c, h, query, weights and
+context. A row with klen 0 gets uniform weights over all T frames, as the
+masked softmax of ``attend_ref`` gives. The backward K3b
+(``csrc/las_scan.cu``) walks the steps in reverse, four kernels per step
+(``las_scan_bwd_chain``), and streams dy, dq and each step's total
+context gradient out; the step-invariant weight gradients (dW_h, dW_ctx,
+db, dW_q) and dvalues are single products over all steps here
+(``las_scan_bwd_finish``), as the Pallas ``_bwd`` reduced them outside
+its kernel.
 
 K3, K3b and their plain PyTorch versions ``las_scan_ref`` and
 ``las_scan_bwd_ref`` (the adjoint written out, not autograd) work
@@ -39,8 +46,8 @@ import torch.nn.functional as F
 
 from ._checks import check, on_cpu, raise_on_error, stream_of
 from .build import load_library
-from .las_step import (GATE_SPLIT, SMEM_LIMIT, attend_flops, attend_ref,
-                       location_features)
+from .las_step import (SMEM_LIMIT, attend_flops, attend_ref,
+                       location_features, step_scratch)
 from .roofline import valid_lengths
 
 def las_scan_ref(eg, w_ctx, w_h, bias, w_q, conv_w, w_f, v, kc, values,
@@ -205,7 +212,7 @@ def _check_shapes(b, u, hd, w_ctx, w_h, bias, w_q, conv_w, w_f, v, kc,
             check(name, x, shape)
     check("klens", klens, (b,), torch.int32)
     lib = load_library()
-    smem = max(lib.nsp_las_step_smem_bytes(t, hd, a, ch, k),
+    smem = max(lib.nsp_las_step_smem_bytes(t, hd, d, a, ch, k),
                lib.nsp_las_scan_bwd_smem_bytes(t, d, a, ch, k))
     if smem > SMEM_LIMIT:
         raise ValueError(f"las_scan: {t} frames need {smem} bytes of shared "
@@ -218,7 +225,8 @@ def las_scan(eg, w_ctx, w_h, bias, w_q, conv_w, w_f, v, kc, values, klens,
     """K3: (h, c, gates, q, aw, ctx) as ``las_scan_ref``, time-major. CPU
     tensors take the plain version; CUDA tensors launch the kernel
     (float32, contiguous, int32 klens) or raise. Counts in
-    ``las_scan.launches``."""
+    ``las_scan.launches``; the number of kernels it launched goes to
+    ``las_scan.kernel_launches_per_call``."""
     args = (eg, w_ctx, w_h, bias, w_q, conv_w, w_f, v, kc, values, klens,
             keep)
     if on_cpu(*args):
@@ -234,14 +242,16 @@ def las_scan(eg, w_ctx, w_h, bias, w_q, conv_w, w_f, v, kc, values, klens,
 
     zeros = [torch.zeros(s, dtype=torch.float32, device=dev)
              for s in ((b, hd), (b, hd), (b, t), (b, d))]
-    scratch = [out(-(-(d + hd) // GATE_SPLIT), b, 4 * hd), out(b, t)]
+    scratch = step_scratch(lib, b, t, hd, d, a, dev)
     outs = [out(u, b, hd), out(u, b, hd), out(u, b, 4 * hd), out(u, b, a),
             out(u, b, t), out(u, b, d)]
+    launched = ctypes.c_int(0)
     err = lib.nsp_las_scan_f32(
-        *(x.data_ptr() for x in (*args, *zeros, *scratch, *outs)), *dims,
-        stream_of(eg))
+        *(x.data_ptr() for x in (*args, *zeros, scratch, *outs)),
+        ctypes.addressof(launched), *dims, stream_of(eg))
     raise_on_error("las_scan", err)
     las_scan.launches += 1
+    las_scan.kernel_launches_per_call = launched.value
     return tuple(outs)
 
 
@@ -319,7 +329,8 @@ def las_scan_bwd(w_ctx, w_h, w_q, conv_w, w_f, v, kc, values, klens, keep,
 
 las_scan.launches = 0
 las_scan_bwd.launches = 0
-# kernels the last call of K3b launched (its per-step chain, U steps)
+# kernels the last call of K3 / K3b launched (the per-step chain, U steps)
+las_scan.kernel_launches_per_call = 0
 las_scan_bwd.kernel_launches_per_call = 0
 
 

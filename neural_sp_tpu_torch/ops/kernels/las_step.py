@@ -13,12 +13,29 @@ cross-correlation of ``aw_prev`` (flax ``nn.Conv``; left pad ``(K-1)//2``),
 ``loc W_f``, ``e = v . tanh(kc + q + f)``, the masked float32 softmax and
 ``ctx = aw values``.
 
-On the H100 a decode step is a batch-N GEMV, bound by bytes: the gate
-weights ((D + H) x 4H floats) and each row's keys and values. The design
-reads every gate weight once per step (split-K, all rows of a block held in
-registers) and spreads the attention over blocks of (16 frames,
-hypothesis) and (32 context columns, hypothesis), so that ten hypotheses
-still keep the card's 132 SMs reading. Source: ``csrc/las_step.cu``.
+On the H100 a step over N rows is small: by bytes it needs the gate
+weights ((D + H) x 4H floats) and each row's keys and values over its valid
+frames once, but each of its kernels is short, so latency sets its time.
+The step is five kernels on one stream (source: ``csrc/las_step.cu``):
+
+1. ``las_gates``: the split-K product [ctx_prev, h_prev] [W_ctx; W_h], a
+   block per (64 gate columns, 256 reduction rows, 32 rows) streaming its
+   tile of the weights once by cp.async;
+2. ``las_cell``: sums the (D + H) / 256 partials and applies the LSTM cell;
+3. ``las_query``: q = h W_q^T, a warp per output for 8 rows;
+4. ``las_attend_part``: a block per (16 frames, row), only over the row's
+   valid frames: location features, energies, then the block's own max,
+   exponentials, their sum and the unnormalised partial context
+   (``attend_parts_ref`` is its plain version from the energies on);
+5. ``las_attend_combine``: the row's softmax, once, from the blocks'
+   (max, sum) pairs, and the context from their partial contexts
+   (``attend_combine_ref``).
+
+The masked value is finfo(f32).min / 2 (``apply_mask_logits``), so a row
+with klen 0 gets uniform weights 1 / T over all T frames and the mean of
+its T value rows as context; the kernel treats such a row as T frames of
+equal energy, and reads no frame past klen for any other row. K3
+(``las_scan.py``) runs the same five kernels per teacher-forced step.
 """
 from __future__ import annotations
 
@@ -31,7 +48,6 @@ from .build import load_library
 from .roofline import valid_lengths
 
 SMEM_LIMIT = 232448   # bytes of shared memory one block may use on sm_90
-GATE_SPLIT = 128      # reduction rows per block of the gate GEMV (kGateK)
 
 
 def location_features(aw_prev, conv_w):
@@ -53,6 +69,56 @@ def attend_ref(query, aw_prev, w_q, conv_w, w_f, v, kc, values, klens):
              < klens.to(e.device)[:, None])
     aw = torch.softmax(apply_mask_logits(e, valid), dim=-1)
     return q, aw, torch.bmm(aw[:, None], values)[:, 0]
+
+
+ATTEND_FRAMES = 16    # frames per block of the kernel's attention (kFrames)
+
+
+def attend_frames(klens, t):
+    """The frames each row's softmax runs over in the kernel: its klen, or
+    all t frames for a row with none (uniform weights, as the masked
+    softmax gives)."""
+    klens = klens.clamp(0, t)
+    return torch.where(klens == 0, torch.full_like(klens, t), klens)
+
+
+def attend_parts_ref(e, values, klens, frames=ATTEND_FRAMES):
+    """Plain version of the first half of the kernel's softmax and context
+    (``las_attend_part``): per block of ``frames`` frames of each row, over
+    the row's ``attend_frames`` only, the block's max m, p = exp(e - m)
+    (0 past the row's frames), the sum s of p and the unnormalised partial
+    context p values. e [N, T] energies (a row with klen 0 takes the masked
+    value everywhere), values [N, T, D]. Returns p [N, T], ms [N, n_b, 2],
+    part_ctx [N, n_b, D]; a block with no frame holds (-inf, 0, 0)."""
+    n, t = e.shape
+    n_b = -(-t // frames)
+    pad = n_b * frames - t
+    lens = attend_frames(klens.to(e.device), t)
+    live = torch.arange(t, device=e.device)[None] < lens[:, None]
+    masked = torch.finfo(e.dtype).min / 2
+    e = torch.where((klens.to(e.device) <= 0)[:, None],
+                    torch.full_like(e, masked), e)
+    e = torch.where(live, e, torch.full_like(e, -torch.inf))
+    eb = F.pad(e, (0, pad), value=-torch.inf).view(n, n_b, frames)
+    m = eb.max(-1).values
+    p = torch.where(torch.isfinite(eb), torch.exp(eb - m[..., None]),
+                    torch.zeros_like(eb))
+    vb = F.pad(values, (0, 0, 0, pad)).view(n, n_b, frames, -1)
+    part_ctx = torch.einsum("nbf,nbfd->nbd", p, vb)
+    return (p.view(n, -1)[:, :t], torch.stack([m, p.sum(-1)], -1), part_ctx)
+
+
+def attend_combine_ref(p, ms, part_ctx, klens, frames=ATTEND_FRAMES):
+    """Plain version of ``las_attend_combine``: the row's softmax from the
+    blocks' (m_b, s_b): M = max m_b, S = sum s_b exp(m_b - M); aw = p
+    exp(m_b - M) / S and ctx = sum_b part_ctx_b exp(m_b - M) / S. Returns
+    (aw [N, T], ctx [N, D])."""
+    t = p.shape[1]
+    m, s = ms[..., 0], ms[..., 1]
+    scale = torch.exp(m - m.max(-1, keepdim=True).values)
+    scale = scale / (s * scale).sum(-1, keepdim=True)
+    aw = p * scale.repeat_interleave(frames, dim=1)[:, :t]
+    return aw, torch.einsum("nb,nbd->nd", scale, part_ctx)
 
 
 def las_step_ref(eg, ctx_prev, h_prev, c_prev, aw_prev, w_ctx, w_h, bias,
@@ -94,7 +160,7 @@ def las_step(eg, ctx_prev, h_prev, c_prev, aw_prev, w_ctx, w_h, bias,
              w_q, conv_w, w_f, v, kc, values, klens):
     """One decode step; arguments as ``las_step_ref``. CPU tensors take
     the twin; CUDA tensors launch the kernel (float32, contiguous) or
-    raise. Every launch adds one to ``las_step.launches``."""
+    raise. Every call adds one to ``las_step.launches``."""
     args = (eg, ctx_prev, h_prev, c_prev, aw_prev, w_ctx, w_h, bias, w_q,
             conv_w, w_f, v, kc, values, klens)
     if on_cpu(*args):
@@ -111,25 +177,27 @@ def las_step(eg, ctx_prev, h_prev, c_prev, aw_prev, w_ctx, w_h, bias,
         check(name, x, shape)
     check("klens", klens, (n,), torch.int32)
     lib = load_library()
-    smem = lib.nsp_las_step_smem_bytes(t, hdim, a, c_ch, k)
+    smem = lib.nsp_las_step_smem_bytes(t, hdim, d, a, c_ch, k)
     if smem > SMEM_LIMIT:
         raise ValueError(f"las_step: {t} frames need {smem} bytes of shared "
                          f"memory per block, more than {SMEM_LIMIT}")
-    n_split = -(-(d + hdim) // GATE_SPLIT)
-    partial = torch.empty((n_split, n, 4 * hdim), dtype=torch.float32,
-                          device=eg.device)
-    q = torch.empty((n, a), dtype=torch.float32, device=eg.device)
-    e = torch.empty_like(aw_prev)
+    scratch = step_scratch(lib, n, t, hdim, d, a, eg.device)
     h = torch.empty_like(h_prev)
     c = torch.empty_like(c_prev)
     aw = torch.empty_like(aw_prev)
     ctx = torch.empty_like(ctx_prev)
     err = lib.nsp_las_step_f32(
-        *(x.data_ptr() for x in (*args, partial, q, e, h, c, aw, ctx)),
+        *(x.data_ptr() for x in (*args, scratch, h, c, aw, ctx)),
         n, t, hdim, d, a, c_ch, k, stream_of(eg))
     raise_on_error("las_step", err)
     las_step.launches += 1
     return h, c, aw, ctx
+
+
+def step_scratch(lib, n, t, hdim, d, a, device):
+    """The scratch buffer one step over n rows takes (K2 and K3 alike)."""
+    return torch.empty(lib.nsp_las_step_scratch_floats(n, t, hdim, d, a),
+                       dtype=torch.float32, device=device)
 
 
 las_step.launches = 0

@@ -1,25 +1,27 @@
 #!/usr/bin/env python3
-"""Time K3b (las_scan_bwd, the LAS scan's backward) of one checkout of the
-port on the card, at the training shape of ``chip_smoke.py`` phase 2b, with
-CUDA events, and hold it against its plain version.
+"""Time the LAS kernels of one checkout of the port on the card with CUDA
+events, each held against its plain version: K3 (las_scan, the
+teacher-forced scan's forward) and K3b (las_scan_bwd, its backward) at the
+training shape of ``chip_smoke.py`` phase 2b, and K2 (las_step, one decode
+step) at N = 10 rows, T = 200 frames (phase 2), in one process.
 
     python3 neural_sp_tpu_torch/tools/las_scan_times.py \
         [--root DIR] [--label NAME] [--iters N]
 
 ``--root`` is the directory holding the ``neural_sp_tpu_torch`` package to
 time (default: this checkout), so that two commits unpacked side by side
-can be timed in turns on one card, each in its own process. Three things
-are timed, each called eagerly (the host's work included: what a caller
-sees) and as a CUDA-graph replay of the same calls (the device's time
-alone): the whole wrapper ``las_scan_bwd``; its kernel loop alone
-(``las_scan_bwd_chain``); and the work after the loop
-(``las_scan_bwd_finish``: the weight-gradient products and the sums of
-partials), with the kernel loop's device time per kernel (torch.profiler).
-A checkout without the split reports the wrapper only. Prints one JSON
-line: the card's name and power limit, the times, the bound
-(``las_scan_bwd_cost`` over ``ops/kernels/roofline.py``), the kernels
-launched per call where the checkout counts them, and the error (max
-|err| / max |plain| over the ten gradients).
+can be timed in turns on one card, each in its own process. Every wrapper
+is called eagerly (the host's work included: what a caller sees) and as a
+CUDA-graph replay of the same calls (the device's time alone), and the
+device time and launch count of each of its kernels is read from
+torch.profiler. For K3b, its kernel loop alone (``las_scan_bwd_chain``) and
+the work after the loop (``las_scan_bwd_finish``: the weight-gradient
+products and the sums of partials) are timed apart; a checkout without the
+split reports the wrapper only. Prints one JSON line: the card's name and
+power limit and, per kernel, the times, the bound (the module's ``*_cost``
+over ``ops/kernels/roofline.py``), the kernels launched per call where the
+checkout counts them, and the error (max |err| / max |plain| over the
+outputs).
 """
 from __future__ import annotations
 
@@ -82,7 +84,7 @@ def main() -> int:
         with torch.cuda.graph(graph):
             for _ in range(calls):
                 fn()
-        ms = cuda_ms(graph.replay, max(1, opts.iters // calls)) / calls
+        ms = cuda_ms(graph.replay, max(1, opts.iters // 3)) / calls
         del graph
         return ms
 
@@ -101,8 +103,19 @@ def main() -> int:
                 out[e.key[:80]] = {"ms": us / 1e3, "launches": e.count}
         return dict(sorted(out.items(), key=lambda kv: -kv[1]["ms"]))
 
-    def times(fn):
-        return {"ms": cuda_ms(fn, opts.iters), "device_ms": graph_ms(fn)}
+    def times(fn, scale=1):
+        """Eager and graph-replay ms; ``scale`` times the calls for a
+        short kernel."""
+        return {"ms": cuda_ms(fn, opts.iters * scale),
+                "device_ms": graph_ms(fn, calls=3 * scale)}
+
+    def card_bound(cost):
+        bound, by = bound_ms(*cost, F32_TENSOR_FLOPS)
+        return {"bound_ms": bound, "bound_by": by}
+
+    def rel_err(got, want):
+        return max(float((x - y).abs().max() / y.abs().max())
+                   for x, y in zip(got, want))
 
     keep = (torch.from_numpy((rng.random((U, B, H)) >= RATE).astype(
         "float32")) / (1 - RATE)).to(dev)
@@ -113,37 +126,59 @@ def main() -> int:
     w_q, conv_w = randn(A, H, scale=H ** -0.5), randn(C, K, scale=K ** -0.5)
     w_f, v = randn(A, C, scale=C ** -0.5), randn(A, scale=A ** -0.5)
     kc, values = randn(B, T, A), randn(B, T, D)
-    fwd = (randn(U, B, 4 * H, scale=0.5), w_ctx, w_h, randn(4 * H, scale=0.1),
-           w_q, conv_w, w_f, v, kc, values, klens, keep)
+    bias = randn(4 * H, scale=0.1)
+    fwd = (randn(U, B, 4 * H, scale=0.5), w_ctx, w_h, bias, w_q, conv_w, w_f,
+           v, kc, values, klens, keep)
     with torch.no_grad():
-        h, c, gates, q, aw, ctx = m.las_scan_ref(*fwd)
+        refs = m.las_scan_ref(*fwd)
+        h, c, gates, q, aw, ctx = refs
+        k3 = {"shape": f"B{B} U{U} T{T} H{H} D{D} A{A} C{C} K{K}",
+              "rel_err": rel_err(m.las_scan(*fwd), refs),
+              **times(lambda: m.las_scan(*fwd)),
+              "kernels": kernel_profile(lambda: m.las_scan(*fwd)),
+              **card_bound(m.las_scan_cost(U, B, T, H, D, A, C, K, kl))}
+        if hasattr(m.las_scan, "kernel_launches_per_call"):
+            k3["kernel_launches_per_call"] = \
+                m.las_scan.kernel_launches_per_call
+
         bargs = (w_ctx, w_h, w_q, conv_w, w_f, v, kc, values, klens, keep,
                  h, c, gates, q, aw, ctx, randn(U, B, H), randn(U, B, D))
-        want = m.las_scan_bwd_ref(*bargs)
-        got = m.las_scan_bwd(*bargs)
-        err = max(float((x - y).abs().max() / y.abs().max())
-                  for x, y in zip(got, want))
-        del got, want
-        out = {"wrapper": times(lambda: m.las_scan_bwd(*bargs))}
+        k3b = {"shape": k3["shape"],
+               "rel_err": rel_err(m.las_scan_bwd(*bargs),
+                                  m.las_scan_bwd_ref(*bargs)),
+               "wrapper": times(lambda: m.las_scan_bwd(*bargs)),
+               **card_bound(m.las_scan_bwd_cost(U, B, T, H, D, A, C, K, kl))}
         if hasattr(m, "las_scan_bwd_chain"):
             raw = m.las_scan_bwd_chain(*bargs)
-            out["chain"] = times(lambda: m.las_scan_bwd_chain(*bargs))
-            out["outside"] = times(
+            k3b["chain"] = times(lambda: m.las_scan_bwd_chain(*bargs))
+            k3b["outside"] = times(
                 lambda: m.las_scan_bwd_finish(h, ctx, keep, aw, *raw))
-            out["kernel_launches_per_call"] = \
+            k3b["kernel_launches_per_call"] = \
                 m.las_scan_bwd.kernel_launches_per_call
-            out["chain_kernels"] = kernel_profile(
+            k3b["chain_kernels"] = kernel_profile(
                 lambda: m.las_scan_bwd_chain(*bargs))
-    flops, nbytes = m.las_scan_bwd_cost(U, B, T, H, D, A, C, K, kl)
+            del raw
+
+        # K2 at chip_smoke.py phase 2's decode shape
+        n, t2 = 10, 200
+        kl2 = [t2 - 3 * i for i in range(n)]
+        step = (randn(n, 4 * H, scale=0.5), randn(n, D),
+                randn(n, H, scale=0.5), randn(n, H),
+                torch.softmax(randn(n, t2, scale=3.0), -1), w_ctx, w_h, bias,
+                w_q, conv_w, w_f, v, randn(n, t2, A), randn(n, t2, D),
+                torch.tensor(kl2, dtype=torch.int32, device=dev))
+        s = importlib.import_module("neural_sp_tpu_torch.ops.kernels.las_step")
+        k2 = {"shape": f"N{n} T{t2} H{H} D{D} A{A} C{C} K{K}",
+              "rel_err": rel_err(s.las_step(*step), s.las_step_ref(*step)),
+              **times(lambda: s.las_step(*step), scale=10),
+              "kernels": kernel_profile(lambda: s.las_step(*step)),
+              **card_bound(s.las_step_cost(n, t2, H, D, A, C, K, kl2))}
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip().splitlines()[0]
-    bound, by = bound_ms(flops, nbytes, F32_TENSOR_FLOPS)
     print(json.dumps({"label": opts.label, "root": str(opts.root),
-                      "card": card, "kernel": "K3b las_scan_bwd",
-                      "shape": f"B{B} U{U} T{T} H{H} D{D} A{A} C{C} K{K}",
-                      "bound_ms": bound, "bound_by": by, "rel_err": err,
-                      **out}))
+                      "card": card, "K3 las_scan": k3,
+                      "K3b las_scan_bwd": k3b, "K2 las_step": k2}))
     return 0
 
 

@@ -194,9 +194,12 @@ def _las_args(rng, dev, b, u, t, hd, d, a, ch, k, klens, rate=0.1):
             torch.tensor(klens, dtype=torch.int32, device=dev), keep)
 
 
-# K3b's tiles: 16 frames per attention block, 8 rows x 16 units per cell
-# block, 32 rows x 64 weight rows x 256 gate columns per recurrent block;
-# location-conv channels 10 at a time.
+# K3's tiles: 32 rows x 64 gate columns x 256 reduction rows per block of
+# the gate product, 8 rows per query block, 16 frames per attention block
+# (blocks past a row's length stop; a row with klen 0 runs over all T
+# frames with uniform weights). K3b's: 16 frames per attention block, 8
+# rows x 16 units per cell block, 32 rows x 64 weight rows x 256 gate
+# columns per recurrent block; location-conv channels 10 at a time.
 @pytest.mark.parametrize("b,u,t,hd,d,a,ch,k,klens", [
     (32, 12, 188, 1024, 512, 512, 10, 201, None),   # flagship widths
     (5, 7, 37, 64, 48, 40, 4, 6, [37, 30, 12, 1, 20]),  # small, even conv
@@ -206,6 +209,13 @@ def _las_args(rng, dev, b, u, t, hd, d, a, ch, k, klens, rate=0.1):
     (3, 5, 177, 64, 48, 40, 4, 6, [177, 1, 100]),   # one frame past 11 tiles
     (4, 3, 40, 64, 48, 40, 12, 7, [40, 17, 1, 33]),  # C past one group of 10
     (3, 2, 50, 64, 48, 40, 23, 9, [50, 1, 31]),     # three groups, the last short
+    (4, 3, 40, 64, 48, 40, 4, 6, [40, 0, 1, 35]),   # a row with klen 0
+    (4, 3, 188, 1024, 512, 512, 10, 201,            # the same at flagship
+     [188, 0, 1, 183]),                             # widths
+    (5, 2, 33, 64, 48, 40, 4, 6,                    # one frame past 2 blocks:
+     [33, 32, 0, 17, 16]),                          # the last block all masked
+    (33, 2, 49, 30, 22, 18, 3, 5,                   # widths no multiple of 4,
+     [49 - i for i in range(32)] + [0]),            # B = 33 with a klen 0
 ])
 def test_las_scan_kernels(cuda, b, u, t, hd, d, a, ch, k, klens):
     from neural_sp_tpu_torch.ops.kernels.las_scan import (
@@ -226,6 +236,8 @@ def test_las_scan_kernels(cuda, b, u, t, hd, d, a, ch, k, klens):
     torch.cuda.synchronize()
     assert (las_scan.launches, las_scan_bwd.launches) == \
         (before[0] + 1, before[1] + 1)
+    # per step: gates, cell, query, attention per frame block, its combine
+    assert las_scan.kernel_launches_per_call == 5 * u
     # per step: attention, conv, cell, and the recurrent product but at step 0
     assert las_scan_bwd.kernel_launches_per_call == 4 * u - 1
     want = las_scan_bwd_ref(*saved, dh, dctx)

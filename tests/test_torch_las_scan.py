@@ -7,6 +7,14 @@ versions) and the decoder's training loss.
 * ``las_scan_bwd_finish`` (what the CUDA wrapper computes after K3b's
   loop: dvalues from each step's saved context gradient, the partial sums,
   the weight gradients) against ``las_scan_bwd_ref``, the same way.
+* ``attend_parts_ref`` and ``attend_combine_ref`` (the plain versions of
+  the two kernels K2 / K3 split the softmax and context into: per block of
+  16 frames its max, exponentials, their sum and partial context, then the
+  row's softmax combined once) against ``attend_ref``, with rows of klen 0
+  (uniform weights over all T frames) and klen 1.
+* The teacher-forced attention weights and loss of the port's decoder
+  (through ``las_scan_ref``) against the JAX decoder's scan with an
+  utterance of encoder length 0 in the batch.
 * The port's ``RNNDecoder.forward`` (loss, accuracy, perplexity, and the
   gradient of every weight and of the encoder outputs, through
   ``LASScan`` whose backward on CPU is ``las_scan_bwd_ref``) against
@@ -30,9 +38,12 @@ import neural_sp_tpu.ops.dropout as jax_dropout
 import neural_sp_tpu_torch.ops.dropout as port_dropout
 from neural_sp_tpu.models.decoders.las import RNNDecoder as JaxRNNDecoder
 from neural_sp_tpu_torch.models.decoders.las import RNNDecoder
+from neural_sp_tpu_torch.models.decoders import las as port_las
 from neural_sp_tpu_torch.ops.kernels.las_scan import (
     las_scan_bwd_finish, las_scan_bwd_ref, las_scan_bwd_steps_ref,
     las_scan_ref)
+from neural_sp_tpu_torch.ops.kernels.las_step import (
+    attend_combine_ref, attend_parts_ref, attend_ref, location_features)
 from neural_sp_tpu_torch.utils.convert_params import convert_params
 
 ATOL = RTOL = 2e-4
@@ -106,6 +117,50 @@ def test_bwd_finish_matches_accumulated_ref(conv_k):
     for name, x, y in zip(names, got, want):
         np.testing.assert_allclose(x.numpy(), y.numpy(), rtol=1e-10,
                                    atol=1e-12, err_msg=name)
+
+
+@pytest.mark.parametrize("t,klens", [
+    (37, [37, 0, 1, 16, 33]),     # klen 0, klen 1, a block boundary
+    (33, [33, 32, 0, 17, 1]),     # one frame past two blocks
+    (9, [9, 0, 4, 1, 8]),         # shorter than one block
+])
+def test_attend_parts_and_combine_match_attend_ref(t, klens):
+    """The softmax and context as the kernel splits them (per block of 16
+    frames: max, exponentials, sum, partial context; then one combine per
+    row, over the row's frames only) give ``attend_ref``'s weights and
+    context: uniform 1 / T over all T frames for klen 0, weight 1 on frame
+    0 for klen 1, exact zeros past klen otherwise."""
+    n, hd, d, a, ch, k = len(klens), 6, 5, 4, 3, 7
+    rng = np.random.RandomState(t)
+
+    def r(*shape, scale=1.0):
+        return torch.from_numpy((rng.randn(*shape) * scale).astype(np.float32))
+
+    query, aw_prev = r(n, hd), torch.softmax(r(n, t, scale=2.0), -1)
+    w_q, conv_w, w_f, v = r(a, hd), r(ch, k), r(a, ch), r(a, scale=3.0)
+    kc, values = r(n, t, a), r(n, t, d)
+    kl = torch.tensor(klens, dtype=torch.int32)
+    q, aw, ctx = attend_ref(query, aw_prev, w_q, conv_w, w_f, v, kc, values,
+                            kl)
+    # the energies as the kernel forms them, before any mask
+    loc = location_features(aw_prev, conv_w)
+    e = torch.tanh(kc + q[:, None] + loc @ w_f.t()) @ v
+    p, ms, part_ctx = attend_parts_ref(e, values, kl)
+    got_aw, got_ctx = attend_combine_ref(p, ms, part_ctx, kl)
+    np.testing.assert_allclose(got_aw.numpy(), aw.numpy(), rtol=RTOL,
+                               atol=ATOL)
+    np.testing.assert_allclose(got_ctx.numpy(), ctx.numpy(), rtol=RTOL,
+                               atol=ATOL)
+    for i, n_valid in enumerate(klens):
+        if n_valid == 0:
+            np.testing.assert_allclose(got_aw[i].numpy(), 1.0 / t, rtol=1e-6)
+            np.testing.assert_allclose(got_ctx[i].numpy(),
+                                       values[i].mean(0).numpy(), rtol=RTOL,
+                                       atol=ATOL)
+        else:
+            assert float(got_aw[i, n_valid:].abs().sum()) == 0.0
+        if n_valid == 1:
+            assert float(got_aw[i, 0]) == 1.0
 
 
 def _pinned_masks(monkeypatch, keep_bh):
@@ -182,3 +237,54 @@ def test_decoder_loss_and_grads_match_jax(monkeypatch, conv_k):
     grads = convert_params(jax.tree.map(np.asarray, g_p))
     for name, p in port.named_parameters():
         _leaf_close(p.grad.numpy(), grads[name].numpy(), name)
+
+
+def test_scan_matches_jax_with_an_empty_utterance(monkeypatch):
+    """The teacher-forced scan with an utterance of encoder length 0 in the
+    batch: the port's attention weights at every step (``las_scan_ref``
+    through ``LASScan`` on CPU) and its loss against the JAX decoder's scan,
+    the same inputs and converted weights through both, no dropout. The
+    empty utterance's weights are uniform over all T frames in both."""
+    rng = np.random.RandomState(5)
+    bs, t = 3, 11
+    eouts = rng.randn(bs, t, ENC).astype(np.float32)
+    elens = np.array([11, 0, 4], np.int32)
+    ylens = np.array([5, 3, 1], np.int32)
+    ys = np.full((bs, 5), 3, np.int32)
+    for i, n in enumerate(ylens):
+        ys[i, :n] = rng.randint(4, VOCAB, n)
+    kw = dict(vocab=VOCAB, enc_n_units=ENC, n_units=UNITS, emb_dim=EMB,
+              bottleneck_dim=BOTTLE, attn_dim=ADIM, attn_conv_kernel_size=9,
+              lsm_prob=0.1)
+    jdec = JaxRNNDecoder(dropout=0.0, **kw)
+    jargs = tuple(map(jnp.asarray, (eouts, elens, ys, ylens)))
+    v = jdec.init(jax.random.PRNGKey(0), *jargs)
+    params = jax.tree.map(lambda x: np.asarray(x) + 0.05 * rng.randn(
+        *x.shape).astype(np.float32), jax.tree.map(np.asarray, v["params"]))
+    want, jobs = jdec.apply({"params": params}, *jargs, deterministic=True,
+                            return_logits=True)
+    want_aw = np.asarray(jobs["aws"]).reshape(bs, ys.shape[1] + 1, t)
+
+    seen = {}
+    real = port_las.LASScan
+
+    class Spy:
+        """``LASScan`` that keeps what it returned: (h, ctx, aw)."""
+
+        @staticmethod
+        def apply(*args):
+            seen["out"] = real.apply(*args)
+            return seen["out"]
+
+    monkeypatch.setattr(port_las, "LASScan", Spy)
+    port = RNNDecoder(dropout=0.0, **kw)
+    port.load_state_dict(convert_params(params), strict=True)
+    port.eval()
+    with torch.no_grad():
+        loss, _ = port(torch.from_numpy(eouts), torch.from_numpy(elens),
+                       torch.from_numpy(ys), torch.from_numpy(ylens))
+    got_aw = seen["out"][2].numpy()
+    np.testing.assert_allclose(float(loss), float(want), rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(got_aw, want_aw, rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(got_aw[1], 1.0 / t, rtol=1e-6)
+    assert float(np.abs(got_aw[2, :, 4:]).sum()) == 0.0
