@@ -11,10 +11,14 @@ Phases (any failure raises and the script exits non-zero):
      build;
   2. hold each kernel against its plain PyTorch twin at the serving path's
      shapes (K1 rel_attention: B=4, H=8, dk=64, R=11, T in 800/400/200 with
-     ragged lengths; K2 las_step: N=10 hypotheses, T in 200/400), TF32 off,
-     and time kernel and twin with CUDA events; K1 also against its library
-     yardstick, ``F.scaled_dot_product_attention`` with the rel-PE bias as
-     an additive mask (efficient backend), timed in turns with the kernel;
+     ragged lengths; K2 las_step: N=10, 4 and 40 rows at T=200, as the three
+     served sessions give it, and N=10 at T=400, the checked call and the
+     workspace form a decode loop uses, each with and without a beam's
+     reorder ``parent``, the two forms equal bit for bit),
+     TF32 off, and time kernel and twin with CUDA events; K1 also against
+     its library yardstick, ``F.scaled_dot_product_attention`` with the
+     rel-PE bias as an additive mask (efficient backend), timed in turns
+     with the kernel;
      each kernel's bound (``ops/kernels/roofline.py`` from its ``*_cost``)
      is printed beside its time;
   3. build the flagship Conformer-LAS (``configs.flagship_args(faithful=
@@ -22,13 +26,17 @@ Phases (any failure raises and the script exits non-zero):
      batch of 4 fbank-shaped utterances (700/1000/1300/1600 frames x 80)
      through ``Speech2TextSession.decode`` with beam 10 + CTC weight 0.3,
      with the on-device batched beam 10 (no CTC) and with greedy
-     decoding; launch counters are zeroed just before and
-     read just after, and both kernels must have run;
+     decoding (wall per decode step beside each RTF); launch counters are
+     zeroed just before and read just after, and both kernels must have run;
      then time the encoder alone and profile one beam request (device
      busy time against wall time, the kernels taking the most time);
   4. run the encoder with the twins in place of the kernels and compare
      the encoder outputs, then replay the best beam hypothesis through the
-     twin decode step and compare the logits at every step;
+     twin decode step and compare the logits at every step; then step the
+     serving loops' ``DecodeLoop`` (the carry in K2's workspace) at N=40, 10
+     and 4 rows for 8 steps with random tokens and random ``parent`` rows,
+     against the chain of plain steps, logits and attention weights at
+     every step;
   2b. (after 4, so the serving phases keep their order) hold the training
      kernels against their plain versions at the training path's shapes:
      K1b rel_attention_bwd (B=32, H=8, dk=64, R=11, T in 750/375/188,
@@ -229,7 +237,8 @@ def phase_build():
 def phase_kernels(torch, rng):
     from neural_sp_tpu_torch.ops.kernels import (
         las_step, las_step_ref, rel_attention, rel_attention_ref)
-    from neural_sp_tpu_torch.ops.kernels.las_step import las_step_cost
+    from neural_sp_tpu_torch.ops.kernels.las_step import (LasStepWorkspace,
+                                                          las_step_cost)
     from neural_sp_tpu_torch.ops.kernels.rel_attention import \
         rel_attention_cost
     dev = torch.device("cuda")
@@ -267,8 +276,10 @@ def phase_kernels(torch, rng):
             row.update(ms=ms, plain_ms=ref_ms, library_ms=yard["library_ms"],
                        library_err=yard["library_err"], **bound)
 
-    n, hd, d, a, c, kw = 10, 1024, 512, 512, 10, 201
-    for tt in (200, 400):
+    hd, d, a, c, kw = 1024, 512, 512, 10, 201
+    # the rows the served sessions give it: 10 (beam 10 of one utterance),
+    # 4 (greedy, the batch) and 40 (the on-device beam over the batch)
+    for n, tt in ((10, 200), (4, 200), (40, 200), (10, 400)):
         aw_prev = torch.softmax(t(n, tt, scale=3.0), -1)
         args = (t(n, 4 * hd, scale=0.5), t(n, d), t(n, hd, scale=0.5),
                 t(n, hd), aw_prev, t(d, 4 * hd, scale=(d + hd) ** -0.5),
@@ -278,23 +289,51 @@ def phase_kernels(torch, rng):
                 t(n, tt, a), t(n, tt, d),
                 torch.tensor([tt - 3 * i for i in range(n)],
                              dtype=torch.int32, device=dev))
-        outs, refs = las_step(*args), las_step_ref(*args)
-        err = max(max_err(x, y) for x, y in zip(outs, refs))
-        ms, ref_ms = cuda_ms(lambda: las_step(*args)), \
-            cuda_ms(lambda: las_step_ref(*args))
+        # both forms of the wrapper (the checked, allocating call and the
+        # workspace a decode loop steps through), without and with a
+        # beam's reorder, against the plain version; the forms must agree
+        # bit for bit
+        ws = LasStepWorkspace(*args[5:])
+        parent = torch.from_numpy(
+            rng.integers(0, n, n).astype("int32")).to(dev)
+        err = 0.0
+        for par in (None, parent):
+            refs = las_step_ref(*args, parent=par)
+            outs = las_step(*args, parent=par)
+            ws.load_carry(*args[1:5])
+            ws.eg.copy_(args[0])
+            if par is not None:
+                ws.parent.copy_(par)
+            stepped = ws.step(use_parent=par is not None)
+            err = max(err, *(max_err(x, y) for x, y in zip(outs, refs)))
+            expect(all(torch.equal(x, y) for x, y in zip(stepped, outs)),
+                   f"K2 N={n} T={tt}: the workspace form differs from the "
+                   f"call")
+        per_step = las_step.kernels_per_step
+        ms = cuda_ms(lambda: ws.step(use_parent=True), iters=200)
+        call_ms = cuda_ms(lambda: las_step(*args, parent=parent), iters=200)
+        ref_ms = cuda_ms(lambda: las_step_ref(*args, parent=parent))
         bound = roofline(las_step_cost(n, tt, hd, d, a, c, kw,
                                        args[-1].tolist()))
         log(f"[2] K2 las_step N={n} T={tt} H={hd} D={d} A={a} C={c} K={kw}: "
-            f"max_abs_err {err:.3e}  kernel {ms:.4f} ms  twin {ref_ms:.4f} ms"
-            f"  bound {bound['bound_ms']:.4f} ms ({bound['bound_by']})")
-        expect(err <= KERNEL_ATOL, f"K2 T={tt}: error {err} > {KERNEL_ATOL}")
-        res["las_step"]["max_abs_err"] = max(
-            res["las_step"]["max_abs_err"], err)
-        if tt == 200:
+            f"max_abs_err {err:.3e}  kernel {ms:.4f} ms through its "
+            f"workspace, {call_ms:.4f} ms as a checked call, {per_step} "
+            f"kernels per step  twin {ref_ms:.4f} ms  bound "
+            f"{bound['bound_ms']:.4f} ms ({bound['bound_by']})")
+        expect(err <= KERNEL_ATOL,
+               f"K2 N={n} T={tt}: error {err} > {KERNEL_ATOL}")
+        row = res["las_step"]
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        shape = {"shape": f"N={n} T={tt}", "max_abs_err": err, "ms": ms,
+                 "checked_call_ms": call_ms, "kernels_per_step": per_step,
+                 "plain_ms": ref_ms, **bound}
+        row.setdefault("shapes", []).append(shape)
+        if (n, tt) == (10, 200):
             # no single PyTorch call computes an LSTM cell with location
             # attention fed back: no library yardstick
-            res["las_step"].update(ms=ms, plain_ms=ref_ms, library_ms=None,
-                                   **bound)
+            row.update(ms=ms, checked_call_ms=call_ms,
+                       kernels_per_step=per_step, plain_ms=ref_ms,
+                       library_ms=None, **bound)
     return res
 
 
@@ -318,6 +357,7 @@ def utterances(rng):
 def phase_serve(torch, model, xs, xlens):
     from neural_sp_tpu_torch.models.decoders.decoding import (
         DecodeConfig, Speech2TextSession)
+    from neural_sp_tpu_torch.models.decoders.las import DecodeLoop
     from neural_sp_tpu_torch.ops.kernels import (
         las_step, rel_attention, reset_launches)
     beam = Speech2TextSession(model, DecodeConfig(beam_width=10,
@@ -335,22 +375,27 @@ def phase_serve(torch, model, xs, xlens):
     reset_launches()
     for name, sess in sessions:
         torch.cuda.reset_peak_memory_stats()
+        steps_before = DecodeLoop.steps
         t0 = time.perf_counter()
         hyps = sess.decode(xs, xlens)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        steps = DecodeLoop.steps - steps_before
         expect(len(hyps) == len(UTT_FRAMES) and all(
             all(isinstance(y, int) and 0 <= y < model.dec_fwd.vocab
                 for y in hyp) for hyp in hyps), f"{name}: malformed {hyps}")
         out[name] = {"hyp_lens": [len(h) for h in hyps], "wall_s": wall,
                      "wall_s_per_utt": wall / len(hyps),
-                     "rtf": wall / audio_sec,
+                     "rtf": wall / audio_sec, "decode_steps": steps,
+                     "wall_ms_per_decode_step": wall * 1e3 / max(steps, 1),
                      "peak_mem_bytes": torch.cuda.max_memory_allocated()}
         if name == "beam10_ctc0.3":
             out["best_hyp0"] = hyps[0]
         log(f"[3] {name}: hyp lens {out[name]['hyp_lens']}  wall "
             f"{wall:.3f} s ({wall / len(hyps):.3f} s/utt)  RTF "
-            f"{wall / audio_sec:.4f}  peak mem "
+            f"{wall / audio_sec:.4f}  {steps} decode steps, "
+            f"{out[name]['wall_ms_per_decode_step']:.4f} ms of wall each  "
+            f"peak mem "
             f"{out[name]['peak_mem_bytes']} B")
     launches = {"rel_attention": rel_attention.launches,
                 "las_step": las_step.launches}
@@ -473,7 +518,55 @@ def phase_twins(torch, model, xs, xlens, best_hyp):
         f"logits max_abs_err {step_err:.3e}; K2 launches per decode step "
         f"{per_step}")
     expect(step_err <= PATH_ATOL, f"decoder error {step_err} > {PATH_ATOL}")
-    return enc_err, step_err, per_step
+    # the loops as the sessions step them: beam 10 of one utterance, the
+    # on-device beam over the batch, greedy over the batch
+    k = 10
+    loop_err = max(
+        loop_against_plain(torch, dec, e0.repeat_interleave(k, 0),
+                           el0.repeat_interleave(k), reorder=True),
+        loop_against_plain(torch, dec, e.repeat_interleave(k, 0),
+                           el.repeat_interleave(k), reorder=True),
+        loop_against_plain(torch, dec, e, el, reorder=True),
+        loop_against_plain(torch, dec, e, el, reorder=False))
+    return enc_err, max(step_err, loop_err), per_step
+
+
+def loop_against_plain(torch, dec, e, el, reorder: bool, n_steps: int = 8):
+    """Steps a ``DecodeLoop`` over the encoder outputs e [N, T, D] with
+    seeded random tokens and, with ``reorder``, random parent rows, against
+    the chain of plain decode steps on the same tokens and parents. Returns
+    the largest error of the logits and the attention weights over the
+    steps."""
+    from neural_sp_tpu_torch.models.decoders import las
+    from neural_sp_tpu_torch.ops.kernels import las_step, las_step_ref
+    n, dev = e.shape[0], e.device
+    gen = torch.Generator().manual_seed(SEED + n)
+    klens = el.to(torch.int32)
+    err = 0.0
+    with torch.inference_mode():
+        kc = dec.precompute_keys(e)
+        before = las_step.launches
+        loop = dec.decode_loop(kc, e, klens)
+        carry = dec.init_carry(n, e.shape[1], dev)
+        par = None
+        for i in range(n_steps):
+            y = torch.randint(4, dec.vocab, (n,), generator=gen).to(dev)
+            if reorder and i > 0:
+                par = torch.randint(0, n, (n,), generator=gen).to(
+                    device=dev, dtype=torch.int32)
+            logits, aw = loop.step(y, par)
+            with mock.patch.object(las, "las_step", las_step_ref):
+                carry, logits_ref, aw_ref = dec.decode_step(
+                    carry, y, kc, e, klens, parent=par)
+            expect(bool(torch.isfinite(logits).all()), "logits not finite")
+            err = max(err, max_err(logits, logits_ref), max_err(aw, aw_ref))
+        launched = las_step.launches - before
+    log(f"[4] DecodeLoop N={n} reorder={reorder}, {n_steps} steps: logits "
+        f"and attention weights vs the plain chain max_abs_err {err:.3e}; "
+        f"K2 launches {launched}")
+    expect(launched == n_steps, f"{launched} K2 launches in {n_steps} steps")
+    expect(err <= PATH_ATOL, f"DecodeLoop N={n}: error {err} > {PATH_ATOL}")
+    return err
 
 
 def rel_err(got, want) -> float:
@@ -949,6 +1042,11 @@ def main() -> int:
          "launches": launches[name], "launches_per_step": per_step[name],
          **{key: kernels[name].get(key) for key in keys}}
         for name, (src, rep) in srcs.items()]
+    # K2: its time is the workspace form's (the decode loops'); beside it
+    # the checked call's and the kernels one step launches
+    next(e for e in entries if e["name"] == "las_step").update(
+        checked_call_ms=kernels["las_step"]["checked_call_ms"],
+        kernels_per_step=kernels["las_step"]["kernels_per_step"])
     # K4's ms are forward + backward; its backward entry point counts apart
     next(e for e in entries if e["name"] == "ctc_loss")["bwd_launches"] = \
         launches["ctc_loss_bwd"]

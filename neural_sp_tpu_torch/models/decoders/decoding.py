@@ -53,13 +53,6 @@ _NOT_PORTED = ("lm_weight", "ilm_weight", "lm_second_weight",
                "lm_bwd_weight", "fwd_bwd_attention", "state_carry_over")
 
 
-def _index_carry(carry, idx: torch.Tensor):
-    """Select rows ``idx`` of every tensor in a (nested tuple) carry."""
-    if isinstance(carry, tuple):
-        return tuple(_index_carry(x, idx) for x in carry)
-    return carry[idx]
-
-
 class Speech2TextSession:
     """Wraps a ``Speech2Text`` (weights on its device) with the decode
     loops. Inputs may be numpy arrays or tensors; they are moved to the
@@ -131,7 +124,11 @@ class Speech2TextSession:
         ebk = e.repeat_interleave(k, dim=0)                  # [B*K, T, D]
         klens = el.repeat_interleave(k).to(torch.int32)
         kc = dec.precompute_keys(ebk)
-        carry = dec.init_carry(b * k, tmax, dev, e.dtype)
+        # the carry lives in the loop's workspace; the beams are reordered
+        # inside the next step (``parent``), not copied
+        loop = dec.decode_loop(kc, ebk, klens)
+        flat_parent = None
+        row0 = (rows * k)[:, None]
         scores = torch.full((b, k), -1e30, device=dev)
         scores[:, 0] = 0.0
         toks = torch.full((b, k, max_len), PAD, dtype=torch.long, device=dev)
@@ -143,7 +140,7 @@ class Speech2TextSession:
         min_lens = (el.float() * conf.min_len_ratio).long()
 
         for i in range(max_len):
-            carry, logits, _ = dec.decode_step(carry, y, kc, ebk, klens)
+            logits, _ = loop.step(y, flat_parent)
             logp = torch.log_softmax(conf.softmax_smoothing * logits.float(),
                                      -1).view(b, k, -1)
             vocab = logp.shape[-1]
@@ -170,7 +167,7 @@ class Speech2TextSession:
             total[:, :, EOS] = neg
             scores, top_ix = total.view(b, k * vocab).topk(k, dim=1)
             parent, tok = top_ix // vocab, top_ix % vocab
-            carry = _index_carry(carry, (rows[:, None] * k + parent).view(-1))
+            flat_parent = (row0 + parent).view(-1)
             toks = toks.gather(1, parent[:, :, None].expand(-1, -1, max_len))
             lens = lens.gather(1, parent)
             toks.scatter_(2, lens[:, :, None], tok[:, :, None])
@@ -215,7 +212,8 @@ class Speech2TextSession:
         e_t = e.repeat_interleave(beam, dim=0)
         klens = el.repeat_interleave(beam).to(torch.int32)
         kc = dec.precompute_keys(e_t)
-        carry = dec.init_carry(beam, tmax, e.device, e.dtype)
+        loop = dec.decode_loop(kc, e_t, klens)
+        par = None
 
         ctc_scorer = self._ctc_scorer(e, el)
         ctc_states = [ctc_scorer.initial_state() if ctc_scorer else None] * beam
@@ -230,7 +228,7 @@ class Speech2TextSession:
         finished: list[dict] = []
 
         for step_i in range(max_len):
-            carry, logits, aw = dec.decode_step(carry, y, kc, e_t, klens)
+            logits, aw = loop.step(y, par)
             logp = torch.log_softmax(
                 conf.softmax_smoothing * logits.float(), -1).cpu().numpy()
 
@@ -319,8 +317,8 @@ class Speech2TextSession:
                 parents.append(parents[-1])
                 new_ctc_beam.append(new_ctc_beam[-1])
 
-            par = torch.as_tensor(parents, dtype=torch.long, device=e.device)
-            carry = _index_carry(carry, par)
+            # the next step reads each survivor's parent row of the carry
+            par = torch.tensor(parents, dtype=torch.int32)
             if conf.coverage_penalty > 0:
                 aw_sums = aw_sums[parents] + aw.cpu().numpy()[parents]
             hyps = new_hyps

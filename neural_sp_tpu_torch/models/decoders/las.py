@@ -6,12 +6,16 @@ One step: embed -> LSTM layer 0 on [emb, ctx_prev] -> dropout -> location
 attention with the dropped output as the query -> readout
 tanh(w_gen([h, ctx])) -> dropout -> vocab projection. At decode everything
 from the gate pre-activations to the new context is kernel K2
-(``ops.kernels.las_step``). In training (``RNNDecoder.forward``) the U+1
-teacher-forced steps are kernel K3 with its backward K3b
-(``ops.kernels.las_scan``); the embedding half of the gates and the
-readout over all steps are plain matmuls, as the JAX module hoists them
-too. Scheduled sampling, zoneout, projections, deeper stacks, LM fusion
-and the other attention types raise.
+(``ops.kernels.las_step``). A decode loop (``greedy_scan`` and the beam
+searches of ``decoding.py``) steps through a ``DecodeLoop``, which builds
+K2's ``LasStepWorkspace`` once: the carry lives there, and a beam's reorder
+is K2's ``parent`` argument, so a step copies no carry and allocates nothing
+for K2. In
+training (``RNNDecoder.forward``) the U+1 teacher-forced steps are kernel
+K3 with its backward K3b (``ops.kernels.las_scan``); the embedding half of
+the gates and the readout over all steps are plain matmuls, as the JAX
+module hoists them too. Scheduled sampling, zoneout, projections, deeper
+stacks, LM fusion and the other attention types raise.
 
 Carry: ``(((c, h),), aw_prev [B, T], ctx_prev [B, enc_n_units])`` — the
 JAX carry without its logits and LM slots.
@@ -27,6 +31,7 @@ from ... import EOS, PAD
 from ...ops.criterion import compute_accuracy, cross_entropy_lsm
 from ...ops.dropout import Dropout, keep_mask
 from ...ops.kernels import las_step
+from ...ops.kernels.las_step import LasStepWorkspace
 from ...ops.kernels.las_scan import LASScan
 from ..modules.attention import AttentionMechanism
 from ..utils import append_sos_eos
@@ -78,20 +83,63 @@ class LASStep(nn.Module):
         self.drop = Dropout(dropout)
         self.drop_emb = Dropout(dropout_emb)
 
-    def forward(self, carry, y_t, key_cache, values, klens):
-        """carry as the module docstring; y_t [B] token ids; key_cache
-        [B, T, attn_dim]; values [B, T, enc_n_units]; klens [B] int32.
-        Returns (new_carry, logits [B, vocab], aw [B, T])."""
-        ((c, h),), aw_prev, ctx_prev = carry
+    def workspace(self, key_cache, values, klens) -> LasStepWorkspace:
+        """K2's workspace for a decode loop over these keys, values and
+        lengths (int32): built once, before the loop's first step."""
         cell = self.cells[0]
-        eg = self.embed(y_t) @ cell.w_ih[:self.emb_dim]
-        h, c, aw, ctx = las_step(
-            eg, ctx_prev, h, c, aw_prev, cell.w_ih[self.emb_dim:],
-            cell.w_hh, cell.bias, *self.attn.kernel_weights(), key_cache,
-            values, klens)
+        return LasStepWorkspace(
+            cell.w_ih[self.emb_dim:], cell.w_hh, cell.bias,
+            *self.attn.kernel_weights(), key_cache, values, klens)
+
+    def forward(self, carry, y_t, key_cache, values, klens, ws=None,
+                parent=None):
+        """carry as the module docstring; y_t [B] token ids; key_cache
+        [B, T, attn_dim]; values [B, T, enc_n_units]; klens [B] int32;
+        parent [B] int or None: row b continues row parent[b] of the carry
+        (a beam's reorder, done inside K2). With ``ws`` (``workspace()``
+        of the same keys, values and lengths; inference only) the carry
+        lives in the workspace, ``carry`` is not read, and the step
+        allocates nothing for K2. Returns (new_carry, logits [B, vocab],
+        aw [B, T])."""
+        cell = self.cells[0]
+        if ws is None:
+            ((c, h),), aw_prev, ctx_prev = carry
+            eg = self.embed(y_t) @ cell.w_ih[:self.emb_dim]
+            if parent is not None:
+                parent = parent.to(torch.int32)
+            h, c, aw, ctx = las_step(
+                eg, ctx_prev, h, c, aw_prev, cell.w_ih[self.emb_dim:],
+                cell.w_hh, cell.bias, *self.attn.kernel_weights(), key_cache,
+                values, klens, parent=parent)
+        else:
+            torch.mm(self.embed(y_t), cell.w_ih[:self.emb_dim], out=ws.eg)
+            if parent is not None:
+                ws.parent.copy_(parent)
+            h, c, aw, ctx = ws.step(use_parent=parent is not None)
         # readout order [dout, ctx] (JAX LASStep._generate)
         logits = self.output(torch.tanh(self.w_gen(torch.cat([h, ctx], -1))))
         return (((c, h),), aw, ctx), logits, aw
+
+
+class DecodeLoop:
+    """The decode steps of one loop over fixed keys, values and lengths,
+    through K2's workspace: the carry lives there (zero at the start), and
+    a beam search names each row's ``parent`` row of it. ``DecodeLoop.steps``
+    counts the steps taken by all loops."""
+
+    steps = 0
+
+    def __init__(self, step: LASStep, key_cache, values, klens):
+        self._step = step
+        self._fixed = (key_cache, values.contiguous(), klens)
+        self.ws = step.workspace(*self._fixed)
+
+    def step(self, y_t, parent=None):
+        """Tokens y_t [B] (and a beam's parent rows [B]) -> (logits
+        [B, vocab], aw [B, T]); aw is the workspace's own tensor,
+        overwritten by the step after the next."""
+        DecodeLoop.steps += 1
+        return self._step(None, y_t, *self._fixed, self.ws, parent)[1:]
 
 
 class RNNDecoder(nn.Module):
@@ -165,28 +213,35 @@ class RNNDecoder(nn.Module):
         return (((z(bs, self.n_units), z(bs, self.n_units)),),
                 z(bs, tmax), z(bs, self.enc_n_units))
 
-    def decode_step(self, carry, y_t, key_cache, eouts, klens):
-        """Single decode step. klens [B] int32: valid frames of each row
-        (the JAX ``mask`` is ``make_pad_mask(klens, T)``). Returns
-        (carry, logits [B, vocab], aw [B, T])."""
-        return self.step(carry, y_t, key_cache, eouts, klens)
+    def decode_loop(self, key_cache, eouts, klens) -> DecodeLoop:
+        """What a decode loop steps through: built once, before its first
+        step. klens [B] int32."""
+        return DecodeLoop(self.step, key_cache, eouts, klens)
 
+    def decode_step(self, carry, y_t, key_cache, eouts, klens, ws=None,
+                    parent=None):
+        """Single decode step. klens [B] int32: valid frames of each row
+        (the JAX ``mask`` is ``make_pad_mask(klens, T)``); ``ws`` and
+        ``parent`` as ``LASStep.forward``. Returns (carry, logits
+        [B, vocab], aw [B, T])."""
+        return self.step(carry, y_t, key_cache, eouts, klens, ws, parent)
+
+    @torch.inference_mode()
     def greedy_scan(self, eouts, elens, max_len: int):
         """Greedy decode fed by its own argmax, ``max_len`` steps at most.
         Returns (tokens [B, max_len] with PAD after eos, lens [B]), as the
         JAX scan; the loop stops once every row has emitted eos, since the
         JAX scan only appends PAD after that."""
-        bs, tmax, _ = eouts.shape
+        bs = eouts.shape[0]
         key_cache = self.precompute_keys(eouts)
         klens = elens.to(device=eouts.device, dtype=torch.int32)
-        carry = self.init_carry(bs, tmax, eouts.device, eouts.dtype)
+        loop = self.decode_loop(key_cache, eouts, klens)
         y = torch.full((bs,), EOS, dtype=torch.long, device=eouts.device)
         done = torch.zeros(bs, dtype=torch.bool, device=eouts.device)
         toks = torch.full((bs, max_len), PAD, dtype=torch.long,
                           device=eouts.device)
         for i in range(max_len):
-            carry, logits, _ = self.decode_step(carry, y, key_cache, eouts,
-                                                klens)
+            logits, _ = loop.step(y)
             y = logits.argmax(-1).masked_fill(done, PAD)
             done = done | (y == EOS)
             toks[:, i] = y

@@ -106,7 +106,8 @@ def load_library() -> ctypes.CDLL:
     entry_points = {
         "nsp_rel_attention_f32": [_P] * 9 + [_I] * 5 + [_P],
         "nsp_rel_attention_bwd_f32": [_P] * 15 + [_I] * 5 + [_P],
-        "nsp_las_step_f32": [_P] * 20 + [_I] * 7 + [_P],
+        "nsp_las_step_f32": [_P] * 22 + [_I] * 7 + [_P],
+        "nsp_las_step_plan_f32": [_P, _I, _I, _P, _P],
         "nsp_las_scan_f32": [_P] * 24 + [_I] * 8 + [_P],
         "nsp_las_scan_bwd_f32": [_P] * 31 + [_I] * 8 + [_P],
         "nsp_ctc_alpha_f32": [_P] * 6 + [_I] * 4 + [_P],
@@ -124,6 +125,6 @@ def load_library() -> ctypes.CDLL:
     lib.nsp_las_scan_bwd_smem_bytes.restype = ctypes.c_longlong
     lib.nsp_las_scan_bwd_parts.argtypes = [_I]
     lib.nsp_las_scan_bwd_parts.restype = _I
-    lib.nsp_ctc_smem_bytes.argtypes = [_I]
-    lib.nsp_ctc_smem_bytes.restype = ctypes.c_longlong
+    lib.nsp_ctc_max_labels.argtypes = []
+    lib.nsp_ctc_max_labels.restype = _I
     return lib

@@ -9,6 +9,17 @@ package's custom VJP ``_ctc_nll_bwd`` (``ops/ctc.py``): one beta pass from
 the saved alphas, the state occupancies, and their scatter into a dense
 gradient w.r.t. the log-probs.
 
+On the card a block of 256 threads takes an utterance (``ctc_alpha_ahead``
+and ``ctc_beta_grad_ahead``): a thread holds 1 to 16 states of the lattice
+(at most 2047 labels), the frame's alphas (or beta + emission) sit in
+shared memory with one barrier per frame, and the emissions (and saved
+alphas, in the backward) of the next frames are loaded ahead into
+registers, so that no frame waits for global memory. The backward is one
+pass per frame; it sums the blanks' occupancies inside each warp and adds
+them once per warp and frame, the labels' one ``atomicAdd`` each. It adds
+into a gradient that the wrapper zeroes: that memset is the loss's byte
+bound.
+
 Plain PyTorch versions beside it: ``ctc_forward_alphas`` (the forward) and
 ``ctc_loss_bwd_ref`` with ``ctc_backward_betas`` (the backward, written
 out, not autograd). ``CTCNll`` is the ``autograd.Function``: CPU tensors run
@@ -30,7 +41,6 @@ RECURRENCE_FLOPS = 13
 # the backward's occupancy per state and frame: alpha + beta + nll, exp,
 # times g
 GAMMA_FLOPS = 4
-SMEM_LIMIT = 232448
 
 
 def _extend(labels: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -178,10 +188,9 @@ def _check_args(log_probs, labels, logit_lengths, label_lengths):
     check("logit_lengths", logit_lengths, (b,), torch.int32)
     check("label_lengths", label_lengths, (b,), torch.int32)
     lib = load_library()
-    smem = lib.nsp_ctc_smem_bytes(labels.shape[1])
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"ctc_loss: {labels.shape[1]} labels need {smem} "
-                         f"bytes of shared memory, more than {SMEM_LIMIT}")
+    if labels.shape[1] > lib.nsp_ctc_max_labels():
+        raise ValueError(f"ctc_loss: {labels.shape[1]} labels, more than "
+                         f"the {lib.nsp_ctc_max_labels()} the kernels hold")
     return lib
 
 

@@ -16,28 +16,41 @@ cross-correlation of ``aw_prev`` (flax ``nn.Conv``; left pad ``(K-1)//2``),
 On the H100 a step over N rows is small: by bytes it needs the gate
 weights ((D + H) x 4H floats) and each row's keys and values over its valid
 frames once, but each of its kernels is short, so latency sets its time.
-The step is five kernels on one stream (source: ``csrc/las_step.cu``):
+The step is four kernels on one stream, as programmatic dependent launches
+(source: ``csrc/las_step.cu``):
 
-1. ``las_gates``: the split-K product [ctx_prev, h_prev] [W_ctx; W_h], a
-   block per (64 gate columns, 256 reduction rows, 32 rows) streaming its
-   tile of the weights once by cp.async;
-2. ``las_cell``: sums the (D + H) / 256 partials and applies the LSTM cell;
+1. ``las_gates_rows``: the split-K product [ctx_prev, h_prev] [W_ctx; W_h]
+   for up to 16 rows, shaped as a matrix-vector product: the weights go
+   from global memory straight to registers, x sits in shared memory and is
+   read by broadcast, and 10 rows cost 12 rows' arithmetic (more than 16
+   rows take K3's ``las_gates``, 32 rows at a time);
+2. ``las_cell``: sums the partials and applies the LSTM cell;
 3. ``las_query``: q = h W_q^T, a warp per output for 8 rows;
-4. ``las_attend_part``: a block per (16 frames, row), only over the row's
-   valid frames: location features, energies, then the block's own max,
+4. ``las_attend``: a block per (16 frames, row), only over the row's valid
+   frames: location features, energies, then the block's own max,
    exponentials, their sum and the unnormalised partial context
-   (``attend_parts_ref`` is its plain version from the energies on);
-5. ``las_attend_combine``: the row's softmax, once, from the blocks'
-   (max, sum) pairs, and the context from their partial contexts
-   (``attend_combine_ref``).
+   (``attend_parts_ref`` is its plain version from the energies on); the
+   block of a row that finishes last does the row's softmax, once, from the
+   blocks' (max, sum) pairs, and the context from their partial contexts
+   (``attend_combine_ref``). K3 runs these two halves as two kernels.
+
+``parent`` [N] makes row n read row ``parent[n]`` of the carry, so a beam
+search reorders its hypotheses inside the step and copies nothing. A decode
+loop steps through a ``LasStepWorkspace``: scratch, the ``eg`` and
+``parent`` buffers and two carry sets written in turns, allocated and
+checked once, so a step costs the host one ctypes call; ``las_step`` is the
+checked, allocating call with the same result bit for bit.
 
 The masked value is finfo(f32).min / 2 (``apply_mask_logits``), so a row
 with klen 0 gets uniform weights 1 / T over all T frames and the mean of
 its T value rows as context; the kernel treats such a row as T frames of
 equal energy, and reads no frame past klen for any other row. K3
-(``las_scan.py``) runs the same five kernels per teacher-forced step.
+(``las_scan.py``) runs five kernels of the same family per teacher-forced
+step.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 import torch.nn.functional as F
@@ -122,11 +135,17 @@ def attend_combine_ref(p, ms, part_ctx, klens, frames=ATTEND_FRAMES):
 
 
 def las_step_ref(eg, ctx_prev, h_prev, c_prev, aw_prev, w_ctx, w_h, bias,
-                 w_q, conv_w, w_f, v, kc, values, klens):
+                 w_q, conv_w, w_f, v, kc, values, klens, parent=None):
     """Plain PyTorch twin of the kernel. Shapes: eg [N, 4H], ctx_prev
     [N, D], h_prev / c_prev [N, H], aw_prev [N, T], w_ctx [D, 4H], w_h
     [H, 4H], bias [4H], w_q [A, H], conv_w [C, K], w_f [A, C], v [A], kc
-    [N, T, A], values [N, T, D], klens [N] int. Returns (h, c, aw, ctx)."""
+    [N, T, A], values [N, T, D], klens [N] int; parent [N] int or None:
+    row n takes row parent[n] of ctx_prev, h_prev, c_prev and aw_prev (a
+    beam's reorder). Returns (h, c, aw, ctx)."""
+    if parent is not None:
+        rows = parent.long()
+        ctx_prev, h_prev, c_prev, aw_prev = (
+            x[rows] for x in (ctx_prev, h_prev, c_prev, aw_prev))
     y = eg + ctx_prev @ w_ctx + h_prev @ w_h + bias
     i, f, g, o = y.chunk(4, dim=-1)
     c = torch.sigmoid(f) * c_prev + torch.sigmoid(i) * torch.tanh(g)
@@ -156,15 +175,10 @@ def las_step_cost(n, t, hd, d, a, ch, k, klens) -> tuple[int, int]:
     return flops, 4 * (weights + rows + n * (2 * hd + t + d))
 
 
-def las_step(eg, ctx_prev, h_prev, c_prev, aw_prev, w_ctx, w_h, bias,
-             w_q, conv_w, w_f, v, kc, values, klens):
-    """One decode step; arguments as ``las_step_ref``. CPU tensors take
-    the twin; CUDA tensors launch the kernel (float32, contiguous) or
-    raise. Every call adds one to ``las_step.launches``."""
-    args = (eg, ctx_prev, h_prev, c_prev, aw_prev, w_ctx, w_h, bias, w_q,
-            conv_w, w_f, v, kc, values, klens)
-    if on_cpu(*args):
-        return las_step_ref(*args)
+def _checked(eg, ctx_prev, h_prev, c_prev, aw_prev, w_ctx, w_h, bias, w_q,
+             conv_w, w_f, v, kc, values, klens, parent):
+    """Checks a step's CUDA operands (dtype, shape, contiguity, the shared
+    memory its blocks ask for). Returns (library, (N, T, H, D, A, C, K))."""
     n, t = aw_prev.shape
     hdim, d = h_prev.shape[1], ctx_prev.shape[1]
     a, (c_ch, k) = w_q.shape[0], conv_w.shape
@@ -173,24 +187,50 @@ def las_step(eg, ctx_prev, h_prev, c_prev, aw_prev, w_ctx, w_h, bias,
               "w_h": (hdim, 4 * hdim), "bias": (4 * hdim,), "w_q": (a, hdim),
               "conv_w": (c_ch, k), "w_f": (a, c_ch), "v": (a,),
               "kc": (n, t, a), "values": (n, t, d)}
-    for (name, shape), x in zip(shapes.items(), args):
+    for (name, shape), x in zip(shapes.items(), (
+            eg, ctx_prev, h_prev, c_prev, aw_prev, w_ctx, w_h, bias, w_q,
+            conv_w, w_f, v, kc, values)):
         check(name, x, shape)
     check("klens", klens, (n,), torch.int32)
+    if parent is not None:
+        check("parent", parent, (n,), torch.int32)
     lib = load_library()
     smem = lib.nsp_las_step_smem_bytes(t, hdim, d, a, c_ch, k)
     if smem > SMEM_LIMIT:
         raise ValueError(f"las_step: {t} frames need {smem} bytes of shared "
                          f"memory per block, more than {SMEM_LIMIT}")
+    return lib, (n, t, hdim, d, a, c_ch, k)
+
+
+def las_step(eg, ctx_prev, h_prev, c_prev, aw_prev, w_ctx, w_h, bias,
+             w_q, conv_w, w_f, v, kc, values, klens, parent=None):
+    """One decode step; arguments as ``las_step_ref``. CPU tensors take
+    the twin; CUDA tensors launch the kernel (float32, contiguous; klens
+    and parent int32) or raise. Checks its arguments and allocates its
+    scratch and outputs on every call: a decode loop takes a
+    ``LasStepWorkspace`` instead, which gives the same result bit for bit.
+    Every call adds one to ``las_step.launches``; the kernels it launched
+    go to ``las_step.kernels_per_step``."""
+    args = (eg, ctx_prev, h_prev, c_prev, aw_prev, w_ctx, w_h, bias, w_q,
+            conv_w, w_f, v, kc, values, klens)
+    if on_cpu(*args, *(() if parent is None else (parent,))):
+        return las_step_ref(*args, parent=parent)
+    lib, dims = _checked(*args, parent)
+    n, t, hdim, d, a = dims[:5]
     scratch = step_scratch(lib, n, t, hdim, d, a, eg.device)
     h = torch.empty_like(h_prev)
     c = torch.empty_like(c_prev)
     aw = torch.empty_like(aw_prev)
     ctx = torch.empty_like(ctx_prev)
+    launched = ctypes.c_int(0)
     err = lib.nsp_las_step_f32(
-        *(x.data_ptr() for x in (*args, scratch, h, c, aw, ctx)),
-        n, t, hdim, d, a, c_ch, k, stream_of(eg))
+        *(x.data_ptr() for x in args),
+        None if parent is None else parent.data_ptr(),
+        *(x.data_ptr() for x in (scratch, h, c, aw, ctx)),
+        ctypes.addressof(launched), *dims, stream_of(eg))
     raise_on_error("las_step", err)
     las_step.launches += 1
+    las_step.kernels_per_step = launched.value
     return h, c, aw, ctx
 
 
@@ -201,3 +241,94 @@ def step_scratch(lib, n, t, hdim, d, a, device):
 
 
 las_step.launches = 0
+las_step.kernels_per_step = 0
+
+
+class _Plan(ctypes.Structure):
+    """``NspLasStepPlan`` of ``csrc/las_step.cu``, field for field."""
+    _fields_ = (
+        [(name, ctypes.c_void_p) for name in (
+            "eg", "w_ctx", "w_h", "bias", "w_q", "conv_w", "w_f", "v", "kc",
+            "values", "klens", "parent", "scratch")]
+        + [(name, ctypes.c_void_p * 2) for name in ("h", "c", "aw", "ctx")]
+        + [(name, ctypes.c_int) for name in "NTHDACK"])
+
+
+class LasStepWorkspace:
+    """What one decode loop fixes for all its K2 steps over N rows and T
+    frames: the weights, keys, values and lengths (held, not copied), the
+    kernel's scratch, the buffers ``eg`` [N, 4H] and ``parent`` [N] int32
+    that the caller refills before a step, and two sets of the carry (h, c,
+    aw, ctx) that the steps write in turns, so a step never writes what it
+    reads and a beam's reorder (``parent``) needs no copy. Everything is
+    allocated and checked here, once; a step on the card is one ctypes call
+    with pointers taken here, and adds one to ``las_step.launches``. The
+    carry starts as zeros (``RNNDecoder.init_carry``). On CPU tensors a
+    step is ``las_step_ref`` copied into the other set. Not for autograd."""
+
+    def __init__(self, w_ctx, w_h, bias, w_q, conv_w, w_f, v, kc, values,
+                 klens):
+        n, t, _ = kc.shape
+        d, hdim = values.shape[2], w_h.shape[0]
+        dev = kc.device
+
+        def zeros(*shape, dtype=torch.float32):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        self.fixed = (w_ctx, w_h, bias, w_q, conv_w, w_f, v, kc, values,
+                      klens)
+        self.eg = zeros(n, 4 * hdim)
+        self.parent = torch.arange(n, dtype=torch.int32, device=dev)
+        self.sets = tuple((zeros(n, hdim), zeros(n, hdim), zeros(n, t),
+                           zeros(n, d)) for _ in range(2))
+        self.cur = 0          # the set that holds the carry
+        self._lib = None
+        h, c, aw, ctx = self.sets[0]
+        if on_cpu(*self.fixed):
+            return
+        self._lib, dims = _checked(self.eg, ctx, h, c, aw, *self.fixed,
+                                   self.parent)
+        self._scratch = step_scratch(self._lib, n, t, hdim, d,
+                                     w_q.shape[0], dev)
+        self._plan = _Plan(
+            self.eg.data_ptr(), *(x.data_ptr() for x in self.fixed),
+            self.parent.data_ptr(), self._scratch.data_ptr(),
+            *((ctypes.c_void_p * 2)(self.sets[0][i].data_ptr(),
+                                    self.sets[1][i].data_ptr())
+              for i in range(4)), *dims)
+        self._launched = ctypes.c_int(0)
+        self._call = (self._lib.nsp_las_step_plan_f32,
+                      ctypes.addressof(self._plan),
+                      ctypes.addressof(self._launched), dev.index)
+
+    @property
+    def carry(self):
+        """(h, c, aw, ctx) of the last step (zeros before the first)."""
+        return self.sets[self.cur]
+
+    def load_carry(self, ctx, h, c, aw):
+        """Copies a carry into the workspace (the next step reads it)."""
+        for dst, src in zip(self.carry, (h, c, aw, ctx)):
+            dst.copy_(src)
+
+    def step(self, use_parent: bool = False):
+        """One step from ``eg`` and the carry (row n reads row
+        ``parent[n]`` of it when use_parent). Returns the new carry (h, c,
+        aw, ctx): the workspace's own tensors, overwritten by the step
+        after the next."""
+        if self._lib is None:
+            ctx, h, c, aw = (self.carry[i] for i in (3, 0, 1, 2))
+            outs = las_step_ref(
+                self.eg, ctx, h, c, aw, *self.fixed,
+                parent=self.parent if use_parent else None)
+            for dst, src in zip(self.sets[self.cur ^ 1], outs):
+                dst.copy_(src)
+        else:
+            run, plan, launched, index = self._call
+            err = run(plan, self.cur, 1 if use_parent else 0, launched,
+                      torch._C._cuda_getCurrentRawStream(index))
+            raise_on_error("las_step", err)
+            las_step.launches += 1
+            las_step.kernels_per_step = self._launched.value
+        self.cur ^= 1
+        return self.sets[self.cur]

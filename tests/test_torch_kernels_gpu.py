@@ -109,6 +109,170 @@ def test_las_step_kernel(cuda, n, t, hd, d, a, ch, k):
         torch.testing.assert_close(got, want, atol=TOL, rtol=TOL, msg=name)
 
 
+def _randn(rng, dev, *shape, scale=1.0):
+    return torch.from_numpy((rng.randn(*shape) * scale).astype(np.float32)).to(dev)
+
+
+def _step_inputs(rng, dev, n, t, hd, d, a, ch, k, klens):
+    def f(*shape, scale=1.0):
+        return _randn(rng, dev, *shape, scale=scale)
+
+    state = (f(n, 4 * hd), f(n, d), f(n, hd), f(n, hd),
+             torch.softmax(f(n, t, scale=2.0), -1))
+    fixed = (f(d, 4 * hd, scale=(d + hd) ** -0.5),
+             f(hd, 4 * hd, scale=(d + hd) ** -0.5), f(4 * hd, scale=0.1),
+             f(a, hd, scale=hd ** -0.5), f(ch, k, scale=k ** -0.5),
+             f(a, ch, scale=ch ** -0.5), f(a, scale=a ** -0.5),
+             f(n, t, a), f(n, t, d),
+             torch.tensor(klens, dtype=torch.int32, device=dev))
+    return state, fixed
+
+
+def _parents(n):
+    perm = np.random.RandomState(n).permutation(n)
+    return {"none": None, "identity": list(range(n)),
+            "permutation": perm.tolist(), "all-equal": [n - 1] * n}
+
+
+# K2's tiles: the gate product for up to 16 rows in registers (4, 8, 12 or
+# 16 rows), more rows 32 at a time; one query row group per 16 rows; a
+# block per 16 frames of a row, the last of a row's blocks to finish doing
+# the row's softmax (two kernels where a row has more blocks than its block
+# has room for). klens None: ragged from T down; a row with klen 0 gets
+# uniform weights over all T frames.
+@pytest.mark.parametrize("n,t,hd,d,a,ch,k,klens", [
+    (10, 200, 1024, 512, 512, 10, 201, None),     # flagship beam 10
+    (1, 200, 1024, 512, 512, 10, 201, None),      # greedy, one utterance
+    (4, 200, 1024, 512, 512, 10, 201, [200, 163, 125, 88]),  # greedy batch
+    (16, 256, 64, 48, 40, 10, 201, None),         # the largest cluster
+    (17, 257, 64, 48, 40, 4, 6, None),            # one past both limits
+    (33, 15, 64, 48, 40, 4, 6, None),             # 32-row gates, one block
+    (40, 200, 1024, 512, 512, 10, 201, None),     # 4 utterances x beam 10
+    (3, 1, 32, 24, 16, 4, 6, [1, 1, 0]),          # T = 1
+    (5, 16, 32, 24, 16, 4, 6, [16, 15, 1, 0, 8]),  # exactly one block
+    (5, 17, 32, 24, 16, 4, 6, [17, 16, 1, 0, 9]),  # one frame past a block
+    (6, 600, 64, 48, 40, 4, 6, [600, 0, 1, 300, 16, 599]),  # 38 blocks a row
+    (3, 15000, 32, 24, 16, 4, 6, [15000, 0, 7001]),  # attention in two kernels
+    (5, 33, 64, 48, 40, 4, 6, [33, 32, 0, 17, 16]),  # last block all masked
+    (10, 49, 30, 22, 18, 3, 5, None),             # widths no multiple of 4
+    (12, 40, 64, 48, 40, 12, 7, None),            # C past one group of 10
+    (9, 50, 64, 48, 40, 23, 9, None),             # three groups of channels
+])
+def test_las_step_beam_shapes(cuda, n, t, hd, d, a, ch, k, klens):
+    from neural_sp_tpu_torch.ops.kernels.las_step import LasStepWorkspace
+    rng = np.random.RandomState(n + t)
+    if klens is None:
+        klens = [max(t - 3 * i, 0) for i in range(n)]
+    state, fixed = _step_inputs(rng, cuda, n, t, hd, d, a, ch, k, klens)
+    for what, parent in _parents(n).items():
+        par = None if parent is None else torch.tensor(
+            parent, dtype=torch.int32, device=cuda)
+        before = las_step.launches
+        outs = las_step(*state, *fixed, parent=par)
+        ws = LasStepWorkspace(*fixed)
+        ws.load_carry(*state[1:])
+        ws.eg.copy_(state[0])
+        if par is not None:
+            ws.parent.copy_(par)
+        twice = [ws.step(use_parent=par is not None)]
+        # a second step from the same carry into the other set
+        ws.cur ^= 1
+        ws.load_carry(*state[1:])
+        twice.append(ws.step(use_parent=par is not None))
+        torch.cuda.synchronize()
+        assert las_step.launches == before + 3
+        # the attention's blocks of 16 frames per row against the floats of
+        # shared memory its block has for their scales
+        room = 16 * (a + d) + ch * k + 16 + k - 1 + 16 * ch + 16 + 8 * 16
+        assert las_step.kernels_per_step == (4 if -(-t // 16) <= room else 5)
+        refs = las_step_ref(*state, *fixed, parent=par)
+        for name, got, want, w0, w1 in zip(("h", "c", "aw", "ctx"), outs,
+                                           refs, *twice):
+            torch.testing.assert_close(got, want, atol=TOL, rtol=TOL,
+                                       msg=f"{what}: {name}")
+            assert torch.equal(w0, got) and torch.equal(w1, got), \
+                f"{what}: the workspace's {name} differs from the plain call"
+
+
+def test_las_step_workspace_threads_its_carry(cuda):
+    """Five steps through the workspace, reordered between steps, against
+    the plain version threaded the same way."""
+    from neural_sp_tpu_torch.ops.kernels.las_step import LasStepWorkspace
+    rng = np.random.RandomState(11)
+    n, t, hd, d, a, ch, k = 10, 200, 1024, 512, 512, 10, 201
+    state, fixed = _step_inputs(rng, cuda, n, t, hd, d, a, ch, k,
+                                [t - 7 * i for i in range(n)])
+    ws = LasStepWorkspace(*fixed)
+    zero = [torch.zeros_like(x) for x in state[1:]]
+    ctx, h, c, aw = zero
+    for step in range(5):
+        eg = _randn(rng, cuda, n, 4 * hd, scale=0.5)
+        par = None if step == 0 else torch.from_numpy(
+            rng.randint(0, n, n).astype(np.int32)).to(cuda)
+        ws.eg.copy_(eg)
+        if par is not None:
+            ws.parent.copy_(par)
+        got = ws.step(use_parent=par is not None)
+        h, c, aw, ctx = las_step_ref(eg, ctx, h, c, aw, *fixed, parent=par)
+        for name, x, y in zip(("h", "c", "aw", "ctx"), got, (h, c, aw, ctx)):
+            torch.testing.assert_close(x, y, atol=TOL, rtol=TOL,
+                                       msg=f"step {step}: {name}")
+    assert las_step.kernels_per_step == 4
+
+
+@pytest.mark.parametrize("n,reorder", [(40, True), (10, True), (4, True),
+                                       (4, False), (17, True)])
+def test_decode_loop_against_the_plain_chain(cuda, n, reorder):
+    """A ``DecodeLoop`` on the card (the carry in K2's workspace, random
+    ``parent`` rows) against the chain of plain decode steps on the same
+    tokens and parents, for six steps: logits and attention weights at
+    every step, and one K2 launch counted per step."""
+    from unittest import mock
+    from neural_sp_tpu_torch.models.decoders import las
+    from neural_sp_tpu_torch.utils.init_params import init_params
+    dec = las.RNNDecoder(vocab=50, enc_n_units=48, n_units=64, emb_dim=32,
+                         bottleneck_dim=64, attn_dim=40).to(cuda)
+    init_params(dec, n).eval()
+    rng = np.random.RandomState(n)
+    t = 70
+    e = _randn(rng, cuda, n, t, 48)
+    klens = torch.tensor([max(t - 5 * i, 0) for i in range(n)],
+                         dtype=torch.int32, device=cuda)
+    with torch.inference_mode():
+        kc = dec.precompute_keys(e)
+        loop = dec.decode_loop(kc, e, klens)
+        carry = dec.init_carry(n, t, cuda)
+        before, steps = las_step.launches, las.DecodeLoop.steps
+        par = None
+        for i in range(6):
+            y = torch.from_numpy(rng.randint(0, 50, n)).to(cuda)
+            if reorder and i > 0:
+                par = torch.from_numpy(
+                    rng.randint(0, n, n).astype(np.int32)).to(cuda)
+            logits, aw = loop.step(y, par)
+            with mock.patch.object(las, "las_step", las_step_ref):
+                carry, logits_ref, aw_ref = dec.decode_step(
+                    carry, y, kc, e, klens, parent=par)
+            torch.testing.assert_close(logits, logits_ref, atol=TOL, rtol=TOL,
+                                       msg=f"step {i}: logits")
+            torch.testing.assert_close(aw, aw_ref, atol=TOL, rtol=TOL,
+                                       msg=f"step {i}: aw")
+    assert las_step.launches == before + 6
+    assert las.DecodeLoop.steps == steps + 6
+
+
+def test_las_step_refuses_bad_arguments(cuda):
+    rng = np.random.RandomState(0)
+    state, fixed = _step_inputs(rng, cuda, 2, 9, 8, 6, 4, 2, 3, [9, 4])
+    par = torch.tensor([1, 0], device=cuda)          # int64
+    with pytest.raises(TypeError):
+        las_step(*state, *fixed, parent=par)
+    with pytest.raises(ValueError, match="lie on the CPU or all on one"):
+        las_step(*state, *fixed, parent=par.int().cpu())
+    with pytest.raises(ValueError, match="shape"):
+        las_step(*state, *fixed, parent=par.int()[:1])
+
+
 # ---- training kernels: K1b, K3 / K3b, K4 -------------------------------
 # Their outputs are sums over T (or over U reverse steps), so the error is
 # held relative to the reference's largest magnitude: max|got - want| <=
@@ -120,10 +284,6 @@ def _close(got, want, what=""):
     scale = max(float(want.abs().max()), 1e-30)
     err = float((got - want).abs().max()) / scale
     assert err <= REL_TOL, f"{what}: relative error {err:.3e}"
-
-
-def _randn(rng, dev, *shape, scale=1.0):
-    return torch.from_numpy((rng.randn(*shape) * scale).astype(np.float32)).to(dev)
 
 
 @pytest.mark.parametrize("b,h,t,dk,r,klens", REL_ATTENTION_SHAPES)
@@ -296,6 +456,86 @@ def test_ctc_loss_kernel(cuda, b, t, u, v, tl, ul):
     _close(grad, ctc_loss_bwd_ref(*args, nll_ref, alphas_ref, g), "grad")
 
 
+def _ctc_case(name):
+    """(T, U, V, labels [B, U], frame lengths, label lengths) of an edge
+    case of K4; its kernels hold 2U + 1 <= 4096 states, 1, 2, 4, 8 or 16
+    per thread of a block of 256."""
+    rng = np.random.RandomState(len(name))
+    if name == "no labels":                        # U_b = 0: blanks only
+        return 9, 2, 7, rng.randint(1, 7, (3, 2)), [9, 1, 5], [0, 0, 1]
+    if name == "one frame":                        # T_b = 1 and T_b = 0
+        return 6, 3, 11, rng.randint(1, 11, (4, 3)), [1, 6, 0, 2], [1, 3, 0, 1]
+    if name == "repeated labels":                  # no skip between equals
+        lab = np.repeat(rng.randint(1, 9, (3, 6)), 2, axis=1)
+        return 40, 12, 9, lab, [40, 31, 25], [12, 12, 9]
+    if name == "few symbols":                      # V = 5: blanks weigh much
+        return 50, 14, 5, rng.randint(1, 5, (5, 14)), [50, 44, 29, 50, 15], \
+            [14, 10, 14, 1, 7]
+    if name == "ids outside the vocabulary":       # emit 0, no gradient
+        lab = rng.randint(1, 20, (3, 8))
+        lab[0, 2], lab[1, 0], lab[2, 7] = 20, -3, 1000
+        return 30, 8, 20, lab, [30, 30, 22], [8, 8, 8]
+    if name == "label 0":                          # a label with the blank's id
+        lab = rng.randint(0, 6, (3, 10))
+        lab[:, 3] = 0
+        return 40, 10, 6, lab, [40, 35, 28], [10, 7, 10]
+    if name == "256 states":                       # the last one a thread
+        return 140, 127, 50, rng.randint(1, 50, (4, 127)), \
+            [140, 135, 140, 40], [127, 126, 17, 127]
+    if name == "511 states":                       # two a thread
+        return 300, 255, 300, rng.randint(1, 300, (2, 255)), [300, 290], \
+            [255, 254]
+    if name == "601 states":                       # four a thread
+        return 320, 300, 400, rng.randint(1, 400, (2, 300)), [320, 310], \
+            [300, 250]
+    if name == "1041 states":                      # eight a thread
+        return 560, 520, 300, rng.randint(1, 300, (2, 520)), [560, 541], \
+            [520, 400]
+    if name == "2499 states":                      # sixteen a thread
+        return 1300, 1249, 40, rng.randint(1, 40, (2, 1249)), [1300, 1290], \
+            [1249, 1100]
+    if name == "many utterances":                  # more blocks than SMs
+        return 25, 6, 30, rng.randint(1, 30, (300, 6)), \
+            [25 - i % 20 for i in range(300)], [6 - i % 7 for i in range(300)]
+    raise KeyError(name)
+
+
+@pytest.mark.parametrize("name", [
+    "no labels", "one frame", "repeated labels", "few symbols",
+    "ids outside the vocabulary", "label 0", "256 states", "511 states",
+    "601 states", "1041 states", "2499 states", "many utterances"])
+def test_ctc_loss_kernel_edges(cuda, name):
+    from neural_sp_tpu_torch.ops.kernels.ctc_loss import (
+        ctc_forward_alphas, ctc_loss_bwd, ctc_loss_bwd_ref, ctc_loss_fwd)
+    t, u, v, labels, tl, ul = _ctc_case(name)
+    b = len(tl)
+    rng = np.random.RandomState(t)
+    lp = torch.log_softmax(_randn(rng, cuda, b, t, v, scale=2.0), -1)
+    args = (lp, torch.tensor(labels, dtype=torch.int32, device=cuda).view(b, u),
+            torch.tensor(tl, dtype=torch.int32, device=cuda),
+            torch.tensor(ul, dtype=torch.int32, device=cuda))
+    nll, alphas = ctc_loss_fwd(*args)
+    ref_args = args
+    if name == "ids outside the vocabulary":
+        # the plain version gathers, so it is given what "emits 0" means: a
+        # column of zeros past the vocabulary that every such id points to
+        bad = (args[1] < 0) | (args[1] >= v)
+        ref_args = (torch.cat([lp, torch.zeros_like(lp[..., :1])], -1),
+                    torch.where(bad, torch.full_like(args[1], v), args[1]),
+                    *args[2:])
+    nll_ref, alphas_ref = ctc_forward_alphas(*ref_args)
+    feasible = nll_ref < 1e29
+    if bool(feasible.any()):
+        _close(nll[feasible], nll_ref[feasible], "nll")
+    assert bool((nll[~feasible] >= 1e29).all())
+    _close(alphas.clamp(min=-1e4), alphas_ref.clamp(min=-1e4), "alphas")
+    g = feasible.float() * torch.linspace(0.5, 1.5, b, device=cuda)
+    grad = ctc_loss_bwd(*args, nll_ref, alphas_ref, g)
+    torch.cuda.synchronize()
+    grad_ref = ctc_loss_bwd_ref(*ref_args, nll_ref, alphas_ref, g)
+    _close(grad, grad_ref[..., :v], "grad")
+
+
 def test_ctc_loss_refuses_bad_arguments(cuda):
     from neural_sp_tpu_torch.ops.kernels.ctc_loss import ctc_loss_fwd
     lp = torch.zeros(2, 5, 7, device=cuda)
@@ -305,6 +545,6 @@ def test_ctc_loss_refuses_bad_arguments(cuda):
         ctc_loss_fwd(lp, lab.long(), lens, lens)
     with pytest.raises(ValueError, match="lie on the CPU or all on one"):
         ctc_loss_fwd(lp, lab, lens.cpu(), lens)
-    with pytest.raises(ValueError, match="shared memory"):
-        ctc_loss_fwd(lp, torch.ones(2, 40000, dtype=torch.int32,
+    with pytest.raises(ValueError, match="more than the 2047"):
+        ctc_loss_fwd(lp, torch.ones(2, 2048, dtype=torch.int32,
                                     device=cuda), lens, lens)

@@ -17,6 +17,7 @@ from neural_sp_tpu.models.decoders.las import RNNDecoder as JaxRNNDecoder
 from neural_sp_tpu.ops.masks import make_pad_mask as jax_pad_mask
 from neural_sp_tpu_torch.models.decoders.las import RNNDecoder
 from neural_sp_tpu_torch.ops.kernels import las_step, las_step_ref
+from neural_sp_tpu_torch.ops.kernels.las_step import LasStepWorkspace
 from neural_sp_tpu_torch.utils.convert_params import convert_params
 
 ATOL = RTOL = 2e-4
@@ -137,3 +138,151 @@ def test_las_step_cpu_dispatch_is_the_twin():
     for got, want in zip(las_step(*args), las_step_ref(*args)):
         assert torch.equal(got, want)
     assert las_step.launches == before
+
+
+def test_las_step_ref_parent_is_a_gather_of_the_carry():
+    """Row n of a step with ``parent`` is row n of a step on the carry
+    gathered beforehand (a beam's reorder), exactly."""
+    rng = np.random.RandomState(4)
+    args = [torch.from_numpy(x) for x in _step_args(rng, 3, 9, 8, 6, 5, 3, 7)]
+    for parent in ([2, 0, 0], [1, 1, 1], [0, 1, 2]):
+        par = torch.tensor(parent, dtype=torch.int32)
+        gathered = list(args)
+        for i in (1, 2, 3, 4):
+            gathered[i] = args[i][par.long()]
+        for got, want in zip(las_step_ref(*args, parent=par),
+                             las_step_ref(*gathered)):
+            assert torch.equal(got, want)
+        for got, want in zip(las_step(*args, parent=par),
+                             las_step_ref(*gathered)):
+            assert torch.equal(got, want)
+
+
+def test_workspace_equals_plain_call_over_three_steps():
+    """The workspace form against the plain call, threaded for three steps
+    (the two carry sets written in turns), the second and third with a
+    reorder: every output equal, exactly."""
+    rng = np.random.RandomState(5)
+    n, t, hd, d, a, ch, k = 3, 9, 8, 6, 5, 3, 7
+    args = [torch.from_numpy(x)
+            for x in _step_args(rng, n, t, hd, d, a, ch, k)]
+    fixed = args[5:]
+    ws = LasStepWorkspace(*fixed)
+    assert all(float(x.abs().max()) == 0.0 for x in ws.carry)
+    ws.load_carry(*args[1:5])
+    ctx, h, c, aw = args[1:5]
+    before = las_step.launches
+    seen = []
+    for step, parent in enumerate((None, [2, 2, 0], [1, 0, 1])):
+        eg = torch.from_numpy(rng.randn(n, 4 * hd).astype(np.float32))
+        par = None if parent is None else torch.tensor(parent,
+                                                       dtype=torch.int32)
+        ws.eg.copy_(eg)
+        if par is not None:
+            ws.parent.copy_(par)
+        got = ws.step(use_parent=par is not None)
+        h, c, aw, ctx = las_step(eg, ctx, h, c, aw, *fixed, parent=par)
+        for name, x, y in zip(("h", "c", "aw", "ctx"), got, (h, c, aw, ctx)):
+            assert torch.equal(x, y), f"step {step}: {name}"
+        assert got is ws.carry
+        seen.append(got[0].data_ptr())
+    assert seen[0] == seen[2] != seen[1]      # two sets, in turns
+    assert las_step.launches == before        # CPU: the plain version
+
+
+# Tokens of the decode loops on a small seeded model, pinned from the
+# version that reordered the beam's carry with indexed copies outside K2:
+# the reorder inside the step (``parent``) and the workspace must not move
+# a token. Beam widths 1 (greedy), 3 and 10; "device": the batched
+# on-device beam; "host": the label-synchronous beam with joint CTC 0.3
+# and a coverage penalty, one utterance at a time.
+PINNED_TOKENS = \
+    {'device_1': [[22, 21, 21, 21, 21, 21, 21, 21, 21, 21, 21, 21, 21, 21, 21,
+                   21, 21, 21, 21, 21, 21, 21, 21, 21, 21, 21, 21, 21, 21,
+                   21],
+                  [22, 21, 21, 21, 21, 21, 21, 21, 21, 21, 21, 21, 21, 21, 21,
+                   21, 21, 21, 21, 21, 21, 21, 21, 21, 21, 21, 21, 21, 21,
+                   21],
+                  [11, 21, 21, 21, 21, 21, 21, 21, 21, 21, 21, 21, 21, 21, 21,
+                   21, 21, 21, 21, 21, 21, 21, 21, 21, 21, 21, 21, 21, 21,
+                   21]],
+     'device_10': [[22, 21, 21], [22, 21], [11]],
+     'device_3': [[22, 21, 21], [22, 21], [11]],
+     'host_10': [[22, 21, 21, 21, 21, 21, 21, 21, 21, 21, 21, 21, 22, 21, 21,
+                  21, 22, 21, 21, 21, 21, 22, 22, 21, 22, 21, 21, 22, 22, 21],
+                 [22, 22, 21, 21, 21, 21, 11, 11, 21, 21, 21, 21, 21, 21, 21,
+                  21, 21, 22, 21, 21, 21, 21, 21],
+                 [21, 21, 21, 21, 21, 21, 21, 21, 21, 11, 21, 21, 21, 21, 21,
+                  21]],
+     'host_3': [[11, 22, 21, 21, 21, 21, 21, 21, 21, 21, 21, 21, 21, 21, 21,
+                 21, 21, 21, 21, 21, 21, 21, 21, 21, 21, 21, 21, 21, 21, 21],
+                [22, 21, 21, 21, 21, 21, 21, 21, 21, 21, 21, 21, 21, 21, 21,
+                 21, 21, 21, 21, 21, 21, 21, 21],
+                [11, 21, 21, 21, 21, 21, 21, 21, 21, 21, 21, 21, 21, 21, 21,
+                 21]]}
+
+
+@pytest.fixture(scope="module")
+def small_model():
+    from types import SimpleNamespace
+    from neural_sp_tpu_torch.configs import flagship_args
+    from neural_sp_tpu_torch.models.speech2text import build_speech2text
+    from neural_sp_tpu_torch.utils.init_params import init_params
+    args = vars(flagship_args(faithful=True))
+    args.update(enc_n_layers=2, transformer_d_model=64,
+                transformer_d_ff=128, transformer_n_heads=4, dec_n_units=64,
+                emb_dim=32, dec_bottleneck_dim=64, attn_dim=32, vocab=40,
+                subsample="1_2")
+    model = build_speech2text(SimpleNamespace(**args), device="cpu")
+    init_params(model, 3)
+    rng = np.random.RandomState(3)
+    xs = rng.randn(3, 120, 80).astype(np.float32)
+    return model.eval(), xs, np.array([120, 90, 61], np.int32)
+
+
+@pytest.mark.parametrize("name", sorted(PINNED_TOKENS))
+def test_decode_loops_keep_their_tokens(small_model, name):
+    from neural_sp_tpu_torch.models.decoders.decoding import (
+        DecodeConfig, Speech2TextSession)
+    model, xs, xlens = small_model
+    kind, width = name.split("_")
+    if int(width) == 1:
+        conf = DecodeConfig(beam_width=1)
+    elif kind == "device":
+        conf = DecodeConfig(beam_width=int(width), device_beam=True,
+                            min_len_ratio=0.1)
+    else:
+        conf = DecodeConfig(beam_width=int(width), ctc_weight=0.3,
+                            coverage_penalty=0.2)
+    assert Speech2TextSession(model, conf).decode(xs, xlens) == \
+        PINNED_TOKENS[name]
+
+
+@pytest.mark.parametrize("reorder", [False, True])
+def test_decode_loop_steps_equal_the_plain_chain(small_model, reorder):
+    """A ``DecodeLoop`` (the carry in K2's workspace, a beam's reorder as
+    ``parent``) against ``decode_step`` threaded by hand with the carry
+    reordered the same way: logits and attention weights equal at every
+    step, exactly, and ``DecodeLoop.steps`` counts the steps."""
+    from neural_sp_tpu_torch.models.decoders.las import DecodeLoop
+    dec = small_model[0].dec_fwd
+    rng = np.random.RandomState(6)
+    n, t = 5, 12
+    e = torch.from_numpy(rng.randn(n, t, dec.enc_n_units).astype(np.float32))
+    klens = torch.tensor([12, 9, 1, 0, 7], dtype=torch.int32)
+    with torch.inference_mode():
+        kc = dec.precompute_keys(e)
+        loop = dec.decode_loop(kc, e, klens)
+        carry = dec.init_carry(n, t, e.device)
+        before = DecodeLoop.steps
+        par = None
+        for i in range(4):
+            y = torch.from_numpy(rng.randint(0, dec.vocab, n))
+            if reorder and i > 0:
+                par = torch.from_numpy(rng.randint(0, n, n).astype(np.int32))
+            logits, aw = loop.step(y, par)
+            carry, logits_ref, aw_ref = dec.decode_step(carry, y, kc, e,
+                                                        klens, parent=par)
+            assert torch.equal(logits, logits_ref), f"step {i}"
+            assert torch.equal(aw, aw_ref), f"step {i}"
+    assert DecodeLoop.steps == before + 4
