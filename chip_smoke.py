@@ -48,20 +48,33 @@ Phases (any failure raises and the script exits non-zero):
      errors are normalised by the reference's largest magnitude; K1b
      against the autograd backward of K1's yardstick, K4 against
      ``F.ctc_loss``; each with its bound;
+     Then K1's and K1b's bf16 entries at the same shapes, ragged and full
+     lengths, each against its plain bf16 version (1e-2 of the
+     reference's max) and against the plain float32 version on the same
+     bf16-rounded inputs (its error at most 1.5x the plain bf16
+     version's), timed in turns with efficient SDPA in bf16 (and its
+     backward), with the bound at the bf16 tensor-core peak; and the time
+     of LASScan's casts at K3's and K3b's boundary under bf16 compute;
   5. train the flagship (same model, ``train()`` mode: SpecAugment and
      dropout on, f32, TF32 off) with noam Adam, clip 5 and 4-step
      accumulation on B=32 utterances of 1500 frames x 80 with U=100 labels:
      one warm-up optimizer step, then 2 timed ones (counts zeroed just
      before all 12 microsteps and read just after; K1, K1b, K3, K3b and K4
      must have run; K3's and K3b's kernel launches per call read there
-     too), and profile one microstep;
+     too), and profile one microstep; then the same at bf16 compute over
+     float32 master weights (``train_dtype`` "bfloat16", as ``bench.py``
+     times the JAX step): K1's and K1b's bf16 entries, K3, K3b and K4 must
+     have run, and no float32 K1 / K1b;
   6. one microstep's loss and every gradient in ``eval()`` mode with the
-     kernels against the plain versions patched in, then 5 Adam steps
-     (lr 1e-4) on a fixed batch of 8 utterances in ``train()`` mode, whose
-     loss must fall.
+     kernels against the plain versions patched in;
+  6b. the same at bf16 compute, the loss and each gradient leaf held to
+     twice its own |plain bf16 - plain f32| plus phase 6's tolerance; then
+     5 Adam steps (lr 1e-4) on a fixed batch of 8 utterances in
+     ``train()`` mode, in float32 and at bf16, whose loss must fall.
 
 Launches per step (per encode for K1, per decode step for K2, per training
-microstep for the rest) are counted in phases 3b, 4 and 5. Prints the
+microstep for the rest; K1 / K1b bf16 in phase 5's bf16 run) are counted
+in phases 3b, 4 and 5. Prints the
 details as JSON (also written to ``chiprun_out/chip_smoke.json``), then one
 JSON line of per-kernel results (launches, launches_per_step, ms,
 plain_ms, bound_ms, bound_by, library_ms, errors), the card's ``name,
@@ -109,6 +122,19 @@ LOSS_RTOL = 1e-4
 GRAD_RTOL, GRAD_FLOOR = 2e-3, 1e-5
 ZERO_GRAD_LEAF = ".mha.w_key.bias"
 TRAIN_B, TRAIN_FRAMES, TRAIN_U, ACCUM = 32, 1500, 100, 4
+# K1 / K1b's bf16 entries vs their plain bf16 versions, max |err| / max
+# |reference|: bf16 carries 8 significant bits; the two round P and ds at
+# the same points but sum in other orders.
+BF16_KERNEL_TOL = 1e-2
+# ... and against the plain float32 version on the same bf16-rounded
+# inputs: the kernel's error at most this multiple of the plain bf16
+# version's, so the kernel is no less exact than the plain path.
+BF16_VS_F32_RATIO = 1.5
+# Phase 6b, the bf16 microstep, kernels vs plain versions: the loss and
+# each gradient leaf to twice that quantity's own |plain bf16 - plain f32|
+# (max |.|), plus phase 6's float32 tolerance (LOSS_RTOL; GRAD_RTOL of the
+# leaf's max, GRAD_FLOOR of the largest gradient for the key biases).
+BF16_PATH_FACTOR = 2.0
 
 
 def log(msg: str) -> None:
@@ -138,16 +164,22 @@ def timed_pair(fn, library, iters: int = 20) -> tuple[float, float]:
     return (k1 + k2) / 2, (l1 + l2) / 2
 
 
-def roofline(cost: tuple[int, int], simt: bool = False) -> dict:
+def roofline(cost: tuple[int, int], simt: bool = False,
+             bf16: bool = False) -> dict:
     """The least time the card could take for (flops, bytes): bound_ms and
-    bound_by; for matrix products also the bound on the SIMT pipes alone
-    (what the f32 kernels without tensor cores can reach at best)."""
+    bound_by, at the peak of the kernel's products (``peak_flops``: float32
+    on the tensor cores by the 3xTF32 split, bf16 on the tensor cores for
+    the bf16 entries, or the SIMT pipes); for matrix products also the
+    bound on the SIMT pipes alone (what the f32 kernels without tensor
+    cores can reach at best)."""
     from neural_sp_tpu_torch.ops.kernels.roofline import (
-        F32_SIMT_FLOPS, F32_TENSOR_FLOPS, bound_ms)
+        BF16_TENSOR_FLOPS, F32_SIMT_FLOPS, F32_TENSOR_FLOPS, bound_ms)
     flops, nbytes = cost
-    ms, by = bound_ms(flops, nbytes, F32_SIMT_FLOPS if simt
-                      else F32_TENSOR_FLOPS)
-    out = {"flops": flops, "bytes": nbytes, "bound_ms": ms, "bound_by": by}
+    peak = F32_SIMT_FLOPS if simt else BF16_TENSOR_FLOPS if bf16 \
+        else F32_TENSOR_FLOPS
+    ms, by = bound_ms(flops, nbytes, peak)
+    out = {"flops": flops, "bytes": nbytes, "bound_ms": ms, "bound_by": by,
+           "peak_flops": peak}
     if not simt:
         out["simt_bound_ms"] = bound_ms(flops, nbytes, F32_SIMT_FLOPS)[0]
     return out
@@ -158,14 +190,16 @@ def max_err(a, b) -> float:
 
 
 def rel_bias(torch, p, klens):
-    """K1's rel-PE bias and key mask as one additive [B, H, T, T] mask for
-    the library yardstick: p[b, h, i, min(|i-j|, R-1)] on valid keys,
-    finfo(f32).min / 2 on masked ones. A view into rows padded to a
-    multiple of 16 floats, the alignment the efficient kernel takes."""
+    """K1's rel-PE bias and key mask as one additive [B, H, T, T] mask, in
+    p's type, for the library yardstick: p[b, h, i, min(|i-j|, R-1)] on
+    valid keys, finfo(f32).min / 2 on masked ones. A view into rows padded
+    to a multiple of 16 elements, the alignment the efficient kernel
+    takes."""
     b, h, t, r = p.shape
     pos = torch.arange(t, device=p.device)
     idx = (pos[:, None] - pos[None, :]).abs().clamp(max=r - 1)
-    bias = torch.empty((b, h, t, -(-t // 16) * 16), device=p.device)[..., :t]
+    bias = torch.empty((b, h, t, -(-t // 16) * 16), device=p.device,
+                       dtype=p.dtype)[..., :t]
     bias.copy_(torch.gather(p, -1, idx.expand(b, h, t, t)))
     masked = pos[None, :] >= klens[:, None].long()
     return bias.masked_fill_(masked[:, None, None, :],
@@ -173,29 +207,32 @@ def rel_bias(torch, p, klens):
 
 
 def bias_grad_to_buckets(torch, dbias, r):
-    """dbias [B, H, T, T] summed into the R distance buckets of dp."""
+    """dbias [B, H, T, T] summed into the R distance buckets of dp (in
+    float32, returned in dbias's type)."""
     b, h, t, _ = dbias.shape
     pos = torch.arange(t, device=dbias.device)
     idx = (pos[:, None] - pos[None, :]).abs().clamp(max=r - 1)
     return torch.zeros((b, h, t, r), device=dbias.device).scatter_add_(
-        -1, idx.expand(b, h, t, t), dbias)
+        -1, idx.expand(b, h, t, t), dbias.float()).to(dbias.dtype)
 
 
 def efficient_sdpa():
     """The efficient-attention backend only: float32 on the tensor cores
-    with the 3xTF32 split, taking an additive float mask."""
+    with the 3xTF32 split (bf16 inputs: bf16 products), taking an additive
+    mask of the inputs' type."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
     return sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION)
 
 
 def rel_attention_yardstick(torch, args, kernel, what: str,
-                            phase: str = "2") -> dict:
+                            phase: str = "2",
+                            tol: float = YARDSTICK_RTOL) -> dict:
     """K1 against F.scaled_dot_product_attention(q, k, v, attn_mask=bias,
-    scale=1.0), the efficient backend, on the same inputs. The bias is
-    built once, outside the timed region, and its time is logged apart.
-    The library's output is held to the plain version (within
-    YARDSTICK_RTOL of its max): a yardstick that computes something else is
-    none."""
+    scale=1.0), the efficient backend, on the same inputs (float32 or
+    bf16). The bias is built once, outside the timed region, and its time
+    is logged apart. The library's output is held to the plain version
+    (within ``tol`` of its max): a yardstick that computes something else
+    is none."""
     from torch.nn.functional import scaled_dot_product_attention as sdpa
     from neural_sp_tpu_torch.ops.kernels import rel_attention_ref
     q, k, v, p, klens = args
@@ -209,7 +246,7 @@ def rel_attention_yardstick(torch, args, kernel, what: str,
     log(f"[{phase}] K1 {what}: kernel {ms:.4f} ms  library (SDPA, efficient) "
         f"{lib_ms:.4f} ms, its error {err:.3e} of the plain max; bias "
         f"built in {bias_ms:.4f} ms")
-    expect(err <= YARDSTICK_RTOL, f"K1 yardstick {what}: error {err}")
+    expect(err <= tol, f"K1 yardstick {what}: error {err}")
     return {"kernel_ms": ms, "library_ms": lib_ms, "library_err": err,
             "bias_ms": bias_ms}
 
@@ -570,17 +607,19 @@ def loop_against_plain(torch, dec, e, el, reorder: bool, n_steps: int = 8):
 
 
 def rel_err(got, want) -> float:
-    """max |got - want| / max |want| (float)."""
+    """max |got - want| / max |want|, in float32."""
+    got, want = got.float(), want.float()
     return float((got - want).abs().max()) / max(float(want.abs().max()),
                                                  1e-30)
 
 
-def rel_attention_bwd_yardstick(torch, args, kernel, what: str) -> dict:
+def rel_attention_bwd_yardstick(torch, args, kernel, what: str,
+                                tol: float = YARDSTICK_RTOL) -> dict:
     """K1b against the autograd backward of K1's yardstick call
     (torch.autograd.grad of the efficient SDPA output w.r.t. q, k, v and
     the bias, on the same do), timed alone; the scatter of dbias into the R
     buckets of dp is timed apart. The library's dq, dk, dv, dp are held to
-    the plain version."""
+    the plain version (within ``tol`` of each one's max)."""
     from torch.nn.functional import scaled_dot_product_attention as sdpa
     from neural_sp_tpu_torch.ops.kernels.rel_attention import \
         rel_attention_bwd_ref
@@ -605,7 +644,7 @@ def rel_attention_bwd_yardstick(torch, args, kernel, what: str) -> dict:
     log(f"[2b] K1b {what}: kernel {ms:.4f} ms  library (SDPA backward, "
         f"efficient) {lib_ms:.4f} ms + dbias into buckets {scatter_ms:.4f} "
         f"ms; library error {err:.3e} of the plain max")
-    expect(err <= YARDSTICK_RTOL, f"K1b yardstick {what}: error {err}")
+    expect(err <= tol, f"K1b yardstick {what}: error {err}")
     return {"kernel_ms": ms, "library_ms": lib_ms, "library_err": err,
             "bucket_scatter_ms": scatter_ms}
 
@@ -760,6 +799,22 @@ def phase_train_kernels(torch, rng):
            cuda_ms(lambda: las_scan_bwd_ref(*bargs), iters=5, warmup=1),
            what, library_ms=None, outside_ms=outside_ms,
            **roofline(las_scan_bwd_cost(u, b, tt, hd, d, a, c, kw, kl)))
+    # at bf16 compute K3 and K3b stay float32 and LASScan casts at their
+    # boundary: the inputs (and keep) to float32 and h, ctx, aw back to
+    # bf16 around K3; the output gradients to float32 and the ten input
+    # gradients back to bf16 around K3b. The casts alone, on these shapes:
+    bf = torch.bfloat16
+    ins16 = [x.to(bf) for x in args if x.is_floating_point()]
+    outs32 = (refs[0], refs[5], refs[4])
+    douts16 = [x.to(bf) for x in bargs[-2:]]
+    cast_fwd = cuda_ms(lambda: ([x.float() for x in ins16],
+                                [y.to(bf) for y in outs32]), iters=5)
+    cast_bwd = cuda_ms(lambda: ([x.float() for x in douts16],
+                                [g.to(bf) for g in got]), iters=5)
+    res["las_scan"]["bf16_boundary_cast_ms"] = cast_fwd
+    res["las_scan_bwd"]["bf16_boundary_cast_ms"] = cast_bwd
+    log(f"[2b] bf16 compute: LASScan's casts at K3's boundary {cast_fwd:.4f}"
+        f" ms, at K3b's {cast_bwd:.4f} ms (the kernels stay float32)")
     del got, want, raw
 
     tt, uu, vv = 188, TRAIN_U, 10000
@@ -798,6 +853,100 @@ def phase_train_kernels(torch, rng):
     return res
 
 
+def phase_train_kernels_bf16(torch, rng):
+    """2b at bf16: K1's and K1b's bf16 entries at the training shapes, with
+    ragged and full lengths. Each is held against its plain bf16 version
+    (within BF16_KERNEL_TOL of the reference's max) and against the plain
+    float32 version on the same bf16-rounded inputs (its error at most
+    BF16_VS_F32_RATIO times the plain bf16 version's error there), and
+    timed in turns with its library yardstick (efficient SDPA in bf16 with
+    the rel-PE bias as a bf16 mask; its autograd backward for K1b), with
+    its bound at the bf16 tensor-core peak."""
+    import numpy as np
+    from neural_sp_tpu_torch.ops.kernels import rel_attention
+    from neural_sp_tpu_torch.ops.kernels.rel_attention import (
+        rel_attention_bwd, rel_attention_bwd_cost, rel_attention_bwd_ref,
+        rel_attention_cost, rel_attention_fwd, rel_attention_ref)
+    dev, bf = torch.device("cuda"), torch.bfloat16
+
+    def t(*shape, scale=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale).astype(
+            "float32")).to(dev).to(bf)
+
+    def vs_f32(got, plain, f32):
+        """(kernel's max |err| against the float32 plain version) / (the
+        plain bf16 version's)."""
+        return max_err(got.float(), f32) / max(max_err(plain.float(), f32),
+                                               1e-30)
+
+    res = {"rel_attention_bf16": {"max_abs_err": 0.0, "shapes": []},
+           "rel_attention_bwd_bf16": {"max_abs_err": 0.0, "shapes": []}}
+
+    def record(name, what, err, ratio, full_750, **extra):
+        log(f"[2b] {name} {what}: error {err:.3e} of the plain bf16 max; "
+            f"against plain f32 {ratio:.3f}x the plain bf16 version's  "
+            f"kernel {extra['ms']:.4f} ms  plain {extra['plain_ms']:.4f} ms "
+            f" library {extra['library_ms']:.4f} ms  bound "
+            f"{extra['bound_ms']:.4f} ms ({extra['bound_by']}, bf16 peak)")
+        expect(err <= BF16_KERNEL_TOL, f"{name} {what}: error {err}")
+        expect(ratio <= BF16_VS_F32_RATIO,
+               f"{name} {what}: {ratio:.3f}x the plain bf16 error vs f32")
+        r = res[name]
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        row = {"shape": what, "max_abs_err": err, "vs_f32_ratio": ratio,
+               **extra}
+        r["shapes"].append(row)
+        if full_750:           # the main path's shape: phase 5's batch
+            r.update({k: v for k, v in row.items() if k != "shape"})
+
+    b, h, dk, r = TRAIN_B, 8, 64, 11
+    for tt in (750, 375, 188):
+        ragged = np.maximum(tt - (np.arange(b) * tt) // (2 * b), 1).tolist()
+        for lens, kl in (("ragged", ragged), ("full", [tt] * b)):
+            q, k, v = t(b, h, tt, dk, scale=dk ** -0.5), t(b, h, tt, dk), \
+                t(b, h, tt, dk)
+            p = t(b, h, tt, r, scale=dk ** -0.5)
+            klens = torch.tensor(kl, dtype=torch.int32, device=dev)
+            fwd = (q, k, v, p, klens)
+            fwd32 = (*(x.float() for x in (q, k, v, p)), klens)
+            what = f"B={b} H={h} T={tt} dk={dk} R={r} {lens} lengths"
+            full_750 = lens == "full" and tt == 750
+
+            o, m, l = rel_attention_fwd(*fwd)
+            o16, o32 = rel_attention_ref(*fwd), rel_attention_ref(*fwd32)
+            err, ratio = rel_err(o, o16), vs_f32(o, o16, o32)
+            del o16, o32
+            yard = rel_attention_yardstick(torch, fwd, rel_attention,
+                                           what + " bf16", phase="2b",
+                                           tol=BF16_KERNEL_TOL)
+            record("rel_attention_bf16", what, err, ratio, full_750,
+                   ms=yard["kernel_ms"],
+                   plain_ms=cuda_ms(lambda: rel_attention_ref(*fwd),
+                                    iters=5),
+                   **yard, **roofline(rel_attention_cost(
+                       b, h, tt, dk, r, kl, elem=2), bf16=True))
+
+            args = (*fwd, o, m, l, t(b, h, tt, dk))
+            got = rel_attention_bwd(*args)
+            want16 = rel_attention_bwd_ref(*args)
+            want32 = rel_attention_bwd_ref(*fwd32, o.float(), m, l,
+                                           args[-1].float())
+            err = max(rel_err(x, y) for x, y in zip(got, want16))
+            ratio = max(vs_f32(*xyz) for xyz in zip(got, want16, want32))
+            del got, want16, want32
+            yard = rel_attention_bwd_yardstick(
+                torch, args, rel_attention_bwd, what + " bf16",
+                tol=BF16_KERNEL_TOL)
+            record("rel_attention_bwd_bf16", what, err, ratio, full_750,
+                   ms=yard["kernel_ms"],
+                   plain_ms=cuda_ms(lambda: rel_attention_bwd_ref(*args),
+                                    iters=3),
+                   **yard, **roofline(rel_attention_bwd_cost(
+                       b, h, tt, dk, r, kl, elem=2), bf16=True))
+            del args, fwd, fwd32, o, m, l
+    return res
+
+
 def train_batch(torch, rng, bs=TRAIN_B):
     """bench.py's per-utterance shape: 1500 frames x 80, U=100 labels in
     [4, vocab), every utterance full length."""
@@ -810,19 +959,33 @@ def train_batch(torch, rng, bs=TRAIN_B):
             torch.full((bs,), TRAIN_U, dtype=torch.int32, device=dev))
 
 
-def phase_train(torch, model, batch):
-    """5: optimizer steps of the full flagship, timed, with the kernels'
+# the kernels each training run must launch, by compute dtype; the bf16 run
+# must launch no float32 K1 / K1b (no cast to float32 around them)
+TRAIN_KERNELS = {"float32": ("rel_attention", "rel_attention_bwd"),
+                 "bfloat16": ("rel_attention_bf16", "rel_attention_bwd_bf16")}
+TRAIN_KERNELS_BOTH = ("las_scan", "las_scan_bwd", "ctc_loss", "ctc_loss_bwd")
+
+
+def phase_train(torch, model, batch, train_dtype: str = "float32"):
+    """5: optimizer steps of the full flagship in ``train_dtype`` (float32,
+    or bf16 compute over float32 masters), timed, with the kernels'
     launches counted over the run."""
     import numpy as np
+    from neural_sp_tpu_torch.configs import compute_dtype, flagship_args
     from neural_sp_tpu_torch.ops.kernels import (las_scan, las_scan_bwd,
                                                  launches, reset_launches)
     from neural_sp_tpu_torch.parallel.mesh import make_train_step
     from neural_sp_tpu_torch.trainers.lr_scheduler import noam_schedule
     from neural_sp_tpu_torch.trainers.optimizer import build_optimizer
+    args = flagship_args(faithful=True)
+    args.train_dtype = train_dtype
+    tag = "5" if train_dtype == "float32" else "5 bf16"
     model.train()
+    model.zero_grad(set_to_none=True)
     step = make_train_step(model, build_optimizer(
         "noam", schedule=noam_schedule(512, 25000, factor=5.0),
-        clip_grad_norm=5.0, accum_grad_n_steps=ACCUM))
+        clip_grad_norm=5.0, accum_grad_n_steps=ACCUM),
+        compute_dtype=compute_dtype(args))
     gen = torch.Generator().manual_seed(SEED)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -848,74 +1011,112 @@ def phase_train(torch, model, batch):
            f"non-finite loss or grad norm: {losses} {gnorms}")
     expect(all(k in metrics[-1] for k in ("loss_ctc", "loss_att", "acc_att")),
            f"missing observations: {sorted(metrics[-1])}")
-    log(f"[5] launches over 3 optimizer steps (12 microsteps): {counts}")
-    for name in ("rel_attention", "rel_attention_bwd", "las_scan",
-                 "las_scan_bwd", "ctc_loss", "ctc_loss_bwd"):
+    log(f"[{tag}] launches over 3 optimizer steps (12 microsteps): {counts}")
+    for name in TRAIN_KERNELS[train_dtype] + TRAIN_KERNELS_BOTH:
         expect(counts[name] > 0, f"{name} never launched in training")
+    for other, names in TRAIN_KERNELS.items():
+        if other != train_dtype:
+            expect(all(counts[name] == 0 for name in names),
+                   f"{train_dtype} training launched {other} K1 / K1b")
     expect(k3_kernels > 0, "las_scan launched no kernel in training")
     expect(k3b_kernels > 0, "las_scan_bwd launched no kernel in training")
-    log(f"[5] las_scan: {k3_kernels} kernel launches per call; "
+    log(f"[{tag}] las_scan: {k3_kernels} kernel launches per call; "
         f"las_scan_bwd: {k3b_kernels}")
     step_s = sum(walls[1:]) / len(walls[1:])
     frames = float(batch[1].sum()) * ACCUM
-    out = {"step_s": walls, "ms_per_step": step_s * 1e3,
+    out = {"train_dtype": train_dtype, "step_s": walls,
+           "ms_per_step": step_s * 1e3,
            "frames_per_s": frames / step_s,
            "utts_per_s": TRAIN_B * ACCUM / step_s, "peak_mem_bytes": peak,
            "losses": losses, "grad_norms": gnorms, "launches": counts,
            "las_scan_kernel_launches_per_call": k3_kernels,
            "las_scan_bwd_kernel_launches_per_call": k3b_kernels,
            "last_obs": {k: float(v) for k, v in metrics[-1].items()}}
-    log(f"[5] optimizer step (4 x B={TRAIN_B} x {TRAIN_FRAMES} frames): "
-        f"{step_s * 1e3:.1f} ms (warm-up step {walls[0] * 1e3:.1f} ms); "
-        f"{out['frames_per_s']:.0f} frames/s, {out['utts_per_s']:.2f} "
-        f"utts/s; peak mem {peak} B")
-    log(f"[5] losses {['%.3f' % x for x in losses]}")
-    log(f"[5] grad norms {['%.3f' % x for x in gnorms]}")
-    out["profile"] = profiled(torch, "train microstep",
+    log(f"[{tag}] optimizer step (4 x B={TRAIN_B} x {TRAIN_FRAMES} frames, "
+        f"{train_dtype}): {step_s * 1e3:.1f} ms (warm-up step "
+        f"{walls[0] * 1e3:.1f} ms); {out['frames_per_s']:.0f} frames/s, "
+        f"{out['utts_per_s']:.2f} utts/s; peak mem {peak} B")
+    log(f"[{tag}] losses {['%.3f' % x for x in losses]}")
+    log(f"[{tag}] grad norms {['%.3f' % x for x in gnorms]}")
+    out["profile"] = profiled(torch, f"train microstep, {train_dtype}",
                               lambda: step(*batch, gen=gen))
+    model.zero_grad(set_to_none=True)
     return out, counts
 
 
 class PlainLASScan:
-    """``LASScan`` with the plain forward, differentiated by autograd."""
+    """``LASScan`` with the plain forward, differentiated by autograd; as
+    ``LASScan``, in float32 at every compute dtype, cast at its boundary."""
 
     @staticmethod
     def apply(eg, *args):
         from neural_sp_tpu_torch.ops.kernels.las_scan import las_scan_ref
-        *args, keep = args
-        h, _, _, _, aw, ctx = las_scan_ref(eg.transpose(0, 1), *args,
-                                           keep.transpose(0, 1))
-        return h.transpose(0, 1), ctx.transpose(0, 1), aw.transpose(0, 1)
+        *args, klens, keep = args
+        h, _, _, _, aw, ctx = las_scan_ref(
+            eg.float().transpose(0, 1), *(x.float() for x in args), klens,
+            keep.float().transpose(0, 1))
+        return tuple(x.transpose(0, 1).to(eg.dtype) for x in (h, ctx, aw))
 
 
-def phase_train_parity(torch, model, batch):
-    """6: one eval() microstep's loss and gradients, kernels vs plain
-    versions; then 5 Adam steps on a fixed batch of 8, train() mode."""
+def plain_rel_attention(torch):
+    """``rel_attention`` with its plain versions on the card:
+    ``rel_attention_ref`` forward, ``rel_attention_bwd_ref`` (the adjoint
+    written out, rounding where the kernels do at bf16) backward."""
+    from neural_sp_tpu_torch.ops.kernels.rel_attention import (
+        rel_attention_bwd_ref, rel_attention_ref, rel_attention_stats_ref)
+
+    class Plain(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v, p, klens):
+            o = rel_attention_ref(q, k, v, p, klens)
+            ctx.save_for_backward(q, k, v, p, klens, o,
+                                  *rel_attention_stats_ref(q, k, p, klens))
+            return o
+
+        @staticmethod
+        def backward(ctx, do):
+            return (*rel_attention_bwd_ref(*ctx.saved_tensors, do), None)
+
+    return Plain.apply
+
+
+def eval_microstep(torch, model, batch, compute_dtype=None, plain=False):
+    """One ``eval()`` microstep under ``compute_dtype`` (None: float32):
+    (loss, {leaf: gradient}), through the kernels or, with ``plain``, the
+    plain versions patched in (K1 / K1b: ``plain_rel_attention``, or for
+    float32 autograd through ``rel_attention_ref``; K3 / K3b:
+    ``PlainLASScan``; K4: autograd through its plain forward)."""
+    from contextlib import ExitStack
     from neural_sp_tpu_torch.models.decoders import las
     from neural_sp_tpu_torch.models.modules import \
         relative_multihead_attention as rma
     from neural_sp_tpu_torch.ops import ctc
     from neural_sp_tpu_torch.ops.kernels import rel_attention_ref
     from neural_sp_tpu_torch.ops.kernels.ctc_loss import ctc_forward_alphas
-    from neural_sp_tpu_torch.parallel.mesh import make_train_step
-    from neural_sp_tpu_torch.trainers.optimizer import build_optimizer
-
-    def loss_and_grads():
-        model.zero_grad(set_to_none=True)
-        loss, _ = model(*batch)
-        loss.backward()
-        grads = {n: p.grad.detach().clone()
-                 for n, p in model.named_parameters()}
-        return float(loss.detach()), grads
-
+    from neural_sp_tpu_torch.parallel.mesh import compute_loss
     model.eval()
-    loss, grads = loss_and_grads()
-    with mock.patch.object(rma, "rel_attention", rel_attention_ref), \
-            mock.patch.object(las, "LASScan", PlainLASScan), \
-            mock.patch.object(ctc, "ctc_nll",
-                              lambda *a: ctc_forward_alphas(*a)[0]):
-        loss_ref, grads_ref = loss_and_grads()
     model.zero_grad(set_to_none=True)
+    with ExitStack() as stack:
+        if plain:
+            k1 = rel_attention_ref if compute_dtype is None \
+                else plain_rel_attention(torch)
+            for target, name, value in (
+                    (rma, "rel_attention", k1), (las, "LASScan", PlainLASScan),
+                    (ctc, "ctc_nll", lambda *a: ctc_forward_alphas(*a)[0])):
+                stack.enter_context(mock.patch.object(target, name, value))
+        loss, _ = compute_loss(model, compute_dtype, *batch)
+        loss.backward()
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return float(loss.detach()), grads
+
+
+def phase_train_parity(torch, model, batch):
+    """6: one eval() microstep's loss and gradients, kernels vs plain
+    versions, float32. Returns the result and the plain microstep's (loss,
+    gradients), phase 6b's float32 reference."""
+    loss, grads = eval_microstep(torch, model, batch)
+    loss_ref, grads_ref = eval_microstep(torch, model, batch, plain=True)
     loss_err = abs(loss - loss_ref) / abs(loss_ref)
     g_max = max(float(g.abs().max()) for g in grads_ref.values())
     # per leaf: (share of its tolerance used, max |plain grad| / g_max,
@@ -944,18 +1145,66 @@ def phase_train_parity(torch, model, batch):
     worst_name, (worst, _, _) = ranked[0]
     expect(loss_err <= LOSS_RTOL, f"loss {loss} vs plain {loss_ref}")
     expect(worst <= 1.0, f"gradient {worst_name} outside tolerance")
-
-    model.train()
-    small = tuple(x[:8] for x in batch)
-    step = make_train_step(model, build_optimizer("adam", lr=1e-4))
-    gen = torch.Generator().manual_seed(SEED)
-    losses = [float(step(*small, gen=gen)["loss"]) for _ in range(5)]
-    log(f"[6] fixed batch of 8, Adam 1e-4: losses "
-        f"{['%.4f' % x for x in losses]}")
-    expect(losses[-1] < losses[0], f"loss did not fall: {losses}")
     return {"loss_rel_err": loss_err, "worst_grad": worst,
             "worst_grad_leaf": worst_name, "worst_leaves": dict(ranked[:6]),
-            "key_bias_leaves": dict(zero), "fixed_batch_losses": losses}
+            "key_bias_leaves": dict(zero)}, (loss_ref, grads_ref)
+
+
+def phase_train_parity_bf16(torch, model, batch, plain32):
+    """6b: one eval() microstep at bf16 compute through the kernels against
+    the same microstep with the plain versions patched in (both bf16),
+    held to BF16_PATH_FACTOR times each quantity's own |plain bf16 - plain
+    f32| (phase 6's plain float32 microstep, ``plain32``) plus phase 6's
+    float32 tolerance."""
+    bf = torch.bfloat16
+    loss, grads = eval_microstep(torch, model, batch, bf)
+    loss16, grads16 = eval_microstep(torch, model, batch, bf, plain=True)
+    loss32, grads32 = plain32
+    g_max = max(float(g.abs().max()) for g in grads32.values())
+    loss_tol = BF16_PATH_FACTOR * abs(loss16 - loss32) + \
+        LOSS_RTOL * abs(loss32)
+    leaves = {}
+    for name, g in grads.items():
+        ref, ref32 = grads16[name], grads32[name]
+        floor = GRAD_FLOOR * g_max if name.endswith(ZERO_GRAD_LEAF) else \
+            GRAD_RTOL * float(ref32.abs().max())
+        bf16_cost = float((ref - ref32).abs().max())
+        tol = BF16_PATH_FACTOR * bf16_cost + floor
+        err = float((g - ref).abs().max())
+        leaves[name] = (err / tol if err else 0.0, err, bf16_cost)
+    ranked = sorted(leaves.items(), key=lambda kv: -kv[1][0])
+    log(f"[6b] bf16 eval loss kernels {loss:.6f} plain bf16 {loss16:.6f} "
+        f"plain f32 {loss32:.6f}: |kernels - plain| {abs(loss - loss16):.3e}"
+        f" against a tolerance of {loss_tol:.3e}")
+    for name, (share, err, cost) in ranked[:6]:
+        log(f"[6b]   {name}: {share:.3f} of its tolerance (max |kernels - "
+            f"plain bf16| {err:.3e}, max |plain bf16 - plain f32| "
+            f"{cost:.3e})")
+    worst_name, (worst, _, _) = ranked[0]
+    expect(abs(loss - loss16) <= loss_tol,
+           f"bf16 loss {loss} vs plain {loss16} (f32 {loss32})")
+    expect(worst <= 1.0, f"bf16 gradient {worst_name} outside tolerance")
+    return {"loss": loss, "loss_plain_bf16": loss16, "loss_plain_f32": loss32,
+            "worst_grad": worst, "worst_grad_leaf": worst_name,
+            "worst_leaves": dict(ranked[:6])}
+
+
+def phase_fit(torch, model, batch, compute_dtype=None, tag="6"):
+    """5 Adam steps (lr 1e-4) on a fixed batch of 8 utterances in train()
+    mode, under ``compute_dtype``; the loss must fall."""
+    from neural_sp_tpu_torch.parallel.mesh import make_train_step
+    from neural_sp_tpu_torch.trainers.optimizer import build_optimizer
+    model.train()
+    small = tuple(x[:8] for x in batch)
+    step = make_train_step(model, build_optimizer("adam", lr=1e-4),
+                           compute_dtype=compute_dtype)
+    gen = torch.Generator().manual_seed(SEED)
+    losses = [float(step(*small, gen=gen)["loss"]) for _ in range(5)]
+    model.zero_grad(set_to_none=True)
+    log(f"[{tag}] fixed batch of 8, Adam 1e-4: losses "
+        f"{['%.4f' % x for x in losses]}")
+    expect(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    return losses
 
 
 def main() -> int:
@@ -993,17 +1242,30 @@ def main() -> int:
     kernels["rel_attention"]["shapes"] += train_kernels.pop(
         "rel_attention_train_shapes")
     kernels.update(train_kernels)
+    kernels.update(phase_train_kernels_bf16(torch, rng))
     batch = train_batch(torch, rng)
     trained, train_launches = phase_train(torch, model, batch)
-    parity = phase_train_parity(torch, model, batch)
+    trained_bf16, bf16_launches = phase_train(torch, model, batch,
+                                              "bfloat16")
+    parity, plain32 = phase_train_parity(torch, model, batch)
+    parity_bf16 = phase_train_parity_bf16(torch, model, batch, plain32)
+    del plain32
+    parity["fixed_batch_losses"] = phase_fit(torch, model, batch)
+    parity_bf16["fixed_batch_losses"] = phase_fit(
+        torch, model, batch, torch.bfloat16, tag="6b")
     # each kernel's launches from the main path it belongs to: the served
-    # requests (K1, K2) or the training run (the rest)
-    launches = {**train_launches, **launches}
+    # requests (K1, K2), the float32 training run (K1b, K3, K3b, K4) or
+    # the bf16 training run (K1's and K1b's bf16 entries)
+    bf16_names = TRAIN_KERNELS["bfloat16"]
+    launches = {**train_launches, **launches,
+                **{name: bf16_launches[name] for name in bf16_names}}
     # per encode (K1), per decode step (K2), per training microstep (the
     # rest)
     microsteps = 3 * ACCUM
     per_step = {name: n / microsteps for name, n in train_launches.items()}
-    per_step.update(rel_attention=breakdown["k1_launches_per_encode"],
+    per_step.update({name: bf16_launches[name] / microsteps
+                     for name in bf16_names},
+                    rel_attention=breakdown["k1_launches_per_encode"],
                     las_step=k2_per_step)
 
     csrc = "neural_sp_tpu_torch/ops/kernels/csrc/"
@@ -1011,6 +1273,12 @@ def main() -> int:
         csrc + "rel_attention.cu",
         "neural_sp_tpu/ops/rel_attention_pallas.py:61 (583dfc4~1)"),
         "rel_attention_bwd": (
+        csrc + "rel_attention_bwd.cu",
+        "neural_sp_tpu/ops/rel_attention_pallas.py:82 (583dfc4~1)"),
+        "rel_attention_bf16": (
+        csrc + "rel_attention.cu",
+        "neural_sp_tpu/ops/rel_attention_pallas.py:61 (583dfc4~1)"),
+        "rel_attention_bwd_bf16": (
         csrc + "rel_attention_bwd.cu",
         "neural_sp_tpu/ops/rel_attention_pallas.py:82 (583dfc4~1)"),
         "las_step": (
@@ -1030,13 +1298,15 @@ def main() -> int:
                "decoder_max_abs_err": dec_err,
                "serve": {k: v for k, v in served.items() if k != "best_hyp0"},
                "breakdown": breakdown, "train": trained,
-               "train_parity": parity, "kernels": kernels}
+               "train_bf16": {**trained_bf16, "launches": bf16_launches},
+               "train_parity": parity, "train_parity_bf16": parity_bf16,
+               "kernels": kernels}
     log(json.dumps(details))
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(details, indent=1))
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "simt_bound_ms", "library_err")
+            "library_ms", "simt_bound_ms", "library_err", "peak_flops")
     entries = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], "launches_per_step": per_step[name],
@@ -1059,6 +1329,15 @@ def main() -> int:
         kernel_launches_per_call=trained[
             "las_scan_bwd_kernel_launches_per_call"],
         outside_ms=kernels["las_scan_bwd"]["outside_ms"])
+    # K3, K3b at bf16 compute: the casts at their boundary
+    for name in ("las_scan", "las_scan_bwd"):
+        next(e for e in entries if e["name"] == name)[
+            "bf16_boundary_cast_ms"] = kernels[name]["bf16_boundary_cast_ms"]
+    # K1 / K1b bf16: their error against the plain float32 version, as a
+    # multiple of the plain bf16 version's
+    for name in bf16_names:
+        next(e for e in entries if e["name"] == name)["vs_f32_ratio"] = max(
+            row["vs_f32_ratio"] for row in kernels[name]["shapes"])
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -7,10 +7,19 @@ equal. It is the shipped large Librispeech config, reference conf
 ln_large.yaml``: 12-layer conformer, d512 / 8 heads / d_ff 2048, rel-PE
 clamped at 10, depthwise kernel 15, LAS LSTM-1024 decoder with location
 attention, wordpiece vocab 10k, CTC weight 0.3.
+
+``flagship_args`` carries no ``train_dtype`` (``bench.py``'s has none): an
+args namespace may set one, and ``compute_dtype(args)`` turns it into the
+train step's ``compute_dtype``.
 """
 from __future__ import annotations
 
 from types import SimpleNamespace
+
+import torch
+
+# JAX ``bin/args.py``'s default: train in float32 unless asked for bf16
+TRAIN_DTYPE = "float32"
 
 
 def flagship_args(faithful: bool = False):
@@ -35,3 +44,16 @@ def flagship_args(faithful: bool = False):
         freq_width=27, n_freq_masks=2, time_width=100, n_time_masks=2,
         time_width_upper=1.0,
     )
+
+
+def compute_dtype(args):
+    """The train step's ``compute_dtype`` from ``args.train_dtype`` (default
+    ``TRAIN_DTYPE``), as the JAX train CLI reads it
+    (``bin/asr/train.py``): ``torch.bfloat16`` for "bfloat16" or "bf16",
+    None (float32) for "float32"; anything else raises."""
+    name = getattr(args, "train_dtype", TRAIN_DTYPE)
+    if name in ("bfloat16", "bf16"):
+        return torch.bfloat16
+    if name == "float32":
+        return None
+    raise ValueError(f"train_dtype {name!r}: 'float32' or 'bfloat16'")

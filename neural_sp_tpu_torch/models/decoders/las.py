@@ -185,10 +185,11 @@ class RNNDecoder(nn.Module):
         emb = step.drop_emb(step.embed(ys_in), gen)
         eg = emb @ cell.w_ih[:step.emb_dim]                # [B, U+1, 4H]
         shape = (bs, ys_in.shape[1], self.n_units)
+        # in the activations' type (bf16 under a bf16 compute_dtype)
         if self.training and step.drop.rate > 0:
-            keep = keep_mask(gen, step.drop.rate, shape, dev)
+            keep = keep_mask(gen, step.drop.rate, shape, dev, eg.dtype)
         else:
-            keep = torch.ones(shape, dtype=torch.float32, device=dev)
+            keep = torch.ones(shape, dtype=eg.dtype, device=dev)
         h, ctx, _ = LASScan.apply(
             eg, cell.w_ih[step.emb_dim:], cell.w_hh, cell.bias,
             *step.attn.kernel_weights(), self.precompute_keys(eouts),

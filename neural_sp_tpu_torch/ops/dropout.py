@@ -51,11 +51,14 @@ def fast_uniform(key: tuple[int, int], shape, device=None) -> torch.Tensor:
 
 
 def keep_mask(gen: Optional[torch.Generator], rate: float, shape,
-              device=None) -> torch.Tensor:
-    """float32 mask: 1 / (1 - rate) where kept, 0 where dropped."""
+              device=None, dtype: torch.dtype = torch.float32
+              ) -> torch.Tensor:
+    """Mask of ``dtype`` (the activations' type: a float32 mask would lift
+    bf16 activations to float32 under PyTorch's type promotion): 1 / (1 -
+    rate) where kept, 0 where dropped."""
     keep = 1.0 - rate
     u = fast_uniform(key_words(gen), shape, device)
-    return (u < keep).to(torch.float32) / keep
+    return ((u < keep).to(torch.float32) / keep).to(dtype)
 
 
 class Dropout(nn.Module):

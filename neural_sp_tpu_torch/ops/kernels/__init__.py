@@ -6,19 +6,27 @@ from .las_scan import las_scan, las_scan_bwd
 from .las_step import las_step, las_step_ref
 from .rel_attention import rel_attention, rel_attention_bwd, rel_attention_ref
 
-# launch counters by kernel name (``ctc_loss`` is K4's forward entry)
-KERNELS = {"rel_attention": rel_attention,
-           "rel_attention_bwd": rel_attention_bwd, "las_step": las_step,
-           "las_scan": las_scan, "las_scan_bwd": las_scan_bwd,
-           "ctc_loss": ctc_loss_fwd, "ctc_loss_bwd": ctc_loss_bwd}
+# launch counters by kernel entry: (wrapper, its counter's attribute)
+# (``ctc_loss`` is K4's forward entry; K1 / K1b count their float32 and
+# bf16 entries apart)
+KERNELS = {"rel_attention": (rel_attention, "launches"),
+           "rel_attention_bf16": (rel_attention, "launches_bf16"),
+           "rel_attention_bwd": (rel_attention_bwd, "launches"),
+           "rel_attention_bwd_bf16": (rel_attention_bwd, "launches_bf16"),
+           "las_step": (las_step, "launches"),
+           "las_scan": (las_scan, "launches"),
+           "las_scan_bwd": (las_scan_bwd, "launches"),
+           "ctc_loss": (ctc_loss_fwd, "launches"),
+           "ctc_loss_bwd": (ctc_loss_bwd, "launches")}
 
 
 def reset_launches() -> None:
-    for kernel in KERNELS.values():
-        kernel.launches = 0
+    for kernel, counter in KERNELS.values():
+        setattr(kernel, counter, 0)
     for kernel in (las_scan, las_scan_bwd):
         kernel.kernel_launches_per_call = 0
 
 
 def launches() -> dict[str, int]:
-    return {name: k.launches for name, k in KERNELS.items()}
+    return {name: getattr(kernel, counter)
+            for name, (kernel, counter) in KERNELS.items()}

@@ -344,24 +344,34 @@ class LASScan(torch.autograd.Function):
     and keep [B, U, H] in; (h [B, U, H], ctx [B, U, D], aw [B, U, T]) out,
     views of K3's time-major outputs, which are saved for K3b as they
     are. aw is not differentiable (the location-attention loss does not
-    read it). Gradients for eg and the seven weights, kc and values."""
+    read it). Gradients for eg and the seven weights, kc and values.
+
+    K3 and K3b are float32 kernels. Given bf16 (a bf16 compute_dtype), this
+    casts at their boundary, as the TPU kernel kept its state in float32:
+    the inputs go to float32, h, ctx and aw come back in eg's type, and each
+    gradient in its input's type. Float32 inputs pass uncopied."""
 
     @staticmethod
     def forward(ctx_, eg, w_ctx, w_h, bias, w_q, conv_w, w_f, v, kc, values,
                 klens, keep):
-        keep = _tm(keep)
+        floats = (eg, w_ctx, w_h, bias, w_q, conv_w, w_f, v, kc, values)
+        ctx_.dtypes = [x.dtype for x in floats]
+        (eg, w_ctx, w_h, bias, w_q, conv_w, w_f, v, kc,
+         values) = (x.float() for x in floats)
+        keep = _tm(keep.float())
         h, c, gates, q, aw, ctx = las_scan(_tm(eg), w_ctx, w_h, bias, w_q,
                                            conv_w, w_f, v, kc, values, klens,
                                            keep)
         ctx_.save_for_backward(w_ctx, w_h, w_q, conv_w, w_f, v, kc, values,
                                klens, keep, h, c, gates, q, aw, ctx)
-        aw = aw.transpose(0, 1)
+        out = (x.transpose(0, 1).to(ctx_.dtypes[0]) for x in (h, ctx, aw))
+        h, ctx, aw = out
         ctx_.mark_non_differentiable(aw)
-        return h.transpose(0, 1), ctx.transpose(0, 1), aw
+        return h, ctx, aw
 
     @staticmethod
     def backward(ctx_, dh, dctx, _daw):
-        (d_eg, d_w_ctx, d_w_h, d_b, d_w_q, d_conv, d_w_f, d_v, d_kc,
-         d_values) = las_scan_bwd(*ctx_.saved_tensors, _tm(dh), _tm(dctx))
-        return (d_eg.transpose(0, 1), d_w_ctx, d_w_h, d_b, d_w_q, d_conv, d_w_f, d_v, d_kc,
-                d_values, None, None)
+        grads = las_scan_bwd(*ctx_.saved_tensors, _tm(dh.float()),
+                             _tm(dctx.float()))
+        d_eg, *rest = (g.to(dt) for g, dt in zip(grads, ctx_.dtypes))
+        return (d_eg.transpose(0, 1), *rest, None, None)

@@ -15,6 +15,8 @@ HBM_BYTES_PER_S = 3.35e12
 F32_TENSOR_FLOPS = 495e12 / 3
 # float32 on the SIMT pipes, for work that is not a matrix product
 F32_SIMT_FLOPS = 67e12
+# bf16 operands on the tensor cores, float32 accumulation (dense)
+BF16_TENSOR_FLOPS = 989e12
 
 
 def bound_ms(flops: float, nbytes: float,

@@ -1,14 +1,47 @@
 """The training step (counterpart of ``neural_sp_tpu/parallel/mesh.py::
 make_train_step``), single device. Data parallelism over a mesh is not
-ported yet (ROADMAP)."""
+ported yet (ROADMAP).
+
+``compute_dtype`` is the JAX step's mixed-precision policy: with
+``torch.bfloat16`` each microstep runs the model through
+``torch.func.functional_call`` with every floating parameter cast to bf16
+and the features cast to bf16, as JAX's ``cast_floating`` inside its loss.
+The casts are differentiable, so the gradients land in the float32 master
+parameters' ``.grad``; the Adam moments, ``grad_norm`` and the returned
+loss stay float32. The losses, the softmaxes and the LayerNorm statistics
+are computed in float32 by the modules themselves (``F.layer_norm`` keeps
+its statistics in float32 for a bf16 input; the K1 / K1b kernels and K3 /
+K3b keep their softmaxes and state in float32).
+
+``torch.autocast`` is not used: its per-op lists are not the JAX policy.
+It keeps some outputs in float32 (so bf16 would not flow through the
+model) and casts the weights again at every op that takes them.
+"""
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
 from torch import nn
+from torch.func import functional_call
 
 from ..trainers.optimizer import Adam, global_norm
+
+
+def compute_loss(model: nn.Module, compute_dtype: Optional[torch.dtype],
+                 xs, xlens, ys, ylens,
+                 gen: Optional[torch.Generator] = None):
+    """(loss, obs) of ``model`` on one microbatch under the precision
+    policy: the model as it is when ``compute_dtype`` is None, else its
+    floating parameters and ``xs`` cast to ``compute_dtype`` (the casts
+    differentiable, the loss returned in float32)."""
+    if compute_dtype is None:
+        return model(xs, xlens, ys, ylens, gen)
+    params = {name: p.to(compute_dtype) if p.is_floating_point() else p
+              for name, p in model.named_parameters()}
+    loss, obs = functional_call(
+        model, params, (xs.to(compute_dtype), xlens, ys, ylens, gen))
+    return loss.float(), obs
 
 
 class TrainStep:
@@ -17,16 +50,20 @@ class TrainStep:
     its state and decides whether this microstep emits an update); an
     emitted update is scaled by ``lr_scale`` and added to the parameters.
     The model runs in the mode it is in: ``train()`` draws SpecAugment and
-    dropout from ``gen`` (the JAX step's ``deterministic=False``).
+    dropout from ``gen`` (the JAX step's ``deterministic=False``), and in
+    ``compute_dtype`` (see ``compute_loss``).
 
     metrics: the scalar observations of the loss ("loss", "loss_ctc",
     "loss_att", "acc_att", "ppl_att"), "grad_norm" (the global norm of this
-    microbatch's gradients, before accumulation and clipping), as 0-dim
-    tensors on the model's device (no host sync), and "emitted" (bool)."""
+    microbatch's gradients, before accumulation and clipping), as float32
+    0-dim tensors on the model's device (no host sync), and "emitted"
+    (bool)."""
 
-    def __init__(self, model: nn.Module, opt: Adam):
+    def __init__(self, model: nn.Module, opt: Adam,
+                 compute_dtype: Optional[torch.dtype] = None):
         self.model = model
         self.opt = opt
+        self.compute_dtype = compute_dtype
         self.params = [p for p in model.parameters() if p.requires_grad]
         opt.init(self.params)
 
@@ -34,7 +71,8 @@ class TrainStep:
                  gen: Optional[torch.Generator] = None) -> dict:
         for p in self.params:
             p.grad = None
-        loss, obs = self.model(xs, xlens, ys, ylens, gen)
+        loss, obs = compute_loss(self.model, self.compute_dtype, xs, xlens,
+                                 ys, ylens, gen)
         loss.backward()
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in self.params]
@@ -50,8 +88,12 @@ class TrainStep:
         return metrics
 
 
-def make_train_step(model: nn.Module, opt: Adam, mesh=None) -> TrainStep:
+def make_train_step(model: nn.Module, opt: Adam, mesh=None,
+                    compute_dtype: Optional[torch.dtype] = None) -> TrainStep:
+    """The counterpart of JAX ``make_train_step(model, tx, mesh,
+    compute_dtype=...)``: ``compute_dtype`` None trains in float32, a dtype
+    (``torch.bfloat16``) computes in it over float32 master weights."""
     if mesh is not None:
         raise NotImplementedError(
             "a data-parallel mesh is not ported yet, see ROADMAP")
-    return TrainStep(model, opt)
+    return TrainStep(model, opt, compute_dtype)

@@ -66,6 +66,37 @@ def test_rel_attention_costs(shape, fwd, bwd):
     assert rel_attention_bwd_cost(*shape) == bwd
 
 
+# the bf16 entries: q, k, v, p, o (and dO, dq, dk, dv, dp) at 2 bytes, the
+# row statistics m, l (float32) and klens (int32) at 4; the same flops
+@pytest.mark.parametrize("shape,fwd,bwd", [
+    ((2, 3, 10, 16, 4, [10, 6]),
+     (4 * 16 * 10 * 3 * (10 + 6), 2 * (1920 + 1536 + 240) + 4 * (120 + 2)),
+     (10 * 16 * 10 * 3 * (10 + 6),
+      2 * (2880 + 1536 + 240 + 2880 + 240) + 4 * (120 + 2))),
+    ((2, 1, 8, 32, 8, [0, 9]),
+     (2 * 32 * 8 * 8 + 4 * 32 * 8 * 8,
+      2 * (1024 + 32 * (8 + 16) + 128) + 4 * (32 + 2)),
+     (2 * 32 * 8 * 8 + 10 * 32 * 8 * 8,
+      2 * (1536 + 32 * 16 + 128 + 1536 + 128) + 4 * (32 + 2))),
+])
+def test_rel_attention_costs_bf16(shape, fwd, bwd):
+    assert rel_attention_cost(*shape, elem=2) == fwd
+    assert rel_attention_bwd_cost(*shape, elem=2) == bwd
+    # halving the 2-byte tensors leaves m, l and klens at 4 bytes
+    f32 = rel_attention_cost(*shape)[1], rel_attention_bwd_cost(*shape)[1]
+    b, h, t = shape[:3]
+    stats = 4 * (2 * b * h * t + b)
+    assert (fwd[1] - stats, bwd[1] - stats) == \
+        ((f32[0] - stats) // 2, (f32[1] - stats) // 2)
+
+
+def test_bf16_bound_uses_the_bf16_tensor_peak():
+    from neural_sp_tpu_torch.ops.kernels.roofline import BF16_TENSOR_FLOPS
+    assert BF16_TENSOR_FLOPS == 989e12
+    assert bound_ms(989e9, 0, peak=BF16_TENSOR_FLOPS) == \
+        pytest.approx((1.0, "operations"))
+
+
 # (n or b, t, hd, d, a, ch, k) with ragged frame lengths
 LAS = (5, 4, 3, 2, 2, 3)                    # t, hd, d, a, ch, k
 
