@@ -68,7 +68,8 @@ Phases (any failure raises and the script exits non-zero):
   6. one microstep's loss and every gradient in ``eval()`` mode with the
      kernels against the plain versions patched in;
   6b. the same at bf16 compute, the loss and each gradient leaf held to
-     twice its own |plain bf16 - plain f32| plus phase 6's tolerance; then
+     twice its own |plain bf16 - plain f32| plus phase 6's tolerance, in
+     the L2 norm; then
      5 Adam steps (lr 1e-4) on a fixed batch of 8 utterances in
      ``train()`` mode, in float32 and at bf16, whose loss must fall.
 
@@ -132,8 +133,13 @@ BF16_KERNEL_TOL = 1e-2
 BF16_VS_F32_RATIO = 1.5
 # Phase 6b, the bf16 microstep, kernels vs plain versions: the loss and
 # each gradient leaf to twice that quantity's own |plain bf16 - plain f32|
-# (max |.|), plus phase 6's float32 tolerance (LOSS_RTOL; GRAD_RTOL of the
-# leaf's max, GRAD_FLOOR of the largest gradient for the key biases).
+# in the L2 norm (as the CPU tests' rule), plus phase 6's float32
+# tolerance carried to the L2 norm (LOSS_RTOL; per element GRAD_RTOL of the
+# leaf's max, GRAD_FLOOR of the largest gradient for the key biases, times
+# the root of the leaf's size). The L2 norm, not the largest element: the
+# two bf16 runs draw their roundings independently once a sum order
+# differs, and the largest of many independent draws runs past twice the
+# largest single one.
 BF16_PATH_FACTOR = 2.0
 
 
@@ -1154,8 +1160,8 @@ def phase_train_parity_bf16(torch, model, batch, plain32):
     """6b: one eval() microstep at bf16 compute through the kernels against
     the same microstep with the plain versions patched in (both bf16),
     held to BF16_PATH_FACTOR times each quantity's own |plain bf16 - plain
-    f32| (phase 6's plain float32 microstep, ``plain32``) plus phase 6's
-    float32 tolerance."""
+    f32| in the L2 norm (phase 6's plain float32 microstep, ``plain32``)
+    plus phase 6's float32 tolerance in that norm."""
     bf = torch.bfloat16
     loss, grads = eval_microstep(torch, model, batch, bf)
     loss16, grads16 = eval_microstep(torch, model, batch, bf, plain=True)
@@ -1166,20 +1172,20 @@ def phase_train_parity_bf16(torch, model, batch, plain32):
     leaves = {}
     for name, g in grads.items():
         ref, ref32 = grads16[name], grads32[name]
-        floor = GRAD_FLOOR * g_max if name.endswith(ZERO_GRAD_LEAF) else \
-            GRAD_RTOL * float(ref32.abs().max())
-        bf16_cost = float((ref - ref32).abs().max())
+        per_element = GRAD_FLOOR * g_max if name.endswith(ZERO_GRAD_LEAF) \
+            else GRAD_RTOL * float(ref32.abs().max())
+        floor = per_element * ref32.numel() ** 0.5
+        bf16_cost = float(torch.linalg.vector_norm(ref - ref32))
         tol = BF16_PATH_FACTOR * bf16_cost + floor
-        err = float((g - ref).abs().max())
+        err = float(torch.linalg.vector_norm(g - ref))
         leaves[name] = (err / tol if err else 0.0, err, bf16_cost)
     ranked = sorted(leaves.items(), key=lambda kv: -kv[1][0])
     log(f"[6b] bf16 eval loss kernels {loss:.6f} plain bf16 {loss16:.6f} "
         f"plain f32 {loss32:.6f}: |kernels - plain| {abs(loss - loss16):.3e}"
         f" against a tolerance of {loss_tol:.3e}")
     for name, (share, err, cost) in ranked[:6]:
-        log(f"[6b]   {name}: {share:.3f} of its tolerance (max |kernels - "
-            f"plain bf16| {err:.3e}, max |plain bf16 - plain f32| "
-            f"{cost:.3e})")
+        log(f"[6b]   {name}: {share:.3f} of its tolerance (|kernels - plain "
+            f"bf16| {err:.3e}, |plain bf16 - plain f32| {cost:.3e}, L2)")
     worst_name, (worst, _, _) = ranked[0]
     expect(abs(loss - loss16) <= loss_tol,
            f"bf16 loss {loss} vs plain {loss16} (f32 {loss32})")

@@ -1,7 +1,8 @@
 // Pieces shared by K1 (rel_attention.cu) and K1b (rel_attention_bwd.cu):
 // float32-accurate tensor-core products (3xTF32 on mma.sync m16n8k8), the
 // cp.async copies that feed them (K3b, las_scan.cu, uses these too), and
-// the rel-PE bias of one score.
+// the rel-PE bias of one score; at the end of the file, the bf16 products
+// (mma.sync m16n8k16, float32 accumulation) of the bf16 entries.
 //
 // 3xTF32: a float32 x is split into x_hi = tf32(x) and x_lo = tf32(x -
 // x_hi), each rounded to nearest (cvt.rna). x_hi carries 11 significant
@@ -26,6 +27,7 @@
 // and B's rows follow the same order (b0 from row 2t, b1 from row 2t + 1).
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <cfloat>
 #include <cstdint>
@@ -294,6 +296,134 @@ cudaError_t allow_smem(int bytes) {
   static const cudaError_t err =
       cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   return err;
+}
+
+// ---- bf16 entries ---------------------------------------------------------
+//
+// One mma.sync.m16n8k16 (bf16 operands, row.col, float32 accumulation) per
+// 16-deep slice, where the float32 entries issue three m16n8k8 per 8-deep
+// slice. Its fragments, lane = 4 g + t, each 32-bit register a pair of
+// bf16 (the lower index in the low half):
+//   A [16 x 16]: a0 (g, 2t..2t+1), a1 (g + 8, 2t..), a2 (g, 2t+8..), a3 (g + 8, 2t+8..)
+//   B [16 x 8]:  b0 (k = 2t..2t+1, n = g), b1 (k = 2t+8..2t+9, n = g)
+//   C [16 x 8]:  as m16n8k8's (c0, c1 row g; c2, c3 row g + 8; columns 2t, 2t + 1)
+// So the C fragments of two neighbouring n-tiles of scores, rounded to bf16
+// and paired, are the A fragment of a product over those 16 keys: P feeds
+// P v from registers. The B side of a product along a tile's rows (q k^T:
+// k's rows are the n columns) is two 32-bit shared loads; the B side of a
+// product down a tile's columns (P v: v's rows are the reduction) comes
+// from ldmatrix.trans. The tensor cores' truncating accumulator is no
+// concern at bf16's 8 significant bits: a score chains DK / 16 <= 4
+// products, a row of P v one per 16 keys.
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kStepB = 64;  // keys (or queries) per streamed bf16 tile
+
+// bf16 tiles keep rows DK + 8 elements (DK / 2 + 4 words) apart: 16-byte
+// aligned for cp.async and ldmatrix, and both the fragment loads along a
+// row (bank (DK / 2 + 4) g + t) and ldmatrix's eight row addresses are
+// free of bank conflicts for DK = 16, 32, 64.
+template <int DK>
+struct TileB {
+  static constexpr int kWords = DK / 2 + 4;
+};
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// (lo, hi) rounded to nearest bf16, as one register
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Four 8 x 8 bf16 matrices, transposed: lane 8 i + r gives the address of
+// row r of matrix i; register i receives (row 2t, col g) and (row 2t + 1,
+// col g) of matrix i.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* smem_row) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(smem_row));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+// The A fragments of a warp's 16 rows w0 .. w0 + 15 of a [T, DK] bf16
+// matrix (rows past T zero), from device memory, for all DK / 16 slices.
+template <int DK>
+__device__ __forceinline__ void load_a_rows(uint32_t (&a)[DK / 16][4], const bf16* x, int w0,
+                                            int T, int g, int t) {
+  const uint32_t* r0 =
+      w0 + g < T ? reinterpret_cast<const uint32_t*>(x + (size_t)(w0 + g) * DK) : nullptr;
+  const uint32_t* r1 =
+      w0 + g + 8 < T ? reinterpret_cast<const uint32_t*>(x + (size_t)(w0 + g + 8) * DK) : nullptr;
+#pragma unroll
+  for (int kk = 0; kk < DK / 16; ++kk) {
+    a[kk][0] = r0 ? r0[8 * kk + t] : 0u;
+    a[kk][1] = r1 ? r1[8 * kk + t] : 0u;
+    a[kk][2] = r0 ? r0[8 * kk + 4 + t] : 0u;
+    a[kk][3] = r1 ? r1[8 * kk + 4 + t] : 0u;
+  }
+}
+
+// s[16 x 8 N] += A . rows^T over DK columns: A the warp's 16 rows as A
+// fragments (registers), the 8 N rows of a bf16 tile (TileB layout) its n
+// columns.
+template <int DK, int N>
+__device__ __forceinline__ void product_nt_bf16(float (&s)[N][4], const uint32_t (&a)[DK / 16][4],
+                                                const uint32_t* rows, int g, int t) {
+  constexpr int W = TileB<DK>::kWords;
+#pragma unroll
+  for (int kk = 0; kk < DK / 16; ++kk)
+#pragma unroll
+    for (int n = 0; n < N; ++n) {
+      const uint32_t* x = rows + (n * 8 + g) * W + kk * 8 + t;
+      mma_bf16(s[n], a[kk], x[0], x[4]);
+    }
+}
+
+// acc[16 x DK] += P[16 x 8 N] . rows[8 N x DK]: P in C fragments s, rounded
+// to bf16 here (two neighbouring n-tiles per A fragment); the 8 N rows of a
+// bf16 tile are the reduction, their B fragments by ldmatrix.trans.
+template <int DK, int N>
+__device__ __forceinline__ void product_pn_bf16(float (&acc)[DK / 8][4], const float (&s)[N][4],
+                                                const uint32_t* rows, int lane) {
+  constexpr int W = TileB<DK>::kWords;
+  const int mat = lane >> 3, r = lane & 7;
+#pragma unroll
+  for (int j = 0; j < N / 2; ++j) {
+    const uint32_t a[4] = {pack_bf16(s[2 * j][0], s[2 * j][1]), pack_bf16(s[2 * j][2], s[2 * j][3]),
+                           pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]),
+                           pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3])};
+#pragma unroll
+    for (int n = 0; n < DK / 8; n += 2) {
+      uint32_t b[4];
+      ldmatrix_x4_trans(b, rows + (16 * j + (mat & 1) * 8 + r) * W + (n + (mat >> 1)) * 4);
+      mma_bf16(acc[n], a, b[0], b[1]);
+      mma_bf16(acc[n + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+__device__ __forceinline__ float rel_bias_b(const bf16* p_row, int i, int j, int R) {
+  return __bfloat162float(p_row[min(abs(i - j), R - 1)]);
+}
+
+// Rows r0 .. r0 + ROWS - 1 of a bf16 p ([T, R], zeros past T) into dst
+// [ROWS][R] when R <= kSmemR. Returns where row r0 of the table to read
+// lies.
+template <int ROWS>
+__device__ __forceinline__ const bf16* stage_p_rows_b(bf16* dst, const bf16* pb, int r0, int T,
+                                                      int R) {
+  if (R > kSmemR) return pb + (size_t)r0 * R;
+  for (int idx = threadIdx.x; idx < ROWS * R; idx += kThreads)
+    dst[idx] = r0 + idx / R < T ? pb[(size_t)r0 * R + idx] : __float2bfloat16(0.0f);
+  return dst;
 }
 
 }  // namespace nsp_rel

@@ -4,7 +4,7 @@ of the port on the card, at the main path's shapes, with CUDA events, and
 hold each against its plain version.
 
     python3 neural_sp_tpu_torch/tools/rel_attention_times.py \
-        [--root DIR] [--label NAME] [--iters N]
+        [--root DIR] [--label NAME] [--iters N] [--dtype float32|bfloat16]
 
 ``--root`` is the directory holding the ``neural_sp_tpu_torch`` package to
 time (default: this checkout), so that two commits unpacked side by side
@@ -13,6 +13,8 @@ JSON line: the card's name and power limit, and per shape the kernel's ms
 called eagerly (the wrapper's host work included: what a caller sees),
 its device ms (the same calls captured in a CUDA graph and replayed: the
 device's time alone) and its error (max |err| / max |plain|).
+``--dtype bfloat16`` times the bf16 entries on bf16 inputs (a checkout
+from before they existed has none).
 """
 from __future__ import annotations
 
@@ -25,13 +27,15 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parents[2]
 # (what, B, H, T, dk, R, klens or None for full lengths): the serving
 # shape of chip_smoke.py phase 2 and the training shapes of phase 2b
+# (K1b with phase 2b's ragged lengths and with phase 5's full ones)
 FWD_SHAPES = [("K1", 4, 8, 800, 64, 11, [800, 600, 400, 267]),
               ("K1", 4, 8, 400, 64, 11, [400, 300, 200, 134]),
               ("K1", 4, 8, 200, 64, 11, [200, 150, 100, 67]),
               ("K1", 32, 8, 750, 64, 11, None),
               ("K1", 32, 8, 375, 64, 11, None),
               ("K1", 32, 8, 188, 64, 11, None)]
-BWD_SHAPES = [("K1b", 32, 8, t, 64, 11, "ragged") for t in (750, 375, 188)]
+BWD_SHAPES = [("K1b", 32, 8, t, 64, 11, kl) for kl in ("ragged", None)
+              for t in (750, 375, 188)]
 
 
 def main() -> int:
@@ -39,6 +43,8 @@ def main() -> int:
     ap.add_argument("--root", type=Path, default=HERE)
     ap.add_argument("--label", default="this checkout")
     ap.add_argument("--iters", type=int, default=50)
+    ap.add_argument("--dtype", default="float32",
+                    choices=("float32", "bfloat16"))
     opts = ap.parse_args()
     sys.path.insert(0, str(opts.root.resolve()))
     import numpy as np
@@ -53,9 +59,11 @@ def main() -> int:
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
 
+    dtype = getattr(torch, opts.dtype)
+
     def randn(*shape, scale=1.0):
         return torch.from_numpy((rng.standard_normal(shape) * scale).astype(
-            "float32")).to(dev)
+            "float32")).to(dev).to(dtype)
 
     def cuda_ms(fn):
         for _ in range(3):
@@ -83,6 +91,7 @@ def main() -> int:
         return cuda_ms(graph.replay) / calls
 
     def rel(got, want):
+        got, want = got.float(), want.float()
         return float((got - want).abs().max() / want.abs().max())
 
     results = []
@@ -112,7 +121,8 @@ def main() -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip().splitlines()[0]
     print(json.dumps({"label": opts.label, "root": str(opts.root),
-                      "card": card, "results": results}))
+                      "dtype": opts.dtype, "card": card,
+                      "results": results}))
     return 0
 
 
