@@ -903,7 +903,8 @@ def phase_train_kernels_bf16(torch, rng):
                **extra}
         r["shapes"].append(row)
         if full_750:           # the main path's shape: phase 5's batch
-            r.update({k: v for k, v in row.items() if k != "shape"})
+            r.update({k: v for k, v in row.items()
+                      if k not in ("shape", "max_abs_err")})
 
     b, h, dk, r = TRAIN_B, 8, 64, 11
     for tt in (750, 375, 188):
