@@ -1090,25 +1090,22 @@ def plain_rel_attention(torch):
 def eval_microstep(torch, model, batch, compute_dtype=None, plain=False):
     """One ``eval()`` microstep under ``compute_dtype`` (None: float32):
     (loss, {leaf: gradient}), through the kernels or, with ``plain``, the
-    plain versions patched in (K1 / K1b: ``plain_rel_attention``, or for
-    float32 autograd through ``rel_attention_ref``; K3 / K3b:
+    plain versions patched in (K1 / K1b: ``plain_rel_attention``; K3 / K3b:
     ``PlainLASScan``; K4: autograd through its plain forward)."""
     from contextlib import ExitStack
     from neural_sp_tpu_torch.models.decoders import las
     from neural_sp_tpu_torch.models.modules import \
         relative_multihead_attention as rma
     from neural_sp_tpu_torch.ops import ctc
-    from neural_sp_tpu_torch.ops.kernels import rel_attention_ref
     from neural_sp_tpu_torch.ops.kernels.ctc_loss import ctc_forward_alphas
     from neural_sp_tpu_torch.parallel.mesh import compute_loss
     model.eval()
     model.zero_grad(set_to_none=True)
     with ExitStack() as stack:
         if plain:
-            k1 = rel_attention_ref if compute_dtype is None \
-                else plain_rel_attention(torch)
             for target, name, value in (
-                    (rma, "rel_attention", k1), (las, "LASScan", PlainLASScan),
+                    (rma, "rel_attention", plain_rel_attention(torch)),
+                    (las, "LASScan", PlainLASScan),
                     (ctc, "ctc_nll", lambda *a: ctc_forward_alphas(*a)[0])):
                 stack.enter_context(mock.patch.object(target, name, value))
         loss, _ = compute_loss(model, compute_dtype, *batch)

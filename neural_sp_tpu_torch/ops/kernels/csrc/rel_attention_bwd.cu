@@ -68,6 +68,87 @@ namespace {
 
 using namespace nsp_rel;
 
+// Pass 1's work on a tile, in float32 registers: s (S = Q K^T) and dpv
+// (dP = dO V^T) of a warp's rows rows[0..1] and keys k0 .. k0 + 8 N - 1;
+// s becomes ds = P (dP - D), P = exp(s + bias - m) / l, and 0 for keys at
+// or past kend. dp's buckets from ds: the far one summed per row in
+// far_ds, the near ones (r < R - 1) added into dp_rows, the block's rows
+// of dp's sums from row q0: the keys i - r and i + r are a near bucket's
+// only addends, added onto zero, so the order of the two adds does not
+// change the sum. Both entries run it, on tiles of 32 (float32) or 64
+// (bf16) keys.
+template <int N, class E>
+__device__ __forceinline__ void ds_tile(float (&s)[N][4], const float (&dpv)[N][4],
+                                        float (&far_ds)[2], float* dp_rows, const int (&rows)[2],
+                                        const float (&far_p)[2], const float (&mr)[2],
+                                        const float (&inv_l)[2], const float (&dr)[2],
+                                        const E* prows, int q0, int w0, int k0, int kend, int T,
+                                        int R, int t) {
+  const bool plain = k0 + 8 * N <= kend && min_distance(w0, 16, k0, 8 * N) >= R - 1;
+#pragma unroll
+  for (int n = 0; n < N; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = e >> 1, i = rows[r], j = k0 + n * 8 + 2 * t + (e & 1);
+      float ds;
+      if (plain) {
+        ds = __expf(s[n][e] + far_p[r] - mr[r]) * inv_l[r] * (dpv[n][e] - dr[r]);
+        far_ds[r] += ds;
+      } else if (i < T && j < kend) {
+        const int dist = min(abs(i - j), R - 1);
+        ds = __expf(s[n][e] + to_float(prows[(i - q0) * R + dist]) - mr[r]) * inv_l[r] *
+             (dpv[n][e] - dr[r]);
+        if (dist == R - 1) far_ds[r] += ds;
+        else atomicAdd(dp_rows + (i - q0) * R + dist, ds);
+      } else {
+        ds = 0.0f;
+      }
+      s[n][e] = ds;
+    }
+}
+
+// Pass 2's weights, in float32 registers: sp (S^T = K Q^T, a warp's keys
+// keys[0..1] by the tile's queries i0 .. i0 + 8 N - 1) becomes P^T, P =
+// exp(s + bias - m) / l from the tile's row statistics st (m, 1 / l, D and
+// the far-bucket bias, 8 N each) and its rows of p (prows = row i0); a
+// query or key past T gives 0, a key at or past klen the masked score.
+template <int N, class E>
+__device__ __forceinline__ void p_tile_t(float (&sp)[N][4], const float* st, const E* prows,
+                                         const int (&keys)[2], int i0, int c0, int klen, int T,
+                                         int R, int t) {
+  constexpr int S = 8 * N;
+  const bool far_tile = min_distance(i0, S, c0, 16) >= R - 1;
+#pragma unroll
+  for (int n = 0; n < N; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int c = n * 8 + 2 * t + (e & 1), i = i0 + c, j = keys[e >> 1];
+      float P = 0.0f;
+      if (i < T && j < T) {
+        float sv;
+        if (j >= klen) sv = kNeg;
+        else if (far_tile) sv = sp[n][e] + st[3 * S + c];
+        else sv = sp[n][e] + rel_bias(prows + c * R, i, j, R);
+        P = __expf(sv - st[c]) * st[S + c];
+      }
+      sp[n][e] = P;
+    }
+}
+
+// dpv (dP^T = V dO^T) becomes ds^T = P^T (dP^T - D) for the warp's valid
+// keys, 0 for masked ones.
+template <int N>
+__device__ __forceinline__ void ds_tile_t(float (&dpv)[N][4], const float (&sp)[N][4],
+                                          const float* st, const int (&keys)[2], int klen, int t) {
+#pragma unroll
+  for (int n = 0; n < N; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int c = n * 8 + 2 * t + (e & 1);
+      dpv[n][e] = keys[e >> 1] < klen ? sp[n][e] * (dpv[n][e] - st[2 * 8 * N + c]) : 0.0f;
+    }
+}
+
 template <int DK>
 __global__ void __launch_bounds__(kThreads, 2)
 rel_attn_bwd_dq(const float* __restrict__ q, const float2* __restrict__ kp,
@@ -158,28 +239,8 @@ rel_attn_bwd_dq(const float* __restrict__ q, const float2* __restrict__ kp,
     product_nt<DK>(dpv, [&](int kk) { return load_a<DK>(dos, 16 * warp, kk * 8, g, t); }, vs,
                    g, t);
 
-    // P and ds in registers; dp's buckets from ds
-    const bool plain = k0 + kStep <= kend && min_distance(w0, 16, k0, kStep) >= R - 1;
-#pragma unroll
-    for (int n = 0; n < kStep / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1, i = rows[r], j = k0 + n * 8 + 2 * t + (e & 1);
-        float ds;
-        if (plain) {
-          ds = __expf(s[n][e] + far_p[r] - mr[r]) * inv_l[r] * (dpv[n][e] - dr[r]);
-          far_ds[r] += ds;
-        } else if (i < T && j < kend) {
-          const int dist = min(abs(i - j), R - 1);
-          ds = __expf(s[n][e] + prows[(i - q0) * R + dist] - mr[r]) * inv_l[r] *
-               (dpv[n][e] - dr[r]);
-          if (dist == R - 1) far_ds[r] += ds;
-          else atomicAdd(dpb + (size_t)i * R + dist, ds);
-        } else {
-          ds = 0.0f;
-        }
-        s[n][e] = ds;
-      }
+    ds_tile(s, dpv, far_ds, dpb + (size_t)q0 * R, rows, far_p, mr, inv_l, dr, prows, q0, w0,
+            k0, kend, T, R, t);
     product_pn<DK>(acc, s, ks, g, t);  // dq += ds K
   }
   cp_async_wait_all();  // with no key tile, the Q and dO copies are still in flight
@@ -280,22 +341,7 @@ rel_attn_bwd_dkdv(const float2* __restrict__ qp, const float* __restrict__ k,
     product_nt<DK>(sp, [&](int kk) { return load_a<DK>(ks, 16 * warp, kk * 8, g, t); }, qs, g,
                    t);
 
-    const bool far_tile = min_distance(i0, kStep, c0, 16) >= R - 1;
-#pragma unroll
-    for (int n = 0; n < kStep / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = n * 8 + 2 * t + (e & 1), i = i0 + c, j = keys[e >> 1];
-        float P = 0.0f;
-        if (i < T && j < T) {
-          float sv;
-          if (j >= klen) sv = kNeg;
-          else if (far_tile) sv = sp[n][e] + st[3 * kStep + c];
-          else sv = sp[n][e] + rel_bias(prows + c * R, i, j, R);
-          P = __expf(sv - st[c]) * st[kStep + c];
-        }
-        sp[n][e] = P;
-      }
+    p_tile_t(sp, st, prows, keys, i0, c0, klen, T, R, t);
     product_pn<DK>(acc_v, sp, dos, g, t);  // dv += P^T dO
 
     float dpv[kStep / 8][4];  // dP^T, then ds^T
@@ -303,13 +349,7 @@ rel_attn_bwd_dkdv(const float2* __restrict__ qp, const float* __restrict__ k,
     for (int n = 0; n < kStep / 8; ++n) dpv[n][0] = dpv[n][1] = dpv[n][2] = dpv[n][3] = 0.0f;
     product_nt<DK>(dpv, [&](int kk) { return load_a<DK>(vs, 16 * warp, kk * 8, g, t); }, dos,
                    g, t);
-#pragma unroll
-    for (int n = 0; n < kStep / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = n * 8 + 2 * t + (e & 1);
-        dpv[n][e] = keys[e >> 1] < klen ? sp[n][e] * (dpv[n][e] - st[2 * kStep + c]) : 0.0f;
-      }
+    ds_tile_t(dpv, sp, st, keys, klen, t);
     product_pn<DK>(acc_k, dpv, qs, g, t);  // dk += ds^T Q
   }
 
@@ -392,7 +432,7 @@ rel_attn_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
     load_async<STEP, DK / 2, W>(ring + kTile, vb, 0, T);
   }
   cp_async_commit();
-  const bf16* prows = stage_p_rows_b<kRows>(ps, pb, q0, T, R);  // row q0 of p
+  const bf16* prows = stage_p_rows<kRows>(ps, pb, q0, T, R);  // row q0 of p
   // float32 sums of the block's rows of dp (only this block touches them)
   float* dpacc = R <= kSmemR ? dps : dp32 + (bh * T + q0) * R;
   for (int idx = threadIdx.x; idx < kRows * R; idx += kThreads)
@@ -451,28 +491,8 @@ rel_attn_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
     product_nt_bf16<DK, STEP / 8>(s, qa, ks, g, t);     // S = Q K^T
     product_nt_bf16<DK, STEP / 8>(dpv, doa, vs, g, t);  // dP = dO V^T
 
-    // P and ds in float32 registers; dp's buckets from ds
-    const bool plain = k0 + STEP <= kend && min_distance(w0, 16, k0, STEP) >= R - 1;
-#pragma unroll
-    for (int n = 0; n < STEP / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1, i = rows[r], j = k0 + n * 8 + 2 * t + (e & 1);
-        float ds;
-        if (plain) {
-          ds = __expf(s[n][e] + far_p[r] - mr[r]) * inv_l[r] * (dpv[n][e] - dr[r]);
-          far_ds[r] += ds;
-        } else if (i < T && j < kend) {
-          const int dist = min(abs(i - j), R - 1);
-          ds = __expf(s[n][e] + __bfloat162float(prows[(i - q0) * R + dist]) - mr[r]) *
-               inv_l[r] * (dpv[n][e] - dr[r]);
-          if (dist == R - 1) far_ds[r] += ds;
-          else atomicAdd(dpacc + (i - q0) * R + dist, ds);
-        } else {
-          ds = 0.0f;
-        }
-        s[n][e] = ds;
-      }
+    ds_tile(s, dpv, far_ds, dpacc, rows, far_p, mr, inv_l, dr, prows, q0, w0, k0, kend, T, R,
+            t);
     product_pn_bf16<DK, STEP / 8>(acc, s, ks, lane);  // dq += ds K, ds rounded to bf16
   }
   cp_async_wait_all();
@@ -519,7 +539,7 @@ __device__ __forceinline__ void load_query_stage_bf16(uint32_t* stage, const uin
     st[2 * STEP + r] = in ? db[i] : 0.0f;
     st[3 * STEP + r] = in ? __bfloat162float(pb[(size_t)i * R + R - 1]) : 0.0f;
   }
-  stage_p_rows_b<STEP>(reinterpret_cast<bf16*>(st + 4 * STEP), pb, i0, T, R);
+  stage_p_rows<STEP>(reinterpret_cast<bf16*>(st + 4 * STEP), pb, i0, T, R);
 }
 
 // Pass 2 at bf16: a block per (64 keys, head, batch); k and v as A
@@ -583,35 +603,14 @@ rel_attn_bwd_dkdv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int n = 0; n < STEP / 8; ++n) sp[n][0] = sp[n][1] = sp[n][2] = sp[n][3] = 0.0f;
     product_nt_bf16<DK, STEP / 8>(sp, ka, qs, g, t);
 
-    const bool far_tile = min_distance(i0, STEP, c0, 16) >= R - 1;
-#pragma unroll
-    for (int n = 0; n < STEP / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = n * 8 + 2 * t + (e & 1), i = i0 + c, j = keys[e >> 1];
-        float P = 0.0f;
-        if (i < T && j < T) {
-          float sv;
-          if (j >= klen) sv = kNeg;
-          else if (far_tile) sv = sp[n][e] + st[3 * STEP + c];
-          else sv = sp[n][e] + rel_bias_b(prows + c * R, i, j, R);
-          P = __expf(sv - st[c]) * st[STEP + c];
-        }
-        sp[n][e] = P;
-      }
+    p_tile_t(sp, st, prows, keys, i0, c0, klen, T, R, t);
     product_pn_bf16<DK, STEP / 8>(acc_v, sp, dos, lane);  // dv += P^T dO, P rounded to bf16
 
     float dpv[STEP / 8][4];  // dP^T, then ds^T
 #pragma unroll
     for (int n = 0; n < STEP / 8; ++n) dpv[n][0] = dpv[n][1] = dpv[n][2] = dpv[n][3] = 0.0f;
     product_nt_bf16<DK, STEP / 8>(dpv, va, dos, g, t);
-#pragma unroll
-    for (int n = 0; n < STEP / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = n * 8 + 2 * t + (e & 1);
-        dpv[n][e] = keys[e >> 1] < klen ? sp[n][e] * (dpv[n][e] - st[2 * STEP + c]) : 0.0f;
-      }
+    ds_tile_t(dpv, sp, st, keys, klen, t);
     product_pn_bf16<DK, STEP / 8>(acc_k, dpv, qs, lane);  // dk += ds^T Q, ds rounded to bf16
   }
 

@@ -34,6 +34,11 @@
 
 namespace nsp_rel {
 
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(bf16 x) { return __bfloat162float(x); }
+
 constexpr int kRows = 64;   // queries (K1, K1b dq) or keys (K1b dkdv) per block
 constexpr int kStep = 32;   // keys (or queries) per streamed tile
 constexpr int kWarps = 4;   // 16 of the block's rows per warp
@@ -220,9 +225,10 @@ __device__ __forceinline__ void load_pairs_async(float2* tile, const float2* src
 }
 
 // The rel-PE bias of query i and key j from the query's row of p (in
-// shared or device memory).
-__device__ __forceinline__ float rel_bias(const float* p_row, int i, int j, int R) {
-  return p_row[min(abs(i - j), R - 1)];
+// shared or device memory; float32 or bf16), in float32.
+template <class E>
+__device__ __forceinline__ float rel_bias(const E* p_row, int i, int j, int R) {
+  return to_float(p_row[min(abs(i - j), R - 1)]);
 }
 
 // A block copies the rows of the rel-PE table p it looks biases up in
@@ -230,14 +236,14 @@ __device__ __forceinline__ float rel_bias(const float* p_row, int i, int j, int 
 // a longer table is read through L1.
 constexpr int kSmemR = 16;
 
-// Rows r0 .. r0 + ROWS - 1 of p ([T, R], zeros past T) into dst [ROWS][R]
-// when R <= kSmemR. Returns where row r0 of the table to read lies.
-template <int ROWS>
-__device__ __forceinline__ const float* stage_p_rows(float* dst, const float* pb, int r0, int T,
-                                                     int R) {
+// Rows r0 .. r0 + ROWS - 1 of p ([T, R], zeros past T; float32 or bf16)
+// into dst [ROWS][R] when R <= kSmemR. Returns where row r0 of the table to
+// read lies.
+template <int ROWS, class E>
+__device__ __forceinline__ const E* stage_p_rows(E* dst, const E* pb, int r0, int T, int R) {
   if (R > kSmemR) return pb + (size_t)r0 * R;
   for (int idx = threadIdx.x; idx < ROWS * R; idx += kThreads)
-    dst[idx] = r0 + idx / R < T ? pb[(size_t)r0 * R + idx] : 0.0f;
+    dst[idx] = r0 + idx / R < T ? pb[(size_t)r0 * R + idx] : E{};
   return dst;
 }
 
@@ -315,8 +321,6 @@ cudaError_t allow_smem(int bytes) {
 // from ldmatrix.trans. The tensor cores' truncating accumulator is no
 // concern at bf16's 8 significant bits: a score chains DK / 16 <= 4
 // products, a row of P v one per 16 keys.
-
-using bf16 = __nv_bfloat16;
 
 constexpr int kStepB = 64;  // keys (or queries) per streamed bf16 tile
 
@@ -408,22 +412,6 @@ __device__ __forceinline__ void product_pn_bf16(float (&acc)[DK / 8][4], const f
       mma_bf16(acc[n + 1], a, b[2], b[3]);
     }
   }
-}
-
-__device__ __forceinline__ float rel_bias_b(const bf16* p_row, int i, int j, int R) {
-  return __bfloat162float(p_row[min(abs(i - j), R - 1)]);
-}
-
-// Rows r0 .. r0 + ROWS - 1 of a bf16 p ([T, R], zeros past T) into dst
-// [ROWS][R] when R <= kSmemR. Returns where row r0 of the table to read
-// lies.
-template <int ROWS>
-__device__ __forceinline__ const bf16* stage_p_rows_b(bf16* dst, const bf16* pb, int r0, int T,
-                                                      int R) {
-  if (R > kSmemR) return pb + (size_t)r0 * R;
-  for (int idx = threadIdx.x; idx < ROWS * R; idx += kThreads)
-    dst[idx] = r0 + idx / R < T ? pb[(size_t)r0 * R + idx] : __float2bfloat16(0.0f);
-  return dst;
 }
 
 }  // namespace nsp_rel

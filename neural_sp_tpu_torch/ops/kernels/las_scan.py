@@ -364,8 +364,8 @@ class LASScan(torch.autograd.Function):
                                            keep)
         ctx_.save_for_backward(w_ctx, w_h, w_q, conv_w, w_f, v, kc, values,
                                klens, keep, h, c, gates, q, aw, ctx)
-        out = (x.transpose(0, 1).to(ctx_.dtypes[0]) for x in (h, ctx, aw))
-        h, ctx, aw = out
+        h, ctx, aw = (x.transpose(0, 1).to(ctx_.dtypes[0])
+                      for x in (h, ctx, aw))
         ctx_.mark_non_differentiable(aw)
         return h, ctx, aw
 

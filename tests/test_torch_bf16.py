@@ -115,10 +115,6 @@ def assert_leaves(got, want_bf16, want_f32, what):
                     f"{what} {name}", scale)
 
 
-def _cast(model, dtype=torch.bfloat16):
-    return {n: p.to(dtype) for n, p in model.named_parameters()}
-
-
 # ---- K1 / K1b through the module ------------------------------------------
 
 @pytest.mark.parametrize("t,xlens", [
@@ -160,8 +156,9 @@ def test_relative_mha_bf16_matches_jax(t, xlens):
     tm = RelativeMultiheadAttention(d, h, clamp_len=clamp)
     tm.load_state_dict(convert_params(params["params"]), strict=True)
     x = torch.from_numpy(xs).requires_grad_(True)
-    out = functional_call(tm, _cast(tm), (x.to(torch.bfloat16),
-                                          torch.from_numpy(xl)))
+    bf16 = {n: p.to(torch.bfloat16) for n, p in tm.named_parameters()}
+    out = functional_call(tm, bf16, (x.to(torch.bfloat16),
+                                     torch.from_numpy(xl)))
     assert out.dtype == torch.bfloat16
     (out.float() * torch.from_numpy(dout)).sum().backward()
     assert_rule(out.detach().float().numpy(), out_b, out_f, "output")
