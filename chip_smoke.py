@@ -628,11 +628,13 @@ def rel_attention_bwd_yardstick(torch, args, kernel, what: str,
     (torch.autograd.grad of the efficient SDPA output w.r.t. q, k, v and
     the bias, on the same do), timed alone; the scatter of dbias into the R
     buckets of dp is timed apart. The library's dq, dk, dv, dp are held to
-    the plain version (within ``tol`` of each one's max)."""
+    the plain version (within ``tol`` of each one's max) taken with the
+    library's own output as o: its D is sum dO out, so at bf16 its
+    gradients follow where its forward rounded P."""
     from torch.nn.functional import scaled_dot_product_attention as sdpa
     from neural_sp_tpu_torch.ops.kernels.rel_attention import \
         rel_attention_bwd_ref
-    q, k, v, p, klens, _, _, _, do = args
+    q, k, v, p, klens, _, m, l, do = args
     bias = rel_bias(torch, p, klens).requires_grad_()
     leaves = [x.detach().requires_grad_() for x in (q, k, v)]
     with efficient_sdpa():
@@ -648,8 +650,8 @@ def rel_attention_bwd_yardstick(torch, args, kernel, what: str,
     scatter_ms = cuda_ms(lambda: bias_grad_to_buckets(torch, dbias, r),
                          iters=5, warmup=1)
     got = (*dqkv, bias_grad_to_buckets(torch, dbias, r))
-    err = max(rel_err(x, y) for x, y in zip(got,
-                                            rel_attention_bwd_ref(*args)))
+    want = rel_attention_bwd_ref(q, k, v, p, klens, out.detach(), m, l, do)
+    err = max(rel_err(x, y) for x, y in zip(got, want))
     log(f"[2b] K1b {what}: kernel {ms:.4f} ms  library (SDPA backward, "
         f"efficient) {lib_ms:.4f} ms + dbias into buckets {scatter_ms:.4f} "
         f"ms; library error {err:.3e} of the plain max")
