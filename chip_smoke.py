@@ -67,9 +67,9 @@ Phases (any failure raises and the script exits non-zero):
      have run, and no float32 K1 / K1b;
   6. one microstep's loss and every gradient in ``eval()`` mode with the
      kernels against the plain versions patched in;
-  6b. the same at bf16 compute, the loss and each gradient leaf held to
-     twice its own |plain bf16 - plain f32| plus phase 6's tolerance, in
-     the L2 norm; then
+  6b. the same at bf16 compute: the kernels' loss and each gradient leaf
+     no farther from the plain f32 microstep than twice the plain bf16
+     microstep, plus phase 6's tolerance, in the L2 norm; then
      5 Adam steps (lr 1e-4) on a fixed batch of 8 utterances in
      ``train()`` mode, in float32 and at bf16, whose loss must fall.
 
@@ -131,18 +131,20 @@ BF16_KERNEL_TOL = 1e-2
 # inputs: the kernel's error at most this multiple of the plain bf16
 # version's, so the kernel is no less exact than the plain path.
 BF16_VS_F32_RATIO = 1.5
-# Phase 6b, the bf16 microstep, kernels vs plain versions: the loss and
-# each gradient leaf to twice that quantity's own |plain bf16 - plain f32|
-# in the L2 norm (as the CPU tests' rule), plus phase 6's float32
-# tolerance carried to the L2 norm (LOSS_RTOL; per element GRAD_RTOL of the
-# leaf's max, GRAD_FLOOR of the largest gradient for the key biases, times
-# the root of the leaf's size). The L2 norm, not the largest element: the
-# two bf16 runs draw their roundings independently once a sum order
-# differs, and the largest of many independent draws runs past twice the
-# largest single one. This holds only because K1 rounds P where the plain
-# version does, after the 1 / l: with near-uniform attention every P of a
-# row rounds the same way, so o, hence D = sum dO o and the query / key
-# projections' gradients, carry an error whose sign follows that point.
+# Phase 6b, the bf16 microstep with the kernels against the same microstep
+# with the plain versions: the loss and each gradient leaf of the kernels'
+# microstep may lie no farther from the plain float32 microstep's than
+# twice the plain bf16 microstep does (the kernels no less exact than the
+# plain path), in the L2 norm (as the CPU tests' rule), plus phase 6's
+# float32 tolerance carried to the L2 norm (LOSS_RTOL; per element
+# GRAD_RTOL of the leaf's max, GRAD_FLOOR of the largest gradient for the
+# key biases, times the root of the leaf's size). Not |kernels - plain
+# bf16|: in the attention query / key projections' gradients (zero-sum in
+# exact arithmetic, so rounding is most of what bf16 leaves there) the two
+# bf16 errors point opposite ways, and on the H100 their difference came
+# to 1.0-1.1 times twice the plain one's, whether K1 rounded P before the
+# 1 / l of its online softmax or, in a trial with two sweeps over the
+# keys, after it as the plain version does.
 BF16_PATH_FACTOR = 2.0
 
 
@@ -1161,10 +1163,11 @@ def phase_train_parity(torch, model, batch):
 
 def phase_train_parity_bf16(torch, model, batch, plain32):
     """6b: one eval() microstep at bf16 compute through the kernels against
-    the same microstep with the plain versions patched in (both bf16),
-    held to BF16_PATH_FACTOR times each quantity's own |plain bf16 - plain
-    f32| in the L2 norm (phase 6's plain float32 microstep, ``plain32``)
-    plus phase 6's float32 tolerance in that norm."""
+    the same microstep with the plain versions patched in (both bf16): each
+    quantity's distance from phase 6's plain float32 microstep
+    (``plain32``) held to BF16_PATH_FACTOR times the plain bf16
+    microstep's, in the L2 norm, plus phase 6's float32 tolerance in that
+    norm."""
     bf = torch.bfloat16
     loss, grads = eval_microstep(torch, model, batch, bf)
     loss16, grads16 = eval_microstep(torch, model, batch, bf, plain=True)
@@ -1179,22 +1182,22 @@ def phase_train_parity_bf16(torch, model, batch, plain32):
         per_element = GRAD_FLOOR * g_max if name.endswith(ZERO_GRAD_LEAF) \
             else GRAD_RTOL * float(ref32.abs().max())
         floor = per_element * ref32.numel() ** 0.5
-        bf16_cost = float(norm(ref - ref32))
-        tol = BF16_PATH_FACTOR * bf16_cost + floor
-        err = float(norm(g - ref))
-        leaves[name] = (err / tol if err else 0.0, err, bf16_cost,
-                        float(norm(g - ref32)))
+        plain_cost = float(norm(ref - ref32))
+        tol = BF16_PATH_FACTOR * plain_cost + floor
+        err = float(norm(g - ref32))
+        leaves[name] = (err / tol if err else 0.0, err, plain_cost,
+                        float(norm(g - ref)))
     ranked = sorted(leaves.items(), key=lambda kv: -kv[1][0])
     log(f"[6b] bf16 eval loss kernels {loss:.6f} plain bf16 {loss16:.6f} "
-        f"plain f32 {loss32:.6f}: |kernels - plain| {abs(loss - loss16):.3e}"
-        f" against a tolerance of {loss_tol:.3e}")
-    for name, (share, err, cost, vs32) in ranked[:6]:
-        log(f"[6b]   {name}: {share:.3f} of its tolerance (|kernels - plain "
-            f"bf16| {err:.3e}, |plain bf16 - plain f32| {cost:.3e}, "
-            f"|kernels - plain f32| {vs32:.3e}, L2)")
+        f"plain f32 {loss32:.6f}: |kernels - f32| {abs(loss - loss32):.3e} "
+        f"against a tolerance of {loss_tol:.3e}")
+    for name, (share, err, cost, between) in ranked[:6]:
+        log(f"[6b]   {name}: {share:.3f} of its tolerance (|kernels - f32| "
+            f"{err:.3e}, |plain bf16 - f32| {cost:.3e}, |kernels - plain "
+            f"bf16| {between:.3e}, L2)")
     worst_name, (worst, _, _, _) = ranked[0]
-    expect(abs(loss - loss16) <= loss_tol,
-           f"bf16 loss {loss} vs plain {loss16} (f32 {loss32})")
+    expect(abs(loss - loss32) <= loss_tol,
+           f"bf16 loss {loss} vs plain f32 {loss32} (plain bf16 {loss16})")
     expect(worst <= 1.0, f"bf16 gradient {worst_name} outside tolerance")
     return {"loss": loss, "loss_plain_bf16": loss16, "loss_plain_f32": loss32,
             "worst_grad": worst, "worst_grad_leaf": worst_name,
