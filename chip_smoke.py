@@ -138,13 +138,14 @@ BF16_VS_F32_RATIO = 1.5
 # plain path), in the L2 norm (as the CPU tests' rule), plus phase 6's
 # float32 tolerance carried to the L2 norm (LOSS_RTOL; per element
 # GRAD_RTOL of the leaf's max, GRAD_FLOOR of the largest gradient for the
-# key biases, times the root of the leaf's size). Not |kernels - plain
-# bf16|: in the attention query / key projections' gradients (zero-sum in
-# exact arithmetic, so rounding is most of what bf16 leaves there) the two
-# bf16 errors point opposite ways, and on the H100 their difference came
-# to 1.0-1.1 times twice the plain one's, whether K1 rounded P before the
-# 1 / l of its online softmax or, in a trial with two sweeps over the
-# keys, after it as the plain version does.
+# key biases, times the root of the leaf's size): the kernels no less
+# exact than the plain path, as phase 2b holds each kernel. Not |kernels -
+# plain bf16|: in the attention query / key projections' gradients
+# (zero-sum in exact arithmetic, so rounding is most of what bf16 leaves
+# there) the two paths' bf16 errors are of one size and point apart, so
+# their difference reaches twice either (0.996 of that tolerance on the
+# H100 with K1 rounding P where the plain version does; 1.1 when K1
+# rounded it before the 1 / l, its error then up to 3x the plain one's).
 BF16_PATH_FACTOR = 2.0
 
 

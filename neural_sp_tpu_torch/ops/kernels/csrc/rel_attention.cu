@@ -1,4 +1,5 @@
-// K1: relative-position self-attention forward, float32, for sm_90a.
+// K1: relative-position self-attention forward, float32 and bf16 entries,
+// for sm_90a.
 //
 // Replaces the TPU kernel `_fwd_kernel` of
 // neural_sp_tpu/ops/rel_attention_pallas.py (last present at 583dfc4~1),
@@ -45,6 +46,21 @@
 // l. Both are kept instead of one log-sum-exp m + log l because a row with
 // every key masked has m = finfo.min / 2, where adding log l would be
 // absorbed and P would come out 1 instead of 1 / T.
+//
+// The bf16 entry (nsp_rel_attention_bf16; q, k, v, p, o bf16, m and l
+// float32) computes what the TPU kernel computed for bf16 inputs: the
+// scores in float32 (`preferred_element_type=jnp.float32`), the bias formed
+// from p in float32, the softmax in float32, P normalised and then rounded
+// to the input type before P v (`(e / sum(e)).astype(q.dtype)`), P v
+// accumulated in float32 and the output rounded to the input type. Its
+// products are one bf16 mma.sync m16n8k16 per 16-deep slice
+// (rel_attention_common.cuh); k and v stream in tiles of 64 keys, 16-byte
+// pieces of eight bf16 by cp.async, through the same two-stage ring, with
+// no (hi, lo) split and no scratch; P feeds P v from registers. To round
+// P after the 1 / l it sweeps the keys twice (k alone for m and l, then k
+// and v), one q k^T product more than the float32 entry's single online
+// sweep. At B 32, H 8, T 750 the function's bound is 0.034 ms of products
+// at the bf16 tensor-core peak (989 TFLOP/s), below its 0.05 ms of bytes.
 
 #include "rel_attention_common.cuh"
 
@@ -53,6 +69,61 @@
 namespace {
 
 using namespace nsp_rel;
+
+// The rel-PE bias and the key mask on a tile of scores s (the C fragments
+// of a warp's rows rows[0..1] and keys k0 .. k0 + 8 N - 1), in float32
+// registers: a warp whose 16 rows and the tile's keys are all at distance
+// >= R - 1 adds one far-bucket value per row (far), other tiles look each
+// score's bucket up in the block's rows of p (prows = row q0).
+template <int N, class E>
+__device__ __forceinline__ void bias_tile(float (&s)[N][4], const int (&rows)[2],
+                                          const float (&far)[2], const E* prows, int q0, int w0,
+                                          int k0, int klen, int T, int R, int t) {
+  const bool plain = k0 + 8 * N <= min(klen, T) && min_distance(w0, 16, k0, 8 * N) >= R - 1;
+#pragma unroll
+  for (int n = 0; n < N; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = rows[e >> 1], j = k0 + n * 8 + 2 * t + (e & 1);
+      if (plain) {
+        s[n][e] += far[e >> 1];
+      } else if (j >= T) {
+        s[n][e] = -INFINITY;  // not a key at all
+      } else if (j >= klen) {
+        s[n][e] = kNeg;       // masked key, like apply_mask_logits
+      } else if (i < T) {
+        s[n][e] += rel_bias(prows + (i - q0) * R, i, j, R);
+      }
+    }
+}
+
+// The online softmax over a tile of biased scores s: s = exp(s - m) against
+// the new running max m_run, this lane's share of the row sums l_run moves
+// on, and alpha is the factor that rescales what was summed against the
+// old max. Each quad of lanes shares its two rows.
+template <int N>
+__device__ __forceinline__ void online_tile(float (&s)[N][4], float (&m_run)[2],
+                                            float (&l_run)[2], float (&alpha)[2]) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float tile_max = -INFINITY;
+#pragma unroll
+    for (int n = 0; n < N; ++n) tile_max = fmaxf(tile_max, fmaxf(s[n][2 * r], s[n][2 * r + 1]));
+    const float m_new = fmaxf(m_run[r], quad_max(tile_max));  // finite: key k0 < T
+    alpha[r] = __expf(m_run[r] - m_new);
+    float psum = 0.0f;
+#pragma unroll
+    for (int n = 0; n < N; ++n)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const float e = __expf(s[n][2 * r + c] - m_new);
+        s[n][2 * r + c] = e;
+        psum += e;
+      }
+    l_run[r] = l_run[r] * alpha[r] + psum;
+    m_run[r] = m_new;
+  }
+}
 
 template <int DK>
 __global__ void __launch_bounds__(kThreads, 2)
@@ -125,51 +196,15 @@ rel_attention_fwd_kernel(const float* __restrict__ q, const float2* __restrict__
 #pragma unroll
     for (int n = 0; n < kStep / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.0f;
     product_nt<DK>(s, [&](int kk) { return qa[kk]; }, ks, g, t);
-
-    // bias and mask, in registers
-    const bool plain = k0 + kStep <= min(klen, T) &&
-                       min_distance(w0, 16, k0, kStep) >= R - 1;
+    bias_tile(s, rows, far, prows, q0, w0, k0, klen, T, R, t);
+    float alpha[2];
+    online_tile(s, m_run, l_run, alpha);
 #pragma unroll
-    for (int n = 0; n < kStep / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = rows[e >> 1], j = k0 + n * 8 + 2 * t + (e & 1);
-        if (plain) {
-          s[n][e] += far[e >> 1];
-        } else if (j >= T) {
-          s[n][e] = -INFINITY;  // not a key at all
-        } else if (j >= klen) {
-          s[n][e] = kNeg;       // masked key, like apply_mask_logits
-        } else if (i < T) {
-          s[n][e] += rel_bias(prows + (i - q0) * R, i, j, R);
-        }
-      }
-
-    // online softmax; each quad of lanes shares its two rows
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float tile_max = -INFINITY;
-#pragma unroll
-      for (int n = 0; n < kStep / 8; ++n)
-        tile_max = fmaxf(tile_max, fmaxf(s[n][2 * r], s[n][2 * r + 1]));
-      const float m_new = fmaxf(m_run[r], quad_max(tile_max));  // finite: key k0 < T
-      const float alpha = __expf(m_run[r] - m_new);
-      float psum = 0.0f;
-#pragma unroll
-      for (int n = 0; n < kStep / 8; ++n)
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const float e = __expf(s[n][2 * r + c] - m_new);
-          s[n][2 * r + c] = e;
-          psum += e;
-        }
-      l_run[r] = l_run[r] * alpha + psum;  // this lane's share of the row sum
-      m_run[r] = m_new;
-#pragma unroll
-      for (int n = 0; n < DK / 8; ++n) {
-        acc[n][2 * r] *= alpha;
-        acc[n][2 * r + 1] *= alpha;
-      }
+    for (int n = 0; n < DK / 8; ++n) {
+      acc[n][0] *= alpha[0];
+      acc[n][1] *= alpha[0];
+      acc[n][2] *= alpha[1];
+      acc[n][3] *= alpha[1];
     }
     product_pn<DK>(acc, s, vs, g, t);
   }
@@ -208,6 +243,133 @@ cudaError_t launch(const float* q, const float* k, const float* v, const float* 
   return cudaGetLastError();
 }
 
+// The bf16 forward: one block of 4 warps per (64 queries, head, batch), as
+// the float32 kernel; q held as bf16 A fragments in registers, k and v
+// streamed in STEP-key bf16 tiles. Two sweeps over the key tiles through
+// one cp.async ring: the first reads k alone and takes each row's max m
+// and sum l, the second reads k and v, forms P = exp(s - m) / l, rounds it
+// to bf16 and accumulates P v. So P is rounded where the TPU kernel rounded
+// it, after the normalisation (`(e / sum(e)).astype(q.dtype)`); a single
+// online sweep would round exp(s - m) before the 1 / l, and with
+// near-uniform attention, where every P of a row rounds the same way, the
+// two points give coherently different outputs.
+template <int DK, int STEP>
+__global__ void __launch_bounds__(kThreads, 2)
+rel_attention_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v, const bf16* __restrict__ p,
+                       const int* __restrict__ klens, bf16* __restrict__ o,
+                       float* __restrict__ m_out, float* __restrict__ l_out, int H, int T,
+                       int R) {
+  constexpr int W = TileB<DK>::kWords, kTile = STEP * W;
+  extern __shared__ float4 smem4[];
+  uint32_t* ring = reinterpret_cast<uint32_t*>(smem4);    // 2 stages x (K, V) tiles
+  bf16* ps = reinterpret_cast<bf16*>(ring + 4 * kTile);  // [64][R <= kSmemR]
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int q0 = blockIdx.x * kRows, h = blockIdx.y, b = blockIdx.z;
+  const size_t bh = (size_t)b * H + h;
+  const uint32_t* kb = reinterpret_cast<const uint32_t*>(k + bh * T * DK);
+  const uint32_t* vb = reinterpret_cast<const uint32_t*>(v + bh * T * DK);
+  const bf16* pb = p + bh * T * R;
+
+  const int klen = klens[b];
+  const int kend = (klen > 0) ? min(klen, T) : T;
+  const int n_tiles = (kend + STEP - 1) / STEP;
+
+  // step `it` of the two sweeps: key tile it % n_tiles, its v in the second
+  const auto load = [&](int it) {
+    uint32_t* dst = ring + (it & 1) * 2 * kTile;
+    const int k0 = (it < n_tiles ? it : it - n_tiles) * STEP;
+    load_async<STEP, DK / 2, W>(dst, kb, k0, T);
+    if (it >= n_tiles) load_async<STEP, DK / 2, W>(dst + kTile, vb, k0, T);
+  };
+  // waits for step it's tiles, starts the next step's copy; returns the
+  // stage holding step it's k (its v kTile words on)
+  const auto advance = [&](int it) -> const uint32_t* {
+    cp_async_wait_all();
+    __syncthreads();  // step `it` has landed; every warp is done with it - 1
+    if (it + 1 < 2 * n_tiles) load(it + 1);
+    cp_async_commit();
+    return ring + (it & 1) * 2 * kTile;
+  };
+  load(0);
+  cp_async_commit();
+  const bf16* prows = stage_p_rows<kRows>(ps, pb, q0, T, R);  // row q0 of p
+
+  const int w0 = q0 + 16 * warp;
+  const int rows[2] = {w0 + g, w0 + g + 8};
+  float far[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e)
+    far[e] = rows[e] < T ? __bfloat162float(pb[(size_t)rows[e] * R + R - 1]) : 0.0f;
+  uint32_t qa[DK / 16][4];
+  load_a_rows<DK>(qa, q + bh * T * DK, w0, T, g, t);
+
+  // first sweep: the row statistics
+  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.0f, 0.0f};
+  for (int it = 0; it < n_tiles; ++it) {
+    const uint32_t* ks = advance(it);
+    float s[STEP / 8][4];
+#pragma unroll
+    for (int n = 0; n < STEP / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.0f;
+    product_nt_bf16<DK, STEP / 8>(s, qa, ks, g, t);
+    bias_tile(s, rows, far, prows, q0, w0, it * STEP, klen, T, R, t);
+    float alpha[2];
+    online_tile(s, m_run, l_run, alpha);
+  }
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float l = quad_sum(l_run[r]);
+    inv[r] = 1.0f / l;
+    if (rows[r] < T && t == 0) {
+      m_out[bh * T + rows[r]] = m_run[r];
+      l_out[bh * T + rows[r]] = l;
+    }
+  }
+
+  // second sweep: P v with P normalised, then rounded to bf16
+  float acc[DK / 8][4];
+#pragma unroll
+  for (int n = 0; n < DK / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
+  for (int it = 0; it < n_tiles; ++it) {
+    const uint32_t* ks = advance(n_tiles + it);
+    float s[STEP / 8][4];
+#pragma unroll
+    for (int n = 0; n < STEP / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.0f;
+    product_nt_bf16<DK, STEP / 8>(s, qa, ks, g, t);
+    bias_tile(s, rows, far, prows, q0, w0, it * STEP, klen, T, R, t);
+#pragma unroll
+    for (int n = 0; n < STEP / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = __expf(s[n][e] - m_run[e >> 1]) * inv[e >> 1];
+    product_pn_bf16<DK, STEP / 8>(acc, s, ks + kTile, lane);  // P rounded to bf16 there
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (rows[r] >= T) continue;
+    uint32_t* orow = reinterpret_cast<uint32_t*>(o + (bh * T + rows[r]) * DK);
+#pragma unroll
+    for (int n = 0; n < DK / 8; ++n) orow[n * 4 + t] = pack_bf16(acc[n][2 * r], acc[n][2 * r + 1]);
+  }
+}
+
+template <int DK>
+cudaError_t launch_bf16(const bf16* q, const bf16* k, const bf16* v, const bf16* p,
+                        const int* klens, bf16* o, float* m, float* l, int B, int H, int T, int R,
+                        cudaStream_t stream) {
+  constexpr int STEP = kStepB;
+  const int smem = 4 * STEP * TileB<DK>::kWords * (int)sizeof(uint32_t) +  // 2 x (K, V), p rows
+                   kRows * kSmemR * (int)sizeof(bf16);
+  cudaError_t err = allow_smem<rel_attention_fwd_bf16<DK, STEP>>(smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((T + kRows - 1) / kRows, H, B);
+  rel_attention_fwd_bf16<DK, STEP><<<grid, kThreads, smem, stream>>>(q, k, v, p, klens, o, m, l,
+                                                                     H, T, R);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // q, k, v, o: [B, H, T, dk]; p: [B, H, T, R]; klens: [B] int32; m, l:
@@ -234,6 +396,33 @@ extern "C" int nsp_rel_attention_f32(const void* q, const void* k, const void* v
     case 16: return (int)launch<16>(qf, kf, vf, pf, kl, of, mf, lf, kvpf, B, H, T, R, s);
     case 32: return (int)launch<32>(qf, kf, vf, pf, kl, of, mf, lf, kvpf, B, H, T, R, s);
     case 64: return (int)launch<64>(qf, kf, vf, pf, kl, of, mf, lf, kvpf, B, H, T, R, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The bf16 entry: q, k, v, p, o bf16 ([B, H, T, dk] / [B, H, T, R]), m, l
+// float32 [B, H, T], klens [B] int32; no scratch. All contiguous, q, k, v
+// 16-byte aligned, on the device of `stream`. Returns a cudaError_t.
+extern "C" int nsp_rel_attention_bf16(const void* q, const void* k, const void* v,
+                                      const void* p, const void* klens, void* o, void* m,
+                                      void* l, int B, int H, int T, int R, int dk,
+                                      void* stream) {
+  using nsp_rel::bf16;
+  if (B <= 0 || H <= 0 || T <= 0 || R <= 0 || H > 65535 || B > 65535)
+    return (int)cudaErrorInvalidValue;
+  const bf16* qb = static_cast<const bf16*>(q);
+  const bf16* kb = static_cast<const bf16*>(k);
+  const bf16* vb = static_cast<const bf16*>(v);
+  const bf16* pb = static_cast<const bf16*>(p);
+  const int* kl = static_cast<const int*>(klens);
+  bf16* ob = static_cast<bf16*>(o);
+  float* mf = static_cast<float*>(m);
+  float* lf = static_cast<float*>(l);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dk) {
+    case 16: return (int)launch_bf16<16>(qb, kb, vb, pb, kl, ob, mf, lf, B, H, T, R, s);
+    case 32: return (int)launch_bf16<32>(qb, kb, vb, pb, kl, ob, mf, lf, B, H, T, R, s);
+    case 64: return (int)launch_bf16<64>(qb, kb, vb, pb, kl, ob, mf, lf, B, H, T, R, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

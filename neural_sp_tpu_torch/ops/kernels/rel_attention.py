@@ -23,6 +23,18 @@ passes from the forward's row statistics, query-major (D, dq, dp) then
 key-major (dk, dv), deterministic, on the same tensor-core products; no
 [T, T] block is stored. Source: ``csrc/rel_attention_bwd.cu``.
 ``RelAttention`` is the ``autograd.Function`` joining the two.
+
+Both kernels have a bfloat16 entry too (``nsp_rel_attention_bf16``,
+``nsp_rel_attention_bwd_bf16``), which the wrappers take when q is bf16:
+one ``mma.sync m16n8k16`` bf16 product per 16-deep slice, float32
+accumulation, the scores and the softmax in float32, and the TPU kernel's
+rounding points: P normalised, then rounded to bf16 before P v
+(``aws.astype(q.dtype)``; the forward sweeps the keys twice, first for
+the row statistics), and P and ds before the dv, dq and dk products
+(``aws_lp`` / ``ds_lp``).
+o, dq, dk, dv and dp come out in the inputs' type; the row statistics m
+and l stay float32. The plain versions round at the same points when
+given bf16, and run float32 throughout when given float32.
 """
 from __future__ import annotations
 
@@ -37,24 +49,42 @@ from .roofline import valid_lengths
 def rel_attention_ref(q, k, v, p, klens):
     """Plain PyTorch twin of the kernel, the CPU path and the reference on
     the card. q, k, v: [B, H, T, dk]; p: [B, H, T, R]; klens: [B] int.
-    Returns o [B, H, T, dk]."""
-    return torch.matmul(torch.softmax(_scores(q, k, p, klens), dim=-1), v)
+    Returns o [B, H, T, dk] in q's type. Scores and softmax in float32
+    (or wider); for bf16 inputs P is rounded to bf16 before P v, as the
+    kernel."""
+    prob = torch.softmax(_scores(q, k, p, klens), dim=-1)
+    return torch.matmul(_rounded(prob, q), _wide(v)).to(q.dtype)
 
 
 def rel_attention_stats_ref(q, k, p, klens):
     """Row statistics of the masked scores the forward saves for the
-    backward: (m [B, H, T] row max, l [B, H, T] sum of exp(s - m))."""
+    backward: (m [B, H, T] row max, l [B, H, T] sum of exp(s - m)), in
+    float32 (or wider)."""
     s = _scores(q, k, p, klens)
     m = s.amax(-1)
     return m, torch.exp(s - m[..., None]).sum(-1)
 
 
+def _wide(x):
+    """x in at least float32 (bf16 widened; float32 and float64 as they
+    are)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
+def _rounded(x, like):
+    """x rounded to like's type and widened back (a no-op when like is at
+    least float32)."""
+    return x.to(like.dtype).to(x.dtype)
+
+
 def _scores(q, k, p, klens):
+    """The masked scores in at least float32 (for bf16 inputs the products
+    exact, as the tensor cores form them, summed in float32)."""
     t, r = q.shape[2], p.shape[-1]
-    s = torch.matmul(q, k.transpose(-1, -2))
+    s = torch.matmul(_wide(q), _wide(k).transpose(-1, -2))
     pos = torch.arange(t, device=q.device)
     idx = (pos[:, None] - pos[None, :]).abs().clamp(max=r - 1)
-    s = s + torch.gather(p, -1, idx.expand(*p.shape[:2], t, t))
+    s = s + torch.gather(_wide(p), -1, idx.expand(*p.shape[:2], t, t))
     return apply_mask_logits(s, _valid_keys(klens, t, q.device))
 
 
@@ -68,65 +98,82 @@ def rel_attention_bwd_ref(q, k, v, p, klens, o, m, l, do):
     out (not autograd): P = exp(s - m) / l; D = sum(do * o); ds = P (do v^T
     - D) on valid keys, 0 on masked ones (the masked ``where`` passes no
     gradient); dq = ds k, dk = ds^T q, dv = P^T do, dp[i, r] = sum of ds[i,
-    j] over min(|i-j|, R-1) = r. Returns (dq, dk, dv, dp)."""
+    j] over min(|i-j|, R-1) = r. Everything in at least float32; for bf16
+    inputs P and ds are rounded to bf16 before their products, as the
+    kernel. Returns (dq, dk, dv, dp) in the inputs' type."""
     t, r = q.shape[2], p.shape[-1]
     s = _scores(q, k, p, klens)
     prob = torch.exp(s - m[..., None]) / l[..., None]
-    delta = (do * o).sum(-1, keepdim=True)
-    ds = prob * (torch.matmul(do, v.transpose(-1, -2)) - delta)
+    do_, k_, q_ = _wide(do), _wide(k), _wide(q)
+    delta = (do_ * _wide(o)).sum(-1, keepdim=True)
+    ds = prob * (torch.matmul(do_, _wide(v).transpose(-1, -2)) - delta)
     ds = torch.where(_valid_keys(klens, t, q.device), ds,
                      torch.zeros_like(ds))
-    dq = torch.matmul(ds, k)
-    dk = torch.matmul(ds.transpose(-1, -2), q)
-    dv = torch.matmul(prob.transpose(-1, -2), do)
+    ds_lp = _rounded(ds, q)
+    dq = torch.matmul(ds_lp, k_)
+    dk = torch.matmul(ds_lp.transpose(-1, -2), q_)
+    dv = torch.matmul(_rounded(prob, q).transpose(-1, -2), do_)
     pos = torch.arange(t, device=q.device)
     idx = (pos[:, None] - pos[None, :]).abs().clamp(max=r - 1)
-    dp = torch.zeros_like(p).scatter_add_(
+    dp = torch.zeros(p.shape, dtype=ds.dtype, device=p.device).scatter_add_(
         -1, idx.expand(*p.shape[:2], t, t), ds)
-    return dq, dk, dv, dp
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype), dp.to(p.dtype)
 
 
-def rel_attention_cost(b, h, t, dk, r, klens) -> tuple[int, int]:
+def rel_attention_cost(b, h, t, dk, r, klens,
+                       elem: int = 4) -> tuple[int, int]:
     """(flops, bytes) the forward needs: the two products q k^T and P v
     (2 dk flops per query-key pair each) over the valid keys (with no valid
-    key, P v alone over all T); q, p, o, m, l for every row; k and v for
-    the keys read."""
+    key, P v alone over all T); q, p, o for every row and k and v for the
+    keys read, ``elem`` bytes each (4 float32, 2 bf16); m and l float32
+    (4 bytes), klens int32."""
     flops = kv_rows = 0
     for n in valid_lengths(klens, t):
         flops += (4 * n if n else 2 * t) * h * dk * t
         kv_rows += 2 * n if n else t
-    return flops, 4 * (2 * b * h * t * dk + h * dk * kv_rows + b * h * t * r
-                       + 2 * b * h * t + b)
+    return flops, elem * (2 * b * h * t * dk + h * dk * kv_rows
+                          + b * h * t * r) + 4 * (2 * b * h * t + b)
 
 
-def rel_attention_bwd_cost(b, h, t, dk, r, klens) -> tuple[int, int]:
+def rel_attention_bwd_cost(b, h, t, dk, r, klens,
+                           elem: int = 4) -> tuple[int, int]:
     """(flops, bytes) the backward needs: five products over the valid
     keys (s = q k^T, dP = dO v^T, dv = P^T dO, dq = ds k, dk = ds^T q); with
-    no valid key only dv = P^T dO over all T. Reads q, p, o, dO, m, l and
-    the valid keys' k, v; writes dq, dk, dv, dp."""
+    no valid key only dv = P^T dO over all T. Reads q, p, o, dO and the
+    valid keys' k, v and writes dq, dk, dv, dp, ``elem`` bytes each; reads
+    m, l (float32) and klens."""
     flops = kv_rows = 0
     for n in valid_lengths(klens, t):
         flops += (10 * n if n else 2 * t) * h * dk * t
         kv_rows += 2 * n
-    return flops, 4 * (3 * b * h * t * dk + h * dk * kv_rows + b * h * t * r
-                       + 2 * b * h * t + b + 3 * b * h * t * dk
-                       + b * h * t * r)
+    return flops, elem * (3 * b * h * t * dk + h * dk * kv_rows
+                          + b * h * t * r + 3 * b * h * t * dk
+                          + b * h * t * r) + 4 * (2 * b * h * t + b)
 
 
-def _check(q, k, v, p, klens):
+# the kernels' element types: float32 (3xTF32 products) and bf16
+_ENTRIES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
+def _check(q, k, v, p, klens) -> str:
+    """Checks the arguments; returns the entry's suffix for q's type."""
     b, h, t, dk = q.shape
     r = p.shape[-1]
+    if q.dtype not in _ENTRIES:
+        raise TypeError(f"rel_attention: dtype {q.dtype}, the kernels take "
+                        f"{sorted(map(str, _ENTRIES))}")
     for name, x in (("q", q), ("k", k), ("v", v)):
-        check(name, x, (b, h, t, dk))
-    check("p", p, (b, h, t, r))
+        check(name, x, (b, h, t, dk), q.dtype)
+    check("p", p, (b, h, t, r), q.dtype)
     check("klens", klens, (b,), torch.int32)
     if dk not in (16, 32, 64):
         raise ValueError(f"rel_attention: head width {dk} not in (16, 32, 64)")
+    return _ENTRIES[q.dtype]
 
 
 def _pair_scratch(x):
     """Scratch for two operands of x's shape split into TF32 (hi, lo) pairs:
-    [2, .., dk, 2]."""
+    [2, .., dk, 2] (the float32 entries only)."""
     return torch.empty((2, *x.shape, 2), dtype=torch.float32, device=x.device)
 
 
@@ -138,53 +185,79 @@ def _check_aligned(*tensors):
 
 
 def rel_attention_fwd(q, k, v, p, klens):
-    """(o, m, l): the output and the row statistics (see
+    """(o, m, l): the output (q's type) and the float32 row statistics (see
     ``rel_attention_stats_ref``). CPU tensors take the plain versions; CUDA
-    tensors launch K1 (float32, contiguous) or raise. Every launch adds one
-    to ``rel_attention.launches``."""
+    tensors launch K1's float32 or bf16 entry, by q's type (contiguous,
+    every floating argument of that type), or raise. Every launch adds one
+    to ``rel_attention.launches`` (float32) or ``.launches_bf16``."""
     if on_cpu(q, k, v, p, klens):
         return (rel_attention_ref(q, k, v, p, klens),
                 *rel_attention_stats_ref(q, k, p, klens))
-    _check(q, k, v, p, klens)
+    entry = _check(q, k, v, p, klens)
     _check_aligned(q, k, v)
     b, h, t, dk = q.shape
     o = torch.empty_like(q)
     m = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)
-    pairs = _pair_scratch(q)
-    err = load_library().nsp_rel_attention_f32(
-        *(x.data_ptr() for x in (q, k, v, p, klens, o, m, l, pairs)),
-        b, h, t, p.shape[-1], dk, stream_of(q))
-    raise_on_error("rel_attention", err)
-    rel_attention.launches += 1
+    lib = load_library()
+    if entry == "bf16":
+        err = lib.nsp_rel_attention_bf16(
+            *(x.data_ptr() for x in (q, k, v, p, klens, o, m, l)),
+            b, h, t, p.shape[-1], dk, stream_of(q))
+    else:
+        err = lib.nsp_rel_attention_f32(
+            *(x.data_ptr() for x in (q, k, v, p, klens, o, m, l,
+                                     _pair_scratch(q))),
+            b, h, t, p.shape[-1], dk, stream_of(q))
+    raise_on_error(f"rel_attention ({entry})", err)
+    _count(rel_attention, entry)
     return o, m, l
 
 
 def rel_attention_bwd(q, k, v, p, klens, o, m, l, do):
-    """(dq, dk, dv, dp). CPU tensors take ``rel_attention_bwd_ref``; CUDA
-    tensors launch K1b or raise. Every launch adds one to
-    ``rel_attention_bwd.launches``."""
+    """(dq, dk, dv, dp) in the inputs' type. CPU tensors take
+    ``rel_attention_bwd_ref``; CUDA tensors launch K1b's float32 or bf16
+    entry, by q's type, or raise. Every launch adds one to
+    ``rel_attention_bwd.launches`` (float32) or ``.launches_bf16``."""
     if on_cpu(q, k, v, p, klens, o, m, l, do):
         return rel_attention_bwd_ref(q, k, v, p, klens, o, m, l, do)
-    _check(q, k, v, p, klens)
+    entry = _check(q, k, v, p, klens)
     b, h, t, dk = q.shape
+    r = p.shape[-1]
     do = do.contiguous()
-    check("o", o, q.shape)
-    check("do", do, q.shape)
+    check("o", o, q.shape, q.dtype)
+    check("do", do, q.shape, q.dtype)
     check("m", m, (b, h, t))
     check("l", l, (b, h, t))
     _check_aligned(q, k, v, do)
     dq, dk_, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     dp = torch.empty_like(p)
     delta = torch.empty_like(m)
-    pairs = _pair_scratch(q)
-    err = load_library().nsp_rel_attention_bwd_f32(
-        *(x.data_ptr() for x in (q, k, v, p, klens, o, m, l, do, dq, dk_, dv,
-                                 dp, delta, pairs)),
-        b, h, t, p.shape[-1], dk, stream_of(q))
-    raise_on_error("rel_attention_bwd", err)
-    rel_attention_bwd.launches += 1
+    lib = load_library()
+    if entry == "bf16":
+        # dp's bucket sums in float32: in shared memory when R <= 16, else
+        # in this scratch
+        dp32 = torch.empty((b, h, t, r) if r > SMEM_R else (0,),
+                           dtype=torch.float32, device=q.device)
+        err = lib.nsp_rel_attention_bwd_bf16(
+            *(x.data_ptr() for x in (q, k, v, p, klens, o, m, l, do, dq, dk_,
+                                     dv, dp, dp32, delta)),
+            b, h, t, r, dk, stream_of(q))
+    else:
+        err = lib.nsp_rel_attention_bwd_f32(
+            *(x.data_ptr() for x in (q, k, v, p, klens, o, m, l, do, dq, dk_,
+                                     dv, dp, delta, _pair_scratch(q))),
+            b, h, t, r, dk, stream_of(q))
+    raise_on_error(f"rel_attention_bwd ({entry})", err)
+    _count(rel_attention_bwd, entry)
     return dq, dk_, dv, dp
+
+
+def _count(wrapper, entry: str) -> None:
+    if entry == "bf16":
+        wrapper.launches_bf16 += 1
+    else:
+        wrapper.launches += 1
 
 
 class RelAttention(torch.autograd.Function):
@@ -207,10 +280,14 @@ def rel_attention(q, k, v, p, klens):
 
     CPU tensors take the plain versions (``rel_attention_ref`` forward,
     ``rel_attention_bwd_ref`` backward); CUDA tensors launch K1 / K1b
-    (float32, contiguous) or raise. Launches are counted in
-    ``rel_attention.launches`` and ``rel_attention_bwd.launches``."""
+    (float32 or bf16 by q's type, contiguous) or raise. Launches are
+    counted in ``rel_attention.launches`` and ``rel_attention_bwd.launches``
+    (float32 entries) and in their ``launches_bf16``."""
     return RelAttention.apply(q, k, v, p, klens)
 
 
-rel_attention.launches = 0
-rel_attention_bwd.launches = 0
+# p rows a block keeps in shared memory (csrc/rel_attention_common.cuh's
+# kSmemR)
+SMEM_R = 16
+rel_attention.launches = rel_attention.launches_bf16 = 0
+rel_attention_bwd.launches = rel_attention_bwd.launches_bf16 = 0

@@ -9,7 +9,8 @@ machine with only PyTorch; there, run it without the suite's conftest
     python -m pytest --noconftest -p no:cacheprovider -m gpu \
         tests/test_torch_kernels_gpu.py
 
-Tolerance 1e-4: float32 on both sides, the sums taken in other orders.
+Tolerance 1e-4: float32 on both sides, the sums taken in other orders;
+1e-2 for the bf16 entries of K1 / K1b against their plain bf16 versions.
 """
 import numpy as np
 import pytest
@@ -337,6 +338,130 @@ def test_rel_attention_bwd_refuses_bad_arguments(cuda):
         rel_attention_bwd(q, q, q, p, kl, q, m[..., :4], m, q)
     with pytest.raises(ValueError, match="lie on the CPU or all on one"):
         rel_attention_bwd(q, q, q, p, kl, q, m, m, q.cpu())
+
+
+# ---- K1 / K1b bf16 entries ------------------------------------------------
+# Against the plain versions at bf16, which round P and ds at the kernels'
+# points: max|got - want| <= BF16_TOL * max|want| (bf16 outputs, 8
+# significant bits; the sums in other orders). m and l are float32 sums of
+# the float32 scores, held as the float32 kernel's (REL_TOL). Shapes: klen
+# 0, 1 and ragged; dk 16, 32, 64; odd T; B = 33; R > 16 (dp's bucket sums
+# outside shared memory); a partial last wave.
+BF16_TOL = 1e-2
+BF16_SHAPES = [
+    (2, 4, 70, 64, 11, [70, 33]),        # ragged, partial tiles
+    (3, 2, 45, 32, 45, [45, 0, 17]),     # R = T > 16, klen 0, odd T
+    (1, 8, 9, 16, 11, [9]),              # shorter than one tile
+    (2, 3, 129, 64, 11, [129, 0]),       # one row past two tiles, klen 0
+    (3, 2, 201, 32, 11, [1, 201, 77]),   # klen 1, odd T
+    (33, 2, 75, 64, 11, [75 - (i * 2) % 70 for i in range(33)]),  # B = 33
+    (2, 2, 200, 64, 200, [200, 150]),    # R = T at a multi-tile T
+    (1, 2, 375, 16, 11, [375]),          # dk 16, the training T = 375
+    (5, 11, 375, 64, 11, [375, 300, 64, 65, 1]),  # partial wave
+]
+
+
+def _bf16_args(cuda, b, h, t, dk, r, klens):
+    rng = np.random.RandomState(t + b)
+    q, k, v = (_randn(rng, cuda, b, h, t, dk, scale=s).to(torch.bfloat16)
+               for s in (dk ** -0.5, 1.0, 1.0))
+    p = _randn(rng, cuda, b, h, t, r, scale=dk ** -0.5).to(torch.bfloat16)
+    do = _randn(rng, cuda, b, h, t, dk).to(torch.bfloat16)
+    return (q, k, v, p, torch.tensor(klens, dtype=torch.int32, device=cuda),
+            do)
+
+
+def _close_bf16(got, want, what):
+    assert got.dtype == want.dtype
+    scale = max(float(want.float().abs().max()), 1e-30)
+    err = float((got.float() - want.float()).abs().max()) / scale
+    assert err <= BF16_TOL, f"{what}: relative error {err:.3e}"
+
+
+@pytest.mark.parametrize("b,h,t,dk,r,klens", BF16_SHAPES)
+def test_rel_attention_bf16_kernel(cuda, b, h, t, dk, r, klens):
+    from neural_sp_tpu_torch.ops.kernels.rel_attention import (
+        rel_attention_fwd, rel_attention_stats_ref)
+    q, k, v, p, kl, _ = _bf16_args(cuda, b, h, t, dk, r, klens)
+    before = (rel_attention.launches, rel_attention.launches_bf16)
+    o, m, l = rel_attention_fwd(q, k, v, p, kl)
+    torch.cuda.synchronize()
+    assert (rel_attention.launches, rel_attention.launches_bf16) == \
+        (before[0], before[1] + 1)
+    assert (o.dtype, m.dtype, l.dtype) == (torch.bfloat16, torch.float32,
+                                           torch.float32)
+    _close_bf16(o, rel_attention_ref(q, k, v, p, kl), "o")
+    m_ref, l_ref = rel_attention_stats_ref(q, k, p, kl)
+    _close(m, m_ref, "m")
+    _close(l, l_ref, "l")
+
+
+@pytest.mark.parametrize("b,h,t,dk,r,klens", BF16_SHAPES)
+def test_rel_attention_bwd_bf16_kernel(cuda, b, h, t, dk, r, klens):
+    from neural_sp_tpu_torch.ops.kernels.rel_attention import (
+        rel_attention_bwd, rel_attention_bwd_ref, rel_attention_fwd)
+    q, k, v, p, kl, do = _bf16_args(cuda, b, h, t, dk, r, klens)
+    o, m, l = rel_attention_fwd(q, k, v, p, kl)
+    before = (rel_attention_bwd.launches, rel_attention_bwd.launches_bf16)
+    got = rel_attention_bwd(q, k, v, p, kl, o, m, l, do)
+    torch.cuda.synchronize()
+    assert (rel_attention_bwd.launches, rel_attention_bwd.launches_bf16) == \
+        (before[0], before[1] + 1)
+    want = rel_attention_bwd_ref(q, k, v, p, kl, o, m, l, do)
+    for name, x, y in zip(("dq", "dk", "dv", "dp"), got, want):
+        _close_bf16(x, y, name)
+    # deterministic: no atomics whose order changes between runs
+    again = rel_attention_bwd(q, k, v, p, kl, o, m, l, do)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+@pytest.mark.parametrize("t", [188, 750])
+def test_rel_attention_bf16_rounds_p_where_the_plain_version_does(cuda, t):
+    """With near-uniform attention every P of a row rounds the same way, so
+    where P is rounded (after the 1 / l, as the TPU kernel) sets a coherent
+    error in o. The kernel and the plain version round at the same point:
+    their outputs differ by sum order alone, far less than either differs
+    from the float32 output (L2)."""
+    from neural_sp_tpu_torch.ops.kernels.rel_attention import (
+        rel_attention_fwd)
+    rng = np.random.RandomState(t)
+    b, h, dk, r = 4, 8, 64, 11
+    q, p = (_randn(rng, cuda, b, h, t, n, scale=1e-2).to(torch.bfloat16)
+            for n in (dk, r))
+    k, v = (_randn(rng, cuda, b, h, t, dk).to(torch.bfloat16)
+            for _ in range(2))
+    kl = torch.full((b,), t, dtype=torch.int32, device=cuda)
+    got = rel_attention_fwd(q, k, v, p, kl)[0].float()
+    plain = rel_attention_ref(q, k, v, p, kl).float()
+    f32 = rel_attention_ref(*(x.float() for x in (q, k, v, p)), kl)
+    norm = torch.linalg.vector_norm
+    assert float(norm(got - plain)) <= 0.1 * float(norm(plain - f32))
+
+
+def test_rel_attention_bf16_refuses_bad_arguments(cuda):
+    """Mixed types, other types and a misaligned bf16 tensor raise: a bf16
+    tensor is never cast to float32 around the kernels."""
+    from neural_sp_tpu_torch.ops.kernels.rel_attention import (
+        rel_attention_bwd, rel_attention_fwd)
+    bf = torch.bfloat16
+    q = torch.zeros(1, 1, 8, 64, device=cuda, dtype=bf)
+    p = torch.zeros(1, 1, 8, 11, device=cuda, dtype=bf)
+    kl = torch.tensor([8], dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        rel_attention(q, q.float(), q, p, kl)
+    with pytest.raises(TypeError):
+        rel_attention(q, q, q, p.float(), kl)
+    with pytest.raises(TypeError):
+        rel_attention(*(x.half() for x in (q, q, q, p)), kl)
+    shifted = torch.zeros(q.numel() + 1, device=cuda, dtype=bf)[1:].view(
+        q.shape)
+    with pytest.raises(ValueError, match="aligned"):
+        rel_attention(shifted, q, q, p, kl)
+    o, m, l = rel_attention_fwd(q, q, q, p, kl)
+    with pytest.raises(TypeError):
+        rel_attention_bwd(q, q, q, p, kl, o, m, l, q.float())
+    with pytest.raises(ValueError, match="aligned"):
+        rel_attention_bwd(q, q, q, p, kl, o, m, l, shifted)
 
 
 def _las_args(rng, dev, b, u, t, hd, d, a, ch, k, klens, rate=0.1):
