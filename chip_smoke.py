@@ -30,6 +30,18 @@ Phases (any failure raises and the script exits non-zero):
      zeroed just before and read just after, and both kernels must have run;
      then time the encoder alone and profile one beam request (device
      busy time against wall time, the kernels taking the most time);
+  3c. serve the same 4 utterances with the LibriSpeech recipe's RNNLM
+     (``configs.librispeech_rnnlm_args``: 6 x LSTM-1024, tied, residual,
+     GLU, vocab 10k; seeded, on the card): (a) beam 10 + CTC 0.3 + LM 0.5
+     + length norm (the recipe's stage 5) and (b) beam 10 + LM 0.5 + ILM
+     0.2 with a 10-best rescored by a second-pass and a backward LM (0.3
+     each), counters zeroed around each, K1 and K2 must have run (hyp
+     lengths, RTF, wall per decode step, rescoring wall, peak memory);
+     profile one request of (a) (idle share, top kernels, the LM step's
+     device time against its byte bound); hold the LM on the card against
+     the same LM on the CPU (20 chained steps at N=10 with beam reorders,
+     1e-4 of the largest log-prob) and the ILM loop (zeroed keys and
+     values, real lengths) against the chain of plain steps;
   4. run the encoder with the twins in place of the kernels and compare
      the encoder outputs, then replay the best beam hypothesis through the
      twin decode step and compare the logits at every step; then step the
@@ -75,7 +87,8 @@ Phases (any failure raises and the script exits non-zero):
 
 Launches per step (per encode for K1, per decode step for K2, per training
 microstep for the rest; K1 / K1b bf16 in phase 5's bf16 run) are counted
-in phases 3b, 4 and 5. Prints the
+in phases 3b, 4 and 5; K1's and K2's launches on the main path over the
+served requests of phases 3 and 3c. Prints the
 details as JSON (also written to ``chiprun_out/chip_smoke.json``), then one
 JSON line of per-kernel results (launches, launches_per_step, ms,
 plain_ms, bound_ms, bound_by, library_ms, errors), the card's ``name,
@@ -454,10 +467,12 @@ def phase_serve(torch, model, xs, xlens):
     return out, launches
 
 
-def profiled(torch, what: str, fn) -> dict:
+def profiled(torch, what: str, fn, annotation: str | None = None) -> dict:
     """Run fn once under torch.profiler: wall time, device busy time (the
     union of the device events' intervals), idle share, and the kernels
-    that take the most device time."""
+    that take the most device time; with ``annotation``, also the device
+    time of the kernels launched inside the ``record_function`` ranges of
+    that name, and how many ranges there were."""
     from collections import defaultdict
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -467,7 +482,16 @@ def profiled(torch, what: str, fn) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     spans, by_name = [], defaultdict(float)
+    ranges, range_us = 0, 0.0
     for evt in prof.events():
+        if annotation is not None and evt.name == annotation:
+            # the host's range sums the device time of the kernels
+            # launched inside it; the range's device-side copy spans them
+            # with their gaps, so it counts toward neither
+            if evt.device_type == torch.autograd.DeviceType.CPU:
+                ranges += 1
+                range_us += evt.device_time_total
+            continue
         if evt.device_type == torch.autograd.DeviceType.CUDA:
             start, end = evt.time_range.start, evt.time_range.end
             spans.append((start, end))
@@ -478,6 +502,9 @@ def profiled(torch, what: str, fn) -> dict:
             busy_us += end - max(start, last)
             last = end
     out = {"wall_s": wall}
+    if annotation is not None:
+        out.update({f"{annotation}_ranges": ranges,
+                    f"{annotation}_device_ms": range_us / 1e3})
     if not spans:
         log(f"[3b] {what}: wall {wall:.3f} s; device time not measured "
             f"(the profiler saw no device events)")
@@ -520,6 +547,212 @@ def phase_breakdown(torch, model, xs, xlens):
             "beam10_device_batch": profiled(
                 torch, f"on-device beam 10, batch of {len(UTT_FRAMES)}",
                 lambda: device_beam.decode(xs, xlens))}
+
+
+# LM serving (phase 3c): the LibriSpeech recipe's RNNLM at full width
+# (``configs.librispeech_rnnlm_args``), and the stage-5 decode settings.
+LM_SEEDS = {"lm": SEED + 1, "second": SEED + 2, "bwd": SEED + 3}
+# the LM on the card against the same LM on the CPU, max |err| / max
+# |reference| per step: float32 on both sides, products summed in other
+# orders, carried through 6 layers and 20 steps
+LM_RTOL = 1e-4
+LM_CHAIN_STEPS, LM_ROWS = 20, 10
+
+
+def rnnlm(torch, seed: int):
+    from neural_sp_tpu_torch.configs import librispeech_rnnlm_args
+    from neural_sp_tpu_torch.models.lm.build import build_lm
+    from neural_sp_tpu_torch.utils.init_params import init_params
+    lm = build_lm(librispeech_rnnlm_args())    # on the card
+    init_params(lm, seed)
+    return lm.eval()
+
+
+def lm_step_cost(lm, n: int) -> tuple[int, int]:
+    """(flops, bytes) of one LM step over n rows: every weight read once
+    (the tied output reads the whole embedding matrix), the log-probs
+    written once; two operations per weight and row."""
+    n_weights = sum(p.numel() for p in lm.parameters())
+    return 2 * n * n_weights, 4 * (n_weights + n * lm.vocab)
+
+
+def lm_steps_counted(torch):
+    """Patches of ``LMSession.predict`` (each call counted by its rows and
+    wrapped in a profiler range "lm_step") and of
+    ``Speech2TextSession._post_process_nbest`` (the rescoring's wall
+    summed). Returns (the patches, the counts by rows, the wall list)."""
+    from collections import Counter
+    from neural_sp_tpu_torch.models.decoders.decoding import \
+        Speech2TextSession
+    from neural_sp_tpu_torch.models.lm.session import LMSession
+    predict, post = LMSession.predict, Speech2TextSession._post_process_nbest
+    rows, rescore_s = Counter(), []
+
+    def counted(self, y, state):
+        rows[len(y)] += 1
+        with torch.profiler.record_function("lm_step"):
+            return predict(self, y, state)
+
+    def timed(self, nbest):
+        t0 = time.perf_counter()
+        best = post(self, nbest)
+        rescore_s.append(time.perf_counter() - t0)
+        return best
+
+    return (mock.patch.object(LMSession, "predict", counted),
+            mock.patch.object(Speech2TextSession, "_post_process_nbest",
+                              timed)), rows, rescore_s
+
+
+def phase_serve_lm(torch, model, xs, xlens):
+    """Phase 3c: serve the 4 utterances with the RNNLM, (a) the LibriSpeech
+    stage-5 recipe, beam 10 + CTC 0.3 + LM 0.5 + length norm, and (b)
+    beam 10 + LM 0.5 + ILM 0.2 with a 10-best rescored by a second-pass LM
+    and a backward LM (0.3 each); profile one request of (a); hold the LM
+    on the card against the same LM on the CPU, and the ILM loop (zeroed
+    keys and values, real lengths) against the chain of plain steps."""
+    from neural_sp_tpu_torch.models.decoders.decoding import (
+        DecodeConfig, Speech2TextSession)
+    from neural_sp_tpu_torch.models.decoders.las import DecodeLoop
+    from neural_sp_tpu_torch.models.lm.session import LMSession
+    from neural_sp_tpu_torch.ops.kernels import (
+        las_step, rel_attention, reset_launches)
+    from neural_sp_tpu_torch.ops.kernels.roofline import (
+        F32_SIMT_FLOPS, bound_ms)
+    t0 = time.perf_counter()
+    lms = {name: rnnlm(torch, seed) for name, seed in LM_SEEDS.items()}
+    lm = lms["lm"]
+    n_params = sum(p.numel() for p in lm.parameters())
+    expect(all(p.is_cuda for m in lms.values() for p in m.parameters()),
+           "an LM parameter is not on the card")
+    log(f"[3c] 3 RNNLMs (rnnlm_6L, {n_params} parameters each) built on "
+        f"the card in {time.perf_counter() - t0:.2f} s")
+    a = Speech2TextSession(model, DecodeConfig(
+        beam_width=10, ctc_weight=0.3, lm_weight=0.5, length_norm=True),
+        lm_session=LMSession(lm))
+    b = Speech2TextSession(model, DecodeConfig(
+        beam_width=10, lm_weight=0.5, ilm_weight=0.2, n_best=10,
+        lm_second_weight=0.3, lm_bwd_weight=0.3), lm_session=LMSession(lm))
+    b.attach_second_pass_lms(LMSession(lms["second"]), LMSession(lms["bwd"]))
+    sessions = (("beam10_ctc0.3_lm0.5_lnorm", a, True),
+                ("beam10_lm0.5_ilm0.2_rescore", b, False))
+    for _, sess, _ in sessions:   # warm-up, not counted
+        sess.decode(xs[:1, :200], xlens[:1] * 0 + 200)
+    torch.cuda.synchronize()
+    audio_sec = float(xlens.sum()) * FRAME_SEC
+    out, launches = {}, {"rel_attention": 0, "las_step": 0}
+    for name, sess, with_ctc in sessions:
+        patches, rows, rescore_s = lm_steps_counted(torch)
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        loop_steps = DecodeLoop.steps
+        with patches[0], patches[1]:
+            t0 = time.perf_counter()
+            hyps = sess.decode(xs, xlens)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        loop_steps = DecodeLoop.steps - loop_steps
+        steps = rows[10]                  # one LM step per decode step
+        expect(loop_steps == steps * (1 if with_ctc else 2),
+               f"{name}: {loop_steps} loop steps for {steps} decode steps")
+        expect(len(hyps) == len(UTT_FRAMES) and all(
+            all(isinstance(y, int) and 0 <= y < model.dec_fwd.vocab
+                for y in hyp) for hyp in hyps), f"{name}: malformed {hyps}")
+        ran = {"rel_attention": rel_attention.launches,
+               "las_step": las_step.launches}
+        expect(all(v > 0 for v in ran.values()),
+               f"{name}: a kernel of the path never launched: {ran}")
+        for k in launches:
+            launches[k] += ran[k]
+        rescore = sum(rescore_s)
+        res = {"hyp_lens": [len(h) for h in hyps], "wall_s": wall,
+               "wall_s_per_utt": wall / len(hyps), "rtf": wall / audio_sec,
+               "decode_steps": steps, "lm_steps_by_rows": dict(rows),
+               "wall_ms_per_decode_step": (wall - rescore) * 1e3 / steps,
+               "rescore_wall_s": rescore,
+               "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+               "launches": ran}
+        out[name] = res
+        log(f"[3c] {name}: hyp lens {res['hyp_lens']}  wall {wall:.3f} s  "
+            f"RTF {res['rtf']:.4f}  {steps} decode steps, "
+            f"{res['wall_ms_per_decode_step']:.4f} ms of wall each "
+            f"(rescoring apart)  rescoring {rescore:.3f} s over "
+            f"{sum(n for r, n in rows.items() if r == 1)} LM steps at B=1  "
+            f"peak mem {res['peak_mem_bytes']} B  launches {ran}")
+
+    # where a request's time goes, and the LM step's device time
+    n = UTT_FRAMES[0]
+    patches, rows, _ = lm_steps_counted(torch)
+    with patches[0]:
+        prof = profiled(torch, f"beam 10 + CTC 0.3 + LM 0.5, the {n}-frame "
+                        f"utterance", lambda: a.decode(xs[:1, :n], xlens[:1]),
+                        annotation="lm_step")
+    flops, nbytes = lm_step_cost(lm, LM_ROWS)
+    bound, by = bound_ms(flops, nbytes, F32_SIMT_FLOPS)
+    in_request = prof["lm_step_device_ms"] / max(prof["lm_step_ranges"], 1)
+    alone = profiled(torch, f"{LM_CHAIN_STEPS} LM steps alone at "
+                     f"N={LM_ROWS}", lambda: lm_chain(torch, LMSession(lm)))
+    alone_ms = alone.get("device_busy_s", 0.0) * 1e3 / LM_CHAIN_STEPS
+    lm_step = {"device_ms_in_request": in_request or None,
+               "device_ms_alone": alone_ms or None,
+               "wall_ms_alone": alone["wall_s"] * 1e3 / LM_CHAIN_STEPS,
+               "flops": flops, "bytes": nbytes, "bound_ms": bound,
+               "bound_by": by, "peak_flops": F32_SIMT_FLOPS}
+    log(f"[3c] LM step at N={LM_ROWS}: device {in_request:.4f} ms per "
+        f"decode step in the request ({prof['lm_step_ranges']} steps), "
+        f"{alone_ms:.4f} ms alone (wall {lm_step['wall_ms_alone']:.4f}); "
+        f"bound {bound:.4f} ms by {by} ({nbytes} B, {flops} flop)")
+
+    # the LM on the card against the same LM on the CPU
+    lm_err = lm_against_cpu(torch, lm)
+    # the ILM loop: zeroed keys and values, the real lengths
+    e = a.encode(xs[:1], xlens[:1])["ys"]
+    e_t = e["xs"].repeat_interleave(10, 0)
+    with torch.inference_mode():
+        kc = model.dec_fwd.precompute_keys(e_t)
+    ilm_err = loop_against_plain(
+        torch, model.dec_fwd, torch.zeros_like(e_t),
+        e["xlens"].repeat_interleave(10), reorder=True,
+        keys=torch.zeros_like(kc), tag="3c")
+    out.update(profile_a=prof, lm_step=lm_step, lm_vs_cpu_rel_err=lm_err,
+               ilm_loop_max_abs_err=ilm_err)
+    return out, launches
+
+
+def lm_chain(torch, sess, rows: int = LM_ROWS, steps: int = LM_CHAIN_STEPS,
+             seed: int = SEED):
+    """``steps`` LMSession.predict calls over ``rows`` rows, seeded random
+    tokens and beam reorders; returns the log-probs of each step."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    state, out = None, []
+    for _ in range(steps):
+        lp, state = sess.predict(rng.integers(0, sess.lm.vocab, rows), state)
+        out.append(lp)
+        state = sess.select(state, rng.integers(0, rows, rows))
+    return out
+
+
+def lm_against_cpu(torch, lm) -> float:
+    """The LM's chain on the card against the same chain of the same LM
+    (its state_dict copied) on the CPU, float32, TF32 off: each step's
+    max |err| over the CPU step's max |log-prob|."""
+    import numpy as np
+    from neural_sp_tpu_torch.configs import librispeech_rnnlm_args
+    from neural_sp_tpu_torch.models.lm.build import build_lm
+    from neural_sp_tpu_torch.models.lm.session import LMSession
+    cpu = build_lm(librispeech_rnnlm_args(), device="cpu").eval()
+    cpu.load_state_dict(lm.state_dict(), strict=True)
+    card_lp = lm_chain(torch, LMSession(lm))
+    cpu_lp = lm_chain(torch, LMSession(cpu))
+    err = max(float(np.abs(g - w).max()) / float(np.abs(w).max())
+              for g, w in zip(card_lp, cpu_lp))
+    expect(all(np.isfinite(g).all() for g in card_lp), "LM log-probs")
+    log(f"[3c] LM on the card vs on the CPU, {LM_CHAIN_STEPS} steps at "
+        f"N={LM_ROWS} with beam reorders: max |err| / max |log-prob| "
+        f"{err:.3e} (tolerance {LM_RTOL})")
+    expect(err <= LM_RTOL, f"LM card vs CPU: {err} > {LM_RTOL}")
+    return err
 
 
 def phase_twins(torch, model, xs, xlens, best_hyp):
@@ -580,12 +813,13 @@ def phase_twins(torch, model, xs, xlens, best_hyp):
     return enc_err, max(step_err, loop_err), per_step
 
 
-def loop_against_plain(torch, dec, e, el, reorder: bool, n_steps: int = 8):
-    """Steps a ``DecodeLoop`` over the encoder outputs e [N, T, D] with
-    seeded random tokens and, with ``reorder``, random parent rows, against
-    the chain of plain decode steps on the same tokens and parents. Returns
-    the largest error of the logits and the attention weights over the
-    steps."""
+def loop_against_plain(torch, dec, e, el, reorder: bool, n_steps: int = 8,
+                       keys=None, tag: str = "4"):
+    """Steps a ``DecodeLoop`` over the encoder outputs e [N, T, D] (and
+    ``keys``, the projected ones by default) with seeded random tokens and,
+    with ``reorder``, random parent rows, against the chain of plain decode
+    steps on the same tokens and parents. Returns the largest error of the
+    logits and the attention weights over the steps."""
     from neural_sp_tpu_torch.models.decoders import las
     from neural_sp_tpu_torch.ops.kernels import las_step, las_step_ref
     n, dev = e.shape[0], e.device
@@ -593,7 +827,7 @@ def loop_against_plain(torch, dec, e, el, reorder: bool, n_steps: int = 8):
     klens = el.to(torch.int32)
     err = 0.0
     with torch.inference_mode():
-        kc = dec.precompute_keys(e)
+        kc = dec.precompute_keys(e) if keys is None else keys
         before = las_step.launches
         loop = dec.decode_loop(kc, e, klens)
         carry = dec.init_carry(n, e.shape[1], dev)
@@ -610,9 +844,9 @@ def loop_against_plain(torch, dec, e, el, reorder: bool, n_steps: int = 8):
             expect(bool(torch.isfinite(logits).all()), "logits not finite")
             err = max(err, max_err(logits, logits_ref), max_err(aw, aw_ref))
         launched = las_step.launches - before
-    log(f"[4] DecodeLoop N={n} reorder={reorder}, {n_steps} steps: logits "
-        f"and attention weights vs the plain chain max_abs_err {err:.3e}; "
-        f"K2 launches {launched}")
+    log(f"[{tag}] DecodeLoop N={n} reorder={reorder}, {n_steps} steps: "
+        f"logits and attention weights vs the plain chain max_abs_err "
+        f"{err:.3e}; K2 launches {launched}")
     expect(launched == n_steps, f"{launched} K2 launches in {n_steps} steps")
     expect(err <= PATH_ATOL, f"DecodeLoop N={n}: error {err} > {PATH_ATOL}")
     return err
@@ -1252,6 +1486,9 @@ def main() -> int:
     xs, xlens = utterances(rng)
     served, launches = phase_serve(torch, model, xs, xlens)
     breakdown = phase_breakdown(torch, model, xs, xlens)
+    served_lm, lm_launches = phase_serve_lm(torch, model, xs, xlens)
+    # K1's and K2's launches: the served requests of phases 3 and 3c
+    launches = {k: n + lm_launches[k] for k, n in launches.items()}
     enc_err, dec_err, k2_per_step = phase_twins(torch, model, xs, xlens,
                                                 served["best_hyp0"])
     train_kernels = phase_train_kernels(torch, rng)
@@ -1313,6 +1550,7 @@ def main() -> int:
                "encoder_max_abs_err": enc_err,
                "decoder_max_abs_err": dec_err,
                "serve": {k: v for k, v in served.items() if k != "best_hyp0"},
+               "serve_lm": served_lm,
                "breakdown": breakdown, "train": trained,
                "train_bf16": {**trained_bf16, "launches": bf16_launches},
                "train_parity": parity, "train_parity_bf16": parity_bf16,

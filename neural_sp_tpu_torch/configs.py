@@ -8,6 +8,12 @@ ln_large.yaml``: 12-layer conformer, d512 / 8 heads / d_ff 2048, rel-PE
 clamped at 10, depthwise kernel 15, LAS LSTM-1024 decoder with location
 attention, wordpiece vocab 10k, CTC weight 0.3.
 
+``librispeech_rnnlm_args`` is the LibriSpeech recipe's LM,
+``examples/librispeech/conf/lm/rnnlm_6L.yaml`` (transcribed from upstream
+``examples/librispeech/s5/conf/lm/rnnlm_6L.yaml``): a 6-layer LSTM-1024
+with 1024-wide embeddings, residual connections, a GLU head and tied
+embeddings, over the flagship's vocabulary; a test holds it to the yaml.
+
 ``flagship_args`` carries no ``train_dtype`` (``bench.py``'s has none): an
 args namespace may set one, and ``compute_dtype(args)`` turns it into the
 train step's ``compute_dtype``.
@@ -44,6 +50,17 @@ def flagship_args(faithful: bool = False):
         freq_width=27, n_freq_masks=2, time_width=100, n_time_masks=2,
         time_width_upper=1.0,
     )
+
+
+def librispeech_rnnlm_args():
+    """The yaml's topology and the regularisation ``build_lm`` reads, field
+    for field; ``vocab`` from ``flagship_args``."""
+    return SimpleNamespace(
+        lm_type="lstm", n_units=1024, n_projs=0, n_layers=6, emb_dim=1024,
+        n_units_null_context=0, tie_embedding=True, residual=True,
+        use_glu=True, bptt=200, param_init=0.05, adaptive_softmax=False,
+        dropout_in=0.0, dropout_hidden=0.0, lsm_prob=0.0,
+        vocab=flagship_args().vocab)
 
 
 def compute_dtype(args):

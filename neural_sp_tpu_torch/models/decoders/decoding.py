@@ -6,14 +6,17 @@ attention greedy, the batched on-device beam (``device_beam``, fusion-free
 decoding), and the label-synchronous LAS beam search with joint CTC prefix
 scores (one utterance at a time, the reference eval protocol), with
 length / coverage penalties, length normalisation, eos threshold, min/max
-length ratios and softmax smoothing. The neural work of a step runs on the
-model's device; host Python reorders indices, scores candidates and keeps
-end-of-sentence bookkeeping, as in the JAX session.
+length ratios and softmax smoothing, LM shallow fusion (an ``LMSession``,
+one batched LM step per decode step), internal-LM subtraction (a second
+decode loop over zeroed keys and encoder outputs) and second-pass and
+backward-LM rescoring of the n-best (``attach_second_pass_lms``). The
+neural work of a step runs on the model's (and the LM's) device; host
+Python reorders indices, scores candidates and keeps end-of-sentence
+bookkeeping, as in the JAX session.
 
-Not ported yet (ROADMAP), and raising ``NotImplementedError``: LM shallow
-fusion and second-pass rescoring, internal-LM subtraction, ensembles,
+Not ported yet (ROADMAP), and raising ``NotImplementedError``: ensembles,
 forward-backward merging, speaker state carry-over, CTC prefix beam
-search, transducer and transformer decoders.
+search (with its LM hook), transducer and transformer decoders.
 """
 from __future__ import annotations
 
@@ -49,14 +52,14 @@ class DecodeConfig:
     device_beam: bool = False        # fully on-device batched beam search
 
 
-_NOT_PORTED = ("lm_weight", "ilm_weight", "lm_second_weight",
-               "lm_bwd_weight", "fwd_bwd_attention", "state_carry_over")
+_NOT_PORTED = ("fwd_bwd_attention", "state_carry_over")
 
 
 class Speech2TextSession:
     """Wraps a ``Speech2Text`` (weights on its device) with the decode
-    loops. Inputs may be numpy arrays or tensors; they are moved to the
-    model's device."""
+    loops; ``lm_session`` (an ``LMSession``) is the shallow-fusion LM.
+    Inputs may be numpy arrays or tensors; they are moved to the model's
+    device."""
 
     def __init__(self, model, conf: DecodeConfig | None = None,
                  lm_session=None, ensemble=None):
@@ -66,9 +69,12 @@ class Speech2TextSession:
             if getattr(self.conf, name):
                 raise NotImplementedError(
                     f"DecodeConfig.{name} is not ported yet, see ROADMAP")
-        if lm_session is not None or ensemble:
+        if ensemble:
             raise NotImplementedError(
-                "LM sessions and ensembles are not ported yet, see ROADMAP")
+                "ensembles are not ported yet, see ROADMAP")
+        self.lm = lm_session
+        self.lm_second = None        # set via attach_second_pass_lms
+        self.lm_bwd = None
         self.dec = model.dec_fwd
         self.device = next(model.parameters()).device
 
@@ -187,9 +193,37 @@ class Speech2TextSession:
         for b in range(eouts_all["ys"]["xs"].shape[0]):
             e = eouts_all["ys"]["xs"][b:b + 1]
             el = eouts_all["ys"]["xlens"][b:b + 1]
-            best, _ = self._beam_one_las(e, el)
-            results.append(best)
+            _, nbest = self._beam_one_las(e, el)
+            results.append(self._post_process_nbest(nbest))
         return results
+
+    def attach_second_pass_lms(self, lm_second=None, lm_bwd=None):
+        """``LMSession``s that rescore the n-best: a second-pass LM and a
+        backward LM (weights ``lm_second_weight`` / ``lm_bwd_weight``)."""
+        self.lm_second = lm_second
+        self.lm_bwd = lm_bwd
+
+    def _post_process_nbest(self, nbest: list[list[int]]) -> list[int]:
+        """Second-pass LM and backward-LM rescoring over the n-best; the
+        backward LM scores the reversed hypothesis, and -0.001 per rank
+        keeps the beam's order as the tiebreak. As in the JAX session, the
+        beam's own scores do not enter the ranking (ROADMAP C7): mirrored
+        for parity."""
+        conf = self.conf
+        if not nbest or (self.lm_second is None and self.lm_bwd is None):
+            return nbest[0] if nbest else []
+        best, best_score = nbest[0], -np.inf
+        for i, hyp in enumerate(nbest):
+            score = -0.001 * i
+            if self.lm_second is not None and conf.lm_second_weight > 0:
+                score += conf.lm_second_weight * \
+                    self.lm_second.score_sequence(hyp)
+            if self.lm_bwd is not None and conf.lm_bwd_weight > 0:
+                score += conf.lm_bwd_weight * \
+                    self.lm_bwd.score_sequence(list(reversed(hyp)))
+            if score > best_score:
+                best, best_score = hyp, score
+        return best
 
     def _ctc_scorer(self, e, el):
         if self.conf.ctc_weight <= 0 or self.model.ctc is None:
@@ -214,6 +248,17 @@ class Speech2TextSession:
         kc = dec.precompute_keys(e_t)
         loop = dec.decode_loop(kc, e_t, klens)
         par = None
+        # internal-LM estimation: a second decode loop over zeroed keys and
+        # encoder outputs (so a zero context) with the real lengths, stepped
+        # with the same tokens and parents
+        use_ilm = conf.ilm_weight > 0
+        if use_ilm:
+            ilm_loop = dec.decode_loop(torch.zeros_like(kc),
+                                       torch.zeros_like(e_t), klens)
+        # the LM state is ONE batched state over the beam: one LM step per
+        # decode step, rows reordered by ``select``
+        use_lm = self.lm is not None and conf.lm_weight > 0
+        lm_state = self.lm.initial_state(beam) if self.lm else None
 
         ctc_scorer = self._ctc_scorer(e, el)
         ctc_states = [ctc_scorer.initial_state() if ctc_scorer else None] * beam
@@ -223,6 +268,8 @@ class Speech2TextSession:
         scores[0] = 0.0
         scores_att = np.zeros(beam, np.float32)  # cumulative att (raw)
         scores_ctc = np.zeros(beam, np.float32)
+        scores_ilm = np.zeros(beam, np.float32)  # cumulative internal-LM
+        scores_lm = np.zeros(beam, np.float32)
         aw_sums = np.zeros((beam, tmax), np.float32)
         y = torch.full((beam,), EOS, dtype=torch.long, device=e.device)
         finished: list[dict] = []
@@ -231,15 +278,30 @@ class Speech2TextSession:
             logits, aw = loop.step(y, par)
             logp = torch.log_softmax(
                 conf.softmax_smoothing * logits.float(), -1).cpu().numpy()
+            if use_ilm:
+                ilm_logits, _ = ilm_loop.step(y, par)
+                ilm_logp = torch.log_softmax(ilm_logits.float(),
+                                             -1).cpu().numpy()
+                logp_eff = logp - conf.ilm_weight * ilm_logp
+            else:
+                ilm_logp = np.zeros_like(logp)
+                logp_eff = logp
+            lm_logp = np.zeros_like(logp)
+            if use_lm:
+                y_in = np.asarray([h[-1] if h else EOS for h in hyps])
+                lm_logp, lm_state = self.lm.predict(y_in, lm_state)
 
             # ---- children generation (reference las.py:1240-1360) ------
-            # Per live beam: the top-``beam`` candidates by the attention
-            # score alone; CTC joins after that selection. QUIRK MIRRORED
-            # EXACTLY (see the JAX session): the reference's add_ctc_score
-            # re-sorts the joint scores and CTC states but not the token
-            # ids, so the att-rank-j TOKEN is paired with the joint-rank-j
-            # PRUNING SCORE and CTC STATE, while the carried ctc score
-            # stays att-rank-j. Parity requires it verbatim.
+            # Per live beam: the top-``beam`` candidates by the (att - ilm)
+            # score ALONE; LM and CTC join after that selection, so a token
+            # outside the top-k is never hypothesized, however strong its
+            # LM or CTC score. Totals are rebuilt each step from the carried
+            # att / ilm / lm / ctc components. QUIRK MIRRORED EXACTLY (see
+            # the JAX session): the reference's add_ctc_score re-sorts the
+            # joint scores and CTC states but not the token ids, so the
+            # att-rank-j TOKEN is paired with the joint-rank-j PRUNING SCORE
+            # and CTC STATE, while the carried ctc score stays att-rank-j.
+            # Parity requires it verbatim.
             if step_i < min_len:
                 bad_eos = np.ones(beam, bool)
             else:
@@ -251,8 +313,12 @@ class Speech2TextSession:
             for k in range(beam):
                 if scores[k] <= -1e29:
                     continue
-                cands = np.argsort(-logp[k], kind="stable")[:beam]
-                base = (1.0 - w_ctc) * (scores_att[k] + logp[k, cands])
+                cands = np.argsort(-logp_eff[k], kind="stable")[:beam]
+                # total = att (1 - w) - ilm w_ilm (1 - w) + lm w_lm
+                base = ((1.0 - w_ctc) * (scores_att[k] + logp[k, cands])
+                        - (1.0 - w_ctc) * conf.ilm_weight
+                        * (scores_ilm[k] + ilm_logp[k, cands])
+                        + conf.lm_weight * (scores_lm[k] + lm_logp[k, cands]))
                 if conf.length_penalty != 0:
                     base = base + conf.length_penalty * (step_i + 1)
                 if ctc_scorer is not None:
@@ -273,6 +339,8 @@ class Speech2TextSession:
                     children.append({
                         "parent": k, "tok": c, "score": sc,
                         "att": float(scores_att[k] + logp[k, c]),
+                        "ilm": float(scores_ilm[k] + ilm_logp[k, c]),
+                        "lm": float(scores_lm[k] + lm_logp[k, c]),
                         "psi": float(psi[j]) if psi is not None
                         else float(scores_ctc[k]),
                         "state": r_new[perm[j]] if psi is not None
@@ -283,7 +351,7 @@ class Speech2TextSession:
             children.sort(key=lambda d: -d["score"])
             children = children[:beam]
             new_hyps, new_scores, new_satt, new_y, parents = [], [], [], [], []
-            new_ctc_beam = []
+            new_silm, new_slm, new_ctc_beam = [], [], []
             for ch in children:
                 k, v, sc = ch["parent"], ch["tok"], ch["score"]
                 if v == EOS:
@@ -298,6 +366,8 @@ class Speech2TextSession:
                 new_hyps.append(hyps[k] + [v])
                 new_scores.append(sc)
                 new_satt.append(ch["att"])
+                new_silm.append(ch["ilm"])
+                new_slm.append(ch["lm"])
                 new_y.append(v)
                 parents.append(k)
                 new_ctc_beam.append((ch["state"], ch["psi"]))
@@ -313,17 +383,24 @@ class Speech2TextSession:
                 new_hyps.append(new_hyps[-1])
                 new_scores.append(-1e30)
                 new_satt.append(new_satt[-1])
+                new_silm.append(new_silm[-1])
+                new_slm.append(new_slm[-1])
                 new_y.append(new_y[-1])
                 parents.append(parents[-1])
                 new_ctc_beam.append(new_ctc_beam[-1])
 
             # the next step reads each survivor's parent row of the carry
+            # (the ILM loop's too)
             par = torch.tensor(parents, dtype=torch.int32)
+            if self.lm is not None:
+                lm_state = self.lm.select(lm_state, parents)
             if conf.coverage_penalty > 0:
                 aw_sums = aw_sums[parents] + aw.cpu().numpy()[parents]
             hyps = new_hyps
             scores = np.asarray(new_scores, np.float32)
             scores_att = np.asarray(new_satt, np.float32)
+            scores_ilm = np.asarray(new_silm, np.float32)
+            scores_lm = np.asarray(new_slm, np.float32)
             if ctc_scorer is not None:
                 ctc_states = [c[0] for c in new_ctc_beam]
                 scores_ctc = np.asarray([c[1] for c in new_ctc_beam],
@@ -358,7 +435,10 @@ class Speech2TextSession:
         if self.conf.beam_width <= 1:
             return self.decode_attention_greedy(xs, xlens)
         conf = self.conf
-        fusion_free = (conf.ctc_weight == 0 and conf.coverage_penalty == 0)
+        fusion_free = (conf.lm_weight == 0 and conf.ctc_weight == 0
+                       and conf.ilm_weight == 0 and self.lm_second is None
+                       and self.lm_bwd is None
+                       and conf.coverage_penalty == 0)
         if conf.device_beam and fusion_free:
             return self.decode_attention_beam_device(xs, xlens)
         return self.decode_attention_beam(xs, xlens)

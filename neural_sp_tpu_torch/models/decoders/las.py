@@ -34,19 +34,8 @@ from ...ops.kernels import las_step
 from ...ops.kernels.las_step import LasStepWorkspace
 from ...ops.kernels.las_scan import LASScan
 from ..modules.attention import AttentionMechanism
+from ..modules.recurrent import LSTMCell
 from ..utils import append_sos_eos
-
-
-class LSTMCell(nn.Module):
-    """flax ``OptimizedLSTMCell`` parameters in one block per side, gate
-    order (i, f, g, o): ``w_ih`` [in, 4H] (the input denses have no bias),
-    ``w_hh`` [H, 4H] and ``bias`` [4H] (the hidden denses')."""
-
-    def __init__(self, in_dim: int, n_units: int):
-        super().__init__()
-        self.w_ih = nn.Parameter(torch.empty(in_dim, 4 * n_units))
-        self.w_hh = nn.Parameter(torch.empty(n_units, 4 * n_units))
-        self.bias = nn.Parameter(torch.empty(4 * n_units))
 
 
 class LASStep(nn.Module):

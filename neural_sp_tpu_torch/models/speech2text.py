@@ -19,6 +19,7 @@ from ..ops.specaugment import apply_masks, draw_masks
 from .decoders.ctc import CTC
 from .decoders.las import RNNDecoder
 from .encoders.transformer import XformerEncoder
+from .utils import model_device
 
 
 class Speech2Text(nn.Module):
@@ -96,11 +97,7 @@ def build_speech2text(args, device=None) -> Speech2Text:
     from .decoders.build import build_decoder
     from .encoders.build import build_encoder
 
-    device = torch.device("cuda" if device is None else device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "build_speech2text: no CUDA device; pass device=\"cpu\" to "
-            "build the model on the CPU")
+    device = model_device(device, "build_speech2text")
     g = lambda name, default=None: getattr(args, name, default)  # noqa: E731
     for name in _NOT_PORTED:
         if g(name, 0):

@@ -1,4 +1,5 @@
-"""Sequence helpers (counterpart of ``neural_sp_tpu/models/utils.py``)."""
+"""Sequence helpers (counterpart of ``neural_sp_tpu/models/utils.py``),
+and the device rule of the port's ``build_*`` functions."""
 from __future__ import annotations
 
 import torch
@@ -25,3 +26,15 @@ def append_sos_eos(ys: torch.Tensor, ylens: torch.Tensor):
     ys_out = torch.where(pos > ylens[:, None], torch.full_like(ys_out, PAD),
                          ys_out)
     return ys_in, ys_out, ylens + 1
+
+
+def model_device(device, who: str) -> torch.device:
+    """Where ``build_*`` puts a model: ``device``, or the CUDA card when it is
+    None. Without a card the default raises: nothing falls back to the
+    CPU, which a caller gets only by asking (``device="cpu"``)."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"{who}: no CUDA device; pass device=\"cpu\" to build the "
+            f"model on the CPU")
+    return device

@@ -13,11 +13,16 @@ Layout rules (flax -> torch):
   * LayerNorm ``scale`` -> ``weight``; Embed ``embedding`` -> ``weight``;
   * Conv ``kernel`` HWIO -> OIHW (2-D) and [K, I/groups, O] -> [O, I/groups,
     K] (1-D, including depthwise and the attention's location conv);
-  * flax ``OptimizedLSTMCell`` ``i{g}`` / ``h{g}`` denses -> one ``w_ih``
-    [in, 4H], ``w_hh`` [H, 4H] and ``bias`` [4H], gates in (i, f, g, o)
-    order (the hidden side owns the bias);
-  * list members ``blocks_3`` / ``block0`` / ``cells_0`` -> ``blocks.3`` /
-    ``blocks.0`` / ``cells.0``.
+  * flax ``OptimizedLSTMCell`` ``i{g}`` / ``h{g}`` denses (any module
+    holding an ``ii`` dense: the LAS decoder's ``cells_0``, an RNNLM's
+    ``rnns_0/fwd``) -> one ``w_ih`` [in, 4H], ``w_hh`` [H, 4H] and ``bias``
+    [4H], gates in (i, f, g, o) order (the hidden side owns the bias);
+  * list members ``blocks_3`` / ``block0`` / ``cells_0`` / ``rnns_0`` /
+    ``projs_0`` -> ``blocks.3`` / ``blocks.0`` / ``cells.0`` / ``rnns.0`` /
+    ``projs.0``, and nested ones ``tails_1_0`` -> ``tails.1.0``;
+  * a ``LinearGLUBlock``'s ``glu/Dense_0`` -> ``glu.fc``;
+  * a free parameter at the top of the tree (an RNNLM's ``output_bias``)
+    keeps its name.
 """
 from __future__ import annotations
 
@@ -48,17 +53,21 @@ def _flatten(tree: dict, prefix: str = "") -> dict[str, np.ndarray]:
 def _torch_name(path: str) -> str:
     parts = []
     for p in path.split("/"):
-        m = re.fullmatch(r"(blocks|cells)_(\d+)", p) or \
-            re.fullmatch(r"(block)(\d+)", p)
+        m = re.fullmatch(r"(blocks|cells|rnns|projs|tails)((?:_\d+)+)", p)
         if m:
-            parts += ["blocks" if m.group(1) == "block" else m.group(1),
-                      m.group(2)]
+            parts += [m.group(1)] + m.group(2).split("_")[1:]
+        elif re.fullmatch(r"block\d+", p):
+            parts += ["blocks", p[len("block"):]]
+        elif p == "Dense_0" and parts and parts[-1] == "glu":
+            parts.append("fc")
         else:
             parts.append(p)
     return ".".join(parts)
 
 
 def _leaf(path: str, x: np.ndarray) -> tuple[str, np.ndarray]:
+    if "/" not in path:
+        return path, x
     parent, name = path.rsplit("/", 1)
     tname = _torch_name(parent)
     if name == "kernel":
@@ -95,8 +104,8 @@ def convert_params(flax_params: dict) -> dict[str, torch.Tensor]:
     leaves = {p: x for p, x in _flatten(flax_params).items()
               if not any(r.search(p) for r in IGNORED)}
     out: dict[str, np.ndarray] = {}
-    cells = sorted({m.group(0) for p in leaves
-                    for m in [re.match(r"^.*/cells_\d+", p)] if m})
+    cells = sorted({m.group(1) for p in leaves
+                    for m in [re.match(r"^(.*)/ii/kernel$", p)] if m})
     for cell in cells:
         out.update(_lstm(cell, leaves))
     for path, x in leaves.items():

@@ -2,9 +2,10 @@
 
 It follows flax's default initialisers in scale, not in values: weights
 are normal with std ``1/sqrt(fan_in)`` (lecun normal, untruncated), biases
-zero, norm scales one, embeddings normal with std ``1/sqrt(emb_dim)``. The
-numbers are drawn on the CPU in a fixed order, so one seed gives the same
-model on any device.
+zero (also a free one that belongs to no Linear, such as an RNNLM's
+``output_bias``), norm scales one, embeddings normal with std
+``1/sqrt(emb_dim)``. The numbers are drawn on the CPU in a fixed order, so
+one seed gives the same model on any device.
 """
 from __future__ import annotations
 
@@ -36,7 +37,7 @@ def init_params(model: nn.Module, seed: int) -> nn.Module:
             elif isinstance(module, nn.Embedding):
                 val = torch.randn(p.shape, generator=gen) / \
                     math.sqrt(p.shape[1])
-            elif name == "bias":
+            elif name == "bias" or name.endswith("_bias"):
                 val = torch.zeros(p.shape)
             else:
                 val = torch.randn(p.shape, generator=gen) / \

@@ -87,12 +87,18 @@ def test_decode_ctc_greedy_parity(models):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("lm_weight", 0.3), ("ilm_weight", 0.1), ("fwd_bwd_attention", True),
-    ("state_carry_over", True), ("lm_second_weight", 0.2)])
+    ("fwd_bwd_attention", True), ("state_carry_over", True),
+    ("ensemble", True)])
 def test_unported_decode_options_raise(models, field, value):
+    """A ``DecodeConfig`` field, or the session's ``ensemble``, that is not
+    ported yet (LM fusion and rescoring are: tests/test_torch_lm_fusion.py)."""
     tm = models[2]
+    if field == "ensemble":
+        kwargs = dict(ensemble=[Speech2TextSession(tm)])
+    else:
+        kwargs = dict(conf=DecodeConfig(**{field: value}))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Speech2TextSession(tm, DecodeConfig(**{field: value}))
+        Speech2TextSession(tm, **kwargs)
 
 
 @pytest.mark.parametrize("conf", [

@@ -673,3 +673,85 @@ def test_ctc_loss_refuses_bad_arguments(cuda):
     with pytest.raises(ValueError, match="more than the 2047"):
         ctc_loss_fwd(lp, torch.ones(2, 2048, dtype=torch.int32,
                                     device=cuda), lens, lens)
+
+
+# --------------------------------------------------------------------------
+# Serving with an RNNLM: the LM on the card against the same LM on the CPU,
+# and the small LM-fused decode (LM, ILM, rescoring) on both.
+
+def _small_lm(device, seed):
+    from types import SimpleNamespace
+    from neural_sp_tpu_torch.models.lm.build import build_lm
+    from neural_sp_tpu_torch.utils.init_params import init_params
+    args = SimpleNamespace(lm_type="lstm", vocab=40, n_units=48, n_layers=3,
+                           emb_dim=48, tie_embedding=True, residual=True,
+                           use_glu=True)
+    cpu = init_params(build_lm(args, device="cpu"), seed).eval()
+    card = build_lm(args, device=device).eval()
+    card.load_state_dict(cpu.state_dict(), strict=True)
+    return cpu, card
+
+
+def test_lm_predict_chain_on_the_card_matches_the_cpu(cuda):
+    """LMSession.predict chained over 12 steps at N = 10 with random tokens
+    and random beam reorders: the card's log-probs against the CPU's."""
+    from neural_sp_tpu_torch.models.lm.session import LMSession
+    cpu, card = _small_lm(cuda, 3)
+    s_cpu, s_card = LMSession(cpu), LMSession(card)
+    assert s_card.device.type == "cuda"
+    rng = np.random.RandomState(3)
+    st_cpu = st_card = None
+    for step in range(12):
+        y = rng.randint(0, 40, 10)
+        lp_cpu, st_cpu = s_cpu.predict(y, st_cpu)
+        lp_card, st_card = s_card.predict(y, st_card)
+        assert st_card[0][0].is_cuda
+        np.testing.assert_allclose(lp_card, lp_cpu, atol=TOL, rtol=TOL,
+                                   err_msg=f"step {step}")
+        par = rng.randint(0, 10, 10)
+        st_cpu, st_card = s_cpu.select(st_cpu, par), s_card.select(st_card,
+                                                                  par)
+
+
+def test_lm_fused_decode_on_the_card_matches_the_cpu(cuda):
+    """The small flagship-shaped model with an LM (0.5), ILM (0.2), joint
+    CTC (0.3), and second-pass and backward-LM rescoring of a 3-best, on
+    the card and on the CPU: the same tokens, the n-best's scores within
+    TOL, and K1 and K2 launched on the card."""
+    from types import SimpleNamespace
+    from neural_sp_tpu_torch.configs import flagship_args
+    from neural_sp_tpu_torch.models.decoders.decoding import (
+        DecodeConfig, Speech2TextSession)
+    from neural_sp_tpu_torch.models.lm.session import LMSession
+    from neural_sp_tpu_torch.models.speech2text import build_speech2text
+    from neural_sp_tpu_torch.utils.init_params import init_params
+    args = vars(flagship_args(faithful=True))
+    args.update(enc_n_layers=2, transformer_d_model=64,
+                transformer_d_ff=128, transformer_n_heads=4, dec_n_units=64,
+                emb_dim=32, dec_bottleneck_dim=64, attn_dim=32, vocab=40,
+                subsample="1_2")
+    args = SimpleNamespace(**args)
+    cpu = init_params(build_speech2text(args, device="cpu"), 0).eval()
+    card = build_speech2text(args, device=cuda).eval()
+    card.load_state_dict(cpu.state_dict(), strict=True)
+    lms = [_small_lm(cuda, seed) for seed in (1, 2, 4)]
+    conf = DecodeConfig(beam_width=3, ctc_weight=0.3, lm_weight=0.5,
+                        ilm_weight=0.2, lm_second_weight=0.5,
+                        lm_bwd_weight=0.3, n_best=3)
+    xs = np.random.RandomState(0).randn(1, 120, 80).astype(np.float32)
+    xlens = np.array([120])
+    out = []
+    for side, model in ((0, cpu), (1, card)):
+        sess = Speech2TextSession(model, conf,
+                                  lm_session=LMSession(lms[0][side]))
+        sess.attach_second_pass_lms(LMSession(lms[1][side]),
+                                    LMSession(lms[2][side]))
+        before = (rel_attention.launches, las_step.launches)
+        hyps = sess.decode(xs, xlens)
+        launched = (rel_attention.launches - before[0],
+                    las_step.launches - before[1])
+        out.append((hyps, sess._last_nbest_scores, launched))
+    (hyps_cpu, sc_cpu, none), (hyps_card, sc_card, launched) = out
+    assert none == (0, 0) and min(launched) > 0
+    assert hyps_card == hyps_cpu and len(hyps_card[0]) > 0
+    np.testing.assert_allclose(sc_card, sc_cpu, atol=TOL, rtol=TOL)

@@ -89,6 +89,15 @@ xs = np.random.RandomState(0).randn(1, 40, 80).astype(np.float32)
 hyps = Speech2TextSession(model, DecodeConfig(beam_width=2, ctc_weight=0.3)
                           ).decode(xs, np.array([40]))
 assert len(hyps) == 1
+from neural_sp_tpu_torch.models.lm.build import build_lm
+from neural_sp_tpu_torch.models.lm.session import LMSession
+lm = init_params(build_lm(SimpleNamespace(
+    lm_type="lstm", vocab=20, n_units=16, n_layers=2, emb_dim=16,
+    tie_embedding=True, residual=True, use_glu=True), device="cpu"), 1).eval()
+hyps = Speech2TextSession(
+    model, DecodeConfig(beam_width=2, lm_weight=0.5, ilm_weight=0.2),
+    lm_session=LMSession(lm)).decode(xs, np.array([40]))
+assert len(hyps) == 1
 import torch
 from neural_sp_tpu_torch.parallel.mesh import make_train_step
 from neural_sp_tpu_torch.trainers.lr_scheduler import noam_schedule
