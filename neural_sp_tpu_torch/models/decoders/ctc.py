@@ -1,37 +1,64 @@
 """CTC head with its training loss, greedy collapse and the joint-decoding
 prefix scorer (counterpart of ``neural_sp_tpu/models/decoders/ctc.py``).
 The loss is kernel K4 (``ops.ctc.ctc_loss``); the scorer is host numpy in
-the JAX package and is copied as it is."""
+the JAX package and is copied as it is.
+
+``fc_list`` ("512" or "512_512") puts Linear + ReLU + dropout layers
+``fc0``, ``fc1``, ... before the output layer; ``lsm_prob`` mixes K4's loss
+with the KL divergence of the posteriors from the uniform distribution
+(``ops.criterion.kldiv_lsm_ctc``), divided by the mean label length, as
+the JAX head does. The dropout is the decoder's (``dropout_dec``)."""
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
 from torch import nn
 
 from ... import BLANK, EOS
+from ...ops.criterion import kldiv_lsm_ctc
 from ...ops.ctc import ctc_loss
+from ...ops.dropout import Dropout
 
 LOG0 = -1.0e10
 
 
 class CTC(nn.Module):
-    def __init__(self, vocab: int, enc_n_units: int, fc_list: str = ""):
+    def __init__(self, vocab: int, enc_n_units: int, fc_list: str = "",
+                 lsm_prob: float = 0.0, dropout: float = 0.0):
         super().__init__()
-        if fc_list:
-            raise NotImplementedError(
-                "CTC fc_list layers are not ported yet, see ROADMAP")
-        self.output = nn.Linear(enc_n_units, vocab)
+        self.lsm_prob = lsm_prob
+        self.n_fc = 0
+        d_in = enc_n_units
+        for dim in (int(d) for d in fc_list.split("_")) if fc_list else ():
+            self.add_module(f"fc{self.n_fc}", nn.Linear(d_in, dim))
+            self.n_fc += 1
+            d_in = dim
+        self.drop = Dropout(dropout)
+        self.output = nn.Linear(d_in, vocab)
 
-    def forward(self, eouts, elens, ys, ylens):
+    def forward(self, eouts, elens, ys, ylens,
+                gen: Optional[torch.Generator] = None):
         """Returns (loss, logits [B, T, V]): the CTC nll of the f32
-        log-softmax, summed over utterances and divided by B."""
-        logits = self.logits(eouts)
+        log-softmax, summed over utterances and divided by B (mixed with
+        the label-smoothing term when ``lsm_prob`` > 0)."""
+        logits = self.logits(eouts, gen)
         log_probs = torch.log_softmax(logits.float(), dim=-1)
         nll = ctc_loss(log_probs, ys, elens, ylens)
-        return nll.sum() / eouts.shape[0], logits
+        loss = nll.sum() / eouts.shape[0]
+        if self.lsm_prob > 0:
+            loss = (1 - self.lsm_prob) * loss + \
+                self.lsm_prob * kldiv_lsm_ctc(logits, elens) / \
+                ylens.float().mean().clamp(min=1.0)
+        return loss, logits
 
-    def logits(self, eouts: torch.Tensor) -> torch.Tensor:
-        return self.output(eouts)
+    def logits(self, eouts: torch.Tensor,
+               gen: Optional[torch.Generator] = None) -> torch.Tensor:
+        h = eouts
+        for i in range(self.n_fc):
+            h = self.drop(torch.relu(getattr(self, f"fc{i}")(h)), gen)
+        return self.output(h)
 
     def log_probs(self, eouts: torch.Tensor) -> torch.Tensor:
         return torch.log_softmax(self.logits(eouts).float(), dim=-1)

@@ -64,7 +64,7 @@ class Speech2Text(nn.Module):
         loss = torch.zeros((), dtype=torch.float32, device=xs.device)
         obs = {}
         if self.ctc is not None and self.ctc_weight > 0:
-            loss_ctc, _ = self.ctc(ex, el, ys, ylens)
+            loss_ctc, _ = self.ctc(ex, el, ys, ylens, gen)
             loss = loss + self.ctc_weight * loss_ctc
             obs["loss_ctc"] = loss_ctc
         if self.dec_fwd is not None and self.fwd_weight > 0:
@@ -80,7 +80,7 @@ class Speech2Text(nn.Module):
 # decoder's own (dropout_in, dropout_att, dropout_enc_layer, ss_prob) raise
 # in their builders.
 _NOT_PORTED = ("bwd_weight", "sub1_weight", "sub2_weight",
-               "sequence_summary_network", "input_noise_std", "ctc_lsm_prob",
+               "sequence_summary_network", "input_noise_std",
                "adaptive_number_ratio", "adaptive_size_ratio",
                "distillation_weight", "teacher", "mbr_training",
                "weight_noise_std")
@@ -92,8 +92,9 @@ def build_speech2text(args, device=None) -> Speech2Text:
     (``device="cpu"``). Without a card the default raises: nothing falls
     back to the CPU. The flagship's training options are honoured:
     SpecAugment (freq_width, n_freq_masks, time_width, n_time_masks,
-    time_width_upper), lsm_prob, dropout_enc, dropout_dec, dropout_emb; the
-    others raise ``NotImplementedError``."""
+    time_width_upper), lsm_prob, dropout_enc, dropout_dec, dropout_emb,
+    and the CTC head's ctc_fc_list and ctc_lsm_prob; the others raise
+    ``NotImplementedError``."""
     from .decoders.build import build_decoder
     from .encoders.build import build_encoder
 
@@ -108,7 +109,9 @@ def build_speech2text(args, device=None) -> Speech2Text:
     vocab = args.vocab
     ctc_weight = g("ctc_weight", 0.0)
     ctc = (CTC(vocab=vocab, enc_n_units=enc_n_units,
-               fc_list=g("ctc_fc_list", "") or "")
+               fc_list=str(g("ctc_fc_list", "") or ""),
+               lsm_prob=g("ctc_lsm_prob", 0.0),
+               dropout=g("dropout_dec", 0.0))
            if ctc_weight > 0 else None)
     dec_fwd = build_decoder(args, vocab, enc_n_units) \
         if ctc_weight < 1.0 else None

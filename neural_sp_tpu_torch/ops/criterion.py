@@ -1,8 +1,13 @@
 """Loss criteria (counterpart of ``neural_sp_tpu/ops/criterion.py``):
-label-smoothed cross entropy and teacher-forcing accuracy, f32."""
+label-smoothed cross entropy, the CTC label-smoothing term and
+teacher-forcing accuracy, f32."""
 from __future__ import annotations
 
+import math
+
 import torch
+
+from .masks import make_pad_mask
 
 
 def cross_entropy_lsm(logits: torch.Tensor, ys: torch.Tensor,
@@ -38,3 +43,14 @@ def compute_accuracy(logits: torch.Tensor, ys: torch.Tensor,
     mask = ys != ignore_index
     correct = ((logits.argmax(-1) == ys) & mask).sum()
     return 100.0 * correct / mask.sum().clamp(min=1)
+
+
+def kldiv_lsm_ctc(logits: torch.Tensor, elens: torch.Tensor) -> torch.Tensor:
+    """KL(softmax(logits) || uniform) summed over the valid frames and
+    divided by B, for CTC label smoothing. logits [B, T, V]."""
+    logits = logits.float()
+    log_probs = torch.log_softmax(logits, dim=-1)
+    kl = (log_probs.exp() * (log_probs + math.log(logits.shape[-1]))).sum(-1)
+    kl = torch.where(make_pad_mask(elens, logits.shape[1]), kl,
+                     torch.zeros_like(kl))
+    return kl.sum() / logits.shape[0]

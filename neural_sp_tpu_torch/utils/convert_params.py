@@ -23,6 +23,10 @@ Layout rules (flax -> torch):
   * a ``LinearGLUBlock``'s ``glu/Dense_0`` -> ``glu.fc``;
   * a free parameter at the top of the tree (an RNNLM's ``output_bias``)
     keeps its name.
+
+``convert_checkpoint`` carries a whole JAX training checkpoint (params,
+the Adam state and the epoch controller's state) into the port's
+checkpoint format, for ``--resume`` and ``--recog_model``.
 """
 from __future__ import annotations
 
@@ -113,3 +117,78 @@ def convert_params(flax_params: dict) -> dict[str, torch.Tensor]:
         out[name] = arr
     return {k: torch.from_numpy(np.array(v, dtype=np.float32, order="C"))
             for k, v in out.items()}
+
+
+def _get(state, name):
+    """A field of an optax state as the caller has it: a NamedTuple, or
+    the dict that orbax restores one as (fields by name, never by
+    position: orbax sorts a restored namedtuple's fields)."""
+    return state[name] if isinstance(state, dict) else getattr(state, name)
+
+
+def _has(state, name) -> bool:
+    return name in state if isinstance(state, dict) else \
+        hasattr(state, name)
+
+
+def _adam_state(chain):
+    """The ScaleByAdamState (count, mu, nu) inside an optax chain's state
+    (tuples, or the lists orbax restores them as; None for EmptyState)."""
+    if chain is None:
+        return None
+    if _has(chain, "mu") and _has(chain, "nu"):
+        return chain
+    if isinstance(chain, (list, tuple)):
+        for s in chain:
+            found = _adam_state(s)
+            if found is not None:
+                return found
+    return None
+
+
+def _plain(v):
+    """numpy scalars (and lists of them) -> Python numbers."""
+    if isinstance(v, (np.ndarray, np.generic)):
+        return v.item()
+    if isinstance(v, (list, tuple)):
+        return [_plain(x) for x in v]
+    return v
+
+
+def convert_checkpoint(flax_params: dict, opt_state=None,
+                       controller: dict | None = None) -> dict:
+    """A JAX checkpoint -> the port's checkpoint payload
+    (``trainers/checkpoint.py``), which ``--resume`` and ``--recog_model``
+    accept.
+
+    ``flax_params``, ``opt_state`` and ``controller`` are the JAX
+    checkpoint's "params", "opt_state" and "controller" as numpy trees,
+    e.g. from the JAX package's ``load_checkpoint`` with ``jax.tree.map(
+    np.asarray, ...)``. ``opt_state`` is the state of the JAX
+    ``build_optimizer``'s adam / noam chain: the accumulation state
+    (mini_step, gradient_step, inner_opt_state, acc_grads) when it
+    accumulates, else the chain itself; the moments and the accumulator
+    are converted as the parameters are."""
+    out = {"model": convert_params(flax_params)}
+    if opt_state is not None:
+        if _has(opt_state, "inner_opt_state"):
+            inner = _get(opt_state, "inner_opt_state")
+            mini_step = int(np.asarray(_get(opt_state, "mini_step")))
+            acc = convert_params(_get(opt_state, "acc_grads"))
+        else:
+            inner, mini_step = opt_state, 0
+            acc = {k: torch.zeros_like(v) for k, v in out["model"].items()}
+        adam = _adam_state(inner)
+        if adam is None:
+            raise ValueError("opt_state holds no Adam state (count, mu, nu)")
+        out["optimizer"] = {
+            "count": int(np.asarray(_get(adam, "count"))),
+            "mini_step": mini_step,
+            "mu": convert_params(_get(adam, "mu")),
+            "nu": convert_params(_get(adam, "nu")),
+            "acc": acc}
+    if controller is not None:
+        ctl = {k: _plain(v) for k, v in controller.items()}
+        ctl["topk"] = [(float(v), int(e)) for v, e in ctl["topk"]]
+        out["controller"] = ctl
+    return out
