@@ -108,6 +108,8 @@ ys = np.array([[5, 6, 7]], np.int32)
 met = step(*map(torch.from_numpy, (xs, np.array([40]), ys, np.array([3]))),
            gen=torch.Generator().manual_seed(0))
 assert met["emitted"] and bool(torch.isfinite(met["grad_norm"]))
+import neural_sp_tpu_torch.bin.asr.eval
+import neural_sp_tpu_torch.bin.asr.train
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m.startswith("neural_sp_tpu.") or m == "neural_sp_tpu")
 assert not bad, bad

@@ -9,8 +9,10 @@
 * The pieces the step's randomness goes through, each on given random
   numbers: the dropout counter hash bit for bit on given key words, and
   SpecAugment applied from the JAX function's own draws.
+* The CTC head's options (``ctc_fc_list``, ``ctc_lsm_prob``): the loss
+  and every gradient against ``jax.grad``, as above.
 * The optimizer against optax (Adam with a Noam schedule, clip by global
-  norm, mean accumulation), and the options that raise.
+  norm, mean accumulation, weight decay), and the options that raise.
 
 Tolerance: float32, atol = rtol = 2e-4 (the repo's); gradients to 2e-4 of
 each leaf's largest magnitude, except the self-attention key biases, whose
@@ -109,6 +111,40 @@ def test_model_loss_and_grads_match_jax():
     assert_grads_close(tm, grads)
 
 
+@pytest.mark.parametrize("over", [
+    dict(ctc_fc_list="16"), dict(ctc_lsm_prob=0.1),
+    dict(ctc_fc_list="24_16", ctc_lsm_prob=0.2)],
+    ids=["fc_list", "lsm_prob", "fc_list_and_lsm_prob"])
+def test_ctc_head_options_match_jax(over):
+    """Loss and every gradient with the CTC head's Linear + ReLU layers
+    (``fc0``, ``fc1``) and its label smoothing (K4's nll mixed with the KL
+    from uniform over the mean label length), ATOL = RTOL = 2e-4 as above;
+    the conformer and the decoder as in the flagship test."""
+    args = small_args(**over)
+    xs, xlens, ys, ylens = batch(3)
+    jargs = tuple(map(jnp.asarray, (xs, xlens, ys, ylens)))
+    jm = jax_build(args)
+    params = jm.init(jax.random.PRNGKey(1), *jargs)["params"]
+    assert ("fc0" in params["ctc"]) == ("ctc_fc_list" in over)
+
+    def jloss(p):
+        return jm.apply({"params": p}, *jargs, deterministic=True)
+
+    (want, jobs), grads = jax.jit(jax.value_and_grad(jloss, has_aux=True))(
+        params)
+    tm = build_speech2text(args, device="cpu")
+    tm.load_state_dict(convert_params(jax.tree.map(np.asarray, params)),
+                       strict=True)
+    tm.eval()
+    loss, obs = tm(*map(torch.from_numpy, (xs, xlens, ys, ylens)))
+    loss.backward()
+    np.testing.assert_allclose(float(loss.detach()), float(want), rtol=RTOL,
+                               atol=0)
+    np.testing.assert_allclose(float(obs["loss_ctc"].detach()),
+                               float(jobs["loss_ctc"]), rtol=RTOL, atol=ATOL)
+    assert_grads_close(tm, grads)
+
+
 @pytest.mark.parametrize("key", [(0, 1), (0x9E3779B9, 0xFFFFFFFF),
                                  (123456789, 987654321)])
 def test_dropout_hash_bit_for_bit(key):
@@ -201,6 +237,40 @@ def test_optimizer_matches_optax(k, clip):
         for g_, w in zip(got, want):
             # float32; the moments and the clipped mean round differently
             np.testing.assert_allclose(g_.numpy(), np.asarray(w), rtol=1e-4,
+                                       atol=1e-7)
+    assert opt.count == 3
+
+
+def test_weight_decay_update_matches_optax():
+    """The JAX chain's weight decay (ROADMAP C1): ``add_decayed_weights(
+    -weight_decay)`` after Adam, not scaled by the lr, inside the
+    accumulator (k = 2, clip active at 0.3); three emitted updates against
+    optax with the parameters given, rtol 1e-4 / atol 1e-7 as above, and
+    each update's decay term alone against -weight_decay * param."""
+    rng = np.random.RandomState(7)
+    shapes = [(4, 3), (5,)]
+    params = [rng.randn(*s).astype(np.float32) for s in shapes]
+    wd, k = 1e-2, 2
+    kw = dict(clip_grad_norm=0.3, accum_grad_n_steps=k, weight_decay=wd)
+    tx = jax_build_optimizer("adam", lr=1e-3, **kw)
+    state = tx.init([jnp.asarray(p) for p in params])
+    opt = build_optimizer("adam", lr=1e-3, **kw)
+    plain = build_optimizer("adam", lr=1e-3, **{**kw, "weight_decay": 0.0})
+    opt.init([torch.from_numpy(p) for p in params])
+    plain.init([torch.from_numpy(p) for p in params])
+    for step in range(3 * k):
+        grads = [rng.randn(*s).astype(np.float32) for s in shapes]
+        want, state = tx.update([jnp.asarray(g) for g in grads], state,
+                                [jnp.asarray(p) for p in params])
+        got = opt.update([torch.from_numpy(g) for g in grads])
+        base = plain.update([torch.from_numpy(g) for g in grads])
+        if (step + 1) % k:
+            assert got is None
+            continue
+        for g_, w, b, p in zip(got, want, base, params):
+            np.testing.assert_allclose(g_.numpy(), np.asarray(w), rtol=1e-4,
+                                       atol=1e-7)
+            np.testing.assert_allclose((g_ - b).numpy(), -wd * p, rtol=1e-4,
                                        atol=1e-7)
     assert opt.count == 3
 
