@@ -83,12 +83,28 @@ Phases (any failure raises and the script exits non-zero):
      no farther from the plain f32 microstep than twice the plain bf16
      microstep, plus phase 6's tolerance, in the L2 norm; then
      5 Adam steps (lr 1e-4) on a fixed batch of 8 utterances in
-     ``train()`` mode, in float32 and at bf16, whose loss must fall.
+     ``train()`` mode, in float32 and at bf16, whose loss must fall;
+  7. the CLIs, as a user runs them, on the LibriSpeech Conformer-LAS conf
+     (``CLI_CONF``: 12 x d512 conformer, LSTM-1024 LAS, CTC fc 512,
+     ``ctc_lsm_prob`` 0.1, weight decay 1e-6, bf16 compute) at full width
+     and depth, on a synthesized corpus in a temporary directory (64 train,
+     8 dev, 4 test utterances of 700-1600 frames x 80, standard normal,
+     numpy seed 0; ~100-word transcripts over a 10k-entry vocabulary):
+     ``bin.asr.train.main`` for 2 epochs (overrides ``CLI_OVERRIDES``),
+     then resumed for a third (the controller's epoch and the Adam count
+     must continue), then ``bin.asr.eval.main`` with beam 10 + CTC 0.3 +
+     length norm + a seeded rnnlm_6L at 0.5, averaging 2 epochs (the
+     recipe's stage 5); counts zeroed around each CLI: K1 / K1b bf16, K3,
+     K3b and K4 (both entries) must run in training, K1 and K2 in
+     evaluation; wall per optimizer step, frames/s, peak memory, the
+     checkpoints' size and save time, RTF, decode wall per utterance, WER
+     / CER (random weights: a sign that the pipeline ran, no more).
 
 Launches per step (per encode for K1, per decode step for K2, per training
 microstep for the rest; K1 / K1b bf16 in phase 5's bf16 run) are counted
 in phases 3b, 4 and 5; K1's and K2's launches on the main path over the
-served requests of phases 3 and 3c. Prints the
+served requests of phases 3 and 3c; each kernel's launches in phase 7's
+three CLI runs apart (``cli_launches``). Prints the
 details as JSON (also written to ``chiprun_out/chip_smoke.json``), then one
 JSON line of per-kernel results (launches, launches_per_step, ms,
 plain_ms, bound_ms, bound_by, library_ms, errors), the card's ``name,
@@ -1457,6 +1473,229 @@ def phase_fit(torch, model, batch, compute_dtype=None, tag="6"):
     return losses
 
 
+# Phase 7: the CLIs on the LibriSpeech Conformer-LAS conf. The conf is the
+# recipe's, at full width and depth; the overrides are the run's length
+# (two epochs, then a third resumed), two accumulated microbatches per
+# update instead of 16 (so each epoch emits updates), and the word unit
+# over a synthesized 10k vocabulary (the conf's wp needs a trained BPE).
+CLI_CONF = "examples/librispeech/conf/asr/" \
+    "conformer_kernel15_clamp10_hie_subsample8_las_ln_large.yaml"
+CLI_OVERRIDES = ("--n_epochs", "2", "--accum_grad_n_steps", "2",
+                 "--unit", "word")
+CLI_UTTS = {"train": 64, "dev": 8, "test": 4}
+CLI_VOCAB = 10000          # the 4 reserved ids and 9,996 words
+# the recipe's stage 5 (examples/librispeech/run.sh) at 2 averaged epochs
+CLI_EVAL = ("--recog_beam_width", "10", "--recog_ctc_weight", "0.3",
+            "--recog_length_norm", "true", "--recog_lm_weight", "0.5",
+            "--recog_n_average", "2")
+CLI_TRAIN_KERNELS = ("rel_attention_bf16", "rel_attention_bwd_bf16",
+                     "las_scan", "las_scan_bwd", "ctc_loss", "ctc_loss_bwd")
+CLI_EVAL_KERNELS = ("rel_attention", "las_step")
+
+
+def synth_corpus(root: Path, utts: dict, vocab: int, frames=(700, 1600),
+                 dim: int = 80) -> dict:
+    """A LibriSpeech-shaped corpus from numpy seed 0: standard normal
+    features of ``frames`` (10 ms frames x ``dim``) as .npy, transcripts of
+    ~100 words (at most the CTC limit, frames // 8) over a dictionary of
+    ``vocab - 4`` words, TSVs in the JAX package's columns."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    words = [f"w{i:04d}" for i in range(vocab - 4)]
+    (root / "feat").mkdir(parents=True, exist_ok=True)
+    paths = {"dict": str(root / "dict_word.txt")}
+    (root / "dict_word.txt").write_text(
+        "".join(f"{w} {i + 4}\n" for i, w in enumerate(words)))
+    for name, n in utts.items():
+        rows = ["utt_id\tspeaker\tfeat_path\txlen\txdim\ttext\ttoken_id"
+                "\tylen\tydim"]
+        for i in range(n):
+            t = int(rng.integers(frames[0], frames[1] + 1))
+            path = root / "feat" / f"{name}_{i:03d}.npy"
+            np.save(path, rng.standard_normal((t, dim)).astype("float32"))
+            u = min(int(rng.integers(90, 111)), t // 8)
+            ids = rng.integers(0, vocab - 4, u)
+            rows.append("\t".join((
+                f"{name}_{i:03d}", f"spk{i % 4}", str(path), str(t),
+                str(dim), " ".join(words[j] for j in ids),
+                " ".join(str(j + 4) for j in ids), str(u), str(vocab))))
+        paths[name] = str(root / f"{name}.tsv")
+        Path(paths[name]).write_text("\n".join(rows) + "\n")
+    return paths
+
+
+def phase_cli(torch, device=None, extra_args=(), utts=CLI_UTTS,
+              vocab=CLI_VOCAB, frames=(700, 1600), lm_args=None) -> dict:
+    """7: the train CLI (two epochs, then a third resumed) and the eval CLI
+    (beam 10 + CTC 0.3 + RNNLM 0.5, 2 averaged epochs) on the LibriSpeech
+    conf and a synthesized corpus, through their ``main`` entry points,
+    launch counts zeroed around each. ``device``, ``extra_args``, ``utts``,
+    ``vocab``, ``frames`` and ``lm_args`` cut the run to size for a
+    rehearsal on the CPU (``device="cpu"``)."""
+    import os
+    import tempfile
+    from neural_sp_tpu_torch.bin.args import save_config
+    from neural_sp_tpu_torch.bin.asr import eval as cli_eval
+    from neural_sp_tpu_torch.bin.asr import train as cli_train
+    from neural_sp_tpu_torch.configs import librispeech_rnnlm_args
+    from neural_sp_tpu_torch.models.lm.build import build_lm
+    from neural_sp_tpu_torch.ops.kernels import launches, reset_launches
+    from neural_sp_tpu_torch.parallel.mesh import TrainStep
+    from neural_sp_tpu_torch.trainers.checkpoint import (
+        load_checkpoint, save_checkpoint)
+    from neural_sp_tpu_torch.utils.init_params import init_params
+    on_card = device is None
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    out = {"conf": CLI_CONF, "overrides": list(CLI_OVERRIDES),
+           "utterances": utts, "vocab": vocab}
+    with tempfile.TemporaryDirectory(prefix="nsp_cli_") as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        corpus = synth_corpus(root / "data", utts, vocab, frames)
+        out["corpus_s"] = time.perf_counter() - t0
+        exp = str(root / "exp")
+        data = ["--train_set", corpus["train"], "--dev_set", corpus["dev"],
+                "--dict", corpus["dict"], "--model_save_dir", exp]
+
+        # each microstep and checkpoint save timed (the CLI reads every
+        # step's loss on the host, so the sync costs it nothing more)
+        steps, saves = [], []
+        orig_call, orig_save = TrainStep.__call__, cli_train.save_checkpoint
+
+        def timed_call(self, xs, xlens, *a, **kw):
+            sync()
+            t = time.perf_counter()
+            m = orig_call(self, xs, xlens, *a, **kw)
+            sync()
+            steps.append((time.perf_counter() - t, bool(m["emitted"]),
+                          int(xlens.sum()), int(xlens.numel())))
+            return m
+
+        def timed_save(*a, **kw):
+            t = time.perf_counter()
+            path = orig_save(*a, **kw)
+            saves.append((time.perf_counter() - t, os.path.getsize(path)))
+            return path
+
+        runs = []
+        with mock.patch.object(TrainStep, "__call__", timed_call), \
+                mock.patch.object(cli_train, "save_checkpoint", timed_save):
+            for resume in ((), ("--resume", f"{exp}/ckpt.epoch-2",
+                                "--n_epochs", "3")):
+                steps.clear()
+                if on_card:
+                    torch.cuda.reset_peak_memory_stats()
+                sync()
+                reset_launches()
+                t = time.perf_counter()
+                cli_train.main(["--config", str(ROOT / CLI_CONF)] + data +
+                               list(CLI_OVERRIDES) + list(extra_args) +
+                               list(resume),
+                               device=device)
+                sync()
+                wall = time.perf_counter() - t
+                counts = launches()
+                emitted = [s for s in steps if s[1]]
+                # one optimizer step: the microsteps of its cycle
+                cycles, cur = [], 0.0
+                for s in steps:
+                    cur += s[0]
+                    if s[1]:
+                        cycles.append(cur)
+                        cur = 0.0
+                run = {"wall_s": wall, "microsteps": len(steps),
+                       "optimizer_steps": len(emitted),
+                       "microstep_s": [s[0] for s in steps],
+                       "microstep_utts": [s[3] for s in steps],
+                       "ms_per_optimizer_step": 1e3 * sum(cycles) /
+                       max(len(cycles), 1),
+                       "frames_per_s": sum(s[2] for s in steps) /
+                       sum(s[0] for s in steps),
+                       "launches": counts,
+                       "peak_mem_bytes": torch.cuda.max_memory_allocated()
+                       if on_card else None}
+                runs.append(run)
+                log(f"[7] train CLI{' (resumed)' if resume else ''}: "
+                    f"{run['microsteps']} microsteps, "
+                    f"{run['optimizer_steps']} optimizer steps, "
+                    f"{run['ms_per_optimizer_step']:.1f} ms per optimizer "
+                    f"step, {run['frames_per_s']:.0f} frames/s, wall "
+                    f"{wall:.1f} s, peak mem {run['peak_mem_bytes']} B")
+                log(f"[7]   launches: {counts}")
+                for name in CLI_TRAIN_KERNELS:
+                    expect(not on_card or counts[name] > 0,
+                           f"{name} never launched in the train CLI")
+                expect(not on_card or counts["rel_attention_bwd"] == 0,
+                       "the bf16 train CLI launched the float32 K1b")
+        out["train"], out["train_resumed"] = runs
+        out["checkpoint_save_s"] = [s for s, _ in saves]
+        out["checkpoint_bytes"] = saves[-1][1]
+        log(f"[7] checkpoints: {saves[-1][1]} B each, saved in "
+            f"{['%.2f' % s for s, _ in saves]} s")
+        ck2 = load_checkpoint(f"{exp}/ckpt.epoch-2")
+        ck3 = load_checkpoint(f"{exp}/ckpt.epoch-3")
+        expect(ck3["controller"]["epoch"] == 3,
+               f"resumed controller epoch {ck3['controller']['epoch']}")
+        expect(ck3["optimizer"]["count"] == ck2["optimizer"]["count"] +
+               runs[1]["optimizer_steps"] and
+               runs[1]["optimizer_steps"] > 0,
+               f"Adam count {ck2['optimizer']['count']} -> "
+               f"{ck3['optimizer']['count']} over "
+               f"{runs[1]['optimizer_steps']} resumed updates")
+        expect(len(ck3["controller"]["topk"]) == 3,
+               f"resumed controller's epochs {ck3['controller']['topk']}")
+        out["adam_count"] = [ck2["optimizer"]["count"],
+                             ck3["optimizer"]["count"]]
+        log(f"[7] resumed: controller epoch 2 -> 3, Adam count "
+            f"{out['adam_count'][0]} -> {out['adam_count'][1]}")
+        del ck2, ck3
+
+        # the recipe's LM: seeded, saved as its train CLI would leave it
+        lm_dir = str(root / "lm")
+        largs = lm_args or librispeech_rnnlm_args()
+        largs.vocab = vocab
+        lm = init_params(build_lm(largs, device=device), SEED + 1)
+        save_checkpoint(lm_dir, 1, lm.state_dict())
+        save_config(vars(largs), f"{lm_dir}/conf.yml")
+        del lm
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        sync()
+        reset_launches()
+        t = time.perf_counter()
+        res = cli_eval.main(["--recog_model", exp, "--recog_sets",
+                             corpus["test"], "--recog_lm", lm_dir,
+                             "--recog_dir", str(root / "decode")] +
+                            list(CLI_EVAL), device=device)
+        sync()
+        wall = time.perf_counter() - t
+        counts = launches()
+        (m,) = res.values()
+        audio_s = sum(int(line.split("\t")[3]) for line in
+                      Path(corpus["test"]).read_text().splitlines()[1:]) \
+            * FRAME_SEC
+        hyps = (root / "decode" / "test" / "hyp.trn").read_text()
+        out["eval"] = {**m, "wall_s": wall, "launches": counts,
+                       "wall_per_utt_s": m["rtf"] * audio_s / m["n_utts"],
+                       "hyp_tokens": [len(h.rsplit(" (", 1)[0].split())
+                                      for h in hyps.splitlines()],
+                       "peak_mem_bytes": torch.cuda.max_memory_allocated()
+                       if on_card else None}
+        log(f"[7] eval CLI: RTF {m['rtf']:.4f}, "
+            f"{out['eval']['wall_per_utt_s']:.2f} s of decoding per "
+            f"utterance, wall {wall:.1f} s (with loading), hypothesis "
+            f"lengths {out['eval']['hyp_tokens']}")
+        log(f"[7]   WER {m['wer']:.2f} / CER {m['cer']:.2f} over "
+            f"{m['n_utts']} utterances (random weights: the error rates "
+            f"only show that the pipeline ran)")
+        log(f"[7]   launches: {counts}")
+        expect(m["n_utts"] == utts["test"], f"{m['n_utts']} utterances")
+        for name in CLI_EVAL_KERNELS:
+            expect(not on_card or counts[name] > 0,
+                   f"{name} never launched in the eval CLI")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1506,6 +1745,9 @@ def main() -> int:
     parity["fixed_batch_losses"] = phase_fit(torch, model, batch)
     parity_bf16["fixed_batch_losses"] = phase_fit(
         torch, model, batch, torch.bfloat16, tag="6b")
+    del model, batch
+    torch.cuda.empty_cache()
+    cli = phase_cli(torch)
     # each kernel's launches from the main path it belongs to: the served
     # requests (K1, K2), the float32 training run (K1b, K3, K3b, K4) or
     # the bf16 training run (K1's and K1b's bf16 entries)
@@ -1554,7 +1796,7 @@ def main() -> int:
                "breakdown": breakdown, "train": trained,
                "train_bf16": {**trained_bf16, "launches": bf16_launches},
                "train_parity": parity, "train_parity_bf16": parity_bf16,
-               "kernels": kernels}
+               "cli": cli, "kernels": kernels}
     log(json.dumps(details))
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -1574,6 +1816,16 @@ def main() -> int:
     # K4's ms are forward + backward; its backward entry point counts apart
     next(e for e in entries if e["name"] == "ctc_loss")["bwd_launches"] = \
         launches["ctc_loss_bwd"]
+    # phase 7's paths, each counted from zero: the train CLI, its resumed
+    # epoch and the eval CLI
+    cli_runs = {"train": cli["train"], "train_resumed": cli["train_resumed"],
+                "eval": cli["eval"]}
+    for e in entries:
+        e["cli_launches"] = {k: r["launches"][e["name"]]
+                             for k, r in cli_runs.items()}
+    next(e for e in entries if e["name"] == "ctc_loss")[
+        "cli_bwd_launches"] = {k: r["launches"]["ctc_loss_bwd"]
+                               for k, r in cli_runs.items()}
     # K3, K3b: the kernels the per-step chain launched per call in the
     # training run; K3b: the wrapper's work after the loop (phase 2b)
     next(e for e in entries if e["name"] == "las_scan").update(

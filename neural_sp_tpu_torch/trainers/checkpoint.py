@@ -74,8 +74,10 @@ def save_checkpoint(save_dir: str, epoch: int, model_state: dict,
 
 
 def load_checkpoint(path: str) -> dict:
-    """The payload of a checkpoint, tensors on the CPU."""
-    return torch.load(path, map_location="cpu", weights_only=True)
+    """The payload of a checkpoint, tensors on the CPU, mapped from the
+    file: a tensor is read when it is used (evaluation reads the model and
+    never the optimizer state)."""
+    return torch.load(path, map_location="cpu", weights_only=True, mmap=True)
 
 
 def latest_epoch(save_dir: str) -> int | None:
