@@ -195,7 +195,9 @@ def main(argv=None, device=None) -> str:
         if p and os.path.exists(p):
             shutil.copy(p, save_dir)
     reporter = Reporter(save_dir)
-    gen = torch.Generator(device=device).manual_seed(args.seed)
+    # the step's randomness (dropout key words, SpecAugment draws) is drawn
+    # on the host, as the train step takes it
+    gen = torch.Generator().manual_seed(args.seed)
     # the controller's decay reaches the step as a multiplier of the lr
     # the optimizer was built with
     lr_ref = args.lr
