@@ -1611,6 +1611,13 @@ def phase_cli(torch, device=None, extra_args=(), utts=CLI_UTTS,
                        max(len(cycles), 1),
                        "frames_per_s": sum(s[2] for s in steps) /
                        sum(s[0] for s in steps),
+                       # without the run's first cycle (its first microstep
+                       # meets each new shape's library set-up)
+                       "ms_per_optimizer_step_after_first": 1e3 * sum(
+                           cycles[1:]) / max(len(cycles) - 1, 1),
+                       "frames_per_s_after_first": sum(
+                           s[2] for s in steps[2:]) / sum(
+                           s[0] for s in steps[2:]),
                        "launches": counts,
                        "peak_mem_bytes": torch.cuda.max_memory_allocated()
                        if on_card else None}
@@ -1619,7 +1626,9 @@ def phase_cli(torch, device=None, extra_args=(), utts=CLI_UTTS,
                     f"{run['microsteps']} microsteps, "
                     f"{run['optimizer_steps']} optimizer steps, "
                     f"{run['ms_per_optimizer_step']:.1f} ms per optimizer "
-                    f"step, {run['frames_per_s']:.0f} frames/s, wall "
+                    f"step ({run['ms_per_optimizer_step_after_first']:.1f} "
+                    f"after the first), {run['frames_per_s']:.0f} frames/s "
+                    f"({run['frames_per_s_after_first']:.0f}), wall "
                     f"{wall:.1f} s, peak mem {run['peak_mem_bytes']} B")
                 log(f"[7]   launches: {counts}")
                 for name in CLI_TRAIN_KERNELS:

@@ -151,7 +151,7 @@ def main(argv=None, device=None) -> dict:
             batch_size=args.recog_batch_size, bucketing="sort", is_test=True)
         out_dir = os.path.join(getattr(args, "recog_dir", save_dir),
                                os.path.basename(tsv).replace(".tsv", ""))
-        m = eval_unit(session, loader, targs.unit, save_dir=out_dir,
+        m = eval_unit(session, loader, save_dir=out_dir,
                       phone_map=getattr(args, "recog_phone_map", "") or None)
         logger.info("%s: WER %.2f / CER %.2f (RTF %.4f, %d utts)",
                     tsv, m["wer"], m["cer"], m["rtf"], m["n_utts"])

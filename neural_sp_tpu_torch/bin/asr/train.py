@@ -20,6 +20,9 @@ The batches are padded on the JAX CLI's grid (frames to 128, labels to
 ``--seed``: it draws other numbers than flax's. The JAX CLI's
 distillation, MBR, random state passing, per-batch MTL, tensor
 parallelism, the profiler window and the switch to SGD raise (ROADMAP).
+Its epoch-gated curricula (scheduled sampling, MoChA's losses) start
+options that the port's model builder raises on, so they have no
+counterpart here yet.
 """
 from __future__ import annotations
 
@@ -53,13 +56,6 @@ _NOT_PORTED = ("teacher", "mbr_training", "rsp_prob", "mtl_per_batch",
                "profile_n_steps", "train_word_alignment",
                "train_ctc_alignment", "dict_sub1", "dict_sub2")
 
-# epoch-gated curricula: (start-epoch flag, the field it holds at 0 before)
-_PHASES = (("ss_start_epoch", "ss_prob"),
-           ("mocha_quantity_loss_start_epoch", "mocha_quantity_loss_weight"),
-           ("mocha_latency_loss_start_epoch", "mocha_latency_loss_weight"),
-           ("mocha_stableemit_start_epoch", "mocha_stableemit_weight"))
-
-
 def compute_subsampling_factor(args) -> int:
     """The encoder's total time subsampling: the conv front end's pooling
     strides times the interlayer subsampling factors."""
@@ -86,14 +82,6 @@ def make_schedule(args):
                                getattr(args, "warmup_start_lr", args.lr / 100),
                                args.warmup_n_steps)
     return None
-
-
-def phase_overrides(args, epoch: int) -> tuple:
-    """The (field, 0.0) pairs an epoch-gated curriculum holds at zero
-    before its start epoch."""
-    return tuple((field, 0.0) for flag, field in _PHASES
-                 if getattr(args, flag, 0) and epoch < getattr(args, flag)
-                 and getattr(args, field, 0))
 
 
 def _to_device(batch: dict, device) -> tuple:
@@ -203,9 +191,6 @@ def main(argv=None, device=None) -> str:
     lr_ref = args.lr
 
     for epoch in range(start_epoch, args.n_epochs + 1):
-        if phase_overrides(args, epoch):
-            raise NotImplementedError(
-                "epoch-gated curricula are not ported yet, see ROADMAP")
         lr_scale = controller.lr / lr_ref if lr_ref else 1.0
         train_set.set_epoch(epoch)
         t0 = time.time()

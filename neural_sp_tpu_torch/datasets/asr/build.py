@@ -1,6 +1,8 @@
 """build_dataloader (counterpart of ``neural_sp_tpu/datasets/asr/
-build.py``): a dataset and its loader from the CLI's settings. The JAX
-loader's options that the port does not have raise when set."""
+build.py``): a dataset and its loader from the CLI's settings. Frame
+stacking and splicing raise when set; the JAX loader's sub-task label
+streams and alignment directories have no parameter here (the train CLI
+raises on their flags)."""
 from __future__ import annotations
 
 from .dataloader import ASRDataLoader
@@ -31,20 +33,10 @@ def build_dataloader(
     n_stacks: int = 1,
     n_skips: int = 1,
     n_splices: int = 1,
-    dict_path_sub1: str | None = None,
-    dict_path_sub2: str | None = None,
-    word_alignment_dir: str | None = None,
-    ctc_alignment_dir: str | None = None,
 ) -> ASRDataLoader:
     if max(n_stacks, n_skips, n_splices) > 1:
         raise NotImplementedError(
             "frame stacking and splicing are not ported yet, see ROADMAP")
-    if dict_path_sub1 or dict_path_sub2:
-        raise NotImplementedError(
-            "sub-task label streams are not ported yet, see ROADMAP")
-    if word_alignment_dir or ctc_alignment_dir:
-        raise NotImplementedError(
-            "alignment directories are not ported yet, see ROADMAP")
     dataset = ASRDataset(
         tsv_path=tsv_path, dict_path=dict_path, unit=unit, wp_model=wp_model,
         nlsyms=nlsyms, min_n_frames=min_n_frames, max_n_frames=max_n_frames,

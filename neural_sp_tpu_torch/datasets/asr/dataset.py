@@ -13,7 +13,7 @@ pandas as numbers, and the JAX dataset then tokenizes ``text`` instead; so
 does this one.
 
 Frame stacking, splicing, the sub-task label streams and the alignment
-directories are not ported (ROADMAP) and raise in ``build_dataloader``.
+directories are not ported (ROADMAP).
 """
 from __future__ import annotations
 
@@ -104,7 +104,6 @@ class ASRDataset:
         sort_by: str | None = None,       # input | output | None
         short2long: bool = False,
     ):
-        self.unit = unit
         self.token2idx, self.idx2token = build_converters(
             unit, dict_path, wp_model, nlsyms)
         df = read_tsv(tsv_path)
@@ -122,14 +121,9 @@ class ASRDataset:
             key = df["xlen" if sort_by == "input" else "ylen"]
             df = take(df, stable_order(key, short2long))
         self.df = df
-        self.subsample_factor = subsample_factor
 
     def __len__(self):
         return len(self.df["xlen"])
-
-    @property
-    def n_frames_total(self) -> int:
-        return int(self.df["xlen"].sum())
 
     def token_ids(self, i: int) -> np.ndarray:
         tid = self.df["token_id"][i] if "token_id" in self.df else ""

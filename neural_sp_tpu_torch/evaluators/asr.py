@@ -18,8 +18,7 @@ import numpy as np
 from .edit_distance import compute_wer
 
 
-def eval_unit(session, loader, unit: str = "char",
-              save_dir: str | None = None,
+def eval_unit(session, loader, save_dir: str | None = None,
               phone_map: str | None = None) -> dict:
     """{wer, cer, n_sub, n_ins, n_del, rtf, n_utts} of ``session`` on
     ``loader``'s utterances."""

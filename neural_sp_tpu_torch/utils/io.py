@@ -58,21 +58,6 @@ def read_kaldi_matrix(path_with_offset: str) -> np.ndarray:
         return data.reshape(shape).astype(np.float32)
 
 
-def write_kaldi_ark(ark_path: str,
-                    feats: dict[str, np.ndarray]) -> dict[str, str]:
-    """Write a binary float-matrix ark; returns utt -> 'path:offset'."""
-    offsets = {}
-    with open(ark_path, "wb") as f:
-        for key, mat in feats.items():
-            f.write(key.encode() + b" ")
-            offsets[key] = f"{ark_path}:{f.tell()}"
-            f.write(b"\0BFM ")
-            f.write(b"\x04" + struct.pack("<i", mat.shape[0]))
-            f.write(b"\x04" + struct.pack("<i", mat.shape[1]))
-            f.write(mat.astype(np.float32).tobytes())
-    return offsets
-
-
 def load_feat(feat_path: str) -> np.ndarray:
     """Dispatch on the path: .npy | .npz:key | kaldi 'path:offset'."""
     if feat_path.endswith(".npy"):
