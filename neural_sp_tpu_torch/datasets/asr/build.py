@@ -14,7 +14,6 @@ def build_dataloader(
     dict_path: str,
     unit: str = "char",
     wp_model: str | None = None,
-    nlsyms=None,
     batch_size: int = 1,
     batch_size_type: str = "seq",
     dynamic_batching: bool = False,
@@ -23,7 +22,6 @@ def build_dataloader(
     max_n_frames: int = 10**9,
     subsample_factor: int = 1,
     is_test: bool = False,
-    sort_by: str | None = "input",
     short2long: bool = True,
     seed: int = 1,
     pad_xlen_multiple: int = 16,
@@ -39,9 +37,9 @@ def build_dataloader(
             "frame stacking and splicing are not ported yet, see ROADMAP")
     dataset = ASRDataset(
         tsv_path=tsv_path, dict_path=dict_path, unit=unit, wp_model=wp_model,
-        nlsyms=nlsyms, min_n_frames=min_n_frames, max_n_frames=max_n_frames,
+        min_n_frames=min_n_frames, max_n_frames=max_n_frames,
         subsample_factor=subsample_factor, is_test=is_test,
-        sort_by=sort_by, short2long=short2long)
+        short2long=short2long)
     return ASRDataLoader(
         dataset, batch_size=batch_size, batch_size_type=batch_size_type,
         dynamic_batching=dynamic_batching, bucketing=bucketing, seed=seed,

@@ -17,6 +17,8 @@ import numpy as np
 from ... import PAD
 from .sampler import make_batches
 
+PREFETCH = 2      # batches loaded ahead of the consumer
+
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
@@ -62,7 +64,6 @@ class ASRDataLoader:
         pad_xlen_multiple: int = 16,
         pad_ylen_multiple: int = 8,
         pad_batch_multiple: int = 1,
-        prefetch: int = 2,
         sort_stop_epoch: int = 10000,
     ):
         self.dataset = dataset
@@ -74,7 +75,6 @@ class ASRDataLoader:
         self.pad_xlen_multiple = pad_xlen_multiple
         self.pad_ylen_multiple = pad_ylen_multiple
         self.pad_batch_multiple = pad_batch_multiple
-        self.prefetch = prefetch
         self.sort_stop_epoch = sort_stop_epoch
         self.epoch = 0
         self._batches = self._make_batches()
@@ -110,11 +110,8 @@ class ASRDataLoader:
                        self.pad_batch_multiple)
 
     def __iter__(self):
-        if self.prefetch <= 0:
-            for b in self._batches:
-                yield self._load(b)
-            return
-        q: queue.Queue = queue.Queue(maxsize=self.prefetch)
+        """The epoch's batches, loaded by a thread two batches ahead."""
+        q: queue.Queue = queue.Queue(maxsize=PREFETCH)
         stop = object()
         batches = list(self._batches)
 

@@ -32,15 +32,14 @@ logger = logging.getLogger(__name__)
 _INT_COLUMNS = ("xlen", "xdim", "ylen", "ydim")
 
 
-def build_converters(unit: str, dict_path: str, wp_model: str | None = None,
-                     nlsyms=None):
+def build_converters(unit: str, dict_path: str, wp_model: str | None = None):
     """(text -> ids, ids -> text) for a token unit."""
     if unit == "word":
         return Word2idx(dict_path), Idx2word(dict_path)
     if unit in ("wp", "wordpiece"):
         return Wp2idx(dict_path, wp_model), Idx2wp(dict_path, wp_model)
     if unit in ("char", "character"):
-        return Char2idx(dict_path, nlsyms=nlsyms), Idx2char(dict_path)
+        return Char2idx(dict_path), Idx2char(dict_path)
     if unit == "phone":
         raise NotImplementedError(
             "the phone unit is not ported yet, see ROADMAP")
@@ -96,16 +95,17 @@ class ASRDataset:
         dict_path: str,
         unit: str = "char",
         wp_model: str | None = None,
-        nlsyms=None,
         min_n_frames: int = 1,
         max_n_frames: int = 10**9,
         subsample_factor: int = 1,
         is_test: bool = False,
-        sort_by: str | None = None,       # input | output | None
-        short2long: bool = False,
+        short2long: bool = True,
     ):
+        """Rows outside [min_n_frames, max_n_frames] or longer in labels
+        than in subsampled frames are dropped (not from a test set); the
+        rest sorted by frames, ascending with ``short2long``."""
         self.token2idx, self.idx2token = build_converters(
-            unit, dict_path, wp_model, nlsyms)
+            unit, dict_path, wp_model)
         df = read_tsv(tsv_path)
         n0 = len(df["xlen"])
         if not is_test:
@@ -117,10 +117,7 @@ class ASRDataset:
         if len(df["xlen"]) != n0:
             logger.info("removed %d utterances (length filters)",
                         n0 - len(df["xlen"]))
-        if sort_by in ("input", "output"):
-            key = df["xlen" if sort_by == "input" else "ylen"]
-            df = take(df, stable_order(key, short2long))
-        self.df = df
+        self.df = take(df, stable_order(df["xlen"], short2long))
 
     def __len__(self):
         return len(self.df["xlen"])

@@ -1,11 +1,11 @@
 """Batch assembly (counterpart of ``neural_sp_tpu/datasets/asr/sampler.py``):
 a batch size per batch (``seq``, with optional dynamic scaling by length,
-or ``frame`` / ``token`` bins) and sort or shuffle bucketing, over the
-rows of a dataset table (a dict of columns, ``dataset.read_tsv``).
+or ``frame`` bins) and sort or shuffle bucketing, over the rows of a
+dataset table (a dict of columns, ``dataset.read_tsv``).
 
-The JAX sampler's discourse and longform bucketing, its padded-area
-frame bins (``shape_grid_t``) and its multi-replica striping are not
-ported (ROADMAP).
+The JAX sampler's token bins, discourse and longform bucketing, its
+padded-area frame bins (``shape_grid_t``) and its multi-replica striping
+are not ported (ROADMAP).
 """
 from __future__ import annotations
 
@@ -22,9 +22,9 @@ def _batch_size_seq(xlen: np.ndarray, offset: int, base_bs: int,
 
 
 def _batch_size_bin(lens: np.ndarray, offset: int, batch_bin: int) -> int:
-    """#utts from ``offset`` whose summed lengths stay within
-    ``batch_bin``; at least one, and the one that crosses the bin is the
-    last taken only when it is the first."""
+    """#utts from ``offset`` whose summed frames stay within ``batch_bin``;
+    at least one, and the one that crosses the bin is the last taken only
+    when it is the first."""
     total, bs = 0, 0
     n = len(lens)
     while offset + bs < n:
@@ -38,7 +38,7 @@ def _batch_size_bin(lens: np.ndarray, offset: int, batch_bin: int) -> int:
 
 
 def make_batches(table: dict, batch_size: int = 1,
-                 batch_size_type: str = "seq",     # seq | frame | token
+                 batch_size_type: str = "seq",     # seq | frame
                  dynamic_batching: bool = False,
                  bucketing: str = "sort",          # sort | shuffle
                  seed: int = 1) -> list[list[int]]:
@@ -57,10 +57,10 @@ def make_batches(table: dict, batch_size: int = 1,
             bs = _batch_size_seq(xlen, offset, batch_size, dynamic_batching)
         elif batch_size_type == "frame":
             bs = _batch_size_bin(xlen, offset, batch_size)
-        elif batch_size_type == "token":
-            bs = _batch_size_bin(table["ylen"], offset, batch_size)
         else:
-            raise ValueError(batch_size_type)
+            raise NotImplementedError(
+                f"batch_size_type {batch_size_type!r} is not ported yet (seq "
+                f"and frame are), see ROADMAP")
         batches.append(list(range(offset, min(offset + bs, n))))
         offset += bs
     if bucketing == "shuffle":
