@@ -20,7 +20,6 @@ from __future__ import annotations
 
 import os
 import re
-import shutil
 
 import torch
 
@@ -29,13 +28,6 @@ _CKPT = re.compile(r"ckpt\.epoch-(\d+)$")
 
 def ckpt_path(save_dir: str, epoch: int) -> str:
     return os.path.join(os.path.abspath(save_dir), f"ckpt.epoch-{epoch}")
-
-
-def _remove(path: str):
-    if os.path.isdir(path):
-        shutil.rmtree(path)
-    else:
-        os.remove(path)
 
 
 def _to_cpu(obj):
@@ -61,15 +53,13 @@ def save_checkpoint(save_dir: str, epoch: int, model_state: dict,
     path = ckpt_path(save_dir, epoch)
     os.makedirs(os.path.dirname(path), exist_ok=True)
     torch.save(payload, path + ".tmp")
-    if os.path.exists(path):
-        _remove(path)
     os.replace(path + ".tmp", path)
     if keep_epochs is not None:
         for d in os.listdir(save_dir):
             m = _CKPT.match(d)
             if m and int(m.group(1)) not in keep_epochs and \
                     int(m.group(1)) != epoch:
-                _remove(os.path.join(save_dir, d))
+                os.remove(os.path.join(save_dir, d))
     return path
 
 
