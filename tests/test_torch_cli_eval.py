@@ -8,9 +8,12 @@ epochs of seeded random params saved with the JAX package's
 and 2 best (so averaging takes the best two, not the last two). The port
 gets the same directory with each checkpoint through
 ``convert_checkpoint``. Both eval CLIs decode the test set at beam 2 +
-CTC 0.3, from the latest epoch and with ``--recog_n_average 2``: the
-hypotheses (``hyp.trn``, ``ref.trn``) are identical and the WER, CER and
-their S / I / D counts equal.
+CTC 0.3, from the latest epoch and with ``--recog_n_average 2``, and with
+an RNNLM from an LM directory (a seeded tiny LM saved by each package's
+``save_checkpoint`` beside its ``conf.yml``) for shallow fusion (0.5,
+length norm) and second-pass rescoring of a 10-best (0.3): the hypotheses
+(``hyp.trn``, ``ref.trn``) are identical and the WER, CER and their S /
+I / D counts equal.
 """
 import os
 import shutil
@@ -23,6 +26,7 @@ import jax.numpy as jnp
 
 from neural_sp_tpu.bin.args import save_config as jax_save_config
 from neural_sp_tpu.bin.asr import eval as jax_eval
+from neural_sp_tpu.models.lm.build import build_lm as jax_build_lm
 from neural_sp_tpu.models.speech2text import build_speech2text as jax_build
 from neural_sp_tpu.trainers.checkpoint import (
     save_checkpoint as jax_save_checkpoint)
@@ -31,11 +35,15 @@ from neural_sp_tpu.utils.ci_corpus import make_ci_corpus
 from neural_sp_tpu_torch.bin.asr import eval as port_eval
 from neural_sp_tpu_torch.datasets.token_converter.character import load_dict
 from neural_sp_tpu_torch.trainers.checkpoint import save_checkpoint
-from neural_sp_tpu_torch.utils.convert_params import convert_checkpoint
+from neural_sp_tpu_torch.bin.args import save_config
+from neural_sp_tpu_torch.utils.convert_params import (
+    convert_checkpoint, convert_params)
 
 from test_torch_cli import CONF
 
 DEV_LOSSES = {1: 2.0, 2: 1.0, 3: 3.0}
+LM_CONF = dict(lm_type="lstm", n_units=16, n_layers=2, emb_dim=16,
+               tie_embedding=True, residual=True, use_glu=True)
 
 
 @pytest.fixture(scope="module")
@@ -60,19 +68,43 @@ def exp(tmp_path_factory):
     jax_save_config(conf, os.path.join(jdir, "conf.yml"))
     for name in ("conf.yml", "history.csv"):
         shutil.copy(os.path.join(jdir, name), pdir)
-    return dict(corpus=corpus, jdir=jdir, pdir=pdir, root=root)
+    # an LM directory for each package, as its LM train CLI leaves one
+    lm_conf = dict(LM_CONF, vocab=conf["vocab"])
+    ys = jnp.full((1, 4), 5)
+    lm_params = jax_build_lm(SimpleNamespace(**lm_conf)).init(
+        jax.random.PRNGKey(7), ys, ys)["params"]
+    jlm, plm = str(root / "jax_lm"), str(root / "port_lm")
+    jax_save_checkpoint(jlm, 1, lm_params)
+    jax_save_config(lm_conf, os.path.join(jlm, "conf.yml"))
+    save_checkpoint(plm, 1, convert_params(jax.tree.map(np.asarray,
+                                                        lm_params)))
+    save_config(lm_conf, os.path.join(plm, "conf.yml"))
+    return dict(corpus=corpus, jdir=jdir, pdir=pdir, jlm=jlm, plm=plm,
+                root=root)
 
 
-@pytest.mark.parametrize("n_average", [1, 2])
-def test_eval_cli_matches_jax(exp, n_average):
+CASES = {
+    "latest": ["--recog_ctc_weight", "0.3"],
+    "n_average_2": ["--recog_ctc_weight", "0.3", "--recog_n_average", "2"],
+    "lm_fusion_and_second_pass": [
+        "--recog_lm_weight", "0.5", "--recog_length_norm", "true",
+        "--recog_lm_second_weight", "0.3"],
+}
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_eval_cli_matches_jax(exp, case):
     argv = ["--recog_sets", exp["corpus"]["test"], "--recog_beam_width",
-            "2", "--recog_ctc_weight", "0.3", "--recog_n_average",
-            str(n_average)]
-    out = exp["root"] / f"dec{n_average}"
+            "2"] + CASES[case]
+    lms = {pkg: ["--recog_lm", exp[f"{pkg}lm"], "--recog_lm_second",
+                 exp[f"{pkg}lm"]] if case.startswith("lm") else []
+           for pkg in ("j", "p")}
+    out = exp["root"] / case
     want = jax_eval.main(["--recog_model", exp["jdir"], "--recog_dir",
-                          str(out / "jax")] + argv)
+                          str(out / "jax")] + argv + lms["j"])
     got = port_eval.main(["--recog_model", exp["pdir"], "--recog_dir",
-                          str(out / "port")] + argv, device="cpu")
+                          str(out / "port")] + argv + lms["p"],
+                         device="cpu")
     (mw,), (mg,) = want.values(), got.values()
     for k in ("wer", "cer", "n_sub", "n_ins", "n_del", "n_utts"):
         assert mg[k] == mw[k], k
