@@ -77,8 +77,8 @@ def _checkpoint(jdir, epoch):
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     root = tmp_path_factory.mktemp("torch_cli")
-    old = os.environ.get("NSP_COMPILE_CACHE")
-    os.environ["NSP_COMPILE_CACHE"] = str(root / "xla_cache")
+    mp = pytest.MonkeyPatch()
+    mp.setenv("NSP_COMPILE_CACHE", str(root / "xla_cache"))
     try:
         corpus = make_ci_corpus(str(root / "corpus"), n_train=24, n_dev=8,
                                 n_test=4, max_words=3, seed=9)
@@ -105,10 +105,7 @@ def runs(tmp_path_factory):
                         device="cpu")
         yield dict(corpus=corpus, jdir=jdir, pdir=pdir, ck1=ck1, root=root)
     finally:
-        if old is None:
-            os.environ.pop("NSP_COMPILE_CACHE", None)
-        else:
-            os.environ["NSP_COMPILE_CACHE"] = old
+        mp.undo()
 
 
 def test_resumed_epoch_matches_jax(runs):
@@ -185,3 +182,4 @@ def test_unported_train_cli_options_raise(runs, flag):
                          "--dict", c["dict_char"], "--model_save_dir",
                          str(runs["root"] / "unported"), f"--{flag}", "1"],
                         device="cpu")
+

@@ -21,6 +21,7 @@ from types import SimpleNamespace
 
 import numpy as np
 import pytest
+import torch
 import jax
 import jax.numpy as jnp
 
@@ -29,7 +30,10 @@ from neural_sp_tpu.bin.asr import eval as jax_eval
 from neural_sp_tpu.models.lm.build import build_lm as jax_build_lm
 from neural_sp_tpu.models.speech2text import build_speech2text as jax_build
 from neural_sp_tpu.trainers.checkpoint import (
+    load_checkpoint as jax_load_checkpoint,
     save_checkpoint as jax_save_checkpoint)
+from neural_sp_tpu.trainers.optimizer import (
+    build_optimizer as jax_build_optimizer)
 from neural_sp_tpu.trainers.reporter import Reporter as JaxReporter
 from neural_sp_tpu.utils.ci_corpus import make_ci_corpus
 from neural_sp_tpu_torch.bin.asr import eval as port_eval
@@ -49,6 +53,9 @@ LM_CONF = dict(lm_type="lstm", n_units=16, n_layers=2, emb_dim=16,
 @pytest.fixture(scope="module")
 def exp(tmp_path_factory):
     root = tmp_path_factory.mktemp("torch_cli_eval")
+    mp = pytest.MonkeyPatch()
+    # the JAX CLIs turn on a compilation cache: keep it in this directory
+    mp.setenv("NSP_COMPILE_CACHE", str(root / "xla_cache"))
     corpus = make_ci_corpus(str(root / "corpus"), n_train=4, n_dev=4,
                             n_test=4, max_words=3, seed=9)
     conf = dict(CONF, dict=corpus["dict_char"], input_dim=80,
@@ -79,8 +86,9 @@ def exp(tmp_path_factory):
     save_checkpoint(plm, 1, convert_params(jax.tree.map(np.asarray,
                                                         lm_params)))
     save_config(lm_conf, os.path.join(plm, "conf.yml"))
-    return dict(corpus=corpus, jdir=jdir, pdir=pdir, jlm=jlm, plm=plm,
-                root=root)
+    yield dict(corpus=corpus, jdir=jdir, pdir=pdir, jlm=jlm, plm=plm,
+               root=root, params=params)
+    mp.undo()
 
 
 CASES = {
@@ -121,3 +129,39 @@ def test_eval_averages_the_best_epochs(exp, tmp_path):
     for epoch in (1, 2, 3):
         (tmp_path / f"ckpt.epoch-{epoch}").touch()
     assert port_eval._best_epochs(str(tmp_path), 2) == [2, 3]  # no history
+
+
+@pytest.mark.parametrize("k", [1, 2])
+def test_convert_checkpoint_reads_live_and_restored_states(exp, k,
+                                                           tmp_path):
+    """The optax state as the JAX CLI holds it (NamedTuples) and as orbax
+    restores it (dicts with sorted fields, None for EmptyState) convert
+    alike, and as the parameters; without accumulation (k = 1) the
+    accumulator is zeros."""
+    params = exp["params"]
+    tx = jax_build_optimizer("noam", weight_decay=1e-4, accum_grad_n_steps=k,
+                         schedule=lambda c: 1e-3)
+    state = tx.init(params)
+    rng = np.random.default_rng(k)
+    state = jax.tree.map(
+        lambda x: jnp.asarray(rng.standard_normal(x.shape), x.dtype)
+        if x.ndim else x + 1, state)     # counts 1, moments random
+    jax_save_checkpoint(str(tmp_path), 1, params, state,
+                        {"epoch": 1, "topk": [[1.5, 1]]})
+    ck = jax_load_checkpoint(str(tmp_path / "ckpt.epoch-1"))
+    live = convert_checkpoint(jax.tree.map(np.asarray, params),
+                              jax.tree.map(np.asarray, state))
+    restored = convert_checkpoint(jax.tree.map(np.asarray, ck["params"]),
+                                  jax.tree.map(np.asarray, ck["opt_state"]),
+                                  ck["controller"])
+    assert set(live["optimizer"]["mu"]) == set(live["model"])
+    for key in ("mu", "nu", "acc"):
+        for name, v in live["optimizer"][key].items():
+            assert torch.equal(v, restored["optimizer"][key][name]), name
+    assert live["optimizer"]["count"] == restored["optimizer"]["count"] == 1
+    assert live["optimizer"]["mini_step"] == \
+        restored["optimizer"]["mini_step"] == (0 if k == 1 else 1)
+    if k == 1:
+        assert all(float(v.abs().max()) == 0.0
+                   for v in live["optimizer"]["acc"].values())
+    assert restored["controller"] == {"epoch": 1, "topk": [(1.5, 1)]}
