@@ -96,7 +96,11 @@ Phases (any failure raises and the script exits non-zero):
      length norm + a seeded rnnlm_6L at 0.5, averaging 2 epochs (the
      recipe's stage 5); counts zeroed around each CLI: K1 / K1b bf16, K3,
      K3b and K4 (both entries) must run in training, K1 and K2 in
-     evaluation; wall per optimizer step, frames/s, peak memory, the
+     evaluation; every microstep's loss and each epoch's train and dev
+     loss in ``history.csv`` must be finite; the widest microbatch the
+     train CLI ran (1664-frame pads: K1 / K1b bf16 at T = 832 / 416 / 208)
+     is held on the trained model to the plain versions as in phases 6
+     and 6b; wall per optimizer step, frames/s, peak memory, the
      checkpoints' size and save time, RTF, decode wall per utterance, WER
      / CER (random weights: a sign that the pipeline ran, no more).
 
@@ -1373,7 +1377,7 @@ def eval_microstep(torch, model, batch, compute_dtype=None, plain=False):
     return float(loss.detach()), grads
 
 
-def phase_train_parity(torch, model, batch):
+def phase_train_parity(torch, model, batch, tag="6"):
     """6: one eval() microstep's loss and gradients, kernels vs plain
     versions, float32. Returns the result and the plain microstep's (loss,
     gradients), phase 6b's float32 reference."""
@@ -1393,16 +1397,16 @@ def phase_train_parity(torch, model, batch):
                         err / g_max)
     ranked = sorted(leaves.items(), key=lambda kv: -kv[1][0])
     zero = [kv for kv in ranked if kv[0].endswith(ZERO_GRAD_LEAF)]
-    log(f"[6] eval loss kernels {loss:.6f} plain {loss_ref:.6f} (rel "
+    log(f"[{tag}] eval loss kernels {loss:.6f} plain {loss_ref:.6f} (rel "
         f"{loss_err:.2e}); largest gradient {g_max:.4e}")
-    log(f"[6] {len(leaves) - len(zero)} leaves held to {GRAD_RTOL} of their "
-        f"own max (no absolute floor), {len(zero)} key-bias leaves to "
+    log(f"[{tag}] {len(leaves) - len(zero)} leaves held to {GRAD_RTOL} of "
+        f"their own max (no absolute floor), {len(zero)} key-bias leaves to "
         f"{GRAD_FLOOR} of the largest gradient")
     for name, (share, scale, err) in ranked[:6]:
-        log(f"[6]   {name}: {share:.3f} of its tolerance (own max "
+        log(f"[{tag}]   {name}: {share:.3f} of its tolerance (own max "
             f"{scale:.3e}, error {err:.3e} of the largest gradient)")
     for name, (share, scale, err) in zero[:2]:
-        log(f"[6]   key bias {name}: {share:.3f} of its tolerance (plain "
+        log(f"[{tag}]   key bias {name}: {share:.3f} of its tolerance (plain "
             f"max {scale:.3e}, error {err:.3e} of the largest gradient)")
     worst_name, (worst, _, _) = ranked[0]
     expect(loss_err <= LOSS_RTOL, f"loss {loss} vs plain {loss_ref}")
@@ -1412,7 +1416,7 @@ def phase_train_parity(torch, model, batch):
             "key_bias_leaves": dict(zero)}, (loss_ref, grads_ref)
 
 
-def phase_train_parity_bf16(torch, model, batch, plain32):
+def phase_train_parity_bf16(torch, model, batch, plain32, tag="6b"):
     """6b: one eval() microstep at bf16 compute through the kernels against
     the same microstep with the plain versions patched in (both bf16): each
     quantity's distance from phase 6's plain float32 microstep
@@ -1439,11 +1443,11 @@ def phase_train_parity_bf16(torch, model, batch, plain32):
         leaves[name] = (err / tol if err else 0.0, err, plain_cost,
                         float(norm(g - ref)))
     ranked = sorted(leaves.items(), key=lambda kv: -kv[1][0])
-    log(f"[6b] bf16 eval loss kernels {loss:.6f} plain bf16 {loss16:.6f} "
+    log(f"[{tag}] bf16 eval loss kernels {loss:.6f} plain bf16 {loss16:.6f} "
         f"plain f32 {loss32:.6f}: |kernels - f32| {abs(loss - loss32):.3e} "
         f"against a tolerance of {loss_tol:.3e}")
     for name, (share, err, cost, between) in ranked[:6]:
-        log(f"[6b]   {name}: {share:.3f} of its tolerance (|kernels - f32| "
+        log(f"[{tag}]   {name}: {share:.3f} of its tolerance (|kernels - f32| "
             f"{err:.3e}, |plain bf16 - f32| {cost:.3e}, |kernels - plain "
             f"bf16| {between:.3e}, L2)")
     worst_name, (worst, _, _, _) = ranked[0]
@@ -1524,16 +1528,20 @@ def synth_corpus(root: Path, utts: dict, vocab: int, frames=(700, 1600),
     return paths
 
 
-def phase_cli(torch, device=None, extra_args=(), utts=CLI_UTTS,
-              vocab=CLI_VOCAB, frames=(700, 1600), lm_args=None) -> dict:
+def phase_cli(torch) -> dict:
     """7: the train CLI (two epochs, then a third resumed) and the eval CLI
     (beam 10 + CTC 0.3 + RNNLM 0.5, 2 averaged epochs) on the LibriSpeech
     conf and a synthesized corpus, through their ``main`` entry points,
-    launch counts zeroed around each. ``device``, ``extra_args``, ``utts``,
-    ``vocab``, ``frames`` and ``lm_args`` cut the run to size for a
-    rehearsal on the CPU (``device="cpu"``)."""
+    launch counts zeroed around each. Every microstep's loss and every
+    epoch's train and dev loss must be finite, and the widest microbatch
+    the train CLI ran (longest padded frames, then most utterances) is held
+    to the plain versions at phase 6's and 6b's tolerances on the trained
+    model: the kernels at the CLI's own shapes."""
+    import csv
+    import math
     import os
     import tempfile
+    from types import SimpleNamespace
     from neural_sp_tpu_torch.bin.args import save_config
     from neural_sp_tpu_torch.bin.asr import eval as cli_eval
     from neural_sp_tpu_torch.bin.asr import train as cli_train
@@ -1544,31 +1552,34 @@ def phase_cli(torch, device=None, extra_args=(), utts=CLI_UTTS,
     from neural_sp_tpu_torch.trainers.checkpoint import (
         load_checkpoint, save_checkpoint)
     from neural_sp_tpu_torch.utils.init_params import init_params
-    on_card = device is None
-    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    sync = torch.cuda.synchronize
     out = {"conf": CLI_CONF, "overrides": list(CLI_OVERRIDES),
-           "utterances": utts, "vocab": vocab}
+           "utterances": CLI_UTTS, "vocab": CLI_VOCAB}
     with tempfile.TemporaryDirectory(prefix="nsp_cli_") as tmp:
         root = Path(tmp)
         t0 = time.perf_counter()
-        corpus = synth_corpus(root / "data", utts, vocab, frames)
+        corpus = synth_corpus(root / "data", CLI_UTTS, CLI_VOCAB)
         out["corpus_s"] = time.perf_counter() - t0
         exp = str(root / "exp")
         data = ["--train_set", corpus["train"], "--dev_set", corpus["dev"],
                 "--dict", corpus["dict"], "--model_save_dir", exp]
 
         # each microstep and checkpoint save timed (the CLI reads every
-        # step's loss on the host, so the sync costs it nothing more)
-        steps, saves = [], []
+        # step's loss on the host, so the sync costs it nothing more); the
+        # widest microbatch kept
+        steps, saves, widest = [], [], []
         orig_call, orig_save = TrainStep.__call__, cli_train.save_checkpoint
 
-        def timed_call(self, xs, xlens, *a, **kw):
+        def timed_call(self, xs, xlens, ys, ylens, *a, **kw):
             sync()
             t = time.perf_counter()
-            m = orig_call(self, xs, xlens, *a, **kw)
+            m = orig_call(self, xs, xlens, ys, ylens, *a, **kw)
             sync()
             steps.append((time.perf_counter() - t, bool(m["emitted"]),
-                          int(xlens.sum()), int(xlens.numel())))
+                          int(xlens.sum()), int(xlens.numel()),
+                          float(m["loss"])))
+            if not widest or xs.shape[:2] > widest[0].shape[:2]:
+                widest[:] = (xs, xlens, ys, ylens)
             return m
 
         def timed_save(*a, **kw):
@@ -1583,15 +1594,12 @@ def phase_cli(torch, device=None, extra_args=(), utts=CLI_UTTS,
             for resume in ((), ("--resume", f"{exp}/ckpt.epoch-2",
                                 "--n_epochs", "3")):
                 steps.clear()
-                if on_card:
-                    torch.cuda.reset_peak_memory_stats()
+                torch.cuda.reset_peak_memory_stats()
                 sync()
                 reset_launches()
                 t = time.perf_counter()
                 cli_train.main(["--config", str(ROOT / CLI_CONF)] + data +
-                               list(CLI_OVERRIDES) + list(extra_args) +
-                               list(resume),
-                               device=device)
+                               list(CLI_OVERRIDES) + list(resume))
                 sync()
                 wall = time.perf_counter() - t
                 counts = launches()
@@ -1607,6 +1615,7 @@ def phase_cli(torch, device=None, extra_args=(), utts=CLI_UTTS,
                        "optimizer_steps": len(emitted),
                        "microstep_s": [s[0] for s in steps],
                        "microstep_utts": [s[3] for s in steps],
+                       "microstep_loss": [s[4] for s in steps],
                        "ms_per_optimizer_step": 1e3 * sum(cycles) /
                        max(len(cycles), 1),
                        "frames_per_s": sum(s[2] for s in steps) /
@@ -1619,8 +1628,7 @@ def phase_cli(torch, device=None, extra_args=(), utts=CLI_UTTS,
                            s[2] for s in steps[2:]) / sum(
                            s[0] for s in steps[2:]),
                        "launches": counts,
-                       "peak_mem_bytes": torch.cuda.max_memory_allocated()
-                       if on_card else None}
+                       "peak_mem_bytes": torch.cuda.max_memory_allocated()}
                 runs.append(run)
                 log(f"[7] train CLI{' (resumed)' if resume else ''}: "
                     f"{run['microsteps']} microsteps, "
@@ -1630,17 +1638,30 @@ def phase_cli(torch, device=None, extra_args=(), utts=CLI_UTTS,
                     f"after the first), {run['frames_per_s']:.0f} frames/s "
                     f"({run['frames_per_s_after_first']:.0f}), wall "
                     f"{wall:.1f} s, peak mem {run['peak_mem_bytes']} B")
+                log(f"[7]   microstep losses "
+                    f"{['%.3f' % x for x in run['microstep_loss']]}")
                 log(f"[7]   launches: {counts}")
+                expect(all(map(math.isfinite, run["microstep_loss"])),
+                       f"train CLI losses {run['microstep_loss']}")
                 for name in CLI_TRAIN_KERNELS:
-                    expect(not on_card or counts[name] > 0,
+                    expect(counts[name] > 0,
                            f"{name} never launched in the train CLI")
-                expect(not on_card or counts["rel_attention_bwd"] == 0,
+                expect(counts["rel_attention_bwd"] == 0,
                        "the bf16 train CLI launched the float32 K1b")
         out["train"], out["train_resumed"] = runs
         out["checkpoint_save_s"] = [s for s, _ in saves]
         out["checkpoint_bytes"] = saves[-1][1]
         log(f"[7] checkpoints: {saves[-1][1]} B each, saved in "
             f"{['%.2f' % s for s, _ in saves]} s")
+        # the epochs' mean train and dev losses, as history.csv keeps them
+        with open(f"{exp}/history.csv") as f:
+            history = [(int(r["epoch"]), float(r["train_loss"]),
+                        float(r["dev_loss_mean"])) for r in csv.DictReader(f)]
+        out["history"] = history
+        log(f"[7] history.csv (epoch, train loss, dev loss): {history}")
+        expect([e for e, _, _ in history] == [1, 2, 3] and all(
+            math.isfinite(x) for _, *losses in history for x in losses),
+            f"history.csv {history}")
         ck2 = load_checkpoint(f"{exp}/ckpt.epoch-2")
         ck3 = load_checkpoint(f"{exp}/ckpt.epoch-3")
         expect(ck3["controller"]["epoch"] == 3,
@@ -1659,23 +1680,39 @@ def phase_cli(torch, device=None, extra_args=(), utts=CLI_UTTS,
             f"{out['adam_count'][0]} -> {out['adam_count'][1]}")
         del ck2, ck3
 
+        # the widest microbatch on the trained model, kernels vs plain
+        model, _, _ = cli_eval.load_model_for_eval(SimpleNamespace(
+            recog_model=f"{exp}/ckpt.epoch-3", recog_n_average=1))
+        batch = tuple(widest)
+        log(f"[7] microbatch held to the plain versions: B "
+            f"{batch[0].shape[0]} x {batch[0].shape[1]} frames, U "
+            f"{batch[2].shape[1]}")
+        parity, plain32 = phase_train_parity(torch, model, batch, tag="7")
+        parity_bf16 = phase_train_parity_bf16(torch, model, batch, plain32,
+                                              tag="7")
+        out["microbatch_shape"] = [list(batch[0].shape),
+                                   list(batch[2].shape)]
+        out["train_parity"], out["train_parity_bf16"] = parity, parity_bf16
+        del model, batch, plain32
+        widest.clear()
+        torch.cuda.empty_cache()
+
         # the recipe's LM: seeded, saved as its train CLI would leave it
         lm_dir = str(root / "lm")
-        largs = lm_args or librispeech_rnnlm_args()
-        largs.vocab = vocab
-        lm = init_params(build_lm(largs, device=device), SEED + 1)
+        largs = librispeech_rnnlm_args()
+        largs.vocab = CLI_VOCAB
+        lm = init_params(build_lm(largs), SEED + 1)
         save_checkpoint(lm_dir, 1, lm.state_dict())
         save_config(vars(largs), f"{lm_dir}/conf.yml")
         del lm
-        if on_card:
-            torch.cuda.reset_peak_memory_stats()
+        torch.cuda.reset_peak_memory_stats()
         sync()
         reset_launches()
         t = time.perf_counter()
         res = cli_eval.main(["--recog_model", exp, "--recog_sets",
                              corpus["test"], "--recog_lm", lm_dir,
                              "--recog_dir", str(root / "decode")] +
-                            list(CLI_EVAL), device=device)
+                            list(CLI_EVAL))
         sync()
         wall = time.perf_counter() - t
         counts = launches()
@@ -1688,8 +1725,7 @@ def phase_cli(torch, device=None, extra_args=(), utts=CLI_UTTS,
                        "wall_per_utt_s": m["rtf"] * audio_s / m["n_utts"],
                        "hyp_tokens": [len(h.rsplit(" (", 1)[0].split())
                                       for h in hyps.splitlines()],
-                       "peak_mem_bytes": torch.cuda.max_memory_allocated()
-                       if on_card else None}
+                       "peak_mem_bytes": torch.cuda.max_memory_allocated()}
         log(f"[7] eval CLI: RTF {m['rtf']:.4f}, "
             f"{out['eval']['wall_per_utt_s']:.2f} s of decoding per "
             f"utterance, wall {wall:.1f} s (with loading), hypothesis "
@@ -1698,10 +1734,9 @@ def phase_cli(torch, device=None, extra_args=(), utts=CLI_UTTS,
             f"{m['n_utts']} utterances (random weights: the error rates "
             f"only show that the pipeline ran)")
         log(f"[7]   launches: {counts}")
-        expect(m["n_utts"] == utts["test"], f"{m['n_utts']} utterances")
+        expect(m["n_utts"] == CLI_UTTS["test"], f"{m['n_utts']} utterances")
         for name in CLI_EVAL_KERNELS:
-            expect(not on_card or counts[name] > 0,
-                   f"{name} never launched in the eval CLI")
+            expect(counts[name] > 0, f"{name} never launched in the eval CLI")
     return out
 
 
@@ -1756,7 +1791,10 @@ def main() -> int:
         torch, model, batch, torch.bfloat16, tag="6b")
     del model, batch
     torch.cuda.empty_cache()
+    t = time.perf_counter()
     cli = phase_cli(torch)
+    cli["phase_wall_s"] = time.perf_counter() - t
+    log(f"[7] phase 7 wall {cli['phase_wall_s']:.1f} s")
     # each kernel's launches from the main path it belongs to: the served
     # requests (K1, K2), the float32 training run (K1b, K3, K3b, K4) or
     # the bf16 training run (K1's and K1b's bf16 entries)

@@ -25,7 +25,8 @@ port's checkpoint is held to the JAX one with
 The eval CLIs are held to JAX's in ``test_torch_cli_eval.py``. Compile
 times are kept down by a JAX compilation cache in the test's own
 temporary directory (the JAX CLIs turn it on; NSP_COMPILE_CACHE points it
-there).
+there) and by running the JAX model's ``init`` under ``jax.jit``: one
+compile instead of one per op, which is most of an epoch's wall here.
 """
 import os
 import shutil
@@ -74,11 +75,23 @@ def _checkpoint(jdir, epoch):
                               ck["controller"])
 
 
+def _jitted_init(build):
+    """The JAX CLI's model builder, its model's ``init`` under ``jax.jit``."""
+    def wrapped(args):
+        model = build(args)
+        # flax modules are frozen dataclasses
+        object.__setattr__(model, "init", jax.jit(model.init))
+        return model
+    return wrapped
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     root = tmp_path_factory.mktemp("torch_cli")
     mp = pytest.MonkeyPatch()
     mp.setenv("NSP_COMPILE_CACHE", str(root / "xla_cache"))
+    mp.setattr(jax_train, "build_speech2text",
+               _jitted_init(jax_train.build_speech2text))
     try:
         corpus = make_ci_corpus(str(root / "corpus"), n_train=24, n_dev=8,
                                 n_test=4, max_words=3, seed=9)
