@@ -98,9 +98,9 @@ Phases (any failure raises and the script exits non-zero):
      K3b and K4 (both entries) must run in training, K1 and K2 in
      evaluation; every microstep's loss and each epoch's train and dev
      loss in ``history.csv`` must be finite; the widest microbatch the
-     train CLI ran (1664-frame pads: K1 / K1b bf16 at T = 832 / 416 / 208)
-     is held on the trained model to the plain versions as in phases 6
-     and 6b; wall per optimizer step, frames/s, peak memory, the
+     train CLI ran (1664-frame pads: K1 / K1b at T = 832 / 416 / 208) is
+     held on the trained model to the plain versions as in phase 6, in
+     float32; wall per optimizer step, frames/s, peak memory, the
      checkpoints' size and save time, RTF, decode wall per utterance, WER
      / CER (random weights: a sign that the pipeline ran, no more).
 
@@ -1416,7 +1416,7 @@ def phase_train_parity(torch, model, batch, tag="6"):
             "key_bias_leaves": dict(zero)}, (loss_ref, grads_ref)
 
 
-def phase_train_parity_bf16(torch, model, batch, plain32, tag="6b"):
+def phase_train_parity_bf16(torch, model, batch, plain32):
     """6b: one eval() microstep at bf16 compute through the kernels against
     the same microstep with the plain versions patched in (both bf16): each
     quantity's distance from phase 6's plain float32 microstep
@@ -1443,11 +1443,11 @@ def phase_train_parity_bf16(torch, model, batch, plain32, tag="6b"):
         leaves[name] = (err / tol if err else 0.0, err, plain_cost,
                         float(norm(g - ref)))
     ranked = sorted(leaves.items(), key=lambda kv: -kv[1][0])
-    log(f"[{tag}] bf16 eval loss kernels {loss:.6f} plain bf16 {loss16:.6f} "
+    log(f"[6b] bf16 eval loss kernels {loss:.6f} plain bf16 {loss16:.6f} "
         f"plain f32 {loss32:.6f}: |kernels - f32| {abs(loss - loss32):.3e} "
         f"against a tolerance of {loss_tol:.3e}")
     for name, (share, err, cost, between) in ranked[:6]:
-        log(f"[{tag}]   {name}: {share:.3f} of its tolerance (|kernels - f32| "
+        log(f"[6b]   {name}: {share:.3f} of its tolerance (|kernels - f32| "
             f"{err:.3e}, |plain bf16 - f32| {cost:.3e}, |kernels - plain "
             f"bf16| {between:.3e}, L2)")
     worst_name, (worst, _, _, _) = ranked[0]
@@ -1535,7 +1535,7 @@ def phase_cli(torch) -> dict:
     launch counts zeroed around each. Every microstep's loss and every
     epoch's train and dev loss must be finite, and the widest microbatch
     the train CLI ran (longest padded frames, then most utterances) is held
-    to the plain versions at phase 6's and 6b's tolerances on the trained
+    to the plain versions at phase 6's tolerance (float32) on the trained
     model: the kernels at the CLI's own shapes."""
     import csv
     import math
@@ -1578,7 +1578,8 @@ def phase_cli(torch) -> dict:
             steps.append((time.perf_counter() - t, bool(m["emitted"]),
                           int(xlens.sum()), int(xlens.numel()),
                           float(m["loss"])))
-            if not widest or xs.shape[:2] > widest[0].shape[:2]:
+            if not widest or (xs.shape[1], xs.shape[0]) > (
+                    widest[0].shape[1], widest[0].shape[0]):
                 widest[:] = (xs, xlens, ys, ylens)
             return m
 
@@ -1687,13 +1688,11 @@ def phase_cli(torch) -> dict:
         log(f"[7] microbatch held to the plain versions: B "
             f"{batch[0].shape[0]} x {batch[0].shape[1]} frames, U "
             f"{batch[2].shape[1]}")
-        parity, plain32 = phase_train_parity(torch, model, batch, tag="7")
-        parity_bf16 = phase_train_parity_bf16(torch, model, batch, plain32,
-                                              tag="7")
+        out["train_parity"], _ = phase_train_parity(torch, model, batch,
+                                                    tag="7")
         out["microbatch_shape"] = [list(batch[0].shape),
                                    list(batch[2].shape)]
-        out["train_parity"], out["train_parity_bf16"] = parity, parity_bf16
-        del model, batch, plain32
+        del model, batch
         widest.clear()
         torch.cuda.empty_cache()
 
