@@ -35,12 +35,17 @@
 // shared memory -> barrier, and the backward is one pass per frame (the
 // emission is added where beta is produced, not in a pass of its own).
 // The whole [B, T, S] alpha lattice is written for the backward (2.4 MB at
-// B = 32, T = 188, S = 201), fire and forget. In the backward every blank
-// state of an utterance adds into the same address grad[b, t, 0] (101 of
-// 201 states): their occupancies are summed inside each warp and added
-// once per warp and frame; the labels' go out as one atomicAdd each
-// (repeated labels meet at one address, nothing else does). 32 blocks
-// leave 100 SMs idle: latency, not occupancy, sets the time.
+// B = 32, T = 188, S = 201), fire and forget. The backward sums the states
+// that share a vocabulary id in a fixed order, so its gradient is the same
+// bits in every run (no float atomics): every blank state of an utterance
+// (101 of 201) meets at grad[b, t, 0], so their occupancies are summed
+// inside each warp by a fixed shuffle tree and each warp stores its sum to
+// the frame's scratch row; a label seen once stores its occupancy (no
+// other state writes that address); a repeated label stores its own to
+// the scratch row. After the last frame the eight warp sums of each frame
+// are added in warp order, and each repeated label's occurrences in label
+// order by the first of them.
+// 32 blocks leave 100 SMs idle: latency, not occupancy, sets the time.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -186,26 +191,46 @@ ctc_alpha_ahead(const float* __restrict__ lp, const int* __restrict__ labels,
   }
 }
 
-// shared layout: b0[S], b1[S]: beta + emission of the frame after, in turns
+// What a backward thread's state does with its occupancy: a blank (or a
+// label of id 0) joins the warp's blank sum; a label seen once in the
+// utterance stores it; a repeated label stores it to the scratch, where
+// after the last frame the first of the repeats (a head) adds them up.
+enum Role : int { kBlank, kSolo, kRepeat, kNone };
+
+constexpr int kWarps = kThreads / 32;
+
+// shared layout: b0[S], b1[S]: beta + emission of the frame after, in
+// turns; next[U] (int): the next occurrence of label u's id, -1 after the
+// last; heads[U] and their count (int): the first occurrences of repeated
+// ids. The scratch row of a frame (8 + U floats): each warp's blank sum,
+// then the repeated labels' occupancies.
 template <int SPT, int AHEAD>
 __global__ void __launch_bounds__(kThreads)
 ctc_beta_grad_ahead(const float* __restrict__ lp, const int* __restrict__ labels,
                     const int* __restrict__ tlens, const int* __restrict__ ulens,
                     const float* __restrict__ alphas, const float* __restrict__ nll,
-                    const float* __restrict__ g, float* __restrict__ grad, int T, int V, int U) {
+                    const float* __restrict__ g, float* __restrict__ grad,
+                    float* __restrict__ scratch, int T, int V, int U) {
   extern __shared__ float smem[];
-  const int S = 2 * U + 1;
+  const int S = 2 * U + 1, row = kWarps + U;
   float* cur = smem;   // beta_{t+1} + emit_{t+1}, what frame t reads
   float* nxt = cur + S;
-  const int b = blockIdx.x, tid = threadIdx.x;
+  int* next = reinterpret_cast<int*>(nxt + S);
+  int* heads = next + U;
+  int* n_heads = heads + U;
+  const int b = blockIdx.x, tid = threadIdx.x, warp = tid >> 5;
   const int tl = min(tlens[b], T);
   if (tl <= 0) return;
-  const int end = 2 * ulens[b], end1 = max(end - 1, 0);
+  if (tid == 0) *n_heads = 0;
+  const int ul = ulens[b];
+  const int end = 2 * ul, end1 = max(end - 1, 0);
   const float nllb = nll[b], gb = g[b];
   const float* lpb = lp + (size_t)b * T * V;
   const float* al = alphas + (size_t)b * T * S;
+  const int* lab = labels + (size_t)b * U;
   float* gr = grad + (size_t)b * T * V;
-  const States<SPT> st = thread_states<SPT>(labels + (size_t)b * U, U, V, false);
+  float* parts = scratch + (size_t)b * T * row;
+  const States<SPT> st = thread_states<SPT>(lab, U, V, false);
   // frame t's operands for the thread's states: their emissions and their
   // saved alphas (only the states up to `end` take part in the gradient)
   float ahead_em[AHEAD][SPT], ahead_al[AHEAD][SPT];
@@ -223,6 +248,29 @@ ctc_beta_grad_ahead(const float* __restrict__ lp, const int* __restrict__ labels
     }
   };
   load_group(tl - 1);
+  __syncthreads();  // n_heads is 0
+  // each label's role and the next occurrence of its id (labels u < ul),
+  // while the first frames' operands load; the heads listed (in any
+  // order: each adds its own id's column)
+  int role[SPT];
+#pragma unroll
+  for (int i = 0; i < SPT; ++i) {
+    const int s = tid + i * kThreads, u = s >> 1;
+    role[i] = (s > end || s >= S) ? kNone : (!(s & 1) || st.z[i] == 0) ? kBlank
+              : st.in[i] ? kSolo : kNone;
+    if (role[i] == kSolo) {
+      bool before = false;
+      int after = -1;
+      for (int v = 0; v < ul; ++v) {
+        if (v == u || lab[v] != st.z[i]) continue;
+        if (v < u) before = true;
+        else if (after < 0) after = v;
+      }
+      next[u] = after;
+      if (before || after >= 0) role[i] = kRepeat;
+      if (!before && after >= 0) heads[atomicAdd(n_heads, 1)] = u;
+    }
+  }
   for (int t0 = tl - 1; t0 >= 0; t0 -= AHEAD) {
     float em[AHEAD][SPT], av[AHEAD][SPT];
 #pragma unroll
@@ -237,7 +285,8 @@ ctc_beta_grad_ahead(const float* __restrict__ lp, const int* __restrict__ labels
     for (int f = 0; f < AHEAD; ++f) {
       const int t = t0 - f;
       if (t < 0) break;
-      float blank = 0.0f;  // the thread's blanks' occupancies
+      float* part = parts + (size_t)t * row;
+      float blank = 0.0f;  // the thread's blanks' occupancies, in state order
 #pragma unroll
       for (int i = 0; i < SPT; ++i) {
         const int s = tid + i * kThreads;
@@ -251,28 +300,44 @@ ctc_beta_grad_ahead(const float* __restrict__ lp, const int* __restrict__ labels
           beta = fmaxf(lse3(cur[s], c1, c2), kNegInf);
         }
         nxt[s] = beta + em[f][i];
-        if (s <= end) {
-          const float gam = -gb * __expf(fminf(av[f][i] + beta + nllb, 0.0f));
-          if (s & 1) {  // a label: repeated labels meet at one address
-            if (st.in[i]) atomicAdd(gr + (size_t)t * V + st.z[i], gam);
-          } else {
-            blank += gam;
-          }
-        }
+        if (role[i] == kNone) continue;
+        const float gam = -gb * __expf(fminf(av[f][i] + beta + nllb, 0.0f));
+        if (role[i] == kBlank) blank += gam;
+        else if (role[i] == kSolo) gr[(size_t)t * V + st.z[i]] = gam;
+        else part[kWarps + (s >> 1)] = gam;
       }
-      // every blank state of the utterance adds into gr[t, 0]: one add per
-      // warp, after a sum inside it
+      // the blanks: a fixed shuffle tree inside the warp, one store a warp
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1) blank += __shfl_xor_sync(0xffffffffu, blank, o);
-      if ((tid & 31) == 0 && blank != 0.0f) atomicAdd(gr + (size_t)t * V, blank);
+      if ((tid & 31) == 0) part[warp] = blank;
       __syncthreads();
       float* tmp = cur; cur = nxt; nxt = tmp;
+    }
+  }
+  __syncthreads();  // the scratch rows, next[] and heads[] are written
+  // a thread per frame: the warps' blank sums in warp order, then each
+  // repeated id's occurrences in label order
+  const int nh = *n_heads;
+  for (int t = tid; t < tl; t += kThreads) {
+    const float* part = parts + (size_t)t * row;
+    float sum = 0.0f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) sum += part[w];
+    gr[(size_t)t * V] = sum;
+    for (int h = 0; h < nh; ++h) {
+      const int u = heads[h];
+      sum = part[kWarps + u];
+      for (int v = next[u]; v >= 0; v = next[v]) sum += part[kWarps + v];
+      gr[(size_t)t * V + lab[u]] = sum;
     }
   }
 }
 
 // two rows of S floats: the current frame's and the next one's
 size_t smem_bytes(int U) { return (size_t)2 * (2 * U + 1) * sizeof(float); }
+
+// the backward's: the two rows, the labels' next occurrences and the heads
+size_t bwd_smem_bytes(int U) { return smem_bytes(U) + (size_t)(2 * U + 1) * sizeof(int); }
 
 }  // namespace
 
@@ -302,20 +367,27 @@ extern "C" int nsp_ctc_alpha_f32(const void* lp, const void* labels, const void*
 }
 
 // As above plus the saved alphas and nll, the upstream gradient g [B],
-// and grad [B, T, V], which must be zeroed: the kernel adds into it.
+// grad [B, T, V], which must be zeroed (the kernel writes only the ids the
+// labels and the blank emit, at frames t < T_b), and the scratch
+// [B, T, 8 + U]. Returns a cudaError_t.
 extern "C" int nsp_ctc_beta_grad_f32(const void* lp, const void* labels, const void* tlens,
                                      const void* ulens, const void* alphas, const void* nll,
-                                     const void* g, void* grad, int B, int T, int V, int U,
-                                     void* stream) {
+                                     const void* g, void* grad, void* scratch, int B, int T,
+                                     int V, int U, void* stream) {
   if (B <= 0 || T <= 0 || V <= 0 || U < 0) return (int)cudaErrorInvalidValue;
   const int S = 2 * U + 1;
   if (S > kMaxSpt * kThreads) return (int)cudaErrorInvalidValue;
+  const size_t smem = bwd_smem_bytes(U);
   auto launch = [&](auto kernel) {
-    kernel<<<B, kThreads, smem_bytes(U), static_cast<cudaStream_t>(stream)>>>(
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(lp), static_cast<const int*>(labels),
         static_cast<const int*>(tlens), static_cast<const int*>(ulens),
         static_cast<const float*>(alphas), static_cast<const float*>(nll),
-        static_cast<const float*>(g), static_cast<float*>(grad), T, V, U);
+        static_cast<const float*>(g), static_cast<float*>(grad),
+        static_cast<float*>(scratch), T, V, U);
     return (int)cudaGetLastError();
   };
   if (S <= kThreads) return launch(ctc_beta_grad_ahead<1, 8>);

@@ -15,10 +15,14 @@ and ``ctc_beta_grad_ahead``): a thread holds 1 to 16 states of the lattice
 shared memory with one barrier per frame, and the emissions (and saved
 alphas, in the backward) of the next frames are loaded ahead into
 registers, so that no frame waits for global memory. The backward is one
-pass per frame; it sums the blanks' occupancies inside each warp and adds
-them once per warp and frame, the labels' one ``atomicAdd`` each. It adds
-into a gradient that the wrapper zeroes: that memset is the loss's byte
-bound.
+pass per frame, and sums the states that share a vocabulary id in a fixed
+order, so that it gives the same bits in every run: the blanks'
+occupancies by a shuffle tree inside each warp, one store a warp into the
+frame's scratch row; a label seen once stores its own into the gradient;
+a repeated label into the scratch row. After the last frame the warps'
+sums are added in warp order and each repeated label's occurrences in
+label order. It writes into a gradient that the wrapper zeroes: that
+memset is the loss's byte bound.
 
 Plain PyTorch versions beside it: ``ctc_forward_alphas`` (the forward) and
 ``ctc_loss_bwd_ref`` with ``ctc_backward_betas`` (the backward, written
@@ -229,8 +233,12 @@ def ctc_loss_bwd(log_probs, labels, logit_lengths, label_lengths, nll,
     g = g.contiguous()
     check("g", g, (b,))
     grad = torch.zeros_like(log_probs)
+    # per frame: each of the 8 warps' sum of the blanks' occupancies, and
+    # the repeated labels' occupancies
+    scratch = torch.empty((b, t, 8 + u), dtype=torch.float32,
+                          device=log_probs.device)
     err = lib.nsp_ctc_beta_grad_f32(
-        *(x.data_ptr() for x in (*args, alphas, nll, g, grad)),
+        *(x.data_ptr() for x in (*args, alphas, nll, g, grad, scratch)),
         b, t, v, u, stream_of(log_probs))
     raise_on_error("ctc_loss_bwd", err)
     ctc_loss_bwd.launches += 1

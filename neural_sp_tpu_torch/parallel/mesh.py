@@ -16,9 +16,16 @@ K3b keep their softmaxes and state in float32).
 ``torch.autocast`` is not used: its per-op lists are not the JAX policy.
 It keeps some outputs in float32 (so bf16 would not flow through the
 model) and casts the weights again at every op that takes them.
+
+A microstep is the same bits in every run, as the JAX step is for a given
+key: the port's kernels sum in fixed orders, and the step selects cuDNN's
+deterministic algorithms (``deterministic_cudnn``), since its default
+weight-gradient convolutions for the front end's Conv2d add in an order
+that changes between runs.
 """
 from __future__ import annotations
 
+from contextlib import contextmanager
 from typing import Optional
 
 import torch
@@ -42,6 +49,18 @@ def compute_loss(model: nn.Module, compute_dtype: Optional[torch.dtype],
     loss, obs = functional_call(
         model, params, (xs.to(compute_dtype), xlens, ys, ylens, gen))
     return loss.float(), obs
+
+
+@contextmanager
+def deterministic_cudnn():
+    """``torch.backends.cudnn.deterministic`` inside, as it was after."""
+    cudnn = torch.backends.cudnn
+    before = cudnn.deterministic
+    cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        cudnn.deterministic = before
 
 
 class TrainStep:
@@ -71,9 +90,10 @@ class TrainStep:
                  gen: Optional[torch.Generator] = None) -> dict:
         for p in self.params:
             p.grad = None
-        loss, obs = compute_loss(self.model, self.compute_dtype, xs, xlens,
-                                 ys, ylens, gen)
-        loss.backward()
+        with deterministic_cudnn():
+            loss, obs = compute_loss(self.model, self.compute_dtype, xs,
+                                     xlens, ys, ylens, gen)
+            loss.backward()
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in self.params]
         metrics = {k: v.detach().float() for k, v in obs.items()

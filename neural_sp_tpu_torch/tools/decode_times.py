@@ -6,6 +6,7 @@ backward, in one process.
 
     python3 neural_sp_tpu_torch/tools/decode_times.py \
         [--root DIR] [--label NAME] [--iters N] [--tokens] [--only-k2]
+        [--only-k4]
 
 ``--root`` is the directory holding the ``neural_sp_tpu_torch`` package to
 time (default: this checkout), so that two commits unpacked side by side
@@ -40,7 +41,8 @@ plain call alone. What is measured, float32, TF32 off:
   weights let it end at once otherwise), to hold two checkouts' tokens
   against each other.
 
-``--only-k2`` stops after K2 alone (a quick look at a kernel change).
+``--only-k2`` stops after K2 alone, ``--only-k4`` times K4 alone (a
+quick look at a kernel change).
 Prints one JSON line, the card's name and power limit included.
 """
 from __future__ import annotations
@@ -65,6 +67,7 @@ def main() -> int:
     ap.add_argument("--iters", type=int, default=200)
     ap.add_argument("--tokens", action="store_true")
     ap.add_argument("--only-k2", action="store_true")
+    ap.add_argument("--only-k4", action="store_true")
     opts = ap.parse_args()
     sys.path.insert(0, str(opts.root.resolve()))
     import numpy as np
@@ -170,6 +173,61 @@ def main() -> int:
                ["nvidia-smi", "--query-gpu=name,power.limit",
                 "--format=csv,noheader"], capture_output=True,
                text=True).stdout.strip().splitlines()[0]}
+
+    # ---- K4 --------------------------------------------------------------
+    def k4_times() -> dict:
+        """K4 forward and backward at B = 32, T = 188, U = 100, V = 10000."""
+        b, tt, uu, vv = 32, 188, 100, 10000
+        lp = torch.log_softmax(randn(b, tt, vv, scale=2.0), -1)
+        labels = rng.integers(4, vv, (b, uu))
+        labels[:, 1] = labels[:, 0]
+        tl, ul = [tt - 2 * i for i in range(b)], [uu - (i % 9) for i in range(b)]
+        cargs = (lp, torch.from_numpy(labels.astype("int32")).to(dev),
+                 torch.tensor(tl, dtype=torch.int32, device=dev),
+                 torch.tensor(ul, dtype=torch.int32, device=dev))
+        g = torch.linspace(0.5, 1.5, b, device=dev)
+        nll_r, alphas_r = ctc.ctc_forward_alphas(*cargs)
+        nll, alphas = ctc.ctc_loss_fwd(*cargs)
+        grad = ctc.ctc_loss_bwd(*cargs, nll_r, alphas_r, g)
+        grad_r = ctc.ctc_loss_bwd_ref(*cargs, nll_r, alphas_r, g)
+        leaf = lp.detach().requires_grad_()
+        lib_loss = torch.nn.functional.ctc_loss(
+            leaf.transpose(0, 1), cargs[1], cargs[2], cargs[3], blank=0,
+            reduction="none")
+        iters = max(20, opts.iters // 4)
+        fwd_prof = device_profile(
+            lambda: [ctc.ctc_loss_fwd(*cargs) for _ in range(10)], per=10)
+        bwd_prof = device_profile(
+            lambda: [ctc.ctc_loss_bwd(*cargs, nll_r, alphas_r, g)
+                     for _ in range(10)], per=10)
+        fwd_cost = ctc.ctc_loss_cost(b, tt, uu, vv, tl, ul)
+        bwd_cost = ctc.ctc_loss_bwd_cost(b, tt, uu, vv, tl, ul)
+        return {
+            "shape": f"B{b} T{tt} U{uu} V{vv}",
+            "rel_err": {"nll": rel_err([nll], [nll_r]),
+                        "alphas": rel_err([alphas.clamp(min=-1e4)],
+                                          [alphas_r.clamp(min=-1e4)]),
+                        "grad": rel_err([grad], [grad_r])},
+            "fwd_ms": cuda_ms(lambda: ctc.ctc_loss_fwd(*cargs), iters),
+            "bwd_ms": cuda_ms(
+                lambda: ctc.ctc_loss_bwd(*cargs, nll_r, alphas_r, g), iters),
+            "memset_ms": cuda_ms(lambda: torch.zeros_like(lp), iters),
+            "fwd_kernels": fwd_prof["kernels"],
+            "bwd_kernels": bwd_prof["kernels"],
+            "library_fwd_ms": cuda_ms(
+                lambda: torch.nn.functional.ctc_loss(
+                    lp.transpose(0, 1), cargs[1], cargs[2], cargs[3], blank=0,
+                    reduction="none"), iters),
+            "library_bwd_ms": cuda_ms(
+                lambda: torch.autograd.grad(lib_loss, leaf, g,
+                                            retain_graph=True), iters),
+            "fwd_bound_ms": bound_ms(*fwd_cost, F32_SIMT_FLOPS)[0],
+            "bwd_bound_ms": bound_ms(*bwd_cost, F32_SIMT_FLOPS)[0]}
+
+    if opts.only_k4:
+        out["K4 ctc_loss"] = k4_times()
+        print(json.dumps(out))
+        return 0
 
     # ---- K2 alone ------------------------------------------------------
     kl = [T - 3 * i for i in range(N)]
@@ -345,53 +403,7 @@ def main() -> int:
         out["tokens"] = toks
     del model
 
-    # ---- K4 --------------------------------------------------------------
-    b, tt, uu, vv = 32, 188, 100, 10000
-    lp = torch.log_softmax(randn(b, tt, vv, scale=2.0), -1)
-    labels = rng.integers(4, vv, (b, uu))
-    labels[:, 1] = labels[:, 0]
-    tl, ul = [tt - 2 * i for i in range(b)], [uu - (i % 9) for i in range(b)]
-    cargs = (lp, torch.from_numpy(labels.astype("int32")).to(dev),
-             torch.tensor(tl, dtype=torch.int32, device=dev),
-             torch.tensor(ul, dtype=torch.int32, device=dev))
-    g = torch.linspace(0.5, 1.5, b, device=dev)
-    nll_r, alphas_r = ctc.ctc_forward_alphas(*cargs)
-    nll, alphas = ctc.ctc_loss_fwd(*cargs)
-    grad = ctc.ctc_loss_bwd(*cargs, nll_r, alphas_r, g)
-    grad_r = ctc.ctc_loss_bwd_ref(*cargs, nll_r, alphas_r, g)
-    leaf = lp.detach().requires_grad_()
-    lib_loss = torch.nn.functional.ctc_loss(
-        leaf.transpose(0, 1), cargs[1], cargs[2], cargs[3], blank=0,
-        reduction="none")
-    iters = max(20, opts.iters // 4)
-    fwd_prof = device_profile(
-        lambda: [ctc.ctc_loss_fwd(*cargs) for _ in range(10)], per=10)
-    bwd_prof = device_profile(
-        lambda: [ctc.ctc_loss_bwd(*cargs, nll_r, alphas_r, g)
-                 for _ in range(10)], per=10)
-    fwd_cost = ctc.ctc_loss_cost(b, tt, uu, vv, tl, ul)
-    bwd_cost = ctc.ctc_loss_bwd_cost(b, tt, uu, vv, tl, ul)
-    out["K4 ctc_loss"] = {
-        "shape": f"B{b} T{tt} U{uu} V{vv}",
-        "rel_err": {"nll": rel_err([nll], [nll_r]),
-                    "alphas": rel_err([alphas.clamp(min=-1e4)],
-                                      [alphas_r.clamp(min=-1e4)]),
-                    "grad": rel_err([grad], [grad_r])},
-        "fwd_ms": cuda_ms(lambda: ctc.ctc_loss_fwd(*cargs), iters),
-        "bwd_ms": cuda_ms(
-            lambda: ctc.ctc_loss_bwd(*cargs, nll_r, alphas_r, g), iters),
-        "memset_ms": cuda_ms(lambda: torch.zeros_like(lp), iters),
-        "fwd_kernels": fwd_prof["kernels"],
-        "bwd_kernels": bwd_prof["kernels"],
-        "library_fwd_ms": cuda_ms(
-            lambda: torch.nn.functional.ctc_loss(
-                lp.transpose(0, 1), cargs[1], cargs[2], cargs[3], blank=0,
-                reduction="none"), iters),
-        "library_bwd_ms": cuda_ms(
-            lambda: torch.autograd.grad(lib_loss, leaf, g,
-                                        retain_graph=True), iters),
-        "fwd_bound_ms": bound_ms(*fwd_cost, F32_SIMT_FLOPS)[0],
-        "bwd_bound_ms": bound_ms(*bwd_cost, F32_SIMT_FLOPS)[0]}
+    out["K4 ctc_loss"] = k4_times()
     print(json.dumps(out))
     return 0
 
