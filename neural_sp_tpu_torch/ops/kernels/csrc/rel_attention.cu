@@ -57,10 +57,11 @@
 // (rel_attention_common.cuh); k and v stream in tiles of 64 keys, 16-byte
 // pieces of eight bf16 by cp.async, through the same two-stage ring, with
 // no (hi, lo) split and no scratch; P feeds P v from registers. To round
-// P after the 1 / l it sweeps the keys twice (k alone for m and l, then k
-// and v), one q k^T product more than the float32 entry's single online
-// sweep. At B 32, H 8, T 750 the function's bound is 0.034 ms of products
-// at the bf16 tensor-core peak (989 TFLOP/s), below its 0.05 ms of bytes.
+// P after the 1 / l it sweeps the keys three times (k alone for m, k alone
+// for l, then k and v), two q k^T products more than the float32 entry's
+// single online sweep. At B 32, H 8, T 750 the function's bound is 0.034
+// ms of products at the bf16 tensor-core peak (989 TFLOP/s), below its
+// 0.05 ms of bytes.
 
 #include "rel_attention_common.cuh"
 
@@ -245,14 +246,21 @@ cudaError_t launch(const float* q, const float* k, const float* v, const float* 
 
 // The bf16 forward: one block of 4 warps per (64 queries, head, batch), as
 // the float32 kernel; q held as bf16 A fragments in registers, k and v
-// streamed in STEP-key bf16 tiles. Two sweeps over the key tiles through
-// one cp.async ring: the first reads k alone and takes each row's max m
-// and sum l, the second reads k and v, forms P = exp(s - m) / l, rounds it
-// to bf16 and accumulates P v. So P is rounded where the TPU kernel rounded
-// it, after the normalisation (`(e / sum(e)).astype(q.dtype)`); a single
-// online sweep would round exp(s - m) before the 1 / l, and with
-// near-uniform attention, where every P of a row rounds the same way, the
-// two points give coherently different outputs.
+// streamed in STEP-key bf16 tiles. Three sweeps over the key tiles through
+// one cp.async ring: the first reads k alone and takes each row's max m,
+// the second k alone and the sum l of exp(s - m) at that m, the third k and
+// v: it forms P = exp(s - m) / l, rounds it to bf16 and accumulates P v.
+// So P is rounded where the TPU kernel rounded it, after the normalisation
+// (`(e / sum(e)).astype(q.dtype)`); a single online sweep would round
+// exp(s - m) before the 1 / l, and with near-uniform attention, where every
+// P of a row rounds the same way, the two points give coherently different
+// outputs. And l is the sum of exactly the exponentials K1b recomputes from
+// m: an online l (rescaled as the running max grows) is off by a rounding
+// that points one way in every row, so K1b's P summed to 1 + eps, and
+// ds = P (dP - D) kept a residual D eps in each row that the attention
+// query and key gradients added up over all rows (at bf16, up to 2.7
+// times the plain path's distance from float32 on a ragged microbatch of
+// trained weights).
 template <int DK, int STEP>
 __global__ void __launch_bounds__(kThreads, 2)
 rel_attention_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -276,19 +284,19 @@ rel_attention_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int kend = (klen > 0) ? min(klen, T) : T;
   const int n_tiles = (kend + STEP - 1) / STEP;
 
-  // step `it` of the two sweeps: key tile it % n_tiles, its v in the second
+  // step `it` of the three sweeps: key tile it % n_tiles, its v in the third
   const auto load = [&](int it) {
     uint32_t* dst = ring + (it & 1) * 2 * kTile;
-    const int k0 = (it < n_tiles ? it : it - n_tiles) * STEP;
+    const int k0 = (it % n_tiles) * STEP;
     load_async<STEP, DK / 2, W>(dst, kb, k0, T);
-    if (it >= n_tiles) load_async<STEP, DK / 2, W>(dst + kTile, vb, k0, T);
+    if (it >= 2 * n_tiles) load_async<STEP, DK / 2, W>(dst + kTile, vb, k0, T);
   };
   // waits for step it's tiles, starts the next step's copy; returns the
   // stage holding step it's k (its v kTile words on)
   const auto advance = [&](int it) -> const uint32_t* {
     cp_async_wait_all();
     __syncthreads();  // step `it` has landed; every warp is done with it - 1
-    if (it + 1 < 2 * n_tiles) load(it + 1);
+    if (it + 1 < 3 * n_tiles) load(it + 1);
     cp_async_commit();
     return ring + (it & 1) * 2 * kTile;
   };
@@ -305,7 +313,7 @@ rel_attention_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   uint32_t qa[DK / 16][4];
   load_a_rows<DK>(qa, q + bh * T * DK, w0, T, g, t);
 
-  // first sweep: the row statistics
+  // first sweep: the row max; second: the sum of exp(s - max)
   float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.0f, 0.0f};
   for (int it = 0; it < n_tiles; ++it) {
     const uint32_t* ks = advance(it);
@@ -314,8 +322,26 @@ rel_attention_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int n = 0; n < STEP / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.0f;
     product_nt_bf16<DK, STEP / 8>(s, qa, ks, g, t);
     bias_tile(s, rows, far, prows, q0, w0, it * STEP, klen, T, R, t);
-    float alpha[2];
-    online_tile(s, m_run, l_run, alpha);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float tile_max = -INFINITY;
+#pragma unroll
+      for (int n = 0; n < STEP / 8; ++n)
+        tile_max = fmaxf(tile_max, fmaxf(s[n][2 * r], s[n][2 * r + 1]));
+      m_run[r] = fmaxf(m_run[r], quad_max(tile_max));
+    }
+  }
+  for (int it = 0; it < n_tiles; ++it) {
+    const uint32_t* ks = advance(n_tiles + it);
+    float s[STEP / 8][4];
+#pragma unroll
+    for (int n = 0; n < STEP / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.0f;
+    product_nt_bf16<DK, STEP / 8>(s, qa, ks, g, t);
+    bias_tile(s, rows, far, prows, q0, w0, it * STEP, klen, T, R, t);
+#pragma unroll
+    for (int n = 0; n < STEP / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) l_run[e >> 1] += __expf(s[n][e] - m_run[e >> 1]);
   }
   float inv[2];
 #pragma unroll
@@ -328,12 +354,12 @@ rel_attention_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
   }
 
-  // second sweep: P v with P normalised, then rounded to bf16
+  // third sweep: P v with P normalised, then rounded to bf16
   float acc[DK / 8][4];
 #pragma unroll
   for (int n = 0; n < DK / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
   for (int it = 0; it < n_tiles; ++it) {
-    const uint32_t* ks = advance(n_tiles + it);
+    const uint32_t* ks = advance(2 * n_tiles + it);
     float s[STEP / 8][4];
 #pragma unroll
     for (int n = 0; n < STEP / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.0f;

@@ -29,8 +29,9 @@ Both kernels have a bfloat16 entry too (``nsp_rel_attention_bf16``,
 one ``mma.sync m16n8k16`` bf16 product per 16-deep slice, float32
 accumulation, the scores and the softmax in float32, and the TPU kernel's
 rounding points: P normalised, then rounded to bf16 before P v
-(``aws.astype(q.dtype)``; the forward sweeps the keys twice, first for
-the row statistics), and P and ds before the dv, dq and dk products
+(``aws.astype(q.dtype)``; the forward sweeps the keys three times: the
+row max, the sum of the exponentials at that max, then P v), and P and ds
+before the dv, dq and dk products
 (``aws_lp`` / ``ds_lp``).
 o, dq, dk, dv and dp come out in the inputs' type; the row statistics m
 and l stay float32. The plain versions round at the same points when
