@@ -14,7 +14,8 @@ Phases (any failure raises and the script exits non-zero):
      ragged lengths; K2 las_step: N=10, 4 and 40 rows at T=200, as the three
      served sessions give it, and N=10 at T=400, the checked call and the
      workspace form a decode loop uses, each with and without a beam's
-     reorder ``parent``, the two forms equal bit for bit),
+     reorder ``parent``, the two forms equal bit for bit; and N=32 at
+     T=188 with a dropout scale ``keep``, scheduled sampling's pass 1),
      TF32 off, and time kernel and twin with CUDA events; K1 also against
      its library yardstick, ``F.scaled_dot_product_attention`` with the
      rel-PE bias as an additive mask (efficient backend), timed in turns
@@ -78,12 +79,17 @@ Phases (any failure raises and the script exits non-zero):
      times the JAX step): K1's and K1b's bf16 entries, K3, K3b and K4 must
      have run, and no float32 K1 / K1b;
   6. one microstep's loss and every gradient in ``eval()`` mode with the
-     kernels against the plain versions patched in;
+     kernels against the plain versions patched in; then one ``train()``
+     microstep run twice from one generator seed, in float32 and at bf16
+     compute: the losses and every gradient leaf must be the same bits;
   6b. the same at bf16 compute: the kernels' loss and each gradient leaf
      no farther from the plain f32 microstep than twice the plain bf16
      microstep, plus phase 6's tolerance, in the L2 norm; then
      5 Adam steps (lr 1e-4) on a fixed batch of 8 utterances in
-     ``train()`` mode, in float32 and at bf16, whose loss must fall;
+     ``train()`` mode, in float32 and at bf16, whose loss must fall; then
+     (5s) at phase 5's shape a float32 microstep with scheduled sampling
+     (ss_prob 0.2) and one without, in turns, and pass 1 alone under the
+     profiler (device time, kernels, K2 steps);
   7. the CLIs, as a user runs them, on the LibriSpeech Conformer-LAS conf
      (``CLI_CONF``: 12 x d512 conformer, LSTM-1024 LAS, CTC fc 512,
      ``ctc_lsm_prob`` 0.1, weight decay 1e-6, bf16 compute) at full width
@@ -98,17 +104,30 @@ Phases (any failure raises and the script exits non-zero):
      K3b and K4 (both entries) must run in training, K1 and K2 in
      evaluation; every microstep's loss and each epoch's train and dev
      loss in ``history.csv`` must be finite; the widest microbatch the
-     train CLI ran (1664-frame pads: K1 / K1b at T = 832 / 416 / 208) is
-     held on the trained model to the plain versions as in phase 6, in
-     float32; wall per optimizer step, frames/s, peak memory, the
+     train CLI ran (1664-frame pads: K1 / K1b at T = 832 / 416 / 208) and
+     the one of most utterances are held on the trained model to the plain
+     versions as in phase 6 in float32, and by phase 6b's rule at bf16;
+     wall per optimizer step, frames/s, peak memory, the
      checkpoints' size and save time, RTF, decode wall per utterance, WER
-     / CER (random weights: a sign that the pipeline ran, no more).
+     / CER (random weights: a sign that the pipeline ran, no more);
+  7b. the train CLI on the North star's reference conf (``SS_CONF``:
+     phase 7's model with ss_prob 0.2, float32, noam) at full width and
+     depth on phase 7's corpus, overrides ``SS_OVERRIDES`` (2 epochs, 2
+     accumulated microsteps, the word unit, the switch to SGD after epoch
+     1); counts zeroed around it: K1 / K1b, K2 (pass 1), K3 / K3b (pass
+     2) and K4 must run; every loss finite; the sampled share of the valid
+     positions within 4 binomial standard deviations of 0.2; epoch 2 SGD
+     at every microstep, its first update -1e-4 times the clipped gradient
+     to within one f32 spacing of each parameter; then the widest
+     microbatch on the trained weights, sampling on, kernels against the
+     plain versions (K2 in pass 1 too) at phase 6's tolerance.
 
 Launches per step (per encode for K1, per decode step for K2, per training
 microstep for the rest; K1 / K1b bf16 in phase 5's bf16 run) are counted
 in phases 3b, 4 and 5; K1's and K2's launches on the main path over the
 served requests of phases 3 and 3c; each kernel's launches in phase 7's
-three CLI runs apart (``cli_launches``). Prints the
+three CLI runs and phase 7b's apart (``cli_launches``), K2's per
+training microstep (``train_launches_per_microstep``). Prints the
 details as JSON (also written to ``chiprun_out/chip_smoke.json``), then one
 JSON line of per-kernel results (launches, launches_per_step, ms,
 plain_ms, bound_ms, bound_by, library_ms, errors), the card's ``name,
@@ -122,6 +141,7 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 from unittest import mock
@@ -180,6 +200,12 @@ BF16_VS_F32_RATIO = 1.5
 # H100 with K1 rounding P where the plain version does; 1.1 when K1
 # rounded it before the 1 / l, its error then up to 3x the plain one's).
 BF16_PATH_FACTOR = 2.0
+# Phase 6's determinism check: one train() microstep run twice from one
+# generator seed must give the same loss and gradient leaves bit for bit,
+# in float32 and at bf16 compute, with no bound: no source of drift is
+# kept. K4's backward sums the states that share an id in a fixed order,
+# K1b and K3b add in a fixed order, and cuBLAS and cuDNN gave the same bits
+# twice on the H100 (tools/train_diagnosis.py determinism).
 
 
 def log(msg: str) -> None:
@@ -360,8 +386,12 @@ def phase_kernels(torch, rng):
 
     hd, d, a, c, kw = 1024, 512, 512, 10, 201
     # the rows the served sessions give it: 10 (beam 10 of one utterance),
-    # 4 (greedy, the batch) and 40 (the on-device beam over the batch)
-    for n, tt in ((10, 200), (4, 200), (40, 200), (10, 400)):
+    # 4 (greedy, the batch) and 40 (the on-device beam over the batch); and
+    # scheduled sampling's pass 1 over a training microbatch (32 rows, T
+    # 188, the LSTM output's dropout scale as keep)
+    for n, tt in ((10, 200), (4, 200), (40, 200), (10, 400), (32, 188)):
+        keep = (torch.from_numpy((rng.random((n, hd)) >= 0.1).astype(
+            "float32")) / 0.9).to(dev) if n == 32 else None
         aw_prev = torch.softmax(t(n, tt, scale=3.0), -1)
         args = (t(n, 4 * hd, scale=0.5), t(n, d), t(n, hd, scale=0.5),
                 t(n, hd), aw_prev, t(d, 4 * hd, scale=(d + hd) ** -0.5),
@@ -380,24 +410,27 @@ def phase_kernels(torch, rng):
             rng.integers(0, n, n).astype("int32")).to(dev)
         err = 0.0
         for par in (None, parent):
-            refs = las_step_ref(*args, parent=par)
-            outs = las_step(*args, parent=par)
+            refs = las_step_ref(*args, parent=par, keep=keep)
+            outs = las_step(*args, parent=par, keep=keep)
             ws.load_carry(*args[1:5])
             ws.eg.copy_(args[0])
             if par is not None:
                 ws.parent.copy_(par)
-            stepped = ws.step(use_parent=par is not None)
+            stepped = ws.step(use_parent=par is not None, keep=keep)
             err = max(err, *(max_err(x, y) for x, y in zip(outs, refs)))
             expect(all(torch.equal(x, y) for x, y in zip(stepped, outs)),
                    f"K2 N={n} T={tt}: the workspace form differs from the "
                    f"call")
         per_step = las_step.kernels_per_step
-        ms = cuda_ms(lambda: ws.step(use_parent=True), iters=200)
-        call_ms = cuda_ms(lambda: las_step(*args, parent=parent), iters=200)
-        ref_ms = cuda_ms(lambda: las_step_ref(*args, parent=parent))
+        ms = cuda_ms(lambda: ws.step(use_parent=True, keep=keep), iters=200)
+        call_ms = cuda_ms(lambda: las_step(*args, parent=parent, keep=keep),
+                          iters=200)
+        ref_ms = cuda_ms(lambda: las_step_ref(*args, parent=parent,
+                                              keep=keep))
         bound = roofline(las_step_cost(n, tt, hd, d, a, c, kw,
                                        args[-1].tolist()))
-        log(f"[2] K2 las_step N={n} T={tt} H={hd} D={d} A={a} C={c} K={kw}: "
+        log(f"[2] K2 las_step N={n} T={tt} H={hd} D={d} A={a} C={c} K={kw}"
+            f"{' with keep' if keep is not None else ''}: "
             f"max_abs_err {err:.3e}  kernel {ms:.4f} ms through its "
             f"workspace, {call_ms:.4f} ms as a checked call, {per_step} "
             f"kernels per step  twin {ref_ms:.4f} ms  bound "
@@ -406,7 +439,8 @@ def phase_kernels(torch, rng):
                f"K2 N={n} T={tt}: error {err} > {KERNEL_ATOL}")
         row = res["las_step"]
         row["max_abs_err"] = max(row["max_abs_err"], err)
-        shape = {"shape": f"N={n} T={tt}", "max_abs_err": err, "ms": ms,
+        shape = {"shape": f"N={n} T={tt}", "keep": keep is not None,
+                 "max_abs_err": err, "ms": ms,
                  "checked_call_ms": call_ms, "kernels_per_step": per_step,
                  "plain_ms": ref_ms, **bound}
         row.setdefault("shapes", []).append(shape)
@@ -1349,26 +1383,31 @@ def plain_rel_attention(torch):
     return Plain.apply
 
 
-def eval_microstep(torch, model, batch, compute_dtype=None, plain=False):
-    """One ``eval()`` microstep under ``compute_dtype`` (None: float32):
-    (loss, {leaf: gradient}), through the kernels or, with ``plain``, the
-    plain versions patched in (K1 / K1b: ``plain_rel_attention``; K3 / K3b:
-    ``PlainLASScan``; K4: autograd through its plain forward)."""
-    from contextlib import ExitStack
+def plain_patches(torch):
+    """(module, name, plain version) of the training kernels: K1 / K1b
+    (``plain_rel_attention``), K3 / K3b (``PlainLASScan``) and K4 (autograd
+    through its plain forward)."""
     from neural_sp_tpu_torch.models.decoders import las
     from neural_sp_tpu_torch.models.modules import \
         relative_multihead_attention as rma
     from neural_sp_tpu_torch.ops import ctc
     from neural_sp_tpu_torch.ops.kernels.ctc_loss import ctc_forward_alphas
+    return ((rma, "rel_attention", plain_rel_attention(torch)),
+            (las, "LASScan", PlainLASScan),
+            (ctc, "ctc_nll", lambda *a: ctc_forward_alphas(*a)[0]))
+
+
+def eval_microstep(torch, model, batch, compute_dtype=None, plain=False):
+    """One ``eval()`` microstep under ``compute_dtype`` (None: float32):
+    (loss, {leaf: gradient}), through the kernels or, with ``plain``, the
+    plain versions patched in (``plain_patches``)."""
+    from contextlib import ExitStack
     from neural_sp_tpu_torch.parallel.mesh import compute_loss
     model.eval()
     model.zero_grad(set_to_none=True)
     with ExitStack() as stack:
         if plain:
-            for target, name, value in (
-                    (rma, "rel_attention", plain_rel_attention(torch)),
-                    (las, "LASScan", PlainLASScan),
-                    (ctc, "ctc_nll", lambda *a: ctc_forward_alphas(*a)[0])):
+            for target, name, value in plain_patches(torch):
                 stack.enter_context(mock.patch.object(target, name, value))
         loss, _ = compute_loss(model, compute_dtype, *batch)
         loss.backward()
@@ -1383,6 +1422,14 @@ def phase_train_parity(torch, model, batch, tag="6"):
     gradients), phase 6b's float32 reference."""
     loss, grads = eval_microstep(torch, model, batch)
     loss_ref, grads_ref = eval_microstep(torch, model, batch, plain=True)
+    return hold_microstep(loss, grads, loss_ref, grads_ref, tag), \
+        (loss_ref, grads_ref)
+
+
+def hold_microstep(loss, grads, loss_ref, grads_ref, tag) -> dict:
+    """Phase 6's rule: the kernels' microstep (loss, gradients) against the
+    plain versions' to LOSS_RTOL and, per leaf, GRAD_RTOL of its own max
+    (the key biases: GRAD_FLOOR of the largest gradient)."""
     loss_err = abs(loss - loss_ref) / abs(loss_ref)
     g_max = max(float(g.abs().max()) for g in grads_ref.values())
     # per leaf: (share of its tolerance used, max |plain grad| / g_max,
@@ -1397,7 +1444,7 @@ def phase_train_parity(torch, model, batch, tag="6"):
                         err / g_max)
     ranked = sorted(leaves.items(), key=lambda kv: -kv[1][0])
     zero = [kv for kv in ranked if kv[0].endswith(ZERO_GRAD_LEAF)]
-    log(f"[{tag}] eval loss kernels {loss:.6f} plain {loss_ref:.6f} (rel "
+    log(f"[{tag}] loss kernels {loss:.6f} plain {loss_ref:.6f} (rel "
         f"{loss_err:.2e}); largest gradient {g_max:.4e}")
     log(f"[{tag}] {len(leaves) - len(zero)} leaves held to {GRAD_RTOL} of "
         f"their own max (no absolute floor), {len(zero)} key-bias leaves to "
@@ -1413,10 +1460,43 @@ def phase_train_parity(torch, model, batch, tag="6"):
     expect(worst <= 1.0, f"gradient {worst_name} outside tolerance")
     return {"loss_rel_err": loss_err, "worst_grad": worst,
             "worst_grad_leaf": worst_name, "worst_leaves": dict(ranked[:6]),
-            "key_bias_leaves": dict(zero)}, (loss_ref, grads_ref)
+            "key_bias_leaves": dict(zero)}
 
 
-def phase_train_parity_bf16(torch, model, batch, plain32):
+def phase_determinism(torch, model, batch) -> dict:
+    """6: one train() microstep twice, from a generator of one seed each
+    time (the same dropout, SpecAugment and sampling draws), in float32
+    and at bf16 compute: the losses and every gradient leaf must be the
+    same bits (DETERMINISTIC)."""
+    from neural_sp_tpu_torch.parallel.mesh import (compute_loss,
+                                                   deterministic_cudnn)
+    model.train()
+    out = {}
+    for tag, dtype in (("float32", None), ("bfloat16", torch.bfloat16)):
+        runs = []
+        for _ in range(2):
+            model.zero_grad(set_to_none=True)
+            with deterministic_cudnn():     # as the train step runs
+                loss, _ = compute_loss(model, dtype, *batch,
+                                       torch.Generator().manual_seed(SEED))
+                loss.backward()
+            runs.append((loss.detach().float(), {
+                n: p.grad.detach().clone()
+                for n, p in model.named_parameters()}))
+        model.zero_grad(set_to_none=True)
+        (la, ga), (lb, gb) = runs
+        differ = [n for n in ga if not torch.equal(ga[n], gb[n])]
+        out[tag] = {"loss_equal": bool(torch.equal(la, lb)),
+                    "leaves": len(ga), "leaves_differ": differ}
+        log(f"[6] {tag} microstep twice: loss {float(la):.6f} "
+            f"{'==' if out[tag]['loss_equal'] else '!='} {float(lb):.6f}; "
+            f"{len(differ)} of {len(ga)} gradient leaves differ")
+        expect(out[tag]["loss_equal"] and not differ,
+               f"{tag} microstep is not the same bits twice: {differ[:6]}")
+    return out
+
+
+def phase_train_parity_bf16(torch, model, batch, plain32, tag="6b"):
     """6b: one eval() microstep at bf16 compute through the kernels against
     the same microstep with the plain versions patched in (both bf16): each
     quantity's distance from phase 6's plain float32 microstep
@@ -1443,11 +1523,11 @@ def phase_train_parity_bf16(torch, model, batch, plain32):
         leaves[name] = (err / tol if err else 0.0, err, plain_cost,
                         float(norm(g - ref)))
     ranked = sorted(leaves.items(), key=lambda kv: -kv[1][0])
-    log(f"[6b] bf16 eval loss kernels {loss:.6f} plain bf16 {loss16:.6f} "
+    log(f"[{tag}] bf16 eval loss kernels {loss:.6f} plain bf16 {loss16:.6f} "
         f"plain f32 {loss32:.6f}: |kernels - f32| {abs(loss - loss32):.3e} "
         f"against a tolerance of {loss_tol:.3e}")
     for name, (share, err, cost, between) in ranked[:6]:
-        log(f"[6b]   {name}: {share:.3f} of its tolerance (|kernels - f32| "
+        log(f"[{tag}]   {name}: {share:.3f} of its tolerance (|kernels - f32| "
             f"{err:.3e}, |plain bf16 - f32| {cost:.3e}, |kernels - plain "
             f"bf16| {between:.3e}, L2)")
     worst_name, (worst, _, _, _) = ranked[0]
@@ -1528,19 +1608,20 @@ def synth_corpus(root: Path, utts: dict, vocab: int, frames=(700, 1600),
     return paths
 
 
-def phase_cli(torch) -> dict:
+def phase_cli(torch, root: Path, corpus: dict) -> dict:
     """7: the train CLI (two epochs, then a third resumed) and the eval CLI
     (beam 10 + CTC 0.3 + RNNLM 0.5, 2 averaged epochs) on the LibriSpeech
-    conf and a synthesized corpus, through their ``main`` entry points,
-    launch counts zeroed around each. Every microstep's loss and every
-    epoch's train and dev loss must be finite, and the widest microbatch
-    the train CLI ran (longest padded frames, then most utterances) is held
-    to the plain versions at phase 6's tolerance (float32) on the trained
-    model: the kernels at the CLI's own shapes."""
+    conf and the synthesized ``corpus`` (``synth_corpus`` under ``root``),
+    through their ``main`` entry points, launch counts zeroed around each.
+    Every microstep's loss and every epoch's train and dev loss must be
+    finite, and the widest microbatch the train CLI ran (longest padded
+    frames, then most utterances) and the one of most utterances are held
+    to the plain versions on the trained model at phase 6's tolerance in
+    float32 and by phase 6b's rule at bf16: the kernels at the CLI's own
+    shapes."""
     import csv
     import math
     import os
-    import tempfile
     from types import SimpleNamespace
     from neural_sp_tpu_torch.bin.args import save_config
     from neural_sp_tpu_torch.bin.asr import eval as cli_eval
@@ -1555,187 +1636,509 @@ def phase_cli(torch) -> dict:
     sync = torch.cuda.synchronize
     out = {"conf": CLI_CONF, "overrides": list(CLI_OVERRIDES),
            "utterances": CLI_UTTS, "vocab": CLI_VOCAB}
-    with tempfile.TemporaryDirectory(prefix="nsp_cli_") as tmp:
-        root = Path(tmp)
-        t0 = time.perf_counter()
-        corpus = synth_corpus(root / "data", CLI_UTTS, CLI_VOCAB)
-        out["corpus_s"] = time.perf_counter() - t0
-        exp = str(root / "exp")
-        data = ["--train_set", corpus["train"], "--dev_set", corpus["dev"],
-                "--dict", corpus["dict"], "--model_save_dir", exp]
+    exp = str(root / "exp")
+    data = ["--train_set", corpus["train"], "--dev_set", corpus["dev"],
+            "--dict", corpus["dict"], "--model_save_dir", exp]
 
-        # each microstep and checkpoint save timed (the CLI reads every
-        # step's loss on the host, so the sync costs it nothing more); the
-        # widest microbatch kept
-        steps, saves, widest = [], [], []
-        orig_call, orig_save = TrainStep.__call__, cli_train.save_checkpoint
+    # each microstep and checkpoint save timed (the CLI reads every
+    # step's loss on the host, so the sync costs it nothing more); the
+    # widest microbatch (by padded frames) and the one of most utterances
+    # kept
+    steps, saves, widest, most = [], [], [], []
+    orig_call, orig_save = TrainStep.__call__, cli_train.save_checkpoint
 
-        def timed_call(self, xs, xlens, ys, ylens, *a, **kw):
+    def timed_call(self, xs, xlens, ys, ylens, *a, **kw):
+        sync()
+        t = time.perf_counter()
+        m = orig_call(self, xs, xlens, ys, ylens, *a, **kw)
+        sync()
+        steps.append((time.perf_counter() - t, bool(m["emitted"]),
+                      int(xlens.sum()), int(xlens.numel()),
+                      float(m["loss"])))
+        if not widest or (xs.shape[1], xs.shape[0]) > (
+                widest[0].shape[1], widest[0].shape[0]):
+            widest[:] = (xs, xlens, ys, ylens)
+        if not most or (xs.shape[0], xs.shape[1]) > (
+                most[0].shape[0], most[0].shape[1]):
+            most[:] = (xs, xlens, ys, ylens)
+        return m
+
+    def timed_save(*a, **kw):
+        t = time.perf_counter()
+        path = orig_save(*a, **kw)
+        saves.append((time.perf_counter() - t, os.path.getsize(path)))
+        return path
+
+    runs = []
+    with mock.patch.object(TrainStep, "__call__", timed_call), \
+            mock.patch.object(cli_train, "save_checkpoint", timed_save):
+        for resume in ((), ("--resume", f"{exp}/ckpt.epoch-2",
+                            "--n_epochs", "3")):
+            steps.clear()
+            torch.cuda.reset_peak_memory_stats()
             sync()
+            reset_launches()
             t = time.perf_counter()
-            m = orig_call(self, xs, xlens, ys, ylens, *a, **kw)
+            cli_train.main(["--config", str(ROOT / CLI_CONF)] + data +
+                           list(CLI_OVERRIDES) + list(resume))
             sync()
-            steps.append((time.perf_counter() - t, bool(m["emitted"]),
-                          int(xlens.sum()), int(xlens.numel()),
-                          float(m["loss"])))
-            if not widest or (xs.shape[1], xs.shape[0]) > (
-                    widest[0].shape[1], widest[0].shape[0]):
-                widest[:] = (xs, xlens, ys, ylens)
-            return m
+            wall = time.perf_counter() - t
+            counts = launches()
+            emitted = [s for s in steps if s[1]]
+            # one optimizer step: the microsteps of its cycle
+            cycles, cur = [], 0.0
+            for s in steps:
+                cur += s[0]
+                if s[1]:
+                    cycles.append(cur)
+                    cur = 0.0
+            run = {"wall_s": wall, "microsteps": len(steps),
+                   "optimizer_steps": len(emitted),
+                   "microstep_s": [s[0] for s in steps],
+                   "microstep_utts": [s[3] for s in steps],
+                   "microstep_loss": [s[4] for s in steps],
+                   "ms_per_optimizer_step": 1e3 * sum(cycles) /
+                   max(len(cycles), 1),
+                   "frames_per_s": sum(s[2] for s in steps) /
+                   sum(s[0] for s in steps),
+                   # without the run's first cycle (its first microstep
+                   # meets each new shape's library set-up)
+                   "ms_per_optimizer_step_after_first": 1e3 * sum(
+                       cycles[1:]) / max(len(cycles) - 1, 1),
+                   "frames_per_s_after_first": sum(
+                       s[2] for s in steps[2:]) / sum(
+                       s[0] for s in steps[2:]),
+                   "launches": counts,
+                   "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+            runs.append(run)
+            log(f"[7] train CLI{' (resumed)' if resume else ''}: "
+                f"{run['microsteps']} microsteps, "
+                f"{run['optimizer_steps']} optimizer steps, "
+                f"{run['ms_per_optimizer_step']:.1f} ms per optimizer "
+                f"step ({run['ms_per_optimizer_step_after_first']:.1f} "
+                f"after the first), {run['frames_per_s']:.0f} frames/s "
+                f"({run['frames_per_s_after_first']:.0f}), wall "
+                f"{wall:.1f} s, peak mem {run['peak_mem_bytes']} B")
+            log(f"[7]   microstep losses "
+                f"{['%.3f' % x for x in run['microstep_loss']]}")
+            log(f"[7]   launches: {counts}")
+            expect(all(map(math.isfinite, run["microstep_loss"])),
+                   f"train CLI losses {run['microstep_loss']}")
+            for name in CLI_TRAIN_KERNELS:
+                expect(counts[name] > 0,
+                       f"{name} never launched in the train CLI")
+            expect(counts["rel_attention_bwd"] == 0,
+                   "the bf16 train CLI launched the float32 K1b")
+    out["train"], out["train_resumed"] = runs
+    out["checkpoint_save_s"] = [s for s, _ in saves]
+    out["checkpoint_bytes"] = saves[-1][1]
+    log(f"[7] checkpoints: {saves[-1][1]} B each, saved in "
+        f"{['%.2f' % s for s, _ in saves]} s")
+    # the epochs' mean train and dev losses, as history.csv keeps them
+    with open(f"{exp}/history.csv") as f:
+        history = [(int(r["epoch"]), float(r["train_loss"]),
+                    float(r["dev_loss_mean"])) for r in csv.DictReader(f)]
+    out["history"] = history
+    log(f"[7] history.csv (epoch, train loss, dev loss): {history}")
+    expect([e for e, _, _ in history] == [1, 2, 3] and all(
+        math.isfinite(x) for _, *losses in history for x in losses),
+        f"history.csv {history}")
+    ck2 = load_checkpoint(f"{exp}/ckpt.epoch-2")
+    ck3 = load_checkpoint(f"{exp}/ckpt.epoch-3")
+    expect(ck3["controller"]["epoch"] == 3,
+           f"resumed controller epoch {ck3['controller']['epoch']}")
+    expect(ck3["optimizer"]["count"] == ck2["optimizer"]["count"] +
+           runs[1]["optimizer_steps"] and
+           runs[1]["optimizer_steps"] > 0,
+           f"Adam count {ck2['optimizer']['count']} -> "
+           f"{ck3['optimizer']['count']} over "
+           f"{runs[1]['optimizer_steps']} resumed updates")
+    expect(len(ck3["controller"]["topk"]) == 3,
+           f"resumed controller's epochs {ck3['controller']['topk']}")
+    out["adam_count"] = [ck2["optimizer"]["count"],
+                         ck3["optimizer"]["count"]]
+    log(f"[7] resumed: controller epoch 2 -> 3, Adam count "
+        f"{out['adam_count'][0]} -> {out['adam_count'][1]}")
+    del ck2, ck3
 
-        def timed_save(*a, **kw):
-            t = time.perf_counter()
-            path = orig_save(*a, **kw)
-            saves.append((time.perf_counter() - t, os.path.getsize(path)))
-            return path
-
-        runs = []
-        with mock.patch.object(TrainStep, "__call__", timed_call), \
-                mock.patch.object(cli_train, "save_checkpoint", timed_save):
-            for resume in ((), ("--resume", f"{exp}/ckpt.epoch-2",
-                                "--n_epochs", "3")):
-                steps.clear()
-                torch.cuda.reset_peak_memory_stats()
-                sync()
-                reset_launches()
-                t = time.perf_counter()
-                cli_train.main(["--config", str(ROOT / CLI_CONF)] + data +
-                               list(CLI_OVERRIDES) + list(resume))
-                sync()
-                wall = time.perf_counter() - t
-                counts = launches()
-                emitted = [s for s in steps if s[1]]
-                # one optimizer step: the microsteps of its cycle
-                cycles, cur = [], 0.0
-                for s in steps:
-                    cur += s[0]
-                    if s[1]:
-                        cycles.append(cur)
-                        cur = 0.0
-                run = {"wall_s": wall, "microsteps": len(steps),
-                       "optimizer_steps": len(emitted),
-                       "microstep_s": [s[0] for s in steps],
-                       "microstep_utts": [s[3] for s in steps],
-                       "microstep_loss": [s[4] for s in steps],
-                       "ms_per_optimizer_step": 1e3 * sum(cycles) /
-                       max(len(cycles), 1),
-                       "frames_per_s": sum(s[2] for s in steps) /
-                       sum(s[0] for s in steps),
-                       # without the run's first cycle (its first microstep
-                       # meets each new shape's library set-up)
-                       "ms_per_optimizer_step_after_first": 1e3 * sum(
-                           cycles[1:]) / max(len(cycles) - 1, 1),
-                       "frames_per_s_after_first": sum(
-                           s[2] for s in steps[2:]) / sum(
-                           s[0] for s in steps[2:]),
-                       "launches": counts,
-                       "peak_mem_bytes": torch.cuda.max_memory_allocated()}
-                runs.append(run)
-                log(f"[7] train CLI{' (resumed)' if resume else ''}: "
-                    f"{run['microsteps']} microsteps, "
-                    f"{run['optimizer_steps']} optimizer steps, "
-                    f"{run['ms_per_optimizer_step']:.1f} ms per optimizer "
-                    f"step ({run['ms_per_optimizer_step_after_first']:.1f} "
-                    f"after the first), {run['frames_per_s']:.0f} frames/s "
-                    f"({run['frames_per_s_after_first']:.0f}), wall "
-                    f"{wall:.1f} s, peak mem {run['peak_mem_bytes']} B")
-                log(f"[7]   microstep losses "
-                    f"{['%.3f' % x for x in run['microstep_loss']]}")
-                log(f"[7]   launches: {counts}")
-                expect(all(map(math.isfinite, run["microstep_loss"])),
-                       f"train CLI losses {run['microstep_loss']}")
-                for name in CLI_TRAIN_KERNELS:
-                    expect(counts[name] > 0,
-                           f"{name} never launched in the train CLI")
-                expect(counts["rel_attention_bwd"] == 0,
-                       "the bf16 train CLI launched the float32 K1b")
-        out["train"], out["train_resumed"] = runs
-        out["checkpoint_save_s"] = [s for s, _ in saves]
-        out["checkpoint_bytes"] = saves[-1][1]
-        log(f"[7] checkpoints: {saves[-1][1]} B each, saved in "
-            f"{['%.2f' % s for s, _ in saves]} s")
-        # the epochs' mean train and dev losses, as history.csv keeps them
-        with open(f"{exp}/history.csv") as f:
-            history = [(int(r["epoch"]), float(r["train_loss"]),
-                        float(r["dev_loss_mean"])) for r in csv.DictReader(f)]
-        out["history"] = history
-        log(f"[7] history.csv (epoch, train loss, dev loss): {history}")
-        expect([e for e, _, _ in history] == [1, 2, 3] and all(
-            math.isfinite(x) for _, *losses in history for x in losses),
-            f"history.csv {history}")
-        ck2 = load_checkpoint(f"{exp}/ckpt.epoch-2")
-        ck3 = load_checkpoint(f"{exp}/ckpt.epoch-3")
-        expect(ck3["controller"]["epoch"] == 3,
-               f"resumed controller epoch {ck3['controller']['epoch']}")
-        expect(ck3["optimizer"]["count"] == ck2["optimizer"]["count"] +
-               runs[1]["optimizer_steps"] and
-               runs[1]["optimizer_steps"] > 0,
-               f"Adam count {ck2['optimizer']['count']} -> "
-               f"{ck3['optimizer']['count']} over "
-               f"{runs[1]['optimizer_steps']} resumed updates")
-        expect(len(ck3["controller"]["topk"]) == 3,
-               f"resumed controller's epochs {ck3['controller']['topk']}")
-        out["adam_count"] = [ck2["optimizer"]["count"],
-                             ck3["optimizer"]["count"]]
-        log(f"[7] resumed: controller epoch 2 -> 3, Adam count "
-            f"{out['adam_count'][0]} -> {out['adam_count'][1]}")
-        del ck2, ck3
-
-        # the widest microbatch on the trained model, kernels vs plain
-        model, _, _ = cli_eval.load_model_for_eval(SimpleNamespace(
-            recog_model=f"{exp}/ckpt.epoch-3", recog_n_average=1))
-        batch = tuple(widest)
-        log(f"[7] microbatch held to the plain versions: B "
+    # the widest microbatch and the one of most utterances on the trained
+    # model, kernels vs plain: in float32 by phase 6's rule, at bf16 by 6b's
+    model, _, _ = cli_eval.load_model_for_eval(SimpleNamespace(
+        recog_model=f"{exp}/ckpt.epoch-3", recog_n_average=1))
+    for key, kept in (("widest", widest), ("most_utterances", most)):
+        if key != "widest" and kept[0].shape == widest[0].shape:
+            continue
+        batch = tuple(kept)
+        log(f"[7] microbatch ({key}) held to the plain versions: B "
             f"{batch[0].shape[0]} x {batch[0].shape[1]} frames, U "
             f"{batch[2].shape[1]}")
-        out["train_parity"], _ = phase_train_parity(torch, model, batch,
-                                                    tag="7")
-        out["microbatch_shape"] = [list(batch[0].shape),
-                                   list(batch[2].shape)]
-        del model, batch
-        widest.clear()
-        torch.cuda.empty_cache()
+        hold, plain32 = phase_train_parity(torch, model, batch, tag="7")
+        hold_bf16 = phase_train_parity_bf16(torch, model, batch, plain32,
+                                            tag="7")
+        out[f"train_parity_{key}"] = {
+            "shape": [list(batch[0].shape), list(batch[2].shape)],
+            "float32": hold, "bfloat16": hold_bf16}
+        del batch, plain32
+    del model
+    widest.clear()
+    most.clear()
+    torch.cuda.empty_cache()
 
-        # the recipe's LM: seeded, saved as its train CLI would leave it
-        lm_dir = str(root / "lm")
-        largs = librispeech_rnnlm_args()
-        largs.vocab = CLI_VOCAB
-        lm = init_params(build_lm(largs), SEED + 1)
-        save_checkpoint(lm_dir, 1, lm.state_dict())
-        save_config(vars(largs), f"{lm_dir}/conf.yml")
-        del lm
-        torch.cuda.reset_peak_memory_stats()
+    # the recipe's LM: seeded, saved as its train CLI would leave it
+    lm_dir = str(root / "lm")
+    largs = librispeech_rnnlm_args()
+    largs.vocab = CLI_VOCAB
+    lm = init_params(build_lm(largs), SEED + 1)
+    save_checkpoint(lm_dir, 1, lm.state_dict())
+    save_config(vars(largs), f"{lm_dir}/conf.yml")
+    del lm
+    torch.cuda.reset_peak_memory_stats()
+    sync()
+    reset_launches()
+    t = time.perf_counter()
+    res = cli_eval.main(["--recog_model", exp, "--recog_sets",
+                         corpus["test"], "--recog_lm", lm_dir,
+                         "--recog_dir", str(root / "decode")] +
+                        list(CLI_EVAL))
+    sync()
+    wall = time.perf_counter() - t
+    counts = launches()
+    (m,) = res.values()
+    audio_s = sum(int(line.split("\t")[3]) for line in
+                  Path(corpus["test"]).read_text().splitlines()[1:]) \
+        * FRAME_SEC
+    hyps = (root / "decode" / "test" / "hyp.trn").read_text()
+    out["eval"] = {**m, "wall_s": wall, "launches": counts,
+                   "wall_per_utt_s": m["rtf"] * audio_s / m["n_utts"],
+                   "hyp_tokens": [len(h.rsplit(" (", 1)[0].split())
+                                  for h in hyps.splitlines()],
+                   "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+    log(f"[7] eval CLI: RTF {m['rtf']:.4f}, "
+        f"{out['eval']['wall_per_utt_s']:.2f} s of decoding per "
+        f"utterance, wall {wall:.1f} s (with loading), hypothesis "
+        f"lengths {out['eval']['hyp_tokens']}")
+    log(f"[7]   WER {m['wer']:.2f} / CER {m['cer']:.2f} over "
+        f"{m['n_utts']} utterances (random weights: the error rates "
+        f"only show that the pipeline ran)")
+    log(f"[7]   launches: {counts}")
+    expect(m["n_utts"] == CLI_UTTS["test"], f"{m['n_utts']} utterances")
+    for name in CLI_EVAL_KERNELS:
+        expect(counts[name] > 0, f"{name} never launched in the eval CLI")
+    return out
+
+
+# Phase 7b: the North star's reference conf through the train CLI, at full
+# width and depth in float32 (the conf has no train_dtype), with scheduled
+# sampling (ss_prob 0.2) and the switch to SGD. The overrides are the run's
+# length, the word unit of phase 7 (the same corpus), and a switch point
+# early enough to exercise: epoch 1 trains noam-Adam, epoch 2 plain SGD.
+SS_CONF = "examples/librispeech/conf/asr/transformer/" \
+    "conformer_kernel15_clamp10_hie_subsample8_las_long_ln_large.yaml"
+SS_OVERRIDES = ("--n_epochs", "2", "--accum_grad_n_steps", "2",
+                "--unit", "word", "--convert_to_sgd_epoch", "1")
+SS_PROB, SGD_LR, CLIP = 0.2, 1e-4, 5.0
+SS_TRAIN_KERNELS = ("rel_attention", "rel_attention_bwd", "las_step",
+                    "las_scan", "las_scan_bwd", "ctc_loss", "ctc_loss_bwd")
+# fed tokens where the kernels' pass 1 and the plain one's may part: an
+# argmax over two logits that K2's rounding (KERNEL_ATOL) can swap; at most
+# one in this many valid positions
+FED_TIES = 1000
+
+
+def plain_workspace(*args):
+    """A ``LasStepWorkspace`` whose steps take ``las_step_ref`` on the card
+    (the workspace's CPU path): pass 1 with K2's plain version."""
+    from neural_sp_tpu_torch.ops.kernels.las_step import LasStepWorkspace
+    ws = LasStepWorkspace(*args)
+    ws._lib = None
+    return ws
+
+
+def sgd_step_error(torch, before: dict, after: dict, grads: dict):
+    """How far an update lies from SGD's: (the relative distance of the
+    gradient's global norm taken in float32, as the step takes it, from
+    the norm summed in float64; the largest |p_after - (p_before - SGD_LR
+    * clip(g))| over every element, in f32 spacings at p_after), the clip
+    as optax takes it (g / |g| * CLIP when |g| >= CLIP) with the float32
+    norm."""
+    from neural_sp_tpu_torch.trainers.optimizer import global_norm
+    norm32 = global_norm(list(grads.values()))
+    norm64 = torch.sqrt(sum((g.double() ** 2).sum() for g in grads.values()))
+    worst = 0.0
+    for name, g in grads.items():
+        g = torch.where(norm32 >= CLIP, g / norm32 * CLIP, g)
+        want = before[name] + (-SGD_LR) * g
+        got = after[name]
+        ulp = torch.nextafter(got.abs(), torch.full_like(got, float("inf"))) \
+            - got.abs()
+        worst = max(worst, float(((got - want).abs() / ulp).max()))
+    return float((norm32.double() - norm64).abs() / norm64), worst
+
+
+def phase_sampled_cli(torch, root: Path, corpus: dict) -> dict:
+    """7b: ``bin.asr.train.main`` on ``SS_CONF`` (``SS_OVERRIDES``; phase
+    7's corpus), counts zeroed just before and read just after: K1 / K1b,
+    K2 (pass 1), K3 / K3b (pass 2) and K4 must run. Checks: every loss
+    finite; the share of sampled positions among the valid ones within 4
+    binomial standard deviations of ss_prob (the share of fed tokens that
+    differ from the label is reported); epoch 1 Adam with 2 accumulated
+    microsteps, epoch 2 SGD emitting at every microstep, and its first
+    update -SGD_LR times the clipped gradient to within one f32 spacing of
+    each parameter; the checkpoint after the switch holds SGD's state and a
+    controller that no longer decays. Then the widest microbatch (frames,
+    then utterances), on the epoch-2 weights with sampling on, in train()
+    with one generator seed: the kernels (K2 in pass 1, K3 / K3b in pass 2,
+    K1 / K1b, K4) against the plain versions, the loss and every gradient
+    leaf at phase 6's float32 tolerance (pass 2 over the kernels' fed
+    tokens; the plain pass 1's tokens may part from them only at ties)."""
+    import csv
+    import math
+    from types import SimpleNamespace
+    from neural_sp_tpu_torch.bin.asr import eval as cli_eval
+    from neural_sp_tpu_torch.bin.asr import train as cli_train
+    from neural_sp_tpu_torch.models.decoders import las
+    from neural_sp_tpu_torch.ops.kernels import launches, reset_launches
+    from neural_sp_tpu_torch.parallel.mesh import TrainStep
+    from neural_sp_tpu_torch.trainers.checkpoint import load_checkpoint
+    from neural_sp_tpu_torch.trainers.optimizer import SGD
+    sync = torch.cuda.synchronize
+    exp = str(root / "exp_sampled")
+    data = ["--train_set", corpus["train"], "--dev_set", corpus["dev"],
+            "--dict", corpus["dict"], "--model_save_dir", exp]
+    out = {"conf": SS_CONF, "overrides": list(SS_OVERRIDES)}
+    steps, widest, sampled, sgd_check = [], [], [], {}
+    orig_call = TrainStep.__call__
+    orig_fed = las.RNNDecoder.fed_tokens
+
+    def watched_call(self, xs, xlens, ys, ylens, *a, **kw):
+        is_sgd = isinstance(self.opt, SGD)
+        first_sgd = is_sgd and not sgd_check
+        if first_sgd:
+            before = {n: p.detach().clone()
+                      for n, p in self.model.named_parameters()}
         sync()
-        reset_launches()
         t = time.perf_counter()
-        res = cli_eval.main(["--recog_model", exp, "--recog_sets",
-                             corpus["test"], "--recog_lm", lm_dir,
-                             "--recog_dir", str(root / "decode")] +
-                            list(CLI_EVAL))
+        m = orig_call(self, xs, xlens, ys, ylens, *a, **kw)
         sync()
-        wall = time.perf_counter() - t
-        counts = launches()
-        (m,) = res.values()
-        audio_s = sum(int(line.split("\t")[3]) for line in
-                      Path(corpus["test"]).read_text().splitlines()[1:]) \
-            * FRAME_SEC
-        hyps = (root / "decode" / "test" / "hyp.trn").read_text()
-        out["eval"] = {**m, "wall_s": wall, "launches": counts,
-                       "wall_per_utt_s": m["rtf"] * audio_s / m["n_utts"],
-                       "hyp_tokens": [len(h.rsplit(" (", 1)[0].split())
-                                      for h in hyps.splitlines()],
-                       "peak_mem_bytes": torch.cuda.max_memory_allocated()}
-        log(f"[7] eval CLI: RTF {m['rtf']:.4f}, "
-            f"{out['eval']['wall_per_utt_s']:.2f} s of decoding per "
-            f"utterance, wall {wall:.1f} s (with loading), hypothesis "
-            f"lengths {out['eval']['hyp_tokens']}")
-        log(f"[7]   WER {m['wer']:.2f} / CER {m['cer']:.2f} over "
-            f"{m['n_utts']} utterances (random weights: the error rates "
-            f"only show that the pipeline ran)")
-        log(f"[7]   launches: {counts}")
-        expect(m["n_utts"] == CLI_UTTS["test"], f"{m['n_utts']} utterances")
-        for name in CLI_EVAL_KERNELS:
-            expect(counts[name] > 0, f"{name} never launched in the eval CLI")
+        steps.append((time.perf_counter() - t, bool(m["emitted"]),
+                      is_sgd, float(m["loss"]), int(xlens.sum())))
+        if first_sgd:
+            named = dict(self.model.named_parameters())
+            sgd_check["norm_rel_err"], sgd_check["ulps"] = sgd_step_error(
+                torch, before, {n: p.detach() for n, p in named.items()},
+                {n: p.grad for n, p in named.items()})
+            del before
+        if not widest or (xs.shape[1], xs.shape[0]) > (
+                widest[0].shape[1], widest[0].shape[0]):
+            widest[:] = (xs, xlens, ys, ylens)
+        return m
+
+    def watched_fed(self, ys_in, kc, values, klens, masks):
+        fed = orig_fed(self, ys_in, kc, values, klens, masks)
+        valid = ys_in != las.PAD
+        sampled.append((int(valid.sum()), int(masks.sample[valid].sum()),
+                        int((fed != ys_in)[valid].sum())))
+        return fed
+
+    torch.cuda.reset_peak_memory_stats()
+    sync()
+    reset_launches()
+    t0 = time.perf_counter()
+    with mock.patch.object(TrainStep, "__call__", watched_call), \
+            mock.patch.object(las.RNNDecoder, "fed_tokens", watched_fed):
+        cli_train.main(["--config", str(ROOT / SS_CONF)] + data +
+                       list(SS_OVERRIDES))
+    sync()
+    wall = time.perf_counter() - t0
+    counts = launches()
+    out["launches"] = counts
+    log(f"[7b] train CLI on {SS_CONF}: {len(steps)} microsteps, wall "
+        f"{wall:.1f} s, peak mem {torch.cuda.max_memory_allocated()} B")
+    log(f"[7b]   launches: {counts}")
+    for name in SS_TRAIN_KERNELS:
+        expect(counts[name] > 0, f"{name} never launched in phase 7b")
+    losses = [x[3] for x in steps]
+    log(f"[7b]   microstep losses {['%.3f' % x for x in losses]}")
+    expect(all(map(math.isfinite, losses)), f"7b losses {losses}")
+    with open(f"{exp}/history.csv") as f:
+        history = [(int(r["epoch"]), float(r["train_loss"]),
+                    float(r["dev_loss_mean"])) for r in csv.DictReader(f)]
+    expect([e for e, _, _ in history] == [1, 2] and all(
+        math.isfinite(x) for _, *ls in history for x in ls),
+        f"7b history.csv {history}")
+    # the sampling: its share of the valid positions, binomially
+    n_valid = sum(x[0] for x in sampled)
+    n_sampled = sum(x[1] for x in sampled)
+    n_fed = sum(x[2] for x in sampled)
+    share = n_sampled / n_valid
+    sd = math.sqrt(SS_PROB * (1 - SS_PROB) / n_valid)
+    out["sampling"] = {"microsteps": len(sampled), "valid": n_valid,
+                       "sampled_share": share, "binomial_sd": sd,
+                       "fed_not_label_share": n_fed / n_valid}
+    log(f"[7b]   sampled {n_sampled} of {n_valid} valid positions "
+        f"({share:.4f}; ss_prob {SS_PROB}, 4 sd = {4 * sd:.4f}); fed token "
+        f"not the label at {n_fed / n_valid:.4f} of them")
+    expect(len(sampled) == len(steps), "a microstep ran without pass 1")
+    expect(abs(share - SS_PROB) <= 4 * sd, f"sampled share {share}")
+    # the optimizers: Adam with accumulation, then SGD at every microstep
+    epoch1 = [x for x in steps if not x[2]]
+    epoch2 = [x for x in steps if x[2]]
+    expect(epoch1 and epoch2 and all(x[1] for x in epoch2) and
+           [x[1] for x in epoch1] == [i % 2 == 1 for i in range(len(epoch1))],
+           f"7b emitted (Adam, accumulating 2): {[x[1] for x in epoch1]}; "
+           f"SGD: {[x[1] for x in epoch2]}")
+    out["sgd_first_update"] = sgd_check
+    log(f"[7b]   epoch 1: {len(epoch1)} microsteps of Adam; epoch 2: "
+        f"{len(epoch2)} of SGD, its first update {sgd_check['ulps']:.3f} "
+        f"f32 spacings from -{SGD_LR} x the clipped gradient at most (the "
+        f"float32 norm {sgd_check['norm_rel_err']:.2e} from the float64 "
+        f"one)")
+    expect(sgd_check["ulps"] <= 1.0, "the SGD update")
+    # float32 sums of 105 M squares, leaf by leaf: rounding to 1e-4 at most
+    expect(sgd_check["norm_rel_err"] <= 1e-4, "the gradient's global norm")
+    ck = load_checkpoint(f"{exp}/ckpt.epoch-2")
+    ctl = ck["controller"]
+    expect(ck["optimizer"] == {"optimizer": "sgd"} and
+           ctl["decay_type"] == "no" and ctl["lr"] == SGD_LR,
+           f"checkpoint after the switch: {ck['optimizer']} {ctl}")
+    del ck
+    out.update(history=history, wall_s=wall, microsteps=len(steps),
+               microstep_s=[x[0] for x in steps], microstep_loss=losses,
+               frames_per_s=sum(x[4] for x in steps) / sum(
+                   x[0] for x in steps),
+               peak_mem_bytes=torch.cuda.max_memory_allocated())
+
+    # the widest microbatch, kernels against the plain versions, sampling on
+    model, _, _ = cli_eval.load_model_for_eval(SimpleNamespace(
+        recog_model=f"{exp}/ckpt.epoch-2", recog_n_average=1))
+    model.dec_fwd.step.ss_prob = SS_PROB
+    batch = tuple(widest)
+    widest.clear()
+    log(f"[7b] microbatch held to the plain versions with sampling on: B "
+        f"{batch[0].shape[0]} x {batch[0].shape[1]} frames, U "
+        f"{batch[2].shape[1]}")
+    fed_seen = []
+
+    def keep_fed(self, *args):
+        fed_seen.append(orig_fed(self, *args))
+        return fed_seen[-1]
+
+    with mock.patch.object(las.RNNDecoder, "fed_tokens", keep_fed):
+        loss, grads = train_microstep(torch, model, batch)
+    kernel_fed = fed_seen[0]
+
+    def plain_fed(self, *args):
+        with mock.patch.object(las, "LasStepWorkspace", plain_workspace):
+            fed_seen.append(orig_fed(self, *args))
+        return kernel_fed
+
+    with mock.patch.object(las.RNNDecoder, "fed_tokens", plain_fed):
+        loss_ref, grads_ref = train_microstep(torch, model, batch,
+                                              plain=True)
+    valid = (kernel_fed != las.PAD) | (fed_seen[1] != las.PAD)
+    parted = int((kernel_fed != fed_seen[1])[valid].sum())
+    log(f"[7b]   pass 1, K2 against its plain version: {parted} of "
+        f"{int(valid.sum())} fed tokens differ")
+    expect(parted * FED_TIES <= int(valid.sum()),
+           f"pass 1's fed tokens: {parted} differ")
+    out["train_parity"] = hold_microstep(loss, grads, loss_ref, grads_ref,
+                                         "7b")
+    out["train_parity"]["fed_tokens_parted"] = parted
+    del model, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_microstep(torch, model, batch, plain=False):
+    """(loss, {leaf: gradient}) of one train() microstep in float32 from a
+    generator of seed SEED, through the kernels or, with ``plain``, the
+    plain versions patched in (as ``eval_microstep``)."""
+    from contextlib import ExitStack
+    from neural_sp_tpu_torch.parallel.mesh import (compute_loss,
+                                                   deterministic_cudnn)
+    model.train()
+    model.zero_grad(set_to_none=True)
+    with ExitStack() as stack:
+        if plain:
+            for target, name, value in plain_patches(torch):
+                stack.enter_context(mock.patch.object(target, name, value))
+        stack.enter_context(deterministic_cudnn())
+        loss, _ = compute_loss(model, None, *batch,
+                               torch.Generator().manual_seed(SEED))
+        loss.backward()
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return float(loss.detach()), grads
+
+
+def phase_sampling_times(torch, model, batch) -> dict:
+    """At phase 5's shape (float32, train()), one microstep (forward and
+    backward) with ss_prob SS_PROB and one at 0, in turns (S Z Z S S Z Z
+    S), each read apart with a synchronise; then pass 1 alone (the
+    ``fed_tokens`` call of a sampled microstep, its inputs recorded) under
+    torch.profiler: its device busy time and the kernels it launches."""
+    from torch.profiler import ProfilerActivity, profile
+    from neural_sp_tpu_torch.models.decoders import las
+    from neural_sp_tpu_torch.ops.kernels import las_step
+    from neural_sp_tpu_torch.parallel.mesh import (compute_loss,
+                                                   deterministic_cudnn)
+    dec = model.dec_fwd
+    model.train()
+    gen = torch.Generator().manual_seed(SEED)
+
+    def microstep(ss):
+        dec.step.ss_prob = ss
+        model.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with deterministic_cudnn():        # as the train step runs
+            loss, _ = compute_loss(model, None, *batch, gen)
+            loss.backward()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    microstep(SS_PROB)
+    microstep(0.0)                          # warm-up, both paths
+    readings = {"ss": [], "teacher_forced": []}
+    for ss in (SS_PROB, 0.0, 0.0, SS_PROB, SS_PROB, 0.0, 0.0, SS_PROB):
+        readings["ss" if ss else "teacher_forced"].append(microstep(ss))
+    seen = []
+    orig = las.RNNDecoder.fed_tokens
+
+    def record(self, *args):
+        seen.append(args)
+        return orig(self, *args)
+
+    dec.step.ss_prob = SS_PROB
+    with mock.patch.object(las.RNNDecoder, "fed_tokens", record):
+        with torch.no_grad():
+            compute_loss(model, None, *batch, gen)
+    before = las_step.launches
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU,
+                                              ProfilerActivity.CUDA]) as prof:
+        dec.fed_tokens(*seen[0])
+        torch.cuda.synchronize()
+    k2_calls = las_step.launches - before
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, last = 0.0, float("-inf")
+    for start, end in spans:
+        if end > last:
+            busy += end - max(start, last)
+            last = end
+    dec.step.ss_prob = 0.0
+    model.zero_grad(set_to_none=True)
+    out = {**readings, "pass1_device_ms": busy / 1e3,
+           "pass1_kernel_launches": len(spans), "pass1_k2_calls": k2_calls}
+    mean = {k: sum(v) / len(v) for k, v in readings.items()}
+    log(f"[5s] microstep at B={TRAIN_B} x {TRAIN_FRAMES} frames, f32, in "
+        f"turns: ss_prob {SS_PROB} {['%.1f' % x for x in readings['ss']]} "
+        f"ms, ss_prob 0 {['%.1f' % x for x in readings['teacher_forced']]} "
+        f"ms (means {mean['ss']:.1f} / {mean['teacher_forced']:.1f}); pass 1 "
+        f"alone {busy / 1e3:.3f} ms of device time, {len(spans)} kernels, "
+        f"{k2_calls} K2 steps")
+    expect(k2_calls == batch[2].shape[1] + 1, f"pass 1: {k2_calls} K2 steps")
     return out
 
 
@@ -1783,17 +2186,28 @@ def main() -> int:
     trained_bf16, bf16_launches = phase_train(torch, model, batch,
                                               "bfloat16")
     parity, plain32 = phase_train_parity(torch, model, batch)
+    parity["determinism"] = phase_determinism(torch, model, batch)
     parity_bf16 = phase_train_parity_bf16(torch, model, batch, plain32)
     del plain32
     parity["fixed_batch_losses"] = phase_fit(torch, model, batch)
     parity_bf16["fixed_batch_losses"] = phase_fit(
         torch, model, batch, torch.bfloat16, tag="6b")
+    sampling_times = phase_sampling_times(torch, model, batch)
     del model, batch
     torch.cuda.empty_cache()
-    t = time.perf_counter()
-    cli = phase_cli(torch)
-    cli["phase_wall_s"] = time.perf_counter() - t
-    log(f"[7] phase 7 wall {cli['phase_wall_s']:.1f} s")
+    with tempfile.TemporaryDirectory(prefix="nsp_cli_") as tmp:
+        root = Path(tmp)
+        t = time.perf_counter()
+        corpus = synth_corpus(root / "data", CLI_UTTS, CLI_VOCAB)
+        corpus_s = time.perf_counter() - t
+        t = time.perf_counter()
+        cli = phase_cli(torch, root, corpus)
+        cli.update(corpus_s=corpus_s, phase_wall_s=time.perf_counter() - t)
+        log(f"[7] phase 7 wall {cli['phase_wall_s']:.1f} s")
+        t = time.perf_counter()
+        sampled_cli = phase_sampled_cli(torch, root, corpus)
+        sampled_cli["phase_wall_s"] = time.perf_counter() - t
+        log(f"[7b] phase 7b wall {sampled_cli['phase_wall_s']:.1f} s")
     # each kernel's launches from the main path it belongs to: the served
     # requests (K1, K2), the float32 training run (K1b, K3, K3b, K4) or
     # the bf16 training run (K1's and K1b's bf16 entries)
@@ -1842,7 +2256,8 @@ def main() -> int:
                "breakdown": breakdown, "train": trained,
                "train_bf16": {**trained_bf16, "launches": bf16_launches},
                "train_parity": parity, "train_parity_bf16": parity_bf16,
-               "cli": cli, "kernels": kernels}
+               "sampling_times": sampling_times, "cli": cli,
+               "cli_sampled": sampled_cli, "kernels": kernels}
     log(json.dumps(details))
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -1855,17 +2270,19 @@ def main() -> int:
          **{key: kernels[name].get(key) for key in keys}}
         for name, (src, rep) in srcs.items()]
     # K2: its time is the workspace form's (the decode loops'); beside it
-    # the checked call's and the kernels one step launches
+    # the checked call's and the kernels one step launches; in training,
+    # scheduled sampling's pass 1 steps it U+1 times per microstep
     next(e for e in entries if e["name"] == "las_step").update(
         checked_call_ms=kernels["las_step"]["checked_call_ms"],
-        kernels_per_step=kernels["las_step"]["kernels_per_step"])
+        kernels_per_step=kernels["las_step"]["kernels_per_step"],
+        train_launches_per_microstep=sampling_times["pass1_k2_calls"])
     # K4's ms are forward + backward; its backward entry point counts apart
     next(e for e in entries if e["name"] == "ctc_loss")["bwd_launches"] = \
         launches["ctc_loss_bwd"]
     # phase 7's paths, each counted from zero: the train CLI, its resumed
     # epoch and the eval CLI
     cli_runs = {"train": cli["train"], "train_resumed": cli["train_resumed"],
-                "eval": cli["eval"]}
+                "eval": cli["eval"], "train_sampled": sampled_cli}
     for e in entries:
         e["cli_launches"] = {k: r["launches"][e["name"]]
                              for k, r in cli_runs.items()}

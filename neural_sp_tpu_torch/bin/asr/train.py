@@ -11,18 +11,24 @@ batches (with ``train_dtype: bfloat16``, bf16 compute over float32
 masters), the dev loss in float32, the epoch controller's lr decay (which
 reaches the step as ``lr_scale``, the controller's lr over the conf's),
 ``history.csv``, and a checkpoint, keeping the ``n_keep_best_checkpoints``
-best epochs; early stop as the controller says. ``--resume`` continues
-from a checkpoint's model, optimizer and controller states (a JAX
-checkpoint after ``utils/convert_params.py::convert_checkpoint``).
+best epochs; early stop as the controller says. At the end of epoch
+``convert_to_sgd_epoch``, after its dev loss, the run switches to plain
+SGD at ``sgd_lr`` (default 1e-4) with the conf's clip and neither
+accumulation, weight decay nor schedule, and the controller's decay stops,
+as the JAX CLI's switch. ``--resume`` continues from a checkpoint's model,
+optimizer and controller states (a JAX checkpoint after
+``utils/convert_params.py::convert_checkpoint``); like the JAX CLI's, it
+builds the conf's optimizer, so a checkpoint past the switch (SGD's state)
+raises (ROADMAP C10).
 
 The batches are padded on the JAX CLI's grid (frames to 128, labels to
 32). Initialisation is the port's (``utils/init_params.py``), seeded by
-``--seed``: it draws other numbers than flax's. The JAX CLI's
-distillation, MBR, random state passing, per-batch MTL, tensor
-parallelism, the profiler window and the switch to SGD raise (ROADMAP).
-Its epoch-gated curricula (scheduled sampling, MoChA's losses) start
-options that the port's model builder raises on, so they have no
-counterpart here yet.
+``--seed``: it draws other numbers than flax's. Scheduled sampling
+(``ss_prob``) starts at ``ss_start_epoch`` when that is set, as the JAX
+CLI's curriculum. The JAX CLI's distillation, MBR, random state passing,
+per-batch MTL, tensor parallelism and the profiler window raise
+(ROADMAP); MoChA's loss curricula start options that the port's model
+builder raises on.
 """
 from __future__ import annotations
 
@@ -114,10 +120,6 @@ def main(argv=None, device=None) -> str:
     if int(getattr(args, "n_model", 1)) > 1:
         raise NotImplementedError(
             "tensor parallelism (--n_model) is not ported yet, see ROADMAP")
-    if getattr(args, "convert_to_sgd_epoch", 0):
-        raise NotImplementedError(
-            "the switch to SGD needs the SGD optimizer, which is not ported "
-            "yet, see ROADMAP")
     device = model_device(device, "bin.asr.train")
     np.random.seed(args.seed)
     save_dir = args.model_save_dir
@@ -189,9 +191,15 @@ def main(argv=None, device=None) -> str:
     # the controller's decay reaches the step as a multiplier of the lr
     # the optimizer was built with
     lr_ref = args.lr
+    ss_start = getattr(args, "ss_start_epoch", 0)
+    sgd_epoch = getattr(args, "convert_to_sgd_epoch", 0)
 
     for epoch in range(start_epoch, args.n_epochs + 1):
         lr_scale = controller.lr / lr_ref if lr_ref else 1.0
+        if model.dec_fwd is not None:
+            # the JAX CLI's curriculum: no sampling before ss_start_epoch
+            model.dec_fwd.step.ss_prob = 0.0 if ss_start and \
+                epoch < ss_start else getattr(args, "ss_prob", 0.0)
         train_set.set_epoch(epoch)
         t0 = time.time()
         for i, batch in enumerate(train_set):
@@ -209,6 +217,15 @@ def main(argv=None, device=None) -> str:
         # the dev loss; inf (never the best) before eval_start_epoch
         loss = dev_loss(model, dev_set, reporter, device) \
             if epoch >= getattr(args, "eval_start_epoch", 1) else float("inf")
+        if sgd_epoch and epoch == sgd_epoch:
+            kw = controller.convert_to_sgd(getattr(args, "sgd_lr", 1e-4))
+            opt = build_optimizer(kw["optimizer"], lr=kw["lr"],
+                                  clip_grad_norm=args.clip_grad_norm)
+            step_fn = make_train_step(
+                model, opt, compute_dtype=configs.compute_dtype(args))
+            lr_ref = kw["lr"]
+            logger.info("converted to SGD (lr %.2g) at epoch %d", kw["lr"],
+                        epoch)
         actions = controller.step_epoch(loss)
         reporter.epoch_summary(epoch, {"dev_loss_mean": loss,
                                        "lr": actions["lr"]})

@@ -12,10 +12,9 @@ def _get(args, name, default=None):
 def build_decoder(args, vocab: int, enc_n_units: int,
                   backward: bool = False) -> RNNDecoder:
     dec_type = _get(args, "dec_type", "lstm")
-    for name in ("ss_prob", "dropout_att"):
-        if _get(args, name, 0.0):
-            raise NotImplementedError(
-                f"{name} > 0 is not ported yet, see ROADMAP")
+    if _get(args, "dropout_att", 0.0):
+        raise NotImplementedError(
+            "dropout_att > 0 is not ported yet, see ROADMAP")
     if dec_type != "lstm":
         raise NotImplementedError(
             f"dec_type {dec_type!r} is not ported yet (only the LAS lstm "
@@ -40,4 +39,5 @@ def build_decoder(args, vocab: int, enc_n_units: int,
         backward=backward,
         dropout=_get(args, "dropout_dec", 0.0),
         dropout_emb=_get(args, "dropout_emb", 0.0),
-        lsm_prob=_get(args, "lsm_prob", 0.0))
+        lsm_prob=_get(args, "lsm_prob", 0.0),
+        ss_prob=_get(args, "ss_prob", 0.0))

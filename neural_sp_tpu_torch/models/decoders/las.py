@@ -14,22 +14,34 @@ for K2. In
 training (``RNNDecoder.forward``) the U+1 teacher-forced steps are kernel
 K3 with its backward K3b (``ops.kernels.las_scan``); the embedding half of
 the gates and the readout over all steps are plain matmuls, as the JAX
-module hoists them too. Scheduled sampling, zoneout, projections, deeper
-stacks, LM fusion and the other attention types raise.
+module hoists them too.
+
+Scheduled sampling (``ss_prob > 0`` in ``train()``): as in JAX, step u
+feeds ``argmax`` of step u-1's logits (after the readout's dropout; zero
+logits, so token 0, at step 0) in place of the label where a Bernoulli
+draw per row and step says so. The fed token is an index, which carries
+no gradient, so the loss's gradient is the teacher-forced gradient on the
+stream of fed tokens. Training takes two passes: pass 1 (``fed_tokens``,
+no autograd) steps kernel K2 with each step's dropout scale and the
+readout inside the loop only to choose the tokens; pass 2 is the
+teacher-forced path above (K3 / K3b, the hoisted readout) over the mixed
+stream. Both passes use the same masks (``SamplingMasks``, drawn once per
+microstep). Zoneout, projections, deeper stacks, LM fusion and the other
+attention types raise.
 
 Carry: ``(((c, h),), aw_prev [B, T], ctx_prev [B, enc_n_units])`` — the
 JAX carry without its logits and LM slots.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 from torch import nn
 
 from ... import EOS, PAD
 from ...ops.criterion import compute_accuracy, cross_entropy_lsm
-from ...ops.dropout import Dropout, keep_mask
+from ...ops.dropout import Dropout, bernoulli_mask, keep_mask
 from ...ops.kernels import las_step
 from ...ops.kernels.las_step import LasStepWorkspace
 from ...ops.kernels.las_scan import LASScan
@@ -50,7 +62,7 @@ class LASStep(nn.Module):
                  attn_sigmoid_smoothing: bool = False,
                  bottleneck_dim: int = 1024, zoneout: float = 0.0,
                  lm_fusion: str = "", dropout: float = 0.0,
-                 dropout_emb: float = 0.0):
+                 dropout_emb: float = 0.0, ss_prob: float = 0.0):
         super().__init__()
         if n_layers != 1 or n_projs > 0 or zoneout > 0 or lm_fusion or \
                 attn_n_heads != 1:
@@ -71,6 +83,7 @@ class LASStep(nn.Module):
         self.output = nn.Linear(bottleneck_dim, vocab)
         self.drop = Dropout(dropout)
         self.drop_emb = Dropout(dropout_emb)
+        self.ss_prob = ss_prob
 
     def workspace(self, key_cache, values, klens) -> LasStepWorkspace:
         """K2's workspace for a decode loop over these keys, values and
@@ -131,6 +144,18 @@ class DecodeLoop:
         return self._step(None, y_t, *self._fixed, self.ws, parent)[1:]
 
 
+class SamplingMasks(NamedTuple):
+    """What one scheduled-sampling microstep draws, once, for both passes:
+    the embedding's dropout scale [B, U+1, E], the LSTM output's [B, U+1,
+    H] and the readout's [B, U+1, bottleneck] (None at rate 0; in the
+    activations' type), and the sampling mask [B, U+1] (bool: feed the
+    previous step's argmax)."""
+    emb: Optional[torch.Tensor]
+    keep: Optional[torch.Tensor]
+    out: Optional[torch.Tensor]
+    sample: torch.Tensor
+
+
 class RNNDecoder(nn.Module):
     def __init__(self, vocab: int, enc_n_units: int, n_units: int = 1024,
                  n_projs: int = 0, n_layers: int = 1, emb_dim: int = 512,
@@ -142,7 +167,7 @@ class RNNDecoder(nn.Module):
                  attn_sigmoid_smoothing: bool = False, zoneout: float = 0.0,
                  backward: bool = False, lm_fusion: str = "",
                  dropout: float = 0.0, dropout_emb: float = 0.0,
-                 lsm_prob: float = 0.0):
+                 lsm_prob: float = 0.0, ss_prob: float = 0.0):
         super().__init__()
         if backward:
             raise NotImplementedError(
@@ -155,7 +180,7 @@ class RNNDecoder(nn.Module):
             attn_type, attn_dim, attn_n_heads, attn_conv_n_channels,
             attn_conv_kernel_size, attn_sharpening_factor,
             attn_sigmoid_smoothing, bottleneck_dim, zoneout, lm_fusion,
-            dropout, dropout_emb)
+            dropout, dropout_emb, ss_prob)
         # attention keys projected once per utterance (with bias, as the
         # reference's location-attention w_key)
         self.key_proj = nn.Linear(enc_n_units, attn_dim)
@@ -163,35 +188,106 @@ class RNNDecoder(nn.Module):
     def forward(self, eouts: torch.Tensor, elens: torch.Tensor,
                 ys: torch.Tensor, ylens: torch.Tensor,
                 gen: Optional[torch.Generator] = None):
-        """Teacher-forced label-smoothed cross entropy (JAX
-        ``RNNDecoder.__call__`` with the hoisted embedding gates and
-        readout). eouts [B, T, D]; elens [B]; ys [B, U] PAD-padded; ylens
-        [B]. Returns (loss, {"loss_att", "acc_att", "ppl_att"})."""
+        """Label-smoothed cross entropy (JAX ``RNNDecoder.__call__`` with
+        the hoisted embedding gates and readout), teacher-forced, or in
+        ``train()`` with ``ss_prob > 0`` over the fed tokens of pass 1
+        (see the module docstring). eouts [B, T, D]; elens [B]; ys [B, U]
+        PAD-padded; ylens [B]. Returns (loss, {"loss_att", "acc_att",
+        "ppl_att"})."""
         bs = eouts.shape[0]
         dev = eouts.device
         ys_in, ys_out, _ = append_sos_eos(ys.to(dev), ylens.to(dev))
         step, cell = self.step, self.step.cells[0]
-        emb = step.drop_emb(step.embed(ys_in), gen)
-        eg = emb @ cell.w_ih[:step.emb_dim]                # [B, U+1, 4H]
+        kc = self.precompute_keys(eouts)
+        values = eouts.contiguous()
+        klens = elens.to(device=dev, dtype=torch.int32)
         shape = (bs, ys_in.shape[1], self.n_units)
+        sampled = self.training and step.ss_prob > 0
+        if sampled:
+            masks = self.sampling_masks(gen, bs, ys_in.shape[1],
+                                        step.embed.weight.dtype, dev)
+            ys_in = self.fed_tokens(ys_in, kc, values, klens, masks)
+            emb = _scaled(step.embed(ys_in), masks.emb)
+        else:
+            emb = step.drop_emb(step.embed(ys_in), gen)
+        eg = emb @ cell.w_ih[:step.emb_dim]                # [B, U+1, 4H]
         # in the activations' type (bf16 under a bf16 compute_dtype)
-        if self.training and step.drop.rate > 0:
+        if sampled:
+            keep = masks.keep
+        elif self.training and step.drop.rate > 0:
             keep = keep_mask(gen, step.drop.rate, shape, dev, eg.dtype)
         else:
+            keep = None
+        if keep is None:
             keep = torch.ones(shape, dtype=eg.dtype, device=dev)
         h, ctx, _ = LASScan.apply(
             eg, cell.w_ih[step.emb_dim:], cell.w_hh, cell.bias,
-            *step.attn.kernel_weights(), self.precompute_keys(eouts),
-            eouts.contiguous(), elens.to(device=dev, dtype=torch.int32),
-            keep)
+            *step.attn.kernel_weights(), kc, values, klens, keep)
         # readout order [dout, ctx] (JAX LASStep._generate), dout = h keep
-        logits = step.output(step.drop(
-            torch.tanh(step.w_gen(torch.cat([h * keep, ctx], -1))), gen))
+        out = torch.tanh(step.w_gen(torch.cat([h * keep, ctx], -1)))
+        out = _scaled(out, masks.out) if sampled else step.drop(out, gen)
+        logits = step.output(out)
         loss, nll = cross_entropy_lsm(logits, ys_out, self.lsm_prob,
                                       ignore_index=PAD)
         acc = compute_accuracy(logits, ys_out, ignore_index=PAD)
         return loss, {"loss_att": loss, "acc_att": acc,
                       "ppl_att": torch.exp(nll)}
+
+    def sampling_masks(self, gen: Optional[torch.Generator], bs: int,
+                       u1: int, dtype: torch.dtype, device) -> SamplingMasks:
+        """A scheduled-sampling microstep's masks, drawn from ``gen`` in
+        this order: the embedding's, the LSTM output's and the readout's
+        dropout scales (each only at a rate above 0), then the sampling
+        mask, True with probability ``ss_prob``. The JAX module draws them
+        per step from its flax rngs, so the two packages draw different
+        masks for one microstep (ROADMAP C4)."""
+        step = self.step
+
+        def scale(rate, width):
+            if rate == 0:
+                return None
+            return keep_mask(gen, rate, (bs, u1, width), device, dtype)
+
+        return SamplingMasks(
+            scale(step.drop_emb.rate, step.emb_dim),
+            scale(step.drop.rate, self.n_units),
+            scale(step.drop.rate, step.w_gen.out_features),
+            bernoulli_mask(gen, step.ss_prob, (bs, u1), device))
+
+    @torch.no_grad()
+    def fed_tokens(self, ys_in, kc, values, klens,
+                   masks: SamplingMasks) -> torch.Tensor:
+        """Pass 1 of scheduled sampling: the tokens [B, U+1] the U+1 steps
+        are fed. Step u feeds ``argmax`` of step u-1's logits where
+        ``masks.sample[:, u]`` (token 0 at step 0: the argmax of the zero
+        logits JAX's carry starts with) and ``ys_in[:, u]`` elsewhere. Each
+        step runs K2 through its workspace (float32; the LSTM output's
+        dropout scale as K2's ``keep``), then the readout with its dropout
+        and the vocabulary projection in the activations' type, as pass 2
+        computes them."""
+        step, cell = self.step, self.step.cells[0]
+        dt = step.embed.weight.dtype
+        ws = LasStepWorkspace(
+            cell.w_ih[step.emb_dim:].float(), cell.w_hh.float(),
+            cell.bias.float(),
+            *(w.float() for w in step.attn.kernel_weights()),
+            kc.float().contiguous(), values.float().contiguous(), klens)
+        w_emb = cell.w_ih[:step.emb_dim].float()
+        keep = None if masks.keep is None else \
+            masks.keep.transpose(0, 1).float().contiguous()   # [U+1, B, H]
+        fed = torch.empty_like(ys_in)
+        prev = torch.zeros_like(ys_in[:, 0])
+        for u in range(ys_in.shape[1]):
+            y = torch.where(masks.sample[:, u], prev, ys_in[:, u])
+            fed[:, u] = y
+            emb = _scaled(step.embed(y), _at(masks.emb, u))
+            torch.mm(emb.float(), w_emb, out=ws.eg)
+            h, _, _, ctx = ws.step(keep=None if keep is None else keep[u])
+            dout = h.to(dt) if masks.keep is None else \
+                h.to(dt) * masks.keep[:, u]
+            out = torch.tanh(step.w_gen(torch.cat([dout, ctx.to(dt)], -1)))
+            prev = step.output(_scaled(out, _at(masks.out, u))).argmax(-1)
+        return fed
 
     def precompute_keys(self, eouts: torch.Tensor) -> torch.Tensor:
         return self.key_proj(eouts)
@@ -241,3 +337,14 @@ class RNNDecoder(nn.Module):
         ended = torch.cat([toks == EOS, torch.ones_like(toks[:, :1],
                                                         dtype=torch.bool)], 1)
         return toks, ended.int().argmax(1)
+
+
+def _scaled(x: torch.Tensor, scale: Optional[torch.Tensor]) -> torch.Tensor:
+    """x times a dropout scale (None: no dropout)."""
+    return x if scale is None else x * scale
+
+
+def _at(scale: Optional[torch.Tensor], u: int) -> Optional[torch.Tensor]:
+    """Step u's slice [B, ...] of a [B, U+1, ...] scale (None stays
+    None)."""
+    return None if scale is None else scale[:, u]

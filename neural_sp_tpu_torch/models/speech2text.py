@@ -77,8 +77,8 @@ class Speech2Text(nn.Module):
 
 # Training and model options of the JAX package the port does not have:
 # each raises when set (non-zero / non-empty). The encoder's and the
-# decoder's own (dropout_in, dropout_att, dropout_enc_layer, ss_prob) raise
-# in their builders.
+# decoder's own (dropout_in, dropout_att, dropout_enc_layer) raise in their
+# builders.
 _NOT_PORTED = ("bwd_weight", "sub1_weight", "sub2_weight",
                "sequence_summary_network", "input_noise_std",
                "adaptive_number_ratio", "adaptive_size_ratio",

@@ -61,6 +61,14 @@ def keep_mask(gen: Optional[torch.Generator], rate: float, shape,
     return ((u < keep).to(torch.float32) / keep).to(dtype)
 
 
+def bernoulli_mask(gen: Optional[torch.Generator], p: float, shape,
+                   device=None) -> torch.Tensor:
+    """Bool mask of ``shape``, True with probability ``p`` (as
+    ``jax.random.bernoulli``: a uniform below p), from the counter hash
+    under the generator's key words."""
+    return fast_uniform(key_words(gen), shape, device) < p
+
+
 class Dropout(nn.Module):
     """``Dropout(rate)(x, gen)``: identity in ``eval()`` or at rate 0."""
 

@@ -108,8 +108,8 @@ def load_library() -> ctypes.CDLL:
         "nsp_rel_attention_bwd_f32": [_P] * 15 + [_I] * 5 + [_P],
         "nsp_rel_attention_bf16": [_P] * 8 + [_I] * 5 + [_P],
         "nsp_rel_attention_bwd_bf16": [_P] * 15 + [_I] * 5 + [_P],
-        "nsp_las_step_f32": [_P] * 22 + [_I] * 7 + [_P],
-        "nsp_las_step_plan_f32": [_P, _I, _I, _P, _P],
+        "nsp_las_step_f32": [_P] * 23 + [_I] * 7 + [_P],
+        "nsp_las_step_plan_f32": [_P, _I, _I, _P, _P, _P],
         "nsp_las_scan_f32": [_P] * 24 + [_I] * 8 + [_P],
         "nsp_las_scan_bwd_f32": [_P] * 31 + [_I] * 8 + [_P],
         "nsp_ctc_alpha_f32": [_P] * 6 + [_I] * 4 + [_P],

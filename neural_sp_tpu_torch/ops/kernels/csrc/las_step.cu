@@ -1041,11 +1041,12 @@ struct NspLasStepPlan {
 
 // One decode step from the plan: reads the carry of set `from` (0 or 1;
 // row n reads row parent[n] when use_parent is not 0) and writes set
-// 1 - from, so a step never writes what it reads. *launched (host memory,
-// may be null) receives the number of kernels launched. Returns a
-// cudaError_t.
+// 1 - from, so a step never writes what it reads. keep [N, H] (may be
+// null: no dropout) is the dropout scale of the step's output: the query
+// reads h keep, the carry keeps h. *launched (host memory, may be null)
+// receives the number of kernels launched. Returns a cudaError_t.
 extern "C" int nsp_las_step_plan_f32(const NspLasStepPlan* p, int from, int use_parent,
-                                     void* launched, void* stream) {
+                                     const void* keep, void* launched, void* stream) {
   if (p == nullptr || (from != 0 && from != 1) ||
       bad_sizes(p->N, p->T, p->H, p->D, p->A, p->C, p->K))
     return (int)cudaErrorInvalidValue;
@@ -1053,7 +1054,7 @@ extern "C" int nsp_las_step_plan_f32(const NspLasStepPlan* p, int from, int use_
   const Step st{F(p->eg), F(p->ctx[from]), F(p->h[from]), F(p->c[from]), F(p->aw[from]),
                 F(p->w_ctx), F(p->w_h), F(p->bias), F(p->w_q), F(p->conv_w), F(p->w_f), F(p->v),
                 F(p->kc), F(p->values), static_cast<const int*>(p->klens),
-                use_parent ? static_cast<const int*>(p->parent) : nullptr, nullptr,
+                use_parent ? static_cast<const int*>(p->parent) : nullptr, F(keep),
                 W(p->scratch), W(p->scratch) + carve(p->N, p->T, p->H, p->D, p->A).q,
                 W(p->h[to]), W(p->c[to]), nullptr, W(p->aw[to]), W(p->ctx[to]),
                 p->N, p->T, p->H, p->D, p->A, p->C, p->K, true};
@@ -1069,7 +1070,9 @@ extern "C" int nsp_las_step_plan_f32(const NspLasStepPlan* p, int from, int use_
 //   aw_prev [N, T], w_ctx [D, 4H], w_h [H, 4H], bias [4H], w_q [A, H],
 //   conv_w [C, K], w_f [A, C], v [A], kc [N, T, A], values [N, T, D],
 //   klens [N] int32; parent [N] int32 or null: row n reads row parent[n]
-//   of ctx_prev, h_prev, c_prev and aw_prev;
+//   of ctx_prev, h_prev, c_prev and aw_prev; keep [N, H] or null: the
+//   dropout scale of the step's output (the query reads h keep, h_out is
+//   h);
 //   scratch [nsp_las_step_scratch_floats(N, T, H, D, A)].
 //   Outputs h_out [N, H], c_out [N, H], aw_out [N, T], ctx_out [N, D],
 //   none of which may be one of the inputs. *launched (host memory, may be
@@ -1079,13 +1082,14 @@ extern "C" int nsp_las_step_f32(const void* eg, const void* ctx_prev, const void
                                 const void* w_h, const void* bias, const void* w_q,
                                 const void* conv_w, const void* w_f, const void* v,
                                 const void* kc, const void* values, const void* klens,
-                                const void* parent, void* scratch, void* h_out, void* c_out,
+                                const void* parent, const void* keep, void* scratch,
+                                void* h_out, void* c_out,
                                 void* aw_out, void* ctx_out, void* launched, int N, int T, int H,
                                 int D, int A, int C, int K, void* stream) {
   if (bad_sizes(N, T, H, D, A, C, K)) return (int)cudaErrorInvalidValue;
   const Step st{F(eg), F(ctx_prev), F(h_prev), F(c_prev), F(aw_prev), F(w_ctx), F(w_h), F(bias),
                 F(w_q), F(conv_w), F(w_f), F(v), F(kc), F(values),
-                static_cast<const int*>(klens), static_cast<const int*>(parent), nullptr,
+                static_cast<const int*>(klens), static_cast<const int*>(parent), F(keep),
                 W(scratch), W(scratch) + carve(N, T, H, D, A).q, W(h_out), W(c_out), nullptr,
                 W(aw_out), W(ctx_out), N, T, H, D, A, C, K, true};
   int count = 0;

@@ -135,13 +135,16 @@ def attend_combine_ref(p, ms, part_ctx, klens, frames=ATTEND_FRAMES):
 
 
 def las_step_ref(eg, ctx_prev, h_prev, c_prev, aw_prev, w_ctx, w_h, bias,
-                 w_q, conv_w, w_f, v, kc, values, klens, parent=None):
+                 w_q, conv_w, w_f, v, kc, values, klens, parent=None,
+                 keep=None):
     """Plain PyTorch twin of the kernel. Shapes: eg [N, 4H], ctx_prev
     [N, D], h_prev / c_prev [N, H], aw_prev [N, T], w_ctx [D, 4H], w_h
     [H, 4H], bias [4H], w_q [A, H], conv_w [C, K], w_f [A, C], v [A], kc
     [N, T, A], values [N, T, D], klens [N] int; parent [N] int or None:
     row n takes row parent[n] of ctx_prev, h_prev, c_prev and aw_prev (a
-    beam's reorder). Returns (h, c, aw, ctx)."""
+    beam's reorder); keep [N, H] or None: the dropout scale of the step's
+    output, which the query reads as h keep (the returned h, the carry, is
+    undropped: K3's step with dropout). Returns (h, c, aw, ctx)."""
     if parent is not None:
         rows = parent.long()
         ctx_prev, h_prev, c_prev, aw_prev = (
@@ -150,8 +153,8 @@ def las_step_ref(eg, ctx_prev, h_prev, c_prev, aw_prev, w_ctx, w_h, bias,
     i, f, g, o = y.chunk(4, dim=-1)
     c = torch.sigmoid(f) * c_prev + torch.sigmoid(i) * torch.tanh(g)
     h = torch.sigmoid(o) * torch.tanh(c)
-    _, aw, ctx = attend_ref(h, aw_prev, w_q, conv_w, w_f, v, kc, values,
-                            klens)
+    _, aw, ctx = attend_ref(h if keep is None else h * keep, aw_prev, w_q,
+                            conv_w, w_f, v, kc, values, klens)
     return h, c, aw, ctx
 
 
@@ -176,7 +179,7 @@ def las_step_cost(n, t, hd, d, a, ch, k, klens) -> tuple[int, int]:
 
 
 def _checked(eg, ctx_prev, h_prev, c_prev, aw_prev, w_ctx, w_h, bias, w_q,
-             conv_w, w_f, v, kc, values, klens, parent):
+             conv_w, w_f, v, kc, values, klens, parent, keep=None):
     """Checks a step's CUDA operands (dtype, shape, contiguity, the shared
     memory its blocks ask for). Returns (library, (N, T, H, D, A, C, K))."""
     n, t = aw_prev.shape
@@ -194,6 +197,8 @@ def _checked(eg, ctx_prev, h_prev, c_prev, aw_prev, w_ctx, w_h, bias, w_q,
     check("klens", klens, (n,), torch.int32)
     if parent is not None:
         check("parent", parent, (n,), torch.int32)
+    if keep is not None:
+        check("keep", keep, (n, hdim))
     lib = load_library()
     smem = lib.nsp_las_step_smem_bytes(t, hdim, d, a, c_ch, k)
     if smem > SMEM_LIMIT:
@@ -203,19 +208,20 @@ def _checked(eg, ctx_prev, h_prev, c_prev, aw_prev, w_ctx, w_h, bias, w_q,
 
 
 def las_step(eg, ctx_prev, h_prev, c_prev, aw_prev, w_ctx, w_h, bias,
-             w_q, conv_w, w_f, v, kc, values, klens, parent=None):
+             w_q, conv_w, w_f, v, kc, values, klens, parent=None, keep=None):
     """One decode step; arguments as ``las_step_ref``. CPU tensors take
     the twin; CUDA tensors launch the kernel (float32, contiguous; klens
-    and parent int32) or raise. Checks its arguments and allocates its
+    and parent int32; keep float32 [N, H]) or raise. Checks its arguments
+    and allocates its
     scratch and outputs on every call: a decode loop takes a
     ``LasStepWorkspace`` instead, which gives the same result bit for bit.
     Every call adds one to ``las_step.launches``; the kernels it launched
     go to ``las_step.kernels_per_step``."""
     args = (eg, ctx_prev, h_prev, c_prev, aw_prev, w_ctx, w_h, bias, w_q,
             conv_w, w_f, v, kc, values, klens)
-    if on_cpu(*args, *(() if parent is None else (parent,))):
-        return las_step_ref(*args, parent=parent)
-    lib, dims = _checked(*args, parent)
+    if on_cpu(*args, *(x for x in (parent, keep) if x is not None)):
+        return las_step_ref(*args, parent=parent, keep=keep)
+    lib, dims = _checked(*args, parent, keep)
     n, t, hdim, d, a = dims[:5]
     scratch = step_scratch(lib, n, t, hdim, d, a, eg.device)
     h = torch.empty_like(h_prev)
@@ -225,7 +231,7 @@ def las_step(eg, ctx_prev, h_prev, c_prev, aw_prev, w_ctx, w_h, bias,
     launched = ctypes.c_int(0)
     err = lib.nsp_las_step_f32(
         *(x.data_ptr() for x in args),
-        None if parent is None else parent.data_ptr(),
+        *(None if x is None else x.data_ptr() for x in (parent, keep)),
         *(x.data_ptr() for x in (scratch, h, c, aw, ctx)),
         ctypes.addressof(launched), *dims, stream_of(eg))
     raise_on_error("las_step", err)
@@ -311,21 +317,28 @@ class LasStepWorkspace:
         for dst, src in zip(self.carry, (h, c, aw, ctx)):
             dst.copy_(src)
 
-    def step(self, use_parent: bool = False):
+    def step(self, use_parent: bool = False, keep=None):
         """One step from ``eg`` and the carry (row n reads row
-        ``parent[n]`` of it when use_parent). Returns the new carry (h, c,
-        aw, ctx): the workspace's own tensors, overwritten by the step
-        after the next."""
+        ``parent[n]`` of it when use_parent); ``keep`` [N, H] (float32,
+        contiguous) or None: the step's dropout scale, as ``las_step``.
+        Returns the new carry (h, c, aw, ctx): the workspace's own tensors,
+        overwritten by the step after the next."""
         if self._lib is None:
             ctx, h, c, aw = (self.carry[i] for i in (3, 0, 1, 2))
             outs = las_step_ref(
                 self.eg, ctx, h, c, aw, *self.fixed,
-                parent=self.parent if use_parent else None)
+                parent=self.parent if use_parent else None, keep=keep)
             for dst, src in zip(self.sets[self.cur ^ 1], outs):
                 dst.copy_(src)
         else:
+            if keep is not None:
+                if keep.device != self.eg.device:
+                    raise ValueError(f"keep on {keep.device}, the "
+                                     f"workspace on {self.eg.device}")
+                check("keep", keep, self.carry[0].shape)
             run, plan, launched, index = self._call
-            err = run(plan, self.cur, 1 if use_parent else 0, launched,
+            err = run(plan, self.cur, 1 if use_parent else 0,
+                      None if keep is None else keep.data_ptr(), launched,
                       torch._C._cuda_getCurrentRawStream(index))
             raise_on_error("las_step", err)
             las_step.launches += 1

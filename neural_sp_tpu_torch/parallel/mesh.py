@@ -26,13 +26,13 @@ that changes between runs.
 from __future__ import annotations
 
 from contextlib import contextmanager
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 from torch import nn
 from torch.func import functional_call
 
-from ..trainers.optimizer import Adam, global_norm
+from ..trainers.optimizer import Adam, SGD, global_norm
 
 
 def compute_loss(model: nn.Module, compute_dtype: Optional[torch.dtype],
@@ -76,9 +76,13 @@ class TrainStep:
     "loss_att", "acc_att", "ppl_att"), "grad_norm" (the global norm of this
     microbatch's gradients, before accumulation and clipping), as float32
     0-dim tensors on the model's device (no host sync), and "emitted"
-    (bool)."""
+    (bool).
 
-    def __init__(self, model: nn.Module, opt: Adam,
+    A run switches optimizers (the JAX CLI's ``convert_to_sgd_epoch``) by
+    building a new step over the same model with the new optimizer, whose
+    ``init`` makes its state afresh."""
+
+    def __init__(self, model: nn.Module, opt: Union[Adam, SGD],
                  compute_dtype: Optional[torch.dtype] = None):
         self.model = model
         self.opt = opt
@@ -108,7 +112,7 @@ class TrainStep:
         return metrics
 
 
-def make_train_step(model: nn.Module, opt: Adam, mesh=None,
+def make_train_step(model: nn.Module, opt: Union[Adam, SGD], mesh=None,
                     compute_dtype: Optional[torch.dtype] = None) -> TrainStep:
     """The counterpart of JAX ``make_train_step(model, tx, mesh,
     compute_dtype=...)``: ``compute_dtype`` None trains in float32, a dtype

@@ -6,7 +6,8 @@ that the card's machine cannot read).
 
 * ``model``: the model's ``state_dict``;
 * ``optimizer``: the Adam state (``Adam.state_dict``: count, mini_step,
-  and the mu, nu and accumulator tensors by parameter name), when given;
+  and the mu, nu and accumulator tensors by parameter name), or after the
+  switch to SGD its empty state (``{"optimizer": "sgd"}``), when given;
 * ``controller``: the ``EpochController``'s ``state_dict``, when given.
 
 The names follow the JAX package's, so ``latest_epoch`` and a

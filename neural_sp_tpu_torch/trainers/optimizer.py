@@ -21,6 +21,12 @@ explicit:
   rest. Upstream neural_sp applies coupled L2 before the optimizer
   instead; the port mirrors the JAX package.
 
+``SGD`` is ``optax.chain(clip_by_global_norm(max_norm), sgd(lr))``, the
+optimizer the JAX train CLI switches to at ``convert_to_sgd_epoch``:
+no accumulation (every microstep emits), no weight decay, no schedule,
+the update ``-lr * g`` of the clipped gradient, and no state (optax's is
+empty).
+
 ``init(params)`` makes the state (moments, the accumulator, the counts),
 which then lives in the object; ``update(grads)`` returns the parameter
 updates (to be scaled by the step's ``lr_scale`` and added) when it emits,
@@ -70,12 +76,7 @@ class Adam:
         self.mini_step = (n + 1) % self.k
         if n != self.k - 1:
             return None
-        g = self.acc
-        if self.clip_grad_norm > 0:
-            g_norm = global_norm(g)
-            clipped = g_norm >= self.clip_grad_norm
-            g = [torch.where(clipped, x / g_norm * self.clip_grad_norm, x)
-                 for x in g]
+        g = clip_by_global_norm(self.acc, self.clip_grad_norm)
         lr = self.schedule(self.count)
         self.count += 1
         c1 = 1.0 - B1 ** self.count
@@ -101,7 +102,15 @@ class Adam:
     @torch.no_grad()
     def load_state_dict(self, state: dict, names: Sequence[str]) -> None:
         """Copy ``state`` (as ``state_dict`` gives it) into the state that
-        ``init`` made; every name must be there, with its shape."""
+        ``init`` made; every name must be there, with its shape. The state
+        of ``SGD`` raises: a run resumed past ``convert_to_sgd_epoch``
+        builds the conf's optimizer, as the JAX CLI does, and cannot
+        restore it (ROADMAP C10)."""
+        if state.get("optimizer") == "sgd":
+            raise ValueError(
+                "the checkpoint holds the SGD state of a run past its "
+                "convert_to_sgd_epoch; the conf's optimizer (Adam) cannot "
+                "restore it, as in the JAX train CLI (see ROADMAP C10)")
         for key, mine in (("mu", self.mu), ("nu", self.nu),
                           ("acc", self.acc)):
             missing = set(names) - set(state[key])
@@ -113,21 +122,65 @@ class Adam:
         self.mini_step = int(state["mini_step"])
 
 
+class SGD:
+    """``optax.chain(clip_by_global_norm(clip_grad_norm), sgd(lr))`` at a
+    constant lr: every ``update`` emits ``-lr * g`` of the clipped
+    gradient; the state is empty, as optax's."""
+
+    def __init__(self, lr: float, clip_grad_norm: float = 5.0):
+        self.lr = lr
+        self.clip_grad_norm = clip_grad_norm
+
+    def init(self, params: Sequence[torch.Tensor]) -> None:
+        pass
+
+    @torch.no_grad()
+    def update(self, grads: Sequence[torch.Tensor]) -> list[torch.Tensor]:
+        return [(-self.lr) * x
+                for x in clip_by_global_norm(grads, self.clip_grad_norm)]
+
+    def state_dict(self, names: Sequence[str]) -> dict:
+        return {"optimizer": "sgd"}
+
+    def load_state_dict(self, state: dict, names: Sequence[str]) -> None:
+        if state.get("optimizer") != "sgd":
+            raise ValueError("not the state of SGD")
+
+
 def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
     """sqrt of the sum of squares over every element (optax.global_norm)."""
     return torch.sqrt(sum((t.float() ** 2).sum() for t in tensors))
 
 
+def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float
+                        ) -> list[torch.Tensor]:
+    """optax.clip_by_global_norm (none at ``max_norm`` 0): scaled by
+    max_norm / |g| (divided, then multiplied, as optax) only when |g| >=
+    max_norm."""
+    if max_norm <= 0:
+        return list(grads)
+    g_norm = global_norm(grads)
+    clipped = g_norm >= max_norm
+    return [torch.where(clipped, x / g_norm * max_norm, x) for x in grads]
+
+
 def build_optimizer(optimizer: str = "adam",
                     lr: float = 1e-3, weight_decay: float = 0.0,
                     clip_grad_norm: float = 5.0, schedule=None,
-                    accum_grad_n_steps: int = 1) -> Adam:
+                    accum_grad_n_steps: int = 1) -> Union[Adam, SGD]:
     """'adam' and 'noam' (adam + a schedule, e.g. ``noam_schedule``), with
-    weight decay when ``weight_decay`` > 0, as the JAX factory builds
-    them."""
+    weight decay when ``weight_decay`` > 0, and 'sgd' at a constant lr
+    with neither accumulation nor weight decay, as the JAX CLI's switch
+    builds it; the others raise."""
+    if optimizer == "sgd":
+        if schedule is not None or weight_decay > 0 or accum_grad_n_steps > 1:
+            raise NotImplementedError(
+                "sgd with a schedule, weight decay or accumulation is not "
+                "ported yet (the switch to SGD takes none), see ROADMAP")
+        return SGD(lr, clip_grad_norm)
     if optimizer not in ("adam", "noam", "noam_adam"):
         raise NotImplementedError(
-            f"optimizer {optimizer!r} is not ported yet (adam and noam "
-            f"only), see ROADMAP")
+            f"optimizer {optimizer!r} is not ported yet (adam, noam and "
+            f"sgd only), see ROADMAP")
     return Adam(schedule if schedule is not None else lr, clip_grad_norm,
                 accum_grad_n_steps, weight_decay)

@@ -146,6 +146,18 @@ def _adam_state(chain):
     return None
 
 
+def _leafless(state) -> bool:
+    """True for an optax state with no array in it (EmptyStates, as a live
+    tuple or as the Nones orbax restores them as)."""
+    if state is None:
+        return True
+    if isinstance(state, dict):
+        return all(map(_leafless, state.values()))
+    if isinstance(state, (list, tuple)):
+        return all(map(_leafless, state))
+    return False
+
+
 def _plain(v):
     """numpy scalars (and lists of them) -> Python numbers."""
     if isinstance(v, (np.ndarray, np.generic)):
@@ -168,9 +180,13 @@ def convert_checkpoint(flax_params: dict, opt_state=None,
     ``build_optimizer``'s adam / noam chain: the accumulation state
     (mini_step, gradient_step, inner_opt_state, acc_grads) when it
     accumulates, else the chain itself; the moments and the accumulator
-    are converted as the parameters are."""
+    are converted as the parameters are. A state with no array in it is
+    the clipped SGD's the JAX CLI switches to (``convert_to_sgd_epoch``):
+    it becomes the port's ``SGD`` state."""
     out = {"model": convert_params(flax_params)}
-    if opt_state is not None:
+    if opt_state is not None and _leafless(opt_state):
+        out["optimizer"] = {"optimizer": "sgd"}
+    elif opt_state is not None:
         if _has(opt_state, "inner_opt_state"):
             inner = _get(opt_state, "inner_opt_state")
             mini_step = int(np.asarray(_get(opt_state, "mini_step")))

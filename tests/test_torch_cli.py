@@ -22,6 +22,19 @@ port's checkpoint is held to the JAX one with
   bound an update can reach;
 * the controller exactly, its dev losses to rtol 2e-4; the counts exactly.
 
+Then the switch to SGD (``convert_to_sgd_epoch``): both CLIs resume from
+the JAX epoch-2 checkpoint for epochs 3 and 4 with the switch at the end
+of epoch 3. The epoch-3 and epoch-4 checkpoints hold SGD's empty state
+(the JAX one converted) and the same controller (decay stopped, lr
+``sgd_lr``); epoch 4's three SGD updates are held to JAX's to 2e-3 of each
+leaf's largest change (each side starts from its own epoch-3 weights,
+which differ by the Adam tolerance above) plus two f32 spacings at the
+updated weight (each side rounds its update into its weights; most
+updates are below half a spacing). A run resumed past the switch
+fails in both CLIs: JAX's restores SGD's state into the conf's Adam and
+fails an assertion of ``restore_like``; the port's raises a ValueError
+that says so (ROADMAP C10).
+
 The eval CLIs are held to JAX's in ``test_torch_cli_eval.py``. Compile
 times are kept down by a JAX compilation cache in the test's own
 temporary directory (the JAX CLIs turn it on; NSP_COMPILE_CACHE points it
@@ -116,7 +129,27 @@ def runs(tmp_path_factory):
                          "--model_save_dir", pdir, "--resume",
                          os.path.join(pdir, "ckpt.epoch-1")] + resume,
                         device="cpu")
-        yield dict(corpus=corpus, jdir=jdir, pdir=pdir, ck1=ck1, root=root)
+        # epochs 3 (Adam) and 4 (SGD) from the JAX epoch-2 checkpoint
+        jsgd, psgd = str(root / "jax_sgd"), str(root / "port_sgd")
+        shutil.copytree(os.path.join(jdir, "ckpt.epoch-2"),
+                        os.path.join(jsgd, "ckpt.epoch-2"))
+        os.makedirs(psgd)
+        for d in (jsgd, psgd):
+            for name in ("conf.yml", "history.csv"):
+                shutil.copy(os.path.join(jdir, name), d)
+        ck2 = _checkpoint(jdir, 2)
+        save_checkpoint(psgd, 2, ck2["model"], ck2["optimizer"],
+                        ck2["controller"])
+        switch = ["--n_epochs", "4", "--convert_to_sgd_epoch", "3"] + data
+        jax_train.main(["--config", os.path.join(jsgd, "conf.yml"),
+                        "--model_save_dir", jsgd, "--resume",
+                        os.path.join(jsgd, "ckpt.epoch-2")] + switch)
+        port_train.main(["--config", os.path.join(psgd, "conf.yml"),
+                         "--model_save_dir", psgd, "--resume",
+                         os.path.join(psgd, "ckpt.epoch-2")] + switch,
+                        device="cpu")
+        yield dict(corpus=corpus, jdir=jdir, pdir=pdir, ck1=ck1, root=root,
+                   jsgd=jsgd, psgd=psgd, data=data)
     finally:
         mp.undo()
 
@@ -185,8 +218,60 @@ def test_cli_mains_need_the_card_or_an_explicit_cpu(runs, monkeypatch):
                         c["test"]])
 
 
+def test_switch_to_sgd_matches_jax(runs):
+    for epoch in (3, 4):
+        want = _checkpoint(runs["jsgd"], epoch)
+        got = load_checkpoint(os.path.join(runs["psgd"], f"ckpt.epoch-{epoch}"))
+        assert want["optimizer"] == got["optimizer"] == {"optimizer": "sgd"}
+        cw, cg = want["controller"], got["controller"]
+        assert cg["decay_type"] == cw["decay_type"] == "no"
+        assert cg["lr"] == cw["lr"] == 1e-4
+        for k in cw:
+            if k not in ("best_value", "topk"):
+                assert cg[k] == cw[k], (epoch, k)
+        np.testing.assert_allclose([v for v, _ in cg["topk"]],
+                                   [v for v, _ in cw["topk"]], rtol=RTOL)
+    # epoch 4: three SGD updates, -1e-4 times each clipped gradient
+    w3, w4 = (_checkpoint(runs["jsgd"], e)["model"] for e in (3, 4))
+    g3, g4 = (load_checkpoint(os.path.join(runs["psgd"], f"ckpt.epoch-{e}"))[
+        "model"] for e in (3, 4))
+    for name in w4:
+        dw, dg = (w4[name] - w3[name]).numpy(), (g4[name] - g3[name]).numpy()
+        # each side's update is rounded into its parameter: one f32 spacing
+        # at the updated value on either side
+        spacing = np.spacing(np.maximum(np.abs(w4[name].numpy()),
+                                        np.abs(g4[name].numpy())))
+        excess = np.abs(dg - dw) - (2e-3 * float(np.abs(dw).max()) +
+                                    2 * spacing)
+        i = int(excess.argmax())
+        assert excess.flat[i] <= 0, (name, float(dg.flat[i]),
+                                     float(dw.flat[i]), float(spacing.flat[i]),
+                                     float(np.abs(dw).max()))
+        assert float(np.abs(dw).max()) <= 3 * 1e-4 * 5.0 * 1.001, name
+    jh = open(os.path.join(runs["jsgd"], "history.csv")).read().splitlines()
+    ph = open(os.path.join(runs["psgd"], "history.csv")).read().splitlines()
+    assert ph[0] == jh[0] and len(ph) == len(jh) == 5
+
+
+def test_resume_past_the_switch_fails_as_in_jax(runs):
+    """Both CLIs build the conf's optimizer (noam Adam) on --resume, so an
+    epoch saved after the switch (SGD's state) cannot be restored."""
+    past = ["--n_epochs", "5"] + runs["data"]
+    with pytest.raises(AssertionError, match="restored shape"):
+        jax_train.main(["--config", os.path.join(runs["jsgd"], "conf.yml"),
+                        "--model_save_dir", str(runs["root"] / "jax_past"),
+                        "--resume",
+                        os.path.join(runs["jsgd"], "ckpt.epoch-4")] + past)
+    with pytest.raises(ValueError, match="convert_to_sgd_epoch"):
+        port_train.main(["--config", os.path.join(runs["psgd"], "conf.yml"),
+                         "--model_save_dir", str(runs["root"] / "port_past"),
+                         "--resume",
+                         os.path.join(runs["psgd"], "ckpt.epoch-4")] + past,
+                        device="cpu")
+
+
 @pytest.mark.parametrize("flag", ["teacher", "mbr_training", "rsp_prob",
-                                  "mtl_per_batch", "convert_to_sgd_epoch"])
+                                  "mtl_per_batch", "profile_n_steps"])
 def test_unported_train_cli_options_raise(runs, flag):
     c = runs["corpus"]
     with pytest.raises(NotImplementedError, match="ROADMAP"):

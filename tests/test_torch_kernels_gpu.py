@@ -221,6 +221,45 @@ def test_las_step_workspace_threads_its_carry(cuda):
     assert las_step.kernels_per_step == 4
 
 
+@pytest.mark.parametrize("n,t", [(32, 188), (10, 200), (17, 57)])
+def test_las_step_keep(cuda, n, t):
+    """K2 with a dropout scale ``keep`` (the query reads h keep, the carry
+    keeps h), the checked call and the workspace, against ``las_step_ref``
+    with the same keep over three threaded steps; all-ones keep gives the
+    same bits as none. N = 32 is the scheduled-sampling pass of a training
+    microbatch (more than 16 rows: K3's gate kernel)."""
+    from neural_sp_tpu_torch.ops.kernels.las_step import LasStepWorkspace
+    rng = np.random.RandomState(n + t)
+    hd, d, a, ch, k = 1024, 512, 512, 10, 201
+    state, fixed = _step_inputs(rng, cuda, n, t, hd, d, a, ch, k,
+                                [max(t - 5 * i, 1) for i in range(n)])
+    ws = LasStepWorkspace(*fixed)
+    ctx, h, c, aw = (torch.zeros_like(x) for x in state[1:])
+    for step in range(3):
+        eg = _randn(rng, cuda, n, 4 * hd, scale=0.5)
+        keep = (torch.from_numpy((rng.rand(n, hd) >= 0.1).astype(np.float32))
+                / 0.9).to(cuda)
+        checked = las_step(eg, ctx, h, c, aw, *fixed, keep=keep)
+        ws.eg.copy_(eg)
+        ws.load_carry(ctx, h, c, aw)
+        got = ws.step(keep=keep)
+        want = las_step_ref(eg, ctx, h, c, aw, *fixed, keep=keep)
+        for name, x, y, z in zip(("h", "c", "aw", "ctx"), got, checked,
+                                 want):
+            torch.testing.assert_close(x, z, atol=TOL, rtol=TOL,
+                                       msg=f"step {step}: {name}")
+            assert torch.equal(x, y), f"step {step}: {name}, the two forms"
+        h, c, aw, ctx = want
+    ones = torch.ones_like(h)
+    for x, y in zip(las_step(eg, ctx, h, c, aw, *fixed, keep=ones),
+                    las_step(eg, ctx, h, c, aw, *fixed)):
+        assert torch.equal(x, y)
+    with pytest.raises(ValueError):
+        las_step(eg, ctx, h, c, aw, *fixed, keep=ones[:, :-1])
+    with pytest.raises(TypeError):
+        ws.step(keep=ones.double())
+
+
 @pytest.mark.parametrize("n,reorder", [(40, True), (10, True), (4, True),
                                        (4, False), (17, True)])
 def test_decode_loop_against_the_plain_chain(cuda, n, reorder):
@@ -659,6 +698,69 @@ def test_ctc_loss_kernel_edges(cuda, name):
     torch.cuda.synchronize()
     grad_ref = ctc_loss_bwd_ref(*ref_args, nll_ref, alphas_ref, g)
     _close(grad, grad_ref[..., :v], "grad")
+
+
+@pytest.mark.parametrize("name", ["flagship", "repeated labels", "label 0",
+                                  "few symbols", "2499 states"])
+def test_ctc_loss_bwd_is_deterministic(cuda, name):
+    """K4's gradient is the same bits in every call: the states that share
+    an id (the blanks, repeated labels, a label of id 0) are summed in a
+    fixed order, with no float atomics."""
+    from neural_sp_tpu_torch.ops.kernels.ctc_loss import (
+        ctc_loss_bwd, ctc_loss_fwd)
+    if name == "flagship":
+        b, t, u, v = 32, 188, 100, 10000
+        rng = np.random.RandomState(0)
+        labels = rng.randint(4, v, (b, u))
+        labels[:, 10:13] = labels[:, 40:41]       # an id three times a row
+        tl, ul = [t - i for i in range(b)], [u - (i % 7) for i in range(b)]
+    else:
+        t, u, v, labels, tl, ul = _ctc_case(name)
+        b = len(tl)
+        rng = np.random.RandomState(t)
+    lp = torch.log_softmax(_randn(rng, cuda, b, t, v, scale=2.0), -1)
+    args = (lp, torch.tensor(labels, dtype=torch.int32, device=cuda).view(b, u),
+            torch.tensor(tl, dtype=torch.int32, device=cuda),
+            torch.tensor(ul, dtype=torch.int32, device=cuda))
+    nll, alphas = ctc_loss_fwd(*args)
+    g = torch.linspace(0.5, 1.5, b, device=cuda) * (nll < 1e29).float()
+    first = ctc_loss_bwd(*args, nll, alphas, g)
+    for _ in range(3):
+        assert torch.equal(ctc_loss_bwd(*args, nll, alphas, g), first)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_training_kernels_are_deterministic(cuda, dtype):
+    """K1b (both entries) and K3b at the flagship's training shapes give the
+    same bits twice on the same inputs (no float atomics whose order could
+    change: K1b's near dp buckets take two addends onto zero, K3b adds once
+    per element per launch, in launch order)."""
+    from neural_sp_tpu_torch.ops.kernels.las_scan import (
+        las_scan, las_scan_bwd)
+    from neural_sp_tpu_torch.ops.kernels.rel_attention import (
+        rel_attention_bwd, rel_attention_fwd)
+    rng = np.random.RandomState(5)
+    b, h, t, dk, r = 32, 8, 375, 64, 11
+    q, k, v, do = (_randn(rng, cuda, b, h, t, dk, scale=dk ** -0.5).to(dtype)
+                   for _ in range(4))
+    p = _randn(rng, cuda, b, h, t, r, scale=dk ** -0.5).to(dtype)
+    kl = torch.tensor([t - 7 * i for i in range(b)], dtype=torch.int32,
+                      device=cuda)
+    o, m, l = rel_attention_fwd(q, k, v, p, kl)
+    first = rel_attention_bwd(q, k, v, p, kl, o, m, l, do)
+    for x, y in zip(rel_attention_bwd(q, k, v, p, kl, o, m, l, do), first):
+        assert torch.equal(x, y)
+    if dtype != torch.float32:
+        return
+    args = _las_args(rng, cuda, 32, 12, 188, 1024, 512, 512, 10, 201,
+                     [188 - 3 * i for i in range(32)])
+    outs = las_scan(*args)
+    w_ctx, w_h, _, w_q, conv_w, w_f, vv, kc, values, kl, keep = args[1:]
+    saved = (w_ctx, w_h, w_q, conv_w, w_f, vv, kc, values, kl, keep, *outs)
+    dh, dctx = _randn(rng, cuda, 12, 32, 1024), _randn(rng, cuda, 12, 32, 512)
+    first = las_scan_bwd(*saved, dh, dctx)
+    for x, y in zip(las_scan_bwd(*saved, dh, dctx), first):
+        assert torch.equal(x, y)
 
 
 def test_ctc_loss_refuses_bad_arguments(cuda):

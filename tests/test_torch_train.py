@@ -276,16 +276,41 @@ def test_weight_decay_update_matches_optax():
 
 
 @pytest.mark.parametrize("name", _NOT_PORTED + (
-    "ss_prob", "dropout_enc_layer", "dropout_in", "dropout_att", "zoneout"))
+    "dec_n_projs", "dropout_enc_layer", "dropout_in", "dropout_att",
+    "zoneout"))
 def test_unported_training_options_raise(name):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_speech2text(small_args(**{name: 0.1}), device="cpu")
 
 
-@pytest.mark.parametrize("opt", ["sgd", "adamw"])
+@pytest.mark.parametrize("opt", ["momentum", "adamw"])
 def test_unported_optimizers_raise(opt):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_optimizer(opt)
+
+
+def test_sgd_matches_optax():
+    """``build_optimizer("sgd")`` (the JAX CLI's switch: clip, then
+    -lr * g) against ``optax.chain(clip_by_global_norm, sgd)`` over three
+    updates, the second with a gradient below the clip norm; every call
+    emits, and the state is empty."""
+    rng = np.random.RandomState(4)
+    shapes = [(5, 3), (7,), (2, 2, 3)]
+    params = [rng.randn(*s).astype(np.float32) for s in shapes]
+    tx = optax.chain(optax.clip_by_global_norm(5.0), optax.sgd(1e-4))
+    state = tx.init([jnp.asarray(p) for p in params])
+    opt = build_optimizer("sgd", lr=1e-4, clip_grad_norm=5.0)
+    opt.init([torch.from_numpy(p) for p in params])
+    for scale in (3.0, 0.1, 10.0):
+        grads = [scale * rng.randn(*s).astype(np.float32) for s in shapes]
+        want, state = tx.update([jnp.asarray(g) for g in grads], state)
+        got = opt.update([torch.from_numpy(g) for g in grads])
+        for g_, w in zip(got, want):
+            np.testing.assert_allclose(g_.numpy(), np.asarray(w), rtol=1e-6,
+                                       atol=1e-12)
+    assert opt.state_dict([]) == {"optimizer": "sgd"}
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        build_optimizer("sgd", accum_grad_n_steps=2)
 
 
 def test_flagship_training_options_are_honoured():
