@@ -60,7 +60,8 @@ Phases (any failure raises and the script exits non-zero):
      (B=32, T=188, U=100, V=10000, ragged lengths, a repeated label);
      errors are normalised by the reference's largest magnitude; K1b
      against the autograd backward of K1's yardstick, K4 against
-     ``F.ctc_loss``; each with its bound;
+     ``F.ctc_loss`` (timed in float32, held to the plain version in
+     float64); each with its bound;
      Then K1's and K1b's bf16 entries at the same shapes, ragged and full
      lengths, each against its plain bf16 version (1e-2 of the
      reference's max) and against the plain float32 version on the same
@@ -120,14 +121,37 @@ Phases (any failure raises and the script exits non-zero):
      at every microstep, its first update -1e-4 times the clipped gradient
      to within one f32 spacing of each parameter; then the widest
      microbatch on the trained weights, sampling on, kernels against the
-     plain versions (K2 in pass 1 too) at phase 6's tolerance.
+     plain versions (K2 in pass 1 too) at phase 6's tolerance;
+  8. the LibriSpeech recipe's BLSTM-LAS (``BLSTM_CONF``: the conv front
+     end, 5 BLSTM-512 layers concatenated, D = 1024, on cuDNN; LSTM-1024
+     LAS; CTC 0.3; 69,197,722 parameters, f32): (8a) K2 at N = 10 and at
+     N = 32 with keep (T = 400), K3 and K3b at B = 32, U+1 = 101, ragged T
+     up to 500, K4 at B = 32, T = 500, U = 100, V = 10,000, each against
+     its plain version at phase 2's / 2b's tolerance, timed, with its
+     bound; (8b) phase 3's four utterances, beam 10 + CTC 0.3 and greedy
+     on the seeded model (counts zeroed around them: K2 must run, K1 / K1b
+     must not), the encoder's time, the cuDNN encoder against the layers'
+     written-out loop, the best hypothesis replayed against the plain
+     decode step, one profiled beam request; (8c) the train CLI on the
+     conf (``BLSTM_OVERRIDES``: 2 epochs, the word unit; phase 7's
+     corpus) and the eval CLI as the recipe's stage 5, counts zeroed around
+     each (K2 in pass 1, K3, K3b and K4 in training, K2 in evaluation, K1
+     / K1b in neither), every loss finite, the sampled share within 4
+     binomial standard deviations of 0.2, a profiled microstep (the cuDNN
+     RNN operators' share of the device time); (8d) the widest CLI
+     microbatch on the trained weights, kernels against the plain versions
+     at phase 6's tolerance, and one train() microstep twice: the same
+     bits. ``python3 chip_smoke.py --blstm-only`` builds the kernels and
+     runs phase 8 alone (its details, no result line).
 
 Launches per step (per encode for K1, per decode step for K2, per training
 microstep for the rest; K1 / K1b bf16 in phase 5's bf16 run) are counted
 in phases 3b, 4 and 5; K1's and K2's launches on the main path over the
 served requests of phases 3 and 3c; each kernel's launches in phase 7's
-three CLI runs and phase 7b's apart (``cli_launches``), K2's per
-training microstep (``train_launches_per_microstep``). Prints the
+three CLI runs, phase 7b's and phase 8's two apart (``cli_launches``), K2's
+per training microstep (``train_launches_per_microstep``); phase 8's path
+(its served requests and its two CLI runs, ``blstm_launches``) and each
+kernel's numbers at phase 8's shapes (``blstm``). Prints the
 details as JSON (also written to ``chiprun_out/chip_smoke.json``), then one
 JSON line of per-kernel results (launches, launches_per_step, ms,
 plain_ms, bound_ms, bound_by, library_ms, errors), the card's ``name,
@@ -343,10 +367,8 @@ def phase_build():
 
 
 def phase_kernels(torch, rng):
-    from neural_sp_tpu_torch.ops.kernels import (
-        las_step, las_step_ref, rel_attention, rel_attention_ref)
-    from neural_sp_tpu_torch.ops.kernels.las_step import (LasStepWorkspace,
-                                                          las_step_cost)
+    from neural_sp_tpu_torch.ops.kernels import (rel_attention,
+                                                 rel_attention_ref)
     from neural_sp_tpu_torch.ops.kernels.rel_attention import \
         rel_attention_cost
     dev = torch.device("cuda")
@@ -384,73 +406,88 @@ def phase_kernels(torch, rng):
             row.update(ms=ms, plain_ms=ref_ms, library_ms=yard["library_ms"],
                        library_err=yard["library_err"], **bound)
 
-    hd, d, a, c, kw = 1024, 512, 512, 10, 201
     # the rows the served sessions give it: 10 (beam 10 of one utterance),
     # 4 (greedy, the batch) and 40 (the on-device beam over the batch); and
     # scheduled sampling's pass 1 over a training microbatch (32 rows, T
     # 188, the LSTM output's dropout scale as keep)
+    row = res["las_step"]
     for n, tt in ((10, 200), (4, 200), (40, 200), (10, 400), (32, 188)):
-        keep = (torch.from_numpy((rng.random((n, hd)) >= 0.1).astype(
-            "float32")) / 0.9).to(dev) if n == 32 else None
-        aw_prev = torch.softmax(t(n, tt, scale=3.0), -1)
-        args = (t(n, 4 * hd, scale=0.5), t(n, d), t(n, hd, scale=0.5),
-                t(n, hd), aw_prev, t(d, 4 * hd, scale=(d + hd) ** -0.5),
-                t(hd, 4 * hd, scale=(d + hd) ** -0.5), t(4 * hd, scale=0.1),
-                t(a, hd, scale=hd ** -0.5), t(c, kw, scale=kw ** -0.5),
-                t(a, c, scale=c ** -0.5), t(a, scale=a ** -0.5),
-                t(n, tt, a), t(n, tt, d),
-                torch.tensor([tt - 3 * i for i in range(n)],
-                             dtype=torch.int32, device=dev))
-        # both forms of the wrapper (the checked, allocating call and the
-        # workspace a decode loop steps through), without and with a
-        # beam's reorder, against the plain version; the forms must agree
-        # bit for bit
-        ws = LasStepWorkspace(*args[5:])
-        parent = torch.from_numpy(
-            rng.integers(0, n, n).astype("int32")).to(dev)
-        err = 0.0
-        for par in (None, parent):
-            refs = las_step_ref(*args, parent=par, keep=keep)
-            outs = las_step(*args, parent=par, keep=keep)
-            ws.load_carry(*args[1:5])
-            ws.eg.copy_(args[0])
-            if par is not None:
-                ws.parent.copy_(par)
-            stepped = ws.step(use_parent=par is not None, keep=keep)
-            err = max(err, *(max_err(x, y) for x, y in zip(outs, refs)))
-            expect(all(torch.equal(x, y) for x, y in zip(stepped, outs)),
-                   f"K2 N={n} T={tt}: the workspace form differs from the "
-                   f"call")
-        per_step = las_step.kernels_per_step
-        ms = cuda_ms(lambda: ws.step(use_parent=True, keep=keep), iters=200)
-        call_ms = cuda_ms(lambda: las_step(*args, parent=parent, keep=keep),
-                          iters=200)
-        ref_ms = cuda_ms(lambda: las_step_ref(*args, parent=parent,
-                                              keep=keep))
-        bound = roofline(las_step_cost(n, tt, hd, d, a, c, kw,
-                                       args[-1].tolist()))
-        log(f"[2] K2 las_step N={n} T={tt} H={hd} D={d} A={a} C={c} K={kw}"
-            f"{' with keep' if keep is not None else ''}: "
-            f"max_abs_err {err:.3e}  kernel {ms:.4f} ms through its "
-            f"workspace, {call_ms:.4f} ms as a checked call, {per_step} "
-            f"kernels per step  twin {ref_ms:.4f} ms  bound "
-            f"{bound['bound_ms']:.4f} ms ({bound['bound_by']})")
-        expect(err <= KERNEL_ATOL,
-               f"K2 N={n} T={tt}: error {err} > {KERNEL_ATOL}")
-        row = res["las_step"]
-        row["max_abs_err"] = max(row["max_abs_err"], err)
-        shape = {"shape": f"N={n} T={tt}", "keep": keep is not None,
-                 "max_abs_err": err, "ms": ms,
-                 "checked_call_ms": call_ms, "kernels_per_step": per_step,
-                 "plain_ms": ref_ms, **bound}
+        shape = k2_case(torch, rng, n, tt, 512, keep=n == 32)
+        row["max_abs_err"] = max(row["max_abs_err"], shape["max_abs_err"])
         row.setdefault("shapes", []).append(shape)
         if (n, tt) == (10, 200):
             # no single PyTorch call computes an LSTM cell with location
             # attention fed back: no library yardstick
-            row.update(ms=ms, checked_call_ms=call_ms,
-                       kernels_per_step=per_step, plain_ms=ref_ms,
-                       library_ms=None, **bound)
+            row.update(library_ms=None, **{
+                k: v for k, v in shape.items()
+                if k not in ("shape", "keep", "max_abs_err")})
     return res
+
+
+def k2_case(torch, rng, n, tt, d, keep=False, tag="2"):
+    """K2 at N rows, T frames and encoder width d (H 1024, A 512, C 10, K
+    201), with a dropout scale ``keep`` (rate 0.1) or none: both forms of
+    the wrapper (the checked, allocating call and the workspace a decode
+    loop steps through), without and with a beam's reorder, against the
+    plain version (KERNEL_ATOL), the two forms equal bit for bit; CUDA-event
+    times of the workspace form, the checked call and the plain version,
+    and the bound."""
+    from neural_sp_tpu_torch.ops.kernels import las_step, las_step_ref
+    from neural_sp_tpu_torch.ops.kernels.las_step import (LasStepWorkspace,
+                                                          las_step_cost)
+    dev = torch.device("cuda")
+    hd, a, c, kw = 1024, 512, 10, 201
+
+    def t(*shape, scale=1.0):
+        return torch.from_numpy(
+            (rng.standard_normal(shape) * scale).astype("float32")).to(dev)
+
+    keep = (torch.from_numpy((rng.random((n, hd)) >= 0.1).astype(
+        "float32")) / 0.9).to(dev) if keep else None
+    aw_prev = torch.softmax(t(n, tt, scale=3.0), -1)
+    args = (t(n, 4 * hd, scale=0.5), t(n, d), t(n, hd, scale=0.5),
+            t(n, hd), aw_prev, t(d, 4 * hd, scale=(d + hd) ** -0.5),
+            t(hd, 4 * hd, scale=(d + hd) ** -0.5), t(4 * hd, scale=0.1),
+            t(a, hd, scale=hd ** -0.5), t(c, kw, scale=kw ** -0.5),
+            t(a, c, scale=c ** -0.5), t(a, scale=a ** -0.5),
+            t(n, tt, a), t(n, tt, d),
+            torch.tensor([tt - 3 * i for i in range(n)],
+                         dtype=torch.int32, device=dev))
+    ws = LasStepWorkspace(*args[5:])
+    parent = torch.from_numpy(
+        rng.integers(0, n, n).astype("int32")).to(dev)
+    err = 0.0
+    for par in (None, parent):
+        refs = las_step_ref(*args, parent=par, keep=keep)
+        outs = las_step(*args, parent=par, keep=keep)
+        ws.load_carry(*args[1:5])
+        ws.eg.copy_(args[0])
+        if par is not None:
+            ws.parent.copy_(par)
+        stepped = ws.step(use_parent=par is not None, keep=keep)
+        err = max(err, *(max_err(x, y) for x, y in zip(outs, refs)))
+        expect(all(torch.equal(x, y) for x, y in zip(stepped, outs)),
+               f"K2 N={n} T={tt} D={d}: the workspace form differs from "
+               f"the call")
+    per_step = las_step.kernels_per_step
+    ms = cuda_ms(lambda: ws.step(use_parent=True, keep=keep), iters=200)
+    call_ms = cuda_ms(lambda: las_step(*args, parent=parent, keep=keep),
+                      iters=200)
+    ref_ms = cuda_ms(lambda: las_step_ref(*args, parent=parent, keep=keep))
+    bound = roofline(las_step_cost(n, tt, hd, d, a, c, kw,
+                                   args[-1].tolist()))
+    log(f"[{tag}] K2 las_step N={n} T={tt} H={hd} D={d} A={a} C={c} K={kw}"
+        f"{' with keep' if keep is not None else ''}: "
+        f"max_abs_err {err:.3e}  kernel {ms:.4f} ms through its "
+        f"workspace, {call_ms:.4f} ms as a checked call, {per_step} "
+        f"kernels per step  twin {ref_ms:.4f} ms  bound "
+        f"{bound['bound_ms']:.4f} ms ({bound['bound_by']})")
+    expect(err <= KERNEL_ATOL,
+           f"K2 N={n} T={tt} D={d}: error {err} > {KERNEL_ATOL}")
+    return {"shape": f"N={n} T={tt}" + (f" D={d}" if d != 512 else ""),
+            "keep": keep is not None, "max_abs_err": err, "ms": ms,
+            "checked_call_ms": call_ms, "kernels_per_step": per_step,
+            "plain_ms": ref_ms, **bound}
 
 
 def flagship_model(torch):
@@ -470,19 +507,21 @@ def utterances(rng):
     return xs, np.asarray(UTT_FRAMES, np.int64)
 
 
-def phase_serve(torch, model, xs, xlens):
+SERVED = {"beam10_ctc0.3": dict(beam_width=10, ctc_weight=0.3),
+          "beam10_device": dict(beam_width=10, device_beam=True),
+          "greedy": dict(beam_width=1)}
+
+
+def phase_serve(torch, model, xs, xlens, names=tuple(SERVED), tag="3"):
+    """The sessions ``names`` (``SERVED``) on the utterances, each timed,
+    the launch counts zeroed before the first and read after the last;
+    returns (results, counts)."""
     from neural_sp_tpu_torch.models.decoders.decoding import (
         DecodeConfig, Speech2TextSession)
     from neural_sp_tpu_torch.models.decoders.las import DecodeLoop
-    from neural_sp_tpu_torch.ops.kernels import (
-        las_step, rel_attention, reset_launches)
-    beam = Speech2TextSession(model, DecodeConfig(beam_width=10,
-                                                  ctc_weight=0.3))
-    device_beam = Speech2TextSession(model, DecodeConfig(beam_width=10,
-                                                         device_beam=True))
-    greedy = Speech2TextSession(model, DecodeConfig(beam_width=1))
-    sessions = (("beam10_ctc0.3", beam), ("beam10_device", device_beam),
-                ("greedy", greedy))
+    from neural_sp_tpu_torch.ops.kernels import launches, reset_launches
+    sessions = [(name, Speech2TextSession(model, DecodeConfig(
+        **SERVED[name]))) for name in names]
     for _, sess in sessions:   # warm-up, not counted
         sess.decode(xs[:1, :200], xlens[:1] * 0 + 200)
     torch.cuda.synchronize()
@@ -507,26 +546,26 @@ def phase_serve(torch, model, xs, xlens):
                      "peak_mem_bytes": torch.cuda.max_memory_allocated()}
         if name == "beam10_ctc0.3":
             out["best_hyp0"] = hyps[0]
-        log(f"[3] {name}: hyp lens {out[name]['hyp_lens']}  wall "
+        log(f"[{tag}] {name}: hyp lens {out[name]['hyp_lens']}  wall "
             f"{wall:.3f} s ({wall / len(hyps):.3f} s/utt)  RTF "
             f"{wall / audio_sec:.4f}  {steps} decode steps, "
             f"{out[name]['wall_ms_per_decode_step']:.4f} ms of wall each  "
             f"peak mem "
             f"{out[name]['peak_mem_bytes']} B")
-    launches = {"rel_attention": rel_attention.launches,
-                "las_step": las_step.launches}
-    log(f"[3] launches during the served requests: {launches}")
-    expect(all(v > 0 for v in launches.values()),
-           f"a kernel of the path never launched: {launches}")
-    return out, launches
+    counts = launches()
+    log(f"[{tag}] launches during the served requests: {counts}")
+    return out, counts
 
 
-def profiled(torch, what: str, fn, annotation: str | None = None) -> dict:
+def profiled(torch, what: str, fn, annotation: str | None = None,
+             ops: tuple = (), tag: str = "3b") -> dict:
     """Run fn once under torch.profiler: wall time, device busy time (the
     union of the device events' intervals), idle share, and the kernels
     that take the most device time; with ``annotation``, also the device
     time of the kernels launched inside the ``record_function`` ranges of
-    that name, and how many ranges there were."""
+    that name, and how many ranges there were; with ``ops``, the device
+    time of the kernels launched inside the operators of those names
+    (``ops_device_ms``)."""
     from collections import defaultdict
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -536,8 +575,12 @@ def profiled(torch, what: str, fn, annotation: str | None = None) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     spans, by_name = [], defaultdict(float)
-    ranges, range_us = 0, 0.0
+    ranges, range_us, ops_us = 0, 0.0, 0.0
     for evt in prof.events():
+        if evt.name in ops and \
+                evt.device_type == torch.autograd.DeviceType.CPU:
+            ops_us += evt.device_time_total
+            continue
         if annotation is not None and evt.name == annotation:
             # the host's range sums the device time of the kernels
             # launched inside it; the range's device-side copy spans them
@@ -559,15 +602,17 @@ def profiled(torch, what: str, fn, annotation: str | None = None) -> dict:
     if annotation is not None:
         out.update({f"{annotation}_ranges": ranges,
                     f"{annotation}_device_ms": range_us / 1e3})
+    if ops:
+        out["ops_device_ms"] = ops_us / 1e3
     if not spans:
-        log(f"[3b] {what}: wall {wall:.3f} s; device time not measured "
+        log(f"[{tag}] {what}: wall {wall:.3f} s; device time not measured "
             f"(the profiler saw no device events)")
         return out
     out.update(device_busy_s=busy_us / 1e6,
                device_idle_share=1.0 - busy_us / 1e6 / wall,
                top_device_ms=dict(sorted(by_name.items(),
                                          key=lambda kv: -kv[1])[:12]))
-    log(f"[3b] {what}: wall {wall:.3f} s, device busy "
+    log(f"[{tag}] {what}: wall {wall:.3f} s, device busy "
         f"{busy_us / 1e6:.4f} s, idle share {out['device_idle_share']:.4f}")
     for name, ms in out["top_device_ms"].items():
         log(f"      {ms:9.3f} ms  {name}")
@@ -811,14 +856,11 @@ def lm_against_cpu(torch, lm) -> float:
 
 def phase_twins(torch, model, xs, xlens, best_hyp):
     """Encoder and decoder chain with the kernels against the twins."""
-    from neural_sp_tpu_torch import EOS
-    from neural_sp_tpu_torch.models.decoders import las
     from neural_sp_tpu_torch.models.decoders.decoding import (
         DecodeConfig, Speech2TextSession)
     from neural_sp_tpu_torch.models.modules import \
         relative_multihead_attention as rma
-    from neural_sp_tpu_torch.ops.kernels import las_step, las_step_ref, \
-        rel_attention_ref
+    from neural_sp_tpu_torch.ops.kernels import rel_attention_ref
     sess = Speech2TextSession(model, DecodeConfig(beam_width=10,
                                                   ctc_weight=0.3))
     eouts = sess.encode(xs, xlens)
@@ -834,8 +876,30 @@ def phase_twins(torch, model, xs, xlens, best_hyp):
 
     dec = model.dec_fwd
     e0, el0 = e[:1], el[:1]
+    step_err, per_step = replay_against_plain(torch, dec, e0, el0, best_hyp)
+    # the loops as the sessions step them: beam 10 of one utterance, the
+    # on-device beam over the batch, greedy over the batch
+    k = 10
+    loop_err = max(
+        loop_against_plain(torch, dec, e0.repeat_interleave(k, 0),
+                           el0.repeat_interleave(k), reorder=True),
+        loop_against_plain(torch, dec, e.repeat_interleave(k, 0),
+                           el.repeat_interleave(k), reorder=True),
+        loop_against_plain(torch, dec, e, el, reorder=True),
+        loop_against_plain(torch, dec, e, el, reorder=False))
+    return enc_err, max(step_err, loop_err), per_step
+
+
+def replay_against_plain(torch, dec, e0, el0, hyp, tag="4"):
+    """Replays ``hyp`` (after the start token) through the decode step on
+    one utterance's encoder outputs e0 [1, T, D], K2 against the plain step
+    chain: the largest logit error over the steps (PATH_ATOL), and K2's
+    launches per decode step."""
+    from neural_sp_tpu_torch import EOS
+    from neural_sp_tpu_torch.models.decoders import las
+    from neural_sp_tpu_torch.ops.kernels import las_step, las_step_ref
     klens = el0.to(torch.int32)
-    tokens = [EOS] + best_hyp
+    tokens = [EOS] + hyp
     step_err = 0.0
     before = las_step.launches
     with torch.inference_mode():
@@ -850,21 +914,11 @@ def phase_twins(torch, model, xs, xlens, best_hyp):
             expect(bool(torch.isfinite(logits).all()), "logits not finite")
             step_err = max(step_err, max_err(logits, logits_ref))
     per_step = (las_step.launches - before) / len(tokens)
-    log(f"[4] best hypothesis replay, {len(tokens)} steps: kernels vs twins "
-        f"logits max_abs_err {step_err:.3e}; K2 launches per decode step "
-        f"{per_step}")
+    log(f"[{tag}] best hypothesis replay, {len(tokens)} steps: kernels vs "
+        f"twins logits max_abs_err {step_err:.3e}; K2 launches per decode "
+        f"step {per_step}")
     expect(step_err <= PATH_ATOL, f"decoder error {step_err} > {PATH_ATOL}")
-    # the loops as the sessions step them: beam 10 of one utterance, the
-    # on-device beam over the batch, greedy over the batch
-    k = 10
-    loop_err = max(
-        loop_against_plain(torch, dec, e0.repeat_interleave(k, 0),
-                           el0.repeat_interleave(k), reorder=True),
-        loop_against_plain(torch, dec, e.repeat_interleave(k, 0),
-                           el.repeat_interleave(k), reorder=True),
-        loop_against_plain(torch, dec, e, el, reorder=True),
-        loop_against_plain(torch, dec, e, el, reorder=False))
-    return enc_err, max(step_err, loop_err), per_step
+    return step_err, per_step
 
 
 def loop_against_plain(torch, dec, e, el, reorder: bool, n_steps: int = 8,
@@ -951,12 +1005,15 @@ def rel_attention_bwd_yardstick(torch, args, kernel, what: str,
             "bucket_scatter_ms": scatter_ms}
 
 
-def ctc_yardstick(torch, cargs, nll_r, alphas_r, g) -> dict:
+def ctc_yardstick(torch, cargs, saved_r, nll_r, g, tag="2b") -> dict:
     """K4 against F.ctc_loss(lp.transpose(0, 1), labels, lengths, blank=0,
     reduction="none"): forward against K4's forward; F.ctc_loss's backward
     gives the gradient w.r.t. the logits, so it is set against K4's
-    backward followed by the log-softmax backward. Each output is held to
-    the plain version."""
+    backward followed by the log-softmax backward. The library is timed in
+    float32 and held to the plain version (float64 inside) in float64,
+    where it computes the same function without float32's log-space
+    rounding (its float32 error, reported: 2.6e-3 of the plain max at T =
+    500); ``saved_r`` is what the plain forward saves, (alphas,)."""
     from torch.nn.functional import ctc_loss
     from neural_sp_tpu_torch.ops.kernels.ctc_loss import (
         ctc_loss_bwd, ctc_loss_bwd_ref, ctc_loss_fwd)
@@ -969,25 +1026,34 @@ def ctc_yardstick(torch, cargs, nll_r, alphas_r, g) -> dict:
     def lsm_bwd(grad):
         return torch._log_softmax_backward_data(grad, lp, -1, lp.dtype)
 
+    def lib_grad(x):
+        leaf = x.detach().requires_grad_()
+        return torch.autograd.grad(lib_fwd(leaf), leaf, g.to(x.dtype))[0]
+
     leaf = lp.detach().requires_grad_()
     loss = lib_fwd(leaf)
 
     def lib_bwd():
         return torch.autograd.grad(loss, leaf, g, retain_graph=True)[0]
 
-    err = max(rel_err(lib_fwd(), nll_r), rel_err(lib_bwd(), lsm_bwd(
-        ctc_loss_bwd_ref(*cargs, nll_r, alphas_r, g))))
+    grad_r = lsm_bwd(ctc_loss_bwd_ref(*cargs, *saved_r, g))
+    errs = {dt: max(rel_err(lib_fwd(lp.to(dt)), nll_r),
+                    rel_err(lib_grad(lp.to(dt)), grad_r))
+            for dt in (torch.float64, torch.float32)}
+    err = errs[torch.float64]
     fwd_ms, fwd_lib = timed_pair(lambda: ctc_loss_fwd(*cargs), lib_fwd)
     bwd_lsm_ms, bwd_lib = timed_pair(
-        lambda: lsm_bwd(ctc_loss_bwd(*cargs, nll_r, alphas_r, g)), lib_bwd)
-    log(f"[2b] K4 forward {fwd_ms:.4f} ms, F.ctc_loss forward {fwd_lib:.4f}"
-        f" ms; K4 backward + log-softmax backward {bwd_lsm_ms:.4f} ms, "
-        f"F.ctc_loss backward {bwd_lib:.4f} ms; library error {err:.3e} of "
-        f"the plain max")
+        lambda: lsm_bwd(ctc_loss_bwd(*cargs, *saved_r, g)), lib_bwd)
+    log(f"[{tag}] K4 forward {fwd_ms:.4f} ms, F.ctc_loss forward "
+        f"{fwd_lib:.4f} ms; K4 backward + log-softmax backward "
+        f"{bwd_lsm_ms:.4f} ms, F.ctc_loss backward {bwd_lib:.4f} ms; library "
+        f"error {err:.3e} of the plain max in float64, "
+        f"{errs[torch.float32]:.3e} in float32")
     expect(err <= YARDSTICK_RTOL, f"K4 yardstick: error {err}")
     return {"fwd_kernel_ms": fwd_ms, "fwd_library_ms": fwd_lib,
             "bwd_with_log_softmax_ms": bwd_lsm_ms, "bwd_library_ms": bwd_lib,
-            "library_ms": fwd_lib + bwd_lib, "library_err": err}
+            "library_ms": fwd_lib + bwd_lib, "library_err": err,
+            "library_f32_err": errs[torch.float32]}
 
 
 def phase_train_kernels(torch, rng):
@@ -996,12 +1062,6 @@ def phase_train_kernels(torch, rng):
     and their library yardsticks; K1 at the training shapes too."""
     import numpy as np
     from neural_sp_tpu_torch.ops.kernels import rel_attention
-    from neural_sp_tpu_torch.ops.kernels.ctc_loss import (
-        ctc_forward_alphas, ctc_loss_bwd, ctc_loss_bwd_cost,
-        ctc_loss_bwd_ref, ctc_loss_cost, ctc_loss_fwd)
-    from neural_sp_tpu_torch.ops.kernels.las_scan import (
-        las_scan, las_scan_bwd, las_scan_bwd_chain, las_scan_bwd_cost,
-        las_scan_bwd_finish, las_scan_bwd_ref, las_scan_cost, las_scan_ref)
     from neural_sp_tpu_torch.ops.kernels.rel_attention import (
         rel_attention_bwd, rel_attention_bwd_cost, rel_attention_bwd_ref,
         rel_attention_cost, rel_attention_fwd, rel_attention_ref)
@@ -1012,20 +1072,7 @@ def phase_train_kernels(torch, rng):
             (rng.standard_normal(shape) * scale).astype("float32")).to(dev)
 
     res = {"rel_attention_train_shapes": []}
-
-    def record(name, err, ms, ref_ms, what, **extra):
-        log(f"[2b] {name} {what}: error {err:.3e} (of the reference's max)"
-            f"  kernel {ms:.4f} ms  plain {ref_ms:.4f} ms"
-            + (f"  bound {extra['bound_ms']:.4f} ms ({extra['bound_by']})"
-               if "bound_ms" in extra else ""))
-        tol = TRAIN_KERNEL_TOL[name]
-        expect(err <= tol, f"{name} {what}: error {err} > {tol}")
-        r = res.setdefault(name, {"max_abs_err": 0.0, "shapes": []})
-        r["max_abs_err"] = max(r["max_abs_err"], err)
-        r["shapes"].append({"shape": what, "ms": ms, "plain_ms": ref_ms,
-                            **extra})
-        if "ms" not in r:
-            r.update(ms=ms, plain_ms=ref_ms, **extra)
+    record = kernel_recorder(res, "2b")
 
     b, h, dk, r = TRAIN_B, 8, 64, 11
     for tt in (750, 375, 188):
@@ -1062,49 +1109,13 @@ def phase_train_kernels(torch, rng):
             f"{bound['bound_ms']:.4f} ms ({bound['bound_by']})")
         del got, want, args, fargs, o, m, l, do
 
-    u, tt, hd, d, a, c, kw = 101, 188, 1024, 512, 512, 10, 201
-    rate = 0.1
-    keep = (torch.from_numpy((rng.random((u, b, hd)) >= rate).astype(
-        "float32")) / (1 - rate)).to(dev)
-    kl = [tt - 3 * i for i in range(b)]
-    args = (t(u, b, 4 * hd, scale=0.5), t(d, 4 * hd, scale=(d + hd) ** -0.5),
-            t(hd, 4 * hd, scale=(d + hd) ** -0.5), t(4 * hd, scale=0.1),
-            t(a, hd, scale=hd ** -0.5), t(c, kw, scale=kw ** -0.5),
-            t(a, c, scale=c ** -0.5), t(a, scale=a ** -0.5), t(b, tt, a),
-            t(b, tt, d), torch.tensor(kl, dtype=torch.int32, device=dev),
-            keep)
-    outs, refs = las_scan(*args), las_scan_ref(*args)
-    what = f"B={b} U={u} T={tt} H={hd} D={d} A={a} C={c} K={kw}"
-    log(f"[2b] las_scan: {las_scan.kernel_launches_per_call} kernel launches "
-        f"per call")
-    # no single PyTorch call computes the scan (cuDNN's LSTM has no
-    # attention fed back into its input): no library yardstick
-    record("las_scan", max(rel_err(x, y) for x, y in zip(outs, refs)),
-           cuda_ms(lambda: las_scan(*args), iters=5, warmup=1),
-           cuda_ms(lambda: las_scan_ref(*args), iters=5, warmup=1), what,
-           library_ms=None,
-           **roofline(las_scan_cost(u, b, tt, hd, d, a, c, kw, kl)))
-    w_ctx, w_h, _, w_q, conv_w, w_f, v, kc, values, klt, keep = args[1:]
-    bargs = (w_ctx, w_h, w_q, conv_w, w_f, v, kc, values, klt, keep, *refs,
-             t(u, b, hd), t(u, b, d))
-    got, want = las_scan_bwd(*bargs), las_scan_bwd_ref(*bargs)
-    # the wrapper's work after the kernel loop (weight-gradient and
-    # dvalues products, partial sums), timed alone on the loop's outputs
-    h, _, _, _, aw, ctx = refs
-    raw = las_scan_bwd_chain(*bargs)
-    outside_ms = cuda_ms(lambda: las_scan_bwd_finish(h, ctx, keep, aw, *raw),
-                         iters=5, warmup=1)
-    log(f"[2b] las_scan_bwd: {las_scan_bwd.kernel_launches_per_call} kernel "
-        f"launches per call; the work after the loop {outside_ms:.4f} ms")
-    record("las_scan_bwd", max(rel_err(x, y) for x, y in zip(got, want)),
-           cuda_ms(lambda: las_scan_bwd(*bargs), iters=5, warmup=1),
-           cuda_ms(lambda: las_scan_bwd_ref(*bargs), iters=5, warmup=1),
-           what, library_ms=None, outside_ms=outside_ms,
-           **roofline(las_scan_bwd_cost(u, b, tt, hd, d, a, c, kw, kl)))
+    kl = [188 - 3 * i for i in range(b)]
+    tensors = las_scan_case(torch, rng, record, b, 101, 188, 512, kl)
     # at bf16 compute K3 and K3b stay float32 and LASScan casts at their
     # boundary: the inputs (and keep) to float32 and h, ctx, aw back to
     # bf16 around K3; the output gradients to float32 and the ten input
     # gradients back to bf16 around K3b. The casts alone, on these shapes:
+    args, bargs, refs, got = tensors
     bf = torch.bfloat16
     ins16 = [x.to(bf) for x in args if x.is_floating_point()]
     outs32 = (refs[0], refs[5], refs[4])
@@ -1117,42 +1128,138 @@ def phase_train_kernels(torch, rng):
     res["las_scan_bwd"]["bf16_boundary_cast_ms"] = cast_bwd
     log(f"[2b] bf16 compute: LASScan's casts at K3's boundary {cast_fwd:.4f}"
         f" ms, at K3b's {cast_bwd:.4f} ms (the kernels stay float32)")
-    del got, want, raw
+    del tensors, args, bargs, refs, got
+    ctc_case(torch, rng, record, b, 188, TRAIN_U, 10000)
+    return res
 
-    tt, uu, vv = 188, TRAIN_U, 10000
-    lp = torch.log_softmax(t(b, tt, vv, scale=2.0), -1)
+
+def kernel_recorder(res: dict, tag: str):
+    """``record(name, err, ms, ref_ms, what, **extra)``: logs a training
+    kernel's check, holds its error to TRAIN_KERNEL_TOL and keeps the row
+    in ``res`` (the first shape's numbers as the kernel's own)."""
+    def record(name, err, ms, ref_ms, what, **extra):
+        log(f"[{tag}] {name} {what}: error {err:.3e} (of the reference's "
+            f"max)  kernel {ms:.4f} ms  plain {ref_ms:.4f} ms"
+            + (f"  bound {extra['bound_ms']:.4f} ms ({extra['bound_by']})"
+               if "bound_ms" in extra else ""))
+        tol = TRAIN_KERNEL_TOL[name]
+        expect(err <= tol, f"{name} {what}: error {err} > {tol}")
+        r = res.setdefault(name, {"max_abs_err": 0.0, "shapes": []})
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        r["shapes"].append({"shape": what, "ms": ms, "plain_ms": ref_ms,
+                            **extra})
+        if "ms" not in r:
+            r.update(ms=ms, plain_ms=ref_ms, **extra)
+    return record
+
+
+def las_scan_case(torch, rng, record, b, u, tt, d, kl, tag="2b"):
+    """K3 and K3b at B rows, U steps, T frames and encoder width d (H 1024,
+    A 512, C 10, K 201, klens ``kl``, dropout keep-masks at rate 0.1)
+    against their plain versions, with CUDA-event times, bounds, K3's and
+    K3b's kernel launches per call and the time of K3b's wrapper's work
+    after its kernel loop; returns (args, backward args, K3's plain
+    outputs, K3b's outputs)."""
+    from neural_sp_tpu_torch.ops.kernels.las_scan import (
+        las_scan, las_scan_bwd, las_scan_bwd_chain, las_scan_bwd_cost,
+        las_scan_bwd_finish, las_scan_bwd_ref, las_scan_cost, las_scan_ref)
+    dev = torch.device("cuda")
+    hd, a, c, kw = 1024, 512, 10, 201
+
+    def t(*shape, scale=1.0):
+        return torch.from_numpy(
+            (rng.standard_normal(shape) * scale).astype("float32")).to(dev)
+
+    rate = 0.1
+    keep = (torch.from_numpy((rng.random((u, b, hd)) >= rate).astype(
+        "float32")) / (1 - rate)).to(dev)
+    args = (t(u, b, 4 * hd, scale=0.5), t(d, 4 * hd, scale=(d + hd) ** -0.5),
+            t(hd, 4 * hd, scale=(d + hd) ** -0.5), t(4 * hd, scale=0.1),
+            t(a, hd, scale=hd ** -0.5), t(c, kw, scale=kw ** -0.5),
+            t(a, c, scale=c ** -0.5), t(a, scale=a ** -0.5), t(b, tt, a),
+            t(b, tt, d), torch.tensor(kl, dtype=torch.int32, device=dev),
+            keep)
+    outs, refs = las_scan(*args), las_scan_ref(*args)
+    what = f"B={b} U={u} T={tt} H={hd} D={d} A={a} C={c} K={kw}"
+    log(f"[{tag}] las_scan: {las_scan.kernel_launches_per_call} kernel "
+        f"launches per call")
+    # no single PyTorch call computes the scan (cuDNN's LSTM has no
+    # attention fed back into its input): no library yardstick
+    record("las_scan", max(rel_err(x, y) for x, y in zip(outs, refs)),
+           cuda_ms(lambda: las_scan(*args), iters=5, warmup=1),
+           cuda_ms(lambda: las_scan_ref(*args), iters=5, warmup=1), what,
+           library_ms=None,
+           **roofline(las_scan_cost(u, b, tt, hd, d, a, c, kw, kl)))
+    del outs
+    w_ctx, w_h, _, w_q, conv_w, w_f, v, kc, values, klt, keep = args[1:]
+    bargs = (w_ctx, w_h, w_q, conv_w, w_f, v, kc, values, klt, keep, *refs,
+             t(u, b, hd), t(u, b, d))
+    got, want = las_scan_bwd(*bargs), las_scan_bwd_ref(*bargs)
+    # the wrapper's work after the kernel loop (weight-gradient and
+    # dvalues products, partial sums), timed alone on the loop's outputs
+    h, _, _, _, aw, ctx = refs
+    raw = las_scan_bwd_chain(*bargs)
+    outside_ms = cuda_ms(lambda: las_scan_bwd_finish(h, ctx, keep, aw, *raw),
+                         iters=5, warmup=1)
+    log(f"[{tag}] las_scan_bwd: {las_scan_bwd.kernel_launches_per_call} "
+        f"kernel launches per call; the work after the loop "
+        f"{outside_ms:.4f} ms")
+    record("las_scan_bwd", max(rel_err(x, y) for x, y in zip(got, want)),
+           cuda_ms(lambda: las_scan_bwd(*bargs), iters=5, warmup=1),
+           cuda_ms(lambda: las_scan_bwd_ref(*bargs), iters=5, warmup=1),
+           what, library_ms=None, outside_ms=outside_ms,
+           **roofline(las_scan_bwd_cost(u, b, tt, hd, d, a, c, kw, kl)))
+    return args, bargs, refs, got
+
+
+def ctc_case(torch, rng, record, b, tt, uu, vv, tag="2b"):
+    """K4 forward and backward at B, T, U, V (ragged lengths, a repeated
+    label) against the plain versions and F.ctc_loss, with times and the
+    bound."""
+    from neural_sp_tpu_torch.ops.kernels.ctc_loss import (
+        ctc_forward_alphas, ctc_loss_bwd, ctc_loss_bwd_cost,
+        ctc_loss_bwd_ref, ctc_loss_cost, ctc_loss_fwd)
+    dev = torch.device("cuda")
+    lp = torch.log_softmax(torch.from_numpy(
+        (rng.standard_normal((b, tt, vv)) * 2.0).astype("float32")).to(dev),
+        -1)
     labels = rng.integers(4, vv, (b, uu))
     labels[:, 1] = labels[:, 0]                       # a repeated label
     tl, ul = [tt - 2 * i for i in range(b)], [uu - (i % 9) for i in range(b)]
     cargs = (lp, torch.from_numpy(labels.astype("int32")).to(dev),
              torch.tensor(tl, dtype=torch.int32, device=dev),
              torch.tensor(ul, dtype=torch.int32, device=dev))
-    (nll, alphas), (nll_r, alphas_r) = ctc_loss_fwd(*cargs), \
-        ctc_forward_alphas(*cargs)
+    nll, *saved = ctc_loss_fwd(*cargs)
+    nll_r, *saved_r = ctc_forward_alphas(*cargs)
     g = torch.linspace(0.5, 1.5, b, device=dev)
-    grad = ctc_loss_bwd(*cargs, nll_r, alphas_r, g)
-    grad_r = ctc_loss_bwd_ref(*cargs, nll_r, alphas_r, g)
-    err = max(rel_err(nll, nll_r), rel_err(alphas, alphas_r),
-              rel_err(grad, grad_r))
-    yard = ctc_yardstick(torch, cargs, nll_r, alphas_r, g)
+    grad = ctc_loss_bwd(*cargs, *saved_r, g)
+    grad_r = ctc_loss_bwd_ref(*cargs, *saved_r, g)
+
+    # the alphas with the unreachable states at -1e4; the gradient from
+    # the plain alphas and from K4's own
+    err = max(rel_err(nll, nll_r),
+              rel_err(saved[0].clamp(min=-1e4), saved_r[0].clamp(min=-1e4)),
+              rel_err(grad, grad_r),
+              rel_err(ctc_loss_bwd(*cargs, *saved, g), grad_r))
+    yard = ctc_yardstick(torch, cargs, saved_r, nll_r, g, tag)
     fwd_ms = yard["fwd_kernel_ms"]
     fwd_ref = cuda_ms(lambda: ctc_forward_alphas(*cargs), iters=5, warmup=1)
-    bwd_ms = cuda_ms(lambda: ctc_loss_bwd(*cargs, nll_r, alphas_r, g))
-    bwd_ref = cuda_ms(lambda: ctc_loss_bwd_ref(*cargs, nll_r, alphas_r, g),
+    bwd_ms = cuda_ms(lambda: ctc_loss_bwd(*cargs, *saved_r, g))
+    bwd_ref = cuda_ms(lambda: ctc_loss_bwd_ref(*cargs, *saved_r, g),
                       iters=5, warmup=1)
     fwd_cost = ctc_loss_cost(b, tt, uu, vv, tl, ul)
     bwd_cost = ctc_loss_bwd_cost(b, tt, uu, vv, tl, ul)
-    log(f"[2b] ctc_loss forward kernel {fwd_ms:.4f} ms plain {fwd_ref:.4f} "
-        f"ms; backward kernel {bwd_ms:.4f} ms plain {bwd_ref:.4f} ms")
+    log(f"[{tag}] ctc_loss forward kernel {fwd_ms:.4f} ms plain "
+        f"{fwd_ref:.4f} ms; backward kernel {bwd_ms:.4f} ms plain "
+        f"{bwd_ref:.4f} ms")
     record("ctc_loss", err, fwd_ms + bwd_ms, fwd_ref + bwd_ref,
            f"forward + backward B={b} T={tt} U={uu} V={vv}", **yard,
            **roofline((fwd_cost[0] + bwd_cost[0], fwd_cost[1] + bwd_cost[1]),
                       simt=True),
            fwd_bound_ms=roofline(fwd_cost, simt=True)["bound_ms"],
-           bwd_bound_ms=roofline(bwd_cost, simt=True)["bound_ms"])
-    res["ctc_loss"].update(fwd_ms=fwd_ms, fwd_plain_ms=fwd_ref,
-                           bwd_ms=bwd_ms, bwd_plain_ms=bwd_ref)
-    return res
+           bwd_bound_ms=roofline(bwd_cost, simt=True)["bound_ms"],
+           fwd_ms=fwd_ms, fwd_plain_ms=fwd_ref, bwd_ms=bwd_ms,
+           bwd_plain_ms=bwd_ref)
 
 
 def phase_train_kernels_bf16(torch, rng):
@@ -1463,16 +1570,18 @@ def hold_microstep(loss, grads, loss_ref, grads_ref, tag) -> dict:
             "key_bias_leaves": dict(zero)}
 
 
-def phase_determinism(torch, model, batch) -> dict:
+def phase_determinism(torch, model, batch, bf16: bool = True,
+                      phase: str = "6") -> dict:
     """6: one train() microstep twice, from a generator of one seed each
     time (the same dropout, SpecAugment and sampling draws), in float32
-    and at bf16 compute: the losses and every gradient leaf must be the
-    same bits (DETERMINISTIC)."""
+    and (``bf16``) at bf16 compute: the losses and every gradient leaf must
+    be the same bits."""
     from neural_sp_tpu_torch.parallel.mesh import (compute_loss,
                                                    deterministic_cudnn)
     model.train()
     out = {}
-    for tag, dtype in (("float32", None), ("bfloat16", torch.bfloat16)):
+    for tag, dtype in (("float32", None), ("bfloat16", torch.bfloat16))[
+            :2 if bf16 else 1]:
         runs = []
         for _ in range(2):
             model.zero_grad(set_to_none=True)
@@ -1488,7 +1597,7 @@ def phase_determinism(torch, model, batch) -> dict:
         differ = [n for n in ga if not torch.equal(ga[n], gb[n])]
         out[tag] = {"loss_equal": bool(torch.equal(la, lb)),
                     "leaves": len(ga), "leaves_differ": differ}
-        log(f"[6] {tag} microstep twice: loss {float(la):.6f} "
+        log(f"[{phase}] {tag} microstep twice: loss {float(la):.6f} "
             f"{'==' if out[tag]['loss_equal'] else '!='} {float(lb):.6f}; "
             f"{len(differ)} of {len(ga)} gradient leaves differ")
         expect(out[tag]["loss_equal"] and not differ,
@@ -1608,6 +1717,24 @@ def synth_corpus(root: Path, utts: dict, vocab: int, frames=(700, 1600),
     return paths
 
 
+def recipe_lm(root: Path) -> str:
+    """The recipe's LM (rnnlm_6L over CLI_VOCAB) in ``root / "lm"``:
+    seeded, saved as its train CLI would leave it; made once."""
+    from neural_sp_tpu_torch.bin.args import save_config
+    from neural_sp_tpu_torch.configs import librispeech_rnnlm_args
+    from neural_sp_tpu_torch.models.lm.build import build_lm
+    from neural_sp_tpu_torch.trainers.checkpoint import save_checkpoint
+    from neural_sp_tpu_torch.utils.init_params import init_params
+    lm_dir = root / "lm"
+    if not (lm_dir / "conf.yml").exists():
+        largs = librispeech_rnnlm_args()
+        largs.vocab = CLI_VOCAB
+        lm = init_params(build_lm(largs), SEED + 1)
+        save_checkpoint(str(lm_dir), 1, lm.state_dict())
+        save_config(vars(largs), str(lm_dir / "conf.yml"))
+    return str(lm_dir)
+
+
 def phase_cli(torch, root: Path, corpus: dict) -> dict:
     """7: the train CLI (two epochs, then a third resumed) and the eval CLI
     (beam 10 + CTC 0.3 + RNNLM 0.5, 2 averaged epochs) on the LibriSpeech
@@ -1623,16 +1750,11 @@ def phase_cli(torch, root: Path, corpus: dict) -> dict:
     import math
     import os
     from types import SimpleNamespace
-    from neural_sp_tpu_torch.bin.args import save_config
     from neural_sp_tpu_torch.bin.asr import eval as cli_eval
     from neural_sp_tpu_torch.bin.asr import train as cli_train
-    from neural_sp_tpu_torch.configs import librispeech_rnnlm_args
-    from neural_sp_tpu_torch.models.lm.build import build_lm
     from neural_sp_tpu_torch.ops.kernels import launches, reset_launches
     from neural_sp_tpu_torch.parallel.mesh import TrainStep
-    from neural_sp_tpu_torch.trainers.checkpoint import (
-        load_checkpoint, save_checkpoint)
-    from neural_sp_tpu_torch.utils.init_params import init_params
+    from neural_sp_tpu_torch.trainers.checkpoint import load_checkpoint
     sync = torch.cuda.synchronize
     out = {"conf": CLI_CONF, "overrides": list(CLI_OVERRIDES),
            "utterances": CLI_UTTS, "vocab": CLI_VOCAB}
@@ -1784,14 +1906,7 @@ def phase_cli(torch, root: Path, corpus: dict) -> dict:
     most.clear()
     torch.cuda.empty_cache()
 
-    # the recipe's LM: seeded, saved as its train CLI would leave it
-    lm_dir = str(root / "lm")
-    largs = librispeech_rnnlm_args()
-    largs.vocab = CLI_VOCAB
-    lm = init_params(build_lm(largs), SEED + 1)
-    save_checkpoint(lm_dir, 1, lm.state_dict())
-    save_config(vars(largs), f"{lm_dir}/conf.yml")
-    del lm
+    lm_dir = recipe_lm(root)
     torch.cuda.reset_peak_memory_stats()
     sync()
     reset_launches()
@@ -2142,6 +2257,317 @@ def phase_sampling_times(torch, model, batch) -> dict:
     return out
 
 
+# Phase 8: the LibriSpeech recipe's BLSTM-LAS (``BLSTM_CONF``,
+# ``configs.librispeech_blstm_las_args``) at full width and depth: the conv
+# front end (two 32-channel 3x3 blocks, each pooling (2, 2)), 5 BLSTM-512
+# layers with the directions concatenated (D = 1024), the LSTM-1024 LAS
+# with location attention, CTC 0.3; float32. The RNN layers run cuDNN. The
+# overrides are the run's length and the word unit of phase 7 (the same
+# corpus).
+BLSTM_CONF = "examples/librispeech/conf/asr/blstm_las.yaml"
+BLSTM_OVERRIDES = ("--n_epochs", "2", "--unit", "word")
+BLSTM_D = 1024
+# the kernels the BLSTM-LAS trains through (K2 in scheduled sampling's
+# pass 1), and those it must never launch: it has no self-attention
+BLSTM_TRAIN_KERNELS = ("las_step", "las_scan", "las_scan_bwd", "ctc_loss",
+                       "ctc_loss_bwd")
+NOT_ON_RNN_PATH = ("rel_attention", "rel_attention_bwd",
+                   "rel_attention_bf16", "rel_attention_bwd_bf16")
+# cuDNN's LSTM against the layer's written-out loop through the whole
+# encoder (5 layers, 2 directions, up to 400 steps; TF32 off): float32 sums
+# in other orders, carried through every layer and step, held as PATH_ATOL
+# holds the conformer encoder's kernels to their twins; the outputs are
+# LSTM states, bounded by 1 in magnitude, so the bound is relative too.
+RNN_ENCODER_ATOL = PATH_ATOL
+# the cuDNN RNN operators of a profiled microstep (forward and backward)
+CUDNN_RNN_OPS = ("aten::_cudnn_rnn", "aten::_cudnn_rnn_backward")
+
+
+def blstm_model(torch):
+    from neural_sp_tpu_torch.configs import librispeech_blstm_las_args
+    from neural_sp_tpu_torch.models.speech2text import build_speech2text
+    from neural_sp_tpu_torch.utils.init_params import init_params
+    model = build_speech2text(librispeech_blstm_las_args())   # on the card
+    init_params(model, SEED)
+    return model.eval()
+
+
+def phase_blstm_kernels(torch, rng) -> dict:
+    """8a: K2, K3, K3b and K4 at the BLSTM-LAS's shapes (D = 1024, T up to
+    500), each against its plain version at phase 2's and 2b's
+    tolerances, with CUDA-event times and bounds: K2 at N = 10 (beam 10)
+    and N = 32 with ``keep`` (scheduled sampling's pass 1) at T = 400; K3
+    and K3b at B = 32, U+1 = 101, ragged T up to 500; K4 at B = 32, T =
+    500, U = 100, V = 10,000."""
+    res = {"las_step": {"max_abs_err": 0.0, "shapes": []}}
+    for n, keep in ((10, False), (32, True)):
+        shape = k2_case(torch, rng, n, 400, BLSTM_D, keep=keep, tag="8a")
+        row = res["las_step"]
+        row["max_abs_err"] = max(row["max_abs_err"], shape["max_abs_err"])
+        row["shapes"].append(shape)
+        if n == 10:
+            row.update(library_ms=None, **{
+                k: v for k, v in shape.items()
+                if k not in ("shape", "keep", "max_abs_err")})
+    record = kernel_recorder(res, "8a")
+    las_scan_case(torch, rng, record, TRAIN_B, 101, 500, BLSTM_D,
+                  [500 - 9 * i for i in range(TRAIN_B)], tag="8a")
+    ctc_case(torch, rng, record, TRAIN_B, 500, TRAIN_U, 10000, tag="8a")
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_blstm_serve(torch, model, xs, xlens) -> dict:
+    """8b: phase 3's utterances through the BLSTM-LAS: beam 10 + CTC 0.3
+    and greedy (counts zeroed before, read after: K2 must run, K1 / K1b
+    must not), the encoder's time, one profiled beam request; the cuDNN
+    encoder against the written-out loop (RNN_ENCODER_ATOL), and the best
+    hypothesis replayed through K2 against the plain decode step."""
+    from neural_sp_tpu_torch.models.decoders.decoding import (
+        DecodeConfig, Speech2TextSession)
+    from neural_sp_tpu_torch.models.modules.recurrent import RNNLayer
+    out, counts = phase_serve(torch, model, xs, xlens,
+                              ("beam10_ctc0.3", "greedy"), tag="8b")
+    best = out.pop("best_hyp0")
+    out["launches"] = counts
+    expect(counts["las_step"] > 0, "K2 never launched serving the BLSTM")
+    expect(all(counts[k] == 0 for k in NOT_ON_RNN_PATH),
+           f"K1 / K1b launched on the BLSTM path: {counts}")
+    beam = Speech2TextSession(model, DecodeConfig(**SERVED["beam10_ctc0.3"]))
+    t0 = time.perf_counter()
+    eouts = beam.encode(xs, xlens)
+    torch.cuda.synchronize()
+    out["encode_batch_s"] = time.perf_counter() - t0
+    with mock.patch.object(RNNLayer, "forward", RNNLayer.forward_ref):
+        t0 = time.perf_counter()
+        eouts_ref = beam.encode(xs, xlens)
+        torch.cuda.synchronize()
+        out["encode_batch_loop_s"] = time.perf_counter() - t0
+    e, el = eouts["ys"]["xs"], eouts["ys"]["xlens"]
+    expect(bool(torch.isfinite(e).all()), "BLSTM encoder output not finite")
+    expect(tuple(e.shape) == (len(UTT_FRAMES), max(UTT_FRAMES) // 4,
+                              BLSTM_D), f"encoder output {tuple(e.shape)}")
+    out["encoder_max_abs_err"] = max_err(e, eouts_ref["ys"]["xs"])
+    log(f"[8b] encoder {tuple(e.shape)}, lens {el.tolist()}: "
+        f"{out['encode_batch_s']:.4f} s (cuDNN), "
+        f"{out['encode_batch_loop_s']:.4f} s (the written-out loop); cuDNN "
+        f"vs the loop max_abs_err {out['encoder_max_abs_err']:.3e}")
+    expect(out["encoder_max_abs_err"] <= RNN_ENCODER_ATOL,
+           f"cuDNN encoder vs its loop: {out['encoder_max_abs_err']}")
+    out["replay_max_abs_err"], out["k2_launches_per_decode_step"] = \
+        replay_against_plain(torch, model.dec_fwd, e[:1], el[:1], best,
+                             tag="8b")
+    n = UTT_FRAMES[0]
+    out["beam10_ctc0.3_one_utt"] = profiled(
+        torch, f"BLSTM beam 10 + CTC 0.3, the {n}-frame utterance",
+        lambda: beam.decode(xs[:1, :n], xlens[:1]), tag="8b")
+    return out
+
+
+def phase_blstm_cli(torch, root: Path, corpus: dict) -> dict:
+    """8c and 8d: ``bin.asr.train.main`` on ``BLSTM_CONF`` (``BLSTM_
+    OVERRIDES``, phase 7's corpus) and ``bin.asr.eval.main`` as the
+    recipe's stage 5 (``CLI_EVAL``, the recipe's LM), counts zeroed around
+    each: K2 (pass 1), K3, K3b and K4 must run in training, K2 in
+    evaluation, K1 / K1b in neither. Every loss finite; the sampled share
+    within 4 binomial standard deviations of ss_prob. A profiled train()
+    microstep on the widest microbatch (the cuDNN RNN operators' share of
+    its device time); then on the trained weights that microbatch in
+    eval(), kernels against the plain versions (phase 6's rule), and one
+    train() microstep twice from one seed: the same bits."""
+    import csv
+    import math
+    import os
+    from types import SimpleNamespace
+    from neural_sp_tpu_torch.bin.asr import eval as cli_eval
+    from neural_sp_tpu_torch.bin.asr import train as cli_train
+    from neural_sp_tpu_torch.models.decoders import las
+    from neural_sp_tpu_torch.ops.kernels import launches, reset_launches
+    from neural_sp_tpu_torch.parallel.mesh import (TrainStep, compute_loss,
+                                                   deterministic_cudnn)
+    sync = torch.cuda.synchronize
+    exp = str(root / "exp_blstm")
+    data = ["--train_set", corpus["train"], "--dev_set", corpus["dev"],
+            "--dict", corpus["dict"], "--model_save_dir", exp]
+    out = {"conf": BLSTM_CONF, "overrides": list(BLSTM_OVERRIDES)}
+    steps, saves, widest, sampled = [], [], [], []
+    orig_call, orig_save = TrainStep.__call__, cli_train.save_checkpoint
+    orig_fed = las.RNNDecoder.fed_tokens
+    orig_build = cli_train.build_speech2text
+    n_params = []
+
+    def timed_call(self, xs, xlens, ys, ylens, *a, **kw):
+        sync()
+        t = time.perf_counter()
+        m = orig_call(self, xs, xlens, ys, ylens, *a, **kw)
+        sync()
+        steps.append((time.perf_counter() - t, bool(m["emitted"]),
+                      int(xlens.sum()), float(m["loss"])))
+        if not widest or (xs.shape[1], xs.shape[0]) > (
+                widest[0].shape[1], widest[0].shape[0]):
+            widest[:] = (xs, xlens, ys, ylens)
+        return m
+
+    def timed_save(*a, **kw):
+        t = time.perf_counter()
+        path = orig_save(*a, **kw)
+        saves.append((time.perf_counter() - t, os.path.getsize(path)))
+        return path
+
+    def watched_fed(self, ys_in, kc, values, klens, masks):
+        fed = orig_fed(self, ys_in, kc, values, klens, masks)
+        valid = ys_in != las.PAD
+        sampled.append((int(valid.sum()), int(masks.sample[valid].sum())))
+        return fed
+
+    def counted_build(args, device=None):
+        model = orig_build(args, device=device)
+        n_params.append(sum(p.numel() for p in model.parameters()))
+        return model
+
+    torch.cuda.reset_peak_memory_stats()
+    sync()
+    reset_launches()
+    t0 = time.perf_counter()
+    with mock.patch.object(TrainStep, "__call__", timed_call), \
+            mock.patch.object(cli_train, "save_checkpoint", timed_save), \
+            mock.patch.object(las.RNNDecoder, "fed_tokens", watched_fed), \
+            mock.patch.object(cli_train, "build_speech2text", counted_build):
+        cli_train.main(["--config", str(ROOT / BLSTM_CONF)] + data +
+                       list(BLSTM_OVERRIDES))
+    sync()
+    wall = time.perf_counter() - t0
+    counts = launches()
+    losses = [s[3] for s in steps]
+    train = {"wall_s": wall, "parameters": n_params[0],
+             "microsteps": len(steps),
+             "optimizer_steps": sum(s[1] for s in steps),
+             "microstep_s": [s[0] for s in steps], "microstep_loss": losses,
+             # Adam without accumulation: every microstep is an update
+             "ms_per_optimizer_step": 1e3 * sum(s[0] for s in steps) /
+             max(sum(s[1] for s in steps), 1),
+             "frames_per_s": sum(s[2] for s in steps) /
+             sum(s[0] for s in steps),
+             "launches": counts,
+             "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+             "checkpoint_bytes": saves[-1][1],
+             "checkpoint_save_s": [x for x, _ in saves]}
+    out["train"] = train
+    log(f"[8c] train CLI on {BLSTM_CONF}: {n_params[0]} parameters, "
+        f"{len(steps)} microsteps ({train['optimizer_steps']} updates), "
+        f"{train['ms_per_optimizer_step']:.1f} ms per optimizer step, "
+        f"{train['frames_per_s']:.0f} frames/s, wall {wall:.1f} s, peak mem "
+        f"{train['peak_mem_bytes']} B, checkpoints {saves[-1][1]} B")
+    log(f"[8c]   microstep losses {['%.3f' % x for x in losses]}; "
+        f"microsteps {['%.3f' % s[0] for s in steps]} s")
+    log(f"[8c]   launches: {counts}")
+    for name in BLSTM_TRAIN_KERNELS:
+        expect(counts[name] > 0, f"{name} never launched in phase 8c")
+    expect(all(counts[k] == 0 for k in NOT_ON_RNN_PATH),
+           f"K1 / K1b launched training the BLSTM: {counts}")
+    expect(all(map(math.isfinite, losses)), f"8c losses {losses}")
+    with open(f"{exp}/history.csv") as f:
+        history = [(int(r["epoch"]), float(r["train_loss"]),
+                    float(r["dev_loss_mean"])) for r in csv.DictReader(f)]
+    out["history"] = history
+    log(f"[8c] history.csv (epoch, train loss, dev loss): {history}")
+    expect([e for e, _, _ in history] == [1, 2] and all(
+        math.isfinite(x) for _, *ls in history for x in ls),
+        f"8c history.csv {history}")
+    n_valid = sum(x[0] for x in sampled)
+    share = sum(x[1] for x in sampled) / n_valid
+    sd = math.sqrt(SS_PROB * (1 - SS_PROB) / n_valid)
+    out["sampling"] = {"valid": n_valid, "sampled_share": share,
+                       "binomial_sd": sd}
+    log(f"[8c]   sampled share {share:.4f} of {n_valid} valid positions "
+        f"(ss_prob {SS_PROB}, 4 sd = {4 * sd:.4f})")
+    expect(len(sampled) == len(steps), "a microstep ran without pass 1")
+    expect(abs(share - SS_PROB) <= 4 * sd, f"sampled share {share}")
+
+    # the eval CLI as the recipe's stage 5
+    lm_dir = recipe_lm(root)
+    torch.cuda.reset_peak_memory_stats()
+    sync()
+    reset_launches()
+    t = time.perf_counter()
+    res = cli_eval.main(["--recog_model", exp, "--recog_sets",
+                         corpus["test"], "--recog_lm", lm_dir,
+                         "--recog_dir", str(root / "decode_blstm")] +
+                        list(CLI_EVAL))
+    sync()
+    wall = time.perf_counter() - t
+    counts = launches()
+    (m,) = res.values()
+    out["eval"] = {**m, "wall_s": wall, "launches": counts,
+                   "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+    log(f"[8c] eval CLI: RTF {m['rtf']:.4f}, wall {wall:.1f} s (with "
+        f"loading), WER {m['wer']:.2f} over {m['n_utts']} utterances "
+        f"(random weights); launches {counts}")
+    expect(m["n_utts"] == CLI_UTTS["test"], f"{m['n_utts']} utterances")
+    expect(counts["las_step"] > 0, "K2 never launched in the eval CLI")
+    expect(all(counts[k] == 0 for k in NOT_ON_RNN_PATH),
+           f"K1 / K1b launched evaluating the BLSTM: {counts}")
+
+    # one profiled train() microstep on the widest microbatch, the trained
+    # weights
+    model, _, _ = cli_eval.load_model_for_eval(SimpleNamespace(
+        recog_model=f"{exp}/ckpt.epoch-2", recog_n_average=1))
+    batch = tuple(widest)
+    widest.clear()
+    model.dec_fwd.step.ss_prob = SS_PROB
+    gen = torch.Generator().manual_seed(SEED)
+
+    def microstep():
+        model.train()
+        model.zero_grad(set_to_none=True)
+        with deterministic_cudnn():       # as the train step runs
+            loss, _ = compute_loss(model, None, *batch, gen)
+            loss.backward()
+
+    microstep()                           # warm-up
+    sync()
+    prof = profiled(torch, f"BLSTM train() microstep, B "
+                    f"{batch[0].shape[0]} x {batch[0].shape[1]} frames",
+                    microstep, ops=CUDNN_RNN_OPS, tag="8c")
+    if "device_busy_s" in prof:
+        prof["cudnn_rnn_share"] = prof["ops_device_ms"] / 1e3 / \
+            prof["device_busy_s"]
+        log(f"[8c]   cuDNN RNN operators {prof['ops_device_ms']:.3f} ms of "
+            f"device time, {prof['cudnn_rnn_share']:.4f} of the busy time")
+    out["profiled_microstep"] = prof
+
+    # 8d: the same microbatch held to the plain versions, and determinism
+    model.dec_fwd.step.ss_prob = 0.0
+    log(f"[8d] microbatch held to the plain versions: B "
+        f"{batch[0].shape[0]} x {batch[0].shape[1]} frames, U "
+        f"{batch[2].shape[1]}")
+    out["train_parity"], _ = phase_train_parity(torch, model, batch,
+                                                tag="8d")
+    model.dec_fwd.step.ss_prob = SS_PROB
+    out["determinism"] = phase_determinism(torch, model, batch, bf16=False,
+                                           phase="8d")
+    del model, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_blstm(torch, rng, root: Path, corpus: dict, xs, xlens) -> dict:
+    """8: the BLSTM-LAS, its kernels at its shapes, served, trained and
+    evaluated through the CLIs; each path's launches counted from zero."""
+    t = time.perf_counter()
+    out = {"kernels": phase_blstm_kernels(torch, rng)}
+    model = blstm_model(torch)
+    out["parameters"] = sum(p.numel() for p in model.parameters())
+    log(f"[8b] BLSTM-LAS: {out['parameters']} parameters on the card")
+    out["serve"] = phase_blstm_serve(torch, model, xs, xlens)
+    del model
+    torch.cuda.empty_cache()
+    out["cli"] = phase_blstm_cli(torch, root, corpus)
+    out["phase_wall_s"] = time.perf_counter() - t
+    log(f"[8] phase 8 wall {out['phase_wall_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2164,12 +2590,25 @@ def main() -> int:
 
     build_sec = phase_build()
     rng = np.random.default_rng(SEED)
+    if sys.argv[1:] == ["--blstm-only"]:
+        # phase 8 alone, after the build: a check of the BLSTM path that
+        # prints its details and no result line
+        xs, xlens = utterances(rng)
+        with tempfile.TemporaryDirectory(prefix="nsp_cli_") as tmp:
+            root = Path(tmp)
+            corpus = synth_corpus(root / "data", CLI_UTTS, CLI_VOCAB)
+            blstm = phase_blstm(torch, rng, root, corpus, xs, xlens)
+        log(json.dumps({"card": card, "blstm": blstm}))
+        return 0
     kernels = phase_kernels(torch, rng)
     model = flagship_model(torch)
     n_params = sum(p.numel() for p in model.parameters())
     log(f"[3] flagship faithful model: {n_params} parameters on the card")
     xs, xlens = utterances(rng)
-    served, launches = phase_serve(torch, model, xs, xlens)
+    served, counts = phase_serve(torch, model, xs, xlens)
+    launches = {k: counts[k] for k in ("rel_attention", "las_step")}
+    expect(all(v > 0 for v in launches.values()),
+           f"a kernel of the path never launched: {launches}")
     breakdown = phase_breakdown(torch, model, xs, xlens)
     served_lm, lm_launches = phase_serve_lm(torch, model, xs, xlens)
     # K1's and K2's launches: the served requests of phases 3 and 3c
@@ -2208,6 +2647,7 @@ def main() -> int:
         sampled_cli = phase_sampled_cli(torch, root, corpus)
         sampled_cli["phase_wall_s"] = time.perf_counter() - t
         log(f"[7b] phase 7b wall {sampled_cli['phase_wall_s']:.1f} s")
+        blstm = phase_blstm(torch, rng, root, corpus, xs, xlens)
     # each kernel's launches from the main path it belongs to: the served
     # requests (K1, K2), the float32 training run (K1b, K3, K3b, K4) or
     # the bf16 training run (K1's and K1b's bf16 entries)
@@ -2257,7 +2697,8 @@ def main() -> int:
                "train_bf16": {**trained_bf16, "launches": bf16_launches},
                "train_parity": parity, "train_parity_bf16": parity_bf16,
                "sampling_times": sampling_times, "cli": cli,
-               "cli_sampled": sampled_cli, "kernels": kernels}
+               "cli_sampled": sampled_cli, "blstm": blstm,
+               "kernels": kernels}
     log(json.dumps(details))
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -2282,7 +2723,9 @@ def main() -> int:
     # phase 7's paths, each counted from zero: the train CLI, its resumed
     # epoch and the eval CLI
     cli_runs = {"train": cli["train"], "train_resumed": cli["train_resumed"],
-                "eval": cli["eval"], "train_sampled": sampled_cli}
+                "eval": cli["eval"], "train_sampled": sampled_cli,
+                "train_blstm": blstm["cli"]["train"],
+                "eval_blstm": blstm["cli"]["eval"]}
     for e in entries:
         e["cli_launches"] = {k: r["launches"][e["name"]]
                              for k, r in cli_runs.items()}
@@ -2307,6 +2750,18 @@ def main() -> int:
     for name in bf16_names:
         next(e for e in entries if e["name"] == name)["vs_f32_ratio"] = max(
             row["vs_f32_ratio"] for row in kernels[name]["shapes"])
+    # phase 8, the BLSTM-LAS: its main path's launches (the served
+    # requests, the train CLI, the eval CLI, each counted from zero) and
+    # the kernels at its shapes (K2 at N = 10 and T = 400, K3 / K3b at T up
+    # to 500, K4 at T = 500; D = 1024)
+    paths8 = (blstm["serve"]["launches"], blstm["cli"]["train"]["launches"],
+              blstm["cli"]["eval"]["launches"])
+    for e in entries:
+        e["blstm_launches"] = sum(p[e["name"]] for p in paths8)
+        row = blstm["kernels"].get(e["name"])
+        if row is not None:
+            e["blstm"] = {"shape": row.get("shapes", [{}])[0].get("shape"),
+                          **{key: row.get(key) for key in keys}}
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -151,8 +151,7 @@ def main(argv=None, device=None) -> str:
     model = init_params(build_speech2text(args, device=device), args.seed)
     model.train()
     names = [n for n, p in model.named_parameters() if p.requires_grad]
-    logger.info("#params: %.2fM",
-                sum(p.numel() for p in model.parameters()) / 1e6)
+    logger.info("#params: %d", sum(p.numel() for p in model.parameters()))
 
     controller = EpochController(
         base_lr=args.lr, decay_type=args.lr_decay_type,

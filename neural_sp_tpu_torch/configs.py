@@ -14,6 +14,15 @@ attention, wordpiece vocab 10k, CTC weight 0.3.
 with 1024-wide embeddings, residual connections, a GLU head and tied
 embeddings, over the flagship's vocabulary; a test holds it to the yaml.
 
+``librispeech_blstm_las_args`` is the LibriSpeech recipe's BLSTM-LAS,
+``examples/librispeech/conf/asr/blstm_las.yaml``: a conv front end of two
+32-channel 3x3 blocks, each pooling (2, 2), 5 BLSTM-512 layers with the two
+directions concatenated (the conf sets no ``bidirectional_sum_fwd_bwd``),
+dropout 0.4, the flagship's LSTM-1024 LAS decoder with scheduled sampling
+at 0.2, CTC weight 0.3; float32 (no ``train_dtype``). The model fields and
+``input_dim`` (the train CLI's default) are the conf's, field for field; a
+test holds them to the yaml. ``vocab`` is the flagship's.
+
 ``flagship_args`` carries no ``train_dtype`` (``bench.py``'s has none): an
 args namespace may set one, and ``compute_dtype(args)`` turns it into the
 train step's ``compute_dtype``.
@@ -50,6 +59,19 @@ def flagship_args(faithful: bool = False):
         freq_width=27, n_freq_masks=2, time_width=100, n_time_masks=2,
         time_width_upper=1.0,
     )
+
+
+def librispeech_blstm_las_args():
+    """The conf's model fields, ``input_dim`` 80 and the flagship's
+    ``vocab``."""
+    return SimpleNamespace(
+        enc_type="conv_blstm", input_dim=80, conv_channels="32_32",
+        conv_kernel_sizes="(3,3)_(3,3)", conv_poolings="(2,2)_(2,2)",
+        enc_n_units=512, enc_n_layers=5, dropout_enc=0.4,
+        dec_type="lstm", dec_n_units=1024, dec_n_layers=1, emb_dim=512,
+        dec_bottleneck_dim=1024, attn_type="location", attn_dim=512,
+        attn_conv_width=201, dropout_dec=0.4, dropout_emb=0.4, ss_prob=0.2,
+        ctc_weight=0.3, lsm_prob=0.1, vocab=flagship_args().vocab)
 
 
 def librispeech_rnnlm_args():

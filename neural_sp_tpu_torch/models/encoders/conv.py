@@ -105,8 +105,9 @@ class Conv2dBlock(nn.Module):
 
 
 class ConvEncoder(nn.Module):
-    """CNN frontend with its bridge to ``bottleneck_dim``; returns
-    (xs [B, T', bottleneck_dim], xlens)."""
+    """CNN frontend with its bridge to ``bottleneck_dim`` (0: no bridge,
+    the flattened ``f * C`` features go out as they are, as the JAX
+    module's); returns (xs [B, T', output_dim], xlens)."""
 
     def __init__(self, input_dim: int, bottleneck_dim: int,
                  channels: str = "32_32", kernel_sizes: str = "(3,3)_(3,3)",
@@ -121,7 +122,9 @@ class ConvEncoder(nn.Module):
             in_ch = ch
             freq = -(-freq // pl[1]) if pl[1] > 1 else freq
         self.blocks = nn.ModuleList(blocks)
-        self.bridge = nn.Linear(freq * in_ch, bottleneck_dim)
+        self.output_dim = bottleneck_dim or freq * in_ch
+        self.bridge = nn.Linear(freq * in_ch, bottleneck_dim) \
+            if bottleneck_dim > 0 else None
 
     def forward(self, xs: torch.Tensor, xlens: torch.Tensor):
         """xs [B, T, input_dim], xlens [B] int."""
@@ -135,4 +138,12 @@ class ConvEncoder(nn.Module):
         b, c, t, f = h.shape
         h = h.permute(0, 2, 3, 1).reshape(b, t, f * c)   # JAX's f * C + c
         # keep the pool's -1e9 edge fill out of the blocks downstream
-        return self.bridge(_edge_fill(h, t_valid, 0.0, 1)), xlens
+        h = _edge_fill(h, t_valid, 0.0, 1)
+        return (h if self.bridge is None else self.bridge(h)), xlens
+
+    @property
+    def subsampling_factor(self) -> int:
+        f = 1
+        for (st, _), (pt, _) in zip(self.cfg.strides, self.cfg.poolings):
+            f *= st * max(pt, 1)
+        return f

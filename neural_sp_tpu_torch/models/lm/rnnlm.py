@@ -79,8 +79,8 @@ class RNNLM(nn.Module):
         new_state = []
         for lth in range(self.n_layers):
             residual = h
-            h, carry = self.rnns[lth](h, None if state is None
-                                      else state[lth])
+            h, carry = self.rnns[lth](
+                h, carry=None if state is None else state[lth])
             h = self.drop(h, gen)
             if self.n_projs > 0:
                 h = torch.tanh(self.projs[lth](h))

@@ -1,20 +1,38 @@
 """Recurrent building blocks (counterpart of
 ``neural_sp_tpu/models/modules/recurrent.py``): the flax
-``OptimizedLSTMCell`` parameter layout and one unidirectional LSTM layer
-with explicit state I/O.
+``OptimizedLSTMCell`` parameter layout and one uni- or bidirectional LSTM
+layer with explicit state I/O.
 
-The cell is written out (no ``nn.LSTM`` / cuDNN, whose gate layout and
-fused biases differ): gates (i, f, g, o), no forget-gate offset,
-``c' = sigmoid(f) c + sigmoid(i) tanh(g)``, ``h' = sigmoid(o) tanh(c')``,
-carry in flax's order (c, h). The bidirectional, zoneout and GRU forms of
-the JAX ``RNNLayer`` are not on the port's path and raise.
+The layer runs PyTorch's LSTM (``torch.lstm``, cuDNN on the card) over the
+cells' own parameters: gates (i, f, g, o) in both layouts, the cell's
+``w_ih`` / ``w_hh`` handed over as transposed copies, its bias as the
+hidden side's and zeros as the input side's (flax's input denses have no
+bias). Under autograd cuDNN copies those once more into its own buffer at
+each call; without autograd on the card (serving) the copies are made
+into cuDNN's buffer once and kept until a weight changes. On a CUDA tensor
+it runs cuDNN or raises: it never falls back to the written-out loop,
+which ``RNNLayer.forward_ref`` keeps as the plain version the tests hold
+the layer to. The GRU and zoneout forms of the JAX ``RNNLayer`` are
+not ported and raise.
+
+Lengths: the JAX layer's flax ``nn.RNN`` takes ``seq_lengths``; its final
+carries are the states at each row's last valid frame, and its reverse
+direction runs over each row's reversed valid prefix. Here the rows run
+as a packed sequence when lengths are given: the valid frames and the
+final carries are flax's; the outputs past a row's length are zero (flax
+emits other values there, which nothing downstream of an RNN encoder reads
+unless a ``max_pool`` subsampler straddles a row's edge, and that raises
+in ``models/encoders/rnn.py``).
 """
 from __future__ import annotations
 
+import warnings
 from typing import Optional
 
 import torch
 from torch import nn
+from torch.nn.utils.rnn import (PackedSequence, pack_padded_sequence,
+                                pad_packed_sequence)
 
 
 class LSTMCell(nn.Module):
@@ -36,34 +54,137 @@ class LSTMCell(nn.Module):
         c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
         return c, torch.sigmoid(o) * torch.tanh(c)
 
+    def lstm_weights(self) -> list[torch.Tensor]:
+        """[w_ih, w_hh, b_ih, b_hh] in ``torch.lstm``'s layout (contiguous:
+        cuDNN takes no strided weight)."""
+        return [self.w_ih.t().contiguous(), self.w_hh.t().contiguous(),
+                torch.zeros_like(self.bias), self.bias]
+
 
 class RNNLayer(nn.Module):
-    """One unidirectional LSTM layer: ``forward(xs [B, T, in], carry=None)
-    -> (ys [B, T, H], (c, h))``, a None carry meaning zeros, as the JAX
-    layer's flax ``nn.RNN``. The input half of the gates is one product
-    over all T steps."""
+    """One uni- or bidirectional LSTM layer: ``forward(xs [B, T, in],
+    xlens=None, carry=None) -> (ys, carry)``. ``xlens`` are the rows'
+    lengths on the host (int64, as ``pack_padded_sequence`` takes them),
+    None for full rows; a None
+    carry means zeros, as the JAX layer's flax ``nn.RNN``. ys is [B, T, H],
+    or for a bidirectional layer the two directions summed ([B, T, H],
+    ``merge="sum"``) or concatenated ([B, T, 2H], "concat"); the carry is
+    (c, h), for a bidirectional layer ((c, h) forward, (c, h) reverse)."""
 
     def __init__(self, in_dim: int, n_units: int, rnn_type: str = "lstm",
-                 bidirectional: bool = False, zoneout_h: float = 0.0,
-                 zoneout_c: float = 0.0):
+                 bidirectional: bool = False, merge: str = "sum",
+                 zoneout_h: float = 0.0, zoneout_c: float = 0.0):
         super().__init__()
-        if rnn_type != "lstm" or bidirectional or zoneout_h or zoneout_c:
+        if rnn_type != "lstm" or zoneout_h or zoneout_c:
             raise NotImplementedError(
-                "RNNLayer: only the unidirectional LSTM without zoneout is "
-                "ported yet, see ROADMAP")
-        self.n_units = n_units
+                "RNNLayer: only the LSTM without zoneout is ported yet, see "
+                "ROADMAP")
+        if merge not in ("sum", "concat"):
+            raise ValueError(f"merge {merge!r}: 'sum' or 'concat'")
+        self.in_dim, self.n_units = in_dim, n_units
+        self.bidirectional = bidirectional
+        self.merge = merge
         self.fwd = LSTMCell(in_dim, n_units)
+        self.bwd = LSTMCell(in_dim, n_units) if bidirectional else None
+        self._kept = None     # (the weights' pointers and versions, weights)
+
+    @property
+    def cells(self) -> list[LSTMCell]:
+        return [self.fwd, self.bwd] if self.bidirectional else [self.fwd]
+
+    def _weights(self, xs: torch.Tensor) -> list[torch.Tensor]:
+        """The cells' weights in ``torch.lstm``'s layout: without autograd
+        on the card, in cuDNN's own buffer, made once and kept until a
+        weight changes (its data pointer or version); else fresh copies."""
+        if not xs.is_cuda or torch.is_grad_enabled() or \
+                not torch._use_cudnn_rnn_flatten_weight():
+            return [w for cell in self.cells for w in cell.lstm_weights()]
+        key = tuple((p.data_ptr(), p._version) for p in self.parameters())
+        if self._kept is None or self._kept[0] != key:
+            from torch.backends.cudnn.rnn import get_cudnn_mode
+            ws = [w.clone() for cell in self.cells
+                  for w in cell.lstm_weights()]
+            torch._cudnn_rnn_flatten_weight(
+                ws, 4, self.in_dim, get_cudnn_mode("LSTM"), self.n_units, 0,
+                1, True, self.bidirectional)
+            self._kept = (key, ws)
+        return self._kept[1]
+
+    def _merge(self, ys_f, ys_b):
+        if self.merge == "sum":
+            return ys_f + ys_b
+        return torch.cat([ys_f, ys_b], -1)
 
     def forward(self, xs: torch.Tensor,
-                carry: Optional[tuple[torch.Tensor, torch.Tensor]] = None):
+                xlens: Optional[torch.Tensor] = None, carry=None):
         bs, t, _ = xs.shape
+        if xs.is_cuda and not (torch.backends.cudnn.is_available() and
+                               torch.backends.cudnn.enabled):
+            raise RuntimeError("RNNLayer: cuDNN is not available on the card")
+        n_dir = len(self.cells)
+        carries = [carry] if n_dir == 1 else carry
         if carry is None:
-            c = h = xs.new_zeros(bs, self.n_units)
+            h0 = c0 = xs.new_zeros(n_dir, bs, self.n_units)
         else:
-            c, h = carry
-        xg = xs @ self.fwd.w_ih                            # [B, T, 4H]
-        ys = []
-        for i in range(t):
-            c, h = self.fwd.step(xg[:, i], c, h)
-            ys.append(h)
-        return torch.stack(ys, 1), (c, h)
+            c0 = torch.stack([c for c, _ in carries])
+            h0 = torch.stack([h for _, h in carries])
+        weights = self._weights(xs)
+        # cuDNN keeps what its backward needs only in training mode
+        train = torch.is_grad_enabled()
+        with warnings.catch_warnings():
+            # under autograd the weights are copies outside cuDNN's buffer,
+            # which it says it copies: as intended
+            warnings.filterwarnings(
+                "ignore", message="RNN module weights are not part")
+            if xlens is None:
+                ys, h_n, c_n = torch.lstm(xs, (h0, c0), weights, True, 1, 0.0,
+                                          train, self.bidirectional, True)
+            else:
+                packed = pack_padded_sequence(xs, xlens, batch_first=True,
+                                              enforce_sorted=False)
+                order = packed.sorted_indices
+                data, h_n, c_n = torch.lstm(
+                    packed.data, packed.batch_sizes,
+                    (h0.index_select(1, order), c0.index_select(1, order)),
+                    weights, True, 1, 0.0, train, self.bidirectional)
+        if xlens is not None:
+            ys, _ = pad_packed_sequence(
+                PackedSequence(data, packed.batch_sizes, order,
+                               packed.unsorted_indices),
+                batch_first=True, total_length=t)
+            back = packed.unsorted_indices
+            h_n, c_n = h_n.index_select(1, back), c_n.index_select(1, back)
+        new = [(c_n[i], h_n[i]) for i in range(n_dir)]
+        if not self.bidirectional:
+            return ys, new[0]
+        return self._merge(ys[..., :self.n_units], ys[..., self.n_units:]), \
+            tuple(new)
+
+    def forward_ref(self, xs: torch.Tensor,
+                    xlens: Optional[torch.Tensor] = None, carry=None):
+        """The written-out cell loop, the layer's plain version: the same
+        outputs (zero past a row's length when ``xlens`` is given) and
+        carries as ``forward``."""
+        bs, t, _ = xs.shape
+        n_dir = len(self.cells)
+        lens = torch.full((bs,), t) if xlens is None else xlens
+        valid = (torch.arange(t)[None] < lens[:, None]).to(xs.device)
+        carries = [carry] if n_dir == 1 else carry
+        outs, new = [], []
+        for d, cell in enumerate(self.cells):
+            if carry is None:
+                c = h = xs.new_zeros(bs, self.n_units)
+            else:
+                c, h = carries[d]
+            xg = xs @ cell.w_ih                            # [B, T, 4H]
+            ys = [None] * t
+            for i in (range(t) if d == 0 else reversed(range(t))):
+                c_i, h_i = cell.step(xg[:, i], c, h)
+                keep = valid[:, i, None]
+                c, h = torch.where(keep, c_i, c), torch.where(keep, h_i, h)
+                ys[i] = torch.where(keep, h_i, 0.0)
+            outs.append(torch.stack(ys, 1))
+            new.append((c, h))
+        if not self.bidirectional:
+            return outs[0], new[0]
+        return self._merge(*outs), tuple(new)

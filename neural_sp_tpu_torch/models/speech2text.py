@@ -18,12 +18,11 @@ from torch import nn
 from ..ops.specaugment import apply_masks, draw_masks
 from .decoders.ctc import CTC
 from .decoders.las import RNNDecoder
-from .encoders.transformer import XformerEncoder
 from .utils import model_device
 
 
 class Speech2Text(nn.Module):
-    def __init__(self, encoder: XformerEncoder,
+    def __init__(self, encoder: nn.Module,
                  dec_fwd: Optional[RNNDecoder] = None,
                  ctc: Optional[CTC] = None, ctc_weight: float = 0.0,
                  specaug: Optional[dict] = None):

@@ -113,7 +113,7 @@ def load_library() -> ctypes.CDLL:
         "nsp_las_scan_f32": [_P] * 24 + [_I] * 8 + [_P],
         "nsp_las_scan_bwd_f32": [_P] * 31 + [_I] * 8 + [_P],
         "nsp_ctc_alpha_f32": [_P] * 6 + [_I] * 4 + [_P],
-        "nsp_ctc_beta_grad_f32": [_P] * 9 + [_I] * 4 + [_P],
+        "nsp_ctc_beta_grad_f32": [_P] * 8 + [_I] * 4 + [_P],
     }
     for name, argtypes in entry_points.items():
         fn = getattr(lib, name)

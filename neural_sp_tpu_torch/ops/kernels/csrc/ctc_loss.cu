@@ -1,5 +1,6 @@
 // K4: CTC loss, forward (alpha recurrence -> nll) and backward (beta
-// recurrence -> dense d nll / d log_probs), float32, for sm_90a.
+// recurrence -> dense d nll / d log_probs), for sm_90a: float32 log-probs
+// and gradient, the recurrences' log-space values in float64.
 //
 // Replaces the TPU kernels `_kernel` (`ctc_loss_pallas`, emit table
 // prepared outside) and `_kernel_fused` (`ctc_loss_pallas_fused`, emit
@@ -34,8 +35,8 @@
 // hold them), so a frame is the chain shared memory -> log-add-exp ->
 // shared memory -> barrier, and the backward is one pass per frame (the
 // emission is added where beta is produced, not in a pass of its own).
-// The whole [B, T, S] alpha lattice is written for the backward (2.4 MB at
-// B = 32, T = 188, S = 201), fire and forget. The backward sums the states
+// The whole [B, T, S] alpha lattice is written for the backward (9.7 MB of
+// float64 at B = 32, T = 188, S = 201), fire and forget. The backward sums the states
 // that share a vocabulary id in a fixed order, so its gradient is the same
 // bits in every run (no float atomics): every blank state of an utterance
 // (101 of 201) meets at grad[b, t, 0], so their occupancies are summed
@@ -46,19 +47,32 @@
 // are added in warp order, and each repeated label's occurrences in label
 // order by the first of them.
 // 32 blocks leave 100 SMs idle: latency, not occupancy, sets the time.
+//
+// Precision: a log alpha falls by about log V a frame (to -4700 at T =
+// 500, V = 10,000), where float32 spaces its values 4.9e-4 apart; each
+// frame rounds every state's value at that magnitude, and the occupancy
+// exp(alpha + beta + nll) takes the sum of the roundings of both
+// recurrences: 1.8e-3 of the gradient's largest value at that shape in
+// float32, and still 1.1e-4 with every frame kept relative to its largest
+// value (the states that carry the occupancy lie hundreds below it). So
+// the recurrences carry their values in float64 (in shared memory, and
+// the alphas saved for the backward), and only what is small is done in
+// float32: the exponentials of the differences to the three-way maximum
+// and the logarithm of their sum, in [1, 3]. The occupancy's exponent is
+// summed in float64 and rounded once.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
 namespace {
 
-constexpr float kNegInf = -1.0e30f;
+constexpr double kNegInfD = -1.0e30;
 constexpr int kThreads = 256;
 
-// jnp.logaddexp for finite inputs
-__device__ __forceinline__ float logaddexp2(float a, float b) {
-  const float m = fmaxf(a, b);
-  return m + log1pf(expf(-fabsf(a - b)));
+// jnp.logaddexp for finite inputs, in float64
+__device__ __forceinline__ double logaddexp2(double a, double b) {
+  const double m = fmax(a, b);
+  return m + log1p(exp(-fabs(a - b)));
 }
 
 // A block per utterance and a barrier per frame; nothing a frame needs
@@ -70,13 +84,15 @@ __device__ __forceinline__ float logaddexp2(float a, float b) {
 // barrier.
 constexpr int kMaxSpt = 16;  // states per thread: the kernels reach 4096 states
 
-// _logaddexp3 of ops/ctc.py; the exponentials of values <= 0 on the fast
-// path (exact to float32 rounding of a sum in [1, 3]).
-__device__ __forceinline__ float lse3(float a, float b, float c) {
-  const float m = fmaxf(fmaxf(a, b), c);
-  const float ms = fmaxf(m, kNegInf);
-  const float out = ms + logf(__expf(a - ms) + __expf(b - ms) + __expf(c - ms));
-  return (m <= kNegInf) ? kNegInf : out;
+// _logaddexp3 of ops/ctc.py on float64 values: the maximum and the
+// differences to it in float64, their exponentials (in (0, 1], one of them
+// 1) and the logarithm of the sum (in [0, 1.1]) in float32, added to the
+// maximum in float64.
+__device__ __forceinline__ double lse3(double a, double b, double c) {
+  const double m = fmax(fmax(a, b), c);
+  if (m <= kNegInfD) return kNegInfD;
+  const float sum = expf((float)(a - m)) + expf((float)(b - m)) + expf((float)(c - m));
+  return m + (double)logf(sum);
 }
 
 // A thread's states: their ids (0 for a blank or past S), whether the id
@@ -109,20 +125,20 @@ __device__ __forceinline__ States<SPT> thread_states(const int* __restrict__ lab
   return st;
 }
 
-// shared layout: a0[S], a1[S]
+// shared layout: a0[S], a1[S] (float64)
 template <int SPT, int AHEAD>
 __global__ void __launch_bounds__(kThreads)
 ctc_alpha_ahead(const float* __restrict__ lp, const int* __restrict__ labels,
                 const int* __restrict__ tlens, const int* __restrict__ ulens,
-                float* __restrict__ alphas, float* __restrict__ nll, int T, int V, int U) {
-  extern __shared__ float smem[];
+                double* __restrict__ alphas, float* __restrict__ nll, int T, int V, int U) {
+  extern __shared__ double smem[];
   const int S = 2 * U + 1;
-  float* cur = smem;
-  float* nxt = cur + S;
+  double* cur = smem;
+  double* nxt = cur + S;
   const int b = blockIdx.x, tid = threadIdx.x;
   const int tl = min(tlens[b], T);
   const float* lpb = lp + (size_t)b * T * V;
-  float* al = alphas + (size_t)b * T * S;
+  double* al = alphas + (size_t)b * T * S;
   const States<SPT> st = thread_states<SPT>(labels + (size_t)b * U, U, V, true);
   // the emissions of frame t for the thread's states (0 for an id outside
   // [0, V), as the one-hot contraction)
@@ -144,7 +160,7 @@ ctc_alpha_ahead(const float* __restrict__ lp, const int* __restrict__ labels,
     for (int i = 0; i < SPT; ++i) {
       const int s = tid + i * kThreads;
       if (s >= S) continue;
-      const float a = (s <= 1) ? em[i] : kNegInf;
+      const double a = (s <= 1) ? (double)em[i] : kNegInfD;
       cur[s] = a;
       al[s] = a;
     }
@@ -165,14 +181,14 @@ ctc_alpha_ahead(const float* __restrict__ lp, const int* __restrict__ labels,
       for (int i = 0; i < SPT; ++i) {
         const int s = tid + i * kThreads;
         if (s >= S) continue;
-        const float a1 = (s >= 1) ? cur[s - 1] : kNegInf;
-        const float a2 = st.skip[i] ? cur[s - 2] : kNegInf;
-        const float a = fmaxf(lse3(cur[s], a1, a2) + em[f][i], kNegInf);
+        const double a1 = (s >= 1) ? cur[s - 1] : kNegInfD;
+        const double a2 = st.skip[i] ? cur[s - 2] : kNegInfD;
+        const double a = fmax(lse3(cur[s], a1, a2) + (double)em[f][i], kNegInfD);
         nxt[s] = a;
         al[(size_t)t * S + s] = a;
       }
       __syncthreads();
-      float* tmp = cur; cur = nxt; nxt = tmp;
+      double* tmp = cur; cur = nxt; nxt = tmp;
     }
   }
   // frames past the utterance's keep the last alphas
@@ -180,14 +196,14 @@ ctc_alpha_ahead(const float* __restrict__ lp, const int* __restrict__ labels,
   for (int i = 0; i < SPT; ++i) {
     const int s = tid + i * kThreads;
     if (s >= S) continue;
-    const float a = cur[s];
+    const double a = cur[s];
     for (int t = max(tl, 1); t < T; ++t) al[(size_t)t * S + s] = a;
   }
   if (tid == 0) {
     const int ul = ulens[b];
     const int end = 2 * ul;
-    const float a_end1 = (ul > 0) ? cur[end - 1] : kNegInf;
-    nll[b] = -logaddexp2(cur[end], a_end1);
+    const double a_end1 = (ul > 0) ? cur[end - 1] : kNegInfD;
+    nll[b] = (float)-logaddexp2(cur[end], a_end1);
   }
 }
 
@@ -199,8 +215,8 @@ enum Role : int { kBlank, kSolo, kRepeat, kNone };
 
 constexpr int kWarps = kThreads / 32;
 
-// shared layout: b0[S], b1[S]: beta + emission of the frame after, in
-// turns; next[U] (int): the next occurrence of label u's id, -1 after the
+// shared layout: b0[S], b1[S] (float64): beta + emission of the frame
+// after, in turns; next[U] (int): the next occurrence of label u's id, -1 after the
 // last; heads[U] and their count (int): the first occurrences of repeated
 // ids. The scratch row of a frame (8 + U floats): each warp's blank sum,
 // then the repeated labels' occupancies.
@@ -208,13 +224,13 @@ template <int SPT, int AHEAD>
 __global__ void __launch_bounds__(kThreads)
 ctc_beta_grad_ahead(const float* __restrict__ lp, const int* __restrict__ labels,
                     const int* __restrict__ tlens, const int* __restrict__ ulens,
-                    const float* __restrict__ alphas, const float* __restrict__ nll,
-                    const float* __restrict__ g, float* __restrict__ grad,
-                    float* __restrict__ scratch, int T, int V, int U) {
-  extern __shared__ float smem[];
+                    const double* __restrict__ alphas, const float* __restrict__ g,
+                    float* __restrict__ grad, float* __restrict__ scratch, int T, int V,
+                    int U) {
+  extern __shared__ double smem[];
   const int S = 2 * U + 1, row = kWarps + U;
-  float* cur = smem;   // beta_{t+1} + emit_{t+1}, what frame t reads
-  float* nxt = cur + S;
+  double* cur = smem;   // beta_{t+1} + emit_{t+1}, what frame t reads
+  double* nxt = cur + S;
   int* next = reinterpret_cast<int*>(nxt + S);
   int* heads = next + U;
   int* n_heads = heads + U;
@@ -224,16 +240,20 @@ ctc_beta_grad_ahead(const float* __restrict__ lp, const int* __restrict__ labels
   if (tid == 0) *n_heads = 0;
   const int ul = ulens[b];
   const int end = 2 * ul, end1 = max(end - 1, 0);
-  const float nllb = nll[b], gb = g[b];
+  const float gb = g[b];
   const float* lpb = lp + (size_t)b * T * V;
-  const float* al = alphas + (size_t)b * T * S;
+  const double* al = alphas + (size_t)b * T * S;
+  // the nll from the saved last frame, in float64
+  const double nllb = -logaddexp2(al[(size_t)(tl - 1) * S + end],
+                                  (ul > 0) ? al[(size_t)(tl - 1) * S + end1] : kNegInfD);
   const int* lab = labels + (size_t)b * U;
   float* gr = grad + (size_t)b * T * V;
   float* parts = scratch + (size_t)b * T * row;
   const States<SPT> st = thread_states<SPT>(lab, U, V, false);
   // frame t's operands for the thread's states: their emissions and their
   // saved alphas (only the states up to `end` take part in the gradient)
-  float ahead_em[AHEAD][SPT], ahead_al[AHEAD][SPT];
+  float ahead_em[AHEAD][SPT];
+  double ahead_al[AHEAD][SPT];
   auto load_group = [&](int t) {  // frames t, t - 1, .., t - AHEAD + 1, those >= 0
 #pragma unroll
     for (int f = 0; f < AHEAD; ++f) {
@@ -243,7 +263,7 @@ ctc_beta_grad_ahead(const float* __restrict__ lp, const int* __restrict__ labels
       for (int i = 0; i < SPT; ++i) {
         const int s = tid + i * kThreads;
         ahead_em[f][i] = st.in[i] ? __ldg(lpb + (size_t)tt * V + st.z[i]) : 0.0f;
-        ahead_al[f][i] = (s <= end && s < S) ? __ldg(al + (size_t)tt * S + s) : 0.0f;
+        ahead_al[f][i] = (s <= end && s < S) ? __ldg(al + (size_t)tt * S + s) : 0.0;
       }
     }
   };
@@ -272,7 +292,8 @@ ctc_beta_grad_ahead(const float* __restrict__ lp, const int* __restrict__ labels
     }
   }
   for (int t0 = tl - 1; t0 >= 0; t0 -= AHEAD) {
-    float em[AHEAD][SPT], av[AHEAD][SPT];
+    float em[AHEAD][SPT];
+    double av[AHEAD][SPT];
 #pragma unroll
     for (int f = 0; f < AHEAD; ++f)
 #pragma unroll
@@ -291,17 +312,18 @@ ctc_beta_grad_ahead(const float* __restrict__ lp, const int* __restrict__ labels
       for (int i = 0; i < SPT; ++i) {
         const int s = tid + i * kThreads;
         if (s >= S) continue;
-        float beta;
+        double beta;
         if (t == tl - 1) {  // the seed: 0 at the two final states
-          beta = (s == end || s == end1) ? 0.0f : kNegInf;
+          beta = (s == end || s == end1) ? 0.0 : kNegInfD;
         } else {
-          const float c1 = (s + 1 < S) ? cur[s + 1] : kNegInf;
-          const float c2 = st.skip[i] ? cur[s + 2] : kNegInf;
-          beta = fmaxf(lse3(cur[s], c1, c2), kNegInf);
+          const double c1 = (s + 1 < S) ? cur[s + 1] : kNegInfD;
+          const double c2 = st.skip[i] ? cur[s + 2] : kNegInfD;
+          beta = fmax(lse3(cur[s], c1, c2), kNegInfD);
         }
-        nxt[s] = beta + em[f][i];
+        nxt[s] = beta + (double)em[f][i];
         if (role[i] == kNone) continue;
-        const float gam = -gb * __expf(fminf(av[f][i] + beta + nllb, 0.0f));
+        // the exponent summed in float64, rounded once
+        const float gam = -gb * __expf(fminf((float)(av[f][i] + beta + nllb), 0.0f));
         if (role[i] == kBlank) blank += gam;
         else if (role[i] == kSolo) gr[(size_t)t * V + st.z[i]] = gam;
         else part[kWarps + (s >> 1)] = gam;
@@ -311,7 +333,7 @@ ctc_beta_grad_ahead(const float* __restrict__ lp, const int* __restrict__ labels
       for (int o = 16; o > 0; o >>= 1) blank += __shfl_xor_sync(0xffffffffu, blank, o);
       if ((tid & 31) == 0) part[warp] = blank;
       __syncthreads();
-      float* tmp = cur; cur = nxt; nxt = tmp;
+      double* tmp = cur; cur = nxt; nxt = tmp;
     }
   }
   __syncthreads();  // the scratch rows, next[] and heads[] are written
@@ -333,8 +355,8 @@ ctc_beta_grad_ahead(const float* __restrict__ lp, const int* __restrict__ labels
   }
 }
 
-// two rows of S floats: the current frame's and the next one's
-size_t smem_bytes(int U) { return (size_t)2 * (2 * U + 1) * sizeof(float); }
+// two rows of S float64 values: the current frame's and the next one's
+size_t smem_bytes(int U) { return (size_t)2 * (2 * U + 1) * sizeof(double); }
 
 // the backward's: the two rows, the labels' next occurrences and the heads
 size_t bwd_smem_bytes(int U) { return smem_bytes(U) + (size_t)(2 * U + 1) * sizeof(int); }
@@ -345,18 +367,22 @@ size_t bwd_smem_bytes(int U) { return smem_bytes(U) + (size_t)(2 * U + 1) * size
 extern "C" int nsp_ctc_max_labels() { return (kMaxSpt * kThreads - 1) / 2; }
 
 // lp [B, T, V] log-probs; labels [B, U] int32; tlens, ulens [B] int32.
-// Outputs alphas [B, T, 2U + 1], nll [B]. Returns a cudaError_t.
+// Outputs alphas [B, T, 2U + 1] (float64), nll [B]. Returns a cudaError_t.
 extern "C" int nsp_ctc_alpha_f32(const void* lp, const void* labels, const void* tlens,
                                  const void* ulens, void* alphas, void* nll, int B, int T,
                                  int V, int U, void* stream) {
   if (B <= 0 || T <= 0 || V <= 0 || U < 0) return (int)cudaErrorInvalidValue;
   const int S = 2 * U + 1;
   if (S > kMaxSpt * kThreads) return (int)cudaErrorInvalidValue;
+  const size_t smem = smem_bytes(U);
   auto launch = [&](auto kernel) {
-    kernel<<<B, kThreads, smem_bytes(U), static_cast<cudaStream_t>(stream)>>>(
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(lp), static_cast<const int*>(labels),
         static_cast<const int*>(tlens), static_cast<const int*>(ulens),
-        static_cast<float*>(alphas), static_cast<float*>(nll), T, V, U);
+        static_cast<double*>(alphas), static_cast<float*>(nll), T, V, U);
     return (int)cudaGetLastError();
   };
   if (S <= kThreads) return launch(ctc_alpha_ahead<1, 8>);
@@ -366,14 +392,14 @@ extern "C" int nsp_ctc_alpha_f32(const void* lp, const void* labels, const void*
   return launch(ctc_alpha_ahead<16, 2>);
 }
 
-// As above plus the saved alphas and nll, the upstream gradient g [B],
+// As above plus the saved alphas (float64), the upstream gradient g [B],
 // grad [B, T, V], which must be zeroed (the kernel writes only the ids the
 // labels and the blank emit, at frames t < T_b), and the scratch
 // [B, T, 8 + U]. Returns a cudaError_t.
 extern "C" int nsp_ctc_beta_grad_f32(const void* lp, const void* labels, const void* tlens,
-                                     const void* ulens, const void* alphas, const void* nll,
-                                     const void* g, void* grad, void* scratch, int B, int T,
-                                     int V, int U, void* stream) {
+                                     const void* ulens, const void* alphas, const void* g,
+                                     void* grad, void* scratch, int B, int T, int V, int U,
+                                     void* stream) {
   if (B <= 0 || T <= 0 || V <= 0 || U < 0) return (int)cudaErrorInvalidValue;
   const int S = 2 * U + 1;
   if (S > kMaxSpt * kThreads) return (int)cudaErrorInvalidValue;
@@ -385,8 +411,8 @@ extern "C" int nsp_ctc_beta_grad_f32(const void* lp, const void* labels, const v
     kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(lp), static_cast<const int*>(labels),
         static_cast<const int*>(tlens), static_cast<const int*>(ulens),
-        static_cast<const float*>(alphas), static_cast<const float*>(nll),
-        static_cast<const float*>(g), static_cast<float*>(grad),
+        static_cast<const double*>(alphas), static_cast<const float*>(g),
+        static_cast<float*>(grad),
         static_cast<float*>(scratch), T, V, U);
     return (int)cudaGetLastError();
   };

@@ -24,9 +24,20 @@ sums are added in warp order and each repeated label's occurrences in
 label order. It writes into a gradient that the wrapper zeroes: that
 memset is the loss's byte bound.
 
-Plain PyTorch versions beside it: ``ctc_forward_alphas`` (the forward) and
-``ctc_loss_bwd_ref`` with ``ctc_backward_betas`` (the backward, written
-out, not autograd). ``CTCNll`` is the ``autograd.Function``: CPU tensors run
+Precision: a log alpha falls by about log V a frame, to -4700 at T = 500
+and V = 10,000, where float32 rounds to 2.4e-4 at every frame and state;
+the occupancies exp(alpha + beta + nll) take the roundings of both
+recurrences, 1.8e-3 of the gradient's largest value at that shape in
+float32 (9e-4 at T = 188). So the recurrences carry their values in
+float64: the alphas [B, T, 2U+1] the forward saves are float64, and the
+backward recomputes the nll from their last frame in float64. The kernels
+do only the small parts in float32 (the exponentials of differences to a
+maximum, the logarithm of a sum in [1, 3]); the plain versions compute in
+float64.
+
+Plain PyTorch versions beside it, in float64: ``ctc_forward_alphas`` (the
+forward) and ``ctc_loss_bwd_ref`` with ``ctc_backward_betas`` (the
+backward, written out, not autograd). ``CTCNll`` is the ``autograd.Function``: CPU tensors run
 the plain versions, CUDA tensors the kernels. Source: ``csrc/ctc_loss.cu``.
 """
 from __future__ import annotations
@@ -82,11 +93,12 @@ def _emit(log_probs: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
 
 def ctc_forward_alphas(log_probs, labels, logit_lengths, label_lengths):
     """Plain version of the forward kernel (``ops/ctc.py::
-    ctc_forward_alphas``). log_probs [B, T, V] f32; labels [B, U] int;
-    lengths [B] int. Returns (nll [B], alphas [B, T, 2U+1])."""
+    ctc_forward_alphas``), in float64. log_probs [B, T, V] f32; labels [B,
+    U] int; lengths [B] int. Returns (nll [B] f32, alphas [B, T, 2U+1]
+    float64)."""
     bs, tmax, _ = log_probs.shape
     z, skip = _extend(labels)
-    emit = _emit(log_probs.float(), z)
+    emit = _emit(log_probs.double(), z)
     tl = logit_lengths.to(log_probs.device)
     alpha = torch.full_like(emit[:, 0], NEG_INF)
     alpha[:, 0] = emit[:, 0, 0]
@@ -100,22 +112,29 @@ def ctc_forward_alphas(log_probs, labels, logit_lengths, label_lengths):
                + emit[:, t]).clamp(min=NEG_INF)
         alpha = torch.where((t < tl)[:, None], new, alpha)
         hist.append(alpha)
-    end = 2 * label_lengths.to(log_probs.device).long()
+    return _final_nll(alpha, label_lengths).float(), torch.stack(hist, 1)
+
+
+def _final_nll(alpha, label_lengths):
+    """-log Z [B] from the alphas [B, 2U+1] of each utterance's last
+    frame."""
+    end = 2 * label_lengths.to(alpha.device).long()
     a_end = alpha.gather(1, end[:, None])[:, 0]
     a_end1 = alpha.gather(1, (end - 1).clamp(min=0)[:, None])[:, 0]
     a_end1 = torch.where(end > 0, a_end1, torch.full_like(a_end1, NEG_INF))
-    return -torch.logaddexp(a_end, a_end1), torch.stack(hist, 1)
+    return -torch.logaddexp(a_end, a_end1)
 
 
 def ctc_backward_betas(log_probs, labels, logit_lengths, label_lengths):
-    """Beta recurrence (``ops/ctc.py::_ctc_backward_betas``): beta[b, t, s]
-    = log P(the path completes after (t, s)); at and past each utterance's
-    last frame it is the seed, 0 at its two final states."""
+    """Beta recurrence (``ops/ctc.py::_ctc_backward_betas``), in float64:
+    beta[b, t, s] = log P(the path completes after (t, s)); at and past
+    each utterance's last frame it is the seed, 0 at its two final
+    states."""
     bs, tmax, _ = log_probs.shape
     z, skip = _extend(labels)
     s = z.shape[1]
     skip_fwd = torch.cat([skip[:, 2:], torch.zeros_like(skip[:, :2])], 1)
-    emit = _emit(log_probs.float(), z)
+    emit = _emit(log_probs.double(), z)
     tl = logit_lengths.to(log_probs.device)
     end = 2 * label_lengths.to(log_probs.device).long()
     s_idx = torch.arange(s, device=log_probs.device)[None]
@@ -135,16 +154,21 @@ def ctc_backward_betas(log_probs, labels, logit_lengths, label_lengths):
     return torch.stack(hist[::-1], 1)
 
 
-def ctc_loss_bwd_ref(log_probs, labels, logit_lengths, label_lengths, nll,
+def ctc_loss_bwd_ref(log_probs, labels, logit_lengths, label_lengths,
                      alphas, g):
-    """Plain version of the backward kernel (``_ctc_nll_bwd``): d(sum_b
-    g[b] nll[b]) / d log_probs, dense [B, T, V]."""
+    """Plain version of the backward kernel (``_ctc_nll_bwd``), in float64:
+    d(sum_b g[b] nll[b]) / d log_probs, dense [B, T, V] f32, from the
+    forward's float64 alphas (the nll taken from their last frame)."""
     bs, tmax, v = log_probs.shape
     z, _ = _extend(labels)
+    dev = log_probs.device
+    alphas = alphas.double()
+    last = (logit_lengths.to(dev).long() - 1).clamp(min=0)
+    nll = _final_nll(alphas[torch.arange(bs, device=dev), last],
+                     label_lengths)
     betas = ctc_backward_betas(log_probs, labels, logit_lengths,
                                label_lengths)
     gamma = torch.exp((alphas + betas + nll[:, None, None]).clamp(max=0.0))
-    dev = log_probs.device
     valid = ((torch.arange(tmax, device=dev)[None, :, None]
               < logit_lengths.to(dev)[:, None, None])
              & (torch.arange(z.shape[1], device=dev)[None, None]
@@ -152,7 +176,7 @@ def ctc_loss_bwd_ref(log_probs, labels, logit_lengths, label_lengths, nll,
     gamma = torch.where(valid, gamma, torch.zeros_like(gamma))
     grad = torch.zeros((bs, tmax, v), dtype=gamma.dtype, device=dev)
     grad.scatter_add_(2, z[:, None, :].expand(-1, tmax, -1), gamma)
-    return -grad * g[:, None, None]
+    return (-grad * g.double()[:, None, None]).float()
 
 
 def _states_frames(t, u, logit_lengths, label_lengths):
@@ -168,21 +192,21 @@ def ctc_loss_cost(b, t, u, v, logit_lengths, label_lengths):
     """(flops, bytes) of K4's forward: the alpha recurrence over each
     utterance's valid frames and states; reads the emissions it gathers
     (labels and blank, not the whole vocabulary), labels and lengths;
-    writes alphas [B, T, 2U+1] and nll. Elementwise work: its peak is the
-    SIMT rate."""
+    writes the float64 alphas [B, T, 2U+1] and nll. Elementwise work: its
+    peak is the SIMT rate."""
     sf, emit = _states_frames(t, u, logit_lengths, label_lengths)
     return RECURRENCE_FLOPS * sf, \
-        4 * (emit + b * u + 2 * b + b * t * (2 * u + 1) + b)
+        4 * (emit + b * u + 2 * b + b) + 8 * b * t * (2 * u + 1)
 
 
 def ctc_loss_bwd_cost(b, t, u, v, logit_lengths, label_lengths):
     """(flops, bytes) of K4's backward: the beta recurrence and the state
     occupancies over the valid frames and states; reads the gathered
-    emissions, the valid alphas, labels, lengths, nll and g; writes the
+    emissions, the valid float64 alphas, labels, lengths and g; writes the
     dense gradient [B, T, V]."""
     sf, emit = _states_frames(t, u, logit_lengths, label_lengths)
     return (RECURRENCE_FLOPS + GAMMA_FLOPS) * sf, \
-        4 * (emit + sf + b * u + 2 * b + 2 * b + b * t * v)
+        4 * (emit + b * u + 2 * b + b + b * t * v) + 8 * sf
 
 
 def _check_args(log_probs, labels, logit_lengths, label_lengths):
@@ -199,16 +223,17 @@ def _check_args(log_probs, labels, logit_lengths, label_lengths):
 
 
 def ctc_loss_fwd(log_probs, labels, logit_lengths, label_lengths):
-    """(nll [B], alphas [B, T, 2U+1]). CPU tensors take the plain version;
-    CUDA tensors launch the kernel (f32 log-probs, int32 labels and
-    lengths, contiguous) or raise. Counts in ``ctc_loss_fwd.launches``."""
+    """(nll [B], alphas [B, T, 2U+1] float64). CPU tensors take the plain
+    version; CUDA tensors launch the kernel (f32 log-probs, int32 labels
+    and lengths, contiguous) or raise. Counts in
+    ``ctc_loss_fwd.launches``."""
     args = (log_probs, labels, logit_lengths, label_lengths)
     if on_cpu(*args):
         return ctc_forward_alphas(*args)
     lib = _check_args(*args)
     b, t, v = log_probs.shape
     u = labels.shape[1]
-    alphas = torch.empty((b, t, 2 * u + 1), dtype=torch.float32,
+    alphas = torch.empty((b, t, 2 * u + 1), dtype=torch.float64,
                          device=log_probs.device)
     nll = torch.empty((b,), dtype=torch.float32, device=log_probs.device)
     err = lib.nsp_ctc_alpha_f32(*(x.data_ptr() for x in (*args, alphas, nll)),
@@ -218,18 +243,17 @@ def ctc_loss_fwd(log_probs, labels, logit_lengths, label_lengths):
     return nll, alphas
 
 
-def ctc_loss_bwd(log_probs, labels, logit_lengths, label_lengths, nll,
-                 alphas, g):
-    """Dense gradient [B, T, V]; dispatch as ``ctc_loss_fwd``. Counts in
-    ``ctc_loss_bwd.launches``."""
+def ctc_loss_bwd(log_probs, labels, logit_lengths, label_lengths, alphas,
+                 g):
+    """Dense gradient [B, T, V] from the forward's alphas; dispatch as
+    ``ctc_loss_fwd``. Counts in ``ctc_loss_bwd.launches``."""
     args = (log_probs, labels, logit_lengths, label_lengths)
-    if on_cpu(*args, nll, alphas, g):
-        return ctc_loss_bwd_ref(*args, nll, alphas, g)
+    if on_cpu(*args, alphas, g):
+        return ctc_loss_bwd_ref(*args, alphas, g)
     lib = _check_args(*args)
     b, t, v = log_probs.shape
     u = labels.shape[1]
-    check("nll", nll, (b,))
-    check("alphas", alphas, (b, t, 2 * u + 1))
+    check("alphas", alphas, (b, t, 2 * u + 1), torch.float64)
     g = g.contiguous()
     check("g", g, (b,))
     grad = torch.zeros_like(log_probs)
@@ -238,7 +262,7 @@ def ctc_loss_bwd(log_probs, labels, logit_lengths, label_lengths, nll,
     scratch = torch.empty((b, t, 8 + u), dtype=torch.float32,
                           device=log_probs.device)
     err = lib.nsp_ctc_beta_grad_f32(
-        *(x.data_ptr() for x in (*args, alphas, nll, g, grad, scratch)),
+        *(x.data_ptr() for x in (*args, alphas, g, grad, scratch)),
         b, t, v, u, stream_of(log_probs))
     raise_on_error("ctc_loss_bwd", err)
     ctc_loss_bwd.launches += 1
@@ -258,7 +282,7 @@ class CTCNll(torch.autograd.Function):
         nll, alphas = ctc_loss_fwd(log_probs, labels, logit_lengths,
                                    label_lengths)
         ctx.save_for_backward(log_probs, labels, logit_lengths,
-                              label_lengths, nll, alphas)
+                              label_lengths, alphas)
         return nll
 
     @staticmethod

@@ -15,11 +15,13 @@ Layout rules (flax -> torch):
     K] (1-D, including depthwise and the attention's location conv);
   * flax ``OptimizedLSTMCell`` ``i{g}`` / ``h{g}`` denses (any module
     holding an ``ii`` dense: the LAS decoder's ``cells_0``, an RNNLM's
-    ``rnns_0/fwd``) -> one ``w_ih`` [in, 4H], ``w_hh`` [H, 4H] and ``bias``
+    ``rnns_0/fwd``, an RNN encoder's ``rnn0/fwd`` and ``rnn0/bwd``) -> one ``w_ih`` [in, 4H], ``w_hh`` [H, 4H] and ``bias``
     [4H], gates in (i, f, g, o) order (the hidden side owns the bias);
   * list members ``blocks_3`` / ``block0`` / ``cells_0`` / ``rnns_0`` /
     ``projs_0`` -> ``blocks.3`` / ``blocks.0`` / ``cells.0`` / ``rnns.0`` /
-    ``projs.0``, and nested ones ``tails_1_0`` -> ``tails.1.0``;
+    ``projs.0``, an RNN encoder's ``rnn2`` / ``proj2`` (its layers' cells
+    ``fwd`` and ``bwd``) -> ``rnns.2`` / ``projs.2``, and nested ones
+    ``tails_1_0`` -> ``tails.1.0``;
   * a ``LinearGLUBlock``'s ``glu/Dense_0`` -> ``glu.fc``;
   * a free parameter at the top of the tree (an RNNLM's ``output_bias``)
     keeps its name.
@@ -60,8 +62,11 @@ def _torch_name(path: str) -> str:
         m = re.fullmatch(r"(blocks|cells|rnns|projs|tails)((?:_\d+)+)", p)
         if m:
             parts += [m.group(1)] + m.group(2).split("_")[1:]
-        elif re.fullmatch(r"block\d+", p):
-            parts += ["blocks", p[len("block"):]]
+        elif re.fullmatch(r"(block|rnn|proj)\d+", p):
+            # the conv front end's blocks, an RNN encoder's layers and
+            # projections
+            m = re.fullmatch(r"([a-z]+)(\d+)", p)
+            parts += [m.group(1) + "s", m.group(2)]
         elif p == "Dense_0" and parts and parts[-1] == "glu":
             parts.append("fc")
         else:

@@ -51,15 +51,18 @@ import yaml
 import jax
 
 from neural_sp_tpu.bin.asr import train as jax_train
+from neural_sp_tpu.models.speech2text import build_speech2text as jax_build
 from neural_sp_tpu.trainers.checkpoint import (
     load_checkpoint as jax_load_checkpoint)
 from neural_sp_tpu.utils.ci_corpus import make_ci_corpus
 from neural_sp_tpu_torch.bin.asr import eval as port_eval
 from neural_sp_tpu_torch.bin.asr import train as port_train
+from neural_sp_tpu_torch.parallel.mesh import TrainStep
 from neural_sp_tpu_torch.trainers.lr_scheduler import noam_schedule
 from neural_sp_tpu_torch.trainers.checkpoint import (
     load_checkpoint, save_checkpoint)
-from neural_sp_tpu_torch.utils.convert_params import convert_checkpoint
+from neural_sp_tpu_torch.utils.convert_params import (
+    convert_checkpoint, convert_params)
 
 RTOL = 2e-4
 
@@ -281,3 +284,71 @@ def test_unported_train_cli_options_raise(runs, flag):
                          str(runs["root"] / "unported"), f"--{flag}", "1"],
                         device="cpu")
 
+
+
+# a tiny conv_blstm conf: one pooling block, 2 BLSTM-16 layers (concat),
+# drop subsampling, Adam; dropout, sampling and SpecAugment off
+BLSTM_CONF = dict(
+    enc_type="conv_blstm", input_dim=80, conv_channels="4",
+    conv_kernel_sizes="(3,3)", conv_poolings="(2,2)", enc_n_units=16,
+    enc_n_layers=2, subsample="1_2", dropout_enc=0.0, dropout_dec=0.0,
+    dropout_emb=0.0, dec_type="lstm", dec_n_units=32, dec_n_layers=1,
+    emb_dim=16, dec_bottleneck_dim=32, attn_type="location", attn_dim=16,
+    attn_conv_width=9, ctc_weight=0.3, lsm_prob=0.1, unit="char",
+    batch_size=8, min_n_frames=1, max_n_frames=10000, optimizer="adam",
+    lr=1e-3, print_step=1, n_epochs=1)
+
+
+def test_blstm_conf_trains_and_evaluates(runs, monkeypatch):
+    """The port's train CLI on a conv_blstm conf for one epoch, from the JAX
+    model's weights (converted): its first microbatch's loss is the JAX
+    model's on that batch (rtol 2e-4); then the eval CLI decodes the test
+    set from its checkpoint."""
+    root, c = runs["root"], runs["corpus"]
+    conf = root / "blstm.yml"
+    conf.write_text(yaml.safe_dump(BLSTM_CONF))
+    built, first = {}, []
+
+    def jax_weights(model, seed):
+        jm = jax_build(built["args"])
+        xs = np.zeros((2, 32, 80), np.float32)
+        params = jax.jit(jm.init)(jax.random.PRNGKey(seed), xs,
+                                  np.array([32, 20]),
+                                  np.ones((2, 3), np.int32),
+                                  np.array([3, 2]))["params"]
+        built.update(jm=jm, params=params)
+        model.load_state_dict(convert_params(jax.tree.map(np.asarray,
+                                                          params)))
+        return model
+
+    build = port_train.build_speech2text
+
+    def record_args(args, device=None):
+        built["args"] = args
+        return build(args, device=device)
+
+    orig_step = TrainStep.__call__
+
+    def record_step(self, xs, xlens, ys, ylens, *a, **kw):
+        m = orig_step(self, xs, xlens, ys, ylens, *a, **kw)
+        if not first:
+            first.append(((xs, xlens, ys, ylens), float(m["loss"])))
+        return m
+
+    monkeypatch.setattr(port_train, "init_params", jax_weights)
+    monkeypatch.setattr(port_train, "build_speech2text", record_args)
+    monkeypatch.setattr(TrainStep, "__call__", record_step)
+    exp = str(root / "blstm")
+    port_train.main(["--config", str(conf), "--model_save_dir", exp]
+                    + runs["data"], device="cpu")
+    batch, loss = first[0]
+    want, _ = built["jm"].apply({"params": built["params"]},
+                                *(x.numpy() for x in batch),
+                                deterministic=True)
+    np.testing.assert_allclose(loss, float(want), rtol=RTOL)
+    got = port_eval.main(["--recog_model", exp, "--recog_sets", c["test"],
+                          "--recog_beam_width", "2", "--recog_ctc_weight",
+                          "0.3", "--recog_dir", str(root / "blstm_eval")],
+                         device="cpu")
+    (m,) = got.values()
+    assert m["n_utts"] == 4 and m["rtf"] > 0

@@ -135,16 +135,16 @@ def test_las_costs(klens, step, scan, scan_bwd):
 @pytest.mark.parametrize("tl,ul,fwd,bwd", [
     # states x frames 6x7 + 4x3 = 54; emission columns 6x4 + 4x2 = 32
     ([6, 4], [3, 1],
-     # 13 flops per state and frame; emissions, labels 6, lengths 4,
-     # alphas 2x6x7, nll 2
-     (13 * 54, 4 * (32 + 6 + 4 + 84 + 2)),
-     # 17 flops; emissions, valid alphas 54, labels, lengths, nll and g,
-     # dense gradient 2x6x7
-     (17 * 54, 4 * (32 + 54 + 6 + 4 + 4 + 84))),
+     # 13 flops per state and frame; emissions, labels 6, lengths 4, nll 2;
+     # the float64 alphas 2x6x7
+     (13 * 54, 4 * (32 + 6 + 4 + 2) + 8 * 84),
+     # 17 flops; emissions, labels, lengths and g, dense gradient 2x6x7;
+     # the valid float64 alphas 54
+     (17 * 54, 4 * (32 + 6 + 4 + 2 + 84) + 8 * 54)),
     # a length past T (clipped to 6) with no label, and no frame at all
     ([9, 0], [0, 3],
-     (13 * 6, 4 * (6 + 6 + 4 + 84 + 2)),
-     (17 * 6, 4 * (6 + 6 + 6 + 4 + 4 + 84))),
+     (13 * 6, 4 * (6 + 6 + 4 + 2) + 8 * 84),
+     (17 * 6, 4 * (6 + 6 + 4 + 2 + 84) + 8 * 6)),
 ])
 def test_ctc_costs(tl, ul, fwd, bwd):
     assert ctc_loss_cost(2, 6, 3, 7, tl, ul) == fwd

@@ -117,9 +117,10 @@ def test_ctc_backward_is_the_plain_version_on_cpu():
     args = (lp, _t(LABELS), _t(TLENS), _t(ULENS))
     before = (k4.ctc_loss_fwd.launches, k4.ctc_loss_bwd.launches)
     nll, alphas = k4.ctc_loss_fwd(*args)
+    assert alphas.dtype == torch.float64
     g = torch.ones(B)
-    assert torch.equal(k4.ctc_loss_bwd(*args, nll, alphas, g),
-                       ctc_loss_bwd_ref(*args, nll, alphas, g))
+    assert torch.equal(k4.ctc_loss_bwd(*args, alphas, g),
+                       ctc_loss_bwd_ref(*args, alphas, g))
     assert (k4.ctc_loss_fwd.launches, k4.ctc_loss_bwd.launches) == before
 
 
@@ -140,3 +141,23 @@ def test_ctc_head_forward_matches_jax():
                                atol=ATOL)
     np.testing.assert_allclose(logits.detach().numpy(),
                                np.asarray(want_logits), rtol=RTOL, atol=ATOL)
+
+
+def test_alphas_are_kept_in_float64_on_long_inputs():
+    """At T = 500, V = 10,000 a log alpha falls to about -4700, where
+    float32 spaces its values 4.9e-4 apart: the same alphas rounded to
+    float32 would move the gradient by over 5e-5 of its largest value (a
+    float32 recurrence, rounding at every frame, by 1.8e-3 there), so the
+    forward returns them in float64 and the backward takes them so."""
+    rng = np.random.RandomState(6)
+    t, v, u = 500, 10000, 100
+    lp = torch.log_softmax(_t(rng.randn(1, t, v).astype(np.float32) * 2), -1)
+    args = (lp, _t(rng.randint(4, v, (1, u)).astype(np.int32)),
+            _t(np.array([t], np.int32)), _t(np.array([u], np.int32)))
+    g = torch.ones(1)
+    _, alphas = ctc_forward_alphas(*args)
+    assert alphas.dtype == torch.float64
+    assert float(alphas[0, -1].max()) < -4000
+    want = ctc_loss_bwd_ref(*args, alphas, g)
+    rounded = ctc_loss_bwd_ref(*args, alphas.float(), g)
+    assert float((rounded - want).abs().max() / want.abs().max()) > 5e-5

@@ -82,6 +82,7 @@ def test_rel_attention_kernel_refuses_bad_arguments(cuda):
 
 @pytest.mark.parametrize("n,t,hd,d,a,ch,k", [
     (10, 200, 1024, 512, 512, 10, 201),   # flagship beam 10
+    (10, 400, 1024, 1024, 512, 10, 201),  # BLSTM-LAS beam 10: D = 1024
     (17, 57, 64, 48, 40, 10, 201),        # > 16 rows, odd T, small widths
     (3, 30, 32, 24, 16, 4, 6),            # even conv width
 ])
@@ -221,8 +222,9 @@ def test_las_step_workspace_threads_its_carry(cuda):
     assert las_step.kernels_per_step == 4
 
 
-@pytest.mark.parametrize("n,t", [(32, 188), (10, 200), (17, 57)])
-def test_las_step_keep(cuda, n, t):
+@pytest.mark.parametrize("n,t,d", [(32, 188, 512), (10, 200, 512),
+                                   (17, 57, 512), (32, 500, 1024)])
+def test_las_step_keep(cuda, n, t, d):
     """K2 with a dropout scale ``keep`` (the query reads h keep, the carry
     keeps h), the checked call and the workspace, against ``las_step_ref``
     with the same keep over three threaded steps; all-ones keep gives the
@@ -230,7 +232,7 @@ def test_las_step_keep(cuda, n, t):
     microbatch (more than 16 rows: K3's gate kernel)."""
     from neural_sp_tpu_torch.ops.kernels.las_step import LasStepWorkspace
     rng = np.random.RandomState(n + t)
-    hd, d, a, ch, k = 1024, 512, 512, 10, 201
+    hd, a, ch, k = 1024, 512, 10, 201
     state, fixed = _step_inputs(rng, cuda, n, t, hd, d, a, ch, k,
                                 [max(t - 5 * i, 1) for i in range(n)])
     ws = LasStepWorkspace(*fixed)
@@ -526,6 +528,8 @@ def _las_args(rng, dev, b, u, t, hd, d, a, ch, k, klens, rate=0.1):
 # columns per recurrent block; location-conv channels 10 at a time.
 @pytest.mark.parametrize("b,u,t,hd,d,a,ch,k,klens", [
     (32, 12, 188, 1024, 512, 512, 10, 201, None),   # flagship widths
+    (32, 101, 500, 1024, 1024, 512, 10, 201,        # BLSTM-LAS: D = 1024,
+     [500 - 9 * i for i in range(32)]),             # T up to 500
     (5, 7, 37, 64, 48, 40, 4, 6, [37, 30, 12, 1, 20]),  # small, even conv
     (33, 4, 189, 1024, 512, 512, 10, 201,           # B = 33, T = 189,
      [189 - 5 * i for i in range(32)] + [1]),       # a row with klen 1
@@ -591,6 +595,7 @@ def test_las_scan_refuses_bad_arguments(cuda):
 
 @pytest.mark.parametrize("b,t,u,v,tl,ul", [
     (32, 188, 100, 10000, None, None),          # flagship training shape
+    (32, 500, 100, 10000, None, None),          # BLSTM-LAS: T = 500
     (4, 20, 6, 30, [20, 15, 9, 3], [6, 0, 5, 4]),  # U = 0, infeasible rows
 ])
 def test_ctc_loss_kernel(cuda, b, t, u, v, tl, ul):
@@ -614,10 +619,12 @@ def test_ctc_loss_kernel(cuda, b, t, u, v, tl, ul):
     _close(alphas.clamp(min=-1e4), alphas_ref.clamp(min=-1e4), "alphas")
     g = feasible.float() * torch.linspace(0.5, 1.5, b, device=cuda)
     before = ctc_loss_bwd.launches
-    grad = ctc_loss_bwd(*args, nll_ref, alphas_ref, g)
+    grad = ctc_loss_bwd(*args, alphas_ref, g)
     torch.cuda.synchronize()
     assert ctc_loss_bwd.launches == before + 1
-    _close(grad, ctc_loss_bwd_ref(*args, nll_ref, alphas_ref, g), "grad")
+    _close(grad, ctc_loss_bwd_ref(*args, alphas_ref, g), "grad")
+    # from the kernel's own alphas too
+    _close(ctc_loss_bwd(*args, alphas, g), grad, "grad from K4's alphas")
 
 
 def _ctc_case(name):
@@ -694,9 +701,9 @@ def test_ctc_loss_kernel_edges(cuda, name):
     assert bool((nll[~feasible] >= 1e29).all())
     _close(alphas.clamp(min=-1e4), alphas_ref.clamp(min=-1e4), "alphas")
     g = feasible.float() * torch.linspace(0.5, 1.5, b, device=cuda)
-    grad = ctc_loss_bwd(*args, nll_ref, alphas_ref, g)
+    grad = ctc_loss_bwd(*args, alphas_ref, g)
     torch.cuda.synchronize()
-    grad_ref = ctc_loss_bwd_ref(*ref_args, nll_ref, alphas_ref, g)
+    grad_ref = ctc_loss_bwd_ref(*ref_args, alphas_ref, g)
     _close(grad, grad_ref[..., :v], "grad")
 
 
@@ -724,9 +731,9 @@ def test_ctc_loss_bwd_is_deterministic(cuda, name):
             torch.tensor(ul, dtype=torch.int32, device=cuda))
     nll, alphas = ctc_loss_fwd(*args)
     g = torch.linspace(0.5, 1.5, b, device=cuda) * (nll < 1e29).float()
-    first = ctc_loss_bwd(*args, nll, alphas, g)
+    first = ctc_loss_bwd(*args, alphas, g)
     for _ in range(3):
-        assert torch.equal(ctc_loss_bwd(*args, nll, alphas, g), first)
+        assert torch.equal(ctc_loss_bwd(*args, alphas, g), first)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -857,3 +864,76 @@ def test_lm_fused_decode_on_the_card_matches_the_cpu(cuda):
     assert none == (0, 0) and min(launched) > 0
     assert hyps_card == hyps_cpu and len(hyps_card[0]) > 0
     np.testing.assert_allclose(sc_card, sc_cpu, atol=TOL, rtol=TOL)
+
+
+# cuDNN's LSTM (the RNN layer on the card) against the layer's written-out
+# loop: float32 on both sides, TF32 off; the products sum in other orders
+# and the recurrence carries the differences over T steps.
+RNN_TOL = 1e-4
+
+
+@pytest.mark.parametrize("bidirectional,merge", [(True, "concat"),
+                                                 (True, "sum"),
+                                                 (False, "sum")])
+def test_rnn_layer_runs_cudnn_as_its_loop(cuda, bidirectional, merge):
+    """The BLSTM-LAS's layer shape (in 1024, 512 units, T 250, ragged),
+    outputs, carries and gradients; the layer raises without cuDNN."""
+    from neural_sp_tpu_torch.models.modules.recurrent import RNNLayer
+    from neural_sp_tpu_torch.utils.init_params import init_params
+    layer = init_params(RNNLayer(1024, 512, "lstm", bidirectional, merge),
+                        0).to(cuda)
+    rng = np.random.RandomState(0)
+    xs = _randn(rng, cuda, 8, 250, 1024)
+    lens = torch.tensor([250 - 31 * i for i in range(8)])
+    outs, grads = [], []
+    for fn in (layer, layer.forward_ref):
+        x = xs.clone().requires_grad_()
+        layer.zero_grad()
+        ys, carry = fn(x, lens)
+        (ys * torch.linspace(-1, 1, ys.shape[-1], device=cuda)).sum() \
+            .backward()
+        outs.append([ys.detach()] + [t.detach() for t in
+                                     torch.utils._pytree.tree_leaves(carry)])
+        grads.append([x.grad] + [p.grad.clone() for p in layer.parameters()])
+    for x, y in zip(outs[0] + grads[0], outs[1] + grads[1]):
+        scale = float(y.abs().max())
+        assert float((x - y).abs().max()) <= RNN_TOL * max(scale, 1.0)
+    old = torch.backends.cudnn.enabled
+    torch.backends.cudnn.enabled = False
+    try:
+        with pytest.raises(RuntimeError, match="cuDNN"):
+            layer(xs, lens)
+    finally:
+        torch.backends.cudnn.enabled = old
+
+
+def test_blstm_microstep_is_the_same_bits_twice(cuda):
+    """One train() microstep of a BLSTM-LAS (the LibriSpeech conf's widths,
+    2 encoder layers, vocab 500; dropout and sampling on) run twice from one
+    generator seed: the loss and every gradient leaf the same bits."""
+    from types import SimpleNamespace
+    from neural_sp_tpu_torch.configs import librispeech_blstm_las_args
+    from neural_sp_tpu_torch.models.speech2text import build_speech2text
+    from neural_sp_tpu_torch.parallel.mesh import (compute_loss,
+                                                   deterministic_cudnn)
+    from neural_sp_tpu_torch.utils.init_params import init_params
+    args = vars(librispeech_blstm_las_args())
+    args.update(enc_n_layers=2, vocab=500)
+    model = init_params(build_speech2text(SimpleNamespace(**args)), 0)
+    model.train()
+    rng = np.random.RandomState(1)
+    xs = _randn(rng, cuda, 8, 800, 80)
+    xlens = torch.tensor([800 - 60 * i for i in range(8)], device=cuda)
+    ys = torch.from_numpy(rng.randint(4, 500, (8, 30))).to(cuda)
+    ylens = torch.tensor([30 - 2 * i for i in range(8)], device=cuda)
+    runs = []
+    for _ in range(2):
+        model.zero_grad(set_to_none=True)
+        with deterministic_cudnn():
+            loss, _ = compute_loss(model, None, xs, xlens, ys, ylens,
+                                   torch.Generator().manual_seed(0))
+            loss.backward()
+        runs.append([loss.detach()] + [p.grad.clone()
+                                       for p in model.parameters()])
+    for x, y in zip(*runs):
+        assert torch.equal(x, y)

@@ -108,6 +108,21 @@ ys = np.array([[5, 6, 7]], np.int32)
 met = step(*map(torch.from_numpy, (xs, np.array([40]), ys, np.array([3]))),
            gen=torch.Generator().manual_seed(0))
 assert met["emitted"] and bool(torch.isfinite(met["grad_norm"]))
+from neural_sp_tpu_torch.configs import librispeech_blstm_las_args
+blstm = vars(librispeech_blstm_las_args())
+blstm.update(conv_channels="4", conv_kernel_sizes="(3,3)",
+             conv_poolings="(2,2)", enc_n_units=16, enc_n_layers=2,
+             dec_n_units=32, emb_dim=16, dec_bottleneck_dim=32, attn_dim=16,
+             vocab=20)
+model = init_params(build_speech2text(SimpleNamespace(**blstm),
+                                      device="cpu"), 0)
+step = make_train_step(model.train(), build_optimizer("adam", lr=1e-3))
+met = step(*map(torch.from_numpy, (xs, np.array([40]), ys, np.array([3]))),
+           gen=torch.Generator().manual_seed(0))
+assert met["emitted"] and bool(torch.isfinite(met["grad_norm"]))
+hyps = Speech2TextSession(model.eval(), DecodeConfig(
+    beam_width=2, ctc_weight=0.3)).decode(xs, np.array([40]))
+assert len(hyps) == 1
 import neural_sp_tpu_torch.bin.asr.eval
 import neural_sp_tpu_torch.bin.asr.train
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
