@@ -12,12 +12,12 @@ JAX weights converted (``convert_params``), float32, atol = rtol = 2e-4
   written-out loop (``forward_ref``), frames past a row's length included.
 * ``RNNEncoder``: a conv front end of one pooling block, 3 layers with
   ``subsample`` (1, 2, 1) by ``drop``, ``enc_n_projs`` and
-  ``enc_last_proj_dim``, bucket-padded too; ``max_pool`` raises (its last
+  ``enc_last_proj_dim``, BLSTM bucket-padded and LSTM packed; ``max_pool`` raises (its last
   window of a row reads past the row's edge, where the JAX layer's outputs
   are not zero and the port's are).
 * A small BLSTM-LAS and LSTM-LAS ``Speech2Text``: the loss and every
-  gradient leaf in eval mode against ``jax.grad``; greedy and beam 4 + CTC
-  0.3 tokens against the JAX session's; one accumulated, clipped Adam
+  gradient leaf in eval mode against ``jax.grad``; greedy (a batch) and
+  beam 4 + CTC 0.3 (one utterance) tokens against the JAX session's; one accumulated, clipped Adam
   update against JAX's ``make_train_step`` (``test_torch_train_step.py``'s
   rule).
 * The recipe confs that use a location-attention LAS over a (B)LSTM
@@ -197,8 +197,7 @@ ENC = dict(input_dim=10, n_units=16, n_projs=12, last_proj_dim=20,
 
 @pytest.mark.parametrize("rnn_type,summed,t,xlens", [
     ("blstm", False, 48, [33, 20, 1]),           # bucket-padded
-    ("blstm", True, 37, [37, 20, 3]),            # packed
-    ("lstm", False, 37, [37, 20, 3])])
+    ("lstm", False, 37, [37, 20, 3])])           # packed
 def test_rnn_encoder_matches_jax(rnn_type, summed, t, xlens):
     je = JaxRNNEncoder(rnn_type=rnn_type, bidir_sum_fwd_bwd=summed, **ENC)
     rng = np.random.RandomState(4)
@@ -258,11 +257,16 @@ def las_batch(seed=0, bs=3, t=40):
     return xs, xlens, ys, ylens
 
 
+_INIT = {}   # (enc_type, seed) -> JAX params: the rates change no shape
+
+
 def _las_models(enc_type, seed=0, **over):
     args = small_las(enc_type, **over)
     jm = jax_build(args)
-    params = jax.jit(jm.init)(jax.random.PRNGKey(seed),
-                              *map(jnp.asarray, las_batch()))["params"]
+    if (enc_type, seed) not in _INIT:
+        _INIT[enc_type, seed] = jax.jit(jm.init)(
+            jax.random.PRNGKey(seed), *map(jnp.asarray, las_batch()))["params"]
+    params = _INIT[enc_type, seed]
     tm = build_speech2text(args, device="cpu")
     tm.load_state_dict(convert_params(_tree(params)), strict=True)
     return jm, params, tm
@@ -297,10 +301,10 @@ def test_las_loss_and_grads_match_jax(enc_type):
 
 @pytest.mark.parametrize("enc_type", ["conv_blstm", "conv_lstm"])
 def test_las_decode_matches_jax(enc_type):
-    """Greedy over the batch and beam 4 + CTC 0.3 per utterance: the JAX
+    """Greedy over the batch and beam 4 + CTC 0.3 on one utterance: the JAX
     session's tokens. The weights are perturbed from flax's init (as in
     test_torch_encoder.py) so that the hypotheses are not empty."""
-    jm, params, tm = _las_models(enc_type, seed=3)
+    jm, params, tm = _las_models(enc_type)
     rng = np.random.RandomState(5)
     # scales at which the hypotheses end before the length limit (30)
     scale = {"conv_blstm": 1.0, "conv_lstm": 0.6}[enc_type]
@@ -316,10 +320,8 @@ def test_las_decode_matches_jax(enc_type):
             want = jsess.decode(xs, xlens)
             got = tsess.decode(xs, xlens)
         else:
-            want = [jsess.decode(xs[b:b + 1], xlens[b:b + 1])[0]
-                    for b in range(2)]
-            got = [tsess.decode(xs[b:b + 1], xlens[b:b + 1])[0]
-                   for b in range(2)]
+            want = jsess.decode(xs[:1], xlens[:1])
+            got = tsess.decode(xs[:1], xlens[:1])
         assert got == want, conf
         assert any(0 < len(h) < 30 for h in got), conf
 
