@@ -195,17 +195,17 @@ ENC = dict(input_dim=10, n_units=16, n_projs=12, last_proj_dim=20,
            conv_poolings="(2,2)")
 
 
-@pytest.mark.parametrize("rnn_type,summed,t,xlens", [
-    ("blstm", False, 48, [33, 20, 1]),           # bucket-padded
-    ("lstm", False, 37, [37, 20, 3])])           # packed
-def test_rnn_encoder_matches_jax(rnn_type, summed, t, xlens):
-    je = JaxRNNEncoder(rnn_type=rnn_type, bidir_sum_fwd_bwd=summed, **ENC)
+@pytest.mark.parametrize("rnn_type,t,xlens", [
+    ("blstm", 48, [33, 20, 1]),           # concatenated, bucket-padded
+    ("lstm", 37, [37, 20, 3])])           # packed
+def test_rnn_encoder_matches_jax(rnn_type, t, xlens):
+    je = JaxRNNEncoder(rnn_type=rnn_type, bidir_sum_fwd_bwd=False, **ENC)
     rng = np.random.RandomState(4)
     xs = rng.randn(3, t, ENC["input_dim"]).astype(np.float32)
     xlens = np.asarray(xlens, np.int32)
     params = _tree(jax.jit(je.init)(jax.random.PRNGKey(0), jnp.asarray(xs),
                                     jnp.asarray(xlens))["params"])
-    te = RNNEncoder(rnn_type=rnn_type, bidir_sum_fwd_bwd=summed, **ENC)
+    te = RNNEncoder(rnn_type=rnn_type, **ENC)
     te.load_state_dict(convert_params(params), strict=True)
     assert te.output_dim == je.output_dim == ENC["last_proj_dim"]
     want, _ = jax.jit(je.apply)({"params": params}, jnp.asarray(xs),
