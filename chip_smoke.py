@@ -131,18 +131,19 @@ Phases (any failure raises and the script exits non-zero):
      bound; (8b) phase 3's four utterances, beam 10 + CTC 0.3 and greedy
      on the seeded model (counts zeroed around them: K2 must run, K1 / K1b
      must not), the encoder's time, the cuDNN encoder against the layers'
-     written-out loop, the best hypothesis replayed against the plain
-     decode step, one profiled beam request; (8c) the train CLI on the
-     conf (``BLSTM_OVERRIDES``: 2 epochs, the word unit; phase 7's
-     corpus) and the eval CLI as the recipe's stage 5, counts zeroed around
-     each (K2 in pass 1, K3, K3b and K4 in training, K2 in evaluation, K1
-     / K1b in neither), every loss finite, the sampled share within 4
-     binomial standard deviations of 0.2, a profiled microstep (the cuDNN
-     RNN operators' share of the device time); (8d) the widest CLI
-     microbatch on the trained weights, kernels against the plain versions
-     at phase 6's tolerance, and one train() microstep twice: the same
-     bits. ``python3 chip_smoke.py --blstm-only`` builds the kernels and
-     runs phase 8 alone (its details, no result line).
+     written-out loop (``RNN_ENCODER_ATOL``; with cuDNN's TF32 on as the
+     control, which must exceed it), the best hypothesis replayed against
+     the plain decode step, one profiled beam request; (8c) the train CLI
+     on the conf (``BLSTM_OVERRIDES``: 2 epochs, the word unit; phase 7's
+     corpus) and the eval CLI as the recipe's stage 5, each started with
+     cuDNN's TF32 on (PyTorch's default) and bound to turn it off, counts
+     zeroed around each (K2 in pass 1, K3, K3b and K4 in training, K2 in
+     evaluation, K1 / K1b in neither), every loss finite, the sampled
+     share within 4 binomial standard deviations of 0.2, a profiled
+     microstep (the cuDNN RNN operators' share of the device time); (8d)
+     the widest CLI microbatch on the trained weights, kernels against the
+     plain versions at phase 6's tolerance, and one train() microstep
+     twice: the same bits.
 
 Launches per step (per encode for K1, per decode step for K2, per training
 microstep for the rest; K1 / K1b bf16 in phase 5's bf16 run) are counted
@@ -2275,10 +2276,12 @@ NOT_ON_RNN_PATH = ("rel_attention", "rel_attention_bwd",
                    "rel_attention_bf16", "rel_attention_bwd_bf16")
 # cuDNN's LSTM against the layer's written-out loop through the whole
 # encoder (5 layers, 2 directions, up to 400 steps; TF32 off): float32 sums
-# in other orders, carried through every layer and step, held as PATH_ATOL
-# holds the conformer encoder's kernels to their twins; the outputs are
-# LSTM states, bounded by 1 in magnitude, so the bound is relative too.
-RNN_ENCODER_ATOL = PATH_ATOL
+# in other orders, carried through every layer and step. Set between
+# readings on an H100 (tools/rnn_times.py, phase 3's batch shape): 5.2e-8
+# to 5.6e-8 in float32; 5.2e-5 to 6.1e-5 with cuDNN's TF32 on, the control
+# that phase 8b reads again and that must exceed the limit. The outputs are
+# LSTM states, bounded by 1 in magnitude.
+RNN_ENCODER_ATOL = 2e-6
 # the cuDNN RNN operators of a profiled microstep (forward and backward)
 CUDNN_RNN_OPS = ("aten::_cudnn_rnn", "aten::_cudnn_rnn_backward")
 
@@ -2347,13 +2350,25 @@ def phase_blstm_serve(torch, model, xs, xlens) -> dict:
     expect(bool(torch.isfinite(e).all()), "BLSTM encoder output not finite")
     expect(tuple(e.shape) == (len(UTT_FRAMES), max(UTT_FRAMES) // 4,
                               BLSTM_D), f"encoder output {tuple(e.shape)}")
+    # the control: the same cuDNN encoder with TF32 on
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        e_tf32 = beam.encode(xs, xlens)["ys"]["xs"]
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
     out["encoder_max_abs_err"] = max_err(e, eouts_ref["ys"]["xs"])
+    out["encoder_tf32_max_abs_err"] = max_err(e_tf32, eouts_ref["ys"]["xs"])
     log(f"[8b] encoder {tuple(e.shape)}, lens {el.tolist()}: "
         f"{out['encode_batch_s']:.4f} s (cuDNN), "
         f"{out['encode_batch_loop_s']:.4f} s (the written-out loop); cuDNN "
-        f"vs the loop max_abs_err {out['encoder_max_abs_err']:.3e}")
+        f"vs the loop max_abs_err {out['encoder_max_abs_err']:.3e} "
+        f"(limit {RNN_ENCODER_ATOL:.0e}), with TF32 on "
+        f"{out['encoder_tf32_max_abs_err']:.3e}")
     expect(out["encoder_max_abs_err"] <= RNN_ENCODER_ATOL,
            f"cuDNN encoder vs its loop: {out['encoder_max_abs_err']}")
+    expect(out["encoder_tf32_max_abs_err"] > RNN_ENCODER_ATOL,
+           f"the TF32 control is within {RNN_ENCODER_ATOL}: the limit cannot "
+           f"tell TF32 from float32")
     out["replay_max_abs_err"], out["k2_launches_per_decode_step"] = \
         replay_against_plain(torch, model.dec_fwd, e[:1], el[:1], best,
                              tag="8b")
@@ -2426,6 +2441,9 @@ def phase_blstm_cli(torch, root: Path, corpus: dict) -> dict:
         return model
 
     torch.cuda.reset_peak_memory_stats()
+    # PyTorch's default, as a user's process starts: the CLI must turn
+    # cuDNN's TF32 off itself, the conf being float32
+    torch.backends.cudnn.allow_tf32 = True
     sync()
     reset_launches()
     t0 = time.perf_counter()
@@ -2437,6 +2455,8 @@ def phase_blstm_cli(torch, root: Path, corpus: dict) -> dict:
                        list(BLSTM_OVERRIDES))
     sync()
     wall = time.perf_counter() - t0
+    expect(not torch.backends.cudnn.allow_tf32,
+           "the train CLI left cuDNN's TF32 on for a float32 conf")
     counts = launches()
     losses = [s[3] for s in steps]
     train = {"wall_s": wall, "parameters": n_params[0],
@@ -2487,6 +2507,7 @@ def phase_blstm_cli(torch, root: Path, corpus: dict) -> dict:
     # the eval CLI as the recipe's stage 5
     lm_dir = recipe_lm(root)
     torch.cuda.reset_peak_memory_stats()
+    torch.backends.cudnn.allow_tf32 = True      # as for the train CLI
     sync()
     reset_launches()
     t = time.perf_counter()
@@ -2496,6 +2517,8 @@ def phase_blstm_cli(torch, root: Path, corpus: dict) -> dict:
                         list(CLI_EVAL))
     sync()
     wall = time.perf_counter() - t
+    expect(not torch.backends.cudnn.allow_tf32,
+           "the eval CLI left cuDNN's TF32 on for a float32 model")
     counts = launches()
     (m,) = res.values()
     out["eval"] = {**m, "wall_s": wall, "launches": counts,
@@ -2590,16 +2613,6 @@ def main() -> int:
 
     build_sec = phase_build()
     rng = np.random.default_rng(SEED)
-    if sys.argv[1:] == ["--blstm-only"]:
-        # phase 8 alone, after the build: a check of the BLSTM path that
-        # prints its details and no result line
-        xs, xlens = utterances(rng)
-        with tempfile.TemporaryDirectory(prefix="nsp_cli_") as tmp:
-            root = Path(tmp)
-            corpus = synth_corpus(root / "data", CLI_UTTS, CLI_VOCAB)
-            blstm = phase_blstm(torch, rng, root, corpus, xs, xlens)
-        log(json.dumps({"card": card, "blstm": blstm}))
-        return 0
     kernels = phase_kernels(torch, rng)
     model = flagship_model(torch)
     n_params = sum(p.numel() for p in model.parameters())

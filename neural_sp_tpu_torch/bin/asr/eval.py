@@ -23,6 +23,8 @@ import re
 import sys
 from types import SimpleNamespace
 
+import torch
+
 from ...datasets.asr.build import build_dataloader
 from ...evaluators.asr import eval_unit
 from ...models.decoders.decoding import DecodeConfig, Speech2TextSession
@@ -129,6 +131,9 @@ def main(argv=None, device=None) -> dict:
     for name in _NOT_PORTED:
         if getattr(args, name, None):
             raise NotImplementedError(f"{name} is not ported yet, see ROADMAP")
+    # float32 computes in float32: cuDNN's convolutions and LSTMs would take
+    # TF32 by PyTorch's default (its cuBLAS matmuls do not)
+    torch.backends.cudnn.allow_tf32 = False
     model, targs, save_dir = load_model_for_eval(args, device)
     conf = decode_config(args)
     session = Speech2TextSession(

@@ -121,6 +121,9 @@ def main(argv=None, device=None) -> str:
         raise NotImplementedError(
             "tensor parallelism (--n_model) is not ported yet, see ROADMAP")
     device = model_device(device, "bin.asr.train")
+    # float32 computes in float32: cuDNN's convolutions and LSTMs would take
+    # TF32 by PyTorch's default (its cuBLAS matmuls do not)
+    torch.backends.cudnn.allow_tf32 = False
     np.random.seed(args.seed)
     save_dir = args.model_save_dir
     os.makedirs(save_dir, exist_ok=True)

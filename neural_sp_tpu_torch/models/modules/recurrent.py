@@ -1,18 +1,20 @@
 """Recurrent building blocks (counterpart of
 ``neural_sp_tpu/models/modules/recurrent.py``): the flax
-``OptimizedLSTMCell`` parameter layout and one uni- or bidirectional LSTM
-layer with explicit state I/O.
+``OptimizedLSTMCell`` parameter layout (the LAS decoder's cell) and one
+uni- or bidirectional LSTM layer with explicit state I/O.
 
-The layer runs PyTorch's LSTM (``torch.lstm``, cuDNN on the card) over the
-cells' own parameters: gates (i, f, g, o) in both layouts, the cell's
-``w_ih`` / ``w_hh`` handed over as transposed copies, its bias as the
-hidden side's and zeros as the input side's (flax's input denses have no
-bias). Under autograd cuDNN copies those once more into its own buffer at
-each call; without autograd on the card (serving) the copies are made
-into cuDNN's buffer once and kept until a weight changes. On a CUDA tensor
-it runs cuDNN or raises: it never falls back to the written-out loop,
-which ``RNNLayer.forward_ref`` keeps as the plain version the tests hold
-the layer to. The GRU and zoneout forms of the JAX ``RNNLayer`` are
+The layer runs PyTorch's LSTM (``torch.lstm``, cuDNN on the card) over
+parameters it holds in cuDNN's layout, gates (i, f, g, o) as flax's: an
+``nn.LSTM``'s ``weight_ih_l0`` [4H, in], ``weight_hh_l0`` [4H, H] and
+``bias_hh_l0`` [4H] (the hidden denses' bias), ``_reverse`` for the
+reverse direction; its input-side bias is a zero buffer, since flax's
+input denses have none. ``nn.LSTM`` flattens them into one cuDNN buffer
+when the layer moves to the card, so no call copies a weight. On a CUDA
+tensor the layer runs cuDNN or raises: it never falls back to the
+written-out loop, which ``RNNLayer.forward_ref`` keeps as the plain
+version the tests hold the layer to. cuDNN computes in TF32 where
+``torch.backends.cudnn.allow_tf32`` is on (PyTorch's default); the ASR
+CLIs turn it off. The GRU and zoneout forms of the JAX ``RNNLayer`` are
 not ported and raise.
 
 Lengths: the JAX layer's flax ``nn.RNN`` takes ``seq_lengths``; its final
@@ -26,7 +28,6 @@ in ``models/encoders/rnn.py``).
 """
 from __future__ import annotations
 
-import warnings
 from typing import Optional
 
 import torch
@@ -45,20 +46,6 @@ class LSTMCell(nn.Module):
         self.w_ih = nn.Parameter(torch.empty(in_dim, 4 * n_units))
         self.w_hh = nn.Parameter(torch.empty(n_units, 4 * n_units))
         self.bias = nn.Parameter(torch.empty(4 * n_units))
-
-    def step(self, xg: torch.Tensor, c: torch.Tensor, h: torch.Tensor):
-        """One step from the input half of the gates xg = x @ w_ih [B, 4H]
-        and the carry (c, h) -> the new (c, h)."""
-        gates = torch.addmm(self.bias, h, self.w_hh) + xg
-        i, f, g, o = gates.chunk(4, dim=-1)
-        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
-        return c, torch.sigmoid(o) * torch.tanh(c)
-
-    def lstm_weights(self) -> list[torch.Tensor]:
-        """[w_ih, w_hh, b_ih, b_hh] in ``torch.lstm``'s layout (contiguous:
-        cuDNN takes no strided weight)."""
-        return [self.w_ih.t().contiguous(), self.w_hh.t().contiguous(),
-                torch.zeros_like(self.bias), self.bias]
 
 
 class RNNLayer(nn.Module):
@@ -81,34 +68,19 @@ class RNNLayer(nn.Module):
                 "ROADMAP")
         if merge not in ("sum", "concat"):
             raise ValueError(f"merge {merge!r}: 'sum' or 'concat'")
-        self.in_dim, self.n_units = in_dim, n_units
+        self.n_units = n_units
         self.bidirectional = bidirectional
         self.merge = merge
-        self.fwd = LSTMCell(in_dim, n_units)
-        self.bwd = LSTMCell(in_dim, n_units) if bidirectional else None
-        self._kept = None     # (the weights' pointers and versions, weights)
-
-    @property
-    def cells(self) -> list[LSTMCell]:
-        return [self.fwd, self.bwd] if self.bidirectional else [self.fwd]
-
-    def _weights(self, xs: torch.Tensor) -> list[torch.Tensor]:
-        """The cells' weights in ``torch.lstm``'s layout: without autograd
-        on the card, in cuDNN's own buffer, made once and kept until a
-        weight changes (its data pointer or version); else fresh copies."""
-        if not xs.is_cuda or torch.is_grad_enabled() or \
-                not torch._use_cudnn_rnn_flatten_weight():
-            return [w for cell in self.cells for w in cell.lstm_weights()]
-        key = tuple((p.data_ptr(), p._version) for p in self.parameters())
-        if self._kept is None or self._kept[0] != key:
-            from torch.backends.cudnn.rnn import get_cudnn_mode
-            ws = [w.clone() for cell in self.cells
-                  for w in cell.lstm_weights()]
-            torch._cudnn_rnn_flatten_weight(
-                ws, 4, self.in_dim, get_cudnn_mode("LSTM"), self.n_units, 0,
-                1, True, self.bidirectional)
-            self._kept = (key, ws)
-        return self._kept[1]
+        self.lstm = nn.LSTM(in_dim, n_units, batch_first=True,
+                            bidirectional=bidirectional)
+        for sfx in ("", "_reverse")[:2 if bidirectional else 1]:
+            name = "bias_ih_l0" + sfx
+            delattr(self.lstm, name)
+            self.lstm.register_buffer(name, torch.zeros(4 * n_units),
+                                      persistent=False)
+            # assigning it again points the LSTM's list of flat weights,
+            # which it flattens on a move to the card, at the buffer
+            setattr(self.lstm, name, self.lstm.get_buffer(name))
 
     def _merge(self, ys_f, ys_b):
         if self.merge == "sum":
@@ -121,32 +93,28 @@ class RNNLayer(nn.Module):
         if xs.is_cuda and not (torch.backends.cudnn.is_available() and
                                torch.backends.cudnn.enabled):
             raise RuntimeError("RNNLayer: cuDNN is not available on the card")
-        n_dir = len(self.cells)
+        n_dir = 2 if self.bidirectional else 1
         carries = [carry] if n_dir == 1 else carry
         if carry is None:
             h0 = c0 = xs.new_zeros(n_dir, bs, self.n_units)
         else:
             c0 = torch.stack([c for c, _ in carries])
             h0 = torch.stack([h for _, h in carries])
-        weights = self._weights(xs)
+        # [w_ih, w_hh, b_ih, b_hh] per direction, torch.lstm's order
+        weights = [w for ws in self.lstm.all_weights for w in ws]
         # cuDNN keeps what its backward needs only in training mode
         train = torch.is_grad_enabled()
-        with warnings.catch_warnings():
-            # under autograd the weights are copies outside cuDNN's buffer,
-            # which it says it copies: as intended
-            warnings.filterwarnings(
-                "ignore", message="RNN module weights are not part")
-            if xlens is None:
-                ys, h_n, c_n = torch.lstm(xs, (h0, c0), weights, True, 1, 0.0,
-                                          train, self.bidirectional, True)
-            else:
-                packed = pack_padded_sequence(xs, xlens, batch_first=True,
-                                              enforce_sorted=False)
-                order = packed.sorted_indices
-                data, h_n, c_n = torch.lstm(
-                    packed.data, packed.batch_sizes,
-                    (h0.index_select(1, order), c0.index_select(1, order)),
-                    weights, True, 1, 0.0, train, self.bidirectional)
+        if xlens is None:
+            ys, h_n, c_n = torch.lstm(xs, (h0, c0), weights, True, 1, 0.0,
+                                      train, self.bidirectional, True)
+        else:
+            packed = pack_padded_sequence(xs, xlens, batch_first=True,
+                                          enforce_sorted=False)
+            order = packed.sorted_indices
+            data, h_n, c_n = torch.lstm(
+                packed.data, packed.batch_sizes,
+                (h0.index_select(1, order), c0.index_select(1, order)),
+                weights, True, 1, 0.0, train, self.bidirectional)
         if xlens is not None:
             ys, _ = pad_packed_sequence(
                 PackedSequence(data, packed.batch_sizes, order,
@@ -166,20 +134,23 @@ class RNNLayer(nn.Module):
         outputs (zero past a row's length when ``xlens`` is given) and
         carries as ``forward``."""
         bs, t, _ = xs.shape
-        n_dir = len(self.cells)
         lens = torch.full((bs,), t) if xlens is None else xlens
         valid = (torch.arange(t)[None] < lens[:, None]).to(xs.device)
-        carries = [carry] if n_dir == 1 else carry
+        carries = carry if self.bidirectional else [carry]
         outs, new = [], []
-        for d, cell in enumerate(self.cells):
+        for d, (w_ih, w_hh, _, bias) in enumerate(self.lstm.all_weights):
             if carry is None:
                 c = h = xs.new_zeros(bs, self.n_units)
             else:
                 c, h = carries[d]
-            xg = xs @ cell.w_ih                            # [B, T, 4H]
+            xg = xs @ w_ih.t()                             # [B, T, 4H]
             ys = [None] * t
             for i in (range(t) if d == 0 else reversed(range(t))):
-                c_i, h_i = cell.step(xg[:, i], c, h)
+                g_i, g_f, g_g, g_o = (torch.addmm(bias, h, w_hh.t()) +
+                                      xg[:, i]).chunk(4, dim=-1)
+                c_i = torch.sigmoid(g_f) * c + \
+                    torch.sigmoid(g_i) * torch.tanh(g_g)
+                h_i = torch.sigmoid(g_o) * torch.tanh(c_i)
                 keep = valid[:, i, None]
                 c, h = torch.where(keep, c_i, c), torch.where(keep, h_i, h)
                 ys[i] = torch.where(keep, h_i, 0.0)

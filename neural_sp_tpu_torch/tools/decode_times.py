@@ -6,7 +6,7 @@ backward, in one process.
 
     python3 neural_sp_tpu_torch/tools/decode_times.py \
         [--root DIR] [--label NAME] [--iters N] [--tokens] [--only-k2]
-        [--only-k4] [--k4-frames T]
+        [--only-k4]
 
 ``--root`` is the directory holding the ``neural_sp_tpu_torch`` package to
 time (default: this checkout), so that two commits unpacked side by side
@@ -32,8 +32,8 @@ plain call alone. What is measured, float32, TF32 off:
   the host's beam 10 without CTC cut to 10, 30 and 60 steps
   (``max_len_ratio``), the wall of each whole loop with what it builds at
   its start (the workspace) included, five readings each;
-- K4 at B = 32, T = 188 (``--k4-frames``), U = 100, V = 10000: forward
-  and backward wrappers
+- K4 at B = 32, T = 188 and 500, U = 100, V = 10000: forward and backward
+  wrappers
   eager, the device time of the backward's memset and of its kernel apart
   (torch.profiler), and ``F.ctc_loss`` forward and backward beside them;
 - with ``--tokens``: the hypotheses of the three served sessions of
@@ -43,16 +43,13 @@ plain call alone. What is measured, float32, TF32 off:
   against each other.
 
 ``--only-k2`` stops after K2 alone, ``--only-k4`` times K4 alone (a
-quick look at a kernel change). A checkout whose K4 backward takes the nll
-beside float32 alphas (before the float64 recurrences) is timed through
-that signature.
+quick look at a kernel change).
 Prints one JSON line, the card's name and power limit included.
 """
 from __future__ import annotations
 
 import argparse
 import importlib
-import inspect
 import json
 import subprocess
 import sys
@@ -72,7 +69,6 @@ def main() -> int:
     ap.add_argument("--tokens", action="store_true")
     ap.add_argument("--only-k2", action="store_true")
     ap.add_argument("--only-k4", action="store_true")
-    ap.add_argument("--k4-frames", type=int, default=188)
     opts = ap.parse_args()
     sys.path.insert(0, str(opts.root.resolve()))
     import numpy as np
@@ -180,9 +176,9 @@ def main() -> int:
                text=True).stdout.strip().splitlines()[0]}
 
     # ---- K4 --------------------------------------------------------------
-    def k4_times() -> dict:
-        """K4 forward and backward at B = 32, T (188), U = 100, V = 10000."""
-        b, tt, uu, vv = 32, opts.k4_frames, 100, 10000
+    def k4_times(tt: int) -> dict:
+        """K4 forward and backward at B = 32, T = tt, U = 100, V = 10000."""
+        b, uu, vv = 32, 100, 10000
         lp = torch.log_softmax(randn(b, tt, vv, scale=2.0), -1)
         labels = rng.integers(4, vv, (b, uu))
         labels[:, 1] = labels[:, 0]
@@ -191,13 +187,10 @@ def main() -> int:
                  torch.tensor(tl, dtype=torch.int32, device=dev),
                  torch.tensor(ul, dtype=torch.int32, device=dev))
         g = torch.linspace(0.5, 1.5, b, device=dev)
-        nll_r, *saved_r = ctc.ctc_forward_alphas(*cargs)
-        nll, *saved = ctc.ctc_loss_fwd(*cargs)
-        if "nll" in inspect.signature(ctc.ctc_loss_bwd).parameters:
-            saved, saved_r = [nll] + saved, [nll_r] + saved_r
-        grad = ctc.ctc_loss_bwd(*cargs, *saved_r, g)
-        grad_r = ctc.ctc_loss_bwd_ref(*cargs, *saved_r, g)
-
+        nll_r, alphas_r = ctc.ctc_forward_alphas(*cargs)
+        nll, alphas = ctc.ctc_loss_fwd(*cargs)
+        grad = ctc.ctc_loss_bwd(*cargs, alphas_r, g)
+        grad_r = ctc.ctc_loss_bwd_ref(*cargs, alphas_r, g)
         leaf = lp.detach().requires_grad_()
         lib_loss = torch.nn.functional.ctc_loss(
             leaf.transpose(0, 1), cargs[1], cargs[2], cargs[3], blank=0,
@@ -206,19 +199,19 @@ def main() -> int:
         fwd_prof = device_profile(
             lambda: [ctc.ctc_loss_fwd(*cargs) for _ in range(10)], per=10)
         bwd_prof = device_profile(
-            lambda: [ctc.ctc_loss_bwd(*cargs, *saved_r, g)
+            lambda: [ctc.ctc_loss_bwd(*cargs, alphas_r, g)
                      for _ in range(10)], per=10)
         fwd_cost = ctc.ctc_loss_cost(b, tt, uu, vv, tl, ul)
         bwd_cost = ctc.ctc_loss_bwd_cost(b, tt, uu, vv, tl, ul)
         return {
             "shape": f"B{b} T{tt} U{uu} V{vv}",
             "rel_err": {"nll": rel_err([nll], [nll_r]),
-                        "alphas": rel_err([saved[-1].clamp(min=-1e4)],
-                                          [saved_r[-1].clamp(min=-1e4)]),
+                        "alphas": rel_err([alphas.clamp(min=-1e4)],
+                                          [alphas_r.clamp(min=-1e4)]),
                         "grad": rel_err([grad], [grad_r])},
             "fwd_ms": cuda_ms(lambda: ctc.ctc_loss_fwd(*cargs), iters),
             "bwd_ms": cuda_ms(
-                lambda: ctc.ctc_loss_bwd(*cargs, *saved_r, g), iters),
+                lambda: ctc.ctc_loss_bwd(*cargs, alphas_r, g), iters),
             "memset_ms": cuda_ms(lambda: torch.zeros_like(lp), iters),
             "fwd_kernels": fwd_prof["kernels"],
             "bwd_kernels": bwd_prof["kernels"],
@@ -233,7 +226,7 @@ def main() -> int:
             "bwd_bound_ms": bound_ms(*bwd_cost, F32_SIMT_FLOPS)[0]}
 
     if opts.only_k4:
-        out["K4 ctc_loss"] = k4_times()
+        out["K4 ctc_loss"] = [k4_times(tt) for tt in (188, 500)]
         print(json.dumps(out))
         return 0
 
@@ -411,7 +404,7 @@ def main() -> int:
         out["tokens"] = toks
     del model
 
-    out["K4 ctc_loss"] = k4_times()
+    out["K4 ctc_loss"] = [k4_times(tt) for tt in (188, 500)]
     print(json.dumps(out))
     return 0
 

@@ -14,9 +14,13 @@ Layout rules (flax -> torch):
   * Conv ``kernel`` HWIO -> OIHW (2-D) and [K, I/groups, O] -> [O, I/groups,
     K] (1-D, including depthwise and the attention's location conv);
   * flax ``OptimizedLSTMCell`` ``i{g}`` / ``h{g}`` denses (any module
-    holding an ``ii`` dense: the LAS decoder's ``cells_0``, an RNNLM's
-    ``rnns_0/fwd``, an RNN encoder's ``rnn0/fwd`` and ``rnn0/bwd``) -> one ``w_ih`` [in, 4H], ``w_hh`` [H, 4H] and ``bias``
-    [4H], gates in (i, f, g, o) order (the hidden side owns the bias);
+    holding an ``ii`` dense), gates in (i, f, g, o) order, the hidden
+    side owning the bias: the LAS decoder's ``cells_0`` -> one ``w_ih``
+    [in, 4H], ``w_hh`` [H, 4H] and ``bias`` [4H]; an ``RNNLayer``'s cells
+    ``fwd`` / ``bwd`` (an RNNLM's ``rnns_0/fwd``, an RNN encoder's
+    ``rnn0/fwd`` and ``rnn0/bwd``) -> its ``nn.LSTM``'s ``weight_ih_l0``
+    [4H, in], ``weight_hh_l0`` [4H, H] and ``bias_hh_l0`` [4H], with
+    ``_reverse`` for ``bwd`` (its input-side bias is a zero buffer);
   * list members ``blocks_3`` / ``block0`` / ``cells_0`` / ``rnns_0`` /
     ``projs_0`` -> ``blocks.3`` / ``blocks.0`` / ``cells.0`` / ``rnns.0`` /
     ``projs.0``, an RNN encoder's ``rnn2`` / ``proj2`` (its layers' cells
@@ -103,6 +107,13 @@ def _lstm(cell_path: str, leaves: dict[str, np.ndarray]) -> dict:
         [get(f"{cell_path}/h{g}/kernel") for g in _LSTM_GATES], axis=-1)
     bias = np.concatenate(
         [get(f"{cell_path}/h{g}/bias") for g in _LSTM_GATES], axis=-1)
+    layer, _, cell = tname.rpartition(".")
+    if cell in ("fwd", "bwd"):              # an RNNLayer's nn.LSTM
+        lstm = f"{layer}.lstm" if layer else "lstm"
+        sfx = "" if cell == "fwd" else "_reverse"
+        return {f"{lstm}.weight_ih_l0{sfx}": w_ih.T,
+                f"{lstm}.weight_hh_l0{sfx}": w_hh.T,
+                f"{lstm}.bias_hh_l0{sfx}": bias}
     return {f"{tname}.w_ih": w_ih, f"{tname}.w_hh": w_hh,
             f"{tname}.bias": bias}
 

@@ -22,6 +22,8 @@ def _fan_in(module: nn.Module, name: str, p: torch.Tensor) -> int:
         return p[0].numel()             # (in / groups) x kernel taps
     if name in ("w_ih", "w_hh"):        # LSTMCell: [in, 4H]
         return p.shape[0]
+    if name.startswith(("weight_ih", "weight_hh")):   # nn.LSTM: [4H, in]
+        return p.shape[1]
     raise ValueError(f"no fan-in rule for {type(module).__name__}.{name}")
 
 
@@ -37,7 +39,8 @@ def init_params(model: nn.Module, seed: int) -> nn.Module:
             elif isinstance(module, nn.Embedding):
                 val = torch.randn(p.shape, generator=gen) / \
                     math.sqrt(p.shape[1])
-            elif name == "bias" or name.endswith("_bias"):
+            elif name == "bias" or name.endswith("_bias") or \
+                    name.startswith("bias_"):
                 val = torch.zeros(p.shape)
             else:
                 val = torch.randn(p.shape, generator=gen) / \

@@ -303,7 +303,8 @@ def test_blstm_conf_trains_and_evaluates(runs, monkeypatch):
     """The port's train CLI on a conv_blstm conf for one epoch, from the JAX
     model's weights (converted): its first microbatch's loss is the JAX
     model's on that batch (rtol 2e-4); then the eval CLI decodes the test
-    set from its checkpoint."""
+    set from its checkpoint. Each CLI turns cuDNN's TF32 off (the conf is
+    float32) where the process had it on, PyTorch's default."""
     root, c = runs["root"], runs["corpus"]
     conf = root / "blstm.yml"
     conf.write_text(yaml.safe_dump(BLSTM_CONF))
@@ -338,17 +339,21 @@ def test_blstm_conf_trains_and_evaluates(runs, monkeypatch):
     monkeypatch.setattr(port_train, "init_params", jax_weights)
     monkeypatch.setattr(port_train, "build_speech2text", record_args)
     monkeypatch.setattr(TrainStep, "__call__", record_step)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
     exp = str(root / "blstm")
     port_train.main(["--config", str(conf), "--model_save_dir", exp]
                     + runs["data"], device="cpu")
+    assert not torch.backends.cudnn.allow_tf32
     batch, loss = first[0]
     want, _ = built["jm"].apply({"params": built["params"]},
                                 *(x.numpy() for x in batch),
                                 deterministic=True)
     np.testing.assert_allclose(loss, float(want), rtol=RTOL)
+    torch.backends.cudnn.allow_tf32 = True
     got = port_eval.main(["--recog_model", exp, "--recog_sets", c["test"],
                           "--recog_beam_width", "2", "--recog_ctc_weight",
                           "0.3", "--recog_dir", str(root / "blstm_eval")],
                          device="cpu")
+    assert not torch.backends.cudnn.allow_tf32
     (m,) = got.values()
     assert m["n_utts"] == 4 and m["rtf"] > 0

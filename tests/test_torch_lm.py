@@ -238,4 +238,4 @@ def test_convert_and_init_fill_every_lm_tensor():
     b = init_params(RNNLM(vocab=VOCAB, device="cpu", **opts), 7).state_dict()
     assert all(torch.equal(a[k], b[k]) for k in a)
     assert float(a["output_bias"].abs().max()) == 0.0
-    assert float(a["rnns.1.fwd.w_hh"].std()) > 0.0
+    assert float(a["rnns.1.lstm.weight_hh_l0"].std()) > 0.0

@@ -424,6 +424,6 @@ def test_init_params_fill_every_rnn_tensor_the_same_way():
     b = init_params(build_speech2text(small_las("conv_blstm"),
                                       device="cpu"), 7).state_dict()
     assert all(torch.equal(a[k], b[k]) for k in a)
-    w = a["encoder.rnns.1.bwd.w_ih"]
-    assert w.shape == (32, 64)        # the concat of layer 0's directions
+    w = a["encoder.rnns.1.lstm.weight_ih_l0_reverse"]
+    assert w.shape == (64, 32)        # the concat of layer 0's directions
     np.testing.assert_allclose(float(w.std()), 32 ** -0.5, rtol=0.1)
