@@ -143,7 +143,29 @@ Phases (any failure raises and the script exits non-zero):
      microstep (the cuDNN RNN operators' share of the device time); (8d)
      the widest CLI microbatch on the trained weights, kernels against the
      plain versions at phase 6's tolerance, and one train() microstep
-     twice: the same bits.
+     twice: the same bits;
+  9. the LibriSpeech recipe's UniLSTM-MoChA (``MOCHA_CONF``: the conv front
+     end, 5 LSTM-1024 layers on cuDNN, the LSTM-1024 LAS with MoChA chunk 4,
+     CTC 0.3 with fc 512; float32, full width and depth): (9a) phase 3's
+     four utterances, beam 10 + CTC 0.3 and greedy, counts zeroed around
+     them (K1, K1b, K2, K3 and K3b must not run: MoChA has no kernel, and
+     K2 / K3 / K3b fuse location attention), the encoder's time, one
+     profiled beam request (device time per decode step, idle share);
+     (9b) one train() microstep at B = 4 (T 175-400, U 40-100) on the card
+     held to the same microstep on the CPU in float64 (phase 6's rule),
+     and greedy decoding on both, the tokens identical up to each row's
+     first decision under ``DECISION_MARGIN``; (9c) the train CLI on the
+     conf (``MOCHA_OVERRIDES``, phase 7's corpus) and the eval CLI as the
+     recipe's stage 5, each started with cuDNN's TF32 on and bound to turn
+     it off, counts zeroed around each (K4 in training; K1, K1b, K2, K3,
+     K3b in neither), every loss and the quantity loss finite, a profiled
+     microstep (the cuDNN RNN operators' share, the MoChA decoder's
+     forward and backward alone: its device time and operations); (9d)
+     the widest CLI microbatch on the trained weights, K4 against its plain
+     version at phase 6's tolerance, a microstep twice with the noise on:
+     the same bits; (9e) one train() microstep of the ``ctc_sync`` conf's
+     model: its trigger points on the card identical to the CPU's forced
+     alignment of the same log-probabilities, ``loss_latency`` finite.
 
 Launches per step (per encode for K1, per decode step for K2, per training
 microstep for the rest; K1 / K1b bf16 in phase 5's bf16 run) are counted
@@ -152,7 +174,8 @@ served requests of phases 3 and 3c; each kernel's launches in phase 7's
 three CLI runs, phase 7b's and phase 8's two apart (``cli_launches``), K2's
 per training microstep (``train_launches_per_microstep``); phase 8's path
 (its served requests and its two CLI runs, ``blstm_launches``) and each
-kernel's numbers at phase 8's shapes (``blstm``). Prints the
+kernel's numbers at phase 8's shapes (``blstm``); phase 9's path (its served
+requests and its two CLI runs, ``mocha_launches``). Prints the
 details as JSON (also written to ``chiprun_out/chip_smoke.json``), then one
 JSON line of per-kernel results (launches, launches_per_step, ms,
 plain_ms, bound_ms, bound_by, library_ms, errors), the card's ``name,
@@ -599,7 +622,7 @@ def profiled(torch, what: str, fn, annotation: str | None = None,
         if end > last:
             busy_us += end - max(start, last)
             last = end
-    out = {"wall_s": wall}
+    out = {"wall_s": wall, "device_events": len(spans)}
     if annotation is not None:
         out.update({f"{annotation}_ranges": ranges,
                     f"{annotation}_device_ms": range_us / 1e3})
@@ -2591,6 +2614,476 @@ def phase_blstm(torch, rng, root: Path, corpus: dict, xs, xlens) -> dict:
     return out
 
 
+# Phase 9: the LibriSpeech recipe's UniLSTM-MoChA (``MOCHA_CONF``,
+# ``configs.librispeech_lstm_mocha_args``) at full width and depth: the
+# conv front end, 5 unidirectional LSTM-1024 layers (cuDNN), the LSTM-1024
+# LAS decoder with MoChA (chunk 4, additive energies, attn_dim 512, init_r
+# -4, noise std 1.0, quantity loss 0.1), CTC 0.3 with fc 512; float32.
+# MoChA has no kernel (the JAX package computes it in plain JAX): K2, K3
+# and K3b fuse location attention and must not run, nor K1 / K1b; K4 runs
+# in training. The overrides are the run's length and phase 7's word unit
+# (the same corpus).
+MOCHA_CONF = "examples/librispeech/conf/asr/mocha/lstm_mocha.yaml"
+MOCHA_SYNC_CONF = "examples/librispeech/conf/asr/mocha/lstm_mocha_ctc_sync.yaml"
+MOCHA_OVERRIDES = ("--n_epochs", "2", "--unit", "word")
+MOCHA_D = 1024
+MOCHA_TRAIN_KERNELS = ("ctc_loss", "ctc_loss_bwd")
+NOT_ON_MOCHA_PATH = NOT_ON_RNN_PATH + ("las_step", "las_scan",
+                                      "las_scan_bwd")
+# 9b: the labels of the four served utterances (T 175-400 after the x4
+# front end)
+MOCHA_U = (40, 60, 80, 100)
+# a hard decision (a boundary energy against 0, a greedy argmax against the
+# runner-up) that rounding may flip: the float64 run and the card's are
+# compared up to the first decision of a row with less margin than this
+DECISION_MARGIN = 1e-3
+# 9b's greedy runs on the seeded weights plus seeded normal noise of this
+# std: at the initial weights the decoder's logits are nearly flat (top-2
+# gaps under DECISION_MARGIN from the second step on, my chip run 1 of PR
+# 13), so no decision there is one rounding could not flip
+GREEDY_NOISE = 0.05
+
+
+def mocha_model(torch, args=None):
+    from neural_sp_tpu_torch.configs import librispeech_lstm_mocha_args
+    from neural_sp_tpu_torch.models.speech2text import build_speech2text
+    from neural_sp_tpu_torch.utils.init_params import init_params
+    model = build_speech2text(args or librispeech_lstm_mocha_args())
+    init_params(model, SEED)
+    return model.eval()
+
+
+def mocha_labels(torch, rng, vocab: int):
+    """Labels [4, 100] (PAD past MOCHA_U) from ``rng``, ids in [4, vocab)."""
+    import numpy as np
+    from neural_sp_tpu_torch import PAD
+    ys = np.full((len(MOCHA_U), max(MOCHA_U)), PAD, np.int64)
+    for b, u in enumerate(MOCHA_U):
+        ys[b, :u] = rng.integers(4, vocab, u)
+    return torch.from_numpy(ys), torch.tensor(MOCHA_U)
+
+
+def phase_mocha_serve(torch, model, xs, xlens) -> dict:
+    """9a: phase 3's utterances through the LSTM-MoChA: beam 10 + CTC 0.3
+    and greedy (counts zeroed before, read after: K1, K1b, K2, K3 and K3b
+    must not run), the encoder's time, one profiled beam request (device
+    time per decode step, idle share)."""
+    from neural_sp_tpu_torch.models.decoders.decoding import (
+        DecodeConfig, Speech2TextSession)
+    from neural_sp_tpu_torch.models.decoders.las import DecodeLoop
+    out, counts = phase_serve(torch, model, xs, xlens,
+                              ("beam10_ctc0.3", "greedy"), tag="9a")
+    out.pop("best_hyp0")
+    out["launches"] = counts
+    expect(all(counts[k] == 0 for k in NOT_ON_MOCHA_PATH),
+           f"K1 / K1b / K2 / K3 / K3b launched serving MoChA: {counts}")
+    beam = Speech2TextSession(model, DecodeConfig(**SERVED["beam10_ctc0.3"]))
+    t0 = time.perf_counter()
+    eouts = beam.encode(xs, xlens)
+    torch.cuda.synchronize()
+    out["encode_batch_s"] = time.perf_counter() - t0
+    e = eouts["ys"]["xs"]
+    expect(bool(torch.isfinite(e).all()), "MoChA encoder output not finite")
+    expect(tuple(e.shape) == (len(UTT_FRAMES), max(UTT_FRAMES) // 4,
+                              MOCHA_D), f"encoder output {tuple(e.shape)}")
+    log(f"[9a] encoder {tuple(e.shape)}: {out['encode_batch_s']:.4f} s")
+    n = UTT_FRAMES[0]
+    steps = DecodeLoop.steps
+    prof = profiled(torch, f"MoChA beam 10 + CTC 0.3, the {n}-frame "
+                    f"utterance", lambda: beam.decode(xs[:1, :n], xlens[:1]),
+                    tag="9a")
+    prof["decode_steps"] = DecodeLoop.steps - steps
+    if "device_busy_s" in prof:
+        prof["device_ms_per_decode_step"] = \
+            prof["device_busy_s"] * 1e3 / max(prof["decode_steps"], 1)
+        log(f"[9a]   {prof['decode_steps']} decode steps, "
+            f"{prof['device_ms_per_decode_step']:.4f} ms of device time each")
+    out["beam10_ctc0.3_one_utt"] = prof
+    return out
+
+
+def mocha_microstep(torch, model, batch):
+    """One train() microstep from a generator of seed SEED: (loss, {leaf:
+    gradient as float64 on the host}, scalar observations)."""
+    from neural_sp_tpu_torch.parallel.mesh import (compute_loss,
+                                                   deterministic_cudnn)
+    model.train()
+    model.zero_grad(set_to_none=True)
+    with deterministic_cudnn():         # as the train step runs
+        loss, obs = compute_loss(model, None, *batch,
+                                 torch.Generator().manual_seed(SEED))
+        loss.backward()
+    grads = {n: p.grad.detach().double().cpu()
+             for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return float(loss.detach()), grads, {
+        k: float(v.detach()) for k, v in obs.items()
+        if torch.is_tensor(v) and v.ndim == 0}
+
+
+def mocha_greedy(torch, model, xs, xlens):
+    """Greedy decoding of the batch, each decision's margin recorded:
+    (tokens [B, L] on the host, margins [steps, B]: per row the least of
+    the top-2 logit gap and every monotonic energy's distance from 0 that
+    the boundary search read)."""
+    from neural_sp_tpu_torch.models.decoders import las
+    from neural_sp_tpu_torch.models.modules import mocha
+    real_hard, real_step = mocha.hard_monotonic_attention, \
+        las.MochaDecodeLoop.step
+    energy, margins = [], []
+
+    def hard(e, alpha_prev, eps_wait=-1):
+        t = e.shape[-1]
+        idx = torch.arange(t, device=e.device)
+        start = torch.where(alpha_prev.sum(-1) > 0, alpha_prev.argmax(-1), 0)
+        fire = (e >= 0) & (idx >= start[..., None])
+        first = torch.where(fire, idx, t).amin(-1)
+        read = (idx >= start[..., None]) & (idx <= first[..., None]) & \
+            (e > -1e30)
+        energy.append(torch.where(read, e.abs(), torch.full_like(e, 1e30))
+                      .amin(-1).amin(-1))
+        return real_hard(e, alpha_prev, eps_wait)
+
+    def step(self, y, parent=None):
+        logits, aw = real_step(self, y, parent)
+        top2 = logits.float().topk(2, -1).values
+        margins.append(torch.minimum(top2[:, 0] - top2[:, 1],
+                                     energy.pop().to(top2.dtype)))
+        return logits, aw
+
+    with mock.patch.object(mocha, "hard_monotonic_attention", hard), \
+            mock.patch.object(las.MochaDecodeLoop, "step", step), \
+            torch.inference_mode():
+        e = model.encode(xs, xlens)[0]["ys"]
+        toks, _ = model.dec_fwd.greedy_scan(e["xs"], e["xlens"],
+                                            e["xs"].shape[1])
+    return toks.cpu(), torch.stack(margins).double().cpu()
+
+
+def phase_mocha_hold(torch, model, xs, xlens) -> dict:
+    """9b: one train() microstep of the card's model held to the same
+    microstep on the CPU in float64 (same weights, inputs and generator
+    seed; dropout and the energies' noise on): the loss to LOSS_RTOL, each
+    gradient leaf to GRAD_RTOL of its own max (phase 6's rule); then greedy
+    decoding of the batch on both with the weights moved by GREEDY_NOISE
+    (the card's model keeps them), the tokens identical up to each row's
+    first decision with less than DECISION_MARGIN."""
+    import numpy as np
+    from neural_sp_tpu_torch.configs import librispeech_lstm_mocha_args
+    from neural_sp_tpu_torch.models.speech2text import build_speech2text
+    rng = np.random.default_rng(SEED + 9)
+    ys, ylens = mocha_labels(torch, rng, model.dec_fwd.vocab)
+    xs_t = torch.from_numpy(xs)
+    xl_t = torch.from_numpy(xlens)
+    dev = next(model.parameters()).device
+    t0 = time.perf_counter()
+    loss, grads, obs = mocha_microstep(
+        torch, model, (xs_t.to(dev), xl_t.to(dev), ys.to(dev),
+                       ylens.to(dev)))
+    card_s = time.perf_counter() - t0
+    cpu = build_speech2text(librispeech_lstm_mocha_args(), device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    cpu.double()
+    t0 = time.perf_counter()
+    loss_ref, grads_ref, obs_ref = mocha_microstep(
+        torch, cpu, (xs_t.double(), xl_t, ys, ylens))
+    cpu_s = time.perf_counter() - t0
+    log(f"[9b] train() microstep B {len(MOCHA_U)} x {xs.shape[1]} frames, U "
+        f"{list(MOCHA_U)}: card {card_s:.2f} s, CPU float64 {cpu_s:.2f} s; "
+        f"card {obs}; CPU {obs_ref}")
+    expect(all(np.isfinite(v) for v in obs.values()), f"9b losses {obs}")
+    out = {"card_s": card_s, "cpu_float64_s": cpu_s, "obs": obs,
+           "obs_float64": obs_ref,
+           "microstep": hold_microstep(loss, grads, loss_ref, grads_ref,
+                                       "9b")}
+    # greedy on both, each decision's margin from the card's run, on the
+    # weights moved by GREEDY_NOISE
+    g = torch.Generator().manual_seed(SEED + 11)
+    moved = {k: v.cpu() + GREEDY_NOISE * torch.randn(v.shape, generator=g)
+             for k, v in model.state_dict().items()}
+    model.load_state_dict(moved)
+    cpu.load_state_dict(moved)
+    model.eval()
+    cpu.eval()
+    toks, margins = mocha_greedy(torch, model, xs_t.to(dev), xl_t.to(dev))
+    toks_ref, _ = mocha_greedy(torch, cpu, xs_t.double(), xl_t)
+    compared, cut = [], []
+    for b in range(toks.shape[0]):
+        low = (margins[:, b] < DECISION_MARGIN).nonzero()
+        n = int(low[0]) if len(low) else toks.shape[1]
+        n = min(n, toks.shape[1], toks_ref.shape[1])
+        compared.append(n)
+        cut.append(bool(len(low)))
+        expect(torch.equal(toks[b, :n], toks_ref[b, :n]),
+               f"9b greedy row {b}: the card's tokens part from the float64 "
+               f"run's within {n} decisions of margin")
+    out["greedy"] = {"decisions_compared": compared, "cut_by_margin": cut,
+                     "least_margin": float(margins.min()),
+                     "steps": int(margins.shape[0])}
+    log(f"[9b] greedy: tokens identical over {compared} decisions per row "
+        f"(cut at a decision under {DECISION_MARGIN}: {cut}; least margin "
+        f"{float(margins.min()):.3e} over {margins.shape[0]} steps)")
+    del cpu
+    return out
+
+
+def phase_mocha_cli(torch, root: Path, corpus: dict) -> dict:
+    """9c and 9d: ``bin.asr.train.main`` on ``MOCHA_CONF`` (``MOCHA_
+    OVERRIDES``, phase 7's corpus) and ``bin.asr.eval.main`` as the recipe's
+    stage 5 (``CLI_EVAL``, the recipe's LM), each started with cuDNN's TF32
+    on and bound to turn it off, counts zeroed around each: K4 must run in
+    training, K1, K1b, K2, K3 and K3b in neither. Every loss (the quantity
+    loss too) finite. A profiled train() microstep on the widest microbatch
+    (the cuDNN RNN operators' share), and the MoChA decoder's forward and
+    backward alone under the profiler (its device time and operations);
+    then that microbatch on the trained weights, K4 against its plain
+    version (phase 6's rule), and one train() microstep twice from one
+    seed, the noise on: the same bits."""
+    import csv
+    import math
+    import os
+    from types import SimpleNamespace
+    from neural_sp_tpu_torch.bin.asr import eval as cli_eval
+    from neural_sp_tpu_torch.bin.asr import train as cli_train
+    from neural_sp_tpu_torch.ops.kernels import launches, reset_launches
+    from neural_sp_tpu_torch.parallel.mesh import (TrainStep,
+                                                   deterministic_cudnn)
+    sync = torch.cuda.synchronize
+    exp = str(root / "exp_mocha")
+    data = ["--train_set", corpus["train"], "--dev_set", corpus["dev"],
+            "--dict", corpus["dict"], "--model_save_dir", exp]
+    out = {"conf": MOCHA_CONF, "overrides": list(MOCHA_OVERRIDES)}
+    steps, widest, n_params = [], [], []
+    orig_call, orig_build = TrainStep.__call__, cli_train.build_speech2text
+
+    def timed_call(self, xs, xlens, ys, ylens, *a, **kw):
+        sync()
+        t = time.perf_counter()
+        m = orig_call(self, xs, xlens, ys, ylens, *a, **kw)
+        sync()
+        steps.append((time.perf_counter() - t, bool(m["emitted"]),
+                      int(xlens.sum()), float(m["loss"]),
+                      float(m["loss_quantity"])))
+        if not widest or (xs.shape[1], xs.shape[0]) > (
+                widest[0].shape[1], widest[0].shape[0]):
+            widest[:] = (xs, xlens, ys, ylens)
+        return m
+
+    def counted_build(args, device=None):
+        model = orig_build(args, device=device)
+        n_params.append(sum(p.numel() for p in model.parameters()))
+        return model
+
+    torch.cuda.reset_peak_memory_stats()
+    torch.backends.cudnn.allow_tf32 = True     # PyTorch's default
+    sync()
+    reset_launches()
+    t0 = time.perf_counter()
+    with mock.patch.object(TrainStep, "__call__", timed_call), \
+            mock.patch.object(cli_train, "build_speech2text", counted_build):
+        cli_train.main(["--config", str(ROOT / MOCHA_CONF)] + data +
+                       list(MOCHA_OVERRIDES))
+    sync()
+    wall = time.perf_counter() - t0
+    expect(not torch.backends.cudnn.allow_tf32,
+           "the train CLI left cuDNN's TF32 on for a float32 conf")
+    counts = launches()
+    losses = [s[3] for s in steps] + [s[4] for s in steps]
+    train = {"wall_s": wall, "parameters": n_params[0],
+             "microsteps": len(steps),
+             "optimizer_steps": sum(s[1] for s in steps),
+             "microstep_s": [s[0] for s in steps],
+             "microstep_loss": [s[3] for s in steps],
+             "microstep_loss_quantity": [s[4] for s in steps],
+             "ms_per_optimizer_step": 1e3 * sum(s[0] for s in steps) /
+             max(sum(s[1] for s in steps), 1),
+             "frames_per_s": sum(s[2] for s in steps) /
+             sum(s[0] for s in steps),
+             "launches": counts,
+             "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+    out["train"] = train
+    log(f"[9c] train CLI on {MOCHA_CONF}: {n_params[0]} parameters, "
+        f"{len(steps)} microsteps ({train['optimizer_steps']} updates), "
+        f"{train['ms_per_optimizer_step']:.1f} ms per optimizer step, "
+        f"{train['frames_per_s']:.0f} frames/s, wall {wall:.1f} s, peak mem "
+        f"{train['peak_mem_bytes']} B")
+    log(f"[9c]   microstep losses {['%.3f' % s[3] for s in steps]}, "
+        f"quantity {['%.3f' % s[4] for s in steps]}; microsteps "
+        f"{['%.3f' % s[0] for s in steps]} s")
+    log(f"[9c]   launches: {counts}")
+    for name in MOCHA_TRAIN_KERNELS:
+        expect(counts[name] > 0, f"{name} never launched in phase 9c")
+    expect(all(counts[k] == 0 for k in NOT_ON_MOCHA_PATH),
+           f"K1 / K1b / K2 / K3 / K3b launched training MoChA: {counts}")
+    expect(all(map(math.isfinite, losses)), f"9c losses {losses}")
+    with open(f"{exp}/history.csv") as f:
+        history = [(int(r["epoch"]), float(r["train_loss"]),
+                    float(r["train_loss_quantity"]),
+                    float(r["dev_loss_mean"])) for r in csv.DictReader(f)]
+    out["history"] = history
+    log(f"[9c] history.csv (epoch, train loss, train quantity loss, dev "
+        f"loss): {history}")
+    expect([e for e, *_ in history] == [1, 2] and all(
+        math.isfinite(x) for _, *ls in history for x in ls),
+        f"9c history.csv {history}")
+
+    # the eval CLI as the recipe's stage 5
+    lm_dir = recipe_lm(root)
+    torch.cuda.reset_peak_memory_stats()
+    torch.backends.cudnn.allow_tf32 = True      # as for the train CLI
+    sync()
+    reset_launches()
+    t = time.perf_counter()
+    res = cli_eval.main(["--recog_model", exp, "--recog_sets",
+                         corpus["test"], "--recog_lm", lm_dir,
+                         "--recog_dir", str(root / "decode_mocha")] +
+                        list(CLI_EVAL))
+    sync()
+    wall = time.perf_counter() - t
+    expect(not torch.backends.cudnn.allow_tf32,
+           "the eval CLI left cuDNN's TF32 on for a float32 model")
+    counts = launches()
+    (m,) = res.values()
+    out["eval"] = {**m, "wall_s": wall, "launches": counts,
+                   "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+    log(f"[9c] eval CLI: RTF {m['rtf']:.4f}, wall {wall:.1f} s (with "
+        f"loading), WER {m['wer']:.2f} over {m['n_utts']} utterances "
+        f"(random weights); launches {counts}")
+    expect(m["n_utts"] == CLI_UTTS["test"], f"{m['n_utts']} utterances")
+    expect(all(counts[k] == 0 for k in NOT_ON_MOCHA_PATH),
+           f"K1 / K1b / K2 / K3 / K3b launched evaluating MoChA: {counts}")
+
+    # a profiled train() microstep on the widest microbatch, the trained
+    # weights; then the MoChA decoder alone
+    model, _, _ = cli_eval.load_model_for_eval(SimpleNamespace(
+        recog_model=f"{exp}/ckpt.epoch-2", recog_n_average=1))
+    batch = tuple(widest)
+    widest.clear()
+
+    def microstep():
+        model.train()
+        model.zero_grad(set_to_none=True)
+        with deterministic_cudnn():       # as the train step runs
+            loss, _ = model(*batch, torch.Generator().manual_seed(SEED))
+            loss.backward()
+
+    microstep()                           # warm-up
+    sync()
+    prof = profiled(torch, f"MoChA train() microstep, B "
+                    f"{batch[0].shape[0]} x {batch[0].shape[1]} frames, U "
+                    f"{batch[2].shape[1]}", microstep, ops=CUDNN_RNN_OPS,
+                    tag="9c")
+    with torch.no_grad():
+        model.eval()
+        enc = model.encoder(batch[0], batch[1])["ys"]
+
+    def decoder():
+        model.train()
+        model.zero_grad(set_to_none=True)
+        ex = enc["xs"].detach().requires_grad_()
+        loss, _ = model.dec_fwd(ex, enc["xlens"], batch[2], batch[3],
+                                torch.Generator().manual_seed(SEED))
+        loss.backward()
+
+    decoder()
+    sync()
+    prof_dec = profiled(torch, "the MoChA decoder's forward and backward "
+                        "(its loop, readout and losses)", decoder, tag="9c")
+    if "device_busy_s" in prof:
+        prof["cudnn_rnn_share"] = prof["ops_device_ms"] / 1e3 / \
+            prof["device_busy_s"]
+        log(f"[9c]   cuDNN RNN operators {prof['ops_device_ms']:.3f} ms of "
+            f"device time, {prof['cudnn_rnn_share']:.4f} of the busy time")
+        if "device_busy_s" in prof_dec:
+            prof["mocha_decoder_share"] = prof_dec["device_busy_s"] / \
+                prof["device_busy_s"]
+            log(f"[9c]   the MoChA decoder alone: "
+                f"{prof_dec['device_busy_s'] * 1e3:.3f} ms of device time in "
+                f"{prof_dec['device_events']} device operations, "
+                f"{prof['mocha_decoder_share']:.4f} of the microstep's busy "
+                f"time")
+    out["profiled_microstep"] = prof
+    out["profiled_decoder"] = prof_dec
+
+    # 9d: the same microbatch held to the plain versions, and determinism
+    log(f"[9d] microbatch held to the plain versions: B "
+        f"{batch[0].shape[0]} x {batch[0].shape[1]} frames, U "
+        f"{batch[2].shape[1]}")
+    out["train_parity"], _ = phase_train_parity(torch, model, batch,
+                                                tag="9d")
+    out["determinism"] = phase_determinism(torch, model, batch, bf16=False,
+                                           phase="9d")
+    del model, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_mocha_sync(torch, xs, xlens) -> dict:
+    """9e: one train() microstep of the ``ctc_sync`` conf's model at full
+    width: the trigger points it computed on the card identical to the
+    forced alignment on the CPU of the same log-probabilities (best paths
+    too), and ``loss_latency`` finite."""
+    import math
+    import numpy as np
+    from neural_sp_tpu_torch.bin.args import parse_args_train
+    from neural_sp_tpu_torch.models.decoders import ctc as ctc_head
+    from neural_sp_tpu_torch.ops.ctc import ctc_forced_align
+    args = parse_args_train(["--config", str(ROOT / MOCHA_SYNC_CONF)])
+    args.vocab = CLI_VOCAB
+    model = mocha_model(torch, args)
+    ys, ylens = mocha_labels(torch, np.random.default_rng(SEED + 10),
+                             CLI_VOCAB)
+    dev = next(model.parameters()).device
+    seen = []
+
+    def spy(*a, **kw):
+        seen.append((a, ctc_forced_align(*a, **kw)))
+        return seen[-1][1]
+
+    t0 = time.perf_counter()
+    with mock.patch.object(ctc_head, "ctc_forced_align", spy):
+        _, _, obs = mocha_microstep(torch, model, (
+            torch.from_numpy(xs).to(dev), torch.from_numpy(xlens).to(dev),
+            ys.to(dev), ylens.to(dev)))
+    wall = time.perf_counter() - t0
+    expect(len(seen) == 1, f"{len(seen)} forced alignments in a microstep")
+    (lp, labels, lens, label_lens), (trig, paths) = seen[0]
+    trig_ref, paths_ref = ctc_forced_align(lp.cpu(), labels.cpu(),
+                                           lens.cpu(), label_lens.cpu())
+    out = {"wall_s": wall, "obs": obs,
+           "trigger_points_equal": bool(torch.equal(trig.cpu(), trig_ref)),
+           "best_paths_equal": bool(torch.equal(paths.cpu(), paths_ref))}
+    log(f"[9e] ctc_sync microstep {wall:.2f} s: {obs}; trigger points "
+        f"{'==' if out['trigger_points_equal'] else '!='} the CPU's, best "
+        f"paths {'==' if out['best_paths_equal'] else '!='}")
+    expect(out["trigger_points_equal"] and out["best_paths_equal"],
+           "9e forced alignment on the card differs from the CPU's")
+    expect("loss_latency" in obs and math.isfinite(obs["loss_latency"]),
+           f"9e loss_latency {obs}")
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_mocha(torch, root: Path, corpus: dict, xs, xlens) -> dict:
+    """9: the LSTM-MoChA served, held to float64 on the CPU, trained and
+    evaluated through the CLIs, and its ctc_sync variant; each path's
+    launches counted from zero."""
+    t = time.perf_counter()
+    model = mocha_model(torch)
+    out = {"parameters": sum(p.numel() for p in model.parameters())}
+    log(f"[9a] LSTM-MoChA: {out['parameters']} parameters on the card")
+    out["serve"] = phase_mocha_serve(torch, model, xs, xlens)
+    out["hold"] = phase_mocha_hold(torch, model, xs, xlens)
+    del model
+    torch.cuda.empty_cache()
+    out["cli"] = phase_mocha_cli(torch, root, corpus)
+    out["ctc_sync"] = phase_mocha_sync(torch, xs, xlens)
+    out["phase_wall_s"] = time.perf_counter() - t
+    log(f"[9] phase 9 wall {out['phase_wall_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2661,6 +3154,7 @@ def main() -> int:
         sampled_cli["phase_wall_s"] = time.perf_counter() - t
         log(f"[7b] phase 7b wall {sampled_cli['phase_wall_s']:.1f} s")
         blstm = phase_blstm(torch, rng, root, corpus, xs, xlens)
+        mocha = phase_mocha(torch, root, corpus, xs, xlens)
     # each kernel's launches from the main path it belongs to: the served
     # requests (K1, K2), the float32 training run (K1b, K3, K3b, K4) or
     # the bf16 training run (K1's and K1b's bf16 entries)
@@ -2710,7 +3204,7 @@ def main() -> int:
                "train_bf16": {**trained_bf16, "launches": bf16_launches},
                "train_parity": parity, "train_parity_bf16": parity_bf16,
                "sampling_times": sampling_times, "cli": cli,
-               "cli_sampled": sampled_cli, "blstm": blstm,
+               "cli_sampled": sampled_cli, "blstm": blstm, "mocha": mocha,
                "kernels": kernels}
     log(json.dumps(details))
     out_dir = ROOT / "chiprun_out"
@@ -2775,6 +3269,13 @@ def main() -> int:
         if row is not None:
             e["blstm"] = {"shape": row.get("shapes", [{}])[0].get("shape"),
                           **{key: row.get(key) for key in keys}}
+    # phase 9, the LSTM-MoChA: its main path's launches (the served
+    # requests, the train CLI, the eval CLI, the ctc_sync microstep is not
+    # counted): K4 alone
+    paths9 = (mocha["serve"]["launches"], mocha["cli"]["train"]["launches"],
+              mocha["cli"]["eval"]["launches"])
+    for e in entries:
+        e["mocha_launches"] = sum(p[e["name"]] for p in paths9)
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

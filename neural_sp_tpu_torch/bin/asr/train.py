@@ -25,10 +25,11 @@ The batches are padded on the JAX CLI's grid (frames to 128, labels to
 32). Initialisation is the port's (``utils/init_params.py``), seeded by
 ``--seed``: it draws other numbers than flax's. Scheduled sampling
 (``ss_prob``) starts at ``ss_start_epoch`` when that is set, as the JAX
-CLI's curriculum. The JAX CLI's distillation, MBR, random state passing,
+CLI's curriculum; so do MoChA's quantity loss, latency loss and
+StableEmit at ``mocha_{quantity_loss,latency_loss,stableemit}_start_epoch``
+(weight 0 before). The JAX CLI's distillation, MBR, random state passing,
 per-batch MTL, tensor parallelism and the profiler window raise
-(ROADMAP); MoChA's loss curricula start options that the port's model
-builder raises on.
+(ROADMAP).
 """
 from __future__ import annotations
 
@@ -88,6 +89,21 @@ def make_schedule(args):
                                getattr(args, "warmup_start_lr", args.lr / 100),
                                args.warmup_n_steps)
     return None
+
+
+def set_mocha_curriculum(dec, args, epoch: int) -> None:
+    """MoChA's loss weights for ``epoch``, as the JAX CLI's phases: each of
+    the quantity loss, the latency loss and StableEmit is 0 before its
+    ``*_start_epoch`` (when that is set), else the conf's weight."""
+    def weight(flag, field):
+        start = getattr(args, flag, 0)
+        return 0.0 if start and epoch < start else getattr(args, field, 0.0)
+    dec.quantity_loss_weight = weight("mocha_quantity_loss_start_epoch",
+                                      "mocha_quantity_loss_weight")
+    dec.latency_loss_weight = weight("mocha_latency_loss_start_epoch",
+                                     "mocha_latency_loss_weight")
+    dec.step.attn.stableemit_weight = weight("mocha_stableemit_start_epoch",
+                                             "mocha_stableemit_weight")
 
 
 def _to_device(batch: dict, device) -> tuple:
@@ -202,6 +218,8 @@ def main(argv=None, device=None) -> str:
             # the JAX CLI's curriculum: no sampling before ss_start_epoch
             model.dec_fwd.step.ss_prob = 0.0 if ss_start and \
                 epoch < ss_start else getattr(args, "ss_prob", 0.0)
+            if model.dec_fwd.attn_type == "mocha":
+                set_mocha_curriculum(model.dec_fwd, args, epoch)
         train_set.set_epoch(epoch)
         t0 = time.time()
         for i, batch in enumerate(train_set):

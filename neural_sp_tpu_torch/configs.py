@@ -23,6 +23,15 @@ at 0.2, CTC weight 0.3; float32 (no ``train_dtype``). The model fields and
 ``input_dim`` (the train CLI's default) are the conf's, field for field; a
 test holds them to the yaml. ``vocab`` is the flagship's.
 
+``librispeech_lstm_mocha_args`` is the LibriSpeech recipe's UniLSTM-MoChA,
+``examples/librispeech/conf/asr/mocha/lstm_mocha.yaml``: the same conv front
+end, 5 unidirectional LSTM-1024 layers, the LSTM-1024 LAS decoder with
+MoChA (chunk 4, one monotonic and one chunk head, additive energies,
+attn_dim 512, ``init_r`` -4, noise std 1.0, quantity-loss weight 0.1),
+CTC weight 0.3 with fc 512 and ``ctc_lsm_prob`` 0.1, dropout 0.4, label
+smoothing 0.1; float32. Its model fields are the conf's, field for field
+(a test holds them to the yaml); ``vocab`` is the flagship's.
+
 ``flagship_args`` carries no ``train_dtype`` (``bench.py``'s has none): an
 args namespace may set one, and ``compute_dtype(args)`` turns it into the
 train step's ``compute_dtype``.
@@ -72,6 +81,22 @@ def librispeech_blstm_las_args():
         dec_bottleneck_dim=1024, attn_type="location", attn_dim=512,
         attn_conv_width=201, dropout_dec=0.4, dropout_emb=0.4, ss_prob=0.2,
         ctc_weight=0.3, lsm_prob=0.1, vocab=flagship_args().vocab)
+
+
+def librispeech_lstm_mocha_args():
+    """The conf's model fields, ``input_dim`` 80 and the flagship's
+    ``vocab``."""
+    return SimpleNamespace(
+        enc_type="conv_lstm", input_dim=80, conv_channels="32_32",
+        conv_kernel_sizes="(3,3)_(3,3)", conv_poolings="(2,2)_(2,2)",
+        subsample="1_1_1_1_1", subsample_type="drop", enc_n_units=1024,
+        enc_n_layers=5, dropout_enc=0.4,
+        dec_type="lstm", dec_n_units=1024, dec_n_layers=1, emb_dim=512,
+        dec_bottleneck_dim=1024, attn_type="mocha", attn_dim=512,
+        mocha_chunk_size=4, mocha_init_r=-4, mocha_std=1.0,
+        mocha_quantity_loss_weight=0.1, dropout_dec=0.4, dropout_emb=0.4,
+        ctc_weight=0.3, ctc_fc_list="512", ctc_lsm_prob=0.1, lsm_prob=0.1,
+        vocab=flagship_args().vocab)
 
 
 def librispeech_rnnlm_args():

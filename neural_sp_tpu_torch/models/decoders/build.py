@@ -1,5 +1,5 @@
 """build_decoder (counterpart of ``neural_sp_tpu/models/decoders/build.py``),
-LAS LSTM branch."""
+LAS LSTM branch, with location attention or MoChA."""
 from __future__ import annotations
 
 from .las import RNNDecoder
@@ -40,4 +40,18 @@ def build_decoder(args, vocab: int, enc_n_units: int,
         dropout=_get(args, "dropout_dec", 0.0),
         dropout_emb=_get(args, "dropout_emb", 0.0),
         lsm_prob=_get(args, "lsm_prob", 0.0),
-        ss_prob=_get(args, "ss_prob", 0.0))
+        ss_prob=_get(args, "ss_prob", 0.0),
+        # MoChA (attn_type "mocha"), as JAX build.py reads it
+        mocha_chunk_size=_get(args, "mocha_chunk_size", 1),
+        mocha_n_heads_mono=_get(args, "mocha_n_heads_mono", 1),
+        mocha_n_heads_chunk=_get(args, "mocha_n_heads_chunk", 1),
+        mocha_init_r=_get(args, "mocha_init_r", -4.0),
+        mocha_noise_std=_get(args, "mocha_std", 1.0),
+        mocha_no_denominator=_get(args, "mocha_no_denominator", False),
+        mocha_eps_wait=_get(args, "mocha_eps_wait", -1),
+        mocha_stableemit_weight=_get(args, "mocha_stableemit_weight", 0.0),
+        mocha_1dconv=_get(args, "mocha_1dconv", False),
+        mocha_share_ca=_get(args, "share_chunkwise_attention", False),
+        quantity_loss_weight=_get(args, "mocha_quantity_loss_weight", 0.0),
+        latency_metric=_get(args, "mocha_latency_metric", "") or "",
+        latency_loss_weight=_get(args, "mocha_latency_loss_weight", 0.0))

@@ -1,7 +1,8 @@
 """CTC head with its training loss, greedy collapse and the joint-decoding
 prefix scorer (counterpart of ``neural_sp_tpu/models/decoders/ctc.py``).
 The loss is kernel K4 (``ops.ctc.ctc_loss``); the scorer is host numpy in
-the JAX package and is copied as it is.
+the JAX package and is copied as it is. ``trigger_points`` is the forced
+alignment of ``ops.ctc.ctc_forced_align`` (MoChA's ``ctc_sync``).
 
 ``fc_list`` ("512" or "512_512") puts Linear + ReLU + dropout layers
 ``fc0``, ``fc1``, ... before the output layer; ``lsm_prob`` mixes K4's loss
@@ -18,7 +19,7 @@ from torch import nn
 
 from ... import BLANK, EOS
 from ...ops.criterion import kldiv_lsm_ctc
-from ...ops.ctc import ctc_loss
+from ...ops.ctc import ctc_forced_align, ctc_loss
 from ...ops.dropout import Dropout
 
 LOG0 = -1.0e10
@@ -54,14 +55,31 @@ class CTC(nn.Module):
         return loss, logits
 
     def logits(self, eouts: torch.Tensor,
-               gen: Optional[torch.Generator] = None) -> torch.Tensor:
+               gen: Optional[torch.Generator] = None,
+               deterministic: bool = False) -> torch.Tensor:
+        """[B, T, V]; the fc layers' dropout in ``train()`` unless
+        ``deterministic``."""
         h = eouts
         for i in range(self.n_fc):
-            h = self.drop(torch.relu(getattr(self, f"fc{i}")(h)), gen)
+            h = torch.relu(getattr(self, f"fc{i}")(h))
+            if not deterministic:
+                h = self.drop(h, gen)
         return self.output(h)
 
     def log_probs(self, eouts: torch.Tensor) -> torch.Tensor:
-        return torch.log_softmax(self.logits(eouts).float(), dim=-1)
+        """f32 log-softmax of the logits without dropout (JAX's
+        ``deterministic=True`` default)."""
+        return torch.log_softmax(
+            self.logits(eouts, deterministic=True).float(), dim=-1)
+
+    @torch.no_grad()
+    def trigger_points(self, eouts, elens, ys, ylens) -> torch.Tensor:
+        """The frame [B, U] at which the forced alignment of the labels to
+        the deterministic log-probabilities first emits each label (0 past
+        ylens): MoChA's ``ctc_sync`` latency targets."""
+        trig, _ = ctc_forced_align(self.log_probs(eouts), ys, elens, ylens,
+                                   blank=BLANK)
+        return trig
 
 
 def collapse_path(path, blank: int = BLANK) -> list[int]:

@@ -253,8 +253,10 @@ class Speech2TextSession:
         # with the same tokens and parents
         use_ilm = conf.ilm_weight > 0
         if use_ilm:
-            ilm_loop = dec.decode_loop(torch.zeros_like(kc),
-                                       torch.zeros_like(e_t), klens)
+            # every entry of MoChA's key dict zeroed (JAX tree.map)
+            kc_zero = {k: torch.zeros_like(v) for k, v in kc.items()} \
+                if isinstance(kc, dict) else torch.zeros_like(kc)
+            ilm_loop = dec.decode_loop(kc_zero, torch.zeros_like(e_t), klens)
         # the LM state is ONE batched state over the beam: one LM step per
         # decode step, rows reordered by ``select``
         use_lm = self.lm is not None and conf.lm_weight > 0
@@ -395,7 +397,10 @@ class Speech2TextSession:
             if self.lm is not None:
                 lm_state = self.lm.select(lm_state, parents)
             if conf.coverage_penalty > 0:
-                aw_sums = aw_sums[parents] + aw.cpu().numpy()[parents]
+                aw_np = aw.float().cpu().numpy()
+                if aw_np.ndim == 3:       # MoChA: [beam, H, T] -> head mean
+                    aw_np = aw_np.mean(1)
+                aw_sums = aw_sums[parents] + aw_np[parents]
             hyps = new_hyps
             scores = np.asarray(new_scores, np.float32)
             scores_att = np.asarray(new_satt, np.float32)

@@ -29,8 +29,22 @@ stream. Both passes use the same masks (``SamplingMasks``, drawn once per
 microstep). Zoneout, projections, deeper stacks, LM fusion and the other
 attention types raise.
 
+MoChA (``attn_type="mocha"``, ``models/modules/mocha.py``) has no kernel:
+the JAX package computes it in plain JAX. Its keys are projected once per
+utterance (``key_proj_mono``, ``key_proj_chunk``, ``mono_conv``,
+``key_proj_value``, as JAX names them). In training the U+1 teacher-forced
+steps are a loop of PyTorch ops under autograd: the LSTM cell on the
+hoisted embedding gates, the step's dropout, MoChA in parallel mode with
+the energies' noise; the readout over all steps is hoisted as above, and
+the expected alignments [B, U+1, H_ma, T] feed the quantity loss and the
+``ctc_sync`` latency loss. A decode loop (``MochaDecodeLoop``) steps the
+cell and MoChA in hard mode and keeps the carry itself; a beam's reorder
+is an ``index_select`` of it by ``parent``. K2, K3 and K3b fuse location
+attention and never run for MoChA.
+
 Carry: ``(((c, h),), aw_prev [B, T], ctx_prev [B, enc_n_units])`` — the
-JAX carry without its logits and LM slots.
+JAX carry without its logits and LM slots; for MoChA aw_prev is alpha
+[B, H_ma, T], one-hot at frame 0 at the start.
 """
 from __future__ import annotations
 
@@ -45,7 +59,9 @@ from ...ops.dropout import Dropout, bernoulli_mask, keep_mask
 from ...ops.kernels import las_step
 from ...ops.kernels.las_step import LasStepWorkspace
 from ...ops.kernels.las_scan import LASScan
+from ...ops.masks import make_pad_mask
 from ..modules.attention import AttentionMechanism
+from ..modules.mocha import MoChA, mocha_noise
 from ..modules.recurrent import LSTMCell
 from ..utils import append_sos_eos
 
@@ -62,7 +78,8 @@ class LASStep(nn.Module):
                  attn_sigmoid_smoothing: bool = False,
                  bottleneck_dim: int = 1024, zoneout: float = 0.0,
                  lm_fusion: str = "", dropout: float = 0.0,
-                 dropout_emb: float = 0.0, ss_prob: float = 0.0):
+                 dropout_emb: float = 0.0, ss_prob: float = 0.0,
+                 mocha: Optional[dict] = None):
         super().__init__()
         if n_layers != 1 or n_projs > 0 or zoneout > 0 or lm_fusion or \
                 attn_n_heads != 1:
@@ -73,12 +90,19 @@ class LASStep(nn.Module):
         self.emb_dim = emb_dim
         self.embed = nn.Embedding(vocab, emb_dim)
         self.cells = nn.ModuleList([LSTMCell(emb_dim + enc_n_units, n_units)])
-        self.attn = AttentionMechanism(
-            kdim=enc_n_units, qdim=n_units, adim=attn_dim, atype=attn_type,
-            conv_out_channels=attn_conv_n_channels,
-            conv_kernel_size=attn_conv_kernel_size,
-            sharpening_factor=attn_sharpening_factor,
-            sigmoid_smoothing=attn_sigmoid_smoothing)
+        self.mocha = attn_type == "mocha"
+        if self.mocha:
+            # MoChA's keyword arguments (``RNNDecoder``'s mocha_* options);
+            # the keys come projected by the decoder
+            self.attn = MoChA(kdim=enc_n_units, qdim=n_units, adim=attn_dim,
+                              external_keys=True, **(mocha or {}))
+        else:
+            self.attn = AttentionMechanism(
+                kdim=enc_n_units, qdim=n_units, adim=attn_dim,
+                atype=attn_type, conv_out_channels=attn_conv_n_channels,
+                conv_kernel_size=attn_conv_kernel_size,
+                sharpening_factor=attn_sharpening_factor,
+                sigmoid_smoothing=attn_sigmoid_smoothing)
         self.w_gen = nn.Linear(n_units + enc_n_units, bottleneck_dim)
         self.output = nn.Linear(bottleneck_dim, vocab)
         self.drop = Dropout(dropout)
@@ -102,7 +126,12 @@ class LASStep(nn.Module):
         of the same keys, values and lengths; inference only) the carry
         lives in the workspace, ``carry`` is not read, and the step
         allocates nothing for K2. Returns (new_carry, logits [B, vocab],
-        aw [B, T])."""
+        aw [B, T]). For MoChA (``mocha_step``) key_cache is the dict of
+        ``RNNDecoder.precompute_keys``, values is not read, aw is alpha
+        [B, H_ma, T], and there is no workspace."""
+        if self.mocha:
+            mask = make_pad_mask(klens, key_cache["mono"].shape[1])
+            return self.mocha_step(carry, y_t, key_cache, mask, parent)
         cell = self.cells[0]
         if ws is None:
             ((c, h),), aw_prev, ctx_prev = carry
@@ -121,6 +150,36 @@ class LASStep(nn.Module):
         # readout order [dout, ctx] (JAX LASStep._generate)
         logits = self.output(torch.tanh(self.w_gen(torch.cat([h, ctx], -1))))
         return (((c, h),), aw, ctx), logits, aw
+
+    def mocha_step(self, carry, y_t, key_cache: dict, mask: torch.Tensor,
+                   parent=None):
+        """One MoChA decode step (hard mode) on ``carry``: rows reordered
+        by ``parent`` first (a beam's reorder), then the LSTM cell on
+        [emb, ctx_prev], MoChA with h as the query, the readout. mask [B, T]
+        bool, valid frames. Returns (new_carry, logits [B, vocab], alpha
+        [B, H_ma, T])."""
+        ((c, h),), alpha, ctx = carry
+        if parent is not None:
+            parent = parent.to(device=h.device, dtype=torch.long)
+            c, h, alpha, ctx = (x.index_select(0, parent)
+                                for x in (c, h, alpha, ctx))
+        cell = self.cells[0]
+        gates = torch.addmm(cell.bias, self.embed(y_t),
+                            cell.w_ih[:self.emb_dim])
+        gates = torch.addmm(torch.addmm(gates, ctx, cell.w_ih[self.emb_dim:]),
+                            h, cell.w_hh)
+        c, h = lstm_cell(gates, c)
+        ctx, alpha, _ = self.attn(key_cache, h, alpha, "hard", mask)
+        logits = self.output(torch.tanh(self.w_gen(torch.cat([h, ctx], -1))))
+        return (((c, h),), alpha, ctx), logits, alpha
+
+
+def lstm_cell(gates: torch.Tensor, c: torch.Tensor):
+    """flax ``OptimizedLSTMCell``'s update from the gate pre-activations
+    [B, 4H] in (i, f, g, o) order: returns (c, h)."""
+    i, f, g, o = gates.chunk(4, -1)
+    c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+    return c, torch.sigmoid(o) * torch.tanh(c)
 
 
 class DecodeLoop:
@@ -142,6 +201,27 @@ class DecodeLoop:
         overwritten by the step after the next."""
         DecodeLoop.steps += 1
         return self._step(None, y_t, *self._fixed, self.ws, parent)[1:]
+
+
+class MochaDecodeLoop:
+    """``DecodeLoop``'s interface for MoChA: the loop keeps the carry (LSTM
+    state, alpha, context; zero state, alpha one-hot at frame 0 at the
+    start) and steps ``LASStep.mocha_step``; a beam's ``parent`` reorders
+    the carry's rows. The steps count in ``DecodeLoop.steps``."""
+
+    def __init__(self, step: LASStep, key_cache: dict, klens, carry):
+        self._step = step
+        self.key_cache = key_cache
+        self.mask = make_pad_mask(klens, key_cache["mono"].shape[1])
+        self.carry = carry
+
+    def step(self, y_t, parent=None):
+        """Tokens y_t [B] (and a beam's parent rows [B]) -> (logits
+        [B, vocab], alpha [B, H_ma, T])."""
+        DecodeLoop.steps += 1
+        self.carry, logits, alpha = self._step.mocha_step(
+            self.carry, y_t, self.key_cache, self.mask, parent)
+        return logits, alpha
 
 
 class SamplingMasks(NamedTuple):
@@ -167,36 +247,91 @@ class RNNDecoder(nn.Module):
                  attn_sigmoid_smoothing: bool = False, zoneout: float = 0.0,
                  backward: bool = False, lm_fusion: str = "",
                  dropout: float = 0.0, dropout_emb: float = 0.0,
-                 lsm_prob: float = 0.0, ss_prob: float = 0.0):
+                 lsm_prob: float = 0.0, ss_prob: float = 0.0,
+                 mocha_chunk_size: int = 1, mocha_n_heads_mono: int = 1,
+                 mocha_n_heads_chunk: int = 1, mocha_init_r: float = -4.0,
+                 mocha_noise_std: float = 1.0,
+                 mocha_no_denominator: bool = False,
+                 mocha_eps_wait: int = -1,
+                 mocha_stableemit_weight: float = 0.0,
+                 mocha_1dconv: bool = False, mocha_share_ca: bool = False,
+                 quantity_loss_weight: float = 0.0, latency_metric: str = "",
+                 latency_loss_weight: float = 0.0):
         super().__init__()
         if backward:
             raise NotImplementedError(
                 "the backward decoder is not ported yet, see ROADMAP")
+        if latency_metric in ("decot", "minlt"):
+            raise NotImplementedError(
+                f"MoChA's {latency_metric!r} latency metric reads word "
+                f"alignment directories, which are not ported yet (A4 item "
+                f"6), see ROADMAP")
+        if latency_metric not in ("", "ctc_sync"):
+            raise ValueError(f"latency_metric {latency_metric!r}")
+        if attn_type == "mocha" and ss_prob > 0:
+            raise NotImplementedError(
+                "scheduled sampling with MoChA is not ported yet, see ROADMAP")
         self.vocab, self.enc_n_units, self.n_units = vocab, enc_n_units, n_units
         self.attn_type = attn_type
         self.lsm_prob = lsm_prob
+        # MoChA's losses (JAX RNNDecoder.quantity_loss_weight, latency_*);
+        # the train CLI gates them by epoch
+        self.quantity_loss_weight = quantity_loss_weight
+        self.latency_metric = latency_metric
+        self.latency_loss_weight = latency_loss_weight
+        mocha = dict(chunk_size=mocha_chunk_size,
+                     n_heads_mono=mocha_n_heads_mono,
+                     n_heads_chunk=mocha_n_heads_chunk, init_r=mocha_init_r,
+                     noise_std=mocha_noise_std,
+                     no_denominator=mocha_no_denominator,
+                     eps_wait=mocha_eps_wait,
+                     stableemit_weight=mocha_stableemit_weight,
+                     share_ca=mocha_share_ca)
         self.step = LASStep(
             vocab, emb_dim, n_units, n_projs, n_layers, enc_n_units,
             attn_type, attn_dim, attn_n_heads, attn_conv_n_channels,
             attn_conv_kernel_size, attn_sharpening_factor,
             attn_sigmoid_smoothing, bottleneck_dim, zoneout, lm_fusion,
-            dropout, dropout_emb, ss_prob)
-        # attention keys projected once per utterance (with bias, as the
-        # reference's location-attention w_key)
-        self.key_proj = nn.Linear(enc_n_units, attn_dim)
+            dropout, dropout_emb, ss_prob, mocha)
+        if attn_type == "mocha":
+            # keys projected once per utterance, with biases (JAX
+            # _key_cache): the monotonic keys (after relu of a SAME width-5
+            # conv with mocha_1dconv), the chunk keys (one head set shared
+            # over the monotonic heads with share_ca) and, multihead only,
+            # the values; a single head reads the raw encoder outputs
+            h_ma, h_ca = mocha_n_heads_mono, mocha_n_heads_chunk
+            self.key_proj_mono = nn.Linear(enc_n_units, attn_dim * h_ma)
+            if mocha_chunk_size != 1:
+                h_ck = h_ca if mocha_share_ca else h_ma * h_ca
+                self.key_proj_chunk = nn.Linear(enc_n_units, attn_dim * h_ck)
+            if mocha_1dconv:
+                self.mono_conv = nn.Conv1d(enc_n_units, enc_n_units, 5,
+                                           padding=2)
+            if h_ma * h_ca > 1:
+                self.key_proj_value = nn.Linear(enc_n_units,
+                                                attn_dim * h_ma * h_ca)
+        else:
+            # attention keys projected once per utterance (with bias, as
+            # the reference's location-attention w_key)
+            self.key_proj = nn.Linear(enc_n_units, attn_dim)
 
     def forward(self, eouts: torch.Tensor, elens: torch.Tensor,
                 ys: torch.Tensor, ylens: torch.Tensor,
-                gen: Optional[torch.Generator] = None):
+                gen: Optional[torch.Generator] = None,
+                trigger_points: Optional[torch.Tensor] = None):
         """Label-smoothed cross entropy (JAX ``RNNDecoder.__call__`` with
         the hoisted embedding gates and readout), teacher-forced, or in
         ``train()`` with ``ss_prob > 0`` over the fed tokens of pass 1
         (see the module docstring). eouts [B, T, D]; elens [B]; ys [B, U]
         PAD-padded; ylens [B]. Returns (loss, {"loss_att", "acc_att",
-        "ppl_att"})."""
+        "ppl_att"}). For MoChA see ``forward_mocha``
+        (``trigger_points``)."""
         bs = eouts.shape[0]
         dev = eouts.device
         ys_in, ys_out, _ = append_sos_eos(ys.to(dev), ylens.to(dev))
+        if self.attn_type == "mocha":
+            return self.forward_mocha(eouts, elens, ys_in, ys_out,
+                                      ylens.to(dev), gen, trigger_points)
         step, cell = self.step, self.step.cells[0]
         kc = self.precompute_keys(eouts)
         values = eouts.contiguous()
@@ -232,6 +367,89 @@ class RNNDecoder(nn.Module):
         acc = compute_accuracy(logits, ys_out, ignore_index=PAD)
         return loss, {"loss_att": loss, "acc_att": acc,
                       "ppl_att": torch.exp(nll)}
+
+    def forward_mocha(self, eouts, elens, ys_in, ys_out, ylens,
+                      gen: Optional[torch.Generator] = None,
+                      trigger_points: Optional[torch.Tensor] = None):
+        """The MoChA decoder's loss, as JAX ``RNNDecoder.__call__``: the
+        U+1 teacher-forced steps as a loop under autograd (the cell on the
+        hoisted embedding gates, the LSTM output's dropout, MoChA in
+        parallel mode with the query h and the energies' noise), then the
+        hoisted readout and the cross entropy. In ``train()`` the dropout
+        scales and the noise are drawn from ``gen`` once for all steps (the
+        embedding's, the LSTM output's, the noise [B, U+1, H_ma, T], the
+        readout's), and the expected alignments add the quantity loss
+        (|sum of alpha's mass over the steps of the labels and eos - (U +
+        1)|, its mean over B, ``loss_quantity``) and the ``ctc_sync``
+        latency loss (|the expected boundary frame - trigger_points[b, u]|
+        over the valid labels whose trigger is >= 0, ``loss_latency``; the
+        trigger points [B, U] from ``CTC.trigger_points``). The returned
+        loss carries them; obs["loss_att"] is the cross entropy alone."""
+        if eouts.dtype == torch.bfloat16:
+            raise NotImplementedError(
+                "bf16 compute with MoChA is not ported yet, see ROADMAP")
+        if self.step.ss_prob > 0:
+            raise NotImplementedError(
+                "scheduled sampling with MoChA is not ported yet, see ROADMAP")
+        bs, tmax = eouts.shape[:2]
+        dev, dt = eouts.device, eouts.dtype
+        step, cell = self.step, self.step.cells[0]
+        attn = step.attn
+        u1 = ys_in.shape[1]
+        kc = self.precompute_keys(eouts)
+        mask = make_pad_mask(elens.to(dev), tmax)
+        emb = step.drop_emb(step.embed(ys_in), gen)
+        eg = torch.addmm(cell.bias, emb.reshape(bs * u1, -1),
+                         cell.w_ih[:step.emb_dim]).view(bs, u1, -1)
+        keep = keep_mask(gen, step.drop.rate, (bs, u1, self.n_units), dev,
+                         dt) if self.training and step.drop.rate > 0 else None
+        noise = mocha_noise(gen, (bs, u1, attn.n_heads_mono, tmax), dev, dt) \
+            if self.training and attn.noise_std > 0 else None
+        c = h = eouts.new_zeros(bs, self.n_units)
+        ctx = eouts.new_zeros(bs, self.enc_n_units)
+        alpha = attn.init_alpha(bs, tmax, dev, dt)
+        w_ctx = cell.w_ih[step.emb_dim:]
+        queries, ctxs, alphas = [], [], []
+        for u in range(u1):
+            gates = torch.addmm(torch.addmm(eg[:, u], ctx, w_ctx), h,
+                                cell.w_hh)
+            c, h = lstm_cell(gates, c)
+            q = h if keep is None else h * keep[:, u]
+            ctx, alpha, _ = attn(kc, q, alpha, "parallel", mask,
+                                 noise=None if noise is None else noise[:, u])
+            queries.append(q)
+            ctxs.append(ctx)
+            alphas.append(alpha)
+        # readout order [dout, ctx] (JAX LASStep._generate), dout = h keep
+        out = torch.tanh(step.w_gen(torch.cat(
+            [torch.stack(queries, 1), torch.stack(ctxs, 1)], -1)))
+        logits = step.output(step.drop(out, gen))
+        loss, nll = cross_entropy_lsm(logits, ys_out, self.lsm_prob,
+                                      ignore_index=PAD)
+        acc = compute_accuracy(logits, ys_out, ignore_index=PAD)
+        obs = {"loss_att": loss, "acc_att": acc, "ppl_att": torch.exp(nll)}
+        if not self.training:
+            return loss, obs
+        aws = torch.stack(alphas, 1).float()            # [B, U+1, H_ma, T]
+        steps = torch.arange(u1, device=dev)[None]
+        if self.quantity_loss_weight > 0:
+            valid = (steps < ylens[:, None] + 1).float()
+            mass = aws.sum((2, 3)) / aws.shape[2]        # [B, U+1]
+            qty = ((mass * valid).sum(1) - (ylens + 1).float()).abs()
+            obs["loss_quantity"] = qty.mean()
+            loss = loss + self.quantity_loss_weight * obs["loss_quantity"]
+        if self.latency_metric == "ctc_sync" and \
+                self.latency_loss_weight > 0 and trigger_points is not None:
+            frames = torch.arange(tmax, device=dev, dtype=aws.dtype)
+            exp_bd = (aws * frames).sum(3).mean(2)       # [B, U+1]
+            tp = trigger_points.to(dev).float()
+            tp = torch.nn.functional.pad(
+                tp, (0, max(u1 - tp.shape[1], 0)))[:, :u1]
+            valid = ((steps < ylens[:, None]) & (tp >= 0)).float()
+            lat = (exp_bd - tp).abs() * valid
+            obs["loss_latency"] = lat.sum() / valid.sum().clamp(min=1.0)
+            loss = loss + self.latency_loss_weight * obs["loss_latency"]
+        return loss, obs
 
     def sampling_masks(self, gen: Optional[torch.Generator], bs: int,
                        u1: int, dtype: torch.dtype, device) -> SamplingMasks:
@@ -289,19 +507,41 @@ class RNNDecoder(nn.Module):
             prev = step.output(_scaled(out, _at(masks.out, u))).argmax(-1)
         return fed
 
-    def precompute_keys(self, eouts: torch.Tensor) -> torch.Tensor:
-        return self.key_proj(eouts)
+    def precompute_keys(self, eouts: torch.Tensor):
+        """The attention keys of ``eouts`` [B, T, D]: [B, T, attn_dim], or
+        for MoChA the dict "mono", "chunk" (chunk_size != 1) and "value"
+        (``MoChA``'s key cache)."""
+        if self.attn_type != "mocha":
+            return self.key_proj(eouts)
+        mono_in = eouts
+        if hasattr(self, "mono_conv"):
+            mono_in = torch.relu(self.mono_conv(
+                eouts.transpose(1, 2))).transpose(1, 2)
+        kc = {"mono": self.key_proj_mono(mono_in),
+              "value": self.key_proj_value(eouts)
+              if hasattr(self, "key_proj_value") else eouts}
+        if hasattr(self, "key_proj_chunk"):
+            kc["chunk"] = self.key_proj_chunk(eouts)
+        return kc
 
     def init_carry(self, bs: int, tmax: int, device,
                    dtype: torch.dtype = torch.float32):
         def z(*shape):
             return torch.zeros(shape, dtype=dtype, device=device)
+        aw0 = self.step.attn.init_alpha(bs, tmax, device, dtype) \
+            if self.attn_type == "mocha" else z(bs, tmax)
         return (((z(bs, self.n_units), z(bs, self.n_units)),),
-                z(bs, tmax), z(bs, self.enc_n_units))
+                aw0, z(bs, self.enc_n_units))
 
-    def decode_loop(self, key_cache, eouts, klens) -> DecodeLoop:
+    def decode_loop(self, key_cache, eouts, klens):
         """What a decode loop steps through: built once, before its first
-        step. klens [B] int32."""
+        step. klens [B] int32. A ``DecodeLoop`` on K2, or for MoChA a
+        ``MochaDecodeLoop``."""
+        if self.attn_type == "mocha":
+            return MochaDecodeLoop(self.step, key_cache, klens,
+                                   self.init_carry(eouts.shape[0],
+                                                   eouts.shape[1],
+                                                   eouts.device, eouts.dtype))
         return DecodeLoop(self.step, key_cache, eouts, klens)
 
     def decode_step(self, carry, y_t, key_cache, eouts, klens, ws=None,

@@ -44,7 +44,9 @@ class RNNEncoder(nn.Module):
             raise NotImplementedError(
                 f"RNN encoder {rnn_type!r} is not ported yet (only lstm and "
                 f"blstm), see ROADMAP")
-        self.subsample = list(subsample) or [1] * n_layers
+        # one factor a layer; a conf that lists fewer (the swbd confs: 5
+        # for 6 layers) leaves the last layers unsubsampled (ROADMAP C19)
+        self.subsample = (list(subsample) + [1] * n_layers)[:n_layers]
         if subsample_type != "drop" and max(self.subsample) > 1:
             raise NotImplementedError(
                 f"interlayer {subsample_type!r} subsampling in an RNN "
@@ -83,10 +85,10 @@ class RNNEncoder(nn.Module):
             raise NotImplementedError(
                 f"encoder task {task!r} (sub1/sub2 taps) is not ported yet, "
                 f"see ROADMAP")
-        if xs.dtype != torch.float32:
+        if xs.dtype in (torch.bfloat16, torch.float16):
             raise NotImplementedError(
-                "the RNN encoder computes in float32 only (bf16 compute is "
-                "not ported for it), see ROADMAP")
+                "the RNN encoder computes in float32 (or float64) only "
+                "(bf16 compute is not ported for it), see ROADMAP")
         # the packed layers take the lengths on the host: one copy a forward
         lens = xlens.to("cpu", torch.int64)
         h = xs

@@ -56,7 +56,8 @@ class Speech2Text(nn.Module):
                 gen: Optional[torch.Generator] = None):
         """xs [B, T, input_dim] features, xlens [B], ys [B, U] PAD-padded
         labels, ylens [B]. Returns (loss, obs) with obs "loss", "loss_ctc",
-        "loss_att", "acc_att", "ppl_att"."""
+        "loss_att", "acc_att", "ppl_att" (and a MoChA decoder's
+        "loss_quantity" / "loss_latency" in ``train()``)."""
         xs = self._frontend(xs, xlens, gen)
         eouts = self.encoder(xs, xlens, gen=gen)["ys"]
         ex, el = eouts["xs"], eouts["xlens"]
@@ -67,7 +68,15 @@ class Speech2Text(nn.Module):
             loss = loss + self.ctc_weight * loss_ctc
             obs["loss_ctc"] = loss_ctc
         if self.dec_fwd is not None and self.fwd_weight > 0:
-            loss_att, obs_att = self.dec_fwd(ex, el, ys, ylens, gen)
+            trig = None
+            if self.training and self.ctc is not None and \
+                    getattr(self.dec_fwd, "latency_metric", "") == "ctc_sync":
+                # MoChA's ctc_sync targets: the forced alignment of the
+                # labels to the CTC head's deterministic log-probabilities,
+                # no gradient (JAX computes them in eval mode too, where
+                # nothing reads them)
+                trig = self.ctc.trigger_points(ex, el, ys, ylens)
+            loss_att, obs_att = self.dec_fwd(ex, el, ys, ylens, gen, trig)
             loss = loss + self.fwd_weight * loss_att
             obs.update(obs_att)
         obs["loss"] = loss
@@ -77,12 +86,13 @@ class Speech2Text(nn.Module):
 # Training and model options of the JAX package the port does not have:
 # each raises when set (non-zero / non-empty). The encoder's and the
 # decoder's own (dropout_in, dropout_att, dropout_enc_layer) raise in their
-# builders.
+# builders. rsp_prob_enc is the recipes' name of random state passing,
+# which the JAX package reads as rsp_prob only (ROADMAP C16).
 _NOT_PORTED = ("bwd_weight", "sub1_weight", "sub2_weight",
                "sequence_summary_network", "input_noise_std",
                "adaptive_number_ratio", "adaptive_size_ratio",
                "distillation_weight", "teacher", "mbr_training",
-               "weight_noise_std")
+               "weight_noise_std", "rsp_prob_enc")
 
 
 def build_speech2text(args, device=None) -> Speech2Text:

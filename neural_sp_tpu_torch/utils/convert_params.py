@@ -28,7 +28,12 @@ Layout rules (flax -> torch):
     ``tails_1_0`` -> ``tails.1.0``;
   * a ``LinearGLUBlock``'s ``glu/Dense_0`` -> ``glu.fc``;
   * a free parameter at the top of the tree (an RNNLM's ``output_bias``)
-    keeps its name.
+    keeps its name, and so do MoChA's energy parameters ``v`` [H, A] and
+    ``r`` [H] (``step/attn/monotonic_energy/v`` ->
+    ``step.attn.monotonic_energy.v``); the MoChA decoder's key projections
+    ``key_proj_mono`` / ``key_proj_chunk`` / ``key_proj_value`` and
+    ``mono_conv`` and the step's ``attn/w_out`` follow the Dense and Conv
+    rules.
 
 ``convert_checkpoint`` carries a whole JAX training checkpoint (params,
 the Adam state and the epoch controller's state) into the port's
@@ -95,6 +100,8 @@ def _leaf(path: str, x: np.ndarray) -> tuple[str, np.ndarray]:
         return f"{tname}.weight", x
     if name == "bias":
         return f"{tname}.bias", x
+    if name in ("v", "r"):              # MoChA's energies
+        return f"{tname}.{name}", x
     raise ValueError(f"{path}: unknown leaf name {name!r}")
 
 

@@ -4,7 +4,8 @@ It follows flax's default initialisers in scale, not in values: weights
 are normal with std ``1/sqrt(fan_in)`` (lecun normal, untruncated), biases
 zero (also a free one that belongs to no Linear, such as an RNNLM's
 ``output_bias``), norm scales one, embeddings normal with std
-``1/sqrt(emb_dim)``. The numbers are drawn on the CPU in a fixed order, so
+``1/sqrt(emb_dim)``; MoChA's energy vector ``v`` [H, A] has flax's
+``lecun_normal`` fan-in H, its offset ``r`` the module's ``init_r``. The numbers are drawn on the CPU in a fixed order, so
 one seed gives the same model on any device.
 """
 from __future__ import annotations
@@ -24,6 +25,8 @@ def _fan_in(module: nn.Module, name: str, p: torch.Tensor) -> int:
         return p.shape[0]
     if name.startswith(("weight_ih", "weight_hh")):   # nn.LSTM: [4H, in]
         return p.shape[1]
+    if name == "v":                     # MoChA energy [H, A]: lecun_normal
+        return p.shape[0]
     raise ValueError(f"no fan-in rule for {type(module).__name__}.{name}")
 
 
@@ -39,6 +42,8 @@ def init_params(model: nn.Module, seed: int) -> nn.Module:
             elif isinstance(module, nn.Embedding):
                 val = torch.randn(p.shape, generator=gen) / \
                     math.sqrt(p.shape[1])
+            elif name == "r" and hasattr(module, "init_r"):
+                val = torch.full(p.shape, float(module.init_r))
             elif name == "bias" or name.endswith("_bias") or \
                     name.startswith("bias_"):
                 val = torch.zeros(p.shape)

@@ -50,6 +50,7 @@ import torch
 import yaml
 import jax
 
+from neural_sp_tpu.bin.asr import eval as jax_eval
 from neural_sp_tpu.bin.asr import train as jax_train
 from neural_sp_tpu.models.speech2text import build_speech2text as jax_build
 from neural_sp_tpu.trainers.checkpoint import (
@@ -357,3 +358,90 @@ def test_blstm_conf_trains_and_evaluates(runs, monkeypatch):
     assert not torch.backends.cudnn.allow_tf32
     (m,) = got.values()
     assert m["n_utts"] == 4 and m["rtf"] > 0
+
+
+# a tiny LSTM-MoChA conf: one pooling block, 2 LSTM-16 layers, MoChA chunk
+# 4 with the quantity loss; dropout, the energies' noise and SpecAugment off
+# (the packages draw different ones, ROADMAP C4); init_r a float (ROADMAP
+# C17: the JAX package cannot train an integer one)
+MOCHA_CONF = dict(
+    enc_type="conv_lstm", input_dim=80, conv_channels="4",
+    conv_kernel_sizes="(3,3)", conv_poolings="(2,2)", enc_n_units=16,
+    enc_n_layers=2, subsample="1_2", dropout_enc=0.0, dropout_dec=0.0,
+    dropout_emb=0.0, dec_type="lstm", dec_n_units=32, dec_n_layers=1,
+    emb_dim=16, dec_bottleneck_dim=32, attn_type="mocha", attn_dim=16,
+    mocha_chunk_size=4, mocha_init_r=-4.0, mocha_std=0.0,
+    mocha_quantity_loss_weight=0.1, ctc_weight=0.3, lsm_prob=0.1,
+    unit="char", batch_size=8, min_n_frames=1, max_n_frames=10000,
+    optimizer="adam", lr=1e-3, print_step=1, n_epochs=1)
+
+
+def test_lstm_mocha_conf_trains_and_evaluates(runs, monkeypatch):
+    """The JAX and the port train CLIs for one epoch on an LSTM-MoChA conf
+    from the same weights (the JAX CLI's initial ones, converted): the
+    epoch's train and dev losses in ``history.csv`` (their parts too) agree
+    to rtol 2e-4. Then both eval CLIs decode the test set at beam 2 + CTC
+    0.3 from the JAX epoch-1 weights (the port's through
+    ``convert_checkpoint``): the same hypotheses."""
+    root, c = runs["root"], runs["corpus"]
+    conf = root / "mocha.yml"
+    conf.write_text(yaml.safe_dump(MOCHA_CONF))
+    initial = {}
+    jax_build_cli = jax_train.build_speech2text
+
+    def capture_init(args):
+        model = jax_build_cli(args)
+        init = model.init
+
+        def recorded(*a, **kw):
+            out = init(*a, **kw)
+            # a host copy: the train step donates the params it is given
+            initial.setdefault("params", jax.tree.map(np.asarray,
+                                                      out["params"]))
+            return out
+        object.__setattr__(model, "init", recorded)
+        return model
+
+    def jax_weights(model, seed):
+        model.load_state_dict(convert_params(initial["params"]), strict=True)
+        return model
+
+    monkeypatch.setattr(jax_train, "build_speech2text", capture_init)
+    monkeypatch.setattr(port_train, "init_params", jax_weights)
+    jdir, pdir = str(root / "mocha_jax"), str(root / "mocha_port")
+    jax_train.main(["--config", str(conf), "--model_save_dir", jdir]
+                   + runs["data"])
+    port_train.main(["--config", str(conf), "--model_save_dir", pdir]
+                    + runs["data"], device="cpu")
+    rows = []
+    for d in (jdir, pdir):
+        with open(os.path.join(d, "history.csv")) as f:
+            head, *body = f.read().splitlines()
+        assert len(body) == 1
+        rows.append(dict(zip(head.split(","), body[0].split(","))))
+    want, got = rows
+    keys = [k for k in want if k.startswith(("train_loss", "dev_loss"))]
+    assert {"train_loss", "train_loss_quantity", "dev_loss_mean"} <= \
+        set(keys) <= set(got)
+    for k in keys:
+        np.testing.assert_allclose(float(got[k]), float(want[k]), rtol=RTOL,
+                                   err_msg=k)
+
+    # decoding from the JAX weights, in both eval CLIs
+    edir = str(root / "mocha_port_eval")
+    os.makedirs(edir)
+    shutil.copy(os.path.join(jdir, "conf.yml"), edir)
+    ck = _checkpoint(jdir, 1)
+    save_checkpoint(edir, 1, ck["model"], ck["optimizer"], ck["controller"])
+    argv = ["--recog_sets", c["test"], "--recog_beam_width", "2",
+            "--recog_ctc_weight", "0.3"]
+    out = root / "mocha_eval"
+    mw = jax_eval.main(["--recog_model", jdir, "--recog_dir",
+                        str(out / "jax")] + argv)
+    mg = port_eval.main(["--recog_model", edir, "--recog_dir",
+                         str(out / "port")] + argv, device="cpu")
+    (mw,), (mg,) = mw.values(), mg.values()
+    assert mg["n_utts"] == mw["n_utts"] == 4 and mg["wer"] == mw["wer"]
+    for name in ("hyp.trn", "ref.trn"):
+        assert (out / "port" / "test" / name).read_text() == \
+            (out / "jax" / "test" / name).read_text()
