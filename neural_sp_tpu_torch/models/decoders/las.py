@@ -388,9 +388,6 @@ class RNNDecoder(nn.Module):
         if eouts.dtype == torch.bfloat16:
             raise NotImplementedError(
                 "bf16 compute with MoChA is not ported yet, see ROADMAP")
-        if self.step.ss_prob > 0:
-            raise NotImplementedError(
-                "scheduled sampling with MoChA is not ported yet, see ROADMAP")
         bs, tmax = eouts.shape[:2]
         dev, dt = eouts.device, eouts.dtype
         step, cell = self.step, self.step.cells[0]
