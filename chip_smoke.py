@@ -2638,9 +2638,9 @@ MOCHA_U = (40, 60, 80, 100)
 # compared up to the first decision of a row with less margin than this
 DECISION_MARGIN = 1e-3
 # 9b's greedy runs on the seeded weights plus seeded normal noise of this
-# std: at the initial weights the decoder's logits are nearly flat (top-2
-# gaps under DECISION_MARGIN from the second step on, my chip run 1 of PR
-# 13), so no decision there is one rounding could not flip
+# std: at the initial weights the decoder's logits are nearly flat (on the
+# H100 every row's top-2 gap fell under DECISION_MARGIN from the second
+# step on), so no decision there is one that rounding could not flip
 GREEDY_NOISE = 0.05
 
 
