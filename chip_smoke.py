@@ -248,6 +248,20 @@ BF16_VS_F32_RATIO = 1.5
 # H100 with K1 rounding P where the plain version does; 1.1 when K1
 # rounded it before the 1 / l, its error then up to 3x the plain one's).
 BF16_PATH_FACTOR = 2.0
+# Phase 9b holds the card's float32 microstep to the same microstep in
+# float64 on the CPU, which carries no rounding of its own: a leaf whose
+# gradient is a near-cancelling sum of far larger terms (the front end's
+# first convolution, the chunk energy's query weight at init_r -4: 1e-3
+# to 6e-6 of the largest gradient) holds all of the card's float32
+# rounding of those terms, which GRAD_RTOL of its own max does not bound
+# (on the H100: 1.09 of it at the first convolution's weight on one draw
+# of inputs, an error of 2e-6 of the largest gradient; 9b logs this
+# reading, and the TF32 control's, beside its own). So 9b gives every
+# leaf at least
+# GRAD_FLOOR of the largest gradient, the floor phase 6 gives its
+# zero-gradient leaves; it governs the leaves under GRAD_FLOOR / GRAD_RTOL
+# = 0.5% of the largest gradient. On each draw a control, the card's
+# microstep with TF32 on, must break the rule.
 # Phase 6's determinism check: one train() microstep run twice from one
 # generator seed must give the same loss and gradient leaves bit for bit,
 # in float32 and at bf16 compute, with no bound: no source of drift is
@@ -1542,7 +1556,10 @@ def eval_microstep(torch, model, batch, compute_dtype=None, plain=False):
                 stack.enter_context(mock.patch.object(target, name, value))
         loss, _ = compute_loss(model, compute_dtype, *batch)
         loss.backward()
-    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    # a leaf the loss does not reach has a zero gradient (MoChA's monotonic
+    # energy in eval(): its hard boundaries pass none)
+    grads = {n: torch.zeros_like(p) if p.grad is None else
+             p.grad.detach().clone() for n, p in model.named_parameters()}
     model.zero_grad(set_to_none=True)
     return float(loss.detach()), grads
 
@@ -1557,29 +1574,47 @@ def phase_train_parity(torch, model, batch, tag="6"):
         (loss_ref, grads_ref)
 
 
-def hold_microstep(loss, grads, loss_ref, grads_ref, tag) -> dict:
-    """Phase 6's rule: the kernels' microstep (loss, gradients) against the
-    plain versions' to LOSS_RTOL and, per leaf, GRAD_RTOL of its own max
-    (the key biases: GRAD_FLOOR of the largest gradient)."""
-    loss_err = abs(loss - loss_ref) / abs(loss_ref)
+def microstep_errors(loss, grads, loss_ref, grads_ref,
+                     floor: bool = False) -> dict:
+    """Phase 6's readings of a microstep (loss, gradients) against a
+    reference: the loss's relative error and, per leaf, (share of its
+    tolerance used: GRAD_RTOL of its own max, the key biases GRAD_FLOOR
+    of the largest gradient, with ``floor`` every leaf at least GRAD_FLOOR
+    of it (9b's rule); max |reference| / g_max; max |error| / g_max),
+    g_max the reference's largest gradient."""
     g_max = max(float(g.abs().max()) for g in grads_ref.values())
-    # per leaf: (share of its tolerance used, max |plain grad| / g_max,
-    # max |kernel - plain| / g_max)
     leaves = {}
     for name, g in grads.items():
         ref = grads_ref[name]
         scale, err = float(ref.abs().max()), float((g - ref).abs().max())
         tol = GRAD_FLOOR * g_max if name.endswith(ZERO_GRAD_LEAF) else \
             GRAD_RTOL * scale
+        if floor:
+            tol = max(tol, GRAD_FLOOR * g_max)
         leaves[name] = (err / tol if err else 0.0, scale / g_max,
                         err / g_max)
+    return {"loss_rel_err": abs(loss - loss_ref) / abs(loss_ref),
+            "g_max": g_max, "leaves": leaves}
+
+
+def hold_microstep(loss, grads, loss_ref, grads_ref, tag,
+                   floor: bool = False) -> dict:
+    """Phase 6's rule: the kernels' microstep (loss, gradients) against the
+    plain versions' to LOSS_RTOL and, per leaf, GRAD_RTOL of its own max
+    (the key biases: GRAD_FLOOR of the largest gradient; with ``floor``,
+    9b's rule, every leaf at least GRAD_FLOOR of it)."""
+    e = microstep_errors(loss, grads, loss_ref, grads_ref, floor)
+    loss_err, g_max, leaves = e["loss_rel_err"], e["g_max"], e["leaves"]
     ranked = sorted(leaves.items(), key=lambda kv: -kv[1][0])
     zero = [kv for kv in ranked if kv[0].endswith(ZERO_GRAD_LEAF)]
     log(f"[{tag}] loss kernels {loss:.6f} plain {loss_ref:.6f} (rel "
         f"{loss_err:.2e}); largest gradient {g_max:.4e}")
     log(f"[{tag}] {len(leaves) - len(zero)} leaves held to {GRAD_RTOL} of "
-        f"their own max (no absolute floor), {len(zero)} key-bias leaves to "
-        f"{GRAD_FLOOR} of the largest gradient")
+        f"their own max ({f'at least {GRAD_FLOOR}' if floor else 'no'} "
+        f"absolute floor), {len(zero)} key-bias leaves to {GRAD_FLOOR} of "
+        f"the largest gradient")
+    log(f"[{tag}] largest error {max(v[2] for v in leaves.values()):.3e} "
+        f"of the largest gradient")
     for name, (share, scale, err) in ranked[:6]:
         log(f"[{tag}]   {name}: {share:.3f} of its tolerance (own max "
             f"{scale:.3e}, error {err:.3e} of the largest gradient)")
@@ -1591,7 +1626,8 @@ def hold_microstep(loss, grads, loss_ref, grads_ref, tag) -> dict:
     expect(worst <= 1.0, f"gradient {worst_name} outside tolerance")
     return {"loss_rel_err": loss_err, "worst_grad": worst,
             "worst_grad_leaf": worst_name, "worst_leaves": dict(ranked[:6]),
-            "key_bias_leaves": dict(zero)}
+            "key_bias_leaves": dict(zero),
+            "largest_err_of_g_max": max(v[2] for v in leaves.values())}
 
 
 def phase_determinism(torch, model, batch, bf16: bool = True,
@@ -2702,16 +2738,16 @@ def phase_mocha_serve(torch, model, xs, xlens) -> dict:
     return out
 
 
-def mocha_microstep(torch, model, batch):
-    """One train() microstep from a generator of seed SEED: (loss, {leaf:
-    gradient as float64 on the host}, scalar observations)."""
+def mocha_microstep(torch, model, batch, seed=SEED):
+    """One train() microstep from a generator of seed ``seed``: (loss,
+    {leaf: gradient as float64 on the host}, scalar observations)."""
     from neural_sp_tpu_torch.parallel.mesh import (compute_loss,
                                                    deterministic_cudnn)
     model.train()
     model.zero_grad(set_to_none=True)
     with deterministic_cudnn():         # as the train step runs
         loss, obs = compute_loss(model, None, *batch,
-                                 torch.Generator().manual_seed(SEED))
+                                 torch.Generator().manual_seed(seed))
         loss.backward()
     grads = {n: p.grad.detach().double().cpu()
              for n, p in model.named_parameters()}
@@ -2764,38 +2800,79 @@ def phase_mocha_hold(torch, model, xs, xlens) -> dict:
     """9b: one train() microstep of the card's model held to the same
     microstep on the CPU in float64 (same weights, inputs and generator
     seed; dropout and the energies' noise on): the loss to LOSS_RTOL, each
-    gradient leaf to GRAD_RTOL of its own max (phase 6's rule); then greedy
-    decoding of the batch on both with the weights moved by GREEDY_NOISE
-    (the card's model keeps them), the tokens identical up to each row's
-    first decision with less than DECISION_MARGIN."""
+    gradient leaf to GRAD_RTOL of its own max and at least GRAD_FLOOR of
+    the largest gradient (9b's rule, beside the constants), on phase 3's
+    utterances and on a second draw of inputs, labels and generator seed.
+    A control on each: the card's microstep again with cuBLAS's and
+    cuDNN's TF32 on must break that rule. Then greedy decoding of the
+    batch on both with the weights moved by GREEDY_NOISE (the card's model
+    keeps them), the tokens identical up to each row's first decision with
+    less than DECISION_MARGIN."""
     import numpy as np
     from neural_sp_tpu_torch.configs import librispeech_lstm_mocha_args
     from neural_sp_tpu_torch.models.speech2text import build_speech2text
-    rng = np.random.default_rng(SEED + 9)
-    ys, ylens = mocha_labels(torch, rng, model.dec_fwd.vocab)
     xs_t = torch.from_numpy(xs)
     xl_t = torch.from_numpy(xlens)
     dev = next(model.parameters()).device
-    t0 = time.perf_counter()
-    loss, grads, obs = mocha_microstep(
-        torch, model, (xs_t.to(dev), xl_t.to(dev), ys.to(dev),
-                       ylens.to(dev)))
-    card_s = time.perf_counter() - t0
     cpu = build_speech2text(librispeech_lstm_mocha_args(), device="cpu")
     cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
     cpu.double()
-    t0 = time.perf_counter()
-    loss_ref, grads_ref, obs_ref = mocha_microstep(
-        torch, cpu, (xs_t.double(), xl_t, ys, ylens))
-    cpu_s = time.perf_counter() - t0
-    log(f"[9b] train() microstep B {len(MOCHA_U)} x {xs.shape[1]} frames, U "
-        f"{list(MOCHA_U)}: card {card_s:.2f} s, CPU float64 {cpu_s:.2f} s; "
-        f"card {obs}; CPU {obs_ref}")
-    expect(all(np.isfinite(v) for v in obs.values()), f"9b losses {obs}")
-    out = {"card_s": card_s, "cpu_float64_s": cpu_s, "obs": obs,
-           "obs_float64": obs_ref,
-           "microstep": hold_microstep(loss, grads, loss_ref, grads_ref,
-                                       "9b")}
+    out = {}
+    for case, seed in (("served", SEED), ("second_draw", SEED + 1)):
+        # the served utterances and labels, then a second draw of both
+        x, xl = (xs_t, xl_t) if case == "served" else \
+            map(torch.from_numpy, utterances(np.random.default_rng(seed)))
+        ys, ylens = mocha_labels(torch, np.random.default_rng(seed + 9),
+                                 model.dec_fwd.vocab)
+        on_card = tuple(v.to(dev) for v in (x, xl, ys, ylens))
+        t0 = time.perf_counter()
+        loss, grads, obs = mocha_microstep(torch, model, on_card, seed)
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loss_ref, grads_ref, obs_ref = mocha_microstep(
+            torch, cpu, (x.double(), xl, ys, ylens), seed)
+        cpu_s = time.perf_counter() - t0
+        log(f"[9b] {case} (seed {seed}): train() microstep B {len(MOCHA_U)} "
+            f"x {x.shape[1]} frames, U {list(MOCHA_U)}: card {card_s:.2f} s, "
+            f"CPU float64 {cpu_s:.2f} s; card {obs}; CPU {obs_ref}")
+        expect(all(np.isfinite(v) for v in obs.values()), f"9b losses {obs}")
+        held = hold_microstep(loss, grads, loss_ref, grads_ref, "9b",
+                              floor=True)
+        out[case] = {"seed": seed, "card_s": card_s, "cpu_float64_s": cpu_s,
+                     "obs": obs, "obs_float64": obs_ref, "microstep": held}
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            loss_c, grads_c, _ = mocha_microstep(torch, model, on_card, seed)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+        ctl = microstep_errors(loss_c, grads_c, loss_ref, grads_ref,
+                               floor=True)
+        leaves = ctl.pop("leaves")
+        worst = max(leaves, key=lambda n: leaves[n][0])
+        ctl.update(worst_grad=leaves[worst][0], worst_grad_leaf=worst,
+                   at_the_float32_worst_leaf=leaves[held["worst_grad_leaf"]],
+                   largest_err_of_g_max=max(v[2] for v in leaves.values()),
+                   leaves_past_tolerance=sum(v[0] > 1 for v in
+                                             leaves.values()))
+        out[case]["tf32_control"] = ctl
+        log(f"[9b] TF32 control: loss rel {ctl['loss_rel_err']:.2e}, worst "
+            f"leaf {worst} {ctl['worst_grad']:.3f} of its tolerance, "
+            f"{ctl['leaves_past_tolerance']} of {len(leaves)} leaves past "
+            f"it; at {held['worst_grad_leaf']} "
+            f"{ctl['at_the_float32_worst_leaf'][0]:.3f}")
+        # the readings the floor is set from: phase 6's rule without it
+        bare = {}
+        for run, g in (("float32", grads), ("tf32", grads_c)):
+            lv = microstep_errors(loss, g, loss_ref, grads_ref)["leaves"]
+            name = max(lv, key=lambda n: lv[n][0])
+            bare[run] = (name, lv[name][0])
+        out[case]["without_floor"] = bare
+        log(f"[9b] phase 6's rule without the floor, worst leaf and its "
+            f"share: {bare}")
+        expect(ctl["loss_rel_err"] > LOSS_RTOL or ctl["worst_grad"] > 1.0,
+               "9b's rule passed a card microstep with TF32 on")
     # greedy on both, each decision's margin from the card's run, on the
     # weights moved by GREEDY_NOISE
     g = torch.Generator().manual_seed(SEED + 11)

@@ -35,7 +35,8 @@ utterance (``key_proj_mono``, ``key_proj_chunk``, ``mono_conv``,
 ``key_proj_value``, as JAX names them). In training the U+1 teacher-forced
 steps are a loop of PyTorch ops under autograd: the LSTM cell on the
 hoisted embedding gates, the step's dropout, MoChA in parallel mode with
-the energies' noise; the readout over all steps is hoisted as above, and
+the energies' noise (in ``eval()``, for the dev loss, hard mode, as JAX's
+deterministic loss); the readout over all steps is hoisted as above, and
 the expected alignments [B, U+1, H_ma, T] feed the quantity loss and the
 ``ctc_sync`` latency loss. A decode loop (``MochaDecodeLoop``) steps the
 cell and MoChA in hard mode and keeps the carry itself; a beam's reorder
@@ -373,8 +374,9 @@ class RNNDecoder(nn.Module):
                       trigger_points: Optional[torch.Tensor] = None):
         """The MoChA decoder's loss, as JAX ``RNNDecoder.__call__``: the
         U+1 teacher-forced steps as a loop under autograd (the cell on the
-        hoisted embedding gates, the LSTM output's dropout, MoChA in
-        parallel mode with the query h and the energies' noise), then the
+        hoisted embedding gates, the LSTM output's dropout, MoChA with the
+        query h: in ``train()`` in parallel mode with the energies' noise,
+        in ``eval()`` in hard mode, as JAX's deterministic loss), then the
         hoisted readout and the cross entropy. In ``train()`` the dropout
         scales and the noise are drawn from ``gen`` once for all steps (the
         embedding's, the LSTM output's, the noise [B, U+1, H_ma, T], the
@@ -406,13 +408,16 @@ class RNNDecoder(nn.Module):
         ctx = eouts.new_zeros(bs, self.enc_n_units)
         alpha = attn.init_alpha(bs, tmax, dev, dt)
         w_ctx = cell.w_ih[step.emb_dim:]
+        # the expected alignment in train(), the hard boundaries in eval()
+        # (JAX: mode "hard" when deterministic, so the dev loss too)
+        mode = "parallel" if self.training else "hard"
         queries, ctxs, alphas = [], [], []
         for u in range(u1):
             gates = torch.addmm(torch.addmm(eg[:, u], ctx, w_ctx), h,
                                 cell.w_hh)
             c, h = lstm_cell(gates, c)
             q = h if keep is None else h * keep[:, u]
-            ctx, alpha, _ = attn(kc, q, alpha, "parallel", mask,
+            ctx, alpha, _ = attn(kc, q, alpha, mode, mask,
                                  noise=None if noise is None else noise[:, u])
             queries.append(q)
             ctxs.append(ctx)

@@ -18,16 +18,18 @@ package computes MoChA in plain JAX, so there is no TPU kernel to port.
   ``sigmoid(-e)``, and a moving sum adds the window's terms instead of
   subtracting two cumulative sums. JAX's float32 forms lose the alignment
   to cancellation at a recipe's lengths (T in the hundreds, energies of
-  a few tens); these stay within 1e-5 of float64.
+  a few tens); these stay within 2e-5 of float64 there
+  (``tests/test_torch_mocha.py``).
 * Decoding (``mode="hard"``): the first frame at or after the previous
   boundary whose ``sigmoid(e) >= 0.5``, then a softmax over the chunk
   behind it. As in JAX, a step where no head fires leaves alpha all zero
   and the next step searches from frame 0 again (ROADMAP C15).
 
 The noise of the monotonic energies in training is the caller's: a
-standard normal draw (``mocha_noise``) that ``MoChA`` scales by
-``noise_std``. The JAX module draws it from its flax rng, so the two
-packages draw different noise for one step (ROADMAP C4).
+standard normal draw (``mocha_noise``, on the device from dropout's counter
+hash) that ``MoChA`` scales by ``noise_std``. The JAX module draws it from
+its flax rng, so the two packages draw different noise for one step
+(ROADMAP C4).
 """
 from __future__ import annotations
 
@@ -38,6 +40,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...ops.dropout import fast_uniform, key_words
 from ...ops.masks import apply_mask_logits
 
 EPS = 1e-10
@@ -158,11 +161,15 @@ def hard_chunkwise_attention(alpha: torch.Tensor, chunk_energy: torch.Tensor,
 
 def mocha_noise(gen: Optional[torch.Generator], shape, device,
                 dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """Standard normal noise of ``shape`` for the monotonic energies, drawn
-    on the host from the step's generator (one draw for all decoder
-    steps), then moved to ``device``."""
-    return torch.randn(tuple(shape), generator=gen).to(device=device,
-                                                       dtype=dtype)
+    """Standard normal noise of ``shape`` for the monotonic energies (one
+    draw for all decoder steps), made on ``device`` from dropout's counter
+    hash under two key words of the step's generator: the Box-Muller
+    transform sqrt(-2 log(1 - u)) cos(2 pi v) of two [0, 1) uniforms. The
+    uniforms are the same bits on every device."""
+    n = math.prod(int(s) for s in shape)
+    u, v = fast_uniform(key_words(gen), (2, n), device)
+    z = torch.sqrt(-2.0 * torch.log1p(-u)) * torch.cos((2.0 * math.pi) * v)
+    return z.view(tuple(shape)).to(dtype)
 
 
 class MonotonicEnergy(nn.Module):

@@ -26,13 +26,17 @@ with the JAX weights converted (``convert_params``), float32, atol = rtol
   reads is at least 1e-3 from 0.
 * After a step where no head fires, JAX's hard mode searches from frame 0
   again (ROADMAP C15), and so does the port.
+* ROADMAP C18 at the LibriSpeech recipe's widths and T = 400: the port's
+  float32 within 2e-5 of the JAX module in float64, where JAX's float32
+  loses beta and the context.
 * A small LSTM-MoChA ``Speech2Text`` (the LibriSpeech conf's shape, its
   widths cut) in ``train()`` with dropout 0: the loss, its parts and every
   gradient leaf against ``jax.grad``, with the quantity loss, with
   StableEmit, with ``ctc_sync`` (the trigger points the port computes are
   JAX's), and with the noise on, pinned: ``jax.random.normal`` (its scan
   traces the step once, so every step draws the same noise) and the port's
-  ``mocha_noise`` give one fixed draw.
+  ``mocha_noise`` give one fixed draw. In ``eval()`` the loss is JAX's
+  ``deterministic=True`` loss, MoChA in hard mode (the dev loss).
 * Decoding on perturbed weights: greedy tokens over a batch and beam 4 +
   CTC 0.3 tokens on one utterance identical to the JAX session's, with a
   margin: every monotonic energy the search read at least 1e-3 from 0,
@@ -48,6 +52,8 @@ with the JAX weights converted (``convert_params``), float32, atol = rtol
   confs raise ``NotImplementedError`` naming ROADMAP; bf16 compute raises;
   ``configs.librispeech_lstm_mocha_args`` equals the conf; ``init_params``
   fills ``v`` and ``r``; the train CLI's curriculum gates the MoChA losses.
+* ``mocha_noise``: a standard normal on dropout's counter hash, the same
+  bits from the same generator seed.
 """
 import math
 import subprocess
@@ -354,6 +360,62 @@ def test_mocha_module_matches_jax(name):
             _close(ct.numpy(), cj, f"hard step {i} ctx")
 
 
+def test_mocha_float32_holds_to_float64_at_the_recipe_length():
+    """ROADMAP C18 at the LibriSpeech LSTM-MoChA's widths (B 4, T 400 with
+    ragged lengths, keys and query 1024 wide, attn_dim 512, chunk 4, init_r
+    -4; JAX's initial weights; 30 chained parallel-mode steps, cut from a
+    decoder's hundred): the port's float32 alpha, beta and context stay
+    within 2e-5 of their largest value of the JAX module evaluated in
+    float64, where the JAX module's own float32 loses beta and the
+    context to cancellation (errors past their largest value)."""
+    b, t, kdim, adim, steps = 4, 400, 1024, 512, 30
+    rng = np.random.RandomState(0)
+    key = (0.5 * np.tanh(rng.randn(b, t, kdim))).astype(np.float32)
+    qs = (0.5 * np.tanh(rng.randn(steps, b, kdim))).astype(np.float32)
+    mask = np.arange(t)[None] < np.array([400, 300, 250, 175])[:, None]
+    a0 = np.zeros((b, 1, t), np.float32)
+    a0[..., 0] = 1.0
+    kw = dict(kdim=kdim, qdim=kdim, adim=adim, chunk_size=4, init_r=-4.0)
+    jm = jmocha.MoChA(**kw)
+    params = _tree(jm.init(
+        jax.random.PRNGKey(0), jnp.zeros((1, 8, kdim)), jnp.zeros((1, kdim)),
+        jnp.zeros((1, 1, 8)),
+        method=lambda m, k, q, a: m(m.precompute(k), q, a))["params"])
+
+    def jax_run(dt):
+        p = jax.tree.map(lambda x: jnp.asarray(x, dt), params)
+        kc = jm.apply({"params": p}, jnp.asarray(key, dt),
+                      method=jmocha.MoChA.precompute)
+        step = jax.jit(lambda kc, q, a: jm.apply(
+            {"params": p}, kc, q, a, mode="parallel", mask=jnp.asarray(mask)))
+        a, outs = jnp.asarray(a0, dt), []
+        for i in range(steps):
+            c, a, be = step(kc, jnp.asarray(qs[i], dt), a)
+            outs.append([np.asarray(x, np.float64) for x in (a, be, c)])
+        return outs
+
+    with jax.enable_x64(True):
+        want = jax_run(jnp.float64)
+    jax32 = jax_run(jnp.float32)
+    tm = mocha.MoChA(**kw)
+    tm.load_state_dict(convert_params(params), strict=True)
+    with torch.no_grad():
+        kc = tm.precompute(torch.from_numpy(key))
+        a, got = torch.from_numpy(a0), []
+        for i in range(steps):
+            c, a, be = tm(kc, torch.from_numpy(qs[i]), a, "parallel",
+                          torch.from_numpy(mask))
+            got.append([x.double().numpy() for x in (a, be, c)])
+
+    def worst(outs):
+        return [max(float(np.abs(o[j] - w[j]).max() / np.abs(w[j]).max())
+                    for o, w in zip(outs, want)) for j in range(3)]
+
+    port, ref = worst(got), worst(jax32)
+    assert max(port) <= 2e-5, port
+    assert min(ref[1:]) > 1.0, ref
+
+
 def _assert_search_margin(e, alpha_prev, mask):
     """Every energy the hard boundary search reads (from the previous
     boundary, or frame 0, to the boundary it finds, or to the last valid
@@ -516,6 +578,52 @@ def _perturbed(params, scale, seed=5):
     rng = np.random.RandomState(seed)
     return jax.tree.map(lambda x: np.asarray(x) + scale * rng.randn(
         *x.shape).astype(np.float32), params)
+
+
+@pytest.mark.parametrize("weights", ["init", "perturbed"])
+def test_mocha_las_eval_loss_matches_jax_hard_mode(weights, monkeypatch):
+    """The teacher-forced loss in ``eval()`` (the train CLI's dev loss)
+    against JAX's ``deterministic=True`` loss, which runs MoChA in hard
+    mode: at the initial weights (init_r -4: no boundary fires) and on
+    perturbed weights, where boundaries fire and the search margin holds.
+    The loss in parallel mode, on the same weights, is not it."""
+    jm, params, tm = _models()
+    if weights == "perturbed":
+        params = _perturbed(params, 1.0, seed=7)
+        tm.load_state_dict(convert_params(params), strict=True)
+    b = mocha_batch(2)
+    want, jobs = jax.jit(lambda p: jm.apply(
+        {"params": p}, *map(jnp.asarray, b), deterministic=True))(params)
+    seen = []
+    real_hard = mocha.hard_monotonic_attention
+
+    def spy_hard(e, alpha_prev, eps_wait=-1):
+        seen.append((e, alpha_prev, real_hard(e, alpha_prev, eps_wait)))
+        return seen[-1][2]
+
+    monkeypatch.setattr(mocha, "hard_monotonic_attention", spy_hard)
+    tb = tuple(map(torch.from_numpy, b))
+    with torch.no_grad():
+        loss, obs = tm.eval()(*tb)
+    np.testing.assert_allclose(float(loss), float(want), rtol=RTOL)
+    for name in ("loss_ctc", "loss_att", "acc_att"):
+        np.testing.assert_allclose(float(obs[name]), float(jobs[name]),
+                                   rtol=RTOL, atol=ATOL, err_msg=name)
+    assert len(seen) == b[3].max() + 1          # one search per step
+    klens = tm.encoder(*tb[:2])["ys"]["xlens"]
+    mask = torch.arange(seen[0][0].shape[-1])[None] < klens[:, None]
+    for e, prev, _ in seen:
+        _assert_search_margin(e, prev, mask)
+    fired = sum(int(a.sum()) for _, _, a in seen)
+    assert (fired > 0) == (weights == "perturbed"), fired
+    if weights == "perturbed":
+        # the expected alignment (train(); dropout and noise are off) gives
+        # another loss on the same weights (at init_r -4 its mass is too
+        # small to tell the two apart at this size)
+        with torch.no_grad():
+            _, soft = tm.train()(*tb)
+        soft = float(soft["loss_att"])
+        assert abs(soft - float(obs["loss_att"])) > 1e-3 * soft
 
 
 def test_mocha_decode_matches_jax(monkeypatch):
@@ -760,3 +868,31 @@ def test_train_cli_curriculum_gates_the_mocha_losses():
         got.append((dec.quantity_loss_weight, dec.latency_loss_weight,
                     dec.step.attn.stableemit_weight))
     assert got == [(0.0, 1.0, 0.0), (0.0, 1.0, 0.1), (0.1, 1.0, 0.1)]
+
+
+def test_mocha_noise_is_a_standard_normal_on_the_counter_hash():
+    """``mocha_noise``: the same bits from the same generator seed, drawn
+    from two key words of it (dropout's counter hash, as ``keep_mask``),
+    with a standard normal's moments and quantiles over a microstep's
+    draw at the recipe's size."""
+    shape = (8, 31, 1, 400)
+    z = mocha.mocha_noise(torch.Generator().manual_seed(3), shape, "cpu")
+    assert z.shape == shape and z.dtype == torch.float32
+    assert torch.equal(z, mocha.mocha_noise(
+        torch.Generator().manual_seed(3), shape, "cpu"))
+    g = torch.Generator().manual_seed(3)
+    mocha.mocha_noise(g, shape, "cpu")
+    assert torch.equal(torch.randint(0, 1 << 32, (2,), generator=g,
+                                     dtype=torch.int64),
+                       torch.randint(0, 1 << 32, (4,), dtype=torch.int64,
+                                     generator=torch.Generator().manual_seed(
+                                         3))[2:])
+    assert not torch.equal(z, mocha.mocha_noise(
+        torch.Generator().manual_seed(4), shape, "cpu"))
+    assert abs(float(z.mean())) < 0.01 and abs(float(z.std()) - 1) < 0.01
+    for x, cdf in ((-1.0, 0.158655), (0.0, 0.5), (2.0, 0.977250)):
+        assert abs(float((z < x).float().mean()) - cdf) < 0.005, x
+    # the step's draws of several sites do not repeat one another
+    g = torch.Generator().manual_seed(5)
+    first, second = (mocha.mocha_noise(g, (4096,), "cpu") for _ in range(2))
+    assert abs(float(np.corrcoef(first, second)[0, 1])) < 0.05
