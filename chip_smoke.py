@@ -165,7 +165,27 @@ Phases (any failure raises and the script exits non-zero):
      version at phase 6's tolerance, a microstep twice with the noise on:
      the same bits; (9e) one train() microstep of the ``ctc_sync`` conf's
      model: its trigger points on the card identical to the CPU's forced
-     alignment of the same log-probabilities, ``loss_latency`` finite.
+     alignment of the same log-probabilities, ``loss_latency`` finite;
+  10. the LibriSpeech recipe's Transformer (``XF_CONF``: the conv front end
+     x4, 12 transformer encoder and 6 decoder blocks of d 256 / 4 heads /
+     d_ff 2048, CTC 0.3 with fc 512; float32, full width and depth; no
+     kernel of its own): (10a) phase 3's four utterances, beam 10 + CTC 0.3
+     and beam 1 (counts zeroed around them: no kernel of the repo runs),
+     the encoder's time, one profiled beam request (device time per decode
+     step, idle share), and the decode loop's incremental logits against
+     the teacher-forced forward's on the best hypothesis and 100 seeded
+     tokens (``XF_STEP_RTOL``); (10b) a B = 4 train() microstep (dropout
+     off) held to the CPU in float64 by 9b's rule with a TF32 control that
+     must break it, beam 1 on both (weights moved by GREEDY_NOISE) identical
+     up to the first decision under ``DECISION_MARGIN``, and a microstep
+     twice: the same bits; (10c) the train CLI on the conf (``XF_OVERRIDES``,
+     the conf's accumulation) and the eval CLI as stage 5, counts zeroed
+     around each (K4 in training only), a profiled microstep (K4's share)
+     and the decoder alone; (10d) the same for the offline Transformer-MMA
+     conf (``XF_MMA_CONF``: conv x8, MMA from decoder layer 4): beam 10 +
+     CTC 0.3 (hard-mode alphas), the microstep held (MoChA noise off), the
+     train CLI for one epoch and the eval CLI, the MMA decoder's device time
+     and operations per microstep.
 
 Launches per step (per encode for K1, per decode step for K2, per training
 microstep for the rest; K1 / K1b bf16 in phase 5's bf16 run) are counted
@@ -175,7 +195,9 @@ three CLI runs, phase 7b's and phase 8's two apart (``cli_launches``), K2's
 per training microstep (``train_launches_per_microstep``); phase 8's path
 (its served requests and its two CLI runs, ``blstm_launches``) and each
 kernel's numbers at phase 8's shapes (``blstm``); phase 9's path (its served
-requests and its two CLI runs, ``mocha_launches``). Prints the
+requests and its two CLI runs, ``mocha_launches``); phase 10's path
+(the served requests and the CLI runs of both confs,
+``transformer_launches``). Prints the
 details as JSON (also written to ``chiprun_out/chip_smoke.json``), then one
 JSON line of per-kernel results (launches, launches_per_step, ms,
 plain_ms, bound_ms, bound_by, library_ms, errors), the card's ``name,
@@ -550,8 +572,9 @@ SERVED = {"beam10_ctc0.3": dict(beam_width=10, ctc_weight=0.3),
           "greedy": dict(beam_width=1)}
 
 
-def phase_serve(torch, model, xs, xlens, names=tuple(SERVED), tag="3"):
-    """The sessions ``names`` (``SERVED``) on the utterances, each timed,
+def phase_serve(torch, model, xs, xlens, names=tuple(SERVED), tag="3",
+                table=SERVED):
+    """The sessions ``names`` (of ``table``) on the utterances, each timed,
     the launch counts zeroed before the first and read after the last;
     returns (results, counts)."""
     from neural_sp_tpu_torch.models.decoders.decoding import (
@@ -559,7 +582,7 @@ def phase_serve(torch, model, xs, xlens, names=tuple(SERVED), tag="3"):
     from neural_sp_tpu_torch.models.decoders.las import DecodeLoop
     from neural_sp_tpu_torch.ops.kernels import launches, reset_launches
     sessions = [(name, Speech2TextSession(model, DecodeConfig(
-        **SERVED[name]))) for name in names]
+        **table[name]))) for name in names]
     for _, sess in sessions:   # warm-up, not counted
         sess.decode(xs[:1, :200], xlens[:1] * 0 + 200)
     torch.cuda.synchronize()
@@ -596,24 +619,28 @@ def phase_serve(torch, model, xs, xlens, names=tuple(SERVED), tag="3"):
 
 
 def profiled(torch, what: str, fn, annotation: str | None = None,
-             ops: tuple = (), tag: str = "3b") -> dict:
+             ops: tuple = (), tag: str = "3b", kernels: tuple = (),
+             cpu: bool = True) -> dict:
     """Run fn once under torch.profiler: wall time, device busy time (the
     union of the device events' intervals), idle share, and the kernels
     that take the most device time; with ``annotation``, also the device
     time of the kernels launched inside the ``record_function`` ranges of
     that name, and how many ranges there were; with ``ops``, the device
     time of the kernels launched inside the operators of those names
-    (``ops_device_ms``)."""
+    (``ops_device_ms``); with ``kernels``, the device time of the kernels
+    whose names hold one of those strings (``kernels_device_ms``). With
+    ``cpu`` False only the device is traced (no operator ranges: the trace
+    of a loop of many small operators is read several times faster)."""
     from collections import defaultdict
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
+                 if cpu else [ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     spans, by_name = [], defaultdict(float)
-    ranges, range_us, ops_us = 0, 0.0, 0.0
+    ranges, range_us, ops_us, kernels_us = 0, 0.0, 0.0, 0.0
     for evt in prof.events():
         if evt.name in ops and \
                 evt.device_type == torch.autograd.DeviceType.CPU:
@@ -631,6 +658,8 @@ def profiled(torch, what: str, fn, annotation: str | None = None,
             start, end = evt.time_range.start, evt.time_range.end
             spans.append((start, end))
             by_name[evt.name[:110]] += (end - start) / 1e3
+            if any(k in evt.name for k in kernels):
+                kernels_us += end - start
     busy_us, last = 0.0, float("-inf")
     for start, end in sorted(spans):
         if end > last:
@@ -642,6 +671,8 @@ def profiled(torch, what: str, fn, annotation: str | None = None,
                     f"{annotation}_device_ms": range_us / 1e3})
     if ops:
         out["ops_device_ms"] = ops_us / 1e3
+    if kernels:
+        out["kernels_device_ms"] = kernels_us / 1e3
     if not spans:
         log(f"[{tag}] {what}: wall {wall:.3f} s; device time not measured "
             f"(the profiler saw no device events)")
@@ -3161,6 +3192,496 @@ def phase_mocha(torch, root: Path, corpus: dict, xs, xlens) -> dict:
     return out
 
 
+# Phase 10: the LibriSpeech recipe's Transformer (``XF_CONF``,
+# ``configs.librispeech_transformer_args``: the conv front end x4, 12
+# transformer encoder blocks and 6 decoder blocks of d 256 / 4 heads /
+# d_ff 2048, CTC 0.3 with fc 512; 35,838,144 parameters) and its offline
+# MMA variant (``XF_MMA_CONF``, ``librispeech_transformer_mma_args``: conv
+# x8, MMA from decoder layer 4, 4 x 4 heads, chunk 16), float32, at full
+# width and depth. No kernel of the repo is theirs (the JAX package
+# computes the transformer and MMA in plain JAX): K4 runs in training, K1,
+# K1b, K2, K3 and K3b nowhere. The CLI overrides are the run's length and
+# phase 7's word unit (the same corpus); the conf's accumulation (8) is
+# kept.
+XF_CONF = "examples/librispeech/conf/asr/transformer/transformer.yaml"
+XF_MMA_CONF = "examples/librispeech/conf/asr/mma/offline/" \
+    "transformer_mma_subsample8_ma4H_ca4H_w16_from4L.yaml"
+XF_OVERRIDES = ("--n_epochs", "2", "--unit", "word")
+XF_MMA_OVERRIDES = ("--n_epochs", "1", "--unit", "word")
+XF_D = 256
+XF_SERVED = {"beam10_ctc0.3": dict(beam_width=10, ctc_weight=0.3),
+             "beam1": dict(beam_width=1)}
+# 10a: the decode loop's incremental logits against the teacher-forced
+# forward's on the same tokens, max |err| / max |logit|: float32 sums in
+# other orders (one query against the cache, a causal [U, U] product)
+XF_STEP_RTOL = 1e-4
+# the K4 kernels' names in a profile (csrc/ctc_loss.cu)
+K4_KERNEL_NAMES = ("ctc_alpha", "ctc_beta")
+
+
+def xf_model(torch, make: str):
+    """The seeded model of ``configs.<make>()`` on the card, eval()."""
+    from neural_sp_tpu_torch import configs
+    from neural_sp_tpu_torch.models.speech2text import build_speech2text
+    from neural_sp_tpu_torch.utils.init_params import init_params
+    model = build_speech2text(getattr(configs, make)())
+    init_params(model, SEED)
+    return model.eval()
+
+
+def phase_xf_serve(torch, model, xs, xlens, names, tag) -> dict:
+    """10a / 10d: phase 3's utterances through the sessions ``names`` of
+    ``XF_SERVED`` (counts zeroed around them: no kernel of the repo runs),
+    the encoder's time, one profiled beam 10 + CTC request (device time
+    per decode step, idle share), and the decode loop's incremental logits
+    against the teacher-forced forward on the first utterance's best
+    hypothesis and on 100 seeded tokens (``XF_STEP_RTOL``)."""
+    import numpy as np
+    from neural_sp_tpu_torch import EOS
+    from neural_sp_tpu_torch.models.decoders.decoding import (
+        DecodeConfig, Speech2TextSession)
+    from neural_sp_tpu_torch.models.decoders.las import DecodeLoop
+    out, counts = phase_serve(torch, model, xs, xlens, names, tag=tag,
+                              table=XF_SERVED)
+    hyp = out.pop("best_hyp0")
+    out["launches"] = counts
+    expect(not any(counts.values()),
+           f"a kernel of the repo launched serving the transformer: {counts}")
+    beam = Speech2TextSession(model, DecodeConfig(**XF_SERVED[
+        "beam10_ctc0.3"]))
+    t0 = time.perf_counter()
+    eouts = beam.encode(xs, xlens)
+    torch.cuda.synchronize()
+    out["encode_batch_s"] = time.perf_counter() - t0
+    e, el = eouts["ys"]["xs"], eouts["ys"]["xlens"]
+    factor = max(UTT_FRAMES) // e.shape[1]
+    expect(bool(torch.isfinite(e).all()), "encoder output not finite")
+    expect(tuple(e.shape) == (len(UTT_FRAMES), max(UTT_FRAMES) // factor,
+                              XF_D), f"encoder output {tuple(e.shape)}")
+    log(f"[{tag}] encoder {tuple(e.shape)} (x{factor}): "
+        f"{out['encode_batch_s']:.4f} s")
+    n = UTT_FRAMES[0]
+    steps = DecodeLoop.steps
+    prof = profiled(torch, f"beam 10 + CTC 0.3, the {n}-frame utterance",
+                    lambda: beam.decode(xs[:1, :n], xlens[:1]), tag=tag,
+                    cpu=False)
+    prof["decode_steps"] = DecodeLoop.steps - steps
+    if "device_busy_s" in prof:
+        prof["device_ms_per_decode_step"] = \
+            prof["device_busy_s"] * 1e3 / max(prof["decode_steps"], 1)
+        log(f"[{tag}]   {prof['decode_steps']} decode steps, "
+            f"{prof['device_ms_per_decode_step']:.4f} ms of device time each")
+    out["beam10_ctc0.3_one_utt"] = prof
+    # the caches: each step's logits against the teacher-forced pass
+    dec = model.dec_fwd
+    rng = np.random.default_rng(SEED + 12)
+    gaps = {}
+    with torch.inference_mode():
+        for what, toks in (("best_hypothesis", [EOS] + hyp),
+                           ("seeded_100", [EOS] + list(
+                               rng.integers(4, dec.vocab, 99)))):
+            ys_in = torch.tensor([toks], device=e.device)
+            loop = dec.decode_loop(e[:1], el[:1])
+            inc = torch.stack([loop.step(ys_in[:, i])[0]
+                               for i in range(ys_in.shape[1])], 1)
+            h, _ = dec._hidden(e[:1], el[:1], ys_in, None, "hard")
+            tf = dec.output(dec.norm_out(h))
+            gaps[what] = {"steps": len(toks), "rel_gap": float(
+                (inc - tf).abs().max() / tf.abs().max())}
+    out["incremental_vs_teacher_forced"] = gaps
+    log(f"[{tag}] decode steps against the teacher-forced logits (max |err| "
+        f"/ max |logit|): {gaps}")
+    expect(all(g["rel_gap"] <= XF_STEP_RTOL for g in gaps.values()),
+           f"{tag}: incremental logits part from the teacher-forced ones")
+    return out
+
+
+def dropout_off(torch, model) -> list:
+    """Every dropout rate of ``model`` to 0; returns what to restore."""
+    from neural_sp_tpu_torch.ops.dropout import Dropout
+    saved = [(m, m.rate) for m in model.modules() if isinstance(m, Dropout)]
+    for m, _ in saved:
+        m.rate = 0.0
+    return saved
+
+
+def xf_beam1(torch, model, xs, xlens):
+    """Beam 1 (the transformer's beam, JAX's dispatch) of each utterance,
+    each decision's margin recorded: (hypotheses, per utterance the
+    margins [steps]: the top-2 logit gap, and where the top token is eos
+    also its distance from the eos threshold)."""
+    import numpy as np
+    from neural_sp_tpu_torch import EOS
+    from neural_sp_tpu_torch.models.decoders import transformer as tdec
+    from neural_sp_tpu_torch.models.decoders.decoding import (
+        DecodeConfig, Speech2TextSession)
+    sess = Speech2TextSession(model, DecodeConfig(beam_width=1))
+    real_step = tdec.TransformerDecodeLoop.step
+    margins = []
+
+    def step(self, y, parent=None):
+        logits, aw = real_step(self, y, parent)
+        lp = torch.log_softmax(logits.double(), -1)[0]
+        top2 = lp.topk(2).values
+        m = float(top2[0] - top2[1])
+        if int(lp.argmax()) == EOS:
+            best = float(torch.cat([lp[:EOS], lp[EOS + 1:]]).max())
+            m = min(m, abs(float(lp[EOS]) - sess.conf.eos_threshold * best))
+        margins[-1].append(m)
+        return logits, aw
+
+    hyps = []
+    with mock.patch.object(tdec.TransformerDecodeLoop, "step", step), \
+            torch.inference_mode():
+        e = model.encode(xs, xlens)[0]["ys"]
+        for b in range(xs.shape[0]):
+            margins.append([])
+            hyps.append(sess._beam_one_transformer(
+                e["xs"][b:b + 1], e["xlens"][b:b + 1])[0])
+    return hyps, [np.asarray(m) for m in margins]
+
+
+def phase_xf_hold(torch, model, xs, xlens, make: str, tag: str,
+                  beam1: bool) -> dict:
+    """10b / 10d: one train() microstep at B = 4 (phase 3's utterances, U
+    40-100, SpecAugment as the conf's; dropout off, MMA's noise off) on the
+    card held to the same microstep on the CPU in float64 by phase 9b's
+    rule, a TF32 control outside it; with ``beam1``, beam 1 on both with
+    the weights moved by GREEDY_NOISE (the two shorter utterances), the
+    tokens identical up to each utterance's first decision under
+    DECISION_MARGIN; then (dropout on)
+    one train() microstep twice: the same bits."""
+    import numpy as np
+    from neural_sp_tpu_torch import configs
+    from neural_sp_tpu_torch.models.speech2text import build_speech2text
+    dev = next(model.parameters()).device
+    cpu = build_speech2text(getattr(configs, make)(), device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    cpu.double()
+    saved = dropout_off(torch, model) + dropout_off(torch, cpu)
+    mochas = [b.src_mma.mocha for m in (model, cpu) for b in
+              m.dec_fwd.blocks if b.mma]
+    for attn in mochas:
+        attn.noise_std = 0.0
+    xs_t, xl_t = torch.from_numpy(xs), torch.from_numpy(xlens)
+    ys, ylens = mocha_labels(torch, np.random.default_rng(SEED + 9),
+                             model.dec_fwd.vocab)
+    on_card = tuple(v.to(dev) for v in (xs_t, xl_t, ys, ylens))
+    t0 = time.perf_counter()
+    loss, grads, obs = mocha_microstep(torch, model, on_card)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loss_ref, grads_ref, obs_ref = mocha_microstep(
+        torch, cpu, (xs_t.double(), xl_t, ys, ylens))
+    cpu_s = time.perf_counter() - t0
+    log(f"[{tag}] train() microstep B {len(MOCHA_U)} x {xs.shape[1]} frames, "
+        f"U {list(MOCHA_U)}, dropout off: card {card_s:.2f} s, CPU float64 "
+        f"{cpu_s:.2f} s; card {obs}; CPU {obs_ref}")
+    expect(all(np.isfinite(v) for v in obs.values()), f"{tag} losses {obs}")
+    held = hold_microstep(loss, grads, loss_ref, grads_ref, tag, floor=True)
+    out = {"card_s": card_s, "cpu_float64_s": cpu_s, "obs": obs,
+           "obs_float64": obs_ref, "microstep": held}
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        loss_c, grads_c, _ = mocha_microstep(torch, model, on_card)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    ctl = microstep_errors(loss_c, grads_c, loss_ref, grads_ref, floor=True)
+    leaves = ctl.pop("leaves")
+    worst = max(leaves, key=lambda n: leaves[n][0])
+    ctl.update(worst_grad=leaves[worst][0], worst_grad_leaf=worst,
+               leaves_past_tolerance=sum(v[0] > 1 for v in leaves.values()))
+    out["tf32_control"] = ctl
+    log(f"[{tag}] TF32 control: loss rel {ctl['loss_rel_err']:.2e}, worst "
+        f"leaf {worst} {ctl['worst_grad']:.3f} of its tolerance, "
+        f"{ctl['leaves_past_tolerance']} of {len(leaves)} leaves past it")
+    expect(ctl["loss_rel_err"] > LOSS_RTOL or ctl["worst_grad"] > 1.0,
+           f"{tag}'s rule passed a card microstep with TF32 on")
+    if beam1:
+        g = torch.Generator().manual_seed(SEED + 11)
+        kept = {k: v.clone() for k, v in model.state_dict().items()}
+        moved = {k: v.cpu() + GREEDY_NOISE * torch.randn(v.shape, generator=g)
+                 for k, v in kept.items()}
+        model.load_state_dict(moved)
+        cpu.load_state_dict(moved)
+        model.eval()
+        cpu.eval()
+        # the two shorter utterances (175 and 250 decisions)
+        toks, margins = xf_beam1(torch, model, xs_t[:2].to(dev),
+                                 xl_t[:2].to(dev))
+        toks_ref, _ = xf_beam1(torch, cpu, xs_t[:2].double(), xl_t[:2])
+        model.load_state_dict(kept)
+        compared, cut = [], []
+        for b, (hyp, ref, m) in enumerate(zip(toks, toks_ref, margins)):
+            low = np.nonzero(m < DECISION_MARGIN)[0]
+            n = int(low[0]) if len(low) else len(m)
+            n = min(n, len(hyp), len(ref))
+            compared.append(n)
+            cut.append(bool(len(low)))
+            expect(hyp[:n] == ref[:n],
+                   f"{tag} beam 1, utterance {b}: the card's tokens part "
+                   f"from the float64 run's within {n} decisions of margin")
+        out["beam1"] = {"decisions_compared": compared,
+                        "cut_by_margin": cut,
+                        "hyp_lens": [len(h) for h in toks],
+                        "least_margin": float(min(m.min() for m in margins))}
+        log(f"[{tag}] beam 1: tokens identical over {compared} decisions "
+            f"(cut at a decision under {DECISION_MARGIN}: {cut}; hyp lens "
+            f"{out['beam1']['hyp_lens']})")
+    del cpu
+    for m, rate in saved:
+        m.rate = rate
+    for attn in mochas:
+        attn.noise_std = 1.0
+    out["determinism"] = phase_determinism(torch, model, on_card, bf16=False,
+                                           phase=tag)
+    model.eval()
+    return out
+
+
+def phase_xf_cli(torch, root: Path, corpus: dict, conf: str, overrides,
+                 tag: str, profile_microstep: bool = True) -> dict:
+    """10c / 10d: ``bin.asr.train.main`` on ``conf`` (``overrides``, phase
+    7's corpus) and ``bin.asr.eval.main`` as the recipe's stage 5
+    (``CLI_EVAL``, the recipe's LM), counts zeroed around each: K4 must run
+    in training, K1, K1b, K2, K3 and K3b in neither; every loss finite. On
+    the widest microbatch a train() microstep's wall and, with
+    ``profile_microstep``, its device-only profile (busy and idle time,
+    the top kernels, K4's share), and the decoder's forward and backward
+    alone under the profiler (its device time and operations)."""
+    import csv
+    import math
+    import os
+    from types import SimpleNamespace
+    from neural_sp_tpu_torch.bin.asr import eval as cli_eval
+    from neural_sp_tpu_torch.bin.asr import train as cli_train
+    from neural_sp_tpu_torch.ops.kernels import launches, reset_launches
+    from neural_sp_tpu_torch.parallel.mesh import (TrainStep,
+                                                   deterministic_cudnn)
+    from neural_sp_tpu_torch.trainers import checkpoint
+    sync = torch.cuda.synchronize
+    name = Path(conf).stem
+    exp = str(root / f"exp_{name}")
+    data = ["--train_set", corpus["train"], "--dev_set", corpus["dev"],
+            "--dict", corpus["dict"], "--model_save_dir", exp]
+    out = {"conf": conf, "overrides": list(overrides)}
+    steps, widest, n_params, saves = [], [], [], []
+    orig_call, orig_build = TrainStep.__call__, cli_train.build_speech2text
+    orig_save = checkpoint.save_checkpoint
+
+    def timed_call(self, xs, xlens, ys, ylens, *a, **kw):
+        sync()
+        t = time.perf_counter()
+        m = orig_call(self, xs, xlens, ys, ylens, *a, **kw)
+        sync()
+        steps.append((time.perf_counter() - t, bool(m["emitted"]),
+                      int(xlens.sum()), float(m["loss"])))
+        if not widest or (xs.shape[1], xs.shape[0]) > (
+                widest[0].shape[1], widest[0].shape[0]):
+            widest[:] = (xs, xlens, ys, ylens)
+        return m
+
+    def counted_build(args, device=None):
+        model = orig_build(args, device=device)
+        n_params.append(sum(p.numel() for p in model.parameters()))
+        out["accum_grad_n_steps"] = args.accum_grad_n_steps
+        return model
+
+    def timed_save(*a, **kw):
+        t = time.perf_counter()
+        path = orig_save(*a, **kw)
+        saves.append((time.perf_counter() - t, os.path.getsize(path)))
+        return path
+
+    torch.cuda.reset_peak_memory_stats()
+    sync()
+    reset_launches()
+    t0 = time.perf_counter()
+    with mock.patch.object(TrainStep, "__call__", timed_call), \
+            mock.patch.object(cli_train, "build_speech2text", counted_build), \
+            mock.patch.object(cli_train, "save_checkpoint", timed_save):
+        cli_train.main(["--config", str(ROOT / conf)] + data +
+                       list(overrides))
+    sync()
+    wall = time.perf_counter() - t0
+    counts = launches()
+    accum = out["accum_grad_n_steps"]
+    micro_s = [s[0] for s in steps]
+    train = {"wall_s": wall, "parameters": n_params[0],
+             "microsteps": len(steps),
+             "optimizer_steps": sum(s[1] for s in steps),
+             "microstep_s": micro_s, "microstep_loss": [s[3] for s in steps],
+             # the conf's accumulation: an update is this many microsteps
+             "ms_per_optimizer_step": 1e3 * accum * sum(micro_s) /
+             len(micro_s),
+             "frames_per_s": sum(s[2] for s in steps) / sum(micro_s),
+             "launches": counts,
+             "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+             "checkpoint_bytes": saves[-1][1],
+             "checkpoint_save_s": [s[0] for s in saves]}
+    out["train"] = train
+    log(f"[{tag}] train CLI on {conf}: {n_params[0]} parameters, "
+        f"{len(steps)} microsteps ({train['optimizer_steps']} updates at "
+        f"accumulation {accum}), {train['ms_per_optimizer_step']:.1f} ms per "
+        f"optimizer step ({accum} microsteps at their mean), "
+        f"{train['frames_per_s']:.0f} frames/s, wall {wall:.1f} s, peak mem "
+        f"{train['peak_mem_bytes']} B, checkpoint {saves[-1][1]} B in "
+        f"{saves[-1][0]:.2f} s")
+    log(f"[{tag}]   microstep losses {['%.3f' % s[3] for s in steps]}; "
+        f"microsteps {['%.3f' % s[0] for s in steps]} s; launches {counts}")
+    for k in ("ctc_loss", "ctc_loss_bwd"):
+        expect(counts[k] > 0, f"{k} never launched in phase {tag}")
+    expect(all(counts[k] == 0 for k in NOT_ON_MOCHA_PATH),
+           f"K1 / K1b / K2 / K3 / K3b launched training: {counts}")
+    expect(all(math.isfinite(s[3]) for s in steps), f"{tag} losses {steps}")
+    with open(f"{exp}/history.csv") as f:
+        history = [(int(r["epoch"]), float(r["train_loss"]),
+                    float(r["dev_loss_mean"])) for r in csv.DictReader(f)]
+    out["history"] = history
+    log(f"[{tag}] history.csv (epoch, train loss, dev loss): {history}")
+    expect(len(history) >= 1 and all(
+        math.isfinite(x) for _, *ls in history for x in ls),
+        f"{tag} history.csv {history}")
+
+    lm_dir = recipe_lm(root)
+    torch.cuda.reset_peak_memory_stats()
+    sync()
+    reset_launches()
+    t = time.perf_counter()
+    res = cli_eval.main(["--recog_model", exp, "--recog_sets",
+                         corpus["test"], "--recog_lm", lm_dir,
+                         "--recog_dir", str(root / f"decode_{name}")] +
+                        list(CLI_EVAL))
+    sync()
+    wall = time.perf_counter() - t
+    counts = launches()
+    (m,) = res.values()
+    out["eval"] = {**m, "wall_s": wall, "launches": counts,
+                   "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+    log(f"[{tag}] eval CLI: RTF {m['rtf']:.4f}, wall {wall:.1f} s (with "
+        f"loading), WER {m['wer']:.2f} over {m['n_utts']} utterances "
+        f"(random weights); launches {counts}")
+    expect(m["n_utts"] == CLI_UTTS["test"], f"{m['n_utts']} utterances")
+    expect(not any(counts.values()),
+           f"a kernel of the repo launched evaluating: {counts}")
+
+    # a profiled train() microstep on the widest microbatch, the trained
+    # weights; then the decoder alone
+    epoch = history[-1][0]
+    model, _, _ = cli_eval.load_model_for_eval(SimpleNamespace(
+        recog_model=f"{exp}/ckpt.epoch-{epoch}", recog_n_average=1))
+    batch = tuple(widest)
+    widest.clear()
+
+    def microstep():
+        model.train()
+        model.zero_grad(set_to_none=True)
+        with deterministic_cudnn():       # as the train step runs
+            loss, _ = model(*batch, torch.Generator().manual_seed(SEED))
+            loss.backward()
+
+    microstep()                           # warm-up
+    sync()
+    t = time.perf_counter()
+    microstep()
+    sync()
+    what = f"train() microstep, B {batch[0].shape[0]} x " \
+        f"{batch[0].shape[1]} frames, U {batch[2].shape[1]}"
+    prof = {"wall_s": time.perf_counter() - t}
+    log(f"[{tag}] {what}: wall {prof['wall_s']:.3f} s")
+    if profile_microstep:
+        prof = profiled(torch, what, microstep, tag=tag,
+                        kernels=K4_KERNEL_NAMES, cpu=False)
+    with torch.no_grad():
+        model.eval()
+        enc = model.encoder(batch[0], batch[1])["ys"]
+
+    def decoder():
+        model.train()
+        model.zero_grad(set_to_none=True)
+        ex = enc["xs"].detach().requires_grad_()
+        loss, _ = model.dec_fwd(ex, enc["xlens"], batch[2], batch[3],
+                                torch.Generator().manual_seed(SEED))
+        loss.backward()
+
+    decoder()
+    sync()
+    prof_dec = profiled(torch, "the decoder's forward and backward (its "
+                        "loss)", decoder, tag=tag, cpu=False)
+    if "device_busy_s" in prof:
+        prof["k4_share"] = prof["kernels_device_ms"] / 1e3 / \
+            prof["device_busy_s"]
+        log(f"[{tag}]   K4 {prof['kernels_device_ms']:.3f} ms of device "
+            f"time, {prof['k4_share']:.4f} of the busy time")
+    if "device_busy_s" in prof_dec:
+        share = prof_dec["device_busy_s"] / prof["device_busy_s"] \
+            if "device_busy_s" in prof else None
+        prof["decoder_share"] = share
+        log(f"[{tag}]   the decoder alone: "
+            f"{prof_dec['device_busy_s'] * 1e3:.3f} ms of device time in "
+            f"{prof_dec['device_events']} device operations"
+            + (f", {share:.4f} of the microstep's busy time"
+               if share is not None else ""))
+    out["profiled_microstep"] = prof
+    out["profiled_decoder"] = prof_dec
+    del model, batch, enc
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_transformer(torch, root: Path, corpus: dict, xs, xlens) -> dict:
+    """10: the LibriSpeech Transformer served (10a), held to float64 on the
+    CPU (10b), trained and evaluated through the CLIs (10c); its MMA
+    variant served, held and through the CLIs (10d); each path's launches
+    counted from zero."""
+    t = time.perf_counter()
+    walls = {}
+
+    def timed(name, fn, *a, **kw):
+        t0 = time.perf_counter()
+        result = fn(*a, **kw)
+        walls[name] = time.perf_counter() - t0
+        log(f"[{name}] wall {walls[name]:.1f} s")
+        return result
+
+    out = {}
+    model = xf_model(torch, "librispeech_transformer_args")
+    out["parameters"] = sum(p.numel() for p in model.parameters())
+    log(f"[10a] LibriSpeech Transformer: {out['parameters']} parameters on "
+        f"the card")
+    out["serve"] = timed("10a", phase_xf_serve, torch, model, xs, xlens,
+                         tuple(XF_SERVED), "10a")
+    out["hold"] = timed("10b", phase_xf_hold, torch, model, xs, xlens,
+                        "librispeech_transformer_args", "10b", beam1=True)
+    del model
+    torch.cuda.empty_cache()
+    out["cli"] = timed("10c", phase_xf_cli, torch, root, corpus, XF_CONF,
+                       XF_OVERRIDES, "10c")
+    model = xf_model(torch, "librispeech_transformer_mma_args")
+    mma = {"parameters": sum(p.numel() for p in model.parameters())}
+    log(f"[10d] LibriSpeech Transformer-MMA: {mma['parameters']} parameters "
+        f"on the card")
+    mma["serve"] = timed("10d serve", phase_xf_serve, torch, model, xs,
+                         xlens, ("beam10_ctc0.3",), "10d")
+    mma["hold"] = timed("10d hold", phase_xf_hold, torch, model, xs, xlens,
+                        "librispeech_transformer_mma_args", "10d",
+                        beam1=False)
+    del model
+    torch.cuda.empty_cache()
+    # the MMA decoder's profile alone: a whole microstep's trace holds
+    # ~120,000 device operations, which take about a minute to read
+    mma["cli"] = timed("10d CLIs", phase_xf_cli, torch, root, corpus,
+                       XF_MMA_CONF, XF_MMA_OVERRIDES, "10d",
+                       profile_microstep=False)
+    out["mma"] = mma
+    out["phase_wall_s"] = time.perf_counter() - t
+    out["sub_phase_wall_s"] = walls
+    log(f"[10] phase 10 wall {out['phase_wall_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3232,6 +3753,7 @@ def main() -> int:
         log(f"[7b] phase 7b wall {sampled_cli['phase_wall_s']:.1f} s")
         blstm = phase_blstm(torch, rng, root, corpus, xs, xlens)
         mocha = phase_mocha(torch, root, corpus, xs, xlens)
+        xformer = phase_transformer(torch, root, corpus, xs, xlens)
     # each kernel's launches from the main path it belongs to: the served
     # requests (K1, K2), the float32 training run (K1b, K3, K3b, K4) or
     # the bf16 training run (K1's and K1b's bf16 entries)
@@ -3282,7 +3804,7 @@ def main() -> int:
                "train_parity": parity, "train_parity_bf16": parity_bf16,
                "sampling_times": sampling_times, "cli": cli,
                "cli_sampled": sampled_cli, "blstm": blstm, "mocha": mocha,
-               "kernels": kernels}
+               "transformer": xformer, "kernels": kernels}
     log(json.dumps(details))
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -3353,6 +3875,19 @@ def main() -> int:
               mocha["cli"]["eval"]["launches"])
     for e in entries:
         e["mocha_launches"] = sum(p[e["name"]] for p in paths9)
+    # phase 10, the Transformer and its MMA variant: their main paths'
+    # launches (the served requests, the train CLIs, the eval CLIs): K4
+    # alone, in training
+    paths10 = (xformer["serve"]["launches"],
+               xformer["cli"]["train"]["launches"],
+               xformer["cli"]["eval"]["launches"],
+               xformer["mma"]["serve"]["launches"],
+               xformer["mma"]["cli"]["train"]["launches"],
+               xformer["mma"]["cli"]["eval"]["launches"])
+    for e in entries:
+        e["transformer_launches"] = sum(p[e["name"]] for p in paths10)
+    next(e for e in entries if e["name"] == "ctc_loss")[
+        "transformer_bwd_launches"] = sum(p["ctc_loss_bwd"] for p in paths10)
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -27,9 +27,10 @@ The batches are padded on the JAX CLI's grid (frames to 128, labels to
 (``ss_prob``) starts at ``ss_start_epoch`` when that is set, as the JAX
 CLI's curriculum; so do MoChA's quantity loss, latency loss and
 StableEmit at ``mocha_{quantity_loss,latency_loss,stableemit}_start_epoch``
-(weight 0 before). The JAX CLI's distillation, MBR, random state passing,
-per-batch MTL, tensor parallelism and the profiler window raise
-(ROADMAP).
+(weight 0 before), and a transformer decoder's MMA quantity loss at
+``mocha_quantity_loss_start_epoch``. The JAX CLI's distillation, MBR,
+random state passing, per-batch MTL, tensor parallelism and the profiler
+window raise (ROADMAP).
 """
 from __future__ import annotations
 
@@ -45,6 +46,7 @@ import torch
 
 from ... import configs
 from ...datasets.asr.build import build_dataloader
+from ...models.decoders.transformer import TransformerDecoder
 from ...models.speech2text import build_speech2text
 from ...models.utils import model_device
 from ...parallel.mesh import make_train_step
@@ -94,12 +96,16 @@ def make_schedule(args):
 def set_mocha_curriculum(dec, args, epoch: int) -> None:
     """MoChA's loss weights for ``epoch``, as the JAX CLI's phases: each of
     the quantity loss, the latency loss and StableEmit is 0 before its
-    ``*_start_epoch`` (when that is set), else the conf's weight."""
+    ``*_start_epoch`` (when that is set), else the conf's weight. A
+    transformer decoder has the quantity loss alone (its MMA's: the JAX
+    builder reads no other)."""
     def weight(flag, field):
         start = getattr(args, flag, 0)
         return 0.0 if start and epoch < start else getattr(args, field, 0.0)
     dec.quantity_loss_weight = weight("mocha_quantity_loss_start_epoch",
                                       "mocha_quantity_loss_weight")
+    if isinstance(dec, TransformerDecoder):
+        return
     dec.latency_loss_weight = weight("mocha_latency_loss_start_epoch",
                                      "mocha_latency_loss_weight")
     dec.step.attn.stableemit_weight = weight("mocha_stableemit_start_epoch",
@@ -214,7 +220,9 @@ def main(argv=None, device=None) -> str:
 
     for epoch in range(start_epoch, args.n_epochs + 1):
         lr_scale = controller.lr / lr_ref if lr_ref else 1.0
-        if model.dec_fwd is not None:
+        if isinstance(model.dec_fwd, TransformerDecoder):
+            set_mocha_curriculum(model.dec_fwd, args, epoch)
+        elif model.dec_fwd is not None:
             # the JAX CLI's curriculum: no sampling before ss_start_epoch
             model.dec_fwd.step.ss_prob = 0.0 if ss_start and \
                 epoch < ss_start else getattr(args, "ss_prob", 0.0)

@@ -32,6 +32,21 @@ CTC weight 0.3 with fc 512 and ``ctc_lsm_prob`` 0.1, dropout 0.4, label
 smoothing 0.1; float32. Its model fields are the conf's, field for field
 (a test holds them to the yaml); ``vocab`` is the flagship's.
 
+``librispeech_transformer_args`` is the LibriSpeech recipe's Transformer,
+``examples/librispeech/conf/asr/transformer/transformer.yaml`` (the
+upstream README's best test-clean WER): the same conv front end (x4), 12
+transformer encoder blocks (d 256, 4 heads, d_ff 2048, no positional
+encoding), 6 transformer decoder blocks of the same widths with
+``transformer_dec_pe_type`` "1dconv3L" (no positions in JAX: ROADMAP C21),
+CTC weight 0.3 with fc 512, dropout 0.1, ``dropout_emb`` 0.1, label
+smoothing 0.1, SpecAugment; float32. ``librispeech_transformer_mma_args``
+is its offline MMA variant, ``examples/librispeech/conf/asr/mma/offline/
+transformer_mma_subsample8_ma4H_ca4H_w16_from4L.yaml``: a third pooling
+block (x8), MMA source attention from decoder layer 4 with 4 monotonic x
+4 chunk heads, chunk 16, shared chunk heads, no SpecAugment. Their model
+fields are the confs', field for field (a test holds them to the yamls);
+``vocab`` is the flagship's.
+
 ``flagship_args`` carries no ``train_dtype`` (``bench.py``'s has none): an
 args namespace may set one, and ``compute_dtype(args)`` turns it into the
 train step's ``compute_dtype``.
@@ -97,6 +112,46 @@ def librispeech_lstm_mocha_args():
         mocha_quantity_loss_weight=0.1, dropout_dec=0.4, dropout_emb=0.4,
         ctc_weight=0.3, ctc_fc_list="512", ctc_lsm_prob=0.1, lsm_prob=0.1,
         vocab=flagship_args().vocab)
+
+
+def librispeech_transformer_args():
+    """The conf's model fields, ``input_dim`` 80 and the flagship's
+    ``vocab``."""
+    return SimpleNamespace(
+        enc_type="conv_transformer", input_dim=80, conv_channels="32_32",
+        conv_kernel_sizes="(3,3)_(3,3)", conv_poolings="(2,2)_(2,2)",
+        enc_n_layers=12, transformer_enc_pe_type="none",
+        transformer_enc_d_model=256, transformer_enc_d_ff=2048,
+        transformer_enc_n_heads=4, dec_type="transformer", dec_n_layers=6,
+        transformer_dec_pe_type="1dconv3L", transformer_dec_d_model=256,
+        transformer_dec_d_ff=2048, transformer_dec_n_heads=4,
+        dropout_in=0.0, dropout_enc=0.1, dropout_dec=0.1, dropout_emb=0.1,
+        dropout_att=0.0, lsm_prob=0.1, freq_width=27, n_freq_masks=2,
+        time_width=100, n_time_masks=2, time_width_upper=1.0,
+        ctc_weight=0.3, ctc_fc_list="512", ctc_lsm_prob=0.1,
+        vocab=flagship_args().vocab)
+
+
+def librispeech_transformer_mma_args():
+    """The conf's model fields, ``input_dim`` 80 and the flagship's
+    ``vocab``."""
+    return SimpleNamespace(
+        enc_type="conv_transformer", input_dim=80,
+        conv_channels="32_32_32",
+        conv_kernel_sizes="(3,3)_(3,3)_(3,3)",
+        conv_strides="(1,1)_(1,1)_(1,1)",
+        conv_poolings="(2,2)_(2,2)_(2,2)", enc_n_layers=12,
+        transformer_enc_pe_type="none", transformer_enc_d_model=256,
+        transformer_enc_d_ff=2048, transformer_enc_n_heads=4,
+        dec_type="transformer", dec_n_layers=6,
+        transformer_dec_pe_type="1dconv3L", mocha_n_heads_mono=4,
+        mocha_n_heads_chunk=4, mocha_chunk_size=16, mocha_init_r=-2.0,
+        mocha_std=1.0, mocha_quantity_loss_weight=0.0, mocha_first_layer=4,
+        share_chunkwise_attention=True, transformer_dec_d_model=256,
+        transformer_dec_d_ff=2048, transformer_dec_n_heads=4,
+        dropout_in=0.0, dropout_enc=0.1, dropout_dec=0.1, dropout_emb=0.1,
+        dropout_att=0.0, dropout_head=0.5, lsm_prob=0.1, ctc_weight=0.3,
+        ctc_fc_list="512", ctc_lsm_prob=0.1, vocab=flagship_args().vocab)
 
 
 def librispeech_rnnlm_args():

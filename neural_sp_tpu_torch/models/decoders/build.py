@@ -1,24 +1,61 @@
-"""build_decoder (counterpart of ``neural_sp_tpu/models/decoders/build.py``),
-LAS LSTM branch, with location attention or MoChA."""
+"""build_decoder (counterpart of ``neural_sp_tpu/models/decoders/build.py``):
+the LAS LSTM branch, with location attention or MoChA, and the transformer
+branch, with or without MMA. Each reads the keys the JAX builder reads."""
 from __future__ import annotations
 
+from typing import Union
+
 from .las import RNNDecoder
+from .transformer import TransformerDecoder
 
 
 def _get(args, name, default=None):
     return getattr(args, name, default)
 
 
-def build_decoder(args, vocab: int, enc_n_units: int,
-                  backward: bool = False) -> RNNDecoder:
+def _transformer(args, vocab: int, enc_n_units: int,
+                 backward: bool) -> TransformerDecoder:
+    # as JAX build.py: mocha_init_r and mocha_std are not read, so MMA's
+    # offset and noise take MMAStep's defaults (-4.0, 1.0; ROADMAP C22),
+    # and neither is dropout_head (C23); dropout_dec_layer is read there
+    # into a field the block never uses
+    return TransformerDecoder(
+        vocab=vocab, enc_n_units=enc_n_units,
+        d_model=_get(args, "transformer_dec_d_model",
+                     _get(args, "transformer_d_model", 256)),
+        d_ff=_get(args, "transformer_dec_d_ff",
+                  _get(args, "transformer_d_ff", 2048)),
+        n_heads=_get(args, "transformer_dec_n_heads",
+                     _get(args, "transformer_n_heads", 4)),
+        n_layers=_get(args, "dec_n_layers", 6),
+        pe_type=_get(args, "transformer_dec_pe_type", "add"),
+        dropout=_get(args, "dropout_dec", 0.1),
+        dropout_att=_get(args, "dropout_att", 0.0),
+        dropout_emb=_get(args, "dropout_emb", 0.0),
+        lsm_prob=_get(args, "lsm_prob", 0.0),
+        ffn_activation=_get(args, "transformer_ffn_activation", "relu"),
+        mma_first_layer=_get(args, "mocha_first_layer", 0),
+        mocha_chunk_size=_get(args, "mocha_chunk_size", 1),
+        mocha_n_heads_mono=_get(args, "mocha_n_heads_mono", 1),
+        mocha_n_heads_chunk=_get(args, "mocha_n_heads_chunk", 1),
+        mocha_share_ca=_get(args, "share_chunkwise_attention", False),
+        mocha_eps_wait=_get(args, "mocha_eps_wait", -1),
+        quantity_loss_weight=_get(args, "mocha_quantity_loss_weight", 0.0),
+        backward=backward)
+
+
+def build_decoder(args, vocab: int, enc_n_units: int, backward: bool = False
+                  ) -> Union[RNNDecoder, TransformerDecoder]:
     dec_type = _get(args, "dec_type", "lstm")
     if _get(args, "dropout_att", 0.0):
         raise NotImplementedError(
             "dropout_att > 0 is not ported yet, see ROADMAP")
+    if dec_type == "transformer":
+        return _transformer(args, vocab, enc_n_units, backward)
     if dec_type != "lstm":
         raise NotImplementedError(
             f"dec_type {dec_type!r} is not ported yet (only the LAS lstm "
-            f"branch), see ROADMAP")
+            f"and the transformer branches), see ROADMAP")
     return RNNDecoder(
         vocab=vocab, enc_n_units=enc_n_units,
         n_units=_get(args, "dec_n_units", 512),

@@ -1,5 +1,6 @@
-"""Decoding session: greedy and beam search over the LAS decoder
-(counterpart of ``neural_sp_tpu/models/decoders/decoding.py``).
+"""Decoding session: greedy and beam search over the LAS decoder, and the
+beam search over the transformer decoder (counterpart of
+``neural_sp_tpu/models/decoders/decoding.py``).
 
 Served: ``Speech2TextSession.decode`` dispatching as the JAX session does,
 attention greedy, the batched on-device beam (``device_beam``, fusion-free
@@ -14,9 +15,16 @@ neural work of a step runs on the model's (and the LM's) device; host
 Python reorders indices, scores candidates and keeps end-of-sentence
 bookkeeping, as in the JAX session.
 
+The transformer decoder's beam (``_beam_one_transformer``) is JAX's: the
+same children, pruning and CTC pairing quirk as the LAS beam, with joint
+CTC, LM shallow fusion, length penalty / norm, eos threshold, min / max
+length ratios and the n-best rescoring; as in JAX it has no coverage
+penalty and no internal-LM term (``ilm_weight`` is not read: ROADMAP C24),
+and beam width 1 runs the beam, not greedy.
+
 Not ported yet (ROADMAP), and raising ``NotImplementedError``: ensembles,
 forward-backward merging, speaker state carry-over, CTC prefix beam
-search (with its LM hook), transducer and transformer decoders.
+search (with its LM hook) and transducer decoders.
 """
 from __future__ import annotations
 
@@ -28,6 +36,7 @@ import torch
 from ... import EOS, PAD
 from .ctc import CTCPrefixScorer, ctc_greedy
 from .las import RNNDecoder
+from .transformer import TransformerDecoder
 
 
 @dataclass
@@ -193,7 +202,9 @@ class Speech2TextSession:
         for b in range(eouts_all["ys"]["xs"].shape[0]):
             e = eouts_all["ys"]["xs"][b:b + 1]
             el = eouts_all["ys"]["xlens"][b:b + 1]
-            _, nbest = self._beam_one_las(e, el)
+            beam_one = self._beam_one_transformer if isinstance(
+                self.dec, TransformerDecoder) else self._beam_one_las
+            _, nbest = beam_one(e, el)
             results.append(self._post_process_nbest(nbest))
         return results
 
@@ -426,6 +437,140 @@ class Speech2TextSession:
         self._last_nbest_scores_att = [float(f["score_att"]) for f in top]
         return nbest[0], nbest
 
+    @torch.inference_mode()
+    def _beam_one_transformer(self, e, el):
+        """The transformer decoder's beam over one utterance e [1, T, d],
+        el [1], JAX's ``_beam_one_transformer``: (best hypothesis,
+        n-best list); the n-best's scores are kept in
+        ``_last_nbest_scores``."""
+        conf = self.conf
+        dec: TransformerDecoder = self.dec
+        beam = conf.beam_width
+        max_len = max(int(int(el[0]) * conf.max_len_ratio), 2)
+        min_len = int(int(el[0]) * conf.min_len_ratio)
+
+        loop = dec.decode_loop(e.repeat_interleave(beam, dim=0),
+                               el.repeat_interleave(beam))
+        par = None
+        ctc_scorer = self._ctc_scorer(e, el)
+        ctc_states = [ctc_scorer.initial_state() if ctc_scorer else None] * beam
+
+        hyps = [[] for _ in range(beam)]
+        scores = np.full(beam, -1e30, np.float32)
+        scores[0] = 0.0
+        scores_att = np.zeros(beam, np.float32)
+        scores_ctc = np.zeros(beam, np.float32)
+        scores_lm = np.zeros(beam, np.float32)
+        lm_state = self.lm.initial_state(beam) if self.lm else None
+        y = torch.full((beam,), EOS, dtype=torch.long, device=e.device)
+        finished: list[dict] = []
+
+        for step_i in range(max_len):
+            logits, _ = loop.step(y, par)
+            logp = torch.log_softmax(
+                conf.softmax_smoothing * logits.float(), -1).cpu().numpy()
+            lm_logp = np.zeros_like(logp)
+            if self.lm is not None and conf.lm_weight > 0:
+                y_in = np.asarray([h[-1] if h else EOS for h in hyps])
+                lm_logp, lm_state = self.lm.predict(y_in, lm_state)
+
+            # children generation: _beam_one_las's structure and its
+            # add_ctc_score pairing quirk, without the ILM term
+            if step_i < min_len:
+                bad = np.ones(beam, bool)
+            else:
+                best_non_eos = np.max(np.delete(logp, EOS, axis=1), axis=1)
+                bad = logp[:, EOS] < conf.eos_threshold * best_non_eos
+
+            w_ctc = conf.ctc_weight
+            children = []
+            for k in range(beam):
+                if scores[k] <= -1e29:
+                    continue
+                cands = np.argsort(-logp[k], kind="stable")[:beam]
+                base = ((1.0 - w_ctc) * (scores_att[k] + logp[k, cands])
+                        + conf.lm_weight
+                        * (scores_lm[k] + lm_logp[k, cands]))
+                if conf.length_penalty != 0:
+                    base = base + conf.length_penalty * (step_i + 1)
+                if ctc_scorer is not None:
+                    psi, r_new = ctc_scorer(hyps[k], cands, ctc_states[k])
+                    joint = base + w_ctc * psi
+                    perm = np.argsort(-joint, kind="stable")
+                    prune_sc = joint[perm]
+                else:
+                    psi = r_new = None
+                    prune_sc = base
+                for j in range(len(cands)):
+                    c = int(cands[j])
+                    if c == EOS and bad[k]:
+                        continue
+                    sc = float(prune_sc[j])
+                    if conf.length_norm:
+                        sc = sc / (step_i + 1)
+                    children.append({
+                        "parent": k, "tok": c, "score": sc,
+                        "att": float(scores_att[k] + logp[k, c]),
+                        "lm": float(scores_lm[k] + lm_logp[k, c]),
+                        "psi": float(psi[j]) if psi is not None
+                        else float(scores_ctc[k]),
+                        "state": r_new[perm[j]] if psi is not None
+                        else ctc_states[k]})
+
+            children.sort(key=lambda d: -d["score"])
+            children = children[:beam]
+            new_hyps, new_scores, new_satt, new_y = [], [], [], []
+            parents, new_slm, new_ctc_beam = [], [], []
+            for ch in children:
+                k, v, sc = ch["parent"], ch["tok"], ch["score"]
+                if v == EOS:
+                    finished.append({"hyp": hyps[k] + [EOS], "score": sc,
+                                     "score_att": float(ch["att"])})
+                    continue
+                new_hyps.append(hyps[k] + [v])
+                new_scores.append(sc)
+                new_satt.append(ch["att"])
+                new_y.append(v)
+                parents.append(k)
+                new_slm.append(ch["lm"])
+                new_ctc_beam.append((ch["state"], ch["psi"]))
+            if len(finished) >= beam:
+                finished = finished[:beam]
+                break
+            if not new_hyps:
+                break
+            while len(new_hyps) < beam:   # pad the beam with dead entries
+                new_hyps.append(new_hyps[-1])
+                new_scores.append(-1e30)
+                new_satt.append(new_satt[-1])
+                new_y.append(new_y[-1])
+                parents.append(parents[-1])
+                new_slm.append(new_slm[-1])
+                new_ctc_beam.append(new_ctc_beam[-1])
+            # the next step selects each survivor's parent row of the caches
+            par = torch.tensor(parents, dtype=torch.long)
+            if self.lm is not None:
+                lm_state = self.lm.select(lm_state, parents)
+            hyps = new_hyps
+            scores = np.asarray(new_scores, np.float32)
+            scores_att = np.asarray(new_satt, np.float32)
+            scores_lm = np.asarray(new_slm, np.float32)
+            if ctc_scorer is not None:
+                ctc_states = [c[0] for c in new_ctc_beam]
+                scores_ctc = np.asarray([c[1] for c in new_ctc_beam],
+                                        np.float32)
+            y = torch.as_tensor(new_y, dtype=torch.long, device=e.device)
+
+        if len(finished) < beam:  # top up with live hypotheses
+            live = [{"hyp": hyps[i] + [EOS], "score": float(scores[i])}
+                    for i in range(len(hyps)) if scores[i] > -1e29]
+            finished.extend(live[: beam - len(finished)])
+        finished.sort(key=lambda d: -d["score"])
+        top = finished[: conf.n_best]
+        nbest = [[t for t in f["hyp"] if t != EOS] for f in top]
+        self._last_nbest_scores = [float(f["score"]) for f in top]
+        return nbest[0], nbest
+
     # ------------------------------------------------------------------ #
     def decode(self, xs, xlens):
         """Dispatch like the JAX session (reference Speech2Text.decode)."""
@@ -437,13 +582,14 @@ class Speech2TextSession:
                 raise NotImplementedError(
                     "CTC prefix beam search is not ported yet, see ROADMAP")
             return self.decode_ctc_greedy(xs, xlens)
-        if self.conf.beam_width <= 1:
+        if self.conf.beam_width <= 1 and isinstance(self.dec, RNNDecoder):
             return self.decode_attention_greedy(xs, xlens)
         conf = self.conf
         fusion_free = (conf.lm_weight == 0 and conf.ctc_weight == 0
                        and conf.ilm_weight == 0 and self.lm_second is None
                        and self.lm_bwd is None
                        and conf.coverage_penalty == 0)
-        if conf.device_beam and fusion_free:
+        if conf.device_beam and fusion_free and \
+                isinstance(self.dec, RNNDecoder):
             return self.decode_attention_beam_device(xs, xlens)
         return self.decode_attention_beam(xs, xlens)

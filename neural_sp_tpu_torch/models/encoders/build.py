@@ -1,7 +1,7 @@
 """build_encoder (counterpart of ``neural_sp_tpu/models/encoders/build.py``),
-the RNN (lstm / blstm, with or without the conv front end) and conformer
-branches. Takes any object with attribute access and the reference's flag
-names."""
+the RNN (lstm / blstm, with or without the conv front end), conformer and
+transformer branches (offline). Takes any object with attribute access and
+the reference's flag names."""
 from __future__ import annotations
 
 from typing import Union
@@ -69,12 +69,13 @@ def build_encoder(args) -> Union[RNNEncoder, XformerEncoder]:
     enc_type = args.enc_type
     conv = enc_type.startswith("conv_")
     core = enc_type[5:] if conv else enc_type
-    if core not in ("conformer", "blstm", "lstm", "bgru", "gru"):
+    xformer = core in ("conformer", "transformer")
+    if not xformer and core not in ("blstm", "lstm", "bgru", "gru"):
         raise NotImplementedError(
-            f"enc_type {enc_type!r} is not ported yet (only the conformer "
-            f"and the (B)LSTM), see ROADMAP")
+            f"enc_type {enc_type!r} is not ported yet (only the conformer, "
+            f"the transformer and the (B)LSTM), see ROADMAP")
     # the RNN encoder reads no attention or layer dropout
-    for name in ("dropout_in",) if core != "conformer" else \
+    for name in ("dropout_in",) if not xformer else \
             ("dropout_in", "dropout_att", "dropout_enc_layer"):
         if _get(args, name, 0.0):
             raise NotImplementedError(
@@ -83,13 +84,13 @@ def build_encoder(args) -> Union[RNNEncoder, XformerEncoder]:
         raise NotImplementedError(
             "hierarchical sub1/sub2 encoder taps are not ported yet, see "
             "ROADMAP")
-    if core != "conformer":
+    if not xformer:
         return _rnn_encoder(args, core, conv)
     if _get(args, "unidirectional", False) or \
             _get(args, "lc_chunk_size_current", -1) > 0:
         raise NotImplementedError(
-            "unidirectional / streaming encoders are not ported yet, see "
-            "ROADMAP")
+            "unidirectional / streaming (latency-controlled) encoders are "
+            "not ported yet, see ROADMAP")
     return XformerEncoder(
         input_dim=args.input_dim,
         btype=core,
@@ -103,7 +104,8 @@ def build_encoder(args) -> Union[RNNEncoder, XformerEncoder]:
         pe_type=_get(args, "transformer_enc_pe_type", "add"),
         clamp_len=_get(args, "transformer_enc_clamp_len", -1),
         # conformer blocks always use swish FFNs (as JAX's build_encoder)
-        ffn_activation="swish",
+        ffn_activation="swish" if core == "conformer" else
+        _get(args, "transformer_ffn_activation", "relu"),
         ffn_bottleneck_dim=_get(args, "transformer_ffn_bottleneck_dim", 0),
         last_proj_dim=_get(args, "enc_last_proj_dim", 0),
         subsample=_subsample_tuple(args),

@@ -1,18 +1,24 @@
-"""Conformer encoder (counterpart of
+"""Transformer / conformer encoder (counterpart of
 ``neural_sp_tpu/models/encoders/transformer.py``), offline path only:
-conv frontend -> input scale sqrt(d_model) -> conformer blocks with
-interlayer subsampling -> final LayerNorm. No streaming, no sub1/sub2
-taps, no layer scan or rematerialisation (those change how the JAX
-program compiles, not what it computes).
+conv frontend -> ``PositionalEncoding`` (input scale sqrt(d_model); the
+sinusoid added for ``pe_type`` "add") -> pre-norm blocks with interlayer
+subsampling -> final LayerNorm. No streaming, no sub1/sub2 taps, no layer
+scan or rematerialisation (those change how the JAX program compiles, not
+what it computes).
+
+The blocks: the conformer's (macaron FFN / rel-PE MHA through kernel K1 /
+conv / FFN / final norm) with ``pe_type`` "relative", and the
+transformer's (scaled-dot MHA / FFN, the FFN's residual at factor 1, no
+final norm) with ``pe_type`` "add" or "none". Self-attention masks keys
+only (``make_san_mask``): pad queries attend the valid keys.
 
 In ``train()`` mode dropout (rate ``dropout``) runs at the JAX module's
-sites: after the input scaling (``PositionalEncoding``), inside each FFN,
-and on each of the four residual branches of a block. The generator of the
-step is the ``gen`` argument of ``forward``.
+sites: after the positional encoding, inside each FFN, and on each
+residual branch of a block. The generator of the step is the ``gen``
+argument of ``forward``.
 """
 from __future__ import annotations
 
-import math
 from typing import Optional
 
 import torch
@@ -22,14 +28,16 @@ from ...ops.dropout import Dropout
 from ...ops.masks import make_pad_mask
 from ..modules.conformer_convolution import ConformerConvBlock, LN_EPS
 from ..modules.feed_forward import FFN
+from ..modules.multihead_attention import MultiheadAttention
+from ..modules.positional_embedding import ADDS_POSITIONS, PositionalEncoding
 from ..modules.relative_multihead_attention import RelativeMultiheadAttention
 from .conv import ConvEncoder
 from .subsampling import build_subsampler
 
 
 class EncoderBlock(nn.Module):
-    """Pre-norm conformer block (macaron FFN / rel-PE MHA / conv / FFN /
-    final norm)."""
+    """Pre-norm block: the conformer's (macaron FFN / rel-PE MHA / conv /
+    FFN / final norm) or the transformer's (MHA / FFN)."""
 
     def __init__(self, d_model: int, d_ff: int, n_heads: int,
                  btype: str = "conformer", pe_type: str = "relative",
@@ -37,10 +45,22 @@ class EncoderBlock(nn.Module):
                  ffn_bottleneck_dim: int = 0, conv_kernel_size: int = 15,
                  conv_normalization: str = "layer_norm", dropout: float = 0.0):
         super().__init__()
-        if btype != "conformer" or pe_type != "relative":
+        if not (btype == "conformer" and pe_type == "relative" or
+                btype == "transformer" and
+                pe_type in ADDS_POSITIONS + ("none",)):
             raise NotImplementedError(
                 f"encoder block {btype!r} with pe_type {pe_type!r} is not "
-                f"ported yet (only conformer + relative), see ROADMAP")
+                f"ported yet (only conformer + relative and transformer + "
+                f"add / none), see ROADMAP")
+        self.conformer = btype == "conformer"
+        self.drop = Dropout(dropout)
+        if not self.conformer:
+            self.norm_mha = nn.LayerNorm(d_model, eps=LN_EPS)
+            self.mha = MultiheadAttention(d_model, n_heads)
+            self.norm_ff = nn.LayerNorm(d_model, eps=LN_EPS)
+            self.ff = FFN(d_model, d_ff, ffn_activation, ffn_bottleneck_dim,
+                          dropout)
+            return
         self.norm_ff_macaron = nn.LayerNorm(d_model, eps=LN_EPS)
         self.ff_macaron = FFN(d_model, d_ff, ffn_activation,
                               ffn_bottleneck_dim, dropout)
@@ -53,13 +73,18 @@ class EncoderBlock(nn.Module):
         self.ff = FFN(d_model, d_ff, ffn_activation, ffn_bottleneck_dim,
                       dropout)
         self.norm_final = nn.LayerNorm(d_model, eps=LN_EPS)
-        self.drop = Dropout(dropout)
 
     def forward(self, xs: torch.Tensor, klens: torch.Tensor,
                 edge: torch.Tensor,
                 gen: Optional[torch.Generator] = None) -> torch.Tensor:
         """xs [B, T, d]; klens [B] valid frames (keys-only mask); edge [T]
         bool batch edge for the conv module."""
+        if not self.conformer:
+            h = self.norm_mha(xs)
+            h, _, _ = self.mha(h, h, mask=make_pad_mask(klens, xs.shape[1]),
+                               gen=gen)
+            xs = xs + self.drop(h, gen)
+            return xs + self.drop(self.ff(self.norm_ff(xs), gen), gen)
         xs = xs + 0.5 * self.drop(
             self.ff_macaron(self.norm_ff_macaron(xs), gen), gen)
         xs = xs + self.drop(self.mha(self.norm_mha(xs), klens), gen)
@@ -102,7 +127,8 @@ class XformerEncoder(nn.Module):
             build_subsampler(subsample_type, f) if f > 1 else nn.Identity()
             for f in self.subsample)
         self.norm_out = nn.LayerNorm(d_model, eps=LN_EPS)
-        self.drop_pos = Dropout(dropout)
+        self.pos_enc = PositionalEncoding(
+            d_model, "add" if pe_type in ADDS_POSITIONS else "none", dropout)
 
     @property
     def output_dim(self) -> int:
@@ -117,9 +143,7 @@ class XformerEncoder(nn.Module):
                 f"encoder task {task!r} (sub1/sub2 taps) is not ported yet, "
                 f"see ROADMAP")
         h, xlens = self.conv(xs, xlens)
-        # PositionalEncoding(pe_type='none') still scales by sqrt(d_model),
-        # then drops out
-        h = self.drop_pos(h * math.sqrt(self.d_model), gen)
+        h = self.pos_enc(h, 0, gen)
         edge = make_pad_mask(xlens, h.shape[1]).any(dim=0)
         for block, factor, sub in zip(self.blocks, self.subsample,
                                       self.subsamplers):

@@ -379,3 +379,32 @@ class MoChA(nn.Module):
         else:
             ctx = torch.bmm(beta.reshape(bs, 1, t), key_cache["value"])[:, 0]
         return ctx, alpha, beta
+
+
+class MMAStep(nn.Module):
+    """One output position of the transformer decoder's monotonic
+    multihead source attention (counterpart of JAX ``MMAStep``): ``MoChA``
+    with external keys (the block's ``mma_key_*`` projections), the carry
+    alpha_prev [B, H_ma, T]. The caller runs it in parallel mode in
+    training and in hard mode at inference (JAX's deterministic flag).
+    ``forward(alpha_prev, query [B, qdim], key_cache, mask [B, T], mode,
+    noise) -> (alpha [B, H_ma, T], ctx [B, kdim])``."""
+
+    def __init__(self, kdim: int, qdim: int, adim: int, chunk_size: int = 1,
+                 n_heads_mono: int = 1, n_heads_chunk: int = 1,
+                 init_r: float = -4.0, eps_wait: int = -1,
+                 noise_std: float = 1.0, share_ca: bool = False):
+        super().__init__()
+        self.mocha = MoChA(
+            kdim=kdim, qdim=qdim, adim=adim, chunk_size=chunk_size,
+            n_heads_mono=n_heads_mono, n_heads_chunk=n_heads_chunk,
+            init_r=init_r, noise_std=noise_std, eps_wait=eps_wait,
+            share_ca=share_ca, external_keys=True)
+
+    def forward(self, alpha_prev: torch.Tensor, query: torch.Tensor,
+                key_cache: dict, mask: Optional[torch.Tensor],
+                mode: str = "parallel",
+                noise: Optional[torch.Tensor] = None):
+        ctx, alpha, _ = self.mocha(key_cache, query, alpha_prev, mode, mask,
+                                   noise=noise)
+        return alpha, ctx

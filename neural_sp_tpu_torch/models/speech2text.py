@@ -1,6 +1,6 @@
 """Speech2Text (counterpart of ``neural_sp_tpu/models/speech2text.py``):
-encoder + LAS decoder + CTC head, assembled by ``build_speech2text`` from a
-reference-style args namespace.
+encoder + attention decoder (LAS or transformer) + CTC head, assembled by
+``build_speech2text`` from a reference-style args namespace.
 
 ``forward`` is the training loss: SpecAugment (in ``train()`` mode), the
 encoder, then ``ctc_weight * loss_ctc + (1 - ctc_weight) * loss_att``. The
@@ -10,7 +10,7 @@ JAX module's ``deterministic=True``.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 from torch import nn
@@ -18,12 +18,14 @@ from torch import nn
 from ..ops.specaugment import apply_masks, draw_masks
 from .decoders.ctc import CTC
 from .decoders.las import RNNDecoder
+from .decoders.transformer import TransformerDecoder
 from .utils import model_device
 
 
 class Speech2Text(nn.Module):
     def __init__(self, encoder: nn.Module,
-                 dec_fwd: Optional[RNNDecoder] = None,
+                 dec_fwd: Optional[Union[RNNDecoder,
+                                         TransformerDecoder]] = None,
                  ctc: Optional[CTC] = None, ctc_weight: float = 0.0,
                  specaug: Optional[dict] = None):
         super().__init__()
@@ -56,7 +58,7 @@ class Speech2Text(nn.Module):
                 gen: Optional[torch.Generator] = None):
         """xs [B, T, input_dim] features, xlens [B], ys [B, U] PAD-padded
         labels, ylens [B]. Returns (loss, obs) with obs "loss", "loss_ctc",
-        "loss_att", "acc_att", "ppl_att" (and a MoChA decoder's
+        "loss_att", "acc_att", "ppl_att" (and a MoChA or MMA decoder's
         "loss_quantity" / "loss_latency" in ``train()``)."""
         xs = self._frontend(xs, xlens, gen)
         eouts = self.encoder(xs, xlens, gen=gen)["ys"]

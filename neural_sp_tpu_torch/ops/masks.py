@@ -23,3 +23,12 @@ def apply_mask_logits(logits: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Masked-out logits become ``finfo(dtype).min / 2`` (not -inf), so an
     all-masked row softmaxes to uniform weights instead of NaN."""
     return logits.masked_fill(~mask, torch.finfo(logits.dtype).min / 2)
+
+
+def causal_mask(qlen: int, klen: int | None = None, offset: int = 0,
+                device=None) -> torch.Tensor:
+    """[qlen, klen] lower-triangular mask: query i attends keys <= i +
+    offset."""
+    klen = qlen if klen is None else klen
+    q = torch.arange(qlen, device=device)[:, None]
+    return torch.arange(klen, device=device)[None] <= q + offset

@@ -33,7 +33,13 @@ Layout rules (flax -> torch):
     ``step.attn.monotonic_energy.v``); the MoChA decoder's key projections
     ``key_proj_mono`` / ``key_proj_chunk`` / ``key_proj_value`` and
     ``mono_conv`` and the step's ``attn/w_out`` follow the Dense and Conv
-    rules.
+    rules;
+  * the transformer encoder's and decoder's blocks (``mha``, ``self_attn``,
+    ``src_attn`` with ``w_query`` / ``w_key`` / ``w_value`` / ``w_out``,
+    ``ff/w1`` / ``ff/w2``, the norms) and an MMA block's ``mma_key_mono``
+    / ``mma_key_value`` / ``mma_key_chunk`` and ``src_mma/mocha/...`` (the
+    scanned ``MMAStep``'s parameters, one set for all positions) follow the
+    rules above unchanged.
 
 ``convert_checkpoint`` carries a whole JAX training checkpoint (params,
 the Adam state and the epoch controller's state) into the port's

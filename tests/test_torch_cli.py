@@ -452,3 +452,89 @@ def test_lstm_mocha_conf_trains_and_evaluates(runs, monkeypatch):
     for name in ("hyp.trn", "ref.trn"):
         assert (out / "port" / "test" / name).read_text() == \
             (out / "jax" / "test" / name).read_text()
+
+
+# a tiny LibriSpeech-Transformer conf: one pooling block, 2 transformer
+# encoder and 2 decoder blocks of d 16, the recipe's "1dconv3L" decoder
+# positions (none, ROADMAP C21), CTC 0.3 with fc 16, noam with
+# accumulation; dropout and SpecAugment off (ROADMAP C4)
+TRANSFORMER_CONF = dict(
+    enc_type="conv_transformer", input_dim=80, conv_channels="4",
+    conv_kernel_sizes="(3,3)", conv_poolings="(2,2)", enc_n_layers=2,
+    transformer_d_model=16, transformer_d_ff=32, transformer_n_heads=4,
+    transformer_enc_pe_type="none", dec_type="transformer", dec_n_layers=2,
+    transformer_dec_pe_type="1dconv3L", dropout_enc=0.0, dropout_dec=0.0,
+    dropout_emb=0.0, ctc_weight=0.3, ctc_fc_list="16", lsm_prob=0.1,
+    unit="char", batch_size=8, min_n_frames=1, max_n_frames=10000,
+    optimizer="noam", warmup_n_steps=10, accum_grad_n_steps=2,
+    print_step=1, n_epochs=1)
+
+
+def test_transformer_conf_trains_and_evaluates(runs, monkeypatch):
+    """The JAX and the port train CLIs for one epoch on a transformer conf
+    from the same weights (the JAX CLI's initial ones, converted): the
+    epoch's train and dev losses in ``history.csv`` agree to rtol 2e-4.
+    Then both eval CLIs decode the test set at beam 2 + CTC 0.3 (the
+    transformer beam; hypotheses of at most 0.3 tokens a frame) from the
+    JAX epoch-1 weights (the port's through ``convert_checkpoint``): the
+    same hypotheses."""
+    root, c = runs["root"], runs["corpus"]
+    conf = root / "transformer.yml"
+    conf.write_text(yaml.safe_dump(TRANSFORMER_CONF))
+    initial = {}
+    jax_build_cli = jax_train.build_speech2text
+
+    def capture_init(args):
+        model = jax_build_cli(args)
+        init = model.init
+
+        def recorded(*a, **kw):
+            out = init(*a, **kw)
+            initial.setdefault("params", jax.tree.map(np.asarray,
+                                                      out["params"]))
+            return out
+        object.__setattr__(model, "init", recorded)
+        return model
+
+    def jax_weights(model, seed):
+        model.load_state_dict(convert_params(initial["params"]), strict=True)
+        return model
+
+    monkeypatch.setattr(jax_train, "build_speech2text", capture_init)
+    monkeypatch.setattr(port_train, "init_params", jax_weights)
+    jdir, pdir = str(root / "xf_jax"), str(root / "xf_port")
+    jax_train.main(["--config", str(conf), "--model_save_dir", jdir]
+                   + runs["data"])
+    port_train.main(["--config", str(conf), "--model_save_dir", pdir]
+                    + runs["data"], device="cpu")
+    rows = []
+    for d in (jdir, pdir):
+        with open(os.path.join(d, "history.csv")) as f:
+            head, *body = f.read().splitlines()
+        assert len(body) == 1
+        rows.append(dict(zip(head.split(","), body[0].split(","))))
+    want, got = rows
+    keys = [k for k in want if k.startswith(("train_loss", "dev_loss"))]
+    assert {"train_loss", "train_loss_att", "dev_loss_mean"} <= \
+        set(keys) <= set(got)
+    for k in keys:
+        np.testing.assert_allclose(float(got[k]), float(want[k]), rtol=RTOL,
+                                   err_msg=k)
+
+    edir = str(root / "xf_port_eval")
+    os.makedirs(edir)
+    shutil.copy(os.path.join(jdir, "conf.yml"), edir)
+    ck = _checkpoint(jdir, 1)
+    save_checkpoint(edir, 1, ck["model"], ck["optimizer"], ck["controller"])
+    argv = ["--recog_sets", c["test"], "--recog_beam_width", "2",
+            "--recog_ctc_weight", "0.3", "--recog_max_len_ratio", "0.3"]
+    out = root / "xf_eval"
+    mw = jax_eval.main(["--recog_model", jdir, "--recog_dir",
+                        str(out / "jax")] + argv)
+    mg = port_eval.main(["--recog_model", edir, "--recog_dir",
+                         str(out / "port")] + argv, device="cpu")
+    (mw,), (mg,) = mw.values(), mg.values()
+    assert mg["n_utts"] == mw["n_utts"] == 4 and mg["wer"] == mw["wer"]
+    for name in ("hyp.trn", "ref.trn"):
+        assert (out / "port" / "test" / name).read_text() == \
+            (out / "jax" / "test" / name).read_text()

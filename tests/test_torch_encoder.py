@@ -94,7 +94,7 @@ def test_encoder_padded_equals_packed(faithful):
 def test_unported_options_raise():
     args = small_flagship(True)
     for field, value in (("transformer_enc_pe_type", "relative_xl"),
-                         ("enc_type", "bgru"), ("dec_type", "transformer"),
+                         ("enc_type", "bgru"), ("dec_type", "lstm_transducer"),
                          ("lm_fusion", "cold"), ("bwd_weight", 0.3),
                          ("subsample_type", "conv1d"), ("dec_n_layers", 2)):
         bad = SimpleNamespace(**{**vars(args), field: value})

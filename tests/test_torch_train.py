@@ -319,7 +319,7 @@ def test_flagship_training_options_are_honoured():
                                  time_mask_width=100, n_time_masks=2, p=1.0)
     assert model.encoder.blocks[0].drop.rate == 0.1
     assert model.encoder.blocks[0].ff.drop.rate == 0.1
-    assert model.encoder.drop_pos.rate == 0.1
+    assert model.encoder.pos_enc.drop.rate == 0.1
     assert model.dec_fwd.step.drop.rate == 0.1
     assert model.dec_fwd.step.drop_emb.rate == 0.1
     assert model.dec_fwd.lsm_prob == 0.1
