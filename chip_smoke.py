@@ -176,16 +176,20 @@ Phases (any failure raises and the script exits non-zero):
      the teacher-forced forward's on the best hypothesis and 100 seeded
      tokens (``XF_STEP_RTOL``); (10b) a B = 4 train() microstep (dropout
      off) held to the CPU in float64 by 9b's rule with a TF32 control that
-     must break it, beam 1 on both (weights moved by GREEDY_NOISE) identical
-     up to the first decision under ``DECISION_MARGIN``, and a microstep
-     twice: the same bits; (10c) the train CLI on the conf (``XF_OVERRIDES``,
-     the conf's accumulation) and the eval CLI as stage 5, counts zeroed
-     around each (K4 in training only), a profiled microstep (K4's share)
-     and the decoder alone; (10d) the same for the offline Transformer-MMA
-     conf (``XF_MMA_CONF``: conv x8, MMA from decoder layer 4): beam 10 +
-     CTC 0.3 (hard-mode alphas), the microstep held (MoChA noise off), the
-     train CLI for one epoch and the eval CLI, the MMA decoder's device time
-     and operations per microstep.
+     must break it, and again with the CPU's ReLU masks pinned to the
+     card's (a mask may flip only within ``XF_PRE_RTOL`` of 0), beam 1 on
+     both (weights moved by GREEDY_NOISE) identical up to the first
+     decision under ``DECISION_MARGIN``, and a microstep twice: the same
+     bits; (10c) the train CLI on the conf (``XF_OVERRIDES``:
+     4 epochs, the conf's accumulation 8, one optimizer update, every
+     weight leaf moved from its initial value) and the eval CLI as stage 5,
+     counts zeroed around each (K4 in training only), a profiled microstep
+     (K4's share) and the decoder alone; (10d) the same for the offline
+     Transformer-MMA conf (``XF_MMA_CONF``: conv x8, MMA from decoder layer
+     4): beam 10 + CTC 0.3 (hard-mode alphas), the microstep held (MoChA
+     noise off), the train CLI for one epoch at accumulation 2 (one update)
+     and the eval CLI, the MMA decoder's device time and operations per
+     microstep.
 
 Launches per step (per encode for K1, per decode step for K2, per training
 microstep for the rest; K1 / K1b bf16 in phase 5's bf16 run) are counted
@@ -3201,13 +3205,16 @@ def phase_mocha(torch, root: Path, corpus: dict, xs, xlens) -> dict:
 # width and depth. No kernel of the repo is theirs (the JAX package
 # computes the transformer and MMA in plain JAX): K4 runs in training, K1,
 # K1b, K2, K3 and K3b nowhere. The CLI overrides are the run's length and
-# phase 7's word unit (the same corpus); the conf's accumulation (8) is
-# kept.
+# phase 7's word unit (the same corpus, 2 microsteps an epoch): the
+# Transformer keeps the conf's accumulation (8), so 4 epochs make one
+# update; the MMA conf (2-3 s a microstep) accumulates 2 over one epoch.
+# Each run must make at least one optimizer update.
 XF_CONF = "examples/librispeech/conf/asr/transformer/transformer.yaml"
 XF_MMA_CONF = "examples/librispeech/conf/asr/mma/offline/" \
     "transformer_mma_subsample8_ma4H_ca4H_w16_from4L.yaml"
-XF_OVERRIDES = ("--n_epochs", "2", "--unit", "word")
-XF_MMA_OVERRIDES = ("--n_epochs", "1", "--unit", "word")
+XF_OVERRIDES = ("--n_epochs", "4", "--unit", "word")
+XF_MMA_OVERRIDES = ("--n_epochs", "1", "--accum_grad_n_steps", "2",
+                    "--unit", "word")
 XF_D = 256
 XF_SERVED = {"beam10_ctc0.3": dict(beam_width=10, ctc_weight=0.3),
              "beam1": dict(beam_width=1)}
@@ -3215,6 +3222,10 @@ XF_SERVED = {"beam10_ctc0.3": dict(beam_width=10, ctc_weight=0.3),
 # forward's on the same tokens, max |err| / max |logit|: float32 sums in
 # other orders (one query against the cache, a causal [U, U] product)
 XF_STEP_RTOL = 1e-4
+# 10b / 10d: each ReLU FFN's pre-activations on the card against the CPU's
+# float64 ones, max |err| / the layer's max |pre-activation|; a ReLU mask
+# may flip only where a pre-activation lies within that error of 0
+XF_PRE_RTOL = 1e-4
 # the K4 kernels' names in a profile (csrc/ctc_loss.cu)
 K4_KERNEL_NAMES = ("ctc_alpha", "ctc_beta")
 
@@ -3336,9 +3347,77 @@ def xf_beam1(torch, model, xs, xlens):
         e = model.encode(xs, xlens)[0]["ys"]
         for b in range(xs.shape[0]):
             margins.append([])
-            hyps.append(sess._beam_one_transformer(
+            hyps.append(sess._beam_one(
                 e["xs"][b:b + 1], e["xlens"][b:b + 1])[0])
     return hyps, [np.asarray(m) for m in margins]
+
+
+def relu_ffns(torch, model) -> dict:
+    """{name: FFN} of ``model``'s feed-forward blocks with ReLU (the
+    transformer blocks' ``transformer_ffn_activation``)."""
+    from neural_sp_tpu_torch.models.modules.feed_forward import FFN
+    return {n: m for n, m in model.named_modules()
+            if isinstance(m, FFN) and m.act is torch.nn.functional.relu}
+
+
+def keep_pre_activations(ffns: dict, kept: dict) -> list:
+    """Forward hooks that keep each FFN's pre-activation (its ``w1``'s
+    output, detached) of the calls that follow; returns the handles."""
+    return [m.w1.register_forward_hook(
+        lambda mod, inp, o, n=n: kept.__setitem__(n, o.detach()))
+        for n, m in ffns.items()]
+
+
+def hold_relu_pinned(torch, cpu, card_pre: dict, ref_pre: dict, batch,
+                     loss, grads, tag) -> dict:
+    """The hold's worst leaves sit behind ReLU: a mask flips where a
+    pre-activation lies within float32's error of 0, and the gradient
+    through it jumps. Per ReLU FFN the card's pre-activations against the
+    float64 CPU's (``XF_PRE_RTOL`` of the layer's max) and the positions
+    whose sign differs; then the CPU microstep again with each ReLU's mask
+    pinned to the card's (the same as its own at every other position),
+    and the card's microstep held to that by 9b's rule."""
+    ffns = relu_ffns(torch, cpu)
+    pins, flips, errs = {}, {}, {}
+    for n in ffns:
+        c, r = card_pre[n].double().cpu(), ref_pre[n]
+        pins[n] = (c > 0).double()
+        flips[n] = int(((c > 0) != (r > 0)).sum())
+        errs[n] = float((c - r).abs().max() / r.abs().max())
+    worst_layer = max(errs, key=errs.get)
+    n_pos = sum(p.numel() for p in pins.values())
+    log(f"[{tag}] ReLU masks: {sum(flips.values())} of {n_pos} "
+        f"pre-activations flip sign between the card and float64, in "
+        f"{sum(f > 0 for f in flips.values())} of {len(ffns)} FFNs "
+        f"({ {n: f for n, f in flips.items() if f} }); the largest "
+        f"pre-activation error {errs[worst_layer]:.2e} of its layer's max "
+        f"({worst_layer})")
+    expect(errs[worst_layer] <= XF_PRE_RTOL,
+           f"{tag}: {worst_layer}'s pre-activations part from float64 by "
+           f"{errs[worst_layer]:.2e} of their max")
+    saved = {n: m.act for n, m in ffns.items()}
+    for n, m in ffns.items():
+        m.act = lambda x, keep=pins[n]: x * keep
+    try:
+        loss_p, grads_p, _ = mocha_microstep(torch, cpu, batch)
+    finally:
+        for n, m in ffns.items():
+            m.act = saved[n]
+    e = microstep_errors(loss, grads, loss_p, grads_p, floor=True)
+    leaves = e["leaves"]
+    ranked = sorted(leaves, key=lambda k: -leaves[k][0])
+    log(f"[{tag}] held to float64 with the card's ReLU masks: loss rel "
+        f"{e['loss_rel_err']:.2e}; worst leaves " + ", ".join(
+            f"{k} {leaves[k][0]:.3f}" for k in ranked[:3]) +
+        " of their tolerance")
+    expect(e["loss_rel_err"] <= LOSS_RTOL and leaves[ranked[0]][0] <= 1.0,
+           f"{tag}: the microstep held to float64 with the card's ReLU "
+           f"masks breaks 9b's rule")
+    return {"flips": flips, "pre_activations": n_pos,
+            "pre_rel_err": errs, "pinned_loss_rel_err": e["loss_rel_err"],
+            "pinned_worst_grad": leaves[ranked[0]][0],
+            "pinned_worst_grad_leaf": ranked[0],
+            "pinned_worst_leaves": {k: leaves[k] for k in ranked[:6]}}
 
 
 def phase_xf_hold(torch, model, xs, xlens, make: str, tag: str,
@@ -3346,7 +3425,8 @@ def phase_xf_hold(torch, model, xs, xlens, make: str, tag: str,
     """10b / 10d: one train() microstep at B = 4 (phase 3's utterances, U
     40-100, SpecAugment as the conf's; dropout off, MMA's noise off) on the
     card held to the same microstep on the CPU in float64 by phase 9b's
-    rule, a TF32 control outside it; with ``beam1``, beam 1 on both with
+    rule, a TF32 control outside it, and the cause of its worst leaves
+    shown (``hold_relu_pinned``); with ``beam1``, beam 1 on both with
     the weights moved by GREEDY_NOISE (the two shorter utterances), the
     tokens identical up to each utterance's first decision under
     DECISION_MARGIN; then (dropout on)
@@ -3367,13 +3447,18 @@ def phase_xf_hold(torch, model, xs, xlens, make: str, tag: str,
     ys, ylens = mocha_labels(torch, np.random.default_rng(SEED + 9),
                              model.dec_fwd.vocab)
     on_card = tuple(v.to(dev) for v in (xs_t, xl_t, ys, ylens))
+    on_cpu = (xs_t.double(), xl_t, ys, ylens)
+    card_pre, ref_pre = {}, {}
+    hooks = keep_pre_activations(relu_ffns(torch, model), card_pre)
     t0 = time.perf_counter()
     loss, grads, obs = mocha_microstep(torch, model, on_card)
     card_s = time.perf_counter() - t0
+    hooks += keep_pre_activations(relu_ffns(torch, cpu), ref_pre)
     t0 = time.perf_counter()
-    loss_ref, grads_ref, obs_ref = mocha_microstep(
-        torch, cpu, (xs_t.double(), xl_t, ys, ylens))
+    loss_ref, grads_ref, obs_ref = mocha_microstep(torch, cpu, on_cpu)
     cpu_s = time.perf_counter() - t0
+    for h in hooks:
+        h.remove()
     log(f"[{tag}] train() microstep B {len(MOCHA_U)} x {xs.shape[1]} frames, "
         f"U {list(MOCHA_U)}, dropout off: card {card_s:.2f} s, CPU float64 "
         f"{cpu_s:.2f} s; card {obs}; CPU {obs_ref}")
@@ -3381,6 +3466,9 @@ def phase_xf_hold(torch, model, xs, xlens, make: str, tag: str,
     held = hold_microstep(loss, grads, loss_ref, grads_ref, tag, floor=True)
     out = {"card_s": card_s, "cpu_float64_s": cpu_s, "obs": obs,
            "obs_float64": obs_ref, "microstep": held}
+    out["relu_pinned"] = hold_relu_pinned(torch, cpu, card_pre, ref_pre,
+                                          on_cpu, loss, grads, tag)
+    del card_pre, ref_pre
     torch.backends.cuda.matmul.allow_tf32 = True
     torch.backends.cudnn.allow_tf32 = True
     try:
@@ -3446,7 +3534,10 @@ def phase_xf_cli(torch, root: Path, corpus: dict, conf: str, overrides,
     """10c / 10d: ``bin.asr.train.main`` on ``conf`` (``overrides``, phase
     7's corpus) and ``bin.asr.eval.main`` as the recipe's stage 5
     (``CLI_EVAL``, the recipe's LM), counts zeroed around each: K4 must run
-    in training, K1, K1b, K2, K3 and K3b in neither; every loss finite. On
+    in training, K1, K1b, K2, K3 and K3b in neither; every loss finite; at
+    least one optimizer update, timed as the sum of its cycle's microsteps
+    (the update inside the last), and every weight leaf of the last
+    checkpoint moved from the CLI's initial weights. On
     the widest microbatch a train() microstep's wall and, with
     ``profile_microstep``, its device-only profile (busy and idle time,
     the top kernels, K4's share), and the decoder's forward and backward
@@ -3467,9 +3558,9 @@ def phase_xf_cli(torch, root: Path, corpus: dict, conf: str, overrides,
     data = ["--train_set", corpus["train"], "--dev_set", corpus["dev"],
             "--dict", corpus["dict"], "--model_save_dir", exp]
     out = {"conf": conf, "overrides": list(overrides)}
-    steps, widest, n_params, saves = [], [], [], []
+    steps, widest, n_params, saves, initial = [], [], [], [], {}
     orig_call, orig_build = TrainStep.__call__, cli_train.build_speech2text
-    orig_save = checkpoint.save_checkpoint
+    orig_save, orig_init = checkpoint.save_checkpoint, cli_train.init_params
 
     def timed_call(self, xs, xlens, ys, ylens, *a, **kw):
         sync()
@@ -3495,13 +3586,20 @@ def phase_xf_cli(torch, root: Path, corpus: dict, conf: str, overrides,
         saves.append((time.perf_counter() - t, os.path.getsize(path)))
         return path
 
+    def kept_init(model, seed):
+        model = orig_init(model, seed)
+        initial.update({k: v.detach().clone()
+                        for k, v in model.named_parameters()})
+        return model
+
     torch.cuda.reset_peak_memory_stats()
     sync()
     reset_launches()
     t0 = time.perf_counter()
     with mock.patch.object(TrainStep, "__call__", timed_call), \
             mock.patch.object(cli_train, "build_speech2text", counted_build), \
-            mock.patch.object(cli_train, "save_checkpoint", timed_save):
+            mock.patch.object(cli_train, "save_checkpoint", timed_save), \
+            mock.patch.object(cli_train, "init_params", kept_init):
         cli_train.main(["--config", str(ROOT / conf)] + data +
                        list(overrides))
     sync()
@@ -3509,13 +3607,19 @@ def phase_xf_cli(torch, root: Path, corpus: dict, conf: str, overrides,
     counts = launches()
     accum = out["accum_grad_n_steps"]
     micro_s = [s[0] for s in steps]
+    # one optimizer step: the microsteps of its cycle, the update inside
+    # the last (as phase 7)
+    cycles, cur = [], 0.0
+    for s in steps:
+        cur += s[0]
+        if s[1]:
+            cycles.append(cur)
+            cur = 0.0
     train = {"wall_s": wall, "parameters": n_params[0],
-             "microsteps": len(steps),
-             "optimizer_steps": sum(s[1] for s in steps),
+             "microsteps": len(steps), "optimizer_steps": len(cycles),
              "microstep_s": micro_s, "microstep_loss": [s[3] for s in steps],
-             # the conf's accumulation: an update is this many microsteps
-             "ms_per_optimizer_step": 1e3 * accum * sum(micro_s) /
-             len(micro_s),
+             "ms_per_optimizer_step": 1e3 * sum(cycles) /
+             max(len(cycles), 1),
              "frames_per_s": sum(s[2] for s in steps) / sum(micro_s),
              "launches": counts,
              "peak_mem_bytes": torch.cuda.max_memory_allocated(),
@@ -3525,7 +3629,7 @@ def phase_xf_cli(torch, root: Path, corpus: dict, conf: str, overrides,
     log(f"[{tag}] train CLI on {conf}: {n_params[0]} parameters, "
         f"{len(steps)} microsteps ({train['optimizer_steps']} updates at "
         f"accumulation {accum}), {train['ms_per_optimizer_step']:.1f} ms per "
-        f"optimizer step ({accum} microsteps at their mean), "
+        f"optimizer step (the sum of its cycle's {accum} microsteps), "
         f"{train['frames_per_s']:.0f} frames/s, wall {wall:.1f} s, peak mem "
         f"{train['peak_mem_bytes']} B, checkpoint {saves[-1][1]} B in "
         f"{saves[-1][0]:.2f} s")
@@ -3536,6 +3640,9 @@ def phase_xf_cli(torch, root: Path, corpus: dict, conf: str, overrides,
     expect(all(counts[k] == 0 for k in NOT_ON_MOCHA_PATH),
            f"K1 / K1b / K2 / K3 / K3b launched training: {counts}")
     expect(all(math.isfinite(s[3]) for s in steps), f"{tag} losses {steps}")
+    expect(train["optimizer_steps"] >= 1,
+           f"{tag}: the train CLI made no optimizer update "
+           f"({len(steps)} microsteps at accumulation {accum})")
     with open(f"{exp}/history.csv") as f:
         history = [(int(r["epoch"]), float(r["train_loss"]),
                     float(r["dev_loss_mean"])) for r in csv.DictReader(f)]
@@ -3574,6 +3681,20 @@ def phase_xf_cli(torch, root: Path, corpus: dict, conf: str, overrides,
         recog_model=f"{exp}/ckpt.epoch-{epoch}", recog_n_average=1))
     batch = tuple(widest)
     widest.clear()
+    # the update reached the weights: each leaf of the last checkpoint
+    # against the CLI's initial weights
+    with torch.no_grad():
+        moved = {n: float((p - initial[n].to(p.device)).abs().max())
+                 for n, p in model.named_parameters()}
+    initial.clear()
+    still = sorted(n for n, d in moved.items() if d == 0)
+    train["leaves_moved"] = len(moved) - len(still)
+    train["largest_weight_change"] = max(moved.values())
+    log(f"[{tag}] the checkpoint of epoch {epoch} against the initial "
+        f"weights: {len(moved) - len(still)} of {len(moved)} leaves moved, "
+        f"the largest change {max(moved.values()):.3e}"
+        + (f"; unmoved: {still[:6]}" if still else ""))
+    expect(not still, f"{tag}: leaves the update left unmoved: {still[:6]}")
 
     def microstep():
         model.train()

@@ -15,10 +15,9 @@ neural work of a step runs on the model's (and the LM's) device; host
 Python reorders indices, scores candidates and keeps end-of-sentence
 bookkeeping, as in the JAX session.
 
-The transformer decoder's beam (``_beam_one_transformer``) is JAX's: the
-same children, pruning and CTC pairing quirk as the LAS beam, with joint
-CTC, LM shallow fusion, length penalty / norm, eos threshold, min / max
-length ratios and the n-best rescoring; as in JAX it has no coverage
+One host beam (``_beam_one``) serves both decoders, as JAX's
+``_beam_one_las`` and ``_beam_one_transformer`` do (the same children,
+pruning and CTC pairing quirk); with a transformer it has no coverage
 penalty and no internal-LM term (``ilm_weight`` is not read: ROADMAP C24),
 and beam width 1 runs the beam, not greedy.
 
@@ -36,7 +35,6 @@ import torch
 from ... import EOS, PAD
 from .ctc import CTCPrefixScorer, ctc_greedy
 from .las import RNNDecoder
-from .transformer import TransformerDecoder
 
 
 @dataclass
@@ -202,9 +200,7 @@ class Speech2TextSession:
         for b in range(eouts_all["ys"]["xs"].shape[0]):
             e = eouts_all["ys"]["xs"][b:b + 1]
             el = eouts_all["ys"]["xlens"][b:b + 1]
-            beam_one = self._beam_one_transformer if isinstance(
-                self.dec, TransformerDecoder) else self._beam_one_las
-            _, nbest = beam_one(e, el)
+            _, nbest = self._beam_one(e, el)
             results.append(self._post_process_nbest(nbest))
         return results
 
@@ -243,12 +239,16 @@ class Speech2TextSession:
         return CTCPrefixScorer(lp)
 
     @torch.inference_mode()
-    def _beam_one_las(self, e, el):
-        """Beam search of one utterance e [1, T, d], el [1]. Returns
-        (best hypothesis, n-best list); the n-best's scores are kept in
-        ``_last_nbest_scores`` (joint) and ``_last_nbest_scores_att``."""
+    def _beam_one(self, e, el):
+        """Beam search of one utterance e [1, T, d], el [1], over the LAS or
+        the transformer decoder. Returns (best hypothesis, n-best list);
+        the n-best's scores are kept in ``_last_nbest_scores`` (joint) and
+        ``_last_nbest_scores_att``. As JAX's ``_beam_one_transformer``, the
+        transformer's beam has no internal-LM term (``ilm_weight`` is not
+        read: ROADMAP C24) and no coverage penalty."""
         conf = self.conf
-        dec: RNNDecoder = self.dec
+        dec = self.dec
+        las = isinstance(dec, RNNDecoder)
         beam = conf.beam_width
         tmax = e.shape[1]
         max_len = max(int(int(el[0]) * conf.max_len_ratio), 2)
@@ -256,13 +256,17 @@ class Speech2TextSession:
 
         e_t = e.repeat_interleave(beam, dim=0)
         klens = el.repeat_interleave(beam).to(torch.int32)
-        kc = dec.precompute_keys(e_t)
-        loop = dec.decode_loop(kc, e_t, klens)
+        if las:
+            kc = dec.precompute_keys(e_t)
+            loop = dec.decode_loop(kc, e_t, klens)
+        else:
+            loop = dec.decode_loop(e_t, klens)
         par = None
         # internal-LM estimation: a second decode loop over zeroed keys and
         # encoder outputs (so a zero context) with the real lengths, stepped
         # with the same tokens and parents
-        use_ilm = conf.ilm_weight > 0
+        use_ilm = las and conf.ilm_weight > 0
+        use_cov = las and conf.coverage_penalty > 0
         if use_ilm:
             # every entry of MoChA's key dict zeroed (JAX tree.map)
             kc_zero = {k: torch.zeros_like(v) for k, v in kc.items()} \
@@ -370,7 +374,7 @@ class Speech2TextSession:
                 if v == EOS:
                     cand = {"hyp": hyps[k] + [EOS], "score": sc,
                             "score_att": float(ch["att"])}
-                    if conf.coverage_penalty > 0:
+                    if use_cov:
                         cov = np.sum(np.minimum(
                             aw_sums[k], conf.coverage_threshold or 0.5))
                         cand["score"] += conf.coverage_penalty * cov
@@ -407,7 +411,7 @@ class Speech2TextSession:
             par = torch.tensor(parents, dtype=torch.int32)
             if self.lm is not None:
                 lm_state = self.lm.select(lm_state, parents)
-            if conf.coverage_penalty > 0:
+            if use_cov:
                 aw_np = aw.float().cpu().numpy()
                 if aw_np.ndim == 3:       # MoChA: [beam, H, T] -> head mean
                     aw_np = aw_np.mean(1)
@@ -435,140 +439,6 @@ class Speech2TextSession:
         nbest = [[t for t in f["hyp"] if t != EOS] for f in top]
         self._last_nbest_scores = [float(f["score"]) for f in top]
         self._last_nbest_scores_att = [float(f["score_att"]) for f in top]
-        return nbest[0], nbest
-
-    @torch.inference_mode()
-    def _beam_one_transformer(self, e, el):
-        """The transformer decoder's beam over one utterance e [1, T, d],
-        el [1], JAX's ``_beam_one_transformer``: (best hypothesis,
-        n-best list); the n-best's scores are kept in
-        ``_last_nbest_scores``."""
-        conf = self.conf
-        dec: TransformerDecoder = self.dec
-        beam = conf.beam_width
-        max_len = max(int(int(el[0]) * conf.max_len_ratio), 2)
-        min_len = int(int(el[0]) * conf.min_len_ratio)
-
-        loop = dec.decode_loop(e.repeat_interleave(beam, dim=0),
-                               el.repeat_interleave(beam))
-        par = None
-        ctc_scorer = self._ctc_scorer(e, el)
-        ctc_states = [ctc_scorer.initial_state() if ctc_scorer else None] * beam
-
-        hyps = [[] for _ in range(beam)]
-        scores = np.full(beam, -1e30, np.float32)
-        scores[0] = 0.0
-        scores_att = np.zeros(beam, np.float32)
-        scores_ctc = np.zeros(beam, np.float32)
-        scores_lm = np.zeros(beam, np.float32)
-        lm_state = self.lm.initial_state(beam) if self.lm else None
-        y = torch.full((beam,), EOS, dtype=torch.long, device=e.device)
-        finished: list[dict] = []
-
-        for step_i in range(max_len):
-            logits, _ = loop.step(y, par)
-            logp = torch.log_softmax(
-                conf.softmax_smoothing * logits.float(), -1).cpu().numpy()
-            lm_logp = np.zeros_like(logp)
-            if self.lm is not None and conf.lm_weight > 0:
-                y_in = np.asarray([h[-1] if h else EOS for h in hyps])
-                lm_logp, lm_state = self.lm.predict(y_in, lm_state)
-
-            # children generation: _beam_one_las's structure and its
-            # add_ctc_score pairing quirk, without the ILM term
-            if step_i < min_len:
-                bad = np.ones(beam, bool)
-            else:
-                best_non_eos = np.max(np.delete(logp, EOS, axis=1), axis=1)
-                bad = logp[:, EOS] < conf.eos_threshold * best_non_eos
-
-            w_ctc = conf.ctc_weight
-            children = []
-            for k in range(beam):
-                if scores[k] <= -1e29:
-                    continue
-                cands = np.argsort(-logp[k], kind="stable")[:beam]
-                base = ((1.0 - w_ctc) * (scores_att[k] + logp[k, cands])
-                        + conf.lm_weight
-                        * (scores_lm[k] + lm_logp[k, cands]))
-                if conf.length_penalty != 0:
-                    base = base + conf.length_penalty * (step_i + 1)
-                if ctc_scorer is not None:
-                    psi, r_new = ctc_scorer(hyps[k], cands, ctc_states[k])
-                    joint = base + w_ctc * psi
-                    perm = np.argsort(-joint, kind="stable")
-                    prune_sc = joint[perm]
-                else:
-                    psi = r_new = None
-                    prune_sc = base
-                for j in range(len(cands)):
-                    c = int(cands[j])
-                    if c == EOS and bad[k]:
-                        continue
-                    sc = float(prune_sc[j])
-                    if conf.length_norm:
-                        sc = sc / (step_i + 1)
-                    children.append({
-                        "parent": k, "tok": c, "score": sc,
-                        "att": float(scores_att[k] + logp[k, c]),
-                        "lm": float(scores_lm[k] + lm_logp[k, c]),
-                        "psi": float(psi[j]) if psi is not None
-                        else float(scores_ctc[k]),
-                        "state": r_new[perm[j]] if psi is not None
-                        else ctc_states[k]})
-
-            children.sort(key=lambda d: -d["score"])
-            children = children[:beam]
-            new_hyps, new_scores, new_satt, new_y = [], [], [], []
-            parents, new_slm, new_ctc_beam = [], [], []
-            for ch in children:
-                k, v, sc = ch["parent"], ch["tok"], ch["score"]
-                if v == EOS:
-                    finished.append({"hyp": hyps[k] + [EOS], "score": sc,
-                                     "score_att": float(ch["att"])})
-                    continue
-                new_hyps.append(hyps[k] + [v])
-                new_scores.append(sc)
-                new_satt.append(ch["att"])
-                new_y.append(v)
-                parents.append(k)
-                new_slm.append(ch["lm"])
-                new_ctc_beam.append((ch["state"], ch["psi"]))
-            if len(finished) >= beam:
-                finished = finished[:beam]
-                break
-            if not new_hyps:
-                break
-            while len(new_hyps) < beam:   # pad the beam with dead entries
-                new_hyps.append(new_hyps[-1])
-                new_scores.append(-1e30)
-                new_satt.append(new_satt[-1])
-                new_y.append(new_y[-1])
-                parents.append(parents[-1])
-                new_slm.append(new_slm[-1])
-                new_ctc_beam.append(new_ctc_beam[-1])
-            # the next step selects each survivor's parent row of the caches
-            par = torch.tensor(parents, dtype=torch.long)
-            if self.lm is not None:
-                lm_state = self.lm.select(lm_state, parents)
-            hyps = new_hyps
-            scores = np.asarray(new_scores, np.float32)
-            scores_att = np.asarray(new_satt, np.float32)
-            scores_lm = np.asarray(new_slm, np.float32)
-            if ctc_scorer is not None:
-                ctc_states = [c[0] for c in new_ctc_beam]
-                scores_ctc = np.asarray([c[1] for c in new_ctc_beam],
-                                        np.float32)
-            y = torch.as_tensor(new_y, dtype=torch.long, device=e.device)
-
-        if len(finished) < beam:  # top up with live hypotheses
-            live = [{"hyp": hyps[i] + [EOS], "score": float(scores[i])}
-                    for i in range(len(hyps)) if scores[i] > -1e29]
-            finished.extend(live[: beam - len(finished)])
-        finished.sort(key=lambda d: -d["score"])
-        top = finished[: conf.n_best]
-        nbest = [[t for t in f["hyp"] if t != EOS] for f in top]
-        self._last_nbest_scores = [float(f["score"]) for f in top]
         return nbest[0], nbest
 
     # ------------------------------------------------------------------ #

@@ -101,8 +101,8 @@ class TransformerDecoderBlock(nn.Module):
         T] (None for none). Returns (ys, the new self-attention cache, the
         alignments [B, U, H_ma, T] of an MMA block, else None)."""
         h = self.norm_self(ys)
-        h, kv, _ = self.self_attn(h, h, mask=self_mask, cache=self_cache,
-                                  gen=gen)
+        h, kv = self.self_attn(h, h, mask=self_mask, cache=self_cache,
+                               gen=gen)
         ys = ys + self.drop(h, gen)
         h = self.norm_src(ys)
         alphas = None
@@ -116,8 +116,7 @@ class TransformerDecoderBlock(nn.Module):
                 alphas.append(alpha)
             h, alphas = torch.stack(ctxs, 1), torch.stack(alphas, 1)
         else:
-            h, _, _ = self.src_attn(h, mask=src_mask, cache=src_keys,
-                                    gen=gen)
+            h, _ = self.src_attn(h, mask=src_mask, cache=src_keys, gen=gen)
         ys = ys + self.drop(h, gen)
         ys = ys + self.drop(self.ff(self.norm_ff(ys), gen), gen)
         return ys, kv, alphas

@@ -81,8 +81,8 @@ class EncoderBlock(nn.Module):
         bool batch edge for the conv module."""
         if not self.conformer:
             h = self.norm_mha(xs)
-            h, _, _ = self.mha(h, h, mask=make_pad_mask(klens, xs.shape[1]),
-                               gen=gen)
+            h, _ = self.mha(h, h, mask=make_pad_mask(klens, xs.shape[1]),
+                            gen=gen)
             xs = xs + self.drop(h, gen)
             return xs + self.drop(self.ff(self.norm_ff(xs), gen), gen)
         xs = xs + 0.5 * self.drop(

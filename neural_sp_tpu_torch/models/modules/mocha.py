@@ -388,18 +388,18 @@ class MMAStep(nn.Module):
     alpha_prev [B, H_ma, T]. The caller runs it in parallel mode in
     training and in hard mode at inference (JAX's deterministic flag).
     ``forward(alpha_prev, query [B, qdim], key_cache, mask [B, T], mode,
-    noise) -> (alpha [B, H_ma, T], ctx [B, kdim])``."""
+    noise) -> (alpha [B, H_ma, T], ctx [B, kdim])``. As in JAX no builder
+    passes ``init_r`` or the noise's std, so MoChA's defaults hold (-4.0,
+    1.0; ROADMAP C22)."""
 
     def __init__(self, kdim: int, qdim: int, adim: int, chunk_size: int = 1,
                  n_heads_mono: int = 1, n_heads_chunk: int = 1,
-                 init_r: float = -4.0, eps_wait: int = -1,
-                 noise_std: float = 1.0, share_ca: bool = False):
+                 eps_wait: int = -1, share_ca: bool = False):
         super().__init__()
         self.mocha = MoChA(
             kdim=kdim, qdim=qdim, adim=adim, chunk_size=chunk_size,
             n_heads_mono=n_heads_mono, n_heads_chunk=n_heads_chunk,
-            init_r=init_r, noise_std=noise_std, eps_wait=eps_wait,
-            share_ca=share_ca, external_keys=True)
+            eps_wait=eps_wait, share_ca=share_ca, external_keys=True)
 
     def forward(self, alpha_prev: torch.Tensor, query: torch.Tensor,
                 key_cache: dict, mask: Optional[torch.Tensor],

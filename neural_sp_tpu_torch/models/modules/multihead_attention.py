@@ -1,7 +1,8 @@
 """Multi-head scaled-dot attention with the JAX module's cache protocol
 (counterpart of ``neural_sp_tpu/models/modules/multihead_attention.py``).
 
-Caches are {"k", "v"} of [B, T, H, d_k], the projected keys and values:
+Caches are {"k", "v"} of [B, T, H, d_k], the projected keys and values
+(the keys and values are one tensor at every caller):
   * ``cache=None``, ``key`` given        -> full attention over ``key``;
   * ``cache`` given, ``key=None``        -> the cached keys and values
     (the decoder's source attention at decode);
@@ -45,40 +46,40 @@ class MultiheadAttention(nn.Module):
         self.w_out = nn.Linear(d_model, d_model)
         self.drop = Dropout(dropout)
 
-    def project_kv(self, key: torch.Tensor,
-                   value: Optional[torch.Tensor] = None) -> dict:
-        """{"k", "v"} [B, T, H, d_k] of ``key`` (and ``value``, else the
-        key)."""
+    def project_kv(self, key: torch.Tensor) -> dict:
+        """{"k", "v"} [B, T, H, d_k] of ``key`` (keys and values are the
+        same tensor at every caller)."""
         bs, tk = key.shape[:2]
-        k = self.w_key(key).view(bs, tk, self.n_heads, self.dk)
-        v = self.w_value(key if value is None else value).view(
-            bs, tk, self.n_heads, self.dk)
-        return {"k": k, "v": v}
+        return {"k": self.w_key(key).view(bs, tk, self.n_heads, self.dk),
+                "v": self.w_value(key).view(bs, tk, self.n_heads, self.dk)}
+
+    def weights(self, q: torch.Tensor, k: torch.Tensor,
+                mask: Optional[torch.Tensor]) -> torch.Tensor:
+        """The attention weights [B, H, Tq, Tk] of the projected queries q
+        [B, Tq, H, d_k] over the projected keys k [B, Tk, H, d_k]."""
+        e = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(self.dk)
+        if mask is not None:
+            mask = mask[:, None, None, :] if mask.ndim == 2 else mask[:, None]
+            e = apply_mask_logits(e, mask)
+        return torch.softmax(e.float(), -1).to(q.dtype)
 
     def forward(self, query: torch.Tensor,
                 key: Optional[torch.Tensor] = None,
-                value: Optional[torch.Tensor] = None,
                 mask: Optional[torch.Tensor] = None,
                 cache: Optional[dict] = None,
-                gen: Optional[torch.Generator] = None,
-                return_weights: bool = False):
-        """Returns (out [B, Tq, d_model], the new cache {"k", "v"}, the
-        weights [B, H, Tq, Tk] or None)."""
+                gen: Optional[torch.Generator] = None):
+        """Returns (out [B, Tq, d_model], the new cache {"k", "v"})."""
         bs, tq, _ = query.shape
         q = self.w_query(query).view(bs, tq, self.n_heads, self.dk)
         if key is not None:
-            kv = self.project_kv(key, value)
+            kv = self.project_kv(key)
             k, v = kv["k"], kv["v"]
             if cache is not None:
                 k = torch.cat([cache["k"], k], 1)
                 v = torch.cat([cache["v"], v], 1)
         else:
             k, v = cache["k"], cache["v"]
-        e = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(self.dk)
-        if mask is not None:
-            mask = mask[:, None, None, :] if mask.ndim == 2 else mask[:, None]
-            e = apply_mask_logits(e, mask)
-        aws = torch.softmax(e.float(), -1).to(q.dtype)
+        aws = self.weights(q, k, mask)
         ctx = torch.einsum("bhqk,bkhd->bqhd", self.drop(aws, gen), v)
         out = self.w_out(ctx.reshape(bs, tq, self.d_model))
-        return out, {"k": k, "v": v}, (aws if return_weights else None)
+        return out, {"k": k, "v": v}

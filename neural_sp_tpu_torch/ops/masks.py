@@ -25,10 +25,7 @@ def apply_mask_logits(logits: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return logits.masked_fill(~mask, torch.finfo(logits.dtype).min / 2)
 
 
-def causal_mask(qlen: int, klen: int | None = None, offset: int = 0,
-                device=None) -> torch.Tensor:
-    """[qlen, klen] lower-triangular mask: query i attends keys <= i +
-    offset."""
-    klen = qlen if klen is None else klen
-    q = torch.arange(qlen, device=device)[:, None]
-    return torch.arange(klen, device=device)[None] <= q + offset
+def causal_mask(n: int, device=None) -> torch.Tensor:
+    """[n, n] lower-triangular mask: query i attends keys <= i."""
+    i = torch.arange(n, device=device)
+    return i[None] <= i[:, None]

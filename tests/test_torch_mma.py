@@ -323,26 +323,35 @@ def test_mma_decode_steps_and_beam_match_jax(perturbed, monkeypatch):
     ex, el = np.asarray(e["xs"]), np.asarray(e["xlens"])
     src_mask = jnp.asarray(np.arange(ex.shape[1])[None] < el[:, None])[
         :, None]
-    jstep = jax.jit(lambda p, c, s, y, o: jm.apply(
-        {"params": p}, c, s, y, src_mask, o, jnp.asarray(ex),
-        method=lambda m, *a: m.dec_fwd.decode_step(*a)), static_argnums=(4,))
     src = jm.apply({"params": params}, jnp.asarray(ex),
                    method=lambda m, e: m.dec_fwd.precompute_src(e))
     caches = jm.apply({"params": params}, method=lambda m: m.dec_fwd.
                       init_cache(3, jnp.float32, ex.shape[1]))
-    loop = tm.dec_fwd.decode_loop(torch.from_numpy(ex), torch.from_numpy(el))
     toks = np.random.RandomState(9).randint(4, 50, (3, 4))
     toks[:, 0] = 2
-    with torch.no_grad():
+
+    @jax.jit
+    def jchain(p, caches, src):
+        """JAX's chain of decode steps, unrolled in one compile: each
+        step's logits and its MMA layers' alphas."""
+        out = []
         for i in range(toks.shape[1]):
-            caches, want_lg = jstep(params, caches, src,
-                                    jnp.asarray(toks[:, i]), i)
+            caches, lg = jm.apply(
+                {"params": p}, caches, src, jnp.asarray(toks[:, i]),
+                src_mask, i, jnp.asarray(ex),
+                method=lambda m, *a: m.dec_fwd.decode_step(*a))
+            out.append((lg, [caches[lth]["alpha"] for lth in (1, 2)]))
+        return out
+
+    want = jchain(params, caches, src)
+    loop = tm.dec_fwd.decode_loop(torch.from_numpy(ex), torch.from_numpy(el))
+    with torch.no_grad():
+        for i, (want_lg, want_alpha) in enumerate(want):
             got_lg, _ = loop.step(torch.from_numpy(toks[:, i]))
             _close(got_lg.numpy(), want_lg, f"step {i}")
-            for lth in (1, 2):
+            for lth, wa in zip((1, 2), want_alpha):
                 np.testing.assert_array_equal(
-                    loop.caches[lth]["alpha"].numpy(),
-                    np.asarray(caches[lth]["alpha"]))
+                    loop.caches[lth]["alpha"].numpy(), np.asarray(wa))
     fired = sum(int(c["alpha"].sum()) for c in loop.caches[1:])
     assert fired > 0
     mask = torch.arange(ex.shape[1])[None] < torch.from_numpy(el)[:, None]

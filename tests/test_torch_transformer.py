@@ -1,7 +1,7 @@
 """Port parity: the transformer encoder and decoder with their beam
 (``models/modules/{positional_embedding,multihead_attention}.py``,
 ``models/encoders/transformer.py``, ``models/decoders/transformer.py``,
-``Speech2TextSession._beam_one_transformer``) and the transformer recipe
+``Speech2TextSession._beam_one``) and the transformer recipe
 confs, against the JAX package on the same numpy inputs with the JAX
 weights converted (``convert_params``, strict), float32, atol = rtol =
 2e-4 (the repo's).
@@ -177,28 +177,31 @@ def test_multihead_attention_matches_jax(case):
     cache = {"k": rng.randn(b, 6, h, d // h).astype(np.float32),
              "v": rng.randn(b, 6, h, d // h).astype(np.float32)}
     if case == "full_mask2":
-        args, kw = (q, kv, kv), dict(mask=mask2)
+        args, kw = (q, kv), dict(mask=mask2)
     elif case == "full_mask3":   # the decoder's causal mask, [1, Tq, Tk]
-        args = (q, q, q)
+        args = (q, q)
         kw = dict(mask=np.tril(np.ones((5, 5), bool))[None])
     elif case == "cached":       # the source attention at decode
-        args, kw = (q, None, None), dict(mask=np.ones((b, 6), bool),
-                                         cache=cache)
+        args, kw = (q, None), dict(mask=np.ones((b, 6), bool), cache=cache)
     else:                        # incremental self-attention
-        args, kw = (q[:, :1], q[:, :1], q[:, :1]), dict(cache=cache)
+        args, kw = (q[:, :1], q[:, :1]), dict(cache=cache)
 
     def jax_args(x):
         return None if x is None else jnp.asarray(x)
 
+    # the keys are the values at every caller (JAX's value=None)
     want, wcache, waws = jm.apply(
         {"params": params}, *map(jax_args, args),
         **{k: jax.tree.map(jnp.asarray, v) for k, v in kw.items()},
         return_weights=True)
-    got, gcache, gaws = m(*(None if x is None else torch.from_numpy(x)
-                            for x in args),
-                          **{k: jax.tree.map(torch.from_numpy, v)
-                             for k, v in kw.items()},
-                          return_weights=True)
+    targs = [None if x is None else torch.from_numpy(x) for x in args]
+    tkw = {k: jax.tree.map(torch.from_numpy, v) for k, v in kw.items()}
+    got, gcache = m(*targs, **tkw)
+    # the weights from the module's parts: its query projection and the
+    # keys it attended (the returned cache)
+    tq_ = targs[0].shape[1]
+    gaws = m.weights(m.w_query(targs[0]).view(b, tq_, h, d // h),
+                     gcache["k"], tkw.get("mask"))
     _close(got.detach().numpy(), want, case)
     _close(gaws.detach().numpy(), waws, case)
     for k in ("k", "v"):
@@ -321,14 +324,35 @@ def test_sequence_log_prob_and_decode_steps_match_jax():
     tm.load_state_dict(convert_params(params), strict=True)
     tm.eval()
     xs, xlens, ys, ylens = batch(4)
-    e = jax.jit(lambda p: jm.apply(
-        {"params": p}, jnp.asarray(xs), jnp.asarray(xlens),
-        method=jm.encode)[0]["ys"])(params)
+    n_steps = 4
+    toks = np.random.RandomState(9).randint(4, 50, (3, n_steps))
+    toks[:, 0] = 2                                   # <eos> as <sos>
+
+    @jax.jit
+    def jax_side(p):
+        """The encoder's output, ``sequence_log_prob`` and the chain of
+        decode steps' logits (unrolled: the caches grow a step each), in
+        one compile."""
+        def dec(method, *a):
+            return jm.apply({"params": p}, *a, method=lambda m, *b: getattr(
+                m.dec_fwd, method)(*b))
+        e = jm.apply({"params": p}, jnp.asarray(xs), jnp.asarray(xlens),
+                     method=jm.encode)[0]["ys"]
+        slp = dec("sequence_log_prob", e["xs"], e["xlens"], jnp.asarray(ys),
+                  jnp.asarray(ylens))
+        src = dec("precompute_src", e["xs"])
+        caches = dec("init_cache", 3, jnp.float32, e["xs"].shape[1])
+        src_mask = (jnp.arange(e["xs"].shape[1])[None]
+                    < e["xlens"][:, None])[:, None]
+        lgs = []
+        for i in range(n_steps):
+            caches, lg = dec("decode_step", caches, src,
+                             jnp.asarray(toks[:, i]), src_mask, i, e["xs"])
+            lgs.append(lg)
+        return e, slp, lgs
+
+    e, want, want_lgs = jax_side(params)
     ex, el = np.asarray(e["xs"]), np.asarray(e["xlens"])
-    want = jax.jit(lambda p: jm.apply(
-        {"params": p}, jnp.asarray(ex), jnp.asarray(el), jnp.asarray(ys),
-        jnp.asarray(ylens),
-        method=lambda m, *a: m.dec_fwd.sequence_log_prob(*a)))(params)
     dec: TransformerDecoder = tm.dec_fwd
     tex, tel = torch.from_numpy(ex), torch.from_numpy(el)
     with torch.no_grad():
@@ -336,30 +360,12 @@ def test_sequence_log_prob_and_decode_steps_match_jax():
                                     torch.from_numpy(ylens))
     _close(got.numpy(), want, "sequence_log_prob")
 
-    n_steps = 4
-    toks = np.random.RandomState(9).randint(4, 50, (3, n_steps))
-    toks[:, 0] = 2                                   # <eos> as <sos>
-    src_mask = jnp.asarray(np.arange(ex.shape[1])[None] < el[:, None])[
-        :, None]
-
-    def jstep(p, caches, src, y, off):
-        return jm.apply({"params": p}, caches, src, y, src_mask, off,
-                        jnp.asarray(ex), method=lambda m, *a:
-                        m.dec_fwd.decode_step(*a))
-
-    jstep = jax.jit(jstep, static_argnums=(4,))
-    src = jm.apply({"params": params}, jnp.asarray(ex),
-                   method=lambda m, e: m.dec_fwd.precompute_src(e))
-    caches = jm.apply({"params": params}, method=lambda m: m.dec_fwd.
-                      init_cache(3, jnp.float32, ex.shape[1]))
     loop = dec.decode_loop(tex, tel)
     steps = []
     with torch.no_grad():
         for i in range(n_steps):
-            caches, want_lg = jstep(params, caches, src,
-                                    jnp.asarray(toks[:, i]), i)
             got_lg, _ = loop.step(torch.from_numpy(toks[:, i]))
-            _close(got_lg.numpy(), want_lg, f"step {i}")
+            _close(got_lg.numpy(), want_lgs[i], f"step {i}")
             steps.append(got_lg)
         # the teacher-forced pass over the same tokens
         h, _ = dec._hidden(tex, tel, torch.from_numpy(toks), None, "hard")
@@ -500,7 +506,8 @@ def _conf_args(conf):
 @pytest.mark.parametrize("conf", PLAIN_CONFS + MMA_CONFS)
 def test_transformer_recipe_conf_builds(conf):
     args = _conf_args(conf)
-    model = build_speech2text(args, device="meta")
+    with torch.device("meta"):     # no host initialisation to discard
+        model = build_speech2text(args, device="meta")
     n = sum(p.numel() for p in model.parameters())
     assert isinstance(model.dec_fwd, TransformerDecoder)
     assert any(b.mma for b in model.dec_fwd.blocks) == (conf in MMA_CONFS)
