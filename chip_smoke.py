@@ -123,8 +123,9 @@ Phases (any failure raises and the script exits non-zero):
      microbatch on the trained weights, sampling on, kernels against the
      plain versions (K2 in pass 1 too) at phase 6's tolerance;
   8. the LibriSpeech recipe's BLSTM-LAS (``BLSTM_CONF``: the conv front
-     end, 5 BLSTM-512 layers concatenated, D = 1024, on cuDNN; LSTM-1024
-     LAS; CTC 0.3; 69,197,722 parameters, f32): (8a) K2 at N = 10 and at
+     end, BLSTM-512 layers concatenated, D = 1024, on cuDNN, the conf's 5
+     cut to ``RNN_DEPTH`` = 2 for the script's time limit; LSTM-1024 LAS;
+     CTC 0.3; f32): (8a) K2 at N = 10 and at
      N = 32 with keep (T = 400), K3 and K3b at B = 32, U+1 = 101, ragged T
      up to 500, K4 at B = 32, T = 500, U = 100, V = 10,000, each against
      its plain version at phase 2's / 2b's tolerance, timed, with its
@@ -145,8 +146,9 @@ Phases (any failure raises and the script exits non-zero):
      plain versions at phase 6's tolerance, and one train() microstep
      twice: the same bits;
   9. the LibriSpeech recipe's UniLSTM-MoChA (``MOCHA_CONF``: the conv front
-     end, 5 LSTM-1024 layers on cuDNN, the LSTM-1024 LAS with MoChA chunk 4,
-     CTC 0.3 with fc 512; float32, full width and depth): (9a) phase 3's
+     end, LSTM-1024 layers on cuDNN (the conf's 5 cut to ``RNN_DEPTH``), the
+     LSTM-1024 LAS with MoChA chunk 4, CTC 0.3 with fc 512; float32, full
+     width): (9a) phase 3's
      four utterances, beam 10 + CTC 0.3 and greedy, counts zeroed around
      them (K1, K1b, K2, K3 and K3b must not run: MoChA has no kernel, and
      K2 / K3 / K3b fuse location attention), the encoder's time, one
@@ -189,7 +191,36 @@ Phases (any failure raises and the script exits non-zero):
      4): beam 10 + CTC 0.3 (hard-mode alphas), the microstep held (MoChA
      noise off), the train CLI for one epoch at accumulation 2 (one update)
      and the eval CLI, the MMA decoder's device time and operations per
-     microstep.
+     microstep;
+  11. the unidirectional and latency-controlled encoders (float32, full
+     width and depth, seeded): K1 with the causal window (B 4 and 32, H 4,
+     dk 64, R 11, T 800 / 400 / 200: the uni-Conformer's conv x2 and two
+     max_pools), K1b with it (B 32) and both bf16 entries; the streaming
+     conf's chunk window (16, 8, 0; R = T = 400) with a row of klen 10
+     whose pad queries have no allowed key (uniform rows), f32 and bf16,
+     forward and backward; K1 against cached keys (8 queries, 24 keys, 0 /
+     8 / 16 empty cache slots), f32 and bf16; each against its plain
+     version (phase 2's / 2b's rules), timed in turns with efficient SDPA
+     given the bias and the window as one mask, with the bound of the
+     window's work. (11a) the LibriSpeech uni-Conformer-MoChA
+     (``UNI_CONF``, 49,158,337 parameters) serves phase 3's utterances,
+     beam 10 + CTC 0.3 and greedy (K1 with the window must run); (11b) its
+     B = 4 train() microstep held to the CPU in float64 by 9b's rule, a
+     TF32 control (K1b with the window must run); (11c) its train CLI for
+     one update (``STREAM_OVERRIDES``) and the eval CLI as stage 5; (11d)
+     the repo's streaming conf (``STREAM_CONF``, mask mode, 31,935,681
+     parameters): phase 3's utterances cut to whole blocks, streamed
+     through ``streaming_step`` (K1 against the cached keys), held within
+     ``STREAM_RTOL`` to the offline chunk-before-conv forward (ROADMAP
+     C27), its microstep held as 11b, ``decode_streaming`` (the
+     block-synchronous MoChA beam 10 + CTC 0.3) of the 4 utterances (RTF,
+     wall per block, resets) and the eval CLI with ``--recog_streaming
+     true`` on its seeded weights (the conf's bf16 training with MoChA
+     raises); (11e) the LibriSpeech LC-Transformer-MMA (``LC_CONF``,
+     reshape mode, 35,576,204 parameters): its microstep held as 10d, its
+     train CLI for one update, the eval CLI offline and streaming (JAX's
+     dispatch runs the CTC block-synchronous beam for a transformer
+     decoder, ROADMAP C26).
 
 Launches per step (per encode for K1, per decode step for K2, per training
 microstep for the rest; K1 / K1b bf16 in phase 5's bf16 run) are counted
@@ -201,7 +232,9 @@ per training microstep (``train_launches_per_microstep``); phase 8's path
 kernel's numbers at phase 8's shapes (``blstm``); phase 9's path (its served
 requests and its two CLI runs, ``mocha_launches``); phase 10's path
 (the served requests and the CLI runs of both confs,
-``transformer_launches``). Prints the
+``transformer_launches``); phase 11's path (``streaming_launches``), with
+rows of their own for K1 with a window, K1b with a window and K1 against
+cached keys. Prints the
 details as JSON (also written to ``chiprun_out/chip_smoke.json``), then one
 JSON line of per-kernel results (launches, launches_per_step, ms,
 plain_ms, bound_ms, bound_by, library_ms, errors), the card's ``name,
@@ -2353,14 +2386,18 @@ def phase_sampling_times(torch, model, batch) -> dict:
 
 
 # Phase 8: the LibriSpeech recipe's BLSTM-LAS (``BLSTM_CONF``,
-# ``configs.librispeech_blstm_las_args``) at full width and depth: the conv
-# front end (two 32-channel 3x3 blocks, each pooling (2, 2)), 5 BLSTM-512
-# layers with the directions concatenated (D = 1024), the LSTM-1024 LAS
-# with location attention, CTC 0.3; float32. The RNN layers run cuDNN. The
-# overrides are the run's length and the word unit of phase 7 (the same
-# corpus).
+# ``configs.librispeech_blstm_las_args``) at full width: the conv front end
+# (two 32-channel 3x3 blocks, each pooling (2, 2)), BLSTM-512 layers with
+# the directions concatenated (D = 1024), the LSTM-1024 LAS with location
+# attention, CTC 0.3; float32. The RNN layers run cuDNN. Its depth is cut
+# from the conf's 5 BLSTM layers to RNN_DEPTH (phase 9's too), so that the
+# whole script keeps within its time limit as phase 11 joins it. The
+# overrides are that depth, the run's length and the word unit of phase 7
+# (the same corpus).
+RNN_DEPTH = 2
 BLSTM_CONF = "examples/librispeech/conf/asr/blstm_las.yaml"
-BLSTM_OVERRIDES = ("--n_epochs", "2", "--unit", "word")
+BLSTM_OVERRIDES = ("--n_epochs", "2", "--unit", "word", "--enc_n_layers",
+                   str(RNN_DEPTH))
 BLSTM_D = 1024
 # the kernels the BLSTM-LAS trains through (K2 in scheduled sampling's
 # pass 1), and those it must never launch: it has no self-attention
@@ -2384,7 +2421,9 @@ def blstm_model(torch):
     from neural_sp_tpu_torch.configs import librispeech_blstm_las_args
     from neural_sp_tpu_torch.models.speech2text import build_speech2text
     from neural_sp_tpu_torch.utils.init_params import init_params
-    model = build_speech2text(librispeech_blstm_las_args())   # on the card
+    args = librispeech_blstm_las_args()
+    args.enc_n_layers = RNN_DEPTH
+    model = build_speech2text(args)   # on the card
     init_params(model, SEED)
     return model.eval()
 
@@ -2686,8 +2725,9 @@ def phase_blstm(torch, rng, root: Path, corpus: dict, xs, xlens) -> dict:
 
 
 # Phase 9: the LibriSpeech recipe's UniLSTM-MoChA (``MOCHA_CONF``,
-# ``configs.librispeech_lstm_mocha_args``) at full width and depth: the
-# conv front end, 5 unidirectional LSTM-1024 layers (cuDNN), the LSTM-1024
+# ``configs.librispeech_lstm_mocha_args``) at full width, its depth cut as
+# phase 8's (``RNN_DEPTH``): the conv front end, unidirectional LSTM-1024
+# layers (cuDNN; the conf has 5), the LSTM-1024
 # LAS decoder with MoChA (chunk 4, additive energies, attn_dim 512, init_r
 # -4, noise std 1.0, quantity loss 0.1), CTC 0.3 with fc 512; float32.
 # MoChA has no kernel (the JAX package computes it in plain JAX): K2, K3
@@ -2696,7 +2736,8 @@ def phase_blstm(torch, rng, root: Path, corpus: dict, xs, xlens) -> dict:
 # (the same corpus).
 MOCHA_CONF = "examples/librispeech/conf/asr/mocha/lstm_mocha.yaml"
 MOCHA_SYNC_CONF = "examples/librispeech/conf/asr/mocha/lstm_mocha_ctc_sync.yaml"
-MOCHA_OVERRIDES = ("--n_epochs", "2", "--unit", "word")
+MOCHA_OVERRIDES = ("--n_epochs", "2", "--unit", "word", "--enc_n_layers",
+                   str(RNN_DEPTH))
 MOCHA_D = 1024
 MOCHA_TRAIN_KERNELS = ("ctc_loss", "ctc_loss_bwd")
 NOT_ON_MOCHA_PATH = NOT_ON_RNN_PATH + ("las_step", "las_scan",
@@ -2715,11 +2756,19 @@ DECISION_MARGIN = 1e-3
 GREEDY_NOISE = 0.05
 
 
-def mocha_model(torch, args=None):
+def mocha_args(args=None):
+    """``args`` (the LibriSpeech LSTM-MoChA's by default) with the encoder
+    cut to RNN_DEPTH layers."""
     from neural_sp_tpu_torch.configs import librispeech_lstm_mocha_args
+    args = args or librispeech_lstm_mocha_args()
+    args.enc_n_layers = RNN_DEPTH
+    return args
+
+
+def mocha_model(torch, args=None):
     from neural_sp_tpu_torch.models.speech2text import build_speech2text
     from neural_sp_tpu_torch.utils.init_params import init_params
-    model = build_speech2text(args or librispeech_lstm_mocha_args())
+    model = build_speech2text(mocha_args(args))
     init_params(model, SEED)
     return model.eval()
 
@@ -2785,7 +2834,7 @@ def mocha_microstep(torch, model, batch, seed=SEED):
                                  torch.Generator().manual_seed(seed))
         loss.backward()
     grads = {n: p.grad.detach().double().cpu()
-             for n, p in model.named_parameters()}
+             for n, p in model.named_parameters() if p.grad is not None}
     model.zero_grad(set_to_none=True)
     return float(loss.detach()), grads, {
         k: float(v.detach()) for k, v in obs.items()
@@ -2844,12 +2893,11 @@ def phase_mocha_hold(torch, model, xs, xlens) -> dict:
     keeps them), the tokens identical up to each row's first decision with
     less than DECISION_MARGIN."""
     import numpy as np
-    from neural_sp_tpu_torch.configs import librispeech_lstm_mocha_args
     from neural_sp_tpu_torch.models.speech2text import build_speech2text
     xs_t = torch.from_numpy(xs)
     xl_t = torch.from_numpy(xlens)
     dev = next(model.parameters()).device
-    cpu = build_speech2text(librispeech_lstm_mocha_args(), device="cpu")
+    cpu = build_speech2text(mocha_args(), device="cpu")
     cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
     cpu.double()
     out = {}
@@ -3803,6 +3851,633 @@ def phase_transformer(torch, root: Path, corpus: dict, xs, xlens) -> dict:
     return out
 
 
+# ---- phase 11: the unidirectional and latency-controlled encoders -------
+UNI_CONF = "examples/librispeech/conf/asr/mocha/uni_conformer_kernel7_" \
+    "clamp10_hie_subsample8_mocha_ln_stableemit0.2_qua0.2.yaml"
+STREAM_CONF = "examples/librispeech/conf/asr/uni_conformer_mocha_" \
+    "streaming.yaml"
+LC_CONF = "examples/librispeech/conf/asr/mma/streaming/lc_transformer_mma_" \
+    "subsample8_ma4H_ca4H_w16_from4L_64_128_64.yaml"
+# 10d's override: one epoch at accumulation 2, so that phase 7's 64
+# utterances give an optimizer update (the confs' 16 and 8 give none)
+STREAM_OVERRIDES = ("--n_epochs", "1", "--accum_grad_n_steps", "2",
+                    "--unit", "word")
+STREAM_EVAL = CLI_EVAL + ("--recog_streaming", "true")
+# K1's window for the unidirectional encoder (causal_mask), and the
+# streaming conf's chunks in encoder frames: left 64, current 32, right 0
+# input frames over its x4 front end
+CAUSAL_WINDOW = (-1, 1, 0)
+STREAM_WINDOW = (16, 8, 0)
+# the device phase 11 puts its inputs on
+DEVICE = "cuda"
+# 11d: the streamed encoder against the offline chunk-before-conv forward,
+# max |err| / max |output|: float32 sums in other orders (the block's
+# queries against the cached keys through K1 with the offset, the offline
+# rows through K1 with the chunk window), as JAX's streaming test holds
+# its two forwards
+STREAM_RTOL = 1e-4
+
+
+def window_bias(torch, p, klens, tk: int, window=None, key_start: int = 0):
+    """K1's rel-PE bias and key mask with a window (or against cached keys:
+    p's Tq rows the last of Tk) as one additive [B, H, Tq, Tk] mask for the
+    library yardstick, in p's type: p[b, h, i, min(|i + Tk - Tq - j|, R-1)]
+    on allowed keys, finfo(f32).min / 2 on the others (a row with none
+    softmaxes to uniform weights, as K1's). Rows padded to a multiple of
+    16 elements, the alignment the efficient kernel takes."""
+    from neural_sp_tpu_torch.ops.masks import window_mask
+    b, h, tq, r = p.shape
+    i = torch.arange(tq, device=p.device) + (tk - tq)
+    j = torch.arange(tk, device=p.device)
+    idx = (i[:, None] - j[None, :]).abs().clamp(max=r - 1)
+    bias = torch.empty((b, h, tq, -(-tk // 16) * 16), device=p.device,
+                       dtype=p.dtype)[..., :tk]
+    bias.copy_(torch.gather(p, -1, idx.expand(b, h, tq, tk)))
+    ok = window_mask(klens, tq, tk, window, key_start, p.device)[:, None]
+    return bias.masked_fill_(~ok, torch.finfo(torch.float32).min / 2)
+
+
+def window_case(torch, rng, b, h, tt, dk, r, kl, window, tag: str,
+                bwd: bool = True, bf16: bool = False, tq: int | None = None,
+                key_start: int = 0) -> dict:
+    """K1 with ``window`` (or ``tq`` queries against ``tt`` keys, the first
+    ``key_start`` masked) and, with ``bwd``, K1b, on seeded inputs, held to
+    their plain versions (float32: KERNEL_ATOL for o, TRAIN_KERNEL_TOL of
+    the max for K1b's outputs; bf16: BF16_KERNEL_TOL of the plain bf16
+    max and at most BF16_VS_F32_RATIO times the plain bf16 version's error
+    against the plain float32 version), timed in turns with efficient SDPA
+    given the bias and the window as one mask (and its autograd
+    backward), beside the plain version's time and the bound of the
+    window's work."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+    from neural_sp_tpu_torch.ops.kernels.rel_attention import (
+        rel_attention_bwd, rel_attention_bwd_cost, rel_attention_bwd_ref,
+        rel_attention_cost, rel_attention_fwd, rel_attention_ref)
+    dev = torch.device(DEVICE)
+    dt = torch.bfloat16 if bf16 else torch.float32
+    tq = tt if tq is None else tq
+
+    def t(*shape, scale=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale).astype(
+            "float32")).to(dev).to(dt)
+
+    q = t(b, h, tq, dk, scale=dk ** -0.5)
+    k, v = t(b, h, tt, dk), t(b, h, tt, dk)
+    p = t(b, h, tq, r, scale=dk ** -0.5)
+    klens = torch.tensor(kl, dtype=torch.int32, device=dev)
+    fwd = (q, k, v, p, klens, window, key_start)
+    what = f"B={b} H={h} Tq={tq} Tk={tt} dk={dk} R={r} window={window} " \
+        f"key_start={key_start} klens={kl if len(kl) <= 4 else '...'} " \
+        f"{'bf16' if bf16 else 'f32'}"
+    o, m, l = rel_attention_fwd(*fwd)
+    want = rel_attention_ref(*fwd)
+    row = {"shape": what}
+    if bf16:
+        f32 = (*(x.float() for x in (q, k, v, p)), klens, window, key_start)
+        want32 = rel_attention_ref(*f32)
+        err = rel_err(o, want)
+        ratio = max_err(o.float(), want32) / max(
+            max_err(want.float(), want32), 1e-30)
+        expect(err <= BF16_KERNEL_TOL, f"[{tag}] K1 {what}: error {err}")
+        expect(ratio <= BF16_VS_F32_RATIO,
+               f"[{tag}] K1 {what}: {ratio:.3f}x the plain bf16 error")
+        row.update(max_abs_err=err, vs_f32_ratio=ratio)
+    else:
+        err = max_err(o, want)
+        expect(err <= KERNEL_ATOL, f"[{tag}] K1 {what}: error {err}")
+        row["max_abs_err"] = err
+    bias = window_bias(torch, p, klens, tt, window, key_start)
+    with efficient_sdpa():
+        lib_err = rel_err(sdpa(q, k, v, attn_mask=bias, scale=1.0), want)
+        ms, lib_ms = timed_pair(lambda: rel_attention_fwd(*fwd), lambda: sdpa(
+            q, k, v, attn_mask=bias, scale=1.0))
+    expect(lib_err <= (BF16_KERNEL_TOL if bf16 else YARDSTICK_RTOL),
+           f"[{tag}] K1 yardstick {what}: error {lib_err}")
+    row.update(ms=ms, plain_ms=cuda_ms(lambda: rel_attention_ref(*fwd),
+                                       iters=5),
+               library_ms=lib_ms, library_err=lib_err,
+               **roofline(rel_attention_cost(
+                   b, h, tq, dk, r, kl, elem=2 if bf16 else 4,
+                   window=window, tk=tt, key_start=key_start), bf16=bf16))
+    log(f"[{tag}] K1 {what}: error {row['max_abs_err']:.3e}  kernel "
+        f"{ms:.4f} ms  plain {row['plain_ms']:.4f} ms  library (SDPA, "
+        f"efficient, the window in its mask) {lib_ms:.4f} ms (its error "
+        f"{lib_err:.2e})  bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+    out = {"fwd": row}
+    if not bwd:
+        return out
+    do = t(b, h, tq, dk)
+    args = (q, k, v, p, klens, o, m, l, do, window)
+    got = rel_attention_bwd(*args)
+    want = rel_attention_bwd_ref(*args)
+    err = max(rel_err(x, y) for x, y in zip(got, want))
+    brow = {"shape": what, "max_abs_err": err}
+    if bf16:
+        want32 = rel_attention_bwd_ref(*f32[:5], o.float(), m, l, do.float(),
+                                       window)
+        ratio = max(max_err(x.float(), z) / max(max_err(y.float(), z), 1e-30)
+                    for x, y, z in zip(got, want, want32))
+        expect(err <= BF16_KERNEL_TOL, f"[{tag}] K1b {what}: error {err}")
+        expect(ratio <= BF16_VS_F32_RATIO,
+               f"[{tag}] K1b {what}: {ratio:.3f}x the plain bf16 error")
+        brow["vs_f32_ratio"] = ratio
+    else:
+        expect(err <= TRAIN_KERNEL_TOL["rel_attention_bwd"],
+               f"[{tag}] K1b {what}: error {err}")
+    again = rel_attention_bwd(*args)
+    expect(all(torch.equal(x, y) for x, y in zip(got, again)),
+           f"[{tag}] K1b {what}: not the same bits twice")
+    bias.requires_grad_()
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    with efficient_sdpa():
+        lib_out = sdpa(*leaves, attn_mask=bias, scale=1.0)
+
+        def lib_grads():
+            return torch.autograd.grad(lib_out, (*leaves, bias), do,
+                                       retain_graph=True)
+
+        ms, lib_ms = timed_pair(lambda: rel_attention_bwd(*args), lib_grads,
+                                iters=10)
+    brow.update(ms=ms, plain_ms=cuda_ms(lambda: rel_attention_bwd_ref(*args),
+                                        iters=3),
+                library_ms=lib_ms, **roofline(rel_attention_bwd_cost(
+                    b, h, tt, dk, r, kl, elem=2 if bf16 else 4,
+                    window=window), bf16=bf16))
+    log(f"[{tag}] K1b {what}: error {err:.3e} of the plain max  kernel "
+        f"{ms:.4f} ms  plain {brow['plain_ms']:.4f} ms  library (SDPA "
+        f"backward, the window in its mask; dp's buckets not summed) "
+        f"{lib_ms:.4f} ms  bound {brow['bound_ms']:.4f} ms "
+        f"({brow['bound_by']})")
+    out["bwd"] = brow
+    return out
+
+
+def phase_window_kernels(torch, rng) -> dict:
+    """11a / 11d: K1 and K1b with the paths' windows at their shapes.
+    11a, the uni-Conformer (H 4, dk 64, R 11; its conv x2 and two
+    max_pools leave T = 800 / 400 / 200 of phase 3's 1600 frames): the
+    causal window at B 4 (the served batch, ragged) and B 32 (a training
+    batch, ragged), K1b with it at B 32, and both bf16 entries at B 32, T
+    800. 11d, the streaming conf (conv x4: T = 400; R = T unclamped): the
+    chunk window (16, 8, 0) at B 4 and B 32 with a row of klen 10, whose
+    pad queries from frame 32 on have no allowed key, f32 and bf16; then
+    a streaming block's 8 queries against 24 keys (16 cached) with 0, 8
+    and 16 of the cache's slots empty, R = 24."""
+    import numpy as np
+    out = {}
+    h, dk, r = 4, 64, 11
+    causal = []
+    for tt in (800, 400, 200):
+        kl4 = [tt, tt - tt // 4, tt // 2, tt // 3 + 1]
+        causal.append(window_case(torch, rng, 4, h, tt, dk, r, kl4,
+                                  CAUSAL_WINDOW, "11a", bwd=False))
+        kl32 = np.maximum(tt - (np.arange(32) * tt) // 64, 1).tolist()
+        causal.append(window_case(torch, rng, 32, h, tt, dk, r, kl32,
+                                  CAUSAL_WINDOW, "11a"))
+    kl32 = np.maximum(800 - (np.arange(32) * 800) // 64, 1).tolist()
+    causal.append(window_case(torch, rng, 32, h, 800, dk, r, kl32,
+                              CAUSAL_WINDOW, "11a", bf16=True))
+    out["causal"] = causal
+    chunk = []
+    tt = 400
+    for b, kl in ((4, [400, 325, 10, 175]),
+                  (32, np.maximum(400 - (np.arange(32) * 400) // 40,
+                                  10).tolist())):
+        for bf16 in (False, True):
+            chunk.append(window_case(torch, rng, b, h, tt, dk, tt, kl,
+                                     STREAM_WINDOW, "11d", bf16=bf16))
+    out["chunk"] = chunk
+    offset = []
+    for key_start in (16, 8, 0):
+        for bf16 in (False, True):
+            offset.append(window_case(torch, rng, 1, h, 24, dk, 24, [24],
+                                      None, "11d", bwd=False, bf16=bf16,
+                                      tq=8, key_start=key_start))
+    out["offset"] = offset
+    return out
+
+
+def hold_with_control(torch, model, cpu, on_card, on_cpu, tag: str,
+                      kernels: tuple) -> dict:
+    """One train() microstep of ``model`` on the card held to the same
+    microstep of ``cpu`` (its float64 copy) by 9b's rule, ``kernels``
+    launched in the card's microstep, and a TF32 control that must break
+    the rule."""
+    import numpy as np
+    from neural_sp_tpu_torch.ops.kernels import launches, reset_launches
+    reset_launches()
+    t0 = time.perf_counter()
+    loss, grads, obs = mocha_microstep(torch, model, on_card)
+    card_s = time.perf_counter() - t0
+    counts = launches()
+    t0 = time.perf_counter()
+    loss_ref, grads_ref, obs_ref = mocha_microstep(torch, cpu, on_cpu)
+    cpu_s = time.perf_counter() - t0
+    log(f"[{tag}] train() microstep B {len(MOCHA_U)} x "
+        f"{on_card[0].shape[1]} frames, U {list(MOCHA_U)}: card "
+        f"{card_s:.2f} s, CPU float64 {cpu_s:.2f} s; card {obs}; CPU "
+        f"{obs_ref}; launches {counts}")
+    expect(all(np.isfinite(v) for v in obs.values()), f"{tag} losses {obs}")
+    for name in kernels:
+        expect(counts[name] > 0, f"{name} never launched in {tag}'s "
+               f"microstep: {counts}")
+    held = hold_microstep(loss, grads, loss_ref, grads_ref, tag, floor=True)
+    out = {"card_s": card_s, "cpu_float64_s": cpu_s, "obs": obs,
+           "obs_float64": obs_ref, "microstep": held, "launches": counts}
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        loss_c, grads_c, _ = mocha_microstep(torch, model, on_card)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    ctl = microstep_errors(loss_c, grads_c, loss_ref, grads_ref, floor=True)
+    leaves = ctl.pop("leaves")
+    worst = max(leaves, key=lambda n: leaves[n][0])
+    ctl.update(worst_grad=leaves[worst][0], worst_grad_leaf=worst,
+               leaves_past_tolerance=sum(v[0] > 1 for v in leaves.values()))
+    out["tf32_control"] = ctl
+    log(f"[{tag}] TF32 control: loss rel {ctl['loss_rel_err']:.2e}, worst "
+        f"leaf {worst} {ctl['worst_grad']:.3f} of its tolerance, "
+        f"{ctl['leaves_past_tolerance']} of {len(leaves)} leaves past it")
+    expect(ctl["loss_rel_err"] > LOSS_RTOL or ctl["worst_grad"] > 1.0,
+           f"{tag}'s rule passed a card microstep with TF32 on")
+    return out
+
+
+def uni_hold(torch, model, xs, xlens, make: str, tag: str,
+             decoder_apart: bool = False) -> dict:
+    """11b / 11d: one train() microstep at B = 4 (phase 3's utterances, U
+    40-100; dropout and MoChA's noise on, as 9b) on the card held to the
+    same microstep on the CPU in float64 (``hold_with_control``); K1 and
+    K1b with the window and K4 must run. With ``decoder_apart`` (11d: the
+    streaming conf, whose MoChA decoder makes a float32 microstep's loss
+    and gradients rounding, ROADMAP C29: two float32 runs on the CPU part
+    as far from each other as from float64) the whole microstep's loss and
+    gradients are measured against float64 beside the same microstep's on
+    the CPU in float32, with no rule (float32's own is as far), and 9b's
+    rule holds the microstep of the encoder and the CTC head
+    (``ctc_weight`` 1: the decoder does not run), which carries every
+    kernel of the path."""
+    from neural_sp_tpu_torch import configs
+    from neural_sp_tpu_torch.models.speech2text import build_speech2text
+    import numpy as np
+    dev = next(model.parameters()).device
+    cpu = build_speech2text(getattr(configs, make)(), device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    x, xl = torch.from_numpy(xs), torch.from_numpy(xlens)
+    ys, ylens = mocha_labels(torch, np.random.default_rng(SEED + 9),
+                             model.dec_fwd.vocab)
+    on_card = tuple(v.to(dev) for v in (x, xl, ys, ylens))
+    on_cpu = (x.double(), xl, ys, ylens)
+    window = ("rel_attention_window", "rel_attention_bwd_window",
+              "ctc_loss", "ctc_loss_bwd")
+    if not decoder_apart:
+        cpu.double()
+        out = hold_with_control(torch, model, cpu, on_card, on_cpu, tag,
+                                window)
+        model.eval()
+        return out
+    loss, grads, obs = mocha_microstep(torch, model, on_card)
+    loss32, grads32, _ = mocha_microstep(torch, cpu, (x, xl, ys, ylens))
+    cpu.double()
+    loss_ref, grads_ref, obs_ref = mocha_microstep(torch, cpu, on_cpu)
+
+    def dist(g):
+        return {n: float((g[n] - grads_ref[n]).norm() /
+                         max(float(grads_ref[n].norm()), 1e-30))
+                for n in grads_ref if not n.endswith(ZERO_GRAD_LEAF)}
+
+    d_card, d_cpu32 = dist(grads), dist(grads32)
+    loss_err = abs(loss - loss_ref) / abs(loss_ref)
+    whole = {"loss_rel_err": loss_err,
+             "loss_rel_err_cpu_float32": abs(loss32 - loss_ref) /
+             abs(loss_ref), "obs": obs, "obs_float64": obs_ref,
+             "median_leaf_rel_dist": float(np.median(list(d_card.values()))),
+             "median_leaf_rel_dist_cpu_float32": float(np.median(list(
+                 d_cpu32.values()))),
+             "max_leaf_rel_dist": max(d_card.values()),
+             "max_leaf_rel_dist_cpu_float32": max(d_cpu32.values())}
+    log(f"[{tag}] the whole microstep (MoChA decoder on): loss rel "
+        f"{loss_err:.2e} of float64 (CPU float32 "
+        f"{whole['loss_rel_err_cpu_float32']:.2e}); per leaf |g - g64| / "
+        f"|g64|, median {whole['median_leaf_rel_dist']:.3e} / max "
+        f"{whole['max_leaf_rel_dist']:.3e} on the card, "
+        f"{whole['median_leaf_rel_dist_cpu_float32']:.3e} / "
+        f"{whole['max_leaf_rel_dist_cpu_float32']:.3e} for the CPU in "
+        f"float32 (ROADMAP C29)")
+    for m in (model, cpu):
+        m.ctc_weight = 1.0
+    try:
+        out = hold_with_control(torch, model, cpu, on_card, on_cpu,
+                                f"{tag} encoder + CTC", window)
+    finally:
+        for m in (model, cpu):
+            m.ctc_weight = getattr(configs, make)().ctc_weight
+    out["whole_microstep"] = whole
+    model.eval()
+    return out
+
+
+def stream_cli(torch, root: Path, corpus: dict, conf: str, tag: str,
+               train: bool, evals: dict, train_kernels: tuple,
+               model=None) -> dict:
+    """11c / 11d / 11e: with ``train``, ``bin.asr.train.main`` on ``conf``
+    (``STREAM_OVERRIDES``, phase 7's corpus), counts zeroed around it:
+    ``train_kernels`` must run, every loss must be finite, at least one
+    optimizer update, every weight leaf of its checkpoint moved from the
+    CLI's initial weights; without, ``model``'s weights saved with the
+    conf as the train CLI leaves them (a conf that cannot train through
+    the CLI). Then ``bin.asr.eval.main`` with each argument list of
+    ``evals`` (counts zeroed around each)."""
+    import math
+    from types import SimpleNamespace
+    from neural_sp_tpu_torch.bin.args import parse_args_train, save_config
+    from neural_sp_tpu_torch.bin.asr import eval as cli_eval
+    from neural_sp_tpu_torch.bin.asr import train as cli_train
+    from neural_sp_tpu_torch.ops.kernels import launches, reset_launches
+    from neural_sp_tpu_torch.parallel.mesh import TrainStep
+    from neural_sp_tpu_torch.trainers.checkpoint import save_checkpoint
+    sync = torch.cuda.synchronize
+    name = Path(conf).stem
+    exp = str(root / f"exp_{name}")
+    data = ["--train_set", corpus["train"], "--dev_set", corpus["dev"],
+            "--dict", corpus["dict"], "--model_save_dir", exp]
+    out = {"conf": conf}
+    if train:
+        steps, initial = [], {}
+        orig_call, orig_init = TrainStep.__call__, cli_train.init_params
+
+        def timed_call(self, *a, **kw):
+            sync()
+            t = time.perf_counter()
+            m = orig_call(self, *a, **kw)
+            sync()
+            steps.append((time.perf_counter() - t, bool(m["emitted"]),
+                          float(m["loss"])))
+            return m
+
+        def kept_init(model, seed):
+            model = orig_init(model, seed)
+            initial.update({k: v.detach().clone()
+                            for k, v in model.named_parameters()})
+            return model
+
+        reset_launches()
+        t0 = time.perf_counter()
+        with mock.patch.object(TrainStep, "__call__", timed_call), \
+                mock.patch.object(cli_train, "init_params", kept_init):
+            cli_train.main(["--config", str(ROOT / conf)] + data +
+                           list(STREAM_OVERRIDES))
+        sync()
+        wall = time.perf_counter() - t0
+        counts = launches()
+        cycles, cur = [], 0.0
+        for s in steps:
+            cur += s[0]
+            if s[1]:
+                cycles.append(cur)
+                cur = 0.0
+        trained, _, _ = cli_eval.load_model_for_eval(SimpleNamespace(
+            recog_model=exp, recog_n_average=1))
+        with torch.no_grad():
+            moved = {n: float((p - initial[n].to(p.device)).abs().max())
+                     for n, p in trained.named_parameters()}
+        del trained
+        still = sorted(n for n, d in moved.items() if d == 0)
+        out["train"] = {
+            "wall_s": wall, "microsteps": len(steps),
+            "optimizer_steps": len(cycles),
+            "ms_per_optimizer_step": 1e3 * sum(cycles) / max(len(cycles), 1),
+            "microstep_loss": [s[2] for s in steps], "launches": counts,
+            "leaves_moved": len(moved) - len(still),
+            "largest_weight_change": max(moved.values())}
+        log(f"[{tag}] train CLI on {conf}: {len(steps)} microsteps, "
+            f"{len(cycles)} updates, "
+            f"{out['train']['ms_per_optimizer_step']:.1f} ms per optimizer "
+            f"step, wall {wall:.1f} s; {len(moved) - len(still)} of "
+            f"{len(moved)} leaves moved (largest "
+            f"{max(moved.values()):.3e}); launches {counts}")
+        for k in train_kernels:
+            expect(counts[k] > 0, f"{k} never launched in {tag}'s train CLI")
+        expect(all(math.isfinite(s[2]) for s in steps), f"{tag} {steps}")
+        expect(len(cycles) >= 1, f"{tag}: no optimizer update")
+        expect(not still, f"{tag}: leaves the update left unmoved: "
+               f"{still[:6]}")
+    else:
+        args = parse_args_train(["--config", str(ROOT / conf)] + data +
+                                list(STREAM_OVERRIDES))
+        args.vocab = CLI_VOCAB
+        save_checkpoint(exp, 1, model.state_dict())
+        save_config(vars(args), str(Path(exp) / "conf.yml"))
+        out["train"] = None
+    lm_dir = recipe_lm(root)
+    for what, extra in evals.items():
+        reset_launches()
+        t = time.perf_counter()
+        res = cli_eval.main(["--recog_model", exp, "--recog_sets",
+                             corpus["test"], "--recog_lm", lm_dir,
+                             "--recog_dir", str(root / f"decode_{name}_"
+                                                f"{what}")] + list(extra))
+        sync()
+        wall = time.perf_counter() - t
+        counts = launches()
+        (m,) = res.values()
+        out[f"eval_{what}"] = {**m, "wall_s": wall, "launches": counts}
+        log(f"[{tag}] eval CLI {what}: RTF {m['rtf']:.4f}, wall {wall:.1f} s "
+            f"(with loading), WER {m['wer']:.2f} over {m['n_utts']} "
+            f"utterances (random weights); {m}; launches {counts}")
+        expect(m["n_utts"] == CLI_UTTS["test"], f"{m['n_utts']} utterances")
+    return out
+
+
+def stream_against_offline(torch, model, xs, xlens) -> dict:
+    """11d: each utterance cut to whole 32-frame blocks, streamed block by
+    block through ``streaming_step`` (K1 against the cached keys) and held
+    to the offline mask-mode forward of the same weights with the CNN run
+    per chunk (``unidirectional`` off: JAX's chunk-before-conv path, which
+    its streaming is designed to equal; the conf's own offline forward
+    runs the CNN over the whole utterance, ROADMAP C27), within
+    STREAM_RTOL of the largest output; the gap to the conf's own offline
+    forward is logged beside it."""
+    from neural_sp_tpu_torch.frontends.streaming import StreamingDriver
+    from neural_sp_tpu_torch.ops.kernels import launches, reset_launches
+    enc = model.encoder
+    total, hop = enc.block_input_frames()
+    out = {"utterances": []}
+    reset_launches()
+    with torch.inference_mode():
+        for i, n in enumerate(xlens):
+            n = int(n) // hop * hop
+            x = torch.from_numpy(xs[i:i + 1, :n]).to(DEVICE)
+            cache, blocks = enc.init_stream_cache(1), []
+            t0 = time.perf_counter()
+            for blk, _, _ in StreamingDriver(xs[i, :n], total, hop, 0):
+                o, cache = enc.streaming_step(
+                    torch.from_numpy(blk).to(DEVICE)[None], cache)
+                blocks.append(o)
+            stream = torch.cat(blocks, 1)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            full = torch.tensor([n], device=x.device)
+            enc.unidirectional = False
+            try:
+                chunked = enc(x, full)["ys"]["xs"]
+            finally:
+                enc.unidirectional = True
+            own = enc(x, full)["ys"]["xs"]
+            scale = float(chunked.abs().max())
+            err = float((stream - chunked).abs().max()) / scale
+            gap = float((stream - own).abs().max()) / scale
+            row = {"frames": n, "blocks": len(blocks), "rel_err": err,
+                   "gap_to_uni_offline": gap, "stream_wall_s": wall,
+                   "wall_ms_per_block": wall * 1e3 / len(blocks)}
+            out["utterances"].append(row)
+            log(f"[11d] streamed {n} frames in {len(blocks)} blocks "
+                f"({row['wall_ms_per_block']:.2f} ms of wall each): against "
+                f"the chunk-before-conv offline forward {err:.2e} of its "
+                f"max; against the conf's own offline forward {gap:.2e} "
+                f"(C27)")
+            expect(err <= STREAM_RTOL, f"11d streamed encoder: {err}")
+    out["launches"] = launches()
+    expect(out["launches"]["rel_attention_offset"] > 0,
+           "K1 never ran against cached keys in streaming_step")
+    return out
+
+
+def stream_decode(torch, model, xs, xlens) -> dict:
+    """11d: ``decode_streaming`` (the block-synchronous MoChA beam 10 +
+    CTC 0.3) of phase 3's utterances, one at a time; counts zeroed around
+    them (K1 against cached keys must run): RTF, wall per block, resets,
+    commits and each hypothesis's boundaries."""
+    from neural_sp_tpu_torch.models.decoders.decoding import (
+        DecodeConfig, Speech2TextSession)
+    from neural_sp_tpu_torch.ops.kernels import launches, reset_launches
+    sess = Speech2TextSession(model, DecodeConfig(beam_width=10,
+                                                  ctc_weight=0.3))
+    hop = model.encoder.block_input_frames()[1]
+    sess.decode_streaming(xs[0, :4 * hop])        # warm-up, not counted
+    reset_launches()
+    rows = []
+    t0 = time.perf_counter()
+    for i, n in enumerate(xlens):
+        t = time.perf_counter()
+        hyp, stats = sess.decode_streaming(xs[i, :int(n)])
+        wall = time.perf_counter() - t
+        n_blocks = -(-int(n) // hop)
+        rows.append({"frames": int(n), "hyp_len": len(hyp), "wall_s": wall,
+                     "wall_ms_per_block": wall * 1e3 / n_blocks,
+                     "rtf": stats["rtf"], "n_resets": stats["n_resets"],
+                     "boundaries": len(stats.get("boundaries", [])),
+                     "n_out_frames": stats.get("n_out_frames")})
+        expect(all(isinstance(y, int) and 0 <= y < model.dec_fwd.vocab
+                   for y in hyp), f"11d streaming hypothesis {hyp}")
+        log(f"[11d] decode_streaming {n} frames: hyp len {len(hyp)}, RTF "
+            f"{stats['rtf']:.4f}, {rows[-1]['wall_ms_per_block']:.1f} ms "
+            f"of wall per block, resets {stats['n_resets']}")
+    wall = time.perf_counter() - t0
+    counts = launches()
+    log(f"[11d] decode_streaming of {len(xlens)} utterances: wall "
+        f"{wall:.2f} s, RTF {wall / (float(sum(xlens)) * FRAME_SEC):.4f}; "
+        f"launches {counts}")
+    expect(counts["rel_attention_offset"] > 0,
+           "K1 never ran against cached keys in decode_streaming")
+    return {"utterances": rows, "wall_s": wall, "launches": counts,
+            "rtf": wall / (float(sum(xlens)) * FRAME_SEC)}
+
+
+def phase_streaming(torch, rng, root: Path, corpus: dict, xs,
+                    xlens) -> dict:
+    """11: the unidirectional and latency-controlled encoders. K1 / K1b with
+    the paths' windows (``phase_window_kernels``); (11a) the LibriSpeech
+    uni-Conformer-MoChA (``UNI_CONF``) served, beam 10 + CTC 0.3 and
+    greedy, counts zeroed around them (K1 with the causal window must run;
+    K2, K3, K3b must not); (11b) its microstep held to float64 (K1b with
+    the window); (11c) its train CLI (one update) and the eval CLI as
+    stage 5; (11d) the repo's streaming conf (``STREAM_CONF``, mask mode):
+    the streamed encoder against the offline one, a microstep held,
+    ``decode_streaming`` of the 4 utterances and the eval CLI with
+    ``--recog_streaming true`` on its seeded weights; (11e) the LibriSpeech
+    LC-Transformer-MMA (``LC_CONF``, reshape mode): a microstep held (as
+    10d), the train CLI (one update) and the eval CLI offline and
+    streaming (JAX's dispatch: the CTC block-synchronous beam, C26)."""
+    t = time.perf_counter()
+    walls = {}
+
+    def timed(name, fn, *a, **kw):
+        t0 = time.perf_counter()
+        result = fn(*a, **kw)
+        walls[name] = time.perf_counter() - t0
+        log(f"[{name}] wall {walls[name]:.1f} s")
+        return result
+
+    out = {"kernels": timed("11 kernels", phase_window_kernels, torch, rng)}
+    model = xf_model(torch, "librispeech_uni_conformer_mocha_args")
+    out["parameters"] = sum(p.numel() for p in model.parameters())
+    log(f"[11a] LibriSpeech uni-Conformer-MoChA: {out['parameters']} "
+        f"parameters on the card")
+    served, counts = timed("11a", phase_serve, torch, model, xs, xlens,
+                           ("beam10_ctc0.3", "greedy"), tag="11a")
+    served.pop("best_hyp0")
+    served["launches"] = counts
+    expect(counts["rel_attention_window"] > 0 and counts["rel_attention"] > 0,
+           f"K1 with the causal window never launched serving: {counts}")
+    expect(all(counts[k] == 0 for k in ("las_step", "las_scan",
+                                        "las_scan_bwd", "rel_attention_bwd")),
+           f"K1b / K2 / K3 / K3b launched serving: {counts}")
+    out["serve"] = served
+    out["hold"] = timed("11b", uni_hold, torch, model, xs, xlens,
+                        "librispeech_uni_conformer_mocha_args", "11b")
+    del model
+    torch.cuda.empty_cache()
+    uni_train = ("rel_attention", "rel_attention_window", "rel_attention_bwd",
+                 "rel_attention_bwd_window", "ctc_loss", "ctc_loss_bwd")
+    out["cli"] = timed("11c", stream_cli, torch, root, corpus, UNI_CONF,
+                       "11c", True, {"offline": CLI_EVAL}, uni_train)
+    expect(out["cli"]["eval_offline"]["launches"]["rel_attention_window"] > 0,
+           "K1 with the causal window never launched in the eval CLI")
+
+    model = xf_model(torch, "uni_conformer_mocha_streaming_args")
+    stream = {"parameters": sum(p.numel() for p in model.parameters())}
+    log(f"[11d] the streaming uni-Conformer-MoChA: {stream['parameters']} "
+        f"parameters on the card")
+    stream["against_offline"] = timed("11d offline", stream_against_offline,
+                                      torch, model, xs, xlens)
+    stream["hold"] = timed("11d hold", uni_hold, torch, model, xs, xlens,
+                           "uni_conformer_mocha_streaming_args", "11d",
+                           decoder_apart=True)
+    stream["decode"] = timed("11d decode", stream_decode, torch, model, xs,
+                             xlens)
+    stream["cli"] = timed("11d CLI", stream_cli, torch, root, corpus,
+                          STREAM_CONF, "11d", False,
+                          {"streaming": STREAM_EVAL}, (), model=model)
+    expect(stream["cli"]["eval_streaming"]["launches"][
+        "rel_attention_offset"] > 0,
+        "K1 never ran against cached keys in the streaming eval CLI")
+    out["stream"] = stream
+    del model
+    torch.cuda.empty_cache()
+
+    model = xf_model(torch, "librispeech_lc_transformer_mma_args")
+    lc = {"parameters": sum(p.numel() for p in model.parameters())}
+    log(f"[11e] LibriSpeech LC-Transformer-MMA: {lc['parameters']} "
+        f"parameters on the card")
+    lc["hold"] = timed("11e hold", phase_xf_hold, torch, model, xs, xlens,
+                       "librispeech_lc_transformer_mma_args", "11e",
+                       beam1=False)
+    del model
+    torch.cuda.empty_cache()
+    lc["cli"] = timed("11e CLIs", stream_cli, torch, root, corpus, LC_CONF,
+                      "11e", True, {"offline": CLI_EVAL,
+                                    "streaming": STREAM_EVAL},
+                      ("ctc_loss", "ctc_loss_bwd"))
+    out["lc"] = lc
+    out["phase_wall_s"] = time.perf_counter() - t
+    out["sub_phase_wall_s"] = walls
+    log(f"[11] phase 11 wall {out['phase_wall_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3875,6 +4550,7 @@ def main() -> int:
         blstm = phase_blstm(torch, rng, root, corpus, xs, xlens)
         mocha = phase_mocha(torch, root, corpus, xs, xlens)
         xformer = phase_transformer(torch, root, corpus, xs, xlens)
+        streaming = phase_streaming(torch, rng, root, corpus, xs, xlens)
     # each kernel's launches from the main path it belongs to: the served
     # requests (K1, K2), the float32 training run (K1b, K3, K3b, K4) or
     # the bf16 training run (K1's and K1b's bf16 entries)
@@ -3925,7 +4601,8 @@ def main() -> int:
                "train_parity": parity, "train_parity_bf16": parity_bf16,
                "sampling_times": sampling_times, "cli": cli,
                "cli_sampled": sampled_cli, "blstm": blstm, "mocha": mocha,
-               "transformer": xformer, "kernels": kernels}
+               "transformer": xformer, "streaming": streaming,
+               "kernels": kernels}
     log(json.dumps(details))
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -4009,6 +4686,65 @@ def main() -> int:
         e["transformer_launches"] = sum(p[e["name"]] for p in paths10)
     next(e for e in entries if e["name"] == "ctc_loss")[
         "transformer_bwd_launches"] = sum(p["ctc_loss_bwd"] for p in paths10)
+    # phase 11, the streaming encoders: their main paths' launches (11a's
+    # served requests, 11b's microstep, 11c's CLIs; 11d's streamed encoder,
+    # microstep, decode_streaming and streaming eval CLI; 11e's microstep
+    # and CLIs)
+    cli11 = [streaming[k] for k in ("cli",)] + [streaming["stream"]["cli"],
+                                               streaming["lc"]["cli"]]
+    paths11 = [streaming["serve"]["launches"],
+               streaming["hold"]["launches"],
+               streaming["stream"]["against_offline"]["launches"],
+               streaming["stream"]["hold"]["launches"],
+               streaming["stream"]["decode"]["launches"]] + \
+        [c["train"]["launches"] for c in cli11 if c["train"]] + \
+        [v["launches"] for c in cli11 for k, v in c.items()
+         if k.startswith("eval_")]
+    streaming_launches = {name: sum(p[name] for p in paths11)
+                          for name in paths11[0]}
+    for e in entries:
+        e["streaming_launches"] = streaming_launches[e["name"]]
+    next(e for e in entries if e["name"] == "ctc_loss")[
+        "streaming_bwd_launches"] = streaming_launches["ctc_loss_bwd"]
+    # K1 / K1b with a window, and K1 against cached keys: the same sources
+    # and entries, timed at phase 11's shapes (K1: the served batch, B 4,
+    # T 800, causal; K1b: a training batch, B 32, T 800, causal; K1 against
+    # cached keys: a streaming block, 8 queries against a full cache of 16
+    # and the block)
+    win = streaming["kernels"]
+    rows11 = {"rel_attention_window": (
+        "rel_attention", next(c["fwd"] for c in win["causal"]
+                              if "B=4 " in c["fwd"]["shape"]
+                              and "Tk=800" in c["fwd"]["shape"])),
+        "rel_attention_bwd_window": (
+        "rel_attention_bwd", next(c["bwd"] for c in win["causal"]
+                                  if "bwd" in c and "B=32 " in c["bwd"][
+                                      "shape"] and "Tk=800" in c["bwd"][
+                                      "shape"] and "f32" in c["bwd"][
+                                      "shape"])),
+        "rel_attention_offset": (
+        "rel_attention", next(c["fwd"] for c in win["offset"]
+                              if "key_start=0 " in c["fwd"]["shape"]
+                              and "f32" in c["fwd"]["shape"]))}
+    for name, (base, row) in rows11.items():
+        src, rep = srcs[base]
+        cases = [c[part] for group in win.values() for c in group
+                 for part in ("fwd", "bwd") if part in c
+                 and (part == "bwd") == (base == "rel_attention_bwd")
+                 and ("Tq=8 " in c[part]["shape"]) ==
+                 (name == "rel_attention_offset")]
+        entries.append({
+            "name": name, "route": "cuda", "source": src, "replaces": rep,
+            "launches": streaming_launches[name],
+            **{key: row.get(key) for key in keys if key != "max_abs_err"},
+            "max_abs_err": max(c["max_abs_err"] for c in cases
+                               if "f32" in c["shape"]),
+            "max_abs_err_bf16": max(c["max_abs_err"] for c in cases
+                                    if "bf16" in c["shape"]),
+            "shape": row["shape"]})
+    for e in entries[-3:]:
+        expect(e["launches"] > 0, f"{e['name']} never launched on phase "
+               f"11's path")
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

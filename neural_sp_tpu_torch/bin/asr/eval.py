@@ -9,10 +9,14 @@ Usage:
   python -m neural_sp_tpu_torch.bin.asr.eval --recog_model exp/ \\
       --recog_sets test.tsv --recog_beam_width 10 --recog_ctc_weight 0.3
 
+``--recog_streaming true`` (or ``--recog_block_sync true``) decodes each
+utterance block by block (``Speech2TextSession.decode_streaming``, the
+encoder's caches) and reports WER, RTF, the quantity rate and the CTC-VAD
+resets (``eval_streaming``), as the JAX CLI.
+
 The model and the LMs run on the CUDA card; ``main(argv, device="cpu")``
-runs them on the CPU. Ensembles, streaming, the oracle WER, the WER by
-length, forward-backward attention and state carry-over raise
-(ROADMAP).
+runs them on the CPU. Ensembles, the oracle WER, the WER by length,
+forward-backward attention and state carry-over raise (ROADMAP).
 """
 from __future__ import annotations
 
@@ -26,7 +30,7 @@ from types import SimpleNamespace
 import torch
 
 from ...datasets.asr.build import build_dataloader
-from ...evaluators.asr import eval_unit
+from ...evaluators.asr import eval_streaming, eval_unit
 from ...models.decoders.decoding import DecodeConfig, Speech2TextSession
 from ...models.speech2text import build_speech2text
 from ...trainers.checkpoint import (
@@ -35,8 +39,7 @@ from ..args import load_config, parse_args_eval
 
 logger = logging.getLogger(__name__)
 
-_NOT_PORTED = ("recog_ensemble", "recog_streaming", "recog_block_sync",
-               "recog_oracle", "recog_wer_by_length")
+_NOT_PORTED = ("recog_ensemble", "recog_oracle", "recog_wer_by_length")
 
 
 def _best_epochs(save_dir: str, n_avg: int) -> list[int]:
@@ -149,6 +152,8 @@ def main(argv=None, device=None) -> dict:
     results = {}
     sets = args.recog_sets if isinstance(args.recog_sets, list) \
         else [args.recog_sets]
+    streaming = bool(getattr(args, "recog_streaming", False) or
+                     getattr(args, "recog_block_sync", False))
     for tsv in sets:
         loader = build_dataloader(
             tsv, dict_path=getattr(args, "recog_dict", None) or targs.dict,
@@ -156,10 +161,18 @@ def main(argv=None, device=None) -> dict:
             batch_size=args.recog_batch_size, bucketing="sort", is_test=True)
         out_dir = os.path.join(getattr(args, "recog_dir", save_dir),
                                os.path.basename(tsv).replace(".tsv", ""))
-        m = eval_unit(session, loader, save_dir=out_dir,
-                      phone_map=getattr(args, "recog_phone_map", "") or None)
-        logger.info("%s: WER %.2f / CER %.2f (RTF %.4f, %d utts)",
-                    tsv, m["wer"], m["cer"], m["rtf"], m["n_utts"])
+        if streaming:
+            m = eval_streaming(session, loader, save_dir=out_dir)
+            logger.info(
+                "%s (streaming): WER %.2f (RTF %.4f, quantity rate %.3f, "
+                "%d resets, %d utts)", tsv, m["wer"], m["rtf"],
+                m["quantity_rate"], m["n_resets"], m["n_utts"])
+        else:
+            m = eval_unit(session, loader, save_dir=out_dir,
+                          phone_map=getattr(args, "recog_phone_map", "")
+                          or None)
+            logger.info("%s: WER %.2f / CER %.2f (RTF %.4f, %d utts)",
+                        tsv, m["wer"], m["cer"], m["rtf"], m["n_utts"])
         results[tsv] = m
     return results
 

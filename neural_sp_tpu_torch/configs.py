@@ -47,6 +47,28 @@ block (x8), MMA source attention from decoder layer 4 with 4 monotonic x
 fields are the confs', field for field (a test holds them to the yamls);
 ``vocab`` is the flagship's.
 
+``librispeech_uni_conformer_mocha_args`` is the LibriSpeech recipe's
+unidirectional Conformer with MoChA, ``examples/librispeech/conf/asr/
+mocha/uni_conformer_kernel7_clamp10_hie_subsample8_mocha_ln_stableemit0.2_
+qua0.2.yaml``: the flagship's conv front end (x2) and interlayer max_pool
+(x8 in all), 12 causal conformer blocks (d 256, 4 heads, d_ff 1024, rel-PE
+clamped at 10, depthwise kernel 7), the LSTM-1024 LAS decoder with MoChA
+(chunk 4, ``init_r`` -2, a YAML integer: ROADMAP C17), quantity loss 0.2,
+StableEmit 0.2, CTC 0.3 with fc 512; float32. It sets no chunk sizes, so
+it is not streamed (ROADMAP C25). ``uni_conformer_mocha_streaming_args``
+is the repo's ``examples/librispeech/conf/asr/uni_conformer_mocha_
+streaming.yaml``: a conv front end x4, 12 causal conformer blocks (d 256,
+4 heads, d_ff 1024, unclamped rel-PE, kernel 7) under the chunkwise mask
+(left 64, current 32, right 0 input frames), an LSTM-512 decoder with
+MoChA (chunk 4), CTC 0.3; its ``train_dtype`` is bfloat16, which the port
+raises with MoChA (ROADMAP). ``librispeech_lc_transformer_mma_args`` is
+the LibriSpeech recipe's latency-controlled Transformer-MMA,
+``examples/librispeech/conf/asr/mma/streaming/lc_transformer_mma_
+subsample8_ma4H_ca4H_w16_from4L_64_128_64.yaml``: the offline MMA conf's
+model with the encoder in ``reshape`` mode, chunks of 64 / 128 / 64 input
+frames. Their model fields are the confs', field for field (a test holds
+them to the yamls); ``vocab`` is the flagship's.
+
 ``flagship_args`` carries no ``train_dtype`` (``bench.py``'s has none): an
 args namespace may set one, and ``compute_dtype(args)`` turns it into the
 train step's ``compute_dtype``.
@@ -152,6 +174,54 @@ def librispeech_transformer_mma_args():
         dropout_in=0.0, dropout_enc=0.1, dropout_dec=0.1, dropout_emb=0.1,
         dropout_att=0.0, dropout_head=0.5, lsm_prob=0.1, ctc_weight=0.3,
         ctc_fc_list="512", ctc_lsm_prob=0.1, vocab=flagship_args().vocab)
+
+
+def librispeech_uni_conformer_mocha_args():
+    """The conf's model fields, ``input_dim`` 80 and the flagship's
+    ``vocab``."""
+    return SimpleNamespace(
+        enc_type="conv_uni_conformer", input_dim=80, conv_channels="32_32",
+        conv_kernel_sizes="(3,3)_(3,3)", conv_poolings="(1,1)_(2,2)",
+        subsample="1_1_1_2_1_1_1_2_1_1_1_1", subsample_type="max_pool",
+        conformer_kernel_size=7, conformer_normalization="layer_norm",
+        enc_n_layers=12, transformer_enc_pe_type="relative",
+        transformer_enc_clamp_len=10, transformer_enc_d_model=256,
+        transformer_enc_d_ff=1024, transformer_enc_n_heads=4,
+        attn_type="mocha", mocha_chunk_size=4, mocha_init_r=-2,
+        mocha_std=1.0, mocha_quantity_loss_weight=0.2,
+        mocha_quantity_loss_start_epoch=5, mocha_stableemit_weight=0.2,
+        mocha_stableemit_start_epoch=0, attn_dim=512, dec_type="lstm",
+        dec_n_units=1024, dec_n_layers=1, dec_bottleneck_dim=1024,
+        emb_dim=512, ctc_fc_list="512", param_init=0.1, dropout_in=0.0,
+        dropout_enc=0.1, dropout_dec=0.1, dropout_emb=0.1, dropout_att=0.0,
+        lsm_prob=0.1, freq_width=13, n_freq_masks=2, time_width=50,
+        n_time_masks=2, time_width_upper=1.0, ctc_weight=0.3,
+        ctc_lsm_prob=0.1, vocab=flagship_args().vocab)
+
+
+def uni_conformer_mocha_streaming_args():
+    """The conf's model fields, ``input_dim`` 80 and the flagship's
+    ``vocab``."""
+    return SimpleNamespace(
+        enc_type="conv_uni_conformer", input_dim=80, conv_channels="32_32",
+        conv_kernel_sizes="(3,3)_(3,3)", conv_poolings="(2,2)_(2,2)",
+        enc_n_layers=12, transformer_d_model=256, transformer_d_ff=1024,
+        transformer_n_heads=4, transformer_enc_pe_type="relative",
+        conformer_kernel_size=7, lc_chunk_size_left=64,
+        lc_chunk_size_current=32, lc_chunk_size_right=0, lc_type="mask",
+        dec_type="lstm", dec_n_units=512, emb_dim=256,
+        dec_bottleneck_dim=512, attn_type="mocha", mocha_chunk_size=4,
+        mocha_quantity_loss_weight=1.0, ctc_weight=0.3, lsm_prob=0.1,
+        vocab=flagship_args().vocab)
+
+
+def librispeech_lc_transformer_mma_args():
+    """The conf's model fields, ``input_dim`` 80 and the flagship's
+    ``vocab``."""
+    return SimpleNamespace(**{
+        **vars(librispeech_transformer_mma_args()),
+        "lc_chunk_size_left": 64, "lc_chunk_size_current": 128,
+        "lc_chunk_size_right": 64, "lc_type": "reshape"})
 
 
 def librispeech_rnnlm_args():

@@ -4,8 +4,13 @@ text, and count corpus WER and CER with their S / I / D, writing
 ``ref.trn`` and ``hyp.trn`` as the JAX evaluator does, and the real-time
 factor (decode wall over 10 ms per input frame).
 
-The oracle WER, the WER by length, streaming evaluation and TIMIT phone
-mapping are not ported (ROADMAP).
+``eval_streaming`` decodes each utterance block by block through
+``Speech2TextSession.decode_streaming``: WER, RTF, the quantity rate and,
+for the MoChA beam, streamability and the last-success-frame ratio (the
+JAX evaluator's, copied as it is).
+
+The oracle WER, the WER by length and TIMIT phone mapping are not ported
+(ROADMAP).
 """
 from __future__ import annotations
 
@@ -70,3 +75,52 @@ def eval_unit(session, loader, save_dir: str | None = None,
         "rtf": decode_s / max(n_frames * 0.01, 1e-6),
         "n_utts": n_utts,
     }
+
+
+def eval_streaming(session, loader, save_dir=None) -> dict:
+    """Streaming decode evaluation: WER + RTF + quantity rate +
+    streamability diagnostics (reference wordpiece.py:155-208 +
+    las.py:1386-1435): ``streamability`` is the fraction of utterances
+    whose every token boundary fired before the final encoder frame
+    arrived; ``last_success_frame_ratio`` is the mean position of the last
+    emitted boundary relative to the utterance end."""
+    idx2token = loader.idx2token
+    n_err = n_tok = n_hyp_tok = 0
+    rtfs = []
+    n_resets_total = 0
+    n_utts = 0
+    n_streamable = 0
+    lsf_ratios = []
+    has_diag = False
+    for batch in loader:
+        for b in range(len(batch["utt_ids"])):
+            feats = batch["xs"][b][: batch["xlens"][b]]
+            hyp_ids, stats = session.decode_streaming(feats)
+            ref = batch["text"][b].split()
+            hyp = idx2token(hyp_ids).split()
+            _, s, i, d = compute_wer(ref, hyp)
+            n_err += s + i + d
+            n_tok += len(ref)
+            n_hyp_tok += len(hyp_ids)
+            rtfs.append(stats["rtf"])
+            n_resets_total += stats["n_resets"]
+            bounds = stats.get("boundaries")
+            t_out = stats.get("n_out_frames", 0)
+            if bounds is not None:
+                has_diag = True
+                if bounds and t_out:
+                    lsf_ratios.append(bounds[-1] / max(t_out, 1))
+                    if bounds[-1] < t_out - 1:
+                        n_streamable += 1
+                # an utterance with NO boundaries is non-streamable
+            n_utts += 1
+    out = {"wer": 100.0 * n_err / max(n_tok, 1),
+           "rtf": float(sum(rtfs) / max(len(rtfs), 1)),
+           "quantity_rate": n_hyp_tok / max(n_tok, 1),
+           "n_resets": n_resets_total, "n_utts": n_utts}
+    if has_diag:
+        out["streamability"] = n_streamable / max(n_utts, 1)
+        if lsf_ratios:
+            out["last_success_frame_ratio"] = float(
+                sum(lsf_ratios) / len(lsf_ratios))
+    return out

@@ -4,6 +4,11 @@ The loss is kernel K4 (``ops.ctc.ctc_loss``); the scorer is host numpy in
 the JAX package and is copied as it is. ``trigger_points`` is the forced
 alignment of ``ops.ctc.ctc_forced_align`` (MoChA's ``ctc_sync``).
 
+The block-synchronous CTC prefix beam (``CTCBlockSyncBeam``) and the
+scorer's ``register_new_chunk`` / ``extend_state`` (streaming decoding)
+are host numpy copied from the JAX package too; a CPU test holds each to
+its original.
+
 ``fc_list`` ("512" or "512_512") puts Linear + ReLU + dropout layers
 ``fc0``, ``fc1``, ... before the output layer; ``lsm_prob`` mixes K4's loss
 with the KL divergence of the posteriors from the uniform distribution
@@ -98,12 +103,96 @@ def ctc_greedy(best_paths: np.ndarray, elens: np.ndarray) -> list[list[int]]:
             for b in range(best_paths.shape[0])]
 
 
+def _logsumexp(*xs):
+    m = max(xs)
+    if m <= LOG0:
+        return LOG0
+    return m + np.log(sum(np.exp(x - m) for x in xs))
+
+
+class CTCBlockSyncBeam:
+    """Block-synchronous (resumable) CTC prefix beam search
+    (reference ``beam_search_block_sync`` ctc.py:485-531).
+
+    Feed posterior blocks as they arrive with ``step``; ``hypotheses`` gives
+    the current n-best; ``commit_and_reset`` finalises the running best
+    (CTC-VAD segment boundary) and restarts the beam for the next segment.
+    """
+
+    def __init__(self, beam_width: int = 10, blank: int = BLANK,
+                 lm_fn=None, lm_weight: float = 0.0):
+        self.beam_width = beam_width
+        self.blank = blank
+        self.lm_fn = lm_fn
+        self.lm_weight = lm_weight
+        self.committed: list[int] = []
+        self._reset_beam()
+
+    def _reset_beam(self):
+        self.beam = {(): (0.0, LOG0, 0.0)}
+
+    def step(self, log_probs_block: np.ndarray, n_frames: int | None = None):
+        lp_all = np.asarray(log_probs_block)
+        t_max = n_frames if n_frames is not None else lp_all.shape[0]
+        for t in range(t_max):
+            lp = lp_all[t]
+            topk = np.argsort(lp)[::-1][: max(self.beam_width * 2, 8)]
+            new_beam: dict = {}
+
+            def add(prefix, pb, pnb, plm):
+                if prefix in new_beam:
+                    opb, opnb, _ = new_beam[prefix]
+                    new_beam[prefix] = (_logsumexp(opb, pb),
+                                        _logsumexp(opnb, pnb), plm)
+                else:
+                    new_beam[prefix] = (pb, pnb, plm)
+
+            for prefix, (pb, pnb, plm) in self.beam.items():
+                p_total = _logsumexp(pb, pnb)
+                add(prefix, p_total + lp[self.blank],
+                    LOG0 if not prefix else pnb + lp[prefix[-1]], plm)
+                lm_row = None
+                for k in topk:
+                    k = int(k)
+                    if k == self.blank:
+                        continue
+                    if prefix and k == prefix[-1]:
+                        p_new = pb + lp[k]
+                    else:
+                        p_new = p_total + lp[k]
+                    plm_new = plm
+                    if self.lm_fn is not None and self.lm_weight > 0:
+                        if lm_row is None:
+                            lm_row = self.lm_fn(prefix)
+                        plm_new = plm + float(lm_row[k])
+                    add(prefix + (k,), LOG0, p_new, plm_new)
+            scored = sorted(
+                new_beam.items(),
+                key=lambda kv: -(_logsumexp(kv[1][0], kv[1][1])
+                                 + self.lm_weight * kv[1][2]))
+            self.beam = dict(scored[: self.beam_width])
+
+    def hypotheses(self) -> list[dict]:
+        out = []
+        for prefix, (pb, pnb, plm) in self.beam.items():
+            out.append({"hyp": self.committed + list(prefix),
+                        "score": _logsumexp(pb, pnb) + self.lm_weight * plm})
+        return sorted(out, key=lambda d: -d["score"])
+
+    def commit_and_reset(self):
+        best = self.hypotheses()[0]["hyp"]
+        self.committed = best
+        self._reset_beam()
+        return best
+
+
 class CTCPrefixScorer:
     """Watanabe-style joint CTC/attention prefix scorer (reference
     CTCPrefixScore ctc.py:756-871), vectorized over candidate tokens.
 
     Usage per utterance: init with [T, V] log probs; ``initial_state()``;
     ``__call__(hyp_ids, candidate_ids, state)`` -> (scores [n_cands], states).
+    ``register_new_chunk`` extends T for block-synchronous streaming.
     """
 
     def __init__(self, log_probs: np.ndarray, blank: int = BLANK,
@@ -112,6 +201,28 @@ class CTCPrefixScorer:
         self.blank = blank
         self.eos = eos
         self.T = self.lp.shape[0]
+
+    def register_new_chunk(self, log_probs_chunk: np.ndarray):
+        self.lp = np.concatenate([self.lp, np.asarray(log_probs_chunk)], 0)
+        self.T = self.lp.shape[0]
+
+    def extend_state(self, hyp: list[int], r_prev: np.ndarray) -> np.ndarray:
+        """Extend a beam state over frames appended by
+        ``register_new_chunk`` (block-synchronous decoding: the prefix is
+        fixed, only T grows — reference CTCPrefixScore streaming usage,
+        ctc.py:803-806)."""
+        t_old = r_prev.shape[0]
+        if t_old >= self.T:
+            return r_prev
+        r = np.concatenate(
+            [r_prev, np.full((self.T - t_old, 2), LOG0, np.float32)], 0)
+        last = hyp[-1] if hyp else -1
+        for t in range(t_old, self.T):
+            if last >= 0:
+                r[t, 0] = r[t - 1, 0] + self.lp[t, last]
+            r[t, 1] = np.logaddexp(r[t - 1, 0], r[t - 1, 1]) + \
+                self.lp[t, self.blank]
+        return r
 
     def initial_state(self):
         # r[t, 0]: prob of prefix ending in nonblank, r[t, 1]: in blank

@@ -21,19 +21,34 @@ pruning and CTC pairing quirk); with a transformer it has no coverage
 penalty and no internal-LM term (``ilm_weight`` is not read: ROADMAP C24),
 and beam width 1 runs the beam, not greedy.
 
+Streaming (``decode_streaming``, one utterance fed block by block
+through the encoder's ``streaming_step`` and its caches): with a MoChA
+LAS decoder, the block-synchronous attention beam
+(``decode_streaming_attention``: hypotheses with no boundary in the
+frames seen so far are parked with their decoder state rolled back, joint
+CTC advances chunk by chunk, LM fusion through the ``LMSession``); with
+any other decoder, the block-synchronous CTC prefix beam with CTC-VAD
+resets that commit the running best (JAX's dispatch: a transformer
+decoder is not run when streaming, ROADMAP C26). The device-side
+streaming beams (``recog_device_beam``), the transducer and the RNN
+encoders' streaming raise.
+
 Not ported yet (ROADMAP), and raising ``NotImplementedError``: ensembles,
 forward-backward merging, speaker state carry-over, CTC prefix beam
-search (with its LM hook) and transducer decoders.
+search over a whole utterance and transducer decoders.
 """
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from ... import EOS, PAD
-from .ctc import CTCPrefixScorer, ctc_greedy
+from ...frontends.streaming import CtcVAD, StreamingDriver
+from ...ops.masks import make_pad_mask
+from .ctc import CTCBlockSyncBeam, CTCPrefixScorer, ctc_greedy
 from .las import RNNDecoder
 
 
@@ -60,6 +75,10 @@ class DecodeConfig:
 
 
 _NOT_PORTED = ("fwd_bwd_attention", "state_carry_over")
+# the streaming MoChA beam pads the encoder frames it has seen to a
+# multiple of this many blocks, as the JAX session (its keys re-projected
+# over them each block)
+T_PAD_BLOCKS = 8
 
 
 class Speech2TextSession:
@@ -463,3 +482,344 @@ class Speech2TextSession:
                 isinstance(self.dec, RNNDecoder):
             return self.decode_attention_beam_device(xs, xlens)
         return self.decode_attention_beam(xs, xlens)
+
+    # ------------------------------------------------------------------ #
+    def _make_ctc_lm_fn(self):
+        """prefix tuple -> the LM's [V] log-probabilities after it,
+        memoised by prefix: each new prefix costs one LM step from its
+        parent's cached state (the JAX session's hook)."""
+        cache: dict = {}
+
+        def lm_fn(prefix):
+            if prefix not in cache:
+                if prefix:
+                    lm_fn(prefix[:-1])        # the parent's state exists
+                    state = cache[("state",) + prefix[:-1]]
+                    y = prefix[-1]
+                else:
+                    state = self.lm.initial_state(1)
+                    y = EOS
+                lp, state = self.lm.predict(np.asarray([y], np.int32), state)
+                cache[prefix] = np.asarray(lp[0])
+                cache[("state",) + prefix] = state
+            return cache[prefix]
+
+        return lm_fn
+
+    @torch.inference_mode()
+    def _stream_step(self, block: np.ndarray, cache: dict):
+        """One block [T_block, D] of input frames through the encoder's
+        ``streaming_step`` (and the CTC head): (eouts [n_c, d] tensor, CTC
+        log-probs [n_c, V] numpy or None, new cache)."""
+        xb = torch.as_tensor(np.asarray(block, np.float32),
+                             device=self.device)[None]
+        eouts, cache = self.model.encoder.streaming_step(xb, cache)
+        lp = self.model.ctc.log_probs(eouts)[0].cpu().numpy() \
+            if self.model.ctc is not None else None
+        return eouts[0], lp, cache
+
+
+    def decode_streaming(self, x_whole, blank_threshold: int = 40):
+        """Block-synchronous streaming decode of ONE utterance x_whole
+        [T, D] (the JAX session's): the encoder's ``streaming_step`` over
+        ``StreamingDriver``'s blocks with its caches, then with a MoChA
+        decoder ``decode_streaming_attention``, else the block-synchronous
+        CTC prefix beam with CTC-VAD resets. On a reset the running best
+        prefix is committed and the beam restarts; the encoder's caches
+        persist across resets, and the blank count across blocks. Returns
+        (hypothesis ids, stats: rtf, n_resets, n_frames, commits)."""
+        from ..encoders.transformer import XformerEncoder
+        if not isinstance(self.model.encoder, XformerEncoder):
+            raise NotImplementedError(
+                "streaming with an RNN encoder is not ported yet, see "
+                "ROADMAP")
+        conf = self.conf
+        if isinstance(self.dec, RNNDecoder) and self.dec.attn_type == "mocha":
+            if conf.device_beam and conf.lm_weight == 0 and \
+                    conf.ctc_weight == 0:
+                raise NotImplementedError(
+                    "the device-side streaming MoChA beam "
+                    "(recog_device_beam) is not ported yet, see ROADMAP")
+            return self.decode_streaming_attention(x_whole)
+        if self.model.ctc is None:
+            raise ValueError("streaming without a MoChA decoder runs the "
+                             "CTC head, which this model lacks")
+        enc = self.model.encoder
+        total_in, hop_in = enc.block_input_frames()
+        cnn_ctx_in = enc.stream_geometry()[1]
+        factor = enc.subsampling_factor
+        state = enc.init_stream_cache(1)
+        lm_fn = self._make_ctc_lm_fn() if (
+            self.lm is not None and conf.lm_weight > 0) else None
+        beam = CTCBlockSyncBeam(conf.beam_width, lm_fn=lm_fn,
+                                lm_weight=conf.lm_weight)
+        vad = CtcVAD(factor=factor, blank_threshold=blank_threshold)
+        t0 = time.time()
+        n_frames = n_resets = 0
+        commits: list[list[int]] = []
+        for block, n_new, is_last in StreamingDriver(x_whole, total_in,
+                                                     hop_in, cnn_ctx_in):
+            _, lp_blk, state = self._stream_step(block, state)
+            n_out = -(-n_new // factor)
+            n_frames += n_new
+            lp = lp_blk[:n_out]
+            beam.step(lp)
+            is_reset = vad.step(np.argmax(lp, -1), np.exp(lp).max(-1), n_new)
+            if is_reset and not is_last:
+                commits.append(list(beam.commit_and_reset()))
+                vad.reset()
+                n_resets += 1
+        hyp = beam.hypotheses()[0]["hyp"]
+        elapsed = time.time() - t0
+        return hyp, {"rtf": elapsed / max(n_frames * 0.01, 1e-6),
+                     "n_resets": n_resets, "n_frames": n_frames,
+                     "commits": commits}
+
+    @torch.inference_mode()
+    def decode_streaming_attention(self, x_whole):
+        """The block-synchronous MoChA beam over a streamed utterance (the
+        JAX session's, reference ``beam_search_block_sync``): per encoder
+        block, label-synchronous expansion; a hypothesis whose hard
+        monotonic attention finds no boundary in the frames seen so far is
+        parked with its decoder state rolled back and retried on the next
+        block; parked and expanded hypotheses compete for the beam; joint
+        CTC prefix scores and LM fusion advance chunk by chunk. The
+        encoder frames seen so far stay on the device, zero-padded to a
+        multiple of ``T_PAD_BLOCKS`` blocks (64 frames at least). Returns
+        (hypothesis ids, stats with each token's boundary frame)."""
+        conf = self.conf
+        dec: RNNDecoder = self.dec
+        beam = conf.beam_width
+        enc = self.model.encoder
+        total_in, hop_in = enc.block_input_frames()
+        _, cnn_ctx_in, _, n_c, _ = enc.stream_geometry()
+        factor = enc.subsampling_factor
+        t_pad_mult = max(n_c * T_PAD_BLOCKS, 64)
+        dev = self.device
+
+        t0 = time.time()
+        cache = enc.init_stream_cache(1)
+        e_acc: list[torch.Tensor] = []     # encoder frames, on the device
+        t_acc = t_pad = 0
+        use_ctc = conf.ctc_weight > 0 and self.model.ctc is not None
+        ctc_scorer = None
+        use_lm = self.lm is not None and conf.lm_weight > 0
+
+        hyps: list[list[int]] = [[] for _ in range(beam)]
+        bounds: list[list[int]] = [[] for _ in range(beam)]
+        scores = np.full(beam, -1e30, np.float32)
+        scores[0] = 0.0
+        scores_ctc = np.zeros(beam, np.float32)
+        ctc_states = [None] * beam
+        lm_states = [self.lm.initial_state(1) if use_lm else None] * beam
+        alive = np.zeros(beam, bool)
+        alive[0] = True
+        y = torch.full((beam,), EOS, dtype=torch.long, device=dev)
+        carry = None
+        finished: list[dict] = []
+        n_frames = 0
+
+        for block, n_new, _ in StreamingDriver(x_whole, total_in, hop_in,
+                                               cnn_ctx_in):
+            eouts_blk, lp_blk, cache = self._stream_step(block, cache)
+            n_out = -(-n_new // factor)
+            e_acc.append(eouts_blk[:n_out])
+            n_frames += n_new
+            if use_ctc:
+                lp_new = lp_blk[:n_out]
+                if ctc_scorer is None:
+                    ctc_scorer = CTCPrefixScorer(lp_new)
+                    ctc_states = [ctc_scorer.initial_state() if alive[k]
+                                  else None for k in range(beam)]
+                else:
+                    ctc_scorer.register_new_chunk(lp_new)
+                    ctc_states = [
+                        ctc_scorer.extend_state(hyps[k], ctc_states[k])
+                        if ctc_states[k] is not None else None
+                        for k in range(beam)]
+            t_acc += n_out
+
+            # the padded frames seen so far; the alpha carry grows with
+            # the pad bucket
+            new_t_pad = -(-t_acc // t_pad_mult) * t_pad_mult
+            e_np = torch.cat(e_acc, 0)
+            e_pad = torch.zeros((new_t_pad, e_np.shape[1]), dtype=e_np.dtype,
+                                device=dev)
+            e_pad[:t_acc] = e_np
+            e_t = e_pad[None].expand(beam, -1, -1).contiguous()
+            kc = dec.precompute_keys(e_t)
+            if carry is None:
+                carry = dec.init_carry(beam, new_t_pad, dev, e_t.dtype)
+            elif new_t_pad != t_pad:
+                carry = (carry[0], torch.nn.functional.pad(
+                    carry[1], (0, new_t_pad - t_pad)), carry[2])
+            t_pad = new_t_pad
+            mask = make_pad_mask(torch.full((beam,), t_acc, device=dev),
+                                 t_pad)
+
+            max_tokens = max(int(t_acc * conf.max_len_ratio), 2)
+            parked = ~alive.copy()
+            while not parked.all():
+                carry_post, logits, aw = dec.step.mocha_step(
+                    carry, y, kc, mask)
+                alpha = aw.float().cpu().numpy()      # [beam, H, T] one-hot
+                fired = alpha.sum(axis=(1, 2)) > 0
+                under_cap = np.asarray([len(h) < max_tokens for h in hyps])
+                expand = alive & ~parked & fired & under_cap
+                parked |= ~fired | ~under_cap         # no boundary: wait
+                if not expand.any():
+                    break
+                logp = torch.log_softmax(
+                    conf.softmax_smoothing * logits.float(), -1).cpu().numpy()
+                vocab = logp.shape[-1]
+                lm_logp = np.zeros_like(logp)
+                new_lm_states = lm_states
+                if use_lm:
+                    new_lm_states = list(lm_states)
+                    for k in np.where(expand)[0]:
+                        lp_k, st = self.lm.predict(
+                            np.asarray([hyps[k][-1] if hyps[k] else EOS],
+                                       np.int32), lm_states[k])
+                        lm_logp[k] = np.asarray(lp_k[0])
+                        new_lm_states[k] = st
+
+                total = scores[:, None] + logp + conf.lm_weight * lm_logp
+                best_non_eos = np.max(np.delete(logp, EOS, axis=1), axis=1)
+                bad_eos = logp[:, EOS] < conf.eos_threshold * best_non_eos
+                if len(max(hyps, key=len)) < int(t_acc * conf.min_len_ratio):
+                    bad_eos[:] = True
+                total[bad_eos, EOS] = -1e30
+
+                new_ctc = None
+                if use_ctc and ctc_scorer is not None:
+                    ctc_cand = min(beam * 4, vocab)
+                    tot2 = np.full_like(total, -1e30)
+                    new_ctc = [[None] * vocab for _ in range(beam)]
+                    for k in np.where(expand)[0]:
+                        cands = np.argsort(logp[k])[::-1][:ctc_cand]
+                        psi, r_new = ctc_scorer(hyps[k], cands, ctc_states[k])
+                        tot2[k, cands] = (
+                            scores[k]
+                            + (1 - conf.ctc_weight) * logp[k, cands]
+                            + conf.ctc_weight * (psi - scores_ctc[k])
+                            + conf.lm_weight * lm_logp[k, cands])
+                        for ci, c in enumerate(cands):
+                            new_ctc[k][c] = (r_new[ci], float(psi[ci]))
+                        tot2[k, EOS] = -1e30 if bad_eos[k] else tot2[k, EOS]
+                    total = tot2
+                total[~expand, :] = -1e30
+
+                # the candidate pool: parked survivors keep their scores
+                cands = [("keep", int(k), -1, float(scores[k]))
+                         for k in np.where(alive & parked)[0]]
+                flat = total.reshape(-1)
+                n_take = beam * 2
+                top = np.argpartition(-flat, min(n_take, flat.size - 1))[
+                    :n_take]
+                top = top[np.argsort(-flat[top])]
+                for idx in top:
+                    k, v = divmod(int(idx), vocab)
+                    sc = float(flat[idx])
+                    if sc <= -1e29:
+                        continue
+                    cands.append(("exp", k, v, sc))
+                cands.sort(key=lambda c: -c[3])
+
+                sel, par, take_post, new_y = [], [], [], []
+                n_hyps, n_bounds = [], []
+                n_scores, n_sctc, n_cstates, n_lmst, n_alive = \
+                    [], [], [], [], []
+                for kind, k, v, sc in cands:
+                    if kind == "exp" and v == EOS:
+                        n_tok = len(hyps[k]) + 1
+                        fsc = sc / max(n_tok, 1) if conf.length_norm else \
+                            sc + conf.length_penalty * n_tok
+                        finished.append(
+                            {"hyp": hyps[k] + [EOS], "score": fsc,
+                             "bounds": list(bounds[k])})
+                        continue
+                    if len(sel) == beam:
+                        continue
+                    sel.append(kind)
+                    par.append(k)
+                    take_post.append(kind == "exp")
+                    if kind == "keep":
+                        new_y.append(hyps[k][-1] if hyps[k] else EOS)
+                        n_hyps.append(hyps[k])
+                        n_bounds.append(bounds[k])
+                        n_scores.append(scores[k])
+                        n_sctc.append(scores_ctc[k])
+                        n_cstates.append(ctc_states[k])
+                        n_lmst.append(lm_states[k])
+                        n_alive.append(True)
+                    else:
+                        t_bd = int(np.argmax(alpha[k].mean(0)))
+                        new_y.append(v)
+                        n_hyps.append(hyps[k] + [v])
+                        n_bounds.append(bounds[k] + [t_bd])
+                        n_scores.append(sc)
+                        if new_ctc is not None and \
+                                new_ctc[k][v] is not None:
+                            n_cstates.append(new_ctc[k][v][0])
+                            n_sctc.append(new_ctc[k][v][1])
+                        else:
+                            n_cstates.append(ctc_states[k])
+                            n_sctc.append(scores_ctc[k])
+                        n_lmst.append(new_lm_states[k] if use_lm else None)
+                        n_alive.append(True)
+                if not any(x == "exp" for x in sel):
+                    break
+                while len(sel) < beam:   # dead padding rows
+                    sel.append("keep")
+                    par.append(par[-1] if par else 0)
+                    take_post.append(False)
+                    new_y.append(EOS)
+                    n_hyps.append([])
+                    n_bounds.append([])
+                    n_scores.append(-1e30)
+                    n_sctc.append(0.0)
+                    n_cstates.append(ctc_states[0])
+                    n_lmst.append(lm_states[0])
+                    n_alive.append(False)
+
+                carry = _mix_carry(carry, carry_post,
+                                   torch.as_tensor(par, device=dev),
+                                   torch.as_tensor(take_post, device=dev))
+                hyps, bounds = n_hyps, n_bounds
+                scores = np.asarray(n_scores, np.float32)
+                scores_ctc = np.asarray(n_sctc, np.float32)
+                ctc_states, lm_states = n_cstates, n_lmst
+                alive = np.asarray(n_alive)
+                parked = np.asarray([x == "keep" for x in sel]) | ~alive
+                y = torch.as_tensor(new_y, dtype=torch.long, device=dev)
+                if len(finished) >= beam * 2:
+                    parked[:] = True
+            # the next block: every surviving hypothesis may retry
+
+        for k in np.where(alive)[0]:     # force-finish at the stream's end
+            sc = float(scores[k])
+            n_tok = len(hyps[k]) + 1
+            fsc = sc / max(n_tok, 1) if conf.length_norm else \
+                sc + conf.length_penalty * n_tok
+            finished.append({"hyp": hyps[k] + [EOS], "score": fsc,
+                             "bounds": list(bounds[k])})
+        if not finished:
+            finished = [{"hyp": [EOS], "score": 0.0, "bounds": []}]
+        finished.sort(key=lambda d: -d["score"])
+        best = finished[0]
+        elapsed = time.time() - t0
+        stats = {"rtf": elapsed / max(n_frames * 0.01, 1e-6),
+                 "n_resets": 0, "n_frames": n_frames,
+                 "boundaries": best["bounds"], "n_out_frames": t_acc}
+        return [t for t in best["hyp"] if t != EOS], stats
+
+
+def _mix_carry(pre, post, par: torch.Tensor, take_post: torch.Tensor):
+    """Each leaf of a decode carry: row k from ``post`` (the expanded
+    step's) where take_post[k], else from ``pre`` (rolled back), both
+    from parent row par[k]."""
+    if isinstance(pre, (tuple, list)):
+        return type(pre)(_mix_carry(a, b, par, take_post)
+                         for a, b in zip(pre, post))
+    m = take_post.view((-1,) + (1,) * (pre.ndim - 1))
+    return torch.where(m, post[par], pre[par])

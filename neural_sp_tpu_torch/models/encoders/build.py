@@ -1,7 +1,9 @@
 """build_encoder (counterpart of ``neural_sp_tpu/models/encoders/build.py``),
 the RNN (lstm / blstm, with or without the conv front end), conformer and
-transformer branches (offline). Takes any object with attribute access and
-the reference's flag names."""
+transformer branches, with their unidirectional (``uni_`` types or
+``unidirectional``) and latency-controlled (``lc_chunk_size_*``,
+``lc_type``) forms. Takes any object with attribute access and the
+reference's flag names."""
 from __future__ import annotations
 
 from typing import Union
@@ -69,6 +71,9 @@ def build_encoder(args) -> Union[RNNEncoder, XformerEncoder]:
     enc_type = args.enc_type
     conv = enc_type.startswith("conv_")
     core = enc_type[5:] if conv else enc_type
+    uni = core.startswith("uni_") or _get(args, "unidirectional", False)
+    if core in ("uni_conformer", "uni_transformer"):
+        core = core[4:]
     xformer = core in ("conformer", "transformer")
     if not xformer and core not in ("blstm", "lstm", "bgru", "gru"):
         raise NotImplementedError(
@@ -86,11 +91,6 @@ def build_encoder(args) -> Union[RNNEncoder, XformerEncoder]:
             "ROADMAP")
     if not xformer:
         return _rnn_encoder(args, core, conv)
-    if _get(args, "unidirectional", False) or \
-            _get(args, "lc_chunk_size_current", -1) > 0:
-        raise NotImplementedError(
-            "unidirectional / streaming (latency-controlled) encoders are "
-            "not ported yet, see ROADMAP")
     return XformerEncoder(
         input_dim=args.input_dim,
         btype=core,
@@ -119,4 +119,9 @@ def build_encoder(args) -> Union[RNNEncoder, XformerEncoder]:
         conv_poolings=_get(args, "conv_poolings", ""),
         conv_frontend_normalization=_conv_norm(args),
         dropout=_get(args, "dropout_enc", 0.1),
+        unidirectional=uni,
+        chunk_size_left=_get(args, "lc_chunk_size_left", -1),
+        chunk_size_current=_get(args, "lc_chunk_size_current", -1),
+        chunk_size_right=_get(args, "lc_chunk_size_right", 0),
+        streaming_type=_get(args, "lc_type", "mask"),
     )

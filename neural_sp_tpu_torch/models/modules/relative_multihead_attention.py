@@ -13,6 +13,14 @@ has ``R = T`` rows. Either way the score is
 which is what both branches of the JAX module (one-hot for long inputs,
 skew for short ones) compute. The per-query table ``p = q r^T`` is a plain
 matmul; the rest runs in kernel K1 (``ops.kernels.rel_attention``).
+
+The streaming encoders' masks reach K1 as its ``window`` (n_l, n_c, n_r):
+``CAUSAL`` for the unidirectional encoder, the chunk window of the
+``mask`` mode. ``stream`` is a streaming block's attention against the
+cached keys and values of the previous blocks (the JAX module with a
+``cache``): query i of the block sits at key position i + n_l, the
+distance |i + n_l - j| indexes the table (R = Tk unclamped), and the
+cache's empty slots (keys below ``key_start``) are masked.
 """
 from __future__ import annotations
 
@@ -52,28 +60,52 @@ class RelativeMultiheadAttention(nn.Module):
         self.w_out = nn.Linear(d_model, d_model)
 
     def forward(self, query: torch.Tensor, klens: torch.Tensor,
-                cache=None) -> torch.Tensor:
+                window=None) -> torch.Tensor:
         """query [B, T, d_model]; klens [B] valid keys per utterance (the
-        keys-only pad mask of ``make_san_mask``). Returns [B, T, d_model]."""
-        if cache is not None:
-            raise NotImplementedError(
-                "streaming attention with a KV cache is not ported yet, see "
-                "ROADMAP")
+        keys-only pad mask of ``make_san_mask``); ``window`` (n_l, n_c,
+        n_r) or None. Returns [B, T, d_model]."""
+        bs, t, _ = query.shape
+        q, kv = self._project(query)
+        o = self._attend(q, kv["k"], kv["v"], klens, window, 0)
+        return self.w_out(o.transpose(1, 2).reshape(bs, t, self.d_model))
+
+    def stream(self, query: torch.Tensor, cache: dict, key_start: int):
+        """A streaming block: query [B, Tq, d_model] against the cache
+        {"k", "v"} [B, n_l, H, dk] and the block's own keys, the cache's
+        slots below ``key_start`` masked. Returns (out [B, Tq, d_model],
+        {"k", "v"} [B, n_l + Tq, H, dk])."""
+        bs, tq, _ = query.shape
+        q, kv = self._project(query)
+        k = torch.cat([cache["k"], kv["k"]], 1)
+        v = torch.cat([cache["v"], kv["v"]], 1)
+        klens = torch.full((bs,), k.shape[1], dtype=torch.int32,
+                           device=query.device)
+        o = self._attend(q, k, v, klens, None, key_start)
+        out = self.w_out(o.transpose(1, 2).reshape(bs, tq, self.d_model))
+        return out, {"k": k, "v": v}
+
+    def _project(self, query):
+        """(q [B, H, T, dk], {"k", "v"} [B, T, H, dk])."""
         bs, t, _ = query.shape
         h, dk = self.n_heads, self.d_model // self.n_heads
+        q = self.w_query(query).view(bs, t, h, dk).transpose(1, 2)
+        return q, {"k": self.w_key(query).view(bs, t, h, dk),
+                   "v": self.w_value(query).view(bs, t, h, dk)}
 
-        def heads(x):   # [B, T, d] -> [B, H, T, dk]
-            return x.view(bs, t, h, dk).transpose(1, 2)
-
-        q = heads(self.w_query(query))
-        k = heads(self.w_key(query)).contiguous()
-        v = heads(self.w_value(query)).contiguous()
-        n_rel = self.clamp_len + 1 if self.clamp_len > 0 else t
+    def _attend(self, q, k, v, klens, window, key_start):
+        """K1 over q [B, H, Tq, dk] and k, v [B, Tk, H, dk]: [B, H, Tq,
+        dk]."""
+        tk = k.shape[1]
+        h, dk = self.n_heads, self.d_model // self.n_heads
+        n_rel = self.clamp_len + 1 if self.clamp_len > 0 else tk
         rel = torch.from_numpy(rel_distance_table(n_rel, self.d_model)).to(
-            query.device, query.dtype)
+            q.device, q.dtype)
         r = self.w_value(rel).view(n_rel, h, dk)    # positions share w_value
         scale = 1.0 / math.sqrt(dk)
         p = torch.einsum("bhqd,rhd->bhqr", q, r) * scale
-        o = rel_attention((q * scale).contiguous(), k, v, p.contiguous(),
-                          klens.to(device=query.device, dtype=torch.int32))
-        return self.w_out(o.transpose(1, 2).reshape(bs, t, self.d_model))
+        args = ((q * scale).contiguous(), k.transpose(1, 2).contiguous(),
+                v.transpose(1, 2).contiguous(), p.contiguous(),
+                klens.to(device=q.device, dtype=torch.int32))
+        if window is None and key_start == 0:
+            return rel_attention(*args)
+        return rel_attention(*args, window=window, key_start=key_start)

@@ -8,11 +8,16 @@ from .rel_attention import rel_attention, rel_attention_bwd, rel_attention_ref
 
 # launch counters by kernel entry: (wrapper, its counter's attribute)
 # (``ctc_loss`` is K4's forward entry; K1 / K1b count their float32 and
-# bf16 entries apart)
+# bf16 entries apart, and count again the launches with a window on the
+# keys and, K1, those against cached keys)
 KERNELS = {"rel_attention": (rel_attention, "launches"),
            "rel_attention_bf16": (rel_attention, "launches_bf16"),
+           "rel_attention_window": (rel_attention, "launches_window"),
+           "rel_attention_offset": (rel_attention, "launches_offset"),
            "rel_attention_bwd": (rel_attention_bwd, "launches"),
            "rel_attention_bwd_bf16": (rel_attention_bwd, "launches_bf16"),
+           "rel_attention_bwd_window": (rel_attention_bwd,
+                                        "launches_window"),
            "las_step": (las_step, "launches"),
            "las_scan": (las_scan, "launches"),
            "las_scan_bwd": (las_scan_bwd, "launches"),

@@ -36,10 +36,16 @@
 //   row, other tiles look each score's bucket up in the block's rows of p,
 //   copied into shared memory once (R <= 16; a longer table is read
 //   through L1).
-// Key tiles past klens[b] are skipped: their weights exp(min/2 - max) are
-// exactly 0 once one valid key was seen. With klens[b] == 0 every key is
-// masked and the row gets uniform weights, as the masked softmax of the
-// JAX module does.
+// A window on the keys (causal, chunkwise; rel_attention_common.cuh's
+// Window and key_range) and a query offset against cached keys are three
+// and two integers. Each block visits only the key tiles that one of its
+// 64 rows may attend (per query tile, not per batch row: a tile spans
+// several chunks); keys outside a row's range inside them score finfo.min
+// / 2, whose weights exp(min/2 - max) are exactly 0 once one allowed key
+// was seen. A row with no allowed key (klens[b] == 0, or a pad query whose
+// chunk window lies wholly past klens[b]) gets uniform weights over all Tk
+// keys, as the masked softmax of the JAX module does: a block holding one
+// visits every key tile.
 //
 // The forward also writes each row's softmax statistics, the running max
 // m and the sum l of exp(s - m), for the backward (K1b): P = exp(s - m) /
@@ -73,27 +79,32 @@ using namespace nsp_rel;
 
 // The rel-PE bias and the key mask on a tile of scores s (the C fragments
 // of a warp's rows rows[0..1] and keys k0 .. k0 + 8 N - 1), in float32
-// registers: a warp whose 16 rows and the tile's keys are all at distance
-// >= R - 1 adds one far-bucket value per row (far), other tiles look each
-// score's bucket up in the block's rows of p (prows = row q0).
-template <int N, class E>
+// registers: a tile whose keys every row of the warp may attend and whose
+// 16 rows and keys are all at distance >= R - 1 adds one far-bucket value
+// per row (far); other tiles mask each key outside its row's range (rk:
+// RowKeys with a window, PadKeys without) and look each score's bucket up
+// in the block's rows of p (prows = row q0), at the distance |i + qoff -
+// j|.
+template <int N, class E, class K>
 __device__ __forceinline__ void bias_tile(float (&s)[N][4], const int (&rows)[2],
-                                          const float (&far)[2], const E* prows, int q0, int w0,
-                                          int k0, int klen, int T, int R, int t) {
-  const bool plain = k0 + 8 * N <= min(klen, T) && min_distance(w0, 16, k0, 8 * N) >= R - 1;
+                                          const K& rk, const float (&far)[2],
+                                          const E* prows, int q0, int w0, int k0, int qoff,
+                                          int Tq, int Tk, int R, int t) {
+  const bool plain = k0 >= rk.wlo && k0 + 8 * N <= rk.whi &&
+                     min_distance(w0 + qoff, 16, k0, 8 * N) >= R - 1;
 #pragma unroll
   for (int n = 0; n < N; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const int i = rows[e >> 1], j = k0 + n * 8 + 2 * t + (e & 1);
+      const int r = e >> 1, i = rows[r], j = k0 + n * 8 + 2 * t + (e & 1);
       if (plain) {
-        s[n][e] += far[e >> 1];
-      } else if (j >= T) {
+        s[n][e] += far[r];
+      } else if (j >= Tk) {
         s[n][e] = -INFINITY;  // not a key at all
-      } else if (j >= klen) {
+      } else if (!rk.allowed(r, j)) {
         s[n][e] = kNeg;       // masked key, like apply_mask_logits
-      } else if (i < T) {
-        s[n][e] += rel_bias(prows + (i - q0) * R, i, j, R);
+      } else if (i < Tq) {
+        s[n][e] += rel_bias(prows + (i - q0) * R, i + qoff, j, R);
       }
     }
 }
@@ -126,13 +137,14 @@ __device__ __forceinline__ void online_tile(float (&s)[N][4], float (&m_run)[2],
   }
 }
 
-template <int DK>
+template <int DK, bool WIN>
 __global__ void __launch_bounds__(kThreads, 2)
 rel_attention_fwd_kernel(const float* __restrict__ q, const float2* __restrict__ kp,
                          const float2* __restrict__ vp, const float* __restrict__ p,
                          const int* __restrict__ klens, float* __restrict__ o,
-                         float* __restrict__ m_out, float* __restrict__ l_out, int H, int T,
-                         int R) {
+                         float* __restrict__ m_out, float* __restrict__ l_out, int H, int Tq,
+                         int Tk, int R, Window win) {
+  if constexpr (!WIN) Tk = Tq;  // offline: as many keys as queries
   extern __shared__ float4 smem4[];
   float2* ring = reinterpret_cast<float2*>(smem4);  // 2 stages x (K, V) split tiles
   float* ps = reinterpret_cast<float*>(ring + 4 * Tile<DK>::kPairs);  // [64][R <= kSmemR]
@@ -140,32 +152,36 @@ rel_attention_fwd_kernel(const float* __restrict__ q, const float2* __restrict__
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int q0 = blockIdx.x * kRows, h = blockIdx.y, b = blockIdx.z;
   const size_t bh = (size_t)b * H + h;
-  const float2* kb = kp + bh * T * DK;
-  const float2* vb = vp + bh * T * DK;
-  const float* pb = p + bh * T * R;
+  const float2* kb = kp + bh * Tk * DK;
+  const float2* vb = vp + bh * Tk * DK;
+  const float* pb = p + bh * Tq * R;
 
-  const int klen = klens[b];
-  const int kend = (klen > 0) ? min(klen, T) : T;
-  const int n_tiles = (kend + kStep - 1) / kStep;
-
-  load_pairs_async<DK>(ring, kb, 0, T);
-  load_pairs_async<DK>(ring + Tile<DK>::kPairs, vb, 0, T);
-  cp_async_commit();
-  const float* prows = stage_p_rows<kRows>(ps, pb, q0, T, R);  // row q0 of p
-
-  // this thread's two query rows, their far-bucket bias, and the warp's 16
-  // rows of q as split A fragments, held for the whole key loop
+  // this thread's two query rows and their keys; the key tiles the block
+  // visits: those some row may attend, or all when a row may attend none
+  // (klens[b] = 0, or a window past it: uniform weights over every key)
   const int w0 = q0 + 16 * warp;
   const int rows[2] = {w0 + g, w0 + g + 8};
+  const auto rk = row_keys<WIN>(win, rows, klens[b], Tq, Tk);
+  int kt0, n_tiles;
+  key_tiles<WIN, kStep, true>(rk, rows, Tq, Tk, kt0, n_tiles);
+  const int qoff = WIN ? win.qoff : 0;  // a constant 0 offline
+
+  load_pairs_async<DK>(ring, kb, kt0, Tk);
+  load_pairs_async<DK>(ring + Tile<DK>::kPairs, vb, kt0, Tk);
+  cp_async_commit();
+  const float* prows = stage_p_rows<kRows>(ps, pb, q0, Tq, R);  // row q0 of p
+
+  // their far-bucket bias, and the warp's 16 rows of q as split A
+  // fragments, held for the whole key loop
   float far[2];
   FragA qa[DK / 8];
   {
     const float* qr[2];
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
-      const bool in = rows[e] < T;
+      const bool in = rows[e] < Tq;
       far[e] = in ? pb[(size_t)rows[e] * R + R - 1] : 0.0f;
-      qr[e] = in ? q + (bh * T + rows[e]) * DK : nullptr;
+      qr[e] = in ? q + (bh * Tq + rows[e]) * DK : nullptr;
     }
 #pragma unroll
     for (int kk = 0; kk < DK / 8; ++kk) {
@@ -185,19 +201,19 @@ rel_attention_fwd_kernel(const float* __restrict__ q, const float2* __restrict__
     __syncthreads();  // tile `it` has landed; every warp is done with it - 1
     if (it + 1 < n_tiles) {
       float2* next = ring + ((it + 1) & 1) * 2 * Tile<DK>::kPairs;
-      load_pairs_async<DK>(next, kb, (it + 1) * kStep, T);
-      load_pairs_async<DK>(next + Tile<DK>::kPairs, vb, (it + 1) * kStep, T);
+      load_pairs_async<DK>(next, kb, kt0 + (it + 1) * kStep, Tk);
+      load_pairs_async<DK>(next + Tile<DK>::kPairs, vb, kt0 + (it + 1) * kStep, Tk);
     }
     cp_async_commit();
     const float2* ks = ring + (it & 1) * 2 * Tile<DK>::kPairs;
     const float2* vs = ks + Tile<DK>::kPairs;
-    const int k0 = it * kStep;
+    const int k0 = kt0 + it * kStep;
 
     float s[kStep / 8][4];
 #pragma unroll
     for (int n = 0; n < kStep / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.0f;
     product_nt<DK>(s, [&](int kk) { return qa[kk]; }, ks, g, t);
-    bias_tile(s, rows, far, prows, q0, w0, k0, klen, T, R, t);
+    bias_tile(s, rows, rk, far, prows, q0, w0, k0, qoff, Tq, Tk, R, t);
     float alpha[2];
     online_tile(s, m_run, l_run, alpha);
 #pragma unroll
@@ -214,13 +230,13 @@ rel_attention_fwd_kernel(const float* __restrict__ q, const float2* __restrict__
   for (int r = 0; r < 2; ++r) {
     const int i = rows[r];
     const float l = quad_sum(l_run[r]);
-    if (i >= T) continue;
+    if (i >= Tq) continue;
     if (t == 0) {
-      m_out[bh * T + i] = m_run[r];
-      l_out[bh * T + i] = l;
+      m_out[bh * Tq + i] = m_run[r];
+      l_out[bh * Tq + i] = l;
     }
     const float inv = 1.0f / l;
-    float* orow = o + (bh * T + i) * DK;
+    float* orow = o + (bh * Tq + i) * DK;
 #pragma unroll
     for (int n = 0; n < DK / 8; ++n)
       *reinterpret_cast<float2*>(orow + n * 8 + 2 * t) =
@@ -228,19 +244,19 @@ rel_attention_fwd_kernel(const float* __restrict__ q, const float2* __restrict__
   }
 }
 
-template <int DK>
+template <int DK, bool WIN>
 cudaError_t launch(const float* q, const float* k, const float* v, const float* p,
                    const int* klens, float* o, float* m, float* l, float2* kvp, int B, int H,
-                   int T, int R, cudaStream_t stream) {
-  const size_t n = (size_t)B * H * T * DK;
+                   int Tq, int Tk, int R, Window win, cudaStream_t stream) {
+  const size_t n = (size_t)B * H * Tk * DK;
   const int smem = 4 * Tile<DK>::kPairs * (int)sizeof(float2) +  // 2 x (K, V), p rows
                    kRows * kSmemR * (int)sizeof(float);
-  cudaError_t err = allow_smem<rel_attention_fwd_kernel<DK>>(smem);
+  cudaError_t err = allow_smem<rel_attention_fwd_kernel<DK, WIN>>(smem);
   if (err == cudaSuccess) err = split_pairs(k, v, kvp, n, stream);
   if (err != cudaSuccess) return err;
-  dim3 grid((T + kRows - 1) / kRows, H, B);
-  rel_attention_fwd_kernel<DK><<<grid, kThreads, smem, stream>>>(q, kvp, kvp + n, p, klens, o,
-                                                                 m, l, H, T, R);
+  dim3 grid((Tq + kRows - 1) / kRows, H, B);
+  rel_attention_fwd_kernel<DK, WIN><<<grid, kThreads, smem, stream>>>(q, kvp, kvp + n, p, klens,
+                                                                    o, m, l, H, Tq, Tk, R, win);
   return cudaGetLastError();
 }
 
@@ -261,14 +277,15 @@ cudaError_t launch(const float* q, const float* k, const float* v, const float* 
 // query and key gradients added up over all rows (at bf16, up to 2.7
 // times the plain path's distance from float32 on a ragged microbatch of
 // trained weights).
-template <int DK, int STEP>
+template <int DK, int STEP, bool WIN>
 __global__ void __launch_bounds__(kThreads, 2)
 rel_attention_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        const bf16* __restrict__ v, const bf16* __restrict__ p,
                        const int* __restrict__ klens, bf16* __restrict__ o,
-                       float* __restrict__ m_out, float* __restrict__ l_out, int H, int T,
-                       int R) {
+                       float* __restrict__ m_out, float* __restrict__ l_out, int H, int Tq,
+                       int Tk, int R, Window win) {
   constexpr int W = TileB<DK>::kWords, kTile = STEP * W;
+  if constexpr (!WIN) Tk = Tq;  // offline: as many keys as queries
   extern __shared__ float4 smem4[];
   uint32_t* ring = reinterpret_cast<uint32_t*>(smem4);    // 2 stages x (K, V) tiles
   bf16* ps = reinterpret_cast<bf16*>(ring + 4 * kTile);  // [64][R <= kSmemR]
@@ -276,20 +293,25 @@ rel_attention_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int q0 = blockIdx.x * kRows, h = blockIdx.y, b = blockIdx.z;
   const size_t bh = (size_t)b * H + h;
-  const uint32_t* kb = reinterpret_cast<const uint32_t*>(k + bh * T * DK);
-  const uint32_t* vb = reinterpret_cast<const uint32_t*>(v + bh * T * DK);
-  const bf16* pb = p + bh * T * R;
+  const uint32_t* kb = reinterpret_cast<const uint32_t*>(k + bh * Tk * DK);
+  const uint32_t* vb = reinterpret_cast<const uint32_t*>(v + bh * Tk * DK);
+  const bf16* pb = p + bh * Tq * R;
 
-  const int klen = klens[b];
-  const int kend = (klen > 0) ? min(klen, T) : T;
-  const int n_tiles = (kend + STEP - 1) / STEP;
+  // the rows' keys and the key tiles the block visits, as the float32
+  // kernel: the same in each of the three sweeps
+  const int w0 = q0 + 16 * warp;
+  const int rows[2] = {w0 + g, w0 + g + 8};
+  const auto rk = row_keys<WIN>(win, rows, klens[b], Tq, Tk);
+  int kt0, n_tiles;
+  key_tiles<WIN, STEP, true>(rk, rows, Tq, Tk, kt0, n_tiles);
+  const int qoff = WIN ? win.qoff : 0;  // a constant 0 offline
 
   // step `it` of the three sweeps: key tile it % n_tiles, its v in the third
   const auto load = [&](int it) {
     uint32_t* dst = ring + (it & 1) * 2 * kTile;
-    const int k0 = (it % n_tiles) * STEP;
-    load_async<STEP, DK / 2, W>(dst, kb, k0, T);
-    if (it >= 2 * n_tiles) load_async<STEP, DK / 2, W>(dst + kTile, vb, k0, T);
+    const int k0 = kt0 + (it % n_tiles) * STEP;
+    load_async<STEP, DK / 2, W>(dst, kb, k0, Tk);
+    if (it >= 2 * n_tiles) load_async<STEP, DK / 2, W>(dst + kTile, vb, k0, Tk);
   };
   // waits for step it's tiles, starts the next step's copy; returns the
   // stage holding step it's k (its v kTile words on)
@@ -302,16 +324,14 @@ rel_attention_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   };
   load(0);
   cp_async_commit();
-  const bf16* prows = stage_p_rows<kRows>(ps, pb, q0, T, R);  // row q0 of p
+  const bf16* prows = stage_p_rows<kRows>(ps, pb, q0, Tq, R);  // row q0 of p
 
-  const int w0 = q0 + 16 * warp;
-  const int rows[2] = {w0 + g, w0 + g + 8};
   float far[2];
 #pragma unroll
   for (int e = 0; e < 2; ++e)
-    far[e] = rows[e] < T ? __bfloat162float(pb[(size_t)rows[e] * R + R - 1]) : 0.0f;
+    far[e] = rows[e] < Tq ? __bfloat162float(pb[(size_t)rows[e] * R + R - 1]) : 0.0f;
   uint32_t qa[DK / 16][4];
-  load_a_rows<DK>(qa, q + bh * T * DK, w0, T, g, t);
+  load_a_rows<DK>(qa, q + bh * Tq * DK, w0, Tq, g, t);
 
   // first sweep: the row max; second: the sum of exp(s - max)
   float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.0f, 0.0f};
@@ -321,7 +341,7 @@ rel_attention_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int n = 0; n < STEP / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.0f;
     product_nt_bf16<DK, STEP / 8>(s, qa, ks, g, t);
-    bias_tile(s, rows, far, prows, q0, w0, it * STEP, klen, T, R, t);
+    bias_tile(s, rows, rk, far, prows, q0, w0, kt0 + it * STEP, qoff, Tq, Tk, R, t);
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       float tile_max = -INFINITY;
@@ -337,7 +357,7 @@ rel_attention_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int n = 0; n < STEP / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.0f;
     product_nt_bf16<DK, STEP / 8>(s, qa, ks, g, t);
-    bias_tile(s, rows, far, prows, q0, w0, it * STEP, klen, T, R, t);
+    bias_tile(s, rows, rk, far, prows, q0, w0, kt0 + it * STEP, qoff, Tq, Tk, R, t);
 #pragma unroll
     for (int n = 0; n < STEP / 8; ++n)
 #pragma unroll
@@ -348,9 +368,9 @@ rel_attention_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int r = 0; r < 2; ++r) {
     const float l = quad_sum(l_run[r]);
     inv[r] = 1.0f / l;
-    if (rows[r] < T && t == 0) {
-      m_out[bh * T + rows[r]] = m_run[r];
-      l_out[bh * T + rows[r]] = l;
+    if (rows[r] < Tq && t == 0) {
+      m_out[bh * Tq + rows[r]] = m_run[r];
+      l_out[bh * Tq + rows[r]] = l;
     }
   }
 
@@ -364,7 +384,7 @@ rel_attention_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int n = 0; n < STEP / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.0f;
     product_nt_bf16<DK, STEP / 8>(s, qa, ks, g, t);
-    bias_tile(s, rows, far, prows, q0, w0, it * STEP, klen, T, R, t);
+    bias_tile(s, rows, rk, far, prows, q0, w0, kt0 + it * STEP, qoff, Tq, Tk, R, t);
 #pragma unroll
     for (int n = 0; n < STEP / 8; ++n)
 #pragma unroll
@@ -374,40 +394,59 @@ rel_attention_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    if (rows[r] >= T) continue;
-    uint32_t* orow = reinterpret_cast<uint32_t*>(o + (bh * T + rows[r]) * DK);
+    if (rows[r] >= Tq) continue;
+    uint32_t* orow = reinterpret_cast<uint32_t*>(o + (bh * Tq + rows[r]) * DK);
 #pragma unroll
     for (int n = 0; n < DK / 8; ++n) orow[n * 4 + t] = pack_bf16(acc[n][2 * r], acc[n][2 * r + 1]);
   }
 }
 
-template <int DK>
+template <int DK, bool WIN>
 cudaError_t launch_bf16(const bf16* q, const bf16* k, const bf16* v, const bf16* p,
-                        const int* klens, bf16* o, float* m, float* l, int B, int H, int T, int R,
-                        cudaStream_t stream) {
+                        const int* klens, bf16* o, float* m, float* l, int B, int H, int Tq,
+                        int Tk, int R, Window win, cudaStream_t stream) {
   constexpr int STEP = kStepB;
   const int smem = 4 * STEP * TileB<DK>::kWords * (int)sizeof(uint32_t) +  // 2 x (K, V), p rows
                    kRows * kSmemR * (int)sizeof(bf16);
-  cudaError_t err = allow_smem<rel_attention_fwd_bf16<DK, STEP>>(smem);
+  cudaError_t err = allow_smem<rel_attention_fwd_bf16<DK, STEP, WIN>>(smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((T + kRows - 1) / kRows, H, B);
-  rel_attention_fwd_bf16<DK, STEP><<<grid, kThreads, smem, stream>>>(q, k, v, p, klens, o, m, l,
-                                                                     H, T, R);
+  dim3 grid((Tq + kRows - 1) / kRows, H, B);
+  rel_attention_fwd_bf16<DK, STEP, WIN><<<grid, kThreads, smem, stream>>>(
+      q, k, v, p, klens, o, m, l, H, Tq, Tk, R, win);
   return cudaGetLastError();
+}
+
+// The window of the keys (rel_attention_common.cuh's Window): nc = 0 for
+// none, nl, nr; the queries sit at key positions Tk - Tq on; keys below
+// kstart are masked.
+Window make_window(int Tq, int Tk, int nc, int nl, int nr, int kstart) {
+  return Window{nc, nl, nr, Tk - Tq, kstart};
+}
+
+// Whether a call takes the windowed kernels (RowKeys); the offline calls
+// run the kernels of the padding alone (PadKeys).
+bool windowed(const Window& w, int Tq, int Tk) {
+  return w.nc > 0 || w.kstart > 0 || Tq != Tk;
+}
+
+bool bad_shape(int B, int H, int Tq, int Tk, int R, int nc, int nr, int kstart) {
+  return B <= 0 || H <= 0 || Tq <= 0 || Tk < Tq || R <= 0 || H > 65535 || B > 65535 || nc < 0 ||
+         nr < 0 || kstart < 0;
 }
 
 }  // namespace
 
-// q, k, v, o: [B, H, T, dk]; p: [B, H, T, R]; klens: [B] int32; m, l:
-// [B, H, T] row statistics; kvp: scratch [2, B, H, T, dk, 2] for the split
-// k and v. All contiguous and 16-byte aligned, on the device of `stream`.
-// Returns a cudaError_t.
+// q, o: [B, H, Tq, dk]; k, v: [B, H, Tk, dk] (Tq <= Tk); p: [B, H, Tq, R];
+// klens: [B] int32; m, l: [B, H, Tq] row statistics; kvp: scratch [2, B,
+// H, Tk, dk, 2] for the split k and v; the window nc (0: none), nl, nr
+// and the first valid key kstart. All contiguous and 16-byte aligned, on
+// the device of `stream`. Returns a cudaError_t.
 extern "C" int nsp_rel_attention_f32(const void* q, const void* k, const void* v,
                                      const void* p, const void* klens, void* o, void* m,
-                                     void* l, void* kvp, int B, int H, int T, int R, int dk,
-                                     void* stream) {
-  if (B <= 0 || H <= 0 || T <= 0 || R <= 0 || H > 65535 || B > 65535)
-    return (int)cudaErrorInvalidValue;
+                                     void* l, void* kvp, int B, int H, int Tq, int Tk, int R,
+                                     int dk, int nc, int nl, int nr, int kstart, void* stream) {
+  if (bad_shape(B, H, Tq, Tk, R, nc, nr, kstart)) return (int)cudaErrorInvalidValue;
+  const Window win = make_window(Tq, Tk, nc, nl, nr, kstart);
   const float* qf = static_cast<const float*>(q);
   const float* kf = static_cast<const float*>(k);
   const float* vf = static_cast<const float*>(v);
@@ -418,24 +457,29 @@ extern "C" int nsp_rel_attention_f32(const void* q, const void* k, const void* v
   float* lf = static_cast<float*>(l);
   float2* kvpf = static_cast<float2*>(kvp);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define NSP_LAUNCH(D)                                                                    \
+  (windowed(win, Tq, Tk)                                                                 \
+       ? launch<D, true>(qf, kf, vf, pf, kl, of, mf, lf, kvpf, B, H, Tq, Tk, R, win, s)  \
+       : launch<D, false>(qf, kf, vf, pf, kl, of, mf, lf, kvpf, B, H, Tq, Tk, R, win, s))
   switch (dk) {
-    case 16: return (int)launch<16>(qf, kf, vf, pf, kl, of, mf, lf, kvpf, B, H, T, R, s);
-    case 32: return (int)launch<32>(qf, kf, vf, pf, kl, of, mf, lf, kvpf, B, H, T, R, s);
-    case 64: return (int)launch<64>(qf, kf, vf, pf, kl, of, mf, lf, kvpf, B, H, T, R, s);
+    case 16: return (int)NSP_LAUNCH(16);
+    case 32: return (int)NSP_LAUNCH(32);
+    case 64: return (int)NSP_LAUNCH(64);
     default: return (int)cudaErrorInvalidValue;
   }
+#undef NSP_LAUNCH
 }
 
-// The bf16 entry: q, k, v, p, o bf16 ([B, H, T, dk] / [B, H, T, R]), m, l
-// float32 [B, H, T], klens [B] int32; no scratch. All contiguous, q, k, v
-// 16-byte aligned, on the device of `stream`. Returns a cudaError_t.
+// The bf16 entry: q, k, v, p, o bf16 (shapes as above), m, l float32
+// [B, H, Tq], klens [B] int32; no scratch. All contiguous, q, k, v 16-byte
+// aligned, on the device of `stream`. Returns a cudaError_t.
 extern "C" int nsp_rel_attention_bf16(const void* q, const void* k, const void* v,
                                       const void* p, const void* klens, void* o, void* m,
-                                      void* l, int B, int H, int T, int R, int dk,
-                                      void* stream) {
+                                      void* l, int B, int H, int Tq, int Tk, int R, int dk, int nc,
+                                      int nl, int nr, int kstart, void* stream) {
   using nsp_rel::bf16;
-  if (B <= 0 || H <= 0 || T <= 0 || R <= 0 || H > 65535 || B > 65535)
-    return (int)cudaErrorInvalidValue;
+  if (bad_shape(B, H, Tq, Tk, R, nc, nr, kstart)) return (int)cudaErrorInvalidValue;
+  const Window win = make_window(Tq, Tk, nc, nl, nr, kstart);
   const bf16* qb = static_cast<const bf16*>(q);
   const bf16* kb = static_cast<const bf16*>(k);
   const bf16* vb = static_cast<const bf16*>(v);
@@ -445,10 +489,15 @@ extern "C" int nsp_rel_attention_bf16(const void* q, const void* k, const void* 
   float* mf = static_cast<float*>(m);
   float* lf = static_cast<float*>(l);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define NSP_LAUNCH(D)                                                                   \
+  (windowed(win, Tq, Tk)                                                                \
+       ? launch_bf16<D, true>(qb, kb, vb, pb, kl, ob, mf, lf, B, H, Tq, Tk, R, win, s)  \
+       : launch_bf16<D, false>(qb, kb, vb, pb, kl, ob, mf, lf, B, H, Tq, Tk, R, win, s))
   switch (dk) {
-    case 16: return (int)launch_bf16<16>(qb, kb, vb, pb, kl, ob, mf, lf, B, H, T, R, s);
-    case 32: return (int)launch_bf16<32>(qb, kb, vb, pb, kl, ob, mf, lf, B, H, T, R, s);
-    case 64: return (int)launch_bf16<64>(qb, kb, vb, pb, kl, ob, mf, lf, B, H, T, R, s);
+    case 16: return (int)NSP_LAUNCH(16);
+    case 32: return (int)NSP_LAUNCH(32);
+    case 64: return (int)NSP_LAUNCH(64);
     default: return (int)cudaErrorInvalidValue;
   }
+#undef NSP_LAUNCH
 }

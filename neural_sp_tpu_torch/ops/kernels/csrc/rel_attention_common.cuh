@@ -30,6 +30,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <cfloat>
+#include <climits>
 #include <cstdint>
 
 namespace nsp_rel {
@@ -245,6 +246,210 @@ __device__ __forceinline__ const E* stage_p_rows(E* dst, const E* pb, int r0, in
   for (int idx = threadIdx.x; idx < ROWS * R; idx += kThreads)
     dst[idx] = r0 + idx / R < T ? pb[(size_t)r0 * R + idx] : E{};
   return dst;
+}
+
+// ---- the keys a query may attend -----------------------------------------
+//
+// Query i (of Tq) sits at position i + qoff among the Tk keys (qoff = Tk -
+// Tq: a streaming block against cached keys; 0 offline). It may attend key
+// j iff kstart <= j < min(klens[b], Tk) and, with a window (nc > 0; the
+// chunk of position a = i + qoff is c = a / nc), j < (c + 1) nc + nr and,
+// when nl >= 0, j >= c nc - nl: make_chunkwise_san_mask, and with nc = 1,
+// nr = 0, nl = -1 causal_mask. Every other key scores finfo.min / 2, like
+// apply_mask_logits, so a row that may attend no key gets uniform weights
+// over all Tk keys. All four entries (K1, K1b; float32, bf16) decide
+// through key_range.
+struct Window {
+  int nc;      // chunk (0: no window)
+  int nl;      // left context (-1: unlimited)
+  int nr;      // right context
+  int qoff;    // query i sits at key position i + qoff
+  int kstart;  // keys below are masked
+};
+
+// [lo, hi): the keys query row i may attend (none when hi <= lo).
+__device__ __forceinline__ void key_range(const Window& w, int i, int klen, int Tk, int& lo,
+                                          int& hi) {
+  lo = w.kstart;
+  hi = min(klen, Tk);
+  if (w.nc > 0) {
+    const int c = (i + w.qoff) / w.nc;
+    hi = min(hi, (c + 1) * w.nc + w.nr);
+    if (w.nl >= 0) lo = max(lo, c * w.nc - w.nl);
+  }
+}
+
+__device__ __forceinline__ int warp_min(int x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x = min(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+__device__ __forceinline__ int warp_max(int x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x = max(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+// A thread's two rows' key ranges (rows past Tq take [0, Tk): their results
+// are never stored), and the keys [wlo, whi) that every row of its warp
+// below Tq may attend.
+struct RowKeys {
+  int lo[2], hi[2], wlo, whi;
+  __device__ __forceinline__ RowKeys(const Window& w, const int (&rows)[2], int klen, int Tq,
+                                     int Tk) {
+    int a = 0, b = Tk;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      lo[e] = 0;
+      hi[e] = Tk;
+      if (rows[e] < Tq) {
+        key_range(w, rows[e], klen, Tk, lo[e], hi[e]);
+        a = max(a, lo[e]);
+        b = min(b, hi[e]);
+      }
+    }
+    wlo = warp_max(a);
+    whi = warp_min(b);
+  }
+  __device__ __forceinline__ bool allowed(int e, int j) const { return j >= lo[e] && j < hi[e]; }
+};
+
+// Without a window (the offline encoders) a row's keys are the padding's
+// alone, j < min(klens[b], Tk), the same for every row: the kernels take
+// this instead of RowKeys (a template choice), so their offline code is
+// the klen test it was before windows came.
+struct PadKeys {
+  int wlo, whi;
+  __device__ __forceinline__ PadKeys(int klen, int Tk) : wlo(0), whi(min(klen, Tk)) {}
+  __device__ __forceinline__ bool allowed(int, int j) const { return j < whi; }
+};
+
+// The keys [kbeg, kend) that some row of the block (each thread's two rows
+// below Tq, in rk) may attend, and whether a row may attend none. Every
+// thread calls it; red is kWarps * 3 ints of shared memory, read only
+// after the barrier inside.
+__device__ __forceinline__ void block_keys(const RowKeys& rk, const int (&rows)[2], int Tq,
+                                           int* red, int& kbeg, int& kend, bool& any_empty) {
+  int b = INT_MAX, e = 0, em = 0;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (rows[r] >= Tq) continue;
+    if (rk.lo[r] < rk.hi[r]) {
+      b = min(b, rk.lo[r]);
+      e = max(e, rk.hi[r]);
+    } else {
+      em = 1;
+    }
+  }
+  b = warp_min(b);
+  e = warp_max(e);
+  em = warp_max(em);
+  const int warp = threadIdx.x >> 5;
+  if ((threadIdx.x & 31) == 0) {
+    red[warp] = b;
+    red[kWarps + warp] = e;
+    red[2 * kWarps + warp] = em;
+  }
+  __syncthreads();
+  b = INT_MAX;
+  e = 0;
+  em = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    b = min(b, red[w]);
+    e = max(e, red[kWarps + w]);
+    em = max(em, red[2 * kWarps + w]);
+  }
+  kbeg = b == INT_MAX ? 0 : b;
+  kend = b == INT_MAX ? 0 : e;
+  any_empty = em != 0;
+}
+
+// A row's keys: RowKeys with a window (or cached keys), PadKeys without.
+template <bool WIN>
+__device__ __forceinline__ auto row_keys(const Window& w, const int (&rows)[2], int klen, int Tq,
+                                         int Tk) {
+  if constexpr (WIN) {
+    return RowKeys(w, rows, klen, Tq, Tk);
+  } else {
+    return PadKeys(klen, Tk);
+  }
+}
+
+// The key tiles of STEP keys a block visits, n_tiles of them from key kt0:
+// those some row of the block may attend (without a window, the keys below
+// min(klens[b], Tk)); a row that may attend none makes the forward
+// (``all_if_empty``) visit every key, its weights being uniform over all
+// Tk, and adds nothing to the backward's dq pass (ds = 0 there).
+template <bool WIN, int STEP, bool all_if_empty, class K>
+__device__ __forceinline__ void key_tiles(const K& rk, const int (&rows)[2], int Tq, int Tk,
+                                          int& kt0, int& n_tiles) {
+  int kbeg = 0, kend;
+  if constexpr (WIN) {
+    __shared__ int red[3 * kWarps];
+    bool any_empty;
+    block_keys(rk, rows, Tq, red, kbeg, kend, any_empty);
+    if (all_if_empty && any_empty) kbeg = 0, kend = Tk;
+  } else {
+    kend = rk.whi > 0 ? rk.whi : (all_if_empty ? Tk : 0);
+  }
+  kt0 = kbeg / STEP * STEP;
+  n_tiles = kend > kbeg ? (kend - kt0 + STEP - 1) / STEP : 0;
+}
+
+// The query rows [ibeg, iend) of 0 .. T - 1 whose weights reach keys j0 ..
+// j0 + nj - 1 under a window: those whose range meets them, and those with
+// an empty range (uniform over every key). The block's threads share the
+// rows; red as in block_keys. iend <= ibeg: none.
+__device__ __forceinline__ void query_span(const Window& w, int j0, int nj, int klen, int T,
+                                           int* red, int& ibeg, int& iend) {
+  int b = INT_MAX, e = 0;
+  for (int i = threadIdx.x; i < T; i += kThreads) {
+    int lo, hi;
+    key_range(w, i, klen, T, lo, hi);
+    if (lo >= hi || (lo < j0 + nj && hi > j0)) {
+      b = min(b, i);
+      e = max(e, i + 1);
+    }
+  }
+  b = warp_min(b);
+  e = warp_max(e);
+  const int warp = threadIdx.x >> 5;
+  if ((threadIdx.x & 31) == 0) {
+    red[warp] = b;
+    red[kWarps + warp] = e;
+  }
+  __syncthreads();
+  b = INT_MAX;
+  e = 0;
+#pragma unroll
+  for (int v = 0; v < kWarps; ++v) {
+    b = min(b, red[v]);
+    e = max(e, red[kWarps + v]);
+  }
+  ibeg = b == INT_MAX ? 0 : b;
+  iend = b == INT_MAX ? 0 : e;
+}
+
+// The query tiles of STEP rows the backward's key-major pass visits for
+// keys j0 .. j0 + kRows - 1, n_tiles of them from tile it0: without a
+// window every tile while j0 lies below the keys' end (min(klens[b], T),
+// or all T when klens[b] is 0: uniform P), none past it; with one,
+// query_span's.
+template <bool WIN, int STEP>
+__device__ __forceinline__ void query_tiles(const Window& win, int j0, int klen, int T,
+                                            int& it0, int& n_tiles) {
+  it0 = 0;
+  if constexpr (WIN) {
+    __shared__ int red[3 * kWarps];
+    int ibeg, iend;
+    query_span(win, j0, kRows, klen, T, red, ibeg, iend);
+    it0 = ibeg / STEP;
+    n_tiles = iend > ibeg ? (iend + STEP - 1) / STEP - it0 : 0;
+  } else {
+    const int kend = (klen > 0) ? min(klen, T) : T;
+    n_tiles = j0 < kend ? (T + STEP - 1) / STEP : 0;
+  }
 }
 
 // Least |i - j| over queries i0 .. i0 + ni - 1 and keys j0 .. j0 + nj - 1:

@@ -36,32 +36,47 @@ before the dv, dq and dk products
 o, dq, dk, dv and dp come out in the inputs' type; the row statistics m
 and l stay float32. The plain versions round at the same points when
 given bf16, and run float32 throughout when given float32.
+
+A window on the keys (the streaming encoders' masks, passed as three
+integers, never as a [T, T] tensor): ``window = (n_l, n_c, n_r)`` lets
+query i attend key j iff j < klens[b], j < (i // n_c + 1) n_c + n_r and,
+when n_l >= 0, j >= (i // n_c) n_c - n_l (``ops.masks.window_mask``, the
+plain versions' mask; ``make_chunkwise_san_mask``); ``masks.CAUSAL =
+(-1, 1, 0)`` is ``causal_mask``. A row with no allowed key gets uniform
+weights over all Tk keys, as the masked softmax of the JAX module (every
+score finfo.min / 2). The forward also takes fewer queries
+than keys (a streaming block against cached keys): query i then sits at
+position i + Tk - Tq among the keys, its relative distance to key j is
+|i + Tk - Tq - j|, and keys below ``key_start`` are masked (the cache's
+empty slots). The backward takes Tq = Tk and no ``key_start``.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from ..masks import apply_mask_logits
+from ..masks import apply_mask_logits, window_mask
 from ._checks import check, on_cpu, raise_on_error, stream_of
 from .build import load_library
 from .roofline import valid_lengths
 
 
-def rel_attention_ref(q, k, v, p, klens):
+def rel_attention_ref(q, k, v, p, klens, window=None, key_start=0):
     """Plain PyTorch twin of the kernel, the CPU path and the reference on
-    the card. q, k, v: [B, H, T, dk]; p: [B, H, T, R]; klens: [B] int.
-    Returns o [B, H, T, dk] in q's type. Scores and softmax in float32
-    (or wider); for bf16 inputs P is rounded to bf16 before P v, as the
-    kernel."""
-    prob = torch.softmax(_scores(q, k, p, klens), dim=-1)
+    the card. q: [B, H, Tq, dk]; k, v: [B, H, Tk, dk] (Tq <= Tk); p:
+    [B, H, Tq, R]; klens: [B] int; ``window`` (n_l, n_c, n_r) or None,
+    ``key_start`` as the module docstring says. Returns o [B, H, Tq, dk]
+    in q's type. Scores and softmax in float32 (or wider); for bf16 inputs
+    P is rounded to bf16 before P v, as the kernel."""
+    prob = torch.softmax(_scores(q, k, p, klens, window, key_start), dim=-1)
     return torch.matmul(_rounded(prob, q), _wide(v)).to(q.dtype)
 
 
-def rel_attention_stats_ref(q, k, p, klens):
+def rel_attention_stats_ref(q, k, p, klens, window=None, key_start=0):
     """Row statistics of the masked scores the forward saves for the
-    backward: (m [B, H, T] row max, l [B, H, T] sum of exp(s - m)), in
+    backward: (m [B, H, Tq] row max, l [B, H, Tq] sum of exp(s - m)), in
     float32 (or wider)."""
-    s = _scores(q, k, p, klens)
+    s = _scores(q, k, p, klens, window, key_start)
     m = s.amax(-1)
     return m, torch.exp(s - m[..., None]).sum(-1)
 
@@ -78,76 +93,115 @@ def _rounded(x, like):
     return x.to(like.dtype).to(x.dtype)
 
 
-def _scores(q, k, p, klens):
+def _scores(q, k, p, klens, window=None, key_start=0):
     """The masked scores in at least float32 (for bf16 inputs the products
     exact, as the tensor cores form them, summed in float32)."""
-    t, r = q.shape[2], p.shape[-1]
+    tq, tk = q.shape[2], k.shape[2]
     s = torch.matmul(_wide(q), _wide(k).transpose(-1, -2))
-    pos = torch.arange(t, device=q.device)
-    idx = (pos[:, None] - pos[None, :]).abs().clamp(max=r - 1)
-    s = s + torch.gather(_wide(p), -1, idx.expand(*p.shape[:2], t, t))
-    return apply_mask_logits(s, _valid_keys(klens, t, q.device))
+    idx = _buckets(tq, tk, p.shape[-1], q.device)
+    s = s + torch.gather(_wide(p), -1, idx.expand(*p.shape[:2], tq, tk))
+    return apply_mask_logits(
+        s, window_mask(klens, tq, tk, window, key_start, q.device)[:, None])
 
 
-def _valid_keys(klens, t, device):
-    pos = torch.arange(t, device=device)
-    return (pos[None, :] < klens.to(device)[:, None])[:, None, None, :]
+def _buckets(tq, tk, r, device):
+    """[Tq, Tk] rows of p that (query i, key j) reads: min(|i + Tk - Tq -
+    j|, R - 1)."""
+    i = torch.arange(tq, device=device) + (tk - tq)
+    j = torch.arange(tk, device=device)
+    return (i[:, None] - j[None, :]).abs().clamp(max=r - 1)
 
 
-def rel_attention_bwd_ref(q, k, v, p, klens, o, m, l, do):
+def key_ranges(klens, tq, tk, window=None, key_start=0):
+    """Per batch row, the [Tq] (lo, hi) bounds of each query's allowed
+    keys as numpy int arrays (empty when lo >= hi): what the kernels
+    compute per row."""
+    i = np.arange(tq) + (tk - tq)
+    out = []
+    for n in klens:
+        lo = np.full(tq, key_start)
+        hi = np.full(tq, min(int(n), tk))
+        if window is not None:
+            n_l, n_c, n_r = window
+            c = i // n_c
+            hi = np.minimum(hi, (c + 1) * n_c + n_r)
+            if n_l >= 0:
+                lo = np.maximum(lo, c * n_c - n_l)
+        out.append((lo, hi))
+    return out
+
+
+def rel_attention_bwd_ref(q, k, v, p, klens, o, m, l, do, window=None):
     """Plain PyTorch version of the backward kernel K1b, the adjoint written
     out (not autograd): P = exp(s - m) / l; D = sum(do * o); ds = P (do v^T
-    - D) on valid keys, 0 on masked ones (the masked ``where`` passes no
+    - D) on allowed keys, 0 on masked ones (the masked ``where`` passes no
     gradient); dq = ds k, dk = ds^T q, dv = P^T do, dp[i, r] = sum of ds[i,
     j] over min(|i-j|, R-1) = r. Everything in at least float32; for bf16
     inputs P and ds are rounded to bf16 before their products, as the
     kernel. Returns (dq, dk, dv, dp) in the inputs' type."""
-    t, r = q.shape[2], p.shape[-1]
-    s = _scores(q, k, p, klens)
+    t = q.shape[2]
+    s = _scores(q, k, p, klens, window)
     prob = torch.exp(s - m[..., None]) / l[..., None]
     do_, k_, q_ = _wide(do), _wide(k), _wide(q)
     delta = (do_ * _wide(o)).sum(-1, keepdim=True)
     ds = prob * (torch.matmul(do_, _wide(v).transpose(-1, -2)) - delta)
-    ds = torch.where(_valid_keys(klens, t, q.device), ds,
-                     torch.zeros_like(ds))
+    ds = torch.where(window_mask(klens, t, t, window, 0, q.device)[:, None],
+                     ds, torch.zeros_like(ds))
     ds_lp = _rounded(ds, q)
     dq = torch.matmul(ds_lp, k_)
     dk = torch.matmul(ds_lp.transpose(-1, -2), q_)
     dv = torch.matmul(_rounded(prob, q).transpose(-1, -2), do_)
-    pos = torch.arange(t, device=q.device)
-    idx = (pos[:, None] - pos[None, :]).abs().clamp(max=r - 1)
+    idx = _buckets(t, t, p.shape[-1], q.device)
     dp = torch.zeros(p.shape, dtype=ds.dtype, device=p.device).scatter_add_(
         -1, idx.expand(*p.shape[:2], t, t), ds)
     return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype), dp.to(p.dtype)
 
 
-def rel_attention_cost(b, h, t, dk, r, klens,
-                       elem: int = 4) -> tuple[int, int]:
+def _pairs(klens, tq, tk, window, key_start):
+    """Summed over the batch: (query-key pairs of allowed keys, rows with
+    no allowed key, keys some row allows, and the value rows the forward
+    reads: those keys, or all Tk in a batch row where some query has
+    none)."""
+    pairs = empty = union = v_rows = 0
+    for lo, hi in key_ranges(valid_lengths(klens, tk), tq, tk, window,
+                             key_start):
+        n = (hi - lo).clip(min=0)
+        pairs += int(n.sum())
+        empty += int((n == 0).sum())
+        cover = np.zeros(tk + 1, np.int64)
+        np.add.at(cover, lo[n > 0], 1)
+        np.add.at(cover, hi[n > 0], -1)
+        keys = int((np.cumsum(cover)[:tk] > 0).sum())
+        union += keys
+        v_rows += tk if (n == 0).any() else keys
+    return pairs, empty, union, v_rows
+
+
+def rel_attention_cost(b, h, t, dk, r, klens, elem: int = 4, window=None,
+                       tk=None, key_start=0) -> tuple[int, int]:
     """(flops, bytes) the forward needs: the two products q k^T and P v
-    (2 dk flops per query-key pair each) over the valid keys (with no valid
-    key, P v alone over all T); q, p, o for every row and k and v for the
-    keys read, ``elem`` bytes each (4 float32, 2 bf16); m and l float32
-    (4 bytes), klens int32."""
-    flops = kv_rows = 0
-    for n in valid_lengths(klens, t):
-        flops += (4 * n if n else 2 * t) * h * dk * t
-        kv_rows += 2 * n if n else t
-    return flops, elem * (2 * b * h * t * dk + h * dk * kv_rows
+    (2 dk flops per query-key pair each) over each row's allowed keys (for
+    a row with none, P v alone over all Tk keys); q, p, o for every row
+    and k and v for the keys read, ``elem`` bytes each (4 float32, 2
+    bf16); m and l float32 (4 bytes), klens int32. t is Tq; ``tk`` the keys
+    (t when None)."""
+    tk = t if tk is None else tk
+    pairs, empty, union, v_rows = _pairs(klens, t, tk, window, key_start)
+    flops = (4 * pairs + 2 * empty * tk) * h * dk
+    return flops, elem * (2 * b * h * t * dk + h * dk * (union + v_rows)
                           + b * h * t * r) + 4 * (2 * b * h * t + b)
 
 
-def rel_attention_bwd_cost(b, h, t, dk, r, klens,
-                           elem: int = 4) -> tuple[int, int]:
-    """(flops, bytes) the backward needs: five products over the valid
-    keys (s = q k^T, dP = dO v^T, dv = P^T dO, dq = ds k, dk = ds^T q); with
-    no valid key only dv = P^T dO over all T. Reads q, p, o, dO and the
-    valid keys' k, v and writes dq, dk, dv, dp, ``elem`` bytes each; reads
-    m, l (float32) and klens."""
-    flops = kv_rows = 0
-    for n in valid_lengths(klens, t):
-        flops += (10 * n if n else 2 * t) * h * dk * t
-        kv_rows += 2 * n
-    return flops, elem * (3 * b * h * t * dk + h * dk * kv_rows
+def rel_attention_bwd_cost(b, h, t, dk, r, klens, elem: int = 4,
+                           window=None) -> tuple[int, int]:
+    """(flops, bytes) the backward needs: five products over each row's
+    allowed keys (s = q k^T, dP = dO v^T, dv = P^T dO, dq = ds k, dk = ds^T
+    q); for a row with none only dv = P^T dO over all T. Reads q, p, o, dO
+    and the keys' k, v and writes dq, dk, dv, dp, ``elem`` bytes each;
+    reads m, l (float32) and klens."""
+    pairs, empty, union, _ = _pairs(klens, t, t, window, 0)
+    flops = (10 * pairs + 2 * empty * t) * h * dk
+    return flops, elem * (3 * b * h * t * dk + 2 * h * dk * union
                           + b * h * t * r + 3 * b * h * t * dk
                           + b * h * t * r) + 4 * (2 * b * h * t + b)
 
@@ -158,18 +212,32 @@ _ENTRIES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 def _check(q, k, v, p, klens) -> str:
     """Checks the arguments; returns the entry's suffix for q's type."""
-    b, h, t, dk = q.shape
-    r = p.shape[-1]
+    b, h, tq, dk = q.shape
+    tk, r = k.shape[2], p.shape[-1]
     if q.dtype not in _ENTRIES:
         raise TypeError(f"rel_attention: dtype {q.dtype}, the kernels take "
                         f"{sorted(map(str, _ENTRIES))}")
-    for name, x in (("q", q), ("k", k), ("v", v)):
-        check(name, x, (b, h, t, dk), q.dtype)
-    check("p", p, (b, h, t, r), q.dtype)
+    check("q", q, (b, h, tq, dk), q.dtype)
+    for name, x in (("k", k), ("v", v)):
+        check(name, x, (b, h, tk, dk), q.dtype)
+    check("p", p, (b, h, tq, r), q.dtype)
     check("klens", klens, (b,), torch.int32)
     if dk not in (16, 32, 64):
         raise ValueError(f"rel_attention: head width {dk} not in (16, 32, 64)")
+    if tq > tk:
+        raise ValueError(f"rel_attention: {tq} queries past {tk} keys")
     return _ENTRIES[q.dtype]
+
+
+def _window_args(window, key_start: int) -> tuple[int, int, int, int]:
+    """(n_c, n_l, n_r, key_start) as the kernels take them; n_c = 0: no
+    window."""
+    if window is None:
+        return 0, -1, 0, key_start
+    n_l, n_c, n_r = (int(x) for x in window)
+    if n_c < 1 or n_r < 0:
+        raise ValueError(f"rel_attention: window {window}")
+    return n_c, n_l, n_r, key_start
 
 
 def _pair_scratch(x):
@@ -185,45 +253,56 @@ def _check_aligned(*tensors):
                          "q, k, v, dO")
 
 
-def rel_attention_fwd(q, k, v, p, klens):
+def rel_attention_fwd(q, k, v, p, klens, window=None, key_start=0):
     """(o, m, l): the output (q's type) and the float32 row statistics (see
     ``rel_attention_stats_ref``). CPU tensors take the plain versions; CUDA
     tensors launch K1's float32 or bf16 entry, by q's type (contiguous,
     every floating argument of that type), or raise. Every launch adds one
-    to ``rel_attention.launches`` (float32) or ``.launches_bf16``."""
+    to ``rel_attention.launches`` (float32) or ``.launches_bf16``, and a
+    launch with a window or fewer queries than keys also to
+    ``rel_attention.launches_window`` or ``.launches_offset``."""
     if on_cpu(q, k, v, p, klens):
-        return (rel_attention_ref(q, k, v, p, klens),
-                *rel_attention_stats_ref(q, k, p, klens))
+        return (rel_attention_ref(q, k, v, p, klens, window, key_start),
+                *rel_attention_stats_ref(q, k, p, klens, window, key_start))
     entry = _check(q, k, v, p, klens)
     _check_aligned(q, k, v)
-    b, h, t, dk = q.shape
+    b, h, tq, dk = q.shape
+    tk = k.shape[2]
+    win = _window_args(window, key_start)
     o = torch.empty_like(q)
-    m = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+    m = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)
     lib = load_library()
     if entry == "bf16":
         err = lib.nsp_rel_attention_bf16(
             *(x.data_ptr() for x in (q, k, v, p, klens, o, m, l)),
-            b, h, t, p.shape[-1], dk, stream_of(q))
+            b, h, tq, tk, p.shape[-1], dk, *win, stream_of(q))
     else:
         err = lib.nsp_rel_attention_f32(
             *(x.data_ptr() for x in (q, k, v, p, klens, o, m, l,
-                                     _pair_scratch(q))),
-            b, h, t, p.shape[-1], dk, stream_of(q))
+                                     _pair_scratch(k))),
+            b, h, tq, tk, p.shape[-1], dk, *win, stream_of(q))
     raise_on_error(f"rel_attention ({entry})", err)
     _count(rel_attention, entry)
+    if window is not None:
+        rel_attention.launches_window += 1
+    if tq < tk:
+        rel_attention.launches_offset += 1
     return o, m, l
 
 
-def rel_attention_bwd(q, k, v, p, klens, o, m, l, do):
+def rel_attention_bwd(q, k, v, p, klens, o, m, l, do, window=None):
     """(dq, dk, dv, dp) in the inputs' type. CPU tensors take
     ``rel_attention_bwd_ref``; CUDA tensors launch K1b's float32 or bf16
     entry, by q's type, or raise. Every launch adds one to
-    ``rel_attention_bwd.launches`` (float32) or ``.launches_bf16``."""
+    ``rel_attention_bwd.launches`` (float32) or ``.launches_bf16``, and one
+    with a window also to ``.launches_window``."""
     if on_cpu(q, k, v, p, klens, o, m, l, do):
-        return rel_attention_bwd_ref(q, k, v, p, klens, o, m, l, do)
+        return rel_attention_bwd_ref(q, k, v, p, klens, o, m, l, do, window)
     entry = _check(q, k, v, p, klens)
     b, h, t, dk = q.shape
+    if k.shape[2] != t:
+        raise ValueError("rel_attention_bwd: takes as many queries as keys")
     r = p.shape[-1]
     do = do.contiguous()
     check("o", o, q.shape, q.dtype)
@@ -231,6 +310,7 @@ def rel_attention_bwd(q, k, v, p, klens, o, m, l, do):
     check("m", m, (b, h, t))
     check("l", l, (b, h, t))
     _check_aligned(q, k, v, do)
+    win = _window_args(window, 0)[:3]
     dq, dk_, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     dp = torch.empty_like(p)
     delta = torch.empty_like(m)
@@ -243,14 +323,16 @@ def rel_attention_bwd(q, k, v, p, klens, o, m, l, do):
         err = lib.nsp_rel_attention_bwd_bf16(
             *(x.data_ptr() for x in (q, k, v, p, klens, o, m, l, do, dq, dk_,
                                      dv, dp, dp32, delta)),
-            b, h, t, r, dk, stream_of(q))
+            b, h, t, r, dk, *win, stream_of(q))
     else:
         err = lib.nsp_rel_attention_bwd_f32(
             *(x.data_ptr() for x in (q, k, v, p, klens, o, m, l, do, dq, dk_,
                                      dv, dp, delta, _pair_scratch(q))),
-            b, h, t, r, dk, stream_of(q))
+            b, h, t, r, dk, *win, stream_of(q))
     raise_on_error(f"rel_attention_bwd ({entry})", err)
     _count(rel_attention_bwd, entry)
+    if window is not None:
+        rel_attention_bwd.launches_window += 1
     return dq, dk_, dv, dp
 
 
@@ -265,30 +347,42 @@ class RelAttention(torch.autograd.Function):
     """K1 forward, K1b backward; gradients for q, k, v and p."""
 
     @staticmethod
-    def forward(ctx, q, k, v, p, klens):
-        o, m, l = rel_attention_fwd(q, k, v, p, klens)
+    def forward(ctx, q, k, v, p, klens, window, key_start):
+        o, m, l = rel_attention_fwd(q, k, v, p, klens, window, key_start)
         ctx.save_for_backward(q, k, v, p, klens, o, m, l)
+        ctx.window, ctx.offset = window, (q.shape[2] < k.shape[2]
+                                          or key_start != 0)
         return o
 
     @staticmethod
     def backward(ctx, do):
-        return (*rel_attention_bwd(*ctx.saved_tensors, do), None)
+        if ctx.offset:
+            raise NotImplementedError(
+                "rel_attention: no backward against cached keys (streaming "
+                "inference only)")
+        return (*rel_attention_bwd(*ctx.saved_tensors, do, ctx.window),
+                None, None, None)
 
 
-def rel_attention(q, k, v, p, klens):
-    """o = softmax(q k^T + p[..., min(|i-j|, R-1)], keys >= klens masked) v,
-    differentiable in q, k, v and p.
+def rel_attention(q, k, v, p, klens, window=None, key_start=0):
+    """o = softmax(q k^T + p[..., min(|i + Tk - Tq - j|, R-1)], keys outside
+    the window, at or past klens or below ``key_start`` masked) v,
+    differentiable in q, k, v and p (for Tq = Tk and no ``key_start``).
 
     CPU tensors take the plain versions (``rel_attention_ref`` forward,
     ``rel_attention_bwd_ref`` backward); CUDA tensors launch K1 / K1b
     (float32 or bf16 by q's type, contiguous) or raise. Launches are
     counted in ``rel_attention.launches`` and ``rel_attention_bwd.launches``
-    (float32 entries) and in their ``launches_bf16``."""
-    return RelAttention.apply(q, k, v, p, klens)
+    (float32 entries) and in their ``launches_bf16``; those with a window
+    (and K1's with fewer queries than keys) in ``launches_window`` (and
+    ``rel_attention.launches_offset``) as well."""
+    return RelAttention.apply(q, k, v, p, klens, window, key_start)
 
 
 # p rows a block keeps in shared memory (csrc/rel_attention_common.cuh's
 # kSmemR)
 SMEM_R = 16
 rel_attention.launches = rel_attention.launches_bf16 = 0
+rel_attention.launches_window = rel_attention.launches_offset = 0
 rel_attention_bwd.launches = rel_attention_bwd.launches_bf16 = 0
+rel_attention_bwd.launches_window = 0

@@ -937,3 +937,84 @@ def test_blstm_microstep_is_the_same_bits_twice(cuda):
                                        for p in model.parameters()])
     for x, y in zip(*runs):
         assert torch.equal(x, y)
+
+
+# ---- K1 / K1b with a window on the keys, and K1 against cached keys ------
+# The streaming encoders' masks as K1 / K1b's window (n_l, n_c, n_r):
+# causal (-1, 1, 0), the streaming conf's chunk window (16, 8, 0) with
+# pad queries whose window lies wholly past klens (uniform rows over all
+# T keys), lookahead, unlimited and zero left context, klen 0 and 1; then
+# a streaming block's queries against cached keys (Tq < Tk, the cache's
+# empty slots below key_start masked), clamped and unclamped.
+WINDOW_SHAPES = [
+    (2, 4, 70, 64, 11, [70, 33], (-1, 1, 0)),
+    (3, 2, 200, 32, 200, [200, 0, 77], (-1, 1, 0)),
+    (1, 2, 375, 16, 11, [375], (-1, 1, 0)),
+    (2, 4, 100, 64, 100, [100, 10], (16, 8, 0)),
+    (3, 2, 129, 32, 11, [129, 64, 1], (8, 16, 8)),
+    (2, 2, 150, 64, 11, [150, 90], (-1, 32, 16)),
+    (2, 2, 70, 64, 11, [70, 45], (0, 8, 4)),
+]
+OFFSET_SHAPES = [   # b, h, tq, tk, dk, r, key_start
+    (1, 4, 8, 24, 64, 24, 16), (1, 4, 8, 24, 64, 24, 0),
+    (2, 4, 24, 56, 64, 56, 8), (4, 8, 32, 96, 32, 11, 40),
+]
+
+
+def _window_args(cuda, b, h, t, dk, r, klens, dtype=torch.float32):
+    rng = np.random.RandomState(t + r)
+    q, k, v = (_randn(rng, cuda, b, h, t, dk, scale=s).to(dtype)
+               for s in (dk ** -0.5, 1.0, 1.0))
+    p = _randn(rng, cuda, b, h, t, r, scale=dk ** -0.5).to(dtype)
+    do = _randn(rng, cuda, b, h, t, dk).to(dtype)
+    return q, k, v, p, torch.tensor(klens, dtype=torch.int32,
+                                    device=cuda), do
+
+
+@pytest.mark.parametrize("b,h,t,dk,r,klens,window", WINDOW_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rel_attention_window_kernels(cuda, b, h, t, dk, r, klens, window,
+                                      dtype):
+    from neural_sp_tpu_torch.ops.kernels.rel_attention import (
+        rel_attention_bwd, rel_attention_bwd_ref, rel_attention_fwd,
+        rel_attention_stats_ref)
+    close = _close if dtype == torch.float32 else _close_bf16
+    q, k, v, p, kl, do = _window_args(cuda, b, h, t, dk, r, klens, dtype)
+    before = (rel_attention.launches_window, rel_attention_bwd.launches_window)
+    o, m, l = rel_attention_fwd(q, k, v, p, kl, window)
+    close(o, rel_attention_ref(q, k, v, p, kl, window), "o")
+    m_ref, l_ref = rel_attention_stats_ref(q, k, p, kl, window)
+    _close(m, m_ref, "m")
+    _close(l, l_ref, "l")
+    got = rel_attention_bwd(q, k, v, p, kl, o, m, l, do, window)
+    torch.cuda.synchronize()
+    assert (rel_attention.launches_window,
+            rel_attention_bwd.launches_window) == (before[0] + 1,
+                                                   before[1] + 1)
+    want = rel_attention_bwd_ref(q, k, v, p, kl, o, m, l, do, window)
+    for name, x, y in zip(("dq", "dk", "dv", "dp"), got, want):
+        close(x, y, name)
+    again = rel_attention_bwd(q, k, v, p, kl, o, m, l, do, window)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+@pytest.mark.parametrize("b,h,tq,tk,dk,r,key_start", OFFSET_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rel_attention_offset_kernel(cuda, b, h, tq, tk, dk, r, key_start,
+                                     dtype):
+    from neural_sp_tpu_torch.ops.kernels.rel_attention import (
+        rel_attention_fwd, rel_attention_stats_ref)
+    close = _close if dtype == torch.float32 else _close_bf16
+    rng = np.random.RandomState(tq + tk)
+    q = _randn(rng, cuda, b, h, tq, dk, scale=dk ** -0.5).to(dtype)
+    k, v = (_randn(rng, cuda, b, h, tk, dk).to(dtype) for _ in range(2))
+    p = _randn(rng, cuda, b, h, tq, r, scale=dk ** -0.5).to(dtype)
+    kl = torch.full((b,), tk, dtype=torch.int32, device=cuda)
+    before = rel_attention.launches_offset
+    o, m, l = rel_attention_fwd(q, k, v, p, kl, key_start=key_start)
+    torch.cuda.synchronize()
+    assert rel_attention.launches_offset == before + 1
+    close(o, rel_attention_ref(q, k, v, p, kl, key_start=key_start), "o")
+    m_ref, l_ref = rel_attention_stats_ref(q, k, p, kl, key_start=key_start)
+    _close(m, m_ref, "m")
+    _close(l, l_ref, "l")

@@ -47,8 +47,9 @@ with the JAX weights converted (``convert_params``), float32, atol = rtol
   uniform log-probs (every transition ties), and with U = 0.
 * One clipped Adam update with accumulation against JAX's
   ``make_train_step``, by ``test_torch_train_step.py``'s rule.
-* The 8 LSTM-MoChA recipe confs and the 6 full-context BLSTM-MoChA confs
-  build on the meta device with JAX's parameter counts; the other MoChA
+* The 8 LSTM-MoChA recipe confs, the 6 full-context BLSTM-MoChA confs
+  and the 4 uni-Conformer-MoChA confs build on the meta device with JAX's
+  parameter counts; the other MoChA
   confs raise ``NotImplementedError`` naming ROADMAP; bf16 compute raises;
   ``configs.librispeech_lstm_mocha_args`` equals the conf; ``init_params``
   fills ``v`` and ``r``; the train CLI's curriculum gates the MoChA losses.
@@ -110,10 +111,19 @@ BLSTM_CONFS = ("aishell/conf/asr/mocha/blstm_mocha.yaml",
                "librispeech/conf/asr/mocha/blstm_mocha.yaml",
                "swbd/conf/asr/blstm_mocha.yaml",
                "tedlium/conf/asr/mocha/blstm_mocha.yaml")
+# ... and the unidirectional Conformer-MoChA (the recipes' three and the
+# repo's streaming conf, whose encoder is chunked in mask mode)
+UNI_CONFORMER_CONFS = (
+    "librispeech/conf/asr/mocha/uni_conformer_kernel7_clamp10_hie_"
+    "subsample8_mocha_ln_stableemit0.2_qua0.2.yaml",
+    "librispeech/conf/asr/uni_conformer_mocha_streaming.yaml",
+    "tedlium/conf/asr/mocha/uni_conformer_kernel7_clamp10_hie_subsample8_"
+    "mocha_long_ln.yaml",
+    "tedlium/conf/asr/mocha/uni_conformer_kernel7_clamp10_hie_subsample8_"
+    "mocha_long_ln_stableemit0.1.yaml")
 # every other MoChA conf raises, with the reason it names
 RAISING = {"lcblstm": "latency-controlled", "decot": "alignment",
-           "minlt": "alignment", "rsp_enc": "rsp_prob_enc",
-           "uni_conformer": "conv_uni_conformer"}
+           "minlt": "alignment", "rsp_enc": "rsp_prob_enc"}
 
 
 def _tree(params):
@@ -766,10 +776,12 @@ _JAX_COUNTS = {}
 
 
 def _jax_count(args):
-    key = (args.enc_type, args.enc_n_units, args.enc_n_layers,
-           getattr(args, "enc_n_projs", 0), args.dec_n_units, args.attn_dim)
+    key = (args.enc_type, getattr(args, "enc_n_units", 0), args.enc_n_layers,
+           getattr(args, "enc_n_projs", 0), args.dec_n_units,
+           getattr(args, "attn_dim", 0),
+           getattr(args, "lc_chunk_size_current", -1))
     if key not in _JAX_COUNTS:
-        factors = str(args.subsample).split("_")
+        factors = str(getattr(args, "subsample", "") or "1").split("_")
         if len(factors) < args.enc_n_layers:
             # the JAX encoder indexes a factor per layer (ROADMAP C19): its
             # count for the conf with the missing factors 1
@@ -784,7 +796,8 @@ def _jax_count(args):
     return _JAX_COUNTS[key]
 
 
-@pytest.mark.parametrize("conf", LSTM_CONFS + BLSTM_CONFS)
+@pytest.mark.parametrize("conf", LSTM_CONFS + BLSTM_CONFS +
+                         UNI_CONFORMER_CONFS)
 def test_mocha_recipe_conf_builds(conf):
     args = parse_args_train(["--config", str(ROOT / "examples" / conf)])
     args.vocab = 10000
@@ -801,12 +814,14 @@ def _raising_confs():
                           str(ROOT / "examples")], capture_output=True,
                          text=True, check=True).stdout.split()
     confs = sorted(str(Path(p).relative_to(ROOT / "examples")) for p in out)
-    return [c for c in confs if c not in LSTM_CONFS + BLSTM_CONFS]
+    return [c for c in confs
+            if c not in LSTM_CONFS + BLSTM_CONFS + UNI_CONFORMER_CONFS]
 
 
 def test_the_other_mocha_confs_raise():
     confs = _raising_confs()
-    assert len(confs) + len(LSTM_CONFS) + len(BLSTM_CONFS) == 42
+    assert len(confs) + len(LSTM_CONFS) + len(BLSTM_CONFS) + \
+        len(UNI_CONFORMER_CONFS) == 42
     for conf in confs:
         args = parse_args_train(["--config", str(ROOT / "examples" / conf)])
         args.vocab = 100

@@ -30,8 +30,9 @@ weights converted (``convert_params``, strict), float32, atol = rtol =
   ``make_train_step``, by ``test_torch_train_step.py``'s rule.
 * All 36 recipe confs with ``dec_type: transformer``: the 20 offline ones
   build on the meta device with JAX's parameter counts (the LibriSpeech
-  Transformer's and its MMA variant's asserted), the 16 others raise,
-  each with its reason; ``configs.librispeech_transformer_args`` and
+  Transformer's and its MMA variant's asserted), the 10 latency-
+  controlled ones build, the 6 others raise, each with its reason;
+  ``configs.librispeech_transformer_args`` and
   ``librispeech_transformer_mma_args`` equal their confs.
 """
 import math
@@ -117,11 +118,11 @@ MMA_CONFS = (
     ".yaml",
     "tedlium/conf/asr/mma/offline/"
     "transformer_mma_subsample8_ma4H_ca4H_w16_from4L.yaml")
-# the other 16 raise, each with the first reason the builders meet: the
-# MTL sub-task (transformer_2mtl), the ci_test confs' input dropout (A4
-# item 6), the streaming (latency-controlled) encoder (A5)
-RAISING = {"transformer_2mtl": "sub1_weight", "ci_test": "dropout_in",
-           "lc_transformer": "streaming"}
+# the 10 latency-controlled (streaming) Transformer-MMA confs build too
+# (tests/test_torch_uni_conformer.py holds their counts); the other 6
+# raise, each with the first reason the builders meet: the MTL sub-task
+# (transformer_2mtl), the ci_test confs' input dropout (A4 item 6)
+RAISING = {"transformer_2mtl": "sub1_weight", "ci_test": "dropout_in"}
 
 
 def _tree(params):
@@ -530,8 +531,12 @@ def test_the_other_transformer_confs_raise():
     confs = _transformer_confs()
     assert len(confs) == 36
     assert set(PLAIN_CONFS + MMA_CONFS) <= set(confs)
-    others = [c for c in confs if c not in PLAIN_CONFS + MMA_CONFS]
-    assert len(others) == 16
+    lc = [c for c in confs if "lc_transformer" in c and "ci_test" not in c]
+    assert len(lc) == 10
+    for conf in lc:
+        build_speech2text(_conf_args(conf), device="meta")
+    others = [c for c in confs if c not in PLAIN_CONFS + MMA_CONFS + tuple(lc)]
+    assert len(others) == 6
     for conf in others:
         why = next(v for k, v in RAISING.items() if k in conf)
         with pytest.raises(NotImplementedError, match="ROADMAP") as err:
