@@ -3870,6 +3870,19 @@ CAUSAL_WINDOW = (-1, 1, 0)
 STREAM_WINDOW = (16, 8, 0)
 # the device phase 11 puts its inputs on
 DEVICE = "cuda"
+# 11d: the streaming conf's whole microstep (MoChA decoder on) against the
+# same microstep in float64 on the CPU. No float32 run holds it to 9b's
+# rule, JAX's included (ROADMAP C29, tests/test_torch_mocha_rounding.py:
+# JAX's float32 gradients lie 0.8-85 times their norm from its float64
+# ones, 2.8 on the geometric mean of four draws). The loss stays near:
+# every float32 reading, of either package, on the card or the CPU, came
+# within 8.1e-3 of float64 (PERF.md), so the card's may lie at most this
+# far ...
+WHOLE_LOSS_RTOL = 3e-2
+# ... and the median over gradient leaves of |g - g64| / |g64| at most this
+# multiple of the CPU float32 microstep's on the same inputs (the card's
+# read 2.0 and 0.075 of it on H100 runs, PERF.md)
+WHOLE_GRAD_MULT = 100.0
 # 11d: the streamed encoder against the offline chunk-before-conv forward,
 # max |err| / max |output|: float32 sums in other orders (the block's
 # queries against the cached keys through K1 with the offset, the offline
@@ -4112,13 +4125,12 @@ def uni_hold(torch, model, xs, xlens, make: str, tag: str,
     same microstep on the CPU in float64 (``hold_with_control``); K1 and
     K1b with the window and K4 must run. With ``decoder_apart`` (11d: the
     streaming conf, whose MoChA decoder makes a float32 microstep's loss
-    and gradients rounding, ROADMAP C29: two float32 runs on the CPU part
-    as far from each other as from float64) the whole microstep's loss and
-    gradients are measured against float64 beside the same microstep's on
-    the CPU in float32, with no rule (float32's own is as far), and 9b's
-    rule holds the microstep of the encoder and the CTC head
-    (``ctc_weight`` 1: the decoder does not run), which carries every
-    kernel of the path."""
+    and gradients rounding, in the JAX package too: ROADMAP C29) the
+    whole microstep's loss must lie within WHOLE_LOSS_RTOL of float64 and
+    its gradients' median distance from float64 within WHOLE_GRAD_MULT
+    times that of the same microstep on the CPU in float32, and 9b's rule
+    holds the microstep of the encoder and the CTC head (``ctc_weight`` 1:
+    the decoder does not run), which carries every kernel of the path."""
     from neural_sp_tpu_torch import configs
     from neural_sp_tpu_torch.models.speech2text import build_speech2text
     import numpy as np
@@ -4166,6 +4178,16 @@ def uni_hold(torch, model, xs, xlens, make: str, tag: str,
         f"{whole['median_leaf_rel_dist_cpu_float32']:.3e} / "
         f"{whole['max_leaf_rel_dist_cpu_float32']:.3e} for the CPU in "
         f"float32 (ROADMAP C29)")
+    expect(all(bool(torch.isfinite(g).all()) for gs in (grads, grads32)
+               for g in gs.values()), f"{tag}: a gradient not finite")
+    expect(loss_err <= WHOLE_LOSS_RTOL, f"{tag}: the whole microstep's loss "
+           f"{loss_err:.2e} of float64, past {WHOLE_LOSS_RTOL}")
+    expect(whole["median_leaf_rel_dist"] <= WHOLE_GRAD_MULT *
+           whole["median_leaf_rel_dist_cpu_float32"],
+           f"{tag}: the whole microstep's gradients "
+           f"{whole['median_leaf_rel_dist']:.3e} from float64 (median), past "
+           f"{WHOLE_GRAD_MULT} x the CPU float32's "
+           f"{whole['median_leaf_rel_dist_cpu_float32']:.3e}")
     for m in (model, cpu):
         m.ctc_weight = 1.0
     try:

@@ -77,13 +77,14 @@ def eval_unit(session, loader, save_dir: str | None = None,
     }
 
 
-def eval_streaming(session, loader, save_dir=None) -> dict:
+def eval_streaming(session, loader, save_dir: str | None = None) -> dict:
     """Streaming decode evaluation: WER + RTF + quantity rate +
     streamability diagnostics (reference wordpiece.py:155-208 +
     las.py:1386-1435): ``streamability`` is the fraction of utterances
     whose every token boundary fired before the final encoder frame
     arrived; ``last_success_frame_ratio`` is the mean position of the last
-    emitted boundary relative to the utterance end."""
+    emitted boundary relative to the utterance end. With ``save_dir`` it
+    writes ``ref.trn`` and ``hyp.trn`` there, as ``eval_unit``."""
     idx2token = loader.idx2token
     n_err = n_tok = n_hyp_tok = 0
     rtfs = []
@@ -92,28 +93,43 @@ def eval_streaming(session, loader, save_dir=None) -> dict:
     n_streamable = 0
     lsf_ratios = []
     has_diag = False
-    for batch in loader:
-        for b in range(len(batch["utt_ids"])):
-            feats = batch["xs"][b][: batch["xlens"][b]]
-            hyp_ids, stats = session.decode_streaming(feats)
-            ref = batch["text"][b].split()
-            hyp = idx2token(hyp_ids).split()
-            _, s, i, d = compute_wer(ref, hyp)
-            n_err += s + i + d
-            n_tok += len(ref)
-            n_hyp_tok += len(hyp_ids)
-            rtfs.append(stats["rtf"])
-            n_resets_total += stats["n_resets"]
-            bounds = stats.get("boundaries")
-            t_out = stats.get("n_out_frames", 0)
-            if bounds is not None:
-                has_diag = True
-                if bounds and t_out:
-                    lsf_ratios.append(bounds[-1] / max(t_out, 1))
-                    if bounds[-1] < t_out - 1:
-                        n_streamable += 1
-                # an utterance with NO boundaries is non-streamable
-            n_utts += 1
+    ref_f = hyp_f = None
+    if save_dir:
+        os.makedirs(save_dir, exist_ok=True)
+        ref_f = codecs.open(os.path.join(save_dir, "ref.trn"), "w", "utf-8")
+        hyp_f = codecs.open(os.path.join(save_dir, "hyp.trn"), "w", "utf-8")
+    try:
+        for batch in loader:
+            for b, utt_id in enumerate(batch["utt_ids"]):
+                feats = batch["xs"][b][: batch["xlens"][b]]
+                hyp_ids, stats = session.decode_streaming(feats)
+                ref_text = batch["text"][b]
+                hyp_text = idx2token(hyp_ids)
+                if ref_f:
+                    spk = batch["speakers"][b]
+                    ref_f.write(f"{ref_text} ({spk}-{utt_id})\n")
+                    hyp_f.write(f"{hyp_text} ({spk}-{utt_id})\n")
+                ref = ref_text.split()
+                _, s, i, d = compute_wer(ref, hyp_text.split())
+                n_err += s + i + d
+                n_tok += len(ref)
+                n_hyp_tok += len(hyp_ids)
+                rtfs.append(stats["rtf"])
+                n_resets_total += stats["n_resets"]
+                bounds = stats.get("boundaries")
+                t_out = stats.get("n_out_frames", 0)
+                if bounds is not None:
+                    has_diag = True
+                    if bounds and t_out:
+                        lsf_ratios.append(bounds[-1] / max(t_out, 1))
+                        if bounds[-1] < t_out - 1:
+                            n_streamable += 1
+                    # an utterance with NO boundaries is non-streamable
+                n_utts += 1
+    finally:
+        if ref_f:
+            ref_f.close()
+            hyp_f.close()
     out = {"wer": 100.0 * n_err / max(n_tok, 1),
            "rtf": float(sum(rtfs) / max(len(rtfs), 1)),
            "quantity_rate": n_hyp_tok / max(n_tok, 1),

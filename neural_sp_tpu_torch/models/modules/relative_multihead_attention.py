@@ -107,5 +107,8 @@ class RelativeMultiheadAttention(nn.Module):
                 v.transpose(1, 2).contiguous(), p.contiguous(),
                 klens.to(device=q.device, dtype=torch.int32))
         if window is None and key_start == 0:
+            # the offline call takes the five tensors alone, as do the
+            # plain versions that chip_smoke.py and tools/train_diagnosis.py
+            # patch in here (autograd functions: no keyword arguments)
             return rel_attention(*args)
         return rel_attention(*args, window=window, key_start=key_start)

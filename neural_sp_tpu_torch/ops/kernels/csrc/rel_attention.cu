@@ -260,10 +260,11 @@ cudaError_t launch(const float* q, const float* k, const float* v, const float* 
   return cudaGetLastError();
 }
 
-// The bf16 forward: one block of 4 warps per (64 queries, head, batch), as
-// the float32 kernel; q held as bf16 A fragments in registers, k and v
-// streamed in STEP-key bf16 tiles. Three sweeps over the key tiles through
-// one cp.async ring: the first reads k alone and takes each row's max m,
+// The bf16 forward with a window on the keys (or against cached keys; the
+// offline one, rel_attention_fwd_bf16 below, sweeps the same way): one
+// block of 4 warps per (64 queries, head, batch), as the float32 kernel; q
+// held as bf16 A fragments in registers, k and v streamed in STEP-key
+// bf16 tiles. Three sweeps over the key tiles through one cp.async ring: the first reads k alone and takes each row's max m,
 // the second k alone and the sum l of exp(s - m) at that m, the third k and
 // v: it forms P = exp(s - m) / l, rounds it to bf16 and accumulates P v.
 // So P is rounded where the TPU kernel rounded it, after the normalisation
@@ -277,15 +278,14 @@ cudaError_t launch(const float* q, const float* k, const float* v, const float* 
 // query and key gradients added up over all rows (at bf16, up to 2.7
 // times the plain path's distance from float32 on a ragged microbatch of
 // trained weights).
-template <int DK, int STEP, bool WIN>
+template <int DK, int STEP>
 __global__ void __launch_bounds__(kThreads, 2)
-rel_attention_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                       const bf16* __restrict__ v, const bf16* __restrict__ p,
-                       const int* __restrict__ klens, bf16* __restrict__ o,
-                       float* __restrict__ m_out, float* __restrict__ l_out, int H, int Tq,
-                       int Tk, int R, Window win) {
+rel_attention_fwd_bf16_window(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                              const bf16* __restrict__ v, const bf16* __restrict__ p,
+                              const int* __restrict__ klens, bf16* __restrict__ o,
+                              float* __restrict__ m_out, float* __restrict__ l_out, int H,
+                              int Tq, int Tk, int R, Window win) {
   constexpr int W = TileB<DK>::kWords, kTile = STEP * W;
-  if constexpr (!WIN) Tk = Tq;  // offline: as many keys as queries
   extern __shared__ float4 smem4[];
   uint32_t* ring = reinterpret_cast<uint32_t*>(smem4);    // 2 stages x (K, V) tiles
   bf16* ps = reinterpret_cast<bf16*>(ring + 4 * kTile);  // [64][R <= kSmemR]
@@ -301,10 +301,10 @@ rel_attention_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // kernel: the same in each of the three sweeps
   const int w0 = q0 + 16 * warp;
   const int rows[2] = {w0 + g, w0 + g + 8};
-  const auto rk = row_keys<WIN>(win, rows, klens[b], Tq, Tk);
+  const auto rk = row_keys<true>(win, rows, klens[b], Tq, Tk);
   int kt0, n_tiles;
-  key_tiles<WIN, STEP, true>(rk, rows, Tq, Tk, kt0, n_tiles);
-  const int qoff = WIN ? win.qoff : 0;  // a constant 0 offline
+  key_tiles<true, STEP, true>(rk, rows, Tq, Tk, kt0, n_tiles);
+  const int qoff = win.qoff;
 
   // step `it` of the three sweeps: key tile it % n_tiles, its v in the third
   const auto load = [&](int it) {
@@ -401,6 +401,153 @@ rel_attention_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// The offline bf16 forward (no window, as many keys as queries): the same
+// three sweeps with the padding's klen test alone, kept as its own kernel.
+// Compiled from the windowed kernel's body with PadKeys it took 156
+// registers against these 144 (DK 64) and ran 5% slower at B 32, H 8, T
+// 750 (NVIDIA H100 80GB HBM3, 700 W; rel_attention_times.py in turns).
+template <int N, class E>
+__device__ __forceinline__ void bias_tile_pad(float (&s)[N][4], const int (&rows)[2],
+                                              const float (&far)[2], const E* prows, int q0,
+                                              int w0, int k0, int klen, int T, int R, int t) {
+  const bool plain = k0 + 8 * N <= min(klen, T) && min_distance(w0, 16, k0, 8 * N) >= R - 1;
+#pragma unroll
+  for (int n = 0; n < N; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = rows[e >> 1], j = k0 + n * 8 + 2 * t + (e & 1);
+      if (plain) {
+        s[n][e] += far[e >> 1];
+      } else if (j >= T) {
+        s[n][e] = -INFINITY;  // not a key at all
+      } else if (j >= klen) {
+        s[n][e] = kNeg;       // masked key, like apply_mask_logits
+      } else if (i < T) {
+        s[n][e] += rel_bias(prows + (i - q0) * R, i, j, R);
+      }
+    }
+}
+
+template <int DK, int STEP>
+__global__ void __launch_bounds__(kThreads, 2)
+rel_attention_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v, const bf16* __restrict__ p,
+                       const int* __restrict__ klens, bf16* __restrict__ o,
+                       float* __restrict__ m_out, float* __restrict__ l_out, int H, int T,
+                       int R) {
+  constexpr int W = TileB<DK>::kWords, kTile = STEP * W;
+  extern __shared__ float4 smem4[];
+  uint32_t* ring = reinterpret_cast<uint32_t*>(smem4);    // 2 stages x (K, V) tiles
+  bf16* ps = reinterpret_cast<bf16*>(ring + 4 * kTile);  // [64][R <= kSmemR]
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int q0 = blockIdx.x * kRows, h = blockIdx.y, b = blockIdx.z;
+  const size_t bh = (size_t)b * H + h;
+  const uint32_t* kb = reinterpret_cast<const uint32_t*>(k + bh * T * DK);
+  const uint32_t* vb = reinterpret_cast<const uint32_t*>(v + bh * T * DK);
+  const bf16* pb = p + bh * T * R;
+
+  const int klen = klens[b];
+  const int kend = (klen > 0) ? min(klen, T) : T;
+  const int n_tiles = (kend + STEP - 1) / STEP;
+
+  // step `it` of the three sweeps: key tile it % n_tiles, its v in the third
+  const auto load = [&](int it) {
+    uint32_t* dst = ring + (it & 1) * 2 * kTile;
+    const int k0 = (it % n_tiles) * STEP;
+    load_async<STEP, DK / 2, W>(dst, kb, k0, T);
+    if (it >= 2 * n_tiles) load_async<STEP, DK / 2, W>(dst + kTile, vb, k0, T);
+  };
+  // waits for step it's tiles, starts the next step's copy; returns the
+  // stage holding step it's k (its v kTile words on)
+  const auto advance = [&](int it) -> const uint32_t* {
+    cp_async_wait_all();
+    __syncthreads();  // step `it` has landed; every warp is done with it - 1
+    if (it + 1 < 3 * n_tiles) load(it + 1);
+    cp_async_commit();
+    return ring + (it & 1) * 2 * kTile;
+  };
+  load(0);
+  cp_async_commit();
+  const bf16* prows = stage_p_rows<kRows>(ps, pb, q0, T, R);  // row q0 of p
+
+  const int w0 = q0 + 16 * warp;
+  const int rows[2] = {w0 + g, w0 + g + 8};
+  float far[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e)
+    far[e] = rows[e] < T ? __bfloat162float(pb[(size_t)rows[e] * R + R - 1]) : 0.0f;
+  uint32_t qa[DK / 16][4];
+  load_a_rows<DK>(qa, q + bh * T * DK, w0, T, g, t);
+
+  // first sweep: the row max; second: the sum of exp(s - max)
+  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.0f, 0.0f};
+  for (int it = 0; it < n_tiles; ++it) {
+    const uint32_t* ks = advance(it);
+    float s[STEP / 8][4];
+#pragma unroll
+    for (int n = 0; n < STEP / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.0f;
+    product_nt_bf16<DK, STEP / 8>(s, qa, ks, g, t);
+    bias_tile_pad(s, rows, far, prows, q0, w0, it * STEP, klen, T, R, t);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float tile_max = -INFINITY;
+#pragma unroll
+      for (int n = 0; n < STEP / 8; ++n)
+        tile_max = fmaxf(tile_max, fmaxf(s[n][2 * r], s[n][2 * r + 1]));
+      m_run[r] = fmaxf(m_run[r], quad_max(tile_max));
+    }
+  }
+  for (int it = 0; it < n_tiles; ++it) {
+    const uint32_t* ks = advance(n_tiles + it);
+    float s[STEP / 8][4];
+#pragma unroll
+    for (int n = 0; n < STEP / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.0f;
+    product_nt_bf16<DK, STEP / 8>(s, qa, ks, g, t);
+    bias_tile_pad(s, rows, far, prows, q0, w0, it * STEP, klen, T, R, t);
+#pragma unroll
+    for (int n = 0; n < STEP / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) l_run[e >> 1] += __expf(s[n][e] - m_run[e >> 1]);
+  }
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float l = quad_sum(l_run[r]);
+    inv[r] = 1.0f / l;
+    if (rows[r] < T && t == 0) {
+      m_out[bh * T + rows[r]] = m_run[r];
+      l_out[bh * T + rows[r]] = l;
+    }
+  }
+
+  // third sweep: P v with P normalised, then rounded to bf16
+  float acc[DK / 8][4];
+#pragma unroll
+  for (int n = 0; n < DK / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
+  for (int it = 0; it < n_tiles; ++it) {
+    const uint32_t* ks = advance(2 * n_tiles + it);
+    float s[STEP / 8][4];
+#pragma unroll
+    for (int n = 0; n < STEP / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.0f;
+    product_nt_bf16<DK, STEP / 8>(s, qa, ks, g, t);
+    bias_tile_pad(s, rows, far, prows, q0, w0, it * STEP, klen, T, R, t);
+#pragma unroll
+    for (int n = 0; n < STEP / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = __expf(s[n][e] - m_run[e >> 1]) * inv[e >> 1];
+    product_pn_bf16<DK, STEP / 8>(acc, s, ks + kTile, lane);  // P rounded to bf16 there
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (rows[r] >= T) continue;
+    uint32_t* orow = reinterpret_cast<uint32_t*>(o + (bh * T + rows[r]) * DK);
+#pragma unroll
+    for (int n = 0; n < DK / 8; ++n) orow[n * 4 + t] = pack_bf16(acc[n][2 * r], acc[n][2 * r + 1]);
+  }
+}
+
 template <int DK, bool WIN>
 cudaError_t launch_bf16(const bf16* q, const bf16* k, const bf16* v, const bf16* p,
                         const int* klens, bf16* o, float* m, float* l, int B, int H, int Tq,
@@ -408,11 +555,18 @@ cudaError_t launch_bf16(const bf16* q, const bf16* k, const bf16* v, const bf16*
   constexpr int STEP = kStepB;
   const int smem = 4 * STEP * TileB<DK>::kWords * (int)sizeof(uint32_t) +  // 2 x (K, V), p rows
                    kRows * kSmemR * (int)sizeof(bf16);
-  cudaError_t err = allow_smem<rel_attention_fwd_bf16<DK, STEP, WIN>>(smem);
-  if (err != cudaSuccess) return err;
   dim3 grid((Tq + kRows - 1) / kRows, H, B);
-  rel_attention_fwd_bf16<DK, STEP, WIN><<<grid, kThreads, smem, stream>>>(
-      q, k, v, p, klens, o, m, l, H, Tq, Tk, R, win);
+  if constexpr (WIN) {
+    cudaError_t err = allow_smem<rel_attention_fwd_bf16_window<DK, STEP>>(smem);
+    if (err != cudaSuccess) return err;
+    rel_attention_fwd_bf16_window<DK, STEP><<<grid, kThreads, smem, stream>>>(
+        q, k, v, p, klens, o, m, l, H, Tq, Tk, R, win);
+  } else {
+    cudaError_t err = allow_smem<rel_attention_fwd_bf16<DK, STEP>>(smem);
+    if (err != cudaSuccess) return err;
+    rel_attention_fwd_bf16<DK, STEP><<<grid, kThreads, smem, stream>>>(q, k, v, p, klens, o, m, l,
+                                                                     H, Tq, R);
+  }
   return cudaGetLastError();
 }
 
@@ -424,7 +578,8 @@ Window make_window(int Tq, int Tk, int nc, int nl, int nr, int kstart) {
 }
 
 // Whether a call takes the windowed kernels (RowKeys); the offline calls
-// run the kernels of the padding alone (PadKeys).
+// run the kernels of the padding alone (PadKeys, and the bf16 forward's
+// own offline kernel).
 bool windowed(const Window& w, int Tq, int Tk) {
   return w.nc > 0 || w.kstart > 0 || Tq != Tk;
 }

@@ -617,3 +617,29 @@ def test_eval_streaming_matches_jax():
     want = jax_eval(Session(), loader)
     assert got == want and want["n_utts"] == 3
     assert 0 < want["streamability"] < 1
+
+
+def test_eval_streaming_writes_ref_and_hyp(tmp_path):
+    """With ``save_dir``, ``eval_streaming`` writes ``ref.trn`` and
+    ``hyp.trn`` in ``eval_unit``'s format, one line per utterance."""
+    from neural_sp_tpu_torch.evaluators.asr import eval_streaming
+
+    words = ["a", "b", "c"]
+    batches = [{"utt_ids": ["u0", "u1"], "speakers": ["s0", "s1"],
+                "xs": np.zeros((2, 30, 4)), "xlens": [30, 20],
+                "text": ["a b c", "c"]}]
+    replies = iter([([4, 6], {"rtf": 0.5, "n_resets": 0}),
+                    ([], {"rtf": 0.5, "n_resets": 1})])
+
+    class Session:
+        def decode_streaming(self, feats):
+            return next(replies)
+
+    class Loader(list):
+        def idx2token(self, ids):
+            return " ".join(words[i - 4] for i in ids)
+
+    out = eval_streaming(Session(), Loader(batches), save_dir=str(tmp_path))
+    assert out["n_utts"] == 2
+    assert (tmp_path / "ref.trn").read_text() == "a b c (s0-u0)\nc (s1-u1)\n"
+    assert (tmp_path / "hyp.trn").read_text() == "a c (s0-u0)\n (s1-u1)\n"
