@@ -124,7 +124,7 @@ Phases (any failure raises and the script exits non-zero):
      plain versions (K2 in pass 1 too) at phase 6's tolerance;
   8. the LibriSpeech recipe's BLSTM-LAS (``BLSTM_CONF``: the conv front
      end, BLSTM-512 layers concatenated, D = 1024, on cuDNN, the conf's 5
-     cut to ``RNN_DEPTH`` = 2 for the script's time limit; LSTM-1024 LAS;
+     cut to ``RNN_DEPTH`` = 1 for the script's time limit; LSTM-1024 LAS;
      CTC 0.3; f32): (8a) K2 at N = 10 and at
      N = 32 with keep (T = 400), K3 and K3b at B = 32, U+1 = 101, ragged T
      up to 500, K4 at B = 32, T = 500, U = 100, V = 10,000, each against
@@ -170,57 +170,82 @@ Phases (any failure raises and the script exits non-zero):
      alignment of the same log-probabilities, ``loss_latency`` finite;
   10. the LibriSpeech recipe's Transformer (``XF_CONF``: the conv front end
      x4, 12 transformer encoder and 6 decoder blocks of d 256 / 4 heads /
-     d_ff 2048, CTC 0.3 with fc 512; float32, full width and depth; no
-     kernel of its own): (10a) phase 3's four utterances, beam 10 + CTC 0.3
-     and beam 1 (counts zeroed around them: no kernel of the repo runs),
-     the encoder's time, one profiled beam request (device time per decode
-     step, idle share), and the decode loop's incremental logits against
-     the teacher-forced forward's on the best hypothesis and 100 seeded
-     tokens (``XF_STEP_RTOL``); (10b) a B = 4 train() microstep (dropout
-     off) held to the CPU in float64 by 9b's rule with a TF32 control that
-     must break it, and again with the CPU's ReLU masks pinned to the
-     card's (a mask may flip only within ``XF_PRE_RTOL`` of 0), beam 1 on
-     both (weights moved by GREEDY_NOISE) identical up to the first
-     decision under ``DECISION_MARGIN``, and a microstep twice: the same
-     bits; (10c) the train CLI on the conf (``XF_OVERRIDES``:
-     4 epochs, the conf's accumulation 8, one optimizer update, every
-     weight leaf moved from its initial value) and the eval CLI as stage 5,
-     counts zeroed around each (K4 in training only), a profiled microstep
-     (K4's share) and the decoder alone; (10d) the same for the offline
+     d_ff 2048, CTC 0.3 with fc 512; float32, full width, cut to 4 encoder
+     and 2 decoder blocks, ``XF_DEPTH``; no kernel of its own): (10a) phase
+     3's four utterances, beam 10 + CTC 0.3 and beam 1 (counts zeroed around
+     them: no kernel of the repo runs), the encoder's time, one profiled
+     beam request (device time per decode step, idle share), and the decode
+     loop's incremental logits against the teacher-forced forward's on the
+     best hypothesis and 100 seeded tokens (``XF_STEP_RTOL``); (10b) a B = 4
+     train() microstep (dropout off) held to the CPU in float64 by 9b's rule
+     with a TF32 control that must break it, and again with the CPU's ReLU
+     masks pinned to the card's (a mask may flip only within ``XF_PRE_RTOL``
+     of 0), beam 1 on both (weights moved by GREEDY_NOISE) identical up to
+     the first decision under ``DECISION_MARGIN``, and a microstep twice:
+     the same bits; (10c) the train CLI on the conf (``XF_OVERRIDES``: 4
+     epochs, the conf's accumulation 8, one optimizer update, every weight
+     leaf moved from its initial value) and the eval CLI as stage 5, counts
+     zeroed around each (K4 in training only), a profiled microstep (K4's
+     share) and the decoder alone; (10d) the same for the offline
      Transformer-MMA conf (``XF_MMA_CONF``: conv x8, MMA from decoder layer
-     4): beam 10 + CTC 0.3 (hard-mode alphas), the microstep held (MoChA
-     noise off), the train CLI for one epoch at accumulation 2 (one update)
-     and the eval CLI, the MMA decoder's device time and operations per
-     microstep;
+     4; cut to 4 encoder and 4 decoder blocks, one of them MMA): beam 10 +
+     CTC 0.3 (hard-mode alphas), the microstep held (MoChA noise off), the
+     train CLI for one epoch at accumulation 2 (one update) and the eval
+     CLI, the MMA decoder's device time and operations per microstep;
   11. the unidirectional and latency-controlled encoders (float32, full
-     width and depth, seeded): K1 with the causal window (B 4 and 32, H 4,
-     dk 64, R 11, T 800 / 400 / 200: the uni-Conformer's conv x2 and two
-     max_pools), K1b with it (B 32) and both bf16 entries; the streaming
-     conf's chunk window (16, 8, 0; R = T = 400) with a row of klen 10
-     whose pad queries have no allowed key (uniform rows), f32 and bf16,
-     forward and backward; K1 against cached keys (8 queries, 24 keys, 0 /
-     8 / 16 empty cache slots), f32 and bf16; each against its plain
+     width, seeded; the encoders cut by ``XF_DEPTH``: the uni-Conformer to 8
+     of 12 layers, the streaming conf's to 4): K1 with the causal window (B
+     4 and 32, H 4, dk 64, R 11, T 800 / 400 / 200: the uni-Conformer's conv
+     x2 and two max_pools), K1b with it (B 32) and both bf16 entries; the
+     streaming conf's chunk window (16, 8, 0; R = T = 400) with a row of
+     klen 10 whose pad queries have no allowed key (uniform rows), f32 and
+     bf16, forward and backward; K1 against cached keys (8 queries, 24 keys,
+     0 / 8 / 16 empty cache slots), f32 and bf16; each against its plain
      version (phase 2's / 2b's rules), timed in turns with efficient SDPA
      given the bias and the window as one mask, with the bound of the
-     window's work. (11a) the LibriSpeech uni-Conformer-MoChA
-     (``UNI_CONF``, 49,158,337 parameters) serves phase 3's utterances,
-     beam 10 + CTC 0.3 and greedy (K1 with the window must run); (11b) its
-     B = 4 train() microstep held to the CPU in float64 by 9b's rule, a
-     TF32 control (K1b with the window must run); (11c) its train CLI for
-     one update (``STREAM_OVERRIDES``) and the eval CLI as stage 5; (11d)
-     the repo's streaming conf (``STREAM_CONF``, mask mode, 31,935,681
-     parameters): phase 3's utterances cut to whole blocks, streamed
-     through ``streaming_step`` (K1 against the cached keys), held within
-     ``STREAM_RTOL`` to the offline chunk-before-conv forward (ROADMAP
-     C27), its microstep held as 11b, ``decode_streaming`` (the
-     block-synchronous MoChA beam 10 + CTC 0.3) of the 4 utterances (RTF,
-     wall per block, resets) and the eval CLI with ``--recog_streaming
-     true`` on its seeded weights (the conf's bf16 training with MoChA
-     raises); (11e) the LibriSpeech LC-Transformer-MMA (``LC_CONF``,
-     reshape mode, 35,576,204 parameters): its microstep held as 10d, its
-     train CLI for one update, the eval CLI offline and streaming (JAX's
-     dispatch runs the CTC block-synchronous beam for a transformer
-     decoder, ROADMAP C26).
+     window's work. (11a) the LibriSpeech uni-Conformer-MoChA (``UNI_CONF``,
+     49,158,337 parameters) serves phase 3's utterances, beam 10 + CTC 0.3
+     and greedy (K1 with the window must run); (11b) its B = 4 train()
+     microstep held to the CPU in float64 by 9b's rule, a TF32 control (K1b
+     with the window must run); (11c) its train CLI for one update
+     (``STREAM_OVERRIDES``) and the eval CLI as stage 5; (11d) the repo's
+     streaming conf (``STREAM_CONF``, mask mode, 31,935,681 parameters):
+     phase 3's utterances cut to whole blocks, streamed through
+     ``streaming_step`` (K1 against the cached keys), held within
+     ``STREAM_RTOL`` to the offline chunk-before-conv forward (ROADMAP C27),
+     its microstep held as 11b, ``decode_streaming`` (the block-synchronous
+     MoChA beam 10 + CTC 0.3) of the 4 utterances (RTF, wall per block,
+     resets) and the eval CLI with ``--recog_streaming true`` on its seeded
+     weights (the conf's bf16 training with MoChA raises); (11e) the
+     LibriSpeech LC-Transformer-MMA (``LC_CONF``, reshape mode, 35,576,204
+     parameters): its microstep held as 10d, its train CLI for one update,
+     the eval CLI offline and streaming (JAX's dispatch runs the CTC
+     block-synchronous beam for a transformer decoder, ROADMAP C26).
+  12. the latency-controlled BLSTM and the RNN transducer (float32,
+     seeded): K5, the transducer's lattice loss, forward and backward
+     against its plain float64 twin at B 32, T 400, U 200 (and the plain
+     recurrence in float32, JAX's precision, against it) and at ragged
+     lengths (a row of U 0, a row of T 1, U > T), timed with its bound;
+     (12a) the LibriSpeech LC-BLSTM-RNN-T (``RNNT_CONF``: conv x4, 5
+     LC-BLSTM-512 layers summed, chunk 40 / 40, a 2-layer LSTM-1024
+     prediction net, CTC 0.3 with fc 512; full width and depth, V 1,000)
+     serves phase 3's utterances, greedy and beam 10 (tsd), streams each
+     through ``decode_streaming`` (the mono beam; RTF, wall per block),
+     its LC-BLSTM encoder held to the written-out loops
+     (``RNN_ENCODER_ATOL``, a TF32 control) and its ``streaming_step``
+     chain to the CPU port's, a B = 4 microstep held to float64 by 9b's
+     rule with a TF32 control (K5 and K4 must run), the train CLI for one
+     epoch (one update) on a V 1,000 corpus and the eval CLI with beam 10
+     and streaming; (12b) the LibriSpeech LC-BLSTM-MoChA
+     (``LC_MOCHA_CONF``, at ``RNN_DEPTH``) served (beam 10 + CTC 0.3,
+     greedy), streamed (the CTC block-synchronous beam, JAX's dispatch for
+     an RNN encoder: ROADMAP C30) and its microstep held as 11d's: the
+     MoChA microstep rounds in float32 (C29), so the whole microstep is
+     held to float64 by 11d's gates, 9b's rule (with its control) holds the
+     encoder + CTC microstep, and 9b's readings on the whole microstep
+     (the card's, the CPU float32's, the card's against float64 with the
+     card's energy ReLU masks pinned) are logged. Each phase's wall is
+     printed on a line of its own.
 
 Launches per step (per encode for K1, per decode step for K2, per training
 microstep for the rest; K1 / K1b bf16 in phase 5's bf16 run) are counted
@@ -234,7 +259,8 @@ requests and its two CLI runs, ``mocha_launches``); phase 10's path
 (the served requests and the CLI runs of both confs,
 ``transformer_launches``); phase 11's path (``streaming_launches``), with
 rows of their own for K1 with a window, K1b with a window and K1 against
-cached keys. Prints the
+cached keys; phase 12's path (``transducer_launches``), with a row of its
+own for K5. Prints the
 details as JSON (also written to ``chiprun_out/chip_smoke.json``), then one
 JSON line of per-kernel results (launches, launches_per_step, ms,
 plain_ms, bound_ms, bound_by, library_ms, errors), the card's ``name,
@@ -272,7 +298,8 @@ PATH_ATOL = 2e-3
 # other orders (K1b over T keys, K4 over T frames); K3 / K3b carry them
 # through a 101-step recurrence.
 TRAIN_KERNEL_TOL = {"rel_attention_bwd": 1e-4, "ctc_loss": 1e-4,
-                    "las_scan": 1e-3, "las_scan_bwd": 1e-3}
+                    "las_scan": 1e-3, "las_scan_bwd": 1e-3,
+                    "rnnt_loss": 1e-4}
 # Train-step parity (phase 6), kernels vs plain versions through the whole
 # model: loss to 1e-4 relative; each gradient leaf to 2e-3 of its own
 # largest magnitude. The self-attention key biases are the exception: the
@@ -2394,7 +2421,7 @@ def phase_sampling_times(torch, model, batch) -> dict:
 # whole script keeps within its time limit as phase 11 joins it. The
 # overrides are that depth, the run's length and the word unit of phase 7
 # (the same corpus).
-RNN_DEPTH = 2
+RNN_DEPTH = 1
 BLSTM_CONF = "examples/librispeech/conf/asr/blstm_las.yaml"
 BLSTM_OVERRIDES = ("--n_epochs", "2", "--unit", "word", "--enc_n_layers",
                    str(RNN_DEPTH))
@@ -3260,9 +3287,33 @@ def phase_mocha(torch, root: Path, corpus: dict, xs, xlens) -> dict:
 XF_CONF = "examples/librispeech/conf/asr/transformer/transformer.yaml"
 XF_MMA_CONF = "examples/librispeech/conf/asr/mma/offline/" \
     "transformer_mma_subsample8_ma4H_ca4H_w16_from4L.yaml"
-XF_OVERRIDES = ("--n_epochs", "4", "--unit", "word")
+# Depth cuts (the script's time limit): phase 10 runs the transformer
+# encoders at 4 of their 12 layers, the transformer decoder at 2 of its 6
+# and the MMA decoder at 4 of 6 (MMA from the 4th: one MMA layer of the
+# conf's three); phase 11 the uni-Conformer at 8 (which keeps its two
+# interlayer max_pools, so its frame rate stays the conf's) and the
+# streaming conf's encoder at 4; the served models, the CPU copies their
+# holds compare with and the CLIs alike. 11e's LC-Transformer-MMA keeps
+# its depth: cut to 4 + 4 its hold read 1.027 of 9b's rule.
+XF_DEPTH = {
+    "librispeech_transformer_args": dict(enc_n_layers=4, dec_n_layers=2),
+    "librispeech_transformer_mma_args": dict(enc_n_layers=4,
+                                             dec_n_layers=4),
+    "librispeech_uni_conformer_mocha_args": dict(enc_n_layers=8),
+    "uni_conformer_mocha_streaming_args": dict(enc_n_layers=4)}
+
+
+def depth_flags(make: str) -> tuple:
+    """XF_DEPTH's cut of ``configs.<make>`` as CLI flags."""
+    return tuple(x for k, v in XF_DEPTH.get(make, {}).items()
+                 for x in (f"--{k}", str(v)))
+
+
+XF_OVERRIDES = ("--n_epochs", "4", "--unit", "word") + \
+    depth_flags("librispeech_transformer_args")
 XF_MMA_OVERRIDES = ("--n_epochs", "1", "--accum_grad_n_steps", "2",
-                    "--unit", "word")
+                    "--unit", "word") + \
+    depth_flags("librispeech_transformer_mma_args")
 XF_D = 256
 XF_SERVED = {"beam10_ctc0.3": dict(beam_width=10, ctc_weight=0.3),
              "beam1": dict(beam_width=1)}
@@ -3278,12 +3329,20 @@ XF_PRE_RTOL = 1e-4
 K4_KERNEL_NAMES = ("ctc_alpha", "ctc_beta")
 
 
-def xf_model(torch, make: str):
-    """The seeded model of ``configs.<make>()`` on the card, eval()."""
+def xf_args(make: str):
+    """``configs.<make>()`` cut to its XF_DEPTH."""
     from neural_sp_tpu_torch import configs
+    args = getattr(configs, make)()
+    for name, value in XF_DEPTH.get(make, {}).items():
+        setattr(args, name, value)
+    return args
+
+
+def xf_model(torch, make: str):
+    """The seeded model of ``xf_args(make)`` on the card, eval()."""
     from neural_sp_tpu_torch.models.speech2text import build_speech2text
     from neural_sp_tpu_torch.utils.init_params import init_params
-    model = build_speech2text(getattr(configs, make)())
+    model = build_speech2text(xf_args(make))
     init_params(model, SEED)
     return model.eval()
 
@@ -3480,10 +3539,9 @@ def phase_xf_hold(torch, model, xs, xlens, make: str, tag: str,
     DECISION_MARGIN; then (dropout on)
     one train() microstep twice: the same bits."""
     import numpy as np
-    from neural_sp_tpu_torch import configs
     from neural_sp_tpu_torch.models.speech2text import build_speech2text
     dev = next(model.parameters()).device
-    cpu = build_speech2text(getattr(configs, make)(), device="cpu")
+    cpu = build_speech2text(xf_args(make), device="cpu")
     cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
     cpu.double()
     saved = dropout_off(torch, model) + dropout_off(torch, cpu)
@@ -4131,11 +4189,10 @@ def uni_hold(torch, model, xs, xlens, make: str, tag: str,
     times that of the same microstep on the CPU in float32, and 9b's rule
     holds the microstep of the encoder and the CTC head (``ctc_weight`` 1:
     the decoder does not run), which carries every kernel of the path."""
-    from neural_sp_tpu_torch import configs
     from neural_sp_tpu_torch.models.speech2text import build_speech2text
     import numpy as np
     dev = next(model.parameters()).device
-    cpu = build_speech2text(getattr(configs, make)(), device="cpu")
+    cpu = build_speech2text(xf_args(make), device="cpu")
     cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
     x, xl = torch.from_numpy(xs), torch.from_numpy(xlens)
     ys, ylens = mocha_labels(torch, np.random.default_rng(SEED + 9),
@@ -4195,7 +4252,7 @@ def uni_hold(torch, model, xs, xlens, make: str, tag: str,
                                 f"{tag} encoder + CTC", window)
     finally:
         for m in (model, cpu):
-            m.ctc_weight = getattr(configs, make)().ctc_weight
+            m.ctc_weight = xf_args(make).ctc_weight
     out["whole_microstep"] = whole
     model.eval()
     return out
@@ -4203,7 +4260,7 @@ def uni_hold(torch, model, xs, xlens, make: str, tag: str,
 
 def stream_cli(torch, root: Path, corpus: dict, conf: str, tag: str,
                train: bool, evals: dict, train_kernels: tuple,
-               model=None) -> dict:
+               model=None, lm: bool = True, depth: tuple = ()) -> dict:
     """11c / 11d / 11e: with ``train``, ``bin.asr.train.main`` on ``conf``
     (``STREAM_OVERRIDES``, phase 7's corpus), counts zeroed around it:
     ``train_kernels`` must run, every loss must be finite, at least one
@@ -4211,7 +4268,8 @@ def stream_cli(torch, root: Path, corpus: dict, conf: str, tag: str,
     CLI's initial weights; without, ``model``'s weights saved with the
     conf as the train CLI leaves them (a conf that cannot train through
     the CLI). Then ``bin.asr.eval.main`` with each argument list of
-    ``evals`` (counts zeroed around each)."""
+    ``evals`` (counts zeroed around each), with the recipe's LM unless
+    ``lm`` is off; ``depth``: the conf's depth cut as CLI flags."""
     import math
     from types import SimpleNamespace
     from neural_sp_tpu_torch.bin.args import parse_args_train, save_config
@@ -4250,7 +4308,7 @@ def stream_cli(torch, root: Path, corpus: dict, conf: str, tag: str,
         with mock.patch.object(TrainStep, "__call__", timed_call), \
                 mock.patch.object(cli_train, "init_params", kept_init):
             cli_train.main(["--config", str(ROOT / conf)] + data +
-                           list(STREAM_OVERRIDES))
+                           list(STREAM_OVERRIDES) + list(depth))
         sync()
         wall = time.perf_counter() - t0
         counts = launches()
@@ -4288,19 +4346,19 @@ def stream_cli(torch, root: Path, corpus: dict, conf: str, tag: str,
                f"{still[:6]}")
     else:
         args = parse_args_train(["--config", str(ROOT / conf)] + data +
-                                list(STREAM_OVERRIDES))
+                                list(STREAM_OVERRIDES) + list(depth))
         args.vocab = CLI_VOCAB
         save_checkpoint(exp, 1, model.state_dict())
         save_config(vars(args), str(Path(exp) / "conf.yml"))
         out["train"] = None
-    lm_dir = recipe_lm(root)
+    lm_args = ["--recog_lm", recipe_lm(root)] if lm else []
     for what, extra in evals.items():
         reset_launches()
         t = time.perf_counter()
         res = cli_eval.main(["--recog_model", exp, "--recog_sets",
-                             corpus["test"], "--recog_lm", lm_dir,
-                             "--recog_dir", str(root / f"decode_{name}_"
-                                                f"{what}")] + list(extra))
+                             corpus["test"], "--recog_dir",
+                             str(root / f"decode_{name}_{what}")] + lm_args +
+                            list(extra))
         sync()
         wall = time.perf_counter() - t
         counts = launches()
@@ -4455,7 +4513,9 @@ def phase_streaming(torch, rng, root: Path, corpus: dict, xs,
     uni_train = ("rel_attention", "rel_attention_window", "rel_attention_bwd",
                  "rel_attention_bwd_window", "ctc_loss", "ctc_loss_bwd")
     out["cli"] = timed("11c", stream_cli, torch, root, corpus, UNI_CONF,
-                       "11c", True, {"offline": CLI_EVAL}, uni_train)
+                       "11c", True, {"offline": CLI_EVAL}, uni_train,
+                       depth=depth_flags(
+                           "librispeech_uni_conformer_mocha_args"))
     expect(out["cli"]["eval_offline"]["launches"]["rel_attention_window"] > 0,
            "K1 with the causal window never launched in the eval CLI")
 
@@ -4472,7 +4532,9 @@ def phase_streaming(torch, rng, root: Path, corpus: dict, xs,
                              xlens)
     stream["cli"] = timed("11d CLI", stream_cli, torch, root, corpus,
                           STREAM_CONF, "11d", False,
-                          {"streaming": STREAM_EVAL}, (), model=model)
+                          {"streaming": STREAM_EVAL}, (), model=model,
+                          depth=depth_flags(
+                              "uni_conformer_mocha_streaming_args"))
     expect(stream["cli"]["eval_streaming"]["launches"][
         "rel_attention_offset"] > 0,
         "K1 never ran against cached keys in the streaming eval CLI")
@@ -4500,6 +4562,508 @@ def phase_streaming(torch, rng, root: Path, corpus: dict, xs,
     return out
 
 
+# ---- phase 12: the LC-BLSTM with its streaming, and the RNN transducer ---
+# 12a: the LibriSpeech recipe's LC-BLSTM-RNN-T (``RNNT_CONF``: conv x4,
+# 5 LC-BLSTM-512 layers summed, chunk 40 / 40 (the conf's
+# lc_chunk_size_left read as the current chunk, ROADMAP C13), a 2-layer
+# LSTM-1024 prediction net, the joint of 1024 (JAX's transducer_joint_dim
+# default, dec_n_units), CTC 0.3 with fc 512) at full width and depth over
+# V = 1,000 (the conf's bpe1k), float32. 12b: the LC-BLSTM-MoChA
+# (``LC_MOCHA_CONF``, 16 confs' shape) at RNN_DEPTH over phase 7's V.
+RNNT_CONF = "examples/librispeech/conf/asr/transducer/" \
+    "lcblstm_rnnt_chunk4040_bpe1k.yaml"
+LC_MOCHA_CONF = "examples/librispeech/conf/asr/mocha/" \
+    "lcblstm_mocha_chunk4040.yaml"
+RNNT_VOCAB = 1000          # the 4 reserved ids and 996 words
+RNNT_SERVED = {"beam10_tsd": dict(beam_width=10),
+               "greedy": dict(beam_width=1)}
+# the eval CLI: beam 10 (tsd) offline, and streaming (mono); no LM (the
+# transducer's searches read none)
+RNNT_EVAL = {"beam10": ("--recog_beam_width", "10", "--recog_n_average",
+                        "2"),
+             "streaming": ("--recog_beam_width", "10", "--recog_n_average",
+                           "2", "--recog_streaming", "true")}
+RNNT_TRAIN_KERNELS = ("rnnt_loss", "rnnt_loss_bwd", "ctc_loss",
+                      "ctc_loss_bwd")
+# K5 at the recipe's shape (B 32, T 400 after the x4 front end, U 200) and
+# ragged (a row of U 0, a row of T 1, U > T)
+RNNT_KERNEL_SHAPES = ((32, 400, 200, [400] * 32, [200] * 32),
+                      (8, 120, 60, [120, 1, 77, 30, 5, 120, 64, 2],
+                       [60, 0, 33, 59, 0, 1, 60, 2]),
+                      (3, 10, 40, [10, 4, 1], [40, 13, 7]))
+
+
+def rnnt_case(torch, rng, record, b, tt, uu, tl, ul, tag="12") -> dict:
+    """K5 forward and backward at B, T, U (two moves' log-probs about -log
+    V with unit spread, emit NEG_INF past each row's U) against its plain
+    float64 twin, with CUDA-event times and the bound; at the first shape
+    also the plain recurrence in float32 (JAX's precision) against the
+    float64 twin, what K5's float64 values buy."""
+    import numpy as np
+    from neural_sp_tpu_torch.ops.kernels.rnnt_loss import (
+        NEG_INF, rnnt_bwd_cost, rnnt_cost, rnnt_forward_alphas,
+        rnnt_loss_bwd, rnnt_loss_bwd_ref, rnnt_loss_fwd)
+    dev = torch.device("cuda")
+
+    def draw(*shape):
+        return torch.from_numpy((rng.standard_normal(shape) - np.log(
+            RNNT_VOCAB)).astype("float32")).to(dev)
+
+    tlen = torch.tensor(tl, dtype=torch.int32, device=dev)
+    ulen = torch.tensor(ul, dtype=torch.int32, device=dev)
+    emit = draw(b, tt, uu)
+    emit = torch.where(torch.arange(uu, device=dev)[None, None] <
+                       ulen[:, None, None], emit,
+                       torch.full_like(emit, NEG_INF))
+    args = (draw(b, tt, uu + 1), emit, tlen, ulen)
+    g = torch.linspace(0.5, 1.5, b, device=dev)
+    nll, al = rnnt_loss_fwd(*args)
+    nll_r, al_r = rnnt_forward_alphas(*args)
+    gb, ge = rnnt_loss_bwd(*args, al, g)
+    gb_r, ge_r = rnnt_loss_bwd_ref(*args, al_r, g)
+    err = max(rel_err(nll, nll_r), rel_err(gb, gb_r), rel_err(ge, ge_r),
+              *(rel_err(a, b) for a, b in zip(
+                  rnnt_loss_bwd(*args, al_r, g), (gb_r, ge_r))))
+    fwd_ms = cuda_ms(lambda: rnnt_loss_fwd(*args))
+    bwd_ms = cuda_ms(lambda: rnnt_loss_bwd(*args, al, g))
+    fwd_ref = cuda_ms(lambda: rnnt_forward_alphas(*args), iters=2, warmup=1)
+    bwd_ref = cuda_ms(lambda: rnnt_loss_bwd_ref(*args, al_r, g), iters=2,
+                      warmup=1)
+    fwd_cost = rnnt_cost(b, tt, uu, tl, ul)
+    bwd_cost = rnnt_bwd_cost(b, tt, uu, tl, ul)
+    extra = {}
+    if tt == RNNT_KERNEL_SHAPES[0][1]:
+        nll32, al32 = rnnt_forward_alphas(*args, dtype=torch.float32)
+        g32 = rnnt_loss_bwd_ref(*args, al32, g, dtype=torch.float32)
+        extra = {"f32_recurrence_nll_err": rel_err(nll32, nll_r),
+                 "f32_recurrence_grad_err": max(
+                     rel_err(g32[0], gb_r), rel_err(g32[1], ge_r))}
+        log(f"[{tag}] the plain recurrence in float32 (JAX's) against "
+            f"float64: nll {extra['f32_recurrence_nll_err']:.3e}, gradient "
+            f"{extra['f32_recurrence_grad_err']:.3e} of the reference's max")
+    log(f"[{tag}] rnnt_loss forward kernel {fwd_ms:.4f} ms plain "
+        f"{fwd_ref:.4f} ms; backward kernel {bwd_ms:.4f} ms plain "
+        f"{bwd_ref:.4f} ms")
+    record("rnnt_loss", err, fwd_ms + bwd_ms, fwd_ref + bwd_ref,
+           f"forward + backward B={b} T={tt} U={uu}", library_ms=None,
+           **roofline((fwd_cost[0] + bwd_cost[0], fwd_cost[1] + bwd_cost[1]),
+                      simt=True),
+           fwd_bound_ms=roofline(fwd_cost, simt=True)["bound_ms"],
+           bwd_bound_ms=roofline(bwd_cost, simt=True)["bound_ms"],
+           fwd_ms=fwd_ms, fwd_plain_ms=fwd_ref, bwd_ms=bwd_ms,
+           bwd_plain_ms=bwd_ref, **extra)
+
+
+def lc_args(conf: str, vocab: int, depth: int | None = None):
+    from neural_sp_tpu_torch.bin.args import parse_args_train
+    args = parse_args_train(["--config", str(ROOT / conf)])
+    args.vocab, args.input_dim = vocab, 80
+    if depth is not None:
+        args.enc_n_layers = depth
+    return args
+
+
+def lc_model(torch, args):
+    from neural_sp_tpu_torch.models.speech2text import build_speech2text
+    from neural_sp_tpu_torch.utils.init_params import init_params
+    model = build_speech2text(args)      # on the card
+    init_params(model, SEED)
+    return model.eval()
+
+
+def energy_pre_activations(torch, record: list, card_pre=None,
+                           flips=None):
+    """A stand-in for MoChA's additive energy (``modules/mocha.py::
+    _energy``, ``v . relu(k + q)``) that keeps each call's pre-activation
+    k + q in ``record``; with ``card_pre`` (the card's, in call order) it
+    computes the energy with the card's ReLU masks instead of its own and
+    adds to ``flips`` the positions whose sign differs and the largest
+    pre-activation error of a call, relative to its largest value."""
+    def energy(m, key_cache, query):
+        bs, t, _ = key_cache.shape
+        k = key_cache.view(bs, t, m.n_heads, m.adim)
+        q = m.w_query(query).view(bs, 1, m.n_heads, m.adim)
+        pre = k + q
+        if card_pre is None:
+            record.append(pre.detach())
+            return torch.einsum("ha,btha->bht", m.v, torch.relu(pre))
+        card = card_pre[len(record)].to(pre)
+        record.append(None)
+        mine = pre.detach()
+        flips["positions"] += int(((card > 0) != (mine > 0)).sum())
+        flips["pre_rel_err"] = max(flips["pre_rel_err"], float(
+            (card - mine).abs().max() / mine.abs().max()))
+        return torch.einsum("ha,btha->bht", m.v,
+                            pre * (card > 0).to(pre.dtype))
+    return energy
+
+
+def hold_to_float64(torch, model, args, xs, xlens, tag) -> dict:
+    """A B = 4 train() microstep of the card's model (phase 3's utterances,
+    MOCHA_U labels, dropout on) held to the same microstep on the CPU in
+    float64 by 9b's rule, with a TF32 control that must break it
+    (``hold_with_control``; K5 and K4 must run in the transducer's).
+
+    With a MoChA decoder the float32 microstep rounds, on the CPU as on
+    the card (ROADMAP C29): so, as 11d, the whole microstep's loss must lie
+    within WHOLE_LOSS_RTOL of float64 and its gradients' median distance
+    from float64 within WHOLE_GRAD_MULT times the CPU float32 microstep's,
+    and 9b's rule, with its control, holds the microstep of the encoder
+    and the CTC head (``ctc_weight`` 1), which carries every kernel of the
+    path. Beside it the readings of 9b's rule on the whole microstep: the
+    card's and the CPU float32's against float64, and the card's against
+    float64 with the card's ReLU masks of MoChA's additive energies pinned
+    (phase 10's method), with the masks that flip and the largest
+    pre-activation error (within XF_PRE_RTOL of each call's max)."""
+    import numpy as np
+    from neural_sp_tpu_torch.models.modules import mocha as mocha_module
+    from neural_sp_tpu_torch.models.speech2text import build_speech2text
+    from neural_sp_tpu_torch.ops.kernels import launches, reset_launches
+    dev = next(model.parameters()).device
+    ys, ylens = mocha_labels(torch, np.random.default_rng(SEED + 9),
+                             args.vocab)
+    x, xl = torch.from_numpy(xs), torch.from_numpy(xlens)
+    on_card = tuple(v.to(dev) for v in (x, xl, ys, ylens))
+    on_cpu = (x.double(), xl, ys, ylens)
+    cpu = build_speech2text(args, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    if getattr(model.dec_fwd, "attn_type", "") != "mocha":
+        cpu.double()
+        return hold_with_control(torch, model, cpu, on_card, on_cpu, tag,
+                                 RNNT_TRAIN_KERNELS)
+    card_pre: list = []
+    reset_launches()
+    with mock.patch.object(mocha_module, "_energy", energy_pre_activations(
+            torch, card_pre)):
+        loss, grads, obs = mocha_microstep(torch, model, on_card)
+    counts = launches()
+    loss32, grads32, _ = mocha_microstep(torch, cpu, (x, xl, ys, ylens))
+    cpu.double()
+    t0 = time.perf_counter()
+    loss_ref, grads_ref, obs_ref = mocha_microstep(torch, cpu, on_cpu)
+    cpu_s = time.perf_counter() - t0
+    flips = {"positions": 0, "pre_rel_err": 0.0}
+    with mock.patch.object(mocha_module, "_energy", energy_pre_activations(
+            torch, [], card_pre, flips)):
+        loss_p, grads_p, _ = mocha_microstep(torch, cpu, on_cpu)
+    flips["pre_activations"] = sum(p.numel() for p in card_pre)
+    del card_pre
+
+    def rule(lo, gr, lo_ref, gr_ref):
+        """9b's rule's reading: (worst leaf, its share of the tolerance)."""
+        e = microstep_errors(lo, gr, lo_ref, gr_ref, floor=True)
+        worst = max(e["leaves"], key=lambda n: e["leaves"][n][0])
+        return {"loss_rel_err": e["loss_rel_err"], "worst_grad_leaf": worst,
+                "worst_grad": e["leaves"][worst][0]}
+
+    def dist(g):
+        return {n: float((g[n] - grads_ref[n]).norm() /
+                         max(float(grads_ref[n].norm()), 1e-30))
+                for n in grads_ref}
+
+    d_card, d_cpu32 = dist(grads), dist(grads32)
+    whole = {"loss_rel_err": abs(loss - loss_ref) / abs(loss_ref),
+             "loss_rel_err_cpu_float32": abs(loss32 - loss_ref) /
+             abs(loss_ref),
+             "median_leaf_rel_dist": float(np.median(list(d_card.values()))),
+             "median_leaf_rel_dist_cpu_float32": float(np.median(list(
+                 d_cpu32.values()))),
+             "rule_9b": rule(loss, grads, loss_ref, grads_ref),
+             "rule_9b_cpu_float32": rule(loss32, grads32, loss_ref,
+                                         grads_ref),
+             "rule_9b_pinned": rule(loss, grads, loss_p, grads_p),
+             "energy_relu": flips, "obs": obs, "obs_float64": obs_ref,
+             "cpu_float64_s": cpu_s, "launches": counts}
+    log(f"[{tag}] the whole microstep (MoChA on): loss rel "
+        f"{whole['loss_rel_err']:.2e} of float64 (CPU float32 "
+        f"{whole['loss_rel_err_cpu_float32']:.2e}); median leaf |g - g64| / "
+        f"|g64| {whole['median_leaf_rel_dist']:.3e} on the card, "
+        f"{whole['median_leaf_rel_dist_cpu_float32']:.3e} for the CPU in "
+        f"float32; 9b's rule, worst leaf: card {whole['rule_9b']}, CPU "
+        f"float32 {whole['rule_9b_cpu_float32']}, card against float64 with "
+        f"the card's energy ReLU masks {whole['rule_9b_pinned']}; "
+        f"{flips['positions']} of {flips['pre_activations']} energy "
+        f"pre-activations flip sign, the largest pre-activation error "
+        f"{flips['pre_rel_err']:.2e} of its call's max (ROADMAP C29)")
+    expect(all(bool(torch.isfinite(g).all()) for gs in (grads, grads32)
+               for g in gs.values()), f"{tag}: a gradient not finite")
+    expect(flips["pre_rel_err"] <= XF_PRE_RTOL,
+           f"{tag}: the MoChA energies' pre-activations part from float64 "
+           f"by {flips['pre_rel_err']:.2e} of their max")
+    expect(whole["loss_rel_err"] <= WHOLE_LOSS_RTOL,
+           f"{tag}: the whole microstep's loss {whole['loss_rel_err']:.2e} "
+           f"of float64, past {WHOLE_LOSS_RTOL}")
+    expect(whole["median_leaf_rel_dist"] <= WHOLE_GRAD_MULT *
+           whole["median_leaf_rel_dist_cpu_float32"],
+           f"{tag}: the whole microstep's gradients "
+           f"{whole['median_leaf_rel_dist']:.3e} from float64 (median), past "
+           f"{WHOLE_GRAD_MULT} x the CPU float32's")
+    ctc_weight = model.ctc_weight
+    for m in (model, cpu):
+        m.ctc_weight = 1.0
+    try:
+        out = hold_with_control(torch, model, cpu, on_card, on_cpu,
+                                f"{tag} encoder + CTC",
+                                ("ctc_loss", "ctc_loss_bwd"))
+    finally:
+        for m in (model, cpu):
+            m.ctc_weight = ctc_weight
+    model.eval()
+    out["whole_microstep"] = whole
+    out["launches"] = counts
+    return out
+
+
+def lc_stream_decode(torch, model, conf: dict, xs, xlens, tag,
+                     attention_beam: bool = False) -> dict:
+    """``decode_streaming`` of phase 3's utterances one at a time, counts
+    zeroed around them: RTF, wall per block, resets, commits. The MoChA
+    block-synchronous beam must run only where ``attention_beam`` (JAX's
+    dispatch: never with an RNN encoder, ROADMAP C30)."""
+    from neural_sp_tpu_torch.models.decoders.decoding import (
+        DecodeConfig, Speech2TextSession)
+    from neural_sp_tpu_torch.ops.kernels import launches, reset_launches
+    sess = Speech2TextSession(model, DecodeConfig(**conf))
+    hop = model.encoder.block_input_frames()[1]
+    attention = []
+    real = Speech2TextSession.decode_streaming_attention
+
+    def spy(self, *a, **kw):
+        attention.append(1)
+        return real(self, *a, **kw)
+
+    with mock.patch.object(Speech2TextSession, "decode_streaming_attention",
+                           spy):
+        sess.decode_streaming(xs[0, :3 * hop])    # warm-up, not counted
+        reset_launches()
+        rows = []
+        t0 = time.perf_counter()
+        for i, n in enumerate(xlens):
+            t = time.perf_counter()
+            hyp, stats = sess.decode_streaming(xs[i, :int(n)])
+            wall = time.perf_counter() - t
+            n_blocks = -(-int(n) // hop)
+            rows.append({"frames": int(n), "hyp_len": len(hyp),
+                         "wall_s": wall,
+                         "wall_ms_per_block": wall * 1e3 / n_blocks,
+                         "rtf": stats["rtf"],
+                         "n_resets": stats["n_resets"],
+                         "commits": len(stats.get("commits", []))})
+            expect(all(isinstance(y, int) and 0 <= y < model.dec_fwd.vocab
+                       for y in hyp), f"{tag} streaming hypothesis {hyp}")
+            log(f"[{tag}] decode_streaming {n} frames ({n_blocks} blocks of "
+                f"{hop}): hyp len {len(hyp)}, RTF {stats['rtf']:.4f}, "
+                f"{rows[-1]['wall_ms_per_block']:.1f} ms of wall per block, "
+                f"resets {stats['n_resets']}")
+        wall = time.perf_counter() - t0
+    counts = launches()
+    expect(bool(attention) == attention_beam,
+           f"{tag}: the MoChA streaming beam ran {len(attention)} times")
+    log(f"[{tag}] decode_streaming of {len(xlens)} utterances: wall "
+        f"{wall:.2f} s; launches {counts}")
+    return {"utterances": rows, "wall_s": wall, "launches": counts,
+            "rtf": wall / (float(sum(xlens)) * FRAME_SEC)}
+
+
+def lc_encoder_against_loop(torch, model, args, xs, xlens, tag) -> dict:
+    """The LC-BLSTM encoder on cuDNN against its layers' written-out loops
+    (``forward_ref``) on phase 3's utterances, within RNN_ENCODER_ATOL, and
+    the same cuDNN encoder with TF32 on as the control that must exceed
+    it; then the streamed encoder (``streaming_step`` over the 1600-frame
+    utterance's blocks, the carries chained) on the card against the same
+    chain on the CPU port (float32), outputs and carries within
+    RNN_ENCODER_ATOL. Each layer's two directions must each hold their
+    weights in a cuDNN buffer of their own (the buffer begins with the
+    direction's first weight), so that no call copies them."""
+    from neural_sp_tpu_torch.frontends.streaming import StreamingDriver
+    from neural_sp_tpu_torch.models.encoders.rnn import LCBLSTMLayer
+    from neural_sp_tpu_torch.models.speech2text import build_speech2text
+    dev = next(model.parameters()).device
+    for name, m in model.named_modules():
+        if isinstance(m, LCBLSTMLayer):
+            for d in (0, 4):
+                ws = m.lstm._flat_weights[d:d + 4]
+                base = ws[0].untyped_storage().data_ptr()
+                expect(ws[0].data_ptr() == base and all(
+                    w.untyped_storage().data_ptr() == base for w in ws),
+                    f"{tag}: {name}'s {('forward', 'backward')[d // 4]} "
+                    f"direction's weights do not begin a buffer of their "
+                    f"own: cuDNN copies them at every call")
+    x = torch.from_numpy(xs).to(dev)
+    xl = torch.from_numpy(xlens).to(dev)
+    out = {}
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        e = model.encode(x, xl)[0]["ys"]["xs"]
+        torch.cuda.synchronize()
+        out["encode_batch_s"] = time.perf_counter() - t0
+        with mock.patch.object(LCBLSTMLayer, "forward",
+                               LCBLSTMLayer.forward_ref):
+            t0 = time.perf_counter()
+            e_ref = model.encode(x, xl)[0]["ys"]["xs"]
+            torch.cuda.synchronize()
+            out["encode_batch_loop_s"] = time.perf_counter() - t0
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            e_tf32 = model.encode(x, xl)[0]["ys"]["xs"]
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+    expect(bool(torch.isfinite(e).all()), f"{tag} encoder output not finite")
+    out["encoder_max_abs_err"] = max_err(e, e_ref)
+    out["encoder_tf32_max_abs_err"] = max_err(e_tf32, e_ref)
+    log(f"[{tag}] LC-BLSTM encoder {tuple(e.shape)}: "
+        f"{out['encode_batch_s']:.4f} s (cuDNN), "
+        f"{out['encode_batch_loop_s']:.4f} s (the written-out loops); cuDNN "
+        f"vs the loops max_abs_err {out['encoder_max_abs_err']:.3e} (limit "
+        f"{RNN_ENCODER_ATOL:.0e}), with TF32 on "
+        f"{out['encoder_tf32_max_abs_err']:.3e}")
+    expect(out["encoder_max_abs_err"] <= RNN_ENCODER_ATOL,
+           f"{tag} cuDNN LC-BLSTM vs its loops: {out['encoder_max_abs_err']}")
+    expect(out["encoder_tf32_max_abs_err"] > RNN_ENCODER_ATOL,
+           f"{tag}: the TF32 control is within {RNN_ENCODER_ATOL}")
+    # the streamed encoder: the card's chain against the CPU port's
+    cpu = build_speech2text(args, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    cpu.eval()
+    enc = model.encoder
+    total, hop = enc.block_input_frames()
+    n = int(xlens[-1])
+    carry = carry_ref = None
+    errs, carry_errs = [], []
+    with torch.inference_mode():
+        for blk, _, _ in StreamingDriver(xs[-1, :n], total, hop,
+                                         enc.stream_geometry()[1]):
+            b = torch.from_numpy(blk)[None]
+            o, carry = enc.streaming_step(b.to(dev), carry)
+            o_ref, carry_ref = cpu.encoder.streaming_step(b, carry_ref)
+            errs.append(max_err(o.cpu(), o_ref))
+            carry_errs.append(max(
+                max_err(a.cpu(), r) for layer, layer_ref in zip(
+                    carry, carry_ref) for a, r in zip(layer, layer_ref)))
+    del cpu
+    out["stream_blocks"] = len(errs)
+    out["stream_max_abs_err"] = max(errs)
+    out["stream_carry_max_abs_err"] = max(carry_errs)
+    log(f"[{tag}] streaming_step over {len(errs)} blocks of {total} input "
+        f"frames ({n} frames): the card against the CPU port max_abs_err "
+        f"{max(errs):.3e} (outputs), {max(carry_errs):.3e} (carries)")
+    expect(max(errs) <= RNN_ENCODER_ATOL and
+           max(carry_errs) <= RNN_ENCODER_ATOL,
+           f"{tag} streaming_step chain: card vs CPU {max(errs)} / "
+           f"{max(carry_errs)}")
+    return out
+
+
+def phase_transducer(torch, rng, root: Path, xs, xlens) -> dict:
+    """12: K5 against its twin (``RNNT_KERNEL_SHAPES``); (12a) the
+    LC-BLSTM-RNN-T (``RNNT_CONF``, V 1,000) serves phase 3's utterances,
+    greedy and beam 10 (tsd), and streams each through ``decode_streaming``
+    (the mono beam), counts zeroed around each (no kernel of the port
+    serves it: cuDNN and PyTorch ops); its encoder held to the written-out
+    loops and its ``streaming_step`` chain to the CPU port's; a B = 4
+    microstep held to float64 by 9b's rule (K5 and K4 must run); the train
+    CLI for one epoch (one update) on a V = 1,000 corpus, the eval CLI with
+    beam 10 and streaming. (12b) the LC-BLSTM-MoChA (``LC_MOCHA_CONF``, at
+    RNN_DEPTH, V 10,000) served (beam 10 + CTC 0.3, greedy), streamed (the
+    CTC block-synchronous beam: JAX's dispatch for an RNN encoder, C30)
+    and its microstep held as 11d's (``hold_to_float64``). Walls per
+    sub-phase."""
+    t = time.perf_counter()
+    walls = {}
+
+    def timed(name, fn, *a, **kw):
+        t0 = time.perf_counter()
+        result = fn(*a, **kw)
+        walls[name] = time.perf_counter() - t0
+        log(f"[{name}] wall {walls[name]:.1f} s")
+        return result
+
+    def kernels():
+        res = {}
+        record = kernel_recorder(res, "12")
+        for shape in RNNT_KERNEL_SHAPES:
+            rnnt_case(torch, rng, record, *shape)
+        return res
+
+    out = {"kernels": timed("12 kernels", kernels)}
+    args = lc_args(RNNT_CONF, RNNT_VOCAB)
+    model = lc_model(torch, args)
+    out["parameters"] = sum(p.numel() for p in model.parameters())
+    log(f"[12a] LibriSpeech LC-BLSTM-RNN-T: {out['parameters']} parameters "
+        f"on the card (V {RNNT_VOCAB})")
+    served, counts = timed("12a serve", phase_serve, torch, model, xs, xlens,
+                           tuple(RNNT_SERVED), tag="12a", table=RNNT_SERVED)
+    served["launches"] = counts
+    expect(not any(counts.values()),
+           f"a kernel launched serving the transducer: {counts}")
+    out["serve"] = served
+    out["stream"] = timed("12a stream", lc_stream_decode, torch, model,
+                          dict(beam_width=10), xs, xlens, "12a")
+    out["encoder"] = timed("12a encoder", lc_encoder_against_loop, torch,
+                           model, args, xs, xlens, "12a")
+    out["hold"] = timed("12a hold", hold_to_float64, torch, model, args, xs,
+                        xlens, "12a")
+    for name in RNNT_TRAIN_KERNELS:
+        expect(out["hold"]["launches"][name] > 0,
+               f"{name} never launched in 12a's microstep")
+    # K5's launches per microstep: 12a's held microstep is one, its counts
+    # zeroed just before it
+    out["k5_per_step"] = {name: out["hold"]["launches"][name]
+                          for name in ("rnnt_loss", "rnnt_loss_bwd")}
+    del model
+    torch.cuda.empty_cache()
+    corpus = synth_corpus(root / "data_v1000", CLI_UTTS, RNNT_VOCAB)
+    out["cli"] = timed("12a CLIs", stream_cli, torch, root, corpus,
+                       RNNT_CONF, "12a", True, RNNT_EVAL, RNNT_TRAIN_KERNELS,
+                       lm=False)
+    # and the train CLI's backward launches per microstep (its forward
+    # ones count the dev batch's too)
+    train = out["cli"]["train"]
+    out["k5_per_step"]["rnnt_loss_bwd_cli"] = \
+        train["launches"]["rnnt_loss_bwd"] / train["microsteps"]
+    log(f"[12a] K5 launches per microstep: {out['k5_per_step']}")
+    expect(all(v == 1 for v in out["k5_per_step"].values()),
+           f"12a: K5 launched other than once per microstep and direction: "
+           f"{out['k5_per_step']}")
+
+    args_b = lc_args(LC_MOCHA_CONF, CLI_VOCAB, RNN_DEPTH)
+    model = lc_model(torch, args_b)
+    mocha = {"parameters": sum(p.numel() for p in model.parameters())}
+    log(f"[12b] LC-BLSTM-MoChA at {RNN_DEPTH} of 5 layers: "
+        f"{mocha['parameters']} parameters on the card")
+    served, counts = timed("12b serve", phase_serve, torch, model, xs, xlens,
+                           ("beam10_ctc0.3", "greedy"), tag="12b")
+    served.pop("best_hyp0")
+    served["launches"] = counts
+    mocha["serve"] = served
+    mocha["stream"] = timed("12b stream", lc_stream_decode, torch, model,
+                            dict(beam_width=10, ctc_weight=0.3), xs, xlens,
+                            "12b")
+    mocha["hold"] = timed("12b hold", hold_to_float64, torch, model, args_b,
+                          xs, xlens, "12b")
+    del model
+    torch.cuda.empty_cache()
+    out["mocha"] = mocha
+    cli = out["cli"]
+    paths = [out["serve"]["launches"], out["stream"]["launches"],
+             out["hold"]["launches"], cli["train"]["launches"],
+             cli["eval_beam10"]["launches"], cli["eval_streaming"]["launches"],
+             mocha["serve"]["launches"], mocha["stream"]["launches"],
+             mocha["hold"]["launches"]]
+    out["launches"] = {name: sum(p[name] for p in paths)
+                       for name in paths[0]}
+    log(f"[12] launches on phase 12's path: {out['launches']}")
+    expect(all(out["launches"][k] == 0 for k in NOT_ON_MOCHA_PATH),
+           f"K1 / K1b / K2 / K3 / K3b launched on phase 12's path")
+    for name in RNNT_TRAIN_KERNELS:
+        expect(out["launches"][name] > 0,
+               f"{name} never launched on phase 12's path")
+    out["phase_wall_s"] = time.perf_counter() - t
+    out["sub_phase_wall_s"] = walls
+    log(f"[12] phase 12 wall {out['phase_wall_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4520,9 +5084,21 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
 
+    walls = {}
+    clock = [time.perf_counter()]
+
+    def wall(name: str) -> None:
+        """The wall since the last phase ended, logged on its own line."""
+        now = time.perf_counter()
+        walls[name] = now - clock[0]
+        clock[0] = now
+        log(f"[{name}] phase {name} wall {walls[name]:.1f} s")
+
     build_sec = phase_build()
+    wall("1")
     rng = np.random.default_rng(SEED)
     kernels = phase_kernels(torch, rng)
+    wall("2")
     model = flagship_model(torch)
     n_params = sum(p.numel() for p in model.parameters())
     log(f"[3] flagship faithful model: {n_params} parameters on the card")
@@ -4532,20 +5108,25 @@ def main() -> int:
     expect(all(v > 0 for v in launches.values()),
            f"a kernel of the path never launched: {launches}")
     breakdown = phase_breakdown(torch, model, xs, xlens)
+    wall("3")
     served_lm, lm_launches = phase_serve_lm(torch, model, xs, xlens)
+    wall("3c")
     # K1's and K2's launches: the served requests of phases 3 and 3c
     launches = {k: n + lm_launches[k] for k, n in launches.items()}
     enc_err, dec_err, k2_per_step = phase_twins(torch, model, xs, xlens,
                                                 served["best_hyp0"])
+    wall("4")
     train_kernels = phase_train_kernels(torch, rng)
     kernels["rel_attention"]["shapes"] += train_kernels.pop(
         "rel_attention_train_shapes")
     kernels.update(train_kernels)
     kernels.update(phase_train_kernels_bf16(torch, rng))
+    wall("2b")
     batch = train_batch(torch, rng)
     trained, train_launches = phase_train(torch, model, batch)
     trained_bf16, bf16_launches = phase_train(torch, model, batch,
                                               "bfloat16")
+    wall("5")
     parity, plain32 = phase_train_parity(torch, model, batch)
     parity["determinism"] = phase_determinism(torch, model, batch)
     parity_bf16 = phase_train_parity_bf16(torch, model, batch, plain32)
@@ -4553,7 +5134,9 @@ def main() -> int:
     parity["fixed_batch_losses"] = phase_fit(torch, model, batch)
     parity_bf16["fixed_batch_losses"] = phase_fit(
         torch, model, batch, torch.bfloat16, tag="6b")
+    wall("6")
     sampling_times = phase_sampling_times(torch, model, batch)
+    wall("5s")
     del model, batch
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="nsp_cli_") as tmp:
@@ -4564,15 +5147,21 @@ def main() -> int:
         t = time.perf_counter()
         cli = phase_cli(torch, root, corpus)
         cli.update(corpus_s=corpus_s, phase_wall_s=time.perf_counter() - t)
-        log(f"[7] phase 7 wall {cli['phase_wall_s']:.1f} s")
-        t = time.perf_counter()
+        wall("7")
         sampled_cli = phase_sampled_cli(torch, root, corpus)
-        sampled_cli["phase_wall_s"] = time.perf_counter() - t
-        log(f"[7b] phase 7b wall {sampled_cli['phase_wall_s']:.1f} s")
+        wall("7b")
         blstm = phase_blstm(torch, rng, root, corpus, xs, xlens)
+        wall("8")
         mocha = phase_mocha(torch, root, corpus, xs, xlens)
+        wall("9")
         xformer = phase_transformer(torch, root, corpus, xs, xlens)
+        wall("10")
         streaming = phase_streaming(torch, rng, root, corpus, xs, xlens)
+        wall("11")
+        rnnt = phase_transducer(torch, rng, root, xs, xlens)
+        wall("12")
+    log(f"phase walls (s): {json.dumps(walls)}; total "
+        f"{sum(walls.values()):.1f} s")
     # each kernel's launches from the main path it belongs to: the served
     # requests (K1, K2), the float32 training run (K1b, K3, K3b, K4) or
     # the bf16 training run (K1's and K1b's bf16 entries)
@@ -4622,9 +5211,11 @@ def main() -> int:
                "train_bf16": {**trained_bf16, "launches": bf16_launches},
                "train_parity": parity, "train_parity_bf16": parity_bf16,
                "sampling_times": sampling_times, "cli": cli,
-               "cli_sampled": sampled_cli, "blstm": blstm, "mocha": mocha,
+               "cli_sampled": {**sampled_cli, "phase_wall_s": walls["7b"]},
+               "blstm": blstm, "mocha": mocha,
                "transformer": xformer, "streaming": streaming,
-               "kernels": kernels}
+               "transducer": rnnt, "kernels": kernels,
+               "phase_walls_s": walls}
     log(json.dumps(details))
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -4767,6 +5358,28 @@ def main() -> int:
     for e in entries[-3:]:
         expect(e["launches"] > 0, f"{e['name']} never launched on phase "
                f"11's path")
+    # phase 12, the LC-BLSTM-RNN-T and the LC-BLSTM-MoChA: their main
+    # paths' launches (12a's served and streamed requests, microstep and
+    # CLIs; 12b's served and streamed requests and microstep): K4 and K5
+    for e in entries:
+        e["transducer_launches"] = rnnt["launches"][e["name"]]
+    # K5, the transducer's lattice loss: its row at the recipe's shape
+    # (B 32, T 400, U 200), forward + backward; launches on phase 12's path
+    k5 = rnnt["kernels"]["rnnt_loss"]
+    entries.append({
+        "name": "rnnt_loss", "route": "cuda", "source": csrc + "rnnt_loss.cu",
+        "replaces": "neural_sp_tpu/ops/rnnt.py:119 (rnnt_alphas_from_pair, "
+                    "plain JAX; upstream's warp_rnnt)",
+        "launches": rnnt["launches"]["rnnt_loss"],
+        "launches_per_step": rnnt["k5_per_step"]["rnnt_loss"],
+        "bwd_launches_per_step": rnnt["k5_per_step"]["rnnt_loss_bwd"],
+        **{key: k5.get(key) for key in keys},
+        "bwd_launches": rnnt["launches"]["rnnt_loss_bwd"],
+        "transducer_launches": rnnt["launches"]["rnnt_loss"],
+        "shape": k5["shapes"][0]["shape"],
+        "f32_recurrence_grad_err": k5.get("f32_recurrence_grad_err")})
+    expect(entries[-1]["launches"] > 0, "K5 never launched on phase 12's "
+           "path")
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

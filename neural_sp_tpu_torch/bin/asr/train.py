@@ -46,6 +46,7 @@ import torch
 
 from ... import configs
 from ...datasets.asr.build import build_dataloader
+from ...models.decoders.las import RNNDecoder
 from ...models.decoders.transformer import TransformerDecoder
 from ...models.speech2text import build_speech2text
 from ...models.utils import model_device
@@ -222,7 +223,7 @@ def main(argv=None, device=None) -> str:
         lr_scale = controller.lr / lr_ref if lr_ref else 1.0
         if isinstance(model.dec_fwd, TransformerDecoder):
             set_mocha_curriculum(model.dec_fwd, args, epoch)
-        elif model.dec_fwd is not None:
+        elif isinstance(model.dec_fwd, RNNDecoder):
             # the JAX CLI's curriculum: no sampling before ss_start_epoch
             model.dec_fwd.step.ss_prob = 0.0 if ss_start and \
                 epoch < ss_start else getattr(args, "ss_prob", 0.0)

@@ -1,11 +1,13 @@
 """build_decoder (counterpart of ``neural_sp_tpu/models/decoders/build.py``):
-the LAS LSTM branch, with location attention or MoChA, and the transformer
-branch, with or without MMA. Each reads the keys the JAX builder reads."""
+the LAS LSTM branch, with location attention or MoChA, the transformer
+branch, with or without MMA, and the LSTM transducer. Each reads the keys
+the JAX builder reads."""
 from __future__ import annotations
 
 from typing import Union
 
 from .las import RNNDecoder
+from .rnn_transducer import RNNTransducer
 from .transformer import TransformerDecoder
 
 
@@ -44,9 +46,29 @@ def _transformer(args, vocab: int, enc_n_units: int,
         backward=backward)
 
 
+def _transducer(args, vocab: int, enc_n_units: int,
+                backward: bool) -> RNNTransducer:
+    # as JAX build.py: the joint's width is transducer_joint_dim, else
+    # dec_n_units; the recipes' dec_bottleneck_dim is not read
+    return RNNTransducer(
+        vocab=vocab, enc_n_units=enc_n_units,
+        n_units=_get(args, "dec_n_units", 512),
+        n_projs=_get(args, "dec_n_projs", 0),
+        n_layers=_get(args, "dec_n_layers", 1),
+        emb_dim=_get(args, "emb_dim", 512),
+        joint_dim=_get(args, "transducer_joint_dim",
+                       _get(args, "dec_n_units", 512)),
+        rnn_type=_get(args, "dec_type").split("_")[0],
+        dropout=_get(args, "dropout_dec", 0.0),
+        dropout_emb=_get(args, "dropout_emb", 0.0),
+        backward=backward)
+
+
 def build_decoder(args, vocab: int, enc_n_units: int, backward: bool = False
-                  ) -> Union[RNNDecoder, TransformerDecoder]:
+                  ) -> Union[RNNDecoder, TransformerDecoder, RNNTransducer]:
     dec_type = _get(args, "dec_type", "lstm")
+    if dec_type in ("lstm_transducer", "gru_transducer"):
+        return _transducer(args, vocab, enc_n_units, backward)
     if _get(args, "dropout_att", 0.0):
         raise NotImplementedError(
             "dropout_att > 0 is not ported yet, see ROADMAP")
@@ -54,8 +76,9 @@ def build_decoder(args, vocab: int, enc_n_units: int, backward: bool = False
         return _transformer(args, vocab, enc_n_units, backward)
     if dec_type != "lstm":
         raise NotImplementedError(
-            f"dec_type {dec_type!r} is not ported yet (only the LAS lstm "
-            f"and the transformer branches), see ROADMAP")
+            f"dec_type {dec_type!r} is not ported yet (only the LAS lstm, "
+            f"the transformer and the LSTM transducer branches), see "
+            f"ROADMAP")
     return RNNDecoder(
         vocab=vocab, enc_n_units=enc_n_units,
         n_units=_get(args, "dec_n_units", 512),

@@ -233,32 +233,50 @@ class CTCPrefixScorer:
         return r
 
     def __call__(self, hyp: list[int], cands: np.ndarray, r_prev: np.ndarray):
-        """Score extending ``hyp`` (without eos) by each candidate id.
+        """Score extending ``hyp`` (without eos) by each candidate id:
+        ``score_batch`` for one hypothesis.
 
         Returns (scores [n_cands] — log p(prefix+c..) for joint scoring,
         r_new [n_cands, T, 2]).
         """
-        n = len(cands)
+        psi, r = self.score_batch([hyp], np.asarray(cands)[None], [r_prev])
+        return psi[0], r[0]
+
+    def score_batch(self, hyps: list[list[int]], cands: np.ndarray,
+                    r_prev: list[np.ndarray]):
+        """Score extending each of K hypotheses of one length (a
+        label-synchronous beam's step) by its candidate ids, in one pass
+        over T: cands [K, n], r_prev K states [T, 2]. Returns (psi [K, n],
+        r_new [K, n, T, 2]); an eos candidate scores its hypothesis's full
+        prefix probability."""
+        if len({len(h) for h in hyps}) != 1:
+            raise ValueError("score_batch: hypotheses of one length")
+        cands = np.asarray(cands)
+        k, n = cands.shape
         T = self.T
-        last = hyp[-1] if hyp else -1
-        r = np.full((n, T, 2), LOG0, np.float32)
-        # psi: accumulated prefix score per candidate
-        r_sum_prev = np.logaddexp(r_prev[:, 0], r_prev[:, 1])  # [T]
-        lp_c = self.lp[:, cands]                                # [T, n]
-        start = max(len(hyp), 1)
-        psi = np.full(n, LOG0, np.float32)
-        if len(hyp) == 0:
-            r[:, 0, 0] = lp_c[0]
-            psi = r[:, 0, 0].copy()
-        phi = np.where(np.asarray(cands)[None, :] == last,
-                       r_prev[:, 1:2], r_sum_prev[:, None])     # [T, n]
+        hlen = len(hyps[0])
+        last = np.asarray([h[-1] if h else -1 for h in hyps])
+        rp = np.stack(r_prev)                                   # [K, T, 2]
+        # frames first, so that each frame's [K, n] rows are contiguous
+        r = np.full((T, 2, k, n), LOG0, np.float32)
+        r_sum_prev = np.logaddexp(rp[:, :, 0], rp[:, :, 1])     # [K, T]
+        lp_c = self.lp[:, cands]                                # [T, K, n]
+        start = max(hlen, 1)
+        psi = np.full((k, n), LOG0, np.float32)
+        if hlen == 0:
+            r[0, 0] = lp_c[0]
+            psi = r[0, 0].copy()
+        phi = np.where((cands == last[:, None])[None],
+                       rp[:, :, 1].T[:, :, None],
+                       r_sum_prev.T[:, :, None])                # [T, K, n]
         for t in range(start, T):
-            r[:, t, 0] = np.logaddexp(r[:, t - 1, 0], phi[t - 1]) + lp_c[t]
-            r[:, t, 1] = np.logaddexp(r[:, t - 1, 0], r[:, t - 1, 1]) + \
+            r[t, 0] = np.logaddexp(r[t - 1, 0], phi[t - 1]) + lp_c[t]
+            r[t, 1] = np.logaddexp(r[t - 1, 0], r[t - 1, 1]) + \
                 self.lp[t, self.blank]
             psi = np.logaddexp(psi, phi[t - 1] + lp_c[t])
-        # eos candidate scores the full prefix probability
-        is_eos = np.asarray(cands) == self.eos
+        r = r.transpose(2, 3, 0, 1)                             # [K, n, T, 2]
+        is_eos = cands == self.eos
         if is_eos.any():
-            psi[is_eos] = np.logaddexp(r_prev[-1, 0], r_prev[-1, 1])
+            full = np.logaddexp(rp[:, -1, 0], rp[:, -1, 1])     # [K]
+            psi = np.where(is_eos, full[:, None], psi)
         return psi, r

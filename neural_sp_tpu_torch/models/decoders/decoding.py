@@ -21,21 +21,32 @@ pruning and CTC pairing quirk); with a transformer it has no coverage
 penalty and no internal-LM term (``ilm_weight`` is not read: ROADMAP C24),
 and beam width 1 runs the beam, not greedy.
 
+The RNN transducer (JAX's ``_rnnt_fns`` and searches): greedy
+(``decode_transducer_greedy``, up to ``MAX_SYMBOLS`` labels a frame) and
+the time-synchronous beam (``transducer_beam_frames``: ``tsd`` with up to
+``MAX_EXP`` expansions a frame, ``mono`` with one), its hypotheses merged
+in log space; the prediction network's state is cached by prefix, the
+uncached prefixes of a frame go through it in one batch, and the joint
+takes every prefix of the beam in one batch padded to the beam width, as
+JAX's.
+
 Streaming (``decode_streaming``, one utterance fed block by block
-through the encoder's ``streaming_step`` and its caches): with a MoChA
-LAS decoder, the block-synchronous attention beam
-(``decode_streaming_attention``: hypotheses with no boundary in the
-frames seen so far are parked with their decoder state rolled back, joint
-CTC advances chunk by chunk, LM fusion through the ``LMSession``); with
-any other decoder, the block-synchronous CTC prefix beam with CTC-VAD
-resets that commit the running best (JAX's dispatch: a transformer
-decoder is not run when streaming, ROADMAP C26). The device-side
-streaming beams (``recog_device_beam``), the transducer and the RNN
-encoders' streaming raise.
+through the encoder's ``streaming_step`` and its caches or carries): with
+a transformer / conformer encoder and a MoChA LAS decoder, the
+block-synchronous attention beam (``decode_streaming_attention``:
+hypotheses with no boundary in the frames seen so far are parked with
+their decoder state rolled back, joint CTC advances chunk by chunk, LM
+fusion through the ``LMSession``); with a transducer, its ``mono`` beam
+block by block; with any other decoder (an RNN encoder with MoChA
+included: JAX's dispatch, ROADMAP C30; a transformer decoder, C26), the
+block-synchronous CTC prefix beam. CTC-VAD resets commit the running best
+and restart the beam; an RNN encoder's carry restarts too, warmed on the
+previous block. The device-side streaming beams
+(``recog_device_beam``) raise.
 
 Not ported yet (ROADMAP), and raising ``NotImplementedError``: ensembles,
-forward-backward merging, speaker state carry-over, CTC prefix beam
-search over a whole utterance and transducer decoders.
+forward-backward merging, speaker state carry-over and CTC prefix beam
+search over a whole utterance.
 """
 from __future__ import annotations
 
@@ -45,11 +56,12 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ... import EOS, PAD
+from ... import BLANK, EOS, PAD
 from ...frontends.streaming import CtcVAD, StreamingDriver
 from ...ops.masks import make_pad_mask
 from .ctc import CTCBlockSyncBeam, CTCPrefixScorer, ctc_greedy
 from .las import RNNDecoder
+from .rnn_transducer import RNNTransducer
 
 
 @dataclass
@@ -79,6 +91,10 @@ _NOT_PORTED = ("fwd_bwd_attention", "state_carry_over")
 # multiple of this many blocks, as the JAX session (its keys re-projected
 # over them each block)
 T_PAD_BLOCKS = 8
+# the transducer searches, as JAX's: labels a frame in greedy decoding,
+# expansions a frame in the ``tsd`` beam
+MAX_SYMBOLS = 3
+MAX_EXP = 3
 
 
 class Speech2TextSession:
@@ -346,10 +362,18 @@ class Speech2TextSession:
 
             w_ctc = conf.ctc_weight
             children = []
-            for k in range(beam):
-                if scores[k] <= -1e29:
-                    continue
-                cands = np.argsort(-logp_eff[k], kind="stable")[:beam]
+            live = [k for k in range(beam) if scores[k] > -1e29]
+            top = {k: np.argsort(-logp_eff[k], kind="stable")[:beam]
+                   for k in live}
+            if ctc_scorer is not None and live:
+                # one pass over the frames for every live hypothesis (they
+                # have one length), each row as the per-hypothesis call's
+                ctc_psi, ctc_r = ctc_scorer.score_batch(
+                    [hyps[k] for k in live], np.stack([top[k] for k in live]),
+                    [ctc_states[k] for k in live])
+                ctc_rows = dict(zip(live, zip(ctc_psi, ctc_r)))
+            for k in live:
+                cands = top[k]
                 # total = att (1 - w) - ilm w_ilm (1 - w) + lm w_lm
                 base = ((1.0 - w_ctc) * (scores_att[k] + logp[k, cands])
                         - (1.0 - w_ctc) * conf.ilm_weight
@@ -358,7 +382,7 @@ class Speech2TextSession:
                 if conf.length_penalty != 0:
                     base = base + conf.length_penalty * (step_i + 1)
                 if ctc_scorer is not None:
-                    psi, r_new = ctc_scorer(hyps[k], cands, ctc_states[k])
+                    psi, r_new = ctc_rows[k]
                     joint = base + w_ctc * psi
                     perm = np.argsort(-joint, kind="stable")
                     prune_sc = joint[perm]
@@ -471,6 +495,10 @@ class Speech2TextSession:
                 raise NotImplementedError(
                     "CTC prefix beam search is not ported yet, see ROADMAP")
             return self.decode_ctc_greedy(xs, xlens)
+        if isinstance(self.dec, RNNTransducer):
+            if self.conf.beam_width > 1:
+                return self.decode_transducer_beam(xs, xlens)
+            return self.decode_transducer_greedy(xs, xlens)
         if self.conf.beam_width <= 1 and isinstance(self.dec, RNNDecoder):
             return self.decode_attention_greedy(xs, xlens)
         conf = self.conf
@@ -522,58 +550,235 @@ class Speech2TextSession:
     def decode_streaming(self, x_whole, blank_threshold: int = 40):
         """Block-synchronous streaming decode of ONE utterance x_whole
         [T, D] (the JAX session's): the encoder's ``streaming_step`` over
-        ``StreamingDriver``'s blocks with its caches, then with a MoChA
-        decoder ``decode_streaming_attention``, else the block-synchronous
-        CTC prefix beam with CTC-VAD resets. On a reset the running best
-        prefix is committed and the beam restarts; the encoder's caches
-        persist across resets, and the blank count across blocks. Returns
-        (hypothesis ids, stats: rtf, n_resets, n_frames, commits)."""
+        ``StreamingDriver``'s blocks with its caches (transformer) or
+        carries (RNN), then with a transformer / conformer encoder and a
+        MoChA decoder ``decode_streaming_attention``; with a transducer
+        its ``mono`` beam; else the block-synchronous CTC prefix beam. On a
+        CTC-VAD reset the running best prefix is committed and the beam
+        restarts; a transformer's caches persist across resets, an RNN
+        encoder's carry restarts, warmed on the previous block; the blank
+        count carries across blocks. Returns (hypothesis ids, stats: rtf,
+        n_resets, n_frames, commits)."""
         from ..encoders.transformer import XformerEncoder
-        if not isinstance(self.model.encoder, XformerEncoder):
-            raise NotImplementedError(
-                "streaming with an RNN encoder is not ported yet, see "
-                "ROADMAP")
         conf = self.conf
-        if isinstance(self.dec, RNNDecoder) and self.dec.attn_type == "mocha":
+        enc = self.model.encoder
+        is_xformer = isinstance(enc, XformerEncoder)
+        # JAX's dispatch: the MoChA beam with a transformer / conformer
+        # encoder only; an RNN encoder with MoChA takes the CTC beam (C30)
+        if is_xformer and isinstance(self.dec, RNNDecoder) and \
+                self.dec.attn_type == "mocha":
             if conf.device_beam and conf.lm_weight == 0 and \
                     conf.ctc_weight == 0:
                 raise NotImplementedError(
                     "the device-side streaming MoChA beam "
                     "(recog_device_beam) is not ported yet, see ROADMAP")
             return self.decode_streaming_attention(x_whole)
-        if self.model.ctc is None:
-            raise ValueError("streaming without a MoChA decoder runs the "
-                             "CTC head, which this model lacks")
-        enc = self.model.encoder
+        use_rnnt = isinstance(self.dec, RNNTransducer)
+        if not use_rnnt and self.model.ctc is None:
+            raise ValueError("streaming without a MoChA decoder or a "
+                             "transducer runs the CTC head, which this "
+                             "model lacks")
         total_in, hop_in = enc.block_input_frames()
         cnn_ctx_in = enc.stream_geometry()[1]
         factor = enc.subsampling_factor
-        state = enc.init_stream_cache(1)
-        lm_fn = self._make_ctc_lm_fn() if (
-            self.lm is not None and conf.lm_weight > 0) else None
-        beam = CTCBlockSyncBeam(conf.beam_width, lm_fn=lm_fn,
-                                lm_weight=conf.lm_weight)
+        # an RNN encoder's carry: None starts a segment
+        state = enc.init_stream_cache(1) if is_xformer else None
+        if use_rnnt:
+            rnnt_beam: dict = {(): 0.0}
+            rnnt_cache: dict = {}
+            committed: list[int] = []
+        else:
+            lm_fn = self._make_ctc_lm_fn() if (
+                self.lm is not None and conf.lm_weight > 0) else None
+            beam = CTCBlockSyncBeam(conf.beam_width, lm_fn=lm_fn,
+                                    lm_weight=conf.lm_weight)
         vad = CtcVAD(factor=factor, blank_threshold=blank_threshold)
         t0 = time.time()
         n_frames = n_resets = 0
+        is_reset = False
+        prev_block = None
         commits: list[list[int]] = []
         for block, n_new, is_last in StreamingDriver(x_whole, total_in,
                                                      hop_in, cnn_ctx_in):
-            _, lp_blk, state = self._stream_step(block, state)
+            if is_reset and not is_xformer:
+                # a segment starts: a fresh carry, warmed on the previous
+                # block
+                state = None
+                if prev_block is not None:
+                    _, _, state = self._stream_step(prev_block, state)
+            is_reset = False
+            eouts_blk, lp_blk, state = self._stream_step(block, state)
+            prev_block = block
             n_out = -(-n_new // factor)
             n_frames += n_new
-            lp = lp_blk[:n_out]
-            beam.step(lp)
-            is_reset = vad.step(np.argmax(lp, -1), np.exp(lp).max(-1), n_new)
+            if use_rnnt:
+                rnnt_beam = self.transducer_beam_frames(
+                    eouts_blk[:n_out], rnnt_beam, rnnt_cache, version="mono")
+            else:
+                beam.step(lp_blk[:n_out])
+            if lp_blk is not None:
+                lp = lp_blk[:n_out]
+                is_reset = vad.step(np.argmax(lp, -1), np.exp(lp).max(-1),
+                                    n_new)
             if is_reset and not is_last:
-                commits.append(list(beam.commit_and_reset()))
+                if use_rnnt:
+                    committed.extend(_best_prefix(rnnt_beam))
+                    commits.append(list(committed))
+                    rnnt_beam = {(): 0.0}
+                    rnnt_cache.clear()
+                else:
+                    commits.append(list(beam.commit_and_reset()))
                 vad.reset()
                 n_resets += 1
-        hyp = beam.hypotheses()[0]["hyp"]
+            else:
+                is_reset = False
+        hyp = committed + list(_best_prefix(rnnt_beam)) if use_rnnt else \
+            beam.hypotheses()[0]["hyp"]
         elapsed = time.time() - t0
         return hyp, {"rtf": elapsed / max(n_frames * 0.01, 1e-6),
                      "n_resets": n_resets, "n_frames": n_frames,
                      "commits": commits}
+
+    # ------------------------------------------------------------------ #
+    @torch.inference_mode()
+    def _rnnt_pred(self, ys, carry):
+        """One prediction-network step of ids ys [N] from ``carry`` (None
+        = zeros): (pred_out [N, d_pred], new carry)."""
+        y = torch.as_tensor(np.asarray(ys, np.int64), device=self.device)
+        po, new = self.dec.pred_net(y.view(-1, 1), carry)
+        return po[:, 0], new
+
+    def _pred_state(self, prefix: tuple, cache: dict):
+        """The prediction network's (output [1, d_pred], carry) after a
+        hypothesis prefix, cached by prefix."""
+        if prefix not in cache:
+            if not prefix:
+                cache[prefix] = self._rnnt_pred([EOS], None)
+            else:
+                _, carry = self._pred_state(prefix[:-1], cache)
+                cache[prefix] = self._rnnt_pred([prefix[-1]], carry)
+        return cache[prefix]
+
+    def _ensure_states(self, prefixes, cache: dict, kpad: int) -> None:
+        """One batched prediction step for the uncached prefixes whose
+        parents are cached (at most ``kpad``, the batch padded to it with
+        the last one)."""
+        missing = [p for p in prefixes
+                   if p not in cache and p and p[:-1] in cache]
+        if not missing:
+            return
+        carries = [cache[p[:-1]][1] for p in missing]
+        ys = [p[-1] for p in missing]
+        while len(carries) < kpad:
+            carries.append(carries[-1])
+            ys.append(ys[-1])
+        carries, ys = carries[:kpad], ys[:kpad]
+        batch = [tuple(torch.cat(xs, 0) for xs in zip(*layer))
+                 for layer in zip(*carries)]
+        po, new = self._rnnt_pred(ys, batch)
+        for i, p in enumerate(missing[:kpad]):
+            cache[p] = (po[i:i + 1], [(c[i:i + 1], h[i:i + 1])
+                                      for c, h in new])
+
+    @torch.inference_mode()
+    def _joint_logps(self, et, prefixes, cache: dict, kpad: int
+                     ) -> np.ndarray:
+        """Log-probs [len(prefixes), V] of the joint at frame et [1, De]
+        for every prefix, in one batch padded to ``kpad``."""
+        self._ensure_states(prefixes, cache, kpad)
+        pts = [self._pred_state(p, cache)[0] for p in prefixes]
+        n = len(pts)
+        while len(pts) < kpad:
+            pts.append(pts[-1])
+        pt = torch.cat(pts[:kpad], 0)
+        lg = self.dec.joint_step(et.expand(pt.shape[0], -1), pt)
+        return torch.log_softmax(lg.float(), -1).cpu().numpy()[:n]
+
+    def transducer_beam_frames(self, e_frames, beam: dict, pred_cache: dict,
+                               version: str = "tsd") -> dict:
+        """Advance a transducer beam (prefix tuple -> log score, merged in
+        log space) over the encoder frames e_frames [T, De] (a tensor on
+        the model's device): the time-synchronous search, ``tsd`` (up to
+        ``MAX_EXP`` expansions a frame) or ``mono`` (one). Returns the
+        updated beam."""
+        conf = self.conf
+        n_exp = 1 if version == "mono" else MAX_EXP
+        kpad = conf.beam_width
+        e_frames = torch.as_tensor(e_frames, device=self.device)
+        for t in range(e_frames.shape[0]):
+            et = e_frames[t:t + 1]
+            next_beam: dict = {}
+            cur = dict(beam)
+            for _ in range(n_exp):
+                expansions: dict = {}
+                prefixes = list(cur.keys())[:kpad]
+                lps = self._joint_logps(et, prefixes, pred_cache, kpad)
+                for prefix, lp in zip(prefixes, lps):
+                    sc = cur[prefix]
+                    # blank: the hypothesis waits for the next frame
+                    b_sc = sc + float(lp[BLANK])
+                    next_beam[prefix] = np.logaddexp(
+                        next_beam.get(prefix, -np.inf), b_sc)
+                    for k in np.argsort(lp)[::-1][: conf.beam_width + 1]:
+                        k = int(k)
+                        if k == BLANK:
+                            continue
+                        new = prefix + (k,)
+                        expansions[new] = np.logaddexp(
+                            expansions.get(new, -np.inf), sc + float(lp[k]))
+                if not expansions:
+                    break
+                cur = dict(sorted(expansions.items(),
+                                  key=lambda kv: -kv[1])[: conf.beam_width])
+                # expanded hypotheses also wait for the next frame
+                for p, sc in cur.items():
+                    next_beam[p] = np.logaddexp(
+                        next_beam.get(p, -np.inf), sc)
+            beam = dict(sorted(next_beam.items(),
+                               key=lambda kv: -kv[1])[: conf.beam_width])
+        return beam
+
+    def decode_transducer_beam(self, xs, xlens):
+        """Offline time-synchronous transducer beam search (``tsd``), one
+        utterance at a time; the best by score (by score per label with
+        ``length_norm``)."""
+        eouts = self.encode(xs, xlens)
+        e = eouts["ys"]["xs"]
+        el = eouts["ys"]["xlens"].cpu().numpy()
+        out = []
+        for b in range(e.shape[0]):
+            beam = self.transducer_beam_frames(
+                e[b, :int(el[b])], {(): 0.0}, {})
+            if self.conf.length_norm:
+                best = max(beam.items(),
+                           key=lambda kv: kv[1] / max(len(kv[0]), 1))[0]
+            else:
+                best = _best_prefix(beam)
+            out.append(list(best))
+        return out
+
+    @torch.inference_mode()
+    def decode_transducer_greedy(self, xs, xlens):
+        """Frame-synchronous greedy transducer decoding: at each frame up to
+        ``MAX_SYMBOLS`` labels, each the argmax of the joint's logits,
+        until blank."""
+        eouts = self.encode(xs, xlens)
+        e = eouts["ys"]["xs"]
+        el = eouts["ys"]["xlens"].cpu().numpy()
+        out = []
+        for b in range(e.shape[0]):
+            hyp: list[int] = []
+            pt, carry = self._rnnt_pred([EOS], None)
+            for t in range(int(el[b])):
+                et = e[b:b + 1, t]
+                for _ in range(MAX_SYMBOLS):
+                    k = int(self.dec.joint_step(et, pt)[0].argmax())
+                    if k == BLANK:
+                        break
+                    hyp.append(k)
+                    pt, carry = self._rnnt_pred([k], carry)
+            out.append(hyp)
+        return out
 
     @torch.inference_mode()
     def decode_streaming_attention(self, x_whole):
@@ -812,6 +1017,11 @@ class Speech2TextSession:
                  "n_resets": 0, "n_frames": n_frames,
                  "boundaries": best["bounds"], "n_out_frames": t_acc}
         return [t for t in best["hyp"] if t != EOS], stats
+
+
+def _best_prefix(beam: dict) -> tuple:
+    """The highest-scoring prefix of a transducer beam."""
+    return max(beam.items(), key=lambda kv: kv[1])[0]
 
 
 def _mix_carry(pre, post, par: torch.Tensor, take_post: torch.Tensor):

@@ -35,16 +35,17 @@ def _subsample_tuple(args) -> tuple:
     return tuple(int(x) for x in str(s).split("_"))
 
 
+def _chunk_current(args) -> int:
+    """The LC-BLSTM's current chunk: ``lc_chunk_size_current`` (JAX's only
+    key), else the recipes' ``lc_chunk_size_left``, which upstream reads as
+    the current chunk and the JAX builder ignores, building those confs
+    full-context (ROADMAP C13: not mirrored)."""
+    return _get(args, "lc_chunk_size_current",
+                _get(args, "chunk_size_current",
+                     _get(args, "lc_chunk_size_left", -1)))
+
+
 def _rnn_encoder(args, core: str, conv: bool) -> RNNEncoder:
-    # a chunk size asks for the latency-controlled BLSTM: the lcblstm confs
-    # set lc_chunk_size_left (the reference's current chunk), which the JAX
-    # builder does not read, so it builds them full-context (ROADMAP C13)
-    if core in ("blstm", "bgru") and max(
-            _get(args, "lc_chunk_size_left", -1),
-            _get(args, "lc_chunk_size_current",
-                 _get(args, "chunk_size_current", -1))) > 0:
-        raise NotImplementedError(
-            "the latency-controlled BLSTM is not ported yet, see ROADMAP")
     return RNNEncoder(
         input_dim=args.input_dim,
         rnn_type=core,
@@ -61,6 +62,9 @@ def _rnn_encoder(args, core: str, conv: bool) -> RNNEncoder:
         conv_poolings=_get(args, "conv_poolings", ""),
         conv_normalization=_conv_norm(args),
         conv_bottleneck_dim=_get(args, "conv_bottleneck_dim", 0),
+        chunk_size_current=_chunk_current(args),
+        chunk_size_right=_get(args, "lc_chunk_size_right",
+                              _get(args, "chunk_size_right", 0)),
         # JAX build.py: concat unless the conf sets the sum
         bidir_sum_fwd_bwd=_get(args, "bidirectional_sum_fwd_bwd",
                                _get(args, "bidir_sum_fwd_bwd", False)),

@@ -1,9 +1,11 @@
 """Speech2Text (counterpart of ``neural_sp_tpu/models/speech2text.py``):
-encoder + attention decoder (LAS or transformer) + CTC head, assembled by
-``build_speech2text`` from a reference-style args namespace.
+encoder + decoder (an attention decoder, LAS or transformer, or an RNN
+transducer) + CTC head, assembled by ``build_speech2text`` from a
+reference-style args namespace.
 
 ``forward`` is the training loss: SpecAugment (in ``train()`` mode), the
-encoder, then ``ctc_weight * loss_ctc + (1 - ctc_weight) * loss_att``. The
+encoder, then ``ctc_weight * loss_ctc + (1 - ctc_weight) * loss_dec``,
+the decoder's loss being ``loss_att`` or ``loss_transducer``. The
 step's randomness (SpecAugment, dropout) comes from the ``gen`` argument,
 a ``torch.Generator``; in ``eval()`` mode the loss is deterministic, as the
 JAX module's ``deterministic=True``.
@@ -18,14 +20,15 @@ from torch import nn
 from ..ops.specaugment import apply_masks, draw_masks
 from .decoders.ctc import CTC
 from .decoders.las import RNNDecoder
+from .decoders.rnn_transducer import RNNTransducer
 from .decoders.transformer import TransformerDecoder
 from .utils import model_device
 
 
 class Speech2Text(nn.Module):
     def __init__(self, encoder: nn.Module,
-                 dec_fwd: Optional[Union[RNNDecoder,
-                                         TransformerDecoder]] = None,
+                 dec_fwd: Optional[Union[RNNDecoder, TransformerDecoder,
+                                         RNNTransducer]] = None,
                  ctc: Optional[CTC] = None, ctc_weight: float = 0.0,
                  specaug: Optional[dict] = None):
         super().__init__()
@@ -59,7 +62,8 @@ class Speech2Text(nn.Module):
         """xs [B, T, input_dim] features, xlens [B], ys [B, U] PAD-padded
         labels, ylens [B]. Returns (loss, obs) with obs "loss", "loss_ctc",
         "loss_att", "acc_att", "ppl_att" (and a MoChA or MMA decoder's
-        "loss_quantity" / "loss_latency" in ``train()``)."""
+        "loss_quantity" / "loss_latency" in ``train()``), or with a
+        transducer "loss", "loss_ctc", "loss_transducer"."""
         xs = self._frontend(xs, xlens, gen)
         eouts = self.encoder(xs, xlens, gen=gen)["ys"]
         ex, el = eouts["xs"], eouts["xlens"]

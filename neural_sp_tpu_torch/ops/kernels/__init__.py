@@ -5,11 +5,12 @@ from .ctc_loss import ctc_loss_bwd, ctc_loss_fwd
 from .las_scan import las_scan, las_scan_bwd
 from .las_step import las_step, las_step_ref
 from .rel_attention import rel_attention, rel_attention_bwd, rel_attention_ref
+from .rnnt_loss import rnnt_loss_bwd, rnnt_loss_fwd
 
 # launch counters by kernel entry: (wrapper, its counter's attribute)
-# (``ctc_loss`` is K4's forward entry; K1 / K1b count their float32 and
-# bf16 entries apart, and count again the launches with a window on the
-# keys and, K1, those against cached keys)
+# (``ctc_loss`` is K4's forward entry, ``rnnt_loss`` K5's; K1 / K1b count
+# their float32 and bf16 entries apart, and count again the launches with
+# a window on the keys and, K1, those against cached keys)
 KERNELS = {"rel_attention": (rel_attention, "launches"),
            "rel_attention_bf16": (rel_attention, "launches_bf16"),
            "rel_attention_window": (rel_attention, "launches_window"),
@@ -22,7 +23,9 @@ KERNELS = {"rel_attention": (rel_attention, "launches"),
            "las_scan": (las_scan, "launches"),
            "las_scan_bwd": (las_scan_bwd, "launches"),
            "ctc_loss": (ctc_loss_fwd, "launches"),
-           "ctc_loss_bwd": (ctc_loss_bwd, "launches")}
+           "ctc_loss_bwd": (ctc_loss_bwd, "launches"),
+           "rnnt_loss": (rnnt_loss_fwd, "launches"),
+           "rnnt_loss_bwd": (rnnt_loss_bwd, "launches")}
 
 
 def reset_launches() -> None:

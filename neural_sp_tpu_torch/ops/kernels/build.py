@@ -114,6 +114,8 @@ def load_library() -> ctypes.CDLL:
         "nsp_las_scan_bwd_f32": [_P] * 31 + [_I] * 8 + [_P],
         "nsp_ctc_alpha_f32": [_P] * 6 + [_I] * 4 + [_P],
         "nsp_ctc_beta_grad_f32": [_P] * 8 + [_I] * 4 + [_P],
+        "nsp_rnnt_alpha_f32": [_P] * 6 + [_I] * 3 + [_P],
+        "nsp_rnnt_beta_grad_f32": [_P] * 8 + [_I] * 3 + [_P],
     }
     for name, argtypes in entry_points.items():
         fn = getattr(lib, name)
@@ -129,4 +131,6 @@ def load_library() -> ctypes.CDLL:
     lib.nsp_las_scan_bwd_parts.restype = _I
     lib.nsp_ctc_max_labels.argtypes = []
     lib.nsp_ctc_max_labels.restype = _I
+    lib.nsp_rnnt_max_labels.argtypes = []
+    lib.nsp_rnnt_max_labels.restype = _I
     return lib

@@ -24,7 +24,10 @@ Layout rules (flax -> torch):
   * list members ``blocks_3`` / ``block0`` / ``cells_0`` / ``rnns_0`` /
     ``projs_0`` -> ``blocks.3`` / ``blocks.0`` / ``cells.0`` / ``rnns.0`` /
     ``projs.0``, an RNN encoder's ``rnn2`` / ``proj2`` (its layers' cells
-    ``fwd`` and ``bwd``) -> ``rnns.2`` / ``projs.2``, and nested ones
+    ``fwd`` and ``bwd``, the latency-controlled BLSTM's as ``RNNLayer``'s)
+    -> ``rnns.2`` / ``projs.2``, a transducer's prediction network
+    ``pred_rnns_1`` / ``pred_projs_1`` -> ``pred_rnns.1`` /
+    ``pred_projs.1`` (its ``w_pred`` has no bias), and nested ones
     ``tails_1_0`` -> ``tails.1.0``;
   * a ``LinearGLUBlock``'s ``glu/Dense_0`` -> ``glu.fc``;
   * a free parameter at the top of the tree (an RNNLM's ``output_bias``)
@@ -74,7 +77,8 @@ def _flatten(tree: dict, prefix: str = "") -> dict[str, np.ndarray]:
 def _torch_name(path: str) -> str:
     parts = []
     for p in path.split("/"):
-        m = re.fullmatch(r"(blocks|cells|rnns|projs|tails)((?:_\d+)+)", p)
+        m = re.fullmatch(
+            r"((?:pred_)?(?:blocks|cells|rnns|projs|tails))((?:_\d+)+)", p)
         if m:
             parts += [m.group(1)] + m.group(2).split("_")[1:]
         elif re.fullmatch(r"(block|rnn|proj)\d+", p):

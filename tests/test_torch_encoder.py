@@ -13,6 +13,7 @@ import torch
 
 from neural_sp_tpu.models.speech2text import build_speech2text as jax_build
 from neural_sp_tpu_torch.configs import flagship_args
+from neural_sp_tpu_torch.models.decoders.rnn_transducer import RNNTransducer
 from neural_sp_tpu_torch.models.speech2text import build_speech2text
 from neural_sp_tpu_torch.utils.convert_params import convert_params
 
@@ -94,9 +95,13 @@ def test_encoder_padded_equals_packed(faithful):
 def test_unported_options_raise():
     args = small_flagship(True)
     for field, value in (("transformer_enc_pe_type", "relative_xl"),
-                         ("enc_type", "bgru"), ("dec_type", "lstm_transducer"),
+                         ("enc_type", "bgru"), ("dec_type", "gru_transducer"),
                          ("lm_fusion", "cold"), ("bwd_weight", 0.3),
                          ("subsample_type", "conv1d"), ("dec_n_layers", 2)):
         bad = SimpleNamespace(**{**vars(args), field: value})
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_speech2text(bad, device="cpu")
+    # the LSTM transducer raised here until it was ported: it builds
+    model = build_speech2text(SimpleNamespace(**{
+        **vars(args), "dec_type": "lstm_transducer"}), device="cpu")
+    assert isinstance(model.dec_fwd, RNNTransducer)

@@ -907,6 +907,36 @@ def test_rnn_layer_runs_cudnn_as_its_loop(cuda, bidirectional, merge):
         torch.backends.cudnn.enabled = old
 
 
+def test_lc_blstm_layer_keeps_a_buffer_per_direction(cuda):
+    """The LibriSpeech LC-BLSTM's layer (512 units, chunk 40 / 40, ragged
+    T 230): on the card each direction's weights begin a cuDNN buffer of
+    their own, so neither of its two calls copies them; its outputs,
+    carry and gradients are its written-out loops'."""
+    from neural_sp_tpu_torch.models.encoders.rnn import LCBLSTMLayer
+    from neural_sp_tpu_torch.utils.init_params import init_params
+    layer = init_params(LCBLSTMLayer(512, 512, 40, 40), 0).to(cuda)
+    for d in (0, 4):
+        ws = layer.lstm._flat_weights[d:d + 4]
+        base = ws[0].untyped_storage().data_ptr()
+        assert ws[0].data_ptr() == base
+        assert all(w.untyped_storage().data_ptr() == base for w in ws)
+    rng = np.random.RandomState(0)
+    xs = _randn(rng, cuda, 4, 230, 512)
+    lens = torch.tensor([230, 200, 121, 1])
+    outs, grads = [], []
+    for fn in (layer, layer.forward_ref):
+        x = xs.clone().requires_grad_()
+        layer.zero_grad()
+        ys, carry = fn(x, lens)
+        (ys * torch.linspace(-1, 1, ys.shape[-1], device=cuda)).sum() \
+            .backward()
+        outs.append([ys.detach()] + [t.detach() for t in carry])
+        grads.append([x.grad] + [p.grad.clone() for p in layer.parameters()])
+    for x, y in zip(outs[0] + grads[0], outs[1] + grads[1]):
+        scale = float(y.abs().max())
+        assert float((x - y).abs().max()) <= RNN_TOL * max(scale, 1.0)
+
+
 def test_blstm_microstep_is_the_same_bits_twice(cuda):
     """One train() microstep of a BLSTM-LAS (the LibriSpeech conf's widths,
     2 encoder layers, vocab 500; dropout and sampling on) run twice from one
@@ -1018,3 +1048,62 @@ def test_rel_attention_offset_kernel(cuda, b, h, tq, tk, dk, r, key_start,
     m_ref, l_ref = rel_attention_stats_ref(q, k, p, kl, key_start=key_start)
     _close(m, m_ref, "m")
     _close(l, l_ref, "l")
+
+
+# K5: the transducer's lattice, a block per utterance and a thread per
+# label position (U + 1 <= 1024): the recipe's shape, ragged lengths with a
+# row of U 0 and a row of T 1, U > T, the widest block, more blocks than
+# SMs.
+@pytest.mark.parametrize("b,t,u,tl,ul", [
+    (32, 400, 200, None, None),                     # the recipe's shape
+    (8, 120, 60, [120, 1, 77, 30, 5, 120, 64, 2],
+     [60, 0, 33, 59, 0, 1, 60, 2]),                 # U_b 0, T_b 1
+    (3, 10, 40, [10, 4, 1], [40, 13, 7]),           # U > T
+    (2, 30, 1023, [30, 17], [1023, 500]),           # 1024 threads
+    (300, 12, 5, None, None),                       # more blocks than SMs
+])
+def test_rnnt_loss_kernel(cuda, b, t, u, tl, ul):
+    from neural_sp_tpu_torch.ops.kernels.rnnt_loss import (
+        NEG_INF, rnnt_forward_alphas, rnnt_loss_bwd, rnnt_loss_bwd_ref,
+        rnnt_loss_fwd)
+    rng = np.random.RandomState(t + u)
+    if tl is None:
+        tl = [t - i % 5 for i in range(b)]
+        ul = [u - i % 4 for i in range(b)]
+    tlen = torch.tensor(tl, dtype=torch.int32, device=cuda)
+    ulen = torch.tensor(ul, dtype=torch.int32, device=cuda)
+    blank = _randn(rng, cuda, b, t, u + 1) - 6.9
+    emit = _randn(rng, cuda, b, t, u) - 6.9
+    emit = torch.where(torch.arange(u, device=cuda)[None, None] <
+                       ulen[:, None, None], emit,
+                       torch.full_like(emit, NEG_INF))
+    args = (blank, emit, tlen, ulen)
+    before = (rnnt_loss_fwd.launches, rnnt_loss_bwd.launches)
+    nll, alphas = rnnt_loss_fwd(*args)
+    nll_ref, alphas_ref = rnnt_forward_alphas(*args)
+    _close(nll, nll_ref, "nll")
+    g = torch.linspace(0.5, 1.5, b, device=cuda)
+    grads = rnnt_loss_bwd(*args, alphas, g)
+    torch.cuda.synchronize()
+    assert (rnnt_loss_fwd.launches, rnnt_loss_bwd.launches) == \
+        (before[0] + 1, before[1] + 1)
+    for got, want, what in zip(grads, rnnt_loss_bwd_ref(*args, alphas_ref, g),
+                               ("grad_blank", "grad_emit")):
+        _close(got, want, what)
+
+
+def test_rnnt_loss_refuses_bad_arguments(cuda):
+    from neural_sp_tpu_torch.ops.kernels.rnnt_loss import rnnt_loss_fwd
+    blank = torch.zeros(2, 5, 4, device=cuda)
+    emit = torch.zeros(2, 5, 3, device=cuda)
+    lens = torch.tensor([5, 3], dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="CPU or all on one CUDA"):
+        rnnt_loss_fwd(blank, emit.cpu(), lens, lens)
+    with pytest.raises(TypeError):
+        rnnt_loss_fwd(blank.double(), emit, lens, lens)
+    with pytest.raises(ValueError, match="shape"):
+        rnnt_loss_fwd(blank, emit[:, :, :2], lens, lens)
+    with pytest.raises(ValueError, match="labels"):
+        rnnt_loss_fwd(torch.zeros(1, 2, 1025, device=cuda),
+                      torch.zeros(1, 2, 1024, device=cuda), lens[:1],
+                      lens[:1])

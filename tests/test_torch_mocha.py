@@ -47,8 +47,10 @@ with the JAX weights converted (``convert_params``), float32, atol = rtol
   uniform log-probs (every transition ties), and with U = 0.
 * One clipped Adam update with accumulation against JAX's
   ``make_train_step``, by ``test_torch_train_step.py``'s rule.
-* The 8 LSTM-MoChA recipe confs, the 6 full-context BLSTM-MoChA confs
-  and the 4 uni-Conformer-MoChA confs build on the meta device with JAX's
+* The 8 LSTM-MoChA recipe confs, the 6 full-context BLSTM-MoChA confs,
+  the 4 uni-Conformer-MoChA confs and the 15 LC-BLSTM-MoChA confs (their
+  chunk read from ``lc_chunk_size_left``, ROADMAP C13; they raised until
+  the LC-BLSTM was ported) build on the meta device with JAX's
   parameter counts; the other MoChA
   confs raise ``NotImplementedError`` naming ROADMAP; bf16 compute raises;
   ``configs.librispeech_lstm_mocha_args`` equals the conf; ``init_params``
@@ -121,9 +123,27 @@ UNI_CONFORMER_CONFS = (
     "mocha_long_ln.yaml",
     "tedlium/conf/asr/mocha/uni_conformer_kernel7_clamp10_hie_subsample8_"
     "mocha_long_ln_stableemit0.1.yaml")
+# ... and the LC-BLSTM-MoChA (the latency-controlled BLSTM, its chunk read
+# from lc_chunk_size_left: ROADMAP C13)
+LCBLSTM_CONFS = (
+    "aishell/conf/asr/mocha/lcblstm_mocha_chunk4040.yaml",
+    "aishell/conf/asr/mocha/lcblstm_mocha_chunk4040_ctc_sync.yaml",
+    "ami/conf/asr/lcblstm_mocha_chunk4040.yaml",
+    "ami/conf/asr/lcblstm_mocha_chunk4040_ctc_sync.yaml",
+    "csj/conf/asr/mocha/lcblstm_mocha_chunk4040.yaml",
+    "csj/conf/asr/mocha/lcblstm_mocha_chunk4040_ctc_sync.yaml",
+    "librispeech/conf/asr/mocha/lcblstm_mocha_chunk4040.yaml",
+    "librispeech/conf/asr/mocha/lcblstm_mocha_chunk4040_ctc_sync.yaml",
+    "swbd/conf/asr/lcblstm_mocha_chunk4040.yaml",
+    "swbd/conf/asr/lcblstm_mocha_chunk4040_ctc_sync.yaml",
+    "tedlium/conf/asr/mocha/lcblstm_mocha_chunk4020.yaml",
+    "tedlium/conf/asr/mocha/lcblstm_mocha_chunk4020_ctc_sync.yaml",
+    "tedlium/conf/asr/mocha/lcblstm_mocha_chunk4040.yaml",
+    "tedlium/conf/asr/mocha/lcblstm_mocha_chunk4040_ctc_sync.yaml",
+    "tedlium/conf/lcblstm_mocha_chunk4040.yaml")
 # every other MoChA conf raises, with the reason it names
-RAISING = {"lcblstm": "latency-controlled", "decot": "alignment",
-           "minlt": "alignment", "rsp_enc": "rsp_prob_enc"}
+RAISING = {"decot": "alignment", "minlt": "alignment",
+           "rsp_enc": "rsp_prob_enc"}
 
 
 def _tree(params):
@@ -797,7 +817,7 @@ def _jax_count(args):
 
 
 @pytest.mark.parametrize("conf", LSTM_CONFS + BLSTM_CONFS +
-                         UNI_CONFORMER_CONFS)
+                         UNI_CONFORMER_CONFS + LCBLSTM_CONFS)
 def test_mocha_recipe_conf_builds(conf):
     args = parse_args_train(["--config", str(ROOT / "examples" / conf)])
     args.vocab = 10000
@@ -814,20 +834,19 @@ def _raising_confs():
                           str(ROOT / "examples")], capture_output=True,
                          text=True, check=True).stdout.split()
     confs = sorted(str(Path(p).relative_to(ROOT / "examples")) for p in out)
-    return [c for c in confs
-            if c not in LSTM_CONFS + BLSTM_CONFS + UNI_CONFORMER_CONFS]
+    return [c for c in confs if c not in LSTM_CONFS + BLSTM_CONFS +
+            UNI_CONFORMER_CONFS + LCBLSTM_CONFS]
 
 
 def test_the_other_mocha_confs_raise():
     confs = _raising_confs()
     assert len(confs) + len(LSTM_CONFS) + len(BLSTM_CONFS) + \
-        len(UNI_CONFORMER_CONFS) == 42
+        len(UNI_CONFORMER_CONFS) + len(LCBLSTM_CONFS) == 42
     for conf in confs:
         args = parse_args_train(["--config", str(ROOT / "examples" / conf)])
         args.vocab = 100
-        why = next(v for k, v in RAISING.items() if k in conf)
-        if conf.endswith("_mbr.yaml"):
-            why = "mbr_training"
+        why = "mbr_training" if conf.endswith("_mbr.yaml") else \
+            next(v for k, v in RAISING.items() if k in conf)
         with pytest.raises(NotImplementedError, match="ROADMAP") as err:
             build_speech2text(args, device="meta")
         assert why in str(err.value), (conf, str(err.value))

@@ -21,10 +21,13 @@ JAX weights converted (``convert_params``), float32, atol = rtol = 2e-4
   update against JAX's ``make_train_step`` (``test_torch_train_step.py``'s
   rule).
 * The recipe confs that use a location-attention LAS over a (B)LSTM
-  encoder build on the meta device; the lcblstm confs raise; the
-  LibriSpeech conf's parameter count equals the JAX model's (from
-  ``jax.eval_shape`` of its init) and ``configs.librispeech_blstm_las_args``
-  equals the conf; bf16 compute raises for the RNN encoder.
+  encoder build on the meta device; the lcblstm_las confs build too, as
+  latency-controlled BLSTMs with their chunk read from
+  ``lc_chunk_size_left`` (ROADMAP C13: JAX builds them full-context), at
+  JAX's parameter counts; the LibriSpeech conf's parameter count equals
+  the JAX model's (from ``jax.eval_shape`` of its init) and
+  ``configs.librispeech_blstm_las_args`` equals the conf; bf16 compute
+  raises for the RNN encoder.
 """
 import math
 from pathlib import Path
@@ -402,10 +405,22 @@ def test_recipe_conf_builds(conf):
 
 @pytest.mark.parametrize("conf", LC_CONFS)
 def test_lc_blstm_confs_raise(conf):
+    """These confs raised until the latency-controlled BLSTM was ported;
+    they build now (the test keeps its name): an LC-BLSTM with the chunk
+    of ``lc_chunk_size_left`` / ``_right`` (C13), at the parameter count of
+    JAX's full-context build (the chunk holds no parameter)."""
     args = parse_args_train(["--config", str(ROOT / "examples" / conf)])
     args.vocab = 100
-    with pytest.raises(NotImplementedError, match="latency-controlled"):
-        build_speech2text(args, device="meta")
+    model = build_speech2text(args, device="meta")
+    assert model.encoder.lc
+    assert model.encoder.chunk_size_current == args.lc_chunk_size_left
+    assert model.encoder.chunk_size_right == args.lc_chunk_size_right
+    jm = jax_build(args)
+    shapes = jax.eval_shape(lambda: jm.init(
+        jax.random.PRNGKey(0), jnp.zeros((1, 64, 80)), jnp.array([64]),
+        jnp.ones((1, 3), jnp.int32), jnp.array([3])))
+    assert sum(p.numel() for p in model.parameters()) == sum(
+        math.prod(x.shape) for x in jax.tree.leaves(shapes["params"]))
 
 
 def test_librispeech_blstm_las_args_equal_the_conf():
