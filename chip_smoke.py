@@ -244,7 +244,33 @@ Phases (any failure raises and the script exits non-zero):
      held to float64 by 11d's gates, 9b's rule (with its control) holds the
      encoder + CTC microstep, and 9b's readings on the whole microstep
      (the card's, the CPU float32's, the card's against float64 with the
-     card's energy ReLU masks pinned) are logged. Each phase's wall is
+     card's energy ReLU masks pinned) are logged.
+  13. the language-model stage (the recipes' stage 3 and stage 5's LM;
+     float32, seeded, V 10,000 over phase 7's dictionary, a synthesized
+     text corpus of 440 train and 100 dev rows of ~100 words): (13k) K1
+     and K1b over the Transformer-XL's memory (``LM_K_SHAPE``: B 24, H 8,
+     a 200-token segment against 400 keys under the causal window, R 400),
+     without and with dropout of the attention probabilities at 0.1 on
+     given key words, each against its plain version (phase 2's / 2b's
+     rules), timed in turns with efficient SDPA (``dropout_p`` 0.1, its
+     own mask) and its backward, with the bound of the window's work;
+     (13a) the swbd Transformer-XL conf (``LM_XL_CONF``: 12 layers, d 512,
+     8 heads, d_ff 2048, bptt 200, mem_len 200, B 24; full width and
+     depth, 46,107,648 parameters): a window against the memory of the
+     window before, its loss and every gradient through the kernels
+     against the same with the plain versions patched in, in ``eval()``
+     and ``train()`` mode (dropout on, one generator seed), by phase 6's
+     rule with the FFNs' ReLU masks pinned to the kernels' run (the
+     pre-activations within ``XF_PRE_RTOL``; the unpinned reading
+     logged); then ``bin.lm.train.main`` for one epoch and a resumed
+     second, ``bin.lm.eval.main`` with and without the cache model, K1 /
+     K1b with dropout bound to run in training, K1 over the memory without
+     dropout in evaluation, every loss and PPL finite; (13b) the
+     swbd Transformer LM, the WSJ GCNN-14B and LibriSpeech's rnnlm_6L
+     through both CLIs at full width and depth (``LM_CONFS``; no kernel
+     of the repo on their paths); (13c) phase 7's trained model decoded
+     by ``bin.asr.eval.main`` as stage 5 with 13a's XL as its LM: K1 at
+     one query per step against the growing memory. Each phase's wall is
      printed on a line of its own.
 
 Launches per step (per encode for K1, per decode step for K2, per training
@@ -260,7 +286,11 @@ requests and its two CLI runs, ``mocha_launches``); phase 10's path
 ``transformer_launches``); phase 11's path (``streaming_launches``), with
 rows of their own for K1 with a window, K1b with a window and K1 against
 cached keys; phase 12's path (``transducer_launches``), with a row of its
-own for K5. Prints the
+own for K5; phase 13's path (``lm_launches``: 13a's and 13b's CLIs and
+13c's fused eval), with rows of their own for K1 / K1b over the XL's
+memory without dropout and with dropout (launches per training microstep
+from 13a's held one; K1's over the memory per dev window of the XL's eval
+CLI). Prints the
 details as JSON (also written to ``chiprun_out/chip_smoke.json``), then one
 JSON line of per-kernel results (launches, launches_per_step, ms,
 plain_ms, bound_ms, bound_by, library_ms, errors), the card's ``name,
@@ -1604,23 +1634,31 @@ class PlainLASScan:
 def plain_rel_attention(torch):
     """``rel_attention`` with its plain versions on the card:
     ``rel_attention_ref`` forward, ``rel_attention_bwd_ref`` (the adjoint
-    written out, rounding where the kernels do at bf16) backward."""
+    written out, rounding where the kernels do at bf16) backward; with a
+    window and dropout of the probabilities (the Transformer-XL's)."""
     from neural_sp_tpu_torch.ops.kernels.rel_attention import (
         rel_attention_bwd_ref, rel_attention_ref, rel_attention_stats_ref)
 
     class Plain(torch.autograd.Function):
         @staticmethod
-        def forward(ctx, q, k, v, p, klens):
-            o = rel_attention_ref(q, k, v, p, klens)
+        def forward(ctx, q, k, v, p, klens, window, dropout):
+            o = rel_attention_ref(q, k, v, p, klens, window, 0, dropout)
             ctx.save_for_backward(q, k, v, p, klens, o,
-                                  *rel_attention_stats_ref(q, k, p, klens))
+                                  *rel_attention_stats_ref(q, k, p, klens,
+                                                           window))
+            ctx.window, ctx.dropout = window, dropout
             return o
 
         @staticmethod
         def backward(ctx, do):
-            return (*rel_attention_bwd_ref(*ctx.saved_tensors, do), None)
+            return (*rel_attention_bwd_ref(*ctx.saved_tensors, do,
+                                           ctx.window, ctx.dropout),
+                    None, None, None)
 
-    return Plain.apply
+    def plain(q, k, v, p, klens, window=None, key_start=0, dropout=None):
+        expect(key_start == 0, "the plain K1 / K1b take no key_start")
+        return Plain.apply(q, k, v, p, klens, window, dropout)
+    return plain
 
 
 def plain_patches(torch):
@@ -1670,7 +1708,8 @@ def phase_train_parity(torch, model, batch, tag="6"):
 
 
 def microstep_errors(loss, grads, loss_ref, grads_ref,
-                     floor: bool = False) -> dict:
+                     floor: bool = False,
+                     zero_leaf: str = ZERO_GRAD_LEAF) -> dict:
     """Phase 6's readings of a microstep (loss, gradients) against a
     reference: the loss's relative error and, per leaf, (share of its
     tolerance used: GRAD_RTOL of its own max, the key biases GRAD_FLOOR
@@ -1682,7 +1721,7 @@ def microstep_errors(loss, grads, loss_ref, grads_ref,
     for name, g in grads.items():
         ref = grads_ref[name]
         scale, err = float(ref.abs().max()), float((g - ref).abs().max())
-        tol = GRAD_FLOOR * g_max if name.endswith(ZERO_GRAD_LEAF) else \
+        tol = GRAD_FLOOR * g_max if name.endswith(zero_leaf) else \
             GRAD_RTOL * scale
         if floor:
             tol = max(tol, GRAD_FLOOR * g_max)
@@ -1693,15 +1732,17 @@ def microstep_errors(loss, grads, loss_ref, grads_ref,
 
 
 def hold_microstep(loss, grads, loss_ref, grads_ref, tag,
-                   floor: bool = False) -> dict:
+                   floor: bool = False,
+                   zero_leaf: str = ZERO_GRAD_LEAF) -> dict:
     """Phase 6's rule: the kernels' microstep (loss, gradients) against the
     plain versions' to LOSS_RTOL and, per leaf, GRAD_RTOL of its own max
-    (the key biases: GRAD_FLOOR of the largest gradient; with ``floor``,
-    9b's rule, every leaf at least GRAD_FLOOR of it)."""
-    e = microstep_errors(loss, grads, loss_ref, grads_ref, floor)
+    (the key biases, leaves named ``*zero_leaf``: GRAD_FLOOR of the largest
+    gradient; with ``floor``, 9b's rule, every leaf at least GRAD_FLOOR of
+    it)."""
+    e = microstep_errors(loss, grads, loss_ref, grads_ref, floor, zero_leaf)
     loss_err, g_max, leaves = e["loss_rel_err"], e["g_max"], e["leaves"]
     ranked = sorted(leaves.items(), key=lambda kv: -kv[1][0])
-    zero = [kv for kv in ranked if kv[0].endswith(ZERO_GRAD_LEAF)]
+    zero = [kv for kv in ranked if kv[0].endswith(zero_leaf)]
     log(f"[{tag}] loss kernels {loss:.6f} plain {loss_ref:.6f} (rel "
         f"{loss_err:.2e}); largest gradient {g_max:.4e}")
     log(f"[{tag}] {len(leaves) - len(zero)} leaves held to {GRAD_RTOL} of "
@@ -3970,15 +4011,18 @@ def window_bias(torch, p, klens, tk: int, window=None, key_start: int = 0):
 
 def window_case(torch, rng, b, h, tt, dk, r, kl, window, tag: str,
                 bwd: bool = True, bf16: bool = False, tq: int | None = None,
-                key_start: int = 0) -> dict:
+                key_start: int = 0, dropout=None) -> dict:
     """K1 with ``window`` (or ``tq`` queries against ``tt`` keys, the first
-    ``key_start`` masked) and, with ``bwd``, K1b, on seeded inputs, held to
-    their plain versions (float32: KERNEL_ATOL for o, TRAIN_KERNEL_TOL of
-    the max for K1b's outputs; bf16: BF16_KERNEL_TOL of the plain bf16
-    max and at most BF16_VS_F32_RATIO times the plain bf16 version's error
-    against the plain float32 version), timed in turns with efficient SDPA
-    given the bias and the window as one mask (and its autograd
-    backward), beside the plain version's time and the bound of the
+    ``key_start`` masked; with ``dropout`` = (rate, key words) of the
+    attention probabilities) and, with ``bwd``, K1b, on seeded inputs,
+    held to their plain versions (float32: KERNEL_ATOL for o,
+    TRAIN_KERNEL_TOL of the max for K1b's outputs; bf16: BF16_KERNEL_TOL
+    of the plain bf16 max and at most BF16_VS_F32_RATIO times the plain
+    bf16 version's error against the plain float32 version), timed in
+    turns with efficient SDPA given the bias and the window as one mask
+    (and its autograd backward; with dropout, SDPA's ``dropout_p`` at the
+    same rate, its own mask: the same work, so its error is taken
+    without), beside the plain version's time and the bound of the
     window's work."""
     from torch.nn.functional import scaled_dot_product_attention as sdpa
     from neural_sp_tpu_torch.ops.kernels.rel_attention import (
@@ -3996,12 +4040,14 @@ def window_case(torch, rng, b, h, tt, dk, r, kl, window, tag: str,
     k, v = t(b, h, tt, dk), t(b, h, tt, dk)
     p = t(b, h, tq, r, scale=dk ** -0.5)
     klens = torch.tensor(kl, dtype=torch.int32, device=dev)
-    fwd = (q, k, v, p, klens, window, key_start)
+    fwd = (q, k, v, p, klens, window, key_start, dropout)
+    rate = dropout[0] if dropout else 0.0
     what = f"B={b} H={h} Tq={tq} Tk={tt} dk={dk} R={r} window={window} " \
         f"key_start={key_start} klens={kl if len(kl) <= 4 else '...'} " \
-        f"{'bf16' if bf16 else 'f32'}"
+        f"dropout={rate} {'bf16' if bf16 else 'f32'}"
     o, m, l = rel_attention_fwd(*fwd)
     want = rel_attention_ref(*fwd)
+    undropped = rel_attention_ref(*fwd[:-1]) if dropout else want
     row = {"shape": what}
     if bf16:
         f32 = (*(x.float() for x in (q, k, v, p)), klens, window, key_start)
@@ -4019,9 +4065,10 @@ def window_case(torch, rng, b, h, tt, dk, r, kl, window, tag: str,
         row["max_abs_err"] = err
     bias = window_bias(torch, p, klens, tt, window, key_start)
     with efficient_sdpa():
-        lib_err = rel_err(sdpa(q, k, v, attn_mask=bias, scale=1.0), want)
+        lib_err = rel_err(sdpa(q, k, v, attn_mask=bias, scale=1.0),
+                          undropped)
         ms, lib_ms = timed_pair(lambda: rel_attention_fwd(*fwd), lambda: sdpa(
-            q, k, v, attn_mask=bias, scale=1.0))
+            q, k, v, attn_mask=bias, scale=1.0, dropout_p=rate))
     expect(lib_err <= (BF16_KERNEL_TOL if bf16 else YARDSTICK_RTOL),
            f"[{tag}] K1 yardstick {what}: error {lib_err}")
     row.update(ms=ms, plain_ms=cuda_ms(lambda: rel_attention_ref(*fwd),
@@ -4038,7 +4085,7 @@ def window_case(torch, rng, b, h, tt, dk, r, kl, window, tag: str,
     if not bwd:
         return out
     do = t(b, h, tq, dk)
-    args = (q, k, v, p, klens, o, m, l, do, window)
+    args = (q, k, v, p, klens, o, m, l, do, window, dropout)
     got = rel_attention_bwd(*args)
     want = rel_attention_bwd_ref(*args)
     err = max(rel_err(x, y) for x, y in zip(got, want))
@@ -4061,7 +4108,7 @@ def window_case(torch, rng, b, h, tt, dk, r, kl, window, tag: str,
     bias.requires_grad_()
     leaves = [x.detach().requires_grad_() for x in (q, k, v)]
     with efficient_sdpa():
-        lib_out = sdpa(*leaves, attn_mask=bias, scale=1.0)
+        lib_out = sdpa(*leaves, attn_mask=bias, scale=1.0, dropout_p=rate)
 
         def lib_grads():
             return torch.autograd.grad(lib_out, (*leaves, bias), do,
@@ -4072,8 +4119,8 @@ def window_case(torch, rng, b, h, tt, dk, r, kl, window, tag: str,
     brow.update(ms=ms, plain_ms=cuda_ms(lambda: rel_attention_bwd_ref(*args),
                                         iters=3),
                 library_ms=lib_ms, **roofline(rel_attention_bwd_cost(
-                    b, h, tt, dk, r, kl, elem=2 if bf16 else 4,
-                    window=window), bf16=bf16))
+                    b, h, tq, dk, r, kl, elem=2 if bf16 else 4,
+                    window=window, tk=tt), bf16=bf16))
     log(f"[{tag}] K1b {what}: error {err:.3e} of the plain max  kernel "
         f"{ms:.4f} ms  plain {brow['plain_ms']:.4f} ms  library (SDPA "
         f"backward, the window in its mask; dp's buckets not summed) "
@@ -5064,6 +5111,338 @@ def phase_transducer(torch, rng, root: Path, xs, xlens) -> dict:
     return out
 
 
+# Phase 13: the language-model stage of the recipes (stage 3 trains an LM
+# with the LM train CLI, stage 5 decodes with it) through the port's LM
+# CLIs, at the recipe confs' full width and depth in float32, on a
+# synthesized text corpus over phase 7's 10k-word dictionary.
+LM_XL_CONF = "examples/swbd/conf/lm/transformer_xl.yaml"
+LM_CONFS = {"transformer": "examples/swbd/conf/lm/transformerlm.yaml",
+            "gated_conv": "examples/wsj/conf/lm/gated_convlm.yaml",
+            "rnnlm": "examples/librispeech/conf/lm/rnnlm_6L.yaml"}
+# rows of 90-110 words: the train set gives the XL (B 24, bptt 200) 9
+# windows, the Transformer LM (B 32) 7, the GCNN (B 50) 5 and rnnlm_6L
+# (B 128) 2; the dev set the XL 2 windows
+LM_TEXT_ROWS = {"train": 440, "dev": 100}
+LM_TRAIN = ("--n_epochs", "1", "--unit", "word", "--print_step", "1")
+LM_CACHE = ("--recog_n_caches", "100")
+# 13k: K1 / K1b at the XL's training shape: B 24, H 8, a 200-token
+# segment against 200 tokens of memory and its own 200 keys (the causal
+# window), dk 64, R = Tk (unclamped); with the recipes' dropout_att 0.1 on
+# given key words
+LM_K_SHAPE = dict(b=24, h=8, tq=200, tt=400, dk=64, r=400)
+LM_DROPOUT = (0.1, (0x2545F491, 0x9E3779B9))
+XL_ZERO_GRAD_LEAF = ".self_attn.w_key.bias"
+# the counters the XL's train CLI must move: K1 / K1b with dropout in its
+# training windows, K1 over the memory without dropout in its dev windows
+# (K1b without dropout over the memory runs on no recipe's path: every XL
+# conf sets dropout_att)
+XL_KERNELS = ("rel_attention", "rel_attention_offset",
+              "rel_attention_dropout", "rel_attention_bwd",
+              "rel_attention_bwd_dropout")
+
+
+def synth_text(root: Path, rows: dict, dict_path: str, seed: int = 1
+               ) -> dict:
+    """Text TSVs (utt_id, speaker, text, token_id) of ``rows`` rows of
+    90-110 words each, drawn uniformly from ``dict_path``'s words."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    words = [line.split()[0] for line in
+             Path(dict_path).read_text().splitlines()]
+    root.mkdir(parents=True, exist_ok=True)
+    paths = {}
+    for name, n in rows.items():
+        lines = ["utt_id\tspeaker\ttext\ttoken_id"]
+        for i in range(n):
+            ids = rng.integers(0, len(words), int(rng.integers(90, 111)))
+            lines.append("\t".join((
+                f"{name}_{i:04d}", f"spk{i % 4}",
+                " ".join(words[j] for j in ids),
+                " ".join(str(j + 4) for j in ids))))
+        paths[name] = str(root / f"{name}.tsv")
+        Path(paths[name]).write_text("\n".join(lines) + "\n")
+    return paths
+
+
+def phase_lm_kernels(torch, rng) -> dict:
+    """13k: K1 and K1b over the XL's memory (``LM_K_SHAPE``, the causal
+    window, Tq 200 < Tk 400), without and with dropout of the attention
+    probabilities, each against its plain version (KERNEL_ATOL,
+    TRAIN_KERNEL_TOL), timed in turns with efficient SDPA (its dropout_p
+    at the same rate) and its backward, with the bound of the window's
+    work (``window_case``)."""
+    s = LM_K_SHAPE
+    kl = [s["tt"]] * s["b"]
+    return {name: window_case(torch, rng, s["b"], s["h"], s["tt"], s["dk"],
+                              s["r"], kl, CAUSAL_WINDOW, "13k", tq=s["tq"],
+                              dropout=drop)
+            for name, drop in (("memory", None), ("dropout", LM_DROPOUT))}
+
+
+def lm_args(conf: str, vocab: int):
+    from types import SimpleNamespace
+    import yaml
+    return SimpleNamespace(**yaml.safe_load((ROOT / conf).read_text()),
+                           vocab=vocab)
+
+
+def xl_microstep(torch, lm, xi, xo, mems, seed=None, plain=False,
+                 kept=None, pins=None):
+    """(loss, {leaf: gradient}) of one window with the memories ``mems``,
+    in the mode ``lm`` is in (``train()``: dropout keys from a generator
+    seeded ``seed``), through K1 / K1b or, with ``plain``, their plain
+    versions patched in; each ReLU FFN's pre-activation kept in ``kept``,
+    and with ``pins`` its ReLU mask pinned to ``pins[name]``."""
+    from contextlib import ExitStack
+    from neural_sp_tpu_torch.models.modules import \
+        relative_multihead_attention as rma
+    lm.zero_grad(set_to_none=True)
+    gen = None if seed is None else torch.Generator().manual_seed(seed)
+    ffns = relu_ffns(torch, lm)
+    with ExitStack() as stack:
+        if plain:
+            stack.enter_context(mock.patch.object(
+                rma, "rel_attention", plain_rel_attention(torch)))
+        if kept is not None:
+            for handle in keep_pre_activations(ffns, kept):
+                stack.callback(handle.remove)
+        for n, m in ffns.items() if pins is not None else ():
+            stack.enter_context(mock.patch.object(
+                m, "act", lambda x, keep=pins[n]: x * keep))
+        loss, _, _ = lm(xi, xo, mems, gen)
+        loss.backward()
+    grads = {n: p.grad.detach().clone() for n, p in lm.named_parameters()}
+    lm.zero_grad(set_to_none=True)
+    return float(loss.detach()), grads
+
+
+def phase_xl_hold(torch, rng) -> dict:
+    """13a: the swbd Transformer-XL conf at full width and depth (seeded,
+    V 10,000): a window with the memory of the window before it (K1 / K1b
+    at Tq 200 < Tk 400), its loss and every gradient through the kernels
+    against the same with the plain versions patched in, in ``eval()``
+    mode and in ``train()`` mode (dropout on, the same generator seed, so
+    the same masks on both sides). The FFNs' ReLU masks flip where a
+    pre-activation lies within float32's error of 0, and a flipped
+    position moves its w1 row's gradient by a token's share (the first
+    run on the card: 4.8 of phase 6's rule at ``ff.w1``, the loss the
+    same bits). So, as 10b, the pre-activations of the two runs must
+    agree within ``XF_PRE_RTOL`` of their layer's max, the unpinned
+    reading is logged, and the plain microstep is run again with every
+    ReLU mask pinned to the kernels' run's and held to it by phase 6's
+    rule."""
+    from neural_sp_tpu_torch.models.lm.build import build_lm
+    from neural_sp_tpu_torch.ops.kernels import launches, reset_launches
+    from neural_sp_tpu_torch.utils.init_params import init_params
+    args = lm_args(LM_XL_CONF, CLI_VOCAB)
+    lm = init_params(build_lm(args), SEED + 5)
+    out = {"parameters": sum(p.numel() for p in lm.parameters())}
+    log(f"[13a] swbd Transformer-XL: {out['parameters']} parameters on the "
+        f"card")
+
+    def window():
+        return tuple(torch.from_numpy(rng.integers(
+            4, CLI_VOCAB, (args.batch_size, args.bptt))).to(DEVICE)
+            for _ in range(2))
+    with torch.no_grad():
+        lm.eval()
+        _, mems, _ = lm(*window())
+    xi, xo = window()
+    for mode, seed in (("eval", None), ("train", SEED)):
+        lm.train(mode == "train")
+        reset_launches()
+        kept, kept_ref = {}, {}
+        loss, grads = xl_microstep(torch, lm, xi, xo, mems, seed, kept=kept)
+        torch.cuda.synchronize()
+        counts = launches()
+        unpinned = microstep_errors(loss, grads, *xl_microstep(
+            torch, lm, xi, xo, mems, seed, plain=True, kept=kept_ref),
+            zero_leaf=XL_ZERO_GRAD_LEAF)
+        worst = max(unpinned["leaves"].items(), key=lambda kv: kv[1][0])
+        flips = {n: int(((kept[n] > 0) != (kept_ref[n] > 0)).sum())
+                 for n in kept}
+        pre_err = max(float((kept[n] - kept_ref[n]).abs().max()
+                            / kept_ref[n].abs().max()) for n in kept)
+        log(f"[13a {mode}] unpinned: loss rel {unpinned['loss_rel_err']:.2e},"
+            f" worst leaf {worst[0]} {worst[1][0]:.3f} of phase 6's rule; "
+            f"{sum(flips.values())} of "
+            f"{sum(k.numel() for k in kept.values())} ReLU pre-activations "
+            f"flip sign, the largest pre-activation error {pre_err:.2e} of "
+            f"its layer's max")
+        expect(pre_err <= XF_PRE_RTOL, f"13a {mode}: pre-activations part "
+               f"by {pre_err:.2e} of their max")
+        pins = {n: (k > 0).to(k.dtype) for n, k in kept.items()}
+        loss_ref, grads_ref = xl_microstep(torch, lm, xi, xo, mems, seed,
+                                           plain=True, pins=pins)
+        expect(launches() == counts, "13a: a kernel launched in the plain "
+               "microstep")
+        held = hold_microstep(loss, grads, loss_ref, grads_ref,
+                              f"13a {mode}", zero_leaf=XL_ZERO_GRAD_LEAF)
+        held.update(unpinned_worst_grad=worst[1][0],
+                    unpinned_worst_grad_leaf=worst[0],
+                    unpinned_loss_rel_err=unpinned["loss_rel_err"],
+                    relu_flips=sum(flips.values()), pre_rel_err=pre_err)
+        del kept, kept_ref, pins
+        # with dropout every launch is the dropout instantiation's, without
+        # it the one over the memory
+        on, off = ("dropout", "offset") if mode == "train" else \
+            ("offset", "dropout")
+        for name in ("rel_attention", "rel_attention_bwd"):
+            for counter, n in ((name, args.n_layers),
+                               (f"{name}_{on}", args.n_layers),
+                               (f"{name}_{off}", 0)):
+                expect(counts[counter] == n, f"13a {mode}: {counter} "
+                       f"launched {counts[counter]} times")
+        out[mode] = {**held, "launches": counts}
+    del lm, grads, grads_ref
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_cli(torch, root: Path, text: dict, dict_path: str, name: str,
+           conf: str, resume: bool = False, cache: bool = False) -> dict:
+    """The LM train CLI on ``conf`` for one epoch (and with ``resume`` a
+    second, resumed from the first's checkpoint), then the eval CLI on the
+    dev set (and with ``cache`` again with the cache model), counts zeroed
+    around each run; the dev and eval PPLs finite."""
+    import csv
+    import math
+    from neural_sp_tpu_torch.bin.lm import eval as lm_eval
+    from neural_sp_tpu_torch.bin.lm import train as lm_train
+    from neural_sp_tpu_torch.datasets.lm import LMDataset
+    from neural_sp_tpu_torch.ops.kernels import launches, reset_launches
+    args = lm_args(conf, CLI_VOCAB)
+    exp = str(root / f"lm_{name}")
+    data = ["--train_set", text["train"], "--dev_set", text["dev"],
+            "--dict", dict_path, "--model_save_dir", exp]
+    windows = len(LMDataset(text["train"], dict_path, "word",
+                            batch_size=args.batch_size, bptt=args.bptt))
+    out = {"conf": conf, "train_windows": windows,
+           "dev_windows": len(LMDataset(text["dev"], dict_path, "word",
+                                        batch_size=args.batch_size,
+                                        bptt=args.bptt))}
+
+    def run(what, fn, argv):
+        torch.cuda.synchronize()
+        reset_launches()
+        t = time.perf_counter()
+        res = fn(argv)
+        torch.cuda.synchronize()
+        out[what] = {"wall_s": time.perf_counter() - t,
+                     "launches": launches()}
+        return res
+
+    run("train", lm_train.main, ["--config", str(ROOT / conf)] + data
+        + list(LM_TRAIN))
+    if resume:
+        run("resumed", lm_train.main, [
+            "--config", f"{exp}/conf.yml", "--n_epochs", "2", "--resume",
+            f"{exp}/ckpt.epoch-1"] + data)
+    with open(f"{exp}/history.csv") as f:
+        history = [(int(r["epoch"]), float(r["train_loss"]),
+                    float(r["dev_ppl"])) for r in csv.DictReader(f)]
+    expect([e for e, _, _ in history] == ([1, 2] if resume else [1]),
+           f"13 {name}: epochs {history}")
+    expect(all(math.isfinite(x) for _, loss, ppl in history
+               for x in (loss, ppl)), f"13 {name}: history {history}")
+    out["history"] = history
+    for what, extra in (("eval", ()), ("eval_cache", LM_CACHE)):
+        if what == "eval_cache" and not cache:
+            continue
+        (res,) = run(what, lm_eval.main, [
+            "--recog_model", exp, "--recog_sets", text["dev"]]
+            + list(extra)).values()
+        expect(math.isfinite(res["ppl"]), f"13 {name} {what}: {res}")
+        out[what].update(res)
+    step_s = out["train"]["wall_s"] / windows
+    log(f"[13] {name} ({conf}): {windows} train windows, "
+        f"{out['train']['wall_s']:.1f} s with the build and dev set "
+        f"({step_s:.3f} s per window), history (epoch, train loss, dev "
+        f"ppl) {history}, eval PPL {out['eval']['ppl']:.1f}"
+        + (f", with the cache {out['eval_cache']['ppl']:.1f}" if cache
+           else ""))
+    return out
+
+
+def phase_lm(torch, rng, root: Path, corpus: dict) -> dict:
+    """13: the LM stage. 13k the kernels over the XL's memory; 13a the
+    swbd Transformer-XL held to the plain versions, then through both LM
+    CLIs (one epoch, a resumed second, the eval CLI with and without the
+    cache model): K1 and K1b against the memory and with dropout must run
+    in training, K1 against the memory in evaluation; 13b the swbd
+    Transformer LM, the WSJ GCNN-14B and LibriSpeech's rnnlm_6L through
+    both CLIs (no kernel of the repo on their paths); 13c phase 7's trained
+    model decoded by the ASR eval CLI as stage 5 with 13a's XL as its LM
+    (beam 10 + CTC 0.3 + LM 0.5, length norm, 2 averaged epochs): K1
+    against the growing memory, one query per step."""
+    from neural_sp_tpu_torch.bin.asr import eval as cli_eval
+    from neural_sp_tpu_torch.ops.kernels import launches, reset_launches
+    walls = {}
+
+    def timed(name, fn, *a, **kw):
+        t0 = time.perf_counter()
+        result = fn(*a, **kw)
+        walls[name] = time.perf_counter() - t0
+        log(f"[{name}] wall {walls[name]:.1f} s")
+        return result
+
+    out = {"kernels": timed("13k", phase_lm_kernels, torch, rng)}
+    out["hold"] = timed("13a hold", phase_xl_hold, torch, rng)
+    text = synth_text(root / "lm_text", LM_TEXT_ROWS, corpus["dict"])
+    xl = timed("13a CLIs", lm_cli, torch, root, text, corpus["dict"],
+               "transformer_xl", LM_XL_CONF, resume=True, cache=True)
+    for run in ("train", "resumed"):
+        for name in XL_KERNELS:
+            expect(xl[run]["launches"][name] > 0,
+                   f"13a {run}: {name} never launched")
+    for run in ("eval", "eval_cache"):
+        expect(xl[run]["launches"]["rel_attention_offset"] > 0,
+               f"13a {run}: K1 never launched against the memory")
+        expect(xl[run]["launches"]["rel_attention_dropout"] == 0,
+               f"13a {run}: dropout in evaluation")
+    out["transformer_xl"] = xl
+    for name, conf in LM_CONFS.items():
+        res = timed(f"13b {name}", lm_cli, torch, root, text, corpus["dict"],
+                    name, conf)
+        for run in ("train", "eval"):
+            expect(not any(res[run]["launches"].values()),
+                   f"13b {name} {run}: a kernel launched: "
+                   f"{res[run]['launches']}")
+        out[name] = res
+        torch.cuda.empty_cache()
+
+    def fusion():
+        torch.cuda.synchronize()
+        reset_launches()
+        t = time.perf_counter()
+        res = cli_eval.main([
+            "--recog_model", str(root / "exp"), "--recog_sets",
+            corpus["test"], "--recog_lm", str(root / "lm_transformer_xl"),
+            "--recog_dir", str(root / "decode_xl")] + list(CLI_EVAL))
+        torch.cuda.synchronize()
+        (m,) = res.values()
+        hyps = (root / "decode_xl" / "test" / "hyp.trn").read_text()
+        return {**m, "wall_s": time.perf_counter() - t,
+                "launches": launches(),
+                "hyp_tokens": [len(h.rsplit(" (", 1)[0].split())
+                               for h in hyps.splitlines()]}
+    fused = timed("13c", fusion)
+    log(f"[13c] eval CLI with the XL LM: RTF {fused['rtf']:.4f}, wall "
+        f"{fused['wall_s']:.1f} s, hypothesis lengths {fused['hyp_tokens']}, "
+        f"launches {fused['launches']}")
+    expect(fused["n_utts"] == CLI_UTTS["test"], f"13c: {fused['n_utts']}")
+    for name in ("rel_attention_offset", "las_step"):
+        expect(fused["launches"][name] > 0, f"13c: {name} never launched")
+    out["fusion"] = fused
+    paths = [xl[r]["launches"] for r in ("train", "resumed", "eval",
+                                         "eval_cache")] + \
+        [out[n][r]["launches"] for n in LM_CONFS for r in ("train", "eval")] \
+        + [fused["launches"]]
+    out["launches"] = {name: sum(p[name] for p in paths) for name in paths[0]}
+    out["walls_s"] = walls
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5160,6 +5539,8 @@ def main() -> int:
         wall("11")
         rnnt = phase_transducer(torch, rng, root, xs, xlens)
         wall("12")
+        lm = phase_lm(torch, rng, root, corpus)
+        wall("13")
     log(f"phase walls (s): {json.dumps(walls)}; total "
         f"{sum(walls.values()):.1f} s")
     # each kernel's launches from the main path it belongs to: the served
@@ -5214,7 +5595,7 @@ def main() -> int:
                "cli_sampled": {**sampled_cli, "phase_wall_s": walls["7b"]},
                "blstm": blstm, "mocha": mocha,
                "transformer": xformer, "streaming": streaming,
-               "transducer": rnnt, "kernels": kernels,
+               "transducer": rnnt, "lm": lm, "kernels": kernels,
                "phase_walls_s": walls}
     log(json.dumps(details))
     out_dir = ROOT / "chiprun_out"
@@ -5380,6 +5761,46 @@ def main() -> int:
         "f32_recurrence_grad_err": k5.get("f32_recurrence_grad_err")})
     expect(entries[-1]["launches"] > 0, "K5 never launched on phase 12's "
            "path")
+    # phase 13, the LM stage: its main paths' launches (13a's and 13b's
+    # train and eval CLIs, 13c's fused eval CLI; 13a's held microsteps are
+    # not counted); K1 / K1b over the XL's memory without dropout and with
+    # dropout, each row its own instantiation's counter: the same sources
+    # and entries, timed at 13k's shape, launched on phase 13's path, and
+    # per training microstep as 13a's held one (``train()``, dropout on)
+    # launched them. Training launches only the dropout instantiations
+    # (every XL conf sets dropout_att), so K1b without dropout over the
+    # memory launches on no path of the phase (0; held in 13k and by the
+    # card's tests), and K1 without dropout over the memory in evaluation
+    # only (its launches per dev window of the XL's eval CLI, whose first
+    # window has no memory yet)
+    for e in entries:
+        e["lm_launches"] = lm["launches"][e["name"]]
+    per_step = lm["hold"]["train"]["launches"]
+    xl = lm["transformer_xl"]
+    rows13 = {"rel_attention_memory": (
+        "rel_attention", lm["kernels"]["memory"]["fwd"],
+        "rel_attention_offset"),
+        "rel_attention_dropout": (
+        "rel_attention", lm["kernels"]["dropout"]["fwd"],
+        "rel_attention_dropout"),
+        "rel_attention_bwd_memory": (
+        "rel_attention_bwd", lm["kernels"]["memory"]["bwd"],
+        "rel_attention_bwd_offset"),
+        "rel_attention_bwd_dropout": (
+        "rel_attention_bwd", lm["kernels"]["dropout"]["bwd"],
+        "rel_attention_bwd_dropout")}
+    for name, (base, row, counter) in rows13.items():
+        src, rep = srcs[base]
+        entries.append({
+            "name": name, "route": "cuda", "source": src, "replaces": rep,
+            "launches": lm["launches"][counter],
+            "launches_per_step": per_step[counter],
+            **{key: row.get(key) for key in keys}, "shape": row["shape"]})
+        if name != "rel_attention_bwd_memory":
+            expect(entries[-1]["launches"] > 0,
+                   f"{name} never launched on phase 13's path")
+    entries[-4]["launches_per_eval_window"] = (
+        xl["eval"]["launches"]["rel_attention_offset"] / xl["dev_windows"])
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

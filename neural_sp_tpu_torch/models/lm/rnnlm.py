@@ -122,6 +122,10 @@ class RNNLM(nn.Module):
         return loss, new_state, {"loss": loss, "ppl": torch.exp(nll),
                                  "acc": acc}
 
+    def init_state(self, bs: int) -> None:
+        """The empty state: None, the zero state of every layer."""
+        return None
+
     def predict(self, y: torch.Tensor, state: Optional[list] = None):
         """One step for fusion and rescoring: y [B] -> (log-probs [B, V]
         float32, new state, hidden [B, D])."""

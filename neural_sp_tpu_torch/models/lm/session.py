@@ -3,13 +3,16 @@ LM step at a time over a batch of hypotheses, sequence scoring and the
 unigram cache model, for shallow fusion, second-pass n-best rescoring and
 perplexity.
 
-The LM runs where its parameters lie (the card, unless it was built with
+Any of the four LM families serves (``models/lm/build.py``). The LM runs
+where its parameters lie (the card, unless it was built with
 ``device="cpu"``); token ids come in and log-probs go out as numpy, one
-copy to the host per step. The state stays on the LM's device: a list of
-per-layer (c, h) tensors [B, n_units], None for the zero state; a beam's
-reorder is ``select``, an ``index_select`` of every tensor. Serve an LM in
-``eval()`` mode (dropout off), as the JAX session's steps are
-deterministic.
+copy to the host per step. The state stays on the LM's device, as the LM
+keeps it: the RNNLM's per-layer (c, h) tensors [B, n_units] (None for the
+zero state), the TransformerLM's per-layer K / V caches, the
+Transformer-XL's memories, the GCNN's per-block input caches; a beam's
+reorder is ``select``, an ``index_select`` of every tensor of that tree.
+Serve an LM in ``eval()`` mode (dropout off), as the JAX session's steps
+are deterministic.
 
 The cache model interpolates p = (1 - lambda) p_lm + lambda p_cache, where
 p_cache puts the softmax of theta * (the current hidden state against the
@@ -34,18 +37,28 @@ class LMSession:
         self.cache_lambda = cache_lambda
         self.cache_theta = cache_theta
 
+    @torch.inference_mode()
     def initial_state(self, bs: int):
-        return None  # the zero state of any batch size
+        """The LM's empty state of ``bs`` rows (``init_state``), as the
+        JAX session's."""
+        return self.lm.init_state(bs)
 
     @torch.inference_mode()
-    def select(self, state: Optional[list], index) -> Optional[list]:
+    def select(self, state, index):
         """Rows ``index`` [B'] (ints on any device) of every tensor of the
-        state: a beam's reorder."""
-        if state is None:
-            return None
+        state tree (lists, tuples, dicts; None stays None): a beam's
+        reorder."""
         index = torch.as_tensor(index, device=self.device)
-        return [(c.index_select(0, index), h.index_select(0, index))
-                for c, h in state]
+
+        def rows(x):
+            if x is None:
+                return None
+            if isinstance(x, dict):
+                return {k: rows(v) for k, v in x.items()}
+            if isinstance(x, (list, tuple)):
+                return type(x)(rows(v) for v in x)
+            return x.index_select(0, index)
+        return rows(state)
 
     @torch.inference_mode()
     def _step(self, y, state):
@@ -86,7 +99,11 @@ class LMSession:
             if self.cache_size > 0 and hist_h:
                 hs = np.stack(hist_h[-self.cache_size:])    # [M, D]
                 ys = hist_y[-self.cache_size:]
-                att = np.exp(self.cache_theta * (hs @ h[0]))
+                # shifted by its max: the JAX session's unshifted exp
+                # overflows to NaN on a Transformer-XL's hidden states
+                # (ROADMAP C37); equal to it wherever that is finite
+                e = self.cache_theta * (hs @ h[0])
+                att = np.exp(e - e.max())
                 att /= att.sum()
                 p_cache = np.zeros_like(probs)
                 for w, yid in zip(att, ys):

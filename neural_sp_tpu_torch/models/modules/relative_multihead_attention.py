@@ -1,7 +1,10 @@
 """Relative-position multi-head self-attention (counterpart of
-``neural_sp_tpu/models/modules/relative_multihead_attention.py``), offline
-encoder form: ``pe_type='relative'`` (``xl_like=False``), positions
-projected through ``w_value`` (bias included) and no u/v biases.
+``neural_sp_tpu/models/modules/relative_multihead_attention.py``). The
+encoders' form, ``pe_type='relative'`` (``xl_like=False``): positions
+projected through ``w_value`` (bias included) and no u/v biases. The
+Transformer-XL's form (``xl_like=True``, JAX :84-95): a separate ``w_pos``
+without bias and the global biases ``u_bias`` / ``v_bias`` [H, dk], the
+content query q + u and the position table p = (q + v) w_pos(rel).
 
 The distance embedding is the XL sinusoid of ``-(|q - k| + 1)`` in the
 concatenated [sin | cos] layout. With ``clamp_len > 0`` distances clamp at
@@ -21,6 +24,12 @@ cached keys and values of the previous blocks (the JAX module with a
 ``cache``): query i of the block sits at key position i + n_l, the
 distance |i + n_l - j| indexes the table (R = Tk unclamped), and the
 cache's empty slots (keys below ``key_start``) are masked.
+
+``attend`` is the Transformer-XL's call: queries from a segment h against
+keys and values from [memory; h] (Tq <= Tk), under ``masks.CAUSAL`` (query
+i at key position i + Tk - Tq), with ``dropout_att`` on the attention
+probabilities (K1 / K1b's ``dropout``, its key words drawn from the step's
+``torch.Generator`` in ``train()`` mode).
 """
 from __future__ import annotations
 
@@ -30,7 +39,9 @@ import numpy as np
 import torch
 from torch import nn
 
+from ...ops.dropout import key_words
 from ...ops.kernels import rel_attention
+from ...ops.masks import CAUSAL
 
 
 def rel_distance_table(n_rows: int, d_model: int) -> np.ndarray:
@@ -47,17 +58,40 @@ def rel_distance_table(n_rows: int, d_model: int) -> np.ndarray:
 
 class RelativeMultiheadAttention(nn.Module):
     def __init__(self, d_model: int, n_heads: int, clamp_len: int = -1,
-                 xl_like: bool = False):
+                 xl_like: bool = False, dropout: float = 0.0):
         super().__init__()
-        if xl_like:
-            raise NotImplementedError(
-                "pe_type 'relative_xl' (w_pos + u/v biases) is not ported "
-                "yet, see ROADMAP")
         self.d_model, self.n_heads, self.clamp_len = d_model, n_heads, clamp_len
+        self.xl_like, self.dropout = xl_like, dropout
         self.w_query = nn.Linear(d_model, d_model)
         self.w_key = nn.Linear(d_model, d_model)
         self.w_value = nn.Linear(d_model, d_model)
         self.w_out = nn.Linear(d_model, d_model)
+        if xl_like:
+            dk = d_model // n_heads
+            self.u_bias = nn.Parameter(torch.zeros(n_heads, dk))
+            self.v_bias = nn.Parameter(torch.zeros(n_heads, dk))
+            self.w_pos = nn.Linear(d_model, d_model, bias=False)
+        # the distance table's longest form so far on the device (not a
+        # parameter or a buffer: no state_dict entry), sliced per call
+        self._rel = None
+
+    def _distance_table(self, n_rel: int, like: torch.Tensor
+                        ) -> torch.Tensor:
+        """``rel_distance_table(n_rel)`` on ``like``'s device and in its
+        type. Its rows do not depend on n_rel, so the longest table yet is
+        kept and sliced: a one-token step then neither builds it in numpy
+        nor copies it from the host, per layer and step."""
+        t = self._rel
+        if t is None or t.shape[0] < n_rel or t.device != like.device or \
+                t.dtype != like.dtype:
+            n = max(n_rel, 0 if t is None else t.shape[0])
+            # a normal tensor even when made under inference mode (a
+            # session's step), so a later training step can save it
+            with torch.inference_mode(False):
+                t = self._rel = torch.from_numpy(
+                    rel_distance_table(n, self.d_model)).to(like.device,
+                                                            like.dtype)
+        return t[:n_rel]
 
     def forward(self, query: torch.Tensor, klens: torch.Tensor,
                 window=None) -> torch.Tensor:
@@ -84,6 +118,25 @@ class RelativeMultiheadAttention(nn.Module):
         out = self.w_out(o.transpose(1, 2).reshape(bs, tq, self.d_model))
         return out, {"k": k, "v": v}
 
+    def attend(self, query: torch.Tensor, key: torch.Tensor,
+               gen=None) -> torch.Tensor:
+        """Queries from ``query`` [B, Tq, d_model] against keys and values
+        projected from ``key`` [B, Tk, d_model] (Tq <= Tk; every key valid:
+        no padding), under ``masks.CAUSAL``, the attention probabilities
+        dropped at ``dropout`` in ``train()`` mode. Returns [B, Tq,
+        d_model]."""
+        bs, tq, _ = query.shape
+        h, dk = self.n_heads, self.d_model // self.n_heads
+        q = self.w_query(query).view(bs, tq, h, dk).transpose(1, 2)
+        tk = key.shape[1]
+        k = self.w_key(key).view(bs, tk, h, dk)
+        v = self.w_value(key).view(bs, tk, h, dk)
+        klens = torch.full((bs,), tk, dtype=torch.int32, device=query.device)
+        drop = (self.dropout, key_words(gen)) \
+            if self.training and self.dropout > 0 else None
+        o = self._attend(q, k, v, klens, CAUSAL, 0, drop)
+        return self.w_out(o.transpose(1, 2).reshape(bs, tq, self.d_model))
+
     def _project(self, query):
         """(q [B, H, T, dk], {"k", "v"} [B, T, H, dk])."""
         bs, t, _ = query.shape
@@ -92,23 +145,34 @@ class RelativeMultiheadAttention(nn.Module):
         return q, {"k": self.w_key(query).view(bs, t, h, dk),
                    "v": self.w_value(query).view(bs, t, h, dk)}
 
-    def _attend(self, q, k, v, klens, window, key_start):
+    def _attend(self, q, k, v, klens, window, key_start, dropout=None):
         """K1 over q [B, H, Tq, dk] and k, v [B, Tk, H, dk]: [B, H, Tq,
-        dk]."""
+        dk]. The table has clamp_len + 1 rows when clamped, else Tk (at
+        most Tk rows either way: a row past the longest distance is never
+        read, as the JAX module's unclamped branch)."""
         tk = k.shape[1]
         h, dk = self.n_heads, self.d_model // self.n_heads
         n_rel = self.clamp_len + 1 if self.clamp_len > 0 else tk
-        rel = torch.from_numpy(rel_distance_table(n_rel, self.d_model)).to(
-            q.device, q.dtype)
-        r = self.w_value(rel).view(n_rel, h, dk)    # positions share w_value
+        if self.xl_like:
+            n_rel = min(n_rel, tk)
+        rel = self._distance_table(n_rel, q)
         scale = 1.0 / math.sqrt(dk)
-        p = torch.einsum("bhqd,rhd->bhqr", q, r) * scale
+        if self.xl_like:
+            # content query q + u; positions through w_pos, queried by q + v
+            r = self.w_pos(rel).view(n_rel, h, dk)
+            p = torch.einsum("bhqd,rhd->bhqr", q + self.v_bias[:, None],
+                             r) * scale
+            q = q + self.u_bias[:, None]
+        else:
+            r = self.w_value(rel).view(n_rel, h, dk)  # positions share w_value
+            p = torch.einsum("bhqd,rhd->bhqr", q, r) * scale
         args = ((q * scale).contiguous(), k.transpose(1, 2).contiguous(),
                 v.transpose(1, 2).contiguous(), p.contiguous(),
                 klens.to(device=q.device, dtype=torch.int32))
-        if window is None and key_start == 0:
+        if window is None and key_start == 0 and dropout is None:
             # the offline call takes the five tensors alone, as do the
             # plain versions that chip_smoke.py and tools/train_diagnosis.py
             # patch in here (autograd functions: no keyword arguments)
             return rel_attention(*args)
-        return rel_attention(*args, window=window, key_start=key_start)
+        return rel_attention(*args, window=window, key_start=key_start,
+                             dropout=dropout)

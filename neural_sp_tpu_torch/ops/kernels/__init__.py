@@ -10,15 +10,22 @@ from .rnnt_loss import rnnt_loss_bwd, rnnt_loss_fwd
 # launch counters by kernel entry: (wrapper, its counter's attribute)
 # (``ctc_loss`` is K4's forward entry, ``rnnt_loss`` K5's; K1 / K1b count
 # their float32 and bf16 entries apart, and count again the launches with
-# a window on the keys and, K1, those against cached keys)
+# a window on the keys, those dropping attention probabilities (their own
+# instantiation) and those without dropout with fewer queries than keys
+# (against cached keys, or the Transformer-XL's memory))
 KERNELS = {"rel_attention": (rel_attention, "launches"),
            "rel_attention_bf16": (rel_attention, "launches_bf16"),
            "rel_attention_window": (rel_attention, "launches_window"),
            "rel_attention_offset": (rel_attention, "launches_offset"),
+           "rel_attention_dropout": (rel_attention, "launches_dropout"),
            "rel_attention_bwd": (rel_attention_bwd, "launches"),
            "rel_attention_bwd_bf16": (rel_attention_bwd, "launches_bf16"),
            "rel_attention_bwd_window": (rel_attention_bwd,
                                         "launches_window"),
+           "rel_attention_bwd_offset": (rel_attention_bwd,
+                                        "launches_offset"),
+           "rel_attention_bwd_dropout": (rel_attention_bwd,
+                                         "launches_dropout"),
            "las_step": (las_step, "launches"),
            "las_scan": (las_scan, "launches"),
            "las_scan_bwd": (las_scan_bwd, "launches"),

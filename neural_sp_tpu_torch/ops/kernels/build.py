@@ -30,6 +30,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+# a dropout of the attention probabilities: its rate and two key words
+_DROP = [ctypes.c_float, ctypes.c_uint, ctypes.c_uint]
 
 
 def _nvcc() -> str:
@@ -104,10 +106,10 @@ def load_library() -> ctypes.CDLL:
     path, _ = build_library()
     lib = ctypes.CDLL(str(path))
     entry_points = {
-        "nsp_rel_attention_f32": [_P] * 9 + [_I] * 10 + [_P],
-        "nsp_rel_attention_bwd_f32": [_P] * 15 + [_I] * 8 + [_P],
+        "nsp_rel_attention_f32": [_P] * 9 + [_I] * 10 + _DROP + [_P],
+        "nsp_rel_attention_bwd_f32": [_P] * 15 + [_I] * 9 + _DROP + [_P],
         "nsp_rel_attention_bf16": [_P] * 8 + [_I] * 10 + [_P],
-        "nsp_rel_attention_bwd_bf16": [_P] * 15 + [_I] * 8 + [_P],
+        "nsp_rel_attention_bwd_bf16": [_P] * 15 + [_I] * 9 + [_P],
         "nsp_las_step_f32": [_P] * 23 + [_I] * 7 + [_P],
         "nsp_las_step_plan_f32": [_P, _I, _I, _P, _P, _P],
         "nsp_las_scan_f32": [_P] * 24 + [_I] * 8 + [_P],

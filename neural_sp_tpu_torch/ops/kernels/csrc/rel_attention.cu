@@ -47,6 +47,13 @@
 // keys, as the masked softmax of the JAX module does: a block holding one
 // visits every key tile.
 //
+// Dropout of the attention probabilities (the Transformer-XL's
+// dropout_att) is a third instantiation of the windowed kernel: after the
+// online softmax each exp(s - m) is multiplied by its element's scale from
+// the counter hash (rel_attention_common.cuh's Drop: 1 / (1 - rate) kept,
+// 0 dropped) before P v, while the row sum l takes the undropped values,
+// so o = sum_j P_j M_j v_j with P the undropped softmax.
+//
 // The forward also writes each row's softmax statistics, the running max
 // m and the sum l of exp(s - m), for the backward (K1b): P = exp(s - m) /
 // l. Both are kept instead of one log-sum-exp m + log l because a row with
@@ -137,13 +144,13 @@ __device__ __forceinline__ void online_tile(float (&s)[N][4], float (&m_run)[2],
   }
 }
 
-template <int DK, bool WIN>
+template <int DK, bool WIN, bool DROP>
 __global__ void __launch_bounds__(kThreads, 2)
 rel_attention_fwd_kernel(const float* __restrict__ q, const float2* __restrict__ kp,
                          const float2* __restrict__ vp, const float* __restrict__ p,
                          const int* __restrict__ klens, float* __restrict__ o,
                          float* __restrict__ m_out, float* __restrict__ l_out, int H, int Tq,
-                         int Tk, int R, Window win) {
+                         int Tk, int R, Window win, Drop drop) {
   if constexpr (!WIN) Tk = Tq;  // offline: as many keys as queries
   extern __shared__ float4 smem4[];
   float2* ring = reinterpret_cast<float2*>(smem4);  // 2 stages x (K, V) split tiles
@@ -195,6 +202,12 @@ rel_attention_fwd_kernel(const float* __restrict__ q, const float2* __restrict__
   float acc[DK / 8][4];
 #pragma unroll
   for (int n = 0; n < DK / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
+  // with dropout, the flat index of each row's key 0 in [B, H, Tq, Tk]
+  // (mod 2^32, as the uint32 counter)
+  uint32_t drow[2] = {0u, 0u};
+  if constexpr (DROP)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) drow[e] = static_cast<uint32_t>((bh * Tq + rows[e]) * Tk);
 
   for (int it = 0; it < n_tiles; ++it) {
     cp_async_wait_all();
@@ -223,6 +236,14 @@ rel_attention_fwd_kernel(const float* __restrict__ q, const float2* __restrict__
       acc[n][2] *= alpha[1];
       acc[n][3] *= alpha[1];
     }
+    // dropout: the kept exp(s - m) scaled, the dropped ones out of P v;
+    // the row sums l (online_tile) stay those of the undropped P
+    if constexpr (DROP)
+#pragma unroll
+      for (int n = 0; n < kStep / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[n][e] *= drop_scale(drop, drow[e >> 1] + (uint32_t)(k0 + n * 8 + 2 * t + (e & 1)));
     product_pn<DK>(acc, s, vs, g, t);
   }
 
@@ -244,19 +265,19 @@ rel_attention_fwd_kernel(const float* __restrict__ q, const float2* __restrict__
   }
 }
 
-template <int DK, bool WIN>
+template <int DK, bool WIN, bool DROP>
 cudaError_t launch(const float* q, const float* k, const float* v, const float* p,
                    const int* klens, float* o, float* m, float* l, float2* kvp, int B, int H,
-                   int Tq, int Tk, int R, Window win, cudaStream_t stream) {
+                   int Tq, int Tk, int R, Window win, Drop drop, cudaStream_t stream) {
   const size_t n = (size_t)B * H * Tk * DK;
   const int smem = 4 * Tile<DK>::kPairs * (int)sizeof(float2) +  // 2 x (K, V), p rows
                    kRows * kSmemR * (int)sizeof(float);
-  cudaError_t err = allow_smem<rel_attention_fwd_kernel<DK, WIN>>(smem);
+  cudaError_t err = allow_smem<rel_attention_fwd_kernel<DK, WIN, DROP>>(smem);
   if (err == cudaSuccess) err = split_pairs(k, v, kvp, n, stream);
   if (err != cudaSuccess) return err;
   dim3 grid((Tq + kRows - 1) / kRows, H, B);
-  rel_attention_fwd_kernel<DK, WIN><<<grid, kThreads, smem, stream>>>(q, kvp, kvp + n, p, klens,
-                                                                    o, m, l, H, Tq, Tk, R, win);
+  rel_attention_fwd_kernel<DK, WIN, DROP><<<grid, kThreads, smem, stream>>>(
+      q, kvp, kvp + n, p, klens, o, m, l, H, Tq, Tk, R, win, drop);
   return cudaGetLastError();
 }
 
@@ -589,19 +610,31 @@ bool bad_shape(int B, int H, int Tq, int Tk, int R, int nc, int nr, int kstart) 
          nr < 0 || kstart < 0;
 }
 
+// The dropout of the attention probabilities: keep = 1 - rate (as a
+// float32, the threshold JAX compares against) and the key words; keep >=
+// 1 for none.
+Drop make_drop(float keep, unsigned k0, unsigned k1) {
+  return Drop{k0, k1, keep, 1.0f / keep};
+}
+
 }  // namespace
 
 // q, o: [B, H, Tq, dk]; k, v: [B, H, Tk, dk] (Tq <= Tk); p: [B, H, Tq, R];
 // klens: [B] int32; m, l: [B, H, Tq] row statistics; kvp: scratch [2, B,
 // H, Tk, dk, 2] for the split k and v; the window nc (0: none), nl, nr
-// and the first valid key kstart. All contiguous and 16-byte aligned, on
-// the device of `stream`. Returns a cudaError_t.
+// and the first valid key kstart; the dropout of the attention
+// probabilities: keep = 1 - rate (1: none) and its two key words. All
+// contiguous and 16-byte aligned, on the device of `stream`. Returns a
+// cudaError_t.
 extern "C" int nsp_rel_attention_f32(const void* q, const void* k, const void* v,
                                      const void* p, const void* klens, void* o, void* m,
                                      void* l, void* kvp, int B, int H, int Tq, int Tk, int R,
-                                     int dk, int nc, int nl, int nr, int kstart, void* stream) {
-  if (bad_shape(B, H, Tq, Tk, R, nc, nr, kstart)) return (int)cudaErrorInvalidValue;
+                                     int dk, int nc, int nl, int nr, int kstart, float keep,
+                                     unsigned k0, unsigned k1, void* stream) {
+  if (bad_shape(B, H, Tq, Tk, R, nc, nr, kstart) || !(keep > 0.0f && keep <= 1.0f))
+    return (int)cudaErrorInvalidValue;
   const Window win = make_window(Tq, Tk, nc, nl, nr, kstart);
+  const Drop drop = make_drop(keep, k0, k1);
   const float* qf = static_cast<const float*>(q);
   const float* kf = static_cast<const float*>(k);
   const float* vf = static_cast<const float*>(v);
@@ -612,10 +645,16 @@ extern "C" int nsp_rel_attention_f32(const void* q, const void* k, const void* v
   float* lf = static_cast<float*>(l);
   float2* kvpf = static_cast<float2*>(kvp);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define NSP_LAUNCH(D)                                                                    \
-  (windowed(win, Tq, Tk)                                                                 \
-       ? launch<D, true>(qf, kf, vf, pf, kl, of, mf, lf, kvpf, B, H, Tq, Tk, R, win, s)  \
-       : launch<D, false>(qf, kf, vf, pf, kl, of, mf, lf, kvpf, B, H, Tq, Tk, R, win, s))
+  // dropout runs in its own instantiation of the windowed kernel (which
+  // takes any window, or none), so the others keep their code
+#define NSP_LAUNCH(D)                                                                          \
+  (keep < 1.0f ? launch<D, true, true>(qf, kf, vf, pf, kl, of, mf, lf, kvpf, B, H, Tq, Tk, R,  \
+                                       win, drop, s)                                           \
+   : windowed(win, Tq, Tk)                                                                     \
+       ? launch<D, true, false>(qf, kf, vf, pf, kl, of, mf, lf, kvpf, B, H, Tq, Tk, R, win,    \
+                                drop, s)                                                       \
+       : launch<D, false, false>(qf, kf, vf, pf, kl, of, mf, lf, kvpf, B, H, Tq, Tk, R, win,   \
+                                 drop, s))
   switch (dk) {
     case 16: return (int)NSP_LAUNCH(16);
     case 32: return (int)NSP_LAUNCH(32);

@@ -397,16 +397,16 @@ __device__ __forceinline__ void key_tiles(const K& rk, const int (&rows)[2], int
   n_tiles = kend > kbeg ? (kend - kt0 + STEP - 1) / STEP : 0;
 }
 
-// The query rows [ibeg, iend) of 0 .. T - 1 whose weights reach keys j0 ..
-// j0 + nj - 1 under a window: those whose range meets them, and those with
-// an empty range (uniform over every key). The block's threads share the
-// rows; red as in block_keys. iend <= ibeg: none.
-__device__ __forceinline__ void query_span(const Window& w, int j0, int nj, int klen, int T,
-                                           int* red, int& ibeg, int& iend) {
+// The query rows [ibeg, iend) of 0 .. Tq - 1 whose weights reach keys j0
+// .. j0 + nj - 1 (of Tk) under a window: those whose range meets them, and
+// those with an empty range (uniform over every key). The block's threads
+// share the rows; red as in block_keys. iend <= ibeg: none.
+__device__ __forceinline__ void query_span(const Window& w, int j0, int nj, int klen, int Tq,
+                                           int Tk, int* red, int& ibeg, int& iend) {
   int b = INT_MAX, e = 0;
-  for (int i = threadIdx.x; i < T; i += kThreads) {
+  for (int i = threadIdx.x; i < Tq; i += kThreads) {
     int lo, hi;
-    key_range(w, i, klen, T, lo, hi);
+    key_range(w, i, klen, Tk, lo, hi);
     if (lo >= hi || (lo < j0 + nj && hi > j0)) {
       b = min(b, i);
       e = max(e, i + 1);
@@ -433,22 +433,22 @@ __device__ __forceinline__ void query_span(const Window& w, int j0, int nj, int 
 
 // The query tiles of STEP rows the backward's key-major pass visits for
 // keys j0 .. j0 + kRows - 1, n_tiles of them from tile it0: without a
-// window every tile while j0 lies below the keys' end (min(klens[b], T),
-// or all T when klens[b] is 0: uniform P), none past it; with one,
-// query_span's.
+// window (Tq = Tk = T) every tile while j0 lies below the keys' end
+// (min(klens[b], T), or all T when klens[b] is 0: uniform P), none past
+// it; with one (or fewer queries than keys), query_span's.
 template <bool WIN, int STEP>
-__device__ __forceinline__ void query_tiles(const Window& win, int j0, int klen, int T,
+__device__ __forceinline__ void query_tiles(const Window& win, int j0, int klen, int Tq, int Tk,
                                             int& it0, int& n_tiles) {
   it0 = 0;
   if constexpr (WIN) {
     __shared__ int red[3 * kWarps];
     int ibeg, iend;
-    query_span(win, j0, kRows, klen, T, red, ibeg, iend);
+    query_span(win, j0, kRows, klen, Tq, Tk, red, ibeg, iend);
     it0 = ibeg / STEP;
     n_tiles = iend > ibeg ? (iend + STEP - 1) / STEP - it0 : 0;
   } else {
-    const int kend = (klen > 0) ? min(klen, T) : T;
-    n_tiles = j0 < kend ? (T + STEP - 1) / STEP : 0;
+    const int kend = (klen > 0) ? min(klen, Tk) : Tk;
+    n_tiles = j0 < kend ? (Tq + STEP - 1) / STEP : 0;
   }
 }
 
@@ -456,6 +456,31 @@ __device__ __forceinline__ void query_tiles(const Window& win, int j0, int klen,
 // at least R - 1 means every pair of the two ranges takes the far bucket.
 __device__ __forceinline__ int min_distance(int i0, int ni, int j0, int nj) {
   return max(0, max(j0 - (i0 + ni - 1), i0 - (j0 + nj - 1)));
+}
+
+// ---- dropout of the attention probabilities ------------------------------
+//
+// The JAX module's Dropout on its attention weights (neural_sp_tpu/ops/
+// dropout.py::fast_uniform): element (b, h, i, j) of the [B, H, Tq, Tk]
+// weights is kept iff the counter hash of its row-major index ((b H + h)
+// Tq + i) Tk + j (uint32, as JAX's iota) under the two key words lies
+// below keep = 1 - rate (a float32, as JAX compares); a kept weight is
+// scaled by 1 / keep. No mask is stored: each kernel hashes an element
+// where it uses it, so forward and backward draw the same mask.
+struct Drop {
+  uint32_t k0, k1;
+  float keep;   // 1 - rate, in (0, 1)
+  float scale;  // 1 / keep
+};
+
+// The factor of element idx: scale when kept, 0 when dropped.
+__device__ __forceinline__ float drop_scale(const Drop& d, uint32_t idx) {
+  uint32_t x = idx * 0x9E3779B9u + d.k0;
+  x ^= x >> 16;
+  x *= 0x7FEB352Du ^ d.k1;
+  x ^= x >> 15;
+  // a 24-bit mantissa: the float is exact, as fast_uniform's
+  return static_cast<float>(x >> 8) * (1.0f / 16777216.0f) < d.keep ? d.scale : 0.0f;
 }
 
 __device__ __forceinline__ float quad_max(float x) {

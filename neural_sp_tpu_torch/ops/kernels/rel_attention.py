@@ -48,28 +48,63 @@ score finfo.min / 2). The forward also takes fewer queries
 than keys (a streaming block against cached keys): query i then sits at
 position i + Tk - Tq among the keys, its relative distance to key j is
 |i + Tk - Tq - j|, and keys below ``key_start`` are masked (the cache's
-empty slots). The backward takes Tq = Tk and no ``key_start``.
+empty slots). The backward takes fewer queries than keys too (the
+Transformer-XL's segment against its memory), but no ``key_start``.
+
+Dropout of the attention probabilities (the Transformer-XL's
+``dropout_att``): ``dropout = (rate, (k0, k1))`` drops P[b, h, i, j] where
+the counter hash of ``ops.dropout.fast_uniform`` at the row-major index
+((b H + h) Tq + i) Tk + j under the key words (k0, k1) is not below 1 -
+rate, and scales the kept ones by 1 / (1 - rate), before P v, as the JAX
+module's ``Dropout`` on its attention weights (the same bits given the same
+key words). The kernels hash each element where they need it, so no mask
+reaches device memory; the row statistics m and l stay those of the
+undropped P. With M the mask scaled by 1 / (1 - rate), the backward is
+dP = (dO v^T) M, dv = (P M)^T dO and ds = P (dP - D), D = rowsum(dO o)
+unchanged. The float32 entries take dropout; the bf16 entries raise for
+it.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from ..dropout import fast_uniform
 from ..masks import apply_mask_logits, window_mask
 from ._checks import check, on_cpu, raise_on_error, stream_of
 from .build import load_library
 from .roofline import valid_lengths
 
 
-def rel_attention_ref(q, k, v, p, klens, window=None, key_start=0):
+def rel_attention_ref(q, k, v, p, klens, window=None, key_start=0,
+                      dropout=None):
     """Plain PyTorch twin of the kernel, the CPU path and the reference on
     the card. q: [B, H, Tq, dk]; k, v: [B, H, Tk, dk] (Tq <= Tk); p:
     [B, H, Tq, R]; klens: [B] int; ``window`` (n_l, n_c, n_r) or None,
-    ``key_start`` as the module docstring says. Returns o [B, H, Tq, dk]
-    in q's type. Scores and softmax in float32 (or wider); for bf16 inputs
-    P is rounded to bf16 before P v, as the kernel."""
+    ``key_start`` and ``dropout`` (rate, key words) or None as the module
+    docstring says. Returns o [B, H, Tq, dk] in q's type. Scores and
+    softmax in float32 (or wider); for bf16 inputs P is rounded to bf16
+    before P v (and again after its dropout), as the JAX module."""
     prob = torch.softmax(_scores(q, k, p, klens, window, key_start), dim=-1)
-    return torch.matmul(_rounded(prob, q), _wide(v)).to(q.dtype)
+    prob = _rounded(prob, q)
+    if dropout is not None:
+        prob = _rounded(_dropped(prob, dropout), q)
+    return torch.matmul(prob, _wide(v)).to(q.dtype)
+
+
+def attention_keep(dropout, shape, device=None) -> torch.Tensor:
+    """The keep mask (bool, ``shape`` = [B, H, Tq, Tk]) of ``dropout`` =
+    (rate, (k0, k1)): the counter hash of ``ops.dropout.fast_uniform`` at
+    each element's row-major index below 1 - rate, as the JAX ``Dropout``
+    draws it (``fast_bernoulli``)."""
+    rate, key = dropout
+    return fast_uniform(key, shape, device) < 1.0 - rate
+
+
+def _dropped(x, dropout):
+    """where(keep, x / (1 - rate), 0) over [B, H, Tq, Tk] x."""
+    keep = attention_keep(dropout, x.shape, x.device)
+    return torch.where(keep, x / (1.0 - dropout[0]), torch.zeros_like(x))
 
 
 def rel_attention_stats_ref(q, k, p, klens, window=None, key_start=0):
@@ -131,29 +166,38 @@ def key_ranges(klens, tq, tk, window=None, key_start=0):
     return out
 
 
-def rel_attention_bwd_ref(q, k, v, p, klens, o, m, l, do, window=None):
+def rel_attention_bwd_ref(q, k, v, p, klens, o, m, l, do, window=None,
+                          dropout=None):
     """Plain PyTorch version of the backward kernel K1b, the adjoint written
-    out (not autograd): P = exp(s - m) / l; D = sum(do * o); ds = P (do v^T
-    - D) on allowed keys, 0 on masked ones (the masked ``where`` passes no
-    gradient); dq = ds k, dk = ds^T q, dv = P^T do, dp[i, r] = sum of ds[i,
-    j] over min(|i-j|, R-1) = r. Everything in at least float32; for bf16
-    inputs P and ds are rounded to bf16 before their products, as the
+    out (not autograd): P = exp(s - m) / l; with ``dropout`` the scaled keep
+    mask M (1 / (1 - rate) where kept, 0 where dropped; else M = 1); D =
+    sum(do * o); dP = (do v^T) M; ds = P (dP - D) on allowed keys, 0 on
+    masked ones (the masked ``where`` passes no gradient); dq = ds k, dk =
+    ds^T q, dv = (P M)^T do, dp[i, r] = sum of ds[i, j] over min(|i + Tk -
+    Tq - j|, R-1) = r. Tq <= Tk (query i at key position i + Tk - Tq, as
+    the forward), no ``key_start``. Everything in at least float32; for
+    bf16 inputs P and ds are rounded to bf16 before their products, as the
     kernel. Returns (dq, dk, dv, dp) in the inputs' type."""
-    t = q.shape[2]
+    tq, tk = q.shape[2], k.shape[2]
     s = _scores(q, k, p, klens, window)
     prob = torch.exp(s - m[..., None]) / l[..., None]
     do_, k_, q_ = _wide(do), _wide(k), _wide(q)
     delta = (do_ * _wide(o)).sum(-1, keepdim=True)
-    ds = prob * (torch.matmul(do_, _wide(v).transpose(-1, -2)) - delta)
-    ds = torch.where(window_mask(klens, t, t, window, 0, q.device)[:, None],
+    dpv = torch.matmul(do_, _wide(v).transpose(-1, -2))
+    prob_v = _rounded(prob, q)
+    if dropout is not None:
+        dpv = _dropped(dpv, dropout)
+        prob_v = _rounded(_dropped(prob_v, dropout), q)
+    ds = prob * (dpv - delta)
+    ds = torch.where(window_mask(klens, tq, tk, window, 0, q.device)[:, None],
                      ds, torch.zeros_like(ds))
     ds_lp = _rounded(ds, q)
     dq = torch.matmul(ds_lp, k_)
     dk = torch.matmul(ds_lp.transpose(-1, -2), q_)
-    dv = torch.matmul(_rounded(prob, q).transpose(-1, -2), do_)
-    idx = _buckets(t, t, p.shape[-1], q.device)
+    dv = torch.matmul(prob_v.transpose(-1, -2), do_)
+    idx = _buckets(tq, tk, p.shape[-1], q.device)
     dp = torch.zeros(p.shape, dtype=ds.dtype, device=p.device).scatter_add_(
-        -1, idx.expand(*p.shape[:2], t, t), ds)
+        -1, idx.expand(*p.shape[:2], tq, tk), ds)
     return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype), dp.to(p.dtype)
 
 
@@ -193,17 +237,21 @@ def rel_attention_cost(b, h, t, dk, r, klens, elem: int = 4, window=None,
 
 
 def rel_attention_bwd_cost(b, h, t, dk, r, klens, elem: int = 4,
-                           window=None) -> tuple[int, int]:
+                           window=None, tk=None) -> tuple[int, int]:
     """(flops, bytes) the backward needs: five products over each row's
     allowed keys (s = q k^T, dP = dO v^T, dv = P^T dO, dq = ds k, dk = ds^T
-    q); for a row with none only dv = P^T dO over all T. Reads q, p, o, dO
-    and the keys' k, v and writes dq, dk, dv, dp, ``elem`` bytes each;
-    reads m, l (float32) and klens."""
-    pairs, empty, union, _ = _pairs(klens, t, t, window, 0)
-    flops = (10 * pairs + 2 * empty * t) * h * dk
+    q); for a row with none only dv = P^T dO over all Tk. Reads q, p, o,
+    dO and the keys' k, v and writes dq, dp (Tq rows) and dk, dv (Tk rows),
+    ``elem`` bytes each; reads m, l (float32) and klens. t
+    is Tq; ``tk`` the keys (t when None). A dropout mask is hashed where it
+    is used: it moves no byte, and its hash is not counted."""
+    tk = t if tk is None else tk
+    pairs, empty, union, _ = _pairs(klens, t, tk, window, 0)
+    flops = (10 * pairs + 2 * empty * tk) * h * dk
     return flops, elem * (3 * b * h * t * dk + 2 * h * dk * union
-                          + b * h * t * r + 3 * b * h * t * dk
-                          + b * h * t * r) + 4 * (2 * b * h * t + b)
+                          + b * h * t * r + b * h * t * dk
+                          + 2 * b * h * tk * dk + b * h * t * r) \
+        + 4 * (2 * b * h * t + b)
 
 
 # the kernels' element types: float32 (3xTF32 products) and bf16
@@ -240,6 +288,18 @@ def _window_args(window, key_start: int) -> tuple[int, int, int, int]:
     return n_c, n_l, n_r, key_start
 
 
+def _drop_args(dropout) -> tuple[float, int, int]:
+    """(keep = 1 - rate, k0, k1) as the float32 entries take them (keep is
+    passed as a float32, the threshold JAX compares against); keep 1: no
+    dropout."""
+    if dropout is None:
+        return 1.0, 0, 0
+    rate, (k0, k1) = dropout
+    if not 0.0 < rate < 1.0:
+        raise ValueError(f"rel_attention: dropout rate {rate} outside (0, 1)")
+    return 1.0 - float(rate), int(k0) & 0xFFFFFFFF, int(k1) & 0xFFFFFFFF
+
+
 def _pair_scratch(x):
     """Scratch for two operands of x's shape split into TF32 (hi, lo) pairs:
     [2, .., dk, 2] (the float32 entries only)."""
@@ -253,18 +313,30 @@ def _check_aligned(*tensors):
                          "q, k, v, dO")
 
 
-def rel_attention_fwd(q, k, v, p, klens, window=None, key_start=0):
+def _no_bf16_dropout(entry: str, dropout) -> None:
+    if entry == "bf16" and dropout is not None:
+        raise NotImplementedError(
+            "rel_attention: the bf16 entries take no dropout of the "
+            "attention probabilities (float32 only), see ROADMAP")
+
+
+def rel_attention_fwd(q, k, v, p, klens, window=None, key_start=0,
+                      dropout=None):
     """(o, m, l): the output (q's type) and the float32 row statistics (see
-    ``rel_attention_stats_ref``). CPU tensors take the plain versions; CUDA
-    tensors launch K1's float32 or bf16 entry, by q's type (contiguous,
-    every floating argument of that type), or raise. Every launch adds one
-    to ``rel_attention.launches`` (float32) or ``.launches_bf16``, and a
-    launch with a window or fewer queries than keys also to
-    ``rel_attention.launches_window`` or ``.launches_offset``."""
+    ``rel_attention_stats_ref``; with ``dropout`` those of the undropped
+    P). CPU tensors take the plain versions; CUDA tensors launch K1's
+    float32 or bf16 entry, by q's type (contiguous, every floating argument
+    of that type; bf16 without dropout), or raise. Every launch adds one to
+    ``rel_attention.launches`` (float32) or ``.launches_bf16``, and a
+    launch with a window also to ``rel_attention.launches_window``, one
+    with dropout to ``.launches_dropout`` (its own instantiation) and one
+    with fewer queries than keys and no dropout to ``.launches_offset``."""
     if on_cpu(q, k, v, p, klens):
-        return (rel_attention_ref(q, k, v, p, klens, window, key_start),
+        return (rel_attention_ref(q, k, v, p, klens, window, key_start,
+                                  dropout),
                 *rel_attention_stats_ref(q, k, p, klens, window, key_start))
     entry = _check(q, k, v, p, klens)
+    _no_bf16_dropout(entry, dropout)
     _check_aligned(q, k, v)
     b, h, tq, dk = q.shape
     tk = k.shape[2]
@@ -281,34 +353,41 @@ def rel_attention_fwd(q, k, v, p, klens, window=None, key_start=0):
         err = lib.nsp_rel_attention_f32(
             *(x.data_ptr() for x in (q, k, v, p, klens, o, m, l,
                                      _pair_scratch(k))),
-            b, h, tq, tk, p.shape[-1], dk, *win, stream_of(q))
+            b, h, tq, tk, p.shape[-1], dk, *win, *_drop_args(dropout),
+            stream_of(q))
     raise_on_error(f"rel_attention ({entry})", err)
     _count(rel_attention, entry)
     if window is not None:
         rel_attention.launches_window += 1
-    if tq < tk:
+    if dropout is not None:
+        rel_attention.launches_dropout += 1
+    elif tq < tk:
         rel_attention.launches_offset += 1
     return o, m, l
 
 
-def rel_attention_bwd(q, k, v, p, klens, o, m, l, do, window=None):
-    """(dq, dk, dv, dp) in the inputs' type. CPU tensors take
+def rel_attention_bwd(q, k, v, p, klens, o, m, l, do, window=None,
+                      dropout=None):
+    """(dq, dk, dv, dp) in the inputs' type, for Tq <= Tk. CPU tensors take
     ``rel_attention_bwd_ref``; CUDA tensors launch K1b's float32 or bf16
-    entry, by q's type, or raise. Every launch adds one to
-    ``rel_attention_bwd.launches`` (float32) or ``.launches_bf16``, and one
-    with a window also to ``.launches_window``."""
+    entry, by q's type (bf16 without dropout), or raise. Every launch adds
+    one to ``rel_attention_bwd.launches`` (float32) or ``.launches_bf16``,
+    one with a window also to ``.launches_window``, one with dropout to
+    ``.launches_dropout`` and one with fewer queries than keys and no
+    dropout to ``.launches_offset``."""
     if on_cpu(q, k, v, p, klens, o, m, l, do):
-        return rel_attention_bwd_ref(q, k, v, p, klens, o, m, l, do, window)
+        return rel_attention_bwd_ref(q, k, v, p, klens, o, m, l, do, window,
+                                     dropout)
     entry = _check(q, k, v, p, klens)
-    b, h, t, dk = q.shape
-    if k.shape[2] != t:
-        raise ValueError("rel_attention_bwd: takes as many queries as keys")
+    _no_bf16_dropout(entry, dropout)
+    b, h, tq, dk = q.shape
+    tk = k.shape[2]
     r = p.shape[-1]
     do = do.contiguous()
     check("o", o, q.shape, q.dtype)
     check("do", do, q.shape, q.dtype)
-    check("m", m, (b, h, t))
-    check("l", l, (b, h, t))
+    check("m", m, (b, h, tq))
+    check("l", l, (b, h, tq))
     _check_aligned(q, k, v, do)
     win = _window_args(window, 0)[:3]
     dq, dk_, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
@@ -318,21 +397,26 @@ def rel_attention_bwd(q, k, v, p, klens, o, m, l, do, window=None):
     if entry == "bf16":
         # dp's bucket sums in float32: in shared memory when R <= 16, else
         # in this scratch
-        dp32 = torch.empty((b, h, t, r) if r > SMEM_R else (0,),
+        dp32 = torch.empty((b, h, tq, r) if r > SMEM_R else (0,),
                            dtype=torch.float32, device=q.device)
         err = lib.nsp_rel_attention_bwd_bf16(
             *(x.data_ptr() for x in (q, k, v, p, klens, o, m, l, do, dq, dk_,
                                      dv, dp, dp32, delta)),
-            b, h, t, r, dk, *win, stream_of(q))
+            b, h, tq, tk, r, dk, *win, stream_of(q))
     else:
+        # k, v split first, then q, dO, through one scratch: Tk >= Tq rows
         err = lib.nsp_rel_attention_bwd_f32(
             *(x.data_ptr() for x in (q, k, v, p, klens, o, m, l, do, dq, dk_,
-                                     dv, dp, delta, _pair_scratch(q))),
-            b, h, t, r, dk, *win, stream_of(q))
+                                     dv, dp, delta, _pair_scratch(k))),
+            b, h, tq, tk, r, dk, *win, *_drop_args(dropout), stream_of(q))
     raise_on_error(f"rel_attention_bwd ({entry})", err)
     _count(rel_attention_bwd, entry)
     if window is not None:
         rel_attention_bwd.launches_window += 1
+    if dropout is not None:
+        rel_attention_bwd.launches_dropout += 1
+    elif tq < tk:
+        rel_attention_bwd.launches_offset += 1
     return dq, dk_, dv, dp
 
 
@@ -347,36 +431,40 @@ class RelAttention(torch.autograd.Function):
     """K1 forward, K1b backward; gradients for q, k, v and p."""
 
     @staticmethod
-    def forward(ctx, q, k, v, p, klens, window, key_start):
-        o, m, l = rel_attention_fwd(q, k, v, p, klens, window, key_start)
+    def forward(ctx, q, k, v, p, klens, window, key_start, dropout):
+        o, m, l = rel_attention_fwd(q, k, v, p, klens, window, key_start,
+                                    dropout)
         ctx.save_for_backward(q, k, v, p, klens, o, m, l)
-        ctx.window, ctx.offset = window, (q.shape[2] < k.shape[2]
-                                          or key_start != 0)
+        ctx.window, ctx.key_start, ctx.dropout = window, key_start, dropout
         return o
 
     @staticmethod
     def backward(ctx, do):
-        if ctx.offset:
+        if ctx.key_start != 0:
             raise NotImplementedError(
-                "rel_attention: no backward against cached keys (streaming "
-                "inference only)")
-        return (*rel_attention_bwd(*ctx.saved_tensors, do, ctx.window),
-                None, None, None)
+                "rel_attention: no backward against cached keys with "
+                "masked slots (key_start > 0: streaming inference only)")
+        return (*rel_attention_bwd(*ctx.saved_tensors, do, ctx.window,
+                                   ctx.dropout),
+                None, None, None, None)
 
 
-def rel_attention(q, k, v, p, klens, window=None, key_start=0):
+def rel_attention(q, k, v, p, klens, window=None, key_start=0,
+                  dropout=None):
     """o = softmax(q k^T + p[..., min(|i + Tk - Tq - j|, R-1)], keys outside
-    the window, at or past klens or below ``key_start`` masked) v,
-    differentiable in q, k, v and p (for Tq = Tk and no ``key_start``).
+    the window, at or past klens or below ``key_start`` masked), dropped by
+    ``dropout`` = (rate, key words) when given, times v; differentiable in
+    q, k, v and p (for ``key_start`` 0).
 
     CPU tensors take the plain versions (``rel_attention_ref`` forward,
     ``rel_attention_bwd_ref`` backward); CUDA tensors launch K1 / K1b
     (float32 or bf16 by q's type, contiguous) or raise. Launches are
     counted in ``rel_attention.launches`` and ``rel_attention_bwd.launches``
     (float32 entries) and in their ``launches_bf16``; those with a window
-    (and K1's with fewer queries than keys) in ``launches_window`` (and
-    ``rel_attention.launches_offset``) as well."""
-    return RelAttention.apply(q, k, v, p, klens, window, key_start)
+    in ``launches_window`` as well, those with dropout in
+    ``launches_dropout`` and those with fewer queries than keys and no
+    dropout in ``launches_offset``."""
+    return RelAttention.apply(q, k, v, p, klens, window, key_start, dropout)
 
 
 # p rows a block keeps in shared memory (csrc/rel_attention_common.cuh's
@@ -384,5 +472,7 @@ def rel_attention(q, k, v, p, klens, window=None, key_start=0):
 SMEM_R = 16
 rel_attention.launches = rel_attention.launches_bf16 = 0
 rel_attention.launches_window = rel_attention.launches_offset = 0
+rel_attention.launches_dropout = 0
 rel_attention_bwd.launches = rel_attention_bwd.launches_bf16 = 0
-rel_attention_bwd.launches_window = 0
+rel_attention_bwd.launches_window = rel_attention_bwd.launches_offset = 0
+rel_attention_bwd.launches_dropout = 0

@@ -27,6 +27,12 @@ no accumulation (every microstep emits), no weight decay, no schedule,
 the update ``-lr * g`` of the clipped gradient, and no state (optax's is
 empty).
 
+``Momentum`` is ``optax.sgd(lr, momentum=MOMENTUM, nesterov=)`` in the
+same chain as Adam (the accumulator, the clip, then the update, then the
+weight decay, unscaled by the lr, C1): the trace t <- g + MOMENTUM t and
+the update -lr(count) t, or with nesterov -lr(count) (g + MOMENTUM t) of
+the new trace, as optax's ``trace``.
+
 ``init(params)`` makes the state (moments, the accumulator, the counts),
 which then lives in the object; ``update(grads)`` returns the parameter
 updates (to be scaled by the step's ``lr_scale`` and added) when it emits,
@@ -42,6 +48,7 @@ import torch
 
 Schedule = Callable[[int], float]
 B1, B2, EPS = 0.9, 0.999, 1e-8      # optax.adam's defaults
+MOMENTUM = 0.9                      # the JAX package's sgd momentum
 
 
 class Adam:
@@ -53,6 +60,7 @@ class Adam:
         self.weight_decay = weight_decay
         self.k = max(accum_grad_n_steps, 1)
         self.mu = self.nu = self.acc = None
+        self.name = "adam"
         self.count = 0        # emitted (real) optimizer steps
         self.mini_step = 0    # position in the accumulation cycle
 
@@ -64,9 +72,9 @@ class Adam:
         self.count = 0
         self.mini_step = 0
 
-    @torch.no_grad()
-    def update(self, grads: Sequence[torch.Tensor]
-               ) -> Optional[list[torch.Tensor]]:
+    def _accumulate(self, grads: Sequence[torch.Tensor]) -> bool:
+        """Fold ``grads`` into the running mean; True at the cycle's last
+        microstep (the step emits)."""
         n = self.mini_step
         for a, g in zip(self.acc, grads):
             if n == 0:
@@ -74,7 +82,12 @@ class Adam:
             else:
                 a.add_((g - a) * (1.0 / (n + 1)))
         self.mini_step = (n + 1) % self.k
-        if n != self.k - 1:
+        return n == self.k - 1
+
+    @torch.no_grad()
+    def update(self, grads: Sequence[torch.Tensor]
+               ) -> Optional[list[torch.Tensor]]:
+        if not self._accumulate(grads):
             return None
         g = clip_by_global_norm(self.acc, self.clip_grad_norm)
         lr = self.schedule(self.count)
@@ -111,15 +124,69 @@ class Adam:
                 "the checkpoint holds the SGD state of a run past its "
                 "convert_to_sgd_epoch; the conf's optimizer (Adam) cannot "
                 "restore it, as in the JAX train CLI (see ROADMAP C10)")
-        for key, mine in (("mu", self.mu), ("nu", self.nu),
-                          ("acc", self.acc)):
+        if state.get("optimizer", self.name) != self.name:
+            raise ValueError(f"not the state of {self.name}: "
+                             f"{state['optimizer']}")
+        self._load(state, names, self._moments())
+        self.count = int(state["count"])
+        self.mini_step = int(state["mini_step"])
+
+    def _moments(self) -> tuple:
+        return (("mu", self.mu), ("nu", self.nu), ("acc", self.acc))
+
+    @staticmethod
+    def _load(state: dict, names: Sequence[str], moments) -> None:
+        for key, mine in moments:
             missing = set(names) - set(state[key])
             if missing:
                 raise KeyError(f"optimizer state {key} lacks {sorted(missing)}")
             for name, t in zip(names, mine):
                 t.copy_(state[key][name])
-        self.count = int(state["count"])
-        self.mini_step = int(state["mini_step"])
+
+
+class Momentum(Adam):
+    """``optax.sgd(lr, momentum=MOMENTUM, nesterov=nesterov)`` in Adam's
+    chain (accumulation, clip, update, weight decay); its state is the
+    trace instead of the two moments."""
+
+    def __init__(self, lr: Union[float, Schedule] = 1e-3,
+                 nesterov: bool = False, clip_grad_norm: float = 5.0,
+                 accum_grad_n_steps: int = 1, weight_decay: float = 0.0):
+        super().__init__(lr, clip_grad_norm, accum_grad_n_steps,
+                         weight_decay)
+        self.nesterov = nesterov
+        self.name = "nesterov" if nesterov else "momentum"
+
+    def init(self, params: Sequence[torch.Tensor]) -> None:
+        super().init(params)
+        self.trace, self.mu, self.nu = self.mu, None, None
+
+    @torch.no_grad()
+    def update(self, grads: Sequence[torch.Tensor]
+               ) -> Optional[list[torch.Tensor]]:
+        if not self._accumulate(grads):
+            return None
+        g = clip_by_global_norm(self.acc, self.clip_grad_norm)
+        lr = self.schedule(self.count)
+        self.count += 1
+        updates = []
+        for t, x, p in zip(self.trace, g, self.params):
+            t.mul_(MOMENTUM).add_(x)
+            u = x + MOMENTUM * t if self.nesterov else t.clone()
+            u = -lr * u
+            if self.weight_decay > 0:
+                u = u + (-self.weight_decay) * p
+            updates.append(u)
+        return updates
+
+    def state_dict(self, names: Sequence[str]) -> dict:
+        return {"optimizer": self.name, "count": self.count,
+                "mini_step": self.mini_step,
+                "trace": dict(zip(names, self.trace)),
+                "acc": dict(zip(names, self.acc))}
+
+    def _moments(self) -> tuple:
+        return (("trace", self.trace), ("acc", self.acc))
 
 
 class SGD:
@@ -168,10 +235,15 @@ def build_optimizer(optimizer: str = "adam",
                     lr: float = 1e-3, weight_decay: float = 0.0,
                     clip_grad_norm: float = 5.0, schedule=None,
                     accum_grad_n_steps: int = 1) -> Union[Adam, SGD]:
-    """'adam' and 'noam' (adam + a schedule, e.g. ``noam_schedule``), with
+    """'adam' and 'noam' (adam + a schedule, e.g. ``noam_schedule``),
+    'momentum' and 'nesterov' (optax's sgd with ``MOMENTUM``), each with
     weight decay when ``weight_decay`` > 0, and 'sgd' at a constant lr
     with neither accumulation nor weight decay, as the JAX CLI's switch
     builds it; the others raise."""
+    if optimizer in ("momentum", "nesterov"):
+        return Momentum(schedule if schedule is not None else lr,
+                        optimizer == "nesterov", clip_grad_norm,
+                        accum_grad_n_steps, weight_decay)
     if optimizer == "sgd":
         if schedule is not None or weight_decay > 0 or accum_grad_n_steps > 1:
             raise NotImplementedError(
@@ -180,7 +252,7 @@ def build_optimizer(optimizer: str = "adam",
         return SGD(lr, clip_grad_norm)
     if optimizer not in ("adam", "noam", "noam_adam"):
         raise NotImplementedError(
-            f"optimizer {optimizer!r} is not ported yet (adam, noam and "
-            f"sgd only), see ROADMAP")
+            f"optimizer {optimizer!r} is not ported yet (adam, noam, "
+            f"momentum, nesterov and sgd only), see ROADMAP")
     return Adam(schedule if schedule is not None else lr, clip_grad_norm,
                 accum_grad_n_steps, weight_decay)

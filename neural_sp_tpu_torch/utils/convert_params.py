@@ -30,6 +30,13 @@ Layout rules (flax -> torch):
     ``pred_projs.1`` (its ``w_pred`` has no bias), and nested ones
     ``tails_1_0`` -> ``tails.1.0``;
   * a ``LinearGLUBlock``'s ``glu/Dense_0`` -> ``glu.fc``;
+  * the language models: a TransformerLM's and a Transformer-XL's blocks
+    ``blocks_3`` (``self_attn``, ``ff``, the norms) as above, the XL's
+    attention ``u_bias`` / ``v_bias`` [H, d_k] as they are and its
+    ``w_pos`` (no bias) by the Dense rule; a GCNN's blocks (``bn_in``,
+    ``conv`` [K, I, O] -> [O, I, K], ``bn_out``) and its width changes
+    ``resizes_2`` -> ``resizes.2`` (a block whose width does not change
+    has none, in both trees);
   * a free parameter at the top of the tree (an RNNLM's ``output_bias``)
     keeps its name, and so do MoChA's energy parameters ``v`` [H, A] and
     ``r`` [H] (``step/attn/monotonic_energy/v`` ->
@@ -78,7 +85,8 @@ def _torch_name(path: str) -> str:
     parts = []
     for p in path.split("/"):
         m = re.fullmatch(
-            r"((?:pred_)?(?:blocks|cells|rnns|projs|tails))((?:_\d+)+)", p)
+            r"((?:pred_)?(?:blocks|cells|rnns|projs|tails|resizes))((?:_\d+)+)",
+            p)
         if m:
             parts += [m.group(1)] + m.group(2).split("_")[1:]
         elif re.fullmatch(r"(block|rnn|proj)\d+", p):
@@ -111,6 +119,8 @@ def _leaf(path: str, x: np.ndarray) -> tuple[str, np.ndarray]:
     if name == "bias":
         return f"{tname}.bias", x
     if name in ("v", "r"):              # MoChA's energies
+        return f"{tname}.{name}", x
+    if name in ("u_bias", "v_bias"):    # the Transformer-XL's global biases
         return f"{tname}.{name}", x
     raise ValueError(f"{path}: unknown leaf name {name!r}")
 

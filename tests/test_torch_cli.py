@@ -392,7 +392,7 @@ def test_lstm_mocha_conf_trains_and_evaluates(runs, monkeypatch):
 
     def capture_init(args):
         model = jax_build_cli(args)
-        init = model.init
+        init = jax.jit(model.init)      # one compile, as _jitted_init
 
         def recorded(*a, **kw):
             out = init(*a, **kw)
@@ -486,7 +486,7 @@ def test_transformer_conf_trains_and_evaluates(runs, monkeypatch):
 
     def capture_init(args):
         model = jax_build_cli(args)
-        init = model.init
+        init = jax.jit(model.init)      # one compile, as _jitted_init
 
         def recorded(*a, **kw):
             out = init(*a, **kw)

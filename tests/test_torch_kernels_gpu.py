@@ -1050,6 +1050,78 @@ def test_rel_attention_offset_kernel(cuda, b, h, tq, tk, dk, r, key_start,
     _close(l, l_ref, "l")
 
 
+# The Transformer-XL's attention over its memory: Tq queries of a segment
+# against Tk = mem + Tq keys under the causal window (query i at key
+# position i + Tk - Tq), unclamped (R = Tk > 16: p read through L1) or
+# clamped (R 11), Tq and Tk not multiples of the tiles; with and without
+# dropout of the attention probabilities; and Tq = Tk with dropout.
+MEMORY_SHAPES = [
+    # b, h, tq, tk, dk, r, rate
+    (2, 4, 70, 140, 64, 140, 0.0),
+    (2, 4, 70, 140, 64, 140, 0.1),
+    (3, 2, 45, 93, 32, 11, 0.3),
+    (1, 8, 1, 201, 64, 201, 0.0),        # one decode step against memory
+    (2, 3, 129, 129, 16, 129, 0.1),      # no memory yet
+    (4, 8, 200, 400, 64, 400, 0.1),      # the swbd recipe's segment
+]
+
+
+@pytest.mark.parametrize("b,h,tq,tk,dk,r,rate", MEMORY_SHAPES)
+def test_rel_attention_memory_kernels(cuda, b, h, tq, tk, dk, r, rate):
+    from neural_sp_tpu_torch.ops.kernels.rel_attention import (
+        rel_attention_bwd, rel_attention_bwd_ref, rel_attention_fwd,
+        rel_attention_stats_ref)
+    from neural_sp_tpu_torch.ops.masks import CAUSAL
+    rng = np.random.RandomState(tq + tk)
+    q = _randn(rng, cuda, b, h, tq, dk, scale=dk ** -0.5)
+    k, v = (_randn(rng, cuda, b, h, tk, dk) for _ in range(2))
+    p = _randn(rng, cuda, b, h, tq, r, scale=dk ** -0.5)
+    do = _randn(rng, cuda, b, h, tq, dk)
+    kl = torch.full((b,), tk, dtype=torch.int32, device=cuda)
+    drop = (rate, (0x9E3779B9 + tq, 12345 + tk)) if rate else None
+    before = (rel_attention.launches_dropout,
+              rel_attention_bwd.launches_offset)
+    o, m, l = rel_attention_fwd(q, k, v, p, kl, CAUSAL, dropout=drop)
+    _close(o, rel_attention_ref(q, k, v, p, kl, CAUSAL, dropout=drop), "o")
+    m_ref, l_ref = rel_attention_stats_ref(q, k, p, kl, CAUSAL)
+    _close(m, m_ref, "m")
+    _close(l, l_ref, "l")
+    got = rel_attention_bwd(q, k, v, p, kl, o, m, l, do, CAUSAL, drop)
+    torch.cuda.synchronize()
+    assert rel_attention.launches_dropout == before[0] + bool(rate)
+    assert rel_attention_bwd.launches_offset == before[1] + (
+        tq < tk and not rate)
+    want = rel_attention_bwd_ref(q, k, v, p, kl, o, m, l, do, CAUSAL, drop)
+    for name, x, y in zip(("dq", "dk", "dv", "dp"), got, want):
+        _close(x, y, name)
+    again = rel_attention_bwd(q, k, v, p, kl, o, m, l, do, CAUSAL, drop)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+@pytest.mark.parametrize("tq,tk", [(70, 140), (33, 33)])
+def test_rel_attention_bf16_memory_kernels(cuda, tq, tk):
+    """The bf16 entries take fewer queries than keys (K1b too), and raise
+    for dropout."""
+    from neural_sp_tpu_torch.ops.kernels.rel_attention import (
+        rel_attention_bwd, rel_attention_bwd_ref, rel_attention_fwd)
+    from neural_sp_tpu_torch.ops.masks import CAUSAL
+    rng = np.random.RandomState(tq)
+    b, h, dk = 2, 4, 64
+    q = _randn(rng, cuda, b, h, tq, dk, scale=dk ** -0.5).bfloat16()
+    k, v = (_randn(rng, cuda, b, h, tk, dk).bfloat16() for _ in range(2))
+    p = _randn(rng, cuda, b, h, tq, tk, scale=dk ** -0.5).bfloat16()
+    do = _randn(rng, cuda, b, h, tq, dk).bfloat16()
+    kl = torch.full((b,), tk, dtype=torch.int32, device=cuda)
+    o, m, l = rel_attention_fwd(q, k, v, p, kl, CAUSAL)
+    _close_bf16(o, rel_attention_ref(q, k, v, p, kl, CAUSAL), "o")
+    got = rel_attention_bwd(q, k, v, p, kl, o, m, l, do, CAUSAL)
+    want = rel_attention_bwd_ref(q, k, v, p, kl, o, m, l, do, CAUSAL)
+    for name, x, y in zip(("dq", "dk", "dv", "dp"), got, want):
+        _close_bf16(x, y, name)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        rel_attention_fwd(q, k, v, p, kl, CAUSAL, dropout=(0.1, (1, 2)))
+
+
 # K5: the transducer's lattice, a block per utterance and a thread per
 # label position (U + 1 <= 1024): the recipe's shape, ragged lengths with a
 # row of U 0 and a row of T 1, U > T, the widest block, more blocks than

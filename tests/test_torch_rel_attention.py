@@ -171,3 +171,81 @@ def test_relative_mha_grads_match_jax(t):
         scale = float(np.abs(w).max())
         np.testing.assert_allclose(got.numpy(), w, rtol=0,
                                    atol=ATOL * scale + 1e-5, err_msg=name)
+
+
+# ------------------------- K1 / K1b plain: memory keys and dropout (XL)
+@pytest.mark.parametrize("tq,tk,r,rate", [
+    (5, 9, 9, 0.0),         # a segment against memory, unclamped (R = Tk)
+    (5, 9, 9, 0.3),         # ... with dropout of the probabilities
+    (4, 11, 3, 0.5),        # clamped table
+    (1, 7, 7, 0.2),         # one query: a decode step against memory
+    (6, 6, 6, 0.4),         # no memory yet
+])
+def test_rel_attention_memory_plain_backward_matches_autograd(tq, tk, r,
+                                                              rate):
+    """Tq < Tk under the causal window (query i at key i + Tk - Tq), with
+    and without dropout: the written-out adjoint against autograd through
+    the plain forward, float64; the autograd function takes both on CPU
+    tensors."""
+    from neural_sp_tpu_torch.ops.kernels.rel_attention import (
+        rel_attention_bwd_ref, rel_attention_stats_ref)
+    from neural_sp_tpu_torch.ops.masks import CAUSAL
+    rng = np.random.RandomState(tq * tk)
+
+    def f(*shape):
+        return torch.from_numpy(rng.randn(*shape)).requires_grad_()
+    b, h, dk = 2, 3, 8
+    q, p = f(b, h, tq, dk), f(b, h, tq, r)
+    k, v = f(b, h, tk, dk), f(b, h, tk, dk)
+    kl = torch.full((b,), tk, dtype=torch.int32)
+    drop = (rate, (0x9E3779B9, 12345 + tq)) if rate else None
+    o = rel_attention_ref(q, k, v, p, kl, CAUSAL, dropout=drop)
+    do = torch.from_numpy(rng.randn(b, h, tq, dk))
+    want = torch.autograd.grad(o, (q, k, v, p), do)
+    with torch.no_grad():
+        m, l = rel_attention_stats_ref(q, k, p, kl, CAUSAL)
+        got = rel_attention_bwd_ref(q, k, v, p, kl, o, m, l, do, CAUSAL,
+                                    drop)
+    for name, x, y in zip(("dq", "dk", "dv", "dp"), got, want):
+        torch.testing.assert_close(x, y, rtol=1e-9, atol=1e-10, msg=name)
+    o2 = rel_attention(q, k, v, p, kl, CAUSAL, 0, drop)
+    got2 = torch.autograd.grad(o2, (q, k, v, p), do)
+    torch.testing.assert_close(o2, o)
+    for x, y in zip(got2, want):
+        torch.testing.assert_close(x, y, rtol=1e-9, atol=1e-10)
+
+
+@pytest.mark.parametrize("key", [(0x12345678, 0x9ABCDEF0), (7, 0xFFFFFFFF)])
+def test_attention_dropout_is_jax_fast_uniform(key):
+    """The keep mask is JAX's ``fast_bernoulli(key, 1 - rate)`` bit for
+    bit over the row-major [B, H, Tq, Tk] index, and the plain K1 with
+    dropout is where(mask, P / keep, 0) v, as the JAX module's Dropout on
+    its attention weights."""
+    from neural_sp_tpu.ops.dropout import fast_uniform as jax_fast_uniform
+    from neural_sp_tpu_torch.ops.dropout import fast_uniform
+    from neural_sp_tpu_torch.ops.kernels.rel_attention import attention_keep
+    from neural_sp_tpu_torch.ops.masks import CAUSAL
+    shape, rate = (2, 3, 5, 9), 0.3
+    jkey = jnp.asarray(key, jnp.uint32)
+    np.testing.assert_array_equal(
+        fast_uniform(key, shape).numpy(),
+        np.asarray(jax_fast_uniform(jkey, shape)))
+    keep = np.asarray(jax_fast_uniform(jkey, shape)) < 1.0 - rate
+    np.testing.assert_array_equal(
+        attention_keep((rate, key), shape).numpy(), keep)
+    rng = np.random.RandomState(9)
+    q, p = rng.randn(2, 3, 5, 8), rng.randn(2, 3, 5, 9)
+    k, v = rng.randn(2, 3, 9, 8), rng.randn(2, 3, 9, 8)
+    kl = torch.full((2,), 9, dtype=torch.int32)
+    t = [torch.from_numpy(x) for x in (q, k, v, p)]
+    # P from the dense formula: s = q k^T + p[|i + 4 - j|], causal
+    s = np.einsum("bhid,bhjd->bhij", q, k)
+    i, j = np.arange(5)[:, None] + 4, np.arange(9)[None]
+    s = s + np.take_along_axis(p, np.broadcast_to(np.abs(i - j),
+                                                  (2, 3, 5, 9)), -1)
+    s = np.where(j <= i, s, -np.inf)
+    prob = np.exp(s - s.max(-1, keepdims=True))
+    prob /= prob.sum(-1, keepdims=True)
+    want = np.where(keep, prob / (1 - rate), 0.0) @ v
+    got = rel_attention_ref(*t, kl, CAUSAL, dropout=(rate, key))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-10, atol=1e-12)
