@@ -255,8 +255,9 @@ Phases (any failure raises and the script exits non-zero):
      rules), timed in turns with efficient SDPA (``dropout_p`` 0.1, its
      own mask) and its backward, with the bound of the window's work;
      (13a) the swbd Transformer-XL conf (``LM_XL_CONF``: 12 layers, d 512,
-     8 heads, d_ff 2048, bptt 200, mem_len 200, B 24; full width and
-     depth, 46,107,648 parameters): a window against the memory of the
+     8 heads, d_ff 2048, bptt 200, mem_len 200, B 24; full width, depth
+     cut to LM_XL_DEPTH, 46,107,648 parameters uncut): a window against
+     the memory of the
      window before, its loss and every gradient through the kernels
      against the same with the plain versions patched in, in ``eval()``
      and ``train()`` mode (dropout on, one generator seed), by phase 6's
@@ -2360,10 +2361,11 @@ def phase_sampled_cli(torch, root: Path, corpus: dict) -> dict:
     return out
 
 
-def train_microstep(torch, model, batch, plain=False):
+def train_microstep(torch, model, batch, plain=False, **sub_labels):
     """(loss, {leaf: gradient}) of one train() microstep in float32 from a
     generator of seed SEED, through the kernels or, with ``plain``, the
-    plain versions patched in (as ``eval_microstep``)."""
+    plain versions patched in (as ``eval_microstep``); ``sub_labels`` the
+    sub-tasks' labels (phase 14)."""
     from contextlib import ExitStack
     from neural_sp_tpu_torch.parallel.mesh import (compute_loss,
                                                    deterministic_cudnn)
@@ -2375,7 +2377,8 @@ def train_microstep(torch, model, batch, plain=False):
                 stack.enter_context(mock.patch.object(target, name, value))
         stack.enter_context(deterministic_cudnn())
         loss, _ = compute_loss(model, None, *batch,
-                               torch.Generator().manual_seed(SEED))
+                               torch.Generator().manual_seed(SEED),
+                               **sub_labels)
         loss.backward()
     grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
     model.zero_grad(set_to_none=True)
@@ -2890,15 +2893,23 @@ def phase_mocha_serve(torch, model, xs, xlens) -> dict:
     return out
 
 
-def mocha_microstep(torch, model, batch, seed=SEED):
-    """One train() microstep from a generator of seed ``seed``: (loss,
-    {leaf: gradient as float64 on the host}, scalar observations)."""
+def mocha_microstep(torch, model, batch, seed=SEED, compute_dtype=None,
+                    plain=False):
+    """One train() microstep from a generator of seed ``seed`` under
+    ``compute_dtype`` (None: the model's own), through the kernels or,
+    with ``plain``, the plain versions patched in: (loss, {leaf: gradient
+    as float64 on the host}, scalar observations)."""
+    from contextlib import ExitStack
     from neural_sp_tpu_torch.parallel.mesh import (compute_loss,
                                                    deterministic_cudnn)
     model.train()
     model.zero_grad(set_to_none=True)
-    with deterministic_cudnn():         # as the train step runs
-        loss, obs = compute_loss(model, None, *batch,
+    with ExitStack() as stack:
+        if plain:
+            for target, name, value in plain_patches(torch):
+                stack.enter_context(mock.patch.object(target, name, value))
+        stack.enter_context(deterministic_cudnn())   # as the step runs
+        loss, obs = compute_loss(model, compute_dtype, *batch,
                                  torch.Generator().manual_seed(seed))
         loss.backward()
     grads = {n: p.grad.detach().double().cpu()
@@ -5116,6 +5127,9 @@ def phase_transducer(torch, rng, root: Path, xs, xlens) -> dict:
 # CLIs, at the recipe confs' full width and depth in float32, on a
 # synthesized text corpus over phase 7's 10k-word dictionary.
 LM_XL_CONF = "examples/swbd/conf/lm/transformer_xl.yaml"
+# the XL's depth cut for the script's time limit (PR 18: 12 -> 6 layers;
+# its width, bptt and memory as the conf's)
+LM_XL_DEPTH = 6
 LM_CONFS = {"transformer": "examples/swbd/conf/lm/transformerlm.yaml",
             "gated_conv": "examples/wsj/conf/lm/gated_convlm.yaml",
             "rnnlm": "examples/librispeech/conf/lm/rnnlm_6L.yaml"}
@@ -5180,10 +5194,14 @@ def phase_lm_kernels(torch, rng) -> dict:
 
 
 def lm_args(conf: str, vocab: int):
+    """``conf``'s args with ``vocab``; the XL's at LM_XL_DEPTH."""
     from types import SimpleNamespace
     import yaml
-    return SimpleNamespace(**yaml.safe_load((ROOT / conf).read_text()),
+    args = SimpleNamespace(**yaml.safe_load((ROOT / conf).read_text()),
                            vocab=vocab)
+    if conf == LM_XL_CONF:
+        args.n_layers = LM_XL_DEPTH
+    return args
 
 
 def xl_microstep(torch, lm, xi, xo, mems, seed=None, plain=False,
@@ -5332,8 +5350,9 @@ def lm_cli(torch, root: Path, text: dict, dict_path: str, name: str,
                      "launches": launches()}
         return res
 
+    depth = ["--n_layers", str(LM_XL_DEPTH)] if conf == LM_XL_CONF else []
     run("train", lm_train.main, ["--config", str(ROOT / conf)] + data
-        + list(LM_TRAIN))
+        + list(LM_TRAIN) + depth)
     if resume:
         run("resumed", lm_train.main, [
             "--config", f"{exp}/conf.yml", "--n_epochs", "2", "--resume",
@@ -5443,6 +5462,554 @@ def phase_lm(torch, rng, root: Path, corpus: dict) -> dict:
     return out
 
 
+# ---- phase 11f: bf16 training with MoChA, the repo's streaming conf ------
+# The train CLI on STREAM_CONF as written (``train_dtype: bfloat16``; MoChA's
+# alignment in float32 inside the bf16 step, ROADMAP C39) at XF_DEPTH over
+# phase 7's corpus, its streaming eval CLI, and one bf16 train() microstep
+# held to the same microstep on the CPU in float64: the encoder + CTC part
+# by phase 6b's rule (the plain versions' bf16 microstep on the card as the
+# measure of bf16's cost), the whole microstep by 11d's gates (C29).
+STREAM_BF16_KERNELS = ("rel_attention_bf16", "rel_attention_bwd_bf16",
+                       "rel_attention_window", "rel_attention_bwd_window",
+                       "ctc_loss", "ctc_loss_bwd")
+
+
+def bf16_against_float64(torch, model, cpu, on_card, on_cpu, tag) -> dict:
+    """11f: the bf16 microstep (train(), one seed) of ``model`` on the card
+    against ``cpu``'s float64 one: the whole microstep by WHOLE_LOSS_RTOL /
+    WHOLE_GRAD_MULT, with the plain versions' bf16 microstep on the card as
+    the yardstick (11d's, the CPU's float32 microstep, lies 3e-7 from
+    float64 on the median leaf, where bf16's 8-bit mantissa puts any bf16
+    microstep near 1e-2; it is logged beside), then with ``ctc_weight`` 1
+    (the encoder and the CTC head: every kernel
+    of the path) each leaf's distance from float64 within
+    BF16_PATH_FACTOR times the plain versions' bf16 microstep's plus phase
+    6's float32 tolerance (6b's rule, float64 in place of the plain
+    float32 microstep); every loss finite."""
+    import numpy as np
+    from neural_sp_tpu_torch.ops.kernels import launches, reset_launches
+    bf = torch.bfloat16
+    reset_launches()
+    loss, grads, obs = mocha_microstep(torch, model, on_card,
+                                       compute_dtype=bf)
+    counts = launches()
+    loss16, grads16, _ = mocha_microstep(torch, model, on_card,
+                                         compute_dtype=bf, plain=True)
+    loss32, grads32, _ = mocha_microstep(
+        torch, cpu, tuple(x.float() if x.is_floating_point() else x
+                          for x in on_cpu))
+    cpu.double()
+    loss64, grads64, obs64 = mocha_microstep(torch, cpu, on_cpu)
+    expect(all(np.isfinite(v) for v in obs.values()), f"{tag} losses {obs}")
+    for name in ("rel_attention_bf16", "rel_attention_bwd_bf16"):
+        expect(counts[name] > 0, f"{name} never launched in {tag}'s bf16 "
+               f"microstep: {counts}")
+
+    def dist(g):
+        return {n: float((g[n] - grads64[n]).norm() /
+                         max(float(grads64[n].norm()), 1e-30))
+                for n in grads64 if not n.endswith(ZERO_GRAD_LEAF)}
+
+    d_card, d_plain16, d_cpu32 = dist(grads), dist(grads16), dist(grads32)
+    med = lambda d: float(np.median(list(d.values())))  # noqa: E731
+    whole = {"loss_rel_err": abs(loss - loss64) / abs(loss64),
+             "loss_rel_err_plain_bf16": abs(loss16 - loss64) / abs(loss64),
+             "loss_rel_err_cpu_float32": abs(loss32 - loss64) / abs(loss64),
+             "obs": obs, "obs_float64": obs64,
+             "median_leaf_rel_dist": med(d_card),
+             "median_leaf_rel_dist_plain_bf16": med(d_plain16),
+             "median_leaf_rel_dist_cpu_float32": med(d_cpu32),
+             "max_leaf_rel_dist": max(d_card.values()),
+             "max_leaf_rel_dist_plain_bf16": max(d_plain16.values()),
+             "launches": counts}
+    log(f"[{tag}] the whole bf16 microstep: loss rel "
+        f"{whole['loss_rel_err']:.2e} of float64 (plain bf16 "
+        f"{whole['loss_rel_err_plain_bf16']:.2e}, CPU float32 "
+        f"{whole['loss_rel_err_cpu_float32']:.2e}); median leaf |g - g64| /"
+        f" |g64| {whole['median_leaf_rel_dist']:.3e} (plain bf16 "
+        f"{whole['median_leaf_rel_dist_plain_bf16']:.3e}, CPU float32 "
+        f"{whole['median_leaf_rel_dist_cpu_float32']:.3e}), max "
+        f"{whole['max_leaf_rel_dist']:.3e} (plain bf16 "
+        f"{whole['max_leaf_rel_dist_plain_bf16']:.3e}); {obs}; launches "
+        f"{counts}")
+    expect(whole["loss_rel_err"] <= WHOLE_LOSS_RTOL,
+           f"{tag}: the bf16 microstep's loss {whole['loss_rel_err']:.2e} "
+           f"of float64")
+    expect(whole["median_leaf_rel_dist"] <= WHOLE_GRAD_MULT *
+           whole["median_leaf_rel_dist_plain_bf16"],
+           f"{tag}: the bf16 microstep's gradients, median "
+           f"{whole['median_leaf_rel_dist']:.3e} from float64")
+    weight = model.ctc_weight
+    for m in (model, cpu):
+        m.set_weights(ctc_weight=1.0)
+    try:
+        loss, grads, _ = mocha_microstep(torch, model, on_card,
+                                         compute_dtype=bf)
+        loss16, grads16, _ = mocha_microstep(torch, model, on_card,
+                                             compute_dtype=bf, plain=True)
+        loss64, grads64, _ = mocha_microstep(torch, cpu, on_cpu)
+    finally:
+        for m in (model, cpu):
+            m.set_weights(ctc_weight=weight)
+    g_max = max(float(g.abs().max()) for g in grads64.values())
+    leaves = {}
+    for name, g in grads.items():
+        ref, ref16 = grads64[name], grads16[name]
+        per_element = GRAD_FLOOR * g_max if name.endswith(ZERO_GRAD_LEAF) \
+            else GRAD_RTOL * float(ref.abs().max())
+        cost = float((ref16 - ref).norm())
+        tol = BF16_PATH_FACTOR * cost + per_element * ref.numel() ** 0.5
+        err = float((g - ref).norm())
+        leaves[name] = (err / tol if err else 0.0, err, cost)
+    ranked = sorted(leaves.items(), key=lambda kv: -kv[1][0])
+    loss_tol = BF16_PATH_FACTOR * abs(loss16 - loss64) + \
+        LOSS_RTOL * abs(loss64)
+    log(f"[{tag}] encoder + CTC at bf16: loss kernels {loss:.6f} plain bf16 "
+        f"{loss16:.6f} float64 {loss64:.6f} (tolerance {loss_tol:.3e})")
+    for name, (share, err, cost) in ranked[:4]:
+        log(f"[{tag}]   {name}: {share:.3f} of its tolerance (|kernels - "
+            f"f64| {err:.3e}, |plain bf16 - f64| {cost:.3e}, L2)")
+    expect(abs(loss - loss64) <= loss_tol, f"{tag} encoder + CTC loss")
+    expect(ranked[0][1][0] <= 1.0, f"{tag} encoder + CTC gradient "
+           f"{ranked[0][0]} outside tolerance")
+    return {"whole_microstep": whole, "encoder_ctc": {
+        "loss": loss, "loss_plain_bf16": loss16, "loss_float64": loss64,
+        "worst_grad": ranked[0][1][0], "worst_grad_leaf": ranked[0][0],
+        "worst_leaves": dict(ranked[:4])}}
+
+
+def phase_stream_bf16(torch, root: Path, corpus: dict, xs, xlens) -> dict:
+    """11f: the streaming conf trained at its own bf16 through the train
+    CLI (one epoch, accumulation 2, at XF_DEPTH: the bf16 entries of K1 /
+    K1b with the chunk window must run), evaluated with
+    ``--recog_streaming`` on its checkpoint, and its bf16 microstep held
+    (``bf16_against_float64``)."""
+    import numpy as np
+    from neural_sp_tpu_torch.bin.args import load_config
+    from neural_sp_tpu_torch.models.speech2text import build_speech2text
+    make = "uni_conformer_mocha_streaming_args"
+    t0 = time.perf_counter()
+    out = {"cli": stream_cli(torch, root, corpus, STREAM_CONF, "11f", True,
+                             {"streaming": STREAM_EVAL}, STREAM_BF16_KERNELS,
+                             lm=False, depth=depth_flags(make))}
+    conf = load_config(str(root / f"exp_{Path(STREAM_CONF).stem}" /
+                           "conf.yml"))
+    expect(conf["train_dtype"] == "bfloat16", f"11f: {conf['train_dtype']}")
+    expect(out["cli"]["eval_streaming"]["launches"][
+        "rel_attention_offset"] > 0,
+        "K1 never ran against cached keys in 11f's streaming eval CLI")
+    out["cli_wall_s"] = time.perf_counter() - t0
+    model = xf_model(torch, make)
+    cpu = build_speech2text(xf_args(make), device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    x, xl = torch.from_numpy(xs), torch.from_numpy(xlens)
+    ys, ylens = mocha_labels(torch, np.random.default_rng(SEED + 9),
+                             model.dec_fwd.vocab)
+    on_card = tuple(v.to(DEVICE) for v in (x, xl, ys, ylens))
+    out["hold"] = bf16_against_float64(torch, model, cpu, on_card,
+                                       (x.double(), xl, ys, ylens), "11f")
+    out["launches"] = {k: out["cli"]["train"]["launches"][k] +
+                       out["cli"]["eval_streaming"]["launches"][k] +
+                       out["hold"]["whole_microstep"]["launches"][k]
+                       for k in out["cli"]["train"]["launches"]}
+    # every K1 launch of the path has the chunk window: the bf16 ones of
+    # the training microsteps, the float32 ones of the dev loss
+    train = out["cli"]["train"]["launches"]
+    expect(train["rel_attention_window"] == train["rel_attention_bf16"] +
+           train["rel_attention"], f"11f launches {train}")
+    del model, cpu
+    torch.cuda.empty_cache()
+    out["phase_wall_s"] = time.perf_counter() - t0
+    return out
+
+
+# ---- phase 14: hierarchical multi-task training ---------------------------
+# 14a: the AISHELL hierarchical Conformer-LAS (MTL_CONF: 12 conformer
+# layers of d 256 / 4 heads / d_ff 1024, max_pools after layers 4 and 8, a
+# CTC-only sub1 head tapped after layer 6 (T / 4), LSTM-1024 LAS, CTC 0.3
+# with fc 512, ss_prob 0.2), float32 (the conf sets no train_dtype), full
+# width and depth. 14b: the SWBD three-task BLSTM-LAS (MTL3_CONF: BLSTM-512
+# summed, taps after layers 4 and 3 with task-specific layers, two CTC
+# sub-heads, LSTM-1024 LAS, no main CTC), full width, depth 6 -> 4 (both
+# taps kept). Both over MTL_UTTS utterances whose transcripts are short
+# enough that every row's characters fit the deepest tap's CTC limit,
+# words (V 10,000) for the main task and characters for the sub-tasks.
+MTL_CONF = "examples/aishell/conf/asr/conformer_kernel15_clamp10_hie_" \
+    "subsample8_las_ln_2mtl.yaml"
+MTL3_CONF = "examples/swbd/conf/asr/blstm_las_3mtl.yaml"
+MTL3_DEPTH = ("--enc_n_layers", "4")
+# the AISHELL conf's parameters at vocab 10,000 for every task, as the JAX
+# package counts them (tests/test_torch_mtl.py::test_mtl_recipe_conf_builds)
+MTL_PARAMS = 51104170
+MTL_UTTS = {"train": 64, "dev": 8, "test": 4}
+MTL_WORDS = (2, 6)         # words per transcript: <= 35 characters
+MTL_OVERRIDES = ("--n_epochs", "2", "--accum_grad_n_steps", "2",
+                 "--unit", "word")
+MTL_EVAL = ("--recog_beam_width", "10", "--recog_ctc_weight", "0.3",
+            "--recog_n_average", "2")
+MTL_TRAIN_KERNELS = ("rel_attention", "rel_attention_bwd", "las_step",
+                     "las_scan", "las_scan_bwd", "ctc_loss", "ctc_loss_bwd")
+MTL3_TRAIN_KERNELS = ("las_step", "las_scan", "las_scan_bwd", "ctc_loss",
+                      "ctc_loss_bwd")
+
+
+def mtl_corpus(root: Path, utts: dict) -> dict:
+    """``synth_corpus``'s shape with transcripts of MTL_WORDS words over
+    CLI_VOCAB's dictionary and a character dictionary of their text (its
+    words are ``w`` and four digits)."""
+    import numpy as np
+    rng = np.random.default_rng(1)
+    words = [f"w{i:04d}" for i in range(CLI_VOCAB - 4)]
+    (root / "feat").mkdir(parents=True, exist_ok=True)
+    paths = {"dict": str(root / "dict_word.txt"),
+             "dict_char": str(root / "dict_char.txt")}
+    (root / "dict_word.txt").write_text(
+        "".join(f"{w} {i + 4}\n" for i, w in enumerate(words)))
+    (root / "dict_char.txt").write_text("".join(
+        f"{c} {i + 4}\n" for i, c in enumerate(["<space>", "w"] +
+                                               [str(d) for d in range(10)])))
+    for name, n in utts.items():
+        rows = ["utt_id\tspeaker\tfeat_path\txlen\txdim\ttext\ttoken_id"
+                "\tylen\tydim"]
+        for i in range(n):
+            t = int(rng.integers(700, 1601))
+            path = root / "feat" / f"{name}_{i:03d}.npy"
+            np.save(path, rng.standard_normal((t, 80)).astype("float32"))
+            ids = rng.integers(0, CLI_VOCAB - 4,
+                               int(rng.integers(*MTL_WORDS)))
+            rows.append("\t".join((
+                f"{name}_{i:03d}", f"spk{i % 4}", str(path), str(t), "80",
+                " ".join(words[j] for j in ids),
+                " ".join(str(j + 4) for j in ids), str(len(ids)),
+                str(CLI_VOCAB))))
+        paths[name] = str(root / f"{name}.tsv")
+        Path(paths[name]).write_text("\n".join(rows) + "\n")
+    return paths
+
+
+def phase_mtl_kernels(torch, rng) -> dict:
+    """14a's kernels at its shapes against their plain versions, with
+    times, bounds and library yardsticks: K1 / K1b at d 256 (H 4, dk 64,
+    R 11) over B 16 rows at T 800 / 400 / 200 (the three encoder depths of
+    a 1600-frame microbatch), K2 in sampling's pass 1 (N 32, T 200, D 256,
+    keep), K3 / K3b (B 16, U 31, T 200, D 256) and K4 on the sub1 CTC at
+    the tap's T 400 over the character vocabulary (V 16)."""
+    import numpy as np
+    from neural_sp_tpu_torch.ops.kernels import rel_attention
+    from neural_sp_tpu_torch.ops.kernels.rel_attention import (
+        rel_attention_bwd, rel_attention_bwd_cost, rel_attention_bwd_ref,
+        rel_attention_cost, rel_attention_fwd, rel_attention_ref)
+    dev = torch.device("cuda")
+
+    def t(*shape, scale=1.0):
+        return torch.from_numpy(
+            (rng.standard_normal(shape) * scale).astype("float32")).to(dev)
+
+    res = {}
+    record = kernel_recorder(res, "14a")
+    b, h, dk, r = 16, 4, 64, 11
+    for tt in (800, 400, 200):
+        q, k, v = t(b, h, tt, dk, scale=dk ** -0.5), t(b, h, tt, dk), \
+            t(b, h, tt, dk)
+        p = t(b, h, tt, r, scale=dk ** -0.5)
+        kl = np.maximum(tt - (np.arange(b) * tt) // (2 * b), 1).tolist()
+        klens = torch.tensor(kl, dtype=torch.int32, device=dev)
+        args = (q, k, v, p, klens)
+        what = f"B={b} H={h} T={tt} dk={dk} R={r} ragged"
+        err = max_err(rel_attention(*args), rel_attention_ref(*args))
+        expect(err <= KERNEL_ATOL, f"K1 {what}: error {err}")
+        yard = rel_attention_yardstick(torch, args, rel_attention, what,
+                                       phase="14a")
+        row = res.setdefault("rel_attention", {"max_abs_err": 0.0,
+                                               "shapes": []})
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        shape = {"shape": what, "ms": yard["kernel_ms"],
+                 "plain_ms": cuda_ms(lambda: rel_attention_ref(*args),
+                                     iters=5), **yard,
+                 **roofline(rel_attention_cost(b, h, tt, dk, r, kl))}
+        row["shapes"].append(shape)
+        if "ms" not in row:
+            row.update({k_: v_ for k_, v_ in shape.items()
+                        if k_ != "shape"})
+        o, m, l = rel_attention_fwd(*args)
+        bargs = (q, k, v, p, klens, o, m, l, t(b, h, tt, dk))
+        got, want = rel_attention_bwd(*bargs), rel_attention_bwd_ref(*bargs)
+        yard = rel_attention_bwd_yardstick(torch, bargs, rel_attention_bwd,
+                                           what)
+        record("rel_attention_bwd",
+               max(rel_err(x, y) for x, y in zip(got, want)),
+               yard["kernel_ms"],
+               cuda_ms(lambda: rel_attention_bwd_ref(*bargs), iters=5),
+               what, **yard,
+               **roofline(rel_attention_bwd_cost(b, h, tt, dk, r, kl)))
+        del got, want, bargs, args, o, m, l
+    res["las_step"] = k2_case(torch, rng, 32, 200, 256, keep=True,
+                              tag="14a")
+    res["las_step"]["library_ms"] = None
+    las_scan_case(torch, rng, record, b, 31, 200, 256,
+                  [200 - 5 * i for i in range(b)], tag="14a")
+    ctc_case(torch, rng, record, b, 400, 150, 16, tag="14a")
+    return res
+
+
+def tap_fits(torch, model, loader, device) -> int:
+    """The train set's batches through the encoder up to the sub1 tap: each
+    row's characters (one blank between repeats) must fit the tap's
+    frames, so that no sub1 CTC row is infeasible (and zeroed by
+    ``zero_infinity``). Returns the smallest slack in frames."""
+    slack = []
+    with torch.no_grad():
+        for batch in loader:
+            xs = torch.from_numpy(batch["xs"]).to(device)
+            xl = torch.from_numpy(batch["xlens"]).to(device)
+            tap = model.encoder(xs, xl, task="ys_sub1")["ys_sub1"]["xlens"]
+            for i, n in enumerate(batch["ylens_sub1"].tolist()):
+                y = batch["ys_sub1"][i, :n]
+                need = n + int((y[1:] == y[:-1]).sum())
+                slack.append(int(tap[i]) - need)
+    return min(slack)
+
+
+def mtl_cli(torch, root: Path, corpus: dict, conf: str, tag: str,
+            flags: tuple, train_kernels: tuple, resume: str = "") -> dict:
+    """``bin.asr.train.main`` on ``conf`` over ``corpus`` with the
+    character dictionary for every sub-task, counts zeroed around it (the
+    step's sub-task each microstep trained, from the CLI's log with
+    ``mtl_per_batch``), then (without ``resume``) ``bin.asr.eval.main``
+    (MTL_EVAL): every loss finite, ``train_kernels`` launched."""
+    import logging
+    import math
+    from neural_sp_tpu_torch.bin.asr import eval as cli_eval
+    from neural_sp_tpu_torch.bin.asr import train as cli_train
+    from neural_sp_tpu_torch.ops.kernels import launches, reset_launches
+    from neural_sp_tpu_torch.parallel.mesh import TrainStep
+    exp = str(root / f"exp_{Path(conf).stem}")
+    argv = ["--config", str(ROOT / conf), "--train_set", corpus["train"],
+            "--dev_set", corpus["dev"], "--dict", corpus["dict"],
+            "--dict_sub1", corpus["dict_char"], "--dict_sub2",
+            corpus["dict_char"], "--model_save_dir", exp] + list(flags)
+    if resume:
+        argv += ["--resume", f"{exp}/{resume}"]
+    steps, tasks = [], []
+    orig_call = TrainStep.__call__
+
+    def counted(self, *a, **kw):
+        m = orig_call(self, *a, **kw)
+        steps.append({k: float(v) for k, v in m.items()
+                      if k.startswith("loss")})
+        return m
+
+    class Tasks(logging.Handler):
+        def emit(self, record):
+            msg = record.getMessage()
+            if ": task " in msg:
+                tasks.append(int(msg.rsplit(" ", 1)[1]))
+
+    handler = Tasks()
+    logging.getLogger(cli_train.__name__).addHandler(handler)
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        with mock.patch.object(TrainStep, "__call__", counted):
+            cli_train.main(argv)
+    finally:
+        logging.getLogger(cli_train.__name__).removeHandler(handler)
+    torch.cuda.synchronize()
+    out = {"train": {"wall_s": time.perf_counter() - t0,
+                     "microsteps": len(steps), "losses": steps,
+                     "tasks": tasks, "launches": launches()}}
+    log(f"[{tag}] train CLI {conf} {' '.join(flags)}"
+        f"{' resumed' if resume else ''}: {len(steps)} microsteps in "
+        f"{out['train']['wall_s']:.1f} s; tasks {tasks}; last microstep "
+        f"{steps[-1]}; launches {out['train']['launches']}")
+    expect(all(math.isfinite(v) for s in steps for v in s.values()),
+           f"{tag}: a loss not finite")
+    for k in train_kernels:
+        expect(out["train"]["launches"][k] > 0,
+               f"{k} never launched in {tag}'s train CLI")
+    if resume:
+        return out
+    reset_launches()
+    t0 = time.perf_counter()
+    res = cli_eval.main(["--recog_model", exp, "--recog_sets",
+                         corpus["test"], "--recog_dir",
+                         str(root / f"decode_{tag}")] + list(MTL_EVAL))
+    torch.cuda.synchronize()
+    (m,) = res.values()
+    out["eval"] = {**m, "wall_s": time.perf_counter() - t0,
+                   "launches": launches()}
+    log(f"[{tag}] eval CLI (beam 10 + CTC 0.3): RTF {m['rtf']:.4f}, WER "
+        f"{m['wer']:.2f} over {m['n_utts']} utterances (random weights); "
+        f"launches {out['eval']['launches']}")
+    expect(m["n_utts"] == MTL_UTTS["test"], f"{tag}: {m['n_utts']}")
+    for k in ("rel_attention", "las_step") if "conformer" in conf else \
+            ("las_step",):
+        expect(out["eval"]["launches"][k] > 0,
+               f"{k} never launched in {tag}'s eval CLI")
+    return out
+
+
+def mtl_hold(torch, exp: str, corpus: dict, tag: str) -> dict:
+    """One train() microstep of the trained model (its checkpoint) on the
+    train set's first batch, the sub labels included, through the kernels
+    against the plain versions by phase 6's rule (every sub head and tap
+    leaf among the gradients; sampling off: pass 1's K2 is held alone,
+    phase_mtl_kernels), and the microstep profiled (the kernels' device
+    time)."""
+    from types import SimpleNamespace
+    from neural_sp_tpu_torch.bin.asr import eval as cli_eval
+    from neural_sp_tpu_torch.datasets.asr.build import build_dataloader
+    model, targs, _ = cli_eval.load_model_for_eval(SimpleNamespace(
+        recog_model=exp, recog_n_average=1))
+    for dec in (model.dec_fwd, model.dec_fwd_sub1, model.dec_fwd_sub2):
+        if dec is not None:
+            dec.step.ss_prob = 0.0
+    loader = build_dataloader(
+        corpus["train"], corpus["dict"], unit="word", batch_size=8,
+        dict_path_sub1=corpus["dict_char"],
+        dict_path_sub2=corpus["dict_char"] if getattr(
+            targs, "enc_n_layers_sub2", 0) else None)
+    batch = next(iter(loader))
+    dev = next(model.parameters()).device
+    main = tuple(torch.from_numpy(batch[k]).to(dev)
+                 for k in ("xs", "xlens", "ys", "ylens"))
+    sub = {k: torch.from_numpy(batch[k]).to(dev) for k in batch
+           if "_sub" in k}
+    loss, grads = train_microstep(torch, model, main, **sub)
+    loss_ref, grads_ref = train_microstep(torch, model, main, plain=True,
+                                          **sub)
+    leaves = [n for n in grads if "sub" in n]
+    expect(any(n.startswith("ctc_sub1") for n in leaves),
+           f"{tag}: no sub1 CTC leaf in the microstep")
+    out = hold_microstep(loss, grads, loss_ref, grads_ref, tag)
+    out["profile"] = profiled(
+        torch, f"{tag} train() microstep B {main[0].shape[0]} x "
+        f"{main[0].shape[1]} frames", lambda: train_microstep(
+            torch, model, main, **sub), tag=tag,
+        kernels=("rel_att", "las_", "ctc_alpha", "ctc_beta"))
+    out["sub_leaves"] = len(leaves)
+    out["slack_frames"] = tap_fits(torch, model, loader, dev)
+    log(f"[{tag}] {len(leaves)} sub-task leaves held; the sub1 tap's "
+        f"frames exceed every row's CTC need by {out['slack_frames']} at "
+        f"least")
+    expect(out["slack_frames"] >= 0, f"{tag}: a sub1 CTC row is infeasible")
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_mtl(torch, rng, root: Path) -> dict:
+    """14: 14a (the AISHELL hierarchical Conformer-LAS at full width and
+    depth: its kernels at its shapes, the conf's parameter count at vocab
+    10,000, the train CLI for 2 epochs at accumulation 2, the eval CLI,
+    a microstep held); 14b (the SWBD three-task BLSTM-LAS at MTL3_DEPTH:
+    the train CLI for one epoch, then a second resumed with
+    ``mtl_per_batch``, whose tasks must rotate main, sub1, sub2; the eval
+    CLI; a microstep held)."""
+    from neural_sp_tpu_torch.bin.args import parse_args_train
+    from neural_sp_tpu_torch.models.speech2text import build_speech2text
+    t0 = time.perf_counter()
+    walls = {}
+    corpus = mtl_corpus(root / "data_mtl", MTL_UTTS)
+    out = {"kernels": phase_mtl_kernels(torch, rng)}
+    walls["14 kernels"] = time.perf_counter() - t0
+    args = parse_args_train(["--config", str(ROOT / MTL_CONF)])
+    args.vocab = CLI_VOCAB
+    with torch.device("meta"):
+        n = sum(p.numel() for p in build_speech2text(
+            args, device="meta").parameters())
+    log(f"[14a] {MTL_CONF}: {n} parameters at vocab {CLI_VOCAB} (the JAX "
+        f"package's count {MTL_PARAMS})")
+    expect(n == MTL_PARAMS, f"14a: {n} parameters")
+    out["parameters"] = n
+    t = time.perf_counter()
+    a = mtl_cli(torch, root, corpus, MTL_CONF, "14a", MTL_OVERRIDES,
+                MTL_TRAIN_KERNELS)
+    a["hold"] = mtl_hold(torch, str(root / f"exp_{Path(MTL_CONF).stem}"),
+                         corpus, "14a")
+    walls["14a"] = time.perf_counter() - t
+    t = time.perf_counter()
+    flags = ("--n_epochs", "1", "--unit", "word") + MTL3_DEPTH
+    b = mtl_cli(torch, root, corpus, MTL3_CONF, "14b", flags,
+                MTL3_TRAIN_KERNELS)
+    b["per_batch"] = mtl_cli(torch, root, corpus, MTL3_CONF, "14b",
+                             ("--n_epochs", "2", "--unit", "word",
+                              "--mtl_per_batch", "true") + MTL3_DEPTH,
+                             MTL3_TRAIN_KERNELS,
+                             resume="ckpt.epoch-1")["train"]
+    tasks = b["per_batch"]["tasks"]
+    log(f"[14b] mtl_per_batch: the task of each step {tasks}")
+    expect(tasks == [i % 3 for i in range(len(tasks))] and len(tasks) >= 3,
+           f"14b tasks {tasks}")
+    for s, task in zip(b["per_batch"]["losses"], tasks):
+        keys = {k for k in s if k != "loss"}
+        want = ({"loss_att"}, {"loss_ctc_sub1"}, {"loss_ctc_sub2"})[task]
+        expect(keys >= want and not keys & ({"loss_ctc_sub1",
+                                             "loss_ctc_sub2", "loss_att"} -
+                                            want),
+               f"14b task {task} trained {keys}")
+    b["hold"] = mtl_hold(torch, str(root / f"exp_{Path(MTL3_CONF).stem}"),
+                         corpus, "14b")
+    walls["14b"] = time.perf_counter() - t
+    out.update(aishell=a, swbd=b, sub_phase_wall_s=walls,
+               phase_wall_s=time.perf_counter() - t0)
+    out["launches"] = {k: sum(p[k] for p in (
+        a["train"]["launches"], a["eval"]["launches"],
+        b["train"]["launches"], b["eval"]["launches"],
+        b["per_batch"]["launches"])) for k in a["train"]["launches"]}
+    log(f"[14] walls {walls}; launches on the MTL paths {out['launches']}")
+    return out
+
+
+
+def add_new_path_rows(entries, srcs, keys, streaming, stream_bf16, mtl):
+    """Phases 11f and 14 in the ``kernels`` line: every row's launches on
+    the bf16 MoChA path (``bf16_mocha_launches``: 11f's train and
+    streaming eval CLIs and its held microstep) and on the MTL paths
+    (``mtl_launches``: 14a's and 14b's train and eval CLIs); then rows for
+    their shapes: K1 / K1b's bf16 entries with the streaming conf's chunk
+    window (timed in phase 11 at B 32, T 400, launched on 11f's path), and
+    14a's K1 / K1b at d 256, K2 in pass 1 and K3 / K3b at D 256, K4 on the
+    sub1 CTC at the tap's T 400 (launched on 14's paths)."""
+    for e in entries:
+        e["bf16_mocha_launches"] = stream_bf16["launches"].get(e["name"], 0)
+        e["mtl_launches"] = mtl["launches"].get(e["name"], 0)
+    win = streaming["kernels"]["chunk"]
+    for name, base, part in (
+            ("rel_attention_bf16_window", "rel_attention_bf16", "fwd"),
+            ("rel_attention_bwd_bf16_window", "rel_attention_bwd_bf16",
+             "bwd")):
+        row = next(c[part] for c in win if part in c and "B=32 " in
+                   c[part]["shape"] and "bf16" in c[part]["shape"])
+        src, rep = srcs[base]
+        entries.append({
+            "name": name, "route": "cuda", "source": src, "replaces": rep,
+            "launches": stream_bf16["launches"][base],
+            **{key: row.get(key) for key in keys}, "shape": row["shape"],
+            "path": "11f (the streaming conf at bf16)"})
+        expect(entries[-1]["launches"] > 0, f"{name} never launched on "
+               f"11f's path")
+    k = mtl["kernels"]
+    for name, base, row in (
+            ("rel_attention_mtl", "rel_attention", k["rel_attention"]),
+            ("rel_attention_bwd_mtl", "rel_attention_bwd",
+             k["rel_attention_bwd"]),
+            ("las_step_mtl", "las_step", k["las_step"]),
+            ("las_scan_mtl", "las_scan", k["las_scan"]),
+            ("las_scan_bwd_mtl", "las_scan_bwd", k["las_scan_bwd"]),
+            ("ctc_loss_sub1", "ctc_loss", k["ctc_loss"])):
+        src, rep = srcs[base]
+        entries.append({
+            "name": name, "route": "cuda", "source": src, "replaces": rep,
+            "launches": mtl["launches"][base],
+            **{key: row.get(key) for key in keys},
+            "shape": row.get("shape") or row["shapes"][0]["shape"],
+            "path": "14 (the MTL confs)"})
+        if base == "ctc_loss":
+            entries[-1]["bwd_launches"] = mtl["launches"]["ctc_loss_bwd"]
+        expect(entries[-1]["launches"] > 0, f"{name} never launched on "
+               f"14's paths")
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5537,10 +6104,14 @@ def main() -> int:
         wall("10")
         streaming = phase_streaming(torch, rng, root, corpus, xs, xlens)
         wall("11")
+        stream_bf16 = phase_stream_bf16(torch, root, corpus, xs, xlens)
+        wall("11f")
         rnnt = phase_transducer(torch, rng, root, xs, xlens)
         wall("12")
         lm = phase_lm(torch, rng, root, corpus)
         wall("13")
+        mtl = phase_mtl(torch, rng, root)
+        wall("14")
     log(f"phase walls (s): {json.dumps(walls)}; total "
         f"{sum(walls.values()):.1f} s")
     # each kernel's launches from the main path it belongs to: the served
@@ -5595,8 +6166,8 @@ def main() -> int:
                "cli_sampled": {**sampled_cli, "phase_wall_s": walls["7b"]},
                "blstm": blstm, "mocha": mocha,
                "transformer": xformer, "streaming": streaming,
-               "transducer": rnnt, "lm": lm, "kernels": kernels,
-               "phase_walls_s": walls}
+               "transducer": rnnt, "lm": lm, "stream_bf16": stream_bf16,
+               "mtl": mtl, "kernels": kernels, "phase_walls_s": walls}
     log(json.dumps(details))
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -5801,6 +6372,7 @@ def main() -> int:
                    f"{name} never launched on phase 13's path")
     entries[-4]["launches_per_eval_window"] = (
         xl["eval"]["launches"]["rel_attention_offset"] / xl["dev_windows"])
+    add_new_path_rows(entries, srcs, keys, streaming, stream_bf16, mtl)
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

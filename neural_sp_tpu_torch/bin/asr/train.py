@@ -28,9 +28,16 @@ The batches are padded on the JAX CLI's grid (frames to 128, labels to
 CLI's curriculum; so do MoChA's quantity loss, latency loss and
 StableEmit at ``mocha_{quantity_loss,latency_loss,stableemit}_start_epoch``
 (weight 0 before), and a transformer decoder's MMA quantity loss at
-``mocha_quantity_loss_start_epoch``. The JAX CLI's distillation, MBR,
-random state passing, per-batch MTL, tensor parallelism and the profiler
-window raise (ROADMAP).
+``mocha_quantity_loss_start_epoch``. The hierarchical sub-tasks read
+their labels from ``--dict_sub1`` / ``--dict_sub2`` (with ``unit_sub*``
+and ``wp_model_sub*``); their vocabularies go into the saved conf as
+``vocab_sub1`` / ``vocab_sub2``. With ``mtl_per_batch`` each batch trains
+one task, round-robin over the main task and each sub-task, as the JAX
+CLI: the same modules with the other tasks' weights zeroed, a sub-task's
+weight scaled to 1 with its attention / CTC ratio kept (``mtl_tasks``);
+the dev loss takes the conf's weights. The JAX CLI's distillation, MBR,
+random state passing, tensor parallelism and the profiler window raise
+(ROADMAP).
 """
 from __future__ import annotations
 
@@ -48,7 +55,7 @@ from ... import configs
 from ...datasets.asr.build import build_dataloader
 from ...models.decoders.las import RNNDecoder
 from ...models.decoders.transformer import TransformerDecoder
-from ...models.speech2text import build_speech2text
+from ...models.speech2text import WEIGHTS, build_speech2text
 from ...models.utils import model_device
 from ...parallel.mesh import make_train_step
 from ...trainers.checkpoint import load_checkpoint, save_checkpoint
@@ -62,9 +69,10 @@ from ..args import parse_args_train, save_config
 logger = logging.getLogger(__name__)
 
 # options of the JAX CLI the port does not have: each raises when set
-_NOT_PORTED = ("teacher", "mbr_training", "rsp_prob", "mtl_per_batch",
-               "profile_n_steps", "train_word_alignment",
-               "train_ctc_alignment", "dict_sub1", "dict_sub2")
+_NOT_PORTED = ("teacher", "mbr_training", "rsp_prob", "profile_n_steps",
+               "train_word_alignment", "train_ctc_alignment")
+_SUB_LABELS = ("ys_sub1", "ylens_sub1", "ys_sub2", "ylens_sub2")
+
 
 def compute_subsampling_factor(args) -> int:
     """The encoder's total time subsampling: the conv front end's pooling
@@ -113,9 +121,39 @@ def set_mocha_curriculum(dec, args, epoch: int) -> None:
                                              "mocha_stableemit_weight")
 
 
+def mtl_tasks(args) -> list[dict]:
+    """``mtl_per_batch``'s tasks, as the JAX CLI's: the weights of the
+    main task (the sub-tasks' zeroed), then of each sub-task with a weight
+    (the main task's zeroed, its own scaled to 1 with its CTC share kept);
+    [] without ``mtl_per_batch``. A sub-task's weight needs its encoder
+    tap (JAX's assertion)."""
+    if not getattr(args, "mtl_per_batch", False):
+        return []
+    g = lambda name: getattr(args, name, 0.0)  # noqa: E731
+    for sub in ("sub1", "sub2"):
+        assert g(f"{sub}_weight") <= 0 or g(f"enc_n_layers_{sub}") > 0, (
+            f"{sub}_weight > 0 needs --enc_n_layers_{sub} (the encoder tap "
+            f"feeding that head)")
+    zero = dict(sub1_weight=0.0, ctc_weight_sub1=0.0, sub2_weight=0.0,
+                ctc_weight_sub2=0.0)
+    tasks = [dict(zero, ctc_weight=g("ctc_weight"))]
+    for sub in ("sub1", "sub2"):
+        w = g(f"{sub}_weight")
+        if w > 0:
+            tasks.append(dict(zero, ctc_weight=0.0, **{
+                f"{sub}_weight": 1.0,
+                f"ctc_weight_{sub}": g(f"ctc_weight_{sub}") / w}))
+    return tasks
+
+
 def _to_device(batch: dict, device) -> tuple:
     return tuple(torch.from_numpy(batch[k]).to(device, non_blocking=True)
                  for k in ("xs", "xlens", "ys", "ylens"))
+
+
+def _sub_labels(batch: dict, device) -> dict:
+    return {k: torch.from_numpy(batch[k]).to(device, non_blocking=True)
+            for k in _SUB_LABELS if k in batch}
 
 
 @torch.no_grad()
@@ -124,7 +162,8 @@ def dev_loss(model, dev_set, reporter, device) -> float:
     model.eval()
     total, n = 0.0, 0
     for batch in dev_set:
-        loss, obs = model(*_to_device(batch, device))
+        loss, obs = model(*_to_device(batch, device),
+                          **_sub_labels(batch, device))
         reporter.add_observation(obs, is_eval=True)
         total += float(loss)
         n += 1
@@ -140,6 +179,7 @@ def main(argv=None, device=None) -> str:
     for name in _NOT_PORTED:
         if getattr(args, name, None):
             raise NotImplementedError(f"{name} is not ported yet, see ROADMAP")
+    tasks = mtl_tasks(args)
     if int(getattr(args, "n_model", 1)) > 1:
         raise NotImplementedError(
             "tensor parallelism (--n_model) is not ported yet, see ROADMAP")
@@ -162,7 +202,13 @@ def main(argv=None, device=None) -> str:
         n_skips=getattr(args, "n_skips", 1),
         n_splices=getattr(args, "n_splices", 1),
         pad_xlen_multiple=getattr(args, "pad_xlen_multiple", 128),
-        pad_ylen_multiple=getattr(args, "pad_ylen_multiple", 32))
+        pad_ylen_multiple=getattr(args, "pad_ylen_multiple", 32),
+        dict_path_sub1=getattr(args, "dict_sub1", None) or None,
+        unit_sub1=getattr(args, "unit_sub1", "char"),
+        wp_model_sub1=getattr(args, "wp_model_sub1", None),
+        dict_path_sub2=getattr(args, "dict_sub2", None) or None,
+        unit_sub2=getattr(args, "unit_sub2", "char"),
+        wp_model_sub2=getattr(args, "wp_model_sub2", None))
     bucketing = "shuffle" if getattr(args, "shuffle_bucket", False) \
         else args.bucketing
     train_set = build_dataloader(args.train_set, bucketing=bucketing,
@@ -171,6 +217,9 @@ def main(argv=None, device=None) -> str:
     dev_set = build_dataloader(args.dev_set, bucketing="sort", is_test=True,
                                **loader_kw)
     args.vocab = train_set.vocab
+    for sub in ("sub1", "sub2"):
+        if getattr(train_set, f"vocab_{sub}"):
+            setattr(args, f"vocab_{sub}", getattr(train_set, f"vocab_{sub}"))
     if "xdim" in train_set.dataset.df:
         args.input_dim = int(train_set.dataset.df["xdim"][0])
 
@@ -218,22 +267,34 @@ def main(argv=None, device=None) -> str:
     lr_ref = args.lr
     ss_start = getattr(args, "ss_start_epoch", 0)
     sgd_epoch = getattr(args, "convert_to_sgd_epoch", 0)
+    weights = {k: getattr(model, k) for k in WEIGHTS}
+    # each LAS decoder's sampling rate as built (a sub-task decoder's with
+    # its dec_config_sub* overrides)
+    sampled = [(d, d.step.ss_prob) for d in (
+        model.dec_fwd, model.dec_fwd_sub1, model.dec_fwd_sub2)
+        if isinstance(d, RNNDecoder) and d.attn_type != "mocha"]
 
     for epoch in range(start_epoch, args.n_epochs + 1):
         lr_scale = controller.lr / lr_ref if lr_ref else 1.0
         if isinstance(model.dec_fwd, TransformerDecoder):
             set_mocha_curriculum(model.dec_fwd, args, epoch)
-        elif isinstance(model.dec_fwd, RNNDecoder):
+        elif isinstance(model.dec_fwd, RNNDecoder) and \
+                model.dec_fwd.attn_type == "mocha":
+            set_mocha_curriculum(model.dec_fwd, args, epoch)
+        for dec, ss_prob in sampled:
             # the JAX CLI's curriculum: no sampling before ss_start_epoch
-            model.dec_fwd.step.ss_prob = 0.0 if ss_start and \
-                epoch < ss_start else getattr(args, "ss_prob", 0.0)
-            if model.dec_fwd.attn_type == "mocha":
-                set_mocha_curriculum(model.dec_fwd, args, epoch)
+            dec.step.ss_prob = 0.0 if ss_start and epoch < ss_start \
+                else ss_prob
         train_set.set_epoch(epoch)
         t0 = time.time()
         for i, batch in enumerate(train_set):
+            if tasks:
+                # one task per batch, round-robin (JAX's mtl_per_batch)
+                model.set_weights(**tasks[i % len(tasks)])
+                logger.info("step %d: task %d", reporter.step + 1,
+                            i % len(tasks))
             metrics = step_fn(*_to_device(batch, device), lr_scale=lr_scale,
-                              gen=gen)
+                              gen=gen, **_sub_labels(batch, device))
             metrics.pop("emitted")
             reporter.add_observation(metrics)
             reporter.step_forward()
@@ -243,6 +304,7 @@ def main(argv=None, device=None) -> str:
                     reporter.step, epoch, float(metrics["loss"]),
                     (i + 1) * len(batch["utt_ids"]) / (time.time() - t0))
 
+        model.set_weights(**weights)
         # the dev loss; inf (never the best) before eval_start_epoch
         loss = dev_loss(model, dev_set, reporter, device) \
             if epoch >= getattr(args, "eval_start_epoch", 1) else float("inf")

@@ -60,8 +60,9 @@ is the repo's ``examples/librispeech/conf/asr/uni_conformer_mocha_
 streaming.yaml``: a conv front end x4, 12 causal conformer blocks (d 256,
 4 heads, d_ff 1024, unclamped rel-PE, kernel 7) under the chunkwise mask
 (left 64, current 32, right 0 input frames), an LSTM-512 decoder with
-MoChA (chunk 4), CTC 0.3; its ``train_dtype`` is bfloat16, which the port
-raises with MoChA (ROADMAP). ``librispeech_lc_transformer_mma_args`` is
+MoChA (chunk 4), CTC 0.3; its ``train_dtype`` is bfloat16 (MoChA's
+alignment then in float32: ROADMAP C39).
+``librispeech_lc_transformer_mma_args`` is
 the LibriSpeech recipe's latency-controlled Transformer-MMA,
 ``examples/librispeech/conf/asr/mma/streaming/lc_transformer_mma_
 subsample8_ma4H_ca4H_w16_from4L_64_128_64.yaml``: the offline MMA conf's

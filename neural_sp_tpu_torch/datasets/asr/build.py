@@ -1,7 +1,7 @@
 """build_dataloader (counterpart of ``neural_sp_tpu/datasets/asr/
-build.py``): a dataset and its loader from the CLI's settings. Frame
-stacking and splicing raise when set; the JAX loader's sub-task label
-streams and alignment directories have no parameter here (the train CLI
+build.py``): a dataset and its loader from the CLI's settings, with the
+sub-tasks' label streams. Frame stacking and splicing raise when set; the
+JAX loader's alignment directories have no parameter here (the train CLI
 raises on their flags)."""
 from __future__ import annotations
 
@@ -31,6 +31,12 @@ def build_dataloader(
     n_stacks: int = 1,
     n_skips: int = 1,
     n_splices: int = 1,
+    dict_path_sub1: str | None = None,
+    unit_sub1: str = "char",
+    wp_model_sub1: str | None = None,
+    dict_path_sub2: str | None = None,
+    unit_sub2: str = "char",
+    wp_model_sub2: str | None = None,
 ) -> ASRDataLoader:
     if max(n_stacks, n_skips, n_splices) > 1:
         raise NotImplementedError(
@@ -39,7 +45,10 @@ def build_dataloader(
         tsv_path=tsv_path, dict_path=dict_path, unit=unit, wp_model=wp_model,
         min_n_frames=min_n_frames, max_n_frames=max_n_frames,
         subsample_factor=subsample_factor, is_test=is_test,
-        short2long=short2long)
+        short2long=short2long, dict_path_sub1=dict_path_sub1,
+        unit_sub1=unit_sub1, wp_model_sub1=wp_model_sub1,
+        dict_path_sub2=dict_path_sub2, unit_sub2=unit_sub2,
+        wp_model_sub2=wp_model_sub2)
     return ASRDataLoader(
         dataset, batch_size=batch_size, batch_size_type=batch_size_type,
         dynamic_batching=dynamic_batching, bucketing=bucketing, seed=seed,

@@ -24,32 +24,47 @@ def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
+def _pad_labels(seqs, bs_pad: int, multiple: int):
+    """Label lists -> (ys [B, U] int32 PAD-padded, U rounded up to
+    ``multiple``; ylens [B])."""
+    ymax = _round_up(max(max(len(y), 1) for y in seqs), multiple)
+    ys = np.full((bs_pad, ymax), PAD, np.int32)
+    ylens = np.zeros(bs_pad, np.int32)
+    for i, y in enumerate(seqs):
+        ys[i, :len(y)] = y
+        ylens[i] = len(y)
+    return ys, ylens
+
+
 def collate(items, pad_xlen_multiple: int = 16, pad_ylen_multiple: int = 8,
             pad_batch_multiple: int = 1) -> dict:
     """Dataset items -> padded numpy arrays xs [B, T, D] float32, xlens
-    [B], ys [B, U] int32, ylens [B], and the utt_ids, speakers and text."""
+    [B], ys [B, U] int32, ylens [B] (and ys_sub1 / ylens_sub1, ys_sub2 /
+    ylens_sub2 where the items have them, padded as ys), and the utt_ids,
+    speakers and text."""
     bs_pad = _round_up(len(items), pad_batch_multiple)
     xmax = _round_up(max(it["xs"].shape[0] for it in items),
                      pad_xlen_multiple)
-    ymax = _round_up(max(max(len(it["ys"]), 1) for it in items),
-                     pad_ylen_multiple)
     dim = items[0]["xs"].shape[1]
     xs = np.zeros((bs_pad, xmax, dim), np.float32)
-    ys = np.full((bs_pad, ymax), PAD, np.int32)
     xlens = np.zeros(bs_pad, np.int32)
-    ylens = np.zeros(bs_pad, np.int32)
     for i, it in enumerate(items):
-        t, u = it["xs"].shape[0], len(it["ys"])
+        t = it["xs"].shape[0]
         xs[i, :t] = it["xs"]
-        ys[i, :u] = it["ys"]
         xlens[i] = t
-        ylens[i] = u
-    return {
+    ys, ylens = _pad_labels([it["ys"] for it in items], bs_pad,
+                            pad_ylen_multiple)
+    out = {
         "xs": xs, "xlens": xlens, "ys": ys, "ylens": ylens,
         "utt_ids": [it["utt_id"] for it in items],
         "speakers": [it["speaker"] for it in items],
         "text": [it["text"] for it in items],
     }
+    for sub in ("sub1", "sub2"):
+        if f"ys_{sub}" in items[0]:
+            out[f"ys_{sub}"], out[f"ylens_{sub}"] = _pad_labels(
+                [it[f"ys_{sub}"] for it in items], bs_pad, pad_ylen_multiple)
+    return out
 
 
 class ASRDataLoader:
@@ -86,6 +101,17 @@ class ASRDataLoader:
     @property
     def idx2token(self):
         return self.dataset.idx2token
+
+    @property
+    def vocab_sub1(self):
+        """The sub1 vocabulary's size, None without one."""
+        c = self.dataset.token2idx_sub1
+        return None if c is None else len(c.token2idx)
+
+    @property
+    def vocab_sub2(self):
+        c = self.dataset.token2idx_sub2
+        return None if c is None else len(c.token2idx)
 
     def _make_batches(self):
         bucketing = self.bucketing

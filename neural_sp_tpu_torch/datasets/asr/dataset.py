@@ -12,8 +12,11 @@ column that holds only numbers (one id per row, or empty cells) is read by
 pandas as numbers, and the JAX dataset then tokenizes ``text`` instead; so
 does this one.
 
-Frame stacking, splicing, the sub-task label streams and the alignment
-directories are not ported (ROADMAP).
+The hierarchical sub-tasks' label streams (``dict_path_sub1`` /
+``_sub2``, their units and models) re-tokenise ``text`` with their own
+converters, as JAX's: an item holds "ys_sub1" / "ys_sub2". Frame
+stacking, splicing and the alignment directories are not ported
+(ROADMAP).
 """
 from __future__ import annotations
 
@@ -100,12 +103,29 @@ class ASRDataset:
         subsample_factor: int = 1,
         is_test: bool = False,
         short2long: bool = True,
+        dict_path_sub1: str | None = None,
+        unit_sub1: str = "char",
+        wp_model_sub1: str | None = None,
+        dict_path_sub2: str | None = None,
+        unit_sub2: str = "char",
+        wp_model_sub2: str | None = None,
     ):
         """Rows outside [min_n_frames, max_n_frames] or longer in labels
         than in subsampled frames are dropped (not from a test set); the
         rest sorted by frames, ascending with ``short2long``."""
         self.token2idx, self.idx2token = build_converters(
             unit, dict_path, wp_model)
+        # the sub-tasks' converters (None without a dictionary)
+        self.token2idx_sub1 = self.idx2token_sub1 = None
+        self.token2idx_sub2 = self.idx2token_sub2 = None
+        for sub, d, u, wp in (("sub1", dict_path_sub1, unit_sub1,
+                               wp_model_sub1),
+                              ("sub2", dict_path_sub2, unit_sub2,
+                               wp_model_sub2)):
+            if d:
+                conv = build_converters(u, d, wp)
+                setattr(self, f"token2idx_{sub}", conv[0])
+                setattr(self, f"idx2token_{sub}", conv[1])
         df = read_tsv(tsv_path)
         n0 = len(df["xlen"])
         if not is_test:
@@ -128,11 +148,23 @@ class ASRDataset:
             return np.asarray([int(t) for t in tid.split()], np.int32)
         return np.asarray(self.token2idx(self.df["text"][i]), np.int32)
 
+    def token_ids_sub(self, i: int, sub: str) -> np.ndarray | None:
+        """Row i's text in the sub-task's units (None without them)."""
+        conv = getattr(self, f"token2idx_{sub}")
+        if conv is None:
+            return None
+        return np.asarray(conv(self.df["text"][i]), np.int32)
+
     def __getitem__(self, i: int):
-        return {
+        out = {
             "utt_id": self.df["utt_id"][i],
             "speaker": self.df["speaker"][i],
             "xs": load_feat(self.df["feat_path"][i]).astype(np.float32),
             "ys": self.token_ids(i),
             "text": self.df["text"][i],
         }
+        for sub in ("sub1", "sub2"):
+            ys_s = self.token_ids_sub(i, sub)
+            if ys_s is not None:
+                out[f"ys_{sub}"] = ys_s
+        return out

@@ -1,9 +1,10 @@
 """build_decoder (counterpart of ``neural_sp_tpu/models/decoders/build.py``):
 the LAS LSTM branch, with location attention or MoChA, the transformer
 branch, with or without MMA, and the LSTM transducer. Each reads the keys
-the JAX builder reads."""
+the JAX builder reads. ``sub_args`` gives a sub-task decoder's args."""
 from __future__ import annotations
 
+from types import SimpleNamespace
 from typing import Union
 
 from .las import RNNDecoder
@@ -62,6 +63,17 @@ def _transducer(args, vocab: int, enc_n_units: int,
         dropout=_get(args, "dropout_dec", 0.0),
         dropout_emb=_get(args, "dropout_emb", 0.0),
         backward=backward)
+
+
+def sub_args(args, sub: str):
+    """The args a sub-task's decoder is built from: ``args`` with the
+    ``dec_config_{sub}`` dict's keys over them (JAX's
+    ``SimpleNamespace(**{**vars(args), **over})``), or ``args`` as they
+    are without one."""
+    over = _get(args, f"dec_config_{sub}", None)
+    if not isinstance(over, dict):
+        return args
+    return SimpleNamespace(**{**vars(args), **over})
 
 
 def build_decoder(args, vocab: int, enc_n_units: int, backward: bool = False

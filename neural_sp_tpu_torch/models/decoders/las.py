@@ -386,12 +386,13 @@ class RNNDecoder(nn.Module):
         latency loss (|the expected boundary frame - trigger_points[b, u]|
         over the valid labels whose trigger is >= 0, ``loss_latency``; the
         trigger points [B, U] from ``CTC.trigger_points``). The returned
-        loss carries them; obs["loss_att"] is the cross entropy alone."""
-        if eouts.dtype == torch.bfloat16:
-            raise NotImplementedError(
-                "bf16 compute with MoChA is not ported yet, see ROADMAP")
+        loss carries them; obs["loss_att"] is the cross entropy alone.
+        Under bf16 compute the cell, the energies and the readout compute
+        in bf16, the alignment and both latency losses in float32 (C39)."""
         bs, tmax = eouts.shape[:2]
         dev, dt = eouts.device, eouts.dtype
+        # MoChA's alignment recurrence in float32 under bf16 compute (C39)
+        adt = torch.promote_types(dt, torch.float32)
         step, cell = self.step, self.step.cells[0]
         attn = step.attn
         u1 = ys_in.shape[1]
@@ -402,11 +403,12 @@ class RNNDecoder(nn.Module):
                          cell.w_ih[:step.emb_dim]).view(bs, u1, -1)
         keep = keep_mask(gen, step.drop.rate, (bs, u1, self.n_units), dev,
                          dt) if self.training and step.drop.rate > 0 else None
-        noise = mocha_noise(gen, (bs, u1, attn.n_heads_mono, tmax), dev, dt) \
+        noise = mocha_noise(gen, (bs, u1, attn.n_heads_mono, tmax), dev,
+                            adt) \
             if self.training and attn.noise_std > 0 else None
         c = h = eouts.new_zeros(bs, self.n_units)
         ctx = eouts.new_zeros(bs, self.enc_n_units)
-        alpha = attn.init_alpha(bs, tmax, dev, dt)
+        alpha = attn.init_alpha(bs, tmax, dev, adt)
         w_ctx = cell.w_ih[step.emb_dim:]
         # the expected alignment in train(), the hard boundaries in eval()
         # (JAX: mode "hard" when deterministic, so the dev loss too)

@@ -2,8 +2,9 @@
 the RNN (lstm / blstm, with or without the conv front end), conformer and
 transformer branches, with their unidirectional (``uni_`` types or
 ``unidirectional``) and latency-controlled (``lc_chunk_size_*``,
-``lc_type``) forms. Takes any object with attribute access and the
-reference's flag names."""
+``lc_type``) forms, their sub1 / sub2 taps (``enc_n_layers_sub1`` /
+``_sub2``, ``task_specific_layer``) and ``dropout_in``. Takes any object
+with attribute access and the reference's flag names."""
 from __future__ import annotations
 
 from typing import Union
@@ -68,7 +69,16 @@ def _rnn_encoder(args, core: str, conv: bool) -> RNNEncoder:
         # JAX build.py: concat unless the conf sets the sum
         bidir_sum_fwd_bwd=_get(args, "bidirectional_sum_fwd_bwd",
                                _get(args, "bidir_sum_fwd_bwd", False)),
+        **_taps(args),
     )
+
+
+def _taps(args) -> dict:
+    """The keys both encoders read for their taps and input dropout."""
+    return dict(n_layers_sub1=_get(args, "enc_n_layers_sub1", 0),
+                n_layers_sub2=_get(args, "enc_n_layers_sub2", 0),
+                task_specific_layer=_get(args, "task_specific_layer", False),
+                dropout_in=_get(args, "dropout_in", 0.0))
 
 
 def build_encoder(args) -> Union[RNNEncoder, XformerEncoder]:
@@ -84,15 +94,10 @@ def build_encoder(args) -> Union[RNNEncoder, XformerEncoder]:
             f"enc_type {enc_type!r} is not ported yet (only the conformer, "
             f"the transformer and the (B)LSTM), see ROADMAP")
     # the RNN encoder reads no attention or layer dropout
-    for name in ("dropout_in",) if not xformer else \
-            ("dropout_in", "dropout_att", "dropout_enc_layer"):
+    for name in ("dropout_att", "dropout_enc_layer") if xformer else ():
         if _get(args, name, 0.0):
             raise NotImplementedError(
                 f"{name} > 0 is not ported yet, see ROADMAP")
-    if _get(args, "enc_n_layers_sub1", 0) or _get(args, "enc_n_layers_sub2", 0):
-        raise NotImplementedError(
-            "hierarchical sub1/sub2 encoder taps are not ported yet, see "
-            "ROADMAP")
     if not xformer:
         return _rnn_encoder(args, core, conv)
     return XformerEncoder(
@@ -128,4 +133,5 @@ def build_encoder(args) -> Union[RNNEncoder, XformerEncoder]:
         chunk_size_current=_get(args, "lc_chunk_size_current", -1),
         chunk_size_right=_get(args, "lc_chunk_size_right", 0),
         streaming_type=_get(args, "lc_type", "mask"),
+        **_taps(args),
     )

@@ -9,8 +9,15 @@ are taken to the host once per forward and carried there through the
 front end and the subsamplers. Their outputs past a row's length are zero
 (the JAX module's differ there, and nothing reads them): so an interlayer
 ``max_pool``, whose last window of a row can straddle its edge, raises, as
-do the sub1 / sub2 taps with their task-specific layers, ``dropout_in``
-(in ``build.py``) and the GRU (ROADMAP).
+does the GRU (ROADMAP).
+
+``dropout_in`` drops input features before the front end. The
+hierarchical taps (``n_layers_sub1`` / ``n_layers_sub2`` > 0), as JAX's:
+after layer n - 1 (its dropout and projection), before its subsampler, an
+optional task-specific (B)LSTM ``rnn_sub{n}_tsl`` (packed over the rows'
+lengths, unprojected: ``output_dim_sub1`` / ``_sub2``) and an optional
+``bridge_sub{n}``, returned as "ys_sub1" / "ys_sub2"; ``task="ys_sub1"``
+returns there. The latency-controlled encoder taps the same way.
 
 The latency-controlled BLSTM (``chunk_size_current > 0`` with a
 bidirectional type) runs its forward direction over the whole padded
@@ -196,7 +203,9 @@ class RNNEncoder(nn.Module):
                  conv_poolings: str = "", conv_normalization: str = "",
                  conv_bottleneck_dim: int = 0,
                  chunk_size_current: int = -1, chunk_size_right: int = 0,
-                 bidir_sum_fwd_bwd: bool = False):
+                 bidir_sum_fwd_bwd: bool = False, n_layers_sub1: int = 0,
+                 n_layers_sub2: int = 0, task_specific_layer: bool = False,
+                 dropout_in: float = 0.0):
         super().__init__()
         if rnn_type not in ("lstm", "blstm"):
             raise NotImplementedError(
@@ -224,9 +233,13 @@ class RNNEncoder(nn.Module):
         rnn_dim = 2 * n_units if bidirectional and not bidir_sum_fwd_bwd \
             else n_units
         merge = "sum" if bidir_sum_fwd_bwd else "concat"
+        # the taps: (the layer they follow, their name)
+        self.taps = [(n - 1, sub) for sub, n in (("sub1", n_layers_sub1),
+                                                 ("sub2", n_layers_sub2))
+                     if n > 0]
         layers, projs = [], []
         n_cur, n_right = chunk_size_current, chunk_size_right
-        for factor in self.subsample:
+        for lth, factor in enumerate(self.subsample):
             layers.append(
                 LCBLSTMLayer(in_dim, n_units, n_cur, n_right, merge)
                 if self.lc else
@@ -234,6 +247,19 @@ class RNNEncoder(nn.Module):
             if n_projs > 0:
                 projs.append(nn.Linear(rnn_dim, n_projs))
             in_dim = n_projs if n_projs > 0 else rnn_dim
+            for name in (s for at, s in self.taps if at == lth):
+                # the task-specific layer emits unprojected units (JAX's
+                # _output_dim_sub)
+                dim_sub = in_dim
+                if task_specific_layer:
+                    setattr(self, f"rnn_{name}_tsl", RNNLayer(
+                        in_dim, n_units, "lstm", bidirectional, merge=merge))
+                    dim_sub = rnn_dim
+                if last_proj_dim > 0:
+                    setattr(self, f"bridge_{name}",
+                            nn.Linear(dim_sub, last_proj_dim))
+                    dim_sub = last_proj_dim
+                setattr(self, f"output_dim_{name}", dim_sub)
             if factor > 1 and self.lc:
                 n_cur = max(n_cur // factor, 1)
                 n_right = max(n_right // factor, 1)
@@ -245,6 +271,7 @@ class RNNEncoder(nn.Module):
         self.bridge = nn.Linear(in_dim, last_proj_dim) \
             if last_proj_dim > 0 else None
         self.output_dim = last_proj_dim if last_proj_dim > 0 else in_dim
+        self.drop_in = Dropout(dropout_in)
         self.drop = Dropout(dropout)
 
     @property
@@ -265,34 +292,43 @@ class RNNEncoder(nn.Module):
     def forward(self, xs: torch.Tensor, xlens: torch.Tensor,
                 task: str = "all", gen: Optional[torch.Generator] = None):
         """xs [B, T, input_dim], xlens [B] int. Returns {"ys": {"xs": [B,
-        T', output_dim], "xlens": [B]}}, the lengths on xlens's device."""
-        if task not in ("all", "ys"):
-            raise NotImplementedError(
-                f"encoder task {task!r} (sub1/sub2 taps) is not ported yet, "
-                f"see ROADMAP")
+        T', output_dim], "xlens": [B]}} and each tap's "ys_sub1" /
+        "ys_sub2" (``task`` "ys_sub1" or "ys_sub2": the taps up to that one
+        only), the lengths on xlens's device."""
         if xs.dtype in (torch.bfloat16, torch.float16):
             raise NotImplementedError(
                 "the RNN encoder computes in float32 (or float64) only "
                 "(bf16 compute is not ported for it), see ROADMAP")
         # the packed layers take the lengths on the host: one copy a forward
         lens = xlens.to("cpu", torch.int64)
-        h = xs
+        h = self.drop_in(xs, gen)
         if self.conv is not None:
             h, xlens = self.conv(h, xlens)
             lens = new_lens(lens, self.conv.subsampling_factor)
-        for rnn, proj, factor, sub in self._layers():
+        eouts = {}
+        for lth, (rnn, proj, factor, sub) in enumerate(self._layers()):
             # the LC layer's outputs do not depend on the lengths, only its
             # carry does, which the offline forward does not return
             h, _ = rnn(h, None if self.lc else lens)
             h = self.drop(h, gen)
             if proj is not None:
                 h = torch.tanh(proj(h))
+            for name in (s for at, s in self.taps if at == lth):
+                h_sub = h
+                if hasattr(self, f"rnn_{name}_tsl"):
+                    h_sub, _ = getattr(self, f"rnn_{name}_tsl")(h_sub, lens)
+                if hasattr(self, f"bridge_{name}"):
+                    h_sub = getattr(self, f"bridge_{name}")(h_sub)
+                eouts[f"ys_{name}"] = {"xs": h_sub, "xlens": xlens}
+                if task == f"ys_{name}":
+                    return eouts
             if factor > 1:
                 h, xlens = sub(h, xlens)
                 lens = new_lens(lens, factor)
         if self.bridge is not None:
             h = self.bridge(h)
-        return {"ys": {"xs": h, "xlens": xlens}}
+        eouts["ys"] = {"xs": h, "xlens": xlens}
+        return eouts
 
     # ---- streaming inference (JAX's; the carry is explicit) ------------ #
     def stream_geometry(self) -> tuple[int, int, int, int]:

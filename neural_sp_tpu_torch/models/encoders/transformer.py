@@ -2,8 +2,17 @@
 ``neural_sp_tpu/models/encoders/transformer.py``): conv frontend ->
 ``PositionalEncoding`` (input scale sqrt(d_model); the sinusoid added for
 ``pe_type`` "add") -> pre-norm blocks with interlayer subsampling -> final
-LayerNorm. No sub1/sub2 taps, no layer scan or rematerialisation (those
-change how the JAX program compiles, not what it computes).
+LayerNorm. No layer scan or rematerialisation (those change how the JAX
+program compiles, not what it computes).
+
+``dropout_in`` drops input features before the front end. The
+hierarchical taps (``n_layers_sub1`` / ``n_layers_sub2`` > 0), as JAX's:
+after block n - 1, before that layer's interlayer subsampler, the stream
+goes through an optional task-specific block ``block_sub{n}_tsl`` (not
+causal, as JAX builds it) and the tap's ``norm_out_sub{n}``, merged back
+from its chunks in the reshape mode; it is returned as "ys_sub1" /
+"ys_sub2" with the lengths of that point, and ``task="ys_sub1"`` returns
+there.
 
 The unidirectional and latency-controlled (streaming) encoders, as JAX's:
   * ``unidirectional``: a causal mask (after each interlayer subsampling
@@ -154,7 +163,9 @@ class XformerEncoder(nn.Module):
                  conv_frontend_normalization: str = "", dropout: float = 0.0,
                  unidirectional: bool = False, chunk_size_left: int = -1,
                  chunk_size_current: int = -1, chunk_size_right: int = 0,
-                 streaming_type: str = "mask"):
+                 streaming_type: str = "mask", n_layers_sub1: int = 0,
+                 n_layers_sub2: int = 0, task_specific_layer: bool = False,
+                 dropout_in: float = 0.0):
         super().__init__()
         if not conv_channels:
             raise NotImplementedError(
@@ -191,6 +202,19 @@ class XformerEncoder(nn.Module):
             build_subsampler(subsample_type, f) if f > 1 else nn.Identity()
             for f in self.subsample)
         self.norm_out = nn.LayerNorm(d_model, eps=LN_EPS)
+        # the taps: (the layer they follow, their name)
+        self.taps = [(n - 1, sub) for sub, n in (("sub1", n_layers_sub1),
+                                                 ("sub2", n_layers_sub2))
+                     if n > 0]
+        for _, sub in self.taps:
+            if task_specific_layer:
+                setattr(self, f"block_{sub}_tsl", EncoderBlock(
+                    d_model, d_ff, n_heads, btype, pe_type, clamp_len,
+                    ffn_activation, conv_kernel_size=conv_kernel_size,
+                    dropout=dropout))
+            setattr(self, f"norm_out_{sub}",
+                    nn.LayerNorm(d_model, eps=LN_EPS))
+        self.drop_in = Dropout(dropout_in)
         self.pos_enc = PositionalEncoding(
             d_model, "add" if pe_type in ADDS_POSITIONS else "none", dropout)
 
@@ -221,11 +245,10 @@ class XformerEncoder(nn.Module):
     def forward(self, xs: torch.Tensor, xlens: torch.Tensor,
                 task: str = "all", gen: Optional[torch.Generator] = None):
         """xs [B, T, input_dim], xlens [B] int. Returns
-        {"ys": {"xs": [B, T', d_model], "xlens": [B]}}."""
-        if task not in ("all", "ys"):
-            raise NotImplementedError(
-                f"encoder task {task!r} (sub1/sub2 taps) is not ported yet, "
-                f"see ROADMAP")
+        {"ys": {"xs": [B, T', d_model], "xlens": [B]}} and each tap's
+        "ys_sub1" / "ys_sub2"; with ``task`` "ys_sub1" or "ys_sub2" the
+        taps up to that one only."""
+        xs = self.drop_in(xs, gen)
         f = self.conv_factor
         bs, t_raw = xs.shape[:2]
         streaming = self.chunk_size_current > 0
@@ -259,9 +282,22 @@ class XformerEncoder(nn.Module):
                 window = (n_l, n_c, n_r)
             elif self.unidirectional:
                 window = CAUSAL
-        for block, factor, sub in zip(self.blocks, self.subsample,
-                                      self.subsamplers):
+        eouts = {}
+        for lth, (block, factor, sub) in enumerate(zip(
+                self.blocks, self.subsample, self.subsamplers)):
             h = block(h, klens, edge, gen, window)
+            for name in (s for at, s in self.taps if at == lth):
+                h_sub = h
+                if hasattr(self, f"block_{name}_tsl"):
+                    h_sub = getattr(self, f"block_{name}_tsl")(
+                        h_sub, klens, edge, gen, window)
+                h_sub = getattr(self, f"norm_out_{name}")(h_sub)
+                if reshape:
+                    h_sub = chunkwise_merge(h_sub, bs, max(n_l, 0), n_c, n_r,
+                                            -(-t_raw // f))
+                eouts[f"ys_{name}"] = {"xs": h_sub, "xlens": xlens}
+                if task == f"ys_{name}":
+                    return eouts
             if factor > 1:
                 if streaming:   # JAX asserts here, past the layer (C28)
                     raise ValueError("interlayer subsampling with a "
@@ -273,7 +309,8 @@ class XformerEncoder(nn.Module):
         if reshape:
             h = chunkwise_merge(h, bs, max(n_l, 0), n_c, n_r,
                                 -(-t_raw // f))
-        return {"ys": {"xs": h, "xlens": xlens}}
+        eouts["ys"] = {"xs": h, "xlens": xlens}
+        return eouts
 
     # ---- streaming inference (per-layer caches) ----------------------- #
     def stream_geometry(self) -> tuple[int, int, int, int, int]:

@@ -261,6 +261,12 @@ class MoChA(nn.Module):
     head's weighted value slice through ``w_out``; the single-head context
     is the raw values weighted directly.
 
+    The energies compute in the query's type, the alignment in float32 at
+    least (under bf16 compute the energies are cast up, alpha and beta
+    stay float32, and beta is cast to the values' type for the context:
+    ROADMAP C39, where JAX computes it all in bf16); ``alpha_prev`` comes
+    in that alignment type.
+
     ``mask`` [B, T] bool (valid frames) masks both energies. In parallel
     mode ``noise`` [B, H_ma, T] (a standard normal draw, None for none) is
     scaled by ``noise_std``; ``no_denominator`` drops the division by the
@@ -325,7 +331,11 @@ class MoChA(nn.Module):
                 noise: Optional[torch.Tensor] = None):
         bs, t = key_cache["mono"].shape[:2]
         h_ma, h_ca = self.n_heads_mono, self.n_heads_chunk
-        e_mono = self.monotonic_energy(key_cache["mono"], query)
+        # the energies in the inputs' type; the alignment (alpha, beta) in
+        # float32 at least: under bf16 compute it is cast here and the
+        # context's product below (ROADMAP C39)
+        adt = torch.promote_types(query.dtype, torch.float32)
+        e_mono = self.monotonic_energy(key_cache["mono"], query).to(adt)
         if mask is not None:
             e_mono = apply_mask_logits(e_mono, mask[:, None, :])
         if mode == "parallel":
@@ -358,7 +368,7 @@ class MoChA(nn.Module):
         if self.chunk_size == 1:
             beta = a4.expand(bs, h_ma, h_ca, t)
         else:
-            e_chunk = self.chunk_energy(key_cache["chunk"], query)
+            e_chunk = self.chunk_energy(key_cache["chunk"], query).to(adt)
             if self.share_ca:
                 e_chunk = e_chunk.view(bs, 1, h_ca, t).expand(
                     bs, h_ma, h_ca, t)
@@ -371,13 +381,15 @@ class MoChA(nn.Module):
             beta = chunkwise(a4.expand(bs, h_ma, h_ca, t), e_chunk,
                              self.chunk_size)
 
+        value = key_cache["value"]
+        weights = beta.to(value.dtype)
         if self.multihead:
-            v = key_cache["value"].view(bs, t, h_ma * h_ca, self.adim)
+            v = value.view(bs, t, h_ma * h_ca, self.adim)
             ctx = torch.einsum("bit,btid->bid",
-                               beta.reshape(bs, h_ma * h_ca, t), v)
+                               weights.reshape(bs, h_ma * h_ca, t), v)
             ctx = self.w_out(ctx.reshape(bs, -1))
         else:
-            ctx = torch.bmm(beta.reshape(bs, 1, t), key_cache["value"])[:, 0]
+            ctx = torch.bmm(weights.reshape(bs, 1, t), value)[:, 0]
         return ctx, alpha, beta
 
 

@@ -4,8 +4,14 @@ transducer) + CTC head, assembled by ``build_speech2text`` from a
 reference-style args namespace.
 
 ``forward`` is the training loss: SpecAugment (in ``train()`` mode), the
-encoder, then ``ctc_weight * loss_ctc + (1 - ctc_weight) * loss_dec``,
-the decoder's loss being ``loss_att`` or ``loss_transducer``. The
+encoder, then ``ctc_weight * loss_ctc + fwd_weight * loss_dec``, the
+decoder's loss being ``loss_att`` or ``loss_transducer``, with
+``fwd_weight = max(1 - ctc_weight - sub1_weight - sub2_weight, 0)``; and
+for each hierarchical sub-task whose encoder tap is there (JAX's MTL
+sub-heads) ``ctc_weight_sub{n} * loss_ctc_sub{n} + (sub{n}_weight -
+ctc_weight_sub{n}) * loss_att_sub{n}`` on the tap's outputs and the
+``ys_sub{n}`` labels (``ys`` where none are given). As in JAX, a sub CTC
+head reads neither ``ctc_fc_list`` nor ``ctc_lsm_prob`` (ROADMAP C38). The
 step's randomness (SpecAugment, dropout) comes from the ``gen`` argument,
 a ``torch.Generator``; in ``eval()`` mode the loss is deterministic, as the
 JAX module's ``deterministic=True``.
@@ -30,18 +36,40 @@ class Speech2Text(nn.Module):
                  dec_fwd: Optional[Union[RNNDecoder, TransformerDecoder,
                                          RNNTransducer]] = None,
                  ctc: Optional[CTC] = None, ctc_weight: float = 0.0,
-                 specaug: Optional[dict] = None):
+                 specaug: Optional[dict] = None,
+                 dec_fwd_sub1: Optional[nn.Module] = None,
+                 ctc_sub1: Optional[CTC] = None,
+                 dec_fwd_sub2: Optional[nn.Module] = None,
+                 ctc_sub2: Optional[CTC] = None, sub1_weight: float = 0.0,
+                 ctc_weight_sub1: float = 0.0, sub2_weight: float = 0.0,
+                 ctc_weight_sub2: float = 0.0):
         super().__init__()
         self.encoder = encoder
         self.dec_fwd = dec_fwd
         self.ctc = ctc
-        self.ctc_weight = ctc_weight
+        self.dec_fwd_sub1, self.ctc_sub1 = dec_fwd_sub1, ctc_sub1
+        self.dec_fwd_sub2, self.ctc_sub2 = dec_fwd_sub2, ctc_sub2
+        self.set_weights(ctc_weight=ctc_weight, sub1_weight=sub1_weight,
+                         ctc_weight_sub1=ctc_weight_sub1,
+                         sub2_weight=sub2_weight,
+                         ctc_weight_sub2=ctc_weight_sub2)
         # draw_masks keywords; masks are drawn in train() mode only
         self.specaug = specaug or {}
 
+    def set_weights(self, **weights) -> None:
+        """Set the task weights named (``ctc_weight``, ``sub1_weight``,
+        ``ctc_weight_sub1``, ``sub2_weight``, ``ctc_weight_sub2``): the
+        train CLI's ``mtl_per_batch`` trains one task per batch this way,
+        the same modules with the other tasks' weights zeroed."""
+        for name, w in weights.items():
+            if name not in WEIGHTS:
+                raise ValueError(f"no task weight {name!r}")
+            setattr(self, name, float(w))
+
     @property
     def fwd_weight(self) -> float:
-        return max(1.0 - self.ctc_weight, 0.0)
+        return max(1.0 - self.ctc_weight - self.sub1_weight
+                   - self.sub2_weight, 0.0)
 
     def encode(self, xs: torch.Tensor, xlens: torch.Tensor,
                task: str = "all"):
@@ -58,14 +86,21 @@ class Speech2Text(nn.Module):
 
     def forward(self, xs: torch.Tensor, xlens: torch.Tensor,
                 ys: torch.Tensor, ylens: torch.Tensor,
-                gen: Optional[torch.Generator] = None):
+                gen: Optional[torch.Generator] = None,
+                ys_sub1: Optional[torch.Tensor] = None,
+                ylens_sub1: Optional[torch.Tensor] = None,
+                ys_sub2: Optional[torch.Tensor] = None,
+                ylens_sub2: Optional[torch.Tensor] = None):
         """xs [B, T, input_dim] features, xlens [B], ys [B, U] PAD-padded
-        labels, ylens [B]. Returns (loss, obs) with obs "loss", "loss_ctc",
-        "loss_att", "acc_att", "ppl_att" (and a MoChA or MMA decoder's
-        "loss_quantity" / "loss_latency" in ``train()``), or with a
-        transducer "loss", "loss_ctc", "loss_transducer"."""
+        labels, ylens [B]; the sub-tasks' labels likewise. Returns (loss,
+        obs) with obs "loss", "loss_ctc", "loss_att", "acc_att", "ppl_att"
+        (and a MoChA or MMA decoder's "loss_quantity" / "loss_latency" in
+        ``train()``), or with a transducer "loss", "loss_ctc",
+        "loss_transducer"; with sub-tasks "loss_ctc_sub1", "loss_att_sub1"
+        and the same for sub2."""
         xs = self._frontend(xs, xlens, gen)
-        eouts = self.encoder(xs, xlens, gen=gen)["ys"]
+        eouts_all = self.encoder(xs, xlens, gen=gen)
+        eouts = eouts_all["ys"]
         ex, el = eouts["xs"], eouts["xlens"]
         loss = torch.zeros((), dtype=torch.float32, device=xs.device)
         obs = {}
@@ -85,8 +120,33 @@ class Speech2Text(nn.Module):
             loss_att, obs_att = self.dec_fwd(ex, el, ys, ylens, gen, trig)
             loss = loss + self.fwd_weight * loss_att
             obs.update(obs_att)
+        for sub, ys_s, ylens_s in (("sub1", ys_sub1, ylens_sub1),
+                                   ("sub2", ys_sub2, ylens_sub2)):
+            if f"ys_{sub}" not in eouts_all:
+                continue
+            ex = eouts_all[f"ys_{sub}"]["xs"]
+            el = eouts_all[f"ys_{sub}"]["xlens"]
+            if ys_s is None:
+                ys_s, ylens_s = ys, ylens
+            w = getattr(self, f"{sub}_weight")
+            wc = getattr(self, f"ctc_weight_{sub}")
+            ctc, dec = getattr(self, f"ctc_{sub}"), getattr(self,
+                                                         f"dec_fwd_{sub}")
+            if ctc is not None and wc > 0:
+                loss_s, _ = ctc(ex, el, ys_s, ylens_s, gen)
+                loss = loss + wc * loss_s
+                obs[f"loss_ctc_{sub}"] = loss_s
+            if dec is not None and w - wc > 0:
+                loss_s, _ = dec(ex, el, ys_s, ylens_s, gen)
+                loss = loss + (w - wc) * loss_s
+                obs[f"loss_att_{sub}"] = loss_s
         obs["loss"] = loss
         return loss, obs
+
+
+# the task weights ``Speech2Text.set_weights`` sets
+WEIGHTS = ("ctc_weight", "sub1_weight", "ctc_weight_sub1", "sub2_weight",
+           "ctc_weight_sub2")
 
 
 # Training and model options of the JAX package the port does not have:
@@ -94,8 +154,7 @@ class Speech2Text(nn.Module):
 # decoder's own (dropout_in, dropout_att, dropout_enc_layer) raise in their
 # builders. rsp_prob_enc is the recipes' name of random state passing,
 # which the JAX package reads as rsp_prob only (ROADMAP C16).
-_NOT_PORTED = ("bwd_weight", "sub1_weight", "sub2_weight",
-               "sequence_summary_network", "input_noise_std",
+_NOT_PORTED = ("bwd_weight", "sequence_summary_network", "input_noise_std",
                "adaptive_number_ratio", "adaptive_size_ratio",
                "distillation_weight", "teacher", "mbr_training",
                "weight_noise_std", "rsp_prob_enc")
@@ -107,10 +166,12 @@ def build_speech2text(args, device=None) -> Speech2Text:
     (``device="cpu"``). Without a card the default raises: nothing falls
     back to the CPU. The flagship's training options are honoured:
     SpecAugment (freq_width, n_freq_masks, time_width, n_time_masks,
-    time_width_upper), lsm_prob, dropout_enc, dropout_dec, dropout_emb,
-    and the CTC head's ctc_fc_list and ctc_lsm_prob; the others raise
+    time_width_upper), lsm_prob, dropout_in, dropout_enc, dropout_dec,
+    dropout_emb, the CTC head's ctc_fc_list and ctc_lsm_prob, and the MTL
+    sub-tasks (sub{n}_weight, ctc_weight_sub{n}, vocab_sub{n},
+    dec_config_sub{n}, the encoder's taps); the others raise
     ``NotImplementedError``."""
-    from .decoders.build import build_decoder
+    from .decoders.build import build_decoder, sub_args
     from .encoders.build import build_encoder
 
     device = model_device(device, "build_speech2text")
@@ -130,10 +191,35 @@ def build_speech2text(args, device=None) -> Speech2Text:
            if ctc_weight > 0 else None)
     dec_fwd = build_decoder(args, vocab, enc_n_units) \
         if ctc_weight < 1.0 else None
+
+    def sub_heads(sub):
+        """JAX's sub_heads: a CTC over vocab_sub{n} at the tap's width when
+        ctc_weight_sub{n} > 0 (no fc layers, no label smoothing: C38), a
+        decoder built with dec_config_sub{n}'s overrides when
+        sub{n}_weight - ctc_weight_sub{n} > 0."""
+        w, wc = g(f"{sub}_weight", 0.0), g(f"ctc_weight_{sub}", 0.0)
+        if w <= 0:
+            return None, None
+        vocab_sub = g(f"vocab_{sub}", vocab)
+        n_units_sub = getattr(enc, f"output_dim_{sub}", enc_n_units)
+        c = CTC(vocab=vocab_sub, enc_n_units=n_units_sub,
+                dropout=g("dropout_dec", 0.0)) if wc > 0 else None
+        d = build_decoder(sub_args(args, sub), vocab_sub, n_units_sub) \
+            if w - wc > 0 else None
+        return d, c
+
+    dec_s1, ctc_s1 = sub_heads("sub1")
+    dec_s2, ctc_s2 = sub_heads("sub2")
     specaug = dict(freq_mask_width=g("freq_width", 0),
                    n_freq_masks=g("n_freq_masks", 0),
                    time_mask_width=g("time_width", 0),
                    n_time_masks=g("n_time_masks", 0),
                    p=g("time_width_upper", 1.0))
-    return Speech2Text(encoder=enc, dec_fwd=dec_fwd, ctc=ctc,
-                       ctc_weight=ctc_weight, specaug=specaug).to(device)
+    return Speech2Text(
+        encoder=enc, dec_fwd=dec_fwd, ctc=ctc, ctc_weight=ctc_weight,
+        specaug=specaug, dec_fwd_sub1=dec_s1, ctc_sub1=ctc_s1,
+        dec_fwd_sub2=dec_s2, ctc_sub2=ctc_s2,
+        sub1_weight=g("sub1_weight", 0.0),
+        ctc_weight_sub1=g("ctc_weight_sub1", 0.0),
+        sub2_weight=g("sub2_weight", 0.0),
+        ctc_weight_sub2=g("ctc_weight_sub2", 0.0)).to(device)

@@ -37,17 +37,21 @@ from ..trainers.optimizer import Adam, SGD, global_norm
 
 def compute_loss(model: nn.Module, compute_dtype: Optional[torch.dtype],
                  xs, xlens, ys, ylens,
-                 gen: Optional[torch.Generator] = None):
+                 gen: Optional[torch.Generator] = None, **sub_labels):
     """(loss, obs) of ``model`` on one microbatch under the precision
     policy: the model as it is when ``compute_dtype`` is None, else its
     floating parameters and ``xs`` cast to ``compute_dtype`` (the casts
-    differentiable, the loss returned in float32)."""
+    differentiable, the loss returned in float32). ``sub_labels``: the
+    hierarchical sub-tasks' ``ys_sub1`` / ``ylens_sub1`` / ``ys_sub2`` /
+    ``ylens_sub2`` (None entries dropped)."""
+    sub_labels = {k: v for k, v in sub_labels.items() if v is not None}
     if compute_dtype is None:
-        return model(xs, xlens, ys, ylens, gen)
+        return model(xs, xlens, ys, ylens, gen, **sub_labels)
     params = {name: p.to(compute_dtype) if p.is_floating_point() else p
               for name, p in model.named_parameters()}
     loss, obs = functional_call(
-        model, params, (xs.to(compute_dtype), xlens, ys, ylens, gen))
+        model, params, (xs.to(compute_dtype), xlens, ys, ylens, gen),
+        sub_labels)
     return loss.float(), obs
 
 
@@ -64,8 +68,9 @@ def deterministic_cudnn():
 
 
 class TrainStep:
-    """``step(xs, xlens, ys, ylens, lr_scale=1.0, gen=None) -> metrics``:
-    one microbatch forward and backward, then the optimizer (which holds
+    """``step(xs, xlens, ys, ylens, lr_scale=1.0, gen=None, **sub_labels)
+    -> metrics``: one microbatch forward and backward (with the sub-tasks'
+    labels, as JAX's ``make_train_step``), then the optimizer (which holds
     its state and decides whether this microstep emits an update); an
     emitted update is scaled by ``lr_scale`` and added to the parameters.
     The model runs in the mode it is in: ``train()`` draws SpecAugment and
@@ -91,12 +96,13 @@ class TrainStep:
         opt.init(self.params)
 
     def __call__(self, xs, xlens, ys, ylens, lr_scale: float = 1.0,
-                 gen: Optional[torch.Generator] = None) -> dict:
+                 gen: Optional[torch.Generator] = None,
+                 **sub_labels) -> dict:
         for p in self.params:
             p.grad = None
         with deterministic_cudnn():
             loss, obs = compute_loss(self.model, self.compute_dtype, xs,
-                                     xlens, ys, ylens, gen)
+                                     xlens, ys, ylens, gen, **sub_labels)
             loss.backward()
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in self.params]

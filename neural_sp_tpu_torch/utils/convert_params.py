@@ -51,6 +51,12 @@ Layout rules (flax -> torch):
     scanned ``MMAStep``'s parameters, one set for all positions) follow the
     rules above unchanged.
 
+The hierarchical sub-tasks' leaves keep their names: the heads
+``ctc_sub1`` / ``dec_fwd_sub1`` (and ``_sub2``), the encoders' taps
+``norm_out_sub1``, ``block_sub1_tsl`` (a task-specific encoder block),
+``rnn_sub1_tsl`` (a task-specific (B)LSTM layer, its cells ``fwd`` / ``bwd``
+as an ``RNNLayer``'s) and ``bridge_sub1``, each by the rules above.
+
 ``convert_checkpoint`` carries a whole JAX training checkpoint (params,
 the Adam state and the epoch controller's state) into the port's
 checkpoint format, for ``--resume`` and ``--recog_model``.

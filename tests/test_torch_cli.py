@@ -277,13 +277,19 @@ def test_resume_past_the_switch_fails_as_in_jax(runs):
 @pytest.mark.parametrize("flag", ["teacher", "mbr_training", "rsp_prob",
                                   "mtl_per_batch", "profile_n_steps"])
 def test_unported_train_cli_options_raise(runs, flag):
+    """Each raises; ``mtl_per_batch`` is ported, and raises as the JAX
+    CLI's assertion does for a sub-task weight with no encoder tap."""
     c = runs["corpus"]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    extra, err = ([], pytest.raises(NotImplementedError, match="ROADMAP")) \
+        if flag != "mtl_per_batch" else (
+            ["--sub1_weight", "0.2"],
+            pytest.raises(AssertionError, match="enc_n_layers_sub1"))
+    with err:
         port_train.main(["--config", os.path.join(runs["pdir"], "conf.yml"),
                          "--train_set", c["train"], "--dev_set", c["dev"],
                          "--dict", c["dict_char"], "--model_save_dir",
-                         str(runs["root"] / "unported"), f"--{flag}", "1"],
-                        device="cpu")
+                         str(runs["root"] / "unported"), f"--{flag}", "1"]
+                        + extra, device="cpu")
 
 
 
@@ -529,6 +535,117 @@ def test_transformer_conf_trains_and_evaluates(runs, monkeypatch):
     argv = ["--recog_sets", c["test"], "--recog_beam_width", "2",
             "--recog_ctc_weight", "0.3", "--recog_max_len_ratio", "0.3"]
     out = root / "xf_eval"
+    mw = jax_eval.main(["--recog_model", jdir, "--recog_dir",
+                        str(out / "jax")] + argv)
+    mg = port_eval.main(["--recog_model", edir, "--recog_dir",
+                         str(out / "port")] + argv, device="cpu")
+    (mw,), (mg,) = mw.values(), mg.values()
+    assert mg["n_utts"] == mw["n_utts"] == 4 and mg["wer"] == mw["wer"]
+    for name in ("hyp.trn", "ref.trn"):
+        assert (out / "port" / "test" / name).read_text() == \
+            (out / "jax" / "test" / name).read_text()
+
+
+# a tiny hierarchical MTL conf (the SWBD BLSTM-LAS's shape): one pooling
+# block, 3 BLSTM-16 layers summed, drop subsampling after the second, the
+# sub1 tap after the second with a task-specific layer; the main task in
+# characters (the corpus' token ids; CTC 0.2 + LAS), sub1 in words (CTC
+# 0.2 + a LAS decoder of 24 units from dec_config_sub1); one task per
+# batch; dropout and SpecAugment off (ROADMAP C4)
+MTL_CONF = dict(
+    enc_type="conv_blstm", input_dim=80, conv_channels="4",
+    conv_kernel_sizes="(3,3)", conv_poolings="(2,2)", enc_n_units=16,
+    enc_n_layers=3, subsample="1_2_1", bidirectional_sum_fwd_bwd=True,
+    enc_n_layers_sub1=2, task_specific_layer=True, dropout_enc=0.0,
+    dropout_dec=0.0, dropout_emb=0.0, dec_type="lstm", dec_n_units=32,
+    dec_n_layers=1, emb_dim=16, dec_bottleneck_dim=32, attn_type="location",
+    attn_dim=16, attn_conv_width=9, ctc_weight=0.2, ctc_weight_sub1=0.2,
+    sub1_weight=0.4, dec_config_sub1={"dec_n_units": 24}, lsm_prob=0.1,
+    unit="char", unit_sub1="word", batch_size=8, min_n_frames=1,
+    max_n_frames=10000, optimizer="adam", lr=1e-3, print_step=1, n_epochs=1,
+    mtl_per_batch=True)
+
+
+def test_mtl_conf_trains_and_evaluates(runs, monkeypatch, caplog):
+    """The JAX and the port train CLIs for one epoch on the MTL conf with
+    ``--dict_sub1`` (words beside the character task) and ``mtl_per_batch``
+    from the same weights (the JAX CLI's initial ones, converted): the
+    port's tasks rotate main, sub1, main over the epoch's three batches;
+    the epoch's train losses in ``history.csv`` (their parts, the sub1 CTC
+    and attention losses included) and the main task's dev losses agree to
+    rtol 2e-4; the saved conf carries the sub1 vocabulary. The dev loss
+    departs (ROADMAP C40): JAX's dev step takes no sub labels, so its sub
+    heads read the main task's character ids (past the word vocabulary:
+    NaN), where the port's read the dev set's words. Then both eval CLIs
+    decode the test
+    set (the main task, beam 2 + CTC 0.3) from the JAX epoch-1 weights:
+    the same hypotheses."""
+    root, c = runs["root"], runs["corpus"]
+    conf = root / "mtl.yml"
+    conf.write_text(yaml.safe_dump(MTL_CONF))
+    initial = {}
+    jax_build_cli = jax_train.build_speech2text
+
+    def capture_init(args):
+        model = jax_build_cli(args)
+        init = jax.jit(model.init)
+
+        def recorded(*a, **kw):
+            out = init(*a, **kw)
+            initial.setdefault("params", jax.tree.map(np.asarray,
+                                                      out["params"]))
+            return out
+        object.__setattr__(model, "init", recorded)
+        return model
+
+    def jax_weights(model, seed):
+        model.load_state_dict(convert_params(initial["params"]), strict=True)
+        return model
+
+    monkeypatch.setattr(jax_train, "build_speech2text", capture_init)
+    monkeypatch.setattr(port_train, "init_params", jax_weights)
+    data = ["--train_set", c["train"], "--dev_set", c["dev"], "--dict",
+            c["dict_char"], "--dict_sub1", c["dict_word"]]
+    jdir, pdir = str(root / "mtl_jax"), str(root / "mtl_port")
+    jax_train.main(["--config", str(conf), "--model_save_dir", jdir] + data)
+    with caplog.at_level("INFO", logger=port_train.__name__):
+        port_train.main(["--config", str(conf), "--model_save_dir", pdir]
+                        + data, device="cpu")
+    tasks = [r.getMessage() for r in caplog.records
+             if ": task " in r.getMessage()]
+    assert tasks == ["step 1: task 0", "step 2: task 1", "step 3: task 0"]
+    with open(os.path.join(pdir, "conf.yml")) as f:
+        saved = yaml.safe_load(f)
+    with open(os.path.join(jdir, "conf.yml")) as f:
+        assert saved["vocab_sub1"] == yaml.safe_load(f)["vocab_sub1"] > 4
+    rows = []
+    for d in (jdir, pdir):
+        with open(os.path.join(d, "history.csv")) as f:
+            head, *body = f.read().splitlines()
+        assert len(body) == 1
+        rows.append(dict(zip(head.split(","), body[0].split(","))))
+    want, got = rows
+    keys = [k for k in want if k.startswith(("train_loss", "dev_loss"))]
+    assert {"train_loss_ctc_sub1", "train_loss_att_sub1",
+            "dev_loss_ctc_sub1", "dev_loss_att_sub1"} <= set(keys) <= \
+        set(got)
+    c40 = ("dev_loss", "dev_loss_mean", "dev_loss_ctc_sub1",
+           "dev_loss_att_sub1")
+    for k in keys:
+        if k not in c40:
+            np.testing.assert_allclose(float(got[k]), float(want[k]),
+                                       rtol=RTOL, err_msg=k)
+    assert np.isnan(float(want["dev_loss_att_sub1"]))
+    assert all(np.isfinite(float(got[k])) for k in c40)
+
+    edir = str(root / "mtl_port_eval")
+    os.makedirs(edir)
+    shutil.copy(os.path.join(jdir, "conf.yml"), edir)
+    ck = _checkpoint(jdir, 1)
+    save_checkpoint(edir, 1, ck["model"], ck["optimizer"], ck["controller"])
+    argv = ["--recog_sets", c["test"], "--recog_beam_width", "2",
+            "--recog_ctc_weight", "0.3"]
+    out = root / "mtl_eval"
     mw = jax_eval.main(["--recog_model", jdir, "--recog_dir",
                         str(out / "jax")] + argv)
     mg = port_eval.main(["--recog_model", edir, "--recog_dir",

@@ -862,11 +862,18 @@ def test_librispeech_lstm_mocha_args_equal_the_conf():
 
 
 def test_bf16_and_sampling_raise_for_mocha():
+    """Scheduled sampling with MoChA raises. bf16 compute is ported (it
+    raised before): the decoder at bf16 gives a finite loss in float32
+    (tests/test_torch_mocha_bf16.py holds it to JAX)."""
     tm = init_params(build_speech2text(small_mocha(), device="cpu"), 0)
+    dec = tm.dec_fwd.train()
     e = torch.zeros(2, 8, 16, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.dec_fwd(e, torch.tensor([8, 5]), torch.ones(2, 3, dtype=torch.long),
-                   torch.tensor([3, 2]))
+    loss, obs = torch.func.functional_call(
+        dec, {n: p.to(torch.bfloat16) for n, p in dec.named_parameters()},
+        (e, torch.tensor([8, 5]), torch.ones(2, 3, dtype=torch.long),
+         torch.tensor([3, 2])))
+    assert obs["loss_quantity"].dtype == torch.float32
+    assert bool(torch.isfinite(loss))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_speech2text(small_mocha(ss_prob=0.2), device="cpu")
 

@@ -229,8 +229,10 @@ def test_rnn_encoder_options_that_raise():
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             RNNEncoder(**{**ENC, "rnn_type": "blstm", **over})
     enc = RNNEncoder(**{**ENC, "rnn_type": "blstm"})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        enc(torch.zeros(1, 8, 10), torch.tensor([8]), task="ys_sub1")
+    # the taps are ported: an encoder without one returns the main stream
+    # alone for a sub task, as JAX's (tests/test_torch_mtl.py holds them)
+    assert set(enc(torch.zeros(1, 8, 10), torch.tensor([8]),
+                   task="ys_sub1")) == {"ys"}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         enc(torch.zeros(1, 8, 10, dtype=torch.bfloat16), torch.tensor([8]))
 

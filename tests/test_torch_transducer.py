@@ -317,8 +317,8 @@ def test_transducer_streaming_matches_jax(monkeypatch):
 # ---------------------------------------------------------------- the confs
 def _transducer_confs():
     """The recipe transducer confs with an RNN encoder (the uni-Conformer's
-    is held in test_torch_uni_conformer.py): (those that build, those that
-    set dropout_in, which raises)."""
+    is held in test_torch_uni_conformer.py): (those without dropout_in,
+    those that set it; both build since the input dropout is ported)."""
     out = subprocess.run(["grep", "-rl", "dec_type: lstm_transducer",
                           str(ROOT / "examples")], capture_output=True,
                          text=True, check=True).stdout.split()
@@ -337,14 +337,22 @@ _JAX_COUNTS = {}
 
 
 def test_transducer_confs_are_the_recipes():
+    """The two confs with dropout_in build at JAX's parameter counts, the
+    input dropout at the conf's rate."""
     assert len(TRANSDUCER_CONFS) == 13
     assert DROPOUT_IN_CONFS == ["ci_test/conf/asr/lcblstm_transducer.yaml",
                                 "timit/conf/rnn_transducer.yaml"]
     for conf in DROPOUT_IN_CONFS:
         args = parse_args_train(["--config", str(ROOT / "examples" / conf)])
         args.vocab = 100
-        with pytest.raises(NotImplementedError, match="dropout_in"):
-            build_speech2text(args, device="meta")
+        model = build_speech2text(args, device="meta")
+        assert model.encoder.drop_in.rate == args.dropout_in > 0
+        jm = jax_build(args)
+        shapes = jax.eval_shape(lambda: jm.init(
+            jax.random.PRNGKey(0), jnp.zeros((1, 64, args.input_dim)),
+            jnp.array([64]), jnp.ones((1, 3), jnp.int32), jnp.array([3])))
+        assert sum(p.numel() for p in model.parameters()) == sum(
+            math.prod(x.shape) for x in jax.tree.leaves(shapes["params"]))
 
 
 @pytest.mark.parametrize("conf", TRANSDUCER_CONFS)

@@ -13,7 +13,7 @@ atol = rtol = 2e-4 (the repo's).
   every other raise build on the meta device at JAX's parameter counts
   (the transducer uni-Conformer among them since the RNN transducer was
   ported; it raised on its decoder before); the ci_test LC conf raises on
-  ``dropout_in``, naming ROADMAP; ``configs``' three new arg sets equal
+  ``dropout_att``, naming ROADMAP; ``configs``' three new arg sets equal
   their yamls.
 * The quirks (ROADMAP C17, C25-C28), each as the JAX package has it.
 """
@@ -83,7 +83,7 @@ BUILDING = {
     "subsample8_rnnt_long_ln_bpe1k.yaml": 55189696,
 }
 RAISING = {"ci_test/conf/asr/lc_transformer_mma_ma4H_ca4H_w16_from4L_64_128_"
-           "64.yaml": "dropout_in"}
+           "64.yaml": "dropout_att"}
 
 
 def _tree(params):
