@@ -579,19 +579,24 @@ def phase_kernels(torch, rng):
     return res
 
 
-def k2_case(torch, rng, n, tt, d, keep=False, tag="2"):
-    """K2 at N rows, T frames and encoder width d (H 1024, A 512, C 10, K
-    201), with a dropout scale ``keep`` (rate 0.1) or none: both forms of
-    the wrapper (the checked, allocating call and the workspace a decode
-    loop steps through), without and with a beam's reorder, against the
-    plain version (KERNEL_ATOL), the two forms equal bit for bit; CUDA-event
+def k2_case(torch, rng, n, tt, d, keep=False, tag="2", att=False,
+            widths=(1024, 512, 10, 201), n_p=0):
+    """K2 at N rows, T frames, encoder width d and ``widths`` (H, A, C, K),
+    with a dropout scale ``keep`` (rate 0.1) or none, with ``att`` the
+    attention weights' dropout scale [N, T] (rate 0.1; scheduled
+    sampling's pass 1 with dropout_att), and with ``n_p`` the decoder's
+    projection of that width (its p held too): both forms of the
+    wrapper (the checked, allocating call and the workspace a decode loop
+    steps through), without and with a beam's reorder, against the plain
+    version (KERNEL_ATOL), the two forms equal bit for bit; CUDA-event
     times of the workspace form, the checked call and the plain version,
-    and the bound."""
+    and the bound; with ``att`` also the workspace form's time without
+    the mask, in turns with it (``no_mask_ms``)."""
     from neural_sp_tpu_torch.ops.kernels import las_step, las_step_ref
     from neural_sp_tpu_torch.ops.kernels.las_step import (LasStepWorkspace,
                                                           las_step_cost)
     dev = torch.device("cuda")
-    hd, a, c, kw = 1024, 512, 10, 201
+    hd, a, c, kw = widths
 
     def t(*shape, scale=1.0):
         return torch.from_numpy(
@@ -599,50 +604,70 @@ def k2_case(torch, rng, n, tt, d, keep=False, tag="2"):
 
     keep = (torch.from_numpy((rng.random((n, hd)) >= 0.1).astype(
         "float32")) / 0.9).to(dev) if keep else None
+    am = (torch.from_numpy((rng.random((n, tt)) >= 0.1).astype(
+        "float32")) / 0.9).to(dev) if att else None
     aw_prev = torch.softmax(t(n, tt, scale=3.0), -1)
     args = (t(n, 4 * hd, scale=0.5), t(n, d), t(n, hd, scale=0.5),
             t(n, hd), aw_prev, t(d, 4 * hd, scale=(d + hd) ** -0.5),
             t(hd, 4 * hd, scale=(d + hd) ** -0.5), t(4 * hd, scale=0.1),
-            t(a, hd, scale=hd ** -0.5), t(c, kw, scale=kw ** -0.5),
-            t(a, c, scale=c ** -0.5), t(a, scale=a ** -0.5),
-            t(n, tt, a), t(n, tt, d),
+            t(a, n_p or hd, scale=(n_p or hd) ** -0.5),
+            t(c, kw, scale=kw ** -0.5), t(a, c, scale=c ** -0.5),
+            t(a, scale=a ** -0.5), t(n, tt, a), t(n, tt, d),
             torch.tensor([tt - 3 * i for i in range(n)],
                          dtype=torch.int32, device=dev))
-    ws = LasStepWorkspace(*args[5:])
+    proj = (t(n_p, hd, scale=hd ** -0.5), t(n_p, scale=0.3)) if n_p else None
+    ws = LasStepWorkspace(*args[5:], proj=proj)
     parent = torch.from_numpy(
         rng.integers(0, n, n).astype("int32")).to(dev)
     err = 0.0
     for par in (None, parent):
-        refs = las_step_ref(*args, parent=par, keep=keep)
-        outs = las_step(*args, parent=par, keep=keep)
+        refs = las_step_ref(*args, parent=par, keep=keep, att_keep=am,
+                            proj=proj)
+        outs = las_step(*args, parent=par, keep=keep, att_keep=am,
+                        proj=proj)
         ws.load_carry(*args[1:5])
         ws.eg.copy_(args[0])
         if par is not None:
             ws.parent.copy_(par)
-        stepped = ws.step(use_parent=par is not None, keep=keep)
+        stepped = ws.step(use_parent=par is not None, keep=keep, att_keep=am)
+        if proj is not None:
+            stepped = (*stepped, ws.p)
+        expect(len(outs) == len(refs) == (5 if n_p else 4),
+               f"K2 N={n}: {len(outs)} outputs")
         err = max(err, *(max_err(x, y) for x, y in zip(outs, refs)))
         expect(all(torch.equal(x, y) for x, y in zip(stepped, outs)),
                f"K2 N={n} T={tt} D={d}: the workspace form differs from "
                f"the call")
     per_step = las_step.kernels_per_step
-    ms = cuda_ms(lambda: ws.step(use_parent=True, keep=keep), iters=200)
-    call_ms = cuda_ms(lambda: las_step(*args, parent=parent, keep=keep),
-                      iters=200)
-    ref_ms = cuda_ms(lambda: las_step_ref(*args, parent=parent, keep=keep))
+    extra = {}
+    if att:
+        ms, extra["no_mask_ms"] = timed_pair(
+            lambda: ws.step(use_parent=True, keep=keep, att_keep=am),
+            lambda: ws.step(use_parent=True, keep=keep), iters=200)
+    else:
+        ms = cuda_ms(lambda: ws.step(use_parent=True, keep=keep), iters=200)
+    call_ms = cuda_ms(lambda: las_step(*args, parent=parent, keep=keep,
+                                       att_keep=am, proj=proj), iters=200)
+    ref_ms = cuda_ms(lambda: las_step_ref(*args, parent=parent, keep=keep,
+                                          att_keep=am, proj=proj))
     bound = roofline(las_step_cost(n, tt, hd, d, a, c, kw,
-                                   args[-1].tolist()))
+                                   args[-1].tolist(), att, n_p))
     log(f"[{tag}] K2 las_step N={n} T={tt} H={hd} D={d} A={a} C={c} K={kw}"
-        f"{' with keep' if keep is not None else ''}: "
+        f"{f' P={n_p}' if n_p else ''}"
+        f"{' with keep' if keep is not None else ''}"
+        f"{' and the attention mask' if att else ''}: "
         f"max_abs_err {err:.3e}  kernel {ms:.4f} ms through its "
         f"workspace, {call_ms:.4f} ms as a checked call, {per_step} "
         f"kernels per step  twin {ref_ms:.4f} ms  bound "
         f"{bound['bound_ms']:.4f} ms ({bound['bound_by']})")
     expect(err <= KERNEL_ATOL,
            f"K2 N={n} T={tt} D={d}: error {err} > {KERNEL_ATOL}")
-    return {"shape": f"N={n} T={tt}" + (f" D={d}" if d != 512 else ""),
+    return {"shape": f"N={n} T={tt}" + (f" D={d}" if d != 512 else "")
+            + (f" H={hd} A={a} P={n_p}" if n_p else "")
+            + (" attention dropout 0.1" if att else ""),
             "keep": keep is not None, "max_abs_err": err, "ms": ms,
             "checked_call_ms": call_ms, "kernels_per_step": per_step,
-            "plain_ms": ref_ms, **bound}
+            "plain_ms": ref_ms, **extra, **bound}
 
 
 def flagship_model(torch):
@@ -1317,18 +1342,24 @@ def kernel_recorder(res: dict, tag: str):
     return record
 
 
-def las_scan_case(torch, rng, record, b, u, tt, d, kl, tag="2b"):
-    """K3 and K3b at B rows, U steps, T frames and encoder width d (H 1024,
-    A 512, C 10, K 201, klens ``kl``, dropout keep-masks at rate 0.1)
-    against their plain versions, with CUDA-event times, bounds, K3's and
-    K3b's kernel launches per call and the time of K3b's wrapper's work
-    after its kernel loop; returns (args, backward args, K3's plain
-    outputs, K3b's outputs)."""
+def las_scan_case(torch, rng, record, b, u, tt, d, kl, tag="2b", att=False,
+                  widths=(1024, 512, 10, 201), n_p=0):
+    """K3 and K3b at B rows, U steps, T frames, encoder width d and
+    ``widths`` (H, A, C, K), klens ``kl``, dropout keep-masks at rate 0.1;
+    with ``att`` the attention weights' dropout scale [U, B, T] at rate
+    0.1 too; with ``n_p`` the decoder's projection of that width (K3's p
+    and K3b's dW_p, db_p held too) against their plain versions, with
+    CUDA-event times, bounds, K3's
+    and K3b's kernel launches per call and the time of K3b's wrapper's
+    work after its kernel loop; with ``att`` also each kernel's time
+    without the mask on the same inputs, in turns with the masked call
+    (``no_mask_ms``); returns (args, backward args, K3's plain outputs,
+    K3b's outputs)."""
     from neural_sp_tpu_torch.ops.kernels.las_scan import (
         las_scan, las_scan_bwd, las_scan_bwd_chain, las_scan_bwd_cost,
         las_scan_bwd_finish, las_scan_bwd_ref, las_scan_cost, las_scan_ref)
     dev = torch.device("cuda")
-    hd, a, c, kw = 1024, 512, 10, 201
+    hd, a, c, kw = widths
 
     def t(*shape, scale=1.0):
         return torch.from_numpy(
@@ -1339,40 +1370,70 @@ def las_scan_case(torch, rng, record, b, u, tt, d, kl, tag="2b"):
         "float32")) / (1 - rate)).to(dev)
     args = (t(u, b, 4 * hd, scale=0.5), t(d, 4 * hd, scale=(d + hd) ** -0.5),
             t(hd, 4 * hd, scale=(d + hd) ** -0.5), t(4 * hd, scale=0.1),
-            t(a, hd, scale=hd ** -0.5), t(c, kw, scale=kw ** -0.5),
-            t(a, c, scale=c ** -0.5), t(a, scale=a ** -0.5), t(b, tt, a),
-            t(b, tt, d), torch.tensor(kl, dtype=torch.int32, device=dev),
-            keep)
-    outs, refs = las_scan(*args), las_scan_ref(*args)
-    what = f"B={b} U={u} T={tt} H={hd} D={d} A={a} C={c} K={kw}"
+            t(a, n_p or hd, scale=(n_p or hd) ** -0.5),
+            t(c, kw, scale=kw ** -0.5), t(a, c, scale=c ** -0.5),
+            t(a, scale=a ** -0.5), t(b, tt, a), t(b, tt, d),
+            torch.tensor(kl, dtype=torch.int32, device=dev), keep)
+    am = (torch.from_numpy((rng.random((u, b, tt)) >= rate).astype(
+        "float32")) / (1 - rate)).to(dev) if att else None
+    proj = (t(n_p, hd, scale=hd ** -0.5), t(n_p, scale=0.3)) if n_p else None
+    outs = las_scan(*args, am, proj)
+    refs = las_scan_ref(*args, am, proj)
+    expect(len(outs) == len(refs) == (7 if n_p else 6),
+           f"K3 {len(outs)} outputs")
+    what = f"B={b} U={u} T={tt} H={hd} D={d} A={a} C={c} K={kw}" + (
+        f" P={n_p}" if n_p else "") + (" attention dropout 0.1" if att else "")
     log(f"[{tag}] las_scan: {las_scan.kernel_launches_per_call} kernel "
         f"launches per call")
+    extra = {}
+    if att:
+        ms, extra["no_mask_ms"] = timed_pair(
+            lambda: las_scan(*args, am, proj), lambda: las_scan(
+                *args, None, proj), iters=5)
+    else:
+        ms = cuda_ms(lambda: las_scan(*args, None, proj), iters=5, warmup=1)
     # no single PyTorch call computes the scan (cuDNN's LSTM has no
     # attention fed back into its input): no library yardstick
-    record("las_scan", max(rel_err(x, y) for x, y in zip(outs, refs)),
-           cuda_ms(lambda: las_scan(*args), iters=5, warmup=1),
-           cuda_ms(lambda: las_scan_ref(*args), iters=5, warmup=1), what,
-           library_ms=None,
-           **roofline(las_scan_cost(u, b, tt, hd, d, a, c, kw, kl)))
+    record("las_scan", max(rel_err(x, y) for x, y in zip(outs, refs)), ms,
+           cuda_ms(lambda: las_scan_ref(*args, am, proj), iters=5, warmup=1),
+           what, library_ms=None, **extra,
+           **roofline(las_scan_cost(u, b, tt, hd, d, a, c, kw, kl, att,
+                                    n_p)))
     del outs
     w_ctx, w_h, _, w_q, conv_w, w_f, v, kc, values, klt, keep = args[1:]
-    bargs = (w_ctx, w_h, w_q, conv_w, w_f, v, kc, values, klt, keep, *refs,
-             t(u, b, hd), t(u, b, d))
-    got, want = las_scan_bwd(*bargs), las_scan_bwd_ref(*bargs)
+    bargs = (w_ctx, w_h, w_q, conv_w, w_f, v, kc, values, klt, keep,
+             *refs[:6], t(u, b, hd), t(u, b, d))
+    # with the projection: W_p, K3's p and its gradient
+    popt = (proj[0], refs[6], t(u, b, n_p)) if n_p else ()
+    got = las_scan_bwd(*bargs, am, *popt)
+    want = las_scan_bwd_ref(*bargs, am, *popt)
+    expect(len(got) == len(want) == (12 if n_p else 10),
+           f"K3b {len(got)} gradients")
     # the wrapper's work after the kernel loop (weight-gradient and
     # dvalues products, partial sums), timed alone on the loop's outputs
-    h, _, _, _, aw, ctx = refs
-    raw = las_scan_bwd_chain(*bargs)
-    outside_ms = cuda_ms(lambda: las_scan_bwd_finish(h, ctx, keep, aw, *raw),
-                         iters=5, warmup=1)
+    h, _, _, _, aw, ctx = refs[:6]
+    raw = las_scan_bwd_chain(*bargs, am, *popt)
+    dpre = raw[7] if n_p else None
+    outside_ms = cuda_ms(lambda: las_scan_bwd_finish(
+        h, ctx, keep, aw, *raw[:7], am, refs[6] if n_p else None, dpre),
+        iters=5, warmup=1)
     log(f"[{tag}] las_scan_bwd: {las_scan_bwd.kernel_launches_per_call} "
         f"kernel launches per call; the work after the loop "
         f"{outside_ms:.4f} ms")
+    extra = {}
+    if att:
+        ms, extra["no_mask_ms"] = timed_pair(
+            lambda: las_scan_bwd(*bargs, am, *popt),
+            lambda: las_scan_bwd(*bargs, None, *popt), iters=5)
+    else:
+        ms = cuda_ms(lambda: las_scan_bwd(*bargs, None, *popt), iters=5,
+                     warmup=1)
     record("las_scan_bwd", max(rel_err(x, y) for x, y in zip(got, want)),
-           cuda_ms(lambda: las_scan_bwd(*bargs), iters=5, warmup=1),
-           cuda_ms(lambda: las_scan_bwd_ref(*bargs), iters=5, warmup=1),
-           what, library_ms=None, outside_ms=outside_ms,
-           **roofline(las_scan_bwd_cost(u, b, tt, hd, d, a, c, kw, kl)))
+           ms, cuda_ms(lambda: las_scan_bwd_ref(*bargs, am, *popt), iters=5,
+                       warmup=1),
+           what, library_ms=None, outside_ms=outside_ms, **extra,
+           **roofline(las_scan_bwd_cost(u, b, tt, hd, d, a, c, kw, kl,
+                                        att, n_p)))
     return args, bargs, refs, got
 
 
@@ -1620,16 +1681,24 @@ def phase_train(torch, model, batch, train_dtype: str = "float32"):
 
 class PlainLASScan:
     """``LASScan`` with the plain forward, differentiated by autograd; as
-    ``LASScan``, in float32 at every compute dtype, cast at its boundary."""
+    ``LASScan``, in float32 at every compute dtype, cast at its boundary
+    (the attention dropout scale and the decoder's projection too)."""
 
     @staticmethod
-    def apply(eg, *args):
+    def apply(eg, w_ctx, w_h, bias, w_q, conv_w, w_f, v, kc, values, klens,
+              keep, att_keep=None, w_p=None, b_p=None):
         from neural_sp_tpu_torch.ops.kernels.las_scan import las_scan_ref
-        *args, klens, keep = args
-        h, _, _, _, aw, ctx = las_scan_ref(
-            eg.float().transpose(0, 1), *(x.float() for x in args), klens,
-            keep.float().transpose(0, 1))
-        return tuple(x.transpose(0, 1).to(eg.dtype) for x in (h, ctx, aw))
+
+        def tm(x):
+            return None if x is None else x.float().transpose(0, 1)
+
+        proj = None if w_p is None else (w_p.float(), b_p.float())
+        outs = las_scan_ref(
+            tm(eg), *(x.float() for x in (w_ctx, w_h, bias, w_q, conv_w,
+                                          w_f, v, kc, values)),
+            klens, tm(keep), tm(att_keep), proj)
+        return tuple(x.transpose(0, 1).to(eg.dtype)
+                     for x in (outs[0], outs[5], outs[4], *outs[6:]))
 
 
 def plain_rel_attention(torch):
@@ -2329,14 +2398,34 @@ def phase_sampled_cli(torch, root: Path, corpus: dict) -> dict:
     log(f"[7b] microbatch held to the plain versions with sampling on: B "
         f"{batch[0].shape[0]} x {batch[0].shape[1]} frames, U "
         f"{batch[2].shape[1]}")
+    out["train_parity"], _ = hold_sampled(torch, model, batch, "7b")
+    del model, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def hold_sampled(torch, model, batch, tag: str):
+    """A train() microstep with scheduled sampling on ``batch``, through the
+    kernels (launches counted from zero) and through the plain versions,
+    one generator seed (the same dropout, attention and sampling masks):
+    pass 2 of the plain microstep over the kernels' fed tokens (the plain
+    pass 1's may part from them only at ties: at most one in FED_TIES),
+    held by phase 6's rule. Returns (the held readings with
+    ``fed_tokens_parted``, the kernels' launches in their microstep)."""
+    from neural_sp_tpu_torch.models.decoders import las
+    from neural_sp_tpu_torch.ops.kernels import launches, reset_launches
+    orig_fed = las.RNNDecoder.fed_tokens
     fed_seen = []
 
     def keep_fed(self, *args):
         fed_seen.append(orig_fed(self, *args))
         return fed_seen[-1]
 
+    reset_launches()
     with mock.patch.object(las.RNNDecoder, "fed_tokens", keep_fed):
         loss, grads = train_microstep(torch, model, batch)
+    torch.cuda.synchronize()
+    counts = launches()
     kernel_fed = fed_seen[0]
 
     def plain_fed(self, *args):
@@ -2349,16 +2438,13 @@ def phase_sampled_cli(torch, root: Path, corpus: dict) -> dict:
                                               plain=True)
     valid = (kernel_fed != las.PAD) | (fed_seen[1] != las.PAD)
     parted = int((kernel_fed != fed_seen[1])[valid].sum())
-    log(f"[7b]   pass 1, K2 against its plain version: {parted} of "
+    log(f"[{tag}]   pass 1, K2 against its plain version: {parted} of "
         f"{int(valid.sum())} fed tokens differ")
     expect(parted * FED_TIES <= int(valid.sum()),
-           f"pass 1's fed tokens: {parted} differ")
-    out["train_parity"] = hold_microstep(loss, grads, loss_ref, grads_ref,
-                                         "7b")
-    out["train_parity"]["fed_tokens_parted"] = parted
-    del model, batch
-    torch.cuda.empty_cache()
-    return out
+           f"{tag}: pass 1's fed tokens: {parted} differ")
+    held = hold_microstep(loss, grads, loss_ref, grads_ref, tag)
+    held["fed_tokens_parted"] = parted
+    return held, counts
 
 
 def train_microstep(torch, model, batch, plain=False, **sub_labels):
@@ -4034,7 +4120,9 @@ def window_case(torch, rng, b, h, tt, dk, r, kl, window, tag: str,
     (and its autograd backward; with dropout, SDPA's ``dropout_p`` at the
     same rate, its own mask: the same work, so its error is taken
     without), beside the plain version's time and the bound of the
-    window's work."""
+    window's work. A head width below 16 reaches SDPA zero-padded to 16,
+    as K1 pads it (the same function; the outputs sliced back)."""
+    import torch.nn.functional as F
     from torch.nn.functional import scaled_dot_product_attention as sdpa
     from neural_sp_tpu_torch.ops.kernels.rel_attention import (
         rel_attention_bwd, rel_attention_bwd_cost, rel_attention_bwd_ref,
@@ -4075,11 +4163,13 @@ def window_case(torch, rng, b, h, tt, dk, r, kl, window, tag: str,
         expect(err <= KERNEL_ATOL, f"[{tag}] K1 {what}: error {err}")
         row["max_abs_err"] = err
     bias = window_bias(torch, p, klens, tt, window, key_start)
+    lq, lk, lv = (F.pad(x, (0, 16 - dk)) if dk < 16 else x
+                  for x in (q, k, v))
     with efficient_sdpa():
-        lib_err = rel_err(sdpa(q, k, v, attn_mask=bias, scale=1.0),
-                          undropped)
+        lib_err = rel_err(sdpa(lq, lk, lv, attn_mask=bias,
+                               scale=1.0)[..., :dk], undropped)
         ms, lib_ms = timed_pair(lambda: rel_attention_fwd(*fwd), lambda: sdpa(
-            q, k, v, attn_mask=bias, scale=1.0, dropout_p=rate))
+            lq, lk, lv, attn_mask=bias, scale=1.0, dropout_p=rate))
     expect(lib_err <= (BF16_KERNEL_TOL if bf16 else YARDSTICK_RTOL),
            f"[{tag}] K1 yardstick {what}: error {lib_err}")
     row.update(ms=ms, plain_ms=cuda_ms(lambda: rel_attention_ref(*fwd),
@@ -4117,12 +4207,13 @@ def window_case(torch, rng, b, h, tt, dk, r, kl, window, tag: str,
     expect(all(torch.equal(x, y) for x, y in zip(got, again)),
            f"[{tag}] K1b {what}: not the same bits twice")
     bias.requires_grad_()
-    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    leaves = [x.detach().requires_grad_() for x in (lq, lk, lv)]
+    ldo = F.pad(do, (0, 16 - dk)) if dk < 16 else do
     with efficient_sdpa():
         lib_out = sdpa(*leaves, attn_mask=bias, scale=1.0, dropout_p=rate)
 
         def lib_grads():
-            return torch.autograd.grad(lib_out, (*leaves, bias), do,
+            return torch.autograd.grad(lib_out, (*leaves, bias), ldo,
                                        retain_graph=True)
 
         ms, lib_ms = timed_pair(lambda: rel_attention_bwd(*args), lib_grads,
@@ -5770,24 +5861,29 @@ def tap_fits(torch, model, loader, device) -> int:
     return min(slack)
 
 
-def mtl_cli(torch, root: Path, corpus: dict, conf: str, tag: str,
-            flags: tuple, train_kernels: tuple, resume: str = "") -> dict:
-    """``bin.asr.train.main`` on ``conf`` over ``corpus`` with the
-    character dictionary for every sub-task, counts zeroed around it (the
-    step's sub-task each microstep trained, from the CLI's log with
-    ``mtl_per_batch``), then (without ``resume``) ``bin.asr.eval.main``
-    (MTL_EVAL): every loss finite, ``train_kernels`` launched."""
+def cli_run(torch, root: Path, corpus: dict, conf: str, tag: str,
+            flags: tuple, train_kernels: tuple, eval_kernels: tuple = (),
+            eval_flags: tuple = (), resume: str = "",
+            dev_finite: bool = False) -> dict:
+    """``bin.asr.train.main`` on ``conf`` over ``corpus`` (``flags``, into
+    ``exp_<tag>``, ``out["exp"]``), counts zeroed around it: each
+    microstep's losses, the step's sub-task each trained (from the CLI's
+    log, with ``mtl_per_batch``) and the dev losses; then (without
+    ``resume``) ``bin.asr.eval.main`` on the test set (``eval_flags``),
+    counts zeroed around it. Every microstep's loss finite (with
+    ``dev_finite`` every dev loss too), ``train_kernels`` /
+    ``eval_kernels`` launched, each test utterance decoded."""
+    import csv
     import logging
     import math
     from neural_sp_tpu_torch.bin.asr import eval as cli_eval
     from neural_sp_tpu_torch.bin.asr import train as cli_train
     from neural_sp_tpu_torch.ops.kernels import launches, reset_launches
     from neural_sp_tpu_torch.parallel.mesh import TrainStep
-    exp = str(root / f"exp_{Path(conf).stem}")
+    exp = str(root / f"exp_{tag}")
     argv = ["--config", str(ROOT / conf), "--train_set", corpus["train"],
             "--dev_set", corpus["dev"], "--dict", corpus["dict"],
-            "--dict_sub1", corpus["dict_char"], "--dict_sub2",
-            corpus["dict_char"], "--model_save_dir", exp] + list(flags)
+            "--model_save_dir", exp] + list(flags)
     if resume:
         argv += ["--resume", f"{exp}/{resume}"]
     steps, tasks = [], []
@@ -5815,15 +5911,22 @@ def mtl_cli(torch, root: Path, corpus: dict, conf: str, tag: str,
     finally:
         logging.getLogger(cli_train.__name__).removeHandler(handler)
     torch.cuda.synchronize()
-    out = {"train": {"wall_s": time.perf_counter() - t0,
+    with open(f"{exp}/history.csv") as f:
+        dev = [float(r["dev_loss_mean"]) for r in csv.DictReader(f)]
+    out = {"exp": exp,
+           "train": {"wall_s": time.perf_counter() - t0,
                      "microsteps": len(steps), "losses": steps,
-                     "tasks": tasks, "launches": launches()}}
+                     "tasks": tasks, "dev_loss": dev, "launches": launches()}}
     log(f"[{tag}] train CLI {conf} {' '.join(flags)}"
         f"{' resumed' if resume else ''}: {len(steps)} microsteps in "
-        f"{out['train']['wall_s']:.1f} s; tasks {tasks}; last microstep "
-        f"{steps[-1]}; launches {out['train']['launches']}")
-    expect(all(math.isfinite(v) for s in steps for v in s.values()),
-           f"{tag}: a loss not finite")
+        f"{out['train']['wall_s']:.1f} s; tasks {tasks}; losses "
+        f"{['%.3f' % x['loss'] for x in steps[:4]]}.., last microstep "
+        f"{steps[-1] if steps else None}; dev loss {dev}; launches "
+        f"{out['train']['launches']}")
+    expect(steps and all(math.isfinite(v) for x in steps
+                         for v in x.values()), f"{tag}: a loss not finite")
+    expect(not dev_finite or all(map(math.isfinite, dev)),
+           f"{tag}: a dev loss not finite")
     for k in train_kernels:
         expect(out["train"]["launches"][k] > 0,
                f"{k} never launched in {tag}'s train CLI")
@@ -5833,17 +5936,18 @@ def mtl_cli(torch, root: Path, corpus: dict, conf: str, tag: str,
     t0 = time.perf_counter()
     res = cli_eval.main(["--recog_model", exp, "--recog_sets",
                          corpus["test"], "--recog_dir",
-                         str(root / f"decode_{tag}")] + list(MTL_EVAL))
+                         str(root / f"decode_{tag}")] + list(eval_flags))
     torch.cuda.synchronize()
     (m,) = res.values()
     out["eval"] = {**m, "wall_s": time.perf_counter() - t0,
                    "launches": launches()}
-    log(f"[{tag}] eval CLI (beam 10 + CTC 0.3): RTF {m['rtf']:.4f}, WER "
-        f"{m['wer']:.2f} over {m['n_utts']} utterances (random weights); "
-        f"launches {out['eval']['launches']}")
-    expect(m["n_utts"] == MTL_UTTS["test"], f"{tag}: {m['n_utts']}")
-    for k in ("rel_attention", "las_step") if "conformer" in conf else \
-            ("las_step",):
+    log(f"[{tag}] eval CLI ({' '.join(eval_flags)}): RTF {m['rtf']:.4f}, "
+        f"WER {m['wer']:.2f} over {m['n_utts']} utterances (random "
+        f"weights); launches {out['eval']['launches']}")
+    with open(corpus["test"]) as f:
+        n_test = sum(1 for line in f if line.strip()) - 1    # a header
+    expect(m["n_utts"] == n_test, f"{tag}: {m['n_utts']} of {n_test}")
+    for k in eval_kernels:
         expect(out["eval"]["launches"][k] > 0,
                f"{k} never launched in {tag}'s eval CLI")
     return out
@@ -5923,18 +6027,19 @@ def phase_mtl(torch, rng, root: Path) -> dict:
     expect(n == MTL_PARAMS, f"14a: {n} parameters")
     out["parameters"] = n
     t = time.perf_counter()
-    a = mtl_cli(torch, root, corpus, MTL_CONF, "14a", MTL_OVERRIDES,
-                MTL_TRAIN_KERNELS)
-    a["hold"] = mtl_hold(torch, str(root / f"exp_{Path(MTL_CONF).stem}"),
-                         corpus, "14a")
+    subs = ("--dict_sub1", corpus["dict_char"], "--dict_sub2",
+            corpus["dict_char"])
+    a = cli_run(torch, root, corpus, MTL_CONF, "14a", MTL_OVERRIDES + subs,
+                MTL_TRAIN_KERNELS, ("rel_attention", "las_step"), MTL_EVAL)
+    a["hold"] = mtl_hold(torch, a["exp"], corpus, "14a")
     walls["14a"] = time.perf_counter() - t
     t = time.perf_counter()
     flags = ("--n_epochs", "1", "--unit", "word") + MTL3_DEPTH
-    b = mtl_cli(torch, root, corpus, MTL3_CONF, "14b", flags,
-                MTL3_TRAIN_KERNELS)
-    b["per_batch"] = mtl_cli(torch, root, corpus, MTL3_CONF, "14b",
+    b = cli_run(torch, root, corpus, MTL3_CONF, "14b", flags + subs,
+                MTL3_TRAIN_KERNELS, ("las_step",), MTL_EVAL)
+    b["per_batch"] = cli_run(torch, root, corpus, MTL3_CONF, "14b",
                              ("--n_epochs", "2", "--unit", "word",
-                              "--mtl_per_batch", "true") + MTL3_DEPTH,
+                              "--mtl_per_batch", "true") + MTL3_DEPTH + subs,
                              MTL3_TRAIN_KERNELS,
                              resume="ckpt.epoch-1")["train"]
     tasks = b["per_batch"]["tasks"]
@@ -5948,8 +6053,7 @@ def phase_mtl(torch, rng, root: Path) -> dict:
                                              "loss_ctc_sub2", "loss_att"} -
                                             want),
                f"14b task {task} trained {keys}")
-    b["hold"] = mtl_hold(torch, str(root / f"exp_{Path(MTL3_CONF).stem}"),
-                         corpus, "14b")
+    b["hold"] = mtl_hold(torch, b["exp"], corpus, "14b")
     walls["14b"] = time.perf_counter() - t
     out.update(aishell=a, swbd=b, sub_phase_wall_s=walls,
                phase_wall_s=time.perf_counter() - t0)
@@ -5960,6 +6064,232 @@ def phase_mtl(torch, rng, root: Path) -> dict:
     log(f"[14] walls {walls}; launches on the MTL paths {out['launches']}")
     return out
 
+
+
+# ------------------------------------------------------------- phase 15
+# attention dropout (dropout_att) through K1 / K1b, K2 / K3 / K3b; the
+# TDS and gated-conv encoders; the ci_test confs
+ATT_RATE = 0.1
+ATT_TRAIN_KERNELS = ("rel_attention_dropout", "rel_attention_bwd_dropout",
+                     "las_step_dropout", "las_scan_dropout",
+                     "las_scan_bwd_dropout", "ctc_loss", "ctc_loss_bwd")
+# 15k: K1 / K1b padded from the ci_test conformer's head width (d_model 8
+# over 4 heads), at a training batch of its shape, with its dropout
+NARROW = dict(b=32, h=4, tt=400, dk=2)
+TDS_CONF = "examples/wsj/conf/asr/tds_encoder.yaml"
+GLU_CONF = "examples/wsj/conf/asr/glu_encoder.yaml"
+# the WSJ confs as JAX's builder reads them (C41, C42), at vocab 10,000
+TDS_PARAMS, GLU_PARAMS = 31584554, 13398254
+TDS_TRAIN_KERNELS = ("las_scan", "las_scan_bwd")
+# the ci_test LAS decoders' widths (H 16, A 16, encoder output D 8, the
+# projection P 8; C 10, K 201), their batch of 1 over 15c's longest
+# utterance (CI_FRAMES: 800 frames, 200 after the BLSTM encoder's
+# subsampling by 4; 100 words and <eos>)
+CI_LAS = dict(b=1, u=101, tt=200, d=8, widths=(16, 16, 10, 201), n_p=8)
+CI_LAS_KERNELS = ("las_step_dropout", "las_step_proj", "las_scan_dropout",
+                  "las_scan_proj", "las_scan_bwd_dropout",
+                  "las_scan_bwd_proj", "ctc_loss", "ctc_loss_bwd")
+CI_CONFS = {"blstm_las": CI_LAS_KERNELS,
+            "conformer": ("rel_attention_padded", "rel_attention_dropout",
+                          "rel_attention_bwd_padded",
+                          "rel_attention_bwd_dropout", "ctc_loss",
+                          "ctc_loss_bwd"),
+            "tds_las": CI_LAS_KERNELS}
+CI_EVAL_KERNELS = {"blstm_las": ("las_step_proj",),
+                   "conformer": ("rel_attention_padded",),
+                   "tds_las": ("las_step_proj",)}
+CI_UTTS = {"train": 16, "dev": 4, "test": 4}
+CI_FRAMES = (300, 800)
+GREEDY_EVAL = ("--recog_beam_width", "1")
+
+
+def phase_att_kernels(torch, rng) -> dict:
+    """15k: K3 / K3b with the attention weights' dropout scale at 2b's
+    shape (B 32, U+1 101, T 188, D 512) and at phase 8's (T ragged to 500,
+    D 1024), each against its plain version (TRAIN_KERNEL_TOL) and timed
+    in turns with the same call without the mask; K2 with the LSTM
+    output's keep and the attention mask (scheduled sampling's pass 1, N
+    32, T 188), against its plain version (KERNEL_ATOL), timed in turns
+    without the mask; K1 / K1b at the ci_test conformer's head width dk 2
+    (zero-padded to 16 inside the wrapper) with dropout 0.1, against their
+    plain versions at that width (``window_case``); the decoder's
+    projection (``res["proj"]``): K3 / K3b with the attention mask and K2
+    in pass 1 at the ci_test LAS decoders' widths (CI_LAS) and at 2b's
+    shape with P 512, against the plain versions (the same tolerances)."""
+    res = {}
+    record = kernel_recorder(res, "15k")
+    las_scan_case(torch, rng, record, TRAIN_B, 101, 188, 512,
+                  [188 - 3 * i for i in range(TRAIN_B)], tag="15k", att=True)
+    las_scan_case(torch, rng, record, TRAIN_B, 101, 500, BLSTM_D,
+                  [500 - 9 * i for i in range(TRAIN_B)], tag="15k", att=True)
+    res["las_step"] = k2_case(torch, rng, 32, 188, 512, keep=True,
+                              tag="15k", att=True)
+    proj = res["proj"] = {}
+    record_p = kernel_recorder(proj, "15k")
+    ci = CI_LAS
+    las_scan_case(torch, rng, record_p, ci["b"], ci["u"], ci["tt"], ci["d"],
+                  [ci["tt"]] * ci["b"], tag="15k", att=True,
+                  widths=ci["widths"], n_p=ci["n_p"])
+    las_scan_case(torch, rng, record_p, TRAIN_B, 101, 188, 512,
+                  [188 - 3 * i for i in range(TRAIN_B)], tag="15k", att=True,
+                  n_p=512)
+    shapes = [k2_case(torch, rng, ci["b"], ci["tt"], ci["d"], keep=True,
+                      tag="15k", att=True, widths=ci["widths"],
+                      n_p=ci["n_p"]),
+              k2_case(torch, rng, TRAIN_B, 188, 512, keep=True, tag="15k",
+                      att=True, n_p=512)]
+    proj["las_step"] = {**shapes[0], "shapes": shapes, "max_abs_err": max(
+        sh["max_abs_err"] for sh in shapes)}
+    n = NARROW
+    res["narrow"] = window_case(
+        torch, rng, n["b"], n["h"], n["tt"], n["dk"], n["tt"],
+        [n["tt"] - 7 * i for i in range(n["b"])], None, "15k",
+        dropout=(ATT_RATE, (0x9E3779B9, 0x7F4A7C15)))
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_att_flagship(torch, rng) -> dict:
+    """15a: the North star's conf (SS_CONF: f32, ss_prob 0.2) with
+    dropout_att 0.1 at full width and depth, seeded, one train() microstep
+    at phase 5's B 32 x 1500, counts zeroed before it and read after: K1
+    / K1b with dropout, K2 in pass 1 with the attention mask, K3 / K3b
+    with it and K4 must run. Its loss and every gradient leaf against the
+    same microstep through the plain versions on the card (the same
+    generator seed: the same dropout, attention and sampling masks; pass 2
+    over the kernels' fed tokens, the plain pass 1's may part from them
+    only at ties), by phase 6's rule."""
+    from neural_sp_tpu_torch.bin.args import parse_args_train
+    from neural_sp_tpu_torch.models.speech2text import build_speech2text
+    from neural_sp_tpu_torch.utils.init_params import init_params
+    args = parse_args_train(["--config", str(ROOT / SS_CONF)])
+    args.vocab = CLI_VOCAB
+    args.dropout_att = ATT_RATE
+    model = init_params(build_speech2text(args), SEED + 15)
+    expect(model.dec_fwd.step.drop_att.rate == ATT_RATE and all(
+        b.mha.dropout == ATT_RATE for b in model.encoder.blocks),
+        "15a: dropout_att did not reach the attention")
+    batch = train_batch(torch, rng)
+    held, counts = hold_sampled(torch, model, batch, "15a")
+    log(f"[15a] {SS_CONF} with dropout_att {ATT_RATE}: a train() microstep "
+        f"at B {TRAIN_B} x {TRAIN_FRAMES}; launches {counts}")
+    for name in ATT_TRAIN_KERNELS:
+        expect(counts[name] > 0, f"{name} never launched in 15a")
+    del model, batch
+    torch.cuda.empty_cache()
+    return {"launches": counts, "hold": held}
+
+
+def phase_wsj_tds(torch, root: Path, corpus: dict) -> dict:
+    """15b: the WSJ TDS-LAS conf at its full width as JAX's builder reads
+    it (C41: 6 layers of 21-frame kernels; the conf's parameter count at
+    vocab 10,000 against the JAX package's), one epoch of phase 7's corpus
+    through the train CLI at ``--unit word`` (K3 / K3b), then the eval CLI
+    greedy (K2); the GLU conf built on the meta device at the JAX
+    package's count (C42: 3 layers of 100:3)."""
+    from neural_sp_tpu_torch.bin.args import parse_args_train
+    from neural_sp_tpu_torch.models.speech2text import build_speech2text
+    out = {}
+    for conf, want in ((TDS_CONF, TDS_PARAMS), (GLU_CONF, GLU_PARAMS)):
+        args = parse_args_train(["--config", str(ROOT / conf)])
+        args.vocab = CLI_VOCAB
+        with torch.device("meta"):
+            n = sum(p.numel() for p in build_speech2text(
+                args, device="meta").parameters())
+        log(f"[15b] {conf}: {n} parameters at vocab {CLI_VOCAB} (the JAX "
+            f"package's count {want})")
+        expect(n == want, f"15b {conf}: {n} parameters")
+        out[Path(conf).stem + "_parameters"] = n
+    out.update(cli_run(torch, root, corpus, TDS_CONF, "15b",
+                       ("--n_epochs", "1", "--unit", "word"),
+                       TDS_TRAIN_KERNELS, ("las_step",), GREEDY_EVAL,
+                       dev_finite=True))
+    return out
+
+
+def phase_ci_test(torch, root: Path) -> dict:
+    """15c: the ci_test BLSTM-LAS, Conformer and TDS-LAS confs as written
+    (every dropout 0.1 with the attention's, scheduled sampling 0.1 in
+    the LAS ones, the LAS projections of 8, the Conformer's heads of width
+    2) through the train CLI for one epoch (``--eval_start_epoch 1`` for a
+    dev loss) and the eval CLI greedy, on a corpus of its own (CI_UTTS of
+    CI_FRAMES frames): each path's kernels launched."""
+    corpus = synth_corpus(root / "data_ci", CI_UTTS, CLI_VOCAB, CI_FRAMES)
+    out = {}
+    for name, kernels in CI_CONFS.items():
+        out[name] = cli_run(
+            torch, root, corpus, f"examples/ci_test/conf/asr/{name}.yaml",
+            f"15c_{name}", ("--n_epochs", "1", "--eval_start_epoch", "1",
+                            "--unit", "word"), kernels,
+            CI_EVAL_KERNELS[name], GREEDY_EVAL, dev_finite=True)
+    return out
+
+
+def phase_att(torch, rng, root: Path, corpus: dict) -> dict:
+    """15: 15k (K1 / K1b padded from dk 2, K2 / K3 / K3b with the attention
+    mask at their shapes), 15a (the flagship with dropout_att, a microstep
+    held), 15b (the WSJ TDS conf through the CLIs, the GLU conf built),
+    15c (three ci_test confs through the CLIs). Returns each sub-phase's
+    results, their walls and the launches on the phase's paths (15a's
+    microstep, 15b's and 15c's CLIs)."""
+    walls, out = {}, {}
+    for key, run in (("kernels", lambda: phase_att_kernels(torch, rng)),
+                     ("flagship", lambda: phase_att_flagship(torch, rng)),
+                     ("tds", lambda: phase_wsj_tds(torch, root, corpus)),
+                     ("ci_test", lambda: phase_ci_test(torch, root))):
+        t = time.perf_counter()
+        out[key] = run()
+        walls[key] = time.perf_counter() - t
+    paths = [out["flagship"]["launches"], out["tds"]["train"]["launches"],
+             out["tds"]["eval"]["launches"]] + \
+        [r[k]["launches"] for r in out["ci_test"].values()
+         for k in ("train", "eval")]
+    out["launches"] = {k: sum(p[k] for p in paths) for k in paths[0]}
+    out["sub_phase_wall_s"] = walls
+    log(f"[15] walls {walls}; launches on the phase's paths "
+        f"{out['launches']}")
+    return out
+
+
+def add_att_rows(entries, srcs, keys, att):
+    """Phase 15 in the ``kernels`` line: every row's launches on its paths
+    (``att_launches``), then rows for K3 / K3b with the attention mask
+    (2b's and phase 8's shapes, ``no_mask_ms`` beside), K2 with it (pass
+    1), K3 / K3b / K2 with the decoder's projection (the ci_test LAS
+    widths, then 2b's shape at P 512), and K1 / K1b padded from dk 2 with
+    dropout, each launched on phase 15's paths."""
+    for e in entries:
+        e["att_launches"] = att["launches"].get(e["name"], 0)
+    k = att["kernels"]
+    rows = [("las_scan_att", "las_scan", k["las_scan"], "las_scan_dropout"),
+            ("las_scan_bwd_att", "las_scan_bwd", k["las_scan_bwd"],
+             "las_scan_bwd_dropout"),
+            ("las_step_att", "las_step", k["las_step"], "las_step_dropout"),
+            ("las_scan_proj", "las_scan", k["proj"]["las_scan"],
+             "las_scan_proj"),
+            ("las_scan_bwd_proj", "las_scan_bwd", k["proj"]["las_scan_bwd"],
+             "las_scan_bwd_proj"),
+            ("las_step_proj", "las_step", k["proj"]["las_step"],
+             "las_step_proj"),
+            ("rel_attention_padded", "rel_attention", k["narrow"]["fwd"],
+             "rel_attention_padded"),
+            ("rel_attention_bwd_padded", "rel_attention_bwd",
+             k["narrow"]["bwd"], "rel_attention_bwd_padded")]
+    for name, base, row, counter in rows:
+        src, rep = srcs[base]
+        shapes = row.get("shapes", [row])
+        entries.append({
+            "name": name, "route": "cuda", "source": src, "replaces": rep,
+            "launches": att["launches"][counter],
+            **{key: row.get(key) for key in keys},
+            "shape": shapes[0]["shape"],
+            "no_mask_ms": shapes[0].get("no_mask_ms"),
+            "other_shapes": [{x: sh.get(x) for x in (
+                "shape", "ms", "no_mask_ms", "plain_ms", "bound_ms",
+                "bound_by")} for sh in shapes[1:]],
+            "path": "15 (attention dropout, the TDS and ci_test confs)"})
+        expect(entries[-1]["launches"] > 0, f"{name} never launched on "
+               f"15's paths")
 
 
 def add_new_path_rows(entries, srcs, keys, streaming, stream_bf16, mtl):
@@ -6112,6 +6442,8 @@ def main() -> int:
         wall("13")
         mtl = phase_mtl(torch, rng, root)
         wall("14")
+        att = phase_att(torch, rng, root, corpus)
+        wall("15")
     log(f"phase walls (s): {json.dumps(walls)}; total "
         f"{sum(walls.values()):.1f} s")
     # each kernel's launches from the main path it belongs to: the served
@@ -6167,7 +6499,8 @@ def main() -> int:
                "blstm": blstm, "mocha": mocha,
                "transformer": xformer, "streaming": streaming,
                "transducer": rnnt, "lm": lm, "stream_bf16": stream_bf16,
-               "mtl": mtl, "kernels": kernels, "phase_walls_s": walls}
+               "mtl": mtl, "att": att, "kernels": kernels,
+               "phase_walls_s": walls}
     log(json.dumps(details))
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -6373,6 +6706,7 @@ def main() -> int:
     entries[-4]["launches_per_eval_window"] = (
         xl["eval"]["launches"]["rel_attention_offset"] / xl["dev_windows"])
     add_new_path_rows(entries, srcs, keys, streaming, stream_bf16, mtl)
+    add_att_rows(entries, srcs, keys, att)
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -21,7 +21,8 @@ def _transformer(args, vocab: int, enc_n_units: int,
     # as JAX build.py: mocha_init_r and mocha_std are not read, so MMA's
     # offset and noise take MMAStep's defaults (-4.0, 1.0; ROADMAP C22),
     # and neither is dropout_head (C23); dropout_dec_layer is read there
-    # into a field the block never uses
+    # into a field the block never uses; dropout_att reaches the self- and
+    # source attention, but not MMA's layers (C43)
     return TransformerDecoder(
         vocab=vocab, enc_n_units=enc_n_units,
         d_model=_get(args, "transformer_dec_d_model",
@@ -81,9 +82,6 @@ def build_decoder(args, vocab: int, enc_n_units: int, backward: bool = False
     dec_type = _get(args, "dec_type", "lstm")
     if dec_type in ("lstm_transducer", "gru_transducer"):
         return _transducer(args, vocab, enc_n_units, backward)
-    if _get(args, "dropout_att", 0.0):
-        raise NotImplementedError(
-            "dropout_att > 0 is not ported yet, see ROADMAP")
     if dec_type == "transformer":
         return _transformer(args, vocab, enc_n_units, backward)
     if dec_type != "lstm":
@@ -111,6 +109,8 @@ def build_decoder(args, vocab: int, enc_n_units: int, backward: bool = False
         backward=backward,
         dropout=_get(args, "dropout_dec", 0.0),
         dropout_emb=_get(args, "dropout_emb", 0.0),
+        # the location attention's; MoChA reads none, as JAX's (C43)
+        dropout_att=_get(args, "dropout_att", 0.0),
         lsm_prob=_get(args, "lsm_prob", 0.0),
         ss_prob=_get(args, "ss_prob", 0.0),
         # MoChA (attn_type "mocha"), as JAX build.py reads it

@@ -3,8 +3,10 @@
 training loss.
 
 One step: embed -> LSTM layer 0 on [emb, ctx_prev] -> dropout -> location
-attention with the dropped output as the query -> readout
-tanh(w_gen([h, ctx])) -> dropout -> vocab projection. At decode everything
+attention with the dropped output as the query (``dropout_att`` drops its
+weights: the context and the next step's location conv read the dropped
+weights, as JAX's carry) -> readout tanh(w_gen([h, ctx])) -> dropout ->
+vocab projection. At decode everything
 from the gate pre-activations to the new context is kernel K2
 (``ops.kernels.las_step``). A decode loop (``greedy_scan`` and the beam
 searches of ``decoding.py``) steps through a ``DecodeLoop``, which builds
@@ -22,14 +24,21 @@ logits, so token 0, at step 0) in place of the label where a Bernoulli
 draw per row and step says so. The fed token is an index, which carries
 no gradient, so the loss's gradient is the teacher-forced gradient on the
 stream of fed tokens. Training takes two passes: pass 1 (``fed_tokens``,
-no autograd) steps kernel K2 with each step's dropout scale and the
-readout inside the loop only to choose the tokens; pass 2 is the
-teacher-forced path above (K3 / K3b, the hoisted readout) over the mixed
-stream. Both passes use the same masks (``SamplingMasks``, drawn once per
-microstep). Zoneout, projections, deeper stacks, LM fusion and the other
-attention types raise.
+no autograd) steps kernel K2 with each step's dropout scales (the LSTM
+output's and the attention weights') and the readout inside the loop only
+to choose the tokens; pass 2 is the teacher-forced path above (K3 / K3b,
+the hoisted readout) over the mixed stream. Both passes use the same masks
+(``SamplingMasks``, drawn once per microstep). The attention dropout's
+scale is drawn once per microstep too, [B, U+1, T] float32, from the
+step's generator (``ops.dropout.keep_mask``). With ``n_projs`` > 0 the
+dropped LSTM output goes through the projection relu(W_p hd + b_p)
+(JAX's ``projs_0``), which is the query and the readout's input; the
+kernels K2 / K3 / K3b run it. Zoneout, deeper stacks, LM fusion and the
+other attention types raise, and so do projections with MoChA.
 
-MoChA (``attn_type="mocha"``, ``models/modules/mocha.py``) has no kernel:
+MoChA (``attn_type="mocha"``, ``models/modules/mocha.py``) has no kernel,
+and reads no ``dropout_att``, as JAX builds its MoChA without it (ROADMAP
+C43):
 the JAX package computes it in plain JAX. Its keys are projected once per
 utterance (``key_proj_mono``, ``key_proj_chunk``, ``mono_conv``,
 ``key_proj_value``, as JAX names them). In training the U+1 teacher-forced
@@ -80,35 +89,48 @@ class LASStep(nn.Module):
                  bottleneck_dim: int = 1024, zoneout: float = 0.0,
                  lm_fusion: str = "", dropout: float = 0.0,
                  dropout_emb: float = 0.0, ss_prob: float = 0.0,
-                 mocha: Optional[dict] = None):
+                 mocha: Optional[dict] = None, dropout_att: float = 0.0):
         super().__init__()
-        if n_layers != 1 or n_projs > 0 or zoneout > 0 or lm_fusion or \
-                attn_n_heads != 1:
+        self.mocha = attn_type == "mocha"
+        if n_layers != 1 or zoneout > 0 or lm_fusion or attn_n_heads != 1 \
+                or (n_projs > 0 and self.mocha):
             raise NotImplementedError(
-                "LAS decoder with n_layers != 1, projections, zoneout, LM "
-                "fusion or multi-head attention is not ported yet, see "
-                "ROADMAP")
+                "LAS decoder with n_layers != 1, zoneout, LM fusion, "
+                "multi-head attention or projections with MoChA is not "
+                "ported yet, see ROADMAP")
         self.emb_dim = emb_dim
         self.embed = nn.Embedding(vocab, emb_dim)
         self.cells = nn.ModuleList([LSTMCell(emb_dim + enc_n_units, n_units)])
-        self.mocha = attn_type == "mocha"
+        # the dropped LSTM output's projection (JAX's projs_0): the query
+        # and the readout's input
+        if n_projs > 0:
+            self.projs = nn.ModuleList([nn.Linear(n_units, n_projs)])
+        qdim = n_projs or n_units
         if self.mocha:
             # MoChA's keyword arguments (``RNNDecoder``'s mocha_* options);
             # the keys come projected by the decoder
-            self.attn = MoChA(kdim=enc_n_units, qdim=n_units, adim=attn_dim,
+            self.attn = MoChA(kdim=enc_n_units, qdim=qdim, adim=attn_dim,
                               external_keys=True, **(mocha or {}))
         else:
             self.attn = AttentionMechanism(
-                kdim=enc_n_units, qdim=n_units, adim=attn_dim,
+                kdim=enc_n_units, qdim=qdim, adim=attn_dim,
                 atype=attn_type, conv_out_channels=attn_conv_n_channels,
                 conv_kernel_size=attn_conv_kernel_size,
                 sharpening_factor=attn_sharpening_factor,
                 sigmoid_smoothing=attn_sigmoid_smoothing)
-        self.w_gen = nn.Linear(n_units + enc_n_units, bottleneck_dim)
+        self.w_gen = nn.Linear(qdim + enc_n_units, bottleneck_dim)
         self.output = nn.Linear(bottleneck_dim, vocab)
         self.drop = Dropout(dropout)
         self.drop_emb = Dropout(dropout_emb)
+        # the location attention's weights (MoChA's builder reads none: C43)
+        self.drop_att = Dropout(0.0 if self.mocha else dropout_att)
         self.ss_prob = ss_prob
+
+    def proj(self):
+        """(W_p, b_p) of the projection, as the kernels take it, or None."""
+        if not hasattr(self, "projs"):
+            return None
+        return self.projs[0].weight, self.projs[0].bias
 
     def workspace(self, key_cache, values, klens) -> LasStepWorkspace:
         """K2's workspace for a decode loop over these keys, values and
@@ -116,7 +138,8 @@ class LASStep(nn.Module):
         cell = self.cells[0]
         return LasStepWorkspace(
             cell.w_ih[self.emb_dim:], cell.w_hh, cell.bias,
-            *self.attn.kernel_weights(), key_cache, values, klens)
+            *self.attn.kernel_weights(), key_cache, values, klens,
+            self.proj())
 
     def forward(self, carry, y_t, key_cache, values, klens, ws=None,
                 parent=None):
@@ -139,17 +162,21 @@ class LASStep(nn.Module):
             eg = self.embed(y_t) @ cell.w_ih[:self.emb_dim]
             if parent is not None:
                 parent = parent.to(torch.int32)
-            h, c, aw, ctx = las_step(
+            h, c, aw, ctx, *p = las_step(
                 eg, ctx_prev, h, c, aw_prev, cell.w_ih[self.emb_dim:],
                 cell.w_hh, cell.bias, *self.attn.kernel_weights(), key_cache,
-                values, klens, parent=parent)
+                values, klens, parent=parent, proj=self.proj())
+            dout = p[0] if p else h
         else:
             torch.mm(self.embed(y_t), cell.w_ih[:self.emb_dim], out=ws.eg)
             if parent is not None:
                 ws.parent.copy_(parent)
             h, c, aw, ctx = ws.step(use_parent=parent is not None)
-        # readout order [dout, ctx] (JAX LASStep._generate)
-        logits = self.output(torch.tanh(self.w_gen(torch.cat([h, ctx], -1))))
+            dout = h if ws.p is None else ws.p
+        # readout order [dout, ctx] (JAX LASStep._generate); dout is the
+        # projection when there is one
+        logits = self.output(torch.tanh(self.w_gen(torch.cat([dout, ctx],
+                                                             -1))))
         return (((c, h),), aw, ctx), logits, aw
 
     def mocha_step(self, carry, y_t, key_cache: dict, mask: torch.Tensor,
@@ -229,12 +256,14 @@ class SamplingMasks(NamedTuple):
     """What one scheduled-sampling microstep draws, once, for both passes:
     the embedding's dropout scale [B, U+1, E], the LSTM output's [B, U+1,
     H] and the readout's [B, U+1, bottleneck] (None at rate 0; in the
-    activations' type), and the sampling mask [B, U+1] (bool: feed the
-    previous step's argmax)."""
+    activations' type), the sampling mask [B, U+1] (bool: feed the
+    previous step's argmax), and the attention weights' dropout scale
+    [B, U+1, T] (float32; None at rate 0)."""
     emb: Optional[torch.Tensor]
     keep: Optional[torch.Tensor]
     out: Optional[torch.Tensor]
     sample: torch.Tensor
+    att: Optional[torch.Tensor] = None
 
 
 class RNNDecoder(nn.Module):
@@ -257,7 +286,7 @@ class RNNDecoder(nn.Module):
                  mocha_stableemit_weight: float = 0.0,
                  mocha_1dconv: bool = False, mocha_share_ca: bool = False,
                  quantity_loss_weight: float = 0.0, latency_metric: str = "",
-                 latency_loss_weight: float = 0.0):
+                 latency_loss_weight: float = 0.0, dropout_att: float = 0.0):
         super().__init__()
         if backward:
             raise NotImplementedError(
@@ -293,7 +322,7 @@ class RNNDecoder(nn.Module):
             attn_type, attn_dim, attn_n_heads, attn_conv_n_channels,
             attn_conv_kernel_size, attn_sharpening_factor,
             attn_sigmoid_smoothing, bottleneck_dim, zoneout, lm_fusion,
-            dropout, dropout_emb, ss_prob, mocha)
+            dropout, dropout_emb, ss_prob, mocha, dropout_att)
         if attn_type == "mocha":
             # keys projected once per utterance, with biases (JAX
             # _key_cache): the monotonic keys (after relu of a SAME width-5
@@ -341,7 +370,8 @@ class RNNDecoder(nn.Module):
         sampled = self.training and step.ss_prob > 0
         if sampled:
             masks = self.sampling_masks(gen, bs, ys_in.shape[1],
-                                        step.embed.weight.dtype, dev)
+                                        step.embed.weight.dtype, dev,
+                                        kc.shape[1])
             ys_in = self.fed_tokens(ys_in, kc, values, klens, masks)
             emb = _scaled(step.embed(ys_in), masks.emb)
         else:
@@ -356,11 +386,25 @@ class RNNDecoder(nn.Module):
             keep = None
         if keep is None:
             keep = torch.ones(shape, dtype=eg.dtype, device=dev)
-        h, ctx, _ = LASScan.apply(
+        # the attention weights' scale, float32 [B, U+1, T]
+        if sampled:
+            att_keep = masks.att
+        elif self.training and step.drop_att.rate > 0:
+            att_keep = keep_mask(gen, step.drop_att.rate,
+                                 (bs, ys_in.shape[1], kc.shape[1]), dev)
+        else:
+            att_keep = None
+        # the optional arguments only where they are given
+        proj = step.proj()
+        opt = () if att_keep is None and proj is None else \
+            (att_keep, *(proj or ()))
+        h, ctx, _, *p = LASScan.apply(
             eg, cell.w_ih[step.emb_dim:], cell.w_hh, cell.bias,
-            *step.attn.kernel_weights(), kc, values, klens, keep)
+            *step.attn.kernel_weights(), kc, values, klens, keep, *opt)
         # readout order [dout, ctx] (JAX LASStep._generate), dout = h keep
-        out = torch.tanh(step.w_gen(torch.cat([h * keep, ctx], -1)))
+        # or its projection
+        dout = p[0] if p else h * keep
+        out = torch.tanh(step.w_gen(torch.cat([dout, ctx], -1)))
         out = _scaled(out, masks.out) if sampled else step.drop(out, gen)
         logits = step.output(out)
         loss, nll = cross_entropy_lsm(logits, ys_out, self.lsm_prob,
@@ -456,13 +500,15 @@ class RNNDecoder(nn.Module):
         return loss, obs
 
     def sampling_masks(self, gen: Optional[torch.Generator], bs: int,
-                       u1: int, dtype: torch.dtype, device) -> SamplingMasks:
+                       u1: int, dtype: torch.dtype, device,
+                       t: int = 0) -> SamplingMasks:
         """A scheduled-sampling microstep's masks, drawn from ``gen`` in
         this order: the embedding's, the LSTM output's and the readout's
-        dropout scales (each only at a rate above 0), then the sampling
-        mask, True with probability ``ss_prob``. The JAX module draws them
-        per step from its flax rngs, so the two packages draw different
-        masks for one microstep (ROADMAP C4)."""
+        dropout scales (each only at a rate above 0), the sampling mask,
+        True with probability ``ss_prob``, then the attention weights'
+        scale over ``t`` frames (float32, at a rate above 0). The JAX
+        module draws them per step from its flax rngs, so the two packages
+        draw different masks for one microstep (ROADMAP C4)."""
         step = self.step
 
         def scale(rate, width):
@@ -470,11 +516,13 @@ class RNNDecoder(nn.Module):
                 return None
             return keep_mask(gen, rate, (bs, u1, width), device, dtype)
 
-        return SamplingMasks(
-            scale(step.drop_emb.rate, step.emb_dim),
-            scale(step.drop.rate, self.n_units),
-            scale(step.drop.rate, step.w_gen.out_features),
-            bernoulli_mask(gen, step.ss_prob, (bs, u1), device))
+        emb = scale(step.drop_emb.rate, step.emb_dim)
+        keep = scale(step.drop.rate, self.n_units)
+        out = scale(step.drop.rate, step.w_gen.out_features)
+        sample = bernoulli_mask(gen, step.ss_prob, (bs, u1), device)
+        att = keep_mask(gen, step.drop_att.rate, (bs, u1, t), device) \
+            if step.drop_att.rate > 0 else None
+        return SamplingMasks(emb, keep, out, sample, att)
 
     @torch.no_grad()
     def fed_tokens(self, ys_in, kc, values, klens,
@@ -484,19 +532,24 @@ class RNNDecoder(nn.Module):
         ``masks.sample[:, u]`` (token 0 at step 0: the argmax of the zero
         logits JAX's carry starts with) and ``ys_in[:, u]`` elsewhere. Each
         step runs K2 through its workspace (float32; the LSTM output's
-        dropout scale as K2's ``keep``), then the readout with its dropout
-        and the vocabulary projection in the activations' type, as pass 2
-        computes them."""
+        dropout scale as K2's ``keep``, the attention weights' row of
+        ``masks.att`` as its ``att_keep``, so that the argmax chain is the
+        one pass 2's dropped weights give), then the readout with its
+        dropout and the vocabulary projection in the activations' type, as
+        pass 2 computes them."""
         step, cell = self.step, self.step.cells[0]
         dt = step.embed.weight.dtype
+        proj = step.proj()
         ws = LasStepWorkspace(
             cell.w_ih[step.emb_dim:].float(), cell.w_hh.float(),
             cell.bias.float(),
             *(w.float() for w in step.attn.kernel_weights()),
-            kc.float().contiguous(), values.float().contiguous(), klens)
+            kc.float().contiguous(), values.float().contiguous(), klens,
+            None if proj is None else tuple(w.float() for w in proj))
         w_emb = cell.w_ih[:step.emb_dim].float()
-        keep = None if masks.keep is None else \
-            masks.keep.transpose(0, 1).float().contiguous()   # [U+1, B, H]
+        keep, att = (None if x is None else
+                     x.transpose(0, 1).float().contiguous()
+                     for x in (masks.keep, masks.att))  # [U+1, B, H | T]
         fed = torch.empty_like(ys_in)
         prev = torch.zeros_like(ys_in[:, 0])
         for u in range(ys_in.shape[1]):
@@ -504,9 +557,13 @@ class RNNDecoder(nn.Module):
             fed[:, u] = y
             emb = _scaled(step.embed(y), _at(masks.emb, u))
             torch.mm(emb.float(), w_emb, out=ws.eg)
-            h, _, _, ctx = ws.step(keep=None if keep is None else keep[u])
-            dout = h.to(dt) if masks.keep is None else \
-                h.to(dt) * masks.keep[:, u]
+            h, _, _, ctx = ws.step(keep=None if keep is None else keep[u],
+                                   att_keep=None if att is None else att[u])
+            if ws.p is not None:
+                dout = ws.p.to(dt)
+            else:
+                dout = h.to(dt) if masks.keep is None else \
+                    h.to(dt) * masks.keep[:, u]
             out = torch.tanh(step.w_gen(torch.cat([dout, ctx.to(dt)], -1)))
             prev = step.output(_scaled(out, _at(masks.out, u))).argmax(-1)
         return fed

@@ -3,13 +3,18 @@ the RNN (lstm / blstm, with or without the conv front end), conformer and
 transformer branches, with their unidirectional (``uni_`` types or
 ``unidirectional``) and latency-controlled (``lc_chunk_size_*``,
 ``lc_type``) forms, their sub1 / sub2 taps (``enc_n_layers_sub1`` /
-``_sub2``, ``task_specific_layer``) and ``dropout_in``. Takes any object
-with attribute access and the reference's flag names."""
+``_sub2``, ``task_specific_layer``), ``dropout_in``, and for the
+transformer / conformer ``dropout_att`` and LayerDrop
+(``dropout_enc_layer``); the TDS and gated-conv encoders read the keys
+JAX's builder reads (ROADMAP C41, C42). Takes any object with attribute
+access and the reference's flag names."""
 from __future__ import annotations
 
 from typing import Union
 
+from .gated_conv import GatedConvEncoder
 from .rnn import RNNEncoder
+from .tds import TDSEncoder
 from .transformer import XformerEncoder
 
 
@@ -81,8 +86,26 @@ def _taps(args) -> dict:
                 dropout_in=_get(args, "dropout_in", 0.0))
 
 
-def build_encoder(args) -> Union[RNNEncoder, XformerEncoder]:
+def build_encoder(args) -> Union[RNNEncoder, XformerEncoder, TDSEncoder,
+                                 GatedConvEncoder]:
     enc_type = args.enc_type
+    if enc_type == "tds":
+        # JAX reads the kernels from tds_kernel_sizes, never from the
+        # recipes' conv_kernel_sizes, zipped with conv_channels (C41)
+        return TDSEncoder(
+            input_dim=args.input_dim,
+            channels=_get(args, "conv_channels", "10_10_14_14_18_18"),
+            kernel_sizes=_get(args, "tds_kernel_sizes", "21_21_21_21_21_21"),
+            dropout=_get(args, "dropout_enc", 0.0),
+            last_proj_dim=_get(args, "enc_last_proj_dim", 0))
+    if enc_type == "gated_conv":
+        # JAX reads gated_conv_layers, never the recipes' conv_channels /
+        # conv_kernel_sizes (C42)
+        return GatedConvEncoder(
+            input_dim=args.input_dim,
+            layers=_get(args, "gated_conv_layers", "100:3_100:3_100:3"),
+            dropout=_get(args, "dropout_enc", 0.0),
+            last_proj_dim=_get(args, "enc_last_proj_dim", 0))
     conv = enc_type.startswith("conv_")
     core = enc_type[5:] if conv else enc_type
     uni = core.startswith("uni_") or _get(args, "unidirectional", False)
@@ -92,12 +115,8 @@ def build_encoder(args) -> Union[RNNEncoder, XformerEncoder]:
     if not xformer and core not in ("blstm", "lstm", "bgru", "gru"):
         raise NotImplementedError(
             f"enc_type {enc_type!r} is not ported yet (only the conformer, "
-            f"the transformer and the (B)LSTM), see ROADMAP")
-    # the RNN encoder reads no attention or layer dropout
-    for name in ("dropout_att", "dropout_enc_layer") if xformer else ():
-        if _get(args, name, 0.0):
-            raise NotImplementedError(
-                f"{name} > 0 is not ported yet, see ROADMAP")
+            f"the transformer, the (B)LSTM, TDS and the gated conv), see "
+            f"ROADMAP")
     if not xformer:
         return _rnn_encoder(args, core, conv)
     return XformerEncoder(
@@ -128,6 +147,8 @@ def build_encoder(args) -> Union[RNNEncoder, XformerEncoder]:
         conv_poolings=_get(args, "conv_poolings", ""),
         conv_frontend_normalization=_conv_norm(args),
         dropout=_get(args, "dropout_enc", 0.1),
+        dropout_att=_get(args, "dropout_att", 0.0),
+        dropout_layer=_get(args, "dropout_enc_layer", 0.0),
         unidirectional=uni,
         chunk_size_left=_get(args, "lc_chunk_size_left", -1),
         chunk_size_current=_get(args, "lc_chunk_size_current", -1),

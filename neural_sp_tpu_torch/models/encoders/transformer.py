@@ -41,8 +41,17 @@ only (``make_san_mask``): pad queries attend the valid keys.
 
 In ``train()`` mode dropout (rate ``dropout``) runs at the JAX module's
 sites: after the positional encoding, inside each FFN, and on each
-residual branch of a block. The generator of the step is the ``gen``
-argument of ``forward``.
+residual branch of a block; ``dropout_att`` drops each block's attention
+probabilities (a conformer's inside kernel K1, its mask hashed from key
+words of the step's generator; a transformer's in
+``MultiheadAttention``), in every streaming mode (the reshape mode's
+chunks are rows of the batch); and LayerDrop (``dropout_layer``, layer l
+of L at ``dropout_layer (l + 1) / L``) keeps or drops each residual
+branch of a block as a whole, JAX's ``drop_path``: a kept branch's sum
+``old + (new - old) / (1 - p)``, one decision per branch from the step's
+generator. The task-specific blocks of the taps take neither, as JAX
+builds them. The generator of the step is the ``gen`` argument of
+``forward``.
 """
 from __future__ import annotations
 
@@ -51,7 +60,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ...ops.dropout import Dropout
+from ...ops.dropout import Dropout, bernoulli_mask
 from ...ops.masks import CAUSAL, make_pad_mask, window_mask
 from ..modules.conformer_convolution import ConformerConvBlock, LN_EPS
 from ..modules.feed_forward import FFN
@@ -72,7 +81,8 @@ class EncoderBlock(nn.Module):
                  clamp_len: int = -1, ffn_activation: str = "swish",
                  ffn_bottleneck_dim: int = 0, conv_kernel_size: int = 15,
                  conv_normalization: str = "layer_norm", dropout: float = 0.0,
-                 causal: bool = False):
+                 causal: bool = False, dropout_att: float = 0.0,
+                 dropout_layer: float = 0.0):
         super().__init__()
         if not (btype == "conformer" and pe_type == "relative" or
                 btype == "transformer" and
@@ -83,9 +93,10 @@ class EncoderBlock(nn.Module):
                 f"add / none), see ROADMAP")
         self.conformer = btype == "conformer"
         self.drop = Dropout(dropout)
+        self.dropout_layer = dropout_layer
         if not self.conformer:
             self.norm_mha = nn.LayerNorm(d_model, eps=LN_EPS)
-            self.mha = MultiheadAttention(d_model, n_heads)
+            self.mha = MultiheadAttention(d_model, n_heads, dropout_att)
             self.norm_ff = nn.LayerNorm(d_model, eps=LN_EPS)
             self.ff = FFN(d_model, d_ff, ffn_activation, ffn_bottleneck_dim,
                           dropout)
@@ -94,7 +105,8 @@ class EncoderBlock(nn.Module):
         self.ff_macaron = FFN(d_model, d_ff, ffn_activation,
                               ffn_bottleneck_dim, dropout)
         self.norm_mha = nn.LayerNorm(d_model, eps=LN_EPS)
-        self.mha = RelativeMultiheadAttention(d_model, n_heads, clamp_len)
+        self.mha = RelativeMultiheadAttention(d_model, n_heads, clamp_len,
+                                              dropout=dropout_att)
         self.norm_conv = nn.LayerNorm(d_model, eps=LN_EPS)
         self.conv = ConformerConvBlock(d_model, conv_kernel_size,
                                        conv_normalization, causal)
@@ -103,6 +115,18 @@ class EncoderBlock(nn.Module):
                       dropout)
         self.norm_final = nn.LayerNorm(d_model, eps=LN_EPS)
 
+    def drop_path(self, new: torch.Tensor, old: torch.Tensor,
+                  gen: Optional[torch.Generator]) -> torch.Tensor:
+        """LayerDrop of one residual branch (JAX's ``drop_path``): in
+        ``train()`` at ``dropout_layer`` p > 0, one draw from ``gen`` keeps
+        the branch, scaled (old + (new - old) / (1 - p)), or drops it
+        (old)."""
+        p = self.dropout_layer
+        if not self.training or p == 0.0:
+            return new
+        keep = bernoulli_mask(gen, 1.0 - p, (), new.device)
+        return torch.where(keep, old + (new - old) * (1.0 / (1.0 - p)), old)
+
     def forward(self, xs: torch.Tensor, klens: torch.Tensor,
                 edge: Optional[torch.Tensor],
                 gen: Optional[torch.Generator] = None,
@@ -110,19 +134,24 @@ class EncoderBlock(nn.Module):
         """xs [B, T, d]; klens [B] valid frames (keys-only mask); edge [T]
         bool batch edge for the conv module (None: none); ``window`` the
         keys' window (n_l, n_c, n_r) or None."""
+        dp = self.drop_path
         if not self.conformer:
             t = xs.shape[1]
             mask = make_pad_mask(klens, t) if window is None else \
                 window_mask(klens, t, t, window, 0, xs.device)
             h = self.norm_mha(xs)
             h, _ = self.mha(h, h, mask=mask, gen=gen)
-            xs = xs + self.drop(h, gen)
-            return xs + self.drop(self.ff(self.norm_ff(xs), gen), gen)
-        xs = xs + 0.5 * self.drop(
-            self.ff_macaron(self.norm_ff_macaron(xs), gen), gen)
-        xs = xs + self.drop(self.mha(self.norm_mha(xs), klens, window), gen)
-        xs = xs + self.drop(self.conv(self.norm_conv(xs), edge), gen)
-        xs = xs + 0.5 * self.drop(self.ff(self.norm_ff(xs), gen), gen)
+            xs = dp(xs + self.drop(h, gen), xs, gen)
+            return dp(xs + self.drop(self.ff(self.norm_ff(xs), gen), gen),
+                      xs, gen)
+        xs = dp(xs + 0.5 * self.drop(
+            self.ff_macaron(self.norm_ff_macaron(xs), gen), gen), xs, gen)
+        xs = dp(xs + self.drop(self.mha(self.norm_mha(xs), klens, window,
+                                        gen), gen), xs, gen)
+        xs = dp(xs + self.drop(self.conv(self.norm_conv(xs), edge), gen),
+                xs, gen)
+        xs = dp(xs + 0.5 * self.drop(self.ff(self.norm_ff(xs), gen), gen),
+                xs, gen)
         return self.norm_final(xs)
 
     def stream(self, xs: torch.Tensor, cache: dict, key_start: int,
@@ -165,7 +194,8 @@ class XformerEncoder(nn.Module):
                  chunk_size_current: int = -1, chunk_size_right: int = 0,
                  streaming_type: str = "mask", n_layers_sub1: int = 0,
                  n_layers_sub2: int = 0, task_specific_layer: bool = False,
-                 dropout_in: float = 0.0):
+                 dropout_in: float = 0.0, dropout_att: float = 0.0,
+                 dropout_layer: float = 0.0):
         super().__init__()
         if not conv_channels:
             raise NotImplementedError(
@@ -191,12 +221,14 @@ class XformerEncoder(nn.Module):
         # chunk never sees the next through it (JAX's causal flag)
         causal = unidirectional or (chunk_size_current > 0
                                     and streaming_type == "mask")
+        # deeper layers dropped more by LayerDrop (JAX's formula)
         self.blocks = nn.ModuleList(
             EncoderBlock(d_model, d_ff, n_heads, btype, pe_type, clamp_len,
                          ffn_activation, ffn_bottleneck_dim,
                          conv_kernel_size, conv_normalization, dropout,
-                         causal)
-            for _ in range(n_layers))
+                         causal, dropout_att,
+                         dropout_layer * (lth + 1) / max(n_layers, 1))
+            for lth in range(n_layers))
         self.subsample = list(subsample) or [1] * n_layers
         self.subsamplers = nn.ModuleList(
             build_subsampler(subsample_type, f) if f > 1 else nn.Identity()

@@ -13,7 +13,6 @@ channels] (None for k = 1).
 """
 from __future__ import annotations
 
-import math
 from typing import Optional
 
 import torch
@@ -23,21 +22,20 @@ import torch.nn.functional as F
 from ... import PAD
 from ...ops.criterion import compute_accuracy, cross_entropy_lsm
 from ...ops.dropout import Dropout
+from ..modules.glu import ConvGLUBlock
 from ..utils import model_device
 
 
-class CausalConvGLU(nn.Module):
+class CausalConvGLU(ConvGLUBlock):
+    """``ConvGLUBlock`` with the causal padding (k - 1 frames on the left)
+    and a cache of the previous post-bottleneck inputs."""
+
     def __init__(self, channels: int, kernel_size: int,
                  bottleneck_dim: int = 0, dropout: float = 0.0):
-        super().__init__()
+        super().__init__(kernel_size, channels, channels, bottleneck_dim,
+                         dropout)
         self.channels, self.kernel_size = channels, kernel_size
         self.bottleneck_dim = bottleneck_dim
-        width = bottleneck_dim or channels
-        if bottleneck_dim > 0:
-            self.bn_in = nn.Linear(channels, bottleneck_dim)
-            self.bn_out = nn.Linear(bottleneck_dim, channels)
-        self.conv = nn.Conv1d(width, 2 * width, kernel_size)
-        self.drop = Dropout(dropout)
 
     def forward(self, xs: torch.Tensor, cache: Optional[torch.Tensor] = None,
                 gen: Optional[torch.Generator] = None):
@@ -51,14 +49,7 @@ class CausalConvGLU(nn.Module):
         if cache is None:
             c = F.pad(c, (k - 1, 0))
         c = self.conv(c).transpose(1, 2)[:, -xs.shape[1]:]
-        a, b = c.chunk(2, -1)
-        h = a * torch.sigmoid(b)
-        if self.bottleneck_dim > 0:
-            h = self.bn_out(h)
-        h = self.drop(h, gen)
-        if xs.shape[-1] == h.shape[-1]:
-            h = (h + xs) * math.sqrt(0.5)
-        return h, new_cache
+        return self.gate(c, xs, gen), new_cache
 
 
 def parse_layers(layers: str) -> list[tuple[int, int, int]]:

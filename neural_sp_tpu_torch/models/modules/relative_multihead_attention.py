@@ -29,7 +29,8 @@ cache's empty slots (keys below ``key_start``) are masked.
 keys and values from [memory; h] (Tq <= Tk), under ``masks.CAUSAL`` (query
 i at key position i + Tk - Tq), with ``dropout_att`` on the attention
 probabilities (K1 / K1b's ``dropout``, its key words drawn from the step's
-``torch.Generator`` in ``train()`` mode).
+``torch.Generator`` in ``train()`` mode). The encoders' ``forward`` drops
+them the same way (the conformers' ``dropout_att``).
 """
 from __future__ import annotations
 
@@ -94,13 +95,15 @@ class RelativeMultiheadAttention(nn.Module):
         return t[:n_rel]
 
     def forward(self, query: torch.Tensor, klens: torch.Tensor,
-                window=None) -> torch.Tensor:
+                window=None, gen=None) -> torch.Tensor:
         """query [B, T, d_model]; klens [B] valid keys per utterance (the
         keys-only pad mask of ``make_san_mask``); ``window`` (n_l, n_c,
-        n_r) or None. Returns [B, T, d_model]."""
+        n_r) or None; in ``train()`` the probabilities dropped at
+        ``dropout``, the key words from ``gen``. Returns [B, T, d_model]."""
         bs, t, _ = query.shape
         q, kv = self._project(query)
-        o = self._attend(q, kv["k"], kv["v"], klens, window, 0)
+        o = self._attend(q, kv["k"], kv["v"], klens, window, 0,
+                         self._drop(gen))
         return self.w_out(o.transpose(1, 2).reshape(bs, t, self.d_model))
 
     def stream(self, query: torch.Tensor, cache: dict, key_start: int):
@@ -132,10 +135,14 @@ class RelativeMultiheadAttention(nn.Module):
         k = self.w_key(key).view(bs, tk, h, dk)
         v = self.w_value(key).view(bs, tk, h, dk)
         klens = torch.full((bs,), tk, dtype=torch.int32, device=query.device)
-        drop = (self.dropout, key_words(gen)) \
-            if self.training and self.dropout > 0 else None
-        o = self._attend(q, k, v, klens, CAUSAL, 0, drop)
+        o = self._attend(q, k, v, klens, CAUSAL, 0, self._drop(gen))
         return self.w_out(o.transpose(1, 2).reshape(bs, tq, self.d_model))
+
+    def _drop(self, gen):
+        """K1's ``dropout`` argument: (rate, key words from ``gen``) in
+        ``train()`` at a rate above 0, else None."""
+        return (self.dropout, key_words(gen)) \
+            if self.training and self.dropout > 0 else None
 
     def _project(self, query):
         """(q [B, H, T, dk], {"k", "v"} [B, T, H, dk])."""

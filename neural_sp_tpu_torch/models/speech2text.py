@@ -151,9 +151,9 @@ WEIGHTS = ("ctc_weight", "sub1_weight", "ctc_weight_sub1", "sub2_weight",
 
 # Training and model options of the JAX package the port does not have:
 # each raises when set (non-zero / non-empty). The encoder's and the
-# decoder's own (dropout_in, dropout_att, dropout_enc_layer) raise in their
-# builders. rsp_prob_enc is the recipes' name of random state passing,
-# which the JAX package reads as rsp_prob only (ROADMAP C16).
+# decoder's own options are read (or refused) by their builders.
+# rsp_prob_enc is the recipes' name of random state passing, which the JAX
+# package reads as rsp_prob only (ROADMAP C16).
 _NOT_PORTED = ("bwd_weight", "sequence_summary_network", "input_noise_std",
                "adaptive_number_ratio", "adaptive_size_ratio",
                "distillation_weight", "teacher", "mbr_training",
@@ -167,7 +167,8 @@ def build_speech2text(args, device=None) -> Speech2Text:
     back to the CPU. The flagship's training options are honoured:
     SpecAugment (freq_width, n_freq_masks, time_width, n_time_masks,
     time_width_upper), lsm_prob, dropout_in, dropout_enc, dropout_dec,
-    dropout_emb, the CTC head's ctc_fc_list and ctc_lsm_prob, and the MTL
+    dropout_emb, dropout_att, dropout_enc_layer, the CTC head's
+    ctc_fc_list and ctc_lsm_prob, and the MTL
     sub-tasks (sub{n}_weight, ctc_weight_sub{n}, vocab_sub{n},
     dec_config_sub{n}, the encoder's taps); the others raise
     ``NotImplementedError``."""

@@ -12,12 +12,15 @@ from .rnnt_loss import rnnt_loss_bwd, rnnt_loss_fwd
 # their float32 and bf16 entries apart, and count again the launches with
 # a window on the keys, those dropping attention probabilities (their own
 # instantiation) and those without dropout with fewer queries than keys
-# (against cached keys, or the Transformer-XL's memory))
+# (against cached keys, or the Transformer-XL's memory), and those at a
+# head width below 16, padded; K2 / K3 / K3b count again their launches
+# with attention dropout, and those with the decoder's projection)
 KERNELS = {"rel_attention": (rel_attention, "launches"),
            "rel_attention_bf16": (rel_attention, "launches_bf16"),
            "rel_attention_window": (rel_attention, "launches_window"),
            "rel_attention_offset": (rel_attention, "launches_offset"),
            "rel_attention_dropout": (rel_attention, "launches_dropout"),
+           "rel_attention_padded": (rel_attention, "launches_padded"),
            "rel_attention_bwd": (rel_attention_bwd, "launches"),
            "rel_attention_bwd_bf16": (rel_attention_bwd, "launches_bf16"),
            "rel_attention_bwd_window": (rel_attention_bwd,
@@ -26,9 +29,17 @@ KERNELS = {"rel_attention": (rel_attention, "launches"),
                                         "launches_offset"),
            "rel_attention_bwd_dropout": (rel_attention_bwd,
                                          "launches_dropout"),
+           "rel_attention_bwd_padded": (rel_attention_bwd,
+                                        "launches_padded"),
            "las_step": (las_step, "launches"),
+           "las_step_dropout": (las_step, "launches_dropout"),
+           "las_step_proj": (las_step, "launches_proj"),
            "las_scan": (las_scan, "launches"),
+           "las_scan_dropout": (las_scan, "launches_dropout"),
+           "las_scan_proj": (las_scan, "launches_proj"),
            "las_scan_bwd": (las_scan_bwd, "launches"),
+           "las_scan_bwd_dropout": (las_scan_bwd, "launches_dropout"),
+           "las_scan_bwd_proj": (las_scan_bwd, "launches_proj"),
            "ctc_loss": (ctc_loss_fwd, "launches"),
            "ctc_loss_bwd": (ctc_loss_bwd, "launches"),
            "rnnt_loss": (rnnt_loss_fwd, "launches"),

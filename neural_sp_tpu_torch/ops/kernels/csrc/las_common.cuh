@@ -89,6 +89,19 @@ __device__ __forceinline__ void window_async(float* awp, const float* aw_prev, i
   }
 }
 
+// awp[i] *= keep[n, t0 - left + i] inside [0, T): the window of the
+// previous step's raw weights times its attention dropout scale, the
+// dropped weights the location conv read in the forward. Each thread
+// scales the entries window_async gave it to copy.
+__device__ __forceinline__ void scale_window(float* awp, const float* keep, int n, int t0, int T,
+                                             int K) {
+  const int left = (K - 1) / 2;
+  for (int i = threadIdx.x; i < kFrames + K - 1; i += kThreads) {
+    const int t = t0 + i - left;
+    if (t >= 0 && t < T) awp[i] *= keep[(size_t)n * T + t];
+  }
+}
+
 // loc[tl, c0 + c] = sum_k awp[tl + k] cw[c0 + c, k] for the group's
 // channels: a half-warp per frame tl, lanes along K.
 __device__ __forceinline__ void loc_group(const float* awp, const float* cw, float* loc, int c0,

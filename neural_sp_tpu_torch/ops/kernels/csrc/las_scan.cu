@@ -6,17 +6,24 @@
 // It walks the steps in reverse, carrying dh, dc, dctx and daw, and per
 // step t (rows n in parallel):
 //   dctx  = dctx_out[t] + dctx_carry           (saved: dctx_tot[t])
-//   daw   = daw_carry + values . dctx
+//   daw   = (daw_carry + values . dctx) m_t    (m_t: the attention dropout
+//           scale of step t, 1 without; the context and the next step's
+//           location conv read aw_t m_t, K3 keeps the raw aw_t)
 //   de    = aw_t (daw - sum(aw_t daw)), 0 on masked frames
-//   z     = kc + q_t + loc W_f^T,  s = tanh(z) (recomputed; loc from aw_{t-1})
+//   z     = kc + q_t + loc W_f^T,  s = tanh(z) (recomputed; loc from
+//           aw_{t-1} m_{t-1})
 //   dz    = de v (1 - s^2):  dkc += dz, dq_t = sum_T dz, dv += de s,
 //           dW_f += dz loc, dloc = dz W_f
-//   daw_carry = conv^T(dloc)                   dconv += dloc x aw_{t-1}
+//   daw_carry = conv^T(dloc)                   dconv += dloc x aw_{t-1} m_{t-1}
 //   dh    = dh_out[t] + (dq_t W_q) keep_t + dh_carry   (query from h * keep)
+//           or, with the decoder's projection p = relu(h keep W_p^T + b_p)
+//           as the query (and the readout's input), dpre_t = (dq_t W_q +
+//           dp_out[t]) [p_t > 0] (saved) and dh = dh_out[t] + (dpre_t W_p)
+//           keep_t + dh_carry
 //   LSTM adjoint from the saved gates and c:  dy_t [4H], dc_carry = dc f
 //   dh_carry = dy_t W_h^T,  dctx_carry = dy_t W_ctx^T  (split-K product)
 // dy_t, dq_t and dctx_tot[t] are streamed out; the step-invariant weight
-// gradients dW_h, dW_ctx, b, dW_q and dvalues = sum_t aw_t (x) dctx_tot[t]
+// gradients dW_h, dW_ctx, b, dW_q and dvalues = sum_t aw_t m_t (x) dctx_tot[t]
 // are single products over all steps outside (las_scan.py), as the Pallas
 // `_bwd` reduced its d_toep outside. dv, dW_f and dconv are summed into
 // per-block partial buffers (each block owns its slot across the steps; a
@@ -167,10 +174,11 @@ __device__ __noinline__ void dwf_rest(const float* dzs, const float* loc, float*
 // blocks whose frames all lie past klens[n] only write their row's dctx
 // (tb = 0) and stop: de, dz and dloc are 0 there.
 //   dctx  = dctx_out + the recurrent product's partials    (-> dctx_tot)
-//   rs    = sum_t' aw_t daw = sum_t' aw_t daw_carry + ctx_t . dctx  (ctx_t
-//           = sum_t' aw_t values, saved by K3: no pass over values)
-//   de    = aw_t (daw_carry + values . dctx - rs)    a warp per two frames
-//   loc   = conv(aw_prev)        a half-warp per frame, lanes along K
+//   rs    = sum_t' aw_t daw = sum_t' aw_t m_t daw_carry + ctx_t . dctx
+//           (ctx_t = sum_t' aw_t m_t values, saved by K3: no pass over
+//           values)
+//   de    = aw_t (m_t (daw_carry + values . dctx) - rs)  a warp per two frames
+//   loc   = conv(aw_prev m_{t-1})  a half-warp per frame, lanes along K
 //   a thread per two attention units (a, a + 256), frame by frame with
 //   the frame's loc in registers: z, s = tanh(z), dz (to shared memory,
 //   over the frame's kc); dkc += dz; its sums over the frames of dq
@@ -184,13 +192,17 @@ __device__ __noinline__ void dwf_rest(const float* dzs, const float* loc, float*
 // accumulator (red.add). The frame loop holds the first kGroupC channels
 // of W_f and dW_f in registers; the channels past them (C > kGroupC) add
 // their loc W_f^T to the kc rows before it, and their dW_f is summed after
-// it from the stored dz.
+// it from the stored dz. akeep (m_t) and pkeep (m_{t-1}) [N, T] may be
+// null (pkeep at t = 0); they are read in the kDrop instantiation only
+// (attention dropout), so the other keeps the code it had without.
+template <bool kDrop>
 __global__ void __launch_bounds__(kThreads, 3)  // three blocks (their shared memory) per SM
 bwd_attention(const float* __restrict__ dctx_out, const float* __restrict__ part, int n_part,
               const float* __restrict__ daw_c, const float* __restrict__ values,
               const float* __restrict__ aw, const float* __restrict__ ctx,
               const int* __restrict__ klens, const float* __restrict__ q,
-              const float* __restrict__ aw_prev, const float* __restrict__ conv_w,
+              const float* __restrict__ aw_prev, const float* __restrict__ akeep,
+              const float* __restrict__ pkeep, const float* __restrict__ conv_w,
               const float* __restrict__ w_f, const float* __restrict__ v,
               const float* __restrict__ kc, float* __restrict__ dctx_tot,
               float* __restrict__ dkc, float* __restrict__ dloc, float* __restrict__ dq_part,
@@ -236,10 +248,16 @@ bwd_attention(const float* __restrict__ dctx_out, const float* __restrict__ part
   cp_async_commit();
   const float* awr = aw + (size_t)n * T;
   const float* dacr = daw_c + (size_t)n * T;
-  for (int t = tid; t < klen; t += kThreads) rs += awr[t] * dacr[t];
+  const float* kr = kDrop && akeep != nullptr ? akeep + (size_t)n * T : nullptr;
+  if (kr != nullptr) {
+    for (int t = tid; t < klen; t += kThreads) rs += awr[t] * kr[t] * dacr[t];
+  } else {
+    for (int t = tid; t < klen; t += kThreads) rs += awr[t] * dacr[t];
+  }
   rs = warp_sum(rs);
   if (lane == 0) red[warp] = rs;
   cp_async_wait_one();  // W_f, conv_w, aw_prev's window
+  if (kDrop && pkeep != nullptr) scale_window(awp, pkeep, n, t0, T, K);  // this thread's copies
   __syncthreads();
   // values . dctx of the block's frames: a warp per two frames (warp and
   // warp + kWarps), their loads interleaved
@@ -270,7 +288,8 @@ bwd_attention(const float* __restrict__ dctx_out, const float* __restrict__ part
   for (int w = 0; w < kWarps; ++w) rs += red[w];
   if (tid < nf) {
     const int t = t0 + tid;
-    des[tid] = awr[t] * (dacr[t] + des[tid] - rs);
+    const float m = kr != nullptr ? kr[t] : 1.0f;
+    des[tid] = awr[t] * (m * (dacr[t] + des[tid]) - rs);
   }
   cp_async_wait_none();  // kc
   __syncthreads();
@@ -354,10 +373,14 @@ __host__ __device__ inline size_t conv_bwd_smem_floats(int C, int K) {
 // nothing to add past klens[n], where dloc is 0 and bwd_attention wrote
 // none). Besides, dq_t[n, a] = the sum of the attention blocks' parts
 // (those with valid frames), in order, for the block's slice of a; dconv
-// kGroupC channels at a time.
+// kGroupC channels at a time. pkeep [N, T] (may be null): aw_prev's
+// attention dropout scale (dconv reads aw_prev pkeep), read in the kDrop
+// instantiation only.
+template <bool kDrop>
 __global__ void __launch_bounds__(kThreads)
 bwd_conv(const float* __restrict__ dloc, const float* __restrict__ aw_prev,
-         const float* __restrict__ conv_w, const int* __restrict__ klens,
+         const float* __restrict__ pkeep, const float* __restrict__ conv_w,
+         const int* __restrict__ klens,
          const float* __restrict__ dq_part, float* __restrict__ daw_c,
          float* __restrict__ dconv_part, float* __restrict__ dq, int N, int T, int A, int C,
          int K) {
@@ -389,6 +412,7 @@ bwd_conv(const float* __restrict__ dloc, const float* __restrict__ aw_prev,
     dq[(size_t)n * A + a] = s;
   }
   cp_async_wait_none();
+  if (kDrop && pkeep != nullptr) scale_window(awp, pkeep, n, t0, T, K);  // this thread's copies
   __syncthreads();
   // frame tau = t0 + tl takes dloc at frame tau + left - k = window index
   // tl + K - 1 - k
@@ -425,6 +449,22 @@ bwd_conv(const float* __restrict__ dloc, const float* __restrict__ aw_prev,
         if (c0 + c < C) atomicAdd(dst + (size_t)(c0 + c) * K, s[c]);
     }
   }
+}
+
+// The decoder's projection (P > 0): dpre[n, k] = (sum_a dq[n, a] w_q[a, k]
+// + dp_out[n, k]) where p[n, k] > 0, else 0 (the relu's adjoint), w_q [A,
+// P]. A thread per (row, unit k): the weight reads are coalesced along k,
+// dq's row is read by broadcast.
+__global__ void __launch_bounds__(kThreads)
+bwd_proj(const float* __restrict__ dq, const float* __restrict__ w_q,
+         const float* __restrict__ dp_out, const float* __restrict__ p, float* __restrict__ dpre,
+         int N, int A, int P) {
+  const int n = blockIdx.y, k = blockIdx.x * kThreads + threadIdx.x;
+  if (k >= P) return;
+  const float* dr = dq + (size_t)n * A;
+  float s = dp_out[(size_t)n * P + k];
+  for (int a = 0; a < A; ++a) s = fmaf(dr[a], w_q[(size_t)a * P + k], s);
+  dpre[(size_t)n * P + k] = p[(size_t)n * P + k] > 0.0f ? s : 0.0f;
 }
 
 __device__ __forceinline__ float sig_d(float g) { return g * (1.0f - g); }
@@ -623,10 +663,15 @@ extern "C" int nsp_las_scan_bwd_parts(int H) { return (4 * H + kRecK - 1) / kRec
 // K3b over U steps, N rows, time-major as K3 (nsp_las_scan_f32).
 // Inputs: the weights w_ctx [D, 4H], w_h [H, 4H], w_q [A, H], conv_w
 // [C, K], w_f [A, C], v [A]; kc [N, T, A], values [N, T, D],
-// klens [N] int32, keep [U, N, H]; K3's saved gates [U, N, 4H], c_all
+// klens [N] int32, keep [U, N, H], att_keep [U, N, T] or null (each step's
+// attention dropout scale, as K3 took it); K3's saved gates [U, N, 4H], c_all
 // [U, N, H], q_all [U, N, A], aw_all [U, N, T], ctx_all [U, N, D]; aw0
 // [N, T] (the step-0 weights, zeros); the upstream gradients dh_out [U, N,
-// H] (w.r.t. each step's undropped h) and dctx_out [U, N, D]. Carries
+// H] (w.r.t. each step's undropped h) and dctx_out [U, N, D]; with the
+// projection (P > 0; 0: none, and these may be null) w_p [P, H], K3's
+// p_all [U, N, P], its gradient dp_out [U, N, P], and the output dpre_all
+// [U, N, P] (the projection's pre-activation gradient, for dW_p and b_p
+// after the loop; w_q is then [A, P]). Carries
 // (zeroed by the caller): dc_c [N, H], daw_c [N, T]; scratch part
 // [nsp_las_scan_bwd_parts(H), N, D + H], dloc [N, T, C], dq_part [ceil(T /
 // 16), N, A]. Outputs: dy_all [U, N, 4H], dq_all [U, N, A], dctx_tot [U,
@@ -639,15 +684,16 @@ extern "C" int nsp_las_scan_bwd_parts(int H) { return (4 * H + kRecK - 1) / kRec
 extern "C" int nsp_las_scan_bwd_f32(
     const void* w_ctx, const void* w_h, const void* w_q, const void* conv_w, const void* w_f,
     const void* v, const void* kc, const void* values, const void* klens, const void* keep,
-    const void* gates, const void* c_all, const void* q_all, const void* aw_all,
+    const void* att_keep, const void* w_p, const void* p_all, const void* dp_out,
+    void* dpre_all, const void* gates, const void* c_all, const void* q_all, const void* aw_all,
     const void* ctx_all, const void* aw0, const void* dh_out, const void* dctx_out, void* dc_c,
     void* daw_c, void* part, void* dloc, void* dq_part, void* dy_all, void* dq_all,
     void* dctx_tot, void* dkc, void* dv_part, void* dwf_part, void* dconv_part, void* launched,
-    int U, int N, int T, int H, int D, int A, int C, int K, void* stream) {
+    int U, int N, int T, int H, int D, int A, int C, int K, int P, void* stream) {
   int* count = static_cast<int*>(launched);
   *count = 0;
   if (U <= 0 || N <= 0 || T <= 0 || H <= 0 || D <= 0 || A <= 0 || C <= 0 || K <= 0 ||
-      N > 65535)
+      N > 65535 || P < 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* kl = static_cast<const int*>(klens);
@@ -656,11 +702,21 @@ extern "C" int nsp_las_scan_bwd_f32(
   const size_t nh = (size_t)N * H, nt = (size_t)N * T, nd = (size_t)N * D, na = (size_t)N * A;
   const size_t att_smem = sizeof(float) * attention_bwd_smem_floats(D, A, C, K);
   const size_t c_smem = sizeof(float) * conv_bwd_smem_floats(C, K);
-  const size_t cell_smem = sizeof(float) * cell_smem_floats(A);
+  // bwd_cell's product: dq_t W_q, or with the projection dpre_t W_p
+  const int cell_a = P > 0 ? P : A;
+  const size_t cell_smem = sizeof(float) * cell_smem_floats(cell_a);
   const size_t rec_smem = sizeof(float) * kRecSmemFloats;
   cudaError_t err;
-  if ((err = allow_smem<bwd_attention>(att_smem)) != cudaSuccess) return (int)err;
-  if ((err = allow_smem<bwd_conv>(c_smem)) != cudaSuccess) return (int)err;
+  // attention dropout runs the kDrop instantiations
+  const bool drop = att_keep != nullptr;
+  auto* attention = drop ? bwd_attention<true> : bwd_attention<false>;
+  auto* conv = drop ? bwd_conv<true> : bwd_conv<false>;
+  if ((err = drop ? allow_smem<bwd_attention<true>>(att_smem)
+                  : allow_smem<bwd_attention<false>>(att_smem)) != cudaSuccess)
+    return (int)err;
+  if ((err = drop ? allow_smem<bwd_conv<true>>(c_smem) : allow_smem<bwd_conv<false>>(c_smem)) !=
+      cudaSuccess)
+    return (int)err;
   if ((err = allow_smem<bwd_cell>(cell_smem)) != cudaSuccess) return (int)err;
   if ((err = allow_smem<bwd_recurrent>(rec_smem)) != cudaSuccess) return (int)err;
   const dim3 att_grid(n_tb, N);
@@ -668,22 +724,36 @@ extern "C" int nsp_las_scan_bwd_f32(
   const dim3 cell_grid((H + kCellUnits - 1) / kCellUnits, (N + kCellRows - 1) / kCellRows);
   for (int t = U - 1; t >= 0; --t) {
     const float* aw_prev = (t > 0) ? F(aw_all) + (size_t)(t - 1) * nt : F(aw0);
+    const float* akeep = att_keep != nullptr ? F(att_keep) + (size_t)t * nt : nullptr;
+    const float* pkeep = att_keep != nullptr && t > 0 ? F(att_keep) + (size_t)(t - 1) * nt
+                                                      : nullptr;
     // the recurrent product's partials exist from the second step on
     const int parts = (t < U - 1) ? n_part : 0;
-    bwd_attention<<<att_grid, kThreads, att_smem, s>>>(
+    attention<<<att_grid, kThreads, att_smem, s>>>(
         F(dctx_out) + t * nd, F(part), parts, F(daw_c), F(values), F(aw_all) + t * nt,
-        F(ctx_all) + t * nd, kl, F(q_all) + t * na, aw_prev, F(conv_w), F(w_f), F(v), F(kc),
+        F(ctx_all) + t * nd, kl, F(q_all) + t * na, aw_prev, akeep, pkeep, F(conv_w), F(w_f),
+        F(v), F(kc),
         W(dctx_tot) + t * nd, W(dkc), W(dloc), W(dq_part), W(dv_part), W(dwf_part), N, T, D, H,
         A, C, K);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    bwd_conv<<<att_grid, kThreads, c_smem, s>>>(F(dloc), aw_prev, F(conv_w), kl, F(dq_part),
-                                                W(daw_c), W(dconv_part), W(dq_all) + t * na, N,
-                                                T, A, C, K);
+    conv<<<att_grid, kThreads, c_smem, s>>>(F(dloc), aw_prev, pkeep, F(conv_w), kl, F(dq_part),
+                                            W(daw_c), W(dconv_part), W(dq_all) + t * na, N, T,
+                                            A, C, K);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    const float* dcell = F(dq_all) + t * na;
+    if (P > 0) {
+      const size_t np = (size_t)N * P;
+      bwd_proj<<<dim3((P + kThreads - 1) / kThreads, N), kThreads, 0, s>>>(
+          F(dq_all) + t * na, F(w_q), F(dp_out) + t * np, F(p_all) + t * np,
+          W(dpre_all) + t * np, N, A, P);
+      if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+      *count += 1;
+      dcell = F(dpre_all) + t * np;
+    }
     bwd_cell<<<cell_grid, kCellThreads, cell_smem, s>>>(
-        F(dq_all) + t * na, F(w_q), F(gates) + t * nh * 4, F(c_all) + t * nh,
+        dcell, P > 0 ? F(w_p) : F(w_q), F(gates) + t * nh * 4, F(c_all) + t * nh,
         (t > 0) ? F(c_all) + (t - 1) * nh : nullptr, F(keep) + t * nh, F(dh_out) + t * nh,
-        F(part), parts, W(dc_c), W(dy_all) + t * nh * 4, N, H, D, A);
+        F(part), parts, W(dc_c), W(dy_all) + t * nh * 4, N, H, D, cell_a);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
     *count += 3;
     if (t > 0) {

@@ -21,6 +21,13 @@
 // row). The design reads exactly that and prefetches what no step writes
 // before a kernel waits for the one before it.
 //
+// Two options of the decoder ride on the same chains. Attention dropout
+// (a [N, T] scale per step): the context is formed from aw keep, and the
+// next step's location conv reads the dropped weights (K2 carries them,
+// K3 keeps the raw ones and drops them where it reads them). The
+// decoder's projection (P > 0): p = relu(hd W_p^T + b_p) [N, P] by one
+// more las_query launch before the query's, which then reads p.
+//
 // A decode step (K2, `nsp_las_step_f32` and `nsp_las_step_plan_f32`) is
 // sized for a beam's rows, four kernels as programmatic dependent launches:
 //   1. las_gates_rows<NR> (N <= 16 rows): the product x [N, D + H] x
@@ -104,6 +111,13 @@ constexpr int kGateThreads = 128;
 constexpr int kXStride = kGateK + 4;      // 16-byte rows, conflict-free float4 reads
 constexpr int kWStride = kGateCols + 4;
 constexpr int kCellThreads = 128;
+// How a step's attention reads the dropout scale of its weights
+// (attention dropout): not at all; K2's way, the context and the weights
+// written (the carry) read att_keep; K3's way, the context reads att_keep
+// and the location conv reads aw_prev prev_keep (K3 keeps each step's raw
+// weights, so the next step drops them where it reads them).
+enum Drop { kNoDrop, kDropCarry, kDropOnRead };
+
 constexpr int kQueryRows = 8;        // rows n per block of las_query
 constexpr int kQueryAhead = 8;       // float4 of a weight row a lane loads ahead (H <= 1024)
 constexpr int kCombineThreads = 128;
@@ -447,10 +461,12 @@ las_cell(const float* __restrict__ eg, const float* __restrict__ bias,
 // once per block. Each lane loads its first kQueryAhead float4 of the
 // weight row before the block's rows of hd (the cell's output) are
 // awaited and staged; vec: hd and w_q are 16-byte aligned and H is a
-// multiple of 4.
+// multiple of 4. The decoder's projection runs the kProj instantiation
+// first: p = relu(hd w_p^T + bias), and the query reads p.
+template <bool kProj>
 __global__ void __launch_bounds__(kThreads)
-las_query(const float* __restrict__ hd, const float* __restrict__ w_q, float* __restrict__ q,
-          int N, int H, int A, bool vec) {
+las_query(const float* __restrict__ hd, const float* __restrict__ w_q,
+          const float* __restrict__ bias, float* __restrict__ q, int N, int H, int A, bool vec) {
   extern __shared__ float4 query_smem[];  // float4: 16-byte aligned for cp.async
   float* hs = reinterpret_cast<float*>(query_smem);  // [kQueryRows][H]
   const int n0 = blockIdx.y * kQueryRows;
@@ -501,9 +517,10 @@ las_query(const float* __restrict__ hd, const float* __restrict__ w_q, float* __
         if (r < rows) acc[r] = fmaf(wv, hs[r * H + k], acc[r]);
     }
   }
+  const float b = (kProj && a < A) ? bias[a] : 0.0f;
 #pragma unroll
   for (int r = 0; r < kQueryRows; ++r) {
-    const float s = warp_sum(acc[r]);
+    const float s = kProj ? fmaxf(warp_sum(acc[r]) + b, 0.0f) : warp_sum(acc[r]);
     if (lane == 0 && r < rows && a < A) q[(size_t)(n0 + r) * A + a] = s;
   }
 }
@@ -547,14 +564,21 @@ static __device__ __noinline__ float rest_dot(const float* l, const float* w, in
 // and, with kStoreP, also goes to aw_out (the combine kernel rescales it in
 // place). A row with klen 0 skips the energies: e is the masked value on
 // all its T frames. parent (may be null): row n takes row parent[n] of
-// aw_prev. Returns the block's number of frames.
-template <bool kStoreP>
+// aw_prev. Attention dropout (kD, see Drop): att_keep [N, T] scales this
+// step's weights where they form the context (the partial context sums p
+// keep; m, s and the p stored stay those of the undropped weights), and
+// with kDropOnRead prev_keep [N, T] scales aw_prev where the location conv
+// reads it; neither is read with kNoDrop, so that instantiation keeps the
+// code it had without dropout. Returns the block's number of frames.
+template <bool kStoreP, Drop kD>
 __device__ __forceinline__ int attend_block(
     float* smem, const float* __restrict__ q, const float* __restrict__ aw_prev,
     const int* __restrict__ parent, const float* __restrict__ conv_w,
     const float* __restrict__ w_f, const float* __restrict__ v, const float* __restrict__ kc,
-    const float* __restrict__ values, const int* __restrict__ klens, float* __restrict__ aw_out,
-    float* ms, float* pc, float** ps_out, int T, int D, int A, int C, int K) {
+    const float* __restrict__ values, const int* __restrict__ klens,
+    const float* __restrict__ att_keep, const float* __restrict__ prev_keep,
+    float* __restrict__ aw_out, float* ms, float* pc, float** ps_out, int T, int D, int A, int C,
+    int K) {
   float* kcs = smem;                          // [kFrames][A]
   float* vals = kcs + (size_t)kFrames * A;    // [kFrames][D]
   float* cw = vals + (size_t)kFrames * D;     // [C][K]
@@ -572,6 +596,17 @@ __device__ __forceinline__ int attend_block(
   if (t0 >= len) return 0;
   const int nf = min(kFrames, len - t0);      // the block's frames
   const size_t row0 = (size_t)n * T + t0;
+  // warp 0's lanes hold their frame's dropout scale (no step writes it)
+  const float kp = (kD != kNoDrop && warp == 0 && lane < nf) ? att_keep[row0 + lane] : 1.0f;
+  // and each thread its first window frame's scale of the step before
+  // (kDropOnRead), read here as no step writes it: only aw_prev waits
+  const int left = (K - 1) / 2;
+  const size_t prow = (size_t)(parent != nullptr ? parent[n] : n) * T;
+  float pkv = 1.0f;
+  if (kD == kDropOnRead && tid < kFrames + K - 1) {
+    const int t = t0 + tid - left;
+    if (t >= 0 && t < T) pkv = prev_keep[prow + t];
+  }
   // what no step writes does not wait for the kernels before
   if (!empty) copy_async(cw, conv_w, C * K);
   cp_async_commit();
@@ -597,11 +632,15 @@ __device__ __forceinline__ int attend_block(
       if (base == 0) {
         grid_dependency_wait();  // aw_prev and q are the steps' own
         grid_dependents_launch();
-        const int left = (K - 1) / 2;
-        const size_t prow = (size_t)(parent != nullptr ? parent[n] : n) * T;
         for (int i = tid; i < kFrames + K - 1; i += kThreads) {
           const int t = t0 + i - left;
-          awp[i] = (t >= 0 && t < T) ? aw_prev[prow + t] : 0.0f;
+          if (t < 0 || t >= T) {
+            awp[i] = 0.0f;
+          } else if (kD == kDropOnRead) {  // past kThreads a frame's scale is read here
+            awp[i] = aw_prev[prow + t] * (i == tid ? pkv : prev_keep[prow + t]);
+          } else {
+            awp[i] = aw_prev[prow + t];
+          }
         }
         cp_async_wait_two();  // conv_w
         __syncthreads();
@@ -656,7 +695,7 @@ __device__ __forceinline__ int attend_block(
     const float p = lane < nf ? expf(e - m) : 0.0f;
     const float s = warp_sum(p);
     if (lane < nf) {
-      ps[lane] = p;
+      ps[lane] = p * kp;
       if (kStoreP) aw_out[row0 + lane] = p;
     }
     if (lane == 0) {
@@ -679,21 +718,23 @@ __device__ __forceinline__ int attend_block(
 // cluster (and in the scan, K3): a block per (kFrames frames, row n) runs
 // attend_block and leaves p in aw_out, (m, s) in part_ms [N, n_tb, 2] and
 // the unnormalised partial context in part_ctx [N, n_tb, D];
-// las_attend_combine finishes the row.
+// las_attend_combine finishes the row. kD: attention dropout (Drop).
+template <Drop kD>
 __global__ void __launch_bounds__(kThreads, 3)  // three blocks (their shared memory) per SM
 las_attend_part(const float* __restrict__ q, const float* __restrict__ aw_prev,
                 const int* __restrict__ parent, const float* __restrict__ conv_w,
                 const float* __restrict__ w_f, const float* __restrict__ v,
                 const float* __restrict__ kc, const float* __restrict__ values,
-                const int* __restrict__ klens, float* __restrict__ aw_out,
+                const int* __restrict__ klens, const float* __restrict__ att_keep,
+                const float* __restrict__ prev_keep, float* __restrict__ aw_out,
                 float* __restrict__ part_ms, float* __restrict__ part_ctx, int T, int D, int A,
                 int C, int K) {
   extern __shared__ float4 attend_smem[];  // float4: 16-byte aligned for cp.async
   const size_t slot = (size_t)blockIdx.y * gridDim.x + blockIdx.x;
   float* ps;
-  attend_block<true>(reinterpret_cast<float*>(attend_smem), q, aw_prev, parent, conv_w, w_f, v,
-                     kc, values, klens, aw_out, part_ms + slot * 2, part_ctx + slot * D, &ps, T,
-                     D, A, C, K);
+  attend_block<true, kD>(reinterpret_cast<float*>(attend_smem), q, aw_prev, parent, conv_w, w_f,
+                         v, kc, values, klens, att_keep, prev_keep, aw_out, part_ms + slot * 2,
+                         part_ctx + slot * D, &ps, T, D, A, C, K);
 }
 
 // A decode step's whole attention in one launch (K2): every block runs
@@ -707,21 +748,34 @@ las_attend_part(const float* __restrict__ q, const float* __restrict__ aw_prev,
 // zero at the launch (las_cell zeroes it earlier in the step). The scales
 // of the row's gridDim.x blocks take the place of the block's keys in
 // shared memory, so gridDim.x may not exceed attend_smem_floats().
+// kCarry: att_keep [N, T] as attend_block, and it scales the weights
+// written too (K2 carries the dropped weights on).
+template <bool kCarry>
 __global__ void __launch_bounds__(kThreads, 3)
 las_attend(const float* __restrict__ q, const float* __restrict__ aw_prev,
            const int* __restrict__ parent, const float* __restrict__ conv_w,
            const float* __restrict__ w_f, const float* __restrict__ v,
            const float* __restrict__ kc, const float* __restrict__ values,
-           const int* __restrict__ klens, float* aw_out, float* part_ms, float* part_ctx,
-           unsigned* __restrict__ counts, float* __restrict__ ctx_out, int T, int D, int A, int C,
-           int K) {
+           const int* __restrict__ klens, const float* __restrict__ att_keep, float* aw_out,
+           float* part_ms, float* part_ctx, unsigned* __restrict__ counts,
+           float* __restrict__ ctx_out, int T, int D, int A, int C, int K) {
   extern __shared__ float4 attend_smem[];  // float4: 16-byte aligned for cp.async
   const int n = blockIdx.y, n_tb = gridDim.x, tid = threadIdx.x, lane = tid & 31;
   const size_t slot = (size_t)n * n_tb + blockIdx.x;
+  // the carried weights' scale of the frames this thread writes if its
+  // block finishes the row, read before anything waits (no step writes it)
+  const float* kw = kCarry ? att_keep + (size_t)n * T : nullptr;
+  float kwv[kCombineFrames];
+#pragma unroll
+  for (int i = 0; i < kCombineFrames; ++i) {
+    const int t = tid + i * kThreads;
+    kwv[i] = kCarry && t < T ? kw[t] : 1.0f;
+  }
   float* ps;
-  const int nf = attend_block<true>(reinterpret_cast<float*>(attend_smem), q, aw_prev, parent,
-                                    conv_w, w_f, v, kc, values, klens, aw_out,
-                                    part_ms + slot * 2, part_ctx + slot * D, &ps, T, D, A, C, K);
+  const int nf = attend_block<true, kCarry ? kDropCarry : kNoDrop>(
+      reinterpret_cast<float*>(attend_smem), q, aw_prev, parent, conv_w, w_f, v, kc, values,
+      klens, att_keep, nullptr, aw_out, part_ms + slot * 2, part_ctx + slot * D, &ps, T, D, A,
+      C, K);
   if (nf == 0) return;  // a block past the row's length: the last one writes its zeros
   const int len = attend_frames(klens[n], T);
   const int nb = (len + kFrames - 1) / kFrames;  // the row's blocks with frames
@@ -756,10 +810,10 @@ las_attend(const float* __restrict__ q, const float* __restrict__ aw_prev,
 #pragma unroll
   for (int i = 0; i < kCombineFrames; ++i) {
     const int t = tid + i * kThreads;
-    if (t < T) row[t] = t < len ? p[i] * scale[t / kFrames] : 0.0f;
+    if (t < T) row[t] = t < len ? p[i] * scale[t / kFrames] * kwv[i] : 0.0f;
   }
   for (int t = tid + kCombineFrames * kThreads; t < T; t += kThreads)
-    row[t] = t < len ? __ldcg(row + t) * scale[t / kFrames] : 0.0f;
+    row[t] = t < len ? __ldcg(row + t) * scale[t / kFrames] * (kCarry ? kw[t] : 1.0f) : 0.0f;
   const float* pc = part_ctx + (size_t)n * n_tb * D;
   for (int d0 = 0; d0 < D; d0 += 2 * kThreads) {
     // two context columns a thread, kCombineAhead blocks' partials in flight
@@ -790,11 +844,13 @@ las_attend(const float* __restrict__ q, const float* __restrict__ aw_prev,
 // frames (0 past them) and ctx = sum_b part_ctx_b exp(m_b - M) / S. A
 // block per (row n, one of gridDim.y slices of the context columns and of
 // the frames); each block forms the scales of the row's n_b <= ceil(T /
-// kFrames) blocks itself.
+// kFrames) blocks itself. kCarry: att_keep [N, T] scales the weights
+// written (K2's carry; K3 keeps the raw weights).
+template <bool kCarry>
 __global__ void __launch_bounds__(kCombineThreads)
 las_attend_combine(const int* __restrict__ klens, const float* __restrict__ part_ms,
-                   const float* __restrict__ part_ctx, float* __restrict__ aw,
-                   float* __restrict__ ctx_out, int T, int D) {
+                   const float* __restrict__ part_ctx, const float* __restrict__ att_keep,
+                   float* __restrict__ aw, float* __restrict__ ctx_out, int T, int D) {
   extern __shared__ float scale[];  // [n_tb]: exp(m_b - M) / S
   const int n = blockIdx.x, tid = threadIdx.x;
   const int n_tb = (T + kFrames - 1) / kFrames;
@@ -822,7 +878,8 @@ las_attend_combine(const int* __restrict__ klens, const float* __restrict__ part
   float* row = aw + (size_t)n * T;
   for (int t = blockIdx.y * t_slice + tid; t < min(T, (blockIdx.y + 1) * t_slice);
        t += kCombineThreads)
-    row[t] = t < len ? row[t] * scale[t / kFrames] : 0.0f;
+    row[t] = t < len ? row[t] * scale[t / kFrames] * (kCarry ? att_keep[(size_t)n * T + t] : 1.0f)
+                     : 0.0f;
 }
 
 // Where the pieces of a step's scratch lie in one buffer, in floats (each
@@ -860,6 +917,9 @@ bool aligned16(std::initializer_list<const void*> ps) {
 
 // One step's operands. parent (row n reads row parent[n] of the carry),
 // keep and gates_out may be null; q is where the step's query goes.
+// Attention dropout (drop, see Drop): att_keep [N, T] is the step's scale,
+// and with kDropOnRead prev_keep [N, T] aw_prev's (K3: the step before's,
+// ones at step 0); with kNoDrop neither is read.
 struct Step {
   const float *eg, *ctx_prev, *h_prev, *c_prev, *aw_prev, *w_ctx, *w_h, *bias, *w_q, *conv_w,
       *w_f, *v, *kc, *values;
@@ -868,6 +928,13 @@ struct Step {
   float *scratch, *q, *h_out, *c_out, *gates_out, *aw_out, *ctx_out;
   int N, T, H, D, A, C, K;
   bool count_blocks;  // a decode step: las_cell zeroes las_attend's counters
+  Drop drop;
+  const float *att_keep, *prev_keep;
+  // the decoder's projection (P > 0): p = relu(hd w_p^T + b_p) [N, P] into
+  // p_out, and the query reads p (w_q is then [A, P])
+  const float *w_p, *b_p;
+  float* p_out;
+  int P;
 };
 
 // Launches the kernels of a chain and counts them.
@@ -910,33 +977,68 @@ cudaError_t gates_and_cell(const Chain& ch, const Step& st) {
 }
 
 // las_attend_part and las_attend_combine: any number of frames.
-cudaError_t attend_in_two(const Chain& ch, const Step& st) {
+template <Drop kD>
+cudaError_t attend_in_two_as(const Chain& ch, const Step& st) {
   const Scratch sc = carve(st.N, st.T, st.H, st.D, st.A);
   float* part_ms = st.scratch + sc.part_ms;
   float* part_ctx = st.scratch + sc.part_ctx;
   const int n_tb = (st.T + kFrames - 1) / kFrames;
   const size_t a_smem = sizeof(float) * attend_smem_floats(st.D, st.A, st.C, st.K);
   cudaError_t err;
-  if ((err = allow_smem<las_attend_part>(a_smem)) != cudaSuccess) return err;
-  if ((err = ch.run(las_attend_part, dim3(n_tb, st.N), kThreads, a_smem, st.q, st.aw_prev,
-                    st.parent, st.conv_w, st.w_f, st.v, st.kc, st.values, st.klens, st.aw_out,
-                    part_ms, part_ctx, st.T, st.D, st.A, st.C, st.K)) != cudaSuccess)
+  if ((err = allow_smem<las_attend_part<kD>>(a_smem)) != cudaSuccess) return err;
+  if ((err = ch.run(las_attend_part<kD>, dim3(n_tb, st.N), kThreads, a_smem, st.q, st.aw_prev,
+                    st.parent, st.conv_w, st.w_f, st.v, st.kc, st.values, st.klens,
+                    st.att_keep, st.prev_keep, st.aw_out, part_ms, part_ctx, st.T, st.D, st.A,
+                    st.C, st.K)) != cudaSuccess)
     return err;
   const size_t c_smem = sizeof(float) * n_tb;
-  if ((err = allow_smem<las_attend_combine>(c_smem)) != cudaSuccess) return err;
-  return ch.run(las_attend_combine, dim3(st.N, kCombineSlices), kCombineThreads, c_smem,
-                st.klens, part_ms, part_ctx, st.aw_out, st.ctx_out, st.T, st.D);
+  constexpr bool kCarry = kD == kDropCarry;
+  if ((err = allow_smem<las_attend_combine<kCarry>>(c_smem)) != cudaSuccess) return err;
+  return ch.run(las_attend_combine<kCarry>, dim3(st.N, kCombineSlices), kCombineThreads, c_smem,
+                st.klens, part_ms, part_ctx, st.att_keep, st.aw_out, st.ctx_out, st.T, st.D);
 }
 
-// q = hd W_q^T.
+cudaError_t attend_in_two(const Chain& ch, const Step& st) {
+  switch (st.drop) {
+    case kDropCarry: return attend_in_two_as<kDropCarry>(ch, st);
+    case kDropOnRead: return attend_in_two_as<kDropOnRead>(ch, st);
+    default: return attend_in_two_as<kNoDrop>(ch, st);
+  }
+}
+
+// las_attend (K2's attention in one launch).
+template <bool kCarry>
+cudaError_t attend_in_one(const Chain& ch, const Step& st, size_t a_smem) {
+  const Scratch sc = carve(st.N, st.T, st.H, st.D, st.A);
+  const int n_tb = (st.T + kFrames - 1) / kFrames;
+  const cudaError_t err = allow_smem<las_attend<kCarry>>(a_smem);
+  if (err != cudaSuccess) return err;
+  return ch.run(las_attend<kCarry>, dim3(n_tb, st.N), kThreads, a_smem, st.q, st.aw_prev,
+                st.parent, st.conv_w, st.w_f, st.v, st.kc, st.values, st.klens, st.att_keep,
+                st.aw_out, st.scratch + sc.part_ms,
+                st.scratch + sc.part_ctx, counts_of(st, sc), st.ctx_out, st.T, st.D, st.A, st.C,
+                st.K);
+}
+
+// out = x w^T over N rows of x [N, K], w [M, K]; kProj: relu(x w^T + b).
+template <bool kProj>
+cudaError_t rows_times(const Chain& ch, const float* x, const float* w, const float* b,
+                       float* out, int N, int K, int M) {
+  const size_t q_smem = sizeof(float) * kQueryRows * K;
+  const cudaError_t err = allow_smem<las_query<kProj>>(q_smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((M + kWarps - 1) / kWarps, (N + kQueryRows - 1) / kQueryRows);
+  const bool vec = K % 4 == 0 && aligned16({x, w});
+  return ch.run(las_query<kProj>, grid, kThreads, q_smem, x, w, b, out, N, K, M, vec);
+}
+
+// q = hd W_q^T, or with the projection p = relu(hd W_p^T + b_p), q = p W_q^T.
 cudaError_t query(const Chain& ch, const Step& st) {
   const float* hd = st.scratch + carve(st.N, st.T, st.H, st.D, st.A).hd;
-  const size_t q_smem = sizeof(float) * kQueryRows * st.H;
-  const cudaError_t err = allow_smem<las_query>(q_smem);
+  if (st.P <= 0) return rows_times<false>(ch, hd, st.w_q, nullptr, st.q, st.N, st.H, st.A);
+  const cudaError_t err = rows_times<true>(ch, hd, st.w_p, st.b_p, st.p_out, st.N, st.H, st.P);
   if (err != cudaSuccess) return err;
-  const dim3 grid((st.A + kWarps - 1) / kWarps, (st.N + kQueryRows - 1) / kQueryRows);
-  const bool vec = st.H % 4 == 0 && aligned16({hd, st.w_q});
-  return ch.run(las_query, grid, kThreads, q_smem, hd, st.w_q, st.q, st.N, st.H, st.A, vec);
+  return rows_times<false>(ch, st.p_out, st.w_q, nullptr, st.q, st.N, st.P, st.A);
 }
 
 // A step of the teacher-forced scan (K3): five kernels as programmatic
@@ -991,13 +1093,9 @@ cudaError_t decode_step(const Step& st, int* launched, cudaStream_t s) {
   const int n_tb = (st.T + kFrames - 1) / kFrames;
   const size_t a_floats = attend_smem_floats(st.D, st.A, st.C, st.K);
   if ((size_t)n_tb > a_floats) return attend_in_two(ch, st);
-  const Scratch sc = carve(st.N, st.T, st.H, st.D, st.A);
   const size_t a_smem = sizeof(float) * a_floats;
-  if ((err = allow_smem<las_attend>(a_smem)) != cudaSuccess) return err;
-  return ch.run(las_attend, dim3(n_tb, st.N), kThreads, a_smem, st.q, st.aw_prev, st.parent,
-                st.conv_w, st.w_f, st.v, st.kc, st.values, st.klens, st.aw_out,
-                st.scratch + sc.part_ms, st.scratch + sc.part_ctx, counts_of(st, sc), st.ctx_out,
-                st.T, st.D, st.A, st.C, st.K);
+  return st.drop == kDropCarry ? attend_in_one<true>(ch, st, a_smem)
+                               : attend_in_one<false>(ch, st, a_smem);
 }
 
 bool bad_sizes(int N, int T, int H, int D, int A, int C, int K) {
@@ -1037,18 +1135,27 @@ struct NspLasStepPlan {
   void* aw[2];
   void* ctx[2];
   int N, T, H, D, A, C, K;
+  // the decoder's projection (P 0: none): w_p [P, H], b_p [P], and the
+  // buffer p [N, P] each step overwrites
+  const void *w_p, *b_p;
+  void* p;
+  int P;
 };
 
 // One decode step from the plan: reads the carry of set `from` (0 or 1;
 // row n reads row parent[n] when use_parent is not 0) and writes set
 // 1 - from, so a step never writes what it reads. keep [N, H] (may be
 // null: no dropout) is the dropout scale of the step's output: the query
-// reads h keep, the carry keeps h. *launched (host memory, may be null)
-// receives the number of kernels launched. Returns a cudaError_t.
+// reads h keep, the carry keeps h. att_keep [N, T] (may be null: no
+// attention dropout) is the dropout scale of the step's attention
+// weights: the context and the carried weights are aw att_keep.
+// *launched (host memory, may be null) receives the number of kernels
+// launched. Returns a cudaError_t.
 extern "C" int nsp_las_step_plan_f32(const NspLasStepPlan* p, int from, int use_parent,
-                                     const void* keep, void* launched, void* stream) {
+                                     const void* keep, const void* att_keep, void* launched,
+                                     void* stream) {
   if (p == nullptr || (from != 0 && from != 1) ||
-      bad_sizes(p->N, p->T, p->H, p->D, p->A, p->C, p->K))
+      bad_sizes(p->N, p->T, p->H, p->D, p->A, p->C, p->K) || p->P < 0)
     return (int)cudaErrorInvalidValue;
   const int to = 1 - from;
   const Step st{F(p->eg), F(p->ctx[from]), F(p->h[from]), F(p->c[from]), F(p->aw[from]),
@@ -1057,7 +1164,9 @@ extern "C" int nsp_las_step_plan_f32(const NspLasStepPlan* p, int from, int use_
                 use_parent ? static_cast<const int*>(p->parent) : nullptr, F(keep),
                 W(p->scratch), W(p->scratch) + carve(p->N, p->T, p->H, p->D, p->A).q,
                 W(p->h[to]), W(p->c[to]), nullptr, W(p->aw[to]), W(p->ctx[to]),
-                p->N, p->T, p->H, p->D, p->A, p->C, p->K, true};
+                p->N, p->T, p->H, p->D, p->A, p->C, p->K, true,
+                att_keep != nullptr ? kDropCarry : kNoDrop, F(att_keep), nullptr, F(p->w_p),
+                F(p->b_p), W(p->p), p->P};
   int count = 0;
   const cudaError_t err = decode_step(st, &count, static_cast<cudaStream_t>(stream));
   if (launched != nullptr) *static_cast<int*>(launched) = count;
@@ -1072,7 +1181,10 @@ extern "C" int nsp_las_step_plan_f32(const NspLasStepPlan* p, int from, int use_
 //   klens [N] int32; parent [N] int32 or null: row n reads row parent[n]
 //   of ctx_prev, h_prev, c_prev and aw_prev; keep [N, H] or null: the
 //   dropout scale of the step's output (the query reads h keep, h_out is
-//   h);
+//   h); att_keep [N, T] or null: the dropout scale of the step's attention
+//   weights (ctx_out and aw_out are formed from aw att_keep); the
+//   projection P > 0 (P = 0: none): w_p [P, H], b_p [P], p_out [N, P]
+//   (p = relu(hd w_p^T + b_p); w_q is then [A, P]);
 //   scratch [nsp_las_step_scratch_floats(N, T, H, D, A)].
 //   Outputs h_out [N, H], c_out [N, H], aw_out [N, T], ctx_out [N, D],
 //   none of which may be one of the inputs. *launched (host memory, may be
@@ -1082,16 +1194,19 @@ extern "C" int nsp_las_step_f32(const void* eg, const void* ctx_prev, const void
                                 const void* w_h, const void* bias, const void* w_q,
                                 const void* conv_w, const void* w_f, const void* v,
                                 const void* kc, const void* values, const void* klens,
-                                const void* parent, const void* keep, void* scratch,
+                                const void* parent, const void* keep, const void* att_keep,
+                                const void* w_p, const void* b_p, void* p_out, void* scratch,
                                 void* h_out, void* c_out,
                                 void* aw_out, void* ctx_out, void* launched, int N, int T, int H,
-                                int D, int A, int C, int K, void* stream) {
-  if (bad_sizes(N, T, H, D, A, C, K)) return (int)cudaErrorInvalidValue;
+                                int D, int A, int C, int K, int P, void* stream) {
+  if (bad_sizes(N, T, H, D, A, C, K) || P < 0) return (int)cudaErrorInvalidValue;
   const Step st{F(eg), F(ctx_prev), F(h_prev), F(c_prev), F(aw_prev), F(w_ctx), F(w_h), F(bias),
                 F(w_q), F(conv_w), F(w_f), F(v), F(kc), F(values),
                 static_cast<const int*>(klens), static_cast<const int*>(parent), F(keep),
                 W(scratch), W(scratch) + carve(N, T, H, D, A).q, W(h_out), W(c_out), nullptr,
-                W(aw_out), W(ctx_out), N, T, H, D, A, C, K, true};
+                W(aw_out), W(ctx_out), N, T, H, D, A, C, K, true,
+                att_keep != nullptr ? kDropCarry : kNoDrop, F(att_keep), nullptr, F(w_p), F(b_p),
+                W(p_out), P};
   int count = 0;
   const cudaError_t err = decode_step(st, &count, static_cast<cudaStream_t>(stream));
   if (launched != nullptr) *static_cast<int*>(launched) = count;
@@ -1100,7 +1215,14 @@ extern "C" int nsp_las_step_f32(const void* eg, const void* ctx_prev, const void
 
 // K3: U teacher-forced steps over N rows, time-major. Shapes as above,
 // plus eg [U, N, 4H], keep [U, N, H] (the dropout scale of each step's
-// output, 1 without dropout), the step-0 carry h0, c0 [N, H], aw0 [N, T],
+// output, 1 without dropout), att_keep [U, N, T] or null (the dropout
+// scale of each step's attention weights: the context is formed from aw
+// att_keep and the next step's location conv reads aw att_keep; aw_all
+// keeps the raw weights, which the backward needs) and with it aw0_keep
+// [N, T] (the scale step 0's location conv reads aw0 with: ones for a
+// carry that starts undropped), the projection (P > 0;
+// 0: none) w_p [P, H], b_p [P] and its output p_all [U, N, P] (w_q is then
+// [A, P]), the step-0 carry h0, c0 [N, H], aw0 [N, T],
 // ctx0 [N, D] (zeros in training), and the outputs h_all, c_all [U, N, H],
 // gates [U, N, 4H] (activations i, f, g, o), q_all [U, N, A], aw_all
 // [U, N, T], ctx_all [U, N, D]. *launched (host memory) receives the
@@ -1109,15 +1231,19 @@ extern "C" int nsp_las_scan_f32(const void* eg, const void* w_ctx, const void* w
                                 const void* bias, const void* w_q, const void* conv_w,
                                 const void* w_f, const void* v, const void* kc,
                                 const void* values, const void* klens, const void* keep,
-                                const void* h0, const void* c0, const void* aw0,
-                                const void* ctx0, void* scratch, void* h_all, void* c_all,
-                                void* gates, void* q_all, void* aw_all, void* ctx_all,
-                                void* launched, int U, int N, int T, int H, int D, int A, int C,
-                                int K, void* stream) {
+                                const void* att_keep, const void* aw0_keep, const void* w_p,
+                                const void* b_p, void* p_all, const void* h0, const void* c0,
+                                const void* aw0, const void* ctx0, void* scratch, void* h_all,
+                                void* c_all, void* gates, void* q_all, void* aw_all,
+                                void* ctx_all, void* launched, int U, int N, int T, int H, int D, int A, int C,
+                                int K, int P, void* stream) {
   int* count = static_cast<int*>(launched);
   *count = 0;
-  if (U <= 0 || bad_sizes(N, T, H, D, A, C, K)) return (int)cudaErrorInvalidValue;
+  if (U <= 0 || P < 0 || bad_sizes(N, T, H, D, A, C, K) ||
+      (att_keep != nullptr && aw0_keep == nullptr))
+    return (int)cudaErrorInvalidValue;
   const size_t nh = (size_t)N * H;
+  const Drop drop = att_keep != nullptr ? kDropOnRead : kNoDrop;
   for (int t = 0; t < U; ++t) {
     const bool first = t == 0;
     const size_t prev = (size_t)(t - 1);
@@ -1131,7 +1257,10 @@ extern "C" int nsp_las_scan_f32(const void* eg, const void* w_ctx, const void* w
                   W(q_all) + (size_t)t * N * A, W(h_all) + (size_t)t * nh,
                   W(c_all) + (size_t)t * nh, W(gates) + (size_t)t * nh * 4,
                   W(aw_all) + (size_t)t * N * T, W(ctx_all) + (size_t)t * N * D,
-                  N, T, H, D, A, C, K, false};
+                  N, T, H, D, A, C, K, false, drop,
+                  att_keep != nullptr ? F(att_keep) + (size_t)t * N * T : nullptr,
+                  first ? F(aw0_keep) : att_keep != nullptr ? F(att_keep) + prev * N * T : nullptr,
+                  F(w_p), F(b_p), P > 0 ? W(p_all) + (size_t)t * N * P : nullptr, P};
     const cudaError_t err = scan_step(st, count, static_cast<cudaStream_t>(stream));
     if (err != cudaSuccess) return (int)err;
   }

@@ -63,11 +63,19 @@ undropped P. With M the mask scaled by 1 / (1 - rate), the backward is
 dP = (dO v^T) M, dv = (P M)^T dO and ds = P (dP - D), D = rowsum(dO o)
 unchanged. The float32 entries take dropout; the bf16 entries raise for
 it.
+
+Head widths: the kernels are instantiated at dk 16, 32 and 64. A narrower
+head (the ``ci_test`` conformer's d_model 8 over 4 heads: dk 2) is
+zero-padded to 16 along the head width before the launch and its
+outputs and gradients sliced back: a zero column adds 0 to every q k^T
+and gives a zero column of o, dq, dk and dv, so the kernel computes the
+same function. Other widths raise.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..dropout import fast_uniform
 from ..masks import apply_mask_logits, window_mask
@@ -320,6 +328,15 @@ def _no_bf16_dropout(entry: str, dropout) -> None:
             "attention probabilities (float32 only), see ROADMAP")
 
 
+# head widths below this are zero-padded to it before a launch
+PAD_DK = 16
+
+
+def _pad_heads(x):
+    """x [.., dk] zero-padded to [.., PAD_DK]."""
+    return F.pad(x, (0, PAD_DK - x.shape[-1])).contiguous()
+
+
 def rel_attention_fwd(q, k, v, p, klens, window=None, key_start=0,
                       dropout=None):
     """(o, m, l): the output (q's type) and the float32 row statistics (see
@@ -330,11 +347,19 @@ def rel_attention_fwd(q, k, v, p, klens, window=None, key_start=0,
     ``rel_attention.launches`` (float32) or ``.launches_bf16``, and a
     launch with a window also to ``rel_attention.launches_window``, one
     with dropout to ``.launches_dropout`` (its own instantiation) and one
-    with fewer queries than keys and no dropout to ``.launches_offset``."""
+    with fewer queries than keys and no dropout to ``.launches_offset``.
+    A head width below 16 is padded to 16 (the module docstring) and
+    counted in ``.launches_padded`` too."""
     if on_cpu(q, k, v, p, klens):
         return (rel_attention_ref(q, k, v, p, klens, window, key_start,
                                   dropout),
                 *rel_attention_stats_ref(q, k, p, klens, window, key_start))
+    dk = q.shape[-1]
+    if dk < PAD_DK:
+        o, m, l = rel_attention_fwd(*map(_pad_heads, (q, k, v)), p, klens,
+                                    window, key_start, dropout)
+        rel_attention.launches_padded += 1
+        return o[..., :dk].contiguous(), m, l
     entry = _check(q, k, v, p, klens)
     _no_bf16_dropout(entry, dropout)
     _check_aligned(q, k, v)
@@ -374,10 +399,18 @@ def rel_attention_bwd(q, k, v, p, klens, o, m, l, do, window=None,
     one to ``rel_attention_bwd.launches`` (float32) or ``.launches_bf16``,
     one with a window also to ``.launches_window``, one with dropout to
     ``.launches_dropout`` and one with fewer queries than keys and no
-    dropout to ``.launches_offset``."""
+    dropout to ``.launches_offset``; a head width below 16 is padded, as
+    the forward's, and counted in ``.launches_padded`` too."""
     if on_cpu(q, k, v, p, klens, o, m, l, do):
         return rel_attention_bwd_ref(q, k, v, p, klens, o, m, l, do, window,
                                      dropout)
+    dk = q.shape[-1]
+    if dk < PAD_DK:
+        q, k, v, o, do = map(_pad_heads, (q, k, v, o, do))
+        grads = rel_attention_bwd(q, k, v, p, klens, o, m, l, do, window,
+                                  dropout)
+        rel_attention_bwd.launches_padded += 1
+        return (*(g[..., :dk].contiguous() for g in grads[:3]), grads[3])
     entry = _check(q, k, v, p, klens)
     _no_bf16_dropout(entry, dropout)
     b, h, tq, dk = q.shape
@@ -472,7 +505,7 @@ def rel_attention(q, k, v, p, klens, window=None, key_start=0,
 SMEM_R = 16
 rel_attention.launches = rel_attention.launches_bf16 = 0
 rel_attention.launches_window = rel_attention.launches_offset = 0
-rel_attention.launches_dropout = 0
+rel_attention.launches_dropout = rel_attention.launches_padded = 0
 rel_attention_bwd.launches = rel_attention_bwd.launches_bf16 = 0
 rel_attention_bwd.launches_window = rel_attention_bwd.launches_offset = 0
-rel_attention_bwd.launches_dropout = 0
+rel_attention_bwd.launches_dropout = rel_attention_bwd.launches_padded = 0

@@ -29,7 +29,15 @@ Layout rules (flax -> torch):
     ``pred_rnns_1`` / ``pred_projs_1`` -> ``pred_rnns.1`` /
     ``pred_projs.1`` (its ``w_pred`` has no bias), and nested ones
     ``tails_1_0`` -> ``tails.1.0``;
-  * a ``LinearGLUBlock``'s ``glu/Dense_0`` -> ``glu.fc``;
+  * a ``LinearGLUBlock``'s ``glu/Dense_0`` (the gated-conv encoder's
+    ``fc_glu/Dense_0``) -> ``glu.fc``;
+  * the gated-conv encoder's blocks ``glu0`` (flax's ``Conv_0`` and, with
+    a bottleneck, ``Dense_0`` / ``Dense_1``) -> ``glu0.conv`` / ``.bn_in``
+    / ``.bn_out``, its ``resize0`` Dense as it is; the TDS encoder's
+    ``subsample0`` / ``tds0`` blocks: their ``conv`` (a (k, 1) Conv, HWIO
+    -> OIHW), the LayerNorms over frequency and channels
+    (``norm``, ``norm1``, ``norm2``: a scale and bias per channel) and the
+    ``fc1`` / ``fc2`` Dense by the rules above;
   * the language models: a TransformerLM's and a Transformer-XL's blocks
     ``blocks_3`` (``self_attn``, ``ff``, the norms) as above, the XL's
     attention ``u_bias`` / ``v_bias`` [H, d_k] as they are and its
@@ -74,6 +82,9 @@ import torch
 IGNORED = (re.compile(r"^dec_fwd/step/attn/w_key/"),)
 
 _LSTM_GATES = "ifgo"
+# a ConvGLUBlock's submodules as flax names them (its bottleneck Dense
+# layers exist only with a bottleneck, Dense_0 then the way in)
+_CONV_GLU = {"Conv_0": "conv", "Dense_0": "bn_in", "Dense_1": "bn_out"}
 
 
 def _flatten(tree: dict, prefix: str = "") -> dict[str, np.ndarray]:
@@ -100,8 +111,12 @@ def _torch_name(path: str) -> str:
             # projections
             m = re.fullmatch(r"([a-z]+)(\d+)", p)
             parts += [m.group(1) + "s", m.group(2)]
-        elif p == "Dense_0" and parts and parts[-1] == "glu":
+        elif p == "Dense_0" and parts and parts[-1] in ("glu", "fc_glu"):
             parts.append("fc")
+        elif parts and re.fullmatch(r"glu\d+", parts[-1]) and \
+                p in _CONV_GLU:
+            # a gated-conv encoder's block: flax's automatic names
+            parts.append(_CONV_GLU[p])
         else:
             parts.append(p)
     return ".".join(parts)

@@ -131,6 +131,23 @@ def test_las_costs(klens, step, scan, scan_bwd):
     assert las_scan_bwd_cost(3, 2, *LAS, klens) == scan_bwd
 
 
+def test_las_costs_with_the_projection():
+    """The decoder's projection of width P 3 replaces the query's W_q [A,
+    H] (8 floats) by W_p [P, H], b_p [P] and W_q [A, P] (12 + 3 + 6 = 21:
+    13 more, read once and, in K3b, written once as gradients); K2 / K3
+    write p [N, P] per step, K3b reads p and its gradient per step."""
+    klens, extra = [5, 2], 21 - 8
+    f, b = las_step_cost(2, *LAS, klens)
+    assert las_step_cost(2, *LAS, klens, n_p=3) == \
+        (f + 2 * 2 * extra, b + 4 * (extra + 2 * 3))
+    f, b = las_scan_cost(3, 2, *LAS, klens)
+    assert las_scan_cost(3, 2, *LAS, klens, n_p=3) == \
+        (f + 3 * 2 * 2 * extra, b + 4 * (extra + 3 * 2 * 3))
+    f, b = las_scan_bwd_cost(3, 2, *LAS, klens)
+    assert las_scan_bwd_cost(3, 2, *LAS, klens, n_p=3) == \
+        (f + 2 * 3 * 2 * 2 * extra, b + 4 * (2 * extra + 3 * 2 * 2 * 3))
+
+
 # b 2, t 6, u 3, v 7
 @pytest.mark.parametrize("tl,ul,fwd,bwd", [
     # states x frames 6x7 + 4x3 = 54; emission columns 6x4 + 4x2 = 32

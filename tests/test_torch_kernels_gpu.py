@@ -1179,3 +1179,224 @@ def test_rnnt_loss_refuses_bad_arguments(cuda):
         rnnt_loss_fwd(torch.zeros(1, 2, 1025, device=cuda),
                       torch.zeros(1, 2, 1024, device=cuda), lens[:1],
                       lens[:1])
+
+
+# ------------------------------------------- attention dropout in K2 / K3 / K3b
+def _att_keep(rng, dev, *shape, rate=0.1):
+    """A dropout scale of the attention weights: the keep mask / (1 - rate)."""
+    keep = (rng.rand(*shape) >= rate).astype(np.float32) / (1 - rate)
+    return torch.from_numpy(keep).to(dev)
+
+
+@pytest.mark.parametrize("b,u,t,hd,d,a,ch,k,klens", [
+    (32, 12, 188, 1024, 512, 512, 10, 201, None),   # flagship widths
+    (32, 6, 500, 1024, 1024, 512, 10, 201,          # BLSTM-LAS: D = 1024,
+     [500 - 9 * i for i in range(32)]),             # T up to 500
+    (4, 3, 40, 64, 48, 40, 4, 6, [40, 0, 1, 35]),   # klen 0 and 1
+    (3, 2, 50, 64, 48, 40, 23, 9, [50, 1, 31]),     # three channel groups
+    (33, 2, 49, 30, 22, 18, 3, 5,                   # widths no multiple of 4
+     [49 - i for i in range(32)] + [0]),
+    (3, 3, 300, 64, 48, 40, 4, 251, [300, 150, 7]),  # a window past a block's
+])                                                  # threads (K > 241)
+def test_las_scan_kernels_with_attention_dropout(cuda, b, u, t, hd, d, a, ch,
+                                                 k, klens):
+    """K3 / K3b with the attention weights' dropout scale ``att_keep``
+    [U, B, T] (the context and the next step's location conv read aw
+    att_keep, K3 keeps the raw aw) against the plain versions; all-ones
+    att_keep gives the bits of none."""
+    from neural_sp_tpu_torch.ops.kernels.las_scan import (
+        las_scan, las_scan_bwd, las_scan_bwd_ref, las_scan_ref)
+    rng = np.random.RandomState(u + t)
+    if klens is None:
+        klens = [t - 3 * i for i in range(b)]
+    args = _las_args(rng, cuda, b, u, t, hd, d, a, ch, k, klens)
+    att = _att_keep(rng, cuda, u, b, t)
+    before = (las_scan.launches_dropout, las_scan_bwd.launches_dropout)
+    outs = las_scan(*args, att)
+    refs = las_scan_ref(*args, att)
+    for name, x, y in zip(("h", "c", "gates", "q", "aw", "ctx"), outs, refs):
+        _close(x, y, name)
+    dh, dctx = _randn(rng, cuda, u, b, hd), _randn(rng, cuda, u, b, d)
+    w_ctx, w_h, _, w_q, conv_w, w_f, v, kc, values, kl, keep = args[1:]
+    saved = (w_ctx, w_h, w_q, conv_w, w_f, v, kc, values, kl, keep, *refs)
+    got = las_scan_bwd(*saved, dh, dctx, att)
+    torch.cuda.synchronize()
+    assert (las_scan.launches_dropout, las_scan_bwd.launches_dropout) == \
+        (before[0] + 1, before[1] + 1)
+    want = las_scan_bwd_ref(*saved, dh, dctx, att)
+    names = ("d_eg", "dW_ctx", "dW_h", "db", "dW_q", "dconv", "dW_f", "dv",
+             "dkc", "dvalues")
+    for name, x, y in zip(names, got, want):
+        _close(x, y, name)
+    ones = torch.ones_like(att)
+    for x, y in zip(las_scan(*args, ones), las_scan(*args)):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("n,t,d", [(32, 188, 512), (10, 200, 512),
+                                   (17, 57, 512), (32, 500, 1024)])
+def test_las_step_attention_dropout(cuda, n, t, d):
+    """K2 with ``att_keep`` [N, T] (scheduled sampling's pass 1 with
+    dropout_att): the context and the carried weights are aw att_keep; the
+    checked call and the workspace against ``las_step_ref`` over three
+    threaded steps, with the LSTM output's ``keep`` too; all-ones att_keep
+    gives the bits of none."""
+    from neural_sp_tpu_torch.ops.kernels.las_step import LasStepWorkspace
+    rng = np.random.RandomState(n + t + 1)
+    hd, a, ch, k = 1024, 512, 10, 201
+    klens = [max(t - 5 * i, 1) for i in range(n)]
+    klens[-1] = 0
+    state, fixed = _step_inputs(rng, cuda, n, t, hd, d, a, ch, k, klens)
+    ws = LasStepWorkspace(*fixed)
+    ctx, h, c, aw = (torch.zeros_like(x) for x in state[1:])
+    before = las_step.launches_dropout
+    for step in range(3):
+        eg = _randn(rng, cuda, n, 4 * hd, scale=0.5)
+        keep = _att_keep(rng, cuda, n, hd)
+        att = _att_keep(rng, cuda, n, t)
+        checked = las_step(eg, ctx, h, c, aw, *fixed, keep=keep, att_keep=att)
+        ws.eg.copy_(eg)
+        ws.load_carry(ctx, h, c, aw)
+        got = ws.step(keep=keep, att_keep=att)
+        want = las_step_ref(eg, ctx, h, c, aw, *fixed, keep=keep,
+                            att_keep=att)
+        for name, x, y, z in zip(("h", "c", "aw", "ctx"), got, checked,
+                                 want):
+            torch.testing.assert_close(x, z, atol=TOL, rtol=TOL,
+                                       msg=f"step {step}: {name}")
+            assert torch.equal(x, y), f"step {step}: {name}, the two forms"
+        h, c, aw, ctx = want
+    assert las_step.launches_dropout == before + 6
+    ones = torch.ones_like(aw)
+    for x, y in zip(las_step(eg, ctx, h, c, aw, *fixed, att_keep=ones),
+                    las_step(eg, ctx, h, c, aw, *fixed)):
+        assert torch.equal(x, y)
+    with pytest.raises(ValueError):
+        las_step(eg, ctx, h, c, aw, *fixed, att_keep=ones[:, :-1])
+
+
+# ------------------------------------------------- K1 / K1b at head widths < 16
+@pytest.mark.parametrize("dk", [2, 4, 8])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_rel_attention_narrow_heads(cuda, dk, rate):
+    """A head width below 16 (the ci_test conformer's dk 2) is padded to 16
+    for K1 / K1b and sliced back: forward, row statistics and the four
+    gradients against the plain versions at that width, with and without
+    dropout, ragged lengths with a klen 0 row."""
+    from neural_sp_tpu_torch.ops.kernels.rel_attention import (
+        rel_attention_bwd, rel_attention_bwd_ref, rel_attention_fwd,
+        rel_attention_stats_ref)
+    rng = np.random.RandomState(dk)
+    b, h, t, r = 3, 4, 70, 11
+    q = _randn(rng, cuda, b, h, t, dk, scale=dk ** -0.5)
+    k, v, do = (_randn(rng, cuda, b, h, t, dk) for _ in range(3))
+    p = _randn(rng, cuda, b, h, t, r, scale=dk ** -0.5)
+    kl = torch.tensor([70, 33, 0], dtype=torch.int32, device=cuda)
+    drop = (rate, (0x9E3779B9 + dk, 777)) if rate else None
+    before = (rel_attention.launches_padded,)
+    o, m, l = rel_attention_fwd(q, k, v, p, kl, dropout=drop)
+    assert o.shape == q.shape
+    _close(o, rel_attention_ref(q, k, v, p, kl, dropout=drop), "o")
+    m_ref, l_ref = rel_attention_stats_ref(q, k, p, kl)
+    _close(m, m_ref, "m")
+    _close(l, l_ref, "l")
+    got = rel_attention_bwd(q, k, v, p, kl, o, m, l, do, dropout=drop)
+    torch.cuda.synchronize()
+    assert rel_attention.launches_padded == before[0] + 1
+    want = rel_attention_bwd_ref(q, k, v, p, kl, o, m, l, do, dropout=drop)
+    for name, x, y in zip(("dq", "dk", "dv", "dp"), got, want):
+        assert x.shape == y.shape, name
+        _close(x, y, name)
+
+
+# ---------------------------------------- the LAS decoder's projection (K2/K3/K3b)
+def _proj_args(rng, dev, hd, n_p):
+    return (_randn(rng, dev, n_p, hd, scale=hd ** -0.5),
+            _randn(rng, dev, n_p, scale=0.3))
+
+
+@pytest.mark.parametrize("b,u,t,hd,d,a,ch,k,n_p,klens,att", [
+    (32, 12, 188, 1024, 512, 512, 10, 201, 512, None, True),  # wide
+    (1, 9, 61, 16, 8, 16, 10, 201, 8, [61], True),    # the ci_test confs'
+    (4, 5, 40, 16, 8, 16, 10, 201, 8, [40, 0, 1, 33], False),  # widths
+    (5, 3, 37, 64, 48, 40, 4, 6, 30, [37, 30, 12, 1, 20], True),  # P % 4
+])
+def test_las_scan_kernels_with_projection(cuda, b, u, t, hd, d, a, ch, k,
+                                          n_p, klens, att):
+    """K3 / K3b with the decoder's projection (p = relu(h keep W_p^T +
+    b_p), the query p W_q^T; K3 returns p, K3b takes its gradient) against
+    the plain versions, with and without attention dropout."""
+    from neural_sp_tpu_torch.ops.kernels.las_scan import (
+        las_scan, las_scan_bwd, las_scan_bwd_ref, las_scan_ref)
+    rng = np.random.RandomState(u + n_p)
+    if klens is None:
+        klens = [t - 3 * i for i in range(b)]
+    args = list(_las_args(rng, cuda, b, u, t, hd, d, a, ch, k, klens))
+    args[4] = _randn(rng, cuda, a, n_p, scale=n_p ** -0.5)       # w_q [A, P]
+    proj = _proj_args(rng, cuda, hd, n_p)
+    am = _att_keep(rng, cuda, u, b, t) if att else None
+    outs = las_scan(*args, am, proj)
+    refs = las_scan_ref(*args, am, proj)
+    assert len(outs) == 7
+    for name, x, y in zip(("h", "c", "gates", "q", "aw", "ctx", "p"), outs,
+                          refs):
+        _close(x, y, name)
+    # per step: gates, cell, projection, query, attention, its combine
+    assert las_scan.kernel_launches_per_call == 6 * u
+    dh, dctx = _randn(rng, cuda, u, b, hd), _randn(rng, cuda, u, b, d)
+    dp = _randn(rng, cuda, u, b, n_p)
+    w_ctx, w_h, _, w_q, conv_w, w_f, v, kc, values, kl, keep = args[1:]
+    saved = (w_ctx, w_h, w_q, conv_w, w_f, v, kc, values, kl, keep,
+             *refs[:6])
+    got = las_scan_bwd(*saved, dh, dctx, am, proj[0], refs[6], dp)
+    torch.cuda.synchronize()
+    assert las_scan_bwd.kernel_launches_per_call == 5 * u - 1
+    want = las_scan_bwd_ref(*saved, dh, dctx, am, proj[0], refs[6], dp)
+    names = ("d_eg", "dW_ctx", "dW_h", "db", "dW_q", "dconv", "dW_f", "dv",
+             "dkc", "dvalues", "dW_p", "db_p")
+    assert len(got) == len(want) == 12
+    for name, x, y in zip(names, got, want):
+        _close(x, y, name)
+
+
+@pytest.mark.parametrize("n,t,hd,d,a,n_p", [(10, 200, 1024, 512, 512, 512),
+                                            (32, 61, 16, 8, 16, 8),
+                                            (1, 61, 16, 8, 16, 8)])
+def test_las_step_with_projection(cuda, n, t, hd, d, a, n_p):
+    """K2 with the projection: the checked call's p and the workspace's
+    ``p`` against ``las_step_ref`` over three threaded steps, with the
+    LSTM output's keep and the attention dropout (scheduled sampling's
+    pass 1), and without them and with a beam's reorder (serving)."""
+    from neural_sp_tpu_torch.ops.kernels.las_step import LasStepWorkspace
+    rng = np.random.RandomState(n + t + n_p)
+    ch, k = 10, 201
+    klens = [max(t - 5 * i, 1) for i in range(n)]
+    state, fixed = _step_inputs(rng, cuda, n, t, hd, d, a, ch, k, klens)
+    fixed = list(fixed)
+    fixed[3] = _randn(rng, cuda, a, n_p, scale=n_p ** -0.5)      # w_q [A, P]
+    proj = _proj_args(rng, cuda, hd, n_p)
+    ws = LasStepWorkspace(*fixed, proj=proj)
+    ctx, h, c, aw = (torch.zeros_like(x) for x in state[1:])
+    parent = torch.tensor(_parents(n)["permutation"], dtype=torch.int32,
+                          device=cuda)
+    for step in range(4):
+        eg = _randn(rng, cuda, n, 4 * hd, scale=0.5)
+        drop = step < 2
+        kw = dict(keep=_att_keep(rng, cuda, n, hd),
+                  att_keep=_att_keep(rng, cuda, n, t)) if drop else \
+            dict(parent=parent)
+        checked = las_step(eg, ctx, h, c, aw, *fixed, proj=proj, **kw)
+        ws.eg.copy_(eg)
+        ws.load_carry(ctx, h, c, aw)
+        if drop:
+            got = (*ws.step(**kw), ws.p)
+        else:
+            ws.parent.copy_(parent)
+            got = (*ws.step(use_parent=True), ws.p)
+        want = las_step_ref(eg, ctx, h, c, aw, *fixed, proj=proj, **kw)
+        for name, x, y, z in zip(("h", "c", "aw", "ctx", "p"), got, checked,
+                                 want):
+            torch.testing.assert_close(x, z, atol=TOL, rtol=TOL,
+                                       msg=f"step {step}: {name}")
+            assert torch.equal(x, y), f"step {step}: {name}, the two forms"
+        h, c, aw, ctx = want[:4]

@@ -65,10 +65,12 @@ SWBD_3MTL = "swbd/conf/asr/blstm_las_3mtl.yaml"
 MTL_CONFS = {
     AISHELL: 51104170, "csj/conf/asr/las/blstm_las_2mtl.yaml": 54682106,
     "swbd/conf/asr/blstm_las_2mtl.yaml": 58880506, SWBD_3MTL: 68208906,
-    "tedlium/conf/asr/las/blstm_las_2mtl.yaml": 57003930}
-RAISING = ("ci_test/conf/asr/blstm_las_2mtl.yaml",
-           "ci_test/conf/asr/blstm_las_2mtl_per_batch.yaml",
-           "ci_test/conf/asr/transformer_2mtl.yaml")
+    "tedlium/conf/asr/las/blstm_las_2mtl.yaml": 57003930,
+    # the ci_test ones, since their attention dropout and the LAS
+    # decoder's projections are ported
+    "ci_test/conf/asr/blstm_las_2mtl.yaml": 1050652,
+    "ci_test/conf/asr/blstm_las_2mtl_per_batch.yaml": 1050652,
+    "ci_test/conf/asr/transformer_2mtl.yaml": 560648}
 
 
 def _tree(params):
@@ -425,20 +427,16 @@ def test_c38_sub_ctc_reads_no_fc_list_or_label_smoothing():
     assert tm.ctc_sub1.output.out_features == 30
 
 
-@pytest.mark.parametrize("conf", list(MTL_CONFS) + list(RAISING))
+@pytest.mark.parametrize("conf", list(MTL_CONFS))
 def test_mtl_recipe_conf_builds(conf):
-    """The five recipe MTL confs build at JAX's parameter counts (vocab
-    10,000 for every task: JAX's default ``vocab_sub*``; MTL_CONFS holds
-    them as ``_jax_count`` gives them, which this test runs for the
-    AISHELL conf), the sub heads each conf asks for; the ``ci_test`` ones
-    raise on ``dropout_att``, their next unported option (ROADMAP)."""
+    """The five recipe MTL confs and the three ``ci_test`` ones build at
+    JAX's parameter counts (vocab 10,000 for every task: JAX's default
+    ``vocab_sub*``; MTL_CONFS holds them as ``_jax_count`` gives them,
+    which this test runs for the AISHELL conf), with the sub heads each
+    conf asks for (the ``ci_test`` ones raised until their attention
+    dropout and LAS projections were ported)."""
     args = parse_args_train(["--config", str(ROOT / "examples" / conf)])
     args.vocab = 10000
-    if conf in RAISING:
-        with pytest.raises(NotImplementedError, match="ROADMAP") as err:
-            build_speech2text(args, device="meta")
-        assert "dropout_att" in str(err.value)
-        return
     model = build_speech2text(args, device="meta")
     n = sum(p.numel() for p in model.parameters())
     assert n == MTL_CONFS[conf]

@@ -276,21 +276,39 @@ def test_weight_decay_update_matches_optax():
 
 
 # options that raised once and are ported now: each case builds
-PORTED = ("sub1_weight", "sub2_weight", "dropout_in")
+PORTED = ("sub1_weight", "sub2_weight", "dropout_in", "dropout_enc_layer",
+          "dropout_att", "dec_n_projs")
 
 
-@pytest.mark.parametrize("name", _NOT_PORTED + PORTED + (
-    "dec_n_projs", "dropout_enc_layer", "dropout_att", "zoneout"))
+@pytest.mark.parametrize("name", _NOT_PORTED + PORTED + ("zoneout",))
 def test_unported_training_options_raise(name):
     if name not in PORTED:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_speech2text(small_args(**{name: 0.1}), device="cpu")
         return
+    if name == "dec_n_projs":
+        # the LAS decoder's projection: the query and the readout read it
+        # (tests/test_torch_attention_dropout.py holds it to JAX)
+        step = build_speech2text(small_args(dec_n_projs=24),
+                                 device="cpu").dec_fwd.step
+        assert step.projs[0].weight.shape == (24, 64)
+        assert step.attn.w_query.in_features == 24
+        assert step.w_gen.in_features == 24 + 64
+        return
     # a sub-task weight without its encoder tap builds the sub head, which
-    # no loss reads (as JAX's); tests/test_torch_mtl.py holds them to JAX
+    # no loss reads (as JAX's); tests/test_torch_mtl.py holds them to JAX;
+    # tests/test_torch_attention_dropout.py and test_torch_encoder_dropout
+    # .py hold the attention dropout and LayerDrop to JAX
     model = build_speech2text(small_args(**{name: 0.1}), device="cpu")
+    blocks = model.encoder.blocks
     if name == "dropout_in":
         assert model.encoder.drop_in.rate == 0.1
+    elif name == "dropout_att":
+        assert [b.mha.dropout for b in blocks] == [0.1, 0.1]
+        assert model.dec_fwd.step.drop_att.rate == 0.1
+    elif name == "dropout_enc_layer":
+        # layer l of L at dropout_enc_layer (l + 1) / L, as JAX's
+        assert [b.dropout_layer for b in blocks] == [0.05, 0.1]
     else:
         assert getattr(model, f"dec_fwd_{name[:4]}") is not None
         assert model.fwd_weight == pytest.approx(0.6)

@@ -119,11 +119,14 @@ MMA_CONFS = (
     "tedlium/conf/asr/mma/offline/"
     "transformer_mma_subsample8_ma4H_ca4H_w16_from4L.yaml")
 # the 10 latency-controlled (streaming) Transformer-MMA confs build too
-# (tests/test_torch_uni_conformer.py holds their counts); the other 6
-# raise, each with the first reason the builders meet: the ci_test confs'
-# attention dropout (A4 item 6; their MTL sub-tasks and input dropout are
-# ported)
-RAISING = {"transformer_2mtl": "dropout_att", "ci_test": "dropout_att"}
+# (tests/test_torch_uni_conformer.py holds their counts); so do the other
+# 6, the ci_test confs, since their attention dropout is ported (their MTL
+# sub-tasks and input dropout were before), at JAX's parameter counts
+# (``jax.eval_shape`` of JAX's model at vocab 10,000)
+CI_COUNTS = {"blstm_transformer": 374104, "conformer": 301328,
+             "lc_transformer_mma_ma4H_ca4H_w16_from4L_64_128_64": 547016,
+             "transformer": 300464, "transformer_2mtl": 560648,
+             "transformer_ctc": 124152}
 
 
 def _tree(params):
@@ -538,11 +541,11 @@ def test_the_other_transformer_confs_raise():
         build_speech2text(_conf_args(conf), device="meta")
     others = [c for c in confs if c not in PLAIN_CONFS + MMA_CONFS + tuple(lc)]
     assert len(others) == 6
+    assert {Path(c).stem for c in others} == set(CI_COUNTS)
     for conf in others:
-        why = next(v for k, v in RAISING.items() if k in conf)
-        with pytest.raises(NotImplementedError, match="ROADMAP") as err:
-            build_speech2text(_conf_args(conf), device="meta")
-        assert why in str(err.value), (conf, str(err.value))
+        model = build_speech2text(_conf_args(conf), device="meta")
+        n = sum(p.numel() for p in model.parameters())
+        assert n == CI_COUNTS[Path(conf).stem], conf
 
 
 @pytest.mark.parametrize("conf, make", [
