@@ -1694,8 +1694,8 @@ class PlainLASScan:
 
         proj = None if w_p is None else (w_p.float(), b_p.float())
         outs = las_scan_ref(
-            tm(eg), *(x.float() for x in (w_ctx, w_h, bias, w_q, conv_w,
-                                          w_f, v, kc, values)),
+            tm(eg), *(None if x is None else x.float() for x in (
+                w_ctx, w_h, bias, w_q, conv_w, w_f, v, kc, values)),
             klens, tm(keep), tm(att_keep), proj)
         return tuple(x.transpose(0, 1).to(eg.dtype)
                      for x in (outs[0], outs[5], outs[4], *outs[6:]))
@@ -2980,11 +2980,12 @@ def phase_mocha_serve(torch, model, xs, xlens) -> dict:
 
 
 def mocha_microstep(torch, model, batch, seed=SEED, compute_dtype=None,
-                    plain=False):
+                    plain=False, **labels):
     """One train() microstep from a generator of seed ``seed`` under
     ``compute_dtype`` (None: the model's own), through the kernels or,
-    with ``plain``, the plain versions patched in: (loss, {leaf: gradient
-    as float64 on the host}, scalar observations)."""
+    with ``plain``, the plain versions patched in, with ``labels`` (the
+    trigger points): (loss, {leaf: gradient as float64 on the host},
+    scalar observations)."""
     from contextlib import ExitStack
     from neural_sp_tpu_torch.parallel.mesh import (compute_loss,
                                                    deterministic_cudnn)
@@ -2996,7 +2997,8 @@ def mocha_microstep(torch, model, batch, seed=SEED, compute_dtype=None,
                 stack.enter_context(mock.patch.object(target, name, value))
         stack.enter_context(deterministic_cudnn())   # as the step runs
         loss, obs = compute_loss(model, compute_dtype, *batch,
-                                 torch.Generator().manual_seed(seed))
+                                 torch.Generator().manual_seed(seed),
+                                 **labels)
         loss.backward()
     grads = {n: p.grad.detach().double().cpu()
              for n, p in model.named_parameters() if p.grad is not None}
@@ -4325,6 +4327,44 @@ def hold_with_control(torch, model, cpu, on_card, on_cpu, tag: str,
     return out
 
 
+def whole_microstep_readings(torch, tag: str, card, cpu32, cpu64) -> dict:
+    """A whole microstep whose float32 MoChA rounds (ROADMAP C29) against
+    the CPU's float64 one, each run as (loss, {leaf: gradient}, obs): the
+    loss's relative error and, per leaf, |g - g64| / |g64| (median and
+    max), of the card's float32 run and of the CPU's (``cpu32``), logged;
+    every gradient finite. Returns the readings."""
+    import numpy as np
+    (loss, grads, obs), (loss32, grads32) = card, cpu32[:2]
+    loss_ref, grads_ref, obs_ref = cpu64
+
+    def dist(g):
+        return {n: float((g[n] - grads_ref[n]).norm() /
+                         max(float(grads_ref[n].norm()), 1e-30))
+                for n in grads_ref if not n.endswith(ZERO_GRAD_LEAF)}
+
+    d_card, d_cpu32 = dist(grads), dist(grads32)
+    loss_err = abs(loss - loss_ref) / abs(loss_ref)
+    whole = {"loss_rel_err": loss_err,
+             "loss_rel_err_cpu_float32": abs(loss32 - loss_ref) /
+             abs(loss_ref), "obs": obs, "obs_float64": obs_ref,
+             "median_leaf_rel_dist": float(np.median(list(d_card.values()))),
+             "median_leaf_rel_dist_cpu_float32": float(np.median(list(
+                 d_cpu32.values()))),
+             "max_leaf_rel_dist": max(d_card.values()),
+             "max_leaf_rel_dist_cpu_float32": max(d_cpu32.values())}
+    log(f"[{tag}] the whole microstep (MoChA decoder on): loss rel "
+        f"{loss_err:.2e} of float64 (CPU float32 "
+        f"{whole['loss_rel_err_cpu_float32']:.2e}); per leaf |g - g64| / "
+        f"|g64|, median {whole['median_leaf_rel_dist']:.3e} / max "
+        f"{whole['max_leaf_rel_dist']:.3e} on the card, "
+        f"{whole['median_leaf_rel_dist_cpu_float32']:.3e} / "
+        f"{whole['max_leaf_rel_dist_cpu_float32']:.3e} for the CPU in "
+        f"float32 (ROADMAP C29)")
+    expect(all(bool(torch.isfinite(g).all()) for gs in (grads, grads32)
+               for g in gs.values()), f"{tag}: a gradient not finite")
+    return whole
+
+
 def uni_hold(torch, model, xs, xlens, make: str, tag: str,
              decoder_apart: bool = False) -> dict:
     """11b / 11d: one train() microstep at B = 4 (phase 3's utterances, U
@@ -4360,34 +4400,12 @@ def uni_hold(torch, model, xs, xlens, make: str, tag: str,
     loss32, grads32, _ = mocha_microstep(torch, cpu, (x, xl, ys, ylens))
     cpu.double()
     loss_ref, grads_ref, obs_ref = mocha_microstep(torch, cpu, on_cpu)
-
-    def dist(g):
-        return {n: float((g[n] - grads_ref[n]).norm() /
-                         max(float(grads_ref[n].norm()), 1e-30))
-                for n in grads_ref if not n.endswith(ZERO_GRAD_LEAF)}
-
-    d_card, d_cpu32 = dist(grads), dist(grads32)
-    loss_err = abs(loss - loss_ref) / abs(loss_ref)
-    whole = {"loss_rel_err": loss_err,
-             "loss_rel_err_cpu_float32": abs(loss32 - loss_ref) /
-             abs(loss_ref), "obs": obs, "obs_float64": obs_ref,
-             "median_leaf_rel_dist": float(np.median(list(d_card.values()))),
-             "median_leaf_rel_dist_cpu_float32": float(np.median(list(
-                 d_cpu32.values()))),
-             "max_leaf_rel_dist": max(d_card.values()),
-             "max_leaf_rel_dist_cpu_float32": max(d_cpu32.values())}
-    log(f"[{tag}] the whole microstep (MoChA decoder on): loss rel "
-        f"{loss_err:.2e} of float64 (CPU float32 "
-        f"{whole['loss_rel_err_cpu_float32']:.2e}); per leaf |g - g64| / "
-        f"|g64|, median {whole['median_leaf_rel_dist']:.3e} / max "
-        f"{whole['max_leaf_rel_dist']:.3e} on the card, "
-        f"{whole['median_leaf_rel_dist_cpu_float32']:.3e} / "
-        f"{whole['max_leaf_rel_dist_cpu_float32']:.3e} for the CPU in "
-        f"float32 (ROADMAP C29)")
-    expect(all(bool(torch.isfinite(g).all()) for gs in (grads, grads32)
-               for g in gs.values()), f"{tag}: a gradient not finite")
-    expect(loss_err <= WHOLE_LOSS_RTOL, f"{tag}: the whole microstep's loss "
-           f"{loss_err:.2e} of float64, past {WHOLE_LOSS_RTOL}")
+    whole = whole_microstep_readings(torch, tag, (loss, grads, obs),
+                                     (loss32, grads32),
+                                     (loss_ref, grads_ref, obs_ref))
+    expect(whole["loss_rel_err"] <= WHOLE_LOSS_RTOL, f"{tag}: the whole "
+           f"microstep's loss {whole['loss_rel_err']:.2e} of float64, past "
+           f"{WHOLE_LOSS_RTOL}")
     expect(whole["median_leaf_rel_dist"] <= WHOLE_GRAD_MULT *
            whole["median_leaf_rel_dist_cpu_float32"],
            f"{tag}: the whole microstep's gradients "
@@ -5864,13 +5882,14 @@ def tap_fits(torch, model, loader, device) -> int:
 def cli_run(torch, root: Path, corpus: dict, conf: str, tag: str,
             flags: tuple, train_kernels: tuple, eval_kernels: tuple = (),
             eval_flags: tuple = (), resume: str = "",
-            dev_finite: bool = False) -> dict:
+            dev_finite: bool = False, evaluate: bool = True) -> dict:
     """``bin.asr.train.main`` on ``conf`` over ``corpus`` (``flags``, into
     ``exp_<tag>``, ``out["exp"]``), counts zeroed around it: each
-    microstep's losses, the step's sub-task each trained (from the CLI's
-    log, with ``mtl_per_batch``) and the dev losses; then (without
-    ``resume``) ``bin.asr.eval.main`` on the test set (``eval_flags``),
-    counts zeroed around it. Every microstep's loss finite (with
+    microstep's losses (random state passing's steps too), the step's
+    sub-task each trained (from the CLI's log, with ``mtl_per_batch``) and
+    the dev losses; then (without ``resume``, with ``evaluate``)
+    ``bin.asr.eval.main`` on the test set (``eval_flags``), counts zeroed
+    around it. Every microstep's loss finite (with
     ``dev_finite`` every dev loss too), ``train_kernels`` /
     ``eval_kernels`` launched, each test utterance decoded."""
     import csv
@@ -5887,13 +5906,13 @@ def cli_run(torch, root: Path, corpus: dict, conf: str, tag: str,
     if resume:
         argv += ["--resume", f"{exp}/{resume}"]
     steps, tasks = [], []
-    orig_call = TrainStep.__call__
+    orig_update = TrainStep.update
 
     def counted(self, *a, **kw):
-        m = orig_call(self, *a, **kw)
+        m, rest = orig_update(self, *a, **kw)
         steps.append({k: float(v) for k, v in m.items()
                       if k.startswith("loss")})
-        return m
+        return m, rest
 
     class Tasks(logging.Handler):
         def emit(self, record):
@@ -5906,7 +5925,7 @@ def cli_run(torch, root: Path, corpus: dict, conf: str, tag: str,
     reset_launches()
     t0 = time.perf_counter()
     try:
-        with mock.patch.object(TrainStep, "__call__", counted):
+        with mock.patch.object(TrainStep, "update", counted):
             cli_train.main(argv)
     finally:
         logging.getLogger(cli_train.__name__).removeHandler(handler)
@@ -5930,7 +5949,7 @@ def cli_run(torch, root: Path, corpus: dict, conf: str, tag: str,
     for k in train_kernels:
         expect(out["train"]["launches"][k] > 0,
                f"{k} never launched in {tag}'s train CLI")
-    if resume:
+    if resume or not evaluate:
         return out
     reset_launches()
     t0 = time.perf_counter()
@@ -6340,6 +6359,517 @@ def add_new_path_rows(entries, srcs, keys, streaming, stream_bf16, mtl):
         expect(entries[-1]["launches"] > 0, f"{name} never launched on "
                f"14's paths")
 
+
+# ------------------------------------------------------------- phase 16
+# trigger points: triggered attention through K2 / K3 / K3b's additive
+# instantiations, MoChA's MinLT and DeCoT latency training from word
+# alignments, random state passing
+TRIG_CONF = "examples/tedlium/conf/asr/blstm_triggered_attention.yaml"
+MINLT_CONF = "examples/librispeech/conf/asr/mocha/lstm_mocha_minlt.yaml"
+DECOT_CONF = "examples/librispeech/conf/asr/mocha/lstm_mocha_decot16.yaml"
+RSP_CONF = "examples/tedlium/conf/asr/mocha/lstm_mocha_rsp_enc.yaml"
+# the triggered conf's parameters at vocab 10,000 (the JAX package's count
+# for the same model built with attn_type "triggered": C44)
+TRIG_PARAMS = 53061056
+# the triggered conf's decoder at its training shape: B 32, U+1 101 steps,
+# T ragged to 400 after the x4 front end, D 512 (the BLSTM's two
+# directions summed), H 1024, A 512; and 2b's (T 188)
+TRIG_SCAN = dict(b=32, u=101, tt=400, d=512)
+TRIG_LOOKAHEAD = 2     # the conf's trigger lookahead (JAX's default)
+TRIG_TRAIN_KERNELS = ("las_step_add", "las_scan_add", "las_scan_window",
+                      "las_scan_bwd_add", "las_scan_bwd_window", "ctc_loss",
+                      "ctc_loss_bwd")
+TRIG_EVAL_KERNELS = ("las_step_add",)
+# 16b's held microstep: phase 3's utterances cut to 400 frames (100 after
+# the x4 front end), these label counts, the last row without alignment
+LATENCY_FRAMES, LATENCY_U = 400, (10, 15, 20, 25)
+
+
+def trigger_lengths(torch, kl, u: int, tt: int):
+    """A window per step as a CTC alignment gives it: step s of row b
+    triggers at frame (s + 1) kl[b] / u (monotone), the window the frames
+    up to that plus TRIG_LOOKAHEAD, as a length: min(kl, trig + 1) [U, B]
+    int32 on the card."""
+    kl_t = torch.tensor(kl, dtype=torch.int32)
+    steps = torch.arange(1, u + 1)[:, None]
+    trig = torch.clamp(steps * kl_t[None] // u + TRIG_LOOKAHEAD, max=tt - 1)
+    return torch.minimum(kl_t[None], trig + 1).to(
+        torch.int32).contiguous().cuda()
+
+
+def additive_scan_case(torch, rng, record, b, u, tt, d, kl, window: bool,
+                       tag="16k"):
+    """K3 and K3b's additive instantiations (conv_w, w_f None) at B rows, U
+    steps, T frames, encoder width d (H 1024, A 512), klens ``kl``, with
+    ``window`` a length per step (``trigger_lengths``), the LSTM output's
+    dropout keep at rate 0.1 and no attention dropout (the triggered
+    conf's dropout_att 0): against their plain versions
+    (TRAIN_KERNEL_TOL), each timed in turns with the location
+    instantiation (C 10, K 201) at the same shapes over all of klens
+    (``location_ms``), with bounds from the cost functions (C = K = 0)."""
+    from neural_sp_tpu_torch.ops.kernels.las_scan import (
+        las_scan, las_scan_bwd, las_scan_bwd_cost, las_scan_bwd_ref,
+        las_scan_cost, las_scan_ref)
+    dev = torch.device("cuda")
+    hd, a, c, kw = 1024, 512, 10, 201
+
+    def t(*shape, scale=1.0):
+        return torch.from_numpy(
+            (rng.standard_normal(shape) * scale).astype("float32")).to(dev)
+
+    keep = (torch.from_numpy((rng.random((u, b, hd)) >= 0.1).astype(
+        "float32")) / 0.9).to(dev)
+    klens = torch.tensor(kl, dtype=torch.int32, device=dev)
+    lens = trigger_lengths(torch, kl, u, tt) if window else klens
+    eg, w_ctx, w_h, bias = (t(u, b, 4 * hd, scale=0.5),
+                            t(d, 4 * hd, scale=(d + hd) ** -0.5),
+                            t(hd, 4 * hd, scale=(d + hd) ** -0.5),
+                            t(4 * hd, scale=0.1))
+    w_q, conv_w, w_f, v = (t(a, hd, scale=hd ** -0.5),
+                           t(c, kw, scale=kw ** -0.5),
+                           t(a, c, scale=c ** -0.5), t(a, scale=a ** -0.5))
+    kc, values = t(b, tt, a), t(b, tt, d)
+    args = (eg, w_ctx, w_h, bias, w_q, None, None, v, kc, values, lens, keep)
+    loc = (eg, w_ctx, w_h, bias, w_q, conv_w, w_f, v, kc, values, klens, keep)
+    outs = las_scan(*args)
+    refs = las_scan_ref(*args)
+    what = f"additive B={b} U={u} T={tt} H={hd} D={d} A={a}" + (
+        " windowed" if window else "")
+    ms, loc_ms = timed_pair(lambda: las_scan(*args),
+                            lambda: las_scan(*loc), iters=5)
+    record("las_scan", max(rel_err(x, y) for x, y in zip(outs, refs)), ms,
+           cuda_ms(lambda: las_scan_ref(*args), iters=3, warmup=1), what,
+           library_ms=None, location_ms=loc_ms,
+           kernel_launches_per_call=las_scan.kernel_launches_per_call,
+           **roofline(las_scan_cost(u, b, tt, hd, d, a, 0, 0,
+                                    lens.tolist())))
+    del outs
+    grads_out = (t(u, b, hd), t(u, b, d))
+    bargs = (w_ctx, w_h, w_q, None, None, v, kc, values, lens, keep,
+             *refs[:6], *grads_out)
+    loc_saved = las_scan(*loc)
+    lbargs = (w_ctx, w_h, w_q, conv_w, w_f, v, kc, values, klens, keep,
+              *loc_saved, *grads_out)
+    got = las_scan_bwd(*bargs)
+    want = las_scan_bwd_ref(*bargs)
+    expect(got[5] is None and got[6] is None and want[5] is None,
+           "K3b additive: a location gradient")
+    err = max(rel_err(x, y) for x, y in zip(got, want) if y is not None)
+    ms, loc_ms = timed_pair(lambda: las_scan_bwd(*bargs),
+                            lambda: las_scan_bwd(*lbargs), iters=5)
+    record("las_scan_bwd", err, ms,
+           cuda_ms(lambda: las_scan_bwd_ref(*bargs), iters=3, warmup=1),
+           what, library_ms=None, location_ms=loc_ms,
+           kernel_launches_per_call=las_scan_bwd.kernel_launches_per_call,
+           **roofline(las_scan_bwd_cost(u, b, tt, hd, d, a, 0, 0,
+                                        lens.tolist())))
+
+
+def additive_k2_case(torch, rng, n, tt, d, window: bool, tag="16k"):
+    """K2's additive instantiation at N rows, T frames, encoder width d
+    (H 1024, A 512): serving (``window`` False: every valid frame, no
+    dropout) or scheduled sampling's pass 1 (``window``: the LSTM output's
+    keep at rate 0.1 and one step's window of ``trigger_lengths`` as
+    klens); both forms (the checked call and the workspace), without and
+    with a beam's reorder, against the plain version (KERNEL_ATOL), the
+    two forms equal bit for bit; the workspace form timed in turns with
+    the location instantiation's over all of klens (``location_ms``)."""
+    from neural_sp_tpu_torch.ops.kernels import las_step, las_step_ref
+    from neural_sp_tpu_torch.ops.kernels.las_step import (LasStepWorkspace,
+                                                          las_step_cost)
+    dev = torch.device("cuda")
+    hd, a, c, kw = 1024, 512, 10, 201
+
+    def t(*shape, scale=1.0):
+        return torch.from_numpy(
+            (rng.standard_normal(shape) * scale).astype("float32")).to(dev)
+
+    kl = [tt - 7 * i for i in range(n)]
+    klens = torch.tensor(kl, dtype=torch.int32, device=dev)
+    lens = trigger_lengths(torch, kl, 101, tt)[40].contiguous() if window \
+        else klens
+    keep = (torch.from_numpy((rng.random((n, hd)) >= 0.1).astype(
+        "float32")) / 0.9).to(dev) if window else None
+    carry = (t(n, d), t(n, hd, scale=0.5), t(n, hd),
+             torch.softmax(t(n, tt, scale=3.0), -1))
+    weights = (t(d, 4 * hd, scale=(d + hd) ** -0.5),
+               t(hd, 4 * hd, scale=(d + hd) ** -0.5), t(4 * hd, scale=0.1),
+               t(a, hd, scale=hd ** -0.5))
+    conv_w, w_f, v = t(c, kw, scale=kw ** -0.5), t(a, c, scale=c ** -0.5), \
+        t(a, scale=a ** -0.5)
+    kc, values = t(n, tt, a), t(n, tt, d)
+    eg = t(n, 4 * hd, scale=0.5)
+    args = (eg, *carry, *weights, None, None, v, kc, values, lens)
+    ws = LasStepWorkspace(*args[5:])
+    ws_loc = LasStepWorkspace(*weights, conv_w, w_f, v, kc, values, klens)
+    parent = torch.from_numpy(rng.integers(0, n, n).astype("int32")).to(dev)
+    err = 0.0
+    for par in (None, parent):
+        refs = las_step_ref(*args, parent=par, keep=keep)
+        outs = las_step(*args, parent=par, keep=keep)
+        ws.load_carry(*carry)
+        ws.eg.copy_(eg)
+        if par is not None:
+            ws.parent.copy_(par)
+        stepped = ws.step(use_parent=par is not None, keep=keep)
+        err = max(err, *(max_err(x, y) for x, y in zip(outs, refs)))
+        expect(all(torch.equal(x, y) for x, y in zip(stepped, outs)),
+               f"K2 additive N={n} T={tt}: the workspace form differs from "
+               f"the call")
+    per_step = las_step.kernels_per_step
+    for w in (ws, ws_loc):
+        w.eg.copy_(eg)
+        w.parent.copy_(parent)
+    ms, loc_ms = timed_pair(lambda: ws.step(use_parent=True, keep=keep),
+                            lambda: ws_loc.step(use_parent=True, keep=keep),
+                            iters=200)
+    ref_ms = cuda_ms(lambda: las_step_ref(*args, parent=parent, keep=keep))
+    bound = roofline(las_step_cost(n, tt, hd, d, a, 0, 0, lens.tolist()))
+    shape = f"additive N={n} T={tt} D={d}" + (
+        " windowed, keep (pass 1)" if window else " (serving)")
+    log(f"[{tag}] K2 {shape}: max_abs_err {err:.3e}  kernel {ms:.4f} ms "
+        f"through its workspace (location {loc_ms:.4f} ms in turns), "
+        f"{per_step} kernels per step  twin {ref_ms:.4f} ms  bound "
+        f"{bound['bound_ms']:.4f} ms ({bound['bound_by']})")
+    expect(err <= KERNEL_ATOL, f"K2 {shape}: error {err} > {KERNEL_ATOL}")
+    return {"shape": shape, "max_abs_err": err, "ms": ms,
+            "location_ms": loc_ms, "kernels_per_step": per_step,
+            "plain_ms": ref_ms, "library_ms": None, **bound}
+
+
+def phase_trig_kernels(torch, rng) -> dict:
+    """16k: K3 / K3b's additive instantiations at the triggered conf's
+    training shape (TRIG_SCAN) without and with the window, and at 2b's
+    (T 188) with it; K2's at 16a's beam (N TRIG_BEAM) over T 400
+    (serving) and in pass 1 (N 32, T 400, a window and keep); each
+    against its plain version and timed in turns with the location
+    instantiation."""
+    res = {}
+    record = kernel_recorder(res, "16k")
+    s = TRIG_SCAN
+    kl = [s["tt"] - 7 * i for i in range(s["b"])]
+    for window in (False, True):
+        additive_scan_case(torch, rng, record, s["b"], s["u"], s["tt"],
+                           s["d"], kl, window)
+    additive_scan_case(torch, rng, record, TRAIN_B, 101, 188, 512,
+                       [188 - 3 * i for i in range(TRAIN_B)], True)
+    shapes = [additive_k2_case(torch, rng, TRIG_BEAM, 400, 512, False),
+              additive_k2_case(torch, rng, 32, 400, 512, True)]
+    res["las_step"] = {**shapes[0], "shapes": shapes, "max_abs_err": max(
+        sh["max_abs_err"] for sh in shapes)}
+    torch.cuda.empty_cache()
+    return res
+
+
+
+# 16a's eval CLI: a beam of 4 with joint CTC (the host-bound beam's wall
+# is the phase's largest; K2 serves N 4 rows, as 16k times it)
+TRIG_BEAM = 4
+TRIG_EVAL = ("--recog_beam_width", str(TRIG_BEAM), "--recog_ctc_weight",
+             "0.3")
+TRIG_FLAGS = ("--n_epochs", "1", "--unit", "word", "--eval_start_epoch", "1")
+LATENCY_FLAGS = ("--n_epochs", "1", "--unit", "word", "--enc_n_layers",
+                 str(RNN_DEPTH))
+RSP_FLAGS = ("--n_epochs", "2", "--unit", "word", "--enc_n_layers",
+             str(RNN_DEPTH))
+
+
+def phase_trig_conf(torch, rng, root: Path, corpus: dict) -> dict:
+    """16a: the tedlium triggered-attention conf as written (C44: its
+    ``triggered_attention`` read as ``triggered``) at full width and depth
+    (a 5-layer BLSTM of 512 summed, the LAS decoder of 1024), seeded: a
+    train() microstep at phase 5's B 32 x 1500 with scheduled sampling 0.2
+    and the CTC head's trigger points, held to the plain versions by phase
+    6's rule (``hold_sampled``), the forced alignment's wall in it (B8);
+    then the train CLI one epoch on phase 7's corpus (V 10,000, word unit)
+    and the eval CLI (TRIG_EVAL: beam 4 + CTC 0.3): K2 / K3 / K3b's
+    additive instantiations, K3 / K3b with the window, K4 launched."""
+    from neural_sp_tpu_torch.bin.args import parse_args_train
+    from neural_sp_tpu_torch.models.decoders.ctc import CTC
+    from neural_sp_tpu_torch.models.speech2text import build_speech2text
+    from neural_sp_tpu_torch.utils.init_params import init_params
+    args = parse_args_train(["--config", str(ROOT / TRIG_CONF)])
+    args.vocab = CLI_VOCAB
+    model = init_params(build_speech2text(args), SEED + 16)
+    n_params = sum(p.numel() for p in model.parameters())
+    expect(n_params == TRIG_PARAMS and model.dec_fwd.attn_type == "triggered"
+           and model.dec_fwd.step.ss_prob == 0.2,
+           f"16a: {n_params} parameters, {model.dec_fwd.attn_type}")
+    align_s = []
+    real = CTC.trigger_points
+
+    def timed(self, *a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(self, *a)
+        torch.cuda.synchronize()
+        align_s.append(time.perf_counter() - t0)
+        return out
+
+    batch = train_batch(torch, rng)
+    with mock.patch.object(CTC, "trigger_points", timed):
+        held, counts = hold_sampled(torch, model, batch, "16a")
+    log(f"[16a] {TRIG_CONF}: {n_params} parameters; a train() microstep at "
+        f"B {TRIG_SCAN['b']} x {TRAIN_FRAMES} (T' 375): the CTC forced "
+        f"alignment {[round(x * 1e3, 1) for x in align_s]} ms (kernels, "
+        f"plain); launches {counts}")
+    for name in TRIG_TRAIN_KERNELS:
+        expect(counts[name] > 0, f"{name} never launched in 16a's microstep")
+    expect(counts["las_scan"] == counts["las_scan_add"] and
+           counts["las_step"] == counts["las_step_add"],
+           "16a: a location instantiation launched")
+    del model, batch
+    torch.cuda.empty_cache()
+    cli = cli_run(torch, root, corpus, TRIG_CONF, "16a", TRIG_FLAGS,
+                  TRIG_TRAIN_KERNELS, TRIG_EVAL_KERNELS, TRIG_EVAL,
+                  dev_finite=True)
+    return {"parameters": n_params, "hold": held, "launches": counts,
+            "forced_alignment_ms": [x * 1e3 for x in align_s], **cli}
+
+
+def write_word_alignments(corpus: dict, root: Path) -> str:
+    """Word alignments for the train and dev utterances of a corpus of
+    ``synth_corpus``, in JAX's format (``dir/speaker/utt_id.txt``, a line
+    ``word start end`` per word, seconds), each utterance's duration split
+    evenly among its words. Returns the directory."""
+    import csv
+    out = root / "word_alignments"
+    for split in ("train", "dev"):
+        with open(corpus[split], newline="") as f:
+            for r in csv.DictReader(f, delimiter="\t"):
+                words = r["text"].split()
+                sec = int(r["xlen"]) * FRAME_SEC
+                edges = [sec * j / len(words) for j in range(len(words) + 1)]
+                d = out / r["speaker"]
+                d.mkdir(parents=True, exist_ok=True)
+                (d / f"{r['utt_id']}.txt").write_text("".join(
+                    f"{w} {edges[j]:.3f} {edges[j + 1]:.3f}\n"
+                    for j, w in enumerate(words)))
+    return str(out)
+
+
+def latency_hold(torch, xs, xlens) -> dict:
+    """16b's held microstep: the MinLT conf's LSTM-MoChA (RNN_DEPTH),
+    seeded, one train() microstep on phase 3's utterances cut to
+    LATENCY_FRAMES frames, LATENCY_U labels and trigger points spread
+    over each row's frames (-1 past its labels, the last row without
+    any), carrying the latency loss, against the same microstep on the
+    CPU in float64. Its float32 MoChA rounds (ROADMAP C29: where the
+    cumulative product of 1 - p reaches its clip, alpha_prev / cp is
+    amplified up to 1e10), and the card's scans round otherwise than the
+    CPU's, so: the float32 microstep's loss and latency loss within
+    WHOLE_LOSS_RTOL of float64 (its gradients' distances reported); the
+    decoder's microstep (``ctc_weight`` 0: MoChA with the MinLT loss on
+    the trigger points) in float64 on the card against the CPU's by 9b's
+    rule, the same arithmetic, so what is held is the port's computation
+    on the card and not float32's rounding; and the encoder and CTC
+    head's (``ctc_weight`` 1), which carries K4, the path's kernel, in
+    float32 by 9b's rule."""
+    import numpy as np
+    from neural_sp_tpu_torch.bin.args import parse_args_train
+    from neural_sp_tpu_torch.models.speech2text import build_speech2text
+    args = parse_args_train(["--config", str(ROOT / MINLT_CONF)])
+    args.vocab = CLI_VOCAB
+    model = mocha_model(torch, args)
+    cpu = build_speech2text(mocha_args(args), device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    x = torch.from_numpy(xs[:, :LATENCY_FRAMES])
+    xl = torch.from_numpy(np.minimum(xlens, LATENCY_FRAMES))
+    rng = np.random.default_rng(SEED + 16)
+    u = max(LATENCY_U)
+    ys = np.full((len(LATENCY_U), u), 3, np.int64)
+    tp = np.full((len(LATENCY_U), u), -1, np.int32)
+    for b, n in enumerate(LATENCY_U):
+        ys[b, :n] = rng.integers(4, CLI_VOCAB, n)
+        frames = int(xl[b]) // 4
+        tp[b, :n] = (np.arange(1, n + 1) * (frames - 1)) // n
+    tp[-1] = -1
+    ys, yl, tp = torch.from_numpy(ys), torch.tensor(LATENCY_U), \
+        torch.from_numpy(tp)
+    dev = next(model.parameters()).device
+    on_card = tuple(v.to(dev) for v in (x, xl, ys, yl))
+    card = mocha_microstep(torch, model, on_card, SEED,
+                           trigger_points=tp.to(dev))
+    cpu32 = mocha_microstep(torch, cpu, (x, xl, ys, yl), SEED,
+                            trigger_points=tp)
+    cpu.double()
+    on_cpu = (x.double(), xl, ys, yl)
+    cpu64 = mocha_microstep(torch, cpu, on_cpu, SEED, trigger_points=tp)
+    obs, obs_ref = card[2], cpu64[2]
+    log(f"[16b] {MINLT_CONF} at depth {RNN_DEPTH}: a train() microstep with "
+        f"trigger points, card {obs}; CPU float64 {obs_ref}")
+    whole = whole_microstep_readings(torch, "16b", card, cpu32, cpu64)
+    whole["latency_loss_rel_err"] = abs(
+        obs.get("loss_latency", 0) - obs_ref["loss_latency"]) / \
+        obs_ref["loss_latency"]
+    expect(obs.get("loss_latency", 0) > 0 and max(
+        whole["loss_rel_err"], whole["latency_loss_rel_err"]) <=
+        WHOLE_LOSS_RTOL, f"16b: the losses {obs} against float64's {obs_ref}")
+    out = {"whole_microstep": whole}
+    for tag, weight, double in (("decoder float64", 0.0, True),
+                                ("encoder + CTC", 1.0, False)):
+        for m in (model, cpu):
+            m.ctc_weight = weight
+        if double:
+            model.double()
+        batch = tuple(v.double() if v.is_floating_point() else v
+                      for v in on_card) if double else on_card
+        loss, grads, _ = mocha_microstep(torch, model, batch, SEED,
+                                         trigger_points=tp.to(dev))
+        loss_ref, grads_ref, _ = mocha_microstep(torch, cpu, on_cpu, SEED,
+                                                 trigger_points=tp)
+        out[tag] = hold_microstep(loss, grads, loss_ref, grads_ref,
+                                  f"16b {tag}", floor=True)
+        model.float()
+    del model, cpu
+    return out
+
+
+def phase_latency(torch, root: Path, corpus: dict, xs, xlens) -> dict:
+    """16b: MoChA's MinLT and DeCoT (lookahead 16) LibriSpeech confs at
+    RNN_DEPTH through the train CLI, one epoch on phase 7's corpus with
+    ``--train_word_alignment`` / ``--dev_word_alignment`` at the
+    directory ``write_word_alignments`` writes: every MinLT microstep
+    carries the latency loss, every DeCoT one windows its alignment
+    (``trigger_window`` called per microstep); K4 launched, no other
+    kernel of the repo; then ``latency_hold``."""
+    from neural_sp_tpu_torch.models.decoders.las import RNNDecoder
+    align = write_word_alignments(corpus, root)
+    flags = LATENCY_FLAGS + ("--train_word_alignment", align,
+                             "--dev_word_alignment", align)
+    out = {}
+    for conf, tag in ((MINLT_CONF, "16b_minlt"), (DECOT_CONF, "16b_decot")):
+        windows = []
+        real = RNNDecoder.trigger_window
+
+        def counted(self, *a):
+            windows.append(a[0].shape)
+            return real(self, *a)
+
+        with mock.patch.object(RNNDecoder, "trigger_window", counted):
+            run = cli_run(torch, root, corpus, conf, tag, flags,
+                          MOCHA_TRAIN_KERNELS, evaluate=False)
+        steps = run["train"]["losses"]
+        if conf == MINLT_CONF:
+            expect(all(s.get("loss_latency", 0) > 0 for s in steps),
+                   f"{tag}: a microstep without the latency loss")
+        else:
+            expect(len(windows) == len(steps) and not any(
+                "loss_latency" in s for s in steps),
+                f"{tag}: {len(windows)} windows over {len(steps)} "
+                f"microsteps")
+        expect(all(run["train"]["launches"][k] == 0
+                   for k in NOT_ON_MOCHA_PATH),
+               f"{tag}: a kernel off the MoChA path launched")
+        out[tag] = {**run, "windows": len(windows)}
+    out["hold"] = latency_hold(torch, xs, xlens)
+    return out
+
+
+def phase_rsp(torch, root: Path, corpus: dict) -> dict:
+    """16c: the tedlium random-state-passing conf (``rsp_prob_enc`` 0.5 as
+    the rate, C16) at RNN_DEPTH through the train CLI for two epochs on
+    phase 7's corpus: each step's draw, whether the carry it was handed
+    came from the step before (a batch of another size starts from
+    zeros) and whether it was passed on; at least one step must pass it."""
+    from neural_sp_tpu_torch.parallel import mesh
+    draws, steps = [], []
+    real_draw, real_call = mesh.rsp_draw, mesh.RSPTrainStep.__call__
+
+    def draw(gen, p):
+        draws.append(real_draw(gen, p))
+        return draws[-1]
+
+    def call(self, carry, xs, *a, **kw):
+        steps.append({"rows": int(xs.shape[0]),
+                      "handed": carry is not None})
+        metrics, new = real_call(self, carry, xs, *a, **kw)
+        expect(len(new) == RNN_DEPTH and new[0][0].shape[0] == xs.shape[0],
+               "16c: the carry's shape")
+        return metrics, new
+
+    with mock.patch.object(mesh, "rsp_draw", draw), \
+            mock.patch.object(mesh.RSPTrainStep, "__call__", call):
+        run = cli_run(torch, root, corpus, RSP_CONF, "16c", RSP_FLAGS,
+                      MOCHA_TRAIN_KERNELS, evaluate=False)
+    for s, d in zip(steps, draws):
+        s["passed"] = s["handed"] and d
+    log(f"[16c] {RSP_CONF}: {len(steps)} steps; draws {draws}; carry handed "
+        f"{[s['handed'] for s in steps]}, passed "
+        f"{[s['passed'] for s in steps]}")
+    expect(len(draws) == len(steps) == len(run["train"]["losses"]) and
+           any(s["passed"] for s in steps), "16c: no carry passed on")
+    return {**run, "steps": steps}
+
+
+def phase_trig(torch, rng, root: Path, corpus: dict, xs, xlens) -> dict:
+    """16: 16k (K2 / K3 / K3b's additive instantiations, with and without
+    the window), 16a (the triggered conf), 16b (MinLT and DeCoT), 16c
+    (random state passing). Returns each sub-phase's results, their walls
+    and the launches on the phase's paths (16a's microstep and CLIs, 16b's
+    and 16c's CLIs)."""
+    walls, out = {}, {}
+    for key, run in (("kernels", lambda: phase_trig_kernels(torch, rng)),
+                     ("triggered", lambda: phase_trig_conf(torch, rng, root,
+                                                           corpus)),
+                     ("latency", lambda: phase_latency(torch, root, corpus,
+                                                       xs, xlens)),
+                     ("rsp", lambda: phase_rsp(torch, root, corpus))):
+        t = time.perf_counter()
+        out[key] = run()
+        walls[key] = time.perf_counter() - t
+    trig = out["triggered"]
+    paths = [trig["launches"], trig["train"]["launches"],
+             trig["eval"]["launches"], out["rsp"]["train"]["launches"]] + \
+        [out["latency"][k]["train"]["launches"]
+         for k in ("16b_minlt", "16b_decot")]
+    out["launches"] = {k: sum(p[k] for p in paths) for k in paths[0]}
+    out["sub_phase_wall_s"] = walls
+    log(f"[16] walls {walls}; launches on the phase's paths "
+        f"{out['launches']}")
+    return out
+
+
+def add_trig_rows(entries, srcs, keys, trig):
+    """Phase 16 in the ``kernels`` line: every row's launches on its paths
+    (``trig_launches``), then rows for K3 / K3b's additive instantiations
+    at the triggered conf's shape without and with the window (each with
+    the location instantiation's time at that shape, in turns,
+    ``location_ms``; 2b's shape with the window in ``other_shapes``), K2's
+    in serving (N TRIG_BEAM, T 400) and in pass 1 (N 32, T 400,
+    windowed). A
+    row's launches: its instantiation's counter on the phase's paths (K2
+    in pass 1: the training paths', serving: the eval CLI's)."""
+    for e in entries:
+        e["trig_launches"] = trig["launches"].get(e["name"], 0)
+    k = trig["kernels"]
+    t = trig["triggered"]
+    pass1 = t["launches"]["las_step_add"] + \
+        t["train"]["launches"]["las_step_add"]
+    rows = []
+    for base in ("las_scan", "las_scan_bwd"):
+        shapes = k[base]["shapes"]
+        rows += [(f"{base}_add", base, shapes[0], [],
+                  trig["launches"][f"{base}_add"]),
+                 (f"{base}_add_window", base, shapes[1], shapes[2:],
+                  trig["launches"][f"{base}_window"])]
+    steps = k["las_step"]["shapes"]
+    rows += [("las_step_add", "las_step", steps[0], [],
+              t["eval"]["launches"]["las_step_add"]),
+             ("las_step_add_window", "las_step", steps[1], [], pass1)]
+    for name, base, row, others, launched in rows:
+        src, rep = srcs[base]
+        entries.append({
+            "name": name, "route": "cuda", "source": src, "replaces": rep,
+            "launches": launched, **{key: row.get(key) for key in keys},
+            "shape": row["shape"], "location_ms": row.get("location_ms"),
+            "other_shapes": [{x: sh.get(x) for x in (
+                "shape", "ms", "location_ms", "plain_ms", "bound_ms",
+                "bound_by")} for sh in others],
+            "path": "16 (triggered attention, MinLT / DeCoT, RSP)"})
+        expect(launched > 0, f"{name} never launched on 16's paths")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6444,6 +6974,8 @@ def main() -> int:
         wall("14")
         att = phase_att(torch, rng, root, corpus)
         wall("15")
+        trig = phase_trig(torch, rng, root, corpus, xs, xlens)
+        wall("16")
     log(f"phase walls (s): {json.dumps(walls)}; total "
         f"{sum(walls.values()):.1f} s")
     # each kernel's launches from the main path it belongs to: the served
@@ -6499,7 +7031,7 @@ def main() -> int:
                "blstm": blstm, "mocha": mocha,
                "transformer": xformer, "streaming": streaming,
                "transducer": rnnt, "lm": lm, "stream_bf16": stream_bf16,
-               "mtl": mtl, "att": att, "kernels": kernels,
+               "mtl": mtl, "att": att, "trig": trig, "kernels": kernels,
                "phase_walls_s": walls}
     log(json.dumps(details))
     out_dir = ROOT / "chiprun_out"
@@ -6707,6 +7239,7 @@ def main() -> int:
         xl["eval"]["launches"]["rel_attention_offset"] / xl["dev_windows"])
     add_new_path_rows(entries, srcs, keys, streaming, stream_bf16, mtl)
     add_att_rows(entries, srcs, keys, att)
+    add_trig_rows(entries, srcs, keys, trig)
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

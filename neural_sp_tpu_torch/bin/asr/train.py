@@ -35,9 +35,18 @@ and ``wp_model_sub*``); their vocabularies go into the saved conf as
 one task, round-robin over the main task and each sub-task, as the JAX
 CLI: the same modules with the other tasks' weights zeroed, a sub-task's
 weight scaled to 1 with its attention / CTC ratio kept (``mtl_tasks``);
-the dev loss takes the conf's weights. The JAX CLI's distillation, MBR,
-random state passing, tensor parallelism and the profiler window raise
-(ROADMAP).
+the dev loss takes the conf's weights.
+
+``--train_word_alignment`` / ``--train_ctc_alignment`` give the batches
+trigger points (``datasets/asr/dataset.py``), which reach the model's
+loss; as in the JAX CLI, the dev set is read with the same directories
+(``dev_word_alignment`` is not read) and the dev loss takes no trigger
+points. Random state passing (``rsp_prob``, or the recipes'
+``rsp_prob_enc`` when ``rsp_prob`` is unset: ROADMAP C16) needs an RNN
+encoder, as JAX's assertion: each step starts the encoder from the
+previous batch's carry with that probability (``make_rsp_train_step``),
+a batch of another size from zeros. The JAX CLI's distillation, MBR,
+tensor parallelism and the profiler window raise (ROADMAP).
 """
 from __future__ import annotations
 
@@ -55,9 +64,10 @@ from ... import configs
 from ...datasets.asr.build import build_dataloader
 from ...models.decoders.las import RNNDecoder
 from ...models.decoders.transformer import TransformerDecoder
+from ...models.encoders.rnn import RNNEncoder
 from ...models.speech2text import WEIGHTS, build_speech2text
 from ...models.utils import model_device
-from ...parallel.mesh import make_train_step
+from ...parallel.mesh import make_rsp_train_step, make_train_step
 from ...trainers.checkpoint import load_checkpoint, save_checkpoint
 from ...trainers.lr_scheduler import (
     EpochController, noam_schedule, warmup_schedule)
@@ -69,9 +79,10 @@ from ..args import parse_args_train, save_config
 logger = logging.getLogger(__name__)
 
 # options of the JAX CLI the port does not have: each raises when set
-_NOT_PORTED = ("teacher", "mbr_training", "rsp_prob", "profile_n_steps",
-               "train_word_alignment", "train_ctc_alignment")
+_NOT_PORTED = ("teacher", "mbr_training", "profile_n_steps")
 _SUB_LABELS = ("ys_sub1", "ylens_sub1", "ys_sub2", "ylens_sub2")
+# what a training step takes from a batch besides xs, xlens, ys, ylens
+_STEP_LABELS = _SUB_LABELS + ("trigger_points",)
 
 
 def compute_subsampling_factor(args) -> int:
@@ -151,9 +162,26 @@ def _to_device(batch: dict, device) -> tuple:
                  for k in ("xs", "xlens", "ys", "ylens"))
 
 
-def _sub_labels(batch: dict, device) -> dict:
+def _sub_labels(batch: dict, device, keys=_SUB_LABELS) -> dict:
     return {k: torch.from_numpy(batch[k]).to(device, non_blocking=True)
-            for k in _SUB_LABELS if k in batch}
+            for k in keys if k in batch}
+
+
+def rsp_rate(args) -> float:
+    """Random state passing's rate: ``rsp_prob`` (the JAX CLI's flag), else
+    the recipes' ``rsp_prob_enc``, which the JAX CLI does not read (C16)."""
+    return float(getattr(args, "rsp_prob", 0.0) or
+                 getattr(args, "rsp_prob_enc", 0.0) or 0.0)
+
+
+def make_step(model, opt, args):
+    """The run's training step under the conf's compute dtype: random state
+    passing's at ``rsp_rate(args)`` > 0, else ``make_train_step``'s."""
+    dtype = configs.compute_dtype(args)
+    if rsp_rate(args) > 0:
+        return make_rsp_train_step(model, opt, rsp_rate(args),
+                                   compute_dtype=dtype)
+    return make_train_step(model, opt, compute_dtype=dtype)
 
 
 @torch.no_grad()
@@ -208,7 +236,11 @@ def main(argv=None, device=None) -> str:
         wp_model_sub1=getattr(args, "wp_model_sub1", None),
         dict_path_sub2=getattr(args, "dict_sub2", None) or None,
         unit_sub2=getattr(args, "unit_sub2", "char"),
-        wp_model_sub2=getattr(args, "wp_model_sub2", None))
+        wp_model_sub2=getattr(args, "wp_model_sub2", None),
+        # the trigger points (the dev set reads the same directories)
+        word_alignment_dir=getattr(args, "train_word_alignment", None)
+        or None,
+        ctc_alignment_dir=getattr(args, "train_ctc_alignment", None) or None)
     bucketing = "shuffle" if getattr(args, "shuffle_bucket", False) \
         else args.bucketing
     train_set = build_dataloader(args.train_set, bucketing=bucketing,
@@ -239,8 +271,11 @@ def main(argv=None, device=None) -> str:
                           clip_grad_norm=args.clip_grad_norm,
                           schedule=make_schedule(args),
                           accum_grad_n_steps=args.accum_grad_n_steps)
-    step_fn = make_train_step(model, opt,
-                              compute_dtype=configs.compute_dtype(args))
+    rsp_prob = rsp_rate(args)
+    assert rsp_prob <= 0 or isinstance(model.encoder, RNNEncoder), \
+        "rsp_prob requires an RNN encoder"
+    step_fn = make_step(model, opt, args)
+    rsp_carry = None
 
     start_epoch = 1
     if args.resume:
@@ -293,8 +328,17 @@ def main(argv=None, device=None) -> str:
                 model.set_weights(**tasks[i % len(tasks)])
                 logger.info("step %d: task %d", reporter.step + 1,
                             i % len(tasks))
-            metrics = step_fn(*_to_device(batch, device), lr_scale=lr_scale,
-                              gen=gen, **_sub_labels(batch, device))
+            if rsp_prob > 0:
+                if rsp_carry is not None and \
+                        batch["xs"].shape[0] != _rows(rsp_carry):
+                    rsp_carry = None
+                metrics, rsp_carry = step_fn(
+                    rsp_carry, *_to_device(batch, device),
+                    lr_scale=lr_scale, gen=gen)
+            else:
+                metrics = step_fn(*_to_device(batch, device),
+                                  lr_scale=lr_scale, gen=gen,
+                                  **_sub_labels(batch, device, _STEP_LABELS))
             metrics.pop("emitted")
             reporter.add_observation(metrics)
             reporter.step_forward()
@@ -312,8 +356,7 @@ def main(argv=None, device=None) -> str:
             kw = controller.convert_to_sgd(getattr(args, "sgd_lr", 1e-4))
             opt = build_optimizer(kw["optimizer"], lr=kw["lr"],
                                   clip_grad_norm=args.clip_grad_norm)
-            step_fn = make_train_step(
-                model, opt, compute_dtype=configs.compute_dtype(args))
+            step_fn = make_step(model, opt, args)
             lr_ref = kw["lr"]
             logger.info("converted to SGD (lr %.2g) at epoch %d", kw["lr"],
                         epoch)
@@ -331,6 +374,13 @@ def main(argv=None, device=None) -> str:
             logger.info("early stop at epoch %d", epoch)
             break
     return save_dir
+
+
+def _rows(carry) -> int:
+    """The batch rows of an encoder carry (nested tuples of [B, H])."""
+    while not torch.is_tensor(carry):
+        carry = carry[0]
+    return carry.shape[0]
 
 
 if __name__ == "__main__":

@@ -1,8 +1,7 @@
 """build_dataloader (counterpart of ``neural_sp_tpu/datasets/asr/
 build.py``): a dataset and its loader from the CLI's settings, with the
-sub-tasks' label streams. Frame stacking and splicing raise when set; the
-JAX loader's alignment directories have no parameter here (the train CLI
-raises on their flags)."""
+sub-tasks' label streams and the word / CTC alignment directories (the
+batches' trigger points). Frame stacking and splicing raise when set."""
 from __future__ import annotations
 
 from .dataloader import ASRDataLoader
@@ -37,6 +36,8 @@ def build_dataloader(
     dict_path_sub2: str | None = None,
     unit_sub2: str = "char",
     wp_model_sub2: str | None = None,
+    word_alignment_dir: str | None = None,
+    ctc_alignment_dir: str | None = None,
 ) -> ASRDataLoader:
     if max(n_stacks, n_skips, n_splices) > 1:
         raise NotImplementedError(
@@ -48,7 +49,8 @@ def build_dataloader(
         short2long=short2long, dict_path_sub1=dict_path_sub1,
         unit_sub1=unit_sub1, wp_model_sub1=wp_model_sub1,
         dict_path_sub2=dict_path_sub2, unit_sub2=unit_sub2,
-        wp_model_sub2=wp_model_sub2)
+        wp_model_sub2=wp_model_sub2, word_alignment_dir=word_alignment_dir,
+        ctc_alignment_dir=ctc_alignment_dir)
     return ASRDataLoader(
         dataset, batch_size=batch_size, batch_size_type=batch_size_type,
         dynamic_batching=dynamic_batching, bucketing=bucketing, seed=seed,

@@ -6,6 +6,8 @@ Padded shapes are rounded up to multiples (``pad_xlen_multiple``,
 ``pad_ylen_multiple``, ``pad_batch_multiple``), as the JAX loader does, so
 the two give the same arrays. Labels pad with PAD (3), features with 0.
 Sorted batches switch to shuffled ones from ``sort_stop_epoch`` on.
+Where any item of a batch has trigger points, the batch holds
+"trigger_points" [B, U] int32, -1 where an utterance has none, as JAX's.
 """
 from __future__ import annotations
 
@@ -40,8 +42,9 @@ def collate(items, pad_xlen_multiple: int = 16, pad_ylen_multiple: int = 8,
             pad_batch_multiple: int = 1) -> dict:
     """Dataset items -> padded numpy arrays xs [B, T, D] float32, xlens
     [B], ys [B, U] int32, ylens [B] (and ys_sub1 / ylens_sub1, ys_sub2 /
-    ylens_sub2 where the items have them, padded as ys), and the utt_ids,
-    speakers and text."""
+    ylens_sub2 where the items have them, padded as ys), trigger_points
+    [B, U] int32 where any item has them (-1 past a row's points and for
+    a row without any), and the utt_ids, speakers and text."""
     bs_pad = _round_up(len(items), pad_batch_multiple)
     xmax = _round_up(max(it["xs"].shape[0] for it in items),
                      pad_xlen_multiple)
@@ -64,6 +67,15 @@ def collate(items, pad_xlen_multiple: int = 16, pad_ylen_multiple: int = 8,
         if f"ys_{sub}" in items[0]:
             out[f"ys_{sub}"], out[f"ylens_{sub}"] = _pad_labels(
                 [it[f"ys_{sub}"] for it in items], bs_pad, pad_ylen_multiple)
+    if any("trigger_points" in it for it in items):
+        # -1 rows for the utterances without an alignment (the latency
+        # loss leaves them out), cut to the labels' width, as JAX's
+        tp = np.full(ys.shape, -1, np.int32)
+        for i, it in enumerate(items):
+            if "trigger_points" in it:
+                u = min(len(it["trigger_points"]), ys.shape[1])
+                tp[i, :u] = it["trigger_points"][:u]
+        out["trigger_points"] = tp
     return out
 
 

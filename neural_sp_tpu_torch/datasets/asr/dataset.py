@@ -15,8 +15,17 @@ does this one.
 The hierarchical sub-tasks' label streams (``dict_path_sub1`` /
 ``_sub2``, their units and models) re-tokenise ``text`` with their own
 converters, as JAX's: an item holds "ys_sub1" / "ys_sub2". Frame
-stacking, splicing and the alignment directories are not ported
-(ROADMAP).
+stacking and splicing are not ported (ROADMAP).
+
+Trigger points, as JAX's: with ``word_alignment_dir`` an item holds
+"trigger_points", its tokens' boundary frames from the word alignments
+(``datasets/alignment.py``), clipped to the utterance's last frame and
+divided by the encoder's subsampling factor; with ``ctc_alignment_dir``
+(read only without word alignments) the CTC trigger frames as they are
+stored. An utterance without an alignment file has none. A word's pieces
+come from the wordpiece model; for the word unit a word is one piece (JAX
+splits it into its characters, which gives a word unit one boundary per
+character: ROADMAP C45), for the char unit its characters, as JAX.
 """
 from __future__ import annotations
 
@@ -26,6 +35,7 @@ import logging
 import numpy as np
 
 from ...utils.io import load_feat
+from ..alignment import WordAlignmentConverter, load_ctc_alignment
 from ..token_converter.character import Char2idx, Idx2char
 from ..token_converter.word import Idx2word, Word2idx
 from ..token_converter.wordpiece import Idx2wp, Wp2idx
@@ -109,10 +119,13 @@ class ASRDataset:
         dict_path_sub2: str | None = None,
         unit_sub2: str = "char",
         wp_model_sub2: str | None = None,
+        word_alignment_dir: str | None = None,
+        ctc_alignment_dir: str | None = None,
     ):
         """Rows outside [min_n_frames, max_n_frames] or longer in labels
         than in subsampled frames are dropped (not from a test set); the
-        rest sorted by frames, ascending with ``short2long``."""
+        rest sorted by frames, ascending with ``short2long``. The alignment
+        directories: see the module docstring."""
         self.token2idx, self.idx2token = build_converters(
             unit, dict_path, wp_model)
         # the sub-tasks' converters (None without a dictionary)
@@ -138,6 +151,15 @@ class ASRDataset:
             logger.info("removed %d utterances (length filters)",
                         n0 - len(df["xlen"]))
         self.df = take(df, stable_order(df["xlen"], short2long))
+        self.subsample_factor = subsample_factor
+        self.word_alignment_dir = word_alignment_dir
+        self.ctc_alignment_dir = ctc_alignment_dir
+        self.word_alignment_converter = None
+        if word_alignment_dir:
+            bpe = getattr(self.token2idx, "_bpe", None)
+            encode = bpe.encode if bpe is not None else \
+                (lambda w: [w]) if unit == "word" else list
+            self.word_alignment_converter = WordAlignmentConverter(encode)
 
     def __len__(self):
         return len(self.df["xlen"])
@@ -167,4 +189,23 @@ class ASRDataset:
             ys_s = self.token_ids_sub(i, sub)
             if ys_s is not None:
                 out[f"ys_{sub}"] = ys_s
+        tp = self.trigger_points(i)
+        if tp is not None:
+            out["trigger_points"] = tp
         return out
+
+    def trigger_points(self, i: int) -> np.ndarray | None:
+        """Row i's token boundary frames (int32, encoder frames), or None
+        without an alignment (see the module docstring)."""
+        speaker, utt_id = self.df["speaker"][i], self.df["utt_id"][i]
+        if self.word_alignment_converter is not None:
+            tp = self.word_alignment_converter(
+                self.word_alignment_dir, speaker, utt_id, self.df["text"][i])
+            if tp is None:
+                return None
+            # input frames (10 ms) to encoder frames, as JAX's
+            tp = np.minimum(tp, max(int(self.df["xlen"][i]) - 1, 0))
+            return tp // self.subsample_factor
+        if self.ctc_alignment_dir:
+            return load_ctc_alignment(self.ctc_alignment_dir, speaker, utt_id)
+        return None

@@ -1,7 +1,14 @@
 """build_decoder (counterpart of ``neural_sp_tpu/models/decoders/build.py``):
-the LAS LSTM branch, with location attention or MoChA, the transformer
-branch, with or without MMA, and the LSTM transducer. Each reads the keys
-the JAX builder reads. ``sub_args`` gives a sub-task decoder's args."""
+the LAS LSTM branch, with location, additive or triggered attention or
+MoChA, the transformer branch, with or without MMA, and the LSTM
+transducer. Each reads the keys JAX's ``build_decoder`` reads.
+``sub_args`` gives a sub-task decoder's args.
+
+The recipes name triggered attention ``triggered_attention`` (upstream's
+name). JAX's ``build_decoder`` passes that name on unchanged and its
+attention module raises on it; only ``triggered`` selects the additive
+energy with the trigger window there. The port reads
+``triggered_attention`` as ``triggered`` (ROADMAP C44, a departure)."""
 from __future__ import annotations
 
 from types import SimpleNamespace
@@ -14,6 +21,13 @@ from .transformer import TransformerDecoder
 
 def _get(args, name, default=None):
     return getattr(args, name, default)
+
+
+def attn_type(args) -> str:
+    """The LAS decoder's attention type, the recipes' ``triggered_attention``
+    read as ``triggered`` (C44)."""
+    atype = _get(args, "attn_type", "location")
+    return "triggered" if atype == "triggered_attention" else atype
 
 
 def _transformer(args, vocab: int, enc_n_units: int,
@@ -97,7 +111,7 @@ def build_decoder(args, vocab: int, enc_n_units: int, backward: bool = False
         emb_dim=_get(args, "emb_dim", 512),
         bottleneck_dim=_get(args, "dec_bottleneck_dim",
                             _get(args, "dec_n_units", 512)),
-        attn_type=_get(args, "attn_type", "location"),
+        attn_type=attn_type(args),
         attn_dim=_get(args, "attn_dim", 512),
         attn_n_heads=_get(args, "attn_n_heads", 1),
         attn_conv_n_channels=_get(args, "attn_conv_n_channels", 10),
@@ -126,4 +140,7 @@ def build_decoder(args, vocab: int, enc_n_units: int, backward: bool = False
         mocha_share_ca=_get(args, "share_chunkwise_attention", False),
         quantity_loss_weight=_get(args, "mocha_quantity_loss_weight", 0.0),
         latency_metric=_get(args, "mocha_latency_metric", "") or "",
-        latency_loss_weight=_get(args, "mocha_latency_loss_weight", 0.0))
+        latency_loss_weight=_get(args, "mocha_latency_loss_weight", 0.0),
+        # the frames past a trigger point that triggered attention and
+        # DeCoT attend to (JAX's trigger_lookahead)
+        trigger_lookahead=_get(args, "mocha_decot_lookahead", 2))

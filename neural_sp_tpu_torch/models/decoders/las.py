@@ -36,6 +36,16 @@ dropped LSTM output goes through the projection relu(W_p hd + b_p)
 kernels K2 / K3 / K3b run it. Zoneout, deeper stacks, LM fusion and the
 other attention types raise, and so do projections with MoChA.
 
+Additive and triggered attention (``attn_type`` "add" / "triggered") run
+the same kernels in their additive instantiations (no location conv).
+Triggered attention bounds each teacher-forced step u by its trigger
+point, as JAX: ``trig[b, u] = min(trigger_points[b, u] + lookahead, T -
+1)`` (the points padded to U+1 steps with T - 1), the step attending to
+frames ``t <= trig``; K3 / K3b take that as a length per step, ``min(elens,
+trig + 1)`` [U+1, B], and pass 1 of scheduled sampling steps K2 with each
+step's lengths. Without trigger points (and at decode, where JAX passes
+none) every valid frame is attended.
+
 MoChA (``attn_type="mocha"``, ``models/modules/mocha.py``) has no kernel,
 and reads no ``dropout_att``, as JAX builds its MoChA without it (ROADMAP
 C43):
@@ -47,9 +57,12 @@ hoisted embedding gates, the step's dropout, MoChA in parallel mode with
 the energies' noise (in ``eval()``, for the dev loss, hard mode, as JAX's
 deterministic loss); the readout over all steps is hoisted as above, and
 the expected alignments [B, U+1, H_ma, T] feed the quantity loss and the
-``ctc_sync`` latency loss. A decode loop (``MochaDecodeLoop``) steps the
-cell and MoChA in hard mode and keeps the carry itself; a beam's reorder
-is an ``index_select`` of it by ``parent``. K2, K3 and K3b fuse location
+``ctc_sync`` / ``minlt`` latency loss, and with ``decot`` each step's
+alignment in training is zeroed past the step's ``trig`` (as above) plus
+MoChA's ``decot_delta`` (2), as JAX's. A decode loop
+(``MochaDecodeLoop``) steps the cell and MoChA in hard mode and keeps the
+carry itself; a beam's reorder is an ``index_select`` of it by
+``parent``. K2, K3 and K3b fuse location
 attention and never run for MoChA.
 
 Carry: ``(((c, h),), aw_prev [B, T], ctx_prev [B, enc_n_units])`` — the
@@ -286,17 +299,13 @@ class RNNDecoder(nn.Module):
                  mocha_stableemit_weight: float = 0.0,
                  mocha_1dconv: bool = False, mocha_share_ca: bool = False,
                  quantity_loss_weight: float = 0.0, latency_metric: str = "",
-                 latency_loss_weight: float = 0.0, dropout_att: float = 0.0):
+                 latency_loss_weight: float = 0.0, dropout_att: float = 0.0,
+                 trigger_lookahead: int = 2):
         super().__init__()
         if backward:
             raise NotImplementedError(
                 "the backward decoder is not ported yet, see ROADMAP")
-        if latency_metric in ("decot", "minlt"):
-            raise NotImplementedError(
-                f"MoChA's {latency_metric!r} latency metric reads word "
-                f"alignment directories, which are not ported yet (A4 item "
-                f"6), see ROADMAP")
-        if latency_metric not in ("", "ctc_sync"):
+        if latency_metric not in ("", "ctc_sync", "decot", "minlt"):
             raise ValueError(f"latency_metric {latency_metric!r}")
         if attn_type == "mocha" and ss_prob > 0:
             raise NotImplementedError(
@@ -309,6 +318,9 @@ class RNNDecoder(nn.Module):
         self.quantity_loss_weight = quantity_loss_weight
         self.latency_metric = latency_metric
         self.latency_loss_weight = latency_loss_weight
+        # frames past the trigger point a windowed step attends to
+        # (triggered attention, DeCoT)
+        self.trigger_lookahead = trigger_lookahead
         mocha = dict(chunk_size=mocha_chunk_size,
                      n_heads_mono=mocha_n_heads_mono,
                      n_heads_chunk=mocha_n_heads_chunk, init_r=mocha_init_r,
@@ -354,8 +366,9 @@ class RNNDecoder(nn.Module):
         ``train()`` with ``ss_prob > 0`` over the fed tokens of pass 1
         (see the module docstring). eouts [B, T, D]; elens [B]; ys [B, U]
         PAD-padded; ylens [B]. Returns (loss, {"loss_att", "acc_att",
-        "ppl_att"}). For MoChA see ``forward_mocha``
-        (``trigger_points``)."""
+        "ppl_att"}). With triggered attention, trigger_points [B, U] (-1 for
+        none) bound each step's frames (``trigger_window``). For MoChA see
+        ``forward_mocha``."""
         bs = eouts.shape[0]
         dev = eouts.device
         ys_in, ys_out, _ = append_sos_eos(ys.to(dev), ylens.to(dev))
@@ -367,12 +380,18 @@ class RNNDecoder(nn.Module):
         values = eouts.contiguous()
         klens = elens.to(device=dev, dtype=torch.int32)
         shape = (bs, ys_in.shape[1], self.n_units)
+        lens = klens
+        if self.attn_type == "triggered" and trigger_points is not None:
+            # a length per step, time-major [U+1, B], as K3 reads it
+            trig = self.trigger_window(trigger_points.to(dev), ys_in.shape[1],
+                                       kc.shape[1])
+            lens = torch.minimum(klens[:, None], trig + 1).t().contiguous()
         sampled = self.training and step.ss_prob > 0
         if sampled:
             masks = self.sampling_masks(gen, bs, ys_in.shape[1],
                                         step.embed.weight.dtype, dev,
                                         kc.shape[1])
-            ys_in = self.fed_tokens(ys_in, kc, values, klens, masks)
+            ys_in = self.fed_tokens(ys_in, kc, values, lens, masks)
             emb = _scaled(step.embed(ys_in), masks.emb)
         else:
             emb = step.drop_emb(step.embed(ys_in), gen)
@@ -400,7 +419,7 @@ class RNNDecoder(nn.Module):
             (att_keep, *(proj or ()))
         h, ctx, _, *p = LASScan.apply(
             eg, cell.w_ih[step.emb_dim:], cell.w_hh, cell.bias,
-            *step.attn.kernel_weights(), kc, values, klens, keep, *opt)
+            *step.attn.kernel_weights(), kc, values, lens, keep, *opt)
         # readout order [dout, ctx] (JAX LASStep._generate), dout = h keep
         # or its projection
         dout = p[0] if p else h * keep
@@ -412,6 +431,16 @@ class RNNDecoder(nn.Module):
         acc = compute_accuracy(logits, ys_out, ignore_index=PAD)
         return loss, {"loss_att": loss, "acc_att": acc,
                       "ppl_att": torch.exp(nll)}
+
+    def trigger_window(self, trigger_points: torch.Tensor, u1: int,
+                       tmax: int) -> torch.Tensor:
+        """JAX's per-step boundary: trigger_points [B, U] padded (or cut) to
+        the U+1 steps with T - 1, plus the lookahead, at most T - 1. Returns
+        trig [B, U+1] int32: step u attends to frames t <= trig[b, u]."""
+        tp = trigger_points.to(torch.int32)
+        tp = torch.nn.functional.pad(tp, (0, max(u1 - tp.shape[1], 0)),
+                                     value=tmax - 1)[:, :u1]
+        return torch.clamp(tp + self.trigger_lookahead, max=tmax - 1)
 
     def forward_mocha(self, eouts, elens, ys_in, ys_out, ylens,
                       gen: Optional[torch.Generator] = None,
@@ -426,10 +455,14 @@ class RNNDecoder(nn.Module):
         embedding's, the LSTM output's, the noise [B, U+1, H_ma, T], the
         readout's), and the expected alignments add the quantity loss
         (|sum of alpha's mass over the steps of the labels and eos - (U +
-        1)|, its mean over B, ``loss_quantity``) and the ``ctc_sync``
-        latency loss (|the expected boundary frame - trigger_points[b, u]|
-        over the valid labels whose trigger is >= 0, ``loss_latency``; the
-        trigger points [B, U] from ``CTC.trigger_points``). The returned
+        1)|, its mean over B, ``loss_quantity``) and the ``ctc_sync`` /
+        ``minlt`` latency loss (|the expected boundary frame -
+        trigger_points[b, u]| over the valid labels whose trigger is >= 0,
+        ``loss_latency``; the trigger points [B, U] from
+        ``CTC.trigger_points`` or from alignments). With ``decot`` and
+        trigger points, step u's alignment in ``train()`` is zeroed past
+        ``trigger_window``'s frame plus MoChA's ``decot_delta`` (the eval
+        loss's hard mode takes no mask, as JAX's). The returned
         loss carries them; obs["loss_att"] is the cross entropy alone.
         Under bf16 compute the cell, the energies and the readout compute
         in bf16, the alignment and both latency losses in float32 (C39)."""
@@ -457,6 +490,9 @@ class RNNDecoder(nn.Module):
         # the expected alignment in train(), the hard boundaries in eval()
         # (JAX: mode "hard" when deterministic, so the dev loss too)
         mode = "parallel" if self.training else "hard"
+        trig = self.trigger_window(trigger_points.to(dev), u1, tmax) \
+            if self.latency_metric == "decot" and \
+            trigger_points is not None and self.training else None
         queries, ctxs, alphas = [], [], []
         for u in range(u1):
             gates = torch.addmm(torch.addmm(eg[:, u], ctx, w_ctx), h,
@@ -464,7 +500,8 @@ class RNNDecoder(nn.Module):
             c, h = lstm_cell(gates, c)
             q = h if keep is None else h * keep[:, u]
             ctx, alpha, _ = attn(kc, q, alpha, mode, mask,
-                                 noise=None if noise is None else noise[:, u])
+                                 None if trig is None else trig[:, u],
+                                 None if noise is None else noise[:, u])
             queries.append(q)
             ctxs.append(ctx)
             alphas.append(alpha)
@@ -486,7 +523,7 @@ class RNNDecoder(nn.Module):
             qty = ((mass * valid).sum(1) - (ylens + 1).float()).abs()
             obs["loss_quantity"] = qty.mean()
             loss = loss + self.quantity_loss_weight * obs["loss_quantity"]
-        if self.latency_metric == "ctc_sync" and \
+        if self.latency_metric in ("ctc_sync", "minlt") and \
                 self.latency_loss_weight > 0 and trigger_points is not None:
             frames = torch.arange(tmax, device=dev, dtype=aws.dtype)
             exp_bd = (aws * frames).sum(3).mean(2)       # [B, U+1]
@@ -528,7 +565,9 @@ class RNNDecoder(nn.Module):
     def fed_tokens(self, ys_in, kc, values, klens,
                    masks: SamplingMasks) -> torch.Tensor:
         """Pass 1 of scheduled sampling: the tokens [B, U+1] the U+1 steps
-        are fed. Step u feeds ``argmax`` of step u-1's logits where
+        are fed. klens [B], or [U+1, B] a length per step (triggered
+        attention's window, the lengths K2 reads refilled before each
+        step). Step u feeds ``argmax`` of step u-1's logits where
         ``masks.sample[:, u]`` (token 0 at step 0: the argmax of the zero
         logits JAX's carry starts with) and ``ys_in[:, u]`` elsewhere. Each
         step runs K2 through its workspace (float32; the LSTM output's
@@ -540,11 +579,14 @@ class RNNDecoder(nn.Module):
         step, cell = self.step, self.step.cells[0]
         dt = step.embed.weight.dtype
         proj = step.proj()
+        per_step = klens.dim() == 2
+        lens = klens[0].clone() if per_step else klens
         ws = LasStepWorkspace(
             cell.w_ih[step.emb_dim:].float(), cell.w_hh.float(),
             cell.bias.float(),
-            *(w.float() for w in step.attn.kernel_weights()),
-            kc.float().contiguous(), values.float().contiguous(), klens,
+            *(None if w is None else w.float()
+              for w in step.attn.kernel_weights()),
+            kc.float().contiguous(), values.float().contiguous(), lens,
             None if proj is None else tuple(w.float() for w in proj))
         w_emb = cell.w_ih[:step.emb_dim].float()
         keep, att = (None if x is None else
@@ -555,6 +597,8 @@ class RNNDecoder(nn.Module):
         for u in range(ys_in.shape[1]):
             y = torch.where(masks.sample[:, u], prev, ys_in[:, u])
             fed[:, u] = y
+            if per_step:
+                lens.copy_(klens[u])
             emb = _scaled(step.embed(y), _at(masks.emb, u))
             torch.mm(emb.float(), w_emb, out=ws.eg)
             h, _, _, ctx = ws.step(keep=None if keep is None else keep[u],

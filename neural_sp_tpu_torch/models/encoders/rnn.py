@@ -36,6 +36,12 @@ boundary; a unidirectional encoder streams in blocks of 40 frames.
 In ``train()`` mode dropout (rate ``dropout``) runs after every layer, as
 the JAX module's; the step's generator is the ``gen`` argument of
 ``forward``.
+
+Random state passing (``forward_with_carry``, JAX's ``carry`` argument of
+the encoder's call): each layer starts from a carry (per layer (c, h), or
+((c, h) forward, (c, h) backward) for a BLSTM layer; None: zeros) and
+returns its state at each row's last frame, which the training step
+passes to the next batch.
 """
 from __future__ import annotations
 
@@ -295,6 +301,16 @@ class RNNEncoder(nn.Module):
         T', output_dim], "xlens": [B]}} and each tap's "ys_sub1" /
         "ys_sub2" (``task`` "ys_sub1" or "ys_sub2": the taps up to that one
         only), the lengths on xlens's device."""
+        return self._run(xs, xlens, task, gen)[0]
+
+    def forward_with_carry(self, xs: torch.Tensor, xlens: torch.Tensor,
+                           carry=None, gen: Optional[torch.Generator] = None):
+        """``forward`` from each layer's carry (None: zeros), with the
+        layers' carries at each row's last frame: (eouts, new_carry), a
+        list with one carry per layer (JAX's ``encode(..., carry=)``)."""
+        return self._run(xs, xlens, "all", gen, carry, True)
+
+    def _run(self, xs, xlens, task, gen, carry=None, with_carry=False):
         if xs.dtype in (torch.bfloat16, torch.float16):
             raise NotImplementedError(
                 "the RNN encoder computes in float32 (or float64) only "
@@ -305,11 +321,13 @@ class RNNEncoder(nn.Module):
         if self.conv is not None:
             h, xlens = self.conv(h, xlens)
             lens = new_lens(lens, self.conv.subsampling_factor)
-        eouts = {}
+        eouts, new_carry = {}, []
         for lth, (rnn, proj, factor, sub) in enumerate(self._layers()):
             # the LC layer's outputs do not depend on the lengths, only its
             # carry does, which the offline forward does not return
-            h, _ = rnn(h, None if self.lc else lens)
+            h, c = rnn(h, None if self.lc and not with_carry else lens,
+                       None if carry is None else carry[lth])
+            new_carry.append(c)
             h = self.drop(h, gen)
             if proj is not None:
                 h = torch.tanh(proj(h))
@@ -321,14 +339,14 @@ class RNNEncoder(nn.Module):
                     h_sub = getattr(self, f"bridge_{name}")(h_sub)
                 eouts[f"ys_{name}"] = {"xs": h_sub, "xlens": xlens}
                 if task == f"ys_{name}":
-                    return eouts
+                    return eouts, new_carry
             if factor > 1:
                 h, xlens = sub(h, xlens)
                 lens = new_lens(lens, factor)
         if self.bridge is not None:
             h = self.bridge(h)
         eouts["ys"] = {"xs": h, "xlens": xlens}
-        return eouts
+        return eouts, new_carry
 
     # ---- streaming inference (JAX's; the carry is explicit) ------------ #
     def stream_geometry(self) -> tuple[int, int, int, int]:

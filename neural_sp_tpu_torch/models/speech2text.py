@@ -15,6 +15,14 @@ head reads neither ``ctc_fc_list`` nor ``ctc_lsm_prob`` (ROADMAP C38). The
 step's randomness (SpecAugment, dropout) comes from the ``gen`` argument,
 a ``torch.Generator``; in ``eval()`` mode the loss is deterministic, as the
 JAX module's ``deterministic=True``.
+
+Trigger points (per-label boundary frames [B, U], -1 for none) reach a LAS
+decoder whose MoChA latency metric is ``ctc_sync``, ``decot`` or ``minlt``
+or whose attention is triggered, as JAX's rule: given ones (from word or
+CTC alignments on disk), else, except for ``minlt``, the forced alignment
+of the labels to the CTC head's log-probabilities, computed in
+``eval()`` too, with no gradient. ``forward_with_carry`` is JAX's random
+state passing: the RNN encoder starts from the previous batch's carry.
 """
 from __future__ import annotations
 
@@ -90,13 +98,15 @@ class Speech2Text(nn.Module):
                 ys_sub1: Optional[torch.Tensor] = None,
                 ylens_sub1: Optional[torch.Tensor] = None,
                 ys_sub2: Optional[torch.Tensor] = None,
-                ylens_sub2: Optional[torch.Tensor] = None):
+                ylens_sub2: Optional[torch.Tensor] = None,
+                trigger_points: Optional[torch.Tensor] = None):
         """xs [B, T, input_dim] features, xlens [B], ys [B, U] PAD-padded
-        labels, ylens [B]; the sub-tasks' labels likewise. Returns (loss,
-        obs) with obs "loss", "loss_ctc", "loss_att", "acc_att", "ppl_att"
-        (and a MoChA or MMA decoder's "loss_quantity" / "loss_latency" in
-        ``train()``), or with a transducer "loss", "loss_ctc",
-        "loss_transducer"; with sub-tasks "loss_ctc_sub1", "loss_att_sub1"
+        labels, ylens [B]; the sub-tasks' labels likewise; trigger_points
+        [B, U] int (-1: none) or None (see the module docstring). Returns
+        (loss, obs) with obs "loss", "loss_ctc", "loss_att", "acc_att",
+        "ppl_att" (and a MoChA or MMA decoder's "loss_quantity" /
+        "loss_latency" in ``train()``), or with a transducer "loss",
+        "loss_ctc", "loss_transducer"; with sub-tasks "loss_ctc_sub1", "loss_att_sub1"
         and the same for sub2."""
         xs = self._frontend(xs, xlens, gen)
         eouts_all = self.encoder(xs, xlens, gen=gen)
@@ -109,14 +119,7 @@ class Speech2Text(nn.Module):
             loss = loss + self.ctc_weight * loss_ctc
             obs["loss_ctc"] = loss_ctc
         if self.dec_fwd is not None and self.fwd_weight > 0:
-            trig = None
-            if self.training and self.ctc is not None and \
-                    getattr(self.dec_fwd, "latency_metric", "") == "ctc_sync":
-                # MoChA's ctc_sync targets: the forced alignment of the
-                # labels to the CTC head's deterministic log-probabilities,
-                # no gradient (JAX computes them in eval mode too, where
-                # nothing reads them)
-                trig = self.ctc.trigger_points(ex, el, ys, ylens)
+            trig = self.decoder_triggers(ex, el, ys, ylens, trigger_points)
             loss_att, obs_att = self.dec_fwd(ex, el, ys, ylens, gen, trig)
             loss = loss + self.fwd_weight * loss_att
             obs.update(obs_att)
@@ -144,6 +147,47 @@ class Speech2Text(nn.Module):
         return loss, obs
 
 
+    def decoder_triggers(self, ex, el, ys, ylens, trigger_points=None):
+        """The trigger points the main decoder takes (JAX's ``needs_trig``
+        rule): None unless the decoder reads them (MoChA's ``ctc_sync``,
+        ``decot`` or ``minlt``, triggered attention); the given ones, or
+        else (not for ``minlt``) the CTC head's forced alignment of the
+        labels, which carries no gradient."""
+        metric = getattr(self.dec_fwd, "latency_metric", "")
+        if metric not in ("ctc_sync", "decot", "minlt") and \
+                getattr(self.dec_fwd, "attn_type", "") != "triggered":
+            return None
+        if trigger_points is None and self.ctc is not None and \
+                metric != "minlt":
+            trigger_points = self.ctc.trigger_points(ex, el, ys, ylens)
+        return trigger_points
+
+    def forward_with_carry(self, xs: torch.Tensor, xlens: torch.Tensor,
+                           ys: torch.Tensor, ylens: torch.Tensor, carry,
+                           gen: Optional[torch.Generator] = None):
+        """JAX's ``forward_with_carry``, random state passing: the frontend,
+        the RNN encoder from ``carry`` (per layer, None: zeros), then
+        ``ctc_weight * loss_ctc + fwd_weight * loss_dec`` (no trigger
+        points, no sub-tasks, as JAX's). Returns (loss, obs, new_carry):
+        the encoder's carry at each row's last frame."""
+        xs = self._frontend(xs, xlens, gen)
+        eouts, new_carry = self.encoder.forward_with_carry(xs, xlens, carry,
+                                                           gen)
+        ex, el = eouts["ys"]["xs"], eouts["ys"]["xlens"]
+        loss = torch.zeros((), dtype=torch.float32, device=xs.device)
+        obs = {}
+        if self.ctc is not None and self.ctc_weight > 0:
+            loss_ctc, _ = self.ctc(ex, el, ys, ylens, gen)
+            loss = loss + self.ctc_weight * loss_ctc
+            obs["loss_ctc"] = loss_ctc
+        if self.dec_fwd is not None and self.fwd_weight > 0:
+            loss_att, obs_att = self.dec_fwd(ex, el, ys, ylens, gen)
+            loss = loss + self.fwd_weight * loss_att
+            obs.update(obs_att)
+        obs["loss"] = loss
+        return loss, obs, new_carry
+
+
 # the task weights ``Speech2Text.set_weights`` sets
 WEIGHTS = ("ctc_weight", "sub1_weight", "ctc_weight_sub1", "sub2_weight",
            "ctc_weight_sub2")
@@ -151,13 +195,13 @@ WEIGHTS = ("ctc_weight", "sub1_weight", "ctc_weight_sub1", "sub2_weight",
 
 # Training and model options of the JAX package the port does not have:
 # each raises when set (non-zero / non-empty). The encoder's and the
-# decoder's own options are read (or refused) by their builders.
-# rsp_prob_enc is the recipes' name of random state passing, which the JAX
-# package reads as rsp_prob only (ROADMAP C16).
+# decoder's own options are read (or refused) by ``build_encoder`` and
+# ``build_decoder``. (The recipes' rsp_prob_enc, random state passing, is
+# the train CLI's: ROADMAP C16.)
 _NOT_PORTED = ("bwd_weight", "sequence_summary_network", "input_noise_std",
                "adaptive_number_ratio", "adaptive_size_ratio",
                "distillation_weight", "teacher", "mbr_training",
-               "weight_noise_std", "rsp_prob_enc")
+               "weight_noise_std")
 
 
 def build_speech2text(args, device=None) -> Speech2Text:

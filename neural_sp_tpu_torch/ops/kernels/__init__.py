@@ -14,7 +14,9 @@ from .rnnt_loss import rnnt_loss_bwd, rnnt_loss_fwd
 # instantiation) and those without dropout with fewer queries than keys
 # (against cached keys, or the Transformer-XL's memory), and those at a
 # head width below 16, padded; K2 / K3 / K3b count again their launches
-# with attention dropout, and those with the decoder's projection)
+# with attention dropout, those with the decoder's projection and those
+# with the additive energy, and K3 / K3b those with a length per step,
+# triggered attention's window)
 KERNELS = {"rel_attention": (rel_attention, "launches"),
            "rel_attention_bf16": (rel_attention, "launches_bf16"),
            "rel_attention_window": (rel_attention, "launches_window"),
@@ -34,12 +36,17 @@ KERNELS = {"rel_attention": (rel_attention, "launches"),
            "las_step": (las_step, "launches"),
            "las_step_dropout": (las_step, "launches_dropout"),
            "las_step_proj": (las_step, "launches_proj"),
+           "las_step_add": (las_step, "launches_add"),
            "las_scan": (las_scan, "launches"),
            "las_scan_dropout": (las_scan, "launches_dropout"),
            "las_scan_proj": (las_scan, "launches_proj"),
+           "las_scan_add": (las_scan, "launches_add"),
+           "las_scan_window": (las_scan, "launches_window"),
            "las_scan_bwd": (las_scan_bwd, "launches"),
            "las_scan_bwd_dropout": (las_scan_bwd, "launches_dropout"),
            "las_scan_bwd_proj": (las_scan_bwd, "launches_proj"),
+           "las_scan_bwd_add": (las_scan_bwd, "launches_add"),
+           "las_scan_bwd_window": (las_scan_bwd, "launches_window"),
            "ctc_loss": (ctc_loss_fwd, "launches"),
            "ctc_loss_bwd": (ctc_loss_bwd, "launches"),
            "rnnt_loss": (rnnt_loss_fwd, "launches"),

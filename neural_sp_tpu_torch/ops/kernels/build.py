@@ -112,8 +112,8 @@ def load_library() -> ctypes.CDLL:
         "nsp_rel_attention_bwd_bf16": [_P] * 15 + [_I] * 9 + [_P],
         "nsp_las_step_f32": [_P] * 27 + [_I] * 8 + [_P],
         "nsp_las_step_plan_f32": [_P, _I, _I, _P, _P, _P, _P],
-        "nsp_las_scan_f32": [_P] * 29 + [_I] * 9 + [_P],
-        "nsp_las_scan_bwd_f32": [_P] * 36 + [_I] * 9 + [_P],
+        "nsp_las_scan_f32": [_P] * 29 + [_I] * 10 + [_P],
+        "nsp_las_scan_bwd_f32": [_P] * 36 + [_I] * 10 + [_P],
         "nsp_ctc_alpha_f32": [_P] * 6 + [_I] * 4 + [_P],
         "nsp_ctc_beta_grad_f32": [_P] * 8 + [_I] * 4 + [_P],
         "nsp_rnnt_alpha_f32": [_P] * 6 + [_I] * 3 + [_P],

@@ -59,6 +59,13 @@
 //                partial sum. The next step's consumers (bwd_cell for dh,
 //                bwd_attention for dctx) add the partials in a fixed
 //                order: deterministic, no atomics.
+//
+// The additive energy (C = 0; the decoder's `add` and triggered
+// attention: z = kc + q_t, no location conv) runs instantiations of its
+// own (kLoc false): no W_f, conv_w or aw_prev read, no loc, dloc, dW_f or
+// dconv, and bwd_conv only sums dq_t; daw_carry stays zero, since nothing
+// but the context reads the weights. Triggered attention's window is a
+// per-step length (klens [U, N], step t's row read at t).
 
 #include "las_common.cuh"
 
@@ -194,8 +201,9 @@ __device__ __noinline__ void dwf_rest(const float* dzs, const float* loc, float*
 // their loc W_f^T to the kc rows before it, and their dW_f is summed after
 // it from the stored dz. akeep (m_t) and pkeep (m_{t-1}) [N, T] may be
 // null (pkeep at t = 0); they are read in the kDrop instantiation only
-// (attention dropout), so the other keeps the code it had without.
-template <bool kDrop>
+// (attention dropout), so the other keeps the code it had without. kLoc
+// false: the additive energy (see the top of the file).
+template <bool kDrop, bool kLoc>
 __global__ void __launch_bounds__(kThreads, 3)  // three blocks (their shared memory) per SM
 bwd_attention(const float* __restrict__ dctx_out, const float* __restrict__ part, int n_part,
               const float* __restrict__ daw_c, const float* __restrict__ values,
@@ -228,9 +236,11 @@ bwd_attention(const float* __restrict__ dctx_out, const float* __restrict__ part
   const bool active = t0 < klen;
   const int nf = min(kFrames, klen - t0);    // the block's valid frames, if active
   if (active) {
-    copy_async(wf, w_f, A * C);
-    copy_async(cw, conv_w, C * K);
-    window_async(awp, aw_prev, n, t0, T, K);
+    if (kLoc) {
+      copy_async(wf, w_f, A * C);
+      copy_async(cw, conv_w, C * K);
+      window_async(awp, aw_prev, n, t0, T, K);
+    }
     cp_async_commit();
   }
   // dctx, and the thread's share of the row sum's ctx_t . dctx
@@ -257,7 +267,7 @@ bwd_attention(const float* __restrict__ dctx_out, const float* __restrict__ part
   rs = warp_sum(rs);
   if (lane == 0) red[warp] = rs;
   cp_async_wait_one();  // W_f, conv_w, aw_prev's window
-  if (kDrop && pkeep != nullptr) scale_window(awp, pkeep, n, t0, T, K);  // this thread's copies
+  if (kLoc && kDrop && pkeep != nullptr) scale_window(awp, pkeep, n, t0, T, K);  // this thread's copies
   __syncthreads();
   // values . dctx of the block's frames: a warp per two frames (warp and
   // warp + kWarps), their loads interleaved
@@ -281,8 +291,10 @@ bwd_attention(const float* __restrict__ dctx_out, const float* __restrict__ part
     }
   }
   // loc[tl, c] = sum_k aw_prev[t0 + tl + k - left] conv[c, k]
-  loc_group(awp, cw, loc, 0, C, K);
-  if (C > kGroupC) loc_rest(awp, cw, loc, C, K);
+  if (kLoc) {
+    loc_group(awp, cw, loc, 0, C, K);
+    if (C > kGroupC) loc_rest(awp, cw, loc, C, K);
+  }
   __syncthreads();
   rs = 0.0f;
   for (int w = 0; w < kWarps; ++w) rs += red[w];
@@ -293,7 +305,7 @@ bwd_attention(const float* __restrict__ dctx_out, const float* __restrict__ part
   }
   cp_async_wait_none();  // kc
   __syncthreads();
-  if (C > kGroupC) features_rest(loc, wf, dzs, nf, A, C);
+  if (kLoc && C > kGroupC) features_rest(loc, wf, dzs, nf, A, C);
   const size_t nb = (size_t)n * gridDim.x + tb;
   for (int a0 = tid; a0 < A; a0 += 2 * kThreads) {
     const int a1 = a0 + kThreads;
@@ -302,8 +314,8 @@ bwd_attention(const float* __restrict__ dctx_out, const float* __restrict__ part
     float wf0[kGroupC], wf1[kGroupC], dwf0[kGroupC], dwf1[kGroupC];
 #pragma unroll
     for (int c = 0; c < kGroupC; ++c) {
-      wf0[c] = c < C ? wf[a0 * C + c] : 0.0f;
-      wf1[c] = c < C ? wf[a1c * C + c] : 0.0f;
+      wf0[c] = kLoc && c < C ? wf[a0 * C + c] : 0.0f;
+      wf1[c] = kLoc && c < C ? wf[a1c * C + c] : 0.0f;
       dwf0[c] = dwf1[c] = 0.0f;
     }
     const float q0 = q[(size_t)n * A + a0], q1 = q[(size_t)n * A + a1c];
@@ -315,7 +327,7 @@ bwd_attention(const float* __restrict__ dctx_out, const float* __restrict__ part
       float f0 = 0.0f, f1 = 0.0f;
 #pragma unroll
       for (int c = 0; c < kGroupC; ++c) {
-        lc[c] = c < C ? loc[tl * C + c] : 0.0f;
+        lc[c] = kLoc && c < C ? loc[tl * C + c] : 0.0f;
         f0 += lc[c] * wf0[c];
         f1 += lc[c] * wf1[c];
       }
@@ -344,15 +356,16 @@ bwd_attention(const float* __restrict__ dctx_out, const float* __restrict__ part
     float* dwp = dwf_part + nb * C * A;        // [C][A]
 #pragma unroll
     for (int c = 0; c < kGroupC; ++c)
-      if (c < C) atomicAdd(dwp + (size_t)c * A + a0, dwf0[c]);
+      if (kLoc && c < C) atomicAdd(dwp + (size_t)c * A + a0, dwf0[c]);
     if (two) {
       dq_part[((size_t)tb * N + n) * A + a1] = dq1;
       atomicAdd(dv_part + nb * A + a1, dv1);
 #pragma unroll
       for (int c = 0; c < kGroupC; ++c)
-        if (c < C) atomicAdd(dwp + (size_t)c * A + a1, dwf1[c]);
+        if (kLoc && c < C) atomicAdd(dwp + (size_t)c * A + a1, dwf1[c]);
     }
   }
+  if (!kLoc) return;  // no location conv: nothing reads dloc
   if (C > kGroupC) dwf_rest(dzs, loc, dwf_part + nb * C * A, nf, A, C);
   __syncthreads();
   // dloc[t, c] = sum_a dz[t, a] W_f[a, c] on the valid frames
@@ -375,8 +388,8 @@ __host__ __device__ inline size_t conv_bwd_smem_floats(int C, int K) {
 // (those with valid frames), in order, for the block's slice of a; dconv
 // kGroupC channels at a time. pkeep [N, T] (may be null): aw_prev's
 // attention dropout scale (dconv reads aw_prev pkeep), read in the kDrop
-// instantiation only.
-template <bool kDrop>
+// instantiation only. kLoc false (the additive energy): dq_t alone.
+template <bool kDrop, bool kLoc>
 __global__ void __launch_bounds__(kThreads)
 bwd_conv(const float* __restrict__ dloc, const float* __restrict__ aw_prev,
          const float* __restrict__ pkeep, const float* __restrict__ conv_w,
@@ -395,14 +408,16 @@ bwd_conv(const float* __restrict__ dloc, const float* __restrict__ aw_prev,
   const int w0 = t0 + left - (K - 1);
   const int tid = threadIdx.x;
   const int klen = min(klens[n], T);
-  copy_async(cw, conv_w, C * K);
-  for (int i = tid; i < C * W; i += kThreads) {  // along dloc's rows
-    const int c = i % C, fi = i / C, f = w0 + fi;
-    const bool in = f >= 0 && f < klen;
-    cp_async4(win + (size_t)c * W + fi, dloc + (in ? ((size_t)n * T + f) * C + c : 0), in);
+  if (kLoc) {
+    copy_async(cw, conv_w, C * K);
+    for (int i = tid; i < C * W; i += kThreads) {  // along dloc's rows
+      const int c = i % C, fi = i / C, f = w0 + fi;
+      const bool in = f >= 0 && f < klen;
+      cp_async4(win + (size_t)c * W + fi, dloc + (in ? ((size_t)n * T + f) * C + c : 0), in);
+    }
+    window_async(awp, aw_prev, n, t0, T, K);
+    cp_async_commit();
   }
-  window_async(awp, aw_prev, n, t0, T, K);
-  cp_async_commit();
   const int n_valid = (klen + kFrames - 1) / kFrames;  // attention blocks with parts
   const int slice = (A + gridDim.x - 1) / gridDim.x;
   for (int a = tb * slice + tid; a < min(A, (tb + 1) * slice); a += kThreads) {
@@ -411,6 +426,7 @@ bwd_conv(const float* __restrict__ dloc, const float* __restrict__ aw_prev,
     for (int p = 0; p < n_valid; ++p) s += dq_part[((size_t)p * N + n) * A + a];
     dq[(size_t)n * A + a] = s;
   }
+  if (!kLoc) return;
   cp_async_wait_none();
   if (kDrop && pkeep != nullptr) scale_window(awp, pkeep, n, t0, T, K);  // this thread's copies
   __syncthreads();
@@ -643,6 +659,13 @@ bwd_recurrent(const float* __restrict__ dy, const float* __restrict__ w_ctx,
   }
 }
 
+// The shared memory of one instantiation's bwd_attention and bwd_conv.
+template <bool kDrop, bool kLoc>
+cudaError_t allow_attention_smem(size_t att_smem, size_t c_smem) {
+  const cudaError_t err = allow_smem<bwd_attention<kDrop, kLoc>>(att_smem);
+  return err != cudaSuccess ? err : allow_smem<bwd_conv<kDrop, kLoc>>(c_smem);
+}
+
 }  // namespace
 
 // Shared memory (bytes) the largest block of a backward step asks for.
@@ -679,6 +702,9 @@ extern "C" int nsp_las_scan_bwd_parts(int H) { return (4 * H + kRecK - 1) / kRec
 // is formed from it after the loop); accumulated into (zeroed by the
 // caller) dkc [N, T, A], dv_part [N * ceil(T / 16), A], dwf_part [N *
 // ceil(T / 16), C, A] (transposed), dconv_part [N * ceil(T / 16), C, K].
+// klens is [N], or with klens_per_step 1 [U, N] (each step's lengths, as
+// K3 took them); C = K = 0 (conv_w, w_f, dwf_part and dconv_part null):
+// the additive energy.
 // *launched (host memory) receives the number of kernels launched.
 // Returns a cudaError_t.
 extern "C" int nsp_las_scan_bwd_f32(
@@ -689,11 +715,12 @@ extern "C" int nsp_las_scan_bwd_f32(
     const void* ctx_all, const void* aw0, const void* dh_out, const void* dctx_out, void* dc_c,
     void* daw_c, void* part, void* dloc, void* dq_part, void* dy_all, void* dq_all,
     void* dctx_tot, void* dkc, void* dv_part, void* dwf_part, void* dconv_part, void* launched,
-    int U, int N, int T, int H, int D, int A, int C, int K, int P, void* stream) {
+    int U, int N, int T, int H, int D, int A, int C, int K, int P, int klens_per_step,
+    void* stream) {
   int* count = static_cast<int*>(launched);
   *count = 0;
-  if (U <= 0 || N <= 0 || T <= 0 || H <= 0 || D <= 0 || A <= 0 || C <= 0 || K <= 0 ||
-      N > 65535 || P < 0)
+  if (U <= 0 || N <= 0 || T <= 0 || H <= 0 || D <= 0 || A <= 0 || C < 0 || K < 0 ||
+      (C == 0) != (K == 0) || N > 65535 || P < 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* kl = static_cast<const int*>(klens);
@@ -707,14 +734,16 @@ extern "C" int nsp_las_scan_bwd_f32(
   const size_t cell_smem = sizeof(float) * cell_smem_floats(cell_a);
   const size_t rec_smem = sizeof(float) * kRecSmemFloats;
   cudaError_t err;
-  // attention dropout runs the kDrop instantiations
-  const bool drop = att_keep != nullptr;
-  auto* attention = drop ? bwd_attention<true> : bwd_attention<false>;
-  auto* conv = drop ? bwd_conv<true> : bwd_conv<false>;
-  if ((err = drop ? allow_smem<bwd_attention<true>>(att_smem)
-                  : allow_smem<bwd_attention<false>>(att_smem)) != cudaSuccess)
-    return (int)err;
-  if ((err = drop ? allow_smem<bwd_conv<true>>(c_smem) : allow_smem<bwd_conv<false>>(c_smem)) !=
+  // attention dropout runs the kDrop instantiations, C = 0 the additive ones
+  const bool drop = att_keep != nullptr, loc = C > 0;
+  auto* attention = loc ? (drop ? bwd_attention<true, true> : bwd_attention<false, true>)
+                        : (drop ? bwd_attention<true, false> : bwd_attention<false, false>);
+  auto* conv = loc ? (drop ? bwd_conv<true, true> : bwd_conv<false, true>)
+                   : (drop ? bwd_conv<true, false> : bwd_conv<false, false>);
+  if ((err = loc ? (drop ? allow_attention_smem<true, true>(att_smem, c_smem)
+                         : allow_attention_smem<false, true>(att_smem, c_smem))
+                  : (drop ? allow_attention_smem<true, false>(att_smem, c_smem)
+                          : allow_attention_smem<false, false>(att_smem, c_smem))) !=
       cudaSuccess)
     return (int)err;
   if ((err = allow_smem<bwd_cell>(cell_smem)) != cudaSuccess) return (int)err;
@@ -723,6 +752,7 @@ extern "C" int nsp_las_scan_bwd_f32(
   const dim3 rec_grid((D + H + kRecRows - 1) / kRecRows, n_part, (N + kRecN - 1) / kRecN);
   const dim3 cell_grid((H + kCellUnits - 1) / kCellUnits, (N + kCellRows - 1) / kCellRows);
   for (int t = U - 1; t >= 0; --t) {
+    const int* kl_t = kl + (klens_per_step ? (size_t)t * N : 0);
     const float* aw_prev = (t > 0) ? F(aw_all) + (size_t)(t - 1) * nt : F(aw0);
     const float* akeep = att_keep != nullptr ? F(att_keep) + (size_t)t * nt : nullptr;
     const float* pkeep = att_keep != nullptr && t > 0 ? F(att_keep) + (size_t)(t - 1) * nt
@@ -731,12 +761,12 @@ extern "C" int nsp_las_scan_bwd_f32(
     const int parts = (t < U - 1) ? n_part : 0;
     attention<<<att_grid, kThreads, att_smem, s>>>(
         F(dctx_out) + t * nd, F(part), parts, F(daw_c), F(values), F(aw_all) + t * nt,
-        F(ctx_all) + t * nd, kl, F(q_all) + t * na, aw_prev, akeep, pkeep, F(conv_w), F(w_f),
+        F(ctx_all) + t * nd, kl_t, F(q_all) + t * na, aw_prev, akeep, pkeep, F(conv_w), F(w_f),
         F(v), F(kc),
         W(dctx_tot) + t * nd, W(dkc), W(dloc), W(dq_part), W(dv_part), W(dwf_part), N, T, D, H,
         A, C, K);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    conv<<<att_grid, kThreads, c_smem, s>>>(F(dloc), aw_prev, pkeep, F(conv_w), kl, F(dq_part),
+    conv<<<att_grid, kThreads, c_smem, s>>>(F(dloc), aw_prev, pkeep, F(conv_w), kl_t, F(dq_part),
                                             W(daw_c), W(dconv_part), W(dq_all) + t * na, N, T,
                                             A, C, K);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;

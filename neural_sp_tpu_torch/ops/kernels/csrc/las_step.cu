@@ -21,6 +21,14 @@
 // row). The design reads exactly that and prefetches what no step writes
 // before a kernel waits for the one before it.
 //
+// The additive energy (C = 0: no conv_w, no w_f), the LAS decoder's
+// `add` and triggered attention, e = v . tanh(kc + h W_q), runs in
+// instantiations of its own (kLoc false): no location conv, no W_f, and
+// aw_prev is not read. Triggered attention's window (frames t <= the
+// step's trigger) is a per-step length: K2 reads it from its klens, K3
+// steps through a [U, N] klens array, min(klens, trigger + 1), so the
+// window masks exactly as the lengths do.
+//
 // Two options of the decoder ride on the same chains. Attention dropout
 // (a [N, T] scale per step): the context is formed from aw keep, and the
 // next step's location conv reads the dropped weights (K2 carries them,
@@ -117,6 +125,8 @@ constexpr int kCellThreads = 128;
 // and the location conv reads aw_prev prev_keep (K3 keeps each step's raw
 // weights, so the next step drops them where it reads them).
 enum Drop { kNoDrop, kDropCarry, kDropOnRead };
+// kLoc (a template parameter of the attention kernels): location
+// attention's energies; false: the additive energy, with no location conv.
 
 constexpr int kQueryRows = 8;        // rows n per block of las_query
 constexpr int kQueryAhead = 8;       // float4 of a weight row a lane loads ahead (H <= 1024)
@@ -539,6 +549,14 @@ __device__ __forceinline__ int attend_frames(int klen, int T) {
   return klen == 0 ? T : klen;
 }
 
+// *p, loaded where it stands in program order: after an earlier
+// grid_dependency_wait(), which a plain load of read-only data may pass.
+__device__ __forceinline__ float load_ordered(const float* p) {
+  float x;
+  asm volatile("ld.global.f32 %0, [%1];" : "=f"(x) : "l"(p) : "memory");
+  return x;
+}
+
 // sum over the channels past the first group of l[c] w[c].
 static __device__ __noinline__ float rest_dot(const float* l, const float* w, int C) {
   float s = 0.0f;
@@ -569,8 +587,10 @@ static __device__ __noinline__ float rest_dot(const float* l, const float* w, in
 // keep; m, s and the p stored stay those of the undropped weights), and
 // with kDropOnRead prev_keep [N, T] scales aw_prev where the location conv
 // reads it; neither is read with kNoDrop, so that instantiation keeps the
-// code it had without dropout. Returns the block's number of frames.
-template <bool kStoreP, Drop kD>
+// code it had without dropout. kLoc false: the additive energy v .
+// tanh(kc + q), with neither conv_w, w_f, aw_prev nor prev_keep read.
+// Returns the block's number of frames.
+template <bool kStoreP, Drop kD, bool kLoc>
 __device__ __forceinline__ int attend_block(
     float* smem, const float* __restrict__ q, const float* __restrict__ aw_prev,
     const int* __restrict__ parent, const float* __restrict__ conv_w,
@@ -603,12 +623,12 @@ __device__ __forceinline__ int attend_block(
   const int left = (K - 1) / 2;
   const size_t prow = (size_t)(parent != nullptr ? parent[n] : n) * T;
   float pkv = 1.0f;
-  if (kD == kDropOnRead && tid < kFrames + K - 1) {
+  if (kLoc && kD == kDropOnRead && tid < kFrames + K - 1) {
     const int t = t0 + tid - left;
     if (t >= 0 && t < T) pkv = prev_keep[prow + t];
   }
   // what no step writes does not wait for the kernels before
-  if (!empty) copy_async(cw, conv_w, C * K);
+  if (kLoc && !empty) copy_async(cw, conv_w, C * K);
   cp_async_commit();
   if (!empty) copy_async(kcs, kc + row0 * A, nf * A);
   cp_async_commit();
@@ -625,14 +645,14 @@ __device__ __forceinline__ int attend_block(
       float wf0[kGroupC], wf1[kGroupC];
 #pragma unroll
       for (int c = 0; c < kGroupC; ++c) {
-        wf0[c] = c < C ? w_f[(size_t)a0c * C + c] : 0.0f;
-        wf1[c] = c < C ? w_f[(size_t)a1c * C + c] : 0.0f;
+        wf0[c] = kLoc && c < C ? w_f[(size_t)a0c * C + c] : 0.0f;
+        wf1[c] = kLoc && c < C ? w_f[(size_t)a1c * C + c] : 0.0f;
       }
       const float v0 = a0 < A ? v[a0] : 0.0f, v1 = a1 < A ? v[a1] : 0.0f;
       if (base == 0) {
         grid_dependency_wait();  // aw_prev and q are the steps' own
         grid_dependents_launch();
-        for (int i = tid; i < kFrames + K - 1; i += kThreads) {
+        for (int i = tid; kLoc && i < kFrames + K - 1; i += kThreads) {
           const int t = t0 + i - left;
           if (t < 0 || t >= T) {
             awp[i] = 0.0f;
@@ -642,12 +662,18 @@ __device__ __forceinline__ int attend_block(
             awp[i] = aw_prev[prow + t];
           }
         }
-        cp_async_wait_two();  // conv_w
-        __syncthreads();
-        loc_group(awp, cw, loc, 0, C, K);
-        if (C > kGroupC) loc_rest(awp, cw, loc, C, K);
+        if (kLoc) {
+          cp_async_wait_two();  // conv_w
+          __syncthreads();
+          loc_group(awp, cw, loc, 0, C, K);
+          if (C > kGroupC) loc_rest(awp, cw, loc, C, K);
+        }
       }
-      const float q0 = q[(size_t)n * A + a0c], q1 = q[(size_t)n * A + a1c];
+      // the additive form reads q right after the wait: a plain load from
+      // a const __restrict__ pointer may be scheduled before it (read-only
+      // path), so the read is ordered after it explicitly
+      const float q0 = kLoc ? q[(size_t)n * A + a0c] : load_ordered(q + (size_t)n * A + a0c);
+      const float q1 = kLoc ? q[(size_t)n * A + a1c] : load_ordered(q + (size_t)n * A + a1c);
       if (base == 0) {
         cp_async_wait_one();  // kc
         __syncthreads();      // and loc
@@ -659,11 +685,11 @@ __device__ __forceinline__ int attend_block(
         float f0 = 0.0f, f1 = 0.0f;
 #pragma unroll
         for (int c = 0; c < kGroupC; ++c) {
-          const float lc = c < C ? lt[c] : 0.0f;
+          const float lc = kLoc && c < C ? lt[c] : 0.0f;
           f0 = fmaf(lc, wf0[c], f0);
           f1 = fmaf(lc, wf1[c], f1);
         }
-        if (C > kGroupC) {
+        if (kLoc && C > kGroupC) {
           f0 += rest_dot(lt, w_f + (size_t)a0c * C, C);
           f1 += rest_dot(lt, w_f + (size_t)a1c * C, C);
         }
@@ -718,8 +744,9 @@ __device__ __forceinline__ int attend_block(
 // cluster (and in the scan, K3): a block per (kFrames frames, row n) runs
 // attend_block and leaves p in aw_out, (m, s) in part_ms [N, n_tb, 2] and
 // the unnormalised partial context in part_ctx [N, n_tb, D];
-// las_attend_combine finishes the row. kD: attention dropout (Drop).
-template <Drop kD>
+// las_attend_combine finishes the row. kD: attention dropout (Drop); kLoc:
+// the energy (location or additive).
+template <Drop kD, bool kLoc>
 __global__ void __launch_bounds__(kThreads, 3)  // three blocks (their shared memory) per SM
 las_attend_part(const float* __restrict__ q, const float* __restrict__ aw_prev,
                 const int* __restrict__ parent, const float* __restrict__ conv_w,
@@ -732,7 +759,7 @@ las_attend_part(const float* __restrict__ q, const float* __restrict__ aw_prev,
   extern __shared__ float4 attend_smem[];  // float4: 16-byte aligned for cp.async
   const size_t slot = (size_t)blockIdx.y * gridDim.x + blockIdx.x;
   float* ps;
-  attend_block<true, kD>(reinterpret_cast<float*>(attend_smem), q, aw_prev, parent, conv_w, w_f,
+  attend_block<true, kD, kLoc>(reinterpret_cast<float*>(attend_smem), q, aw_prev, parent, conv_w, w_f,
                          v, kc, values, klens, att_keep, prev_keep, aw_out, part_ms + slot * 2,
                          part_ctx + slot * D, &ps, T, D, A, C, K);
 }
@@ -749,8 +776,8 @@ las_attend_part(const float* __restrict__ q, const float* __restrict__ aw_prev,
 // of the row's gridDim.x blocks take the place of the block's keys in
 // shared memory, so gridDim.x may not exceed attend_smem_floats().
 // kCarry: att_keep [N, T] as attend_block, and it scales the weights
-// written too (K2 carries the dropped weights on).
-template <bool kCarry>
+// written too (K2 carries the dropped weights on). kLoc: the energy.
+template <bool kCarry, bool kLoc>
 __global__ void __launch_bounds__(kThreads, 3)
 las_attend(const float* __restrict__ q, const float* __restrict__ aw_prev,
            const int* __restrict__ parent, const float* __restrict__ conv_w,
@@ -772,7 +799,7 @@ las_attend(const float* __restrict__ q, const float* __restrict__ aw_prev,
     kwv[i] = kCarry && t < T ? kw[t] : 1.0f;
   }
   float* ps;
-  const int nf = attend_block<true, kCarry ? kDropCarry : kNoDrop>(
+  const int nf = attend_block<true, kCarry ? kDropCarry : kNoDrop, kLoc>(
       reinterpret_cast<float*>(attend_smem), q, aw_prev, parent, conv_w, w_f, v, kc, values,
       klens, att_keep, nullptr, aw_out, part_ms + slot * 2, part_ctx + slot * D, &ps, T, D, A,
       C, K);
@@ -977,7 +1004,7 @@ cudaError_t gates_and_cell(const Chain& ch, const Step& st) {
 }
 
 // las_attend_part and las_attend_combine: any number of frames.
-template <Drop kD>
+template <Drop kD, bool kLoc>
 cudaError_t attend_in_two_as(const Chain& ch, const Step& st) {
   const Scratch sc = carve(st.N, st.T, st.H, st.D, st.A);
   float* part_ms = st.scratch + sc.part_ms;
@@ -985,8 +1012,8 @@ cudaError_t attend_in_two_as(const Chain& ch, const Step& st) {
   const int n_tb = (st.T + kFrames - 1) / kFrames;
   const size_t a_smem = sizeof(float) * attend_smem_floats(st.D, st.A, st.C, st.K);
   cudaError_t err;
-  if ((err = allow_smem<las_attend_part<kD>>(a_smem)) != cudaSuccess) return err;
-  if ((err = ch.run(las_attend_part<kD>, dim3(n_tb, st.N), kThreads, a_smem, st.q, st.aw_prev,
+  if ((err = allow_smem<las_attend_part<kD, kLoc>>(a_smem)) != cudaSuccess) return err;
+  if ((err = ch.run(las_attend_part<kD, kLoc>, dim3(n_tb, st.N), kThreads, a_smem, st.q, st.aw_prev,
                     st.parent, st.conv_w, st.w_f, st.v, st.kc, st.values, st.klens,
                     st.att_keep, st.prev_keep, st.aw_out, part_ms, part_ctx, st.T, st.D, st.A,
                     st.C, st.K)) != cudaSuccess)
@@ -998,22 +1025,28 @@ cudaError_t attend_in_two_as(const Chain& ch, const Step& st) {
                 st.klens, part_ms, part_ctx, st.att_keep, st.aw_out, st.ctx_out, st.T, st.D);
 }
 
-cudaError_t attend_in_two(const Chain& ch, const Step& st) {
+template <bool kLoc>
+cudaError_t attend_in_two_energy(const Chain& ch, const Step& st) {
   switch (st.drop) {
-    case kDropCarry: return attend_in_two_as<kDropCarry>(ch, st);
-    case kDropOnRead: return attend_in_two_as<kDropOnRead>(ch, st);
-    default: return attend_in_two_as<kNoDrop>(ch, st);
+    case kDropCarry: return attend_in_two_as<kDropCarry, kLoc>(ch, st);
+    case kDropOnRead: return attend_in_two_as<kDropOnRead, kLoc>(ch, st);
+    default: return attend_in_two_as<kNoDrop, kLoc>(ch, st);
   }
 }
 
+// C = 0: the additive energy
+cudaError_t attend_in_two(const Chain& ch, const Step& st) {
+  return st.C > 0 ? attend_in_two_energy<true>(ch, st) : attend_in_two_energy<false>(ch, st);
+}
+
 // las_attend (K2's attention in one launch).
-template <bool kCarry>
+template <bool kCarry, bool kLoc>
 cudaError_t attend_in_one(const Chain& ch, const Step& st, size_t a_smem) {
   const Scratch sc = carve(st.N, st.T, st.H, st.D, st.A);
   const int n_tb = (st.T + kFrames - 1) / kFrames;
-  const cudaError_t err = allow_smem<las_attend<kCarry>>(a_smem);
+  const cudaError_t err = allow_smem<las_attend<kCarry, kLoc>>(a_smem);
   if (err != cudaSuccess) return err;
-  return ch.run(las_attend<kCarry>, dim3(n_tb, st.N), kThreads, a_smem, st.q, st.aw_prev,
+  return ch.run(las_attend<kCarry, kLoc>, dim3(n_tb, st.N), kThreads, a_smem, st.q, st.aw_prev,
                 st.parent, st.conv_w, st.w_f, st.v, st.kc, st.values, st.klens, st.att_keep,
                 st.aw_out, st.scratch + sc.part_ms,
                 st.scratch + sc.part_ctx, counts_of(st, sc), st.ctx_out, st.T, st.D, st.A, st.C,
@@ -1094,12 +1127,17 @@ cudaError_t decode_step(const Step& st, int* launched, cudaStream_t s) {
   const size_t a_floats = attend_smem_floats(st.D, st.A, st.C, st.K);
   if ((size_t)n_tb > a_floats) return attend_in_two(ch, st);
   const size_t a_smem = sizeof(float) * a_floats;
-  return st.drop == kDropCarry ? attend_in_one<true>(ch, st, a_smem)
-                               : attend_in_one<false>(ch, st, a_smem);
+  if (st.C == 0)  // the additive energy
+    return st.drop == kDropCarry ? attend_in_one<true, false>(ch, st, a_smem)
+                                 : attend_in_one<false, false>(ch, st, a_smem);
+  return st.drop == kDropCarry ? attend_in_one<true, true>(ch, st, a_smem)
+                               : attend_in_one<false, true>(ch, st, a_smem);
 }
 
+// C = K = 0: the additive energy (conv_w and w_f are not read)
 bool bad_sizes(int N, int T, int H, int D, int A, int C, int K) {
-  return N <= 0 || T <= 0 || H <= 0 || D <= 0 || A <= 0 || C <= 0 || K <= 0 || N > 65535;
+  return N <= 0 || T <= 0 || H <= 0 || D <= 0 || A <= 0 || C < 0 || K < 0 || (C == 0) != (K == 0) ||
+         N > 65535;
 }
 
 }  // namespace
@@ -1177,8 +1215,8 @@ extern "C" int nsp_las_step_plan_f32(const NspLasStepPlan* p, int from, int use_
 // width A, conv channels C, conv width K. Shapes (row-major, contiguous):
 //   eg [N, 4H], ctx_prev [N, D], h_prev [N, H], c_prev [N, H],
 //   aw_prev [N, T], w_ctx [D, 4H], w_h [H, 4H], bias [4H], w_q [A, H],
-//   conv_w [C, K], w_f [A, C], v [A], kc [N, T, A], values [N, T, D],
-//   klens [N] int32; parent [N] int32 or null: row n reads row parent[n]
+//   conv_w [C, K], w_f [A, C], v [A] (C = K = 0, conv_w and w_f null:
+//   the additive energy), kc [N, T, A], values [N, T, D], klens [N] int32; parent [N] int32 or null: row n reads row parent[n]
 //   of ctx_prev, h_prev, c_prev and aw_prev; keep [N, H] or null: the
 //   dropout scale of the step's output (the query reads h keep, h_out is
 //   h); att_keep [N, T] or null: the dropout scale of the step's attention
@@ -1225,8 +1263,10 @@ extern "C" int nsp_las_step_f32(const void* eg, const void* ctx_prev, const void
 // [A, P]), the step-0 carry h0, c0 [N, H], aw0 [N, T],
 // ctx0 [N, D] (zeros in training), and the outputs h_all, c_all [U, N, H],
 // gates [U, N, 4H] (activations i, f, g, o), q_all [U, N, A], aw_all
-// [U, N, T], ctx_all [U, N, D]. *launched (host memory) receives the
-// number of kernels launched. Returns a cudaError_t.
+// [U, N, T], ctx_all [U, N, D]. klens is [N], or with klens_per_step 1
+// [U, N]: step t's lengths (triggered attention's window). C = K = 0 (and
+// conv_w, w_f null): the additive energy. *launched (host memory)
+// receives the number of kernels launched. Returns a cudaError_t.
 extern "C" int nsp_las_scan_f32(const void* eg, const void* w_ctx, const void* w_h,
                                 const void* bias, const void* w_q, const void* conv_w,
                                 const void* w_f, const void* v, const void* kc,
@@ -1236,7 +1276,7 @@ extern "C" int nsp_las_scan_f32(const void* eg, const void* w_ctx, const void* w
                                 const void* aw0, const void* ctx0, void* scratch, void* h_all,
                                 void* c_all, void* gates, void* q_all, void* aw_all,
                                 void* ctx_all, void* launched, int U, int N, int T, int H, int D, int A, int C,
-                                int K, int P, void* stream) {
+                                int K, int P, int klens_per_step, void* stream) {
   int* count = static_cast<int*>(launched);
   *count = 0;
   if (U <= 0 || P < 0 || bad_sizes(N, T, H, D, A, C, K) ||
@@ -1253,7 +1293,8 @@ extern "C" int nsp_las_scan_f32(const void* eg, const void* w_ctx, const void* w
                   first ? F(c0) : F(c_all) + prev * nh,
                   first ? F(aw0) : F(aw_all) + prev * N * T,
                   F(w_ctx), F(w_h), F(bias), F(w_q), F(conv_w), F(w_f), F(v), F(kc), F(values),
-                  static_cast<const int*>(klens), nullptr, F(keep) + (size_t)t * nh, W(scratch),
+                  static_cast<const int*>(klens) + (klens_per_step ? (size_t)t * N : 0), nullptr,
+                  F(keep) + (size_t)t * nh, W(scratch),
                   W(q_all) + (size_t)t * N * A, W(h_all) + (size_t)t * nh,
                   W(c_all) + (size_t)t * nh, W(gates) + (size_t)t * nh * 4,
                   W(aw_all) + (size_t)t * N * T, W(ctx_all) + (size_t)t * N * D,

@@ -45,6 +45,13 @@ db, dW_q) and dvalues are single products over all steps here
 (``las_scan_bwd_finish``), as the Pallas ``_bwd`` reduced them outside
 its kernel.
 
+The additive energy (``conv_w`` and ``w_f`` None; the decoder's ``add``
+and triggered attention) is ``e = v . tanh(kc + hd W_q^T)``: K3 and K3b
+run instantiations of their own with no location conv and no loc W_f^T,
+and its adjoint has no dconv, dW_f or daw carry (their gradients are
+None). Triggered attention's window is a length per step: klens [U, B]
+(time-major), step t's row read at t, ``min(klens, trigger + 1)``.
+
 K3, K3b and their plain PyTorch versions ``las_scan_ref`` and
 ``las_scan_bwd_ref`` (the adjoint written out, not autograd) work
 time-major: every per-step tensor is [U, B, ...]. ``LASScan`` is the
@@ -61,26 +68,47 @@ import torch.nn.functional as F
 
 from ._checks import check, on_cpu, raise_on_error, stream_of
 from .build import load_library
-from .las_step import (SMEM_LIMIT, attend_flops, attend_ref,
+from .las_step import (SMEM_LIMIT, _ptr, attend_flops, attend_ref,
+                       energy_features, given, location_dims,
                        location_features, project, query_weights,
                        step_scratch)
 from .roofline import valid_lengths
 
+
+def step_lengths(klens, u: int):
+    """klens [B] or [U, B] (a length per step) -> [U, B]."""
+    return klens.expand(u, -1) if klens.dim() == 1 else klens
+
+
+def valid_frames(klens, t: int, u: int) -> tuple[int, int, int]:
+    """(the valid frames summed over the steps and rows, the frames of kc
+    and values a run reads: each row's longest step, the lengths' count)
+    of klens [B] or [U, B] (a tensor or nested lists)."""
+    lens = torch.as_tensor(klens).cpu()
+    count = lens.numel()
+    lens = step_lengths(lens, u)
+    per_step = sum(sum(valid_lengths(row, t)) for row in lens)
+    read = sum(valid_lengths(lens.max(0).values, t))
+    return per_step, read, count
+
+
 def las_scan_ref(eg, w_ctx, w_h, bias, w_q, conv_w, w_f, v, kc, values,
                  klens, keep, att_keep=None, proj=None):
     """Plain version of K3. eg [U, B, 4H] (the embedding half of the gates);
-    weights as ``las_step_ref``; kc [B, T, A]; values [B, T, D]; klens [B];
-    keep [U, B, H]; att_keep [U, B, T] or None (no attention dropout);
-    proj (W_p, b_p) or None (no projection). Returns (h, c, gates, q, aw,
-    ctx), each [U, B, ...], and with proj p [U, B, P] after them: gates
-    are the activations (i, f, g, o), q the queries, aw the raw weights
-    (undropped), ctx from the dropped ones."""
+    weights as ``las_step_ref`` (conv_w and w_f None: the additive
+    energy); kc [B, T, A]; values [B, T, D]; klens [B], or [U, B] a length
+    per step; keep [U, B, H]; att_keep [U, B, T] or None (no attention
+    dropout); proj (W_p, b_p) or None (no projection). Returns (h, c,
+    gates, q, aw, ctx), each [U, B, ...], and with proj p [U, B, P] after
+    them: gates are the activations (i, f, g, o), q the queries, aw the
+    raw weights (undropped), ctx from the dropped ones."""
     u, bs, g4 = eg.shape
     hdim, t = g4 // 4, kc.shape[1]
     h = eg.new_zeros((bs, hdim))
     c = eg.new_zeros((bs, hdim))
     aw = eg.new_zeros((bs, t))
     ctx = eg.new_zeros((bs, values.shape[-1]))
+    lens = step_lengths(klens, u)
     outs = []
     for i in range(u):
         y = eg[i] + ctx @ w_ctx + h @ w_h + bias
@@ -93,7 +121,7 @@ def las_scan_ref(eg, w_ctx, w_h, bias, w_q, conv_w, w_f, v, kc, values,
         aw_prev = aw if att_keep is None or i == 0 else aw * att_keep[i - 1]
         p = project(h * keep[i], proj)
         q, aw, ctx = attend_ref(p, aw_prev, w_q, conv_w, w_f, v, kc, values,
-                                klens,
+                                lens[i],
                                 None if att_keep is None else att_keep[i])
         outs.append((h, c, gates, q, aw, ctx) + (() if proj is None
                                                   else (p,)))
@@ -132,7 +160,7 @@ def las_scan_bwd_ref(w_ctx, w_h, w_q, conv_w, w_f, v, kc, values, klens,
     it; with the projection W_p, K3's p and its gradient dp_out [U, B, P]
     (None without). Returns (d_eg [U, B, 4H], dW_ctx, dW_h, db, dW_q,
     dconv_w, dW_f, dv, dkc, dvalues), and with the projection (dW_p, db_p)
-    after them."""
+    after them; dconv_w and dW_f are None for the additive energy."""
     (dy, dq, _, d_conv, d_w_f, d_v, dkc, dvalues,
      *dpre) = las_scan_bwd_steps_ref(
         w_ctx, w_h, w_q, conv_w, w_f, v, kc, values, klens, keep, h, c,
@@ -151,16 +179,19 @@ def las_scan_bwd_steps_ref(w_ctx, w_h, w_q, conv_w, w_f, v, kc, values,
     the projection its per-step dpre [U, B, P] after them."""
     u, bs, hdim = h.shape
     t = kc.shape[1]
-    ch, k = conv_w.shape
+    loc_on = conv_w is not None
+    k = conv_w.shape[1] if loc_on else 0
     left = (k - 1) // 2
-    valid = torch.arange(t, device=kc.device)[None] < klens.to(kc.device)[:, None]
+    valid = torch.arange(t, device=kc.device)[None, None] < \
+        step_lengths(klens.to(kc.device), u)[..., None]          # [U, B, T]
     dh_c = h.new_zeros((bs, hdim))
     dc_c = h.new_zeros((bs, hdim))
     dctx_c = h.new_zeros((bs, ctx.shape[-1]))
     daw_c = h.new_zeros((bs, t))
     dkc, dvalues = torch.zeros_like(kc), torch.zeros_like(values)
-    d_v, d_w_f, d_conv = torch.zeros_like(v), torch.zeros_like(w_f), \
-        torch.zeros_like(conv_w)
+    d_v = torch.zeros_like(v)
+    d_w_f, d_conv = (torch.zeros_like(w_f), torch.zeros_like(conv_w)) \
+        if loc_on else (None, None)
     dys, dqs, dctxs, dpres = [], [], [], []
     # the dropped weights: what the context and the next step's conv read
     aw_d = aw if att_keep is None else aw * att_keep
@@ -174,22 +205,24 @@ def las_scan_bwd_steps_ref(w_ctx, w_h, w_q, conv_w, w_f, v, kc, values,
         if att_keep is not None:
             daw = daw * att_keep[i]
         de = aw_t * (daw - (aw_t * daw).sum(-1, keepdim=True))
-        de = torch.where(valid, de, torch.zeros_like(de))
-        # energies: e = v . tanh(z), z = kc + q + loc W_f^T
-        loc = location_features(aw_prev, conv_w)                 # [B, T, C]
-        s = torch.tanh(kc + q[i][:, None] + loc @ w_f.t())
+        de = torch.where(valid[i], de, torch.zeros_like(de))
+        # energies: e = v . tanh(z), z = kc + q (+ loc W_f^T)
+        s = torch.tanh(energy_features(kc, q[i], aw_prev, conv_w, w_f))
         d_v += torch.einsum("bt,bta->a", de, s)
         dz = de[:, :, None] * v * (1.0 - s * s)
         dkc += dz
         dq = dz.sum(1)                                           # [B, A]
-        d_w_f += torch.einsum("bta,btc->ac", dz, loc)
-        dloc = dz @ w_f                                          # [B, T, C]
-        # location conv: loc[t, c] = sum_k aw_prev[t + k - left] conv[c, k]
-        daw_pad = F.conv_transpose1d(dloc.transpose(1, 2),
-                                     conv_w[:, None, :])[:, 0]   # [B, T+K-1]
-        daw_c = daw_pad[:, left:left + t]
-        aw_pad = F.pad(aw_prev, (left, k - 1 - left)).unfold(-1, k, 1)
-        d_conv += torch.einsum("btc,btk->ck", dloc, aw_pad)
+        if loc_on:
+            loc = location_features(aw_prev, conv_w)             # [B, T, C]
+            d_w_f += torch.einsum("bta,btc->ac", dz, loc)
+            dloc = dz @ w_f                                      # [B, T, C]
+            # location conv: loc[t, c] = sum_k aw_prev[t + k - left]
+            # conv[c, k]
+            daw_pad = F.conv_transpose1d(dloc.transpose(1, 2),
+                                         conv_w[:, None, :])[:, 0]
+            daw_c = daw_pad[:, left:left + t]                    # [B, T]
+            aw_pad = F.pad(aw_prev, (left, k - 1 - left)).unfold(-1, k, 1)
+            d_conv += torch.einsum("btc,btk->ck", dloc, aw_pad)
         # query from the dropped output (or its projection), then the cell
         dquery = dq @ w_q
         if w_p is not None:
@@ -220,13 +253,15 @@ def las_scan_cost(u, b, t, hd, d, a, ch, k, klens, att_drop: bool = False,
     products, the projection's of width ``n_p`` with them). Reads the
     weights, kc and values (valid frames) once and eg, keep (with
     ``att_drop`` the attention dropout scale [B, T] too) per step; writes
-    h, c, gates, q, aw, ctx (and p) per step."""
-    tv = sum(valid_lengths(klens, t))
+    h, c, gates, q, aw, ctx (and p) per step. klens [B] or [U, B] (a
+    window per step: each step's valid frames count; ch = k = 0 for the
+    additive energy)."""
+    tv_steps, tv, n_lens = valid_frames(klens, t, u)
     qw = query_weights(hd, a, n_p)
-    flops = u * (2 * b * ((d + hd) * 4 * hd + qw)
-                 + attend_flops(tv, hd, d, a, ch, k))
+    flops = u * 2 * b * ((d + hd) * 4 * hd + qw) + \
+        attend_flops(tv_steps, hd, d, a, ch, k)
     weights = (d + hd) * 4 * hd + 4 * hd + qw + ch * k + a * ch + a
-    ins = weights + tv * (a + d) + b + u * b * (4 * hd + hd)
+    ins = weights + tv * (a + d) + n_lens + u * b * (4 * hd + hd)
     if att_drop:
         ins += u * b * t
     outs = u * b * (2 * hd + 4 * hd + a + t + d + n_p)
@@ -244,28 +279,28 @@ def las_scan_bwd_cost(u, b, t, hd, d, a, ch, k, klens,
     once and K3's saved per-step tensors and the output gradients (with
     ``att_drop`` the attention dropout scale [U, B, T]; with the
     projection of width ``n_p`` its p and dp per step); writes every
-    gradient."""
-    tv = sum(valid_lengths(klens, t))
+    gradient. klens as ``las_scan_cost``."""
+    tv_steps, tv, n_lens = valid_frames(klens, t, u)
     qw = query_weights(hd, a, n_p)
-    per_step = 2 * b * (4 * hd * (hd + d) + qw) + \
-        2 * tv * (3 * ch * k + 3 * a * ch + 2 * a + 2 * d)
+    per_step = 2 * b * (4 * hd * (hd + d) + qw)
+    frames = 2 * tv_steps * (3 * ch * k + 3 * a * ch + 2 * a + 2 * d)
     outside = 2 * u * b * (hd * 4 * hd + d * 4 * hd + qw)
     weights = (d + hd) * 4 * hd + qw + ch * k + a * ch + a
-    ins = weights + tv * (a + d) + b + \
+    ins = weights + tv * (a + d) + n_lens + \
         u * b * (hd + 2 * hd + 4 * hd + a + t + d + hd + d + 2 * n_p)
     if att_drop:
         ins += u * b * t
     outs = u * b * 4 * hd + weights + 4 * hd + b * t * (a + d)
-    return u * per_step + outside, 4 * (ins + outs)
+    return u * per_step + frames + outside, 4 * (ins + outs)
 
 
 def _check_shapes(b, u, hd, w_ctx, w_h, bias, w_q, conv_w, w_f, v, kc,
                   values, klens, keep, att_keep=None, w_p=None, b_p=None):
     """Checks K3's / K3b's operands and the shared memory their blocks ask
     for. Returns (library, (U, B, T, H, D, A, C, K), P): P the projection's
-    width (0 without)."""
+    width (0 without), C = K = 0 for the additive energy."""
     g4, t, a, d = 4 * hd, kc.shape[1], kc.shape[2], values.shape[2]
-    ch, k = conv_w.shape
+    ch, k = location_dims(conv_w, w_f)
     n_p = 0 if w_p is None else w_p.shape[0]
     want = {"w_ctx": (d, g4), "w_h": (hd, g4), "bias": (g4,),
             "w_q": (a, n_p or hd), "conv_w": (ch, k), "w_f": (a, ch),
@@ -277,7 +312,7 @@ def _check_shapes(b, u, hd, w_ctx, w_h, bias, w_q, conv_w, w_f, v, kc,
                                                att_keep, w_p, b_p)):
         if x is not None:      # the backward takes no bias
             check(name, x, shape)
-    check("klens", klens, (b,), torch.int32)
+    check("klens", klens, (b,) if klens.dim() == 1 else (u, b), torch.int32)
     lib = load_library()
     smem = max(lib.nsp_las_step_smem_bytes(t, max(hd, n_p), d, a, ch, k),
                lib.nsp_las_scan_bwd_smem_bytes(t, d, max(a, n_p), ch, k))
@@ -287,11 +322,6 @@ def _check_shapes(b, u, hd, w_ctx, w_h, bias, w_q, conv_w, w_f, v, kc,
     return lib, (u, b, t, hd, d, a, ch, k), n_p
 
 
-def _ptr(x):
-    """x's device pointer, or None."""
-    return None if x is None else x.data_ptr()
-
-
 def las_scan(eg, w_ctx, w_h, bias, w_q, conv_w, w_f, v, kc, values, klens,
              keep, att_keep=None, proj=None):
     """K3: (h, c, gates, q, aw, ctx), and with ``proj`` p after them, as
@@ -299,12 +329,13 @@ def las_scan(eg, w_ctx, w_h, bias, w_q, conv_w, w_f, v, kc, values, klens,
     tensors launch the kernel (float32, contiguous, int32 klens) or raise.
     Counts in ``las_scan.launches`` (and one with attention dropout also
     in ``las_scan.launches_dropout``, one with the projection in
-    ``las_scan.launches_proj``); the number of kernels it launched
+    ``las_scan.launches_proj``, one with the additive energy in
+    ``las_scan.launches_add``, one with a length per step in
+    ``las_scan.launches_window``); the number of kernels it launched
     goes to ``las_scan.kernel_launches_per_call``."""
     args = (eg, w_ctx, w_h, bias, w_q, conv_w, w_f, v, kc, values, klens,
             keep)
-    extra = tuple(x for x in (att_keep, *(proj or ())) if x is not None)
-    if on_cpu(*args, *extra):
+    if on_cpu(*given(*args, att_keep, *(proj or ()))):
         return las_scan_ref(*args, att_keep, proj)
     u, b, g4 = eg.shape
     check("eg", eg, (u, b, g4))
@@ -328,14 +359,17 @@ def las_scan(eg, w_ctx, w_h, bias, w_q, conv_w, w_f, v, kc, values, klens,
         (b, t), dtype=torch.float32, device=dev)
     launched = ctypes.c_int(0)
     err = lib.nsp_las_scan_f32(
-        *(x.data_ptr() for x in args),
+        *(_ptr(x) for x in args),
         *(_ptr(x) for x in (att_keep, aw0_keep, w_p, b_p, p)),
         *(x.data_ptr() for x in (*zeros, scratch, *outs)),
-        ctypes.addressof(launched), *dims, n_p, stream_of(eg))
+        ctypes.addressof(launched), *dims, n_p, int(klens.dim() == 2),
+        stream_of(eg))
     raise_on_error("las_scan", err)
     las_scan.launches += 1
     las_scan.launches_dropout += att_keep is not None
     las_scan.launches_proj += proj is not None
+    las_scan.launches_add += conv_w is None
+    las_scan.launches_window += klens.dim() == 2
     las_scan.kernel_launches_per_call = launched.value
     return tuple(outs) if p is None else (*outs, p)
 
@@ -354,8 +388,10 @@ def las_scan_bwd_finish(h, ctx, keep, aw, dy, dq, dctx, dkc, dconv_part,
     d_values = torch.einsum("ubt,ubd->btd",
                             aw if att_keep is None else aw * att_keep, dctx)
     grads = _weight_grads(h, ctx, keep, dy, dq, p, dpre)
-    return (dy, *grads[:4], dconv_part.sum(0), dwf_part.sum(0).t(),
-            dv_part.sum(0), dkc, d_values, *grads[4:])
+    d_loc = (None, None) if dconv_part is None else \
+        (dconv_part.sum(0), dwf_part.sum(0).t())
+    return (dy, *grads[:4], *d_loc, dv_part.sum(0), dkc, d_values,
+            *grads[4:])
 
 
 def las_scan_bwd_chain(w_ctx, w_h, w_q, conv_w, w_f, v, kc, values, klens,
@@ -367,7 +403,10 @@ def las_scan_bwd_chain(w_ctx, w_h, w_q, conv_w, w_f, v, kc, values, klens,
     ``las_scan_bwd.launches`` (with attention dropout also in
     ``las_scan_bwd.launches_dropout``, with the projection in
     ``las_scan_bwd.launches_proj``); the number of kernels it launched
-    goes to ``las_scan_bwd.kernel_launches_per_call``."""
+    goes to ``las_scan_bwd.kernel_launches_per_call``. With the additive
+    energy dconv_part and dwf_part come back None (and count in
+    ``las_scan_bwd.launches_add``), with a length per step it counts in
+    ``las_scan_bwd.launches_window``."""
     u, b, hd = h.shape
     lib, dims, n_p = _check_shapes(b, u, hd, w_ctx, w_h, None, w_q, conv_w,
                                    w_f, v, kc, values, klens, keep, att_keep,
@@ -400,19 +439,23 @@ def las_scan_bwd_chain(w_ctx, w_h, w_q, conv_w, w_f, v, kc, values, klens,
                empty(b, t, ch), empty(n_tb, b, a))
     dy, dq, dctx = empty(u, b, 4 * hd), empty(u, b, a), empty(u, b, d)
     dkc = zeros(b, t, a)
-    dv_part, dwf_part = zeros(b * n_tb, a), zeros(b * n_tb, ch, a)
-    dconv_part = zeros(b * n_tb, ch, k)
+    dv_part = zeros(b * n_tb, a)
+    dwf_part, dconv_part = (zeros(b * n_tb, ch, a), zeros(b * n_tb, ch, k)) \
+        if ch else (None, None)
     launched = ctypes.c_int(0)
     err = lib.nsp_las_scan_bwd_f32(
-        *(x.data_ptr() for x in ins),
+        *(_ptr(x) for x in ins),
         *(_ptr(x) for x in (att_keep, w_p, p, dp_out, dpre)),
-        *(x.data_ptr() for x in (*saved, *carries, *scratch, dy, dq, dctx,
-                                 dkc, dv_part, dwf_part, dconv_part)),
-        ctypes.addressof(launched), *dims, n_p, stream_of(h))
+        *(_ptr(x) for x in (*saved, *carries, *scratch, dy, dq, dctx,
+                            dkc, dv_part, dwf_part, dconv_part)),
+        ctypes.addressof(launched), *dims, n_p, int(klens.dim() == 2),
+        stream_of(h))
     raise_on_error("las_scan_bwd", err)
     las_scan_bwd.launches += 1
     las_scan_bwd.launches_dropout += att_keep is not None
     las_scan_bwd.launches_proj += w_p is not None
+    las_scan_bwd.launches_add += conv_w is None
+    las_scan_bwd.launches_window += klens.dim() == 2
     las_scan_bwd.kernel_launches_per_call = launched.value
     loop = (dy, dq, dctx, dkc, dconv_part, dwf_part, dv_part)
     return loop if dpre is None else (*loop, dpre)
@@ -427,7 +470,7 @@ def las_scan_bwd(w_ctx, w_h, w_q, conv_w, w_f, v, kc, values, klens, keep,
     args = (w_ctx, w_h, w_q, conv_w, w_f, v, kc, values, klens, keep, h, c,
             gates, q, aw, ctx, dh_out, dctx_out)
     opt = (att_keep, w_p, p, dp_out)
-    if on_cpu(*args, *(x for x in opt if x is not None)):
+    if on_cpu(*given(*args, *opt)):
         return las_scan_bwd_ref(*args, *opt)
     loop = las_scan_bwd_chain(*args, *opt)
     dpre = loop[7] if len(loop) > 7 else None
@@ -436,8 +479,10 @@ def las_scan_bwd(w_ctx, w_h, w_q, conv_w, w_f, v, kc, values, klens, keep,
 
 
 las_scan.launches = las_scan.launches_dropout = las_scan.launches_proj = 0
+las_scan.launches_add = las_scan.launches_window = 0
 las_scan_bwd.launches = las_scan_bwd.launches_dropout = 0
-las_scan_bwd.launches_proj = 0
+las_scan_bwd.launches_proj = las_scan_bwd.launches_add = 0
+las_scan_bwd.launches_window = 0
 # kernels the last call of K3 / K3b launched (the per-step chain, U steps)
 las_scan.kernel_launches_per_call = 0
 las_scan_bwd.kernel_launches_per_call = 0
@@ -451,7 +496,9 @@ def _tm(x):
 class LASScan(torch.autograd.Function):
     """K3 forward, K3b backward, batch-major at its boundary: eg [B, U, 4H],
     keep [B, U, H], att_keep [B, U, T] (the attention dropout scale) or
-    None, and the projection's w_p [P, H] and b_p [P] or None in; (h
+    None, and the projection's w_p [P, H] and b_p [P] or None in (conv_w
+    and w_f None: the additive energy; klens [B], or [U, B] time-major, a
+    length per step, as K3 reads it); (h
     [B, U, H], ctx [B, U, D], aw [B, U, T]) out, and with the projection p
     [B, U, P] after them: views of K3's time-major outputs, which are saved
     for K3b as they are (aw the raw weights). aw is not differentiable
@@ -468,8 +515,8 @@ class LASScan(torch.autograd.Function):
                 klens, keep, att_keep=None, w_p=None, b_p=None):
         floats = (eg, w_ctx, w_h, bias, w_q, conv_w, w_f, v, kc, values) + \
             (() if w_p is None else (w_p, b_p))
-        ctx_.dtypes = [x.dtype for x in floats]
-        floats = [x.float() for x in floats]
+        ctx_.dtypes = [None if x is None else x.dtype for x in floats]
+        floats = [None if x is None else x.float() for x in floats]
         (eg, w_ctx, w_h, bias, w_q, conv_w, w_f, v, kc, values) = floats[:10]
         proj = None if w_p is None else tuple(floats[10:])
         keep = _tm(keep.float())
@@ -494,6 +541,7 @@ class LASScan(torch.autograd.Function):
         dp_out = None if p is None else _tm(dp.float())
         grads = las_scan_bwd(*saved, _tm(dh.float()), _tm(dctx.float()),
                              att_keep, w_p, p, dp_out)
-        d_eg, *rest = (g.to(dt) for g, dt in zip(grads, ctx_.dtypes))
+        d_eg, *rest = (None if g is None else g.to(dt)
+                       for g, dt in zip(grads, ctx_.dtypes))
         proj = rest[9:] if p is not None else [None, None]
         return (d_eg.transpose(0, 1), *rest[:9], None, None, None, *proj)

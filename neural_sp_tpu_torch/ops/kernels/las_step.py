@@ -19,6 +19,12 @@ JAX's ``aw_new = aw`` after its dropout. With the decoder's projection
 (``proj`` = (w_p [P, H], b_p [P]), JAX's ``projs_0``) the query is
 ``p W_q^T`` of ``p = relu(h keep W_p^T + b_p)``, one more launch of the
 query kernel before the query's; p is returned for the readout.
+With ``conv_w`` and ``w_f`` None the energy is the additive one, ``e = v .
+tanh(kc + q)`` (the decoder's ``add`` and triggered attention): the kernels
+run instantiations of their own that read no location weights and do no
+conv work, and ``aw_prev`` is not read. Triggered attention's window
+(frames ``t <= trigger``) is a length: the caller passes ``min(klens,
+trigger + 1)`` as klens.
 
 On the H100 a step over N rows is small: by bytes it needs the gate
 weights ((D + H) x 4H floats) and each row's keys and values over its valid
@@ -79,15 +85,25 @@ def location_features(aw_prev, conv_w):
     return F.conv1d(aw_pad[:, None], conv_w[:, None]).transpose(1, 2)
 
 
+def energy_features(kc, q, aw_prev, conv_w, w_f):
+    """z = kc + q + loc W_f^T [N, T, A] of location attention (loc the
+    location features of aw_prev), or the additive energy's kc + q when
+    conv_w is None."""
+    z = kc + q[:, None]
+    if conv_w is None:
+        return z
+    return z + location_features(aw_prev, conv_w) @ w_f.t()
+
+
 def attend_ref(query, aw_prev, w_q, conv_w, w_f, v, kc, values, klens,
                att_keep=None):
-    """Location attention of one step from the query [N, H]. Returns
-    (q = query W_q^T [N, A], aw [N, T], ctx [N, D]): aw the raw masked
-    softmax, ctx = (aw att_keep) values (att_keep [N, T], the attention
-    dropout scale, or None: none)."""
+    """Location attention of one step from the query [N, H] (the additive
+    energy when conv_w and w_f are None). Returns (q = query W_q^T [N, A],
+    aw [N, T], ctx [N, D]): aw the raw masked softmax, ctx = (aw att_keep)
+    values (att_keep [N, T], the attention dropout scale, or None:
+    none)."""
     q = query @ w_q.t()
-    loc = location_features(aw_prev, conv_w)
-    e = torch.tanh(kc + q[:, None] + loc @ w_f.t()) @ v          # [N, T]
+    e = torch.tanh(energy_features(kc, q, aw_prev, conv_w, w_f)) @ v  # [N, T]
     valid = (torch.arange(e.shape[1], device=e.device)[None]
              < klens.to(e.device)[:, None])
     aw = torch.softmax(apply_mask_logits(e, valid), dim=-1)
@@ -194,7 +210,8 @@ def las_step_ref(eg, ctx_prev, h_prev, c_prev, aw_prev, w_ctx, w_h, bias,
 def attend_flops(t_valid, hd, d, a, ch, k) -> int:
     """Flops of one step's attention over ``t_valid`` valid frames in all
     (the query h W_q^T is counted per row by the caller): the location
-    conv, loc W_f^T, v . tanh(...) and aw values."""
+    conv, loc W_f^T (none for the additive energy: ch = k = 0), v .
+    tanh(...) and aw values."""
     return 2 * t_valid * (ch * k + a * ch + a + d)
 
 
@@ -223,15 +240,34 @@ def las_step_cost(n, t, hd, d, a, ch, k, klens, att_drop: bool = False,
     return flops, 4 * (weights + rows + n * (2 * hd + t + d + n_p))
 
 
+def location_dims(conv_w, w_f) -> tuple[int, int]:
+    """(C, K) of the location conv, (0, 0) for the additive energy (conv_w
+    and w_f None)."""
+    if (conv_w is None) != (w_f is None):
+        raise ValueError("conv_w and w_f: both or neither (additive)")
+    return (0, 0) if conv_w is None else tuple(conv_w.shape)
+
+
+def given(*xs):
+    """The arguments that are given (not None)."""
+    return tuple(x for x in xs if x is not None)
+
+
+def _ptr(x):
+    """x's device pointer, or None."""
+    return None if x is None else x.data_ptr()
+
+
 def _checked(eg, ctx_prev, h_prev, c_prev, aw_prev, w_ctx, w_h, bias, w_q,
              conv_w, w_f, v, kc, values, klens, parent, keep=None,
              att_keep=None, proj=None):
     """Checks a step's CUDA operands (dtype, shape, contiguity, the shared
     memory its blocks ask for). Returns (library, (N, T, H, D, A, C, K),
-    P): P the projection's width (0 without)."""
+    P): P the projection's width (0 without); C = K = 0 for the additive
+    energy."""
     n, t = aw_prev.shape
     hdim, d = h_prev.shape[1], ctx_prev.shape[1]
-    a, (c_ch, k) = w_q.shape[0], conv_w.shape
+    a, (c_ch, k) = w_q.shape[0], location_dims(conv_w, w_f)
     n_p = 0 if proj is None else proj[0].shape[0]
     if proj is not None:
         check("w_p", proj[0], (n_p, hdim))
@@ -245,7 +281,8 @@ def _checked(eg, ctx_prev, h_prev, c_prev, aw_prev, w_ctx, w_h, bias, w_q,
     for (name, shape), x in zip(shapes.items(), (
             eg, ctx_prev, h_prev, c_prev, aw_prev, w_ctx, w_h, bias, w_q,
             conv_w, w_f, v, kc, values)):
-        check(name, x, shape)
+        if x is not None or name not in ("conv_w", "w_f"):
+            check(name, x, shape)
     check("klens", klens, (n,), torch.int32)
     if parent is not None:
         check("parent", parent, (n,), torch.int32)
@@ -274,12 +311,13 @@ def las_step(eg, ctx_prev, h_prev, c_prev, aw_prev, w_ctx, w_h, bias,
     ``LasStepWorkspace`` instead, which gives the same result bit for bit.
     Every call adds one to ``las_step.launches`` (and one with att_keep
     to ``las_step.launches_dropout``, one with proj to
-    ``las_step.launches_proj``); the kernels it launched go to
+    ``las_step.launches_proj``, one with the additive energy to
+    ``las_step.launches_add``); the kernels it launched go to
     ``las_step.kernels_per_step``."""
     args = (eg, ctx_prev, h_prev, c_prev, aw_prev, w_ctx, w_h, bias, w_q,
             conv_w, w_f, v, kc, values, klens)
     opt = (parent, keep, att_keep)
-    if on_cpu(*args, *(x for x in (*opt, *(proj or ())) if x is not None)):
+    if on_cpu(*given(*args, *opt, *(proj or ()))):
         return las_step_ref(*args, parent=parent, keep=keep,
                             att_keep=att_keep, proj=proj)
     lib, dims, n_p = _checked(*args, *opt, proj)
@@ -293,15 +331,15 @@ def las_step(eg, ctx_prev, h_prev, c_prev, aw_prev, w_ctx, w_h, bias,
                                               device=eg.device)
     launched = ctypes.c_int(0)
     err = lib.nsp_las_step_f32(
-        *(x.data_ptr() for x in args),
-        *(None if x is None else x.data_ptr() for x in (*opt, *(
-            proj or (None, None)), p)),
+        *(_ptr(x) for x in args),
+        *(_ptr(x) for x in (*opt, *(proj or (None, None)), p)),
         *(x.data_ptr() for x in (scratch, h, c, aw, ctx)),
         ctypes.addressof(launched), *dims, n_p, stream_of(eg))
     raise_on_error("las_step", err)
     las_step.launches += 1
     las_step.launches_dropout += att_keep is not None
     las_step.launches_proj += proj is not None
+    las_step.launches_add += conv_w is None
     las_step.kernels_per_step = launched.value
     return (h, c, aw, ctx) if p is None else (h, c, aw, ctx, p)
 
@@ -313,6 +351,7 @@ def step_scratch(lib, n, t, hdim, d, a, device):
 
 
 las_step.launches = las_step.launches_dropout = las_step.launches_proj = 0
+las_step.launches_add = 0
 las_step.kernels_per_step = 0
 
 
@@ -341,7 +380,9 @@ class LasStepWorkspace:
     step is ``las_step_ref`` copied into the other set. Not for autograd.
     With the decoder's projection (``proj`` = (w_p, b_p)) each step also
     writes p = relu(h W_p^T + b_p) into ``self.p`` [N, P] (the readout's
-    input), overwritten by the next step."""
+    input), overwritten by the next step. conv_w and w_f None: the
+    additive energy (``las_step``). klens is held, not copied: a caller
+    may rewrite it between steps (a window per step)."""
 
     def __init__(self, w_ctx, w_h, bias, w_q, conv_w, w_f, v, kc, values,
                  klens, proj=None):
@@ -363,14 +404,14 @@ class LasStepWorkspace:
         self.cur = 0          # the set that holds the carry
         self._lib = None
         h, c, aw, ctx = self.sets[0]
-        if on_cpu(*self.fixed):
+        if on_cpu(*given(*self.fixed)):
             return
         self._lib, dims, n_p = _checked(self.eg, ctx, h, c, aw, *self.fixed,
                                         self.parent, proj=proj)
         self._scratch = step_scratch(self._lib, n, t, hdim, d,
                                      w_q.shape[0], dev)
         self._plan = _Plan(
-            self.eg.data_ptr(), *(x.data_ptr() for x in self.fixed),
+            self.eg.data_ptr(), *(_ptr(x) for x in self.fixed),
             self.parent.data_ptr(), self._scratch.data_ptr(),
             *((ctypes.c_void_p * 2)(self.sets[0][i].data_ptr(),
                                     self.sets[1][i].data_ptr())
@@ -427,6 +468,7 @@ class LasStepWorkspace:
             las_step.launches += 1
             las_step.launches_dropout += att_keep is not None
             las_step.launches_proj += self.proj is not None
+            las_step.launches_add += self.fixed[4] is None
             las_step.kernels_per_step = self._launched.value
         self.cur ^= 1
         return self.sets[self.cur]

@@ -1,6 +1,7 @@
 """The training step (counterpart of ``neural_sp_tpu/parallel/mesh.py::
-make_train_step``), single device. Data parallelism over a mesh is not
-ported yet (ROADMAP).
+make_train_step``), single device, and the random-state-passing step
+(``make_rsp_train_step``). Data parallelism over a mesh is not ported yet
+(ROADMAP).
 
 ``compute_dtype`` is the JAX step's mixed-precision policy: with
 ``torch.bfloat16`` each microstep runs the model through
@@ -43,7 +44,7 @@ def compute_loss(model: nn.Module, compute_dtype: Optional[torch.dtype],
     floating parameters and ``xs`` cast to ``compute_dtype`` (the casts
     differentiable, the loss returned in float32). ``sub_labels``: the
     hierarchical sub-tasks' ``ys_sub1`` / ``ylens_sub1`` / ``ys_sub2`` /
-    ``ylens_sub2`` (None entries dropped)."""
+    ``ylens_sub2`` and the ``trigger_points`` (None entries dropped)."""
     sub_labels = {k: v for k, v in sub_labels.items() if v is not None}
     if compute_dtype is None:
         return model(xs, xlens, ys, ylens, gen, **sub_labels)
@@ -98,11 +99,17 @@ class TrainStep:
     def __call__(self, xs, xlens, ys, ylens, lr_scale: float = 1.0,
                  gen: Optional[torch.Generator] = None,
                  **sub_labels) -> dict:
+        return self.update(lambda: compute_loss(
+            self.model, self.compute_dtype, xs, xlens, ys, ylens, gen,
+            **sub_labels), lr_scale)[0]
+
+    def update(self, loss_fn, lr_scale: float) -> tuple:
+        """One microstep of ``loss_fn() -> (loss, obs, *rest)``: its
+        backward, then the optimizer. Returns (metrics, rest)."""
         for p in self.params:
             p.grad = None
         with deterministic_cudnn():
-            loss, obs = compute_loss(self.model, self.compute_dtype, xs,
-                                     xlens, ys, ylens, gen, **sub_labels)
+            loss, obs, *rest = loss_fn()
             loss.backward()
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in self.params]
@@ -115,7 +122,56 @@ class TrainStep:
             with torch.no_grad():
                 for p, u in zip(self.params, updates):
                     p.add_(u * lr_scale)
-        return metrics
+        return metrics, rest
+
+
+def rsp_draw(gen: Optional[torch.Generator], rsp_prob: float) -> bool:
+    """Random state passing's draw of one step: True (pass the carry on)
+    with probability ``rsp_prob``, from the step's generator."""
+    return bool(torch.rand((), generator=gen) < rsp_prob)
+
+
+class RSPTrainStep(TrainStep):
+    """JAX's ``make_rsp_train_step``: ``step(carry, xs, xlens, ys, ylens,
+    lr_scale=1.0, gen=None) -> (metrics, new_carry)``. The RNN encoder
+    starts from the previous batch's carry where ``rsp_draw`` says so, else
+    from zeros (carry None: zeros); the loss is
+    ``Speech2Text.forward_with_carry``'s; the new carry is detached (no
+    gradient crosses batches). float32 only (the RNN encoder has no bf16
+    compute)."""
+
+    def __init__(self, model: nn.Module, opt: Union[Adam, SGD],
+                 rsp_prob: float):
+        super().__init__(model, opt)
+        self.rsp_prob = rsp_prob
+
+    def __call__(self, carry, xs, xlens, ys, ylens, lr_scale: float = 1.0,
+                 gen: Optional[torch.Generator] = None):
+        carry_in = carry if rsp_draw(gen, self.rsp_prob) else None
+        metrics, (new_carry,) = self.update(
+            lambda: self.model.forward_with_carry(xs, xlens, ys, ylens,
+                                                  carry_in, gen), lr_scale)
+        return metrics, _detach(new_carry)
+
+
+def _detach(carry):
+    """A carry (nested tuples and lists of tensors) without gradient."""
+    if torch.is_tensor(carry):
+        return carry.detach()
+    return type(carry)(_detach(c) for c in carry)
+
+
+def make_rsp_train_step(model: nn.Module, opt: Union[Adam, SGD],
+                        rsp_prob: float,
+                        compute_dtype: Optional[torch.dtype] = None
+                        ) -> RSPTrainStep:
+    """The counterpart of JAX ``make_rsp_train_step(model, tx, rsp_prob)``,
+    float32 (``compute_dtype`` None)."""
+    if compute_dtype is not None:
+        raise NotImplementedError(
+            "random state passing trains an RNN encoder, which computes in "
+            "float32 only, see ROADMAP")
+    return RSPTrainStep(model, opt, rsp_prob)
 
 
 def make_train_step(model: nn.Module, opt: Union[Adam, SGD], mesh=None,

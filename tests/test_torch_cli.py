@@ -277,13 +277,17 @@ def test_resume_past_the_switch_fails_as_in_jax(runs):
 @pytest.mark.parametrize("flag", ["teacher", "mbr_training", "rsp_prob",
                                   "mtl_per_batch", "profile_n_steps"])
 def test_unported_train_cli_options_raise(runs, flag):
-    """Each raises; ``mtl_per_batch`` is ported, and raises as the JAX
-    CLI's assertion does for a sub-task weight with no encoder tap."""
+    """Each raises; ``mtl_per_batch`` and ``rsp_prob`` are ported, and
+    raise as the JAX CLI's assertions do for a sub-task weight with no
+    encoder tap and for random state passing without an RNN encoder (this
+    conf's is a transformer)."""
     c = runs["corpus"]
-    extra, err = ([], pytest.raises(NotImplementedError, match="ROADMAP")) \
-        if flag != "mtl_per_batch" else (
-            ["--sub1_weight", "0.2"],
-            pytest.raises(AssertionError, match="enc_n_layers_sub1"))
+    extra, err = {
+        "mtl_per_batch": (["--sub1_weight", "0.2"], pytest.raises(
+            AssertionError, match="enc_n_layers_sub1")),
+        "rsp_prob": ([], pytest.raises(AssertionError,
+                                       match="RNN encoder"))}.get(
+        flag, ([], pytest.raises(NotImplementedError, match="ROADMAP")))
     with err:
         port_train.main(["--config", os.path.join(runs["pdir"], "conf.yml"),
                          "--train_set", c["train"], "--dev_set", c["dev"],

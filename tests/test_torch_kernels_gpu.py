@@ -1400,3 +1400,97 @@ def test_las_step_with_projection(cuda, n, t, hd, d, a, n_p):
                                        msg=f"step {step}: {name}")
             assert torch.equal(x, y), f"step {step}: {name}, the two forms"
         h, c, aw, ctx = want[:4]
+
+
+# K2 / K3 / K3b's additive instantiations (conv_w, w_f None): the decoder's
+# `add` and triggered attention. K3 / K3b with a window per step take
+# klens [U, B] (min(klens, trigger + 1)): steps whose window is empty
+# (uniform weights over all T) and windows past a row's length.
+def _window(rng, u, klens, t):
+    trig = np.sort(rng.randint(-1, t, (u, len(klens))), 0)
+    return np.minimum(np.asarray(klens)[None], trig + 1).astype(np.int32)
+
+
+@pytest.mark.parametrize("b,u,t,hd,d,a,klens,window", [
+    (32, 12, 400, 1024, 512, 512, None, False),     # the tedlium conf
+    (32, 12, 400, 1024, 512, 512, None, True),      # its window per step
+    (5, 7, 37, 64, 48, 40, [37, 30, 12, 1, 0], True),
+    (33, 2, 49, 30, 22, 18, [49 - i for i in range(32)] + [0], True),
+    (4, 3, 188, 1024, 512, 512, [188, 0, 1, 183], False),
+])
+def test_las_scan_additive_kernels(cuda, b, u, t, hd, d, a, klens, window):
+    from neural_sp_tpu_torch.ops.kernels.las_scan import (
+        las_scan, las_scan_bwd, las_scan_bwd_ref, las_scan_ref)
+    rng = np.random.RandomState(u + t)
+    if klens is None:
+        klens = [t - 7 * i for i in range(b)]
+    args = list(_las_args(rng, cuda, b, u, t, hd, d, a, 1, 1, klens))
+    args[5] = args[6] = None
+    if window:
+        args[10] = torch.from_numpy(_window(rng, u, klens, t)).to(cuda)
+    before = (las_scan.launches_add, las_scan.launches_window,
+              las_scan_bwd.launches_add)
+    outs = las_scan(*args)
+    refs = las_scan_ref(*args)
+    for name, x, y in zip(("h", "c", "gates", "q", "aw", "ctx"), outs, refs):
+        _close(x, y, name)
+    dh, dctx = _randn(rng, cuda, u, b, hd), _randn(rng, cuda, u, b, d)
+    w_ctx, w_h, _, w_q, _, _, v, kc, values, kl, keep = args[1:]
+    saved = (w_ctx, w_h, w_q, None, None, v, kc, values, kl, keep, *refs)
+    got = las_scan_bwd(*saved, dh, dctx)
+    want = las_scan_bwd_ref(*saved, dh, dctx)
+    torch.cuda.synchronize()
+    assert (las_scan.launches_add, las_scan.launches_window,
+            las_scan_bwd.launches_add) == (before[0] + 1,
+                                           before[1] + window, before[2] + 1)
+    assert got[5] is got[6] is want[5] is None
+    names = ("d_eg", "dW_ctx", "dW_h", "db", "dW_q", "dconv", "dW_f", "dv",
+             "dkc", "dvalues")
+    for name, x, y in zip(names, got, want):
+        if y is not None:
+            _close(x, y, name)
+
+
+@pytest.mark.parametrize("n,t,d,keep", [(10, 400, 512, False),
+                                        (32, 400, 512, True),
+                                        (4, 61, 48, True)])
+def test_las_step_additive(cuda, n, t, d, keep):
+    """K2's additive instantiation, both forms, a beam's reorder; with
+    ``keep`` a window per step as scheduled sampling's pass 1 refills the
+    workspace's lengths (a row whose window is empty included)."""
+    from neural_sp_tpu_torch.ops.kernels.las_step import LasStepWorkspace
+    rng = np.random.RandomState(n + t)
+    hd, a = 1024 if d == 512 else 64, 512 if d == 512 else 40
+    klens = [max(t - 5 * i, 1) for i in range(n)]
+    state, fixed = _step_inputs(rng, cuda, n, t, hd, d, a, 1, 1, klens)
+    fixed = list(fixed)
+    fixed[4] = fixed[5] = None
+    lens = fixed[9].clone()
+    fixed[9] = lens
+    ws = LasStepWorkspace(*fixed)
+    windows = _window(rng, 3, klens, t)
+    windows[1, 0] = 0
+    parent = torch.tensor(_parents(n)["permutation"], dtype=torch.int32,
+                          device=cuda)
+    before = las_step.launches_add
+    for step in range(3):
+        if keep:
+            lens.copy_(torch.from_numpy(windows[step]))
+        eg, ctx, h, c, aw = state
+        kw = dict(keep=_att_keep(rng, cuda, n, hd)) if keep else \
+            dict(parent=parent)
+        checked = las_step(eg, ctx, h, c, aw, *fixed, **kw)
+        want = las_step_ref(eg, ctx, h, c, aw, *fixed, **kw)
+        ws.eg.copy_(eg)
+        ws.load_carry(ctx, h, c, aw)
+        if not keep:
+            ws.parent.copy_(parent)
+        got = ws.step(use_parent=not keep, keep=kw.get("keep"))
+        for name, x, y, z in zip(("h", "c", "aw", "ctx"), got, checked,
+                                 want):
+            torch.testing.assert_close(x, z, atol=TOL, rtol=TOL,
+                                       msg=f"step {step}: {name}")
+            assert torch.equal(x, y), f"step {step}: {name}, the two forms"
+        state = (_randn(rng, cuda, n, 4 * hd), *want[3:4], *want[:3])
+    torch.cuda.synchronize()
+    assert las_step.launches_add == before + 6

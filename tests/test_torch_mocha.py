@@ -50,9 +50,10 @@ with the JAX weights converted (``convert_params``), float32, atol = rtol
 * The 8 LSTM-MoChA recipe confs, the 6 full-context BLSTM-MoChA confs,
   the 4 uni-Conformer-MoChA confs and the 15 LC-BLSTM-MoChA confs (their
   chunk read from ``lc_chunk_size_left``, ROADMAP C13; they raised until
-  the LC-BLSTM was ported) build on the meta device with JAX's
-  parameter counts; the other MoChA
-  confs raise ``NotImplementedError`` naming ROADMAP; bf16 compute raises;
+  the LC-BLSTM was ported), and the 7 DeCoT / MinLT confs and the random
+  state passing one (they raised until the trigger points were ported)
+  build on the meta device with JAX's parameter counts; the other MoChA
+  conf (MBR) raises ``NotImplementedError`` naming ROADMAP; bf16 compute raises;
   ``configs.librispeech_lstm_mocha_args`` equals the conf; ``init_params``
   fills ``v`` and ``r``; the train CLI's curriculum gates the MoChA losses.
 * ``mocha_noise``: a standard normal on dropout's counter hash, the same
@@ -141,9 +142,20 @@ LCBLSTM_CONFS = (
     "tedlium/conf/asr/mocha/lcblstm_mocha_chunk4040.yaml",
     "tedlium/conf/asr/mocha/lcblstm_mocha_chunk4040_ctc_sync.yaml",
     "tedlium/conf/lcblstm_mocha_chunk4040.yaml")
+# ... and MoChA's latency training from word alignments (DeCoT, MinLT)
+# and random state passing (they raised until the trigger points were
+# ported)
+LATENCY_CONFS = (
+    "csj/conf/asr/mocha/lcblstm_mocha_chunk4040_decot16.yaml",
+    "csj/conf/asr/mocha/lcblstm_mocha_chunk4040_minlt.yaml",
+    "librispeech/conf/asr/mocha/lstm_mocha_decot12.yaml",
+    "librispeech/conf/asr/mocha/lstm_mocha_decot16.yaml",
+    "librispeech/conf/asr/mocha/lstm_mocha_minlt.yaml",
+    "tedlium/conf/asr/mocha/lstm_mocha_decot16.yaml",
+    "tedlium/conf/asr/mocha/lstm_mocha_minlt.yaml",
+    "tedlium/conf/asr/mocha/lstm_mocha_rsp_enc.yaml")
 # every other MoChA conf raises, with the reason it names
-RAISING = {"decot": "alignment", "minlt": "alignment",
-           "rsp_enc": "rsp_prob_enc"}
+RAISING = {"_mbr": "mbr_training"}
 
 
 def _tree(params):
@@ -816,8 +828,11 @@ def _jax_count(args):
     return _JAX_COUNTS[key]
 
 
-@pytest.mark.parametrize("conf", LSTM_CONFS + BLSTM_CONFS +
-                         UNI_CONFORMER_CONFS + LCBLSTM_CONFS)
+BUILDING = LSTM_CONFS + BLSTM_CONFS + UNI_CONFORMER_CONFS + LCBLSTM_CONFS + \
+    LATENCY_CONFS
+
+
+@pytest.mark.parametrize("conf", BUILDING)
 def test_mocha_recipe_conf_builds(conf):
     args = parse_args_train(["--config", str(ROOT / "examples" / conf)])
     args.vocab = 10000
@@ -834,19 +849,17 @@ def _raising_confs():
                           str(ROOT / "examples")], capture_output=True,
                          text=True, check=True).stdout.split()
     confs = sorted(str(Path(p).relative_to(ROOT / "examples")) for p in out)
-    return [c for c in confs if c not in LSTM_CONFS + BLSTM_CONFS +
-            UNI_CONFORMER_CONFS + LCBLSTM_CONFS]
+    return [c for c in confs if c not in BUILDING]
 
 
 def test_the_other_mocha_confs_raise():
+    """Of the 42 MoChA confs, the MBR one alone raises."""
     confs = _raising_confs()
-    assert len(confs) + len(LSTM_CONFS) + len(BLSTM_CONFS) + \
-        len(UNI_CONFORMER_CONFS) + len(LCBLSTM_CONFS) == 42
+    assert len(confs) + len(BUILDING) == 42 and len(confs) == 1
     for conf in confs:
         args = parse_args_train(["--config", str(ROOT / "examples" / conf)])
         args.vocab = 100
-        why = "mbr_training" if conf.endswith("_mbr.yaml") else \
-            next(v for k, v in RAISING.items() if k in conf)
+        why = next(v for k, v in RAISING.items() if k in conf)
         with pytest.raises(NotImplementedError, match="ROADMAP") as err:
             build_speech2text(args, device="meta")
         assert why in str(err.value), (conf, str(err.value))
