@@ -271,8 +271,23 @@ Phases (any failure raises and the script exits non-zero):
      through both CLIs at full width and depth (``LM_CONFS``; no kernel
      of the repo on their paths); (13c) phase 7's trained model decoded
      by ``bin.asr.eval.main`` as stage 5 with 13a's XL as its LM: K1 at
-     one query per step against the growing memory. Each phase's wall is
-     printed on a line of its own.
+     one query per step against the growing memory.
+  14-16. MTL (14), attention dropout, TDS and the ``ci_test`` confs (15),
+     trigger points (16): each function's docstring.
+  17. MBR training, the relative transformer, bf16 attention dropout,
+     ``resolving_unk`` (``phase_slice21``): (17k) K1 / K1b at R = T and
+     their bf16 dropout instantiations, K3 / K3b at MBR's B.N rows and K2
+     in its beam; (17a) the MBR conf through the train CLI with sub-step
+     checkpoints and a resume, its n-best and microstep held to the CPU
+     port, phase 8's BLSTM-LAS with MBR (its n-best's sequence scores
+     through K3 / K3b held to the plain versions by phase 6's rule, then
+     its MBR microstep); (17b) the timit relative transformer's microstep
+     and CLIs; (17c) a bf16 microstep with ``dropout_att``; (17d)
+     ``eval_word(resolving_unk=True)`` over 14a's model, its attention
+     made to advance a frame a step, against the CPU port, with <unk>
+     resolved at several peak frames. Each phase's wall is printed on a line
+     of its own; the host-bound beams and eval CLIs run on fewer
+     utterances (``HOST_UTTS``, ``EVAL_UTTS``) for the time limit.
 
 Launches per step (per encode for K1, per decode step for K2, per training
 microstep for the rest; K1 / K1b bf16 in phase 5's bf16 run) are counted
@@ -291,7 +306,8 @@ own for K5; phase 13's path (``lm_launches``: 13a's and 13b's CLIs and
 13c's fused eval), with rows of their own for K1 / K1b over the XL's
 memory without dropout and with dropout (launches per training microstep
 from 13a's held one; K1's over the memory per dev window of the XL's eval
-CLI). Prints the
+CLI); phases 14-17's paths the same way, with rows of their own for each
+instantiation they time (phase 17's: ``add_slice21_rows``). Prints the
 details as JSON (also written to ``chiprun_out/chip_smoke.json``), then one
 JSON line of per-kernel results (launches, launches_per_step, ms,
 plain_ms, bound_ms, bound_by, library_ms, errors), the card's ``name,
@@ -687,6 +703,34 @@ def utterances(rng):
     return xs, np.asarray(UTT_FRAMES, np.int64)
 
 
+# Cuts of the host-bound sub-phases (the script's time limit): phases
+# 3c, 8b, 9a, 10a, 10d, 11a and 12b serve the first HOST_UTTS of the
+# utterances (the shorter ones), and 12a's float64 hold takes them
+# (``host_cut``; the holds with MoChA or MMA keep all four: on fewer,
+# 9b's second draw read 1.385 of its rule, float32 MoChA's rounding,
+# C29); the eval CLIs of phases 10, 11, 13c and 14-17 decode the first
+# EVAL_UTTS of their test sets (``eval_set``); phases 3 and 7 serve and
+# decode all of theirs
+HOST_UTTS = 2
+EVAL_UTTS = 2
+
+
+def host_cut(xs, xlens) -> tuple:
+    """The first HOST_UTTS utterances, their frames cut to the longest."""
+    n = HOST_UTTS
+    return xs[:n, :int(max(xlens[:n]))], xlens[:n]
+
+
+def eval_set(corpus: dict) -> str:
+    """The first EVAL_UTTS utterances of ``corpus``'s test set, a TSV
+    beside it (written once)."""
+    path = Path(corpus["test"]).with_name("test_eval.tsv")
+    if not path.exists():
+        rows = Path(corpus["test"]).read_text().splitlines()
+        path.write_text("\n".join(rows[:EVAL_UTTS + 1]) + "\n")
+    return str(path)
+
+
 SERVED = {"beam10_ctc0.3": dict(beam_width=10, ctc_weight=0.3),
           "beam10_device": dict(beam_width=10, device_beam=True),
           "greedy": dict(beam_width=1)}
@@ -717,7 +761,7 @@ def phase_serve(torch, model, xs, xlens, names=tuple(SERVED), tag="3",
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         steps = DecodeLoop.steps - steps_before
-        expect(len(hyps) == len(UTT_FRAMES) and all(
+        expect(len(hyps) == len(xlens) and all(
             all(isinstance(y, int) and 0 <= y < model.dec_fwd.vocab
                 for y in hyp) for hyp in hyps), f"{name}: malformed {hyps}")
         out[name] = {"hyp_lens": [len(h) for h in hyps], "wall_s": wall,
@@ -893,7 +937,8 @@ def lm_steps_counted(torch):
 
 
 def phase_serve_lm(torch, model, xs, xlens):
-    """Phase 3c: serve the 4 utterances with the RNNLM, (a) the LibriSpeech
+    """Phase 3c: serve the utterances (main: the first HOST_UTTS of phase
+    3's) with the RNNLM, (a) the LibriSpeech
     stage-5 recipe, beam 10 + CTC 0.3 + LM 0.5 + length norm, and (b)
     beam 10 + LM 0.5 + ILM 0.2 with a 10-best rescored by a second-pass LM
     and a backward LM (0.3 each); profile one request of (a); hold the LM
@@ -943,7 +988,7 @@ def phase_serve_lm(torch, model, xs, xlens):
         steps = rows[10]                  # one LM step per decode step
         expect(loop_steps == steps * (1 if with_ctc else 2),
                f"{name}: {loop_steps} loop steps for {steps} decode steps")
-        expect(len(hyps) == len(UTT_FRAMES) and all(
+        expect(len(hyps) == len(xlens) and all(
             all(isinstance(y, int) and 0 <= y < model.dec_fwd.vocab
                 for y in hyp) for hyp in hyps), f"{name}: malformed {hyps}")
         ran = {"rel_attention": rel_attention.launches,
@@ -1682,19 +1727,25 @@ def phase_train(torch, model, batch, train_dtype: str = "float32"):
 class PlainLASScan:
     """``LASScan`` with the plain forward, differentiated by autograd; as
     ``LASScan``, in float32 at every compute dtype, cast at its boundary
-    (the attention dropout scale and the decoder's projection too)."""
+    (the attention dropout scale and the decoder's projection too); in
+    float64 given float64 (17a's float64 reference)."""
 
     @staticmethod
     def apply(eg, w_ctx, w_h, bias, w_q, conv_w, w_f, v, kc, values, klens,
               keep, att_keep=None, w_p=None, b_p=None):
+        import torch
         from neural_sp_tpu_torch.ops.kernels.las_scan import las_scan_ref
+        dt = torch.promote_types(eg.dtype, torch.float32)
+
+        def cast(x):
+            return None if x is None else x.to(dt)
 
         def tm(x):
-            return None if x is None else x.float().transpose(0, 1)
+            return None if x is None else cast(x).transpose(0, 1)
 
-        proj = None if w_p is None else (w_p.float(), b_p.float())
+        proj = None if w_p is None else (cast(w_p), cast(b_p))
         outs = las_scan_ref(
-            tm(eg), *(None if x is None else x.float() for x in (
+            tm(eg), *(cast(x) for x in (
                 w_ctx, w_h, bias, w_q, conv_w, w_f, v, kc, values)),
             klens, tm(keep), tm(att_keep), proj)
         return tuple(x.transpose(0, 1).to(eg.dtype)
@@ -1871,45 +1922,65 @@ def phase_determinism(torch, model, batch, bf16: bool = True,
     return out
 
 
-def phase_train_parity_bf16(torch, model, batch, plain32, tag="6b"):
+def phase_train_parity_bf16(torch, model, batch, plain32, tag="6b",
+                            microstep=None):
     """6b: one eval() microstep at bf16 compute through the kernels against
     the same microstep with the plain versions patched in (both bf16): each
     quantity's distance from phase 6's plain float32 microstep
     (``plain32``) held to BF16_PATH_FACTOR times the plain bf16
     microstep's, in the L2 norm, plus phase 6's float32 tolerance in that
-    norm."""
+    norm (``path_rule``). ``microstep(compute_dtype, plain) -> (loss,
+    gradients)`` replaces the eval() microstep (17c: a train() one on
+    pinned masks)."""
     bf = torch.bfloat16
-    loss, grads = eval_microstep(torch, model, batch, bf)
-    loss16, grads16 = eval_microstep(torch, model, batch, bf, plain=True)
-    loss32, grads32 = plain32
-    g_max = max(float(g.abs().max()) for g in grads32.values())
-    loss_tol = BF16_PATH_FACTOR * abs(loss16 - loss32) + \
-        LOSS_RTOL * abs(loss32)
+    if microstep is None:
+        def microstep(dtype, plain):
+            return eval_microstep(torch, model, batch, dtype, plain=plain)
+    out = path_rule(torch, *microstep(bf, False), *microstep(bf, True),
+                    *plain32, tag, ("bf16", "plain bf16", "plain f32"))
+    out["loss_plain_bf16"] = out.pop("loss_plain")
+    out["loss_plain_f32"] = out.pop("loss_ref")
+    return out
+
+
+def path_rule(torch, loss, grads, loss_p, grads_p, loss_ref, grads_ref,
+              tag: str, names: tuple, zero_leaf: str = ZERO_GRAD_LEAF
+              ) -> dict:
+    """6b's rule, where a microstep's rounding is the function's own: the
+    kernels' microstep (loss, grads) no farther from a reference (loss_ref,
+    grads_ref) than BF16_PATH_FACTOR times the plain versions' same
+    microstep (loss_p, grads_p) is, in the L2 norm per leaf, plus phase 6's
+    float32 tolerance in that norm (``zero_leaf``'s leaves GRAD_FLOOR of
+    the largest gradient). ``names``: how the log calls the three runs."""
+    run, plain, ref = names
+    g_max = max(float(g.abs().max()) for g in grads_ref.values())
+    loss_tol = BF16_PATH_FACTOR * abs(loss_p - loss_ref) + \
+        LOSS_RTOL * abs(loss_ref)
     norm = torch.linalg.vector_norm
     leaves = {}
     for name, g in grads.items():
-        ref, ref32 = grads16[name], grads32[name]
-        per_element = GRAD_FLOOR * g_max if name.endswith(ZERO_GRAD_LEAF) \
-            else GRAD_RTOL * float(ref32.abs().max())
-        floor = per_element * ref32.numel() ** 0.5
-        plain_cost = float(norm(ref - ref32))
+        gp, gr = grads_p[name], grads_ref[name]
+        per_element = GRAD_FLOOR * g_max if name.endswith(zero_leaf) \
+            else GRAD_RTOL * float(gr.abs().max())
+        floor = per_element * gr.numel() ** 0.5
+        plain_cost = float(norm(gp - gr))
         tol = BF16_PATH_FACTOR * plain_cost + floor
-        err = float(norm(g - ref32))
+        err = float(norm(g - gr))
         leaves[name] = (err / tol if err else 0.0, err, plain_cost,
-                        float(norm(g - ref)))
+                        float(norm(g - gp)))
     ranked = sorted(leaves.items(), key=lambda kv: -kv[1][0])
-    log(f"[{tag}] bf16 eval loss kernels {loss:.6f} plain bf16 {loss16:.6f} "
-        f"plain f32 {loss32:.6f}: |kernels - f32| {abs(loss - loss32):.3e} "
+    log(f"[{tag}] {run} loss kernels {loss:.6f} {plain} {loss_p:.6f} {ref} "
+        f"{loss_ref:.6f}: |kernels - {ref}| {abs(loss - loss_ref):.3e} "
         f"against a tolerance of {loss_tol:.3e}")
     for name, (share, err, cost, between) in ranked[:6]:
-        log(f"[{tag}]   {name}: {share:.3f} of its tolerance (|kernels - f32| "
-            f"{err:.3e}, |plain bf16 - f32| {cost:.3e}, |kernels - plain "
-            f"bf16| {between:.3e}, L2)")
+        log(f"[{tag}]   {name}: {share:.3f} of its tolerance (|kernels - "
+            f"{ref}| {err:.3e}, |{plain} - {ref}| {cost:.3e}, |kernels - "
+            f"{plain}| {between:.3e}, L2)")
     worst_name, (worst, _, _, _) = ranked[0]
-    expect(abs(loss - loss32) <= loss_tol,
-           f"bf16 loss {loss} vs plain f32 {loss32} (plain bf16 {loss16})")
-    expect(worst <= 1.0, f"bf16 gradient {worst_name} outside tolerance")
-    return {"loss": loss, "loss_plain_bf16": loss16, "loss_plain_f32": loss32,
+    expect(abs(loss - loss_ref) <= loss_tol,
+           f"{tag} loss {loss} vs {ref} {loss_ref} ({plain} {loss_p})")
+    expect(worst <= 1.0, f"{tag} gradient {worst_name} outside tolerance")
+    return {"loss": loss, "loss_plain": loss_p, "loss_ref": loss_ref,
             "worst_grad": worst, "worst_grad_leaf": worst_name,
             "worst_leaves": dict(ranked[:6])}
 
@@ -2619,8 +2690,9 @@ def phase_blstm_serve(torch, model, xs, xlens) -> dict:
     from neural_sp_tpu_torch.models.decoders.decoding import (
         DecodeConfig, Speech2TextSession)
     from neural_sp_tpu_torch.models.modules.recurrent import RNNLayer
-    out, counts = phase_serve(torch, model, xs, xlens,
-                              ("beam10_ctc0.3", "greedy"), tag="8b")
+    out, counts = phase_serve(torch, model, xs[:HOST_UTTS],
+                              xlens[:HOST_UTTS], ("beam10_ctc0.3", "greedy"),
+                              tag="8b")
     best = out.pop("best_hyp0")
     out["launches"] = counts
     expect(counts["las_step"] > 0, "K2 never launched serving the BLSTM")
@@ -2930,14 +3002,15 @@ def mocha_model(torch, args=None):
     return model.eval()
 
 
-def mocha_labels(torch, rng, vocab: int):
-    """Labels [4, 100] (PAD past MOCHA_U) from ``rng``, ids in [4, vocab)."""
+def mocha_labels(torch, rng, vocab: int, rows: int = len(MOCHA_U)):
+    """Labels [4, 100] (PAD past MOCHA_U) from ``rng``, ids in [4, vocab);
+    the first ``rows`` of them."""
     import numpy as np
     from neural_sp_tpu_torch import PAD
     ys = np.full((len(MOCHA_U), max(MOCHA_U)), PAD, np.int64)
     for b, u in enumerate(MOCHA_U):
         ys[b, :u] = rng.integers(4, vocab, u)
-    return torch.from_numpy(ys), torch.tensor(MOCHA_U)
+    return torch.from_numpy(ys[:rows]), torch.tensor(MOCHA_U[:rows])
 
 
 def phase_mocha_serve(torch, model, xs, xlens) -> dict:
@@ -2948,8 +3021,9 @@ def phase_mocha_serve(torch, model, xs, xlens) -> dict:
     from neural_sp_tpu_torch.models.decoders.decoding import (
         DecodeConfig, Speech2TextSession)
     from neural_sp_tpu_torch.models.decoders.las import DecodeLoop
-    out, counts = phase_serve(torch, model, xs, xlens,
-                              ("beam10_ctc0.3", "greedy"), tag="9a")
+    out, counts = phase_serve(torch, model, xs[:HOST_UTTS],
+                              xlens[:HOST_UTTS], ("beam10_ctc0.3", "greedy"),
+                              tag="9a")
     out.pop("best_hyp0")
     out["launches"] = counts
     expect(all(counts[k] == 0 for k in NOT_ON_MOCHA_PATH),
@@ -3499,7 +3573,8 @@ def phase_xf_serve(torch, model, xs, xlens, names, tag) -> dict:
     from neural_sp_tpu_torch.models.decoders.decoding import (
         DecodeConfig, Speech2TextSession)
     from neural_sp_tpu_torch.models.decoders.las import DecodeLoop
-    out, counts = phase_serve(torch, model, xs, xlens, names, tag=tag,
+    out, counts = phase_serve(torch, model, xs[:HOST_UTTS],
+                              xlens[:HOST_UTTS], names, tag=tag,
                               table=XF_SERVED)
     hyp = out.pop("best_hyp0")
     out["launches"] = counts
@@ -3691,7 +3766,7 @@ def phase_xf_hold(torch, model, xs, xlens, make: str, tag: str,
         attn.noise_std = 0.0
     xs_t, xl_t = torch.from_numpy(xs), torch.from_numpy(xlens)
     ys, ylens = mocha_labels(torch, np.random.default_rng(SEED + 9),
-                             model.dec_fwd.vocab)
+                             model.dec_fwd.vocab, len(xlens))
     on_card = tuple(v.to(dev) for v in (xs_t, xl_t, ys, ylens))
     on_cpu = (xs_t.double(), xl_t, ys, ylens)
     card_pre, ref_pre = {}, {}
@@ -3705,8 +3780,8 @@ def phase_xf_hold(torch, model, xs, xlens, make: str, tag: str,
     cpu_s = time.perf_counter() - t0
     for h in hooks:
         h.remove()
-    log(f"[{tag}] train() microstep B {len(MOCHA_U)} x {xs.shape[1]} frames, "
-        f"U {list(MOCHA_U)}, dropout off: card {card_s:.2f} s, CPU float64 "
+    log(f"[{tag}] train() microstep B {xs.shape[0]} x {xs.shape[1]} frames, "
+        f"U {ylens.tolist()}, dropout off: card {card_s:.2f} s, CPU float64 "
         f"{cpu_s:.2f} s; card {obs}; CPU {obs_ref}")
     expect(all(np.isfinite(v) for v in obs.values()), f"{tag} losses {obs}")
     held = hold_microstep(loss, grads, loss_ref, grads_ref, tag, floor=True)
@@ -3904,7 +3979,7 @@ def phase_xf_cli(torch, root: Path, corpus: dict, conf: str, overrides,
     reset_launches()
     t = time.perf_counter()
     res = cli_eval.main(["--recog_model", exp, "--recog_sets",
-                         corpus["test"], "--recog_lm", lm_dir,
+                         eval_set(corpus), "--recog_lm", lm_dir,
                          "--recog_dir", str(root / f"decode_{name}")] +
                         list(CLI_EVAL))
     sync()
@@ -3916,7 +3991,7 @@ def phase_xf_cli(torch, root: Path, corpus: dict, conf: str, overrides,
     log(f"[{tag}] eval CLI: RTF {m['rtf']:.4f}, wall {wall:.1f} s (with "
         f"loading), WER {m['wer']:.2f} over {m['n_utts']} utterances "
         f"(random weights); launches {counts}")
-    expect(m["n_utts"] == CLI_UTTS["test"], f"{m['n_utts']} utterances")
+    expect(m["n_utts"] == EVAL_UTTS, f"{m['n_utts']} utterances")
     expect(not any(counts.values()),
            f"a kernel of the repo launched evaluating: {counts}")
 
@@ -4295,8 +4370,8 @@ def hold_with_control(torch, model, cpu, on_card, on_cpu, tag: str,
     t0 = time.perf_counter()
     loss_ref, grads_ref, obs_ref = mocha_microstep(torch, cpu, on_cpu)
     cpu_s = time.perf_counter() - t0
-    log(f"[{tag}] train() microstep B {len(MOCHA_U)} x "
-        f"{on_card[0].shape[1]} frames, U {list(MOCHA_U)}: card "
+    log(f"[{tag}] train() microstep B {on_card[0].shape[0]} x "
+        f"{on_card[0].shape[1]} frames, U {on_card[3].tolist()}: card "
         f"{card_s:.2f} s, CPU float64 {cpu_s:.2f} s; card {obs}; CPU "
         f"{obs_ref}; launches {counts}")
     expect(all(np.isfinite(v) for v in obs.values()), f"{tag} losses {obs}")
@@ -4385,7 +4460,7 @@ def uni_hold(torch, model, xs, xlens, make: str, tag: str,
     cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
     x, xl = torch.from_numpy(xs), torch.from_numpy(xlens)
     ys, ylens = mocha_labels(torch, np.random.default_rng(SEED + 9),
-                             model.dec_fwd.vocab)
+                             model.dec_fwd.vocab, len(xlens))
     on_card = tuple(v.to(dev) for v in (x, xl, ys, ylens))
     on_cpu = (x.double(), xl, ys, ylens)
     window = ("rel_attention_window", "rel_attention_bwd_window",
@@ -4523,7 +4598,7 @@ def stream_cli(torch, root: Path, corpus: dict, conf: str, tag: str,
         reset_launches()
         t = time.perf_counter()
         res = cli_eval.main(["--recog_model", exp, "--recog_sets",
-                             corpus["test"], "--recog_dir",
+                             eval_set(corpus), "--recog_dir",
                              str(root / f"decode_{name}_{what}")] + lm_args +
                             list(extra))
         sync()
@@ -4534,7 +4609,7 @@ def stream_cli(torch, root: Path, corpus: dict, conf: str, tag: str,
         log(f"[{tag}] eval CLI {what}: RTF {m['rtf']:.4f}, wall {wall:.1f} s "
             f"(with loading), WER {m['wer']:.2f} over {m['n_utts']} "
             f"utterances (random weights); {m}; launches {counts}")
-        expect(m["n_utts"] == CLI_UTTS["test"], f"{m['n_utts']} utterances")
+        expect(m["n_utts"] == EVAL_UTTS, f"{m['n_utts']} utterances")
     return out
 
 
@@ -4663,7 +4738,8 @@ def phase_streaming(torch, rng, root: Path, corpus: dict, xs,
     out["parameters"] = sum(p.numel() for p in model.parameters())
     log(f"[11a] LibriSpeech uni-Conformer-MoChA: {out['parameters']} "
         f"parameters on the card")
-    served, counts = timed("11a", phase_serve, torch, model, xs, xlens,
+    served, counts = timed("11a", phase_serve, torch, model,
+                           xs[:HOST_UTTS], xlens[:HOST_UTTS],
                            ("beam10_ctc0.3", "greedy"), tag="11a")
     served.pop("best_hyp0")
     served["launches"] = counts
@@ -4888,7 +4964,7 @@ def hold_to_float64(torch, model, args, xs, xlens, tag) -> dict:
     from neural_sp_tpu_torch.ops.kernels import launches, reset_launches
     dev = next(model.parameters()).device
     ys, ylens = mocha_labels(torch, np.random.default_rng(SEED + 9),
-                             args.vocab)
+                             args.vocab, len(xlens))
     x, xl = torch.from_numpy(xs), torch.from_numpy(xlens)
     on_card = tuple(v.to(dev) for v in (x, xl, ys, ylens))
     on_cpu = (x.double(), xl, ys, ylens)
@@ -5168,8 +5244,8 @@ def phase_transducer(torch, rng, root: Path, xs, xlens) -> dict:
                           dict(beam_width=10), xs, xlens, "12a")
     out["encoder"] = timed("12a encoder", lc_encoder_against_loop, torch,
                            model, args, xs, xlens, "12a")
-    out["hold"] = timed("12a hold", hold_to_float64, torch, model, args, xs,
-                        xlens, "12a")
+    out["hold"] = timed("12a hold", hold_to_float64, torch, model, args,
+                        *host_cut(xs, xlens), "12a")
     for name in RNNT_TRAIN_KERNELS:
         expect(out["hold"]["launches"][name] > 0,
                f"{name} never launched in 12a's microstep")
@@ -5198,7 +5274,8 @@ def phase_transducer(torch, rng, root: Path, xs, xlens) -> dict:
     mocha = {"parameters": sum(p.numel() for p in model.parameters())}
     log(f"[12b] LC-BLSTM-MoChA at {RNN_DEPTH} of 5 layers: "
         f"{mocha['parameters']} parameters on the card")
-    served, counts = timed("12b serve", phase_serve, torch, model, xs, xlens,
+    served, counts = timed("12b serve", phase_serve, torch, model,
+                           xs[:HOST_UTTS], xlens[:HOST_UTTS],
                            ("beam10_ctc0.3", "greedy"), tag="12b")
     served.pop("best_hyp0")
     served["launches"] = counts
@@ -5543,13 +5620,14 @@ def phase_lm(torch, rng, root: Path, corpus: dict) -> dict:
         torch.cuda.synchronize()
         reset_launches()
         t = time.perf_counter()
+        test = eval_set(corpus)
         res = cli_eval.main([
             "--recog_model", str(root / "exp"), "--recog_sets",
-            corpus["test"], "--recog_lm", str(root / "lm_transformer_xl"),
+            test, "--recog_lm", str(root / "lm_transformer_xl"),
             "--recog_dir", str(root / "decode_xl")] + list(CLI_EVAL))
         torch.cuda.synchronize()
         (m,) = res.values()
-        hyps = (root / "decode_xl" / "test" / "hyp.trn").read_text()
+        hyps = (root / "decode_xl" / Path(test).stem / "hyp.trn").read_text()
         return {**m, "wall_s": time.perf_counter() - t,
                 "launches": launches(),
                 "hyp_tokens": [len(h.rsplit(" (", 1)[0].split())
@@ -5558,7 +5636,7 @@ def phase_lm(torch, rng, root: Path, corpus: dict) -> dict:
     log(f"[13c] eval CLI with the XL LM: RTF {fused['rtf']:.4f}, wall "
         f"{fused['wall_s']:.1f} s, hypothesis lengths {fused['hyp_tokens']}, "
         f"launches {fused['launches']}")
-    expect(fused["n_utts"] == CLI_UTTS["test"], f"13c: {fused['n_utts']}")
+    expect(fused["n_utts"] == EVAL_UTTS, f"13c: {fused['n_utts']}")
     for name in ("rel_attention_offset", "las_step"):
         expect(fused["launches"][name] > 0, f"13c: {name} never launched")
     out["fusion"] = fused
@@ -5953,9 +6031,10 @@ def cli_run(torch, root: Path, corpus: dict, conf: str, tag: str,
         return out
     reset_launches()
     t0 = time.perf_counter()
-    res = cli_eval.main(["--recog_model", exp, "--recog_sets",
-                         corpus["test"], "--recog_dir",
-                         str(root / f"decode_{tag}")] + list(eval_flags))
+    test = eval_set(corpus)
+    res = cli_eval.main(["--recog_model", exp, "--recog_sets", test,
+                         "--recog_dir", str(root / f"decode_{tag}")] +
+                        list(eval_flags))
     torch.cuda.synchronize()
     (m,) = res.values()
     out["eval"] = {**m, "wall_s": time.perf_counter() - t0,
@@ -5963,7 +6042,7 @@ def cli_run(torch, root: Path, corpus: dict, conf: str, tag: str,
     log(f"[{tag}] eval CLI ({' '.join(eval_flags)}): RTF {m['rtf']:.4f}, "
         f"WER {m['wer']:.2f} over {m['n_utts']} utterances (random "
         f"weights); launches {out['eval']['launches']}")
-    with open(corpus["test"]) as f:
+    with open(test) as f:
         n_test = sum(1 for line in f if line.strip()) - 1    # a header
     expect(m["n_utts"] == n_test, f"{tag}: {m['n_utts']} of {n_test}")
     for k in eval_kernels:
@@ -6074,7 +6153,7 @@ def phase_mtl(torch, rng, root: Path) -> dict:
                f"14b task {task} trained {keys}")
     b["hold"] = mtl_hold(torch, b["exp"], corpus, "14b")
     walls["14b"] = time.perf_counter() - t
-    out.update(aishell=a, swbd=b, sub_phase_wall_s=walls,
+    out.update(aishell=a, swbd=b, sub_phase_wall_s=walls, corpus=corpus,
                phase_wall_s=time.perf_counter() - t0)
     out["launches"] = {k: sum(p[k] for p in (
         a["train"]["launches"], a["eval"]["launches"],
@@ -6870,6 +6949,844 @@ def add_trig_rows(entries, srcs, keys, trig):
         expect(launched > 0, f"{name} never launched on 16's paths")
 
 
+# ------------------------------------------------------------- phase 17
+# MBR training (SGD with weight decay, sub-step checkpoints), the
+# transformer encoder with relative positions, K1 / K1b's bf16 entries
+# with dropout, the MTL evaluation's resolving_unk
+MBR_CONF = "examples/tedlium/conf/asr/mocha/lcblstm_mocha_chunk4040_mbr.yaml"
+MBR_UTTS = {"train": 8, "dev": 2, "test": 2}
+MBR_FRAMES = (200, 400)      # the conf's min_n_frames: 200
+MBR_NBEST = 4                # the JAX CLI's default mbr_nbest
+MBR_CE_WEIGHT = 0.01         # the conf's mbr_ce_weight
+MBR_FLAGS = ("--n_epochs", "1", "--unit", "word", "--enc_n_layers",
+             str(RNN_DEPTH), "--mbr_ckpt_interval", "1",
+             "--eval_start_epoch", "1")
+# the held microsteps' utterances and labels
+MBR_HOLD_FRAMES = (240, 230, 220, 200)
+MBR_HOLD_U = (30, 25, 20, 15)
+# K3 / K3b at 17a's B.N rows: 4 utterances x 4 hypotheses, the n-best's
+# U+1 (its hypotheses run to max_len, T') and the BLSTM-LAS's T' (240
+# frames / 4), D 1024
+MBR_SCAN = dict(b=16, u=61, tt=60, d=1024)
+REL_CONF = "examples/timit/conf/transformer_relative.yaml"
+REL_PARAMS = 35838144        # the JAX package's count at vocab 10,000
+REL_B, REL_FRAMES = 32, 2000  # the conf's batch_size and max_n_frames
+REL_K = dict(b=32, h=4, tt=500, dk=64)   # its encoder's K1: R = T
+REL_DEPTH = ("--enc_n_layers", "4", "--dec_n_layers", "2")
+REL_FLAGS = ("--n_epochs", "1", "--unit", "word") + REL_DEPTH
+REL_TRAIN_KERNELS = ("rel_attention", "rel_attention_bwd", "ctc_loss",
+                     "ctc_loss_bwd")
+REL_EVAL = ("--recog_beam_width", "4", "--recog_ctc_weight", "0.3")
+ATT_BF16_KERNELS = ("rel_attention_bf16_dropout",
+                    "rel_attention_bwd_bf16_dropout")
+UNK_WORDS = 4                # dev words the 17d dictionary leaves out
+UNK_SHIFT = 3.0              # 17d: the decoder's <unk> logit raised by it
+# 17d: the weight of the location filter's one-frame shift (the peaks of
+# the trained model's attention sit on one frame)
+LOC_SHIFT = 30.0
+RESOLVE_UTTS = 2
+RESOLVED_MIN = 3             # 17d: <unk> resolved at distinct peak frames
+
+
+def rel_dropout_case(torch, rng, res, tt) -> None:
+    """17k: K1 / K1b's bf16 entries with dropout ATT_RATE at the
+    flagship's B32 H8 T ``tt`` dk64 R11 (ragged), on the plain version's
+    own mask (the same key words): within BF16_KERNEL_TOL of the plain
+    bf16 max, at most BF16_VS_F32_RATIO times the plain bf16 error against
+    the plain f32 version (same mask), timed in turns with the bf16 entry
+    without dropout on the same inputs (``no_dropout_ms``) and with SDPA
+    at ``dropout_p`` (its own mask) as the library call."""
+    import numpy as np
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+    from neural_sp_tpu_torch.ops.kernels.rel_attention import (
+        rel_attention_bwd, rel_attention_bwd_cost, rel_attention_bwd_ref,
+        rel_attention_cost, rel_attention_fwd, rel_attention_ref)
+    dev, bf = torch.device("cuda"), torch.bfloat16
+
+    def t(*shape, scale=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale).astype(
+            "float32")).to(dev).to(bf)
+
+    b, h, dk, r = TRAIN_B, 8, 64, 11
+    kl = np.maximum(tt - (np.arange(b) * tt) // (2 * b), 1).tolist()
+    q, k, v = t(b, h, tt, dk, scale=dk ** -0.5), t(b, h, tt, dk), \
+        t(b, h, tt, dk)
+    p = t(b, h, tt, r, scale=dk ** -0.5)
+    klens = torch.tensor(kl, dtype=torch.int32, device=dev)
+    drop = (ATT_RATE, (0x2545F491 + tt, 0x9E3779B9))
+    fwd = (q, k, v, p, klens)
+    fwd32 = (*(x.float() for x in (q, k, v, p)), klens)
+    what = f"B={b} H={h} T={tt} dk={dk} R={r} ragged, dropout {ATT_RATE}"
+
+    def ratio(got, plain, f32):
+        return max_err(got.float(), f32) / max(max_err(plain.float(), f32),
+                                               1e-30)
+
+    o, m, l = rel_attention_fwd(*fwd, dropout=drop)
+    o16 = rel_attention_ref(*fwd, dropout=drop)
+    o32 = rel_attention_ref(*fwd32, dropout=drop)
+    rows = {"rel_attention_bf16_dropout": (
+        rel_err(o, o16), ratio(o, o16, o32),
+        lambda: rel_attention_fwd(*fwd, dropout=drop),
+        lambda: rel_attention_fwd(*fwd),
+        lambda: rel_attention_ref(*fwd, dropout=drop),
+        rel_attention_cost(b, h, tt, dk, r, kl, elem=2))}
+    do = t(b, h, tt, dk)
+    args = (*fwd, o, m, l, do)
+    got = rel_attention_bwd(*args, dropout=drop)
+    want16 = rel_attention_bwd_ref(*args, dropout=drop)
+    want32 = rel_attention_bwd_ref(*fwd32, o.float(), m, l, do.float(),
+                                   dropout=drop)
+    o_nd, m_nd, l_nd = rel_attention_fwd(*fwd)
+    rows["rel_attention_bwd_bf16_dropout"] = (
+        max(rel_err(x, y) for x, y in zip(got, want16)),
+        max(ratio(*xyz) for xyz in zip(got, want16, want32)),
+        lambda: rel_attention_bwd(*args, dropout=drop),
+        lambda: rel_attention_bwd(*fwd, o_nd, m_nd, l_nd, do),
+        lambda: rel_attention_bwd_ref(*args, dropout=drop),
+        rel_attention_bwd_cost(b, h, tt, dk, r, kl, elem=2))
+    del got, want16, want32, o16, o32
+    bias = rel_bias(torch, p, klens)
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    bias_g = bias.detach().requires_grad_()
+    with efficient_sdpa():
+        out = sdpa(*leaves, attn_mask=bias_g, dropout_p=ATT_RATE, scale=1.0)
+        libs = {"rel_attention_bf16_dropout": lambda: sdpa(
+                    q, k, v, attn_mask=bias, dropout_p=ATT_RATE, scale=1.0),
+                "rel_attention_bwd_bf16_dropout": lambda: torch.autograd.grad(
+                    out, (*leaves, bias_g), do, retain_graph=True)}
+        for name, (err, vs, kern, nodrop, plain, cost) in rows.items():
+            ms, no_ms = timed_pair(kern, nodrop, iters=10)
+            lib_ms = cuda_ms(libs[name], iters=10)
+            row = {"shape": what, "max_abs_err": err, "vs_f32_ratio": vs,
+                   "ms": ms, "no_dropout_ms": no_ms, "library_ms": lib_ms,
+                   "plain_ms": cuda_ms(plain, iters=3, warmup=1),
+                   **roofline(cost, bf16=True)}
+            log(f"[17k] {name} {what}: error {err:.3e} of the plain bf16 "
+                f"max, {vs:.3f}x the plain bf16 error against f32; kernel "
+                f"{ms:.4f} ms (without dropout, in turns: {no_ms:.4f})  "
+                f"plain {row['plain_ms']:.4f}  library (SDPA, dropout_p "
+                f"{ATT_RATE}) {lib_ms:.4f}  bound {row['bound_ms']:.4f} ms "
+                f"({row['bound_by']}, bf16 peak)")
+            expect(err <= BF16_KERNEL_TOL, f"17k {name} {what}: error {err}")
+            expect(vs <= BF16_VS_F32_RATIO,
+                   f"17k {name} {what}: {vs:.3f}x the plain bf16 error")
+            r_ = res.setdefault(name, {"max_abs_err": 0.0, "shapes": []})
+            r_["max_abs_err"] = max(r_["max_abs_err"], err)
+            r_["shapes"].append(row)
+            if tt == 750:      # the flagship's training shape, the row's
+                r_.update({k_: v_ for k_, v_ in row.items()
+                           if k_ not in ("shape", "max_abs_err")})
+    del args, fwd, fwd32, o, m, l, do, out, leaves, bias, bias_g
+    torch.cuda.empty_cache()
+
+
+def phase_mbr_kernels(torch, rng) -> dict:
+    """17k: K1 / K1b (float32) at the timit encoder's shape (REL_K: B32 H4
+    T 500 ragged, dk 64, R = T unclamped, no window: the table past 16
+    rows read through L1) against their plain versions at 1e-4, with SDPA
+    (the bias as its mask) as the library call, their byte bound reading
+    the [B, H, T, T] table; K1 / K1b bf16 with dropout
+    (``rel_dropout_case``) at T 750 / 375 / 188; K3 / K3b at 17a's B.N
+    rows (MBR_SCAN) and K2 in its beam (N MBR_NBEST, MBR_SCAN's T and
+    D)."""
+    import numpy as np
+    from neural_sp_tpu_torch.ops.kernels import rel_attention
+    from neural_sp_tpu_torch.ops.kernels.rel_attention import (
+        rel_attention_bwd, rel_attention_bwd_cost, rel_attention_bwd_ref,
+        rel_attention_cost, rel_attention_fwd, rel_attention_ref)
+    dev = torch.device("cuda")
+
+    def t(*shape, scale=1.0):
+        return torch.from_numpy(
+            (rng.standard_normal(shape) * scale).astype("float32")).to(dev)
+
+    res = {}
+    record = kernel_recorder(res, "17k")
+    b, h, tt, dk = (REL_K[x] for x in ("b", "h", "tt", "dk"))
+    r = tt
+    kl = [tt - 11 * i for i in range(b)]
+    q, k, v = t(b, h, tt, dk, scale=dk ** -0.5), t(b, h, tt, dk), \
+        t(b, h, tt, dk)
+    p = t(b, h, tt, r, scale=dk ** -0.5)
+    klens = torch.tensor(kl, dtype=torch.int32, device=dev)
+    fargs = (q, k, v, p, klens)
+    what = f"B={b} H={h} T={tt} dk={dk} R={r} ragged, no window"
+    err = max_err(rel_attention(*fargs), rel_attention_ref(*fargs))
+    expect(err <= KERNEL_ATOL, f"17k K1 {what}: error {err}")
+    yard = rel_attention_yardstick(torch, fargs, rel_attention, what,
+                                   phase="17k")
+    res["rel_attention_unclamped"] = {
+        "shape": what, "max_abs_err": err, "ms": yard["kernel_ms"],
+        "plain_ms": cuda_ms(lambda: rel_attention_ref(*fargs), iters=5),
+        **yard, **roofline(rel_attention_cost(b, h, tt, dk, r, kl))}
+    log(f"[17k] K1 {what}: error {err:.3e}  kernel {yard['kernel_ms']:.4f} "
+        f"ms  plain {res['rel_attention_unclamped']['plain_ms']:.4f}  bound "
+        f"{res['rel_attention_unclamped']['bound_ms']:.4f} ms "
+        f"({res['rel_attention_unclamped']['bound_by']})")
+    o, m, l = rel_attention_fwd(*fargs)
+    args = (*fargs, o, m, l, t(b, h, tt, dk))
+    got, want = rel_attention_bwd(*args), rel_attention_bwd_ref(*args)
+    err = max(rel_err(x, y) for x, y in zip(got, want))
+    del got, want
+    yard = rel_attention_bwd_yardstick(torch, args, rel_attention_bwd, what)
+    record("rel_attention_bwd", err, yard["kernel_ms"],
+           cuda_ms(lambda: rel_attention_bwd_ref(*args), iters=3),
+           what, **yard, **roofline(rel_attention_bwd_cost(b, h, tt, dk, r,
+                                                           kl)))
+    res["rel_attention_bwd_unclamped"] = res.pop("rel_attention_bwd")
+    del args, fargs, o, m, l, q, k, v, p
+    torch.cuda.empty_cache()
+    for tt in (750, 375, 188):
+        rel_dropout_case(torch, rng, res, tt)
+    s = MBR_SCAN
+    las_scan_case(torch, rng, record, s["b"], s["u"], s["tt"], s["d"],
+                  [s["tt"] - 5 * (i % 8) for i in range(s["b"])], tag="17k")
+    res["las_step"] = k2_case(torch, rng, MBR_NBEST, s["tt"], s["d"],
+                              tag="17k")
+    torch.cuda.empty_cache()
+    return res
+
+
+def mbr_batch(rng, vocab: int = CLI_VOCAB) -> dict:
+    """17a's held batch: MBR_HOLD_FRAMES utterances (numpy seeded) with
+    MBR_HOLD_U random words each, as a loader's batch dict."""
+    import numpy as np
+    xs = np.zeros((len(MBR_HOLD_FRAMES), max(MBR_HOLD_FRAMES), 80),
+                  np.float32)
+    for i, n in enumerate(MBR_HOLD_FRAMES):
+        xs[i, :n] = rng.standard_normal((n, 80))
+    u = max(MBR_HOLD_U)
+    ys = np.full((len(MBR_HOLD_U), u), 3, np.int64)
+    for i, n in enumerate(MBR_HOLD_U):
+        ys[i, :n] = rng.integers(4, vocab, n)
+    return {"xs": xs, "xlens": np.asarray(MBR_HOLD_FRAMES, np.int64),
+            "ys": ys, "ylens": np.asarray(MBR_HOLD_U, np.int64),
+            "utt_ids": [f"mbr_{i}" for i in range(len(MBR_HOLD_U))],
+            "text": [word_text(y[:n]) for y, n in zip(ys, MBR_HOLD_U)]}
+
+
+def word_text(ids) -> str:
+    """synth_corpus's words of token ids (>= 4; the reserved ids by
+    number)."""
+    return " ".join(f"w{int(i) - 4:04d}" if i >= 4 else f"<{int(i)}>"
+                    for i in ids)
+
+
+def recorded_nbest(torch, session, batch) -> tuple:
+    """The MBR n-best of ``batch`` (``bin.asr.train.mbr_nbest``) through
+    ``session``, each utterance's beam recorded: (the n-best's tensors
+    (nbest_ys, nbest_ylens, risks, as numpy), [(n-best, the pruning
+    margins, the n-best's scores)] per utterance)."""
+    from neural_sp_tpu_torch.bin.asr.train import mbr_nbest
+    records, real = [], session._beam_one
+
+    def beam(e, el):
+        out = real(e, el)
+        records.append((out[1], list(session._last_margins),
+                        list(session._last_nbest_scores)))
+        return out
+
+    session._beam_one = beam
+    try:
+        tensors = mbr_nbest(session, batch, word_text, MBR_NBEST)
+    finally:
+        del session._beam_one
+    return tensors, records
+
+
+def nbest_agree(card: tuple, cpu: tuple) -> dict:
+    """Two runs' n-best of one utterance ((n-best, margins, scores) of
+    ``recorded_nbest``) held to each other up to the card's first decision
+    under DECISION_MARGIN: with none (a pruning step's margin, or two
+    neighbouring final scores), the n-best lists equal; else the
+    hypotheses cut to that step's tokens equal as sets."""
+    nb, margins, scores = card
+    close = next((i for i, x in enumerate(margins) if x < DECISION_MARGIN),
+                 None)
+    tied = any(a - b < DECISION_MARGIN for a, b in zip(scores, scores[1:]))
+    if close is None and not tied:
+        same = nb == cpu[0]
+    else:
+        n = close if close is not None else max(map(len, nb + cpu[0]))
+        same = sorted(tuple(h[:n]) for h in nb) == \
+            sorted(tuple(h[:n]) for h in cpu[0])
+    return {"same": same, "first_close_step": close, "final_tie": tied,
+            "least_margin": min(margins, default=float("inf"))}
+
+
+def mbr_microstep(torch, model, tensors, plain=False,
+                  weights=None) -> tuple:
+    """One MBR microstep as the train CLI's (``Speech2Text.mbr_loss`` in
+    eval(), MBR_CE_WEIGHT), through the kernels or, with ``plain``, the
+    plain versions patched in; with ``weights`` [B.N], its well-conditioned
+    part instead: the encoder and the main decoder's ``sequence_log_prob``
+    over the B.N n-best rows (eouts repeated N times, as ``forward_mbr``),
+    summed with those weights. Returns (loss, {leaf: gradient as float64
+    on the host, 0 for a leaf the loss does not reach}, observations)."""
+    from contextlib import ExitStack
+    from neural_sp_tpu_torch.parallel.mesh import deterministic_cudnn
+    model.eval()
+    model.zero_grad(set_to_none=True)
+    with ExitStack() as stack:
+        if plain:
+            for target, name, value in plain_patches(torch):
+                stack.enter_context(mock.patch.object(target, name, value))
+        stack.enter_context(deterministic_cudnn())
+        if weights is None:
+            loss, obs = model.mbr_loss(*tensors, MBR_CE_WEIGHT)
+        else:
+            xs, xlens, ys, yl = tensors[:4]
+            bs, n, u = ys.shape
+            e = model.encoder(xs, xlens)["ys"]
+            lp = model.dec_fwd.sequence_log_prob(
+                e["xs"].repeat_interleave(n, 0),
+                e["xlens"].repeat_interleave(n, 0), ys.reshape(bs * n, u),
+                yl.reshape(bs * n))
+            loss = (lp * weights.to(lp)).sum()
+            obs = {"lp_mean": lp.mean()}
+        loss.backward()
+    grads = {n: torch.zeros(p.shape, dtype=torch.float64) if p.grad is None
+             else p.grad.detach().double().cpu()
+             for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return float(loss.detach()), grads, {k: float(v.detach())
+                                         for k, v in obs.items()}
+
+
+def mbr_tensors(torch, batch, nb, device, double=False) -> tuple:
+    """``Speech2Text.mbr_loss``'s inputs on ``device``: the batch's
+    features (float64 with ``double``), lengths and labels, the n-best's
+    (nbest_ys, nbest_ylens, risks) ``nb``."""
+    xs = torch.from_numpy(batch["xs"])
+    xs = xs.double() if double else xs
+    ys, yl, risks = (torch.from_numpy(x) for x in nb)
+    return tuple(x.to(device) for x in (
+        xs, torch.from_numpy(batch["xlens"]), ys, yl,
+        risks.double() if double else risks, torch.from_numpy(batch["ys"]),
+        torch.from_numpy(batch["ylens"])))
+
+
+def mbr_las_hold(torch, rng) -> dict:
+    """17a: phase 8's BLSTM-LAS (at RNN_DEPTH) with ``mbr_training``: the
+    n-best of MBR_HOLD_FRAMES utterances from its beam (K2), then
+    * the sequence scores of the B.N n-best rows (K3 / K3b), summed with
+      fixed seeded weights, and their gradients, through the kernels held
+      by phase 6's rule to the same through the plain versions;
+    * one MBR microstep through the kernels (K3 / K3b over the B.N rows,
+      K4 in the CE term) held by 6b's rule (``path_rule``) to the same
+      microstep through the plain versions in float64 on the card, against
+      the plain versions' own float32 microstep: the random weights'
+      n-best scores lie within float32's rounding of each other, so the
+      expected risk's gradient is rounding in float32 on any path (PERF.md
+      §6, PR 21); the scores' check above is the kernels' tight one."""
+    from neural_sp_tpu_torch.models.decoders.decoding import (
+        DecodeConfig, Speech2TextSession)
+    from neural_sp_tpu_torch.ops.kernels import launches, reset_launches
+    model = blstm_model(torch)
+    batch = mbr_batch(rng)
+    session = Speech2TextSession(model, DecodeConfig(
+        beam_width=max(MBR_NBEST, 4), n_best=MBR_NBEST))
+    reset_launches()
+    nb, _ = recorded_nbest(torch, session, batch)
+    beam = launches()
+    dev = next(model.parameters()).device
+    tensors = mbr_tensors(torch, batch, nb, dev)
+    rows = nb[0].shape[0] * nb[0].shape[1]
+    # positive weights: a weighted teacher-forced NLL over the rows
+    weights = torch.from_numpy(-(0.5 + rng.random(rows)) / rows).to(dev)
+    reset_launches()
+    loss_s, grads_s, obs_s = mbr_microstep(torch, model, tensors,
+                                           weights=weights)
+    scores = launches()
+    loss_sp, grads_sp, _ = mbr_microstep(torch, model, tensors, plain=True,
+                                         weights=weights)
+    log(f"[17a] BLSTM-LAS sequence scores of the {rows} n-best rows, "
+        f"weighted: {obs_s}; launches {scores}")
+    held_scores = hold_microstep(loss_s, grads_s, loss_sp, grads_sp,
+                                 "17a BLSTM-LAS scores")
+    reset_launches()
+    loss, grads, obs = mbr_microstep(torch, model, tensors)
+    counts = launches()
+    loss_p, grads_p, _ = mbr_microstep(torch, model, tensors, plain=True)
+    model.double()
+    loss64, grads64, _ = mbr_microstep(
+        torch, model, mbr_tensors(torch, batch, nb, dev, double=True),
+        plain=True)
+    log(f"[17a] BLSTM-LAS MBR microstep: n-best {nb[0].shape} (B, N, U); "
+        f"obs {obs}; beam launches {beam}; microstep launches {counts}")
+    expect(beam["las_step"] > 0, "17a: K2 never launched in the n-best")
+    for name in ("las_scan", "las_scan_bwd"):
+        expect(scores[name] > 0, f"17a: {name} never launched in the "
+               f"sequence scores")
+    for name in ("las_scan", "las_scan_bwd", "ctc_loss", "ctc_loss_bwd"):
+        expect(counts[name] > 0, f"17a: {name} never launched in the MBR "
+               f"microstep")
+    held = path_rule(torch, loss, grads, loss_p, grads_p, loss64, grads64,
+                     "17a BLSTM-LAS", ("float32", "plain f32", "plain f64"))
+    del model, session
+    torch.cuda.empty_cache()
+    return {"hold": held, "hold_scores": held_scores, "obs": obs,
+            "obs_scores": obs_s, "nbest_shape": list(nb[0].shape),
+            "beam_launches": beam, "launches": counts,
+            "scores_launches": scores}
+
+
+def mbr_mocha_hold(torch, rng) -> dict:
+    """17a: the MBR conf's LC-BLSTM-MoChA (at RNN_DEPTH), seeded: its n-best
+    of MBR_HOLD_FRAMES utterances on the card against the CPU port's on
+    the same weights (``nbest_agree``), then the MBR microstep on the card
+    in float64 held to the same microstep on the CPU in float64 by 9b's
+    rule, and the card's float32 microstep held to the CPU's float64 by
+    6b's rule against the CPU's float32 (``path_rule``: the expected
+    risk's gradient is rounding in float32, see ``mbr_las_hold``); no
+    kernel of the repo runs."""
+    from neural_sp_tpu_torch.bin.args import parse_args_train
+    from neural_sp_tpu_torch.models.decoders.decoding import (
+        DecodeConfig, Speech2TextSession)
+    from neural_sp_tpu_torch.models.speech2text import build_speech2text
+    from neural_sp_tpu_torch.ops.kernels import launches, reset_launches
+    from neural_sp_tpu_torch.utils.init_params import init_params
+    args = parse_args_train(["--config", str(ROOT / MBR_CONF)])
+    args.vocab, args.enc_n_layers = CLI_VOCAB, RNN_DEPTH
+    model = init_params(build_speech2text(args), SEED + 17).eval()
+    cpu = build_speech2text(args, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    cpu.eval()
+    batch = mbr_batch(rng)
+    conf = DecodeConfig(beam_width=max(MBR_NBEST, 4), n_best=MBR_NBEST)
+    reset_launches()
+    t0 = time.perf_counter()
+    nb, card = recorded_nbest(torch, Speech2TextSession(model, conf), batch)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, ref = recorded_nbest(torch, Speech2TextSession(cpu, conf), batch)
+    cpu_s = time.perf_counter() - t0
+    agree = [nbest_agree(c, r) for c, r in zip(card, ref)]
+    log(f"[17a] {MBR_CONF}: n-best on the card ({card_s:.1f} s) and on the "
+        f"CPU ({cpu_s:.1f} s): {agree}")
+    expect(all(a["same"] for a in agree), "17a: the card's n-best parts "
+           "from the CPU port's before a close decision")
+    dev = next(model.parameters()).device
+    loss, grads, obs = mbr_microstep(torch, model,
+                                     mbr_tensors(torch, batch, nb, dev))
+    counts = launches()
+    t0 = time.perf_counter()
+    loss32, grads32, _ = mbr_microstep(
+        torch, cpu, mbr_tensors(torch, batch, nb, "cpu"))
+    cpu.double()
+    loss_ref, grads_ref, obs_ref = mbr_microstep(
+        torch, cpu, mbr_tensors(torch, batch, nb, "cpu", double=True))
+    cpu_s = time.perf_counter() - t0
+    model.double()
+    loss64, grads64, _ = mbr_microstep(
+        torch, model, mbr_tensors(torch, batch, nb, dev, double=True))
+    log(f"[17a] MoChA MBR microstep: card {obs}; CPU float64 {obs_ref} "
+        f"(the CPU's float32 and float64 microsteps {cpu_s:.1f} s); "
+        f"launches {counts}")
+    expect(all(counts[k] == 0 for k in NOT_ON_MOCHA_PATH + (
+        "ctc_loss", "ctc_loss_bwd")), f"17a: a kernel ran for MoChA {counts}")
+    held = hold_microstep(loss64, grads64, loss_ref, grads_ref,
+                          "17a MoChA float64", floor=True)
+    held32 = path_rule(torch, loss, grads, loss32, grads32, loss_ref,
+                       grads_ref, "17a MoChA float32",
+                       ("card f32", "CPU f32", "CPU f64"))
+    del model, cpu
+    torch.cuda.empty_cache()
+    return {"nbest": agree, "card_nbest_s": card_s, "cpu_nbest_s": cpu_s,
+            "hold_float64": held, "hold_float32": held32, "obs": obs,
+            "obs_float64": obs_ref}
+
+
+def phase_mbr(torch, rng, root: Path) -> dict:
+    """17a: MBR training. The MBR conf (LC-BLSTM-512 summed at RNN_DEPTH,
+    LSTM-1024 MoChA decoder, V 10,000, SGD with weight decay) through the
+    train CLI for one MBR epoch over a seeded corpus of MBR_UTTS (2 batches
+    of 4) with a checkpoint after each batch, then resumed from the second
+    one for an epoch of one batch; its n-best and microstep held
+    (``mbr_mocha_hold``); phase 8's BLSTM-LAS with MBR, K2 / K3 / K3b / K4
+    on its path (``mbr_las_hold``)."""
+    import os
+    corpus = synth_corpus(root / "data_mbr", MBR_UTTS, CLI_VOCAB,
+                          frames=MBR_FRAMES)
+    run = cli_run(torch, root, corpus, MBR_CONF, "17a", MBR_FLAGS, (),
+                  dev_finite=True, evaluate=False)
+    names = sorted(d for d in os.listdir(run["exp"]) if d.startswith("ckpt"))
+    log(f"[17a] checkpoints {names}")
+    expect(names == ["ckpt.epoch-1", "ckpt.epoch-1-step-1",
+                     "ckpt.epoch-1-step-2"] and run["train"]["microsteps"]
+           == 2, f"17a: {run['train']['microsteps']} MBR steps, {names}")
+    expect(all(set(s) == {"loss", "loss_mbr", "loss_ce"}
+               for s in run["train"]["losses"]), "17a: not an MBR step")
+    # resumed from the second sub-step for one batch of the train set
+    rows = Path(corpus["train"]).read_text().splitlines()[:5]
+    one = root / "data_mbr" / "train_one_batch.tsv"
+    one.write_text("\n".join(rows) + "\n")
+    resumed = cli_run(torch, root, {**corpus, "train": str(one)}, MBR_CONF,
+                      "17a", MBR_FLAGS, (), resume="ckpt.epoch-1-step-2")
+    expect(resumed["train"]["microsteps"] == 1, "17a: the resumed epoch")
+    for r in (run, resumed):
+        expect(all(r["train"]["launches"][k] == 0 for k in
+                   NOT_ON_MOCHA_PATH), "17a: a kernel ran in MoChA's CLI")
+    return {"cli": run, "resumed": resumed["train"],
+            "mocha": mbr_mocha_hold(torch, rng),
+            "las": mbr_las_hold(torch, rng)}
+
+
+def rel_batch(torch, rng) -> tuple:
+    """17b's microbatch: REL_B utterances ragged from REL_FRAMES down to
+    half of it, x 80, TRAIN_U labels, on the card."""
+    dev = torch.device("cuda")
+    xlens = [REL_FRAMES - (REL_FRAMES // 2 * i) // REL_B
+             for i in range(REL_B)]
+    xs = rng.standard_normal((REL_B, REL_FRAMES, 80)).astype("float32")
+    ys = rng.integers(4, CLI_VOCAB, (REL_B, TRAIN_U)).astype("int64")
+    return (torch.from_numpy(xs).to(dev),
+            torch.tensor(xlens, device=dev),
+            torch.from_numpy(ys).to(dev),
+            torch.full((REL_B,), TRAIN_U, device=dev))
+
+
+def phase_relative(torch, rng, root: Path, corpus: dict) -> dict:
+    """17b: the timit transformer with relative positions (REL_CONF: d 256,
+    4 heads, d_ff 2048, 12 + 6 layers, CTC 0.3, V 10,000) at full width and
+    depth, seeded, its parameters the JAX package's count; one eval()
+    microstep at B REL_B x up to REL_FRAMES frames (K1 / K1b at R = T 500,
+    K4) held to the plain versions by phase 6's rule, the plain run's ReLU
+    masks pinned to the kernels' run; the train CLI one epoch on phase 7's
+    corpus and the eval CLI at REL_EVAL, at REL_DEPTH."""
+    from neural_sp_tpu_torch.bin.args import parse_args_train
+    from neural_sp_tpu_torch.models.speech2text import build_speech2text
+    from neural_sp_tpu_torch.ops.kernels import launches, reset_launches
+    from neural_sp_tpu_torch.utils.init_params import init_params
+    args = parse_args_train(["--config", str(ROOT / REL_CONF)])
+    args.vocab = CLI_VOCAB
+    model = init_params(build_speech2text(args), SEED + 17)
+    n = sum(p.numel() for p in model.parameters())
+    blocks = model.encoder.blocks
+    expect(n == REL_PARAMS and all(b.relative and not b.conformer and
+                                   b.mha.clamp_len < 0 for b in blocks),
+           f"17b: {n} parameters")
+    batch = rel_batch(torch, rng)
+    # the ReLU FFNs' masks of the kernels' run pinned in the plain run: a
+    # mask flips where a pre-activation lies within float32's error of 0
+    # (phase 10's method)
+    ffns, pre, pre_plain = relu_ffns(torch, model), {}, {}
+    hooks = keep_pre_activations(ffns, pre)
+    reset_launches()
+    loss, grads = eval_microstep(torch, model, batch)
+    counts = launches()
+    for h in hooks:
+        h.remove()
+    hooks = keep_pre_activations(ffns, pre_plain)
+    saved = {k: m.act for k, m in ffns.items()}
+    for k, m in ffns.items():
+        m.act = lambda x, keep=(pre[k] > 0).to(pre[k].dtype): x * keep
+    try:
+        loss_ref, grads_ref = eval_microstep(torch, model, batch, plain=True)
+    finally:
+        for k, m in ffns.items():
+            m.act = saved[k]
+        for h in hooks:
+            h.remove()
+    flips = sum(int(((pre[k] > 0) != (pre_plain[k] > 0)).sum()) for k in pre)
+    log(f"[17b] {REL_CONF}: {n} parameters; an eval() microstep at B "
+        f"{REL_B} x {REL_FRAMES} frames; launches {counts}; {flips} of "
+        f"{sum(x.numel() for x in pre.values())} ReLU pre-activations of "
+        f"the plain run flip sign (its masks pinned to the kernels')")
+    for name in REL_TRAIN_KERNELS:
+        expect(counts[name] > 0, f"17b: {name} never launched")
+    held = hold_microstep(loss, grads, loss_ref, grads_ref, "17b",
+                          zero_leaf="w_key.bias")
+    held["relu_flips"] = flips
+    del pre, pre_plain
+    del model, batch, grads, grads_ref
+    torch.cuda.empty_cache()
+    cli = cli_run(torch, root, corpus, REL_CONF, "17b", REL_FLAGS,
+                  REL_TRAIN_KERNELS, ("rel_attention", ), REL_EVAL,
+                  dev_finite=True)
+    return {"parameters": n, "hold": held, "launches": counts, **cli}
+
+
+def phase_att_bf16(torch, rng) -> dict:
+    """17c: the North star's conf (SS_CONF) at bf16 compute with
+    dropout_att ATT_RATE (sampling off), full width and depth, seeded: one
+    train() microstep at phase 5's B 32 x 1500, its masks pinned by one
+    generator seed in the three runs, held by phase 6b's rule (through the
+    kernels at bf16 against the plain versions at bf16 and at float32):
+    K1 / K1b's bf16 dropout entries run once per layer each."""
+    from neural_sp_tpu_torch.bin.args import parse_args_train
+    from neural_sp_tpu_torch.models.speech2text import build_speech2text
+    from neural_sp_tpu_torch.ops.kernels import launches, reset_launches
+    from neural_sp_tpu_torch.utils.init_params import init_params
+    args = parse_args_train(["--config", str(ROOT / SS_CONF)])
+    args.vocab, args.dropout_att, args.ss_prob = CLI_VOCAB, ATT_RATE, 0.0
+    model = init_params(build_speech2text(args), SEED + 17)
+    batch = train_batch(torch, rng)
+    counts = {}
+
+    def microstep(dtype, plain):
+        if not plain:
+            reset_launches()
+        loss, grads, _ = mocha_microstep(torch, model, batch, SEED + 17,
+                                         dtype, plain)
+        if not plain:
+            counts.update(launches())
+        return loss, grads
+
+    held = phase_train_parity_bf16(torch, model, batch,
+                                   microstep(None, True), "17c", microstep)
+    layers = len(model.encoder.blocks)
+    log(f"[17c] {SS_CONF} at bf16 with dropout_att {ATT_RATE}: launches "
+        f"{counts}")
+    expect(all(counts[k] == layers for k in ATT_BF16_KERNELS) and
+           counts["rel_attention"] == counts["rel_attention_bwd"] == 0,
+           f"17c: K1 / K1b's bf16 dropout entries {counts}")
+    del model, batch
+    torch.cuda.empty_cache()
+    return {"hold": held, "launches": counts}
+
+
+def advance_attention(torch, attn) -> None:
+    """The location filter of the LAS attention ``attn`` set to move its
+    peak one frame a step: conv channel 0 reads the previous weights one
+    frame back (a SAME-padded cross-correlation), ``w_conv`` maps it to
+    LOC_SHIFT sign(v) (the energy rises one frame past the last peak), the
+    other channels off."""
+    with torch.no_grad():
+        w = attn.conv.weight                   # [C, 1, K]
+        w.zero_()
+        w[0, 0, w.shape[-1] // 2 - 1] = 1.0
+        attn.w_conv.weight.zero_()
+        attn.w_conv.weight[:, 0] = LOC_SHIFT * torch.sign(
+            attn.v.weight.view(-1))
+
+
+def blank_shift(torch, model, loader) -> tuple:
+    """(shift, margin): the sub1 CTC's blank logit raised by ``shift`` puts
+    a tenth to nine tenths of the valid frames of ``loader``'s utterances
+    on blank, so that its best path emits at many frames (the trained
+    model's emits one character at every frame, which collapses to one
+    token). The shift is taken midway across the widest spacing of the
+    frames' sorted gaps (best non-blank minus blank log-probability) in
+    that range: no frame's argmax then lies within ``margin`` of a tie."""
+    import numpy as np
+    from neural_sp_tpu_torch import BLANK
+    from neural_sp_tpu_torch.models.decoders.decoding import (
+        DecodeConfig, Speech2TextSession)
+    session = Speech2TextSession(model.eval(), DecodeConfig())
+    gaps = []
+    for batch in loader:
+        eouts = session.encode(batch["xs"], batch["xlens"])
+        tap = eouts["ys_sub1" if "ys_sub1" in eouts else "ys"]
+        with torch.inference_mode():
+            lp = model.ctc_sub1.log_probs(tap["xs"]).cpu()
+        for row, n in zip(lp, tap["xlens"].tolist()):
+            row = row[:n]
+            best = torch.cat([row[:, :BLANK], row[:, BLANK + 1:]], 1)
+            gaps.append((best.max(1).values - row[:, BLANK]).numpy())
+    gaps = np.sort(np.concatenate(gaps))
+    mid = gaps[len(gaps) // 10: 9 * len(gaps) // 10 + 1]
+    i = int(np.argmax(np.diff(mid)))
+    return float(mid[i] + mid[i + 1]) / 2, float(mid[i + 1] - mid[i]) / 2
+
+
+def phase_resolving_unk(torch, root: Path, mtl: dict) -> dict:
+    """17d: ``eval_word(resolving_unk=True)`` over 14a's trained AISHELL
+    hierarchical model (word main task, char sub1 CTC) on the first
+    RESOLVE_UTTS dev utterances of phase 14's corpus, through a word
+    dictionary without UNK_WORDS of their words (those map to <unk>),
+    beam 4 + CTC 0.3. On both sides the decoder's <unk> logit is raised by
+    UNK_SHIFT (so that the beam emits it), its attention made to advance a
+    frame a step (``advance_attention``: the trained model's peaks sit on
+    one frame, where only an utterance's first <unk> takes characters) and
+    the sub1 CTC's blank logit raised to win a share of the frames
+    (``blank_shift``). Each utterance's
+    resolved text and the WER on the card equal to the CPU port's on the
+    same weights, up to the card's first beam decision under
+    DECISION_MARGIN; on each side at least RESOLVED_MIN <unk> resolved to
+    characters at distinct attention-peak frames."""
+    from types import SimpleNamespace
+    from neural_sp_tpu_torch import BLANK, UNK
+    from neural_sp_tpu_torch.bin.asr import eval as cli_eval
+    from neural_sp_tpu_torch.datasets.asr.build import build_dataloader
+    from neural_sp_tpu_torch.evaluators import asr as evaluators
+    from neural_sp_tpu_torch.models.decoders.decoding import (
+        DecodeConfig, Speech2TextSession)
+    from neural_sp_tpu_torch.models.speech2text import build_speech2text
+    corpus = mtl["corpus"]
+    model, targs, _ = cli_eval.load_model_for_eval(SimpleNamespace(
+        recog_model=mtl["aishell"]["exp"], recog_n_average=1))
+    rows = Path(corpus["dev"]).read_text().splitlines()[:RESOLVE_UTTS + 1]
+    dev_tsv = root / "dev_resolve.tsv"
+    dev_tsv.write_text("\n".join(rows) + "\n")
+    dropped = {w for r in rows[1:] for w in r.split("\t")[5].split()[:2]}
+    dropped = sorted(dropped)[:UNK_WORDS]
+    word_dict = root / "dict_word_unk.txt"
+    word_dict.write_text("".join(
+        line + "\n" for line in Path(corpus["dict"]).read_text().splitlines()
+        if line.split()[0] not in dropped))
+    loader = build_dataloader(str(dev_tsv), str(word_dict), unit="word",
+                              batch_size=RESOLVE_UTTS, is_test=True,
+                              dict_path_sub1=corpus["dict_char"])
+    shift, margin = blank_shift(torch, model, loader)
+    expect(margin >= DECISION_MARGIN, f"17d: the sub1 blank shift {shift} "
+           f"lies {margin} from a frame's tie")
+    with torch.no_grad():
+        model.dec_fwd.step.output.bias[UNK] += UNK_SHIFT
+        model.ctc_sub1.output.bias[BLANK] += shift
+    advance_attention(torch, model.dec_fwd.step.attn)
+    cpu = build_speech2text(targs, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    conf = DecodeConfig(beam_width=4, ctc_weight=0.3)
+    out = {}
+    for where, m in (("card", model), ("cpu", cpu)):
+        session = Speech2TextSession(m.eval(), conf)
+        calls, real_resolve = [], evaluators.resolve_unk_text
+        real_beam = session._beam_one
+
+        def beam(e, el):
+            res = real_beam(e, el)
+            calls.append({"margins": list(session._last_margins)})
+            return res
+
+        def resolve(hyp, peaks, *a):
+            text = real_resolve(hyp, peaks, *a)
+            hyp = list(map(int, hyp))
+            # the <unk> that took characters, and their peak frames
+            took = {peaks[min(i, len(peaks) - 1)] for i, (t, w) in
+                    enumerate(zip(hyp, text.split()))
+                    if t == UNK and w != "<unk>"}
+            calls[-1].update(hyp=hyp, peaks=list(peaks), text=text,
+                             resolved_peaks=sorted(took))
+            return text
+
+        session._beam_one = beam
+        t0 = time.perf_counter()
+        with mock.patch.object(evaluators, "resolve_unk_text", resolve):
+            res = evaluators.eval_word(session, loader, resolving_unk=True)
+        out[where] = {**res, "wall_s": time.perf_counter() - t0,
+                      "utts": calls,
+                      "resolved": sum(len(c["resolved_peaks"])
+                                      for c in calls)}
+    card, ref = out["card"]["utts"], out["cpu"]["utts"]
+    agree = []
+    for c, r in zip(card, ref):
+        close = next((i for i, x in enumerate(c["margins"])
+                      if x < DECISION_MARGIN), None)
+        agree.append({"same_text": c["text"] == r["text"],
+                      "first_close_step": close,
+                      "unk": c["hyp"].count(UNK),
+                      "peak_frames": len(set(c["peaks"])),
+                      "resolved_at": c["resolved_peaks"],
+                      "least_margin": min(c["margins"],
+                                          default=float("inf"))})
+        expect(c["text"] == r["text"] or close is not None,
+               f"17d: the card's resolved text {c['text']!r} against the "
+               f"CPU's {r['text']!r} with no close decision")
+    log(f"[17d] resolving_unk over {RESOLVE_UTTS} dev utterances (dropped "
+        f"words {dropped}): card WER {out['card']['wer']:.2f} "
+        f"({out['card']['wall_s']:.1f} s), CPU {out['cpu']['wer']:.2f} "
+        f"({out['cpu']['wall_s']:.1f} s); sub1 blank shift {shift:.4f} "
+        f"({margin:.2e} from a tie); <unk> resolved at distinct peak "
+        f"frames: card {out['card']['resolved']}, CPU "
+        f"{out['cpu']['resolved']}; {agree}; texts "
+        f"{[c['text'][:400] for c in card]}")
+    expect(out["card"]["n_utts"] == RESOLVE_UTTS and (
+        out["card"]["wer"] == out["cpu"]["wer"] or any(
+            a["first_close_step"] is not None for a in agree)),
+        f"17d: WER {out['card']['wer']} against the CPU's "
+        f"{out['cpu']['wer']}")
+    expect(min(out["card"]["resolved"], out["cpu"]["resolved"]) >=
+           RESOLVED_MIN, f"17d: <unk> resolved at {out['card']['resolved']} "
+           f"(card) and {out['cpu']['resolved']} (CPU) distinct peak "
+           f"frames, fewer than {RESOLVED_MIN}")
+    del model, cpu
+    torch.cuda.empty_cache()
+    return {**out, "agree": agree, "dropped": dropped, "blank_shift": shift,
+            "blank_margin": margin}
+
+
+def phase_slice21(torch, root: Path, corpus: dict, mtl: dict) -> dict:
+    """17: 17k (the kernels alone), 17a (MBR), 17b (the relative
+    transformer), 17c (bf16 with attention dropout), 17d (resolving_unk),
+    each drawing from a generator of its own (its data the same however
+    the script's earlier phases drew). Returns each sub-phase's results,
+    their walls and the launches on the phase's paths."""
+    import numpy as np
+    walls, out = {}, {}
+
+    def rng():
+        return np.random.default_rng(SEED + 17)
+
+    for key, name, run in (
+            ("kernels", "17k", lambda: phase_mbr_kernels(torch, rng())),
+            ("mbr", "17a", lambda: phase_mbr(torch, rng(), root)),
+            ("relative", "17b", lambda: phase_relative(torch, rng(), root,
+                                                       corpus)),
+            ("att_bf16", "17c", lambda: phase_att_bf16(torch, rng())),
+            ("resolving_unk", "17d",
+             lambda: phase_resolving_unk(torch, root, mtl))):
+        t = time.perf_counter()
+        out[key] = run()
+        walls[name] = time.perf_counter() - t
+        log(f"[{name}] wall {walls[name]:.1f} s")
+    mbr, rel = out["mbr"], out["relative"]
+    paths = {"17a": [mbr["las"]["beam_launches"], mbr["las"]["launches"]],
+             "17b": [rel["launches"], rel["train"]["launches"],
+                     rel["eval"]["launches"]],
+             "17c": [out["att_bf16"]["launches"]]}
+    out["launches"] = {k: {name: sum(p[name] for p in ps)
+                           for name in ps[0]} for k, ps in paths.items()}
+    out["sub_phase_wall_s"] = walls
+    log(f"[17] walls {walls}; launches on the phase's paths "
+        f"{out['launches']}")
+    return out
+
+
+def add_slice21_rows(entries, srcs, keys, s21, blstm):
+    """Phase 17 in the ``kernels`` line: K1 / K1b at R = T (the timit
+    encoder's shape, 17b's launches), K1 / K1b's bf16 dropout entries
+    (the flagship's T 750 row, the other shapes beside it; 17c's
+    launches), K3 / K3b at 17a's B.N rows and K2 in its beam (17a's
+    BLSTM-LAS launches), K4 in 17b's CTC (phase 8a's B32 T500 row,
+    this run's; 17b's launches). Every row's launches must be above 0."""
+    k, la = s21["kernels"], s21["launches"]
+    rows = [("rel_attention_unclamped", "rel_attention",
+             k["rel_attention_unclamped"], la["17b"]["rel_attention"]),
+            ("rel_attention_bwd_unclamped", "rel_attention_bwd",
+             k["rel_attention_bwd_unclamped"],
+             la["17b"]["rel_attention_bwd"]),
+            ("rel_attention_bf16_dropout", "rel_attention_bf16",
+             k["rel_attention_bf16_dropout"],
+             la["17c"]["rel_attention_bf16_dropout"]),
+            ("rel_attention_bwd_bf16_dropout", "rel_attention_bwd_bf16",
+             k["rel_attention_bwd_bf16_dropout"],
+             la["17c"]["rel_attention_bwd_bf16_dropout"]),
+            ("las_scan_mbr", "las_scan", k["las_scan"],
+             la["17a"]["las_scan"]),
+            ("las_scan_bwd_mbr", "las_scan_bwd", k["las_scan_bwd"],
+             la["17a"]["las_scan_bwd"]),
+            ("las_step_mbr", "las_step", k["las_step"],
+             la["17a"]["las_step"]),
+            ("ctc_loss_relative", "ctc_loss", blstm["kernels"]["ctc_loss"],
+             la["17b"]["ctc_loss"])]
+    for name, base, row, launched in rows:
+        src, rep = srcs[base]
+        entries.append({
+            "name": name, "route": "cuda", "source": src, "replaces": rep,
+            "launches": launched, **{key: row.get(key) for key in keys},
+            "shape": row.get("shape", (row.get("shapes") or [{}])[0].get(
+                "shape")),
+            "other_shapes": [{x: sh.get(x) for x in (
+                "shape", "ms", "no_dropout_ms", "plain_ms", "bound_ms",
+                "bound_by", "library_ms", "max_abs_err", "vs_f32_ratio")}
+                for sh in row.get("shapes", [])[1:]],
+            "path": "17 (MBR, the relative transformer, bf16 attention "
+                    "dropout, resolving_unk)"})
+        expect(launched > 0, f"{name} never launched on 17's paths")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6915,7 +7832,8 @@ def main() -> int:
            f"a kernel of the path never launched: {launches}")
     breakdown = phase_breakdown(torch, model, xs, xlens)
     wall("3")
-    served_lm, lm_launches = phase_serve_lm(torch, model, xs, xlens)
+    served_lm, lm_launches = phase_serve_lm(torch, model, xs[:HOST_UTTS],
+                                            xlens[:HOST_UTTS])
     wall("3c")
     # K1's and K2's launches: the served requests of phases 3 and 3c
     launches = {k: n + lm_launches[k] for k, n in launches.items()}
@@ -6976,6 +7894,8 @@ def main() -> int:
         wall("15")
         trig = phase_trig(torch, rng, root, corpus, xs, xlens)
         wall("16")
+        s21 = phase_slice21(torch, root, corpus, mtl)
+        wall("17")
     log(f"phase walls (s): {json.dumps(walls)}; total "
         f"{sum(walls.values()):.1f} s")
     # each kernel's launches from the main path it belongs to: the served
@@ -7004,7 +7924,7 @@ def main() -> int:
         csrc + "rel_attention.cu",
         "neural_sp_tpu/ops/rel_attention_pallas.py:61 (583dfc4~1)"),
         "rel_attention_bwd_bf16": (
-        csrc + "rel_attention_bwd.cu",
+        csrc + "rel_attention_bwd_bf16.cu",
         "neural_sp_tpu/ops/rel_attention_pallas.py:82 (583dfc4~1)"),
         "las_step": (
         csrc + "las_step.cu",
@@ -7031,7 +7951,8 @@ def main() -> int:
                "blstm": blstm, "mocha": mocha,
                "transformer": xformer, "streaming": streaming,
                "transducer": rnnt, "lm": lm, "stream_bf16": stream_bf16,
-               "mtl": mtl, "att": att, "trig": trig, "kernels": kernels,
+               "mtl": mtl, "att": att, "trig": trig, "slice21": s21,
+               "kernels": kernels,
                "phase_walls_s": walls}
     log(json.dumps(details))
     out_dir = ROOT / "chiprun_out"
@@ -7240,6 +8161,7 @@ def main() -> int:
     add_new_path_rows(entries, srcs, keys, streaming, stream_bf16, mtl)
     add_att_rows(entries, srcs, keys, att)
     add_trig_rows(entries, srcs, keys, trig)
+    add_slice21_rows(entries, srcs, keys, s21, blstm)
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -45,8 +45,23 @@ points. Random state passing (``rsp_prob``, or the recipes'
 ``rsp_prob_enc`` when ``rsp_prob`` is unset: ROADMAP C16) needs an RNN
 encoder, as JAX's assertion: each step starts the encoder from the
 previous batch's carry with that probability (``make_rsp_train_step``),
-a batch of another size from zeros. The JAX CLI's distillation, MBR,
-tensor parallelism and the profiler window raise (ROADMAP).
+a batch of another size from zeros.
+
+Minimum-Bayes-risk training (``mbr_training``, from ``mbr_start_epoch``,
+default 1) replaces an epoch's training loop, as the JAX CLI's: per batch,
+each utterance's n-best of ``mbr_nbest`` (default 4) from the LAS beam at
+width max(``mbr_nbest``, 4) (``Speech2TextSession._beam_one``), padded to
+``mbr_nbest`` with its last entry (``[eos]`` when empty), each
+hypothesis's risk its word errors against the transcript
+(``compute_wer``'s S + I + D), the hypotheses padded to at least 8 labels
+per utterance, then across the batch; then one step of
+``Speech2Text.mbr_loss`` (``mbr_ce_weight``, default 0.01, times the
+model's own loss) in ``eval()`` and float32, through the optimizer with
+no epoch lr scale, as JAX's ``mbr_step``; every ``mbr_ckpt_interval``
+batches a checkpoint ``ckpt.epoch-N-step-M``. The dev loss, the
+controller and the epoch's checkpoint follow as in any epoch. The JAX
+CLI's distillation, tensor parallelism and the profiler window raise
+(ROADMAP).
 """
 from __future__ import annotations
 
@@ -60,13 +75,15 @@ import time
 import numpy as np
 import torch
 
-from ... import configs
+from ... import EOS, PAD, configs
 from ...datasets.asr.build import build_dataloader
+from ...evaluators.edit_distance import compute_wer
+from ...models.decoders.decoding import DecodeConfig, Speech2TextSession
 from ...models.decoders.las import RNNDecoder
 from ...models.decoders.transformer import TransformerDecoder
 from ...models.encoders.rnn import RNNEncoder
 from ...models.speech2text import WEIGHTS, build_speech2text
-from ...models.utils import model_device
+from ...models.utils import model_device, np_pad_lists
 from ...parallel.mesh import make_rsp_train_step, make_train_step
 from ...trainers.checkpoint import load_checkpoint, save_checkpoint
 from ...trainers.lr_scheduler import (
@@ -79,7 +96,7 @@ from ..args import parse_args_train, save_config
 logger = logging.getLogger(__name__)
 
 # options of the JAX CLI the port does not have: each raises when set
-_NOT_PORTED = ("teacher", "mbr_training", "profile_n_steps")
+_NOT_PORTED = ("teacher", "profile_n_steps")
 _SUB_LABELS = ("ys_sub1", "ylens_sub1", "ys_sub2", "ylens_sub2")
 # what a training step takes from a batch besides xs, xlens, ys, ylens
 _STEP_LABELS = _SUB_LABELS + ("trigger_points",)
@@ -184,6 +201,62 @@ def make_step(model, opt, args):
     return make_train_step(model, opt, compute_dtype=dtype)
 
 
+def mbr_nbest(session, batch, idx2token, n: int) -> tuple:
+    """The JAX CLI's MBR n-best of a batch: per utterance, its beam's
+    n-best (``session``'s, on the model as it is) padded to ``n`` with its
+    last entry (``[eos]`` when empty), the word errors of each against the
+    transcript, the hypotheses (``[eos]`` for an empty one) padded to at
+    least 8 labels, then PAD across the batch. Returns numpy (nbest_ys
+    [B, n, U] int32, nbest_ylens [B, n] int32, risks [B, n] float32)."""
+    ys, lens, risks = [], [], []
+    for b in range(len(batch["utt_ids"])):
+        eo = session.encode(batch["xs"][b:b + 1], batch["xlens"][b:b + 1])
+        _, nbest = session._beam_one(eo["ys"]["xs"], eo["ys"]["xlens"])
+        nbest = (nbest + [nbest[-1] if nbest else [EOS]] * n)[:n]
+        ref = batch["text"][b].split()
+        risks.append([float(sum(compute_wer(ref, idx2token(h).split())[1:]))
+                      for h in nbest])
+        y, yl = np_pad_lists([h or [EOS] for h in nbest], min_len=8)
+        ys.append(y)
+        lens.append(yl)
+    umax = max(y.shape[1] for y in ys)
+    ys = np.stack([np.pad(y, ((0, 0), (0, umax - y.shape[1])),
+                          constant_values=PAD) for y in ys])
+    return ys, np.stack(lens), np.asarray(risks, np.float32)
+
+
+def mbr_epoch(model, step_fn, train_set, args, reporter, epoch,
+              save) -> None:
+    """One MBR epoch (the module docstring): ``save(sub_step)`` writes the
+    checkpoint within the epoch."""
+    n = getattr(args, "mbr_nbest", 4)
+    ce_weight = getattr(args, "mbr_ce_weight", 0.01)
+    interval = getattr(args, "mbr_ckpt_interval", 0)
+    session = Speech2TextSession(
+        model, DecodeConfig(beam_width=max(n, 4), n_best=n))
+    device = session.device
+    model.eval()
+    try:
+        for i, batch in enumerate(train_set):
+            nb_ys, nb_lens, risks = (torch.from_numpy(x).to(device)
+                                     for x in mbr_nbest(
+                                         session, batch,
+                                         train_set.idx2token, n))
+            xs, xlens, ys, ylens = _to_device(batch, device)
+            metrics, _ = step_fn.update(
+                lambda: model.mbr_loss(xs, xlens, nb_ys, nb_lens, risks, ys,
+                                       ylens, ce_weight), 1.0)
+            # the JAX CLI reports the MBR step's loss alone
+            reporter.add_observation({"loss": metrics["loss"]})
+            reporter.step_forward()
+            logger.info("step %d (ep %d): MBR loss %.3f", reporter.step,
+                        epoch, float(metrics["loss"]))
+            if interval and (i + 1) % interval == 0:
+                save(i + 1)
+    finally:
+        model.train()
+
+
 @torch.no_grad()
 def dev_loss(model, dev_set, reporter, device) -> float:
     """The mean over the dev batches of the float32 loss in eval mode."""
@@ -208,6 +281,8 @@ def main(argv=None, device=None) -> str:
         if getattr(args, name, None):
             raise NotImplementedError(f"{name} is not ported yet, see ROADMAP")
     tasks = mtl_tasks(args)
+    mbr_start = getattr(args, "mbr_start_epoch", 1) \
+        if getattr(args, "mbr_training", False) else 0
     if int(getattr(args, "n_model", 1)) > 1:
         raise NotImplementedError(
             "tensor parallelism (--n_model) is not ported yet, see ROADMAP")
@@ -276,6 +351,9 @@ def main(argv=None, device=None) -> str:
         "rsp_prob requires an RNN encoder"
     step_fn = make_step(model, opt, args)
     rsp_carry = None
+    if mbr_start and not isinstance(model.dec_fwd, RNNDecoder):
+        raise ValueError("mbr_training takes the LAS decoder's n-best (the "
+                         "JAX CLI's _beam_one_las)")
 
     start_epoch = 1
     if args.resume:
@@ -322,7 +400,14 @@ def main(argv=None, device=None) -> str:
                 else ss_prob
         train_set.set_epoch(epoch)
         t0 = time.time()
-        for i, batch in enumerate(train_set):
+        use_mbr = mbr_start and epoch >= mbr_start
+        if use_mbr:
+            mbr_epoch(model, step_fn, train_set, args, reporter, epoch,
+                      lambda sub: save_checkpoint(
+                          save_dir, epoch, model.state_dict(),
+                          opt.state_dict(names), controller.state_dict(),
+                          sub_step=sub))
+        for i, batch in enumerate(train_set if not use_mbr else ()):
             if tasks:
                 # one task per batch, round-robin (JAX's mtl_per_batch)
                 model.set_weights(**tasks[i % len(tasks)])

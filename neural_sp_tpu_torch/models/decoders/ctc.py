@@ -4,6 +4,9 @@ The loss is kernel K4 (``ops.ctc.ctc_loss``); the scorer is host numpy in
 the JAX package and is copied as it is. ``trigger_points`` is the forced
 alignment of ``ops.ctc.ctc_forced_align`` (MoChA's ``ctc_sync``).
 
+``best_path_frames`` is the best path with its first-emission frames that
+``evaluators/asr.py::eval_word`` reads off a char sub1 head.
+
 The block-synchronous CTC prefix beam (``CTCBlockSyncBeam``) and the
 scorer's ``register_new_chunk`` / ``extend_state`` (streaming decoding)
 are host numpy copied from the JAX package too; a CPU test holds each to
@@ -96,6 +99,21 @@ def collapse_path(path, blank: int = BLANK) -> list[int]:
             out.append(p)
         prev = p
     return out
+
+
+def best_path_frames(log_probs: np.ndarray, blank: int = BLANK
+                     ) -> tuple[list[int], list[int]]:
+    """The collapsed best path of log_probs [T, V] (one utterance's valid
+    frames) and the frame each of its tokens is first emitted at, as the
+    JAX ``eval_word`` reads the char sub1 head for ``resolving_unk``."""
+    path, frames = [], []
+    prev = blank
+    for f, c in enumerate(np.argmax(log_probs, -1)):
+        if c != blank and c != prev:
+            path.append(int(c))
+            frames.append(f)
+        prev = c
+    return path, frames
 
 
 def ctc_greedy(best_paths: np.ndarray, elens: np.ndarray) -> list[list[int]]:

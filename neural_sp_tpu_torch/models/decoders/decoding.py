@@ -278,9 +278,17 @@ class Speech2TextSession:
         """Beam search of one utterance e [1, T, d], el [1], over the LAS or
         the transformer decoder. Returns (best hypothesis, n-best list);
         the n-best's scores are kept in ``_last_nbest_scores`` (joint) and
-        ``_last_nbest_scores_att``. As JAX's ``_beam_one_transformer``, the
-        transformer's beam has no internal-LM term (``ilm_weight`` is not
-        read: ROADMAP C24) and no coverage penalty."""
+        ``_last_nbest_scores_att``, and with the LAS decoder each emitted
+        token's attention-peak frame (the argmax of the step's weights,
+        MoChA's averaged over its heads; encoder frames) in
+        ``_last_nbest_peaks``, as JAX's ``_beam_one_las`` (MBR training's
+        n-best and ``resolving_unk`` read them); ``_last_margins`` holds
+        each step's pruning margin (the least score kept over the best
+        dropped, inf when none was dropped), with which a caller holds two
+        runs' n-bests to the first close decision. As JAX's
+        ``_beam_one_transformer``, the transformer's beam has no internal-LM
+        term (``ilm_weight`` is not read: ROADMAP C24), no coverage penalty
+        and no peaks."""
         conf = self.conf
         dec = self.dec
         las = isinstance(dec, RNNDecoder)
@@ -316,6 +324,7 @@ class Speech2TextSession:
         ctc_states = [ctc_scorer.initial_state() if ctc_scorer else None] * beam
 
         hyps = [[] for _ in range(beam)]
+        peaks = [[] for _ in range(beam)]   # attention-peak frame per token
         scores = np.full(beam, -1e30, np.float32)
         scores[0] = 0.0
         scores_att = np.zeros(beam, np.float32)  # cumulative att (raw)
@@ -325,11 +334,17 @@ class Speech2TextSession:
         aw_sums = np.zeros((beam, tmax), np.float32)
         y = torch.full((beam,), EOS, dtype=torch.long, device=e.device)
         finished: list[dict] = []
+        margins = []
 
         for step_i in range(max_len):
             logits, aw = loop.step(y, par)
             logp = torch.log_softmax(
                 conf.softmax_smoothing * logits.float(), -1).cpu().numpy()
+            if las:
+                aw_h = aw.float()
+                if aw_h.dim() == 3:     # MoChA's heads: their mean
+                    aw_h = aw_h.mean(1)
+                peak_t = aw_h.argmax(-1).cpu().numpy()
             if use_ilm:
                 ilm_logits, _ = ilm_loop.step(y, par)
                 ilm_logp = torch.log_softmax(ilm_logits.float(),
@@ -409,14 +424,18 @@ class Speech2TextSession:
             # local pruning to the top ``beam`` children TOTAL; eos-enders
             # move to ``finished`` so the live beam shrinks
             children.sort(key=lambda d: -d["score"])
+            margins.append(children[beam - 1]["score"] -
+                           children[beam]["score"]
+                           if len(children) > beam else float("inf"))
             children = children[:beam]
             new_hyps, new_scores, new_satt, new_y, parents = [], [], [], [], []
-            new_silm, new_slm, new_ctc_beam = [], [], []
+            new_silm, new_slm, new_ctc_beam, new_peaks = [], [], [], []
             for ch in children:
                 k, v, sc = ch["parent"], ch["tok"], ch["score"]
+                pk = peaks[k] + [int(peak_t[k])] if las else []
                 if v == EOS:
                     cand = {"hyp": hyps[k] + [EOS], "score": sc,
-                            "score_att": float(ch["att"])}
+                            "score_att": float(ch["att"]), "peaks": pk}
                     if use_cov:
                         cov = np.sum(np.minimum(
                             aw_sums[k], conf.coverage_threshold or 0.5))
@@ -424,6 +443,7 @@ class Speech2TextSession:
                     finished.append(cand)
                     continue
                 new_hyps.append(hyps[k] + [v])
+                new_peaks.append(pk)
                 new_scores.append(sc)
                 new_satt.append(ch["att"])
                 new_silm.append(ch["ilm"])
@@ -441,6 +461,7 @@ class Speech2TextSession:
                 break
             while len(new_hyps) < beam:  # pad beam with dead entries
                 new_hyps.append(new_hyps[-1])
+                new_peaks.append(new_peaks[-1])
                 new_scores.append(-1e30)
                 new_satt.append(new_satt[-1])
                 new_silm.append(new_silm[-1])
@@ -460,6 +481,7 @@ class Speech2TextSession:
                     aw_np = aw_np.mean(1)
                 aw_sums = aw_sums[parents] + aw_np[parents]
             hyps = new_hyps
+            peaks = new_peaks
             scores = np.asarray(new_scores, np.float32)
             scores_att = np.asarray(new_satt, np.float32)
             scores_ilm = np.asarray(new_silm, np.float32)
@@ -474,7 +496,7 @@ class Speech2TextSession:
         # ``beam`` completed
         if len(finished) < beam:
             live = [{"hyp": hyps[i] + [EOS], "score": float(scores[i]),
-                     "score_att": float(scores_att[i])}
+                     "score_att": float(scores_att[i]), "peaks": peaks[i]}
                     for i in range(len(hyps)) if scores[i] > -1e29]
             finished.extend(live[: beam - len(finished)])
         finished.sort(key=lambda d: -d["score"])
@@ -482,6 +504,9 @@ class Speech2TextSession:
         nbest = [[t for t in f["hyp"] if t != EOS] for f in top]
         self._last_nbest_scores = [float(f["score"]) for f in top]
         self._last_nbest_scores_att = [float(f["score_att"]) for f in top]
+        self._last_nbest_peaks = [f["peaks"][:len(nb)]
+                                  for f, nb in zip(top, nbest)]
+        self._last_margins = margins
         return nbest[0], nbest
 
     # ------------------------------------------------------------------ #

@@ -65,6 +65,10 @@ carry itself; a beam's reorder is an ``index_select`` of it by
 ``parent``. K2, K3 and K3b fuse location
 attention and never run for MoChA.
 
+Minimum-Bayes-risk training reads ``sequence_log_prob`` (the
+deterministic teacher-forced pass: K3 / K3b, or MoChA in hard mode) and
+``forward_mbr`` (the expected risk over an n-best), as JAX's.
+
 Carry: ``(((c, h),), aw_prev [B, T], ctx_prev [B, enc_n_units])`` — the
 JAX carry without its logits and LM slots; for MoChA aw_prev is alpha
 [B, H_ma, T], one-hot at frame 0 at the start.
@@ -362,19 +366,83 @@ class RNNDecoder(nn.Module):
                 gen: Optional[torch.Generator] = None,
                 trigger_points: Optional[torch.Tensor] = None):
         """Label-smoothed cross entropy (JAX ``RNNDecoder.__call__`` with
-        the hoisted embedding gates and readout), teacher-forced, or in
-        ``train()`` with ``ss_prob > 0`` over the fed tokens of pass 1
-        (see the module docstring). eouts [B, T, D]; elens [B]; ys [B, U]
-        PAD-padded; ylens [B]. Returns (loss, {"loss_att", "acc_att",
-        "ppl_att"}). With triggered attention, trigger_points [B, U] (-1 for
-        none) bound each step's frames (``trigger_window``). For MoChA see
-        ``forward_mocha``."""
-        bs = eouts.shape[0]
+        the hoisted embedding gates and readout) over ``logits``'s
+        teacher-forced (or, in ``train()`` with ``ss_prob > 0``, sampled)
+        steps, or for MoChA over ``mocha_logits``'s with MoChA's losses in
+        ``train()`` (``mocha_losses``). eouts [B, T, D]; elens [B]; ys
+        [B, U] PAD-padded; ylens [B]; trigger_points [B, U] (-1 for none)
+        or None. Returns (loss, {"loss_att", "acc_att", "ppl_att"}, and
+        MoChA's "loss_quantity" / "loss_latency" in ``train()``);
+        obs["loss_att"] is the cross entropy alone."""
         dev = eouts.device
         ys_in, ys_out, _ = append_sos_eos(ys.to(dev), ylens.to(dev))
         if self.attn_type == "mocha":
-            return self.forward_mocha(eouts, elens, ys_in, ys_out,
-                                      ylens.to(dev), gen, trigger_points)
+            logits, alphas = self.mocha_logits(eouts, elens, ys_in, gen,
+                                               trigger_points)
+        else:
+            logits = self.logits(eouts, elens, ys_in, gen, trigger_points)
+        loss, nll = cross_entropy_lsm(logits, ys_out, self.lsm_prob,
+                                      ignore_index=PAD)
+        acc = compute_accuracy(logits, ys_out, ignore_index=PAD)
+        obs = {"loss_att": loss, "acc_att": acc, "ppl_att": torch.exp(nll)}
+        if self.attn_type == "mocha" and self.training:
+            loss = self.mocha_losses(loss, obs, alphas, ylens.to(dev),
+                                     trigger_points, eouts.shape[1])
+        return loss, obs
+
+    def sequence_log_prob(self, eouts: torch.Tensor, elens: torch.Tensor,
+                          ys: torch.Tensor, ylens: torch.Tensor
+                          ) -> torch.Tensor:
+        """Teacher-forced sum of the labels' and eos's log-probabilities per
+        utterance [B] (JAX ``sequence_log_prob``: MBR's sequence scores).
+        Call it in ``eval()``: JAX's pass is deterministic, so no dropout,
+        MoChA in hard mode, and with triggered attention every valid frame
+        (JAX passes T - 1 as each step's trigger). Labels past a row's
+        length are not read."""
+        dev = eouts.device
+        ys_in, ys_out, _ = append_sos_eos(ys.to(dev), ylens.to(dev))
+        logits = self.mocha_logits(eouts, elens, ys_in)[0] \
+            if self.attn_type == "mocha" else \
+            self.logits(eouts, elens, ys_in)
+        # float32 at least (float64 stays float64: MBR's scores of a
+        # near-tied n-best need it, see forward_mbr)
+        lp = torch.log_softmax(
+            logits.to(torch.promote_types(logits.dtype, torch.float32)), -1)
+        tok = lp.gather(-1, ys_out.clamp(min=0)[..., None].long())[..., 0]
+        return torch.where(ys_out != PAD, tok, torch.zeros_like(tok)).sum(1)
+
+    def forward_mbr(self, eouts: torch.Tensor, elens: torch.Tensor,
+                    nbest_ys: torch.Tensor, nbest_ylens: torch.Tensor,
+                    risks: torch.Tensor, scale: float = 1.0) -> torch.Tensor:
+        """Minimum-Bayes-risk loss over an n-best (JAX ``forward_mbr``):
+        eouts repeated N times, each hypothesis's ``sequence_log_prob``
+        lp [B, N], p = softmax(scale lp) over N, the mean over B of sum_n
+        p risks. nbest_ys [B, N, U] PAD-padded; nbest_ylens [B, N]; risks
+        [B, N] float32. Call it in ``eval()``, as ``sequence_log_prob``.
+        Where the n-best's scores lie within float32's rounding of each
+        other (a model far from trained: sums of ~100 log-probs of -9 that
+        differ in the third decimal), its gradient in float32 is that
+        rounding, as JAX's."""
+        bs, n, u = nbest_ys.shape
+        lp = self.sequence_log_prob(
+            eouts.repeat_interleave(n, 0), elens.repeat_interleave(n, 0),
+            nbest_ys.reshape(bs * n, u), nbest_ylens.reshape(bs * n)
+        ).view(bs, n)
+        p_hat = torch.softmax(scale * lp, 1)
+        return (p_hat * risks.to(p_hat)).sum(1).mean()
+
+    def logits(self, eouts: torch.Tensor, elens: torch.Tensor,
+               ys_in: torch.Tensor, gen: Optional[torch.Generator] = None,
+               trigger_points: Optional[torch.Tensor] = None
+               ) -> torch.Tensor:
+        """The logits [B, U+1, vocab] of the U+1 steps fed ys_in [B, U+1]
+        (``append_sos_eos``'s), teacher-forced (K3 / K3b), or in
+        ``train()`` with ``ss_prob > 0`` over the fed tokens of pass 1 (see
+        the module docstring); the dropouts as the mode says. With
+        triggered attention, trigger_points [B, U] (-1 for none) bound each
+        step's frames (``trigger_window``)."""
+        bs = eouts.shape[0]
+        dev = eouts.device
         step, cell = self.step, self.step.cells[0]
         kc = self.precompute_keys(eouts)
         values = eouts.contiguous()
@@ -425,12 +493,7 @@ class RNNDecoder(nn.Module):
         dout = p[0] if p else h * keep
         out = torch.tanh(step.w_gen(torch.cat([dout, ctx], -1)))
         out = _scaled(out, masks.out) if sampled else step.drop(out, gen)
-        logits = step.output(out)
-        loss, nll = cross_entropy_lsm(logits, ys_out, self.lsm_prob,
-                                      ignore_index=PAD)
-        acc = compute_accuracy(logits, ys_out, ignore_index=PAD)
-        return loss, {"loss_att": loss, "acc_att": acc,
-                      "ppl_att": torch.exp(nll)}
+        return step.output(out)
 
     def trigger_window(self, trigger_points: torch.Tensor, u1: int,
                        tmax: int) -> torch.Tensor:
@@ -442,30 +505,25 @@ class RNNDecoder(nn.Module):
                                      value=tmax - 1)[:, :u1]
         return torch.clamp(tp + self.trigger_lookahead, max=tmax - 1)
 
-    def forward_mocha(self, eouts, elens, ys_in, ys_out, ylens,
-                      gen: Optional[torch.Generator] = None,
-                      trigger_points: Optional[torch.Tensor] = None):
-        """The MoChA decoder's loss, as JAX ``RNNDecoder.__call__``: the
-        U+1 teacher-forced steps as a loop under autograd (the cell on the
-        hoisted embedding gates, the LSTM output's dropout, MoChA with the
-        query h: in ``train()`` in parallel mode with the energies' noise,
-        in ``eval()`` in hard mode, as JAX's deterministic loss), then the
-        hoisted readout and the cross entropy. In ``train()`` the dropout
-        scales and the noise are drawn from ``gen`` once for all steps (the
-        embedding's, the LSTM output's, the noise [B, U+1, H_ma, T], the
-        readout's), and the expected alignments add the quantity loss
-        (|sum of alpha's mass over the steps of the labels and eos - (U +
-        1)|, its mean over B, ``loss_quantity``) and the ``ctc_sync`` /
-        ``minlt`` latency loss (|the expected boundary frame -
-        trigger_points[b, u]| over the valid labels whose trigger is >= 0,
-        ``loss_latency``; the trigger points [B, U] from
-        ``CTC.trigger_points`` or from alignments). With ``decot`` and
-        trigger points, step u's alignment in ``train()`` is zeroed past
-        ``trigger_window``'s frame plus MoChA's ``decot_delta`` (the eval
-        loss's hard mode takes no mask, as JAX's). The returned
-        loss carries them; obs["loss_att"] is the cross entropy alone.
-        Under bf16 compute the cell, the energies and the readout compute
-        in bf16, the alignment and both latency losses in float32 (C39)."""
+    def mocha_logits(self, eouts, elens, ys_in,
+                     gen: Optional[torch.Generator] = None,
+                     trigger_points: Optional[torch.Tensor] = None):
+        """The MoChA decoder's logits [B, U+1, vocab] of the U+1 steps fed
+        ys_in, as JAX ``RNNDecoder.__call__``: the teacher-forced steps as
+        a loop under autograd (the cell on the hoisted embedding gates, the
+        LSTM output's dropout, MoChA with the query h: in ``train()`` in
+        parallel mode with the energies' noise, in ``eval()`` in hard mode,
+        as JAX's deterministic loss; a hard decision carries no gradient,
+        the chunk attention over the frames it selects does), then the
+        hoisted readout. In ``train()`` the dropout scales and the noise are
+        drawn from ``gen`` once for all steps (the embedding's, the LSTM
+        output's, the noise [B, U+1, H_ma, T], the readout's). With
+        ``decot`` and trigger points, step u's alignment in ``train()`` is
+        zeroed past ``trigger_window``'s frame plus MoChA's ``decot_delta``
+        (the eval loss's hard mode takes no mask, as JAX's). Returns
+        (logits, the alignments [B, U+1, H_ma, T] in float32 in
+        ``train()``, else None). Under bf16 compute the cell, the energies
+        and the readout compute in bf16, the alignment in float32 (C39)."""
         bs, tmax = eouts.shape[:2]
         dev, dt = eouts.device, eouts.dtype
         # MoChA's alignment recurrence in float32 under bf16 compute (C39)
@@ -509,13 +567,23 @@ class RNNDecoder(nn.Module):
         out = torch.tanh(step.w_gen(torch.cat(
             [torch.stack(queries, 1), torch.stack(ctxs, 1)], -1)))
         logits = step.output(step.drop(out, gen))
-        loss, nll = cross_entropy_lsm(logits, ys_out, self.lsm_prob,
-                                      ignore_index=PAD)
-        acc = compute_accuracy(logits, ys_out, ignore_index=PAD)
-        obs = {"loss_att": loss, "acc_att": acc, "ppl_att": torch.exp(nll)}
-        if not self.training:
-            return loss, obs
-        aws = torch.stack(alphas, 1).float()            # [B, U+1, H_ma, T]
+        return logits, (torch.stack(alphas, 1).float() if self.training
+                        else None)
+
+    def mocha_losses(self, loss, obs: dict, aws: torch.Tensor,
+                     ylens: torch.Tensor,
+                     trigger_points: Optional[torch.Tensor], tmax: int):
+        """MoChA's training losses added to ``loss`` (and put in ``obs``)
+        from the expected alignments aws [B, U+1, H_ma, T]: the quantity
+        loss (|sum of alpha's mass over the steps of the labels and eos -
+        (U + 1)|, its mean over B, ``loss_quantity``) and the ``ctc_sync`` /
+        ``minlt`` latency loss (|the expected boundary frame -
+        trigger_points[b, u]| over the valid labels whose trigger is >= 0,
+        ``loss_latency``; the trigger points [B, U] from
+        ``CTC.trigger_points`` or from alignments), both in float32
+        (C39)."""
+        dev = aws.device
+        u1 = aws.shape[1]
         steps = torch.arange(u1, device=dev)[None]
         if self.quantity_loss_weight > 0:
             valid = (steps < ylens[:, None] + 1).float()
@@ -534,7 +602,7 @@ class RNNDecoder(nn.Module):
             lat = (exp_bd - tp).abs() * valid
             obs["loss_latency"] = lat.sum() / valid.sum().clamp(min=1.0)
             loss = loss + self.latency_loss_weight * obs["loss_latency"]
-        return loss, obs
+        return loss
 
     def sampling_masks(self, gen: Optional[torch.Generator], bs: int,
                        u1: int, dtype: torch.dtype, device,

@@ -34,10 +34,15 @@ block, and the outputs agree with the offline ``mask`` mode's wherever
 the two see the same inputs (no lookahead; see ``stream_geometry``).
 
 The blocks: the conformer's (macaron FFN / rel-PE MHA through kernel K1 /
-conv / FFN / final norm) with ``pe_type`` "relative", and the
-transformer's (scaled-dot MHA / FFN, the FFN's residual at factor 1, no
-final norm) with ``pe_type`` "add" or "none". Self-attention masks keys
-only (``make_san_mask``): pad queries attend the valid keys.
+conv / FFN / final norm) and the transformer's (MHA / FFN, the FFN's
+residual at factor 1, no final norm). With ``pe_type`` "relative" or
+"relative_xl" (either block, as JAX's ``_make_mha``) the MHA is
+``RelativeMultiheadAttention`` on K1 / K1b ("relative_xl" its
+Transformer-XL form, with ``w_pos`` and the u / v biases), clamped at
+``clamp_len`` or unclamped (R = T); a transformer block with "add" or
+"none" takes the scaled-dot ``MultiheadAttention`` (matmuls and a float32
+softmax). Self-attention masks keys only (``make_san_mask``): pad queries
+attend the valid keys.
 
 In ``train()`` mode dropout (rate ``dropout``) runs at the JAX module's
 sites: after the positional encoding, inside each FFN, and on each
@@ -71,6 +76,9 @@ from .conv import ConvEncoder
 from .subsampling import build_subsampler
 from .utils import chunkwise, chunkwise_merge
 
+# the pe_types whose blocks attend with relative positions (K1 / K1b)
+RELATIVE = ("relative", "relative_xl")
+
 
 class EncoderBlock(nn.Module):
     """Pre-norm block: the conformer's (macaron FFN / rel-PE MHA / conv /
@@ -84,19 +92,24 @@ class EncoderBlock(nn.Module):
                  causal: bool = False, dropout_att: float = 0.0,
                  dropout_layer: float = 0.0):
         super().__init__()
-        if not (btype == "conformer" and pe_type == "relative" or
+        self.relative = pe_type in RELATIVE
+        if not (btype == "conformer" and self.relative or
                 btype == "transformer" and
-                pe_type in ADDS_POSITIONS + ("none",)):
+                pe_type in ADDS_POSITIONS + ("none",) + RELATIVE):
             raise NotImplementedError(
                 f"encoder block {btype!r} with pe_type {pe_type!r} is not "
-                f"ported yet (only conformer + relative and transformer + "
-                f"add / none), see ROADMAP")
+                f"ported yet (only conformer + relative / relative_xl and "
+                f"transformer + add / none / relative / relative_xl), see "
+                f"ROADMAP")
         self.conformer = btype == "conformer"
         self.drop = Dropout(dropout)
         self.dropout_layer = dropout_layer
         if not self.conformer:
             self.norm_mha = nn.LayerNorm(d_model, eps=LN_EPS)
-            self.mha = MultiheadAttention(d_model, n_heads, dropout_att)
+            self.mha = RelativeMultiheadAttention(
+                d_model, n_heads, clamp_len, pe_type == "relative_xl",
+                dropout_att) if self.relative else \
+                MultiheadAttention(d_model, n_heads, dropout_att)
             self.norm_ff = nn.LayerNorm(d_model, eps=LN_EPS)
             self.ff = FFN(d_model, d_ff, ffn_activation, ffn_bottleneck_dim,
                           dropout)
@@ -106,7 +119,8 @@ class EncoderBlock(nn.Module):
                               ffn_bottleneck_dim, dropout)
         self.norm_mha = nn.LayerNorm(d_model, eps=LN_EPS)
         self.mha = RelativeMultiheadAttention(d_model, n_heads, clamp_len,
-                                              dropout=dropout_att)
+                                              pe_type == "relative_xl",
+                                              dropout_att)
         self.norm_conv = nn.LayerNorm(d_model, eps=LN_EPS)
         self.conv = ConformerConvBlock(d_model, conv_kernel_size,
                                        conv_normalization, causal)
@@ -136,11 +150,14 @@ class EncoderBlock(nn.Module):
         keys' window (n_l, n_c, n_r) or None."""
         dp = self.drop_path
         if not self.conformer:
-            t = xs.shape[1]
-            mask = make_pad_mask(klens, t) if window is None else \
-                window_mask(klens, t, t, window, 0, xs.device)
             h = self.norm_mha(xs)
-            h, _ = self.mha(h, h, mask=mask, gen=gen)
+            if self.relative:
+                h = self.mha(h, klens, window, gen)
+            else:
+                t = xs.shape[1]
+                mask = make_pad_mask(klens, t) if window is None else \
+                    window_mask(klens, t, t, window, 0, xs.device)
+                h, _ = self.mha(h, h, mask=mask, gen=gen)
             xs = dp(xs + self.drop(h, gen), xs, gen)
             return dp(xs + self.drop(self.ff(self.norm_ff(xs), gen), gen),
                       xs, gen)
@@ -161,12 +178,15 @@ class EncoderBlock(nn.Module):
         cache's slots below ``key_start`` masked. Returns (xs, {"k", "v"}
         over the cache and the block, the new conv cache or None)."""
         if not self.conformer:
-            bs, tq, _ = xs.shape
-            tk = cache["k"].shape[1] + tq
-            mask = (torch.arange(tk, device=xs.device) >= key_start)[
-                None, None].expand(bs, tq, tk)
             h = self.norm_mha(xs)
-            h, kv = self.mha(h, h, mask=mask, cache=cache)
+            if self.relative:
+                h, kv = self.mha.stream(h, cache, key_start)
+            else:
+                bs, tq, _ = xs.shape
+                tk = cache["k"].shape[1] + tq
+                mask = (torch.arange(tk, device=xs.device) >= key_start)[
+                    None, None].expand(bs, tq, tk)
+                h, kv = self.mha(h, h, mask=mask, cache=cache)
             xs = xs + h
             return xs + self.ff(self.norm_ff(xs)), kv, None
         xs = xs + 0.5 * self.ff_macaron(self.norm_ff_macaron(xs))

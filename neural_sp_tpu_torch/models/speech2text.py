@@ -14,7 +14,8 @@ ctc_weight_sub{n}) * loss_att_sub{n}`` on the tap's outputs and the
 head reads neither ``ctc_fc_list`` nor ``ctc_lsm_prob`` (ROADMAP C38). The
 step's randomness (SpecAugment, dropout) comes from the ``gen`` argument,
 a ``torch.Generator``; in ``eval()`` mode the loss is deterministic, as the
-JAX module's ``deterministic=True``.
+JAX module's ``deterministic=True``. ``mbr_loss`` is minimum-Bayes-risk
+training's loss (the JAX train CLI's ``_mbr_loss``) over an n-best.
 
 Trigger points (per-label boundary frames [B, U], -1 for none) reach a LAS
 decoder whose MoChA latency metric is ``ctc_sync``, ``decot`` or ``minlt``
@@ -109,10 +110,22 @@ class Speech2Text(nn.Module):
         "loss_ctc", "loss_transducer"; with sub-tasks "loss_ctc_sub1", "loss_att_sub1"
         and the same for sub2."""
         xs = self._frontend(xs, xlens, gen)
-        eouts_all = self.encoder(xs, xlens, gen=gen)
+        return self.losses(self.encoder(xs, xlens, gen=gen), ys, ylens, gen,
+                           ys_sub1, ylens_sub1, ys_sub2, ylens_sub2,
+                           trigger_points)
+
+    def losses(self, eouts_all: dict, ys: torch.Tensor, ylens: torch.Tensor,
+               gen: Optional[torch.Generator] = None,
+               ys_sub1: Optional[torch.Tensor] = None,
+               ylens_sub1: Optional[torch.Tensor] = None,
+               ys_sub2: Optional[torch.Tensor] = None,
+               ylens_sub2: Optional[torch.Tensor] = None,
+               trigger_points: Optional[torch.Tensor] = None):
+        """``forward``'s loss and observations from the encoder's outputs
+        (``encode``'s eouts)."""
         eouts = eouts_all["ys"]
         ex, el = eouts["xs"], eouts["xlens"]
-        loss = torch.zeros((), dtype=torch.float32, device=xs.device)
+        loss = torch.zeros((), dtype=torch.float32, device=ex.device)
         obs = {}
         if self.ctc is not None and self.ctc_weight > 0:
             loss_ctc, _ = self.ctc(ex, el, ys, ylens, gen)
@@ -146,6 +159,26 @@ class Speech2Text(nn.Module):
         obs["loss"] = loss
         return loss, obs
 
+    def mbr_loss(self, xs: torch.Tensor, xlens: torch.Tensor,
+                 nbest_ys: torch.Tensor, nbest_ylens: torch.Tensor,
+                 risks: torch.Tensor, ys: torch.Tensor, ylens: torch.Tensor,
+                 ce_weight: float):
+        """Minimum-Bayes-risk training's loss, as the JAX train CLI's
+        ``_mbr_loss`` composes it: the encoder's outputs, the main
+        decoder's ``forward_mbr`` over the n-best (nbest_ys [B, N, U],
+        nbest_ylens [B, N], risks [B, N]), plus ``ce_weight`` times the
+        model's own loss on the labels. Every part deterministic, as JAX's
+        (``deterministic=True``): call it in ``eval()``; the encoder runs
+        once for both. Returns (loss, {"loss", "loss_mbr", "loss_ce"})."""
+        if self.training:
+            raise ValueError("mbr_loss is deterministic: call it in eval()")
+        eouts_all = self.encoder(xs, xlens)
+        ex, el = eouts_all["ys"]["xs"], eouts_all["ys"]["xlens"]
+        loss_mbr = self.dec_fwd.forward_mbr(ex, el, nbest_ys, nbest_ylens,
+                                            risks)
+        loss_ce, _ = self.losses(eouts_all, ys, ylens)
+        loss = loss_mbr + ce_weight * loss_ce
+        return loss, {"loss": loss, "loss_mbr": loss_mbr, "loss_ce": loss_ce}
 
     def decoder_triggers(self, ex, el, ys, ylens, trigger_points=None):
         """The trigger points the main decoder takes (JAX's ``needs_trig``
@@ -200,8 +233,7 @@ WEIGHTS = ("ctc_weight", "sub1_weight", "ctc_weight_sub1", "sub2_weight",
 # the train CLI's: ROADMAP C16.)
 _NOT_PORTED = ("bwd_weight", "sequence_summary_network", "input_noise_std",
                "adaptive_number_ratio", "adaptive_size_ratio",
-               "distillation_weight", "teacher", "mbr_training",
-               "weight_noise_std")
+               "distillation_weight", "teacher", "weight_noise_std")
 
 
 def build_speech2text(args, device=None) -> Speech2Text:

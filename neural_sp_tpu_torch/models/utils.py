@@ -2,6 +2,7 @@
 and the device rule of the port's ``build_*`` functions."""
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .. import EOS, PAD
@@ -26,6 +27,18 @@ def append_sos_eos(ys: torch.Tensor, ylens: torch.Tensor):
     ys_out = torch.where(pos > ylens[:, None], torch.full_like(ys_out, PAD),
                          ys_out)
     return ys_in, ys_out, ylens + 1
+
+
+def np_pad_lists(seqs: list[list[int]], pad: int = PAD,
+                 min_len: int = 1) -> tuple[np.ndarray, np.ndarray]:
+    """Ragged int lists -> (padded [B, U] int32, lens [B])."""
+    u = max(max((len(s) for s in seqs), default=0), min_len)
+    out = np.full((len(seqs), u), pad, np.int32)
+    lens = np.zeros(len(seqs), np.int32)
+    for i, s in enumerate(seqs):
+        out[i, :len(s)] = s
+        lens[i] = len(s)
+    return out, lens
 
 
 def model_device(device, who: str) -> torch.device:

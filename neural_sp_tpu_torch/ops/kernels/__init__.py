@@ -11,7 +11,7 @@ from .rnnt_loss import rnnt_loss_bwd, rnnt_loss_fwd
 # (``ctc_loss`` is K4's forward entry, ``rnnt_loss`` K5's; K1 / K1b count
 # their float32 and bf16 entries apart, and count again the launches with
 # a window on the keys, those dropping attention probabilities (their own
-# instantiation) and those without dropout with fewer queries than keys
+# instantiations, float32 and bf16 apart) and those without dropout with fewer queries than keys
 # (against cached keys, or the Transformer-XL's memory), and those at a
 # head width below 16, padded; K2 / K3 / K3b count again their launches
 # with attention dropout, those with the decoder's projection and those
@@ -23,6 +23,8 @@ KERNELS = {"rel_attention": (rel_attention, "launches"),
            "rel_attention_offset": (rel_attention, "launches_offset"),
            "rel_attention_dropout": (rel_attention, "launches_dropout"),
            "rel_attention_padded": (rel_attention, "launches_padded"),
+           "rel_attention_bf16_dropout": (rel_attention,
+                                          "launches_bf16_dropout"),
            "rel_attention_bwd": (rel_attention_bwd, "launches"),
            "rel_attention_bwd_bf16": (rel_attention_bwd, "launches_bf16"),
            "rel_attention_bwd_window": (rel_attention_bwd,
@@ -33,6 +35,8 @@ KERNELS = {"rel_attention": (rel_attention, "launches"),
                                          "launches_dropout"),
            "rel_attention_bwd_padded": (rel_attention_bwd,
                                         "launches_padded"),
+           "rel_attention_bwd_bf16_dropout": (rel_attention_bwd,
+                                              "launches_bf16_dropout"),
            "las_step": (las_step, "launches"),
            "las_step_dropout": (las_step, "launches_dropout"),
            "las_step_proj": (las_step, "launches_proj"),

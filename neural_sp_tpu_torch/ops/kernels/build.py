@@ -108,8 +108,8 @@ def load_library() -> ctypes.CDLL:
     entry_points = {
         "nsp_rel_attention_f32": [_P] * 9 + [_I] * 10 + _DROP + [_P],
         "nsp_rel_attention_bwd_f32": [_P] * 15 + [_I] * 9 + _DROP + [_P],
-        "nsp_rel_attention_bf16": [_P] * 8 + [_I] * 10 + [_P],
-        "nsp_rel_attention_bwd_bf16": [_P] * 15 + [_I] * 9 + [_P],
+        "nsp_rel_attention_bf16": [_P] * 8 + [_I] * 10 + _DROP + [_P],
+        "nsp_rel_attention_bwd_bf16": [_P] * 15 + [_I] * 9 + _DROP + [_P],
         "nsp_las_step_f32": [_P] * 27 + [_I] * 8 + [_P],
         "nsp_las_step_plan_f32": [_P, _I, _I, _P, _P, _P, _P],
         "nsp_las_scan_f32": [_P] * 29 + [_I] * 10 + [_P],

@@ -74,7 +74,11 @@
 // for l, then k and v), two q k^T products more than the float32 entry's
 // single online sweep. At B 32, H 8, T 750 the function's bound is 0.034
 // ms of products at the bf16 tensor-core peak (989 TFLOP/s), below its
-// 0.05 ms of bytes.
+// 0.05 ms of bytes. Dropout of the attention probabilities at bf16 is the
+// windowed kernel's DROP instantiation: in the third sweep P, normalised
+// and rounded to bf16, is multiplied by its element's scale from the same
+// counter hash and key words as the float32 entry's (rounded again as P v's
+// operand, as the plain bf16 version), and l stays the undropped sum.
 
 #include "rel_attention_common.cuh"
 
@@ -299,13 +303,13 @@ cudaError_t launch(const float* q, const float* k, const float* v, const float* 
 // query and key gradients added up over all rows (at bf16, up to 2.7
 // times the plain path's distance from float32 on a ragged microbatch of
 // trained weights).
-template <int DK, int STEP>
+template <int DK, int STEP, bool DROP>
 __global__ void __launch_bounds__(kThreads, 2)
 rel_attention_fwd_bf16_window(const bf16* __restrict__ q, const bf16* __restrict__ k,
                               const bf16* __restrict__ v, const bf16* __restrict__ p,
                               const int* __restrict__ klens, bf16* __restrict__ o,
                               float* __restrict__ m_out, float* __restrict__ l_out, int H,
-                              int Tq, int Tk, int R, Window win) {
+                              int Tq, int Tk, int R, Window win, Drop drop) {
   constexpr int W = TileB<DK>::kWords, kTile = STEP * W;
   extern __shared__ float4 smem4[];
   uint32_t* ring = reinterpret_cast<uint32_t*>(smem4);    // 2 stages x (K, V) tiles
@@ -395,21 +399,39 @@ rel_attention_fwd_bf16_window(const bf16* __restrict__ q, const bf16* __restrict
     }
   }
 
+  // with dropout, the flat index of each row's key 0 in [B, H, Tq, Tk]
+  // (mod 2^32, as the uint32 counter)
+  uint32_t drow[2] = {0u, 0u};
+  if constexpr (DROP)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) drow[e] = static_cast<uint32_t>((bh * Tq + rows[e]) * Tk);
+
   // third sweep: P v with P normalised, then rounded to bf16
   float acc[DK / 8][4];
 #pragma unroll
   for (int n = 0; n < DK / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
   for (int it = 0; it < n_tiles; ++it) {
     const uint32_t* ks = advance(2 * n_tiles + it);
+    const int k0 = kt0 + it * STEP;
     float s[STEP / 8][4];
 #pragma unroll
     for (int n = 0; n < STEP / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.0f;
     product_nt_bf16<DK, STEP / 8>(s, qa, ks, g, t);
-    bias_tile(s, rows, rk, far, prows, q0, w0, kt0 + it * STEP, qoff, Tq, Tk, R, t);
+    bias_tile(s, rows, rk, far, prows, q0, w0, k0, qoff, Tq, Tk, R, t);
 #pragma unroll
     for (int n = 0; n < STEP / 8; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[n][e] = __expf(s[n][e] - m_run[e >> 1]) * inv[e >> 1];
+    // dropout: P rounded to bf16, then scaled where kept and zeroed where
+    // dropped (rounded again as P v's operand), as the plain version; l
+    // stays the undropped sum
+    if constexpr (DROP)
+#pragma unroll
+      for (int n = 0; n < STEP / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[n][e] = round_bf16(s[n][e]) *
+                    drop_scale(drop, drow[e >> 1] + (uint32_t)(k0 + n * 8 + 2 * t + (e & 1)));
     product_pn_bf16<DK, STEP / 8>(acc, s, ks + kTile, lane);  // P rounded to bf16 there
   }
 
@@ -569,19 +591,19 @@ rel_attention_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int DK, bool WIN>
+template <int DK, bool WIN, bool DROP>
 cudaError_t launch_bf16(const bf16* q, const bf16* k, const bf16* v, const bf16* p,
                         const int* klens, bf16* o, float* m, float* l, int B, int H, int Tq,
-                        int Tk, int R, Window win, cudaStream_t stream) {
+                        int Tk, int R, Window win, Drop drop, cudaStream_t stream) {
   constexpr int STEP = kStepB;
   const int smem = 4 * STEP * TileB<DK>::kWords * (int)sizeof(uint32_t) +  // 2 x (K, V), p rows
                    kRows * kSmemR * (int)sizeof(bf16);
   dim3 grid((Tq + kRows - 1) / kRows, H, B);
-  if constexpr (WIN) {
-    cudaError_t err = allow_smem<rel_attention_fwd_bf16_window<DK, STEP>>(smem);
+  if constexpr (WIN || DROP) {
+    cudaError_t err = allow_smem<rel_attention_fwd_bf16_window<DK, STEP, DROP>>(smem);
     if (err != cudaSuccess) return err;
-    rel_attention_fwd_bf16_window<DK, STEP><<<grid, kThreads, smem, stream>>>(
-        q, k, v, p, klens, o, m, l, H, Tq, Tk, R, win);
+    rel_attention_fwd_bf16_window<DK, STEP, DROP><<<grid, kThreads, smem, stream>>>(
+        q, k, v, p, klens, o, m, l, H, Tq, Tk, R, win, drop);
   } else {
     cudaError_t err = allow_smem<rel_attention_fwd_bf16<DK, STEP>>(smem);
     if (err != cudaSuccess) return err;
@@ -665,15 +687,19 @@ extern "C" int nsp_rel_attention_f32(const void* q, const void* k, const void* v
 }
 
 // The bf16 entry: q, k, v, p, o bf16 (shapes as above), m, l float32
-// [B, H, Tq], klens [B] int32; no scratch. All contiguous, q, k, v 16-byte
-// aligned, on the device of `stream`. Returns a cudaError_t.
+// [B, H, Tq], klens [B] int32; no scratch; the dropout as the float32
+// entry's. All contiguous, q, k, v 16-byte aligned, on the device of
+// `stream`. Returns a cudaError_t.
 extern "C" int nsp_rel_attention_bf16(const void* q, const void* k, const void* v,
                                       const void* p, const void* klens, void* o, void* m,
                                       void* l, int B, int H, int Tq, int Tk, int R, int dk, int nc,
-                                      int nl, int nr, int kstart, void* stream) {
+                                      int nl, int nr, int kstart, float keep, unsigned k0,
+                                      unsigned k1, void* stream) {
   using nsp_rel::bf16;
-  if (bad_shape(B, H, Tq, Tk, R, nc, nr, kstart)) return (int)cudaErrorInvalidValue;
+  if (bad_shape(B, H, Tq, Tk, R, nc, nr, kstart) || !(keep > 0.0f && keep <= 1.0f))
+    return (int)cudaErrorInvalidValue;
   const Window win = make_window(Tq, Tk, nc, nl, nr, kstart);
+  const Drop drop = make_drop(keep, k0, k1);
   const bf16* qb = static_cast<const bf16*>(q);
   const bf16* kb = static_cast<const bf16*>(k);
   const bf16* vb = static_cast<const bf16*>(v);
@@ -683,10 +709,17 @@ extern "C" int nsp_rel_attention_bf16(const void* q, const void* k, const void* 
   float* mf = static_cast<float*>(m);
   float* lf = static_cast<float*>(l);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define NSP_LAUNCH(D)                                                                   \
-  (windowed(win, Tq, Tk)                                                                \
-       ? launch_bf16<D, true>(qb, kb, vb, pb, kl, ob, mf, lf, B, H, Tq, Tk, R, win, s)  \
-       : launch_bf16<D, false>(qb, kb, vb, pb, kl, ob, mf, lf, B, H, Tq, Tk, R, win, s))
+  // dropout runs in its own instantiation of the windowed kernel, as the
+  // float32 entry's
+#define NSP_LAUNCH(D)                                                                          \
+  (keep < 1.0f                                                                                 \
+       ? launch_bf16<D, true, true>(qb, kb, vb, pb, kl, ob, mf, lf, B, H, Tq, Tk, R, win, drop, \
+                                    s)                                                         \
+   : windowed(win, Tq, Tk)                                                                     \
+       ? launch_bf16<D, true, false>(qb, kb, vb, pb, kl, ob, mf, lf, B, H, Tq, Tk, R, win,     \
+                                     drop, s)                                                  \
+       : launch_bf16<D, false, false>(qb, kb, vb, pb, kl, ob, mf, lf, B, H, Tq, Tk, R, win,    \
+                                      drop, s))
   switch (dk) {
     case 16: return (int)NSP_LAUNCH(16);
     case 32: return (int)NSP_LAUNCH(32);

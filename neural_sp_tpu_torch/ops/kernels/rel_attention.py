@@ -21,7 +21,8 @@ The backward K1b replaces the TPU kernel ``_bwd_kernel`` of the same file
 (reached through ``_call`` / ``_rel_attention_bwd``): two flash-style
 passes from the forward's row statistics, query-major (D, dq, dp) then
 key-major (dk, dv), deterministic, on the same tensor-core products; no
-[T, T] block is stored. Source: ``csrc/rel_attention_bwd.cu``.
+[T, T] block is stored. Source: ``csrc/rel_attention_bwd.cu`` (the bf16
+entry ``csrc/rel_attention_bwd_bf16.cu``, each compiled apart).
 ``RelAttention`` is the ``autograd.Function`` joining the two.
 
 Both kernels have a bfloat16 entry too (``nsp_rel_attention_bf16``,
@@ -61,8 +62,10 @@ key words). The kernels hash each element where they need it, so no mask
 reaches device memory; the row statistics m and l stay those of the
 undropped P. With M the mask scaled by 1 / (1 - rate), the backward is
 dP = (dO v^T) M, dv = (P M)^T dO and ds = P (dP - D), D = rowsum(dO o)
-unchanged. The float32 entries take dropout; the bf16 entries raise for
-it.
+unchanged. The bf16 entries take it too, each in an instantiation of its
+own: P normalised and rounded to bf16, then dropped (and rounded again as
+P v's operand), as the plain bf16 version; dv = (P M)^T dO from the
+rounded P, ds = P (dP - D) from the unrounded one.
 
 Head widths: the kernels are instantiated at dk 16, 32 and 64. A narrower
 head (the ``ci_test`` conformer's d_model 8 over 4 heads: dk 2) is
@@ -297,8 +300,8 @@ def _window_args(window, key_start: int) -> tuple[int, int, int, int]:
 
 
 def _drop_args(dropout) -> tuple[float, int, int]:
-    """(keep = 1 - rate, k0, k1) as the float32 entries take them (keep is
-    passed as a float32, the threshold JAX compares against); keep 1: no
+    """(keep = 1 - rate, k0, k1) as the entries take them (keep is passed
+    as a float32, the threshold JAX compares against); keep 1: no
     dropout."""
     if dropout is None:
         return 1.0, 0, 0
@@ -321,13 +324,6 @@ def _check_aligned(*tensors):
                          "q, k, v, dO")
 
 
-def _no_bf16_dropout(entry: str, dropout) -> None:
-    if entry == "bf16" and dropout is not None:
-        raise NotImplementedError(
-            "rel_attention: the bf16 entries take no dropout of the "
-            "attention probabilities (float32 only), see ROADMAP")
-
-
 # head widths below this are zero-padded to it before a launch
 PAD_DK = 16
 
@@ -343,11 +339,12 @@ def rel_attention_fwd(q, k, v, p, klens, window=None, key_start=0,
     ``rel_attention_stats_ref``; with ``dropout`` those of the undropped
     P). CPU tensors take the plain versions; CUDA tensors launch K1's
     float32 or bf16 entry, by q's type (contiguous, every floating argument
-    of that type; bf16 without dropout), or raise. Every launch adds one to
+    of that type), or raise. Every launch adds one to
     ``rel_attention.launches`` (float32) or ``.launches_bf16``, and a
     launch with a window also to ``rel_attention.launches_window``, one
-    with dropout to ``.launches_dropout`` (its own instantiation) and one
-    with fewer queries than keys and no dropout to ``.launches_offset``.
+    with dropout to ``.launches_dropout`` (float32) or
+    ``.launches_bf16_dropout`` (each its own instantiation) and one with
+    fewer queries than keys and no dropout to ``.launches_offset``.
     A head width below 16 is padded to 16 (the module docstring) and
     counted in ``.launches_padded`` too."""
     if on_cpu(q, k, v, p, klens):
@@ -361,7 +358,6 @@ def rel_attention_fwd(q, k, v, p, klens, window=None, key_start=0,
         rel_attention.launches_padded += 1
         return o[..., :dk].contiguous(), m, l
     entry = _check(q, k, v, p, klens)
-    _no_bf16_dropout(entry, dropout)
     _check_aligned(q, k, v)
     b, h, tq, dk = q.shape
     tk = k.shape[2]
@@ -373,7 +369,8 @@ def rel_attention_fwd(q, k, v, p, klens, window=None, key_start=0,
     if entry == "bf16":
         err = lib.nsp_rel_attention_bf16(
             *(x.data_ptr() for x in (q, k, v, p, klens, o, m, l)),
-            b, h, tq, tk, p.shape[-1], dk, *win, stream_of(q))
+            b, h, tq, tk, p.shape[-1], dk, *win, *_drop_args(dropout),
+            stream_of(q))
     else:
         err = lib.nsp_rel_attention_f32(
             *(x.data_ptr() for x in (q, k, v, p, klens, o, m, l,
@@ -381,13 +378,7 @@ def rel_attention_fwd(q, k, v, p, klens, window=None, key_start=0,
             b, h, tq, tk, p.shape[-1], dk, *win, *_drop_args(dropout),
             stream_of(q))
     raise_on_error(f"rel_attention ({entry})", err)
-    _count(rel_attention, entry)
-    if window is not None:
-        rel_attention.launches_window += 1
-    if dropout is not None:
-        rel_attention.launches_dropout += 1
-    elif tq < tk:
-        rel_attention.launches_offset += 1
+    _count(rel_attention, entry, window, dropout, tq < tk)
     return o, m, l
 
 
@@ -395,12 +386,13 @@ def rel_attention_bwd(q, k, v, p, klens, o, m, l, do, window=None,
                       dropout=None):
     """(dq, dk, dv, dp) in the inputs' type, for Tq <= Tk. CPU tensors take
     ``rel_attention_bwd_ref``; CUDA tensors launch K1b's float32 or bf16
-    entry, by q's type (bf16 without dropout), or raise. Every launch adds
-    one to ``rel_attention_bwd.launches`` (float32) or ``.launches_bf16``,
-    one with a window also to ``.launches_window``, one with dropout to
-    ``.launches_dropout`` and one with fewer queries than keys and no
-    dropout to ``.launches_offset``; a head width below 16 is padded, as
-    the forward's, and counted in ``.launches_padded`` too."""
+    entry, by q's type, or raise. Every launch adds one to
+    ``rel_attention_bwd.launches`` (float32) or ``.launches_bf16``, one
+    with a window also to ``.launches_window``, one with dropout to
+    ``.launches_dropout`` (float32) or ``.launches_bf16_dropout`` and one
+    with fewer queries than keys and no dropout to ``.launches_offset``; a
+    head width below 16 is padded, as the forward's, and counted in
+    ``.launches_padded`` too."""
     if on_cpu(q, k, v, p, klens, o, m, l, do):
         return rel_attention_bwd_ref(q, k, v, p, klens, o, m, l, do, window,
                                      dropout)
@@ -412,7 +404,6 @@ def rel_attention_bwd(q, k, v, p, klens, o, m, l, do, window=None,
         rel_attention_bwd.launches_padded += 1
         return (*(g[..., :dk].contiguous() for g in grads[:3]), grads[3])
     entry = _check(q, k, v, p, klens)
-    _no_bf16_dropout(entry, dropout)
     b, h, tq, dk = q.shape
     tk = k.shape[2]
     r = p.shape[-1]
@@ -435,7 +426,7 @@ def rel_attention_bwd(q, k, v, p, klens, o, m, l, do, window=None,
         err = lib.nsp_rel_attention_bwd_bf16(
             *(x.data_ptr() for x in (q, k, v, p, klens, o, m, l, do, dq, dk_,
                                      dv, dp, dp32, delta)),
-            b, h, tq, tk, r, dk, *win, stream_of(q))
+            b, h, tq, tk, r, dk, *win, *_drop_args(dropout), stream_of(q))
     else:
         # k, v split first, then q, dO, through one scratch: Tk >= Tq rows
         err = lib.nsp_rel_attention_bwd_f32(
@@ -443,21 +434,27 @@ def rel_attention_bwd(q, k, v, p, klens, o, m, l, do, window=None,
                                      dv, dp, delta, _pair_scratch(k))),
             b, h, tq, tk, r, dk, *win, *_drop_args(dropout), stream_of(q))
     raise_on_error(f"rel_attention_bwd ({entry})", err)
-    _count(rel_attention_bwd, entry)
-    if window is not None:
-        rel_attention_bwd.launches_window += 1
-    if dropout is not None:
-        rel_attention_bwd.launches_dropout += 1
-    elif tq < tk:
-        rel_attention_bwd.launches_offset += 1
+    _count(rel_attention_bwd, entry, window, dropout, tq < tk)
     return dq, dk_, dv, dp
 
 
-def _count(wrapper, entry: str) -> None:
-    if entry == "bf16":
+def _count(wrapper, entry: str, window, dropout, offset: bool) -> None:
+    """One launch of ``wrapper``'s ``entry`` in its counters (see
+    ``rel_attention_fwd``)."""
+    bf16 = entry == "bf16"
+    if bf16:
         wrapper.launches_bf16 += 1
     else:
         wrapper.launches += 1
+    if window is not None:
+        wrapper.launches_window += 1
+    if dropout is not None:
+        if bf16:
+            wrapper.launches_bf16_dropout += 1
+        else:
+            wrapper.launches_dropout += 1
+    elif offset:
+        wrapper.launches_offset += 1
 
 
 class RelAttention(torch.autograd.Function):
@@ -495,8 +492,8 @@ def rel_attention(q, k, v, p, klens, window=None, key_start=0,
     counted in ``rel_attention.launches`` and ``rel_attention_bwd.launches``
     (float32 entries) and in their ``launches_bf16``; those with a window
     in ``launches_window`` as well, those with dropout in
-    ``launches_dropout`` and those with fewer queries than keys and no
-    dropout in ``launches_offset``."""
+    ``launches_dropout`` (float32) or ``launches_bf16_dropout`` and those
+    with fewer queries than keys and no dropout in ``launches_offset``."""
     return RelAttention.apply(q, k, v, p, klens, window, key_start, dropout)
 
 
@@ -506,6 +503,8 @@ SMEM_R = 16
 rel_attention.launches = rel_attention.launches_bf16 = 0
 rel_attention.launches_window = rel_attention.launches_offset = 0
 rel_attention.launches_dropout = rel_attention.launches_padded = 0
+rel_attention.launches_bf16_dropout = 0
 rel_attention_bwd.launches = rel_attention_bwd.launches_bf16 = 0
 rel_attention_bwd.launches_window = rel_attention_bwd.launches_offset = 0
 rel_attention_bwd.launches_dropout = rel_attention_bwd.launches_padded = 0
+rel_attention_bwd.launches_bf16_dropout = 0

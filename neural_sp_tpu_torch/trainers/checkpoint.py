@@ -11,7 +11,10 @@ that the card's machine cannot read).
 * ``controller``: the ``EpochController``'s ``state_dict``, when given.
 
 The names follow the JAX package's, so ``latest_epoch`` and a
-``--recog_model .../ckpt.epoch-N`` path work as there. Saving keeps the
+``--recog_model .../ckpt.epoch-N`` path work as there. MBR training's
+checkpoints within an epoch are ``ckpt.epoch-N-step-M`` (``sub_step``
+M), as JAX's; ``--resume`` reads them like any other, and neither
+``latest_epoch`` nor the top-k deletion sees them. Saving keeps the
 top-k epochs and deletes the rest; ``average_checkpoints`` averages the
 models of several epochs in float64 and casts to float32, as the JAX
 package's does. ``utils/convert_params.py::convert_checkpoint`` turns a
@@ -42,20 +45,24 @@ def _to_cpu(obj):
 def save_checkpoint(save_dir: str, epoch: int, model_state: dict,
                     optimizer_state: dict | None = None,
                     controller_state: dict | None = None,
-                    keep_epochs: list[int] | None = None) -> str:
+                    keep_epochs: list[int] | None = None,
+                    sub_step: int | None = None) -> str:
     """Write ``ckpt.epoch-{epoch}`` (through a temporary file, so a cut run
     leaves no half-written checkpoint) and, with ``keep_epochs``, delete
-    every other epoch's checkpoint not in it."""
+    every other epoch's checkpoint not in it. With ``sub_step`` it writes
+    ``ckpt.epoch-{epoch}-step-{sub_step}`` and deletes nothing."""
     payload = {"model": _to_cpu(model_state)}
     if optimizer_state is not None:
         payload["optimizer"] = _to_cpu(optimizer_state)
     if controller_state is not None:
         payload["controller"] = dict(controller_state)
     path = ckpt_path(save_dir, epoch)
+    if sub_step is not None:
+        path = f"{path}-step-{sub_step}"
     os.makedirs(os.path.dirname(path), exist_ok=True)
     torch.save(payload, path + ".tmp")
     os.replace(path + ".tmp", path)
-    if keep_epochs is not None:
+    if keep_epochs is not None and sub_step is None:
         for d in os.listdir(save_dir):
             m = _CKPT.match(d)
             if m and int(m.group(1)) not in keep_epochs and \

@@ -21,11 +21,13 @@ explicit:
   rest. Upstream neural_sp applies coupled L2 before the optimizer
   instead; the port mirrors the JAX package.
 
-``SGD`` is ``optax.chain(clip_by_global_norm(max_norm), sgd(lr))``, the
-optimizer the JAX train CLI switches to at ``convert_to_sgd_epoch``:
-no accumulation (every microstep emits), no weight decay, no schedule,
-the update ``-lr * g`` of the clipped gradient, and no state (optax's is
-empty).
+``SGD`` is ``optax.sgd(lr)`` in the same chain as Adam (the accumulator,
+the clip, the update ``-lr(count) * g``, then the weight decay, unscaled
+by the lr, C1). The JAX train CLI's switch at ``convert_to_sgd_epoch``
+builds it with neither accumulation (every microstep emits), weight
+decay nor schedule; its state is then empty, as optax's. With a schedule
+the state holds the count, with accumulation the accumulator and the
+cycle's position.
 
 ``Momentum`` is ``optax.sgd(lr, momentum=MOMENTUM, nesterov=)`` in the
 same chain as Adam (the accumulator, the clip, then the update, then the
@@ -189,29 +191,60 @@ class Momentum(Adam):
         return (("trace", self.trace), ("acc", self.acc))
 
 
-class SGD:
-    """``optax.chain(clip_by_global_norm(clip_grad_norm), sgd(lr))`` at a
-    constant lr: every ``update`` emits ``-lr * g`` of the clipped
-    gradient; the state is empty, as optax's."""
+class SGD(Adam):
+    """``optax.sgd(lr)`` in Adam's chain (accumulation, clip, update,
+    weight decay); no moments. Without a schedule or accumulation its
+    state is empty, as optax's."""
 
-    def __init__(self, lr: float, clip_grad_norm: float = 5.0):
-        self.lr = lr
-        self.clip_grad_norm = clip_grad_norm
+    def __init__(self, lr: Union[float, Schedule] = 1e-3,
+                 clip_grad_norm: float = 5.0, accum_grad_n_steps: int = 1,
+                 weight_decay: float = 0.0):
+        super().__init__(lr, clip_grad_norm, accum_grad_n_steps,
+                         weight_decay)
+        self.name = "sgd"
+        self.scheduled = callable(lr)
 
     def init(self, params: Sequence[torch.Tensor]) -> None:
-        pass
+        self.params = list(params)
+        # the running mean only when it has more than one microstep
+        self.acc = [torch.zeros_like(p) for p in self.params] \
+            if self.k > 1 else []
+        self.count = 0
+        self.mini_step = 0
 
     @torch.no_grad()
-    def update(self, grads: Sequence[torch.Tensor]) -> list[torch.Tensor]:
-        return [(-self.lr) * x
-                for x in clip_by_global_norm(grads, self.clip_grad_norm)]
+    def update(self, grads: Sequence[torch.Tensor]
+               ) -> Optional[list[torch.Tensor]]:
+        if self.k > 1:
+            if not self._accumulate(grads):
+                return None
+            grads = self.acc
+        g = clip_by_global_norm(grads, self.clip_grad_norm)
+        lr = self.schedule(self.count)
+        self.count += 1
+        updates = [(-lr) * x for x in g]
+        if self.weight_decay > 0:
+            updates = [u + (-self.weight_decay) * p
+                       for u, p in zip(updates, self.params)]
+        return updates
 
     def state_dict(self, names: Sequence[str]) -> dict:
-        return {"optimizer": "sgd"}
+        state = {"optimizer": "sgd"}
+        if self.scheduled:
+            state["count"] = self.count
+        if self.k > 1:
+            state.update(count=self.count, mini_step=self.mini_step,
+                         acc=dict(zip(names, self.acc)))
+        return state
 
+    @torch.no_grad()
     def load_state_dict(self, state: dict, names: Sequence[str]) -> None:
         if state.get("optimizer") != "sgd":
             raise ValueError("not the state of SGD")
+        if self.k > 1:
+            self._load(state, names, (("acc", self.acc),))
+        self.count = int(state.get("count", 0))
+        self.mini_step = int(state.get("mini_step", 0))
 
 
 def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -236,20 +269,16 @@ def build_optimizer(optimizer: str = "adam",
                     clip_grad_norm: float = 5.0, schedule=None,
                     accum_grad_n_steps: int = 1) -> Union[Adam, SGD]:
     """'adam' and 'noam' (adam + a schedule, e.g. ``noam_schedule``),
-    'momentum' and 'nesterov' (optax's sgd with ``MOMENTUM``), each with
-    weight decay when ``weight_decay`` > 0, and 'sgd' at a constant lr
-    with neither accumulation nor weight decay, as the JAX CLI's switch
-    builds it; the others raise."""
+    'momentum' and 'nesterov' (optax's sgd with ``MOMENTUM``) and 'sgd',
+    each with a schedule, accumulation and weight decay when asked for, as
+    the JAX package's ``build_optimizer``; the others raise."""
     if optimizer in ("momentum", "nesterov"):
         return Momentum(schedule if schedule is not None else lr,
                         optimizer == "nesterov", clip_grad_norm,
                         accum_grad_n_steps, weight_decay)
     if optimizer == "sgd":
-        if schedule is not None or weight_decay > 0 or accum_grad_n_steps > 1:
-            raise NotImplementedError(
-                "sgd with a schedule, weight decay or accumulation is not "
-                "ported yet (the switch to SGD takes none), see ROADMAP")
-        return SGD(lr, clip_grad_norm)
+        return SGD(schedule if schedule is not None else lr, clip_grad_norm,
+                   accum_grad_n_steps, weight_decay)
     if optimizer not in ("adam", "noam", "noam_adam"):
         raise NotImplementedError(
             f"optimizer {optimizer!r} is not ported yet (adam, noam, "

@@ -41,6 +41,7 @@ temporary directory (the JAX CLIs turn it on; NSP_COMPILE_CACHE points it
 there) and by running the JAX model's ``init`` under ``jax.jit``: one
 compile instead of one per op, which is most of an epoch's wall here.
 """
+import contextlib
 import os
 import shutil
 
@@ -280,20 +281,31 @@ def test_unported_train_cli_options_raise(runs, flag):
     """Each raises; ``mtl_per_batch`` and ``rsp_prob`` are ported, and
     raise as the JAX CLI's assertions do for a sub-task weight with no
     encoder tap and for random state passing without an RNN encoder (this
-    conf's is a transformer)."""
+    conf's encoder is a conformer). ``mbr_training`` is ported and trains:
+    one MBR epoch of this conf's LAS decoder (MBR against the JAX CLI:
+    tests/test_torch_mbr.py)."""
     c = runs["corpus"]
     extra, err = {
         "mtl_per_batch": (["--sub1_weight", "0.2"], pytest.raises(
             AssertionError, match="enc_n_layers_sub1")),
         "rsp_prob": ([], pytest.raises(AssertionError,
-                                       match="RNN encoder"))}.get(
+                                       match="RNN encoder")),
+        "mbr_training": (["--n_epochs", "1", "--resume", "",
+                          "--mbr_nbest", "2", "--mbr_ckpt_interval", "2"],
+                         contextlib.nullcontext())}.get(
         flag, ([], pytest.raises(NotImplementedError, match="ROADMAP")))
+    save_dir = runs["root"] / f"unported_{flag}"
     with err:
         port_train.main(["--config", os.path.join(runs["pdir"], "conf.yml"),
                          "--train_set", c["train"], "--dev_set", c["dev"],
                          "--dict", c["dict_char"], "--model_save_dir",
-                         str(runs["root"] / "unported"), f"--{flag}", "1"]
+                         str(save_dir), f"--{flag}", "1"]
                         + extra, device="cpu")
+    if flag == "mbr_training":
+        # three batches of 8: a checkpoint after the second, and the epoch's
+        assert sorted(d for d in os.listdir(save_dir)
+                      if d.startswith("ckpt")) == ["ckpt.epoch-1",
+                                                   "ckpt.epoch-1-step-2"]
 
 
 

@@ -13,7 +13,8 @@ package's on the same inputs.
 * the ``EpochController`` over a fixed sequence of dev losses per decay
   type, and the ``Reporter``'s ``history.csv``;
 * the config reader on every recipe conf, and ``parse_cli``;
-* the port's checkpoints: save, load, top-k retention, averaging.
+* the port's checkpoints: save, load, top-k retention, averaging, and
+  MBR training's sub-step checkpoints; ``np_pad_lists``.
 
 Everything here is exact: equality, no tolerance.
 """
@@ -304,3 +305,34 @@ def test_checkpoints_round_trip_retain_and_average(tmp_path):
         np.testing.assert_array_equal(avg[k].numpy(), want)
     with pytest.raises(ValueError):
         checkpoint.average_checkpoints(str(tmp_path), [])
+
+
+def test_sub_step_checkpoints_are_apart_from_the_epochs(tmp_path):
+    """MBR training's ``ckpt.epoch-N-step-M`` (``sub_step``): written
+    beside the epochs' checkpoints, read back, and neither counted by
+    ``latest_epoch`` nor deleted by the top-k retention."""
+    sd = {"w": torch.arange(6.0).view(3, 2)}
+    for step in (1, 2):
+        path = checkpoint.save_checkpoint(str(tmp_path), 2, sd,
+                                          {"optimizer": "sgd"},
+                                          sub_step=step)
+        assert os.path.basename(path) == f"ckpt.epoch-2-step-{step}"
+    checkpoint.save_checkpoint(str(tmp_path), 1, sd, keep_epochs=[])
+    assert sorted(os.listdir(tmp_path)) == [
+        "ckpt.epoch-1", "ckpt.epoch-2-step-1", "ckpt.epoch-2-step-2"]
+    assert checkpoint.latest_epoch(str(tmp_path)) == 1
+    ck = checkpoint.load_checkpoint(str(tmp_path / "ckpt.epoch-2-step-2"))
+    assert torch.equal(ck["model"]["w"], sd["w"])
+    assert ck["optimizer"] == {"optimizer": "sgd"}
+
+
+@pytest.mark.parametrize("seqs,min_len", [
+    ([[4, 5, 6], [], [7]], 1), ([[4]], 8), ([], 3), ([[2], [9, 8]], 8)])
+def test_np_pad_lists_matches_jax(seqs, min_len):
+    from neural_sp_tpu.models.utils import np_pad_lists as jax_pad_lists
+    from neural_sp_tpu_torch.models.utils import np_pad_lists
+    got, want = np_pad_lists(seqs, min_len=min_len), \
+        jax_pad_lists(seqs, min_len=min_len)
+    for x, y in zip(got, want):
+        assert x.dtype == y.dtype
+        np.testing.assert_array_equal(x, y)

@@ -94,7 +94,9 @@ def test_encoder_padded_equals_packed(faithful):
 
 def test_unported_options_raise():
     args = small_flagship(True)
-    for field, value in (("transformer_enc_pe_type", "relative_xl"),
+    # relative_xl raised here until the relative blocks were ported; the
+    # conformer block with absolute positions still raises
+    for field, value in (("transformer_enc_pe_type", "add"),
                          ("enc_type", "bgru"), ("dec_type", "gru_transducer"),
                          ("lm_fusion", "cold"), ("bwd_weight", 0.3),
                          ("subsample_type", "conv1d"), ("dec_n_layers", 2)):

@@ -1100,8 +1100,8 @@ def test_rel_attention_memory_kernels(cuda, b, h, tq, tk, dk, r, rate):
 
 @pytest.mark.parametrize("tq,tk", [(70, 140), (33, 33)])
 def test_rel_attention_bf16_memory_kernels(cuda, tq, tk):
-    """The bf16 entries take fewer queries than keys (K1b too), and raise
-    for dropout."""
+    """The bf16 entries take fewer queries than keys (K1b too), and
+    dropout there (their dropout instantiations)."""
     from neural_sp_tpu_torch.ops.kernels.rel_attention import (
         rel_attention_bwd, rel_attention_bwd_ref, rel_attention_fwd)
     from neural_sp_tpu_torch.ops.masks import CAUSAL
@@ -1118,8 +1118,105 @@ def test_rel_attention_bf16_memory_kernels(cuda, tq, tk):
     want = rel_attention_bwd_ref(q, k, v, p, kl, o, m, l, do, CAUSAL)
     for name, x, y in zip(("dq", "dk", "dv", "dp"), got, want):
         _close_bf16(x, y, name)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rel_attention_fwd(q, k, v, p, kl, CAUSAL, dropout=(0.1, (1, 2)))
+    drop = (0.1, (1, 2))
+    before = (rel_attention.launches_bf16_dropout,
+              rel_attention_bwd.launches_bf16_dropout)
+    o, m, l = rel_attention_fwd(q, k, v, p, kl, CAUSAL, dropout=drop)
+    _close_bf16(o, rel_attention_ref(q, k, v, p, kl, CAUSAL, dropout=drop),
+                "o with dropout")
+    got = rel_attention_bwd(q, k, v, p, kl, o, m, l, do, CAUSAL, drop)
+    torch.cuda.synchronize()
+    assert (rel_attention.launches_bf16_dropout,
+            rel_attention_bwd.launches_bf16_dropout) == \
+        (before[0] + 1, before[1] + 1)
+    want = rel_attention_bwd_ref(q, k, v, p, kl, o, m, l, do, CAUSAL, drop)
+    for name, x, y in zip(("dq", "dk", "dv", "dp"), got, want):
+        _close_bf16(x, y, name + " with dropout")
+
+
+# K1 / K1b's bf16 dropout instantiations: offline (no window; a ragged
+# batch with a row of klen 0, R 11 in shared memory and R = T through L1),
+# with a window, and the flagship's training shapes cut to B 4
+BF16_DROPOUT_SHAPES = [
+    # b, h, t, dk, r, klens, window, rate
+    (3, 2, 70, 64, 11, [70, 0, 33], None, 0.1),
+    (2, 4, 129, 32, 129, [129, 100], None, 0.3),
+    (2, 2, 200, 16, 11, [200, 1], (16, 8, 0), 0.1),
+    (4, 8, 750, 64, 11, [750, 700, 600, 500], None, 0.1),
+    (4, 8, 188, 64, 11, [188, 150, 120, 100], None, 0.1),
+]
+
+
+@pytest.mark.parametrize("b,h,t,dk,r,klens,window,rate",
+                         BF16_DROPOUT_SHAPES)
+def test_rel_attention_bf16_dropout_kernels(cuda, b, h, t, dk, r, klens,
+                                            window, rate):
+    """K1 / K1b's bf16 entries with dropout against their plain bf16
+    versions on the same key words (1e-2 of the largest value), the row
+    statistics those of the undropped P (1e-4), no farther from the plain
+    float32 version than 1.5 times the plain bf16 version, deterministic,
+    and counted in ``launches_bf16_dropout`` alone."""
+    from neural_sp_tpu_torch.ops.kernels.rel_attention import (
+        rel_attention_bwd, rel_attention_bwd_ref, rel_attention_fwd,
+        rel_attention_stats_ref)
+    q, k, v, p, kl, do = _bf16_args(cuda, b, h, t, dk, r, klens)
+    drop = (rate, (0x2545F491 + t, 0x9E3779B9))
+    before = {c: (getattr(rel_attention, c), getattr(rel_attention_bwd, c))
+              for c in ("launches_bf16", "launches_bf16_dropout",
+                        "launches_dropout")}
+    o, m, l = rel_attention_fwd(q, k, v, p, kl, window, dropout=drop)
+    plain = rel_attention_ref(q, k, v, p, kl, window, dropout=drop)
+    _close_bf16(o, plain, "o")
+    m_ref, l_ref = rel_attention_stats_ref(q, k, p, kl, window)
+    _close(m, m_ref, "m")
+    _close(l, l_ref, "l")
+    f32 = rel_attention_ref(*(x.float() for x in (q, k, v, p)), kl, window,
+                            dropout=drop)
+    assert float((o.float() - f32).abs().max()) <= \
+        1.5 * float((plain.float() - f32).abs().max()) + 1e-6
+    got = rel_attention_bwd(q, k, v, p, kl, o, m, l, do, window, drop)
+    torch.cuda.synchronize()
+    after = {c: (getattr(rel_attention, c), getattr(rel_attention_bwd, c))
+             for c in before}
+    assert after["launches_bf16"] == tuple(x + 1 for x in
+                                           before["launches_bf16"])
+    assert after["launches_bf16_dropout"] == tuple(
+        x + 1 for x in before["launches_bf16_dropout"])
+    assert after["launches_dropout"] == before["launches_dropout"]
+    want = rel_attention_bwd_ref(q, k, v, p, kl, o, m, l, do, window, drop)
+    for name, x, y in zip(("dq", "dk", "dv", "dp"), got, want):
+        _close_bf16(x, y, name)
+    again = rel_attention_bwd(q, k, v, p, kl, o, m, l, do, window, drop)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rel_attention_unclamped_ragged_without_window(cuda, dtype):
+    """K1 / K1b at R = T (the unclamped table of the transformer encoder
+    with relative positions, read through L1 past 16 rows) offline, no
+    window, at T 500 with ragged rows (a row of klen 0 among them)."""
+    from neural_sp_tpu_torch.ops.kernels.rel_attention import (
+        rel_attention_bwd, rel_attention_bwd_ref, rel_attention_fwd)
+    b, h, t, dk = 6, 4, 500, 64
+    klens = [500, 437, 300, 129, 1, 0]
+    rng = np.random.RandomState(500)
+    q = _randn(rng, cuda, b, h, t, dk, scale=dk ** -0.5)
+    k, v, do = (_randn(rng, cuda, b, h, t, dk) for _ in range(3))
+    p = _randn(rng, cuda, b, h, t, t, scale=dk ** -0.5)
+    kl = torch.tensor(klens, dtype=torch.int32, device=cuda)
+    args = [x.to(dtype) for x in (q, k, v, p)] + [kl]
+    before = rel_attention.launches_window + rel_attention_bwd.launches_window
+    o, m, l = rel_attention_fwd(*args)
+    got = rel_attention_bwd(*args, o, m, l, do.to(dtype))
+    torch.cuda.synchronize()
+    assert rel_attention.launches_window + \
+        rel_attention_bwd.launches_window == before
+    want_o = rel_attention_ref(*args)
+    want = rel_attention_bwd_ref(*args, o, m, l, do.to(dtype))
+    close = _close if dtype == torch.float32 else _close_bf16
+    close(o, want_o, "o")
+    for name, x, y in zip(("dq", "dk", "dv", "dp"), got, want):
+        close(x, y, name)
 
 
 # K5: the transducer's lattice, a block per utterance and a thread per

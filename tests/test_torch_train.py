@@ -324,7 +324,8 @@ def test_sgd_matches_optax():
     """``build_optimizer("sgd")`` (the JAX CLI's switch: clip, then
     -lr * g) against ``optax.chain(clip_by_global_norm, sgd)`` over three
     updates, the second with a gradient below the clip norm; every call
-    emits, and the state is empty."""
+    emits, and the state is empty. SGD with a schedule, weight decay or
+    accumulation builds (``tests/test_torch_mbr.py`` holds it to optax)."""
     rng = np.random.RandomState(4)
     shapes = [(5, 3), (7,), (2, 2, 3)]
     params = [rng.randn(*s).astype(np.float32) for s in shapes]
@@ -340,8 +341,9 @@ def test_sgd_matches_optax():
             np.testing.assert_allclose(g_.numpy(), np.asarray(w), rtol=1e-6,
                                        atol=1e-12)
     assert opt.state_dict([]) == {"optimizer": "sgd"}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_optimizer("sgd", accum_grad_n_steps=2)
+    accumulating = build_optimizer("sgd", accum_grad_n_steps=2)
+    accumulating.init([torch.from_numpy(p) for p in params])
+    assert accumulating.update([torch.from_numpy(p) for p in params]) is None
 
 
 def test_flagship_training_options_are_honoured():
