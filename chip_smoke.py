@@ -319,6 +319,7 @@ non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -403,8 +404,31 @@ BF16_PATH_FACTOR = 2.0
 # twice on the H100 (tools/train_diagnosis.py determinism).
 
 
+T_START = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """msg on a line of its own, after the seconds since the start."""
+    print(f"{time.perf_counter() - T_START:7.1f} {msg}", flush=True)
+
+
+# every sub-phase's wall, printed together at the end (``timed``)
+SUB_WALLS: dict = {}
+
+
+def timed(name: str, fn, *a, **kw):
+    """fn(*a, **kw), its wall logged and kept in SUB_WALLS[name]."""
+    t0 = time.perf_counter()
+    result = fn(*a, **kw)
+    SUB_WALLS[name] = time.perf_counter() - t0
+    log(f"[{name}] wall {SUB_WALLS[name]:.1f} s")
+    return result
+
+
+def walls_since(mark: int) -> dict:
+    """The sub-phase walls kept since SUB_WALLS held ``mark`` entries: a
+    phase's own, read at its end."""
+    return dict(list(SUB_WALLS.items())[mark:])
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -520,6 +544,195 @@ def rel_attention_yardstick(torch, args, kernel, what: str,
 def expect(ok: bool, what: str) -> None:
     if not ok:
         raise AssertionError(what)
+
+
+# ---- CPU references in a worker process ----------------------------------
+# The holds of phases 9b, 11b, 11d, 11f, 12a, 12b, 16b and 18c compare the
+# card's microstep with the same microstep on the CPU (float64, and float32
+# where a gate reads it). Those CPU microsteps depend on nothing the card
+# computes: the models are seeded (``init_params`` draws on the CPU in a
+# fixed order, so one seed gives the card's weights) and the inputs are
+# phase 3's utterances and seeded labels, which each hold and the worker
+# take from one place (``reference_spec``). So a worker process, started
+# once phase 3's beam step is timed (``start_references``), computes them
+# while the card runs the phases before, each job writing its results to a
+# file; a hold waits for its job only where it compares (``cpu_ref``). The
+# worker's threads are REF_THREADS of the host's cores.
+REF_THREADS = 4
+REF_TAGS = ("9b", "11b", "11d", "12a", "12b", "16b", "18c")
+REFS = None          # the CpuReferences of this run (``start_references``)
+
+
+def reference_spec(torch, tag: str, xs, xlens) -> dict:
+    """Hold ``tag``'s inputs and CPU reference, the one place the hold and
+    the worker take them from: the model's ``args`` and ``seed`` (the
+    card's model is the same seeded one), ``batch`` (x, xl, ys, ylens on
+    the CPU in float32, what the hold gives the card; 16b's trigger points
+    in ``trigger_points``) and the worker's ``runs`` by key (each a dtype,
+    its batch and what else ``reference_job`` reads: a generator seed,
+    labels, a ``ctc_weight``; or, kind "greedy", ``mocha_greedy`` on the
+    weights moved by GREEDY_NOISE from ``noise_seed``)."""
+    import numpy as np
+    x, xl = torch.from_numpy(xs), torch.from_numpy(xlens)
+    hx, hxl = map(torch.from_numpy, host_cut(xs, xlens))
+
+    def labelled(vocab, bx, bxl, seed=SEED):
+        ys, ylens = mocha_labels(torch, np.random.default_rng(seed + 9),
+                                 vocab, len(bxl))
+        return (bx, bxl, ys, ylens)
+
+    def runs(batch, dtypes, **extra):
+        """{key: run} of ``tag`` in each dtype ("float64 ctc": float64 with
+        ``ctc_weight`` 1, the encoder and CTC head alone)."""
+        return {f"{tag} {dt}": {"dtype": dt.split()[0], "batch": batch,
+                                **extra, **({"ctc_weight": 1.0}
+                                            if dt.endswith("ctc") else {})}
+                for dt in dtypes}
+
+    apart = ("float32", "float64", "float64 ctc")
+    if tag == "9b":
+        # the served utterances and labels, a second draw of both, and
+        # greedy on the moved weights
+        args = mocha_args()
+        batch = labelled(args.vocab, x, xl)
+        second = labelled(args.vocab, *map(torch.from_numpy, utterances(
+            np.random.default_rng(SEED + 1))), SEED + 1)
+        return {"args": args, "seed": SEED, "batch": batch, "runs": {
+            "9b served": {"dtype": "float64", "batch": batch, "seed": SEED},
+            "9b second_draw": {"dtype": "float64", "batch": second,
+                               "seed": SEED + 1},
+            "9b greedy": {"kind": "greedy", "dtype": "float64",
+                          "noise_seed": SEED + 11, "batch": (x, xl)}}}
+    if tag in ("11b", "11d", "18c"):
+        make = {"11b": "librispeech_uni_conformer_mocha_args",
+                "11d": "uni_conformer_mocha_streaming_args",
+                "18c": XF_MMA_MAKE}[tag]
+        args = xf_args(make)
+        batch = labelled(args.vocab, *((hx, hxl) if tag == "18c"
+                                       else (x, xl)))
+        return {"args": args, "seed": SEED, "batch": batch, "runs": runs(
+            batch, ("float64",) if tag == "11b" else apart)}
+    if tag in ("12a", "12b"):
+        args = lc_args(RNNT_CONF, RNNT_VOCAB) if tag == "12a" else \
+            lc_args(LC_MOCHA_CONF, CLI_VOCAB, RNN_DEPTH)
+        batch = labelled(args.vocab, *((hx, hxl) if tag == "12a"
+                                       else (x, xl)))
+        return {"args": args, "seed": SEED, "batch": batch, "runs": runs(
+            batch, ("float64",) if tag == "12a" else apart)}
+    if tag == "16b":
+        # the MinLT conf's LSTM-MoChA with trigger points
+        args, batch, tp = latency_batch(torch, xs, xlens)
+        labels = {"labels": {"trigger_points": tp}}
+        return {"args": args, "seed": SEED, "batch": batch,
+                "trigger_points": tp, "runs": {
+                    **runs(batch, ("float32", "float64"), **labels),
+                    **{f"16b float64 ctc {w}": {
+                        "dtype": "float64", "batch": batch, "ctc_weight": w,
+                        **labels} for w in (0.0, 1.0)}}}
+    raise KeyError(tag)
+
+
+def reference_job(spec: dict, path: str) -> str:
+    """In the worker: the model ``spec["args"]`` seeded ``spec["seed"]`` on
+    the CPU, then each run of ``spec["runs"]`` (``reference_spec``'s),
+    saved to ``path`` by key."""
+    import torch
+    from neural_sp_tpu_torch.models.speech2text import build_speech2text
+    from neural_sp_tpu_torch.utils.init_params import init_params
+    torch.set_num_threads(REF_THREADS)
+    model = init_params(build_speech2text(spec["args"], device="cpu"),
+                        spec["seed"])
+    state32 = {k: v.clone() for k, v in model.state_dict().items()}
+    out = {}
+    for key, run in spec["runs"].items():
+        dt = torch.float64 if run["dtype"] == "float64" else torch.float32
+        model.to(dt)
+        if run.get("kind") == "greedy":
+            g = torch.Generator().manual_seed(run["noise_seed"])
+            model.load_state_dict({
+                k: v + GREEDY_NOISE * torch.randn(v.shape, generator=g)
+                for k, v in state32.items()})
+            model.eval()
+            x, xl = run["batch"]
+            out[key] = mocha_greedy(torch, model, x.to(dt), xl)[0]
+            continue
+        if "ctc_weight" in run:
+            model.ctc_weight = run["ctc_weight"]
+        batch = tuple(x.to(dt) if x.is_floating_point() else x
+                      for x in run["batch"])
+        out[key] = mocha_microstep(torch, model, batch,
+                                   run.get("seed", SEED),
+                                   **run.get("labels", {}))
+    torch.save(out, path)
+    return path
+
+
+def _reference_worker_init(root: str, cores: list) -> None:
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    if cores:
+        os.sched_setaffinity(0, cores)
+
+
+class CpuReferences:
+    """The worker process and its jobs (``reference_spec``'s, in REF_TAGS'
+    order), each a future of its results file in a temporary directory of
+    its own; ``take(key)`` waits for the job that computes ``key`` and
+    returns that result; ``close`` stops the worker and removes the
+    directory. The worker runs on the last REF_THREADS of this process's
+    cores."""
+
+    def __init__(self, jobs: list):
+        import concurrent.futures
+        import multiprocessing
+        self.dir = tempfile.TemporaryDirectory(prefix="nsp_refs_")
+        out_dir = Path(self.dir.name)
+        cores = sorted(os.sched_getaffinity(0))
+        self.pool = concurrent.futures.ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn"),
+            initializer=_reference_worker_init,
+            initargs=(str(ROOT), cores[-REF_THREADS:]))
+        self.jobs, self.loaded, self.waited = {}, {}, {}
+        for i, spec in enumerate(jobs):
+            future = self.pool.submit(reference_job, spec,
+                                      str(out_dir / f"ref_{i}.pt"))
+            for key in spec["runs"]:
+                self.jobs[key] = future
+
+    def take(self, key: str):
+        import torch
+        future = self.jobs[key]
+        t0 = time.perf_counter()
+        path = future.result()
+        self.waited[key] = time.perf_counter() - t0
+        if path not in self.loaded:
+            self.loaded[path] = torch.load(path)
+            Path(path).unlink()
+        log(f"[refs] {key}: waited {self.waited[key]:.1f} s for the worker")
+        return self.loaded[path][key]
+
+    def close(self) -> None:
+        procs = list(self.pool._processes.values())
+        self.pool.shutdown(wait=False, cancel_futures=True)
+        for proc in procs:
+            proc.terminate()
+            proc.join()
+        self.dir.cleanup()
+
+
+def start_references(torch, xs, xlens, tags=REF_TAGS) -> None:
+    """The worker, computing the CPU references of ``tags``' holds on phase
+    3's utterances; a phase driven alone starts it for its own tags."""
+    global REFS
+    REFS = CpuReferences([reference_spec(torch, tag, xs, xlens)
+                          for tag in tags])
+
+
+def cpu_ref(key: str):
+    """The worker's CPU reference ``key`` (``start_references``)."""
+    expect(REFS is not None and key in REFS.jobs,
+           f"no reference worker computes {key}")
+    return REFS.take(key)
 
 
 def phase_build():
@@ -1784,16 +1997,18 @@ def plain_rel_attention(torch):
 
 def plain_patches(torch):
     """(module, name, plain version) of the training kernels: K1 / K1b
-    (``plain_rel_attention``), K3 / K3b (``PlainLASScan``) and K4 (autograd
-    through its plain forward)."""
+    (``plain_rel_attention``), K3 / K3b (``PlainLASScan``), K4 and K5
+    (autograd through their plain forwards)."""
     from neural_sp_tpu_torch.models.decoders import las
     from neural_sp_tpu_torch.models.modules import \
         relative_multihead_attention as rma
-    from neural_sp_tpu_torch.ops import ctc
+    from neural_sp_tpu_torch.ops import ctc, rnnt
     from neural_sp_tpu_torch.ops.kernels.ctc_loss import ctc_forward_alphas
+    from neural_sp_tpu_torch.ops.kernels.rnnt_loss import rnnt_forward_alphas
     return ((rma, "rel_attention", plain_rel_attention(torch)),
             (las, "LASScan", PlainLASScan),
-            (ctc, "ctc_nll", lambda *a: ctc_forward_alphas(*a)[0]))
+            (ctc, "ctc_nll", lambda *a: ctc_forward_alphas(*a)[0]),
+            (rnnt, "rnnt_nll", lambda *a: rnnt_forward_alphas(*a)[0]))
 
 
 def eval_microstep(torch, model, batch, compute_dtype=None, plain=False):
@@ -2940,14 +3155,14 @@ def phase_blstm(torch, rng, root: Path, corpus: dict, xs, xlens) -> dict:
     """8: the BLSTM-LAS, its kernels at its shapes, served, trained and
     evaluated through the CLIs; each path's launches counted from zero."""
     t = time.perf_counter()
-    out = {"kernels": phase_blstm_kernels(torch, rng)}
+    out = {"kernels": timed("8a", phase_blstm_kernels, torch, rng)}
     model = blstm_model(torch)
     out["parameters"] = sum(p.numel() for p in model.parameters())
     log(f"[8b] BLSTM-LAS: {out['parameters']} parameters on the card")
-    out["serve"] = phase_blstm_serve(torch, model, xs, xlens)
+    out["serve"] = timed("8b", phase_blstm_serve, torch, model, xs, xlens)
     del model
     torch.cuda.empty_cache()
-    out["cli"] = phase_blstm_cli(torch, root, corpus)
+    out["cli"] = timed("8c-8d", phase_blstm_cli, torch, root, corpus)
     out["phase_wall_s"] = time.perf_counter() - t
     log(f"[8] phase 8 wall {out['phase_wall_s']:.1f} s")
     return out
@@ -3134,27 +3349,19 @@ def phase_mocha_hold(torch, model, xs, xlens) -> dict:
     keeps them), the tokens identical up to each row's first decision with
     less than DECISION_MARGIN."""
     import numpy as np
-    from neural_sp_tpu_torch.models.speech2text import build_speech2text
-    xs_t = torch.from_numpy(xs)
-    xl_t = torch.from_numpy(xlens)
     dev = next(model.parameters()).device
-    cpu = build_speech2text(mocha_args(), device="cpu")
-    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
-    cpu.double()
+    spec = reference_spec(torch, "9b", xs, xlens)
     out = {}
-    for case, seed in (("served", SEED), ("second_draw", SEED + 1)):
+    for case in ("served", "second_draw"):
         # the served utterances and labels, then a second draw of both
-        x, xl = (xs_t, xl_t) if case == "served" else \
-            map(torch.from_numpy, utterances(np.random.default_rng(seed)))
-        ys, ylens = mocha_labels(torch, np.random.default_rng(seed + 9),
-                                 model.dec_fwd.vocab)
-        on_card = tuple(v.to(dev) for v in (x, xl, ys, ylens))
+        run = spec["runs"][f"9b {case}"]
+        seed, x = run["seed"], run["batch"][0]
+        on_card = tuple(v.to(dev) for v in run["batch"])
         t0 = time.perf_counter()
         loss, grads, obs = mocha_microstep(torch, model, on_card, seed)
         card_s = time.perf_counter() - t0
         t0 = time.perf_counter()
-        loss_ref, grads_ref, obs_ref = mocha_microstep(
-            torch, cpu, (x.double(), xl, ys, ylens), seed)
+        loss_ref, grads_ref, obs_ref = cpu_ref(f"9b {case}")
         cpu_s = time.perf_counter() - t0
         log(f"[9b] {case} (seed {seed}): train() microstep B {len(MOCHA_U)} "
             f"x {x.shape[1]} frames, U {list(MOCHA_U)}: card {card_s:.2f} s, "
@@ -3199,15 +3406,15 @@ def phase_mocha_hold(torch, model, xs, xlens) -> dict:
                "9b's rule passed a card microstep with TF32 on")
     # greedy on both, each decision's margin from the card's run, on the
     # weights moved by GREEDY_NOISE
-    g = torch.Generator().manual_seed(SEED + 11)
-    moved = {k: v.cpu() + GREEDY_NOISE * torch.randn(v.shape, generator=g)
-             for k, v in model.state_dict().items()}
-    model.load_state_dict(moved)
-    cpu.load_state_dict(moved)
+    greedy = spec["runs"]["9b greedy"]
+    g = torch.Generator().manual_seed(greedy["noise_seed"])
+    model.load_state_dict({
+        k: v.cpu() + GREEDY_NOISE * torch.randn(v.shape, generator=g)
+        for k, v in model.state_dict().items()})
     model.eval()
-    cpu.eval()
-    toks, margins = mocha_greedy(torch, model, xs_t.to(dev), xl_t.to(dev))
-    toks_ref, _ = mocha_greedy(torch, cpu, xs_t.double(), xl_t)
+    toks, margins = mocha_greedy(torch, model,
+                                 *(v.to(dev) for v in greedy["batch"]))
+    toks_ref = cpu_ref("9b greedy")
     compared, cut = [], []
     for b in range(toks.shape[0]):
         low = (margins[:, b] < DECISION_MARGIN).nonzero()
@@ -3224,7 +3431,6 @@ def phase_mocha_hold(torch, model, xs, xlens) -> dict:
     log(f"[9b] greedy: tokens identical over {compared} decisions per row "
         f"(cut at a decision under {DECISION_MARGIN}: {cut}; least margin "
         f"{float(margins.min()):.3e} over {margins.shape[0]} steps)")
-    del cpu
     return out
 
 
@@ -3474,12 +3680,12 @@ def phase_mocha(torch, root: Path, corpus: dict, xs, xlens) -> dict:
     model = mocha_model(torch)
     out = {"parameters": sum(p.numel() for p in model.parameters())}
     log(f"[9a] LSTM-MoChA: {out['parameters']} parameters on the card")
-    out["serve"] = phase_mocha_serve(torch, model, xs, xlens)
-    out["hold"] = phase_mocha_hold(torch, model, xs, xlens)
+    out["serve"] = timed("9a", phase_mocha_serve, torch, model, xs, xlens)
+    out["hold"] = timed("9b", phase_mocha_hold, torch, model, xs, xlens)
     del model
     torch.cuda.empty_cache()
-    out["cli"] = phase_mocha_cli(torch, root, corpus)
-    out["ctc_sync"] = phase_mocha_sync(torch, xs, xlens)
+    out["cli"] = timed("9c-9d", phase_mocha_cli, torch, root, corpus)
+    out["ctc_sync"] = timed("9e", phase_mocha_sync, torch, xs, xlens)
     out["phase_wall_s"] = time.perf_counter() - t
     log(f"[9] phase 9 wall {out['phase_wall_s']:.1f} s")
     return out
@@ -4079,14 +4285,7 @@ def phase_transformer(torch, root: Path, corpus: dict, xs, xlens) -> dict:
     variant served, held and through the CLIs (10d); each path's launches
     counted from zero."""
     t = time.perf_counter()
-    walls = {}
-
-    def timed(name, fn, *a, **kw):
-        t0 = time.perf_counter()
-        result = fn(*a, **kw)
-        walls[name] = time.perf_counter() - t0
-        log(f"[{name}] wall {walls[name]:.1f} s")
-        return result
+    mark = len(SUB_WALLS)
 
     out = {}
     model = xf_model(torch, "librispeech_transformer_args")
@@ -4119,7 +4318,7 @@ def phase_transformer(torch, root: Path, corpus: dict, xs, xlens) -> dict:
                        profile_microstep=False)
     out["mma"] = mma
     out["phase_wall_s"] = time.perf_counter() - t
-    out["sub_phase_wall_s"] = walls
+    out["sub_phase_wall_s"] = walls_since(mark)
     log(f"[10] phase 10 wall {out['phase_wall_s']:.1f} s")
     return out
 
@@ -4226,7 +4425,8 @@ def window_case(torch, rng, b, h, tt, dk, r, kl, window, tag: str,
     undropped = rel_attention_ref(*fwd[:-1]) if dropout else want
     row = {"shape": what}
     if bf16:
-        f32 = (*(x.float() for x in (q, k, v, p)), klens, window, key_start)
+        f32 = (*(x.float() for x in (q, k, v, p)), klens, window, key_start,
+               dropout)
         want32 = rel_attention_ref(*f32)
         err = rel_err(o, want)
         ratio = max_err(o.float(), want32) / max(
@@ -4270,7 +4470,7 @@ def window_case(torch, rng, b, h, tt, dk, r, kl, window, tag: str,
     brow = {"shape": what, "max_abs_err": err}
     if bf16:
         want32 = rel_attention_bwd_ref(*f32[:5], o.float(), m, l, do.float(),
-                                       window)
+                                       window, dropout)
         ratio = max(max_err(x.float(), z) / max(max_err(y.float(), z), 1e-30)
                     for x, y, z in zip(got, want, want32))
         expect(err <= BF16_KERNEL_TOL, f"[{tag}] K1b {what}: error {err}")
@@ -4354,12 +4554,12 @@ def phase_window_kernels(torch, rng) -> dict:
     return out
 
 
-def hold_with_control(torch, model, cpu, on_card, on_cpu, tag: str,
-                      kernels: tuple) -> dict:
+def hold_with_control(torch, model, on_card, tag: str, kernels: tuple,
+                      ref_key: str) -> dict:
     """One train() microstep of ``model`` on the card held to the same
-    microstep of ``cpu`` (its float64 copy) by 9b's rule, ``kernels``
-    launched in the card's microstep, and a TF32 control that must break
-    the rule."""
+    microstep on the CPU in float64 (the worker's ``ref_key``) by 9b's
+    rule, ``kernels`` launched in the card's microstep, and a TF32 control
+    that must break the rule."""
     import numpy as np
     from neural_sp_tpu_torch.ops.kernels import launches, reset_launches
     reset_launches()
@@ -4368,7 +4568,7 @@ def hold_with_control(torch, model, cpu, on_card, on_cpu, tag: str,
     card_s = time.perf_counter() - t0
     counts = launches()
     t0 = time.perf_counter()
-    loss_ref, grads_ref, obs_ref = mocha_microstep(torch, cpu, on_cpu)
+    loss_ref, grads_ref, obs_ref = cpu_ref(ref_key)
     cpu_s = time.perf_counter() - t0
     log(f"[{tag}] train() microstep B {on_card[0].shape[0]} x "
         f"{on_card[0].shape[1]} frames, U {on_card[3].tolist()}: card "
@@ -4453,28 +4653,19 @@ def uni_hold(torch, model, xs, xlens, make: str, tag: str,
     times that of the same microstep on the CPU in float32, and 9b's rule
     holds the microstep of the encoder and the CTC head (``ctc_weight`` 1:
     the decoder does not run), which carries every kernel of the path."""
-    from neural_sp_tpu_torch.models.speech2text import build_speech2text
-    import numpy as np
     dev = next(model.parameters()).device
-    cpu = build_speech2text(xf_args(make), device="cpu")
-    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
-    x, xl = torch.from_numpy(xs), torch.from_numpy(xlens)
-    ys, ylens = mocha_labels(torch, np.random.default_rng(SEED + 9),
-                             model.dec_fwd.vocab, len(xlens))
-    on_card = tuple(v.to(dev) for v in (x, xl, ys, ylens))
-    on_cpu = (x.double(), xl, ys, ylens)
+    on_card = tuple(v.to(dev) for v in reference_spec(
+        torch, tag, xs, xlens)["batch"])
     window = ("rel_attention_window", "rel_attention_bwd_window",
               "ctc_loss", "ctc_loss_bwd")
     if not decoder_apart:
-        cpu.double()
-        out = hold_with_control(torch, model, cpu, on_card, on_cpu, tag,
-                                window)
+        out = hold_with_control(torch, model, on_card, tag, window,
+                                f"{tag} float64")
         model.eval()
         return out
     loss, grads, obs = mocha_microstep(torch, model, on_card)
-    loss32, grads32, _ = mocha_microstep(torch, cpu, (x, xl, ys, ylens))
-    cpu.double()
-    loss_ref, grads_ref, obs_ref = mocha_microstep(torch, cpu, on_cpu)
+    loss32, grads32, _ = cpu_ref(f"{tag} float32")
+    loss_ref, grads_ref, obs_ref = cpu_ref(f"{tag} float64")
     whole = whole_microstep_readings(torch, tag, (loss, grads, obs),
                                      (loss32, grads32),
                                      (loss_ref, grads_ref, obs_ref))
@@ -4487,14 +4678,13 @@ def uni_hold(torch, model, xs, xlens, make: str, tag: str,
            f"{whole['median_leaf_rel_dist']:.3e} from float64 (median), past "
            f"{WHOLE_GRAD_MULT} x the CPU float32's "
            f"{whole['median_leaf_rel_dist_cpu_float32']:.3e}")
-    for m in (model, cpu):
-        m.ctc_weight = 1.0
+    model.ctc_weight = 1.0
     try:
-        out = hold_with_control(torch, model, cpu, on_card, on_cpu,
-                                f"{tag} encoder + CTC", window)
+        out = hold_with_control(torch, model, on_card,
+                                f"{tag} encoder + CTC", window,
+                                f"{tag} float64 ctc")
     finally:
-        for m in (model, cpu):
-            m.ctc_weight = xf_args(make).ctc_weight
+        model.ctc_weight = xf_args(make).ctc_weight
     out["whole_microstep"] = whole
     model.eval()
     return out
@@ -4724,14 +4914,7 @@ def phase_streaming(torch, rng, root: Path, corpus: dict, xs,
     10d), the train CLI (one update) and the eval CLI offline and
     streaming (JAX's dispatch: the CTC block-synchronous beam, C26)."""
     t = time.perf_counter()
-    walls = {}
-
-    def timed(name, fn, *a, **kw):
-        t0 = time.perf_counter()
-        result = fn(*a, **kw)
-        walls[name] = time.perf_counter() - t0
-        log(f"[{name}] wall {walls[name]:.1f} s")
-        return result
+    mark = len(SUB_WALLS)
 
     out = {"kernels": timed("11 kernels", phase_window_kernels, torch, rng)}
     model = xf_model(torch, "librispeech_uni_conformer_mocha_args")
@@ -4800,7 +4983,7 @@ def phase_streaming(torch, rng, root: Path, corpus: dict, xs,
                       ("ctc_loss", "ctc_loss_bwd"))
     out["lc"] = lc
     out["phase_wall_s"] = time.perf_counter() - t
-    out["sub_phase_wall_s"] = walls
+    out["sub_phase_wall_s"] = walls_since(mark)
     log(f"[11] phase 11 wall {out['phase_wall_s']:.1f} s")
     return out
 
@@ -4941,7 +5124,7 @@ def energy_pre_activations(torch, record: list, card_pre=None,
     return energy
 
 
-def hold_to_float64(torch, model, args, xs, xlens, tag) -> dict:
+def hold_to_float64(torch, model, xs, xlens, tag) -> dict:
     """A B = 4 train() microstep of the card's model (phase 3's utterances,
     MOCHA_U labels, dropout on) held to the same microstep on the CPU in
     float64 by 9b's rule, with a TF32 control that must break it
@@ -4963,34 +5146,33 @@ def hold_to_float64(torch, model, args, xs, xlens, tag) -> dict:
     from neural_sp_tpu_torch.models.speech2text import build_speech2text
     from neural_sp_tpu_torch.ops.kernels import launches, reset_launches
     dev = next(model.parameters()).device
-    ys, ylens = mocha_labels(torch, np.random.default_rng(SEED + 9),
-                             args.vocab, len(xlens))
-    x, xl = torch.from_numpy(xs), torch.from_numpy(xlens)
-    on_card = tuple(v.to(dev) for v in (x, xl, ys, ylens))
-    on_cpu = (x.double(), xl, ys, ylens)
-    cpu = build_speech2text(args, device="cpu")
-    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    spec = reference_spec(torch, tag, xs, xlens)
+    on_card = tuple(v.to(dev) for v in spec["batch"])
     if getattr(model.dec_fwd, "attn_type", "") != "mocha":
-        cpu.double()
-        return hold_with_control(torch, model, cpu, on_card, on_cpu, tag,
-                                 RNNT_TRAIN_KERNELS)
+        return hold_with_control(torch, model, on_card, tag,
+                                 RNNT_TRAIN_KERNELS, f"{tag} float64")
     card_pre: list = []
     reset_launches()
     with mock.patch.object(mocha_module, "_energy", energy_pre_activations(
             torch, card_pre)):
         loss, grads, obs = mocha_microstep(torch, model, on_card)
     counts = launches()
-    loss32, grads32, _ = mocha_microstep(torch, cpu, (x, xl, ys, ylens))
-    cpu.double()
+    loss32, grads32, _ = cpu_ref(f"{tag} float32")
     t0 = time.perf_counter()
-    loss_ref, grads_ref, obs_ref = mocha_microstep(torch, cpu, on_cpu)
+    loss_ref, grads_ref, obs_ref = cpu_ref(f"{tag} float64")
     cpu_s = time.perf_counter() - t0
+    # the float64 microstep again here, with the card's energy ReLU masks
+    cpu = build_speech2text(spec["args"], device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    cpu.double()
+    on_cpu = tuple(v.double() if v.is_floating_point() else v
+                   for v in spec["batch"])
     flips = {"positions": 0, "pre_rel_err": 0.0}
     with mock.patch.object(mocha_module, "_energy", energy_pre_activations(
             torch, [], card_pre, flips)):
         loss_p, grads_p, _ = mocha_microstep(torch, cpu, on_cpu)
     flips["pre_activations"] = sum(p.numel() for p in card_pre)
-    del card_pre
+    del card_pre, cpu
 
     def rule(lo, gr, lo_ref, gr_ref):
         """9b's rule's reading: (worst leaf, its share of the tolerance)."""
@@ -5042,15 +5224,14 @@ def hold_to_float64(torch, model, args, xs, xlens, tag) -> dict:
            f"{whole['median_leaf_rel_dist']:.3e} from float64 (median), past "
            f"{WHOLE_GRAD_MULT} x the CPU float32's")
     ctc_weight = model.ctc_weight
-    for m in (model, cpu):
-        m.ctc_weight = 1.0
+    model.ctc_weight = 1.0
     try:
-        out = hold_with_control(torch, model, cpu, on_card, on_cpu,
+        out = hold_with_control(torch, model, on_card,
                                 f"{tag} encoder + CTC",
-                                ("ctc_loss", "ctc_loss_bwd"))
+                                ("ctc_loss", "ctc_loss_bwd"),
+                                f"{tag} float64 ctc")
     finally:
-        for m in (model, cpu):
-            m.ctc_weight = ctc_weight
+        model.ctc_weight = ctc_weight
     model.eval()
     out["whole_microstep"] = whole
     out["launches"] = counts
@@ -5212,14 +5393,7 @@ def phase_transducer(torch, rng, root: Path, xs, xlens) -> dict:
     and its microstep held as 11d's (``hold_to_float64``). Walls per
     sub-phase."""
     t = time.perf_counter()
-    walls = {}
-
-    def timed(name, fn, *a, **kw):
-        t0 = time.perf_counter()
-        result = fn(*a, **kw)
-        walls[name] = time.perf_counter() - t0
-        log(f"[{name}] wall {walls[name]:.1f} s")
-        return result
+    mark = len(SUB_WALLS)
 
     def kernels():
         res = {}
@@ -5244,8 +5418,8 @@ def phase_transducer(torch, rng, root: Path, xs, xlens) -> dict:
                           dict(beam_width=10), xs, xlens, "12a")
     out["encoder"] = timed("12a encoder", lc_encoder_against_loop, torch,
                            model, args, xs, xlens, "12a")
-    out["hold"] = timed("12a hold", hold_to_float64, torch, model, args,
-                        *host_cut(xs, xlens), "12a")
+    out["hold"] = timed("12a hold", hold_to_float64, torch, model, xs,
+                        xlens, "12a")
     for name in RNNT_TRAIN_KERNELS:
         expect(out["hold"]["launches"][name] > 0,
                f"{name} never launched in 12a's microstep")
@@ -5283,8 +5457,8 @@ def phase_transducer(torch, rng, root: Path, xs, xlens) -> dict:
     mocha["stream"] = timed("12b stream", lc_stream_decode, torch, model,
                             dict(beam_width=10, ctc_weight=0.3), xs, xlens,
                             "12b")
-    mocha["hold"] = timed("12b hold", hold_to_float64, torch, model, args_b,
-                          xs, xlens, "12b")
+    mocha["hold"] = timed("12b hold", hold_to_float64, torch, model, xs,
+                          xlens, "12b")
     del model
     torch.cuda.empty_cache()
     out["mocha"] = mocha
@@ -5303,7 +5477,7 @@ def phase_transducer(torch, rng, root: Path, xs, xlens) -> dict:
         expect(out["launches"][name] > 0,
                f"{name} never launched on phase 12's path")
     out["phase_wall_s"] = time.perf_counter() - t
-    out["sub_phase_wall_s"] = walls
+    out["sub_phase_wall_s"] = walls_since(mark)
     log(f"[12] phase 12 wall {out['phase_wall_s']:.1f} s")
     return out
 
@@ -5391,13 +5565,15 @@ def lm_args(conf: str, vocab: int):
 
 
 def xl_microstep(torch, lm, xi, xo, mems, seed=None, plain=False,
-                 kept=None, pins=None):
+                 kept=None, pins=None, compute_dtype=None):
     """(loss, {leaf: gradient}) of one window with the memories ``mems``,
     in the mode ``lm`` is in (``train()``: dropout keys from a generator
-    seeded ``seed``), through K1 / K1b or, with ``plain``, their plain
+    seeded ``seed``), under ``compute_dtype`` (the LM train CLI's
+    ``window_loss``), through K1 / K1b or, with ``plain``, their plain
     versions patched in; each ReLU FFN's pre-activation kept in ``kept``,
     and with ``pins`` its ReLU mask pinned to ``pins[name]``."""
     from contextlib import ExitStack
+    from neural_sp_tpu_torch.bin.lm.train import window_loss
     from neural_sp_tpu_torch.models.modules import \
         relative_multihead_attention as rma
     lm.zero_grad(set_to_none=True)
@@ -5413,7 +5589,7 @@ def xl_microstep(torch, lm, xi, xo, mems, seed=None, plain=False,
         for n, m in ffns.items() if pins is not None else ():
             stack.enter_context(mock.patch.object(
                 m, "act", lambda x, keep=pins[n]: x * keep))
-        loss, _, _ = lm(xi, xo, mems, gen)
+        loss, _, _ = window_loss(lm, compute_dtype, xi, xo, mems, gen)
         loss.backward()
     grads = {n: p.grad.detach().clone() for n, p in lm.named_parameters()}
     lm.zero_grad(set_to_none=True)
@@ -5504,11 +5680,13 @@ def phase_xl_hold(torch, rng) -> dict:
 
 
 def lm_cli(torch, root: Path, text: dict, dict_path: str, name: str,
-           conf: str, resume: bool = False, cache: bool = False) -> dict:
-    """The LM train CLI on ``conf`` for one epoch (and with ``resume`` a
-    second, resumed from the first's checkpoint), then the eval CLI on the
-    dev set (and with ``cache`` again with the cache model), counts zeroed
-    around each run; the dev and eval PPLs finite."""
+           conf: str, resume: bool = False, cache: bool = False,
+           extra: tuple = ()) -> dict:
+    """The LM train CLI on ``conf`` for one epoch (``extra`` its flags
+    too; and with ``resume`` a second, resumed from the first's
+    checkpoint), then the eval CLI on the dev set (and with ``cache`` again
+    with the cache model), counts zeroed around each run; the dev and eval
+    PPLs finite."""
     import csv
     import math
     from neural_sp_tpu_torch.bin.lm import eval as lm_eval
@@ -5538,7 +5716,7 @@ def lm_cli(torch, root: Path, text: dict, dict_path: str, name: str,
 
     depth = ["--n_layers", str(LM_XL_DEPTH)] if conf == LM_XL_CONF else []
     run("train", lm_train.main, ["--config", str(ROOT / conf)] + data
-        + list(LM_TRAIN) + depth)
+        + list(LM_TRAIN) + depth + list(extra))
     if resume:
         run("resumed", lm_train.main, [
             "--config", f"{exp}/conf.yml", "--n_epochs", "2", "--resume",
@@ -5582,14 +5760,7 @@ def phase_lm(torch, rng, root: Path, corpus: dict) -> dict:
     against the growing memory, one query per step."""
     from neural_sp_tpu_torch.bin.asr import eval as cli_eval
     from neural_sp_tpu_torch.ops.kernels import launches, reset_launches
-    walls = {}
-
-    def timed(name, fn, *a, **kw):
-        t0 = time.perf_counter()
-        result = fn(*a, **kw)
-        walls[name] = time.perf_counter() - t0
-        log(f"[{name}] wall {walls[name]:.1f} s")
-        return result
+    mark = len(SUB_WALLS)
 
     out = {"kernels": timed("13k", phase_lm_kernels, torch, rng)}
     out["hold"] = timed("13a hold", phase_xl_hold, torch, rng)
@@ -5606,6 +5777,7 @@ def phase_lm(torch, rng, root: Path, corpus: dict) -> dict:
         expect(xl[run]["launches"]["rel_attention_dropout"] == 0,
                f"13a {run}: dropout in evaluation")
     out["transformer_xl"] = xl
+    out["text"] = text
     for name, conf in LM_CONFS.items():
         res = timed(f"13b {name}", lm_cli, torch, root, text, corpus["dict"],
                     name, conf)
@@ -5645,7 +5817,7 @@ def phase_lm(torch, rng, root: Path, corpus: dict) -> dict:
         [out[n][r]["launches"] for n in LM_CONFS for r in ("train", "eval")] \
         + [fused["launches"]]
     out["launches"] = {name: sum(p[name] for p in paths) for name in paths[0]}
-    out["walls_s"] = walls
+    out["walls_s"] = walls_since(mark)
     return out
 
 
@@ -5661,9 +5833,11 @@ STREAM_BF16_KERNELS = ("rel_attention_bf16", "rel_attention_bwd_bf16",
                        "ctc_loss", "ctc_loss_bwd")
 
 
-def bf16_against_float64(torch, model, cpu, on_card, on_cpu, tag) -> dict:
+def bf16_against_float64(torch, model, on_card, tag, ref: str,
+                         kernels=("rel_attention_bf16",
+                                  "rel_attention_bwd_bf16")) -> dict:
     """11f: the bf16 microstep (train(), one seed) of ``model`` on the card
-    against ``cpu``'s float64 one: the whole microstep by WHOLE_LOSS_RTOL /
+    against the CPU's float64 one: the whole microstep by WHOLE_LOSS_RTOL /
     WHOLE_GRAD_MULT, with the plain versions' bf16 microstep on the card as
     the yardstick (11d's, the CPU's float32 microstep, lies 3e-7 from
     float64 on the median leaf, where bf16's 8-bit mantissa puts any bf16
@@ -5672,7 +5846,9 @@ def bf16_against_float64(torch, model, cpu, on_card, on_cpu, tag) -> dict:
     of the path) each leaf's distance from float64 within
     BF16_PATH_FACTOR times the plain versions' bf16 microstep's plus phase
     6's float32 tolerance (6b's rule, float64 in place of the plain
-    float32 microstep); every loss finite."""
+    float32 microstep); every loss finite, each of ``kernels`` launched in
+    the microstep. The CPU microsteps are the worker's ``ref`` ones (11f:
+    11d's, the same model and batch)."""
     import numpy as np
     from neural_sp_tpu_torch.ops.kernels import launches, reset_launches
     bf = torch.bfloat16
@@ -5682,13 +5858,10 @@ def bf16_against_float64(torch, model, cpu, on_card, on_cpu, tag) -> dict:
     counts = launches()
     loss16, grads16, _ = mocha_microstep(torch, model, on_card,
                                          compute_dtype=bf, plain=True)
-    loss32, grads32, _ = mocha_microstep(
-        torch, cpu, tuple(x.float() if x.is_floating_point() else x
-                          for x in on_cpu))
-    cpu.double()
-    loss64, grads64, obs64 = mocha_microstep(torch, cpu, on_cpu)
+    loss32, grads32, _ = cpu_ref(f"{ref} float32")
+    loss64, grads64, obs64 = cpu_ref(f"{ref} float64")
     expect(all(np.isfinite(v) for v in obs.values()), f"{tag} losses {obs}")
-    for name in ("rel_attention_bf16", "rel_attention_bwd_bf16"):
+    for name in kernels:
         expect(counts[name] > 0, f"{name} never launched in {tag}'s bf16 "
                f"microstep: {counts}")
 
@@ -5727,17 +5900,15 @@ def bf16_against_float64(torch, model, cpu, on_card, on_cpu, tag) -> dict:
            f"{tag}: the bf16 microstep's gradients, median "
            f"{whole['median_leaf_rel_dist']:.3e} from float64")
     weight = model.ctc_weight
-    for m in (model, cpu):
-        m.set_weights(ctc_weight=1.0)
+    model.set_weights(ctc_weight=1.0)
     try:
         loss, grads, _ = mocha_microstep(torch, model, on_card,
                                          compute_dtype=bf)
         loss16, grads16, _ = mocha_microstep(torch, model, on_card,
                                              compute_dtype=bf, plain=True)
-        loss64, grads64, _ = mocha_microstep(torch, cpu, on_cpu)
+        loss64, grads64, _ = cpu_ref(f"{ref} float64 ctc")
     finally:
-        for m in (model, cpu):
-            m.set_weights(ctc_weight=weight)
+        model.set_weights(ctc_weight=weight)
     g_max = max(float(g.abs().max()) for g in grads64.values())
     leaves = {}
     for name, g in grads.items():
@@ -5771,9 +5942,7 @@ def phase_stream_bf16(torch, root: Path, corpus: dict, xs, xlens) -> dict:
     K1b with the chunk window must run), evaluated with
     ``--recog_streaming`` on its checkpoint, and its bf16 microstep held
     (``bf16_against_float64``)."""
-    import numpy as np
     from neural_sp_tpu_torch.bin.args import load_config
-    from neural_sp_tpu_torch.models.speech2text import build_speech2text
     make = "uni_conformer_mocha_streaming_args"
     t0 = time.perf_counter()
     out = {"cli": stream_cli(torch, root, corpus, STREAM_CONF, "11f", True,
@@ -5787,14 +5956,9 @@ def phase_stream_bf16(torch, root: Path, corpus: dict, xs, xlens) -> dict:
         "K1 never ran against cached keys in 11f's streaming eval CLI")
     out["cli_wall_s"] = time.perf_counter() - t0
     model = xf_model(torch, make)
-    cpu = build_speech2text(xf_args(make), device="cpu")
-    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
-    x, xl = torch.from_numpy(xs), torch.from_numpy(xlens)
-    ys, ylens = mocha_labels(torch, np.random.default_rng(SEED + 9),
-                             model.dec_fwd.vocab)
-    on_card = tuple(v.to(DEVICE) for v in (x, xl, ys, ylens))
-    out["hold"] = bf16_against_float64(torch, model, cpu, on_card,
-                                       (x.double(), xl, ys, ylens), "11f")
+    on_card = tuple(v.to(DEVICE) for v in reference_spec(
+        torch, "11d", xs, xlens)["batch"])
+    out["hold"] = bf16_against_float64(torch, model, on_card, "11f", "11d")
     out["launches"] = {k: out["cli"]["train"]["launches"][k] +
                        out["cli"]["eval_streaming"]["launches"][k] +
                        out["hold"]["whole_microstep"]["launches"][k]
@@ -5804,7 +5968,7 @@ def phase_stream_bf16(torch, root: Path, corpus: dict, xs, xlens) -> dict:
     train = out["cli"]["train"]["launches"]
     expect(train["rel_attention_window"] == train["rel_attention_bf16"] +
            train["rel_attention"], f"11f launches {train}")
-    del model, cpu
+    del model
     torch.cuda.empty_cache()
     out["phase_wall_s"] = time.perf_counter() - t0
     return out
@@ -6111,10 +6275,9 @@ def phase_mtl(torch, rng, root: Path) -> dict:
     from neural_sp_tpu_torch.bin.args import parse_args_train
     from neural_sp_tpu_torch.models.speech2text import build_speech2text
     t0 = time.perf_counter()
-    walls = {}
+    mark = len(SUB_WALLS)
     corpus = mtl_corpus(root / "data_mtl", MTL_UTTS)
-    out = {"kernels": phase_mtl_kernels(torch, rng)}
-    walls["14 kernels"] = time.perf_counter() - t0
+    out = {"kernels": timed("14 kernels", phase_mtl_kernels, torch, rng)}
     args = parse_args_train(["--config", str(ROOT / MTL_CONF)])
     args.vocab = CLI_VOCAB
     with torch.device("meta"):
@@ -6124,14 +6287,32 @@ def phase_mtl(torch, rng, root: Path) -> dict:
         f"package's count {MTL_PARAMS})")
     expect(n == MTL_PARAMS, f"14a: {n} parameters")
     out["parameters"] = n
-    t = time.perf_counter()
     subs = ("--dict_sub1", corpus["dict_char"], "--dict_sub2",
             corpus["dict_char"])
-    a = cli_run(torch, root, corpus, MTL_CONF, "14a", MTL_OVERRIDES + subs,
-                MTL_TRAIN_KERNELS, ("rel_attention", "las_step"), MTL_EVAL)
-    a["hold"] = mtl_hold(torch, a["exp"], corpus, "14a")
-    walls["14a"] = time.perf_counter() - t
-    t = time.perf_counter()
+
+    def aishell():
+        a = cli_run(torch, root, corpus, MTL_CONF, "14a", MTL_OVERRIDES +
+                    subs, MTL_TRAIN_KERNELS, ("rel_attention", "las_step"),
+                    MTL_EVAL)
+        a["hold"] = mtl_hold(torch, a["exp"], corpus, "14a")
+        return a
+
+    a = timed("14a", aishell)
+    b = timed("14b", mtl_swbd, torch, root, corpus, subs)
+    walls = walls_since(mark)
+    out.update(aishell=a, swbd=b, sub_phase_wall_s=walls, corpus=corpus,
+               phase_wall_s=time.perf_counter() - t0)
+    out["launches"] = {k: sum(p[k] for p in (
+        a["train"]["launches"], a["eval"]["launches"],
+        b["train"]["launches"], b["eval"]["launches"],
+        b["per_batch"]["launches"])) for k in a["train"]["launches"]}
+    log(f"[14] walls {walls}; launches on the MTL paths {out['launches']}")
+    return out
+
+
+def mtl_swbd(torch, root: Path, corpus: dict, subs: tuple) -> dict:
+    """14b: the SWBD three-task conf through the CLIs, then resumed with
+    ``mtl_per_batch`` (the tasks must rotate), and a microstep held."""
     flags = ("--n_epochs", "1", "--unit", "word") + MTL3_DEPTH
     b = cli_run(torch, root, corpus, MTL3_CONF, "14b", flags + subs,
                 MTL3_TRAIN_KERNELS, ("las_step",), MTL_EVAL)
@@ -6152,15 +6333,7 @@ def phase_mtl(torch, rng, root: Path) -> dict:
                                             want),
                f"14b task {task} trained {keys}")
     b["hold"] = mtl_hold(torch, b["exp"], corpus, "14b")
-    walls["14b"] = time.perf_counter() - t
-    out.update(aishell=a, swbd=b, sub_phase_wall_s=walls, corpus=corpus,
-               phase_wall_s=time.perf_counter() - t0)
-    out["launches"] = {k: sum(p[k] for p in (
-        a["train"]["launches"], a["eval"]["launches"],
-        b["train"]["launches"], b["eval"]["launches"],
-        b["per_batch"]["launches"])) for k in a["train"]["launches"]}
-    log(f"[14] walls {walls}; launches on the MTL paths {out['launches']}")
-    return out
+    return b
 
 
 
@@ -6330,20 +6503,18 @@ def phase_att(torch, rng, root: Path, corpus: dict) -> dict:
     15c (three ci_test confs through the CLIs). Returns each sub-phase's
     results, their walls and the launches on the phase's paths (15a's
     microstep, 15b's and 15c's CLIs)."""
-    walls, out = {}, {}
+    out, mark, tag = {}, len(SUB_WALLS), "15"
     for key, run in (("kernels", lambda: phase_att_kernels(torch, rng)),
                      ("flagship", lambda: phase_att_flagship(torch, rng)),
                      ("tds", lambda: phase_wsj_tds(torch, root, corpus)),
                      ("ci_test", lambda: phase_ci_test(torch, root))):
-        t = time.perf_counter()
-        out[key] = run()
-        walls[key] = time.perf_counter() - t
+        out[key] = timed(f"{tag} {key}", run)
     paths = [out["flagship"]["launches"], out["tds"]["train"]["launches"],
              out["tds"]["eval"]["launches"]] + \
         [r[k]["launches"] for r in out["ci_test"].values()
          for k in ("train", "eval")]
     out["launches"] = {k: sum(p[k] for p in paths) for k in paths[0]}
-    out["sub_phase_wall_s"] = walls
+    out["sub_phase_wall_s"] = walls = walls_since(mark)
     log(f"[15] walls {walls}; launches on the phase's paths "
         f"{out['launches']}")
     return out
@@ -6727,6 +6898,30 @@ def write_word_alignments(corpus: dict, root: Path) -> str:
     return str(out)
 
 
+def latency_batch(torch, xs, xlens) -> tuple:
+    """16b's model args (the MinLT conf at RNN_DEPTH, V 10,000), its batch
+    (phase 3's utterances cut to LATENCY_FRAMES frames, LATENCY_U labels)
+    and trigger points spread over each row's frames (-1 past its labels,
+    the last row without any), all on the CPU."""
+    import numpy as np
+    from neural_sp_tpu_torch.bin.args import parse_args_train
+    args = parse_args_train(["--config", str(ROOT / MINLT_CONF)])
+    args.vocab = CLI_VOCAB
+    x = torch.from_numpy(xs[:, :LATENCY_FRAMES])
+    xl = torch.from_numpy(np.minimum(xlens, LATENCY_FRAMES))
+    rng = np.random.default_rng(SEED + 16)
+    u = max(LATENCY_U)
+    ys = np.full((len(LATENCY_U), u), 3, np.int64)
+    tp = np.full((len(LATENCY_U), u), -1, np.int32)
+    for b, n in enumerate(LATENCY_U):
+        ys[b, :n] = rng.integers(4, CLI_VOCAB, n)
+        frames = int(xl[b]) // 4
+        tp[b, :n] = (np.arange(1, n + 1) * (frames - 1)) // n
+    tp[-1] = -1
+    return mocha_args(args), (x, xl, torch.from_numpy(ys),
+                              torch.tensor(LATENCY_U)), torch.from_numpy(tp)
+
+
 def latency_hold(torch, xs, xlens) -> dict:
     """16b's held microstep: the MinLT conf's LSTM-MoChA (RNN_DEPTH),
     seeded, one train() microstep on phase 3's utterances cut to
@@ -6744,36 +6939,15 @@ def latency_hold(torch, xs, xlens) -> dict:
     on the card and not float32's rounding; and the encoder and CTC
     head's (``ctc_weight`` 1), which carries K4, the path's kernel, in
     float32 by 9b's rule."""
-    import numpy as np
-    from neural_sp_tpu_torch.bin.args import parse_args_train
-    from neural_sp_tpu_torch.models.speech2text import build_speech2text
-    args = parse_args_train(["--config", str(ROOT / MINLT_CONF)])
-    args.vocab = CLI_VOCAB
-    model = mocha_model(torch, args)
-    cpu = build_speech2text(mocha_args(args), device="cpu")
-    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
-    x = torch.from_numpy(xs[:, :LATENCY_FRAMES])
-    xl = torch.from_numpy(np.minimum(xlens, LATENCY_FRAMES))
-    rng = np.random.default_rng(SEED + 16)
-    u = max(LATENCY_U)
-    ys = np.full((len(LATENCY_U), u), 3, np.int64)
-    tp = np.full((len(LATENCY_U), u), -1, np.int32)
-    for b, n in enumerate(LATENCY_U):
-        ys[b, :n] = rng.integers(4, CLI_VOCAB, n)
-        frames = int(xl[b]) // 4
-        tp[b, :n] = (np.arange(1, n + 1) * (frames - 1)) // n
-    tp[-1] = -1
-    ys, yl, tp = torch.from_numpy(ys), torch.tensor(LATENCY_U), \
-        torch.from_numpy(tp)
+    spec = reference_spec(torch, "16b", xs, xlens)
+    tp = spec["trigger_points"]
+    model = mocha_model(torch, spec["args"])
     dev = next(model.parameters()).device
-    on_card = tuple(v.to(dev) for v in (x, xl, ys, yl))
+    on_card = tuple(v.to(dev) for v in spec["batch"])
     card = mocha_microstep(torch, model, on_card, SEED,
                            trigger_points=tp.to(dev))
-    cpu32 = mocha_microstep(torch, cpu, (x, xl, ys, yl), SEED,
-                            trigger_points=tp)
-    cpu.double()
-    on_cpu = (x.double(), xl, ys, yl)
-    cpu64 = mocha_microstep(torch, cpu, on_cpu, SEED, trigger_points=tp)
+    cpu32 = cpu_ref("16b float32")
+    cpu64 = cpu_ref("16b float64")
     obs, obs_ref = card[2], cpu64[2]
     log(f"[16b] {MINLT_CONF} at depth {RNN_DEPTH}: a train() microstep with "
         f"trigger points, card {obs}; CPU float64 {obs_ref}")
@@ -6787,20 +6961,18 @@ def latency_hold(torch, xs, xlens) -> dict:
     out = {"whole_microstep": whole}
     for tag, weight, double in (("decoder float64", 0.0, True),
                                 ("encoder + CTC", 1.0, False)):
-        for m in (model, cpu):
-            m.ctc_weight = weight
+        model.ctc_weight = weight
         if double:
             model.double()
         batch = tuple(v.double() if v.is_floating_point() else v
                       for v in on_card) if double else on_card
         loss, grads, _ = mocha_microstep(torch, model, batch, SEED,
                                          trigger_points=tp.to(dev))
-        loss_ref, grads_ref, _ = mocha_microstep(torch, cpu, on_cpu, SEED,
-                                                 trigger_points=tp)
+        loss_ref, grads_ref, _ = cpu_ref(f"16b float64 ctc {weight}")
         out[tag] = hold_microstep(loss, grads, loss_ref, grads_ref,
                                   f"16b {tag}", floor=True)
         model.float()
-    del model, cpu
+    del model
     return out
 
 
@@ -6887,23 +7059,21 @@ def phase_trig(torch, rng, root: Path, corpus: dict, xs, xlens) -> dict:
     (random state passing). Returns each sub-phase's results, their walls
     and the launches on the phase's paths (16a's microstep and CLIs, 16b's
     and 16c's CLIs)."""
-    walls, out = {}, {}
+    out, mark, tag = {}, len(SUB_WALLS), "16"
     for key, run in (("kernels", lambda: phase_trig_kernels(torch, rng)),
                      ("triggered", lambda: phase_trig_conf(torch, rng, root,
                                                            corpus)),
                      ("latency", lambda: phase_latency(torch, root, corpus,
                                                        xs, xlens)),
                      ("rsp", lambda: phase_rsp(torch, root, corpus))):
-        t = time.perf_counter()
-        out[key] = run()
-        walls[key] = time.perf_counter() - t
+        out[key] = timed(f"{tag} {key}", run)
     trig = out["triggered"]
     paths = [trig["launches"], trig["train"]["launches"],
              trig["eval"]["launches"], out["rsp"]["train"]["launches"]] + \
         [out["latency"][k]["train"]["launches"]
          for k in ("16b_minlt", "16b_decot")]
     out["launches"] = {k: sum(p[k] for p in paths) for k in paths[0]}
-    out["sub_phase_wall_s"] = walls
+    out["sub_phase_wall_s"] = walls = walls_since(mark)
     log(f"[16] walls {walls}; launches on the phase's paths "
         f"{out['launches']}")
     return out
@@ -7714,7 +7884,7 @@ def phase_slice21(torch, root: Path, corpus: dict, mtl: dict) -> dict:
     the script's earlier phases drew). Returns each sub-phase's results,
     their walls and the launches on the phase's paths."""
     import numpy as np
-    walls, out = {}, {}
+    out, mark = {}, len(SUB_WALLS)
 
     def rng():
         return np.random.default_rng(SEED + 17)
@@ -7727,10 +7897,7 @@ def phase_slice21(torch, root: Path, corpus: dict, mtl: dict) -> dict:
             ("att_bf16", "17c", lambda: phase_att_bf16(torch, rng())),
             ("resolving_unk", "17d",
              lambda: phase_resolving_unk(torch, root, mtl))):
-        t = time.perf_counter()
-        out[key] = run()
-        walls[name] = time.perf_counter() - t
-        log(f"[{name}] wall {walls[name]:.1f} s")
+        out[key] = timed(name, run)
     mbr, rel = out["mbr"], out["relative"]
     paths = {"17a": [mbr["las"]["beam_launches"], mbr["las"]["launches"]],
              "17b": [rel["launches"], rel["train"]["launches"],
@@ -7738,7 +7905,7 @@ def phase_slice21(torch, root: Path, corpus: dict, mtl: dict) -> dict:
              "17c": [out["att_bf16"]["launches"]]}
     out["launches"] = {k: {name: sum(p[name] for p in ps)
                            for name in ps[0]} for k, ps in paths.items()}
-    out["sub_phase_wall_s"] = walls
+    out["sub_phase_wall_s"] = walls = walls_since(mark)
     log(f"[17] walls {walls}; launches on the phase's paths "
         f"{out['launches']}")
     return out
@@ -7787,7 +7954,335 @@ def add_slice21_rows(entries, srcs, keys, s21, blstm):
         expect(launched > 0, f"{name} never launched on 17's paths")
 
 
+# ---- phase 18: bf16 compute wherever JAX's train_dtype reaches ------------
+# 18k: K1 / K1b's bf16 entries over the XL's memory (LM_K_SHAPE: the causal
+# window, Tq 200 < Tk 400) with dropout, timed in turns with the float32
+# dropout instantiation. 18a: the LibriSpeech BLSTM-LAS (full width and
+# depth) at bf16: a B32 microstep held by 6b's rule, its device time beside
+# float32's, the train CLI at RNN_DEPTH and the eval CLI, a random-state-
+# passing microstep at bf16 (the whole model bf16: JAX's bf16 carry). 18b:
+# the LC-BLSTM-RNN-T at bf16 by 6b's rule through K5 (its plain version
+# patched in too). 18c: the offline Transformer-MMA at bf16 at XF_DEPTH,
+# held as 11f. 18d: the four LM families through the LM train CLI at bf16
+# over phase 13's text, and the XL's bf16 window held by 6b's rule, its
+# ReLU masks pinned as 13a's. Under JAX's promotion the RNN encoders, their
+# decoders and the Transformer-XL compute in float32 over bf16-rounded
+# weights (ROADMAP C50): the XL's K1 / K1b at bf16 are the float32 dropout
+# entries, and the bf16 entries of 18k run on no path.
+BF16_FLAGS = ("--train_dtype", "bfloat16")
+BLSTM_BF16_FLAGS = ("--n_epochs", "1", "--unit", "word", "--enc_n_layers",
+                    str(RNN_DEPTH)) + BF16_FLAGS
+BLSTM_BF16_EVAL = ("--recog_beam_width", "10", "--recog_ctc_weight", "0.3")
+XF_MMA_MAKE = "librispeech_transformer_mma_args"
+# the XL's K1 / K1b at bf16 compute: the float32 dropout instantiations
+XL_BF16_KERNELS = ("rel_attention_dropout", "rel_attention_bwd_dropout")
+
+
+def phase_bf16_lm_kernels(torch, rng) -> dict:
+    """18k: K1 / K1b's bf16 entries at ``LM_K_SHAPE`` with the causal
+    window, Tq < Tk and dropout LM_DROPOUT together, each against its plain
+    bf16 version (``window_case``: BF16_KERNEL_TOL of its max, at most
+    BF16_VS_F32_RATIO times its error against the plain float32 version on
+    the same mask), timed with SDPA at ``dropout_p`` and its backward; the
+    float32 dropout instantiation at the same shape (13k's); then the two
+    entries timed in turns on the same values."""
+    from neural_sp_tpu_torch.ops.kernels.rel_attention import (
+        rel_attention_bwd, rel_attention_fwd)
+    s = LM_K_SHAPE
+    b, h, tq, tk, dk, r = s["b"], s["h"], s["tq"], s["tt"], s["dk"], s["r"]
+    kl = [tk] * b
+    out = {name: window_case(torch, rng, b, h, tk, dk, r, kl, CAUSAL_WINDOW,
+                             "18k", bf16=name == "bf16", tq=tq,
+                             dropout=LM_DROPOUT) for name in ("bf16", "f32")}
+    dev = torch.device(DEVICE)
+
+    def t(*shape, scale=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale).astype(
+            "float32")).to(dev)
+
+    f32 = (t(b, h, tq, dk, scale=dk ** -0.5), t(b, h, tk, dk),
+           t(b, h, tk, dk), t(b, h, tq, r, scale=dk ** -0.5))
+    do = t(b, h, tq, dk)
+    klens = torch.full((b,), tk, dtype=torch.int32, device=dev)
+    calls = {}
+    for name, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        fwd = (*(x.to(dt) for x in f32), klens, CAUSAL_WINDOW, 0, LM_DROPOUT)
+        o, m, l = rel_attention_fwd(*fwd)
+        bwd = (*fwd[:5], o, m, l, do.to(dt), CAUSAL_WINDOW, LM_DROPOUT)
+        calls[name] = (lambda a=fwd: rel_attention_fwd(*a),
+                       lambda a=bwd: rel_attention_bwd(*a))
+    for i, part in enumerate(("fwd", "bwd")):
+        ms16, ms32 = timed_pair(calls["bf16"][i], calls["f32"][i], iters=10)
+        out["bf16"][part].update(in_turns_ms=ms16, f32_in_turns_ms=ms32)
+        log(f"[18k] {('K1', 'K1b')[i]} over the memory with dropout, in "
+            f"turns on the same values: bf16 entry {ms16:.4f} ms, float32 "
+            f"dropout instantiation {ms32:.4f} ms")
+    del calls, f32, do
+    torch.cuda.empty_cache()
+    return out
+
+
+def microstep_at(torch, model, batch, compute_dtype, plain=False,
+                 carry=None, train=False):
+    """(loss, {leaf: gradient}) of one microstep under ``compute_dtype``:
+    ``eval()`` (or ``train()`` from a generator of seed SEED), through the
+    kernels or the plain versions (``plain_patches``); with ``carry`` the
+    random-state-passing loss from that encoder carry
+    (``compute_loss_with_carry``)."""
+    from contextlib import ExitStack
+    from neural_sp_tpu_torch.parallel.mesh import (
+        compute_loss, compute_loss_with_carry, deterministic_cudnn)
+    model.train(train)
+    model.zero_grad(set_to_none=True)
+    gen = torch.Generator().manual_seed(SEED) if train else None
+    with ExitStack() as stack:
+        if plain:
+            for target, name, value in plain_patches(torch):
+                stack.enter_context(mock.patch.object(target, name, value))
+        stack.enter_context(deterministic_cudnn())
+        if carry is None:
+            loss = compute_loss(model, compute_dtype, *batch, gen)[0]
+        else:
+            loss = compute_loss_with_carry(model, compute_dtype, carry,
+                                           *batch, gen)[0]
+        loss.backward()
+    grads = {n: torch.zeros_like(p) if p.grad is None else
+             p.grad.detach().clone() for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    model.eval()
+    return float(loss.detach()), grads
+
+
+def bf16_path_hold(torch, model, batch, tag, **kw) -> dict:
+    """6b's rule on one ``eval()`` microstep (``microstep_at``'s keywords):
+    the kernels' bf16 microstep against the plain versions' float32 one,
+    the plain versions' bf16 microstep the yardstick."""
+    bf = torch.bfloat16
+    return path_rule(torch, *microstep_at(torch, model, batch, bf, **kw),
+                     *microstep_at(torch, model, batch, bf, True, **kw),
+                     *microstep_at(torch, model, batch, None, True, **kw),
+                     tag, ("bf16", "plain bf16", "plain f32"))
+
+
+def phase_bf16_blstm(torch, rng, root: Path, corpus: dict) -> dict:
+    """18a: the LibriSpeech BLSTM-LAS (``BLSTM_CONF``, full width and depth,
+    seeded) at bf16: a B32 ``eval()`` microstep held by 6b's rule; one
+    ``train()`` microstep (dropout, scheduled sampling) at bf16 and at
+    float32, each profiled, counts zeroed around the bf16 one (K2 in pass
+    1, K3, K3b and K4 must run); a random-state-passing ``eval()``
+    microstep at bf16 from the encoder's carry of another batch (the pinned
+    draw: passed on; the whole model bf16, JAX's bf16 carry) by 6b's rule;
+    then the train CLI at ``--train_dtype bfloat16`` (RNN_DEPTH, one
+    epoch) and the eval CLI over EVAL_UTTS."""
+    from neural_sp_tpu_torch.configs import librispeech_blstm_las_args
+    from neural_sp_tpu_torch.models.speech2text import build_speech2text
+    from neural_sp_tpu_torch.ops.kernels import launches, reset_launches
+    from neural_sp_tpu_torch.utils.init_params import init_params
+    model = init_params(build_speech2text(librispeech_blstm_las_args()),
+                        SEED).eval()
+    out = {"parameters": sum(p.numel() for p in model.parameters())}
+    batch = train_batch(torch, rng)
+    out["hold"] = timed("18a hold", bf16_path_hold, torch, model, batch, "18a")
+    bf = torch.bfloat16
+    reset_launches()
+    out["microstep_bf16"] = profiled(
+        torch, "BLSTM-LAS B32 x 1500 train() microstep at bf16",
+        lambda: microstep_at(torch, model, batch, bf, train=True),
+        tag="18a", cpu=False)
+    torch.cuda.synchronize()
+    out["launches"] = launches()
+    for name in BLSTM_TRAIN_KERNELS:
+        expect(out["launches"][name] > 0,
+               f"{name} never launched in 18a's bf16 microstep")
+    out["microstep_f32"] = profiled(
+        torch, "BLSTM-LAS B32 x 1500 train() microstep in float32",
+        lambda: microstep_at(torch, model, batch, None, train=True),
+        tag="18a", cpu=False)
+    with torch.no_grad():
+        other = train_batch(torch, rng)
+        _, carry = model.encoder.forward_with_carry(other[0], other[1])
+    out["rsp_hold"] = timed("18a rsp", bf16_path_hold, torch, model, batch,
+                            "18a rsp", carry=carry)
+    del model, batch, other, carry
+    torch.cuda.empty_cache()
+    out["cli"] = timed("18a CLIs", cli_run, torch, root, corpus, BLSTM_CONF,
+                       "18a", BLSTM_BF16_FLAGS, BLSTM_TRAIN_KERNELS,
+                       ("las_step",), BLSTM_BF16_EVAL)
+    return out
+
+
+def phase_bf16_rnnt(torch, xs, xlens) -> dict:
+    """18b: the LC-BLSTM-RNN-T (``RNNT_CONF``, full width and depth,
+    seeded, V 1,000) at bf16: one ``eval()`` microstep on phase 3's
+    utterances and MOCHA_U labels by 6b's rule (K5's plain version patched
+    in with the others), counts zeroed around the kernels' (K5 and K4 must
+    run)."""
+    import numpy as np
+    from neural_sp_tpu_torch.ops.kernels import launches, reset_launches
+    args = lc_args(RNNT_CONF, RNNT_VOCAB)
+    model = lc_model(torch, args)
+    ys, ylens = mocha_labels(torch, np.random.default_rng(SEED + 9),
+                             args.vocab)
+    batch = tuple(torch.from_numpy(x).to(DEVICE) if isinstance(
+        x, np.ndarray) else x.to(DEVICE) for x in (xs, xlens, ys, ylens))
+    reset_launches()
+    microstep_at(torch, model, batch, torch.bfloat16)
+    out = {"launches": launches()}
+    for name in RNNT_TRAIN_KERNELS:
+        expect(out["launches"][name] > 0,
+               f"{name} never launched in 18b's bf16 microstep")
+    out["hold"] = bf16_path_hold(torch, model, batch, "18b")
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_bf16_mma(torch, xs, xlens) -> dict:
+    """18c: the offline LibriSpeech Transformer-MMA (``XF_MMA_CONF``, full
+    width, XF_DEPTH's MMA depth, seeded) at bf16: one ``train()``
+    microstep on HOST_UTTS of phase 3's utterances held as 11f holds the
+    streaming conf's (``bf16_against_float64``: the whole microstep by
+    11d's gates, C29, the encoder + CTC by 6b's rule against float64); K4
+    must run."""
+    model = xf_model(torch, XF_MMA_MAKE)
+    on_card = tuple(v.to(DEVICE) for v in reference_spec(
+        torch, "18c", xs, xlens)["batch"])
+    out = bf16_against_float64(torch, model, on_card, "18c", "18c",
+                               kernels=("ctc_loss", "ctc_loss_bwd"))
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_bf16_lm(torch, rng, root: Path, text: dict, dict_path: str
+                  ) -> dict:
+    """18d: the XL (``LM_XL_CONF`` at LM_XL_DEPTH, 13a's model) and its
+    bf16 training window held by 6b's rule (``train()``, one generator
+    seed, the memory of the window before it; the FFNs' ReLU masks of both
+    plain runs pinned to the kernels' run's, as 13a): the float32 dropout
+    instantiations of K1 / K1b must run (C50) and no bf16 entry; then the
+    swbd Transformer-XL, LibriSpeech's rnnlm_6L, the swbd Transformer LM
+    and the WSJ GCNN-14B each through the LM train CLI at ``--train_dtype
+    bfloat16`` for one epoch and the eval CLI (every loss and PPL
+    finite)."""
+    from neural_sp_tpu_torch.models.lm.build import build_lm
+    from neural_sp_tpu_torch.ops.kernels import launches, reset_launches
+    from neural_sp_tpu_torch.utils.init_params import init_params
+    args = lm_args(LM_XL_CONF, CLI_VOCAB)
+    args.n_layers = LM_XL_DEPTH
+    lm = init_params(build_lm(args), SEED + 5)
+
+    def window():
+        return tuple(torch.from_numpy(rng.integers(
+            4, CLI_VOCAB, (args.batch_size, args.bptt))).to(DEVICE)
+            for _ in range(2))
+    with torch.no_grad():
+        lm.eval()
+        _, mems, _ = lm(*window())
+    xi, xo = window()
+    lm.train()
+    kept = {}
+    reset_launches()
+    card = xl_microstep(torch, lm, xi, xo, mems, SEED, kept=kept,
+                        compute_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    counts = launches()
+    pins = {n: (k > 0).to(k.dtype) for n, k in kept.items()}
+    plain16 = xl_microstep(torch, lm, xi, xo, mems, SEED, plain=True,
+                           pins=pins, compute_dtype=torch.bfloat16)
+    plain32 = xl_microstep(torch, lm, xi, xo, mems, SEED, plain=True,
+                           pins=pins)
+    out = {"hold": path_rule(torch, *card, *plain16, *plain32, "18d",
+                             ("bf16", "plain bf16", "plain f32"),
+                             zero_leaf=XL_ZERO_GRAD_LEAF),
+           "hold_launches": counts}
+    for name in XL_BF16_KERNELS:
+        expect(counts[name] == args.n_layers,
+               f"18d: {name} launched {counts[name]} times")
+    for name in ("rel_attention_bf16", "rel_attention_bwd_bf16"):
+        expect(counts[name] == 0, f"18d: {name} launched at the XL's bf16 "
+               f"compute, which JAX runs in float32")
+    del lm, mems, kept, pins, card, plain16, plain32
+    torch.cuda.empty_cache()
+    for name, conf in {"transformer_xl": LM_XL_CONF, **LM_CONFS}.items():
+        out[name] = timed(f"18d {name}", lm_cli, torch, root, text,
+                          dict_path, f"{name}_bf16", conf,
+                          extra=BF16_FLAGS)
+    xl = out["transformer_xl"]["train"]["launches"]
+    for name in XL_BF16_KERNELS:
+        expect(xl[name] > 0, f"18d: {name} never launched in the XL's bf16 "
+               f"train CLI")
+    out["launches"] = {k: sum(out[n]["train"]["launches"][k] +
+                              out[n]["eval"]["launches"][k]
+                              for n in ("transformer_xl", *LM_CONFS))
+                       for k in xl}
+    return out
+
+
+def phase_slice22(torch, root: Path, corpus: dict, text: dict, xs,
+                  xlens) -> dict:
+    """18: 18k, 18a, 18b, 18c, 18d (see their functions), each drawing from
+    a generator of its own. Returns each sub-phase's results and the
+    launches on the phase's paths."""
+    import numpy as np
+
+    def rng():
+        return np.random.default_rng(SEED + 18)
+
+    out = {"kernels": timed("18k", phase_bf16_lm_kernels, torch, rng()),
+           "blstm": timed("18a", phase_bf16_blstm, torch, rng(), root,
+                          corpus),
+           "rnnt": timed("18b", phase_bf16_rnnt, torch, xs, xlens),
+           "mma": timed("18c", phase_bf16_mma, torch, xs, xlens),
+           "lm": timed("18d", phase_bf16_lm, torch, rng(), root, text,
+                       corpus["dict"])}
+    a = out["blstm"]
+    paths = [a["launches"], a["cli"]["train"]["launches"],
+             a["cli"]["eval"]["launches"], out["rnnt"]["launches"],
+             out["mma"]["whole_microstep"]["launches"],
+             out["lm"]["launches"]]
+    out["launches"] = {k: sum(p[k] for p in paths) for k in paths[0]}
+    log(f"[18] launches on the phase's paths {out['launches']}")
+    return out
+
+
+def add_slice22_rows(entries, s22) -> None:
+    """Phase 18 in the ``kernels`` line: each kernel's launches on 18's
+    paths (``slice22_launches``), above 0 for K2, K3, K3b, K4, K5 and the
+    float32 dropout instantiations of K1 / K1b (the XL at bf16, C50); and
+    18k's bf16 rows over the XL's memory beside K1 / K1b's bf16 entries
+    (``memory_dropout``)."""
+    la = s22["launches"]
+    for e in entries:
+        base = e["name"]
+        if base in la:
+            e["slice22_launches"] = la[base]
+    for name in ("las_step", "las_scan", "las_scan_bwd", "ctc_loss",
+                 "rnnt_loss", *XL_BF16_KERNELS):
+        expect(la[name] > 0, f"{name} never launched on 18's paths")
+    k = s22["kernels"]
+    for name, part in (("rel_attention_bf16", "fwd"),
+                       ("rel_attention_bwd_bf16", "bwd")):
+        row = k["bf16"][part]
+        next(e for e in entries if e["name"] == name)["memory_dropout"] = {
+            **{x: row.get(x) for x in (
+                "shape", "max_abs_err", "vs_f32_ratio", "ms", "plain_ms",
+                "bound_ms", "bound_by", "library_ms", "in_turns_ms",
+                "f32_in_turns_ms")},
+            "launches": la[name],
+            "path": "none: the XL at bf16 computes in float32 (C50)"}
+
+
 def main() -> int:
+    """``run``, the CPU references' worker stopped however it ends."""
+    try:
+        return run()
+    finally:
+        if REFS is not None:
+            REFS.close()
+
+
+def run() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -7826,12 +8321,14 @@ def main() -> int:
     n_params = sum(p.numel() for p in model.parameters())
     log(f"[3] flagship faithful model: {n_params} parameters on the card")
     xs, xlens = utterances(rng)
-    served, counts = phase_serve(torch, model, xs, xlens)
+    served, counts = timed("3a", phase_serve, torch, model, xs, xlens)
     launches = {k: counts[k] for k in ("rel_attention", "las_step")}
     expect(all(v > 0 for v in launches.values()),
            f"a kernel of the path never launched: {launches}")
-    breakdown = phase_breakdown(torch, model, xs, xlens)
+    breakdown = timed("3b", phase_breakdown, torch, model, xs, xlens)
     wall("3")
+    # the CPU references from here: phase 3's beam step is timed alone
+    start_references(torch, xs, xlens)
     served_lm, lm_launches = phase_serve_lm(torch, model, xs[:HOST_UTTS],
                                             xlens[:HOST_UTTS])
     wall("3c")
@@ -7896,8 +8393,11 @@ def main() -> int:
         wall("16")
         s21 = phase_slice21(torch, root, corpus, mtl)
         wall("17")
+        s22 = phase_slice22(torch, root, corpus, lm.pop("text"), xs, xlens)
+        wall("18")
     log(f"phase walls (s): {json.dumps(walls)}; total "
         f"{sum(walls.values()):.1f} s")
+    log(f"sub-phase walls (s): {json.dumps(SUB_WALLS)}")
     # each kernel's launches from the main path it belongs to: the served
     # requests (K1, K2), the float32 training run (K1b, K3, K3b, K4) or
     # the bf16 training run (K1's and K1b's bf16 entries)
@@ -7952,8 +8452,8 @@ def main() -> int:
                "transformer": xformer, "streaming": streaming,
                "transducer": rnnt, "lm": lm, "stream_bf16": stream_bf16,
                "mtl": mtl, "att": att, "trig": trig, "slice21": s21,
-               "kernels": kernels,
-               "phase_walls_s": walls}
+               "slice22": s22, "kernels": kernels,
+               "phase_walls_s": walls, "sub_phase_walls_s": SUB_WALLS}
     log(json.dumps(details))
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -8162,6 +8662,7 @@ def main() -> int:
     add_att_rows(entries, srcs, keys, att)
     add_trig_rows(entries, srcs, keys, trig)
     add_slice21_rows(entries, srcs, keys, s21, blstm)
+    add_slice22_rows(entries, s22)
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -7,7 +7,8 @@ Usage:
       --unit word --model_save_dir exp/lm [--resume exp/lm/ckpt.epoch-N]
 
 On the CUDA card (``main(argv, device="cpu")`` trains on the CPU), in
-float32; ``train_dtype: bfloat16`` raises. As the JAX CLI:
+float32, or with ``train_dtype: bfloat16`` at bf16 compute over float32
+master weights (``window_loss``). As the JAX CLI:
 
 * each epoch starts from the zero state and carries the LM's state (the
   RNNLM's (c, h), the Transformer-XL's memories) from window to window,
@@ -39,10 +40,13 @@ import time
 
 import numpy as np
 import torch
+from torch.func import functional_call
 
+from ... import configs
 from ...datasets.lm import LMDataset
 from ...models.lm.build import build_lm
 from ...models.utils import model_device
+from ...parallel.mesh import cast_params
 from ...trainers.checkpoint import load_checkpoint, save_checkpoint
 from ...trainers.lr_scheduler import EpochController, noam_schedule
 from ...trainers.optimizer import build_optimizer
@@ -71,6 +75,20 @@ def detach(state):
     if isinstance(state, dict):
         return {k: detach(v) for k, v in state.items()}
     return state.detach()
+
+
+def window_loss(lm, compute_dtype, xi, xo, state, gen):
+    """One training window's (loss, new state, obs), as the JAX CLI's
+    ``step_fn``: the LM as it is when ``compute_dtype`` is None, else its
+    floating parameters cast to ``compute_dtype`` (differentiable casts;
+    the state passed as it is), the loss and obs returned in float32. The
+    state keeps the type the LM computes it in: the RNNLM's and the
+    Transformer-XL's are float32 at bf16, as JAX's (see their modules)."""
+    if compute_dtype is None:
+        return lm(xi, xo, state, gen)
+    loss, new_state, obs = functional_call(
+        lm, cast_params(lm, compute_dtype), (xi, xo, state, gen))
+    return loss.float(), new_state, {k: v.float() for k, v in obs.items()}
 
 
 def make_schedule(args):
@@ -106,10 +124,7 @@ def main(argv=None, device=None) -> str:
     CUDA card when it is None."""
     args = parse_cli(argv if argv is not None else sys.argv[1:], LM_DEFAULTS)
     logging.basicConfig(level=logging.INFO)
-    if getattr(args, "train_dtype", "float32") in ("bfloat16", "bf16"):
-        raise NotImplementedError(
-            "LM training in bf16 is not ported yet (float32 only), see "
-            "ROADMAP")
+    dtype = configs.compute_dtype(args)
     device = model_device(device, "bin.lm.train")
     # float32 computes in float32: cuDNN's LSTMs would take TF32 by
     # PyTorch's default
@@ -161,8 +176,8 @@ def main(argv=None, device=None) -> str:
         for xi, xo in train_set:
             for p in params:
                 p.grad = None
-            loss, state, obs = lm(_window(xi, device), _window(xo, device),
-                                  state, gen)
+            loss, state, obs = window_loss(lm, dtype, _window(xi, device),
+                                           _window(xo, device), state, gen)
             loss.backward()
             state = detach(state)
             grads = [p.grad if p.grad is not None else torch.zeros_like(p)

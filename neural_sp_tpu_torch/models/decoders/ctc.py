@@ -29,6 +29,7 @@ from ... import BLANK, EOS
 from ...ops.criterion import kldiv_lsm_ctc
 from ...ops.ctc import ctc_forced_align, ctc_loss
 from ...ops.dropout import Dropout
+from ..modules.promote import Linear
 
 LOG0 = -1.0e10
 
@@ -41,11 +42,11 @@ class CTC(nn.Module):
         self.n_fc = 0
         d_in = enc_n_units
         for dim in (int(d) for d in fc_list.split("_")) if fc_list else ():
-            self.add_module(f"fc{self.n_fc}", nn.Linear(d_in, dim))
+            self.add_module(f"fc{self.n_fc}", Linear(d_in, dim))
             self.n_fc += 1
             d_in = dim
         self.drop = Dropout(dropout)
-        self.output = nn.Linear(d_in, vocab)
+        self.output = Linear(d_in, vocab)
 
     def forward(self, eouts, elens, ys, ylens,
                 gen: Optional[torch.Generator] = None):

@@ -91,6 +91,7 @@ from ..modules.attention import AttentionMechanism
 from ..modules.mocha import MoChA, mocha_noise
 from ..modules.recurrent import LSTMCell
 from ..utils import append_sos_eos
+from ..modules.promote import Conv1d, Linear
 
 
 class LASStep(nn.Module):
@@ -121,7 +122,7 @@ class LASStep(nn.Module):
         # the dropped LSTM output's projection (JAX's projs_0): the query
         # and the readout's input
         if n_projs > 0:
-            self.projs = nn.ModuleList([nn.Linear(n_units, n_projs)])
+            self.projs = nn.ModuleList([Linear(n_units, n_projs)])
         qdim = n_projs or n_units
         if self.mocha:
             # MoChA's keyword arguments (``RNNDecoder``'s mocha_* options);
@@ -135,8 +136,8 @@ class LASStep(nn.Module):
                 conv_kernel_size=attn_conv_kernel_size,
                 sharpening_factor=attn_sharpening_factor,
                 sigmoid_smoothing=attn_sigmoid_smoothing)
-        self.w_gen = nn.Linear(qdim + enc_n_units, bottleneck_dim)
-        self.output = nn.Linear(bottleneck_dim, vocab)
+        self.w_gen = Linear(qdim + enc_n_units, bottleneck_dim)
+        self.output = Linear(bottleneck_dim, vocab)
         self.drop = Dropout(dropout)
         self.drop_emb = Dropout(dropout_emb)
         # the location attention's weights (MoChA's builder reads none: C43)
@@ -346,20 +347,20 @@ class RNNDecoder(nn.Module):
             # over the monotonic heads with share_ca) and, multihead only,
             # the values; a single head reads the raw encoder outputs
             h_ma, h_ca = mocha_n_heads_mono, mocha_n_heads_chunk
-            self.key_proj_mono = nn.Linear(enc_n_units, attn_dim * h_ma)
+            self.key_proj_mono = Linear(enc_n_units, attn_dim * h_ma)
             if mocha_chunk_size != 1:
                 h_ck = h_ca if mocha_share_ca else h_ma * h_ca
-                self.key_proj_chunk = nn.Linear(enc_n_units, attn_dim * h_ck)
+                self.key_proj_chunk = Linear(enc_n_units, attn_dim * h_ck)
             if mocha_1dconv:
-                self.mono_conv = nn.Conv1d(enc_n_units, enc_n_units, 5,
-                                           padding=2)
+                self.mono_conv = Conv1d(enc_n_units, enc_n_units, 5,
+                                        padding=2)
             if h_ma * h_ca > 1:
-                self.key_proj_value = nn.Linear(enc_n_units,
-                                                attn_dim * h_ma * h_ca)
+                self.key_proj_value = Linear(enc_n_units,
+                                             attn_dim * h_ma * h_ca)
         else:
             # attention keys projected once per utterance (with bias, as
             # the reference's location-attention w_key)
-            self.key_proj = nn.Linear(enc_n_units, attn_dim)
+            self.key_proj = Linear(enc_n_units, attn_dim)
 
     def forward(self, eouts: torch.Tensor, elens: torch.Tensor,
                 ys: torch.Tensor, ylens: torch.Tensor,
@@ -463,7 +464,13 @@ class RNNDecoder(nn.Module):
             emb = _scaled(step.embed(ys_in), masks.emb)
         else:
             emb = step.drop_emb(step.embed(ys_in), gen)
-        eg = emb @ cell.w_ih[:step.emb_dim]                # [B, U+1, 4H]
+        w_emb = cell.w_ih[:step.emb_dim]
+        if sampled:
+            # JAX's sampled pass feeds [emb, ctx] to the cell, unhoisted:
+            # the product in the context's type (float32 over an RNN
+            # encoder at bf16)
+            emb, w_emb = emb.to(values.dtype), w_emb.to(values.dtype)
+        eg = emb @ w_emb                                   # [B, U+1, 4H]
         # in the activations' type (bf16 under a bf16 compute_dtype)
         if sampled:
             keep = masks.keep
@@ -523,7 +530,9 @@ class RNNDecoder(nn.Module):
         (the eval loss's hard mode takes no mask, as JAX's). Returns
         (logits, the alignments [B, U+1, H_ma, T] in float32 in
         ``train()``, else None). Under bf16 compute the cell, the energies
-        and the readout compute in bf16, the alignment in float32 (C39)."""
+        and the readout compute in the encoder outputs' type (bf16 over a
+        conformer; float32 over an RNN encoder, as JAX promotes: C50), the
+        alignment in float32 (C39)."""
         bs, tmax = eouts.shape[:2]
         dev, dt = eouts.device, eouts.dtype
         # MoChA's alignment recurrence in float32 under bf16 compute (C39)
@@ -533,9 +542,11 @@ class RNNDecoder(nn.Module):
         u1 = ys_in.shape[1]
         kc = self.precompute_keys(eouts)
         mask = make_pad_mask(elens.to(dev), tmax)
-        emb = step.drop_emb(step.embed(ys_in), gen)
-        eg = torch.addmm(cell.bias, emb.reshape(bs * u1, -1),
-                         cell.w_ih[:step.emb_dim]).view(bs, u1, -1)
+        # the cell in the encoder outputs' type: JAX's concatenates the
+        # embedding with the float32 context over an RNN encoder at bf16
+        emb = step.drop_emb(step.embed(ys_in), gen).to(dt)
+        eg = torch.addmm(cell.bias.to(dt), emb.reshape(bs * u1, -1),
+                         cell.w_ih[:step.emb_dim].to(dt)).view(bs, u1, -1)
         keep = keep_mask(gen, step.drop.rate, (bs, u1, self.n_units), dev,
                          dt) if self.training and step.drop.rate > 0 else None
         noise = mocha_noise(gen, (bs, u1, attn.n_heads_mono, tmax), dev,
@@ -544,7 +555,7 @@ class RNNDecoder(nn.Module):
         c = h = eouts.new_zeros(bs, self.n_units)
         ctx = eouts.new_zeros(bs, self.enc_n_units)
         alpha = attn.init_alpha(bs, tmax, dev, adt)
-        w_ctx = cell.w_ih[step.emb_dim:]
+        w_ctx, w_hh = cell.w_ih[step.emb_dim:].to(dt), cell.w_hh.to(dt)
         # the expected alignment in train(), the hard boundaries in eval()
         # (JAX: mode "hard" when deterministic, so the dev loss too)
         mode = "parallel" if self.training else "hard"
@@ -553,8 +564,7 @@ class RNNDecoder(nn.Module):
             trigger_points is not None and self.training else None
         queries, ctxs, alphas = [], [], []
         for u in range(u1):
-            gates = torch.addmm(torch.addmm(eg[:, u], ctx, w_ctx), h,
-                                cell.w_hh)
+            gates = torch.addmm(torch.addmm(eg[:, u], ctx, w_ctx), h, w_hh)
             c, h = lstm_cell(gates, c)
             q = h if keep is None else h * keep[:, u]
             ctx, alpha, _ = attn(kc, q, alpha, mode, mask,
@@ -645,7 +655,8 @@ class RNNDecoder(nn.Module):
         dropout and the vocabulary projection in the activations' type, as
         pass 2 computes them."""
         step, cell = self.step, self.step.cells[0]
-        dt = step.embed.weight.dtype
+        # the readout's type: pass 2's (LASScan's outputs, the values')
+        dt = torch.promote_types(step.embed.weight.dtype, values.dtype)
         proj = step.proj()
         per_step = klens.dim() == 2
         lens = klens[0].clone() if per_step else klens

@@ -10,7 +10,10 @@ joint logits are materialised, as JAX's; the lattice loss is
 ``ops/rnnt.py::rnnt_loss_from_logits`` (kernel K5 on the card). In
 ``train()`` mode dropout runs after the embedding (``dropout_emb``) and
 after each LSTM layer (``dropout``), from the ``gen`` argument; the GRU
-prediction network is not ported (ROADMAP).
+prediction network is not ported (ROADMAP). Under a bf16 compute_dtype
+the prediction network's LSTM computes in float32 from its bf16
+embedding (``RNNLayer.compute_type``) and the joint promotes its weights
+to float32, as JAX's (ROADMAP C50); K5 takes float32 log-probabilities.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ from ... import BLANK, EOS, PAD
 from ...ops.dropout import Dropout
 from ...ops.rnnt import rnnt_loss_from_logits
 from ..modules.recurrent import RNNLayer
+from ..modules.promote import Linear
 
 
 class RNNTransducer(nn.Module):
@@ -46,13 +50,13 @@ class RNNTransducer(nn.Module):
         for _ in range(n_layers):
             rnns.append(RNNLayer(in_dim, n_units, "lstm", False))
             if n_projs > 0:
-                projs.append(nn.Linear(n_units, n_projs))
+                projs.append(Linear(n_units, n_projs))
             in_dim = n_projs if n_projs > 0 else n_units
         self.pred_rnns = nn.ModuleList(rnns)
         self.pred_projs = nn.ModuleList(projs)
-        self.w_enc = nn.Linear(enc_n_units, joint_dim)
-        self.w_pred = nn.Linear(in_dim, joint_dim, bias=False)
-        self.output = nn.Linear(joint_dim, vocab)
+        self.w_enc = Linear(enc_n_units, joint_dim)
+        self.w_pred = Linear(in_dim, joint_dim, bias=False)
+        self.output = Linear(joint_dim, vocab)
         self.drop = Dropout(dropout)
         self.drop_emb = Dropout(dropout_emb)
 

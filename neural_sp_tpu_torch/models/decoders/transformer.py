@@ -161,13 +161,13 @@ class TransformerDecoder(nn.Module):
     def _hidden(self, eouts, elens, ys_in, gen, mode: str):
         """The teacher-forced pass: (the last block's output [B, U+1, d],
         the MMA layers' alignments, each [B, U+1, H_ma, T]). The energies'
-        noise is drawn in parallel mode in train() only."""
+        noise is drawn in parallel mode in train() only. Under bf16 compute
+        the energies compute in bf16 and the alignments (their carry and the
+        noise) in float32, as the LAS decoder's MoChA (ROADMAP C39)."""
         bs, tmax = eouts.shape[:2]
         dev = eouts.device
-        if eouts.dtype == torch.bfloat16 and any(b.mma for b in self.blocks):
-            raise NotImplementedError(
-                "bf16 compute with MMA is not ported yet, see ROADMAP")
         e = self._bridge(eouts)
+        adt = torch.promote_types(e.dtype, torch.float32)
         src_mask = make_pad_mask(elens.to(dev), tmax)
         u1 = ys_in.shape[1]
         self_mask = causal_mask(u1, device=dev)[None]
@@ -177,11 +177,11 @@ class TransformerDecoder(nn.Module):
             alpha0 = noise = None
             if blk.mma:
                 attn = blk.src_mma.mocha
-                alpha0 = attn.init_alpha(bs, tmax, dev, e.dtype)
+                alpha0 = attn.init_alpha(bs, tmax, dev, adt)
                 if mode == "parallel" and self.training and \
                         attn.noise_std > 0:
                     noise = mocha_noise(gen, (bs, u1, attn.n_heads_mono,
-                                              tmax), dev, e.dtype)
+                                              tmax), dev, adt)
             h, _, aws = blk(h, self_mask, blk.src_keys(e), src_mask, None,
                             gen, alpha0, mode, noise)
             if aws is not None:

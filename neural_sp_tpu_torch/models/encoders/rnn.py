@@ -42,6 +42,15 @@ the encoder's call): each layer starts from a carry (per layer (c, h), or
 ((c, h) forward, (c, h) backward) for a BLSTM layer; None: zeros) and
 returns its state at each row's last frame, which the training step
 passes to the next batch.
+
+Under a bf16 compute_dtype the types are JAX's (ROADMAP C50): the conv
+front end computes in bf16, each layer in the type ``RNNLayer.
+compute_type`` gives (float32 without a carry, bf16 from a bf16 carry),
+and the projections and bridges promote their bf16 weights to their
+input's type (``modules/promote.py``). So the encoder's outputs and
+carries are float32 from no carry and bf16 from random state passing's
+bf16 carry (an LC-BLSTM's outputs float32: its backward direction runs
+carry-less; C48).
 """
 from __future__ import annotations
 
@@ -51,7 +60,8 @@ import torch
 from torch import nn
 
 from ...ops.dropout import Dropout
-from ..modules.recurrent import RNNLayer
+from ..modules.promote import Linear
+from ..modules.recurrent import RNNLayer, input_gates
 from .conv import ConvEncoder, parse_cnn_config
 from .subsampling import build_subsampler, new_lens
 from .utils import chunkwise, chunkwise_merge
@@ -120,7 +130,7 @@ class LCBLSTMLayer(RNNLayer):
         if carry is None:
             h = c = xs.new_zeros(1, bs, self.n_units)
         else:
-            c, h = carry[0][None], carry[1][None]
+            c, h = carry[0][None].to(xs.dtype), carry[1][None].to(xs.dtype)
         ends = [t] if xlens is None else [
             t if n <= 0 or n >= t else n for n in xlens.tolist()]
         outs, start = [], 0
@@ -144,13 +154,19 @@ class LCBLSTMLayer(RNNLayer):
             raise RuntimeError("LCBLSTMLayer: cuDNN is not available on "
                                "the card")
         bs, t, _ = xs.shape
-        weights = [w for ws in self.lstm.all_weights for w in ws]
+        # the forward direction's type (``RNNLayer.compute_type``); the
+        # backward one starts from zeros, as the carry-less flax scan
+        dt = self.compute_type(xs, carry)
+        xs_b = xs.to(self.compute_type(xs))
+        xs = xs.to(dt)
+        weights = self.weights(dt)
         ys_f, carry_f = self._forward_direction(xs, xlens, carry,
                                                 weights[:4])
         n_c, n_r = self.n_current, self.n_right
-        windows = xs if single_chunk else chunkwise(xs, 0, n_c, n_r)
-        zeros = xs.new_zeros(1, windows.shape[0], self.n_units)
-        ys_b, _, _ = self._lstm(windows.flip(1), zeros, zeros, weights[4:])
+        windows = xs_b if single_chunk else chunkwise(xs_b, 0, n_c, n_r)
+        zeros = windows.new_zeros(1, windows.shape[0], self.n_units)
+        ys_b, _, _ = self._lstm(windows.flip(1), zeros, zeros,
+                                self.weights(xs_b.dtype)[4:])
         ys_b = ys_b.flip(1)
         if not single_chunk:
             ys_b = chunkwise_merge(ys_b, bs, 0, n_c, n_r, t)
@@ -173,11 +189,13 @@ class LCBLSTMLayer(RNNLayer):
             c = torch.sigmoid(g_f) * c + torch.sigmoid(g_i) * torch.tanh(g_g)
             return c, torch.sigmoid(g_o) * torch.tanh(c)
 
+        dt = self.compute_type(xs, carry)
         if carry is None:
-            c = h = xs.new_zeros(bs, self.n_units)
+            c = h = xs.new_zeros(bs, self.n_units, dtype=dt)
         else:
-            c, h = carry
-        xg = xs @ w_f.t()
+            c, h = (x.to(dt) for x in carry)
+        xg = input_gates(xs, w_f, dt)
+        u_f, b_f = u_f.to(dt), b_f.to(dt)
         ys_f, c_out, h_out = [], c, h
         for i in range(t):
             c, h = cell(xg[:, i], c, h, u_f, b_f)
@@ -186,8 +204,10 @@ class LCBLSTMLayer(RNNLayer):
             c_out, h_out = torch.where(at, c, c_out), torch.where(at, h, h_out)
         windows = xs if single_chunk else chunkwise(
             xs, 0, self.n_current, self.n_right)
-        xg = windows @ w_b.t()
-        c = h = xs.new_zeros(windows.shape[0], self.n_units)
+        dt = self.compute_type(xs)
+        xg = input_gates(windows, w_b, dt)
+        u_b, b_b = u_b.to(dt), b_b.to(dt)
+        c = h = xs.new_zeros(windows.shape[0], self.n_units, dtype=dt)
         ys_b = [None] * windows.shape[1]
         for i in reversed(range(windows.shape[1])):
             c, h = cell(xg[:, i], c, h, u_b, b_b)
@@ -251,7 +271,7 @@ class RNNEncoder(nn.Module):
                 if self.lc else
                 RNNLayer(in_dim, n_units, "lstm", bidirectional, merge=merge))
             if n_projs > 0:
-                projs.append(nn.Linear(rnn_dim, n_projs))
+                projs.append(Linear(rnn_dim, n_projs))
             in_dim = n_projs if n_projs > 0 else rnn_dim
             for name in (s for at, s in self.taps if at == lth):
                 # the task-specific layer emits unprojected units (JAX's
@@ -263,7 +283,7 @@ class RNNEncoder(nn.Module):
                     dim_sub = rnn_dim
                 if last_proj_dim > 0:
                     setattr(self, f"bridge_{name}",
-                            nn.Linear(dim_sub, last_proj_dim))
+                            Linear(dim_sub, last_proj_dim))
                     dim_sub = last_proj_dim
                 setattr(self, f"output_dim_{name}", dim_sub)
             if factor > 1 and self.lc:
@@ -274,7 +294,7 @@ class RNNEncoder(nn.Module):
         self.subsamplers = nn.ModuleList(
             build_subsampler(subsample_type, f) if f > 1 else nn.Identity()
             for f in self.subsample)
-        self.bridge = nn.Linear(in_dim, last_proj_dim) \
+        self.bridge = Linear(in_dim, last_proj_dim) \
             if last_proj_dim > 0 else None
         self.output_dim = last_proj_dim if last_proj_dim > 0 else in_dim
         self.drop_in = Dropout(dropout_in)
@@ -311,10 +331,6 @@ class RNNEncoder(nn.Module):
         return self._run(xs, xlens, "all", gen, carry, True)
 
     def _run(self, xs, xlens, task, gen, carry=None, with_carry=False):
-        if xs.dtype in (torch.bfloat16, torch.float16):
-            raise NotImplementedError(
-                "the RNN encoder computes in float32 (or float64) only "
-                "(bf16 compute is not ported for it), see ROADMAP")
         # the packed layers take the lengths on the host: one copy a forward
         lens = xlens.to("cpu", torch.int64)
         h = self.drop_in(xs, gen)
@@ -347,6 +363,17 @@ class RNNEncoder(nn.Module):
             h = self.bridge(h)
         eouts["ys"] = {"xs": h, "xlens": xlens}
         return eouts, new_carry
+
+    def zero_carry(self, bs: int, dtype: torch.dtype, device) -> list:
+        """Zeros [bs, n_units] of ``dtype`` in ``forward_with_carry``'s
+        carry structure (random state passing's carry where its draw resets
+        it, which JAX's step casts to the compute type)."""
+        def state():
+            z = torch.zeros(bs, self.rnns[0].n_units, dtype=dtype,
+                            device=device)
+            return (z, z)
+        return [state() if self.lc or not rnn.bidirectional else
+                (state(), state()) for rnn in self.rnns]
 
     # ---- streaming inference (JAX's; the carry is explicit) ------------ #
     def stream_geometry(self) -> tuple[int, int, int, int]:

@@ -21,6 +21,7 @@ from ...ops.dropout import Dropout
 from ..modules.glu import LinearGLUBlock
 from ..modules.recurrent import RNNLayer
 from ..utils import model_device
+from ..modules.promote import Linear, promoted
 
 
 class RNNLM(nn.Module):
@@ -51,7 +52,7 @@ class RNNLM(nn.Module):
         in_dims = [emb_dim + n_units_null_context] + [odim] * (n_layers - 1)
         self.rnns = nn.ModuleList([RNNLayer(d, n_units) for d in in_dims])
         if n_projs > 0:
-            self.projs = nn.ModuleList([nn.Linear(n_units, n_projs)
+            self.projs = nn.ModuleList([Linear(n_units, n_projs)
                                         for _ in range(n_layers)])
         if use_glu:
             self.glu = LinearGLUBlock(odim, odim)
@@ -60,11 +61,11 @@ class RNNLM(nn.Module):
         elif tie_embedding:
             # the tied output reads the embedding matrix itself, through a
             # bridge projection when the widths differ, with a free bias
-            self.output_proj = nn.Linear(odim, emb_dim) \
+            self.output_proj = Linear(odim, emb_dim) \
                 if odim != emb_dim else None
             self.output_bias = nn.Parameter(torch.zeros(vocab))
         else:
-            self.output = nn.Linear(odim, vocab)
+            self.output = Linear(odim, vocab)
         self.drop = Dropout(dropout)
         self.drop_emb = Dropout(dropout_emb)
         self.to(device)
@@ -100,7 +101,8 @@ class RNNLM(nn.Module):
         if self.tie_embedding:
             if self.output_proj is not None:
                 h = self.output_proj(h)
-            return F.linear(h, self.embed.weight, self.output_bias)
+            return F.linear(*promoted(h, self.embed.weight,
+                                      self.output_bias))
         return self.output(h)
 
     def forward(self, ys_in: torch.Tensor, ys_out: torch.Tensor,
@@ -148,13 +150,13 @@ class AdaptiveSoftmax(nn.Module):
         super().__init__()
         self._cuts = tuple(c for c in cutoffs if c < vocab) + (vocab,)
         n_tails = len(self._cuts) - 1
-        self.head = nn.Linear(d_in, self._cuts[0] + n_tails)
+        self.head = Linear(d_in, self._cuts[0] + n_tails)
         self.tails = nn.ModuleList()
         for i in range(n_tails):
             d_tail = max(d_in // (div_value ** (i + 1)), 8)
             self.tails.append(nn.ModuleList([
-                nn.Linear(d_in, d_tail),
-                nn.Linear(d_tail, self._cuts[i + 1] - self._cuts[i])]))
+                Linear(d_in, d_tail),
+                Linear(d_tail, self._cuts[i + 1] - self._cuts[i])]))
 
     def log_probs(self, h: torch.Tensor) -> torch.Tensor:
         """h [..., d_in] -> full-vocabulary log-probs [..., vocab]."""

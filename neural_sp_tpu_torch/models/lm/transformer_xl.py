@@ -10,7 +10,10 @@ keys match), through K1 / K1b with the causal window over Tk = M + Tq
 keys (``RelativeMultiheadAttention.attend``), the attention probabilities
 dropped at ``dropout_att`` in ``train()`` mode. Incremental prediction is
 the same path with one-token segments; the state is the list of memories
-[B, M, d_model], M growing to ``mem_len``.
+[B, M, d_model], M growing to ``mem_len``. Under a bf16 compute_dtype the
+XL computes in float32 over its bf16-rounded weights, its memories too,
+as JAX's (its embedding scale promotes: ROADMAP C50), through K1 / K1b's
+float32 entries.
 """
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ from ..modules.conformer_convolution import LN_EPS
 from ..modules.feed_forward import FFN
 from ..modules.relative_multihead_attention import RelativeMultiheadAttention
 from ..utils import model_device
+from ..modules.promote import LayerNorm, Linear, promoted
 
 
 class XLBlock(nn.Module):
@@ -35,10 +39,10 @@ class XLBlock(nn.Module):
                  dropout: float = 0.0, dropout_att: float = 0.0,
                  clamp_len: int = -1):
         super().__init__()
-        self.norm_self = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.norm_self = LayerNorm(d_model, eps=LN_EPS)
         self.self_attn = RelativeMultiheadAttention(
             d_model, n_heads, clamp_len, xl_like=True, dropout=dropout_att)
-        self.norm_ff = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.norm_ff = LayerNorm(d_model, eps=LN_EPS)
         self.ff = FFN(d_model, d_ff, "relu", 0, dropout)
         self.drop = Dropout(dropout)
 
@@ -72,29 +76,36 @@ class TransformerXL(nn.Module):
         self.blocks = nn.ModuleList([
             XLBlock(d_model, d_ff, n_heads, dropout, dropout_att, clamp_len)
             for _ in range(n_layers)])
-        self.norm_out = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.norm_out = LayerNorm(d_model, eps=LN_EPS)
         if not tie_embedding:
-            self.output = nn.Linear(d_model, vocab)
+            self.output = Linear(d_model, vocab)
         self.drop_emb = Dropout(dropout_emb)
         self.to(device)
 
     def init_state(self, bs: int) -> list:
-        """n_layers + 1 empty memories [bs, 0, d_model]."""
-        dev = self.embed.weight.device
-        return [torch.zeros(bs, 0, self.d_model, device=dev,
-                            dtype=self.embed.weight.dtype)
+        """n_layers + 1 empty memories [bs, 0, d_model], in the type the
+        blocks compute in (``decode``'s: a bf16 embedding promotes to
+        float32)."""
+        w = self.embed.weight
+        return [torch.zeros(bs, 0, self.d_model, device=w.device,
+                            dtype=torch.promote_types(w.dtype, torch.float32))
                 for _ in range(self.n_layers + 1)]
 
     def _logits(self, h: torch.Tensor) -> torch.Tensor:
         h = self.norm_out(h)
         if self.tie_embedding:
-            return F.linear(h, self.embed.weight)
+            return F.linear(*promoted(h, self.embed.weight))
         return self.output(h)
 
     def decode(self, ys: torch.Tensor, mems: Optional[list] = None,
                gen: Optional[torch.Generator] = None):
         """ys [B, T] -> (hidden [B, T, d_model], new memories)."""
-        h = self.drop_emb(self.embed(ys) * math.sqrt(self.d_model), gen)
+        # JAX scales by a float32 array, which promotes a bf16 embedding:
+        # under bf16 compute the XL runs in float32 over the bf16-rounded
+        # weights, its memories too (JAX's init_mems(bs, h.dtype))
+        h = self.embed(ys)
+        h = self.drop_emb(h.to(torch.promote_types(h.dtype, torch.float32))
+                          * math.sqrt(self.d_model), gen)
         if mems is None:
             mems = self.init_state(ys.shape[0])
         new_mems = []

@@ -23,6 +23,8 @@ from __future__ import annotations
 
 from torch import nn
 
+from .promote import Conv1d, Linear
+
 # the energies this module computes, and the type each is built as
 ATYPES = {"location": "location", "add": "add", "triggered": "add"}
 
@@ -41,12 +43,12 @@ class AttentionMechanism(nn.Module):
                 f"plain location, additive and triggered attention), see "
                 f"ROADMAP")
         self.atype = ATYPES[atype]
-        self.w_query = nn.Linear(qdim, adim, bias=False)
-        self.v = nn.Linear(adim, 1, bias=False)
+        self.w_query = Linear(qdim, adim, bias=False)
+        self.v = Linear(adim, 1, bias=False)
         if self.atype == "location":
-            self.conv = nn.Conv1d(1, conv_out_channels, conv_kernel_size,
-                                  bias=False)
-            self.w_conv = nn.Linear(conv_out_channels, adim, bias=False)
+            self.conv = Conv1d(1, conv_out_channels, conv_kernel_size,
+                               bias=False)
+            self.w_conv = Linear(conv_out_channels, adim, bias=False)
 
     def kernel_weights(self):
         """(w_q [A, qdim], conv_w [C, K], w_f [A, C], v [A]): the layout

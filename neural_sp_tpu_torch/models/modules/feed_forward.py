@@ -11,6 +11,7 @@ from torch import nn
 import torch.nn.functional as F
 
 from ...ops.dropout import Dropout
+from .promote import Linear
 
 _ACTIVATIONS = {"swish": F.silu, "silu": F.silu, "relu": F.relu}
 
@@ -24,8 +25,8 @@ class FFN(nn.Module):
                 f"FFN activation {activation!r} / bottleneck is not ported "
                 f"yet (swish and relu are), see ROADMAP")
         self.act = _ACTIVATIONS[activation]
-        self.w1 = nn.Linear(d_model, d_ff)
-        self.w2 = nn.Linear(d_ff, d_model)
+        self.w1 = Linear(d_model, d_ff)
+        self.w2 = Linear(d_ff, d_model)
         self.drop = Dropout(dropout)
 
     def forward(self, xs: torch.Tensor,

@@ -12,6 +12,7 @@ from torch import nn
 import torch.nn.functional as F
 
 from ...ops.dropout import Dropout
+from .promote import Conv1d, Linear
 
 
 class LinearGLUBlock(nn.Module):
@@ -19,7 +20,7 @@ class LinearGLUBlock(nn.Module):
 
     def __init__(self, in_dim: int, size: int):
         super().__init__()
-        self.fc = nn.Linear(in_dim, 2 * size)
+        self.fc = Linear(in_dim, 2 * size)
 
     def forward(self, xs: torch.Tensor) -> torch.Tensor:
         a, b = self.fc(xs).chunk(2, dim=-1)
@@ -39,10 +40,10 @@ class ConvGLUBlock(nn.Module):
         super().__init__()
         width = bottleneck_dim or out_ch
         if bottleneck_dim > 0:
-            self.bn_in = nn.Linear(in_ch, bottleneck_dim)
-            self.bn_out = nn.Linear(bottleneck_dim, out_ch)
-        self.conv = nn.Conv1d(bottleneck_dim or in_ch, 2 * width,
-                              kernel_size)
+            self.bn_in = Linear(in_ch, bottleneck_dim)
+            self.bn_out = Linear(bottleneck_dim, out_ch)
+        self.conv = Conv1d(bottleneck_dim or in_ch, 2 * width,
+                           kernel_size)
         self.drop = Dropout(dropout)
 
     def forward(self, xs: torch.Tensor,

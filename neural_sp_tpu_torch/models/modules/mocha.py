@@ -42,6 +42,7 @@ from torch import nn
 
 from ...ops.dropout import fast_uniform, key_words
 from ...ops.masks import apply_mask_logits
+from .promote import Conv1d, Linear
 
 EPS = 1e-10
 # the clips' bounds as 0-dim CPU tensors, which act as scalars on any device
@@ -190,11 +191,11 @@ class MonotonicEnergy(nn.Module):
         self.external_key = external_key
         self.conv1d = conv1d and not external_key
         if not external_key:
-            self.w_key = nn.Linear(kdim, adim * n_heads)
+            self.w_key = Linear(kdim, adim * n_heads)
             if conv1d:
-                self.conv = nn.Conv1d(kdim, kdim, 5, padding=2)
-        self.w_query = nn.Linear(qdim, adim * n_heads,
-                                 bias=atype == "scaled_dot")
+                self.conv = Conv1d(kdim, kdim, 5, padding=2)
+        self.w_query = Linear(qdim, adim * n_heads,
+                              bias=atype == "scaled_dot")
         if atype == "add":
             self.v = nn.Parameter(torch.empty(n_heads, adim))
         self.r = nn.Parameter(torch.full((n_heads,), float(init_r)))
@@ -222,9 +223,9 @@ class ChunkEnergy(nn.Module):
         self.adim, self.n_heads, self.atype = adim, n_heads, atype
         self.external_key = external_key
         if not external_key:
-            self.w_key = nn.Linear(kdim, adim * n_heads)
-        self.w_query = nn.Linear(qdim, adim * n_heads,
-                                 bias=atype == "scaled_dot")
+            self.w_key = Linear(kdim, adim * n_heads)
+        self.w_query = Linear(qdim, adim * n_heads,
+                              bias=atype == "scaled_dot")
         if atype == "add":
             self.v = nn.Parameter(torch.empty(n_heads, adim))
 
@@ -241,7 +242,9 @@ def _energy(m, key_cache: torch.Tensor, query: torch.Tensor) -> torch.Tensor:
     k = key_cache.view(bs, t, m.n_heads, m.adim)
     q = m.w_query(query).view(bs, 1, m.n_heads, m.adim)
     if m.atype == "add":
-        return torch.einsum("ha,btha->bht", m.v, torch.relu(k + q))
+        kq = torch.relu(k + q)
+        # in the promoted type, as JAX's einsum of v with a float32 sum
+        return torch.einsum("ha,btha->bht", m.v.to(kq.dtype), kq)
     return torch.einsum("bha,btha->bht", q[:, 0], k) / math.sqrt(m.adim)
 
 
@@ -299,9 +302,9 @@ class MoChA(nn.Module):
         self.multihead = n_heads_mono * n_heads_chunk > 1
         if self.multihead:
             if not external_keys:
-                self.w_value = nn.Linear(
+                self.w_value = Linear(
                     kdim, adim * n_heads_mono * n_heads_chunk)
-            self.w_out = nn.Linear(adim * n_heads_mono * n_heads_chunk, kdim)
+            self.w_out = Linear(adim * n_heads_mono * n_heads_chunk, kdim)
 
     @property
     def n_chunk_energy_heads(self) -> int:

@@ -17,6 +17,19 @@ version the tests hold the layer to. cuDNN computes in TF32 where
 CLIs turn it off. The GRU and zoneout forms of the JAX ``RNNLayer`` are
 not ported and raise.
 
+Types (``compute_type``), as flax's ``OptimizedLSTMCell`` promotes them:
+the recurrence runs in the promoted type of the input, the weights and the
+carry, where a missing carry is float32 at least (flax's zero carry has
+the cell's float32 ``param_dtype``). So under a bf16 ``compute_dtype`` a
+layer without a carry computes in float32 over the bf16-rounded weights
+and returns float32 outputs and carries, and a layer given a bf16 carry
+(random state passing casts it) computes in bf16. One rounding of JAX's is
+left out: where the input is bf16 and the recurrence float32, flax rounds
+the input product x W_ih to bf16 before adding it, while cuDNN takes no
+precomputed input gates (only through an identity input weight, 4H wide,
+which would cost more than the product itself) and forms it in float32
+from the bf16 values. ``forward_ref`` rounds it as flax does.
+
 Lengths: the JAX layer's flax ``nn.RNN`` takes ``seq_lengths``; its final
 carries are the states at each row's last valid frame, and its reverse
 direction runs over each row's reversed valid prefix. Here the rows run
@@ -34,6 +47,15 @@ import torch
 from torch import nn
 from torch.nn.utils.rnn import (PackedSequence, pack_padded_sequence,
                                 pad_packed_sequence)
+
+
+def input_gates(xs: torch.Tensor, w_ih: torch.Tensor,
+                dt: torch.dtype) -> torch.Tensor:
+    """xs W_ih^T in the input's and the weight's promoted type, as flax's
+    input dense computes it (bf16 for a bf16 input), then in ``dt``: the
+    written-out loops' input gates."""
+    pt = torch.promote_types(xs.dtype, w_ih.dtype)
+    return (xs.to(pt) @ w_ih.t().to(pt)).to(dt)
 
 
 class LSTMCell(nn.Module):
@@ -87,21 +109,38 @@ class RNNLayer(nn.Module):
             return ys_f + ys_b
         return torch.cat([ys_f, ys_b], -1)
 
+    def compute_type(self, xs: torch.Tensor, carry=None) -> torch.dtype:
+        """The type the recurrence runs in: the input's, the weights' and
+        the carry's promoted (a missing carry float32 at least)."""
+        if carry is None:
+            dt = torch.promote_types(xs.dtype, torch.float32)
+        else:
+            while not torch.is_tensor(carry):
+                carry = carry[0]
+            dt = torch.promote_types(xs.dtype, carry.dtype)
+        return torch.promote_types(dt, self.lstm.weight_hh_l0.dtype)
+
+    def weights(self, dt: torch.dtype) -> list:
+        """[w_ih, w_hh, b_ih, b_hh] per direction, torch.lstm's order, in
+        ``dt`` (the layer's own tensors where they are of that type)."""
+        return [w.to(dt) for ws in self.lstm.all_weights for w in ws]
+
     def forward(self, xs: torch.Tensor,
                 xlens: Optional[torch.Tensor] = None, carry=None):
         bs, t, _ = xs.shape
         if xs.is_cuda and not (torch.backends.cudnn.is_available() and
                                torch.backends.cudnn.enabled):
             raise RuntimeError("RNNLayer: cuDNN is not available on the card")
+        dt = self.compute_type(xs, carry)
+        xs = xs.to(dt)
         n_dir = 2 if self.bidirectional else 1
         carries = [carry] if n_dir == 1 else carry
         if carry is None:
             h0 = c0 = xs.new_zeros(n_dir, bs, self.n_units)
         else:
-            c0 = torch.stack([c for c, _ in carries])
-            h0 = torch.stack([h for _, h in carries])
-        # [w_ih, w_hh, b_ih, b_hh] per direction, torch.lstm's order
-        weights = [w for ws in self.lstm.all_weights for w in ws]
+            c0 = torch.stack([c for c, _ in carries]).to(dt)
+            h0 = torch.stack([h for _, h in carries]).to(dt)
+        weights = self.weights(dt)
         # cuDNN keeps what its backward needs only in training mode
         train = torch.is_grad_enabled()
         if xlens is None:
@@ -134,16 +173,18 @@ class RNNLayer(nn.Module):
         outputs (zero past a row's length when ``xlens`` is given) and
         carries as ``forward``."""
         bs, t, _ = xs.shape
+        dt = self.compute_type(xs, carry)
         lens = torch.full((bs,), t) if xlens is None else xlens
         valid = (torch.arange(t)[None] < lens[:, None]).to(xs.device)
         carries = carry if self.bidirectional else [carry]
         outs, new = [], []
         for d, (w_ih, w_hh, _, bias) in enumerate(self.lstm.all_weights):
             if carry is None:
-                c = h = xs.new_zeros(bs, self.n_units)
+                c = h = xs.new_zeros(bs, self.n_units, dtype=dt)
             else:
-                c, h = carries[d]
-            xg = xs @ w_ih.t()                             # [B, T, 4H]
+                c, h = (x.to(dt) for x in carries[d])
+            xg = input_gates(xs, w_ih, dt)                 # [B, T, 4H]
+            w_hh, bias = w_hh.to(dt), bias.to(dt)
             ys = [None] * t
             for i in (range(t) if d == 0 else reversed(range(t))):
                 g_i, g_f, g_g, g_o = (torch.addmm(bias, h, w_hh.t()) +

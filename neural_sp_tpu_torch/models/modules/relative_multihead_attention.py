@@ -43,6 +43,7 @@ from torch import nn
 from ...ops.dropout import key_words
 from ...ops.kernels import rel_attention
 from ...ops.masks import CAUSAL
+from .promote import Linear
 
 
 def rel_distance_table(n_rows: int, d_model: int) -> np.ndarray:
@@ -63,15 +64,15 @@ class RelativeMultiheadAttention(nn.Module):
         super().__init__()
         self.d_model, self.n_heads, self.clamp_len = d_model, n_heads, clamp_len
         self.xl_like, self.dropout = xl_like, dropout
-        self.w_query = nn.Linear(d_model, d_model)
-        self.w_key = nn.Linear(d_model, d_model)
-        self.w_value = nn.Linear(d_model, d_model)
-        self.w_out = nn.Linear(d_model, d_model)
+        self.w_query = Linear(d_model, d_model)
+        self.w_key = Linear(d_model, d_model)
+        self.w_value = Linear(d_model, d_model)
+        self.w_out = Linear(d_model, d_model)
         if xl_like:
             dk = d_model // n_heads
             self.u_bias = nn.Parameter(torch.zeros(n_heads, dk))
             self.v_bias = nn.Parameter(torch.zeros(n_heads, dk))
-            self.w_pos = nn.Linear(d_model, d_model, bias=False)
+            self.w_pos = Linear(d_model, d_model, bias=False)
         # the distance table's longest form so far on the device (not a
         # parameter or a buffer: no state_dict entry), sliced per call
         self._rel = None

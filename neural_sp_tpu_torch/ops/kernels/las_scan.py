@@ -507,8 +507,10 @@ class LASScan(torch.autograd.Function):
 
     K3 and K3b are float32 kernels. Given bf16 (a bf16 compute_dtype), this
     casts at their boundary, as the TPU kernel kept its state in float32:
-    the inputs go to float32, h, ctx, aw and p come back in eg's type, and
-    each gradient in its input's type. Float32 inputs pass uncopied."""
+    the inputs go to float32, h, ctx, aw and p come back in the promoted
+    type of eg and values (bf16 over a conformer; float32 over an RNN
+    encoder's float32 outputs, as JAX's decoder promotes), and each
+    gradient in its input's type. Float32 inputs pass uncopied."""
 
     @staticmethod
     def forward(ctx_, eg, w_ctx, w_h, bias, w_q, conv_w, w_f, v, kc, values,
@@ -530,7 +532,10 @@ class LASScan(torch.autograd.Function):
                                klens, keep, h, c, gates, q, aw, ctx,
                                att_keep, None if proj is None else proj[0],
                                p)
-        outs = [x.transpose(0, 1).to(ctx_.dtypes[0])
+        # JAX's decoder state takes the embedding gates' and the encoder
+        # outputs' promoted type (float32 over an RNN encoder at bf16)
+        out_dt = torch.promote_types(ctx_.dtypes[0], ctx_.dtypes[9])
+        outs = [x.transpose(0, 1).to(out_dt)
                 for x in (h, ctx, aw) + (() if p is None else (p,))]
         ctx_.mark_non_differentiable(outs[2])
         return tuple(outs)

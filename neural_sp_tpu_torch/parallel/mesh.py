@@ -12,7 +12,10 @@ parameters' ``.grad``; the Adam moments, ``grad_norm`` and the returned
 loss stay float32. The losses, the softmaxes and the LayerNorm statistics
 are computed in float32 by the modules themselves (``F.layer_norm`` keeps
 its statistics in float32 for a bf16 input; the K1 / K1b kernels and K3 /
-K3b keep their softmaxes and state in float32).
+K3b keep their softmaxes and state in float32). Not every activation is
+bf16, as in JAX: an LSTM layer without a carry computes in float32 (flax's
+float32 zero carry), and the layers after it promote their bf16 weights
+to float32 (``models/modules/promote.py``), as flax's ``promote_dtype``.
 
 ``torch.autocast`` is not used: its per-op lists are not the JAX policy.
 It keeps some outputs in float32 (so bf16 would not flow through the
@@ -48,12 +51,56 @@ def compute_loss(model: nn.Module, compute_dtype: Optional[torch.dtype],
     sub_labels = {k: v for k, v in sub_labels.items() if v is not None}
     if compute_dtype is None:
         return model(xs, xlens, ys, ylens, gen, **sub_labels)
-    params = {name: p.to(compute_dtype) if p.is_floating_point() else p
-              for name, p in model.named_parameters()}
     loss, obs = functional_call(
-        model, params, (xs.to(compute_dtype), xlens, ys, ylens, gen),
-        sub_labels)
+        model, cast_params(model, compute_dtype),
+        (xs.to(compute_dtype), xlens, ys, ylens, gen), sub_labels)
     return loss.float(), obs
+
+
+def cast_params(model: nn.Module, dtype: torch.dtype) -> dict:
+    """JAX's ``cast_floating`` of the parameters: each floating one in
+    ``dtype`` (a differentiable cast), by name, for ``functional_call``."""
+    return {name: p.to(dtype) if p.is_floating_point() else p
+            for name, p in model.named_parameters()}
+
+
+def compute_loss_with_carry(model: nn.Module,
+                            compute_dtype: Optional[torch.dtype], carry,
+                            xs, xlens, ys, ylens,
+                            gen: Optional[torch.Generator] = None):
+    """(loss, obs, new_carry) of ``model.forward_with_carry`` from the RNN
+    encoder's ``carry`` (None: zeros) under the precision policy of
+    ``compute_loss``; under ``compute_dtype`` the carry is cast too, and a
+    None carry becomes zeros of that type, as JAX's random-state-passing
+    step casts its carry (always an array there)."""
+    if compute_dtype is None:
+        return model.forward_with_carry(xs, xlens, ys, ylens, carry, gen)
+    carry = cast_floating(carry, compute_dtype) if carry is not None else \
+        model.encoder.zero_carry(xs.shape[0], compute_dtype, xs.device)
+    params = cast_params(model, compute_dtype)
+    loss, obs, new = functional_call(
+        _WithCarry(model), {"model." + k: v for k, v in params.items()},
+        (xs.to(compute_dtype), xlens, ys, ylens, carry, gen))
+    return loss.float(), obs, new
+
+
+class _WithCarry(nn.Module):
+    """``model.forward_with_carry`` as a module's forward, so that
+    ``functional_call`` can run it over cast parameters."""
+
+    def __init__(self, model: nn.Module):
+        super().__init__()
+        self.model = model
+
+    def forward(self, *args):
+        return self.model.forward_with_carry(*args)
+
+
+def cast_floating(tree, dtype: torch.dtype):
+    """Every floating tensor of a nested tuple / list in ``dtype``."""
+    if torch.is_tensor(tree):
+        return tree.to(dtype) if tree.is_floating_point() else tree
+    return type(tree)(cast_floating(t, dtype) for t in tree)
 
 
 @contextmanager
@@ -137,20 +184,27 @@ class RSPTrainStep(TrainStep):
     starts from the previous batch's carry where ``rsp_draw`` says so, else
     from zeros (carry None: zeros); the loss is
     ``Speech2Text.forward_with_carry``'s; the new carry is detached (no
-    gradient crosses batches). float32 only (the RNN encoder has no bf16
-    compute)."""
+    gradient crosses batches).
+
+    Under ``compute_dtype`` (bf16) the parameters, ``xs`` and the carry are
+    cast (``compute_loss_with_carry``), as JAX's step casts them: JAX's
+    carry is always an array (zeros where the draw says so), so every layer
+    starts from a bf16 carry and the RNN encoder computes in bf16 (see
+    ``modules/recurrent.py``); the new carry is bf16."""
 
     def __init__(self, model: nn.Module, opt: Union[Adam, SGD],
-                 rsp_prob: float):
-        super().__init__(model, opt)
+                 rsp_prob: float,
+                 compute_dtype: Optional[torch.dtype] = None):
+        super().__init__(model, opt, compute_dtype)
         self.rsp_prob = rsp_prob
 
     def __call__(self, carry, xs, xlens, ys, ylens, lr_scale: float = 1.0,
                  gen: Optional[torch.Generator] = None):
         carry_in = carry if rsp_draw(gen, self.rsp_prob) else None
         metrics, (new_carry,) = self.update(
-            lambda: self.model.forward_with_carry(xs, xlens, ys, ylens,
-                                                  carry_in, gen), lr_scale)
+            lambda: compute_loss_with_carry(
+                self.model, self.compute_dtype, carry_in, xs, xlens, ys,
+                ylens, gen), lr_scale)
         return metrics, _detach(new_carry)
 
 
@@ -165,13 +219,9 @@ def make_rsp_train_step(model: nn.Module, opt: Union[Adam, SGD],
                         rsp_prob: float,
                         compute_dtype: Optional[torch.dtype] = None
                         ) -> RSPTrainStep:
-    """The counterpart of JAX ``make_rsp_train_step(model, tx, rsp_prob)``,
-    float32 (``compute_dtype`` None)."""
-    if compute_dtype is not None:
-        raise NotImplementedError(
-            "random state passing trains an RNN encoder, which computes in "
-            "float32 only, see ROADMAP")
-    return RSPTrainStep(model, opt, rsp_prob)
+    """The counterpart of JAX ``make_rsp_train_step(model, tx, rsp_prob,
+    compute_dtype=...)``."""
+    return RSPTrainStep(model, opt, rsp_prob, compute_dtype)
 
 
 def make_train_step(model: nn.Module, opt: Union[Adam, SGD], mesh=None,

@@ -1591,3 +1591,86 @@ def test_las_step_additive(cuda, n, t, d, keep):
         state = (_randn(rng, cuda, n, 4 * hd), *want[3:4], *want[:3])
     torch.cuda.synchronize()
     assert las_step.launches_add == before + 6
+
+
+def test_rel_attention_bf16_dropout_over_the_xl_memory(cuda):
+    """K1 / K1b's bf16 entries with the causal window, fewer queries than
+    keys and dropout together, at the swbd Transformer-XL's window cut to
+    B 2 (8 heads, Tq 200 against Tk 400, R 400): against their plain bf16
+    versions on the same key words (1e-2 of the largest value), no farther
+    from the plain float32 version on that mask than 1.5 times the plain
+    bf16 version, counted in ``launches_bf16_dropout`` alone."""
+    from neural_sp_tpu_torch.ops.kernels.rel_attention import (
+        rel_attention_bwd, rel_attention_bwd_ref, rel_attention_fwd)
+    from neural_sp_tpu_torch.ops.masks import CAUSAL
+    rng = np.random.RandomState(18)
+    b, h, tq, tk, dk = 2, 8, 200, 400, 64
+    q, k, v, p = (x.bfloat16() for x in (
+        _randn(rng, cuda, b, h, tq, dk, scale=dk ** -0.5),
+        _randn(rng, cuda, b, h, tk, dk), _randn(rng, cuda, b, h, tk, dk),
+        _randn(rng, cuda, b, h, tq, tk, scale=dk ** -0.5)))
+    do = _randn(rng, cuda, b, h, tq, dk).bfloat16()
+    kl = torch.full((b,), tk, dtype=torch.int32, device=cuda)
+    drop = (0.1, (0x2545F491, 0x9E3779B9))
+    before = {c: (getattr(rel_attention, c), getattr(rel_attention_bwd, c))
+              for c in ("launches_bf16_dropout", "launches_dropout")}
+    o, m, l = rel_attention_fwd(q, k, v, p, kl, CAUSAL, dropout=drop)
+    plain = rel_attention_ref(q, k, v, p, kl, CAUSAL, dropout=drop)
+    _close_bf16(o, plain, "o")
+    want32 = rel_attention_ref(*(x.float() for x in (q, k, v, p)), kl,
+                               CAUSAL, dropout=drop)
+    assert float((o.float() - want32).abs().max()) <= \
+        1.5 * float((plain.float() - want32).abs().max()) + 1e-6
+    got = rel_attention_bwd(q, k, v, p, kl, o, m, l, do, CAUSAL, drop)
+    torch.cuda.synchronize()
+    after = {c: (getattr(rel_attention, c), getattr(rel_attention_bwd, c))
+             for c in before}
+    assert after["launches_bf16_dropout"] == tuple(
+        x + 1 for x in before["launches_bf16_dropout"])
+    assert after["launches_dropout"] == before["launches_dropout"]
+    want = rel_attention_bwd_ref(q, k, v, p, kl, o, m, l, do, CAUSAL, drop)
+    want32 = rel_attention_bwd_ref(*(x.float() for x in (q, k, v, p)), kl,
+                                   o.float(), m, l, do.float(), CAUSAL, drop)
+    for name, x, y, z in zip(("dq", "dk", "dv", "dp"), got, want, want32):
+        _close_bf16(x, y, name)
+        assert float((x.float() - z).abs().max()) <= \
+            1.5 * float((y.float() - z).abs().max()) + 1e-6, name
+
+
+@pytest.mark.parametrize("lc", [False, True])
+def test_rnn_layer_bf16_dtypes_on_cudnn(cuda, lc, monkeypatch):
+    """The (LC-)BLSTM layer with bf16 weights on cuDNN, as JAX promotes:
+    from a bf16 input and no carry the recurrence is float32 (outputs and
+    carries float32), from a bf16 carry it is bf16 (the LC layer's
+    backward direction, carry-less, stays float32, so its outputs are);
+    each against the layer's written-out loop (``forward_ref``, which
+    rounds the bf16 input's product to bf16 as flax does where cuDNN forms
+    it in float32, and rounds a bf16 recurrence per op: 2e-2 of the
+    largest output)."""
+    from neural_sp_tpu_torch.models.encoders.rnn import LCBLSTMLayer
+    from neural_sp_tpu_torch.models.modules.recurrent import RNNLayer
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    gen = torch.Generator().manual_seed(0)
+    layer = LCBLSTMLayer(24, 32, 8, 4) if lc else \
+        RNNLayer(24, 32, bidirectional=True)
+    for w in layer.parameters():
+        w.data = 0.3 * torch.randn(w.shape, generator=gen)
+    layer = layer.to(cuda).to(torch.bfloat16)
+    x = torch.randn(3, 40, 24, generator=gen).to(cuda).bfloat16()
+    lens = torch.tensor([40, 31, 7])
+    z = torch.zeros(3, 32, device=cuda, dtype=torch.bfloat16)
+    one = (z + 0.1, z - 0.1)
+    for carry in (None, one if lc else (one, one)):
+        with torch.no_grad():
+            ys, new = layer(x, lens, carry)
+            ys_ref, new_ref = layer.forward_ref(x, lens, carry)
+        carries = [new] if lc else list(new)
+        flat = [c for pair in carries for c in pair]
+        want_c = torch.float32 if carry is None else torch.bfloat16
+        assert {c.dtype for c in flat} == {want_c}
+        assert ys.dtype == (torch.float32 if carry is None or lc
+                            else torch.bfloat16)
+        valid = (torch.arange(40)[None] < lens[:, None]).to(cuda)[..., None]
+        tol = 2e-2 * float(ys_ref.float().abs().max())
+        assert float(((ys.float() - ys_ref.float()) * valid).abs().max()) \
+            <= tol

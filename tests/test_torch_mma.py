@@ -409,9 +409,18 @@ def test_train_cli_curriculum_gates_the_mma_quantity_loss():
 
 
 def test_bf16_raises_for_mma():
+    """MMA computes at bf16 now (the name is kept): the decoder in bf16
+    over bf16 encoder outputs gives a finite float32 loss, bf16 logits as
+    JAX's, and the alignment in float32 (ROADMAP C39; the bf16 parity is
+    ``tests/test_torch_mma_bf16.py``)."""
     tm = init_params(build_speech2text(small_mma(), device="cpu"), 0)
-    e = torch.zeros(2, 8, 32, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.dec_fwd.to(torch.bfloat16)(
-            e, torch.tensor([8, 5]), torch.ones(2, 3, dtype=torch.long),
-            torch.tensor([3, 2]))
+    e = torch.randn(2, 8, 32, generator=torch.Generator().manual_seed(0))
+    dec = tm.dec_fwd.to(torch.bfloat16)
+    logits = []
+    dec.output.register_forward_hook(lambda m, i, o: logits.append(o.dtype))
+    loss, obs = dec(e.to(torch.bfloat16), torch.tensor([8, 5]),
+                    torch.ones(2, 3, dtype=torch.long), torch.tensor([3, 2]),
+                    torch.Generator().manual_seed(1))
+    assert logits == [torch.bfloat16]
+    assert obs["loss_quantity"].dtype == torch.float32
+    assert bool(torch.isfinite(loss.float()))

@@ -42,8 +42,8 @@ float32 between ops) is held instead by C29's gate, as the card holds
   ROADMAP A5) with the ``ctc_sync`` latency loss on given trigger points:
   the loss, its parts and every gradient (the encoder outputs' included).
 * The dtypes: the energies' projections take bf16 inputs; alpha, beta and
-  the latency losses are float32; the loss is finite. MMA at bf16 still
-  raises.
+  the latency losses are float32; the loss is finite. MMA at bf16 gives a
+  finite loss (its parity: ``tests/test_torch_mma_bf16.py``).
 """
 import functools
 from types import SimpleNamespace
@@ -70,6 +70,7 @@ from neural_sp_tpu_torch.models.speech2text import build_speech2text
 from neural_sp_tpu_torch.parallel.mesh import compute_loss, make_train_step
 from neural_sp_tpu_torch.trainers.optimizer import build_optimizer
 from neural_sp_tpu_torch.utils.convert_params import convert_params
+from neural_sp_tpu_torch.utils.init_params import init_params
 
 from test_torch_bf16 import (
     ZERO_GRAD_LEAF, _converted, _np, _per_element_allowance, assert_leaves,
@@ -414,8 +415,13 @@ def test_bf16_mocha_dtypes(monkeypatch):
 
 
 def test_mma_at_bf16_still_raises():
+    """MMA trains at bf16 now (the name is kept): a bf16 microstep of the
+    small Transformer-MMA gives a finite float32 loss and quantity loss
+    (the parity: ``tests/test_torch_mma_bf16.py``)."""
     from test_torch_mma import batch as mma_batch, small_mma
-    tm = build_speech2text(small_mma(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        compute_loss(tm.train(), torch.bfloat16,
-                     *map(torch.from_numpy, mma_batch()))
+    tm = init_params(build_speech2text(small_mma(), device="cpu"), 0)
+    loss, obs = compute_loss(tm.train(), torch.bfloat16,
+                             *map(torch.from_numpy, mma_batch()),
+                             gen=torch.Generator().manual_seed(0))
+    assert loss.dtype == obs["loss_quantity"].dtype == torch.float32
+    assert bool(torch.isfinite(loss))

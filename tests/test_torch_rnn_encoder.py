@@ -26,8 +26,8 @@ JAX weights converted (``convert_params``), float32, atol = rtol = 2e-4
   ``lc_chunk_size_left`` (ROADMAP C13: JAX builds them full-context), at
   JAX's parameter counts; the LibriSpeech conf's parameter count equals
   the JAX model's (from ``jax.eval_shape`` of its init) and
-  ``configs.librispeech_blstm_las_args`` equals the conf; bf16 compute
-  raises for the RNN encoder.
+  ``configs.librispeech_blstm_las_args`` equals the conf; a bf16 step
+  trains the RNN encoder (float32 outputs, as JAX's).
 """
 import math
 from pathlib import Path
@@ -233,8 +233,12 @@ def test_rnn_encoder_options_that_raise():
     # alone for a sub task, as JAX's (tests/test_torch_mtl.py holds them)
     assert set(enc(torch.zeros(1, 8, 10), torch.tensor([8]),
                    task="ys_sub1")) == {"ys"}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        enc(torch.zeros(1, 8, 10, dtype=torch.bfloat16), torch.tensor([8]))
+    # bf16 compute is ported: from a bf16 input and weights the encoder
+    # returns float32, as JAX's (flax's float32 zero carry; the parity:
+    # tests/test_torch_rnn_bf16.py)
+    out = enc.to(torch.bfloat16)(torch.zeros(1, 8, 10, dtype=torch.bfloat16),
+                                 torch.tensor([8]))
+    assert out["ys"]["xs"].dtype == torch.float32
 
 
 # ------------------------------------------------------------ whole models
@@ -378,13 +382,23 @@ def test_las_accumulated_clipped_update_matches_jax(enc_type):
 
 
 def test_bf16_compute_raises_for_the_rnn_encoder():
+    """bf16 compute trains the RNN encoder now (the name is kept): a bf16
+    step of the small BLSTM-LAS (dropout and sampling on) gives a finite
+    float32 loss and gradients, with the encoder's outputs float32, as
+    JAX's (the parity: tests/test_torch_rnn_bf16.py)."""
     tm = init_params(build_speech2text(small_las("conv_blstm"),
                                        device="cpu"), 0)
     step = make_train_step(tm.train(), build_optimizer("adam", lr=1e-3),
                            compute_dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        step(*map(torch.from_numpy, las_batch()),
-             gen=torch.Generator().manual_seed(0))
+    seen = []
+    tm.encoder.register_forward_hook(
+        lambda m, i, o: seen.append((i[0].dtype, o["ys"]["xs"].dtype)))
+    met = step(*map(torch.from_numpy, las_batch()),
+               gen=torch.Generator().manual_seed(0))
+    assert seen == [(torch.bfloat16, torch.float32)]
+    assert met["loss"].dtype == torch.float32
+    assert bool(torch.isfinite(met["loss"])) and \
+        bool(torch.isfinite(met["grad_norm"]))
 
 
 # ---------------------------------------------------------------- the confs
